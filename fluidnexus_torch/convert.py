@@ -1,0 +1,59 @@
+"""State carried across from the JAX package.
+
+``*_from_numpy`` turn the JAX package's states, given as numpy arrays
+(``jax.tree.map(np.asarray, x)``), into the port's tensors on a device;
+``*_to_numpy`` go the other way. Field names and order are the same in both
+packages, so a state converts field by field.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluidnexus_torch.core.optim import AdamState
+from fluidnexus_torch.sim.state import VisualState
+from fluidnexus_torch.splat.dynamics import BackgroundSplats, VisualAttrs
+
+
+def _t(x, device):
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def _n(x):
+    return x.detach().cpu().numpy()
+
+
+def visual_state_from_numpy(v, device="cuda") -> VisualState:
+    return VisualState(xyz=_t(v.xyz, device).to(torch.float32), alive=_t(v.alive, device).bool())
+
+
+def visual_state_to_numpy(v: VisualState):
+    return VisualState(xyz=_n(v.xyz), alive=_n(v.alive))
+
+
+def visual_attrs_from_numpy(a, device="cuda") -> VisualAttrs:
+    return VisualAttrs(*(_t(x, device).to(torch.float32) for x in a))
+
+
+def visual_attrs_to_numpy(a: VisualAttrs):
+    return VisualAttrs(*(_n(x) for x in a))
+
+
+def background_from_numpy(b, device="cuda") -> BackgroundSplats:
+    return BackgroundSplats(**{k: _t(getattr(b, k), device).to(torch.float32)
+                               for k in ("xyz", "color", "scaling", "rotation", "opacity")})
+
+
+def background_to_numpy(b: BackgroundSplats) -> dict:
+    return {k: _n(getattr(b, k)) for k in ("xyz", "color", "scaling", "rotation", "opacity")}
+
+
+def adam_state_from_numpy(s, device="cuda") -> AdamState:
+    return AdamState(mu={k: _t(v, device) for k, v in s.mu.items()},
+                     nu={k: _t(v, device) for k, v in s.nu.items()},
+                     count=_t(s.count, device).to(torch.int32))
+
+
+def adam_state_to_numpy(s: AdamState) -> AdamState:
+    return AdamState(mu={k: _n(v) for k, v in s.mu.items()},
+                     nu={k: _n(v) for k, v in s.nu.items()}, count=_n(s.count))
