@@ -1,17 +1,17 @@
 """The port's main path on one NVIDIA card (H100): build the CUDA kernels from
 the checkout, hold each against its plain PyTorch version at the shapes the
-main path gives it, run phase A of the reconstruction
-(``fluidnexus_torch.pipelines.train_physical_particle.fit_first_frame``) at
-the smoke configuration's full widths, time kernels and fit iterations, and
-profile a few fit iterations (the card's busy share, host and device ms per
-``fnx.*`` span).
+main path gives it, run phases A and B of the reconstruction at the smoke
+configuration's full widths, time kernels, fit iterations and solver ticks,
+and profile a few fit iterations and solver ticks (the card's busy share,
+host and device ms per ``fnx.*`` span).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Workload (no dataset or stage-1 background ships with the repository):
+Phase A (``fit_first_frame``; no dataset or stage-1 background ships with the
+repository):
 - configs/smoke_dynamics.json through the port's Config, with
   iterations_per_time_first cut from 1000 to 30; visual capacity 65 536 with
   the config's 500 + 550 live visual particles;
@@ -20,6 +20,12 @@ Workload (no dataset or stage-1 background ships with the repository):
   column over the background;
 - 32 768 seeded background splats in place of the stage-1 PLY;
 - 16 x 16 tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8.
+
+Phase B (``stabilize_hidden``): the same config with init_hidden_delta 0.01,
+the reference operating point of tools/run_full_scale_recon.py (the Config
+default 0.009 gives 38 885 points, over the 32 768-slot hidden capacity):
+27 720 hidden particles, h = 2, a dense grid of 4 096 cells x 32 slots,
+20 ticks of 10 Jacobi iterations.
 """
 from __future__ import annotations
 
@@ -56,6 +62,29 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kernel, iters=50):
+    """Mean device ms per launch of the kernels whose name holds ``kernel``,
+    over ``iters`` calls of ``fn`` under torch.profiler, and the number of
+    launches the profiler recorded. Leaves out the wrapper's host work
+    (checks, allocation, ctypes), which for a kernel of ~0.1 ms is as long as
+    the kernel and would make an event timing of the calls measure the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    # the tracer may drop a record (49 of 50 seen on the H100): the mean is
+    # taken over the launches it recorded, which must be at least 90 %
+    if len(evs) < 0.9 * iters:
+        _fail(f"the profiler saw {len(evs)} launches of {kernel}, expected {iters}")
+    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
 
 
 def bound_ms(nbytes, flops):
@@ -286,38 +315,33 @@ def device_busy_ms(prof):
     return busy / 1e3
 
 
-def profile_fit(cfg, scene, bg, ms_iter):
-    """PROFILE_ITERS fit iterations (with their set-up) under torch.profiler:
+def profile_run(label, run, n, ms_unit):
+    """``run()`` (``n`` units of work with their set-up) under torch.profiler:
     the card's busy share, and each ``fnx.*`` span's host ms and the device
-    ms of the kernels launched inside it. The backward's kernels are launched
-    from autograd's own thread, so the ``fnx.backward`` span shows host time
-    only; they show in the op table."""
+    ms of the kernels launched inside it, per unit. Kernels launched from
+    autograd's own thread show in the op table, not under a span."""
     from torch.profiler import ProfilerActivity, profile
 
-    from fluidnexus_torch.pipelines.train_physical_particle import fit_first_frame
-
-    cfg.optim.iterations_per_time_first = PROFILE_ITERS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
+        run()
         end.record()
         end.synchronize()
-    wall = start.elapsed_time(end) / PROFILE_ITERS
-    busy = device_busy_ms(prof) / PROFILE_ITERS
+    wall = start.elapsed_time(end) / n
+    busy = device_busy_ms(prof) / n
     ka = prof.key_averages()
     dev_key = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
-    print(f"profile, {PROFILE_ITERS} fit iterations with set-up: {wall:.3f} ms per iteration under "
-          f"the profiler; the card busy {busy:.3f} ms per iteration ({100 * busy / wall:.1f} % of "
-          f"that); against the unprofiled {ms_iter:.3f} ms per iteration the card idles "
-          f"{100 * (1 - busy / ms_iter):.1f} %")
-    print("span | host ms per iteration | device ms per iteration (kernels launched inside)")
+    print(f"profile, {n} {label} with set-up: {wall:.3f} ms per unit under the profiler; the "
+          f"card busy {busy:.3f} ms per unit ({100 * busy / wall:.1f} % of that); against the "
+          f"unprofiled {ms_unit:.3f} ms per unit the card idles {100 * (1 - busy / ms_unit):.1f} %")
+    print(f"span | host ms per unit | device ms per unit (kernels launched inside)")
     spans = [e for e in ka if e.key.startswith("fnx.")
              and e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(spans, key=lambda e: -e.cpu_time_total):
-        print(f"{e.key} | {e.cpu_time_total / 1e3 / PROFILE_ITERS:.3f} | "
-              f"{getattr(e, dev_key) / 1e3 / PROFILE_ITERS:.3f} | calls {e.count}")
+        print(f"{e.key} | {e.cpu_time_total / 1e3 / n:.3f} | "
+              f"{getattr(e, dev_key) / 1e3 / n:.3f} | calls {e.count}")
     print(ka.table(sort_by="self_" + dev_key, row_limit=15))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
 
@@ -325,10 +349,7 @@ def profile_fit(cfg, scene, bg, ms_iter):
 def main():
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
-    from fluidnexus_torch.core.config import load_config
     from fluidnexus_torch.ops import cuda_build
-    from fluidnexus_torch.ops import rasterizer_cuda as tc
-    from fluidnexus_torch.pipelines.train_physical_particle import fit_first_frame, raster_config_from
 
     torch.backends.cuda.matmul.allow_tf32 = False   # SSIM's blur products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -339,10 +360,32 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    built = cuda_build.build(["rasterizer"])
+    built = cuda_build.build(["rasterizer", "pbf"])
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
+
+    kernels = run_phase_a(dev) + run_phase_b(dev)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+def reset_all_launches():
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    tc.reset_launches()
+    pc.reset_launches()
+
+
+def run_phase_a(dev):
+    """Phase A: the rasterizer kernels against their plain versions, the
+    fit on the card, its timing and profile, the kernel times. Returns the
+    three kernels' entries of the ``kernels`` line."""
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.pipelines.train_physical_particle import fit_first_frame, raster_config_from
 
     cfg = load_config("configs/smoke_dynamics.json")
     cfg.optim.iterations_per_time_first = FIT_ITERS
@@ -370,7 +413,7 @@ def main():
     fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
     cfg.optim.iterations_per_time_first = FIT_ITERS
     torch.cuda.synchronize()
-    tc.reset_launches()
+    reset_all_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     visual, attrs, losses = fit_first_frame(cfg, scene, bg=bg, log=print, device="cuda")
@@ -412,7 +455,9 @@ def main():
           f"{TIMED_ITERS} (medians; batch {cfg.optim.batch} camera)")
 
     small_reference_check(dev)
-    profile_fit(cfg, scene, bg, ms_iter)
+    cfg.optim.iterations_per_time_first = PROFILE_ITERS
+    profile_run("fit iterations", lambda: fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None,
+                                                          device="cuda"), PROFILE_ITERS, ms_iter)
 
     times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
     sources = {"composite_fwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:139",
@@ -429,9 +474,276 @@ def main():
                         "replaces": sources[name], "launches": launches[name],
                         "max_abs_err": errors[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": tm["library_ms"]})
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    return kernels
+
+
+# --------------------------------- phase B ----------------------------------
+
+PHASE_B_DELTA = 0.01          # tools/run_full_scale_recon.py's reference operating point
+JAX_ALIVE_FIRST_TICK = 25179  # the JAX package on the CPU keeps these after remove_invalid
+PROFILE_TICKS = 5
+# f32 operations the pair passes need (a compare or an rsqrt counts as one).
+# Every live candidate pair: 3 subtractions, 5 for d2 and the in-radius test.
+# A pair in radius adds 12 for w, rsqrt, rlen and cg; then phase 1 adds 12
+# for its sums, phase 2 (non-self pairs only) 14 and e_p - 1 multiplies for
+# the s_corr power. Each live slot's epilogue: lambda 20 in phase 1, the
+# scaled update 14 in phase 2.
+CANDIDATE_OPS = 9
+PHASE1_IN_RADIUS_OPS = 12 + 12
+PHASE2_IN_RADIUS_OPS = 12 + 14
+PHASE1_SLOT_OPS = 20
+PHASE2_SLOT_OPS = 14
+
+
+def phase_b_config():
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.pipelines.train_physical_particle import pbf_params_from_config
+
+    cfg = load_config("configs/smoke_dynamics.json")
+    cfg.seed = SEED
+    print(f"phase B: init_hidden_delta {cfg.model.init_hidden_delta} -> {PHASE_B_DELTA}, the "
+          f"reference operating point of tools/run_full_scale_recon.py (the default lattice "
+          f"overflows the {cfg.model.hidden_capacity}-slot hidden capacity)")
+    cfg.model.init_hidden_delta = PHASE_B_DELTA
+    return cfg, pbf_params_from_config(cfg)
+
+
+def first_tick_inputs(cfg, params, dev):
+    """The first phase-B tick's pair-pass inputs, rebuilt with the port's own
+    functions in ``stabilize_hidden``'s order: the pillar's state,
+    remove_invalid, the stable guess with counts = solver_iterations, the
+    dense grid and its planes."""
+    from fluidnexus_torch.pipelines.train_physical_particle import tick_guess
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim.pbf import remove_invalid
+    from fluidnexus_torch.sim.pbf_dense import tick_slots
+    from fluidnexus_torch.sim.state import make_particle_state
+    from fluidnexus_torch.splat.dynamics import create_hidden_points
+
+    o, m = cfg.optim, cfg.model
+    pts = create_hidden_points(m)
+    state = make_particle_state(m.hidden_capacity, pts, init_velocity_y=o.init_hidden_velocity,
+                                gravity_alpha_buoyancy=np.array([0, -9.8, 0]) * o.alpha,
+                                device=dev)
+    state = remove_invalid(state, params)
+    alive = int(state.alive.sum())
+    print(f"phase B first tick: {alive} of {len(pts)} hidden particles alive after remove_invalid "
+          f"(the JAX package on the CPU keeps {JAX_ALIVE_FIRST_TICK})")
+    if alive != JAX_ALIVE_FIRST_TICK:
+        _fail(f"remove_invalid keeps {alive} particles, the JAX package {JAX_ALIVE_FIRST_TICK}")
+    state = tick_guess(state, params, o.solver_iterations, use_wind=False, stable=True)
+    grid, cnt, xyz, imass, counts, _ = tick_slots(state, params)
+    c = grid.max_cells
+    occupied = cnt[:c] > 0
+    pairs = int((cnt[:c].long() * cnt[grid.nbr.long()].long().sum(1)).sum())
+    print(f"phase B first-tick grid: C {c} M {grid.capacity}, {int(occupied.sum())} occupied "
+          f"cells, fullest {int(cnt.max())}, mean {float(cnt[:c][occupied].float().mean()):.2f}, "
+          f"{int(grid.bmask.sum())} live slots, {pairs} live candidate pairs, overflow "
+          f"{int(grid.overflow)}")
+    return dict(nbr=grid.nbr, cnt=cnt, xyz=xyz, imass=imass, counts=counts,
+                live=grid.bmask, k=pc.pair_consts(params), pairs=pairs,
+                rows=int(occupied.sum()))
+
+
+def check_pbf_kernels(inp):
+    """Both PBF kernels against their plain versions on the first tick's
+    inputs, live slots only. lambda, pi_raw and each axis of the Jacobi
+    update (new - old coordinates) at 1e-4 of their own scale: the update is
+    held, not the coordinate, whose scale (~h) would hide it. The kernels
+    form d2 without fused multiply-adds, as the plain version does, so nl
+    agrees exactly; flips at d2 = h^2 are allowed on at most 1e-5 of the live
+    slots. The four global sums at 1e-5 relative. Dead slots: lambda,
+    pi_raw and nl 0, coordinates unchanged."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k, live = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"], inp["live"]
+    lam, pi_raw, nl, s_p6, s_edges = pc.phase1_slots(nbr, cnt, *xyz, inp["imass"], k)
+    lam_p, pi_p, nl_p, s_p6_p, s_edges_p = pc.phase1_plain(nbr, cnt, *xyz, inp["imass"], k)
+    nc = (nl + inp["counts"]).contiguous()
+    *new, s_corr, s_ns = pc.phase2_slots(nbr, cnt, *xyz, lam, nc, k)
+    *new_p, s_corr_p, s_ns_p = pc.phase2_plain(nbr, cnt, *xyz, lam, nc, k)
+    torch.cuda.synchronize()
+    n_live = int(live.sum())
+    failures = []
+
+    def held(name, a, b, tol):
+        err = float((a - b)[live].abs().max())
+        scale = float(b[live].abs().max())
+        ok = err <= tol * scale
+        print(f"pbf kernel check: {name} max|err| {err:.3e} / scale {scale:.3e} [tol {tol:g} x scale]"
+              + ("" if ok else " FAILED"))
+        if not ok:
+            failures.append(name)
+        return err
+
+    e_lam = held("phase1 lambda", lam, lam_p, 1e-4)
+    e_pi = held("phase1 pi_raw", pi_raw, pi_p, 1e-4)
+    flips = int((nl != nl_p)[live].sum())
+    print(f"pbf kernel check: phase1 nl differs on {flips} of {n_live} live slots "
+          f"[tol {int(1e-5 * n_live)}]")
+    if flips > int(1e-5 * n_live):
+        failures.append("phase1 nl")
+    e_upd = [held(f"phase2 update {a}", n - x, n_p - x, 1e-4)
+             for a, n, n_p, x in zip("xyz", new, new_p, xyz)]
+    for a, n, n_p in zip("xyz", new, new_p):
+        print(f"pbf kernel check: phase2 coordinate {a} max|err| "
+              f"{float((n - n_p)[live].abs().max()):.3e} / scale {float(n_p[live].abs().max()):.3e}")
+    dead_ok = not (lam[~live].any() or pi_raw[~live].any() or nl[~live].any()) and all(
+        bool((n[~live] == x[~live]).all()) for n, x in zip(new, xyz))
+    if not dead_ok:
+        failures.append("dead slots")
+    for name, a, b in (("s_p6", s_p6, s_p6_p), ("s_edges", s_edges, s_edges_p),
+                       ("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        print(f"pbf kernel check: {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} "
+              f"[tol 1e-5]")
+        if not rel <= 1e-5:
+            failures.append(name)
+    if failures:
+        _fail(f"the PBF kernels disagree with their plain versions: {failures}")
+    # the in-radius pair counts the bounds need: s_edges counts the pairs
+    # with d2 <= h^2, self pairs included; s_ns the non-self ones
+    return ({"pbf_phase1": max(e_lam, e_pi), "pbf_phase2": max(e_upd)},
+            dict(lam=lam, nc=nc, in_radius1=int(s_edges), in_radius2=int(s_ns)))
+
+
+def time_pbf_kernels(inp, saved):
+    """Each PBF kernel's device time and its plain version's time at the
+    first tick's shapes, with its bound; the event-timed wrapper call (with
+    its global sums) beside them. No single PyTorch call computes these pair
+    sums, so there is no library time."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
+    a1 = (nbr, cnt, *xyz, inp["imass"], k)
+    a2 = (nbr, cnt, *xyz, saved["lam"], saved["nc"], k)
+    n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
+    in1, in2 = saved["in_radius1"], saved["in_radius2"]
+    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * PHASE1_SLOT_OPS
+    ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
+            + n_live * PHASE2_SLOT_OPS)
+    print(f"pbf bounds: {pairs} live candidate pairs, {in1} in radius (self included), "
+          f"{in2} non-self in radius; {ops1} and {ops2} f32 operations")
+    # bytes: the live slots of the input planes, cnt and the occupied rows of
+    # nbr read once; the live slots of the output planes written once (phase 2
+    # also writes its two per-row partial sums)
+    table = 4 * (cnt.numel() + 27 * rows)
+    out = {}
+    for name, kernel, fn, plain, args, n_in, n_out, ops in (
+            ("pbf_phase1", "phase1_kernel", pc.phase1_slots, pc.phase1_plain, a1, 4, 3, ops1),
+            ("pbf_phase2", "phase2_kernel", pc.phase2_slots, pc.phase2_plain, a2, 5, 3, ops2)):
+        ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
+        call_ms = cuda_ms(lambda: fn(*args), iters=50)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+        nbytes = table + 4 * n_live * (n_in + n_out) + (8 * rows if name == "pbf_phase2" else 0)
+        out[name] = dict(ms=ms, recorded=recorded, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=None, bound=bound_ms(nbytes, ops))
+    return out
+
+
+def small_phase_b_check(dev):
+    """Phase B at a small size through the kernels and through the plain CPU
+    path: a 0.02-radius pillar, 2 ticks x 3 iterations, dense caps 512 x 32.
+    The alive masks must be identical and the positions within 1e-4 scaled
+    units."""
+    import dataclasses
+
+    from fluidnexus_torch.core.config import Config
+    from fluidnexus_torch.pipelines.train_physical_particle import (
+        pbf_params_from_config, stabilize_hidden,
+    )
+
+    cfg = Config()
+    o, m = cfg.optim, cfg.model
+    m.init_hidden_radius_max, m.init_hidden_y_min, m.init_hidden_y_max = 0.02, -0.1, 0.8
+    m.hidden_capacity = 2048
+    o.stable_iterations, o.solver_iterations = 2, 3
+    o.min_neighbors, o.init_hidden_velocity, o.alpha = 1, 100.0, 0.0
+    params = dataclasses.replace(pbf_params_from_config(cfg), dense_max_cells=512,
+                                 dense_cell_capacity=32)
+    s_cpu, _ = stabilize_hidden(cfg, params, log=lambda *a: None, device="cpu")
+    s_dev, _ = stabilize_hidden(cfg, params, log=lambda *a: None, device=dev)
+    same = bool((s_dev.alive.cpu() == s_cpu.alive).all())
+    a = s_cpu.alive
+    dx = float((s_dev.xyz.cpu() - s_cpu.xyz)[a].abs().max())
+    print(f"small phase B, card vs plain CPU path: {int(a.sum())} alive, masks identical {same}, "
+          f"max|dxyz| {dx:.3e} scaled units [tol 1e-4]")
+    if not (same and dx <= 1e-4):
+        _fail("phase B on the card disagrees with the plain CPU path")
+
+
+def run_phase_b(dev):
+    """Phase B: the main path (stabilize_hidden at the full width), its
+    per-tick diagnostics and timing, both PBF kernels against their plain
+    versions at the first tick's shapes, the small reference check, a
+    profile of a few ticks and the kernel times. Returns the two kernels'
+    entries of the ``kernels`` line."""
+    import copy
+
+    from fluidnexus_torch.pipelines.train_physical_particle import stabilize_hidden
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    cfg, params = phase_b_config()
+    o = cfg.optim
+    ticks = o.stable_iterations
+    print(f"phase B config: capacity {cfg.model.hidden_capacity}, h {params.h}, dense grid "
+          f"{params.dense_max_cells} x {params.dense_cell_capacity}, {ticks} ticks x "
+          f"{o.solver_iterations} Jacobi iterations, min_neighbors {params.min_neighbors}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run(log):
+        start.record()
+        out = stabilize_hidden(cfg, params, log=log, device="cuda")
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    (state, diags), ms_first = run(print)
+    launches = dict(pc.LAUNCHES)
+    for t, d in enumerate(diags, 1):
+        print(f"tick {t}: overflow {int(d['overflow'].sum())} p_ratio {float(d['p_ratio'][-1]):.6f} "
+              f"lambdas {float(d['lambdas'][-1]):.6f} neighbors {float(d['neighbors'][-1]):.4f}")
+    n_alive = int(state.alive.sum())
+    print(f"phase B: {n_alive} hidden particles alive after {ticks} ticks; launches {launches}")
+    if not bool(torch.isfinite(state.xyz).all()):
+        _fail("phase-B positions are not finite")
+    if n_alive == 0:
+        _fail("phase B left no hidden particle alive")
+    want = ticks * o.solver_iterations
+    if any(v != want for v in launches.values()):
+        _fail(f"phase B launched the PBF kernels {launches} times, expected {want} each")
+
+    totals = [ms_first] + [run(lambda *a: None)[1] for _ in range(2)]
+    ms_tick = statistics.median(totals) / ticks
+    print(f"phase B: {', '.join(f'{t:.1f}' for t in totals)} ms for {ticks} ticks with set-up; "
+          f"{ms_tick:.3f} ms per tick (median of three)")
+
+    inp = first_tick_inputs(cfg, params, dev)
+    errors, saved = check_pbf_kernels(inp)
+    small_phase_b_check(dev)
+    cfg_prof = copy.deepcopy(cfg)
+    cfg_prof.optim.stable_iterations = PROFILE_TICKS
+    profile_run("phase-B ticks", lambda: stabilize_hidden(cfg_prof, params, log=lambda *a: None,
+                                                          device="cuda"), PROFILE_TICKS, ms_tick)
+
+    times = time_pbf_kernels(inp, saved)
+    sources = {"pbf_phase1": "fluidnexus_tpu/sim/pbf_pallas.py:1071",
+               "pbf_phase2": "fluidnexus_tpu/sim/pbf_pallas.py:1140"}
+    kernels = []
+    for name, tm in times.items():
+        b_ms, b_by = tm["bound"]
+        print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
+              f"of 50 launches the profiler recorded; a wrapper call with its "
+              f"global sums {tm['call_ms']:.4f} ms; plain {tm['plain_ms']:.4f} ms, library none, "
+              f"bound {b_ms:.5f} ms by {b_by}), {launches[name] / ticks:g} launches per tick, "
+              f"{inp['pairs']} live candidate pairs")
+        kernels.append({"name": name, "route": "cuda", "source": "fluidnexus_torch/csrc/pbf.cu",
+                        "replaces": sources[name], "launches": launches[name],
+                        "max_abs_err": errors[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return kernels
 
 
 def small_reference_check(dev):

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from fluidnexus_torch.core.optim import AdamState
-from fluidnexus_torch.sim.state import VisualState
+from fluidnexus_torch.ops.neighbors import DenseGrid
+from fluidnexus_torch.sim.state import ParticleState, VisualState
 from fluidnexus_torch.splat.dynamics import BackgroundSplats, VisualAttrs
 
 
@@ -29,6 +30,35 @@ def visual_state_from_numpy(v, device="cuda") -> VisualState:
 
 def visual_state_to_numpy(v: VisualState):
     return VisualState(xyz=_n(v.xyz), alive=_n(v.alive))
+
+
+_INT_FIELDS = ("particle_id", "next_id")
+
+
+def particle_state_from_numpy(s, device="cuda") -> ParticleState:
+    def field(name):
+        t = _t(getattr(s, name), device)
+        if name == "alive":
+            return t.bool()
+        return t.to(torch.int32 if name in _INT_FIELDS else torch.float32)
+
+    return ParticleState(**{name: field(name) for name in ParticleState._fields})
+
+
+def particle_state_to_numpy(s: ParticleState) -> ParticleState:
+    return ParticleState(*(_n(x) for x in s))
+
+
+def dense_grid_from_numpy(g, device="cuda") -> DenseGrid:
+    """The JAX package's ``DenseGrid`` (numpy fields) as the port's, so its
+    tables can feed the port's pair passes."""
+    def field(name):
+        t = _t(getattr(g, name), device)
+        if name == "bxyz":
+            return t.to(torch.float32)
+        return t.bool() if name == "bmask" else t.to(torch.int32)
+
+    return DenseGrid(**{name: field(name) for name in DenseGrid._fields})
 
 
 def visual_attrs_from_numpy(a, device="cuda") -> VisualAttrs:

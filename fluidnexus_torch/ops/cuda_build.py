@@ -82,3 +82,29 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     return ctypes.CDLL(str(path))
+
+
+# ------------------------- checks shared by the wrappers ---------------------
+
+
+def check(x, name, dtype, shape, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err, what):
+    """Raise on a non-zero CUDA error code returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def require_cuda(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors only, got {x.device}")

@@ -1,7 +1,10 @@
 """Fixed-radius neighbor search (counterpart of ``fluidnexus_tpu/ops/neighbors.py``).
 
-Only the padded ``radius_graph`` so far, as plain torch (the JAX package
-leaves it to XLA too). It keeps the JAX grid's exact semantics, so both
+Two structures, both plain torch (the JAX package leaves them to XLA too):
+the padded ``radius_graph`` and the compacted ``DenseGrid`` that the PBF pair
+kernels walk (``build_dense_grid``, ``slot_gather``, ``point_gather``).
+
+The padded ``radius_graph`` keeps the JAX grid's exact semantics, so both
 packages keep the same neighbors:
 
 - points are binned into cells of edge ``r`` in a ``grid^3`` box anchored at
@@ -97,3 +100,129 @@ def radius_graph(x, r, k, loop=False, alive=None, cell_capacity=32, grid_cells=3
     idx[q] = torch.where(qmsk, qidx, torch.zeros_like(qidx))
     mask[q] = qmsk
     return NeighborList(idx=idx, mask=mask, overflow=overflow)
+
+
+# ------------------------------- dense grid ---------------------------------
+
+
+class DenseGrid(NamedTuple):
+    """Compacted cell-bucket tables for dense pair sums (the JAX package's
+    ``DenseGrid``, field for field). Occupied cells of edge ``r`` are
+    compacted, in ascending packed cell id, to the first of ``C = max_cells``
+    rows; row C is an empty sentinel row. A cell's points sit in its first
+    slots, lowest point index first. Coordinates are relative to the point's
+    own cell corner; a neighbour cell at offset ``o`` is shifted by ``o * r``
+    in the consumer."""
+
+    bidx: torch.Tensor      # (C+1, M) int32 slot -> point id (-1 pad)
+    bxyz: torch.Tensor      # (C+1, M, 3) cell-relative slot coords (0 pad)
+    bmask: torch.Tensor     # (C+1, M) bool slot validity
+    nbr: torch.Tensor       # (C, 27) int32 compacted neighbour-cell row (C = none)
+    prow: torch.Tensor      # (N,) int32 point -> compacted row (C = dropped)
+    pcol: torch.Tensor      # (N,) int32 point -> slot column (0 where dropped)
+    overflow: torch.Tensor  # () points dropped (full cells + cells past C)
+    origin: torch.Tensor    # (3,) int32 lattice anchor (cells of edge r)
+    ucid: torch.Tensor      # (C,) int32 packed cell id per row (_GRID_SENT unused)
+
+    @property
+    def max_cells(self):
+        return self.nbr.shape[0]
+
+    @property
+    def capacity(self):
+        return self.bidx.shape[1]
+
+
+_GRID_SENT = 1 << 30   # > any packed 10-bit-per-axis cell id
+
+
+def _cell_join(ucid_a, ucid_b, cb):
+    """(Ca, 27) row in table ``b`` of each 27-neighbourhood cell of table
+    ``a``'s rows (``cb`` = none). ``ucid_b`` ascends with ``_GRID_SENT`` on
+    its unused tail, so a binary search finds each cell's row; cell ids are
+    unique, so the table equals the JAX package's dense equality join."""
+    a_valid = ucid_a < _GRID_SENT
+    off = torch.as_tensor(_OFFSETS, dtype=torch.int32, device=ucid_a.device)
+    nx = (ucid_a & 1023)[:, None] + off[None, :, 0]
+    ny = ((ucid_a >> 10) & 1023)[:, None] + off[None, :, 1]
+    nz = (ucid_a >> 20)[:, None] + off[None, :, 2]
+    axis_ok = a_valid[:, None] & ((nx >= 0) & (nx < 1024) & (ny >= 0) & (ny < 1024)
+                                  & (nz >= 0) & (nz < 1024))
+    ncid = (nx + (ny << 10) + (nz << 20)).contiguous()
+    pos = torch.searchsorted(ucid_b, ncid, out_int32=True)
+    hit = ucid_b[pos.clamp(max=cb - 1).long()] == ncid
+    return torch.where(axis_ok & hit & (pos < cb), pos, torch.full_like(pos, cb))
+
+
+def build_dense_grid(x, r, alive, max_cells, capacity) -> DenseGrid:
+    """Bin points into compacted dense-grid buckets (see :class:`DenseGrid`),
+    in a 1024^3 box of cells of edge ``r`` anchored at the live-point
+    minimum; points beyond the box clip into its boundary cells. Points past
+    ``capacity`` in a cell, or in cells past ``max_cells``, are dropped and
+    counted in ``overflow``."""
+    big = torch.finfo(x.dtype).max
+    lo = torch.where(alive[:, None], x, torch.full_like(x, big)).amin(0)
+    r_t = torch.as_tensor(r, dtype=x.dtype, device=x.device)
+    origin = torch.floor(lo / r_t).to(torch.int32)
+    return _compact_bins(x, r_t, alive, origin, max_cells, capacity)
+
+
+def _compact_bins(x, r, alive, origin, max_cells, capacity) -> DenseGrid:
+    """The JAX package's ``_compact_bins`` with ``self_join=True``. The
+    stable sort, the f32 corner arithmetic and ``bxyz = xs - corner`` keep
+    its order, so the tables and the cell-relative coordinates are the same
+    bit for bit. Points per cell come from a bincount and the join from a
+    binary search, where the JAX package compares densely for the TPU."""
+    n = x.shape[0]
+    C, M = max_cells, capacity
+    dev = x.device
+    cc = torch.clamp(torch.floor(x / r).to(torch.int32) - origin, 0, 1023)
+    cid = cc[:, 0] + (cc[:, 1] << 10) + (cc[:, 2] << 20)
+    cid = torch.where(alive, cid, torch.full_like(cid, _GRID_SENT))
+
+    order = torch.argsort(cid, stable=True)
+    cids = cid[order]
+    xs = x[order]
+    iota_n = torch.arange(n, device=dev)
+    head = torch.ones((n,), dtype=torch.bool, device=dev)
+    head[1:] = cids[1:] != cids[:-1]
+    rank = iota_n - torch.cummax(torch.where(head, iota_n, 0), 0).values
+    live = cids < _GRID_SENT
+    crank_raw = torch.cumsum((rank == 0) & live, 0) - 1
+    crank = torch.where(live & (crank_raw < C), crank_raw, C)
+
+    npts = torch.bincount(crank, minlength=C + 1)[:C]
+    starts0 = torch.cumsum(npts, 0) - npts
+    ucid = torch.where(npts > 0, cids[starts0.clamp(max=n - 1)], _GRID_SENT).to(torch.int32)
+
+    slot = torch.arange(M, device=dev)
+    posg = (starts0[:, None] + slot[None, :]).clamp(max=n - 1)
+    slotv = slot[None, :] < npts.clamp(max=M)[:, None]
+    ucorner = torch.stack([ucid & 1023, (ucid >> 10) & 1023, ucid >> 20], -1)
+    corner = (ucorner + origin[None, :]).to(x.dtype) * r
+    bidx = torch.where(slotv, order[posg], -1).to(torch.int32)
+    bxyz = (xs[posg] - corner[:, None, :]) * slotv[..., None]
+    bidx = torch.cat([bidx, torch.full((1, M), -1, dtype=torch.int32, device=dev)], 0)
+    bxyz = torch.cat([bxyz, torch.zeros((1, M, 3), dtype=x.dtype, device=dev)], 0)
+    bmask = torch.cat([slotv, torch.zeros((1, M), dtype=torch.bool, device=dev)], 0)
+    overflow = (npts - M).clamp(min=0).sum() + (live & (crank_raw >= C)).sum()
+
+    keep = live & (rank < M) & (crank_raw < C)
+    prow = torch.empty((n,), dtype=torch.int32, device=dev)
+    pcol = torch.empty((n,), dtype=torch.int32, device=dev)
+    prow[order] = torch.where(keep, crank, C).to(torch.int32)
+    pcol[order] = torch.where(keep, rank.clamp(max=M - 1), 0).to(torch.int32)
+    return DenseGrid(bidx=bidx, bxyz=bxyz, bmask=bmask, nbr=_cell_join(ucid, ucid, C),
+                     prow=prow, pcol=pcol, overflow=overflow, origin=origin, ucid=ucid)
+
+
+def slot_gather(grid: DenseGrid, f, fill=0.0):
+    """Per-point field -> (C+1, M, ...) slot layout (dead slots = fill)."""
+    mask = grid.bmask.reshape(grid.bmask.shape + (1,) * (f.ndim - 1))
+    return torch.where(mask, f[grid.bidx.clamp(min=0).long()], fill)
+
+
+def point_gather(grid: DenseGrid, slot_field):
+    """(C+1, M, ...) slot field -> per-point (N, ...); dropped points read
+    row C."""
+    return slot_field[grid.prow.long(), grid.pcol.long()]

@@ -53,27 +53,6 @@ def _lib():
     return lib
 
 
-def _check(x, name, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
-
-
-def _require_cuda(x, what):
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA tensors only, got {x.device}")
-
-
 def _tile_shape(packed, tile_x, tile_y):
     t, k, f = packed.shape
     c = f - 7
@@ -145,11 +124,11 @@ def combine_plain(g, gid, counts, n):
 def composite_fwd(packed, counts, tiles_x, tile_x, tile_y):
     """Kernel 1: returns accum (T,C,P), final T (T,1,P), median (T,1,P) and
     the transmittance checkpoints (T, ceil(K/CKPT), P) the backward reads."""
-    _require_cuda(packed, "composite_fwd")
+    cuda_build.require_cuda(packed, "composite_fwd")
     t, k, c, p = _tile_shape(packed, tile_x, tile_y)
     dev = packed.device
-    _check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
-    _check(counts, "counts", torch.int32, (t,), dev)
+    cuda_build.check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
+    cuda_build.check(counts, "counts", torch.int32, (t,), dev)
     accum = torch.empty((t, c, p), dtype=torch.float32, device=dev)
     final_t = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
     med = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
@@ -158,7 +137,7 @@ def composite_fwd(packed, counts, tiles_x, tile_x, tile_y):
         packed.data_ptr(), counts.data_ptr(), accum.data_ptr(), final_t.data_ptr(),
         med.data_ptr(), ckpt.data_ptr(), t, k, c, tiles_x, tile_x, tile_y,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "composite_fwd launch")
+    cuda_build.raise_on(err, "composite_fwd launch")
     LAUNCHES["composite_fwd"] += 1
     return accum, final_t, med, ckpt
 
@@ -166,38 +145,38 @@ def composite_fwd(packed, counts, tiles_x, tile_x, tile_y):
 def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, tile_y):
     """Kernel 2: the per-slot packed gradient (T,K,F) of kernel 1's accum and
     final T; the depth column and dead slots are zero."""
-    _require_cuda(packed, "composite_bwd")
+    cuda_build.require_cuda(packed, "composite_bwd")
     t, k, c, p = _tile_shape(packed, tile_x, tile_y)
     dev = packed.device
-    _check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
-    _check(counts, "counts", torch.int32, (t,), dev)
-    _check(gacc, "gacc", torch.float32, (t, c, p), dev)
-    _check(gft, "gft", torch.float32, (t, 1, p), dev)
-    _check(final_t, "final_t", torch.float32, (t, 1, p), dev)
-    _check(ckpt, "ckpt", torch.float32, (t, -(-k // CKPT), p), dev)
+    cuda_build.check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
+    cuda_build.check(counts, "counts", torch.int32, (t,), dev)
+    cuda_build.check(gacc, "gacc", torch.float32, (t, c, p), dev)
+    cuda_build.check(gft, "gft", torch.float32, (t, 1, p), dev)
+    cuda_build.check(final_t, "final_t", torch.float32, (t, 1, p), dev)
+    cuda_build.check(ckpt, "ckpt", torch.float32, (t, -(-k // CKPT), p), dev)
     dpacked = torch.zeros((t, k, 7 + c), dtype=torch.float32, device=dev)
     err = _lib().fnx_composite_bwd(
         packed.data_ptr(), counts.data_ptr(), gacc.data_ptr(), gft.data_ptr(),
         final_t.data_ptr(), ckpt.data_ptr(), dpacked.data_ptr(), t, k, c, tiles_x, tile_x,
         tile_y, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "composite_bwd launch")
+    cuda_build.raise_on(err, "composite_bwd launch")
     LAUNCHES["composite_bwd"] += 1
     return dpacked
 
 
 def combine_rows(g, gid, counts, n):
     """Kernel 3: ``out[gid] += g`` over each tile's live prefix, (n, F)."""
-    _require_cuda(g, "combine_rows")
+    cuda_build.require_cuda(g, "combine_rows")
     t, k, f = g.shape
     dev = g.device
-    _check(g, "g", torch.float32, (t, k, f), dev)
-    _check(gid, "gid", torch.int64, (t, k), dev)
-    _check(counts, "counts", torch.int32, (t,), dev)
+    cuda_build.check(g, "g", torch.float32, (t, k, f), dev)
+    cuda_build.check(gid, "gid", torch.int64, (t, k), dev)
+    cuda_build.check(counts, "counts", torch.int32, (t,), dev)
     out = torch.zeros((n, f), dtype=torch.float32, device=dev)
     err = _lib().fnx_combine_rows(g.data_ptr(), gid.data_ptr(), counts.data_ptr(),
                                   out.data_ptr(), t, k, f,
                                   torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "combine_rows launch")
+    cuda_build.raise_on(err, "combine_rows launch")
     LAUNCHES["combine_rows"] += 1
     return out
 
@@ -231,7 +210,7 @@ def composite(packed, counts, tiles_x, tile_x, tile_y, chunk=32):
     (T,1,P)). CPU tensors take ``composite_plain``; CUDA tensors the kernels."""
     if packed.device.type == "cpu":
         return composite_plain(packed, counts, tiles_x, tile_x, tile_y, chunk)
-    _require_cuda(packed, "composite")
+    cuda_build.require_cuda(packed, "composite")
     return _CompositeFn.apply(packed.contiguous(), counts.to(torch.int32).contiguous(),
                               tiles_x, tile_x, tile_y)
 

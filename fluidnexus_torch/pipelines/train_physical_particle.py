@@ -2,14 +2,21 @@
 ``fluidnexus_tpu/pipelines/train_physical_particle.py``).
 
 Parity target: FluidDynamics/entries_fluid_nexus/train_physical_particle.py.
-So far phase A: ``fit_first_frame`` fits the first frame's visual particle
-positions against the multi-view images (camera render, gray L1 + SSIM, the
-min-separation penalty, one Adam step per iteration). Phases B and C, and
-``train`` composing the three, come with the next slices.
+So far phases A and B:
+
+- ``fit_first_frame`` (phase A) fits the first frame's visual particle
+  positions against the multi-view images (camera render, gray L1 + SSIM,
+  the min-separation penalty, one Adam step per iteration);
+- ``stabilize_hidden`` (phase B) builds the hidden PBF pillar and settles it
+  with ``stable_iterations`` solver ticks.
+
+Phase C, and ``train`` composing the three with the frame checkpoints, come
+with the next slice.
 
 The fit step's layers are ``torch.profiler.record_function`` spans named
 ``fnx.*`` (render, photometric_loss, distance_penalty, backward, adam; the
-rasterizer adds project, tile_lists, gather and composite), which
+rasterizer adds project, tile_lists, gather and composite; the solver tick
+remove_invalid, guess, dense_grid, jacobi and confirm), which
 ``chip_smoke.py`` reads.
 """
 from __future__ import annotations
@@ -29,10 +36,14 @@ from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.data.scene import cameras_by_time
 from fluidnexus_torch.ops.neighbors import radius_graph
 from fluidnexus_torch.ops.rasterizer import RasterizerConfig
-from fluidnexus_torch.sim.pbf import PBFParams
-from fluidnexus_torch.sim.state import make_visual_state
+from fluidnexus_torch.sim.pbf import (
+    PBFParams, confirm_guess, guess_hidden, remove_invalid, warn_capacity_overflow,
+)
+from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
+from fluidnexus_torch.sim.state import ParticleState, make_particle_state, make_visual_state
 from fluidnexus_torch.splat.dynamics import (
-    BackgroundSplats, VisualAttrs, constant_visual_attrs, create_visual_points,
+    BackgroundSplats, VisualAttrs, constant_visual_attrs, create_hidden_points,
+    create_visual_points,
 )
 from fluidnexus_torch.splat.render import render_particles_with_background, to_gray
 from fluidnexus_torch.utils.losses import l1_loss, ssim
@@ -76,6 +87,26 @@ def distance_penalty(positions, alive, threshold, k: int = 32):
     d = torch.sqrt(torch.clamp(torch.sum(
         (positions[i] - positions[nl.idx[i, j]]) ** 2, -1), min=1e-20))
     return (torch.clamp(threshold - d, min=0.0) ** 2).sum()
+
+
+def solver_tick(state: ParticleState, params: PBFParams, solver_iterations: int,
+                use_wind: bool, stable: bool = False):
+    """One simulation tick as the reference schedules it
+    (train_physical_particle.py:286-298): guess, counts = solver_iterations
+    for every slot up front, then ``solver_iterations`` Jacobi projections
+    over one dense grid (``project_iterations_dense``). Returns (state,
+    diags), the diagnostics stacked over the iterations on the device."""
+    with record_function("fnx.guess"):
+        state = tick_guess(state, params, solver_iterations, use_wind, stable)
+    return project_iterations_dense(state, params, solver_iterations, counts_step=0.0)
+
+
+def tick_guess(state: ParticleState, params: PBFParams, solver_iterations: int,
+               use_wind: bool, stable: bool = False) -> ParticleState:
+    """The tick's state before its projections: the guess, with counts =
+    solver_iterations for every slot."""
+    state = guess_hidden(state, params, stable=stable, use_wind=use_wind)
+    return state._replace(counts=torch.full_like(state.counts, float(solver_iterations)))
 
 
 # ------------------------------- phase A step --------------------------------
@@ -220,3 +251,31 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
     # detach_visual_and_scale (ref :188): visual positions now live in x100 space
     visual = visual._replace(xyz=vxyz * params.scale_factor)
     return visual, attrs, losses
+
+
+def stabilize_hidden(cfg: Config, params: PBFParams, log=print, device="cuda"):
+    """Phase B of the reconstruction (JAX ``train`` :433-444, ref :190-228):
+    the hidden lattice pillar, then ``stable_iterations`` ticks of
+    remove_invalid -> solver_tick(stable=True) -> confirm_guess, each
+    tick's grid overflow reported (raised under ``cfg.strict_capacity``).
+    Returns ``(state, diags)``: the hidden ``ParticleState`` and each tick's
+    diagnostics, stacked over the iterations and left on the device."""
+    dev = resolve_device(device)
+    o, m = cfg.optim, cfg.model
+    hidden_pts = create_hidden_points(m)
+    state = make_particle_state(m.hidden_capacity, hidden_pts,
+                                init_velocity_y=o.init_hidden_velocity,
+                                gravity_alpha_buoyancy=np.array([0, -9.8, 0]) * o.alpha,
+                                device=dev)
+    log(f"hidden init: {hidden_pts.shape[0]} particles")
+
+    diags = []
+    for _ in range(o.stable_iterations):
+        with record_function("fnx.remove_invalid"):
+            state = remove_invalid(state, params)
+        state, d = solver_tick(state, params, o.solver_iterations, use_wind=False, stable=True)
+        warn_capacity_overflow(d, "phase B stabilization", strict=cfg.strict_capacity, log=log)
+        with record_function("fnx.confirm"):
+            state = confirm_guess(state, params)
+        diags.append(d)
+    return state, diags

@@ -3,20 +3,25 @@ visual render particles + frozen background Gaussians.
 
 So far: constant-appearance attrs (prepare_*_for_rendering:1643-1699: color
 0.7, log-scale -5.9, opacity 0.1), the first-frame visual column
-(create_particles_visual:510) and the per-frame visual npy checkpoint
-(save_visual:1901, load_visual:2067) in the reference format. The hidden
-particles and the emitters come with the phase-B and phase-C slices.
+(create_particles_visual:510), the hidden PBF pillar
+(create_particles_hidden:557) and the per-frame visual and hidden npy
+checkpoints (save_visual:1901, load_visual:2067, save_hidden:1834,
+load_hidden:1991) in the reference format. The emitters come with phase C.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from fluidnexus_torch.sim.state import VisualState, make_visual_state
+from fluidnexus_torch.sim.pbf import GRAVITY, PBFParams
+from fluidnexus_torch.sim.state import (
+    ParticleState, VisualState, make_particle_state, make_visual_state,
+)
 from fluidnexus_torch.utils.maths import inv_sigmoid
 
 CONSTANT_COLOR = 0.7      # ref gm_dynamics.py:178-180
@@ -83,6 +88,77 @@ def create_visual_points(m, rng: np.random.Generator) -> np.ndarray:
     x = r * np.cos(th) + m.init_x_mid
     z = r * np.sin(th) + m.init_z_mid
     return np.concatenate([x, y, z], 1).astype(np.float32)
+
+
+def create_hidden_points(m) -> np.ndarray:
+    """Uniform lattice pillar (create_particles_hidden, gm_dynamics.py:557-610).
+    Returns SCALED (x100) coordinates like the reference."""
+    d = m.init_hidden_delta
+    xr = np.arange(m.init_x_mid - m.init_hidden_radius_max, m.init_x_mid + m.init_hidden_radius_max + d, d)
+    yr = np.arange(m.init_hidden_y_min, m.init_hidden_y_max, d)
+    zr = np.arange(m.init_z_mid - m.init_hidden_radius_max, m.init_z_mid + m.init_hidden_radius_max + d, d)
+    X, Y, Z = np.meshgrid(xr, yr, zr, indexing="ij")
+    pts = np.stack([X, Y, Z], -1).reshape(-1, 3)
+    keep = (pts[:, 0] - m.init_x_mid) ** 2 + (pts[:, 2] - m.init_z_mid) ** 2 <= m.init_hidden_radius_max**2
+    return (pts[keep] * 100.0).astype(np.float32)
+
+
+def save_hidden(state: ParticleState, params: PBFParams, path: str, frame_idx: int):
+    """Per-frame npy checkpoint in the reference format (save_hidden,
+    :1834-1898): alive rows only, xyz/estimate_xyz down-scaled, the
+    solver constants in ``scalar_values.json``."""
+    os.makedirs(path, exist_ok=True)
+    a = state.alive.cpu().numpy()
+    pre = os.path.join(path, f"frame_{frame_idx:03d}_")
+
+    def rows(t):
+        return t.detach().cpu().numpy()[a]
+
+    np.save(pre + "xyz.npy", rows(state.xyz) / params.scale_factor)
+    np.save(pre + "estimate_xyz.npy", rows(state.estimate_xyz) / params.scale_factor)
+    np.save(pre + "buoyancy.npy", rows(state.buoyancy))
+    np.save(pre + "force.npy", rows(state.force))
+    np.save(pre + "velocity.npy", rows(state.velocity))
+    np.save(pre + "imass.npy", rows(state.imass)[:, None])
+    np.save(pre + "counts.npy", rows(state.counts)[:, None])
+    np.save(pre + "gravity.npy", GRAVITY.reshape(1, 3))
+    np.save(pre + "particle_id.npy", rows(state.particle_id)[:, None])
+    scalars = {
+        "scale_factor": params.scale_factor, "secs": params.secs, "alpha": params.alpha,
+        "k": params.k, "p0": params.p0, "buoyancy_decay_rate": params.buoyancy_decay_rate,
+        "buoyancy_max_y": params.buoyancy_max_y, "min_neighbors": params.min_neighbors,
+        "particle_id_max": int(state.next_id),
+    }
+    with open(pre + "scalar_values.json", "w") as f:
+        json.dump(scalars, f)
+
+
+def load_hidden(path: str, frame_idx: int, capacity: int, params: PBFParams,
+                device="cuda") -> ParticleState:
+    """(load_hidden, gm_dynamics.py:1991-2064): the saved rows fill the
+    first slots of a capacity-sized state."""
+    pre = os.path.join(path, f"frame_{frame_idx:03d}_")
+
+    def load(name, scale=1.0):
+        arr = np.load(pre + name + ".npy")
+        return torch.as_tensor(arr * scale if scale != 1.0 else arr, device=device)
+
+    xyz = load("xyz", params.scale_factor)
+    n = len(xyz)
+    st = make_particle_state(capacity, device=device)
+    st.xyz[:n] = xyz
+    st.estimate_xyz[:n] = load("estimate_xyz", params.scale_factor)
+    st.buoyancy[:n] = load("buoyancy")
+    st.force[:n] = load("force")
+    st.velocity[:n] = load("velocity")
+    st.imass[:n] = load("imass").reshape(-1)
+    st.counts[:n] = load("counts").reshape(-1)
+    st.particle_id[:n] = load("particle_id").reshape(-1).to(torch.int32)
+    st.alive[:n] = True
+    with open(pre + "scalar_values.json") as f:
+        scalars = json.load(f)
+    st.next_id.fill_(scalars.get("particle_id_max", n))
+    return st
 
 
 def save_visual(visual: VisualState, attrs: VisualAttrs, path: str, frame_idx: int,
