@@ -1,31 +1,38 @@
 """The port's main path on one NVIDIA card (H100): build the CUDA kernels from
 the checkout, hold each against its plain PyTorch version at the shapes the
 main path gives it, run phases A and B of the reconstruction at the smoke
-configuration's full widths, time kernels, fit iterations and solver ticks,
-and profile a few fit iterations and solver ticks (the card's busy share,
-host and device ms per ``fnx.*`` span).
+configuration's full widths, then the whole stage A -> B -> C through
+``train``, time kernels, fit iterations, solver ticks and phase-C frames, and
+profile a few of each (the card's busy share, host and device ms per
+``fnx.*`` span).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Phase A (``fit_first_frame``; no dataset or stage-1 background ships with the
-repository):
-- configs/smoke_dynamics.json through the port's Config, with
-  iterations_per_time_first cut from 1000 to 30; visual capacity 65 536 with
-  the config's 500 + 550 live visual particles;
-- 5 training cameras at frame 0 (train_views "20134"), 960 x 544, around the
-  smoke column; the ground truth is the port's own render of a second seeded
-  column over the background;
-- 32 768 seeded background splats in place of the stage-1 PLY;
-- 16 x 16 tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8.
+The scene (no dataset or stage-1 background ships with the repository):
+5 training cameras per frame for frames 0-2 (train_views "20134"), 960 x 544,
+around the smoke column; each frame's ground truth is the port's own render
+of a second seeded column, moved up from frame to frame, over 32 768 seeded
+background splats that stand in for the stage-1 PLY.
+
+Phase A (``fit_first_frame``): configs/smoke_dynamics.json through the
+port's Config, with iterations_per_time_first cut from 1000 to 30; visual
+capacity 65 536 with the config's 500 + 550 live visual particles; 16 x 16
+tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8.
 
 Phase B (``stabilize_hidden``): the same config with init_hidden_delta 0.01,
 the reference operating point of tools/run_full_scale_recon.py (the Config
 default 0.009 gives 38 885 points, over the 32 768-slot hidden capacity):
 27 720 hidden particles, h = 2, a dense grid of 4 096 cells x 32 slots,
 20 ticks of 10 Jacobi iterations.
+
+Phase C (``train``, phases A -> B -> C in one call): the same config with
+iterations_per_time_current and _max cut from 1000 to 30, frames 1-2; the
+config's batch 1, emit_ratio_visual 1.0, extra_visual_ratio 0.01 and
+emit_ratio_hidden 0. Each fit iteration builds one hidden grid of 4 096 x 32
+and one visual query grid of 4 096 x 32.
 """
 from __future__ import annotations
 
@@ -74,17 +81,21 @@ def kernel_device_ms(fn, kernel, iters=50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    # the tracer may drop a record (49 of 50 seen on the H100): the mean is
-    # taken over the launches it recorded, which must be at least 90 %
-    if len(evs) < 0.9 * iters:
-        _fail(f"the profiler saw {len(evs)} launches of {kernel}, expected {iters}")
-    return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
+    # the tracer drops records (49 and 38 of 50 seen on the H100): the mean
+    # is taken over the launches it recorded, from the first of up to five
+    # windows that holds at least 90% of them
+    best = 0
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(evs) >= 0.9 * iters:
+            return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
+        best = max(best, len(evs))
+    _fail(f"the profiler saw at most {best} launches of {kernel} in five windows, expected {iters}")
 
 
 def bound_ms(nbytes, flops):
@@ -93,8 +104,8 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def smoke_scene(width=960, height=544):
-    """Five cameras at frame 0 looking at the smoke column (x 0.326, z -0.3)
+def smoke_scene(width=960, height=544, n_frames=3):
+    """Five cameras per frame looking at the smoke column (x 0.326, z -0.3)
     from 2 units away, spread over 1.4 rad, like the five smoke views."""
     from fluidnexus_torch.data.cameras import Camera
     from fluidnexus_torch.data.readers import SceneInfo, nerf_pp_norm
@@ -102,13 +113,16 @@ def smoke_scene(width=960, height=544):
     fovx = 0.7
     fovy = 2 * np.arctan(np.tan(fovx / 2) * height / width)
     cams = []
-    for i, name in enumerate("20134"):
-        ang = (i - 2) * 0.35
-        ry = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
-        R = ry @ np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1.0]])
-        center = np.array([0.326, 0.15, -0.3]) + ry @ np.array([0.0, 0.0, 2.0])
-        cams.append(Camera(uid=i, R=R, T=-R.T @ center, fovx=fovx, fovy=fovy, width=width,
-                           height=height, image_name=f"train0{name}", time_idx=0))
+    for t in range(n_frames):
+        for i, name in enumerate("20134"):
+            ang = (i - 2) * 0.35
+            ry = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                           [-np.sin(ang), 0, np.cos(ang)]])
+            R = ry @ np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1.0]])
+            center = np.array([0.326, 0.15, -0.3]) + ry @ np.array([0.0, 0.0, 2.0])
+            cams.append(Camera(uid=5 * t + i, R=R, T=-R.T @ center, fovx=fovx, fovy=fovy,
+                               width=width, height=height, image_name=f"train0{name}",
+                               time_idx=t))
     return SceneInfo(point_cloud=None, train_cameras=cams, test_cameras=[],
                      nerf_normalization=nerf_pp_norm(cams))
 
@@ -132,7 +146,8 @@ def synthetic_background(n, device):
 
 
 def render_ground_truth(cfg, scene, bg, device):
-    """Gray renders of a second seeded column (the port's own renderer)."""
+    """Gray renders of a second seeded column (the port's own renderer),
+    0.02 above the initial column at frame 0 and 0.01 higher each frame."""
     from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
     from fluidnexus_torch.sim.state import make_visual_state
     from fluidnexus_torch.splat.dynamics import constant_visual_attrs, create_visual_points
@@ -140,11 +155,11 @@ def render_ground_truth(cfg, scene, bg, device):
 
     m = cfg.model
     pts = create_visual_points(m, np.random.default_rng(SEED + 2))
-    pts[:, 1] += 0.02  # the target sits a little higher than the initial column
-    vis = make_visual_state(m.visual_capacity, pts, device=device)
     attrs = constant_visual_attrs(m.visual_capacity, 1, device=device)
     with torch.no_grad():
         for cam in scene.train_cameras:
+            moved = pts + np.array([0.0, 0.02 + 0.01 * cam.time_idx, 0.0], np.float32)
+            vis = make_visual_state(m.visual_capacity, moved, device=device)
             out = render_particles_with_background(
                 vis.xyz, vis.alive, attrs, bg,
                 view_matrix=torch.as_tensor(cam.world_view, device=device),
@@ -360,12 +375,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    built = cuda_build.build(["rasterizer", "pbf"])
+    built = cuda_build.build(["rasterizer", "pbf", "splat"])
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
 
-    kernels = run_phase_a(dev) + run_phase_b(dev)
+    kernels = run_phase_a(dev) + run_phase_b(dev) + run_phase_c(dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -374,9 +389,11 @@ def main():
 def reset_all_launches():
     from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
 
     tc.reset_launches()
     pc.reset_launches()
+    sc.reset_launches()
 
 
 def run_phase_a(dev):
@@ -701,7 +718,7 @@ def run_phase_b(dev):
     torch.cuda.synchronize()
     reset_all_launches()
     (state, diags), ms_first = run(print)
-    launches = dict(pc.LAUNCHES)
+    launches = {k: pc.LAUNCHES[k] for k in ("pbf_phase1", "pbf_phase2")}
     for t, d in enumerate(diags, 1):
         print(f"tick {t}: overflow {int(d['overflow'].sum())} p_ratio {float(d['p_ratio'][-1]):.6f} "
               f"lambdas {float(d['lambdas'][-1]):.6f} neighbors {float(d['neighbors'][-1]):.4f}")
@@ -746,6 +763,414 @@ def run_phase_b(dev):
     return kernels
 
 
+# --------------------------------- phase C ----------------------------------
+
+PHASE_C_ITERS = 30            # iterations_per_time_current and _max, cut from 1000
+SHORT_FRAME_ITERS = 10
+PROFILE_C_ITERS = 10
+# f32 operations of the phase-C kernels beyond the 9 of every live candidate
+# pair (csrc/pbf.cu, csrc/splat.cu): per pair in radius, the density 5 (t2,
+# c6 t2^3, the sum), its adjoint 12 (t2, W', (g_i + g_s), 2, three
+# multiply-adds), the splat forward 10 (t2, t2^3, ws, three multiply-adds)
+# and its adjoint 24 (t2, W, W', the dot product less q, f W', six
+# multiply-adds); and 3 per live source slot for the adjoint's factor 2
+DENSITY_IN_RADIUS_OPS = 5
+DENSITY_BWD_IN_RADIUS_OPS = 12
+SPLAT_FWD_IN_RADIUS_OPS = 10
+SPLAT_BWD_IN_RADIUS_OPS = 24
+SPLAT_BWD_SLOT_OPS = 3
+PHASE_C_KERNELS = {  # name: (source, replaces, CUDA kernel name)
+    "density_fwd": ("fluidnexus_torch/csrc/pbf.cu", "fluidnexus_tpu/sim/pbf_pallas.py:626",
+                    "density_kernel"),
+    "density_bwd": ("fluidnexus_torch/csrc/pbf.cu", "fluidnexus_tpu/sim/pbf_pallas.py:664",
+                    "density_bwd_kernel"),
+    "splat_fwd": ("fluidnexus_torch/csrc/splat.cu", "fluidnexus_tpu/sim/pbf_pallas.py:800",
+                  "splat_fwd_kernel"),
+    "splat_bwd": ("fluidnexus_torch/csrc/splat.cu", "fluidnexus_tpu/sim/pbf_pallas.py:853",
+                  "splat_bwd_kernel"),
+}
+
+
+def phase_c_config():
+    from fluidnexus_torch.core.config import load_config
+
+    cfg = load_config("configs/smoke_dynamics.json")
+    cfg.seed = SEED
+    cfg.optim.iterations_per_time_first = FIT_ITERS
+    cfg.model.init_hidden_delta = PHASE_B_DELTA
+    cfg.optim.iterations_per_time_current = PHASE_C_ITERS
+    cfg.optim.iterations_per_time_current_max = PHASE_C_ITERS
+    return cfg
+
+
+def phase_c_start(cfg, scene, bg, dev, params=None, log=lambda *a: None):
+    """What phase C starts from, made as ``train`` makes it (phases A and B
+    from one generator), and what a frame needs."""
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.splat.dynamics import EmitterPoints
+
+    params = params or tp.pbf_params_from_config(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    visual, attrs, _ = tp.fit_first_frame(cfg, scene, bg=bg, log=log, device=dev, rng=rng)
+    state, _ = tp.stabilize_hidden(cfg, params, log=log, device=dev)
+    emitters = EmitterPoints.from_config(cfg.model)
+    cam0 = scene.train_cameras[0]
+    step = tp.make_current_frame_step(bg, tp.raster_config_from(cfg), cam0.width, cam0.height,
+                                      params, cfg.optim, 3)
+    return dict(cfg=cfg, scene=scene, bg=bg, dev=dev, params=params, rng=rng, state=state,
+                visual=visual, attrs=attrs, emitters=emitters,
+                caps=tp.emission_caps(cfg, emitters), step=step)
+
+
+def run_frame_1(ctx, iters):
+    """Frame 1 of phase C from the saved start, as ``_phase_c`` runs it:
+    simulate, ``iters`` fit iterations, commit. Returns (state, visual,
+    losses, emitted)."""
+    import copy
+
+    from fluidnexus_torch.data.scene import cameras_by_time
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+
+    cfg, params, dev = ctx["cfg"], ctx["params"], ctx["dev"]
+    rng = copy.deepcopy(ctx["rng"])
+    state, visual, _, emitted = tp.simulate_frame(cfg, params, 1, ctx["state"], ctx["visual"],
+                                                  ctx["emitters"], ctx["caps"], rng,
+                                                  log=lambda *a: None)
+    cams = cameras_by_time(ctx["scene"].train_cameras)[1]
+    nn, losses = tp.fit_frame(cfg, params, ctx["step"], state, visual, ctx["attrs"], cams, iters,
+                              ctx["scene"].nerf_normalization["radius"], rng, dev)
+    state, visual = tp.commit_frame(params, state, visual, nn)
+    return state, visual, losses, emitted
+
+
+def first_iteration_inputs(ctx):
+    """Frame 1's state after its simulation, the two grids of its first fit
+    iteration, and the four phase-C kernels' arguments as that iteration
+    passes them, recorded from one step."""
+    import copy
+
+    from fluidnexus_torch.data.scene import cameras_by_time
+    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    cfg, params, dev = ctx["cfg"], ctx["params"], ctx["dev"]
+    state, visual, _, emitted = tp.simulate_frame(cfg, params, 1, ctx["state"], ctx["visual"],
+                                                  ctx["emitters"], ctx["caps"],
+                                                  copy.deepcopy(ctx["rng"]), log=print)
+    nn = state.estimate_xyz / params.scale_factor
+    C, M = params.dense_max_cells, params.dense_cell_capacity
+    grid = build_dense_grid(nn * params.scale_factor, params.h, state.alive, C, M)
+    qgrid, _ = bin_queries(grid, params.h, visual.xyz, visual.alive, C, M)
+    print(f"phase C frame 1: {int(state.alive.sum())} hidden and {int(visual.alive.sum())} visual "
+          f"particles alive after its simulation; emitted {emitted[0]} hidden and {emitted[1]} "
+          f"visual candidates")
+    for name, g, n_live in (("hidden grid", grid, int(state.alive.sum())),
+                            ("visual query grid", qgrid, int(visual.alive.sum()))):
+        cnt = g.bmask.sum(-1)
+        print(f"phase C first iteration, {name}: C {g.max_cells} M {g.capacity}, "
+              f"{int((cnt > 0).sum())} occupied cells, fullest {int(cnt.max())}, "
+              f"{int(g.bmask.sum())} of {n_live} points binned, overflow {int(g.overflow)}")
+    print(f"phase C first iteration: {int(qgrid.overflow)} visual queries dropped from the query "
+          f"grid (they get delta 0, as in the JAX package)")
+
+    rec = {name: [] for name in PHASE_C_KERNELS}
+    hooks = ((pc, "density", "density_fwd"), (pc, "density_bwd", "density_bwd"),
+             (sc, "splat_fwd", "splat_fwd"), (sc, "splat_bwd", "splat_bwd"))
+    originals = [(mod, fn, getattr(mod, fn)) for mod, fn, _ in hooks]
+    for (mod, fn, orig), (_, _, key) in zip(originals, hooks):
+        def record(*a, _orig=orig, _key=key):
+            rec[_key].append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+            return _orig(*a)
+        setattr(mod, fn, record)
+    try:
+        cams = cameras_by_time(ctx["scene"].train_cameras)[1][:1]
+        views, projs, fovs = tp._cam_tensors(cams, dev)
+        one = torch.ones((1,), device=dev)
+        ctx["step"](nn, tp.adam_init({"nn": nn}), state, visual, ctx["attrs"], (views, projs, fovs),
+                    tp._gts(cams, 3, dev), 1e-4, one, one[0])
+    finally:
+        for mod, fn, orig in originals:
+            setattr(mod, fn, orig)
+    torch.cuda.synchronize()
+    # the gas loss's density runs on the shared hidden grid; its adjoint is
+    # the one whose table is that grid's
+    fwd = rec["density_fwd"][0]
+    bwd = next(a for a in rec["density_bwd"] if torch.equal(a[0], fwd[0]))
+    return dict(density_fwd=fwd, density_bwd=bwd, splat_fwd=rec["splat_fwd"][0],
+                splat_bwd=rec["splat_bwd"][0], state=state, visual=visual,
+                calls={k: len(v) for k, v in rec.items()})
+
+
+def check_phase_c_kernels(inp):
+    """The four phase-C kernels against their plain versions at the first
+    fit iteration's inputs: pi, the density gradient, wv, ws, g_est and
+    g_vel each at 1e-4 of its own scale over live slots, 0 at dead slots.
+    Returns the max abs error per kernel."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
+    out = {"density_fwd": (pc.density_slots(*d), pc.density_plain(*d)),
+           "density_bwd": (pc.density_bwd_slots(*b), pc.density_bwd_plain(*b)),
+           "splat_fwd": (sc.splat_fwd_slots(*f), sc.splat_fwd_plain(*f)),
+           "splat_bwd": (sc.splat_bwd_slots(*s), sc.splat_bwd_plain(*s))}
+    torch.cuda.synchronize()
+    hidden_live = pc._live(d[1], d[2].shape[1])
+    query_live = pc._live(f[1], f[2].shape[1])
+    source_live = pc._live(s[1], s[2].shape[1])
+    fields = (("density_fwd", "pi", out["density_fwd"][0], out["density_fwd"][1], hidden_live),
+              ("density_bwd", "dpi/dx", out["density_bwd"][0], out["density_bwd"][1], hidden_live),
+              ("splat_fwd", "wv", out["splat_fwd"][0][0], out["splat_fwd"][1][0], query_live),
+              ("splat_fwd", "ws", out["splat_fwd"][0][1], out["splat_fwd"][1][1], query_live),
+              ("splat_bwd", "g_est", out["splat_bwd"][0][0], out["splat_bwd"][1][0], source_live),
+              ("splat_bwd", "g_vel", out["splat_bwd"][0][1], out["splat_bwd"][1][1], source_live))
+    errors, failures = {}, []
+    for kernel, name, got, want, live in fields:
+        err = float((got - want)[live].abs().max())
+        scale = float(want[live].abs().max())
+        dead_zero = not bool(got[~live].any())
+        ok = err <= 1e-4 * scale and scale > 0 and dead_zero
+        print(f"phase C kernel check: {kernel} {name} max|err| {err:.3e} / scale {scale:.3e} "
+              f"[tol 1e-4 x scale], dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
+        errors[kernel] = max(errors.get(kernel, 0.0), err)
+        if not ok:
+            failures.append(f"{kernel} {name}")
+    if failures:
+        _fail(f"the phase-C kernels disagree with their plain versions: {failures}")
+    return errors
+
+
+def _candidates(nbr, cnt_c, cnt_n):
+    """Live candidate pairs of a pair walk: each live centre slot against
+    every live slot of its 27 neighbour rows."""
+    rows = nbr.shape[0]
+    return int((cnt_c[:rows].long() * cnt_n[nbr.long()].long().sum(1)).sum())
+
+
+def time_phase_c_kernels(inp):
+    """Each phase-C kernel's device time, its plain version's time and its
+    bound at the first fit iteration's inputs. No single PyTorch call
+    computes these pair sums, so there is no library time."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
+    nbr, cnt, k = d[0], d[1], d[5]
+    qnbr, qcnt, scnt, h = f[0], f[1], f[5], f[10]
+    n_src, n_q = int(cnt.sum()), int(qcnt.sum())
+    rows, qrows = int((cnt[:-1] > 0).sum()), int((qcnt[:-1] > 0).sum())
+    dens_cand = _candidates(nbr, cnt, cnt)
+    dens_in = int(pc.phase1_plain(nbr, cnt, *d[2:5], torch.ones_like(d[2]), k)[4])
+    splat_cand = _candidates(qnbr, qcnt, scnt)
+    splat_in = sum(int(inside.sum()) for _, inside, _, _ in sc._two_set(
+        qnbr, qcnt, f[2:5], scnt, f[6:9], h, int(qcnt.max()), int(scnt.max())))
+    # the splat reads only what its pairs reach: the forward the source rows
+    # that the occupied query rows reach, the adjoint the sources that have a
+    # query in reach and the query rows that the occupied source rows reach
+    rnbr, cs, cq = s[0].long(), scnt.numel() - 1, qcnt.numel() - 1
+    src_rows = torch.unique(qnbr[qcnt[:-1] > 0].long())
+    src_rows = src_rows[src_rows < cs]
+    n_src_reached = int(scnt[src_rows].sum())
+    q_rows = torch.unique(rnbr[scnt[:-1] > 0])
+    q_rows = q_rows[q_rows < cq]
+    n_q_reached = int(qcnt[q_rows].sum())
+    n_src_active = int(scnt[:-1][(qcnt[rnbr] > 0).any(1)].sum())
+    print(f"phase C bounds: density {dens_cand} live candidate pairs, {dens_in} in radius (self "
+          f"included); splat {splat_cand} live candidate pairs, {splat_in} in radius; "
+          f"{n_src} live source and {n_q} live query slots; the forward reaches "
+          f"{len(src_rows)} source rows holding {n_src_reached} sources, the adjoint "
+          f"{n_src_active} sources with a query in reach and {len(q_rows)} query rows "
+          f"holding {n_q_reached} queries")
+    table = 4 * (cnt.numel() + 27 * rows)
+    qtable = 4 * (qcnt.numel() + 27 * qrows + len(src_rows))
+    stable = 4 * (cnt.numel() + 27 * rows + len(q_rows))
+    plans = {  # name: (wrapper, plain, args, bytes, operations)
+        "density_fwd": (pc.density_slots, pc.density_plain, d, table + 4 * n_src * 4,
+                        9 * dens_cand + DENSITY_IN_RADIUS_OPS * dens_in),
+        "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, b, table + 4 * n_src * 7,
+                        9 * dens_cand + DENSITY_BWD_IN_RADIUS_OPS * dens_in),
+        "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, f,
+                      qtable + 4 * (n_q * 7 + n_src_reached * 6),
+                      9 * splat_cand + SPLAT_FWD_IN_RADIUS_OPS * splat_in),
+        "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, s,
+                      stable + 4 * (n_src_active * 6 + n_q_reached * 7 + n_src * 6),
+                      9 * splat_cand + SPLAT_BWD_IN_RADIUS_OPS * splat_in
+                      + SPLAT_BWD_SLOT_OPS * n_src),
+    }
+    out = {}
+    for name, (fn, plain, args, nbytes, ops) in plans.items():
+        ms, recorded = kernel_device_ms(lambda: fn(*args), PHASE_C_KERNELS[name][2])
+        call_ms = cuda_ms(lambda: fn(*args), iters=50)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+        out[name] = dict(ms=ms, recorded=recorded, call_ms=call_ms, plain_ms=plain_ms,
+                         bound=bound_ms(nbytes, ops), nbytes=nbytes, ops=ops)
+    return out
+
+
+def small_phase_c_check(dev):
+    """Phase C at a small size through the kernels and through the plain CPU
+    path from one start: a 0.02-radius pillar, 200 visual particles, 160 x 96
+    cameras, frames 1-2 x 3 fit iterations, dense caps 512 x 32. Per-frame
+    losses agree to 1e-3 relative, alive masks exactly, positions within
+    1e-4 scaled units."""
+    import dataclasses
+
+    from fluidnexus_torch.core.config import Config
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.sim.state import ParticleState, VisualState
+    from fluidnexus_torch.splat.dynamics import VisualAttrs
+
+    cfg = Config()
+    o, m, p = cfg.optim, cfg.model, cfg.pipe
+    m.hidden_capacity, m.visual_capacity = 2048, 1024
+    m.init_hidden_radius_max, m.init_hidden_y_min, m.init_hidden_y_max = 0.02, 0.0, 0.4
+    m.init_visual_num_pts, m.init_thick_visual_num_pts = 150, 50
+    o.iterations_per_time_first, o.stable_iterations, o.solver_iterations = 2, 2, 3
+    o.iterations_per_time_current = o.iterations_per_time_current_max = 3
+    o.alpha, o.init_hidden_velocity, o.min_neighbors, o.batch = 0.0, 100.0, 1, 2
+    o.emit_ratio_hidden = o.emit_ratio_visual = 1.0
+    o.extra_visual_ratio = 0.05
+    o.lambda_current_distance, o.lambda_exyz = 0.1, 0.1
+    o.lambda_gas_constraints, o.lambda_next_gas_constraints = 1.0, 0.1
+    p.tile_capacity, p.chunk = 128, 32
+    params = dataclasses.replace(tp.pbf_params_from_config(cfg), dense_max_cells=512,
+                                 dense_cell_capacity=32)
+    cpu = torch.device("cpu")
+    scene = smoke_scene(width=160, height=96)
+    bg = {cpu: synthetic_background(2048, cpu), dev: synthetic_background(2048, dev)}
+    render_ground_truth(cfg, scene, bg[cpu], cpu)
+    start = phase_c_start(cfg, scene, bg[cpu], cpu, params=params)
+
+    def run(device):
+        import copy
+
+        to = lambda tree, cls: cls(*(x.to(device) for x in tree))  # noqa: E731
+        return tp._phase_c(cfg, scene, to(start["state"], ParticleState),
+                           to(start["visual"], VisualState), to(start["attrs"], VisualAttrs),
+                           bg[device], tp.raster_config_from(cfg), params,
+                           copy.deepcopy(start["rng"]), None, lambda *a: None, None)
+
+    r_cpu, r_dev = run(cpu), run(dev)
+    l_cpu = np.array([mm["loss"] for mm in r_cpu["metrics"]])
+    l_dev = np.array([mm["loss"] for mm in r_dev["metrics"]])
+    dl = float(np.abs(l_dev - l_cpu).max() / np.abs(l_cpu).max())
+    same = all(bool((r_dev[k].alive.cpu() == r_cpu[k].alive).all()) for k in ("state", "visual"))
+    dx = {k: float((r_dev[k].xyz.cpu() - r_cpu[k].xyz)[r_cpu[k].alive].abs().max())
+          for k in ("state", "visual")}
+    print(f"small phase C, card vs plain CPU path: losses {l_cpu.tolist()} / {l_dev.tolist()}, "
+          f"rel diff {dl:.3e} [tol 1e-3]; {int(r_cpu['state'].alive.sum())} hidden and "
+          f"{int(r_cpu['visual'].alive.sum())} visual alive, masks identical {same}; max|dxyz| "
+          f"hidden {dx['state']:.3e}, visual {dx['visual']:.3e} scaled units [tol 1e-4]")
+    if not (dl <= 1e-3 and same and max(dx.values()) <= 1e-4):
+        _fail("phase C on the card disagrees with the plain CPU path")
+
+
+def run_phase_c(dev):
+    """Phase C: the main path (``train``, phases A -> B -> C, at the smoke
+    widths), its launch counts; the two grids and the four kernels against
+    their plain versions at the first fit iteration; the small reference
+    check; ms per fit iteration and per frame; a profile of 10 fit
+    iterations; the kernel times. Returns the four kernels' entries of the
+    ``kernels`` line."""
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    cfg = phase_c_config()
+    scene = smoke_scene()
+    bg = synthetic_background(32768, dev)
+    render_ground_truth(cfg, scene, bg, dev)
+    o = cfg.optim
+    n_frames = 2
+    print(f"phase C config: frames 1-{n_frames} x {PHASE_C_ITERS} fit iterations, batch "
+          f"{o.batch}, emit_ratio_visual {o.emit_ratio_visual}, extra_visual_ratio "
+          f"{o.extra_visual_ratio}, emit_ratio_hidden {o.emit_ratio_hidden}, lambdas image "
+          f"{o.lambda_image} current_distance {o.lambda_current_distance} exyz {o.lambda_exyz} "
+          f"gas {o.lambda_gas_constraints} next_gas {o.lambda_next_gas_constraints}")
+
+    # ---- the main path: train, A -> B -> C
+    torch.cuda.synchronize()
+    reset_all_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = tp.train(cfg, scene, bg=bg, log=print, device="cuda")
+    end.record()
+    end.synchronize()
+    launches = {**{k: v for k, v in pc.LAUNCHES.items()}, **sc.LAUNCHES}
+    print(f"train A -> B -> C: {start.elapsed_time(end):.1f} ms; launches {launches}")
+    metrics = res["metrics"]
+    for mm in metrics:
+        print(f"phase C frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
+              f"visual {mm['visual']}")
+    if len(metrics) != n_frames or not all(np.isfinite(mm["loss"]) for mm in metrics):
+        _fail("phase C did not give a finite loss for each frame")
+    for name in ("state", "visual"):
+        xyz = res[name].xyz
+        if not bool(torch.isfinite(xyz).all()):
+            _fail(f"phase-C {name} positions are not finite")
+    fit_iters = n_frames * PHASE_C_ITERS
+    want = {"density_fwd": 2 * fit_iters, "density_bwd": 2 * fit_iters,
+            "splat_fwd": fit_iters + n_frames, "splat_bwd": fit_iters}
+    if any(launches[k] != v for k, v in want.items()):
+        _fail(f"phase C launched the kernels {launches}, expected {want}")
+    print(f"phase C launch counts as expected: {want} ({fit_iters} fit iterations, "
+          f"{n_frames} commits)")
+
+    # ---- the first fit iteration's grids and kernel inputs
+    ctx = phase_c_start(cfg, scene, bg, dev)
+    inp = first_iteration_inputs(ctx)
+    errors = check_phase_c_kernels(inp)
+    small_phase_c_check(dev)
+
+    # ---- ms per fit iteration and per frame, from the same saved start
+    def frame_ms(iters):
+        start.record()
+        run_frame_1(ctx, iters)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    frame_ms(2)   # warm-up
+    long_ms, short_ms = [], []
+    for _ in range(3):
+        long_ms.append(frame_ms(PHASE_C_ITERS))
+        short_ms.append(frame_ms(SHORT_FRAME_ITERS))
+    ms_iter = (statistics.median(long_ms) - statistics.median(short_ms)) / (
+        PHASE_C_ITERS - SHORT_FRAME_ITERS)
+    print(f"phase C frame 1: {', '.join(f'{t:.1f}' for t in long_ms)} ms with "
+          f"{PHASE_C_ITERS} fit iterations, {', '.join(f'{t:.1f}' for t in short_ms)} ms with "
+          f"{SHORT_FRAME_ITERS}; {ms_iter:.3f} ms per phase-C fit iteration; "
+          f"{statistics.median(long_ms):.3f} ms per phase-C frame at {PHASE_C_ITERS} iterations "
+          f"with its solver tick (medians of three)")
+
+    # ---- a profile of 10 fit iterations on frame 1's simulated state
+    from fluidnexus_torch.data.scene import cameras_by_time
+
+    cams = cameras_by_time(scene.train_cameras)[1]
+    rng = np.random.default_rng(SEED)
+    profile_run("phase-C fit iterations", lambda: tp.fit_frame(
+        cfg, ctx["params"], ctx["step"], inp["state"], inp["visual"], ctx["attrs"], cams,
+        PROFILE_C_ITERS, scene.nerf_normalization["radius"], rng, dev), PROFILE_C_ITERS, ms_iter)
+
+    times = time_phase_c_kernels(inp)
+    kernels = []
+    for name, tm in times.items():
+        b_ms, b_by = tm["bound"]
+        source, replaces, _ = PHASE_C_KERNELS[name]
+        print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
+              f"of 50 launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
+              f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
+              f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
+              f"{fit_iters} fit iterations and {n_frames} commits")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": errors[name], "ms": tm["ms"],
+                        "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    return kernels
+
+
 def small_reference_check(dev):
     """Phase A at a small size through the kernels and through the plain CPU
     path, from one seed: the losses agree to 1e-3 and the positions within
@@ -761,7 +1186,7 @@ def small_reference_check(dev):
     o.iterations_per_time_first, o.batch, o.lambda_first_distance = 4, 2, 1.0
     o.distance_threshold_visual = 0.002
     p.tile_capacity, p.chunk = 128, 32
-    scene = smoke_scene(width=160, height=96)
+    scene = smoke_scene(width=160, height=96, n_frames=1)
     bg = synthetic_background(2048, torch.device("cpu"))
     bg_dev = synthetic_background(2048, dev)
     render_ground_truth(cfg, scene, bg, torch.device("cpu"))

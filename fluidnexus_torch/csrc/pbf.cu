@@ -1,9 +1,10 @@
 // Position-based-fluid density kernels for Hopper (sm_90a): the two pair
-// passes of one Jacobi projection over the dense cell grid. Plain C
-// interface, loaded with ctypes by fluidnexus_torch/sim/pbf_cuda.py, which
-// also holds each kernel's plain PyTorch version.
+// passes of one Jacobi projection over the dense cell grid, and the gas
+// loss's density and its adjoint. Plain C interface, loaded with ctypes by
+// fluidnexus_torch/sim/pbf_cuda.py, which also holds each kernel's plain
+// PyTorch version.
 //
-// Layout shared by the two kernels (fluidnexus_torch/ops/neighbors.DenseGrid):
+// Layout shared by the kernels (fluidnexus_torch/ops/neighbors.DenseGrid):
 //   C compacted cell rows and the empty row C, M <= MAX_M slots per row;
 //   x, y, z (C+1, M) f32: cell-relative slot coordinates, one plane per axis;
 //   cnt (C+1,) i32: live slots per row, front-compacted (slot s of a row is
@@ -26,9 +27,15 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_common.cuh"
+
 namespace {
 
-constexpr int MAX_M = 128;   // slots per cell row: at most four warps a block
+using fnx::MAX_M;
+using fnx::norm2_rn;
+using fnx::shift;
+using fnx::threads_for;
+
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Pair {
@@ -40,7 +47,7 @@ __device__ __forceinline__ Pair pair_terms(float xc, float yc, float zc, float x
                                            float s45) {
   Pair p;
   const float dx = __fsub_rn(xc, xs), dy = __fsub_rn(yc, ys), dz = __fsub_rn(zc, zs);
-  p.d2 = self ? 0.0f : __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+  p.d2 = self ? 0.0f : norm2_rn(dx, dy, dz);
   const float t2 = h2 - p.d2;
   p.w = p.d2 < h2 ? c6 * t2 * t2 * t2 : 0.0f;
   const float de = p.d2 + eps;
@@ -49,12 +56,6 @@ __device__ __forceinline__ Pair pair_terms(float xc, float yc, float zc, float x
   const float hr = h - rlen;
   p.cg = (rlen < h && !self) ? -s45 * hr * hr * inv : 0.0f;
   return p;
-}
-
-// The offset of neighbour j along one axis, times h (exactly -h, 0 or h).
-__device__ __forceinline__ float shift(int j, int axis, float h) {
-  const int o = axis == 0 ? j / 9 : (axis == 1 ? (j / 3) % 3 : j % 3);
-  return (float)(o - 1) * h;
 }
 
 // ---------------------------------------------------------------------------
@@ -245,7 +246,130 @@ __global__ void __launch_bounds__(MAX_M) phase2_kernel(
   }
 }
 
-inline int threads_for(int M) { return (M + 31) / 32 * 32; }
+// ---------------------------------------------------------------------------
+// Gas-loss density. Replaces the Pallas kernel
+// fluidnexus_tpu/sim/pbf_pallas.py:_density_kernel_v2 (wrapper
+// density_slots_v2). Per live slot: pi = sum over every live slot s of the 27
+// neighbour cells, itself included, of c6 (h^2 - d2)^3 where d2 < h^2; the
+// self pair has d2 = 0 and adds c6 h^6. Dead slots and row C write 0.
+//
+// Bound on the H100: 9 f32 operations per live candidate pair (the shifted
+// difference, d2 and the test) and 5 more per pair in radius, against one
+// read of three coordinate planes and one written plane: bound by operations.
+// Same design as phase 1 (one block per row, one thread per centre slot,
+// each neighbour row staged once in shared memory), with one accumulator.
+// d2 is formed without FMA, as in phases 1 and 2, so the kernel and its plain
+// version take the same pairs; the power (h^2 - d2)^3 is left to the
+// compiler: it goes to 0 at d2 = h^2, so a flip at the threshold moves pi by
+// nothing measurable.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(MAX_M) density_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi, int C, int M,
+    float h, float h2, float c6) {
+  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M];
+  const int cell = blockIdx.x;
+  const int i = threadIdx.x;
+  const size_t at = (size_t)cell * M + i;
+  const int n_c = cnt[cell];
+  if (n_c == 0) {
+    if (i < M) pi[at] = 0.0f;
+    return;
+  }
+  const bool live = i < n_c;
+  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
+  float wa = 0.0f;
+  for (int j = 0; j < 27; ++j) {
+    const int nb = nbr[cell * 27 + j];
+    if (nb >= C) continue;
+    const int n_s = cnt[nb];
+    if (n_s == 0) continue;
+    __syncthreads();
+    if (i < n_s) {
+      const size_t src = (size_t)nb * M + i;
+      sx[i] = __fadd_rn(x[src], shift(j, 0, h));
+      sy[i] = __fadd_rn(y[src], shift(j, 1, h));
+      sz[i] = __fadd_rn(z[src], shift(j, 2, h));
+    }
+    __syncthreads();
+    if (!live) continue;
+    const bool self_row = nb == cell;
+    for (int s = 0; s < n_s; ++s) {
+      const float d2 = (self_row && s == i)
+                           ? 0.0f
+                           : norm2_rn(__fsub_rn(xc, sx[s]), __fsub_rn(yc, sy[s]), __fsub_rn(zc, sz[s]));
+      if (d2 < h2) {
+        const float t2 = h2 - d2;
+        wa += c6 * t2 * t2 * t2;
+      }
+    }
+  }
+  if (i < M) pi[at] = live ? wa : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Adjoint of the gas-loss density. Replaces the Pallas kernel
+// fluidnexus_tpu/sim/pbf_pallas.py:_density_bwd_kernel_v2 (wrapper
+// density_bwd_slots_v2). With g the cotangent of pi per slot:
+//   dL/dx_i = sum_s (g_i + g_s) W'(d2) 2 (x_i - x_s),  W'(d2) = -3 c6 (h^2 - d2)^2
+// over the pairs in radius; the symmetric (g_i + g_s) folds the s -> i
+// contributions into the one pass. Each pair adds b (x_i - x_s) directly
+// (the Pallas kernel forms (sum b) x_i - sum b x_s), so the self pair adds
+// exactly 0. g is read at live slots only. dx is (C+1, M, 3); dead slots and
+// row C write 0.
+//
+// Bound on the H100: 9 f32 operations per live candidate pair and 12 more per
+// pair in radius, against one read of four planes and one write of three:
+// bound by operations. Same design as the forward; g is staged beside the
+// shifted coordinates.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(MAX_M) density_bwd_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ g,
+    float* __restrict__ dx, int C, int M, float h, float h2, float c6) {
+  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M], sg[MAX_M];
+  const int cell = blockIdx.x;
+  const int i = threadIdx.x;
+  const size_t at = (size_t)cell * M + i;
+  const int n_c = cnt[cell];
+  const bool live = i < n_c;
+  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
+  const float gc = live ? g[at] : 0.0f;
+  const float c3 = -3.0f * c6;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+  for (int j = 0; j < 27 && n_c > 0; ++j) {
+    const int nb = nbr[cell * 27 + j];
+    if (nb >= C) continue;
+    const int n_s = cnt[nb];
+    if (n_s == 0) continue;
+    __syncthreads();
+    if (i < n_s) {
+      const size_t src = (size_t)nb * M + i;
+      sx[i] = __fadd_rn(x[src], shift(j, 0, h));
+      sy[i] = __fadd_rn(y[src], shift(j, 1, h));
+      sz[i] = __fadd_rn(z[src], shift(j, 2, h));
+      sg[i] = g[src];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int s = 0; s < n_s; ++s) {
+      const float ex = __fsub_rn(xc, sx[s]), ey = __fsub_rn(yc, sy[s]), ez = __fsub_rn(zc, sz[s]);
+      const float d2 = norm2_rn(ex, ey, ez);
+      if (d2 < h2) {
+        const float t2 = h2 - d2;
+        const float b = (gc + sg[s]) * (c3 * t2 * t2) * 2.0f;
+        a0 += b * ex;
+        a1 += b * ey;
+        a2 += b * ez;
+      }
+    }
+  }
+  if (i < M) {
+    dx[3 * at] = live ? a0 : 0.0f;
+    dx[3 * at + 1] = live ? a1 : 0.0f;
+    dx[3 * at + 2] = live ? a2 : 0.0f;
+  }
+}
 
 }  // namespace
 
@@ -270,6 +394,23 @@ int fnx_pbf_phase2(const int* cnt, const int* nbr, const float* x, const float* 
   phase2_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
       cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, h, h2, eps, c6, s45, k_p, e_p, int_pow,
       inv_denom, inv_p0);
+  return (int)cudaGetLastError();
+}
+
+int fnx_pbf_density(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
+                    float* pi, int C, int M, float h, float h2, float c6, void* stream) {
+  if (C < 0 || M <= 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  density_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(cnt, nbr, x, y, z, pi, C, M, h,
+                                                                     h2, c6);
+  return (int)cudaGetLastError();
+}
+
+int fnx_pbf_density_bwd(const int* cnt, const int* nbr, const float* x, const float* y,
+                        const float* z, const float* g, float* dx, int C, int M, float h, float h2,
+                        float c6, void* stream) {
+  if (C < 0 || M <= 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  density_bwd_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(cnt, nbr, x, y, z, g, dx,
+                                                                         C, M, h, h2, c6);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,8 @@ for Hopper (``sm_90a``) into shared libraries with a plain C interface, and
 loads them with ``ctypes``.
 
 A library is built at first use into ``fluidnexus_torch/_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited source
-is rebuilt and an unchanged one is reused. ``build`` starts one ``nvcc`` per
+``.gitignore``), named by a hash of its source, the shared headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused. ``build`` starts one ``nvcc`` per
 source, all at once. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -39,7 +39,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``name``, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

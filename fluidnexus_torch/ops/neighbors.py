@@ -1,8 +1,9 @@
 """Fixed-radius neighbor search (counterpart of ``fluidnexus_tpu/ops/neighbors.py``).
 
 Two structures, both plain torch (the JAX package leaves them to XLA too):
-the padded ``radius_graph`` and the compacted ``DenseGrid`` that the PBF pair
-kernels walk (``build_dense_grid``, ``slot_gather``, ``point_gather``).
+the padded ``radius_graph`` and the compacted ``DenseGrid`` that the pair
+kernels walk (``build_dense_grid``, ``bin_queries`` for a second point set on
+the same lattice, ``slot_gather``, ``point_gather``).
 
 The padded ``radius_graph`` keeps the JAX grid's exact semantics, so both
 packages keep the same neighbors:
@@ -164,15 +165,38 @@ def build_dense_grid(x, r, alive, max_cells, capacity) -> DenseGrid:
     lo = torch.where(alive[:, None], x, torch.full_like(x, big)).amin(0)
     r_t = torch.as_tensor(r, dtype=x.dtype, device=x.device)
     origin = torch.floor(lo / r_t).to(torch.int32)
-    return _compact_bins(x, r_t, alive, origin, max_cells, capacity)
+    return _compact_bins(x, r_t, alive, origin, max_cells, capacity, self_join=True)
 
 
-def _compact_bins(x, r, alive, origin, max_cells, capacity) -> DenseGrid:
-    """The JAX package's ``_compact_bins`` with ``self_join=True``. The
-    stable sort, the f32 corner arithmetic and ``bxyz = xs - corner`` keep
-    its order, so the tables and the cell-relative coordinates are the same
-    bit for bit. Points per cell come from a bincount and the join from a
-    binary search, where the JAX package compares densely for the TPU."""
+def bin_queries(grid: DenseGrid, r, y, alive_y, max_cells, capacity):
+    """Bin a second point set ``y`` onto ``grid``'s lattice (``grid.origin``)
+    for the two-set pair kernels. Returns ``(qgrid, rnbr)``:
+
+    - ``qgrid``: a :class:`DenseGrid` over the queries whose ``nbr`` holds,
+      for each query row, the 27 neighbour rows in the SOURCE table
+      (``grid.max_cells`` = none): the forward join;
+    - ``rnbr`` (C_src, 27): each source row's 27 neighbour rows in the QUERY
+      table (``max_cells`` = none): the adjoint join.
+
+    Queries outside the source 1024^3 box clip into its boundary cells, with
+    large cell-relative coordinates, so their pairs stay distance-masked.
+    Dead and capacity-dropped queries have ``prow == max_cells``. Both joins
+    search an ascending ``ucid`` table, which ``_compact_bins`` gives both
+    grids."""
+    r_t = torch.as_tensor(r, dtype=y.dtype, device=y.device)
+    qgrid = _compact_bins(y, r_t, alive_y, grid.origin, max_cells, capacity, self_join=False)
+    nbr_q = _cell_join(qgrid.ucid, grid.ucid, grid.max_cells)
+    rnbr = _cell_join(grid.ucid, qgrid.ucid, max_cells)
+    return qgrid._replace(nbr=nbr_q), rnbr
+
+
+def _compact_bins(x, r, alive, origin, max_cells, capacity, self_join) -> DenseGrid:
+    """The JAX package's ``_compact_bins``. The stable sort, the f32 corner
+    arithmetic and ``bxyz = xs - corner`` keep its order, so the tables and
+    the cell-relative coordinates are the same bit for bit. Points per cell
+    come from a bincount and the join from a binary search, where the JAX
+    package compares densely for the TPU. Without ``self_join`` every
+    ``nbr`` entry is C (``bin_queries`` joins against another table)."""
     n = x.shape[0]
     C, M = max_cells, capacity
     dev = x.device
@@ -212,7 +236,9 @@ def _compact_bins(x, r, alive, origin, max_cells, capacity) -> DenseGrid:
     pcol = torch.empty((n,), dtype=torch.int32, device=dev)
     prow[order] = torch.where(keep, crank, C).to(torch.int32)
     pcol[order] = torch.where(keep, rank.clamp(max=M - 1), 0).to(torch.int32)
-    return DenseGrid(bidx=bidx, bxyz=bxyz, bmask=bmask, nbr=_cell_join(ucid, ucid, C),
+    nbr = (_cell_join(ucid, ucid, C) if self_join
+           else torch.full((C, 27), C, dtype=torch.int32, device=dev))
+    return DenseGrid(bidx=bidx, bxyz=bxyz, bmask=bmask, nbr=nbr,
                      prow=prow, pcol=pcol, overflow=overflow, origin=origin, ucid=ucid)
 
 

@@ -2,21 +2,27 @@
 ``fluidnexus_tpu/pipelines/train_physical_particle.py``).
 
 Parity target: FluidDynamics/entries_fluid_nexus/train_physical_particle.py.
-So far phases A and B:
+``train`` runs the stage's three phases on one device:
 
 - ``fit_first_frame`` (phase A) fits the first frame's visual particle
   positions against the multi-view images (camera render, gray L1 + SSIM,
   the min-separation penalty, one Adam step per iteration);
 - ``stabilize_hidden`` (phase B) builds the hidden PBF pillar and settles it
-  with ``stable_iterations`` solver ticks.
+  with ``stable_iterations`` solver ticks;
+- ``_phase_c`` (phase C), for every later frame: remove_invalid, emission,
+  one solver tick, then the fit of the learnable hidden positions
+  (``make_current_frame_step``: the visual particles advected by the
+  differentiable splat and rendered, the distance, exyz and two gas-density
+  losses, one Adam step per iteration), the commit and the per-frame npy
+  checkpoints.
 
-Phase C, and ``train`` composing the three with the frame checkpoints, come
-with the next slice.
+``main``, ``read_scene`` and the file readers come with the stage CLI.
 
-The fit step's layers are ``torch.profiler.record_function`` spans named
-``fnx.*`` (render, photometric_loss, distance_penalty, backward, adam; the
-rasterizer adds project, tile_lists, gather and composite; the solver tick
-remove_invalid, guess, dense_grid, jacobi and confirm), which
+The fit steps' layers are ``torch.profiler.record_function`` spans named
+``fnx.*`` (grid_nn, advect, render, photometric_loss, distance_penalty, exyz,
+gas_loss, next_gas_loss, backward, adam; the rasterizer adds project,
+tile_lists, gather and composite; the solver tick remove_invalid, guess,
+dense_grid, jacobi and confirm; phase C's frame emit and commit), which
 ``chip_smoke.py`` reads.
 """
 from __future__ import annotations
@@ -34,19 +40,23 @@ from fluidnexus_torch.core.config import Config
 from fluidnexus_torch.core.optim import AdamState, adam_init, adam_step
 from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.data.scene import cameras_by_time
-from fluidnexus_torch.ops.neighbors import radius_graph
+from fluidnexus_torch.ops.neighbors import build_dense_grid, radius_graph
 from fluidnexus_torch.ops.rasterizer import RasterizerConfig
 from fluidnexus_torch.sim.pbf import (
-    PBFParams, confirm_guess, guess_hidden, remove_invalid, warn_capacity_overflow,
+    PBFParams, confirm_guess, density_ratio_at, guess_from_nn, guess_hidden, remove_invalid,
+    visual_xyz_from_nn, warn_capacity_overflow,
 )
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
-from fluidnexus_torch.sim.state import ParticleState, make_particle_state, make_visual_state
-from fluidnexus_torch.splat.dynamics import (
-    BackgroundSplats, VisualAttrs, constant_visual_attrs, create_hidden_points,
-    create_visual_points,
+from fluidnexus_torch.sim.state import (
+    ParticleState, VisualState, make_particle_state, make_visual_state,
 )
-from fluidnexus_torch.splat.render import render_particles_with_background, to_gray
-from fluidnexus_torch.utils.losses import l1_loss, ssim
+from fluidnexus_torch.splat.dynamics import (
+    BackgroundSplats, EmitterPoints, VisualAttrs, constant_visual_attrs, create_hidden_points,
+    create_visual_points, emit_hidden, emit_visual, load_hidden, load_visual, pad_emission,
+    plan_emission, plan_extra_visual, save_hidden, save_visual,
+)
+from fluidnexus_torch.splat.render import render_particles_with_background, to_gray, to_gray3
+from fluidnexus_torch.utils.losses import l1_loss, psnr, ssim
 from fluidnexus_torch.utils.maths import expon_lr
 
 
@@ -157,6 +167,95 @@ def make_first_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, hei
     return step
 
 
+# ------------------------------- phase C step --------------------------------
+
+
+def _alive_mean(values, alive):
+    """Sum of ``values`` over the alive rows over max(#alive, 1)."""
+    return torch.where(alive, values, 0.0).sum() / torch.clamp(alive.sum(), min=1)
+
+
+def make_current_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, height,
+                            params: PBFParams, o, channels: int):
+    """Phase-C fit step on one device: the learnable hidden positions ``nn``
+    (world units) advect the visual particles, which are rendered and
+    compared with the frame's images; the current distance penalty, the exyz
+    term and the two gas-density terms join the loss; the gradient, masked
+    by ``alive``, takes one Adam step. One dense grid at ``nn *
+    scale_factor`` is built per iteration and shared by the advection and the
+    gas loss, which evaluate at the same positions; the next-step gas term
+    builds its own at ``guess_from_nn``."""
+    lambda_dssim = o.lambda_dssim
+
+    def loss_fn(nn, state: ParticleState, visual: VisualState, attrs, cams, gts, w, inv_w):
+        with record_function("fnx.grid_nn"):
+            grid_nn = build_dense_grid(nn.detach() * params.scale_factor, params.h, state.alive,
+                                       params.dense_max_cells, params.dense_cell_capacity)
+        with record_function("fnx.advect"):
+            vxyz_world = visual_xyz_from_nn(visual.xyz, visual.alive, nn, state, params,
+                                            grid=grid_nn) / params.scale_factor
+
+        def one(cam_view, cam_proj, fovs, gt):
+            with record_function("fnx.render"):
+                out = render_particles_with_background(
+                    vxyz_world, visual.alive, attrs, bg,
+                    view_matrix=cam_view, proj_matrix=cam_proj,
+                    tan_fovx=fovs[0], tan_fovy=fovs[1], width=width, height=height,
+                    bg_color=torch.zeros(3 if bg is not None else channels, device=nn.device),
+                    config=raster_cfg,
+                )
+            with record_function("fnx.photometric_loss"):
+                img = to_gray(out.color)
+                gtg = to_gray(gt)
+                l1v = l1_loss(img, gtg)
+                sv = 1.0 - ssim(img, gtg)
+            return (1.0 - lambda_dssim) * l1v + lambda_dssim * sv, l1v
+
+        img_losses, l1s = map_cameras(one, cams, gts)
+        loss = o.lambda_image * (img_losses * w).sum() * inv_w
+        aux = {"l1": (l1s * w).sum() * inv_w}
+        if o.lambda_current_distance > 0:
+            with record_function("fnx.distance_penalty"):
+                loss = loss + o.lambda_current_distance * distance_penalty(
+                    vxyz_world, visual.alive, o.distance_threshold_visual)
+        if o.lambda_exyz > 0:
+            with record_function("fnx.exyz"):
+                # masked MSE over alive particles (ref :371-373)
+                diff = (nn * params.scale_factor - state.estimate_xyz) ** 2
+                exyz_v = torch.where(state.alive[:, None], diff, 0.0).sum() / (
+                    torch.clamp(state.alive.sum(), min=1) * 3)
+                loss = loss + o.lambda_exyz * exyz_v
+                aux["exyz"] = exyz_v
+        if o.lambda_gas_constraints > 0:
+            with record_function("fnx.gas_loss"):
+                ratio = density_ratio_at(nn * params.scale_factor, state.alive, state.imass,
+                                         params, grid=grid_nn)
+                gas_v = _alive_mean((ratio - 1.0) ** 2, state.alive)
+                loss = loss + o.lambda_gas_constraints * gas_v
+                aux["gas"] = gas_v
+        if o.lambda_next_gas_constraints > 0:
+            with record_function("fnx.next_gas_loss"):
+                nxt = guess_from_nn(nn, state, params)
+                ratio2 = density_ratio_at(nxt, state.alive, state.imass, params)
+                gas2_v = _alive_mean((ratio2 - 1.0) ** 2, state.alive)
+                loss = loss + o.lambda_next_gas_constraints * gas2_v
+                aux["next_gas"] = gas2_v
+        return loss, aux
+
+    def step(exyz_nn, opt: AdamState, state: ParticleState, visual: VisualState,
+             attrs: VisualAttrs, cams, gts, lr, w, inv_w):
+        x = exyz_nn.detach().requires_grad_(True)
+        loss, aux = loss_fn(x, state, visual, attrs, cams, gts, w, inv_w)
+        with record_function("fnx.backward"):
+            (grad,) = torch.autograd.grad(loss, x)
+        with record_function("fnx.adam"):
+            grad = torch.where(state.alive[:, None], grad, 0.0)
+            new, opt = adam_step({"nn": exyz_nn}, {"nn": grad}, opt, {"nn": lr})
+        return new["nn"], opt, loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return step
+
+
 # ------------------------------- orchestration -------------------------------
 
 
@@ -193,31 +292,42 @@ def _gts(cams: List[Camera], channels: int, device):
     return torch.as_tensor(np.stack(out).astype(np.float32), device=device)
 
 
-def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = None, log=print,
-                    device="cuda"):
-    """Phase A of the reconstruction (JAX ``train`` lines up to the x100
-    scaling): create the visual column from ``cfg.seed``, then
-    ``iterations_per_time_first`` Adam steps against the frame-0 cameras.
-    Returns ``(visual, attrs, losses)``: ``visual.xyz`` is already multiplied
-    by ``scale_factor`` (detach_visual_and_scale, ref :188) and ``losses`` is
-    the (iterations,) tensor of per-step losses. ``bg`` defaults to the PLY
-    at ``cfg.model.bg_load_path`` when that is set."""
-    dev = resolve_device(device)
-    o, m = cfg.optim, cfg.model
-    params = pbf_params_from_config(cfg)
-    raster_cfg = raster_config_from(cfg)
-    rng = np.random.default_rng(cfg.seed)
-
-    train_by_t = cameras_by_time(scene_info.train_cameras)
-    cam0 = train_by_t[0][0]
-    width, height = cam0.width, cam0.height
-    channels = 3  # render channel (num_channel, ref :42)
-
+def _load_background(cfg: Config, bg, dev, log):
+    """``bg`` as given, else the PLY at ``cfg.model.bg_load_path`` when that
+    is set, else None."""
+    m = cfg.model
     if bg is None and m.bg_load_path:
         ply = os.path.join(m.bg_load_path, "point_cloud",
                            f"iteration_{m.bg_load_iteration:05d}", "point_cloud.ply")
         bg = BackgroundSplats.from_ply(ply, device=dev)
         log(f"loaded background: {bg.n} splats from {ply}")
+    return bg
+
+
+def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = None, log=print,
+                    device="cuda", rng: Optional[np.random.Generator] = None):
+    """Phase A of the reconstruction (JAX ``train`` lines up to the x100
+    scaling): create the visual column, then ``iterations_per_time_first``
+    Adam steps against the frame-0 cameras. Both draw from ``rng``, by
+    default a new ``np.random.default_rng(cfg.seed)``; ``train`` passes the
+    one generator that phase C goes on drawing from, as the JAX package's
+    ``train`` does. Returns ``(visual, attrs, losses)``: ``visual.xyz`` is
+    already multiplied by ``scale_factor`` (detach_visual_and_scale, ref
+    :188) and ``losses`` is the (iterations,) tensor of per-step losses.
+    ``bg`` defaults to the PLY at ``cfg.model.bg_load_path`` when that is
+    set."""
+    dev = resolve_device(device)
+    o, m = cfg.optim, cfg.model
+    params = pbf_params_from_config(cfg)
+    raster_cfg = raster_config_from(cfg)
+    if rng is None:
+        rng = np.random.default_rng(cfg.seed)
+
+    train_by_t = cameras_by_time(scene_info.train_cameras)
+    cam0 = train_by_t[0][0]
+    width, height = cam0.width, cam0.height
+    channels = 3  # render channel (num_channel, ref :42)
+    bg = _load_background(cfg, bg, dev, log)
 
     vis_pts = create_visual_points(m, rng)
     visual = make_visual_state(m.visual_capacity, vis_pts, device=dev)
@@ -279,3 +389,235 @@ def stabilize_hidden(cfg: Config, params: PBFParams, log=print, device="cuda"):
             state = confirm_guess(state, params)
         diags.append(d)
     return state, diags
+
+
+# ---------------------------------- phase C ----------------------------------
+
+
+def emission_caps(cfg: Config, emitters: EmitterPoints):
+    """The static emission capacities of the JAX ``_phase_c`` (:484-487):
+    ``pad_emission`` cuts each frame's plan at its cap, so they change
+    results."""
+    o, m = cfg.optim, cfg.model
+    hid_cap = max(int(np.ceil(o.emit_ratio_hidden)) * max(len(emitters.hidden), 1), 1)
+    vis_cap = max(int(np.ceil(o.emit_ratio_visual)) * max(len(emitters.visual), 1), 1) + \
+        max(int(m.visual_capacity * max(o.extra_visual_ratio, 0.02)), o.extra_visual_num,
+            o.extra_visual_min_num, 64)
+    return hid_cap, vis_cap
+
+
+def simulate_frame(cfg: Config, params: PBFParams, t: int, state: ParticleState,
+                   visual: VisualState, emitters: EmitterPoints, caps, rng, log=print):
+    """A frame's simulation before its fit (JAX ``_phase_c`` :490-508):
+    remove_invalid, the hidden emission, the visual emitter and the resample
+    of high visual particles (drawn from ``rng`` in that order), one solver
+    tick, its overflow report. Returns (state, visual, diags, emitted), with
+    ``emitted`` the (hidden, visual) candidates within the caps."""
+    o, m = cfg.optim, cfg.model
+    hid_cap, vis_cap = caps
+    with record_function("fnx.remove_invalid"):
+        state = remove_invalid(state, params)
+    use_wind = o.wind_since >= 0 and t >= o.wind_since
+    with record_function("fnx.emit"):
+        new_hidden, hmask = pad_emission(
+            plan_emission(emitters.hidden, o.emit_ratio_hidden, rng), hid_cap)
+        state = emit_hidden(state, new_hidden, o.init_hidden_velocity, o.alpha, mask=hmask)
+        new_visual = plan_emission(emitters.visual, o.emit_ratio_visual, rng)
+        extra = plan_extra_visual(visual.xyz.cpu().numpy(), visual.alive.cpu().numpy(),
+                                  o.extra_visual_ratio, o.extra_visual_num, o.extra_visual_y_min,
+                                  o.extra_visual_min_num, m.emitter_visual_delta, rng)
+        new_v, vmask = pad_emission(np.concatenate([new_visual, extra], 0), vis_cap)
+        visual = emit_visual(visual, new_v, mask=vmask)
+    state, diags = solver_tick(state, params, o.solver_iterations, use_wind)
+    warn_capacity_overflow(diags, f"frame {t} simulate", strict=cfg.strict_capacity, log=log)
+    return state, visual, diags, (int(hmask.sum()), int(vmask.sum()))
+
+
+def frame_iterations(cfg: Config, t: int, n_frames: int, cams: List[Camera]):
+    """(iterations, cameras) of frame ``t``: the count ramps from
+    iterations_per_time_current to _max over the frames; from
+    sparse_views_from_time_index on, only the sparse views, for
+    iterations_per_time_current_sparse."""
+    o = cfg.optim
+    lo, hi = o.iterations_per_time_current, o.iterations_per_time_current_max
+    iters = int(lo + (hi - lo) * t / n_frames)
+    if 0 < o.sparse_views_from_time_index <= t:
+        cams = [c for c in cams if c.image_name in o.sparse_views]
+        iters = o.iterations_per_time_current_sparse
+    return iters, cams
+
+
+def fit_frame(cfg: Config, params: PBFParams, step, state: ParticleState, visual: VisualState,
+              attrs: VisualAttrs, cams: List[Camera], iters: int, extent: float, rng, dev):
+    """The frame's fit: Adam over ``nn`` = estimate_xyz / scale_factor, from
+    fresh moments (training_setup_current, gm:372), ``iters`` steps of
+    ``step`` on camera batches drawn from ``rng``. Returns (nn, losses)."""
+    o = cfg.optim
+    exyz_nn = state.estimate_xyz / params.scale_factor
+    opt = adam_init({"nn": exyz_nn})
+    cviews, cprojs, cfovs = _cam_tensors(cams, dev)
+    gts = _gts(cams, 3, dev)
+    losses = []
+    for it in range(1, iters + 1):
+        lr = expon_lr(it, o.position_lr_init * extent * o.pos_lr_scale_factor,
+                      o.position_lr_final * extent, lr_delay_mult=o.position_lr_delay_mult,
+                      max_steps=o.position_lr_max_steps)
+        sel, w, inv_w = _select_batch(rng, len(cams), o.batch, cfg.pipe.dp)
+        sel_t = torch.as_tensor(sel, device=dev)
+        exyz_nn, opt, loss, _ = step(exyz_nn, opt, state, visual, attrs,
+                                     (cviews[sel_t], cprojs[sel_t], cfovs[sel_t]), gts[sel_t],
+                                     float(np.float32(lr)), torch.as_tensor(w, device=dev),
+                                     torch.as_tensor(inv_w, device=dev))
+        losses.append(loss)
+    return exyz_nn, losses
+
+
+def commit_frame(params: PBFParams, state: ParticleState, visual: VisualState, exyz_nn):
+    """confirm_from_nn + advect visual + wo_velocity (ref :456-458): the
+    visual particles move by the splat of the fitted positions (its own grid),
+    the fitted positions become the alive estimates, then confirm_guess."""
+    with record_function("fnx.commit"), torch.no_grad():
+        new_visual_xyz = visual_xyz_from_nn(visual.xyz, visual.alive, exyz_nn, state, params)
+        a = state.alive[:, None]
+        state = state._replace(estimate_xyz=torch.where(a, exyz_nn * params.scale_factor,
+                                                        state.estimate_xyz))
+        visual = visual._replace(xyz=torch.where(visual.alive[:, None], new_visual_xyz, visual.xyz))
+        state = confirm_guess(state, params)
+    return state, visual
+
+
+def _phase_c(cfg: Config, scene_info, state: ParticleState, visual: VisualState,
+             attrs: VisualAttrs, bg, raster_cfg, params: PBFParams, rng, writer, log, ckpt_path,
+             start_frame: int = 1):
+    """Phase C: per-frame simulate + fit (ref :244-469) from ``start_frame``
+    on, on the device the state lies on. Returns the JAX package's result
+    dict (state, visual, attrs, background, metrics, params)."""
+    o, m = cfg.optim, cfg.model
+    dev = state.xyz.device
+    train_by_t = cameras_by_time(scene_info.train_cameras)
+    test_by_t = cameras_by_time(scene_info.test_cameras)
+    n_frames = len(train_by_t)
+    cam0 = train_by_t[0][0]
+    extent = scene_info.nerf_normalization["radius"]
+    emitters = EmitterPoints.from_config(m)
+    caps = emission_caps(cfg, emitters)
+    step = make_current_frame_step(bg, raster_cfg, cam0.width, cam0.height, params, o, 3)
+
+    metrics_per_frame = []
+    for t in range(start_frame, n_frames):
+        state, visual, diags, emitted = simulate_frame(cfg, params, t, state, visual, emitters,
+                                                       caps, rng, log=log)
+        log(f"frame {t}: emitted {emitted[0]} hidden and {emitted[1]} visual candidates")
+        if writer:
+            for k, v in diags.items():
+                writer.add_scalar(f"sim_frame_{t:03d}/{k}", float(v[-1]), t)
+        iters, cams = frame_iterations(cfg, t, n_frames, train_by_t[t])
+        exyz_nn, losses = fit_frame(cfg, params, step, state, visual, attrs, cams, iters, extent,
+                                    rng, dev)
+        loss = float(losses[-1]) if losses else float("nan")
+        if writer:
+            writer.add_scalar(f"train_loss_frame_{t:03d}/total", loss, t)
+        state, visual = commit_frame(params, state, visual, exyz_nn)
+
+        frame_metrics = {"frame": t, "loss": loss, "hidden": int(state.num_alive),
+                         "visual": int(visual.num_alive)}
+        # held-out evaluation (training_report parity, ref :588-741)
+        if test_by_t.get(t):
+            ev, img0 = evaluate_frame(visual, attrs, bg, test_by_t[t], raster_cfg,
+                                      return_image=True)
+            frame_metrics.update(ev)
+            if writer:
+                for k, v in ev.items():
+                    writer.add_scalar(f"test_frame_{t:03d}/{k}", v, t)
+                writer.add_image("render/test_view", img0, t)
+        metrics_per_frame.append(frame_metrics)
+        if not np.isfinite(loss):
+            raise FloatingPointError(
+                f"non-finite loss at frame {t}; last good per-frame npy "
+                f"checkpoints are under {ckpt_path or '(no model_path)'}")
+        log(f"frame {t}/{n_frames-1}: loss={loss:.5f} "
+            f"hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
+        if ckpt_path:
+            save_hidden(state, params, ckpt_path, t)
+            save_visual(visual, attrs, ckpt_path, t)
+
+    return dict(state=state, visual=visual, attrs=attrs, background=bg,
+                metrics=metrics_per_frame, params=params)
+
+
+def evaluate_frame(visual: VisualState, attrs: VisualAttrs, bg, cams: List[Camera],
+                   raster_cfg, scale_factor=100.0, scaled=True, return_image=False):
+    """Held-out render metrics (training_report, ref :588-741): gray L1 and
+    PSNR against the supervision image and against the real capture."""
+    out = {}
+    first_img = None
+    dev = visual.xyz.device
+    vxyz = visual.xyz / scale_factor if scaled else visual.xyz
+    with torch.no_grad():
+        for cam in cams:
+            r = render_particles_with_background(
+                vxyz, visual.alive, attrs, bg,
+                view_matrix=torch.as_tensor(cam.world_view, device=dev),
+                proj_matrix=torch.as_tensor(cam.full_proj, device=dev),
+                tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=cam.width,
+                height=cam.height,
+                bg_color=torch.zeros(3 if bg is not None else attrs.color.shape[-1], device=dev),
+                config=raster_cfg,
+            )
+            img = to_gray3(torch.clamp(r.color, 0, 1))
+            if first_img is None:
+                first_img = img.cpu().numpy()
+            for name, target in (("", cam.image), ("_real", cam.image_real)):
+                if target is None:
+                    continue
+                tgt = target[..., None] if target.ndim == 2 else target
+                tgt = np.repeat(tgt, 3, -1) if tgt.shape[-1] == 1 else tgt
+                gt = to_gray3(torch.as_tensor(tgt, device=dev).permute(2, 0, 1))
+                out.setdefault(f"l1{name}", []).append(float(l1_loss(img, gt)))
+                out.setdefault(f"psnr{name}", []).append(float(psnr(img, gt)))
+    res = {k: float(np.mean(v)) for k, v in out.items()}
+    return (res, first_img) if return_image else res
+
+
+# ------------------------------------ train ----------------------------------
+
+
+def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_frame: int = -1,
+          bg: Optional[BackgroundSplats] = None, device="cuda"):
+    """The reconstruction stage, phases A -> B -> C, on ``device``. One
+    ``np.random.default_rng(cfg.seed)`` feeds phase A's column and camera
+    picks and then phase C's picks and emissions, as in the JAX package.
+    With ``cfg.model.model_path`` set, the post-B state is saved as frame 0
+    and every phase-C frame after it (``<model_path>/checkpoint``).
+    ``resume_from_frame >= 1`` restarts phase C at that frame from the saved
+    checkpoint of the frame before (the reference cannot resume, SURVEY §5).
+    ``scene_info`` is required: ``read_scene`` comes with the stage CLI."""
+    if scene_info is None:
+        raise ValueError("train needs a scene_info: reading a scene from disk comes with the "
+                         "stage CLI")
+    dev = resolve_device(device)
+    o, m = cfg.optim, cfg.model
+    params = pbf_params_from_config(cfg)
+    raster_cfg = raster_config_from(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    bg = _load_background(cfg, bg, dev, log)
+    ckpt_path = os.path.join(m.model_path, "checkpoint") if m.model_path else None
+
+    if resume_from_frame >= 1:
+        state = load_hidden(ckpt_path, resume_from_frame - 1, m.hidden_capacity, params,
+                            device=dev)
+        visual, attrs = load_visual(ckpt_path, resume_from_frame - 1, m.visual_capacity,
+                                    channels=1, device=dev)
+        log(f"resumed from frame {resume_from_frame - 1}: "
+            f"hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
+        return _phase_c(cfg, scene_info, state, visual, attrs, bg, raster_cfg, params,
+                        rng, writer, log, ckpt_path, start_frame=resume_from_frame)
+
+    visual, attrs, _ = fit_first_frame(cfg, scene_info, bg=bg, log=log, device=dev, rng=rng)
+    state, _ = stabilize_hidden(cfg, params, log=log, device=dev)
+    log(f"phase B done: hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
+    if ckpt_path:
+        save_hidden(state, params, ckpt_path, 0)
+        save_visual(visual, attrs, ckpt_path, 0)
+    return _phase_c(cfg, scene_info, state, visual, attrs, bg, raster_cfg, params,
+                    rng, writer, log, ckpt_path, start_frame=1)

@@ -3,8 +3,12 @@
 The point-wise steps of a solver tick: the prediction ``guess_hidden``, the
 commit ``confirm_guess``, ``remove_invalid`` over the padded radius graph,
 and the capacity warning. The density projection itself is
-``sim/pbf_dense.project_iterations_dense``. Positions live in scaled space
-(world * scale_factor, scale_factor = 100).
+``sim/pbf_dense.project_iterations_dense``. Phase C's differentiable pair
+sums: ``density_ratio_at`` (the gas loss) and ``visual_xyz_from_nn`` (the
+advection of the visual particles), each a ``torch.autograd.Function`` with
+the JAX package's analytic backward over the dense grid (its ``dense=True``
+branch, the one its accelerator runs), and ``guess_from_nn``. Positions live
+in scaled space (world * scale_factor, scale_factor = 100).
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fluidnexus_torch.ops.neighbors import radius_graph
+from fluidnexus_torch.ops.neighbors import (
+    DenseGrid, bin_queries, build_dense_grid, point_gather, radius_graph, slot_gather,
+)
+from fluidnexus_torch.sim import pbf_cuda, splat_cuda
 from fluidnexus_torch.sim.state import ParticleState
 
 GRAVITY = np.array([0.0, -9.8, 0.0], np.float32)
@@ -146,3 +153,134 @@ def warn_capacity_overflow(diags, context: str, strict: bool = False, log=print)
             raise RuntimeError(msg + " (--strict_capacity raised)")
         log(msg)
     return total
+
+
+# --------------------------- differentiable NN paths ------------------------
+
+
+def _grid_for(positions, alive, params: PBFParams, grid, what: str) -> DenseGrid:
+    """The source grid of a pair sum: built here from the detached positions,
+    or the caller's pre-built one, which must be a ``DenseGrid`` with the
+    params' caps and one ``prow`` entry per position (else ``ValueError``)."""
+    C, M = params.dense_max_cells, params.dense_cell_capacity
+    if grid is None:
+        return build_dense_grid(positions.detach(), params.h, alive, C, M)
+    if not isinstance(grid, DenseGrid):
+        raise ValueError(f"{what}: grid must be a DenseGrid, got {type(grid).__name__}")
+    if (grid.max_cells, grid.capacity) != (C, M):
+        raise ValueError(f"{what}: the grid has {grid.max_cells} cells x {grid.capacity} slots, "
+                         f"the params {C} x {M}")
+    if tuple(grid.prow.shape) != (positions.shape[0],):
+        raise ValueError(f"{what}: the grid bins {grid.prow.shape[0]} points, "
+                         f"the positions are {positions.shape[0]}")
+    return grid
+
+
+class _DensityRatio(torch.autograd.Function):
+    """rho / rho0 over the dense grid (the JAX ``_density_ratio_dense``
+    custom VJP, sim/pbf.py:486-532). Differentiable in the positions and
+    imass; dropped points read the self-only density c6 h^6 and get no
+    position gradient."""
+
+    @staticmethod
+    def forward(ctx, positions, imass, params: PBFParams, grid: DenseGrid):
+        k = pbf_cuda.pair_consts(params)
+        planes = pbf_cuda.planes(grid)
+        pi_s = pbf_cuda.density(grid.nbr, *planes, k)
+        pi_s[-1] = float(params.poly6_term1 * params.h ** 6)   # row C: the self pair alone
+        pi_n = point_gather(grid, pi_s)
+        ctx.save_for_backward(imass, pi_n)
+        ctx.grid, ctx.planes, ctx.params, ctx.k = grid, planes, params, k
+        return pi_n / imass / params.p0
+
+    @staticmethod
+    def backward(ctx, g):
+        imass, pi_n = ctx.saved_tensors
+        grid, params = ctx.grid, ctx.params
+        g_s = slot_gather(grid, g / (imass * params.p0)).contiguous()   # dL/dpi, 0 at dead slots
+        ds = pbf_cuda.density_bwd(grid.nbr, *ctx.planes, g_s, ctx.k)
+        dimass = -pi_n / (imass * imass * params.p0) * g
+        return point_gather(grid, ds), dimass, None, None
+
+
+def density_ratio_at(positions, alive, imass, params: PBFParams, grid: Optional[DenseGrid] = None):
+    """rho / rho0 at scaled-space positions, the gas-constraint loss
+    (get_gas_constraints_from_exyz_nn, gm_dynamics.py:1269-1296), over every
+    in-radius pair of the dense grid. ``grid`` is an optional pre-built
+    ``build_dense_grid(positions.detach(), h, alive, C, M)``, checked against
+    the params' caps and the positions' count. Dead and dropped particles
+    read a self-only density and get no position gradient."""
+    grid = _grid_for(positions, alive, params, grid, "density_ratio_at")
+    return _DensityRatio.apply(positions, imass, params, grid)
+
+
+class _SplatDelta(torch.autograd.Function):
+    """delta (Nq, 3) = secs (sum_j W_ij vel_j) / max(sum_j W_ij, eps) of the
+    queries ``points`` over the sources in ``grid`` (the JAX
+    ``_splat_delta_dense`` custom VJP, sim/pbf.py:373-455). Differentiable in
+    ``src`` (through W) and ``vel``; ``points`` is treated as detached. Dead
+    and dropped queries get delta 0; dropped sources contribute nothing."""
+
+    @staticmethod
+    def forward(ctx, src, vel, points, point_alive, params: PBFParams, grid: DenseGrid):
+        C, M = params.dense_max_cells, params.dense_cell_capacity
+        qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, C, M)
+        planes, qplanes = pbf_cuda.planes(grid), pbf_cuda.planes(qgrid)
+        vel_s = slot_gather(grid, vel).contiguous()
+        wv_s, ws_s = splat_cuda.splat_fwd(qgrid.nbr, *qplanes, *planes, vel_s, params.h)
+        # c6 applied outside the kernel, so the eps clamp is max(c6 ws, eps)
+        c6 = float(np.float32(params.poly6_term1))
+        wvs = point_gather(qgrid, torch.cat([wv_s * c6, ws_s[..., None] * c6], -1))  # row Cq: 0
+        ws = wvs[:, 3]
+        delta = params.secs * wvs[:, :3] / torch.clamp(ws, min=params.epsilon)[:, None]
+        ctx.save_for_backward(ws, delta)
+        ctx.tables = (grid, qgrid, rnbr, planes, qplanes, vel_s)
+        ctx.params = params
+        return delta
+
+    @staticmethod
+    def backward(ctx, g):
+        ws, delta = ctx.saved_tensors
+        grid, qgrid, rnbr, planes, qplanes, vel_s = ctx.tables
+        params = ctx.params
+        c6 = np.float32(params.poly6_term1)
+        s = torch.clamp(ws, min=params.epsilon)
+        p = float(c6 * np.float32(params.secs)) * g / s[:, None]
+        q = torch.where(ws < params.epsilon, 0.0, float(c6) * (g * delta).sum(-1) / s)
+        pq_s = slot_gather(qgrid, torch.cat([p, q[:, None]], -1))        # 0 at dead slots
+        gx_s, gv_s = splat_cuda.splat_bwd(rnbr, *planes, vel_s, *qplanes,
+                                          pq_s[..., :3].contiguous(), pq_s[..., 3].contiguous(),
+                                          params.h)
+        gsv = point_gather(grid, torch.cat([gx_s, gv_s], -1))           # row C: 0
+        return gsv[:, :3], gsv[:, 3:], None, None, None, None
+
+
+def visual_xyz_from_nn(visual_xyz, visual_alive, estimate_xyz_nn, state: ParticleState,
+                       params: PBFParams, grid: Optional[DenseGrid] = None):
+    """Differentiable advection of the (detached) visual particles by the
+    learnable hidden positions (get_visual_xyz_from_nn,
+    gm_dynamics.py:1453-1500) through the two-set splat over the dense grid.
+    ``estimate_xyz_nn`` is in world units (the optimizer's down-scaled
+    space); the result is in scaled space. ``grid`` is an optional pre-built
+    source grid at ``estimate_xyz_nn * scale_factor``, checked as in
+    ``density_ratio_at``."""
+    est = estimate_xyz_nn * params.scale_factor
+    vel = (est - state.xyz) / params.secs
+    vx = visual_xyz.detach()
+    grid = _grid_for(est, state.alive, params, grid, "visual_xyz_from_nn")
+    return vx + _SplatDelta.apply(est, vel, vx, visual_alive, params, grid)
+
+
+def guess_from_nn(estimate_xyz_nn, state: ParticleState, params: PBFParams):
+    """One more simulated tick from the NN positions, for the next-step gas
+    loss (get_guess_hidden_particles_from_nn, gm_dynamics.py:1302-1320).
+    Returns scaled-space positions."""
+    if params.buoyancy_max_y > 0.0:
+        coeff = 1.0 - estimate_xyz_nn[:, 1:2] / params.buoyancy_max_y
+        cur_buoy = state.buoyancy * coeff
+    else:
+        cur_buoy = state.buoyancy
+    est = estimate_xyz_nn * params.scale_factor
+    tmp_velocity = (est - state.xyz) / params.secs
+    est_vel = tmp_velocity + cur_buoy * params.secs + params.secs * state.force
+    return est + params.secs * est_vel

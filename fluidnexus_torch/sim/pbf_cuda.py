@@ -1,6 +1,6 @@
-"""The PBF tick's two pair kernels: wrappers, plain versions and launch counts
-(counterpart of the v3 kernels of ``fluidnexus_tpu/sim/pbf_pallas.py``;
-kernels in ``csrc/pbf.cu``).
+"""The PBF pair kernels: wrappers, plain versions and launch counts
+(counterpart of the v3 tick kernels and the v2 gas-density pair of
+``fluidnexus_tpu/sim/pbf_pallas.py``; kernels in ``csrc/pbf.cu``).
 
 Interface. A :class:`~fluidnexus_torch.ops.neighbors.DenseGrid` of C rows and
 M slots gives ``nbr`` (C, 27) int32 (C = no cell) and, through ``planes``,
@@ -17,12 +17,16 @@ s < cnt[row].
   UPDATED coordinates after one Jacobi step (dead slots keep theirs), with
   nc = nl + counts; the global sums of s_corr and of the non-self in-radius
   count over live slots.
+- ``density(nbr, cnt, x, y, z, k)`` -> pi: the gas loss's per-slot poly6
+  sum, self included, 0 at dead slots.
+- ``density_bwd(nbr, cnt, x, y, z, g, k)`` -> (C+1, M, 3): its adjoint for
+  the per-slot cotangent ``g`` of pi, 0 at dead slots.
 
-On a CPU tensor they take the plain versions (``phase1_plain``,
-``phase2_plain``: the same math as 27 batched (C, M, M) blocks). On a CUDA
-tensor they launch the kernel (``phase1_slots``, ``phase2_slots``) or raise;
-no CUDA tensor reaches a plain version through them. Each kernel launch adds
-one to its entry in ``LAUNCHES``.
+On a CPU tensor they take the plain versions (``*_plain``: the same math as
+27 batched (C, M, M) blocks). On a CUDA tensor they launch the kernel
+(``phase1_slots``, ``phase2_slots``, ``density_slots``,
+``density_bwd_slots``) or raise; no CUDA tensor reaches a plain version
+through them. Each kernel launch adds one to its entry in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from fluidnexus_torch.ops.neighbors import _OFFSETS, DenseGrid
 
 MAX_M = 128   # slots per cell row the kernels take (csrc/pbf.cu)
 
-LAUNCHES = {"pbf_phase1": 0, "pbf_phase2": 0}
+LAUNCHES = {"pbf_phase1": 0, "pbf_phase2": 0, "density_fwd": 0, "density_bwd": 0}
 
 
 def reset_launches():
@@ -93,6 +97,10 @@ def _lib():
     lib.fnx_pbf_phase1.restype = i
     lib.fnx_pbf_phase2.argtypes = [p] * 11 + [i] * 2 + [f] * 7 + [i] + [f] * 2 + [p]
     lib.fnx_pbf_phase2.restype = i
+    lib.fnx_pbf_density.argtypes = [p] * 6 + [i] * 2 + [f] * 3 + [p]
+    lib.fnx_pbf_density.restype = i
+    lib.fnx_pbf_density_bwd.argtypes = [p] * 7 + [i] * 2 + [f] * 3 + [p]
+    lib.fnx_pbf_density_bwd.restype = i
     if lib.fnx_pbf_max_m() != MAX_M:
         raise RuntimeError("csrc/pbf.cu and pbf_cuda.MAX_M disagree")
     return lib
@@ -112,21 +120,34 @@ def _extent(nbr, cnt):
     return (int(occupied.max()) + 1 if len(occupied) else 0), int(cnt.max())
 
 
-def _pairs(nbr, cnt, xyz, k: PairConsts, rows, mu):
-    """For each of the 27 offsets: (self, pair, d2, w, cg, xs) as (R, Mu, Mu)
-    blocks of centre slot x neighbour slot (see ``_extent``); ``xs`` are the
-    shifted neighbour coordinates (R, 1, Mu) per axis. The arithmetic is the
-    kernels', step for step."""
-    live = _live(cnt, mu)
-    cells = torch.arange(rows, device=nbr.device)
-    eye = torch.eye(mu, dtype=torch.bool, device=nbr.device)
-    xc = [p[:rows, :mu, None] for p in xyz]
+def _walk(nbr, cnt_c, xyz_c, cnt_n, xyz_n, h, rows, mu_c, mu_n):
+    """The pair walk of every kernel here and in ``splat_cuda``: for each of
+    the 27 offsets, (nb, pair, d, d2, xs) as (R, Mu_c, Mu_n) blocks of centre
+    slot x neighbour slot over the first R rows of ``nbr``, which maps the
+    centre grid's rows to the neighbour grid's. ``nb`` are the neighbour rows,
+    ``pair`` the live pairs, ``xs`` the shifted neighbour coordinates
+    (R, 1, Mu_n) per axis, ``d`` the differences centre - xs per axis and
+    ``d2 = |d|^2``, formed as the kernels form it. A self-join passes one
+    grid as both sets."""
+    live_c = _live(cnt_c[:rows], mu_c)[:, :, None]
+    live_n = _live(cnt_n, mu_n)
+    xc = [p[:rows, :mu_c, None] for p in xyz_c]
     for j in range(27):
         nb = nbr[:rows, j].long()
-        pair = live[:rows, :, None] & live[nb][:, None, :]
-        xs = [p[nb, :mu][:, None, :] + float(o) * k.h for p, o in zip(xyz, _OFFSETS[j])]
+        xs = [p[nb, :mu_n][:, None, :] + float(o) * h for p, o in zip(xyz_n, _OFFSETS[j])]
         d = [a - b for a, b in zip(xc, xs)]
         d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        yield nb, live_c & live_n[nb][:, None, :], d, d2, xs
+
+
+def _pairs(nbr, cnt, xyz, k: PairConsts, rows, mu):
+    """The self-join of one grid for the PBF passes: for each of the 27
+    offsets, (self, pair, d2, w, cg, xs) as (R, Mu, Mu) blocks (see
+    ``_extent`` and ``_walk``). The arithmetic is the kernels', step for
+    step."""
+    cells = torch.arange(rows, device=nbr.device)
+    eye = torch.eye(mu, dtype=torch.bool, device=nbr.device)
+    for nb, pair, _, d2, xs in _walk(nbr, cnt, xyz, cnt, xyz, k.h, rows, mu, mu):
         self_ = (nb == cells)[:, None, None] & eye
         d2 = torch.where(self_, 0.0, d2)
         t2 = k.h2 - d2
@@ -210,6 +231,38 @@ def phase2_plain(nbr, cnt, x, y, z, lam, nc, k: PairConsts):
     return out[0], out[1], out[2], s_corr, s_ns
 
 
+def density_plain(nbr, cnt, x, y, z, k: PairConsts):
+    """The gas-loss density in plain torch: pi (C+1, M), 0 at dead slots."""
+    rows, mu = _extent(nbr, cnt)
+    if rows == 0:
+        return torch.zeros_like(x)
+    wa = torch.zeros_like(x[:rows, :mu])
+    for _, _, _, w, _, _ in _pairs(nbr, cnt, (x, y, z), k, rows, mu):
+        wa = wa + w.sum(-1)
+    return _pad(torch.where(_live(cnt, mu)[:rows], wa, 0.0), x)
+
+
+def density_bwd_plain(nbr, cnt, x, y, z, g, k: PairConsts):
+    """The density's adjoint in plain torch: (C+1, M, 3), 0 at dead slots.
+    Each pair adds (g_i + g_s) W'(d2) 2 (x_i - x_s), as the kernel does."""
+    out = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
+    rows, mu = _extent(nbr, cnt)
+    if rows == 0:
+        return out
+    xc = [p[:rows, :mu, None] for p in (x, y, z)]
+    gc = g[:rows, :mu, None]
+    nbs = nbr[:rows].long()
+    acc = [torch.zeros_like(xc[0][..., 0]) for _ in range(3)]
+    for j, (_, pair, d2, _, _, xs) in enumerate(_pairs(nbr, cnt, (x, y, z), k, rows, mu)):
+        t2 = k.h2 - d2
+        dw = torch.where(pair & (d2 < k.h2), (-3.0 * k.c6) * t2 * t2, 0.0)
+        b = (gc + g[nbs[:, j], :mu][:, None, :]) * dw * 2.0
+        acc = [a + (b * (c - s)).sum(-1) for a, c, s in zip(acc, xc, xs)]
+    live = _live(cnt, mu)[:rows, :, None]
+    out[:rows, :mu] = torch.where(live, torch.stack(acc, -1), 0.0)
+    return out
+
+
 # --------------------------------- kernels ----------------------------------
 
 
@@ -257,6 +310,32 @@ def phase2_slots(nbr, cnt, x, y, z, lam, nc, k: PairConsts):
     return xo, yo, zo, s[0], s[1]
 
 
+def density_slots(nbr, cnt, x, y, z, k: PairConsts):
+    """Kernel 3 (csrc/pbf.cu): the gas-loss density pi (C+1, M)."""
+    cuda_build.require_cuda(nbr, "density_slots")
+    c, m = _check_planes(nbr, cnt, (x, y, z), ("x", "y", "z"))
+    pi = torch.empty_like(x)
+    err = _lib().fnx_pbf_density(
+        cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), pi.data_ptr(),
+        c, m, k.h, k.h2, k.c6, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.raise_on(err, "pbf density launch")
+    LAUNCHES["density_fwd"] += 1
+    return pi
+
+
+def density_bwd_slots(nbr, cnt, x, y, z, g, k: PairConsts):
+    """Kernel 4 (csrc/pbf.cu): the density's adjoint (C+1, M, 3)."""
+    cuda_build.require_cuda(nbr, "density_bwd_slots")
+    c, m = _check_planes(nbr, cnt, (x, y, z, g), ("x", "y", "z", "g"))
+    dx = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
+    err = _lib().fnx_pbf_density_bwd(
+        cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), c, m, k.h, k.h2, k.c6, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.raise_on(err, "pbf density backward launch")
+    LAUNCHES["density_bwd"] += 1
+    return dx
+
+
 def phase1(nbr, cnt, x, y, z, imass, k: PairConsts):
     """Phase 1: ``phase1_plain`` on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
@@ -269,3 +348,17 @@ def phase2(nbr, cnt, x, y, z, lam, nc, k: PairConsts):
     if x.device.type == "cpu":
         return phase2_plain(nbr, cnt, x, y, z, lam, nc, k)
     return phase2_slots(nbr, cnt, x, y, z, lam, nc, k)
+
+
+def density(nbr, cnt, x, y, z, k: PairConsts):
+    """The gas-loss density: ``density_plain`` on the CPU, the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return density_plain(nbr, cnt, x, y, z, k)
+    return density_slots(nbr, cnt, x, y, z, k)
+
+
+def density_bwd(nbr, cnt, x, y, z, g, k: PairConsts):
+    """The density's adjoint: ``density_bwd_plain`` on the CPU, the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return density_bwd_plain(nbr, cnt, x, y, z, g, k)
+    return density_bwd_slots(nbr, cnt, x, y, z, g, k)

@@ -2,8 +2,8 @@
 
 The hidden PBF particles and the visual particles. Buffers keep the JAX
 package's static ``capacity`` with an ``alive`` mask, so checkpoints, indices
-and the parity tests line up slot for slot. Emission into dead slots and
-``compact`` come with phase C.
+and the parity tests line up slot for slot. Emission writes into dead slots
+(``emit_into_dead_slots``); ``compact`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -95,3 +95,40 @@ def make_visual_state(capacity: int, init_xyz=None, device="cuda") -> VisualStat
         st.xyz[:n] = torch.as_tensor(init_xyz, dtype=torch.float32, device=device)
         st.alive[:n] = True
     return st
+
+
+def emit_into_dead_slots(state, new_xyz, new_mask, extra_updates=None):
+    """Write up to M new particles into dead slots, the lowest indices first
+    (the JAX package's ``emit_into_dead_slots``, sim/state.py:96-130).
+
+    ``state`` is a ParticleState or a VisualState; ``new_xyz`` (M, 3) and
+    ``new_mask`` (M,) mark which of the M candidates are real, in order;
+    ``extra_updates`` maps a field name to (M, ...) values written alongside.
+    The real candidates keep their order and go to the dead slots in index
+    order; those that do not fit are dropped. Returns (new_state, dropped).
+    The input state is left as it was."""
+    cap = state.capacity
+    m = new_xyz.shape[0]
+    if m > cap:
+        raise ValueError(f"{m} candidates for a capacity of {cap}")
+    slot = torch.argsort(state.alive.to(torch.int32), stable=True)[:m]   # dead slots first
+    num_dead = cap - state.alive.sum()
+    fits = new_mask & (torch.cumsum(new_mask.to(torch.int64), 0) - 1 < num_dead)
+    order = torch.argsort((~fits).to(torch.int32), stable=True)          # fitting ones first
+    src_mask = fits[order]
+
+    def scatter(field, values):
+        out = field.clone()
+        keep = src_mask.reshape((-1,) + (1,) * (values.ndim - 1))
+        out[slot] = torch.where(keep, values[order].to(field.dtype), field[slot])
+        return out
+
+    updates = {"xyz": scatter(state.xyz, new_xyz)}
+    if isinstance(state, ParticleState):
+        updates["estimate_xyz"] = scatter(state.estimate_xyz, new_xyz)
+    for name, values in (extra_updates or {}).items():
+        updates[name] = scatter(getattr(state, name), values)
+    alive = state.alive.clone()
+    alive[slot] = src_mask | state.alive[slot]
+    updates["alive"] = alive
+    return state._replace(**updates), new_mask.sum() - fits.sum()

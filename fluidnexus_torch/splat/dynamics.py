@@ -6,21 +6,24 @@ So far: constant-appearance attrs (prepare_*_for_rendering:1643-1699: color
 (create_particles_visual:510), the hidden PBF pillar
 (create_particles_hidden:557) and the per-frame visual and hidden npy
 checkpoints (save_visual:1901, load_visual:2067, save_hidden:1834,
-load_hidden:1991) in the reference format. The emitters come with phase C.
+load_hidden:1991) in the reference format, and phase C's emitters
+(prepare_emitter_points:674, emit_new_particles:844) under static
+capacities: the plans are host-side numpy drawn from the caller's generator
+in the JAX package's order, the writes go into dead slots.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from fluidnexus_torch.sim.pbf import GRAVITY, PBFParams
 from fluidnexus_torch.sim.state import (
-    ParticleState, VisualState, make_particle_state, make_visual_state,
+    ParticleState, VisualState, emit_into_dead_slots, make_particle_state, make_visual_state,
 )
 from fluidnexus_torch.utils.maths import inv_sigmoid
 
@@ -101,6 +104,128 @@ def create_hidden_points(m) -> np.ndarray:
     pts = np.stack([X, Y, Z], -1).reshape(-1, 3)
     keep = (pts[:, 0] - m.init_x_mid) ** 2 + (pts[:, 2] - m.init_z_mid) ** 2 <= m.init_hidden_radius_max**2
     return (pts[keep] * 100.0).astype(np.float32)
+
+
+def _disk_lattice(center_x, center_z, y_values, radius, delta) -> np.ndarray:
+    xr = np.arange(center_x - radius, center_x + radius + delta, delta)
+    zr = np.arange(center_z - radius, center_z + radius + delta, delta)
+    pts = []
+    for x in xr:
+        for y in np.atleast_1d(y_values):
+            for z in zr:
+                if (x - center_x) ** 2 + (z - center_z) ** 2 <= radius**2:
+                    pts.append([x, y, z])
+    return np.asarray(pts, np.float32)
+
+
+@dataclasses.dataclass
+class EmitterPoints:
+    """Precomputed emitter lattices (prepare_emitter_points, :674-745).
+    WORLD units; scaled at emit time."""
+
+    hidden: np.ndarray
+    visual: np.ndarray
+
+    @classmethod
+    def from_config(cls, m):
+        vr = m.emitter_visual_delta * m.emitter_visual_radius_ratio
+        hr = m.emitter_hidden_delta * m.emitter_hidden_radius_ratio
+        visual = _disk_lattice(m.init_x_mid, m.init_z_mid, [m.emitter_center_y_visual], vr,
+                               m.emitter_visual_delta)
+        hidden = _disk_lattice(m.init_x_mid, m.init_z_mid, [m.emitter_center_y_hidden], hr,
+                               m.emitter_hidden_delta)
+        return cls(hidden=hidden, visual=visual)
+
+
+def plan_emission(points: np.ndarray, ratio: float, rng: np.random.Generator,
+                  scale_factor: float = 100.0):
+    """int+fractional emission of an emitter lattice (emit_new_particles,
+    gm_dynamics.py:862-889): floor(ratio) full copies + a random subset of
+    size int(frac*E). Host-side; returns (M,3) scaled positions."""
+    full = int(ratio)
+    frac = ratio - full
+    out = [points] * full
+    if frac > 0:
+        sel = rng.permutation(len(points))[: int(frac * len(points))]
+        out.append(points[sel])
+    if not out:
+        return np.zeros((0, 3), np.float32)
+    return (np.concatenate(out, 0) * scale_factor).astype(np.float32)
+
+
+def plan_extra_visual(visual_xyz: np.ndarray, alive: np.ndarray, extra_ratio: float,
+                      extra_num: int, y_min: float, min_num: int, visual_delta: float,
+                      rng: np.random.Generator, scale_factor: float = 100.0) -> np.ndarray:
+    """Resample high visual particles with jitter (emit_new_particles
+    :891-931). Host-side numpy."""
+    out = []
+    high = visual_xyz[alive]
+    high = high[high[:, 1] > y_min * scale_factor]
+    if extra_ratio > 0 and len(high) > 0:
+        num = max(int(len(high) * extra_ratio), min_num)
+        sel = rng.permutation(len(high))[:num]
+        base = high[sel] / scale_factor
+        off = (rng.random(base.shape).astype(np.float32) - 0.5) * visual_delta * 0.05
+        out.append((base + off) * scale_factor)
+    if extra_num > 0 and len(high) > 0:
+        sel = rng.permutation(len(high))[:extra_num]
+        base = high[sel] / scale_factor
+        off = (rng.random(base.shape).astype(np.float32) - 0.5) * visual_delta * 0.05
+        out.append((base + off) * scale_factor)
+    if not out:
+        return np.zeros((0, 3), np.float32)
+    return np.concatenate(out, 0).astype(np.float32)
+
+
+def pad_emission(arr: np.ndarray, cap: int):
+    """A host-side (M,3) emission plan cut or padded to the static capacity
+    ``cap``, with its mask. Candidates past ``cap`` are dropped, so the caps
+    change results."""
+    m = min(arr.shape[0], cap)
+    out = np.zeros((cap, 3), np.float32)
+    out[:m] = arr[:m]
+    mask = np.zeros((cap,), bool)
+    mask[:m] = True
+    return out, mask
+
+
+def emit_hidden(state: ParticleState, new_xyz: np.ndarray, init_velocity_y: float,
+                gravity_alpha: float, mask: Optional[np.ndarray] = None) -> ParticleState:
+    """New hidden particles into dead slots with fresh ids, velocity
+    (0, init_velocity_y, 0) and buoyancy GRAVITY * gravity_alpha
+    (emit_new_particles :933-975). Zeroes ALL counts, as the reference does
+    (gm_dynamics.py:961)."""
+    mcount = new_xyz.shape[0]
+    if mcount == 0:
+        return state
+    dev = state.xyz.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    mask = (torch.ones((mcount,), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev))
+    vel = torch.zeros((mcount, 3), **f32)
+    vel[:, 1] = init_velocity_y
+    buoy = (torch.as_tensor(GRAVITY, device=dev) * gravity_alpha).expand(mcount, 3)
+    ids = state.next_id + torch.cumsum(mask.to(torch.int32), 0) - 1
+    st, _ = emit_into_dead_slots(
+        state, torch.as_tensor(new_xyz, **f32), mask,
+        extra_updates=dict(velocity=vel, buoyancy=buoy, force=torch.zeros((mcount, 3), **f32),
+                           imass=torch.ones((mcount,), **f32),
+                           counts=torch.zeros((mcount,), **f32), particle_id=ids.to(torch.int32)))
+    return st._replace(counts=torch.zeros_like(st.counts),
+                       next_id=(st.next_id + mask.sum()).to(torch.int32))
+
+
+def emit_visual(visual: VisualState, new_xyz: np.ndarray,
+                mask: Optional[np.ndarray] = None) -> VisualState:
+    """New visual particles into dead slots (emit_new_particles :933-975)."""
+    if new_xyz.shape[0] == 0:
+        return visual
+    dev = visual.xyz.device
+    mask = (torch.ones((new_xyz.shape[0],), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev))
+    st, _ = emit_into_dead_slots(visual, torch.as_tensor(new_xyz, dtype=torch.float32, device=dev),
+                                 mask)
+    return st
 
 
 def save_hidden(state: ParticleState, params: PBFParams, path: str, frame_idx: int):
