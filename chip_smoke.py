@@ -32,14 +32,28 @@ Phase C (``train``, phases A -> B -> C in one call): the same config with
 iterations_per_time_current and _max cut from 1000 to 30, frames 1-2; the
 config's batch 1, emit_ratio_visual 1.0, extra_visual_ratio 0.01 and
 emit_ratio_hidden 0. Each fit iteration builds one hidden grid of 4 096 x 32
-and one visual query grid of 4 096 x 32.
+and one visual query grid of 4 096 x 32. ``train`` writes its npy
+checkpoints to a temporary directory.
+
+Future (``predict``, stage 4): configs/smoke_future_simulation.json from
+phase C's frame-2 checkpoint, future_pred_frames cut from the README's 60 to
+10, wind_force [35, 0, 0] (configs/smoke_wind_simulation.json) from future
+frame 3 on, the config's rigid cylinder from future frame 5 on; renders of
+frame 0's 5 cameras at 960 x 544 over the same background.
+
+Rigid rollout: from the same checkpoint, ticks of guess -> ``solver_loop``
+with the cylinder (10 Jacobi iterations, the grid rebuilt every iteration:
+the v2 kernels) -> confirm -> ``update_visual``; the v2 and v1 kernels held
+against their plain versions and each other at the first iteration's inputs.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -380,7 +394,10 @@ def main():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
 
-    kernels = run_phase_a(dev) + run_phase_b(dev) + run_phase_c(dev)
+    with tempfile.TemporaryDirectory(prefix="fnx_smoke_") as tmp:
+        kernels = run_phase_a(dev) + run_phase_b(dev)
+        phase_c_kernels, recon = run_phase_c(dev, os.path.join(tmp, "recon"))
+        kernels += phase_c_kernels + run_future(dev, recon, os.path.join(tmp, "future"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -394,6 +411,14 @@ def reset_all_launches():
     tc.reset_launches()
     pc.reset_launches()
     sc.reset_launches()
+
+
+def all_launches():
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    return {**tc.LAUNCHES, **pc.LAUNCHES, **sc.LAUNCHES}
 
 
 def run_phase_a(dev):
@@ -1067,13 +1092,14 @@ def small_phase_c_check(dev):
         _fail("phase C on the card disagrees with the plain CPU path")
 
 
-def run_phase_c(dev):
+def run_phase_c(dev, model_path):
     """Phase C: the main path (``train``, phases A -> B -> C, at the smoke
-    widths), its launch counts; the two grids and the four kernels against
-    their plain versions at the first fit iteration; the small reference
-    check; ms per fit iteration and per frame; a profile of 10 fit
-    iterations; the kernel times. Returns the four kernels' entries of the
-    ``kernels`` line."""
+    widths, its npy checkpoints under ``model_path``), its launch counts; the
+    two grids and the four kernels against their plain versions at the first
+    fit iteration; the small reference check; ms per fit iteration and per
+    frame; a profile of 10 fit iterations; the kernel times. Returns the four
+    kernels' entries of the ``kernels`` line and what the future stage
+    starts from."""
     from fluidnexus_torch.pipelines import train_physical_particle as tp
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -1094,9 +1120,11 @@ def run_phase_c(dev):
     torch.cuda.synchronize()
     reset_all_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cfg.model.model_path = model_path
     start.record()
     res = tp.train(cfg, scene, bg=bg, log=print, device="cuda")
     end.record()
+    cfg.model.model_path = ""
     end.synchronize()
     launches = {**{k: v for k, v in pc.LAUNCHES.items()}, **sc.LAUNCHES}
     print(f"train A -> B -> C: {start.elapsed_time(end):.1f} ms; launches {launches}")
@@ -1168,7 +1196,516 @@ def run_phase_c(dev):
                         "launches": launches[name], "max_abs_err": errors[name], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
+    return kernels, dict(path=model_path, scene=scene, bg=bg)
+
+
+# ------------------------------ future (stage 4) ------------------------------
+
+FUTURE_FRAMES = 10            # future_pred_frames, cut from the README's 60
+WIND_FROM, RIGID_FROM = 3, 5  # future frames the wind and the cylinder start at
+RIGID_TICKS = 5
+RIGID_ITERS = 10
+PROFILE_RIGID_TICKS = 3
+# f32 operations per live slot of the v2 and v1 epilogues: sg = (sum cg) x_i
+# - sum cg x_s and dsum = (sum b) x_i - sum b x_s, 2 per axis
+RAW_SLOT_OPS = 6
+FUTURE_KERNELS = {  # name: (replaces, CUDA kernel name)
+    "pbf_phase1_v2": ("fluidnexus_tpu/sim/pbf_pallas.py:259", "phase1_v2_kernel"),
+    "pbf_phase2_v2": ("fluidnexus_tpu/sim/pbf_pallas.py:317", "phase2_v2_kernel"),
+    "pbf_phase1_v1": ("fluidnexus_tpu/sim/pbf_pallas.py:125", "phase1_v1_kernel"),
+    "pbf_phase2_v1": ("fluidnexus_tpu/sim/pbf_pallas.py:173", "phase2_v1_kernel"),
+}
+
+
+def future_config(recon_path, model_path):
+    from fluidnexus_torch.core.config import load_config
+
+    cfg = load_config("configs/smoke_future_simulation.json")
+    wind = load_config("configs/smoke_wind_simulation.json").optim.wind_force
+    o, m = cfg.optim, cfg.model
+    cfg.seed = SEED
+    m.load_path, m.model_path = recon_path, model_path
+    n_frames = 3                                # the scene's frames 0-2
+    o.future_pred_frames = FUTURE_FRAMES
+    o.wind_since, o.wind_force = n_frames + WIND_FROM, list(wind)
+    o.rigid_since = n_frames + RIGID_FROM
+    print(f"future config: {FUTURE_FRAMES} frames (the README runs 60) x "
+          f"{o.solver_iterations_future} Jacobi iterations, p0 {o.p0} -> {o.p0_future} over "
+          f"{o.decay_frames_future_p0} frames, emit ratios hidden {o.emit_ratio_hidden} visual "
+          f"{o.emit_ratio_visual}, wind {o.wind_force} from frame {o.wind_since}, rigid "
+          f"{o.rigid_body} at {o.rigid_body_center} radius {o.rigid_cylinder_radius} "
+          f"{o.rigid_cylinder_num} particles of radius {o.rigid_particle_radius} from frame "
+          f"{o.rigid_since}")
+    return cfg
+
+
+def run_future(dev, recon, tmp):
+    """Stage 4: ``predict`` at the smoke widths from phase C's checkpoint, its
+    launch counts and ms per future frame with and without renders; the
+    rigid rollout; the four v2 and v1 kernels against their plain versions;
+    the small card-vs-CPU checks; profiles; the kernel times. Returns the
+    four kernels' entries of the ``kernels`` line."""
+    import copy
+
+    from fluidnexus_torch.pipelines.future_simulation import predict
+
+    cfg = future_config(recon["path"], os.path.join(tmp, "run"))
+    o = cfg.optim
+    scene, bg = recon["scene"], recon["bg"]
+    n_cams = len([c for c in scene.train_cameras if c.time_idx == 0])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run(c, log=lambda *a: None, renders=True):
+        start.record()
+        frames = predict(c, scene, log=log, save_renders=renders, bg=bg, device=dev)
+        end.record()
+        end.synchronize()
+        return frames, start.elapsed_time(end)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    frames, ms_first = run(cfg, log=print)
+    launches = all_launches()
+    print(f"predict: {FUTURE_FRAMES} future frames in {ms_first:.1f} ms with set-up; launches "
+          f"{launches}")
+    if len(frames) != FUTURE_FRAMES or not all(np.isfinite(f["p_ratio"]) for f in frames):
+        _fail("predict did not give a finite p_ratio for each future frame")
+    renders = sorted(os.listdir(os.path.join(cfg.model.model_path, "training_render")))
+    last = np.load(os.path.join(cfg.model.model_path, "checkpoint",
+                                f"frame_{frames[-1]['frame']:03d}_xyz.npy"))
+    vis_y = np.load(os.path.join(cfg.model.model_path, "checkpoint",
+                                 f"frame_{frames[-1]['frame']:03d}_visual_xyz.npy"))[:, 1] * 100.0
+    print(f"predict wrote {len(renders)} renders; the last checkpoint holds {last.shape[0]} "
+          f"hidden particles (y {100.0 * last[:, 1].min():.2f} .. {100.0 * last[:, 1].max():.2f}) "
+          f"and {vis_y.shape[0]} visual (y {vis_y.min():.2f} .. {vis_y.max():.2f} scaled units)")
+    if len(renders) != FUTURE_FRAMES * n_cams or not np.isfinite(last).all() or \
+            last.shape != (frames[-1]["hidden"], 3):
+        _fail("predict's renders or checkpoints are missing or not finite")
+    if not any(f["rigid_hidden"] > 0 for f in frames[RIGID_FROM:]):
+        _fail("the rigid cylinder moved no hidden particle")
+    want = {"pbf_phase1": FUTURE_FRAMES * o.solver_iterations_future,
+            "pbf_phase2": FUTURE_FRAMES * o.solver_iterations_future,
+            "splat_fwd": FUTURE_FRAMES, "composite_fwd": FUTURE_FRAMES * n_cams}
+    idle = [k for k, v in launches.items() if k not in want and v]
+    if any(launches[k] != v for k, v in want.items()) or idle:
+        _fail(f"predict launched the kernels {launches}, expected {want} and no other")
+    print(f"predict launch counts as expected: {want}")
+
+    # ms per future frame: the median of three 10-frame runs less the median
+    # of three 0-frame runs (the checkpoint load and set-up), over 10
+    def timed(frames_, renders):
+        c = copy.deepcopy(cfg)
+        c.optim.future_pred_frames = frames_
+        return run(c, renders=renders)[1]
+
+    per_frame = {}
+    zero = [timed(0, True) for _ in range(3)]
+    for renders in (True, False):
+        runs = [timed(FUTURE_FRAMES, renders) for _ in range(3)]
+        per_frame[renders] = (statistics.median(runs) - statistics.median(zero)) / FUTURE_FRAMES
+        print(f"predict {'with' if renders else 'without'} renders: "
+              f"{', '.join(f'{t:.1f}' for t in runs)} ms for {FUTURE_FRAMES} frames, set-up "
+              f"{', '.join(f'{t:.1f}' for t in zero)} ms; {per_frame[renders]:.3f} ms per future "
+              f"frame (medians of three)")
+    c = copy.deepcopy(cfg)
+    c.optim.future_pred_frames, c.optim.wind_since, c.optim.rigid_since = 2, 0, 0
+    profile_run("future frames (wind and cylinder on)", lambda: run(c), 2, per_frame[True])
+
+    kernels = run_rigid(dev, cfg)
+    small_future_check(dev)
     return kernels
+
+
+def rigid_state(cfg, dev):
+    """The rollout's start: phase C's frame-2 checkpoint, hidden and visual,
+    and the config's cylinder drawn from a new generator of the seed."""
+    from fluidnexus_torch.pipelines.train_physical_particle import pbf_params_from_config
+    from fluidnexus_torch.sim.pbf import RigidSpec, create_rigid_body
+    from fluidnexus_torch.splat.dynamics import load_hidden, load_visual
+
+    o, m = cfg.optim, cfg.model
+    params = pbf_params_from_config(cfg)
+    ckpt = os.path.join(m.load_path, "checkpoint")
+    state = load_hidden(ckpt, 2, m.hidden_capacity, params, device=dev)
+    visual, _ = load_visual(ckpt, 2, m.visual_capacity, device=dev)
+    spec = RigidSpec(kind=o.rigid_body, particle_radius=o.rigid_particle_radius,
+                     center=tuple(o.rigid_body_center), cylinder_radius=o.rigid_cylinder_radius,
+                     cylinder_num=tuple(o.rigid_cylinder_num))
+    return params, state, visual, create_rigid_body(spec, np.random.default_rng(cfg.seed),
+                                                    device=dev)
+
+
+def rigid_tick(params, state, visual, rb, iterations=RIGID_ITERS):
+    """guess -> solver_loop with the body -> confirm -> update_visual."""
+    from fluidnexus_torch.sim.pbf import confirm_guess, guess_hidden, solver_loop, update_visual
+
+    state = guess_hidden(state, params)
+    state, diags = solver_loop(state, params, iterations, rigid=rb)
+    state = confirm_guess(state, params)
+    return state, update_visual(visual, state, params), diags
+
+
+def run_rigid(dev, cfg):
+    """The rigid rollout: RIGID_TICKS ticks with their launch counts and ms
+    per tick; the kernels at the first iteration's inputs; v3, v2 and v1
+    ticks against each other; a profile; the kernel times."""
+    from fluidnexus_torch.sim.pbf import guess_hidden, inside_rigid_body
+
+    params, state0, visual0, rb = rigid_state(cfg, dev)
+    print(f"rigid rollout: {int(state0.num_alive)} hidden and {int(visual0.num_alive)} visual "
+          f"particles, cylinder of {rb.xyz.shape[0]} surface particles over "
+          f"{rb.xyz.min(0).values.tolist()} .. {rb.xyz.max(0).values.tolist()}; {RIGID_TICKS} "
+          f"ticks x {RIGID_ITERS} iterations, grid {params.dense_max_cells} x "
+          f"{params.dense_cell_capacity} rebuilt every iteration")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def ticks(n, log=False):
+        state, visual = state0, visual0
+        start.record()
+        for t in range(n):
+            if log:
+                guessed = guess_hidden(state, params)
+                inside = int((inside_rigid_body(rb, guessed.estimate_xyz) & guessed.alive).sum())
+            state, visual, d = rigid_tick(params, state, visual, rb)
+            if log:
+                print(f"rigid tick {t + 1}: {inside} hidden estimates inside the cylinder after "
+                      f"the guess; overflow {int(d['overflow'].sum())}, p_ratio "
+                      f"{float(d['p_ratio'][-1]):.6f}, neighbors {float(d['neighbors'][-1]):.3f}, "
+                      f"{int(state.num_alive)} hidden alive")
+        end.record()
+        end.synchronize()
+        return state, visual, start.elapsed_time(end)
+
+    ticks(1)                                            # warm-up
+    torch.cuda.synchronize()
+    reset_all_launches()
+    state, visual, _ = ticks(RIGID_TICKS, log=True)
+    launches = all_launches()
+    print(f"rigid rollout launches: {launches}")
+    if not (torch.isfinite(state.xyz).all() and torch.isfinite(visual.xyz).all()):
+        _fail("the rigid rollout's positions are not finite")
+    inside = int((inside_rigid_body(rb, state.xyz) & state.alive).sum())
+    print(f"rigid rollout: {inside} hidden particles inside the cylinder or on its surface "
+          f"after {RIGID_TICKS} ticks")
+    want = {"pbf_phase1_v2": RIGID_TICKS * RIGID_ITERS, "pbf_phase2_v2": RIGID_TICKS * RIGID_ITERS,
+            "splat_fwd": RIGID_TICKS}
+    idle = [k for k, v in launches.items() if k not in want and v]
+    if any(launches[k] != v for k, v in want.items()) or idle:
+        _fail(f"the rigid rollout launched the kernels {launches}, expected {want} and no other")
+    runs = [ticks(RIGID_TICKS)[2] for _ in range(3)]
+    ms_tick = statistics.median(runs) / RIGID_TICKS
+    print(f"rigid rollout: {', '.join(f'{t:.1f}' for t in runs)} ms for {RIGID_TICKS} ticks; "
+          f"{ms_tick:.3f} ms per rigid tick of {RIGID_ITERS} iterations (median of three)")
+
+    inp = rigid_first_inputs(params, state0)
+    errors, saved = check_rigid_kernels(inp)
+    v1_launches = compare_backends(params, state0)
+    launches.update({n: v1_launches[n] for n in ("pbf_phase1_v1", "pbf_phase2_v1")})
+    profile_run("rigid ticks", lambda: ticks(PROFILE_RIGID_TICKS), PROFILE_RIGID_TICKS, ms_tick)
+
+    times = time_rigid_kernels(inp, saved)
+    kernels = []
+    for name, tm in times.items():
+        b_ms, b_by = tm["bound"]
+        replaces, _ = FUTURE_KERNELS[name]
+        path = f"{RIGID_TICKS} rigid ticks" if "v2" in name else "the v1 backend's tick"
+        print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
+              f"of 50 launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
+              f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
+              f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
+              f"{path}")
+        kernels.append({"name": name, "route": "cuda", "source": "fluidnexus_torch/csrc/pbf.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": errors[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return kernels
+
+
+def rigid_first_inputs(params, state0):
+    """The first rigid tick's first Jacobi iteration, rebuilt with the port's
+    own functions in ``solver_loop``'s order: the guess (counts 0), the grid
+    of ``project_gas_constraints_dense`` and its planes, imass at slots."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid, slot_gather
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from fluidnexus_torch.sim.pbf import guess_hidden
+
+    state = guess_hidden(state0, params)
+    grid = build_dense_grid(state.estimate_xyz, params.h, state.alive, params.dense_max_cells,
+                            params.dense_cell_capacity)
+    cnt, *xyz = pc.planes(grid)
+    imass = torch.where(grid.bmask, slot_gather(grid, state.imass), 1.0)
+    c = grid.max_cells
+    occupied = cnt[:c] > 0
+    pairs = _candidates(grid.nbr, cnt, cnt)
+    print(f"rigid first iteration grid: C {c} M {grid.capacity}, {int(occupied.sum())} occupied "
+          f"cells, fullest {int(cnt.max())}, {int(grid.bmask.sum())} live slots of "
+          f"{int(state.num_alive)} alive, {pairs} live candidate pairs, overflow "
+          f"{int(grid.overflow)}")
+    return dict(nbr=grid.nbr, cnt=cnt, xyz=xyz, imass=imass, live=grid.bmask,
+                k=pc.pair_consts(params), params=params, pairs=pairs, rows=int(occupied.sum()))
+
+
+def _lambda(params, live, pi_raw, sg, c2d2, imass):
+    """Lambda between the v2 passes, as ``sim/pbf_dense._project_core``
+    forms it."""
+    p0 = params.p0
+    lam = -(pi_raw / imass / p0 - 1.0) / (c2d2 / (p0 * p0) + ((sg / p0) ** 2).sum(-1)
+                                          + params.relaxation)
+    return torch.where(live, lam, 0.0).contiguous()
+
+
+def check_rigid_kernels(inp):
+    """The v2 and v1 kernels against their plain versions at the first
+    iteration's inputs, live slots only: pi_raw, c2d2 and each axis of sg and
+    of dsum at 1e-4 of their own scale, nlen exactly (flips at d2 = h^2
+    allowed on at most 1e-5 of the live slots), the four global sums at 1e-5
+    relative, dead slots 0. Then v1 against v2: the same walk over copies of
+    the same rows, so identical, or within 1e-6 of each field's scale."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k, live = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"], inp["live"]
+    ncnt, xng = pc.gather_v1(nbr, cnt, *xyz)
+    p1 = {"v2": pc.phase1_v2_slots(nbr, cnt, *xyz, k), "v1": pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)}
+    p1_plain = {"v2": pc.phase1_v2_plain(nbr, cnt, *xyz, k),
+                "v1": pc.phase1_v1_plain(ncnt, xng, cnt, *xyz, k)}
+    lam = _lambda(inp["params"], live, *p1["v2"][:3], inp["imass"])
+    lng = pc.gather_lam_v1(nbr, lam)
+    p2 = {"v2": pc.phase2_v2_slots(nbr, cnt, *xyz, lam, k),
+          "v1": pc.phase2_v1_slots(ncnt, xng, lng, cnt, *xyz, lam, k)}
+    p2_plain = {"v2": pc.phase2_v2_plain(nbr, cnt, *xyz, lam, k),
+                "v1": pc.phase2_v1_plain(ncnt, xng, lng, cnt, *xyz, lam, k)}
+    torch.cuda.synchronize()
+    n_live = int(live.sum())
+    failures, errors = [], {}
+
+    def held(kernel, name, a, b, tol):
+        err = float((a - b)[live].abs().max())
+        scale = float(b[live].abs().max())
+        ok = err <= tol * scale and scale > 0 and not bool(a[~live].any())
+        print(f"rigid kernel check: {kernel} {name} max|err| {err:.3e} / scale {scale:.3e} "
+              f"[tol {tol:g} x scale], dead slots 0" + ("" if ok else " FAILED"))
+        if not ok:
+            failures.append(f"{kernel} {name}")
+        errors[kernel] = max(errors.get(kernel, 0.0), err)
+
+    for v in ("v2", "v1"):
+        got, want = p1[v], p1_plain[v]
+        held(f"pbf_phase1_{v}", "pi_raw", got[0], want[0], 1e-4)
+        for a, axis in enumerate("xyz"):
+            held(f"pbf_phase1_{v}", f"sg {axis}", got[1][..., a], want[1][..., a], 1e-4)
+        held(f"pbf_phase1_{v}", "c2d2", got[2], want[2], 1e-4)
+        flips = int((got[3] != want[3])[live].sum())
+        print(f"rigid kernel check: pbf_phase1_{v} nlen differs on {flips} of {n_live} live slots "
+              f"[tol {int(1e-5 * n_live)}]")
+        if flips > int(1e-5 * n_live):
+            failures.append(f"pbf_phase1_{v} nlen")
+        for a, axis in enumerate("xyz"):
+            held(f"pbf_phase2_{v}", f"dsum {axis}", p2[v][0][..., a], p2_plain[v][0][..., a], 1e-4)
+        sums = (("s_p6", got[4], want[4]), ("s_edges", got[5], want[5]),
+                ("s_corr", p2[v][1], p2_plain[v][1]), ("s_ns", p2[v][2], p2_plain[v][2]))
+        for name, a, b in sums:
+            rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+            print(f"rigid kernel check: {v} {name} {float(a):.6e} against {float(b):.6e}, rel "
+                  f"{rel:.3e} [tol 1e-5]")
+            if not rel <= 1e-5:
+                failures.append(f"{v} {name}")
+    pairs_v1 = [(f"phase 1 {name}", a, b) for name, a, b in zip(
+        ("pi_raw", "sg", "c2d2", "nlen"), p1["v1"][:4], p1["v2"][:4])] + [
+        ("phase 2 dsum", p2["v1"][0], p2["v2"][0])]
+    for name, a, b in pairs_v1:
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        same = err == 0.0
+        print(f"rigid kernel check: v1 against v2, {name}: {'identical' if same else f'max|err| {err:.3e} / scale {scale:.3e}'} "
+              f"[identical, or 1e-6 x scale]")
+        if not err <= 1e-6 * scale:
+            failures.append(f"v1 against v2 {name}")
+    if failures:
+        _fail(f"the v2 and v1 kernels disagree: {failures}")
+    return errors, dict(lam=lam, ncnt=ncnt, xng=xng, lng=lng, in_radius1=int(p1["v2"][5]),
+                        in_radius2=int(p2["v2"][2]))
+
+
+def compare_backends(params, state0):
+    """One grid-reuse tick (``project_iterations_dense``, RIGID_ITERS
+    iterations, counts + 1 each) from the guessed state through the v3, v2
+    and v1 passes, each run with the launch counts set to 0 just before it
+    and read just after (RIGID_ITERS launches of its two kernels, no other):
+    the estimates within 1e-4 scaled units and the force within 1e-4 of its
+    scale of v3's; v1 identical to v2, or within 1e-6. Returns the v1 run's
+    launch counts: ``backend="v1"`` is the path of the v1 kernels."""
+    from fluidnexus_torch.sim.pbf import guess_hidden
+    from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
+
+    state = guess_hidden(state0, params)
+    torch.cuda.synchronize()
+    out, launches = {}, {}
+    for b, names in (("v3", ("pbf_phase1", "pbf_phase2")),
+                     ("v2", ("pbf_phase1_v2", "pbf_phase2_v2")),
+                     ("v1", ("pbf_phase1_v1", "pbf_phase2_v1"))):
+        reset_all_launches()
+        out[b] = project_iterations_dense(state, params, RIGID_ITERS, counts_step=1.0,
+                                          backend=b)[0]
+        launches[b] = all_launches()
+        want = {n: RIGID_ITERS for n in names}
+        if any(v != want.get(n, 0) for n, v in launches[b].items()):
+            _fail(f"the {b} tick launched the kernels {launches[b]}, expected {want} and no other")
+    print(f"tick backends: each of v3, v2 and v1 launched its two kernels {RIGID_ITERS} times "
+          f"and no other kernel")
+    a = state.alive
+    failures = []
+    for b, ref, pos_tol, f_tol in (("v2", "v3", 1e-4, 1e-4), ("v1", "v3", 1e-4, 1e-4),
+                                   ("v1", "v2", 1e-6, 1e-6)):
+        dx = float((out[b].estimate_xyz - out[ref].estimate_xyz)[a].abs().max())
+        f_scale = float(out[ref].force[a].abs().max())
+        df = float((out[b].force - out[ref].force)[a].abs().max())
+        print(f"tick backends: {b} against {ref}: max|d estimate| {dx:.3e} scaled units "
+              f"[tol {pos_tol:g}], max|d force| {df:.3e} / scale {f_scale:.3e} [tol {f_tol:g} x "
+              f"scale]")
+        if not (dx <= pos_tol and df <= f_tol * f_scale):
+            failures.append(f"{b} against {ref}")
+    if failures:
+        _fail(f"the tick's backends disagree: {failures}")
+    return launches["v1"]
+
+
+def time_rigid_kernels(inp, saved):
+    """Each v2 and v1 kernel's device time, its plain version's time and its
+    bound at the first rigid iteration's inputs, and the v1 pre-gathers
+    timed apart. No single PyTorch call computes these pair sums."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
+    lam, ncnt, xng, lng = saved["lam"], saved["ncnt"], saved["xng"], saved["lng"]
+    n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
+    m = xyz[0].shape[1]
+    in1, in2 = saved["in_radius1"], saved["in_radius2"]
+    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * RAW_SLOT_OPS
+    ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
+            + n_live * RAW_SLOT_OPS)
+    g1 = cuda_ms(lambda: pc.gather_v1(nbr, cnt, *xyz), iters=20)
+    g2 = cuda_ms(lambda: pc.gather_lam_v1(nbr, lam), iters=20)
+    print(f"rigid bounds: {pairs} live candidate pairs, {in1} in radius (self included), {in2} "
+          f"non-self in radius; {ops1} and {ops2} f32 operations. The v1 pre-gather "
+          f"(plain torch, all {nbr.shape[0]} rows): coordinates {g1:.4f} ms, lambdas "
+          f"{g2:.4f} ms; {xng.numel() * 4} + {lng.numel() * 4} bytes")
+    # bytes: cnt and the occupied rows' table read once (nbr for v2, the
+    # gathered counts for v1), the live centre slots' planes read once, the
+    # live slots' outputs written once; v1 also reads, of the occupied rows'
+    # gathered blocks (27 x 3 x M coordinates, 27 x M lambdas), the live
+    # entries, which is all its walk touches
+    table = 4 * (cnt.numel() + 27 * rows)
+    gathered_live = int(ncnt[cnt[:ncnt.shape[0]] > 0].sum())
+    print(f"rigid bounds: the v1 kernels read {gathered_live} live entries of the {rows} "
+          f"occupied rows' {rows * 27 * m} gathered neighbour slots")
+    plans = {  # name: (wrapper, plain, args, bytes, operations)
+        "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
+                          table + 4 * n_live * (3 + 6), ops1),
+        "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
+                          table + 4 * n_live * (4 + 3) + 8 * rows, ops2),
+        "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain, (ncnt, xng, cnt, *xyz, k),
+                          table + 4 * 3 * gathered_live + 4 * n_live * (3 + 6), ops1),
+        "pbf_phase2_v1": (pc.phase2_v1_slots, pc.phase2_v1_plain,
+                          (ncnt, xng, lng, cnt, *xyz, lam, k),
+                          table + 4 * 4 * gathered_live + 4 * n_live * (4 + 3) + 8 * rows, ops2),
+    }
+    out = {}
+    for name, (fn, plain, args, nbytes, ops) in plans.items():
+        ms, recorded = kernel_device_ms(lambda: fn(*args), FUTURE_KERNELS[name][1])
+        call_ms = cuda_ms(lambda: fn(*args), iters=50)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=3)
+        out[name] = dict(ms=ms, recorded=recorded, call_ms=call_ms, plain_ms=plain_ms,
+                         bound=bound_ms(nbytes, ops), nbytes=nbytes, ops=ops)
+    return out
+
+
+def small_future_check(dev):
+    """Stage 4 at a small size through the kernels and through the plain CPU
+    path from one checkpoint: a 300-point hidden cloud and 150 visual
+    particles, 3 future frames at 160 x 96 with wind and a small cylinder
+    from the second frame on, and 3 rigid ticks. Alive counts exactly,
+    p_ratio 1e-4 relative, positions within 1e-4 scaled units."""
+    import dataclasses
+
+    from fluidnexus_torch.core.config import Config
+    from fluidnexus_torch.pipelines.future_simulation import predict
+    from fluidnexus_torch.pipelines.train_physical_particle import pbf_params_from_config
+    from fluidnexus_torch.sim.pbf import RigidSpec, create_rigid_body
+    from fluidnexus_torch.sim.state import make_particle_state, make_visual_state
+    from fluidnexus_torch.splat.dynamics import constant_visual_attrs, save_hidden, save_visual
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 3)
+    cfg = Config()
+    o, m = cfg.optim, cfg.model
+    m.hidden_capacity, m.visual_capacity = 1024, 512
+    o.future_pred_frames, o.solver_iterations_future = 3, 3
+    o.p0_future, o.decay_frames_future_p0 = 1.2, 2
+    o.alpha, o.emit_ratio_hidden, o.emit_ratio_visual, o.init_hidden_velocity = 0.0, 1.0, 1.0, 100.0
+    o.wind_since, o.wind_force = 3, [35.0, 0.0, 0.0]
+    o.rigid_since, o.rigid_body, o.rigid_body_center = 3, "cylinder", [0.326, 0.08, -0.3]
+    o.rigid_cylinder_radius, o.rigid_cylinder_num = 2.0, [16, 8]
+    cfg.pipe.tile_capacity, cfg.pipe.chunk = 128, 32
+    params = pbf_params_from_config(cfg)
+    with tempfile.TemporaryDirectory(prefix="fnx_small_future_") as tmp:
+        m.load_path = os.path.join(tmp, "recon")
+        base = np.array([32.6, 7.0, -30.0], np.float32)
+        st = make_particle_state(256, rng.uniform(-3, 3, (100, 3)).astype(np.float32) + base,
+                                 init_velocity_y=50.0, device=cpu)
+        vis = make_visual_state(128, rng.uniform(-3, 3, (60, 3)).astype(np.float32) + base,
+                                device=cpu)
+        save_hidden(st, params, os.path.join(m.load_path, "checkpoint"), 1)
+        save_visual(vis, constant_visual_attrs(128, 1, device=cpu),
+                    os.path.join(m.load_path, "checkpoint"), 1)
+        scene = smoke_scene(width=160, height=96, n_frames=2)
+        runs = {}
+        for name, device in (("cpu", cpu), ("card", dev)):
+            m.model_path = os.path.join(tmp, name)
+            frames = predict(cfg, scene, log=lambda *a: None, bg=None, device=device)
+            last = np.load(os.path.join(m.model_path, "checkpoint", "frame_004_xyz.npy"))
+            runs[name] = (frames, last * params.scale_factor)
+    (f_cpu, x_cpu), (f_dev, x_dev) = runs["cpu"], runs["card"]
+    counts_same = all((a["hidden"], a["visual"], a["killed"], a["rigid_hidden"], a["rigid_visual"])
+                      == (b["hidden"], b["visual"], b["killed"], b["rigid_hidden"], b["rigid_visual"])
+                      for a, b in zip(f_cpu, f_dev))
+    dp = max(abs(a["p_ratio"] - b["p_ratio"]) / abs(a["p_ratio"]) for a, b in zip(f_cpu, f_dev))
+    dx = float(np.abs(x_dev - x_cpu).max()) if x_dev.shape == x_cpu.shape else float("inf")
+    print(f"small future, card vs plain CPU path: counts identical {counts_same} "
+          f"({[(f['hidden'], f['visual'], f['rigid_hidden'], f['rigid_visual']) for f in f_cpu]}), "
+          f"p_ratio rel {dp:.3e} [tol 1e-4], max|dxyz| {dx:.3e} scaled units [tol 1e-4]")
+    if not (counts_same and dp <= 1e-4 and dx <= 1e-4):
+        _fail("stage 4 on the card disagrees with the plain CPU path")
+    if not any(f["rigid_hidden"] > 0 and f["rigid_visual"] > 0 for f in f_dev):
+        _fail("in the small future run the cylinder moved no hidden and visual particle in "
+              "one frame")
+
+    # the rigid rollout alone: 3 ticks of 3 iterations over a cloud the
+    # push-out puts no two points into one place in (such a pair carries a
+    # spiky coefficient of ~s45 h^2 / sqrt(eps), and its rounding noise would
+    # be the comparison's)
+    rng = np.random.default_rng(SEED + 3)
+    pts = (rng.uniform(-2.5, 2.5, (400, 3)) + np.array([32.0, 10.0, -30.0])).astype(np.float32)
+    p_small = dataclasses.replace(params, h=1.0, dense_max_cells=512, dense_cell_capacity=32)
+    spec = RigidSpec(kind="cylinder", center=(0.32, 0.1, -0.3), cylinder_radius=0.7,
+                     cylinder_num=(24, 6), particle_radius=0.15)
+
+    def rollout(device):
+        state = make_particle_state(800, pts, init_velocity_y=10.0, device=device)
+        visual = make_visual_state(256, pts[:200] + 0.3, device=device)
+        rb = create_rigid_body(spec, np.random.default_rng(0), device=device)
+        for _ in range(3):
+            state, visual, _ = rigid_tick(p_small, state, visual, rb, iterations=3)
+        return state, visual
+
+    s_cpu, v_cpu = rollout(cpu)
+    s_dev, v_dev = rollout(dev)
+    same = bool((s_dev.alive.cpu() == s_cpu.alive).all())
+    dx = max(float((s_dev.xyz.cpu() - s_cpu.xyz)[s_cpu.alive].abs().max()),
+             float((v_dev.xyz.cpu() - v_cpu.xyz)[v_cpu.alive].abs().max()))
+    print(f"small rigid rollout, card vs plain CPU path: masks identical {same}, max|dxyz| "
+          f"{dx:.3e} scaled units [tol 1e-4]")
+    if not (same and dx <= 1e-4):
+        _fail("the rigid rollout on the card disagrees with the plain CPU path")
 
 
 def small_reference_check(dev):

@@ -1,15 +1,17 @@
 """Fixed-radius neighbor search (counterpart of ``fluidnexus_tpu/ops/neighbors.py``).
 
 Two structures, both plain torch (the JAX package leaves them to XLA too):
-the padded ``radius_graph`` and the compacted ``DenseGrid`` that the pair
-kernels walk (``build_dense_grid``, ``bin_queries`` for a second point set on
-the same lattice, ``slot_gather``, ``point_gather``).
+the padded lists of ``radius_graph`` and ``radius_query`` and the compacted
+``DenseGrid`` that the pair kernels walk (``build_dense_grid``,
+``bin_queries`` for a second point set on the same lattice, ``slot_gather``,
+``point_gather``).
 
-The padded ``radius_graph`` keeps the JAX grid's exact semantics, so both
-packages keep the same neighbors:
+The padded lists keep the JAX grid's exact semantics, so both packages keep
+the same neighbors:
 
 - points are binned into cells of edge ``r`` in a ``grid^3`` box anchored at
-  the live-point minimum; points beyond the box clamp into its boundary cells;
+  the minimum over the live points and live queries; points beyond the box
+  clamp into its boundary cells;
 - each cell holds at most ``cell_capacity`` points, the lowest indices first
   (a stable sort by cell id); the rest are dropped and counted in ``overflow``;
 - a query gathers the 27 surrounding cells, dropping out-of-box offsets, and
@@ -56,28 +58,28 @@ def _build_grid(x, alive_x, origin, r, grid, m):
     return bidx, bxyz, overflow
 
 
-def radius_graph(x, r, k, loop=False, alive=None, cell_capacity=32, grid_cells=32):
-    """All-pairs fixed-radius neighbors of ``x`` with itself, as a padded
-    (N, K) list: ``torch_cluster.radius_graph(x, r, loop=loop,
-    max_num_neighbors=k)`` (gm_dynamics.py:1081) keeping the K nearest.
-    ``alive`` masks padding rows of static-capacity buffers."""
-    n = x.shape[0]
+def _radius_impl(x, y, alive_x, alive_y, r, k, loop, cell_capacity, grid_cells):
+    """The K nearest live points of ``x`` within ``r`` of each live query
+    ``y`` (the JAX package's ``_radius_impl``, ops/neighbors.py:101-140), in
+    a box anchored at the minimum over the live data and the live queries.
+    Without ``loop`` the queries are ``x`` itself and a point is not its own
+    neighbour."""
+    n = y.shape[0]
     dev = x.device
     m = cell_capacity
     grid = grid_cells
     ncells = grid ** 3
-    if alive is None:
-        alive = torch.ones((n,), dtype=torch.bool, device=dev)
     r_t = torch.as_tensor(r, dtype=x.dtype, device=dev)
 
     big = torch.finfo(x.dtype).max
-    lo = torch.where(alive[:, None], x, torch.full_like(x, big)).amin(0)
+    lo = torch.minimum(torch.where(alive_x[:, None], x, torch.full_like(x, big)).amin(0),
+                       torch.where(alive_y[:, None], y, torch.full_like(y, big)).amin(0))
     origin = torch.floor(lo / r_t).to(torch.int64)
-    bidx, bxyz, overflow = _build_grid(x, alive, origin, r_t, grid, m)
+    bidx, bxyz, overflow = _build_grid(x, alive_x, origin, r_t, grid, m)
 
-    q = torch.nonzero(alive).squeeze(1)
-    y = x[q]
-    qcell = torch.clamp(torch.floor(y / r_t).to(torch.int64) - origin, 0, grid - 1)
+    q = torch.nonzero(alive_y).squeeze(1)
+    yq = y[q]
+    qcell = torch.clamp(torch.floor(yq / r_t).to(torch.int64) - origin, 0, grid - 1)
     off = torch.as_tensor(_OFFSETS, device=dev)
     nc = qcell[:, None, :] + off[None]                                   # (Q,27,3)
     # a non-zero offset whose cell lies outside the box could only alias a
@@ -87,11 +89,13 @@ def radius_graph(x, r, k, loop=False, alive=None, cell_capacity=32, grid_cells=3
     nid = torch.where(off_ok, nid, torch.full_like(nid, ncells))
     cand = bidx[nid].reshape(q.shape[0], 27 * m)
     cxyz = bxyz[nid].reshape(q.shape[0], 27 * m, 3)
-    d2 = torch.sum((y[:, None, :] - cxyz) ** 2, -1)
+    d2 = torch.sum((yq[:, None, :] - cxyz) ** 2, -1)
     good = (cand >= 0) & (d2 <= r_t * r_t)
     if not loop:
         good = good & (cand != q[:, None])
     inf = torch.full_like(d2, float("inf"))
+    # the K nearest by a stable sort, as jnp.argsort sorts: equal distances
+    # keep their candidate order
     sel = torch.argsort(torch.where(good, d2, inf), dim=1, stable=True)[:, :k]
     qidx = torch.gather(torch.clamp(cand, min=0), 1, sel)
     qmsk = torch.gather(good, 1, sel)
@@ -101,6 +105,29 @@ def radius_graph(x, r, k, loop=False, alive=None, cell_capacity=32, grid_cells=3
     idx[q] = torch.where(qmsk, qidx, torch.zeros_like(qidx))
     mask[q] = qmsk
     return NeighborList(idx=idx, mask=mask, overflow=overflow)
+
+
+def radius_graph(x, r, k, loop=False, alive=None, cell_capacity=32, grid_cells=32):
+    """All-pairs fixed-radius neighbors of ``x`` with itself, as a padded
+    (N, K) list: ``torch_cluster.radius_graph(x, r, loop=loop,
+    max_num_neighbors=k)`` (gm_dynamics.py:1081) keeping the K nearest.
+    ``alive`` masks padding rows of static-capacity buffers."""
+    if alive is None:
+        alive = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+    return _radius_impl(x, x, alive, alive, r, k, loop, cell_capacity, grid_cells)
+
+
+def radius_query(x, y, r, k, alive_x=None, alive_y=None, cell_capacity=32, grid_cells=32):
+    """Neighbours of each query ``y`` among the data points ``x`` within
+    ``r``, as a padded (Nq, K) list of the K nearest:
+    ``torch_cluster.radius(x, y, r, max_num_neighbors=k)``
+    (gm_dynamics.py:1369, 1465). ``alive_*`` mask padding rows; dead queries
+    come back fully masked."""
+    if alive_x is None:
+        alive_x = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+    if alive_y is None:
+        alive_y = torch.ones((y.shape[0],), dtype=torch.bool, device=y.device)
+    return _radius_impl(x, y, alive_x, alive_y, r, k, True, cell_capacity, grid_cells)
 
 
 # ------------------------------- dense grid ---------------------------------

@@ -3,26 +3,33 @@
 The point-wise steps of a solver tick: the prediction ``guess_hidden``, the
 commit ``confirm_guess``, ``remove_invalid`` over the padded radius graph,
 and the capacity warning. The density projection itself is
-``sim/pbf_dense.project_iterations_dense``. Phase C's differentiable pair
-sums: ``density_ratio_at`` (the gas loss) and ``visual_xyz_from_nn`` (the
-advection of the visual particles), each a ``torch.autograd.Function`` with
-the JAX package's analytic backward over the dense grid (its ``dense=True``
-branch, the one its accelerator runs), and ``guess_from_nn``. Positions live
-in scaled space (world * scale_factor, scale_factor = 100).
+``sim/pbf_dense``: ``project_iterations_dense`` (one grid per tick) and
+``project_gas_constraints_dense`` (one grid per Jacobi iteration), which
+``solver_loop`` runs with a rigid body. Rigid bodies (``RigidSpec``,
+``create_rigid_body``, the push-out ``project_rigid_constraints``) and the
+forward velocity splat of the visual particles (``splat_velocity_to_points``,
+``update_visual``). Phase C's differentiable pair sums: ``density_ratio_at``
+(the gas loss) and ``visual_xyz_from_nn`` (the advection of the visual
+particles), each a ``torch.autograd.Function`` with the JAX package's
+analytic backward over the dense grid (its ``dense=True`` branch, the one
+its accelerator runs), and ``guess_from_nn``. Positions live in scaled space
+(world * scale_factor, scale_factor = 100).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from fluidnexus_torch.ops.neighbors import (
-    DenseGrid, bin_queries, build_dense_grid, point_gather, radius_graph, slot_gather,
+    DenseGrid, bin_queries, build_dense_grid, point_gather, radius_graph, radius_query,
+    slot_gather,
 )
 from fluidnexus_torch.sim import pbf_cuda, splat_cuda
-from fluidnexus_torch.sim.state import ParticleState
+from fluidnexus_torch.sim.state import ParticleState, VisualState
 
 GRAVITY = np.array([0.0, -9.8, 0.0], np.float32)
 
@@ -155,6 +162,50 @@ def warn_capacity_overflow(diags, context: str, strict: bool = False, log=print)
     return total
 
 
+def solver_loop(state: ParticleState, params: PBFParams, iterations: int,
+                rigid: Optional["RigidBody"] = None):
+    """``iterations`` Jacobi projections with the reference's counts schedule
+    (counts + 1 after each projection, train_physical_particle.py:292-298).
+    Without a rigid body the grid is built once (``project_iterations_dense``,
+    counts_step 1). With one, each iteration runs, in this order,
+    ``project_gas_constraints_dense`` (a grid rebuilt from the current
+    estimates, the v2 kernels), the push-out of the body and counts + 1.
+    Returns (state, diags stacked over the iterations)."""
+    from fluidnexus_torch.sim.pbf_dense import (
+        project_gas_constraints_dense, project_iterations_dense, stack_diags,
+    )
+
+    if rigid is None:
+        return project_iterations_dense(state, params, iterations, counts_step=1.0)
+    diags = []
+    with record_function("fnx.jacobi"):
+        for _ in range(iterations):
+            state, diag = project_gas_constraints_dense(state, params)
+            state = project_rigid_constraints(state, rigid, params)
+            state = state._replace(counts=state.counts + 1.0)
+            diags.append(diag)
+    return state, stack_diags(diags)
+
+
+def splat_velocity_to_points(points, point_alive, state: ParticleState, params: PBFParams):
+    """The poly6-weighted velocity splat from the hidden estimates to
+    ``points``, as a position delta (update_visual_particles,
+    gm_dynamics.py:1360-1402): delta = secs sum_j w_j v_j / max(sum_j w_j,
+    eps), through the two-lattice splat forward kernel over every in-radius
+    source (the JAX package's accelerator branch, ``dense=True``). No
+    gradient."""
+    with torch.no_grad():
+        grid = build_dense_grid(state.estimate_xyz, params.h, state.alive,
+                                params.dense_max_cells, params.dense_cell_capacity)
+        return _splat_delta(grid, state.velocity, points, point_alive, params)[0]
+
+
+def update_visual(visual: VisualState, state: ParticleState, params: PBFParams) -> VisualState:
+    """The visual particles advected by the dense splat of the hidden velocities."""
+    delta = splat_velocity_to_points(visual.xyz, visual.alive, state, params)
+    return visual._replace(xyz=torch.where(visual.alive[:, None], visual.xyz + delta, visual.xyz))
+
+
 # --------------------------- differentiable NN paths ------------------------
 
 
@@ -214,6 +265,24 @@ def density_ratio_at(positions, alive, imass, params: PBFParams, grid: Optional[
     return _DensityRatio.apply(positions, imass, params, grid)
 
 
+def _splat_delta(grid: DenseGrid, vel, points, point_alive, params: PBFParams):
+    """The splat forward over the source ``grid``: (delta (Nq, 3), ws (Nq,),
+    the tables the adjoint reads). The queries are binned on the grid's
+    lattice; the forward kernel gives the per-slot sums, c6 applied outside
+    the kernel, so the eps clamp is max(c6 ws, eps). Dead and dropped queries
+    read the zero row Cq: delta 0."""
+    C, M = params.dense_max_cells, params.dense_cell_capacity
+    qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, C, M)
+    planes, qplanes = pbf_cuda.planes(grid), pbf_cuda.planes(qgrid)
+    vel_s = slot_gather(grid, vel).contiguous()
+    wv_s, ws_s = splat_cuda.splat_fwd(qgrid.nbr, *qplanes, *planes, vel_s, params.h)
+    c6 = float(np.float32(params.poly6_term1))
+    wvs = point_gather(qgrid, torch.cat([wv_s * c6, ws_s[..., None] * c6], -1))  # row Cq: 0
+    ws = wvs[:, 3]
+    delta = params.secs * wvs[:, :3] / torch.clamp(ws, min=params.epsilon)[:, None]
+    return delta, ws, (grid, qgrid, rnbr, planes, qplanes, vel_s)
+
+
 class _SplatDelta(torch.autograd.Function):
     """delta (Nq, 3) = secs (sum_j W_ij vel_j) / max(sum_j W_ij, eps) of the
     queries ``points`` over the sources in ``grid`` (the JAX
@@ -223,18 +292,9 @@ class _SplatDelta(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, vel, points, point_alive, params: PBFParams, grid: DenseGrid):
-        C, M = params.dense_max_cells, params.dense_cell_capacity
-        qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, C, M)
-        planes, qplanes = pbf_cuda.planes(grid), pbf_cuda.planes(qgrid)
-        vel_s = slot_gather(grid, vel).contiguous()
-        wv_s, ws_s = splat_cuda.splat_fwd(qgrid.nbr, *qplanes, *planes, vel_s, params.h)
-        # c6 applied outside the kernel, so the eps clamp is max(c6 ws, eps)
-        c6 = float(np.float32(params.poly6_term1))
-        wvs = point_gather(qgrid, torch.cat([wv_s * c6, ws_s[..., None] * c6], -1))  # row Cq: 0
-        ws = wvs[:, 3]
-        delta = params.secs * wvs[:, :3] / torch.clamp(ws, min=params.epsilon)[:, None]
+        delta, ws, tables = _splat_delta(grid, vel, points, point_alive, params)
         ctx.save_for_backward(ws, delta)
-        ctx.tables = (grid, qgrid, rnbr, planes, qplanes, vel_s)
+        ctx.tables = tables
         ctx.params = params
         return delta
 
@@ -284,3 +344,115 @@ def guess_from_nn(estimate_xyz_nn, state: ParticleState, params: PBFParams):
     tmp_velocity = (est - state.xyz) / params.secs
     est_vel = tmp_velocity + cur_buoy * params.secs + params.secs * state.force
     return est + params.secs * est_vel
+
+
+# --------------------------------- rigid body --------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RigidSpec:
+    """Rigid-body config (ref setup_constants:151-167)."""
+
+    kind: str = "sphere"                       # cuboid | sphere | cylinder
+    particle_radius: float = 0.25
+    center: Tuple[float, float, float] = (0.0, 0.0, 0.0)  # world units (scaled inside)
+    cuboid_num: Tuple[int, int, int] = (10, 10, 10)
+    sphere_radius: float = 1.0
+    sphere_num: int = 1000
+    cylinder_radius: float = 1.0
+    cylinder_num: Tuple[int, int] = (64, 16)
+    scale_factor: float = 100.0
+
+
+class RigidBody(NamedTuple):
+    xyz: torch.Tensor          # (M, 3) surface particles, scaled space
+    spec_kind: int             # 0 cuboid, 1 sphere, 2 cylinder
+    center: torch.Tensor       # (3,) scaled space
+    half_extent: torch.Tensor  # (3,) size per kind: cuboid half sizes, sphere (r, 0, 0),
+                               # cylinder (r, half length, 0)
+
+
+def create_rigid_body(spec: RigidSpec, rng: np.random.Generator, device="cuda") -> RigidBody:
+    """The body's surface particle cloud (create_rigid_body,
+    gm_dynamics.py:612-672), made on the host as the JAX package makes it:
+    the sphere draws its points from ``rng``, the cuboid and the cylinder draw
+    nothing. The cylinder's axis is z."""
+    diam = 2 * spec.particle_radius
+    if spec.kind == "cuboid":
+        xn, yn, zn = spec.cuboid_num
+        pts = []
+        for i in range(xn):
+            for j in range(yn):
+                for kk in range(zn):
+                    if 0 < i < xn - 1 and 0 < j < yn - 1 and 0 < kk < zn - 1:
+                        continue
+                    pts.append([i * diam - xn // 2 * diam, j * diam - yn // 2 * diam,
+                                kk * diam - zn // 2 * diam])
+        xyz = np.array(pts, np.float32)
+        half = np.array([xn * diam, yn * diam, zn * diam], np.float32) / 2
+        kind = 0
+    elif spec.kind == "sphere":
+        phi = rng.uniform(0, 2 * np.pi, spec.sphere_num)
+        theta = np.arccos(rng.uniform(-1, 1, spec.sphere_num))
+        xyz = np.stack([spec.sphere_radius * np.sin(theta) * np.cos(phi),
+                        spec.sphere_radius * np.sin(theta) * np.sin(phi),
+                        spec.sphere_radius * np.cos(theta)], 1).astype(np.float32)
+        half = np.array([spec.sphere_radius, 0, 0], np.float32)
+        kind = 1
+    elif spec.kind == "cylinder":
+        ncyc, nh = spec.cylinder_num
+        pts = []
+        for i in range(ncyc):
+            for j in range(nh):
+                th = i * 2 * np.pi / ncyc
+                pts.append([spec.cylinder_radius * np.cos(th), spec.cylinder_radius * np.sin(th),
+                            (j - nh / 2) * diam])
+        xyz = np.array(pts, np.float32)
+        half = np.array([spec.cylinder_radius, nh * diam / 2, 0], np.float32)
+        kind = 2
+    else:
+        raise ValueError(spec.kind)
+    center = np.asarray(spec.center, np.float32) * spec.scale_factor
+    f32 = dict(dtype=torch.float32, device=device)
+    return RigidBody(xyz=torch.as_tensor(xyz + center, **f32), spec_kind=kind,
+                     center=torch.as_tensor(center, **f32), half_extent=torch.as_tensor(half, **f32))
+
+
+def inside_rigid_body(rb: RigidBody, xyz):
+    """Point-in-body test (check_inside_rigid_body, gm_dynamics.py:1186-1218)."""
+    if rb.spec_kind == 0:
+        lower, upper = rb.center - rb.half_extent, rb.center + rb.half_extent
+        return torch.all((xyz >= lower) & (xyz <= upper), -1)
+    if rb.spec_kind == 1:
+        return torch.linalg.vector_norm(xyz - rb.center, dim=-1) <= rb.half_extent[0]
+    dxy = (xyz[:, 0] - rb.center[0]) ** 2 + (xyz[:, 1] - rb.center[1]) ** 2
+    return (dxy <= rb.half_extent[0] ** 2) & (torch.abs(xyz[:, 2] - rb.center[2]) <= rb.half_extent[1])
+
+
+def _push_out_of_rigid(rb: RigidBody, xyz, alive, params: PBFParams):
+    """Points inside the body move to the nearest surface particle within h
+    (project_rigid_body_constraints, gm_dynamics.py:1220-1266: dp1 = -(p -
+    nearest)); the 8 nearest come from ``radius_query``, and of equal
+    distances the first wins, as ``jnp.argmin`` picks."""
+    inside = inside_rigid_body(rb, xyz) & alive
+    nl = radius_query(rb.xyz, xyz, params.h, k=8, alive_y=inside)
+    d2 = torch.sum((xyz[:, None] - rb.xyz[nl.idx]) ** 2, -1)
+    d2 = torch.where(nl.mask, d2, float("inf"))
+    nearest = torch.gather(nl.idx, 1, torch.argmin(d2, -1, keepdim=True))[:, 0]
+    move = inside & nl.mask.any(-1)
+    return torch.where(move[:, None], rb.xyz[nearest], xyz)
+
+
+def project_rigid_constraints(state: ParticleState, rb: RigidBody,
+                              params: PBFParams) -> ParticleState:
+    """The hidden estimates pushed out of the body."""
+    with record_function("fnx.rigid"):
+        return state._replace(estimate_xyz=_push_out_of_rigid(rb, state.estimate_xyz,
+                                                              state.alive, params))
+
+
+def project_rigid_constraints_visual(visual: VisualState, rb: RigidBody,
+                                     params: PBFParams) -> VisualState:
+    """The visual particles pushed out of the body."""
+    with record_function("fnx.rigid"):
+        return visual._replace(xyz=_push_out_of_rigid(rb, visual.xyz, visual.alive, params))

@@ -5,11 +5,12 @@ So far: constant-appearance attrs (prepare_*_for_rendering:1643-1699: color
 0.7, log-scale -5.9, opacity 0.1), the first-frame visual column
 (create_particles_visual:510), the hidden PBF pillar
 (create_particles_hidden:557) and the per-frame visual and hidden npy
-checkpoints (save_visual:1901, load_visual:2067, save_hidden:1834,
-load_hidden:1991) in the reference format, and phase C's emitters
-(prepare_emitter_points:674, emit_new_particles:844) under static
-capacities: the plans are host-side numpy drawn from the caller's generator
-in the JAX package's order, the writes go into dead slots.
+checkpoints (save_visual:1901, load_visual:2067 with its smoothed variant,
+save_hidden:1834, load_hidden:1991) in the reference format, the emitters
+of phase C and of the future stage (prepare_emitter_points:674-790,
+emit_new_particles:844) under static capacities: the plans are host-side
+numpy drawn from the caller's generator in the JAX package's order, the
+writes go into dead slots; and the bottom cut of the visual particles.
 """
 from __future__ import annotations
 
@@ -120,21 +121,37 @@ def _disk_lattice(center_x, center_z, y_values, radius, delta) -> np.ndarray:
 
 @dataclasses.dataclass
 class EmitterPoints:
-    """Precomputed emitter lattices (prepare_emitter_points, :674-745).
-    WORLD units; scaled at emit time."""
+    """Precomputed emitter lattices (prepare_emitter_points, :674-745, and
+    the future-first variant :747-790). WORLD units; scaled at emit time.
+    ``hidden_first``/``visual_first`` stack the disk over 2 r of height; the
+    future stage sizes its emission caps by them."""
 
     hidden: np.ndarray
     visual: np.ndarray
+    hidden_first: np.ndarray
+    visual_first: np.ndarray
 
     @classmethod
-    def from_config(cls, m):
+    def from_config(cls, m, is_future: bool = False):
+        """The lattices of ``m`` (a ModelConfig); with ``is_future`` the
+        visual disk sits vr / 2 lower, as the future stage emits it."""
         vr = m.emitter_visual_delta * m.emitter_visual_radius_ratio
         hr = m.emitter_hidden_delta * m.emitter_hidden_radius_ratio
-        visual = _disk_lattice(m.init_x_mid, m.init_z_mid, [m.emitter_center_y_visual], vr,
-                               m.emitter_visual_delta)
+        vy = m.emitter_center_y_visual - vr / 2 if is_future else m.emitter_center_y_visual
+        visual = _disk_lattice(m.init_x_mid, m.init_z_mid, [vy], vr, m.emitter_visual_delta)
         hidden = _disk_lattice(m.init_x_mid, m.init_z_mid, [m.emitter_center_y_hidden], hr,
                                m.emitter_hidden_delta)
-        return cls(hidden=hidden, visual=visual)
+        vy_first = np.arange(m.emitter_center_y_visual,
+                             m.emitter_center_y_visual + vr * 2 + m.emitter_visual_delta,
+                             m.emitter_visual_delta)
+        hy_first = np.arange(m.emitter_center_y_hidden,
+                             m.emitter_center_y_hidden + hr * 2 + m.emitter_hidden_delta,
+                             m.emitter_hidden_delta)
+        return cls(hidden=hidden, visual=visual,
+                   hidden_first=_disk_lattice(m.init_x_mid, m.init_z_mid, hy_first, hr,
+                                              m.emitter_hidden_delta),
+                   visual_first=_disk_lattice(m.init_x_mid, m.init_z_mid, vy_first, vr,
+                                              m.emitter_visual_delta))
 
 
 def plan_emission(points: np.ndarray, ratio: float, rng: np.random.Generator,
@@ -228,6 +245,12 @@ def emit_visual(visual: VisualState, new_xyz: np.ndarray,
     return st
 
 
+def remove_bottom_visual(visual: VisualState, scale_factor: float = 100.0) -> VisualState:
+    """Kill the visual particles under y = -0.017 world units
+    (remove_invisible_bottom_visual_particles, gm_dynamics.py:1062-1072)."""
+    return visual._replace(alive=visual.alive & (visual.xyz[:, 1] >= -0.017 * scale_factor))
+
+
 def save_hidden(state: ParticleState, params: PBFParams, path: str, frame_idx: int):
     """Per-frame npy checkpoint in the reference format (save_hidden,
     :1834-1898): alive rows only, xyz/estimate_xyz down-scaled, the
@@ -300,10 +323,12 @@ def save_visual(visual: VisualState, attrs: VisualAttrs, path: str, frame_idx: i
 
 
 def load_visual(path: str, frame_idx: int, capacity: int, channels: int = 1,
-                scale_factor: float = 100.0, scale: bool = True, device="cuda"):
-    """(load_visual :2067). With scale=False positions are loaded as saved,
-    i.e. world units. The smoothed-attribute variant comes with the level-two
-    stage."""
+                scale_factor: float = 100.0, smoothed_window: Optional[int] = None,
+                use_smoothed=None, scale: bool = True, device="cuda"):
+    """(load_visual :2067 / load_visual_smoothed :2095). With
+    ``smoothed_window`` and ``use_smoothed`` ({attr: bool}) an attribute
+    reads ``visual_{attr}_smoothed_ws{window}.npy`` where that file exists.
+    With scale=False positions are loaded as saved, i.e. world units."""
     pre = os.path.join(path, f"frame_{frame_idx:03d}_")
     xyz = np.load(pre + "visual_xyz.npy")
     if scale:
@@ -312,8 +337,12 @@ def load_visual(path: str, frame_idx: int, capacity: int, channels: int = 1,
     vis = make_visual_state(capacity, xyz.astype(np.float32), device=device)
 
     def attr(name):
-        return torch.as_tensor(np.load(pre + f"visual_{name}.npy"), dtype=torch.float32,
-                               device=device)
+        p = pre + f"visual_{name}.npy"
+        if smoothed_window and use_smoothed and use_smoothed.get(name, False):
+            ps = pre + f"visual_{name}_smoothed_ws{smoothed_window}.npy"
+            if os.path.exists(ps):
+                p = ps
+        return torch.as_tensor(np.load(p), dtype=torch.float32, device=device)
 
     attrs = constant_visual_attrs(capacity, channels, device=device)
     color = attr("color")
