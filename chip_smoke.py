@@ -45,6 +45,13 @@ Rigid rollout: from the same checkpoint, ticks of guess -> ``solver_loop``
 with the cylinder (10 Jacobi iterations, the grid rebuilt every iteration:
 the v2 kernels) -> confirm -> ``update_visual``; the v2 and v1 kernels held
 against their plain versions and each other at the first iteration's inputs.
+
+Video (``sample_video.main`` at its defaults): the CogVideoX-5B DiT and VAE on
+seeded random weights, 49 frames at 480 x 720 (13 latents, 17 776 tokens),
+hash text, batch-2 CFG, ``--num_steps`` cut from 50 to 4, the PNGs written
+to a temporary folder; the flash-attention kernel held against its plain
+version at layer 0's inputs of the first step (bf16, and those inputs in f32)
+and at ragged shapes.
 """
 from __future__ import annotations
 
@@ -60,6 +67,8 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, same sheet
+H100_BF16_TC_FLOPS = 989e12  # bf16 on the tensor cores, dense, same sheet
+H100_EXP_PER_S = 3.9e12      # exponentials on the special-function units (FlashAttention-3 paper)
 SEED = 0
 FIT_ITERS = 30
 TIMED_ITERS = 20
@@ -112,9 +121,9 @@ def kernel_device_ms(fn, kernel, iters=50):
     _fail(f"the profiler saw at most {best} launches of {kernel} in five windows, expected {iters}")
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=H100_F32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -389,7 +398,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    built = cuda_build.build(["rasterizer", "pbf", "splat"])
+    built = cuda_build.build(["rasterizer", "pbf", "splat", "attention"])
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
@@ -398,12 +407,14 @@ def main():
         kernels = run_phase_a(dev) + run_phase_b(dev)
         phase_c_kernels, recon = run_phase_c(dev, os.path.join(tmp, "recon"))
         kernels += phase_c_kernels + run_future(dev, recon, os.path.join(tmp, "future"))
+        kernels += run_video(dev, os.path.join(tmp, "video"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
 def reset_all_launches():
+    from fluidnexus_torch.ops import attention_cuda as ac
     from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -411,14 +422,16 @@ def reset_all_launches():
     tc.reset_launches()
     pc.reset_launches()
     sc.reset_launches()
+    ac.reset_launches()
 
 
 def all_launches():
+    from fluidnexus_torch.ops import attention_cuda as ac
     from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
 
-    return {**tc.LAUNCHES, **pc.LAUNCHES, **sc.LAUNCHES}
+    return {**tc.LAUNCHES, **pc.LAUNCHES, **sc.LAUNCHES, **ac.LAUNCHES}
 
 
 def run_phase_a(dev):
@@ -1741,6 +1754,285 @@ def small_reference_check(dev):
           f"max|dxyz| {dx:.3e} [bound {bound:.3e}]")
     if not (dl <= 1e-3 and dx <= bound):
         _fail("phase A on the card disagrees with the plain CPU path")
+
+
+# ---------------------------------- video ------------------------------------
+
+VIDEO_STEPS = 4               # --num_steps, cut from the CLI's 50
+VIDEO_FRAMES = 49             # sample_video's default clip, 13 latents
+VIDEO_PAIRS = ((0, 0), (0, 47), (1, 13), (1, 47))   # (b, h) held against the plain version
+RAGGED_S = (1, 47, 64, 65, 777, 2274)
+# bf16 output and bf16 P each round to 2^-9 of a value: a weight that
+# dominates its row carries P's rounding straight into the output, so the
+# error reaches ~4e-3 of max|ref| there; f32 is held to 1e-5 of max|ref|
+BF16_MAX_TOL, BF16_MEAN_TOL, F32_TOL = 1e-2, 2e-3, 1e-5
+
+
+def attention_errors(out, ref):
+    err = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    return float(err.max()), float(err.mean()), scale
+
+
+def attention_ok(dtype, emax, emean, scale):
+    if dtype == torch.float32:
+        return emax <= F32_TOL * scale
+    return emax <= BF16_MAX_TOL * scale and emean <= BF16_MEAN_TOL * scale
+
+
+def check_attention_ragged(dev):
+    """The kernel against its plain version at ragged sequence lengths, each
+    head_dim the DiT configs use and one more, in both types; v a strided
+    view of a (b, s, h, 3d) projection, as in the DiT."""
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    failures, worst = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (16, 64, 128):
+            for s in RAGGED_S:
+                q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=dev).to(dtype)
+                           for _ in range(3))
+                v_view = torch.cat([q, k, v], -1).transpose(1, 2).contiguous()[..., 2 * d:]
+                out = ac.attention_fwd(q, k, v_view.transpose(1, 2))
+                emax, emean, scale = attention_errors(out, ac.attention_plain(q, k, v))
+                rel = emax / scale
+                key = (str(dtype).split(".")[-1], d)
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not attention_ok(dtype, emax, emean, scale):
+                    failures.append((key, s, emax, emean, scale))
+    torch.cuda.synchronize()
+    print("attention ragged check, s in " + str(RAGGED_S) + ": worst max|err| / max|ref| "
+          + ", ".join(f"{t} d{d} {r:.2e}" for (t, d), r in worst.items())
+          + f" [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 {F32_TOL:g}]")
+    if failures:
+        _fail(f"the attention kernel disagrees with its plain version: {failures[:6]}")
+
+
+def run_video(dev, out_folder):
+    """The video DiT sampling path through ``sample_video.main`` at its
+    defaults (CogVideoX-5B, 49 x 480 x 720, 17 776 tokens, batch-2 CFG,
+    hash text) with ``--num_steps`` cut to 4: launch counts, ms per sampler
+    step, the VAE decode, peak memory, PNGs; the kernel against its plain
+    version at layer 0's inputs of the first step (in bf16, and in f32 on a
+    few pairs) and at ragged shapes; its times; the small card-vs-CPU
+    sampling. Returns the kernel's entry of the
+    ``kernels`` line."""
+    import time
+
+    import torch.nn.functional as F
+
+    from fluidnexus_torch.diffusion.video import dit as dit_mod
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.pipelines import sample_video
+
+    check_attention_ragged(dev)
+    argv = ["--prompt", "smoke rising past a cylinder", "--out_folder", out_folder,
+            "--num_steps", str(VIDEO_STEPS), "--allow_fake_conditioning"]
+    cfg = sample_video.configs(VIDEO_FRAMES, 480, 720, tiny=False)[0]
+    n_layers = cfg.num_layers
+    print(f"video: sample_video.main({argv}) at its defaults: the CogVideoX-5B DiT (hidden "
+          f"{cfg.hidden_size}, {n_layers} layers, {cfg.num_heads} heads of {cfg.head_dim}) on "
+          f"seeded random weights, {VIDEO_FRAMES} frames at 480 x 720, hash text, batch-2 CFG; "
+          f"cut: --num_steps {VIDEO_STEPS} (the CLI runs 50), the PNGs go to a temporary folder")
+
+    # layer 0's attention inputs of the first step, and an event at the
+    # start of every DiT forward and around the decode
+    captured, steps, decode = {}, [], []
+    real_attn, real_apply, real_decode = (dit_mod.joint_attention, VideoEngine.dit_apply,
+                                          VideoEngine.decode_first_stage)
+
+    def recording_attn(q, k, v):
+        if not captured:
+            captured.update(q=q, k=k, v=v)
+        return real_attn(q, k, v)
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_apply(self, *a):
+        steps.append(event())
+        return real_apply(self, *a)
+
+    def timed_decode(self, *a, **kw):
+        decode.append(event())
+        out = real_decode(self, *a, **kw)
+        decode.append(event())
+        return out
+
+    dit_mod.joint_attention = recording_attn
+    VideoEngine.dit_apply, VideoEngine.decode_first_stage = timed_apply, timed_decode
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        decoded = sample_video.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+    finally:
+        dit_mod.joint_attention = real_attn
+        VideoEngine.dit_apply, VideoEngine.decode_first_stage = real_apply, real_decode
+    peak = torch.cuda.max_memory_allocated()
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    b, h, s, d = q.shape
+    step_ms = [a.elapsed_time(z) for a, z in zip(steps, steps[1:] + decode[:1])]
+    decode_ms = decode[0].elapsed_time(decode[1])
+    pngs = sorted(os.listdir(out_folder))
+    print(f"video: q/k/v at layer 0 of step 1: {tuple(q.shape)} {q.dtype} ({s} tokens = 226 text "
+          f"+ {s - 226} video); v strides {v.stride()}")
+    print(f"video: launches {launches}; ms per sampler step "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (median {statistics.median(step_ms):.1f}); "
+          f"VAE decode 13 latents -> {decoded.shape[1]} frames (chunks 3 + 2 x 5, f32, TF32 "
+          f"off) {decode_ms:.1f} ms; main end to end {seconds:.2f} s; peak allocated "
+          f"{peak / 2**30:.2f} GiB; {len(pngs)} PNGs")
+    want = {"attention_fwd": n_layers * VIDEO_STEPS}
+    idle = [n for n, c in launches.items() if n not in want and c]
+    if launches["attention_fwd"] != want["attention_fwd"] or idle:
+        _fail(f"sample_video launched {launches}, expected {want} and no other kernel")
+    if len(steps) != VIDEO_STEPS or len(decode) != 2:
+        _fail(f"expected {VIDEO_STEPS} DiT forwards and one decode, saw {len(steps)} and "
+              f"{len(decode) // 2}")
+    if tuple(decoded.shape) != (1, VIDEO_FRAMES, 480, 720, 3) or not torch.isfinite(decoded).all():
+        _fail(f"the decoded clip is not finite (1, {VIDEO_FRAMES}, 480, 720, 3): "
+              f"{tuple(decoded.shape)}")
+    if len(pngs) != VIDEO_FRAMES:
+        _fail(f"sample_video wrote {len(pngs)} PNGs, expected {VIDEO_FRAMES}")
+
+    # ---- the kernel at the main path's own inputs, then its times
+    with torch.inference_mode():
+        out = ac.attention_fwd(q, k, v)
+        errs = []
+        for bi, hi in VIDEO_PAIRS:
+            sl = (slice(bi, bi + 1), slice(hi, hi + 1))
+            errs.append(attention_errors(out[bi:bi + 1, :, hi:hi + 1],
+                                         ac.attention_plain(q[sl], k[sl], v[sl])))
+        torch.cuda.synchronize()
+        print("video: attention at layer 0's inputs, (b, h) " + str(VIDEO_PAIRS) + ": max|err| "
+              + ", ".join(f"{e[0]:.3e}" for e in errs) + "; mean|err| "
+              + ", ".join(f"{e[1]:.3e}" for e in errs) + "; max|ref| "
+              + ", ".join(f"{e[2]:.3e}" for e in errs)
+              + f" [tol max {BF16_MAX_TOL:g}, mean {BF16_MEAN_TOL:g} x max|ref|]")
+        if not all(attention_ok(q.dtype, *e) for e in errs):
+            _fail("the attention kernel disagrees with its plain version at layer 0's inputs")
+        # the same pairs' inputs in f32, through the f32 instantiation: bf16's
+        # rounding hides a fault that shrinks every output by ~5e-4, as the
+        # ragged last key tile left unmasked does here (16 pad keys that score
+        # 0 against 17 776 logits of spread ~1); f32 at 1e-5 of max|ref| does not
+        errs32 = []
+        for bi, hi in VIDEO_PAIRS:
+            q32, k32, v32 = (x[bi:bi + 1, hi:hi + 1].float() for x in (q, k, v))
+            errs32.append(attention_errors(ac.attention_fwd(q32, k32, v32),
+                                           ac.attention_plain(q32, k32, v32)))
+        torch.cuda.synchronize()
+        print("video: attention at layer 0's inputs in f32, the same pairs: max|err| / max|ref| "
+              + ", ".join(f"{e[0] / e[2]:.3e}" for e in errs32) + f" [tol {F32_TOL:g}]")
+        if not all(attention_ok(torch.float32, *e) for e in errs32):
+            _fail("the f32 attention kernel disagrees with its plain version at layer 0's inputs")
+
+        ms, recorded = kernel_device_ms(lambda: ac.attention_fwd(q, k, v),
+                                        "attention_bf16_kernel", iters=20)
+        sl = (slice(0, 1), slice(0, 1))
+        plain_ms = cuda_ms(lambda: ac.attention_plain(q[sl], k[sl], v[sl]), iters=3,
+                           warmup=1) * b * h
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc), iters=10)
+    flops = 4 * b * h * s * s * d
+    b_ms, b_by = bound_ms(2 * 4 * b * h * s * d, flops, peak=H100_BF16_TC_FLOPS)
+    exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
+    print(f"attention_fwd: {ms:.3f} ms ({recorded} of 20 launches recorded; {flops / ms / 1e9:.1f} "
+          f"TFLOP/s), bound {b_ms:.3f} ms by {b_by} (bf16 tensor cores; the {b * h * s * s:.3g} "
+          f"exponentials alone {exp_ms:.3f} ms), plain {plain_ms:.1f} ms (one (b, h) pair x "
+          f"{b * h}), scaled_dot_product_attention {library_ms:.3f} ms; {n_layers} launches per "
+          f"sampler step: {n_layers * ms:.0f} ms of the median step's "
+          f"{statistics.median(step_ms):.0f}")
+    small_video_check(dev)
+    return [{"name": "attention_fwd", "route": "cuda", "source": "fluidnexus_torch/csrc/attention.cu",
+             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:213",
+             "launches": launches["attention_fwd"], "max_abs_err": max(e[0] for e in errs),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": library_ms}]
+
+
+def _random_weights(module, seed):
+    """Every parameter drawn from numpy: 2-D and larger weights normal /
+    sqrt(fan_in), norm scales 1 + 0.1 normal, the rest (biases, LN biases)
+    0.1 normal; the adaLN projections included, so the block gates are not 0."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() >= 2:
+                x = rng.normal(size=p.shape) / np.sqrt(np.prod(p.shape[1:]))
+            elif name.endswith("scale"):
+                x = 1.0 + 0.1 * rng.normal(size=p.shape)
+            else:
+                x = 0.1 * rng.normal(size=p.shape)
+            p.copy_(torch.as_tensor(x, dtype=p.dtype))
+    return module
+
+
+def small_video_check(dev):
+    """``sample_video --tiny``'s DiT and VAE (hidden 64, 2 layers, 4 heads,
+    f32) at 9 frames x 64 x 96 (80 tokens: two key tiles, the last ragged),
+    every weight from numpy with a seed: 4 DPM++ steps with one set of noise
+    draws (made on the CPU, replayed on the card) and the decode, on the card
+    through the f32 kernel and on the CPU through the plain version. Latents
+    and frames at 1e-4 of their scale."""
+    import copy
+
+    from fluidnexus_torch.diffusion.video import sampling
+    from fluidnexus_torch.diffusion.video.dit import init_video_dit
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.diffusion.video.vae3d import init_vae
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.pipelines.sample_video import configs
+
+    cpu = torch.device("cpu")
+    dit_cfg, vae_cfg = configs(9, 64, 96, tiny=True)
+    gen = torch.Generator().manual_seed(SEED)
+    dit = _random_weights(init_video_dit(dit_cfg, gen), SEED + 5)
+    vae = _random_weights(init_vae(vae_cfg, gen), SEED + 6)
+    text = torch.as_tensor(np.random.default_rng(SEED + 7).normal(size=(1, 8, 64)), dtype=torch.float32)
+    engine = VideoEngine(dit_cfg, vae_cfg)
+    shape = (1, 3, 16, 8, 12)
+    draws, real = [], sampling._normal
+
+    def recording(shape_, generator, device):
+        x = real(shape_, generator, device)
+        draws.append(x)
+        return x
+
+    def replaying(shape_, generator, device):
+        x = draws[len(replayed)]
+        replayed.append(x)
+        return x.to(device)
+
+    replayed, runs = [], {}
+    try:
+        for name, device in (("cpu", cpu), ("card", dev)):
+            sampling._normal = recording if name == "cpu" else replaying
+            d, v = copy.deepcopy(dit).to(device), copy.deepcopy(vae).to(device)
+            ac.reset_launches()
+            lat = engine.sample(d, shape, text.to(device), torch.zeros_like(text).to(device),
+                                rng=torch.Generator(device=device).manual_seed(SEED),
+                                num_steps=VIDEO_STEPS)
+            frames = engine.decode_first_stage(v, lat.permute(0, 1, 3, 4, 2))
+            runs[name] = (lat.cpu(), frames.cpu(), ac.LAUNCHES["attention_fwd"])
+    finally:
+        sampling._normal = real
+    (l_cpu, f_cpu, n_cpu), (l_dev, f_dev, n_dev) = runs["cpu"], runs["card"]
+    dl = float((l_dev - l_cpu).abs().max()) / float(l_cpu.abs().max())
+    df = float((f_dev - f_cpu).abs().max()) / float(f_cpu.abs().max())
+    print(f"small video, card (f32 kernel, {n_dev} launches) vs plain CPU path ({n_cpu}): "
+          f"{len(draws)} noise draws replayed; latents rel {dl:.3e}, frames rel {df:.3e} "
+          f"[tol 1e-4]")
+    if not (n_cpu == 0 and n_dev == 2 * VIDEO_STEPS and len(replayed) == len(draws)
+            and dl <= 1e-4 and df <= 1e-4):
+        _fail("the small video run on the card disagrees with the plain CPU path")
 
 
 if __name__ == "__main__":

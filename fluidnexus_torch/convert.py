@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from fluidnexus_torch.core.optim import AdamState
+from fluidnexus_torch.diffusion.video.dit import VideoDiT
+from fluidnexus_torch.diffusion.video.vae3d import VideoVAE
 from fluidnexus_torch.ops.neighbors import DenseGrid
 from fluidnexus_torch.sim.state import ParticleState, VisualState
 from fluidnexus_torch.splat.dynamics import BackgroundSplats, VisualAttrs
@@ -87,3 +89,63 @@ def adam_state_from_numpy(s, device="cuda") -> AdamState:
 def adam_state_to_numpy(s: AdamState) -> AdamState:
     return AdamState(mu={k: _n(v) for k, v in s.mu.items()},
                      nu={k: _n(v) for k, v in s.nu.items()}, count=_n(s.count))
+
+
+# ------------------------- flax parameter trees -------------------------
+
+
+def _flatten_flax(tree, prefix=""):
+    """{dotted path: numpy array} of a flax param tree. Boxed leaves (flax
+    ``Partitioned``, as the DiT's LoRADense kernels are) are unboxed by
+    their ``value``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            out.update(_flatten_flax(v, key))
+        else:
+            out[key] = np.asarray(getattr(v, "value", v))
+    return out
+
+
+def _torch_layout(name, x):
+    """A flax leaf in the port's layout: a Dense kernel (in, out) becomes a
+    weight (out, in), a Conv kernel (*k, in, out) a weight (out, in, *k)."""
+    if not name.endswith(".kernel"):
+        return name, x
+    nd = x.ndim
+    return name[:-len("kernel")] + "weight", np.transpose(x, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+
+
+def load_flax_params(module, params, device="cuda"):
+    """Copy a flax param tree (numpy leaves) into ``module``'s parameters,
+    each cast to the parameter's dtype; the two sets of names must be the
+    same. Returns the module on ``device``."""
+    flat = dict(_torch_layout(k, v) for k, v in _flatten_flax(params).items())
+    own = dict(module.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"flax tree and module differ: only in the tree "
+                         f"{sorted(set(flat) - set(own))[:8]}, only in the module "
+                         f"{sorted(set(own) - set(flat))[:8]}")
+    module = module.to(device)
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            src = flat[name]
+            if tuple(src.shape) != tuple(prm.shape):
+                raise ValueError(f"{name}: tree {src.shape}, module {tuple(prm.shape)}")
+            prm.copy_(torch.as_tensor(np.ascontiguousarray(src)).to(prm.dtype))
+    return module
+
+
+def video_dit_from_numpy(params, cfg, device="cuda"):
+    """The JAX ``VideoDiT`` param tree (numpy) as the port's ``VideoDiT``."""
+    with torch.device(device):
+        model = VideoDiT(cfg)
+    return load_flax_params(model, params, device)
+
+
+def vae3d_from_numpy(params, cfg, device="cuda"):
+    """The JAX ``VideoVAE`` param tree (numpy) as the port's ``VideoVAE``."""
+    with torch.device(device):
+        vae = VideoVAE(cfg)
+    return load_flax_params(vae, params, device)

@@ -1,0 +1,91 @@
+"""Video sampling CLI (t2v) (counterpart of
+``fluidnexus_tpu/pipelines/sample_video.py``): sample a clip from a text
+prompt with the video DiT and decode it with the causal VAE into PNG frames.
+
+    python -m fluidnexus_torch.pipelines.sample_video --prompt "smoke rising" \
+        --out_folder out --allow_fake_conditioning
+
+Without ``--dit_ckpt``/``--vae_ckpt`` the weights are drawn from a seed, as
+the JAX CLI's are. Text goes through the hash pseudo-encoder only
+(``--allow_fake_conditioning``, implied by ``--tiny``). Not ported yet:
+``--base`` (CogVideoX YAML configs), ``--t5_dir``, ``--tp``/``--dp``,
+``--pack_video`` and ``--prefix_folder``.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from fluidnexus_torch import resolve_device
+from fluidnexus_torch.convert import vae3d_from_numpy, video_dit_from_numpy
+from fluidnexus_torch.core.checkpoint import load_params, load_params_prefer_ema
+from fluidnexus_torch.diffusion.video.conditioner import make_text_encoder
+from fluidnexus_torch.diffusion.video.dit import VideoDiTConfig
+from fluidnexus_torch.diffusion.video.engine import VideoEngine
+from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig
+from fluidnexus_torch.pipelines.gen_refine_video import save_frames
+
+
+def configs(num_frames, height, width, tiny):
+    """The DiT and VAE configs of a run: the CogVideoX-5B geometry, or the
+    JAX CLI's ``--tiny`` one (hidden 64, 2 layers, 4 heads, f32)."""
+    lat_t = (num_frames - 1) // 4 + 1
+    if tiny:
+        return (VideoDiTConfig(hidden_size=64, num_layers=2, num_heads=4, text_hidden_size=64,
+                               text_length=8, latent_frames=lat_t, latent_height=height // 8,
+                               latent_width=width // 8, dtype=torch.float32),
+                VAE3DConfig(ch=16, ch_mult=(1, 2, 2, 4), num_res_blocks=1))
+    return (VideoDiTConfig(latent_frames=lat_t, latent_height=height // 8,
+                           latent_width=width // 8), VAE3DConfig())
+
+
+def main(argv=None, device="cuda"):
+    ap = argparse.ArgumentParser(description="sample a video clip (t2v)")
+    ap.add_argument("--prompt", required=True)
+    ap.add_argument("--out_folder", required=True)
+    ap.add_argument("--num_frames", type=int, default=49)
+    ap.add_argument("--num_steps", type=int, default=50)
+    ap.add_argument("--cfg_scale", type=float, default=6.0)
+    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--width", type=int, default=720)
+    ap.add_argument("--dit_ckpt", default="")
+    ap.add_argument("--vae_ckpt", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--allow_fake_conditioning", action="store_true",
+                    help="run with hash pseudo-embeddings (test/smoke only; implied by --tiny)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(device)
+    # f32 products and convolutions in full f32, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny)
+    engine = VideoEngine(dit_cfg, vae_cfg, cfg_scale=args.cfg_scale)
+    if args.dit_ckpt:
+        params = video_dit_from_numpy(load_params_prefer_ema(args.dit_ckpt), dit_cfg, dev)
+    else:
+        params = engine.init_params(torch.Generator(device=dev).manual_seed(0))
+    if args.vae_ckpt:
+        vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
+    else:
+        vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
+    enc = make_text_encoder(None, max_length=dit_cfg.text_length,
+                            hidden=dit_cfg.text_hidden_size,
+                            allow_fake=args.allow_fake_conditioning or args.tiny)
+    text_emb = enc([args.prompt], device=dev)
+    uc = torch.zeros_like(text_emb)
+
+    shape = (1, dit_cfg.latent_frames, dit_cfg.in_channels, dit_cfg.latent_height,
+             dit_cfg.latent_width)
+    rng = torch.Generator(device=dev).manual_seed(args.seed)
+    lat = engine.sample(params, shape, text_emb, uc, rng=rng, num_steps=args.num_steps)
+    decoded = engine.decode_first_stage(vae, lat.permute(0, 1, 3, 4, 2))
+    save_frames(args.out_folder, decoded[0].cpu().numpy(), 0)
+    print(f"wrote {decoded.shape[1]} frames to {args.out_folder}")
+    return decoded
+
+
+if __name__ == "__main__":
+    main()
