@@ -8,6 +8,9 @@ profile a few of each (the card's busy share, host and device ms per
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
+``python3 chip_smoke.py mutants`` builds three broken copies of the attention
+backward and shows that each fails a check; ``python3 chip_smoke.py
+encode-probe`` tries the video training batch's whole-clip VAE encode.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -52,10 +55,25 @@ hash text, batch-2 CFG, ``--num_steps`` cut from 50 to 4, the PNGs written
 to a temporary folder; the flash-attention kernel held against its plain
 version at layer 0's inputs of the first step (bf16, and those inputs in f32)
 and at ragged shapes.
+
+Video training (``train_video.train``, LoRA finetuning): the CogVideoX-5B DiT
+(hidden 3 072, 42 layers, 48 heads of 64, text 226 x 4 096) at batch 2 on
+one clip of 49 seeded 480 x 720 PNGs (13 x 60 x 90 latents, 17 776 tokens),
+rank 128, per-block rematerialisation, a bf16 base, 3 clean prefix latents,
+hash text; cut: 3 iterations (of 10 000), then 2 with ``--quant_base`` and
+one eval fork (2 sampler steps, no checkpoints written); weights drawn from
+a seed, with the adaLN projections and lora_b drawn small and non-zero (the
+JAX init zeroes them, and then attention never reaches the loss and the
+backward kernels see a zero upstream gradient). The flash-attention backward
+kernels held against the plain backward at ragged shapes and at layer 0's
+captured q, k, v and upstream gradient, in bf16 and in f32 (against an f32
+and an f64 plain version); a small card-vs-CPU training run.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -398,7 +416,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    built = cuda_build.build(["rasterizer", "pbf", "splat", "attention"])
+    built = cuda_build.build(["rasterizer", "pbf", "splat", "attention", "attention_bwd"])
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
@@ -408,6 +426,7 @@ def main():
         phase_c_kernels, recon = run_phase_c(dev, os.path.join(tmp, "recon"))
         kernels += phase_c_kernels + run_future(dev, recon, os.path.join(tmp, "future"))
         kernels += run_video(dev, os.path.join(tmp, "video"))
+        kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1766,6 +1785,12 @@ RAGGED_S = (1, 47, 64, 65, 777, 2274)
 # dominates its row carries P's rounding straight into the output, so the
 # error reaches ~4e-3 of max|ref| there; f32 is held to 1e-5 of max|ref|
 BF16_MAX_TOL, BF16_MEAN_TOL, F32_TOL = 1e-2, 2e-3, 1e-5
+# the backward in f32: dK and dV sum over every query, dQ over every key, and
+# dS = P (dP - D) cancels, so its error is held to 2e-5 of each output's own
+# max|ref| (the bf16 limits as for the forward, P and dS rounded to bf16)
+BWD_F32_TOL = 2e-5
+LSE_TOL = 1e-5                # of max(1, max|ref|)
+LOW_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}   # the every-logit-near--150 case
 
 
 def attention_errors(out, ref):
@@ -1780,33 +1805,134 @@ def attention_ok(dtype, emax, emean, scale):
     return emax <= BF16_MAX_TOL * scale and emean <= BF16_MEAN_TOL * scale
 
 
+def bwd_errors(grads, refs):
+    """Per output (dq, dk, dv): (max|err|, mean|err|, scale), the scale that
+    output's max|ref|, floored at 1e-3 of the largest output's: dq and dk
+    are exactly 0 where the softmax has one key (s = 1)."""
+    errs = [attention_errors(g, r) for g, r in zip(grads, refs)]
+    floor = 1e-3 * max(e[2] for e in errs)
+    return [(e[0], e[1], max(e[2], floor)) for e in errs]
+
+
+def bwd_ok(dtype, errs):
+    if dtype == torch.float32:
+        return all(e[0] <= BWD_F32_TOL * e[2] for e in errs)
+    return all(e[0] <= BF16_MAX_TOL * e[2] and e[1] <= BF16_MEAN_TOL * e[2] for e in errs)
+
+
+def _ragged_inputs(gen, dev, dtype, s, d, shift=0.0):
+    q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=dev) for _ in range(3))
+    q, k = q + shift, k - shift
+    dout = torch.randn((2, s, 3, d), generator=gen, device=dev)
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    v_view = torch.cat([q, k, v], -1).transpose(1, 2).contiguous()[..., 2 * d:].transpose(1, 2)
+    return q, k, v, v_view, dout
+
+
+def bwd_from_o(q, k, v, o, dout):
+    """dq, dk, dv ``(b, h, s, d)`` by the backward's formulas in f64, with
+    D = rowsum(dO o) taken from the ``o`` given ``(b, s, h, d)``: the plain
+    backward fed the O that the kernels are handed, where ``attention_bwd_plain``
+    recomputes O in f32."""
+    qd, kd, vd = (x.double() for x in (q, k, v))
+    od, dod = (x.double().transpose(1, 2) for x in (o, dout))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(qd @ kd.transpose(-1, -2) * scale, -1)
+    ds = p * (dod @ vd.transpose(-1, -2) - (dod * od).sum(-1, keepdim=True))
+    return ds @ kd * scale, ds.transpose(-1, -2) @ qd * scale, p.transpose(-1, -2) @ dod
+
+
+def low_logit_witness(gen, dev):
+    """The bf16 backward at s = 65 with every logit near -150 and near -500,
+    read (not held) against the plain backward (O recomputed in f32) and
+    against ``bwd_from_o`` fed the kernels' own bf16 O: where the second is
+    much the smaller, the first's excess is the rounding of O in D, not the
+    kernels'."""
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    rows = []
+    for d in (16, 64, 128):
+        for logit in (150.0, 500.0):
+            q, k, v, v_view, dout = _ragged_inputs(gen, dev, torch.bfloat16, 65, d,
+                                                   math.sqrt(logit / math.sqrt(d)))
+            out, lse = ac.attention_fwd(q, k, v_view, lse=True)
+            grads = ac.attention_bwd(q, k, v_view, out, lse, dout)
+            worst = [max(e[0] / e[2] for e in bwd_errors(grads, refs)) for refs in
+                     (ac.attention_bwd_plain(q, k, v, dout), bwd_from_o(q, k, v, out, dout))]
+            rows.append(f"d{d} -{logit:.0f}: {worst[0]:.2e} / {worst[1]:.2e}")
+    print("attention bf16 backward at s = 65, logits near -150 and -500: worst max|err| / "
+          "max|ref| over dq, dk, dv against the plain backward (O in f32) / against the "
+          "formulas fed the kernels' bf16 O: " + ", ".join(rows))
+
+
 def check_attention_ragged(dev):
-    """The kernel against its plain version at ragged sequence lengths, each
-    head_dim the DiT configs use and one more, in both types; v a strided
-    view of a (b, s, h, 3d) projection, as in the DiT."""
+    """The forward kernel, its row log-sum-exp and the two backward kernels
+    against their plain versions at ragged sequence lengths, each head_dim the
+    DiT configs use and one more, in both types; v a strided view of a (b,
+    s, h, 3d) projection, as in the DiT. Each gradient is held at a fraction
+    of its own max|ref|. At 2 274 keys the f32 kernels are also read against
+    an f64 plain version. One more case per type and head_dim, at s = 65,
+    has every logit near -150 (q + c, k - c): a pad key's P = exp(0 - lse)
+    overflows there, and an unmasked one turns dQ into NaN. Its values carry
+    f32's rounding at that magnitude (~1e-5 of a logit) and peaked
+    softmaxes, so it is held to LOW_TOL, which a NaN fails."""
     from fluidnexus_torch.ops import attention_cuda as ac
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    failures, worst = [], {}
+    failures, worst, worst_bwd, worst_low, lse_worst, f64 = [], {}, {}, {}, 0.0, []
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 64, 128):
-            for s in RAGGED_S:
-                q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=dev).to(dtype)
-                           for _ in range(3))
-                v_view = torch.cat([q, k, v], -1).transpose(1, 2).contiguous()[..., 2 * d:]
-                out = ac.attention_fwd(q, k, v_view.transpose(1, 2))
-                emax, emean, scale = attention_errors(out, ac.attention_plain(q, k, v))
-                rel = emax / scale
+            for s, low in [(s, False) for s in RAGGED_S] + [(65, True)]:
+                shift = math.sqrt(150.0 / math.sqrt(d)) if low else 0.0
+                q, k, v, v_view, dout = _ragged_inputs(gen, dev, dtype, s, d, shift)
+                out, lse = ac.attention_fwd(q, k, v_view, lse=True)
+                fwd = attention_errors(out, ac.attention_plain(q, k, v))
+                grads = ac.attention_bwd(q, k, v_view, out, lse, dout)
+                errs = bwd_errors(grads, ac.attention_bwd_plain(q, k, v, dout))
                 key = (str(dtype).split(".")[-1], d)
-                worst[key] = max(worst.get(key, 0.0), rel)
-                if not attention_ok(dtype, emax, emean, scale):
-                    failures.append((key, s, emax, emean, scale))
+                if low:
+                    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+                    worst_low[key] = (max(e[0] / e[2] for e in [fwd] + errs) if finite
+                                      else float("nan"))
+                    if not (finite and worst_low[key] <= LOW_TOL[dtype]):
+                        failures.append(("low logits", key, finite, fwd, errs))
+                    continue
+                worst[key] = max(worst.get(key, 0.0), fwd[0] / fwd[2])
+                if not attention_ok(dtype, *fwd):
+                    failures.append(("fwd", key, s, fwd))
+                lse_ref = ac.attention_lse_plain(q, k)
+                lse_err = float((lse - lse_ref).abs().max()) / max(1.0, float(lse_ref.abs().max()))
+                lse_worst = max(lse_worst, lse_err)
+                if lse_err > LSE_TOL:
+                    failures.append(("lse", key, s, lse_err))
+                worst_bwd[key] = max([worst_bwd.get(key, 0.0)] + [e[0] / e[2] for e in errs])
+                if not bwd_ok(dtype, errs):
+                    failures.append(("bwd", key, s, errs))
+                if dtype == torch.float32 and s == 2274:
+                    e64 = bwd_errors(grads, ac.attention_bwd_plain(q, k, v, dout, torch.float64))
+                    o64 = attention_errors(out, ac.attention_plain(q.double(), k.double(),
+                                                                   v.double()))
+                    f64.append((d, o64[0] / o64[2], [e[0] / e[2] for e in errs],
+                                [e[0] / e[2] for e in e64]))
     torch.cuda.synchronize()
-    print("attention ragged check, s in " + str(RAGGED_S) + ": worst max|err| / max|ref| "
+    print("attention ragged check, s in " + str(RAGGED_S) + ": forward worst max|err| / max|ref| "
           + ", ".join(f"{t} d{d} {r:.2e}" for (t, d), r in worst.items())
-          + f" [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 {F32_TOL:g}]")
+          + f" [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 {F32_TOL:g}]; "
+          f"row log-sum-exp worst |err| / max(1, max|ref|) {lse_worst:.2e} [tol {LSE_TOL:g}]")
+    print("attention backward ragged check: worst max|err| / max|ref| over dq, dk, dv "
+          + ", ".join(f"{t} d{d} {r:.2e}" for (t, d), r in worst_bwd.items())
+          + f" [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 {BWD_F32_TOL:g}]")
+    print("attention at s = 65 with every logit near -150: worst max|err| / max|ref| over o, "
+          "dq, dk, dv (nan: a gradient not finite) "
+          + ", ".join(f"{t} d{d} {r:.2e}" for (t, d), r in worst_low.items())
+          + f" [tol bf16 {LOW_TOL[torch.bfloat16]:g}, f32 {LOW_TOL[torch.float32]:g}]")
+    for d, o64, e32, e64 in f64:
+        print(f"attention f32 at 2 274 keys, d {d}: forward against f64 {o64:.2e}; dq, dk, dv "
+              f"against the f32 plain version {', '.join(f'{e:.2e}' for e in e32)}, against "
+              f"f64 {', '.join(f'{e:.2e}' for e in e64)} (max|err| / max|ref|)")
+    low_logit_witness(gen, dev)
     if failures:
-        _fail(f"the attention kernel disagrees with its plain version: {failures[:6]}")
+        _fail(f"the attention kernels disagree with their plain versions: {failures[:6]}")
 
 
 def run_video(dev, out_folder):
@@ -2035,5 +2161,521 @@ def small_video_check(dev):
         _fail("the small video run on the card disagrees with the plain CPU path")
 
 
+# ------------------------------ video training -------------------------------
+
+TRAIN_ITERS = 3               # --iterations, cut from the CLI's 10 000
+QUANT_ITERS = 2
+EVAL_STEPS = 2                # the eval fork's sampler steps (the CLI's default 20)
+LORA_RANK = 128
+TRAINABLES_5B = 264_241_152   # rank 128 over qkv, out, fc1, fc2 of 42 blocks
+ADALN_STD = 0.1               # x lecun: gates ~0.1, so attention reaches the loss
+LORA_B_STD = 0.01             # / sqrt(rank): the adapters add ~1 % to a projection
+
+
+def _train_init(real):
+    """``VideoEngine.init_params`` with the JAX init's zeros drawn small and
+    non-zero: every adaLN projection (ADALN_STD x lecun), lora_b
+    (LORA_B_STD / sqrt(rank)) and, under --quant_base, the int8 base (the
+    JAX init leaves kernel_q 0): uniform in [-127, 127] with a lecun-std
+    scale."""
+    from fluidnexus_torch.diffusion.video.dit import LoRADense
+
+    def init(self, generator):
+        model = real(self, generator)
+        gen = torch.Generator(device=generator.device).manual_seed(SEED + 10)
+        with torch.no_grad():
+            for name, mod in model.named_modules():
+                if not isinstance(mod, LoRADense):
+                    continue
+                std = ADALN_STD if name.endswith("adaLN") else 1.0
+                if mod.quant:
+                    fan_in = mod.kernel_q.shape[0]
+                    mod.kernel_q.copy_(torch.randint(-127, 128, mod.kernel_q.shape, generator=gen,
+                                                     device=mod.kernel_q.device))
+                    mod.kernel_scale.fill_(std * math.sqrt(3.0 / fan_in) / 127)
+                elif name.endswith("adaLN"):
+                    w = torch.empty(mod.weight.shape, device=mod.weight.device)
+                    mod.weight.copy_(w.normal_(0.0, std / math.sqrt(mod.weight.shape[1]),
+                                               generator=gen))
+                if mod.lora_b is not None:
+                    mod.lora_b.normal_(0.0, LORA_B_STD / math.sqrt(mod.lora_b.shape[0]),
+                                       generator=gen)
+        return model
+
+    return init
+
+
+def write_train_clip(root, frames=49, height=480, width=720):
+    """One clip folder of seeded PNGs (blocks of 32 x 32 pixels, written by
+    the port's save_image) and its caption."""
+    from fluidnexus_torch.pipelines.train_background import save_image
+
+    rng = np.random.default_rng(SEED + 11)
+    for i in range(frames):
+        low = rng.uniform(0, 1, (3, -(-height // 32), -(-width // 32)))
+        img = np.kron(low, np.ones((1, 32, 32)))[:, :height, :width]
+        save_image(os.path.join(root, "videos", "clip0", f"frame_{i:06d}.png"), img)
+    os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+    with open(os.path.join(root, "labels", "clip0.txt"), "w") as f:
+        f.write("smoke rising past a cylinder")
+
+
+def run_train(argv, timer=None):
+    """``train_video.train`` with the non-zero init; returns its result,
+    the launch counts, seconds, peak memory, the last (trainer, latents,
+    text) seen by a step, the step losses, the last attention_bwd inputs and
+    the decoded eval clips."""
+    import time
+
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.pipelines import train_video as ttv
+
+    seen = {"losses": [], "decoded": []}
+    real_init, real_step, real_bwd = VideoEngine.init_params, ttv.VideoTrainer.step, ac.attention_bwd
+    real_decode = VideoEngine.decode_first_stage
+
+    def step(self, latents, text_emb, rng):
+        loss = real_step(self, latents, text_emb, rng)
+        seen.update(trainer=self, latents=latents, text=text_emb)
+        seen["losses"].append(float(loss))
+        return loss
+
+    def bwd(*a):
+        seen["bwd"] = tuple(x.detach() for x in a)
+        return real_bwd(*a)
+
+    def decode(self, *a, **kw):
+        out = real_decode(self, *a, **kw)
+        seen["decoded"].append(out)
+        return out
+
+    VideoEngine.init_params, ttv.VideoTrainer.step, ac.attention_bwd = (
+        _train_init(real_init), step, bwd)
+    VideoEngine.decode_first_stage = decode
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = ttv.train(ttv.build_argparser().parse_args(argv), log=print, device="cuda",
+                           timer=timer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+    finally:
+        VideoEngine.init_params, ttv.VideoTrainer.step, ac.attention_bwd = (
+            real_init, real_step, real_bwd)
+        VideoEngine.decode_first_stage = real_decode
+    return result, launches, seconds, torch.cuda.max_memory_allocated(), seen
+
+
+def check_train_launches(launches, what, fwd, bwd):
+    want = {"attention_fwd": fwd, "attention_dq": bwd, "attention_dkv": bwd}
+    other = [n for n, c in launches.items() if n not in want and c]
+    if any(launches[n] != c for n, c in want.items()) or other:
+        _fail(f"{what} launched {launches}, expected {want} and no other kernel")
+
+
+def run_video_train(dev, root):
+    """LoRA training of the 5B DiT through ``train_video.train`` (3
+    iterations), then 2 iterations with ``--quant_base`` ending in an eval
+    fork: launch counts, trainables, losses, ms per step (CUDA events, the
+    median of steps 2-3), the VAE encode, peak memory, the card's idle share
+    in one more step; the backward kernels against the plain backward at
+    ragged shapes and at layer 0's captured inputs; their times; the small
+    card-vs-CPU training run. Returns the backward kernels' entries of the
+    ``kernels`` line."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.pipelines import sample_video, train_video
+    from fluidnexus_torch.utils.profiling import StageTimer
+
+    write_train_clip(root)
+    cfg = sample_video.configs(VIDEO_FRAMES, 480, 720, tiny=False)[0]
+    n_layers = cfg.num_layers
+    base = ["--data_root", root, "--batch", "2", "--lora_rank", str(LORA_RANK),
+            "--allow_fake_conditioning", "--log_every", "1", "--fixed_frames", "3"]
+    chunk = train_video.build_argparser().get_default("encode_chunk")
+    print(f"video training: train_video.train at the CogVideoX-5B geometry (hidden "
+          f"{cfg.hidden_size}, {n_layers} layers, {cfg.num_heads} heads of {cfg.head_dim}, text "
+          f"{cfg.text_length} x {cfg.text_hidden_size}), batch 2 of one clip of {VIDEO_FRAMES} "
+          f"seeded 480 x 720 PNGs, LoRA rank {LORA_RANK}, per-block remat, bf16 base, "
+          f"--fixed_frames 3, hash text, the port's default --encode_chunk {chunk} (JAX's 0, the "
+          f"whole clip, does not fit); cut: --iterations {TRAIN_ITERS} (of 10 000), then "
+          f"{QUANT_ITERS} with --quant_base and an eval fork of {EVAL_STEPS} sampler steps, "
+          f"weights from a seed with adaLN and lora_b drawn non-zero")
+
+    # ---- the LoRA run: the main path
+    timer = StageTimer()
+    (dit, loss, ema), launches, seconds, peak, seen = run_train(
+        base + ["--iterations", str(TRAIN_ITERS)], timer)
+    trainer = seen["trainer"]
+    n_train = sum(p.numel() for p in trainer.params.values())
+    step_ms, enc_ms = timer.ms["train_step"], timer.ms["vae_encode"]
+    step_med = statistics.median(step_ms[1:])
+    print(f"video training: launches {launches}; trainables {n_train}; losses "
+          f"{', '.join(f'{x:.5f}' for x in seen['losses'])}; ms per LoRA step "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (median of steps 2-{TRAIN_ITERS} "
+          f"{step_med:.1f}); VAE encode of the batch {', '.join(f'{t:.1f}' for t in enc_ms)} ms; "
+          f"train end to end {seconds:.2f} s; peak allocated {peak / 2**30:.2f} GiB")
+    check_train_launches(launches, "the LoRA run", 2 * n_layers * TRAIN_ITERS,
+                         n_layers * TRAIN_ITERS)
+    if n_train != TRAINABLES_5B:
+        _fail(f"{n_train} trainables, expected {TRAINABLES_5B}")
+    lb = trainer.params["block_0.attn.qkv.lora_b"]
+    if not (all(math.isfinite(x) for x in seen["losses"]) and math.isfinite(loss)
+            and all(bool(torch.isfinite(p).all()) for p in trainer.params.values())
+            and all(bool(torch.isfinite(e).all()) for e in trainer.ema.values())):
+        _fail("the LoRA run gave a non-finite loss, trainable or EMA leaf")
+    if not float(lb.detach().abs().max()) > 0:
+        _fail("lora_b did not move")
+    cap = seen["bwd"]     # layer 0's attention backward of the last step
+
+    # ---- the card's idle share in one more step on the last batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step(seen["latents"], seen["text"], torch.Generator(device=dev).manual_seed(SEED))
+        end.record()
+        end.synchronize()
+    wall = start.elapsed_time(end)
+    busy = device_busy_ms(prof)
+    ka = prof.key_averages()
+    dev_key = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
+    print(f"video training, one more LoRA step under torch.profiler: {wall:.1f} ms, the card "
+          f"busy {busy:.1f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
+    print(ka.table(sort_by="self_" + dev_key, row_limit=12))
+    del prof, ka, trainer, dit, ema, seen
+    torch.cuda.empty_cache()
+
+    # ---- the int8 base, ending in the eval fork
+    qtimer = StageTimer()
+    (qdit, qloss, _), qlaunches, qseconds, qpeak, qseen = run_train(
+        base + ["--iterations", str(QUANT_ITERS), "--quant_base", "--eval_interval",
+                str(QUANT_ITERS), "--eval_steps", str(EVAL_STEPS)], qtimer)
+    qstep = qtimer.ms["train_step"]
+    print(f"video training --quant_base: launches {qlaunches}; losses "
+          f"{', '.join(f'{x:.5f}' for x in qseen['losses'])}; ms per step "
+          f"{', '.join(f'{t:.1f}' for t in qstep)} (step 2 {qstep[-1]:.1f}); with the eval fork "
+          f"(a loss, {EVAL_STEPS} sampler steps, the decode) train took {qseconds:.2f} s; peak "
+          f"allocated {qpeak / 2**30:.2f} GiB")
+    # the eval fork: one loss forward and EVAL_STEPS batch-2 CFG forwards, no gradient
+    check_train_launches(qlaunches, "the --quant_base run",
+                         2 * n_layers * QUANT_ITERS + n_layers * (1 + EVAL_STEPS),
+                         n_layers * QUANT_ITERS)
+    clips = qseen["decoded"]
+    if not (len(clips) == 1 and tuple(clips[0].shape) == (1, VIDEO_FRAMES, 480, 720, 3)
+            and bool(torch.isfinite(clips[0]).all()) and math.isfinite(qloss)
+            and all(math.isfinite(x) for x in qseen["losses"])):
+        _fail("the --quant_base run or its eval clip is not finite or of the expected shape")
+    del qdit, qseen, clips
+    torch.cuda.empty_cache()
+
+    # ---- the backward kernels at layer 0's inputs, then their times
+    errs = check_layer0_backward(cap)
+    q, k, v, out, lse, dout = cap
+    b, h, s, d = q.shape
+    fn = lambda: ac.attention_bwd(q, k, v, out, lse, dout)   # noqa: E731
+    with torch.no_grad():
+        ms_dq, rec_dq = kernel_device_ms(fn, "attention_dq_bf16_kernel", iters=10)
+        ms_dkv, rec_dkv = kernel_device_ms(fn, "attention_dkv_bf16_kernel", iters=10)
+    sl = (slice(0, 1), slice(0, 1))
+    plain_ms = cuda_ms(lambda: ac.attention_bwd_plain(q[sl], k[sl], v[sl], dout[:1, :, :1]),
+                       iters=2, warmup=1) * b * h
+    qc, kc, vc = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    do_c = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qc, kc, vc), (qc, kc, vc), do_c)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qc, kc, vc)
+
+    lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=5) - cuda_ms(sdpa_fwd, iters=5)
+    prod = 2 * b * h * s * s * d
+    io = b * h * s * d * 2
+    # the gradient's bound (q, k, v, O, dO and the LSE read once, dq, dk, dv
+    # written once, 5 products) split between the two kernels so that the two
+    # add up to it: dkv takes S = QK^T, dP = dO V^T, dV and dK with q, k, v,
+    # dO, the LSE, dk and dv; dq takes dS K with O and dq. The split's own
+    # recomputation of S and dP in dq is not work the gradient needs.
+    dkv_bound = bound_ms(6 * io + 4 * b * h * s, 4 * prod, peak=H100_BF16_TC_FLOPS)
+    dq_bound = bound_ms(2 * io, prod, peak=H100_BF16_TC_FLOPS)
+    exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
+    print(f"attention_dq: {ms_dq:.3f} ms ({rec_dq} of 10 recorded; {3 * prod / ms_dq / 1e9:.1f} "
+          f"TFLOP/s in its 3 products), bound {dq_bound[0]:.3f} ms by {dq_bound[1]} (its share of "
+          f"the gradient: dS K); attention_dkv: {ms_dkv:.3f} ms ({rec_dkv} of 10; "
+          f"{4 * prod / ms_dkv / 1e9:.1f} TFLOP/s), bound {dkv_bound[0]:.3f} ms by "
+          f"{dkv_bound[1]} (S, dP, dV, dK); the pair {ms_dq + ms_dkv:.3f} ms against the "
+          f"gradient's bound of 5 products, {dq_bound[0] + dkv_bound[0]:.3f} ms "
+          f"({(ms_dq + ms_dkv) / (dq_bound[0] + dkv_bound[0]):.2f}x); each kernel recomputes the "
+          f"{b * h * s * s:.3g} exponentials ({exp_ms:.3f} ms alone); the "
+          f"plain backward {plain_ms:.1f} ms (one (b, h) pair x {b * h}); "
+          f"scaled_dot_product_attention's backward {lib_bwd:.3f} ms (its forward and "
+          f"backward less its forward); {n_layers} launches of each per LoRA step: "
+          f"{n_layers * (ms_dq + ms_dkv):.0f} ms of the median step's {step_med:.0f}")
+    small_video_train_check(dev)
+    del cap, q, k, v, out, lse, dout, qc, kc, vc, do_c
+    torch.cuda.empty_cache()
+    return [{"name": "attention_dq", "route": "cuda",
+             "source": "fluidnexus_torch/csrc/attention_bwd.cu",
+             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256",
+             "launches": launches["attention_dq"], "max_abs_err": errs["dq"],
+             "ms": ms_dq, "plain_ms": plain_ms, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+             "library_ms": lib_bwd},
+            {"name": "attention_dkv", "route": "cuda",
+             "source": "fluidnexus_torch/csrc/attention_bwd.cu",
+             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256",
+             "launches": launches["attention_dkv"], "max_abs_err": max(errs["dk"], errs["dv"]),
+             "ms": ms_dkv, "plain_ms": plain_ms, "bound_ms": dkv_bound[0],
+             "bound_by": dkv_bound[1], "library_ms": lib_bwd}]
+
+
+def check_layer0_backward(cap):
+    """The backward kernels at layer 0's captured inputs (q, k, v, the
+    forward's O and log-sum-exp, the upstream gradient) on VIDEO_PAIRS, one
+    (b, h) pair at a time against the plain backward: in bf16, then the
+    pair's inputs cast to f32 through the f32 kernels, against an f32 and an
+    f64 plain version. Returns the bf16 max|err| of each output."""
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    q, k, v, out, lse, dout = cap
+    with torch.no_grad():
+        grads = ac.attention_bwd(q, k, v, out, lse, dout)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    lines, fails = [], []
+    for bi, hi in VIDEO_PAIRS:
+        sl = (slice(bi, bi + 1), slice(hi, hi + 1))
+        do_p = dout[bi:bi + 1, :, hi:hi + 1]
+        errs = bwd_errors([g[sl] for g in grads], ac.attention_bwd_plain(q[sl], k[sl], v[sl], do_p))
+        lse_ref = ac.attention_lse_plain(q[sl], k[sl])
+        lse_err = float((lse[sl] - lse_ref).abs().max()) / max(1.0, float(lse_ref.abs().max()))
+        for name, e in zip(("dq", "dk", "dv"), errs):
+            worst[name] = max(worst[name], e[0])
+        q32, k32, v32, d32 = (x.float() for x in (q[sl], k[sl], v[sl], do_p))
+        o32, l32 = ac.attention_fwd(q32, k32, v32, lse=True)
+        g32 = ac.attention_bwd(q32, k32, v32, o32, l32, d32)
+        e32 = bwd_errors(g32, ac.attention_bwd_plain(q32, k32, v32, d32))
+        e64 = bwd_errors(g32, ac.attention_bwd_plain(q32, k32, v32, d32, torch.float64))
+        o64 = attention_errors(o32, ac.attention_plain(q32.double(), k32.double(), v32.double()))
+        torch.cuda.synchronize()
+        lines.append(f"({bi}, {hi}): bf16 dq, dk, dv max|err| / max|ref| "
+                     f"{', '.join(f'{e[0] / e[2]:.2e}' for e in errs)} (mean "
+                     f"{', '.join(f'{e[1] / e[2]:.1e}' for e in errs)}); lse {lse_err:.1e}; f32 "
+                     f"against f32 {', '.join(f'{e[0] / e[2]:.2e}' for e in e32)}, against f64 "
+                     f"{', '.join(f'{e[0] / e[2]:.2e}' for e in e64)}; f32 forward against f64 "
+                     f"{o64[0] / o64[2]:.2e}")
+        if not (bwd_ok(torch.bfloat16, errs) and bwd_ok(torch.float32, e32)
+                and bwd_ok(torch.float32, e64) and lse_err <= LSE_TOL
+                and o64[0] <= F32_TOL * o64[2]):
+            fails.append((bi, hi))
+    print(f"attention backward at layer 0's inputs ({tuple(q.shape)} {q.dtype}, v strides "
+          f"{v.stride()}) [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 "
+          f"{BWD_F32_TOL:g}, lse {LSE_TOL:g}]:\n  " + "\n  ".join(lines))
+    if fails:
+        _fail(f"the attention backward disagrees with its plain version at layer 0's inputs, "
+              f"(b, h) {fails}")
+    return worst
+
+
+def small_video_train_check(dev):
+    """The tiny DiT of ``train_video --tiny`` (hidden 64, 2 layers, 4 heads,
+    f32) with LoRA rank 4 and every weight from numpy with a seed (adaLN and
+    lora_b included), on latents of 3 x 8 x 12 (80 tokens: two key tiles,
+    the last ragged) and one clean prefix latent: the first step's LoRA
+    gradients, then two LoRA steps with EMA, on the card through the f32
+    kernels and on the CPU through the plain versions, with one set of draws
+    (made on the CPU, replayed on the card). Loss at 1e-5, gradients at 1e-4
+    of each leaf's max|ref|, the leaves after two steps at a mean |err| of
+    1e-2 of lr (Adam's first steps move each element by ~lr sign(g), so an
+    element whose gradient lies below the kernels' error can flip)."""
+    import copy
+
+    from fluidnexus_torch.diffusion.video import engine as eng_mod
+    from fluidnexus_torch.diffusion.video import sampling
+    from fluidnexus_torch.diffusion.video.dit import init_video_dit
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.pipelines.sample_video import configs
+    from fluidnexus_torch.pipelines.train_video import VideoTrainer
+
+    lr = 1e-3
+    cfg = dataclasses.replace(configs(9, 64, 96, tiny=True)[0], lora_rank=4)
+    dit = _random_weights(init_video_dit(cfg, torch.Generator().manual_seed(SEED)), SEED + 12)
+    rng = np.random.default_rng(SEED + 13)
+    lat = torch.as_tensor(rng.normal(size=(2, 3, 16, 8, 12)), dtype=torch.float32)
+    txt = torch.as_tensor(rng.normal(size=(2, 8, 64)), dtype=torch.float32)
+    draws, replayed = [], []
+    real_normal, real_randint = sampling._normal, eng_mod._randint
+
+    def recorder(real):
+        def f(*a):
+            x = real(*a)
+            draws.append(x)
+            return x
+        return f
+
+    def replay(*a):
+        x = draws[len(replayed)]
+        replayed.append(x)
+        return x.to(a[-1])
+
+    runs = {}
+    try:
+        for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            if name == "cpu":
+                sampling._normal, eng_mod._randint = recorder(real_normal), recorder(real_randint)
+            else:
+                sampling._normal = eng_mod._randint = replay
+            engine = VideoEngine(cfg, fixed_frames=1)
+            trainer = VideoTrainer(engine, copy.deepcopy(dit).to(device), lr, 0.9)
+            ac.reset_launches()
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            la, tx = lat.to(device), txt.to(device)
+            g = torch.autograd.grad(engine.loss_fn(trainer.dit, la, tx, gen)[0],
+                                    list(trainer.params.values()))
+            losses = [float(trainer.step(la, tx, gen)) for _ in range(2)]
+            runs[name] = ([x.cpu() for x in g], losses,
+                          {n: p.detach().cpu() for n, p in trainer.params.items()},
+                          dict(ac.LAUNCHES))
+    finally:
+        sampling._normal, eng_mod._randint = real_normal, real_randint
+    (g_c, l_c, p_c, n_c), (g_d, l_d, p_d, n_d) = runs["cpu"], runs["card"]
+    dl = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
+    dg = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_d, g_c))
+    dp = max(float((p_d[n] - p_c[n]).abs().max()) for n in p_c)
+    dmean = sum(float((p_d[n] - p_c[n]).abs().sum()) for n in p_c) / sum(
+        p.numel() for p in p_c.values())
+    print(f"small video training, card (f32 kernels, launches {n_d}) vs plain CPU path: "
+          f"{len(draws)} draws replayed; losses {', '.join(f'{x:.6f}' for x in l_c)}, rel "
+          f"{dl:.2e} [tol 1e-5]; first-step LoRA gradients, worst leaf max|err| / max|ref| "
+          f"{dg:.2e} [tol 1e-4]; LoRA leaves after 2 steps mean|err| {dmean:.2e} [tol "
+          f"{1e-2 * lr:g}], max|err| {dp:.2e} (Adam moves an element by ~lr sign(g) at first: "
+          f"one whose gradient is below the kernels' error may flip)")
+    want = {"attention_fwd": 12, "attention_dq": 6, "attention_dkv": 6}
+    if not (all(c == 0 for c in n_c.values()) and all(n_d[k] == c for k, c in want.items())
+            and len(replayed) == len(draws) and dl <= 1e-5 and dg <= 1e-4
+            and dmean <= 1e-2 * lr):
+        _fail("the small video training run on the card disagrees with the plain CPU path")
+
+
+# ------------------------- mutants and the encode probe ----------------------
+
+# Three broken copies of csrc/attention_bwd.cu: (source text, replacement)
+BWD_MUTANTS = {
+    "no_key_mask": [
+        ("        if (ragged && t * BK + j * 8 + tg * 2 + (e & 1) >= S) p = 0.f;   // keys past s\n",
+         ""),
+        ("      const float p = t * BK + j < S ? ex2(fmaf(s, scale_log2, -lse2)) : 0.f;   "
+         "// keys past s: 0", "      const float p = ex2(fmaf(s, scale_log2, -lse2));"),
+    ],
+    "no_D_term": [
+        ("s_acc[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));", "s_acc[j][e] = p * dp[j][e];"),
+        ("s_acc[j][e] *= dp[j][e] - dd[j * 8 + tg * 2 + (e & 1)];", "s_acc[j][e] *= dp[j][e];"),
+        ("p * (dpv - drow)", "p * dpv"),
+        ("p * (dpv - rows[BQ + i])", "p * dpv"),
+    ],
+    "lse_base_2": [(" * LOG2E : 0.f;", " : 0.f;")],
+}
+_MUTANT_CHECK = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs._fail = lambda msg: print("FAIL:", str(msg)[:1500], flush=True)
+dev = torch.device("cuda")
+cs.check_attention_ragged(dev)
+cs.small_video_train_check(dev)
+"""
+
+
+def run_mutants():
+    """``python3 chip_smoke.py mutants``: each of BWD_MUTANTS in a copy of the
+    checkout under a temporary directory (the three built in parallel), then
+    the ragged attention check and the small training check on it, with
+    ``_fail`` made to print. A mutant must fail at least one check."""
+    import shutil
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the mutants run on an NVIDIA card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="fnx_mutants_") as tmp:
+        procs = {}
+        for name, edits in BWD_MUTANTS.items():
+            dst = os.path.join(tmp, name)
+            shutil.copytree(root, dst, ignore=shutil.ignore_patterns(
+                "_build", "chiprun_out", "_checkout", ".git", "__pycache__"))
+            path = os.path.join(dst, "fluidnexus_torch", "csrc", "attention_bwd.cu")
+            with open(path) as f:
+                src = f.read()
+            for old, new in edits:
+                if old not in src:
+                    _fail(f"mutant {name}: {old!r} is not in attention_bwd.cu")
+                src = src.replace(old, new)
+            with open(path, "w") as f:
+                f.write(src)
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", "from fluidnexus_torch.ops import cuda_build; "
+                 "cuda_build.build(['attention', 'attention_bwd'])"], cwd=dst)
+        if any(p.wait() for p in procs.values()):
+            _fail("a mutant did not build")
+        survived = []
+        for name in BWD_MUTANTS:
+            out = subprocess.run([sys.executable, "-c", _MUTANT_CHECK], capture_output=True,
+                                 text=True, cwd=os.path.join(tmp, name))
+            print(f"===== mutant {name} (rc {out.returncode})\n{out.stdout[-6000:]}"
+                  f"{out.stderr[-1500:]}", flush=True)
+            if out.returncode != 0 or "FAIL:" not in out.stdout:
+                survived.append(name)
+    if survived:
+        _fail(f"mutants that failed no check (or did not run): {survived}")
+    print(f"every mutant of {list(BWD_MUTANTS)} failed a check")
+
+
+def encode_probe():
+    """``python3 chip_smoke.py encode-probe``: the 5B VAE's whole-clip encode
+    of a batch of two 49 x 480 x 720 clips, and the encode in chunks of
+    train_video's default --encode_chunk latents, each with its peak memory
+    above what is resident (or the out-of-memory error): why that default is
+    not JAX's 0."""
+    import time
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the probe runs on an NVIDIA card")
+    from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig, chunked_encode, init_vae
+    from fluidnexus_torch.pipelines import train_video
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    vae = init_vae(VAE3DConfig(), torch.Generator(device=dev).manual_seed(1))
+    x = torch.zeros((2, VIDEO_FRAMES, 480, 720, 3), device=dev)
+    for chunk in (0, train_video.build_argparser().get_default("encode_chunk")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                z = vae.encode(x, None)[0] if chunk == 0 else chunked_encode(vae, x, chunk=chunk)
+            torch.cuda.synchronize()
+            print(f"encode, chunk {chunk} (0: the whole clip): {time.perf_counter() - t0:.2f} s, "
+                  f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+                  f"resident {base / 2**30:.2f} GiB, latents {tuple(z.shape)}")
+            del z
+        except torch.OutOfMemoryError as e:
+            print(f"encode, chunk {chunk} (0: the whole clip): out of memory after "
+                  f"{time.perf_counter() - t0:.2f} s: {str(e).splitlines()[0]}")
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["mutants"]:
+        run_mutants()
+    elif sys.argv[1:] == ["encode-probe"]:
+        encode_probe()
+    else:
+        main()

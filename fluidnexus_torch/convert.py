@@ -111,7 +111,7 @@ def _flatten_flax(tree, prefix=""):
 def _torch_layout(name, x):
     """A flax leaf in the port's layout: a Dense kernel (in, out) becomes a
     weight (out, in), a Conv kernel (*k, in, out) a weight (out, in, *k)."""
-    if not name.endswith(".kernel"):
+    if name.split(".")[-1] != "kernel":
         return name, x
     nd = x.ndim
     return name[:-len("kernel")] + "weight", np.transpose(x, (nd - 1, nd - 2) + tuple(range(nd - 2)))
@@ -135,6 +135,28 @@ def load_flax_params(module, params, device="cuda"):
                 raise ValueError(f"{name}: tree {src.shape}, module {tuple(prm.shape)}")
             prm.copy_(torch.as_tensor(np.ascontiguousarray(src)).to(prm.dtype))
     return module
+
+
+def flax_params_to_numpy(named):
+    """The inverse of ``load_flax_params``: {dotted name: tensor} (a
+    module's ``named_parameters()``, or such a dict with some leaves
+    replaced, as the EMA of the trainables) as a nested flax tree of numpy.
+    A ``weight`` (out, in, *k) goes back to a ``kernel`` (*k, in, out); float
+    leaves are saved as f32, the JAX package's parameter type, and int8
+    leaves as they are."""
+    tree: dict = {}
+    for name, x in named.items():
+        x = x.detach()
+        arr = (x.float() if x.is_floating_point() else x).cpu().numpy()
+        if name.split(".")[-1] == "weight":
+            name = name[:-len("weight")] + "kernel"
+            arr = np.transpose(arr, tuple(range(2, arr.ndim)) + (1, 0))
+        *parents, leaf = name.split(".")
+        d = tree
+        for p in parents:
+            d = d.setdefault(p, {})
+        d[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def video_dit_from_numpy(params, cfg, device="cuda"):

@@ -1,12 +1,31 @@
 """Network-parameter checkpoints in the JAX package's flat-npz format
-(counterpart of ``fluidnexus_tpu/core/checkpoint.py``, its loaders): one array
-per leaf under its /-joined path. Orbax directories are not read here.
+(counterpart of ``fluidnexus_tpu/core/checkpoint.py``, its npz branch): one
+array per leaf under its /-joined path. Orbax directories are neither written
+nor read here.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+
+def save_params(path: str, params):
+    """Write a nested dict of numpy arrays as ``<path>.npz`` (``.npz`` not
+    repeated), keys /-joined; returns ``path``."""
+    flat = {}
+
+    def add(prefix, tree):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                add(key, v)
+            else:
+                flat[key] = np.asarray(v)
+
+    add("", params)
+    np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
+    return path
 
 
 def load_params_prefer_ema(path: str):

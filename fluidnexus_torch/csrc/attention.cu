@@ -13,7 +13,10 @@
 // Inputs q, k, v are (b, h, s, d) with any element strides for b, h and s
 // (d contiguous, every row 16-byte aligned); o is written once, contiguous
 // (b, s, h, d), in the input type. The DiT's v is a strided view of the qkv
-// projection, so it is read in place.
+// projection, so it is read in place. When asked (a non-null lse), each row's
+// log-sum-exp of the scaled logits goes to a contiguous f32 (b, h, s) for the
+// backward (csrc/attention_bwd.cu; the base is set out in
+// attention_common.cuh).
 //
 // Tiling: one block per (64-query tile, b h). Key and value tiles of 64 rows
 // pass through shared memory by cp.async, 16 bytes a thread, rows past s
@@ -39,99 +42,19 @@
 // wgmma, no TMA, no warp specialisation, the exponentials not overlapped
 // with the products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
-
-struct Strides {  // element strides of a (b, h, s, d) input; d has stride 1
-  long long b, h, s;
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy to shared memory; 0 source bytes fill the chunk with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-// Chunk index of (row, 16-byte chunk) in a tile of CH chunks a row; the
-// chunk is XORed with the row's low bits, a bijection within each row.
-template <int CH>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  constexpr int MASK = (CH < 8 ? CH : 8) - 1;
-  return row * CH + (chunk ^ (row & MASK));
-}
-
-// Rows row0 .. row0 + 63 of one (b, h) slice into a swizzled tile; rows past
-// s are zero-filled (their address is clamped to row 0 and nothing is read).
-template <typename T, int D, int NT>
-__device__ __forceinline__ void load_tile(uint4* tile, const T* src, long long ss, int row0, int s,
-                                          int tid) {
-  constexpr int CH = D * (int)sizeof(T) / 16;
-  constexpr int PER = BK * CH / NT;
-  static_assert(BK * CH % NT == 0, "tile chunks must split evenly over the threads");
-#pragma unroll
-  for (int it = 0; it < PER; ++it) {
-    const int idx = it * NT + tid;
-    const int r = idx / CH, c = idx % CH;
-    const bool ok = row0 + r < s;
-    const T* p = src + (ok ? (long long)(row0 + r) * ss : 0) + c * (16 / (int)sizeof(T));
-    cp_async16(tile + swz<CH>(r, c), p, ok);
-  }
-}
+using namespace fnx_attn;
 
 // ------------------------------- bf16 kernel --------------------------------
-
-// two bf16 at an even column of a swizzled row, as one 32-bit word
-template <int CH>
-__device__ __forceinline__ uint32_t ld_pair(const uint4* tile, int row, int col) {
-  const uint4* chunk = tile + swz<CH>(row, col >> 3);
-  return reinterpret_cast<const uint32_t*>(chunk)[(col & 7) >> 1];
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(128) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int S, Strides sq,
-    Strides sk, Strides sv, float scale_log2) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int H, int S, Strides sq, Strides sk, Strides sv, float scale_log2) {
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int KS = D / 16;      // k-steps of Q K^T
   constexpr int NO = D / 8;       // n-tiles of O
@@ -173,30 +96,13 @@ __global__ void __launch_bounds__(128) attention_bf16_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        qf[kk][0] = ld_pair<CH>(q_tile, r0, kk * 16 + tg * 2);
-        qf[kk][1] = ld_pair<CH>(q_tile, r0 + 8, kk * 16 + tg * 2);
-        qf[kk][2] = ld_pair<CH>(q_tile, r0, kk * 16 + 8 + tg * 2);
-        qf[kk][3] = ld_pair<CH>(q_tile, r0 + 8, kk * 16 + 8 + tg * 2);
-      }
-    }
+    if (t == 0) load_a_frags<CH, KS>(qf, q_tile, r0, tg);
     const uint4* kt = k_tiles + buf * TILE;
     const uint4* vt = v_tiles + buf * TILE;
 
     // S = Q K^T: 16 rows x 64 keys a warp, 8 n-tiles of 8 keys
     float s_acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s_acc[j][0] = s_acc[j][1] = s_acc[j][2] = s_acc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const uint32_t b0 = ld_pair<CH>(kt, j * 8 + g, kk * 16 + tg * 2);
-        const uint32_t b1 = ld_pair<CH>(kt, j * 8 + g, kk * 16 + 8 + tg * 2);
-        mma_bf16(s_acc[j], qf[kk], b0, b1);
-      }
-    }
+    mma_a_tt<CH, KS>(s_acc, qf, kt, g, tg);
     // keys past s in the ragged last tile: -inf before the row max
     if ((t + 1) * BK > S) {
 #pragma unroll
@@ -242,23 +148,7 @@ __global__ void __launch_bounds__(128) attention_bf16_kernel(
     }
 
     // O += P V: P's A fragment is the S accumulator of n-tiles 2kk, 2kk + 1
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s_acc[2 * kk][0], s_acc[2 * kk][1]);
-      pa[1] = pack_bf16(s_acc[2 * kk][2], s_acc[2 * kk][3]);
-      pa[2] = pack_bf16(s_acc[2 * kk + 1][0], s_acc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s_acc[2 * kk + 1][2], s_acc[2 * kk + 1][3]);
-      const int mi = lane >> 3, rr = lane & 7;
-      const int key = kk * 16 + (mi & 1) * 8 + rr;
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + swz<CH>(key, np * 2 + (mi >> 1)));
-        mma_bf16(acc_o[2 * np], pa, bv[0], bv[1]);
-        mma_bf16(acc_o[2 * np + 1], pa, bv[2], bv[3]);
-      }
-    }
+    mma_acc_t<CH, NO>(acc_o, s_acc, vt, lane);
     __syncthreads();
   }
 
@@ -278,6 +168,11 @@ __global__ void __launch_bounds__(128) attention_bf16_kernel(
       *reinterpret_cast<uint32_t*>(o + (((long long)b * S + row1) * H + h) * D + d) =
           pack_bf16(acc_o[n][2] * inv1, acc_o[n][3] * inv1);
   }
+  if (lse != nullptr && tg == 0) {
+    float* lrow = lse + ((long long)b * H + h) * S;
+    if (row0 < S) lrow[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+    if (row1 < S) lrow[row1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+  }
 }
 
 // -------------------------------- f32 kernel --------------------------------
@@ -285,7 +180,8 @@ __global__ void __launch_bounds__(128) attention_bf16_kernel(
 template <int D>
 __global__ void __launch_bounds__(256) attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int H, int S, Strides sq, Strides sk, Strides sv, float scale_log2) {
+    float* __restrict__ o, float* __restrict__ lse, int H, int S, Strides sq, Strides sk,
+    Strides sv, float scale_log2) {
   constexpr int CH = D / 4;       // 16-byte chunks a row
   constexpr int DP = D / 4;       // dims of one thread's quarter
   constexpr int TILE = BK * CH;
@@ -362,42 +258,41 @@ __global__ void __launch_bounds__(256) attention_f32_kernel(
     float* orow = o + (((long long)b * S + row) * H + h) * D + part * DP;
 #pragma unroll
     for (int i = 0; i < DP; ++i) orow[i] = acc[i] * inv;
+    if (lse != nullptr && part == 0)
+      lse[((long long)b * H + h) * S + row] = (m * scale_log2 + log2f(l)) * LN2;
   }
 }
 
 // One launch of the (T, D) kernel: bf16 with 128 threads, Q and two K and V
 // buffers in shared memory; f32 with 256 threads, one K and one V tile.
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int S, Strides sq,
-           Strides sk, Strides sv, float scale_log2, cudaStream_t stream) {
-  const bool bf16 = sizeof(T) == 2;
-  const size_t smem = (size_t)BK * D * sizeof(T) * (bf16 ? 5 : 2);
-  const int threads = bf16 ? 128 : 256;
-  void (*kernel)(const T*, const T*, const T*, T*, int, int, Strides, Strides, Strides, float);
-  if constexpr (sizeof(T) == 2)
-    kernel = attention_bf16_kernel<D>;
-  else
-    kernel = attention_f32_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int S,
+           Strides sq, Strides sk, Strides sv, float scale_log2, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v), static_cast<T*>(o), H, S, sq,
-                                          sk, sv, scale_log2);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat16* qq = static_cast<const __nv_bfloat16*>(q);
+    const __nv_bfloat16* kk = static_cast<const __nv_bfloat16*>(k);
+    const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(v);
+    return launch_kernel(attention_bf16_kernel<D>, grid, 128, (size_t)BK * D * 2 * 5, stream, qq,
+                         kk, vv, static_cast<__nv_bfloat16*>(o), lse, H, S, sq, sk, sv,
+                         scale_log2);
+  } else {
+    const float* qq = static_cast<const float*>(q);
+    const float* kk = static_cast<const float*>(k);
+    const float* vv = static_cast<const float*>(v);
+    return launch_kernel(attention_f32_kernel<D>, grid, 256, (size_t)BK * D * 4 * 2, stream, qq,
+                         kk, vv, static_cast<float*>(o), lse, H, S, sq, sk, sv, scale_log2);
+  }
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-             Strides sq, Strides sk, Strides sv, float scale_log2, cudaStream_t stream) {
+int launch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+             int S, Strides sq, Strides sk, Strides sv, float scale_log2, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, S, sq, sk, sv, scale_log2, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, S, sq, sk, sv, scale_log2, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, S, sq, sk, sv, scale_log2, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, S, sq, sk, sv, scale_log2, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, H, S, sq, sk, sv, scale_log2, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, S, sq, sk, sv, scale_log2, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, S, sq, sk, sv, scale_log2, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, S, sq, sk, sv, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -407,17 +302,19 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // dtype 0: float32, 1: bfloat16. Strides are in elements, for (b, h, s) of
-// each input; every row must be 16-byte aligned (the wrapper checks).
-int fnx_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                      int H, int S, int D, long long qsb, long long qsh, long long qss,
+// each input; every row must be 16-byte aligned (the wrapper checks). lse may
+// be null: the sampler needs no log-sum-exp.
+int fnx_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                      int B, int H, int S, int D, long long qsb, long long qsh, long long qss,
                       long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
                       long long vss, float scale_log2, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsh, qss}, sk{ksb, ksh, kss}, sv{vsb, vsh, vss};
   const cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, S, sq, sk, sv, scale_log2, st);
-  if (dtype == 0) return launch_d<float>(D, q, k, v, o, B, H, S, sq, sk, sv, scale_log2, st);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, S, sq, sk, sv, scale_log2, st);
+  if (dtype == 0) return launch_d<float>(D, q, k, v, o, l, B, H, S, sq, sk, sv, scale_log2, st);
   return (int)cudaErrorInvalidValue;
 }
 

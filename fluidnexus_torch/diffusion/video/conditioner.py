@@ -4,6 +4,8 @@
 Only the hash pseudo-encoder is ported: ``HashTextEncoder`` gives stable
 pseudo-embeddings from token hashes, with no language model behind them. The
 T5-XXL encoder waits until its weights ship with the repository.
+``apply_ucg`` drops whole text embeddings for classifier-free guidance
+training.
 """
 from __future__ import annotations
 
@@ -50,3 +52,15 @@ def make_text_encoder(model_dir: Optional[str] = None, max_length: int = 226,
             "--allow_fake_conditioning to accept hash pseudo-embeddings (test/smoke only: "
             "outputs will NOT follow the prompt)")
     return HashTextEncoder(max_length, hidden)
+
+
+def _bernoulli(p, shape, generator, device):
+    """True with probability ``p`` (the conditioner's only draw)."""
+    return torch.rand(tuple(shape), generator=generator, device=device) < p
+
+
+def apply_ucg(text_emb, rng: torch.Generator, ucg_rate: float = 0.1):
+    """Zero whole-sample embeddings with probability ``ucg_rate``
+    (GeneralConditioner's ucg)."""
+    keep = _bernoulli(1.0 - ucg_rate, (text_emb.shape[0],), rng, text_emb.device)
+    return text_emb * keep[:, None, None].to(text_emb.dtype)

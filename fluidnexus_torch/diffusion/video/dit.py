@@ -11,14 +11,24 @@
 - final layer: 2-way adaLN modulate, linear, unpatchify.
 
 Module and parameter names follow the flax tree (``block_{i}``, ``attn.qkv``,
-``q_ln_scale``, ...; a flax Dense ``kernel`` (in, out) is a ``weight`` (out,
-in) here), so ``fluidnexus_torch.convert.video_dit_from_numpy`` maps one onto
-the other. Weights that the JAX package casts to ``cfg.dtype`` at use are
-stored in ``cfg.dtype``; the adaLN projections and the time MLP stay f32, as
-they compute in f32. The attention goes through
-``fluidnexus_torch.ops.attention_cuda.joint_attention``: the CUDA kernel on
-the card, its plain version on the CPU. LoRA adapters (rank > 0), int8 base
-weights and rematerialization are training features and are not ported here.
+``q_ln_scale``, ...; every Dense is a ``LoRADense``, whose flax ``kernel``
+(in, out) is a ``weight`` (out, in) here), so
+``fluidnexus_torch.convert.video_dit_from_numpy`` maps one onto the other.
+Weights that the JAX package casts to ``cfg.dtype`` at use are stored in
+``cfg.dtype``; the adaLN projections and the time MLP stay f32, as they
+compute in f32. The attention goes through
+``fluidnexus_torch.ops.attention_cuda.joint_attention``: the CUDA kernels on
+the card (forward, and backward when a gradient is wanted), the plain version
+on the CPU.
+
+Training (``pipelines/train_video``): every attention and MLP projection is a
+``LoRADense``, with f32 adapters ``lora_a`` (in, rank) and ``lora_b`` (rank,
+out) at rank > 0, stored in the flax layout and cast to ``cfg.dtype`` at use.
+``base_quant`` stores the frozen block projections, the adaLN one included,
+as int8 ``kernel_q`` (in, out) with an f32 per-column ``kernel_scale``.
+``remat`` recomputes each block (or, with ``remat_group`` g > 1, each group of
+g blocks, nesting a scope per block) in the backward with
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fluidnexus_torch.ops.attention_cuda import joint_attention
 
@@ -50,9 +61,15 @@ class VideoDiTConfig:
     # 512 in the released 5B; None falls back to hidden_size
     time_embed_dim: Optional[int] = 512
     mlp_ratio: int = 4
-    lora_rank: int = 0               # only 0: the adapters come with training
+    lora_rank: int = 0               # 0 disables the LoRA adapters
     dtype: torch.dtype = torch.bfloat16
     ln_affine: bool = True
+    # recompute each block in the backward (the reference finetunes with
+    # checkpoint_activations); g > 1 blocks per outer scope
+    remat: bool = True
+    remat_group: int = 1
+    # int8 frozen base projections with per-column f32 scales (QLoRA style)
+    base_quant: bool = False
 
     @property
     def head_dim(self):
@@ -125,20 +142,45 @@ def _empty(*shape, dtype):
     return nn.Parameter(torch.empty(shape, dtype=dtype))
 
 
-class Dense(nn.Module):
-    """flax ``nn.Dense(features, dtype)``: input, weight and bias cast to
-    ``dtype`` at use. The weight is stored (out, in) in ``dtype``. It is also
-    the JAX ``LoRADense`` at rank 0 (``qkv``, ``out``, ``fc1``, ``fc2``),
-    whose input always arrives in ``dtype``."""
+LORA_ALPHA = 1.0   # the JAX LoRADense's lora_alpha, which no caller sets
 
-    def __init__(self, in_features, out_features, dtype):
+
+class LoRADense(nn.Module):
+    """flax ``nn.Dense(features, dtype)`` and the JAX ``LoRADense``: ``x @
+    kernel`` (or, with ``quant``, ``(x @ kernel_q) * kernel_scale``, the
+    scale applied after the product, as JAX does) plus the bias, plus ``((x
+    @ lora_a) @ lora_b) * LORA_ALPHA`` at rank > 0; input, weights and bias
+    cast to ``dtype`` at use. The float kernel is stored as a (out, in)
+    ``weight`` in ``dtype``; ``kernel_q`` (int8), ``lora_a`` and ``lora_b``
+    (f32) keep the flax (in, out) layout."""
+
+    def __init__(self, in_features, out_features, dtype, rank=0, quant=False):
         super().__init__()
-        self.dtype = dtype
-        self.weight = _empty(out_features, in_features, dtype=dtype)
+        self.dtype, self.quant = dtype, quant
+        if quant:
+            self.kernel_q = nn.Parameter(torch.empty((in_features, out_features), dtype=torch.int8),
+                                         requires_grad=False)
+            self.kernel_scale = _empty(out_features, dtype=torch.float32)
+        else:
+            self.weight = _empty(out_features, in_features, dtype=dtype)
         self.bias = _empty(out_features, dtype=dtype)
+        if rank > 0:
+            self.lora_a = _empty(in_features, rank, dtype=torch.float32)
+            self.lora_b = _empty(rank, out_features, dtype=torch.float32)
+        else:
+            self.lora_a = self.lora_b = None
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        dt = self.dtype
+        x = x.to(dt)
+        if self.quant:
+            y = torch.matmul(x, self.kernel_q.to(dt)) * self.kernel_scale.to(dt) + self.bias.to(dt)
+        else:
+            y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
+        if self.lora_a is not None:
+            y = y + torch.matmul(torch.matmul(x, self.lora_a.to(dt)), self.lora_b.to(dt)) \
+                * LORA_ALPHA
+        return y
 
 
 class AffineLN(nn.Module):
@@ -163,13 +205,13 @@ class JointAttention(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         d = c.head_dim
-        self.qkv = Dense(c.hidden_size, 3 * c.hidden_size, c.dtype)
+        self.qkv = LoRADense(c.hidden_size, 3 * c.hidden_size, c.dtype, c.lora_rank, c.base_quant)
         self.q_ln_scale = _empty(d, dtype=c.dtype)
         self.k_ln_scale = _empty(d, dtype=c.dtype)
         if c.ln_affine:  # the 5B qk-LNs are full affine LayerNorms
             self.q_ln_bias = _empty(d, dtype=c.dtype)
             self.k_ln_bias = _empty(d, dtype=c.dtype)
-        self.out = Dense(c.hidden_size, c.hidden_size, c.dtype)
+        self.out = LoRADense(c.hidden_size, c.hidden_size, c.dtype, c.lora_rank, c.base_quant)
 
     def forward(self, x, rope_cos, rope_sin):
         c = self.cfg
@@ -198,8 +240,10 @@ class MLP(nn.Module):
     def __init__(self, cfg: VideoDiTConfig):
         super().__init__()
         c = cfg
-        self.fc1 = Dense(c.hidden_size, c.mlp_ratio * c.hidden_size, c.dtype)
-        self.fc2 = Dense(c.mlp_ratio * c.hidden_size, c.hidden_size, c.dtype)
+        self.fc1 = LoRADense(c.hidden_size, c.mlp_ratio * c.hidden_size, c.dtype, c.lora_rank,
+                             c.base_quant)
+        self.fc2 = LoRADense(c.mlp_ratio * c.hidden_size, c.hidden_size, c.dtype, c.lora_rank,
+                             c.base_quant)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -209,7 +253,8 @@ class DiTBlock(nn.Module):
     def __init__(self, cfg: VideoDiTConfig):
         super().__init__()
         c = self.cfg = cfg
-        self.adaLN = Dense(c.temb_dim, 12 * c.hidden_size, torch.float32)
+        # the int8 adaLN projection computes in f32 like the float one
+        self.adaLN = LoRADense(c.temb_dim, 12 * c.hidden_size, torch.float32, quant=c.base_quant)
         self.ln1 = AffineLN(c.hidden_size, c.ln_affine, c.dtype)
         self.ln2 = AffineLN(c.hidden_size, c.ln_affine, c.dtype)
         self.attn = JointAttention(c)
@@ -244,20 +289,18 @@ class VideoDiT(nn.Module):
 
     def __init__(self, cfg: VideoDiTConfig):
         super().__init__()
-        if cfg.lora_rank:
-            raise ValueError("LoRA adapters are not ported yet: use lora_rank=0")
         c = self.cfg = cfg
         p = c.patch_size
-        self.patch_proj = Dense(p * p * c.in_channels, c.hidden_size, c.dtype)
-        self.text_proj = Dense(c.text_hidden_size, c.hidden_size, c.dtype)
-        self.time_fc1 = Dense(c.hidden_size, c.temb_dim, torch.float32)
-        self.time_fc2 = Dense(c.temb_dim, c.temb_dim, torch.float32)
+        self.patch_proj = LoRADense(p * p * c.in_channels, c.hidden_size, c.dtype)
+        self.text_proj = LoRADense(c.text_hidden_size, c.hidden_size, c.dtype)
+        self.time_fc1 = LoRADense(c.hidden_size, c.temb_dim, torch.float32)
+        self.time_fc2 = LoRADense(c.temb_dim, c.temb_dim, torch.float32)
         for i in range(c.num_layers):
             self.add_module(f"block_{i}", DiTBlock(c))
         self.final_ln = AffineLN(c.hidden_size, c.ln_affine, c.dtype)
-        self.final_adaLN = Dense(c.temb_dim, 2 * c.hidden_size, torch.float32)
+        self.final_adaLN = LoRADense(c.temb_dim, 2 * c.hidden_size, torch.float32)
         self.norm_final = AffineLN(c.hidden_size, c.ln_affine, c.dtype)
-        self.final_linear = Dense(c.hidden_size, p * p * c.out_channels, c.dtype)
+        self.final_linear = LoRADense(c.hidden_size, p * p * c.out_channels, c.dtype)
         cos, sin = make_3d_rope(c)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -282,8 +325,25 @@ class VideoDiT(nn.Module):
         n_img = x.shape[1] - c.text_length
         rope_cos = self.rope_cos.to(c.dtype)[:n_img]
         rope_sin = self.rope_sin.to(c.dtype)[:n_img]
-        for blk in self.blocks():
-            x = blk(x, temb, rope_cos, rope_sin)
+        blocks = self.blocks()
+        if not (c.remat and torch.is_grad_enabled()):
+            for blk in blocks:
+                x = blk(x, temb, rope_cos, rope_sin)
+        elif c.remat_group > 1:
+            # one outer scope per group of g blocks keeps only the group
+            # boundaries; the inner scope per block keeps the group's
+            # recomputation from holding every block's internals at once
+            def run_group(xg, group):
+                for blk in group:
+                    xg = checkpoint(blk, xg, temb, rope_cos, rope_sin, use_reentrant=False)
+                return xg
+
+            g = c.remat_group
+            for lo in range(0, len(blocks), g):
+                x = checkpoint(run_group, x, blocks[lo:lo + g], use_reentrant=False)
+        else:
+            for blk in blocks:
+                x = checkpoint(blk, x, temb, rope_cos, rope_sin, use_reentrant=False)
 
         x = self.final_ln(x)
         xi = x[:, c.text_length:]
@@ -301,17 +361,25 @@ def init_video_dit(cfg: VideoDiTConfig, generator: torch.Generator) -> VideoDiT:
     """A ``VideoDiT`` on the generator's device, drawn as the flax init draws:
     Dense kernels lecun-normal (a normal truncated at +-2 std, std
     sqrt(1/fan_in) / .8796), biases 0, LayerNorm scales 1 and biases 0, and
-    every adaLN projection (``block_{i}.adaLN``, ``final_adaLN``) 0."""
+    every adaLN projection (``block_{i}.adaLN``, ``final_adaLN``) 0; LoRA
+    ``lora_a`` lecun-normal and ``lora_b`` 0; int8 ``kernel_q`` 0 and
+    ``kernel_scale`` 1 (convert float weights with ``quantize_dit_params``)."""
     with torch.device(generator.device):
         model = VideoDiT(cfg)
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, Dense):
-                if name.endswith("adaLN"):
+            if isinstance(mod, LoRADense):
+                if mod.quant:
+                    mod.kernel_q.zero_()
+                    mod.kernel_scale.fill_(1.0)
+                elif name.endswith("adaLN"):
                     mod.weight.zero_()
                 else:
                     lecun_normal_(mod.weight, mod.weight.shape[1], generator)
                 mod.bias.zero_()
+                if mod.lora_a is not None:
+                    lecun_normal_(mod.lora_a, mod.lora_a.shape[0], generator)
+                    mod.lora_b.zero_()
             elif isinstance(mod, AffineLN) and mod.scale is not None:
                 mod.scale.fill_(1.0)
                 mod.bias.zero_()
@@ -336,3 +404,37 @@ def lecun_normal_(w, fan_in, generator):
         nn.init.trunc_normal_(part, 0.0, 1.0, -2.0, 2.0, generator=generator)
         flat[i:i + rows].copy_(part * std)
     return w
+
+
+QUANT_MODULES = ("qkv", "out", "fc1", "fc2", "adaLN")
+
+
+def quantize_dit_params(params):
+    """A float DiT param tree (the JAX layout, numpy leaves) -> the
+    ``base_quant`` layout: every block projection ``kernel`` becomes int8
+    ``kernel_q`` and a per-output-column f32 ``kernel_scale`` (symmetric
+    absmax, q = round(w / scale) clamped to +-127, scale = max(absmax, 1e-8)
+    / 127, computed in f32 as the JAX package does). Other leaves pass
+    through unchanged."""
+    def quant_mod(d):
+        w = torch.as_tensor(np.asarray(d["kernel"], np.float32))
+        scale = torch.clamp(w.abs().amax(0), min=1e-8) / 127.0
+        q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
+        out = {k: walk(v) for k, v in d.items() if k != "kernel"}
+        out["kernel_q"] = q.numpy()
+        out["kernel_scale"] = scale.numpy()
+        return out
+
+    def walk(tree):
+        if not hasattr(tree, "items"):
+            return tree
+        return {k: (quant_mod(v) if k in QUANT_MODULES and hasattr(v, "items") and "kernel" in v
+                    else walk(v)) for k, v in tree.items()}
+
+    return walk(params)
+
+
+def lora_param_filter(name: str) -> bool:
+    """True for the LoRA params (a dotted parameter name), the only
+    trainables of the reference finetune."""
+    return name.split(".")[-1] in ("lora_a", "lora_b")

@@ -1,23 +1,34 @@
-"""Video diffusion engine for sampling: DiT + causal VAE + v-denoiser +
-DPM++(2M) SDE sampler (counterpart of
+"""Video diffusion engine: DiT + causal VAE + v-denoiser + DPM++(2M) SDE
+sampler + the training loss (counterpart of
 ``fluidnexus_tpu/diffusion/video/engine.py``).
 
 The JAX engine's ``params`` and ``vae_params`` are the modules themselves
 here (``VideoDiT``, ``VideoVAE``, weights on their device); ``init_params``
 and ``init_vae_params`` draw them from a ``torch.Generator`` as the flax init
 draws. Sampling, encoding and decoding run under ``torch.inference_mode()``.
-The training loss and the LoRA helpers come with the training slice.
+The LoRA partition of a param tree is a split of the module's named
+parameters: ``lora_partition`` gives the LoRA leaves (the only ones that
+``train_video`` sets ``requires_grad`` on and hands to the optimizer) and the
+rest, so no gradient of the base is ever made. The JAX ``freeze_non_lora``
+has no counterpart: it zeroes every gradient but the LoRA leaves', and the
+port computes no other (``train_video``'s full step, at rank 0, takes its
+zero gradient directly).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from fluidnexus_torch.diffusion.video import sampling
-from fluidnexus_torch.diffusion.video.dit import VideoDiT, VideoDiTConfig, init_video_dit
-from fluidnexus_torch.diffusion.video.sampling import DynamicCFG, VDenoiser, sample_dpmpp2m_sde
+from fluidnexus_torch.diffusion.schedules import append_dims
+from fluidnexus_torch.diffusion.video.dit import (
+    VideoDiT, VideoDiTConfig, init_video_dit, lora_param_filter,
+)
+from fluidnexus_torch.diffusion.video.sampling import (
+    DynamicCFG, VDenoiser, sample_dpmpp2m_sde, zero_snr_alphas_sqrt,
+)
 from fluidnexus_torch.diffusion.video.vae3d import (
     VAE3DConfig, VideoVAE, chunked_decode, chunked_encode, init_vae,
 )
@@ -31,6 +42,13 @@ class VideoEngine:
     fixed_frames: int = 0          # prefix-i2v clean frames
     cfg_scale: float = 6.0
     cfg_exp: float = 5.0
+
+    def __post_init__(self):
+        # the 1000-step zero-SNR ladder for training-time indexing, f32 as the
+        # JAX engine holds it; index 0 is the noisiest
+        ladder, t_ids = zero_snr_alphas_sqrt(self.num_timesteps, self.num_timesteps)
+        self.alpha_sqrt_ladder = torch.as_tensor(ladder[:-1], dtype=torch.float32)
+        self.ladder_t_ids = torch.as_tensor(t_ids[:-1], dtype=torch.int32)
 
     # --------------------------------- init ---------------------------------
 
@@ -59,10 +77,37 @@ class VideoEngine:
         return vae.encode(frames, rng)[0]
 
     @torch.inference_mode()
-    def decode_first_stage(self, vae: VideoVAE, z, chunk: int = 2, first_latents=None):
+    def decode_first_stage(self, vae: VideoVAE, z, chunk: int = 2):
         """Chunked decode of (B, T, H, W, Cz) latents to frames (the JAX
         engine's ``spatial_tiles=1``)."""
-        return chunked_decode(vae, z, chunk=chunk, first_latents=first_latents)
+        return chunked_decode(vae, z, chunk=chunk)
+
+    # --------------------------------- loss ---------------------------------
+
+    def loss_fn(self, params: VideoDiT, latents, text_emb, rng: torch.Generator,
+                is_i2v: bool = True):
+        """latents: (B, T, C, H, W) scaled x0. A timestep index and the noise
+        are drawn from ``rng`` (in the JAX order: index, then noise); the
+        first ``fixed_frames`` latents stay clean for prefix-i2v; the v-
+        prediction's x0 against the latents, weighted 1/(1 - abar). Returns
+        (scalar loss, {"idx", "per_sample"})."""
+        b, dev = latents.shape[0], latents.device
+        idx = _randint(self.num_timesteps, (b,), rng, dev)
+        a = self.alpha_sqrt_ladder.to(dev)[idx]
+        t_ids = self.ladder_t_ids.to(dev)[idx]
+        noise = sampling._normal(latents.shape, rng, dev)
+
+        a_d = append_dims(a, latents.dim())
+        s_d = append_dims(torch.sqrt(1 - a**2), latents.dim())
+        noised = latents * a_d + noise * s_d
+        if is_i2v and self.fixed_frames > 0:
+            noised = torch.cat([latents[:, : self.fixed_frames], noised[:, self.fixed_frames:]], 1)
+
+        denoiser = VDenoiser(lambda x, t, c: self.dit_apply(params, x, t, c))
+        denoised = denoiser(noised, a, t_ids, text_emb)
+        w = append_dims(1.0 / torch.clamp(1 - a**2, min=1e-8), latents.dim())
+        per_sample = torch.mean((w * (denoised - latents) ** 2).reshape(b, -1), -1)
+        return per_sample.mean(), {"idx": idx, "per_sample": per_sample}
 
     # -------------------------------- sampling -------------------------------
 
@@ -94,3 +139,23 @@ class VideoEngine:
             frames_z=frames_z, sdedit_strength=sdedit_strength,
             prefix_clean_frames=prefix_clean_frames, fixed_frames=self.fixed_frames,
         )
+
+
+def _randint(high, shape, generator, device):
+    """The training timestep indices in [0, high) (the loss's only integer
+    draw)."""
+    return torch.randint(0, high, tuple(shape), generator=generator, device=device)
+
+
+def lora_partition(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The module's named parameters split into (LoRA leaves, the rest)."""
+    lora, base = {}, {}
+    for name, p in model.named_parameters():
+        (lora if lora_param_filter(name) else base)[name] = p
+    return lora, base
+
+
+def lora_merge(lora: Dict[str, torch.Tensor], base: Dict[str, torch.Tensor]):
+    """Inverse of ``lora_partition``: one {name: tensor} over both."""
+    return {**base, **lora}
+

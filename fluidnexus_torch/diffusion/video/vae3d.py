@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fluidnexus_torch.diffusion.video import sampling
+
 
 @dataclasses.dataclass(frozen=True)
 class VAE3DConfig:
@@ -292,7 +294,8 @@ class VideoVAE(nn.Module):
         st = _Chunk(first_chunk, cache)
         mean, logvar = torch.chunk(self.encoder(_to_cf(x.to(self.cfg.dtype)), st), 2, dim=1)
         if sample and rng is not None:
-            noise = torch.randn(mean.shape, generator=rng, device=mean.device, dtype=mean.dtype)
+            # drawn channel-last, the JAX package's layout, so the draws match
+            noise = _to_cf(sampling._normal(_to_cl(mean).shape, rng, mean.device).to(mean.dtype))
             z = mean + torch.exp(0.5 * torch.clamp(logvar, -30, 20)) * noise
         else:
             z = mean
@@ -305,16 +308,12 @@ class VideoVAE(nn.Module):
         return _to_cl(out), st.cache_out
 
 
-def chunked_decode(vae: VideoVAE, z, chunk: int = 2, first_latents: Optional[int] = None):
+def chunked_decode(vae: VideoVAE, z, chunk: int = 2):
     """Serial chunked decode with the conv cache carried across chunks.
     z: (B, T, H, W, C). The first chunk takes ``chunk`` + the remainder
-    latents (or ``first_latents``), so the first-frame split happens once."""
+    latents, so the first-frame split happens once."""
     t = z.shape[1]
-    rem = t % chunk
-    first = (chunk + rem) if first_latents is None else first_latents
-    if not (first >= 1 and (t - first) % chunk == 0):
-        raise ValueError(f"cannot split {t} latents into a first chunk of {first} and chunks "
-                         f"of {chunk}")
+    first = chunk + t % chunk
     outs, cache, start = [], None, 0
     while start < t:
         end = min(first if start == 0 else start + chunk, t)
@@ -325,7 +324,7 @@ def chunked_decode(vae: VideoVAE, z, chunk: int = 2, first_latents: Optional[int
 
 
 def chunked_encode(vae: VideoVAE, x, chunk: int = 2, rng: Optional[torch.Generator] = None,
-                   sample: bool = False, first_latents: Optional[int] = None):
+                   sample: bool = False):
     """Serial chunked encode, the mirror of ``chunked_decode``: ``chunk``
     counts output latent frames (4 input frames each); the first chunk takes
     the 4k+1 head frame plus the remainder."""
@@ -334,11 +333,7 @@ def chunked_encode(vae: VideoVAE, x, chunk: int = 2, rng: Optional[torch.Generat
     if (t - 1) % ct:
         raise ValueError(f"clip length {t} is not {ct}k+1")
     t_lat = (t - 1) // ct + 1
-    rem = t_lat % chunk
-    first = (chunk + rem) if first_latents is None else first_latents
-    if not (first >= 1 and (t_lat - first) % chunk == 0):
-        raise ValueError(f"cannot split {t_lat} latents into a first chunk of {first} and "
-                         f"chunks of {chunk}")
+    first = chunk + t_lat % chunk
     bounds = [(0, 1 + (first - 1) * ct)]
     while bounds[-1][1] < t:
         s = bounds[-1][1]

@@ -1,7 +1,7 @@
 """The port's causal 3D VAE (fluidnexus_torch/diffusion/video/vae3d.py)
 against the JAX package's on the CPU, from one random param tree: encode,
-decode, the chunked decode with its carried conv cache (the reference split
-and ``first_latents``), the chunked encode, and the nearest resize. Two
+decode, the chunked decode with its carried conv cache (the reference
+split), the chunked encode, and the nearest resize. Two
 configs: the JAX tests' tiny VAE, and the 5B's ch_mult (1, 2, 2, 4) with 4x
 temporal compression at 16 x 16."""
 import jax
@@ -58,13 +58,12 @@ def test_encode_and_decode_match_jax(name):
     assert all(v.shape[2] == 2 for v in cache.values())   # k_t - 1 frames per causal conv
 
 
-@pytest.mark.parametrize("first_latents", [None, 1])
-def test_chunked_decode_matches_jax(first_latents):
+def test_chunked_decode_matches_jax():
     jvae, params, tvae = vaes("tiny", seed=2)
     z = np.random.default_rng(3).normal(size=(1, 5, 8, 8, 4)).astype(np.float32)
-    ref = jv.chunked_decode(jvae, params, jnp.asarray(z), chunk=2, first_latents=first_latents)
+    ref = jv.chunked_decode(jvae, params, jnp.asarray(z), chunk=2)
     with torch.no_grad():
-        out = tv.chunked_decode(tvae, torch.as_tensor(z), chunk=2, first_latents=first_latents)
+        out = tv.chunked_decode(tvae, torch.as_tensor(z), chunk=2)
     close(out.numpy(), ref)
 
 

@@ -152,6 +152,15 @@ def test_init_video_dit_draws_the_flax_init():
 
 
 def test_dit_refuses_lora():
-    _, tc = jax_and_torch_cfg(**TINY)
-    with pytest.raises(ValueError, match="LoRA"):
-        tdit.VideoDiT(dataclasses.replace(tc, lora_rank=4))
+    """A rank-0 DiT refuses a param tree with LoRA leaves; at rank 4 it builds
+    with f32 adapters lora_a (in, rank) and lora_b (rank, out) on every
+    attention and MLP projection and takes the tree."""
+    jc, tc = jax_and_torch_cfg(**TINY, lora_rank=4)
+    _, params = dit_params(jc, seed=7)
+    with pytest.raises(ValueError, match="lora"):
+        video_dit_from_numpy(params, dataclasses.replace(tc, lora_rank=0), device="cpu")
+    model = video_dit_from_numpy(params, tc, device="cpu")
+    qkv = model.block_1.attn.qkv
+    assert qkv.lora_a.shape == (64, 4) and qkv.lora_b.shape == (4, 192)
+    assert qkv.lora_a.dtype == qkv.lora_b.dtype == torch.float32
+    assert sum(n.endswith(("lora_a", "lora_b")) for n, _ in model.named_parameters()) == 16
