@@ -10,7 +10,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
 ``python3 chip_smoke.py mutants`` builds three broken copies of the attention
 backward and shows that each fails a check; ``python3 chip_smoke.py
-encode-probe`` tries the video training batch's whole-clip VAE encode.
+encode-probe`` tries the video training batch's whole-clip VAE encode;
+``python3 chip_smoke.py attention-time`` times the attention forward kernels
+alone at the 5B shape; ``python3 chip_smoke.py tick-flips`` counts how often
+the PBF tick's backends part at a pair that crosses the kernel radius.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -52,9 +55,11 @@ against their plain versions and each other at the first iteration's inputs.
 Video (``sample_video.main`` at its defaults): the CogVideoX-5B DiT and VAE on
 seeded random weights, 49 frames at 480 x 720 (13 latents, 17 776 tokens),
 hash text, batch-2 CFG, ``--num_steps`` cut from 50 to 4, the PNGs written
-to a temporary folder; the flash-attention kernel held against its plain
-version at layer 0's inputs of the first step (bf16, and those inputs in f32)
-and at ragged shapes.
+to a temporary folder; every forward on the Hopper flash-attention kernel
+(TMA, wgmma; bf16 at head_dim 64), which is held against the plain version at
+layer 0's inputs of the first step and at ragged shapes, and timed beside the
+mma.sync kernel (which serves f32 and the other head_dims, held there too)
+and the library call.
 
 Video training (``train_video.train``, LoRA finetuning): the CogVideoX-5B DiT
 (hidden 3 072, 42 layers, 48 heads of 64, text 226 x 4 096) at batch 2 on
@@ -1558,14 +1563,39 @@ def check_rigid_kernels(inp):
                         in_radius2=int(p2["v2"][2]))
 
 
+BACKEND_PAIRS = (("v2", "v3", 1e-4, 1e-4), ("v1", "v3", 1e-4, 1e-4), ("v1", "v2", 1e-6, 1e-6))
+
+
+def _tick_gap(got, ref, alive):
+    """Two ``project_iterations_dense`` results: the largest |estimate|
+    difference in scaled units, the force's largest difference, the force's
+    scale (ref's largest |force|), and whether every iteration's sum of
+    in-radius counts is the same (a sum of integers, so exact)."""
+    (sg, dg), (sr, dr) = got, ref
+    return (float((sg.estimate_xyz - sr.estimate_xyz)[alive].abs().max()),
+            float((sg.force - sr.force)[alive].abs().max()), float(sr.force[alive].abs().max()),
+            torch.equal(dg["neighbors"], dr["neighbors"]))
+
+
 def compare_backends(params, state0):
     """One grid-reuse tick (``project_iterations_dense``, RIGID_ITERS
     iterations, counts + 1 each) from the guessed state through the v3, v2
     and v1 passes, each run with the launch counts set to 0 just before it
-    and read just after (RIGID_ITERS launches of its two kernels, no other):
-    the estimates within 1e-4 scaled units and the force within 1e-4 of its
-    scale of v3's; v1 identical to v2, or within 1e-6. Returns the v1 run's
-    launch counts: ``backend="v1"`` is the path of the v1 kernels."""
+    and read just after (RIGID_ITERS launches of its two kernels, no other),
+    held as BACKEND_PAIRS says: the estimates within 1e-4 scaled units and
+    the force within 1e-4 of its scale of v3's; v1 identical to v2, or within
+    1e-6. Then ``backend_steps``. Returns the v1 run's launch counts:
+    ``backend="v1"`` is the path of the v1 kernels.
+
+    Each update is divided by n_i + counts, n_i the in-radius count d2 <= h^2.
+    v3 folds lambda and the update into its kernels and rounds otherwise than
+    v2 and v1, so after a few iterations a pair whose d2 lies within a
+    rounding of h^2 can count for one and not the other, and its particles
+    then move by up to |delta| / (n_i + counts) apart (a chip run of
+    ``python3 chip_smoke.py tick-flips`` counts how often), and the force,
+    which reads the positions through the density, follows. Where a pair
+    against v3 has its in-radius sums differ, its end-of-tick estimates and
+    force are printed and not held; ``backend_steps`` holds it in every run."""
     from fluidnexus_torch.sim.pbf import guess_hidden
     from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 
@@ -1576,29 +1606,59 @@ def compare_backends(params, state0):
                      ("v2", ("pbf_phase1_v2", "pbf_phase2_v2")),
                      ("v1", ("pbf_phase1_v1", "pbf_phase2_v1"))):
         reset_all_launches()
-        out[b] = project_iterations_dense(state, params, RIGID_ITERS, counts_step=1.0,
-                                          backend=b)[0]
+        out[b] = project_iterations_dense(state, params, RIGID_ITERS, counts_step=1.0, backend=b)
         launches[b] = all_launches()
         want = {n: RIGID_ITERS for n in names}
         if any(v != want.get(n, 0) for n, v in launches[b].items()):
             _fail(f"the {b} tick launched the kernels {launches[b]}, expected {want} and no other")
     print(f"tick backends: each of v3, v2 and v1 launched its two kernels {RIGID_ITERS} times "
           f"and no other kernel")
-    a = state.alive
     failures = []
-    for b, ref, pos_tol, f_tol in (("v2", "v3", 1e-4, 1e-4), ("v1", "v3", 1e-4, 1e-4),
-                                   ("v1", "v2", 1e-6, 1e-6)):
-        dx = float((out[b].estimate_xyz - out[ref].estimate_xyz)[a].abs().max())
-        f_scale = float(out[ref].force[a].abs().max())
-        df = float((out[b].force - out[ref].force)[a].abs().max())
+    for b, ref, pos_tol, f_tol in BACKEND_PAIRS:
+        dx, df, f_scale, same_counts = _tick_gap(out[b], out[ref], state.alive)
+        held = same_counts or ref != "v3"
         print(f"tick backends: {b} against {ref}: max|d estimate| {dx:.3e} scaled units "
               f"[tol {pos_tol:g}], max|d force| {df:.3e} / scale {f_scale:.3e} [tol {f_tol:g} x "
-              f"scale]")
-        if not (dx <= pos_tol and df <= f_tol * f_scale):
+              f"scale]" + ("" if held else "; not held: the in-radius sums differ, a pair "
+                           "crossed d2 = h^2"))
+        if held and not (dx <= pos_tol and df <= f_tol * f_scale):
             failures.append(f"{b} against {ref}")
+    failures += backend_steps(params, state)
     if failures:
         _fail(f"the tick's backends disagree: {failures}")
     return launches["v1"]
+
+
+def backend_steps(params, state):
+    """The v3, v2 and v1 passes held one iteration at a time on shared
+    inputs: RIGID_ITERS one-iteration ticks (the grid built from the shared
+    state, counts + 1 each), each from v3's state after the last, held as
+    BACKEND_PAIRS says, with every in-radius sum the same. From one input
+    the backends form the same d2, so no pair can count for one and not
+    another. Returns the pairs that failed."""
+    from fluidnexus_torch.sim.pbf_dense import BACKENDS, project_iterations_dense
+
+    worst = {(b, ref): [0.0, 0.0, True] for b, ref, _, _ in BACKEND_PAIRS}
+    for _ in range(RIGID_ITERS):
+        out = {b: project_iterations_dense(state, params, 1, counts_step=1.0, backend=b)
+               for b in BACKENDS}
+        for b, ref, _, _ in BACKEND_PAIRS:
+            dx, df, f_scale, same_counts = _tick_gap(out[b], out[ref], state.alive)
+            w = worst[(b, ref)]
+            w[0], w[1], w[2] = max(w[0], dx), max(w[1], df / max(f_scale, 1e-30)), \
+                w[2] and same_counts
+        state = out["v3"][0]
+    failures = []
+    for b, ref, pos_tol, f_tol in BACKEND_PAIRS:
+        dx, df_rel, same_counts = worst[(b, ref)]
+        ok = dx <= pos_tol and df_rel <= f_tol and same_counts
+        print(f"tick backends, {RIGID_ITERS} single iterations on shared inputs: {b} against "
+              f"{ref}: max|d estimate| {dx:.3e} scaled units [tol {pos_tol:g}], max|d force| / "
+              f"scale {df_rel:.3e} [tol {f_tol:g}], in-radius sums "
+              f"{'the same' if same_counts else 'DIFFER'}" + ("" if ok else " FAILED"))
+        if not ok:
+            failures.append(f"{b} against {ref}, single iterations")
+    return failures
 
 
 def time_rigid_kernels(inp, saved):
@@ -1866,45 +1926,67 @@ def low_logit_witness(gen, dev):
 
 
 def check_attention_ragged(dev):
-    """The forward kernel, its row log-sum-exp and the two backward kernels
+    """The forward kernels, their row log-sum-exp and the two backward kernels
     against their plain versions at ragged sequence lengths, each head_dim the
     DiT configs use and one more, in both types; v a strided view of a (b,
-    s, h, 3d) projection, as in the DiT. Each gradient is held at a fraction
-    of its own max|ref|. At 2 274 keys the f32 kernels are also read against
-    an f64 plain version. One more case per type and head_dim, at s = 65,
-    has every logit near -150 (q + c, k - c): a pad key's P = exp(0 - lse)
-    overflows there, and an unmasked one turns dQ into NaN. Its values carry
-    f32's rounding at that magnitude (~1e-5 of a logit) and peaked
-    softmaxes, so it is held to LOW_TOL, which a NaN fails."""
+    s, h, 3d) projection, as in the DiT. bf16 at d = 64 goes through the
+    Hopper kernel (``attention_fwd``'s own choice, checked by its launch
+    count), and the mma.sync kernel is held there too (forward and LSE,
+    through ``_attention_fwd_mma_sync``); the backward is fed the Hopper
+    kernel's O and LSE. Each gradient is held at a fraction of its own
+    max|ref|. At 2 274 keys the f32 kernels are also read against an f64
+    plain version. One more case per type and head_dim, at s = 65, has every
+    logit near -150 (q + c, k - c): a pad key's P = exp(0 - lse) overflows
+    there, and an unmasked one turns dQ into NaN (and takes weight 1 against
+    2^-216 in O). Its values carry f32's rounding at that magnitude (~1e-5
+    of a logit) and peaked softmaxes, so it is held to LOW_TOL, which a NaN
+    fails."""
     from fluidnexus_torch.ops import attention_cuda as ac
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     failures, worst, worst_bwd, worst_low, lse_worst, f64 = [], {}, {}, {}, 0.0, []
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 64, 128):
+            wgmma = ac.takes_wgmma(dtype, d)
             for s, low in [(s, False) for s in RAGGED_S] + [(65, True)]:
                 shift = math.sqrt(150.0 / math.sqrt(d)) if low else 0.0
                 q, k, v, v_view, dout = _ragged_inputs(gen, dev, dtype, s, d, shift)
+                before = ac.LAUNCHES["attention_fwd_wgmma"]
                 out, lse = ac.attention_fwd(q, k, v_view, lse=True)
-                fwd = attention_errors(out, ac.attention_plain(q, k, v))
+                if ac.LAUNCHES["attention_fwd_wgmma"] - before != int(wgmma):
+                    failures.append(("kernel choice", dtype, d, ac.LAUNCHES))
+                ref = ac.attention_plain(q, k, v)
+                fwd = attention_errors(out, ref)
                 grads = ac.attention_bwd(q, k, v_view, out, lse, dout)
                 errs = bwd_errors(grads, ac.attention_bwd_plain(q, k, v, dout))
-                key = (str(dtype).split(".")[-1], d)
+                key = (str(dtype).split(".")[-1] + (" wgmma" if wgmma else ""), d)
+                # the mma.sync kernel where the Hopper kernel serves: (key, O, LSE)
+                outs = [(key, out, lse)]
+                if wgmma:
+                    outs.append((("bfloat16 mma.sync", d),
+                                 *ac._attention_fwd_mma_sync(q, k, v_view, lse=True)))
                 if low:
                     finite = all(bool(torch.isfinite(g).all()) for g in grads)
                     worst_low[key] = (max(e[0] / e[2] for e in [fwd] + errs) if finite
                                       else float("nan"))
                     if not (finite and worst_low[key] <= LOW_TOL[dtype]):
                         failures.append(("low logits", key, finite, fwd, errs))
+                    for k_o, o_o, _ in outs[1:]:
+                        e = attention_errors(o_o, ref)
+                        worst_low[k_o] = e[0] / e[2] if bool(torch.isfinite(o_o).all()) else float("nan")
+                        if not worst_low[k_o] <= LOW_TOL[dtype]:
+                            failures.append(("low logits", k_o, e))
                     continue
-                worst[key] = max(worst.get(key, 0.0), fwd[0] / fwd[2])
-                if not attention_ok(dtype, *fwd):
-                    failures.append(("fwd", key, s, fwd))
                 lse_ref = ac.attention_lse_plain(q, k)
-                lse_err = float((lse - lse_ref).abs().max()) / max(1.0, float(lse_ref.abs().max()))
-                lse_worst = max(lse_worst, lse_err)
-                if lse_err > LSE_TOL:
-                    failures.append(("lse", key, s, lse_err))
+                for k_o, o_o, l_o in outs:
+                    e = attention_errors(o_o, ref)
+                    worst[k_o] = max(worst.get(k_o, 0.0), e[0] / e[2])
+                    if not attention_ok(dtype, *e):
+                        failures.append(("fwd", k_o, s, e))
+                    lse_err = float((l_o - lse_ref).abs().max()) / max(1.0, float(lse_ref.abs().max()))
+                    lse_worst = max(lse_worst, lse_err)
+                    if lse_err > LSE_TOL:
+                        failures.append(("lse", k_o, s, lse_err))
                 worst_bwd[key] = max([worst_bwd.get(key, 0.0)] + [e[0] / e[2] for e in errs])
                 if not bwd_ok(dtype, errs):
                     failures.append(("bwd", key, s, errs))
@@ -1939,11 +2021,13 @@ def run_video(dev, out_folder):
     """The video DiT sampling path through ``sample_video.main`` at its
     defaults (CogVideoX-5B, 49 x 480 x 720, 17 776 tokens, batch-2 CFG,
     hash text) with ``--num_steps`` cut to 4: launch counts, ms per sampler
-    step, the VAE decode, peak memory, PNGs; the kernel against its plain
-    version at layer 0's inputs of the first step (in bf16, and in f32 on a
-    few pairs) and at ragged shapes; its times; the small card-vs-CPU
-    sampling. Returns the kernel's entry of the
-    ``kernels`` line."""
+    step, the VAE decode, peak memory, PNGs (every forward on the Hopper
+    kernel); the forward kernels against the plain version at layer 0's
+    inputs of the first step (the Hopper and the mma.sync kernel in bf16, the
+    f32 kernel on a few pairs in f32) and at ragged shapes; their times
+    beside the library's; the small card-vs-CPU sampling. Returns the two
+    forward kernels' entries of the ``kernels`` line: the Hopper kernel's,
+    with the mma.sync bf16 kernel's time beside it, and the f32 kernel's."""
     import time
 
     import torch.nn.functional as F
@@ -2016,9 +2100,10 @@ def run_video(dev, out_folder):
           f"VAE decode 13 latents -> {decoded.shape[1]} frames (chunks 3 + 2 x 5, f32, TF32 "
           f"off) {decode_ms:.1f} ms; main end to end {seconds:.2f} s; peak allocated "
           f"{peak / 2**30:.2f} GiB; {len(pngs)} PNGs")
-    want = {"attention_fwd": n_layers * VIDEO_STEPS}
+    # every forward of the path on the Hopper kernel (bf16, head_dim 64)
+    want = {"attention_fwd": n_layers * VIDEO_STEPS, "attention_fwd_wgmma": n_layers * VIDEO_STEPS}
     idle = [n for n, c in launches.items() if n not in want and c]
-    if launches["attention_fwd"] != want["attention_fwd"] or idle:
+    if any(launches[n] != c for n, c in want.items()) or idle:
         _fail(f"sample_video launched {launches}, expected {want} and no other kernel")
     if len(steps) != VIDEO_STEPS or len(decode) != 2:
         _fail(f"expected {VIDEO_STEPS} DiT forwards and one decode, saw {len(steps)} and "
@@ -2029,22 +2114,28 @@ def run_video(dev, out_folder):
     if len(pngs) != VIDEO_FRAMES:
         _fail(f"sample_video wrote {len(pngs)} PNGs, expected {VIDEO_FRAMES}")
 
-    # ---- the kernel at the main path's own inputs, then its times
+    # ---- the kernels at the main path's own inputs, then their times: the
+    # Hopper kernel that the path runs, and the mma.sync kernel beside it
     with torch.inference_mode():
-        out = ac.attention_fwd(q, k, v)
-        errs = []
-        for bi, hi in VIDEO_PAIRS:
-            sl = (slice(bi, bi + 1), slice(hi, hi + 1))
-            errs.append(attention_errors(out[bi:bi + 1, :, hi:hi + 1],
-                                         ac.attention_plain(q[sl], k[sl], v[sl])))
-        torch.cuda.synchronize()
-        print("video: attention at layer 0's inputs, (b, h) " + str(VIDEO_PAIRS) + ": max|err| "
-              + ", ".join(f"{e[0]:.3e}" for e in errs) + "; mean|err| "
-              + ", ".join(f"{e[1]:.3e}" for e in errs) + "; max|ref| "
-              + ", ".join(f"{e[2]:.3e}" for e in errs)
-              + f" [tol max {BF16_MAX_TOL:g}, mean {BF16_MEAN_TOL:g} x max|ref|]")
-        if not all(attention_ok(q.dtype, *e) for e in errs):
-            _fail("the attention kernel disagrees with its plain version at layer 0's inputs")
+        errs = {}
+        for name, fwd in (("wgmma", ac.attention_fwd), ("mma.sync", ac._attention_fwd_mma_sync)):
+            out = fwd(q, k, v)
+            errs[name] = []
+            for bi, hi in VIDEO_PAIRS:
+                sl = (slice(bi, bi + 1), slice(hi, hi + 1))
+                errs[name].append(attention_errors(out[bi:bi + 1, :, hi:hi + 1],
+                                                   ac.attention_plain(q[sl], k[sl], v[sl])))
+            torch.cuda.synchronize()
+            del out
+            print(f"video: attention ({name} kernel) at layer 0's inputs, (b, h) "
+                  + str(VIDEO_PAIRS) + ": max|err| "
+                  + ", ".join(f"{e[0]:.3e}" for e in errs[name]) + "; mean|err| "
+                  + ", ".join(f"{e[1]:.3e}" for e in errs[name]) + "; max|ref| "
+                  + ", ".join(f"{e[2]:.3e}" for e in errs[name])
+                  + f" [tol max {BF16_MAX_TOL:g}, mean {BF16_MEAN_TOL:g} x max|ref|]")
+            if not all(attention_ok(q.dtype, *e) for e in errs[name]):
+                _fail(f"the {name} attention kernel disagrees with its plain version at layer "
+                      f"0's inputs")
         # the same pairs' inputs in f32, through the f32 instantiation: bf16's
         # rounding hides a fault that shrinks every output by ~5e-4, as the
         # ragged last key tile left unmasked does here (16 pad keys that score
@@ -2060,8 +2151,12 @@ def run_video(dev, out_folder):
         if not all(attention_ok(torch.float32, *e) for e in errs32):
             _fail("the f32 attention kernel disagrees with its plain version at layer 0's inputs")
 
-        ms, recorded = kernel_device_ms(lambda: ac.attention_fwd(q, k, v),
-                                        "attention_bf16_kernel", iters=20)
+        # tens of ms a launch: the wrapper's host work hides under the
+        # device's, so CUDA events time the two kernels and the library alike
+        # (the profiler's records of them were dropped: 15 of 20 in five
+        # windows on the H100)
+        ms = cuda_ms(lambda: ac.attention_fwd(q, k, v), iters=20)
+        ms_mma = cuda_ms(lambda: ac._attention_fwd_mma_sync(q, k, v), iters=20)
         sl = (slice(0, 1), slice(0, 1))
         plain_ms = cuda_ms(lambda: ac.attention_plain(q[sl], k[sl], v[sl]), iters=3,
                            warmup=1) * b * h
@@ -2070,18 +2165,24 @@ def run_video(dev, out_folder):
     flops = 4 * b * h * s * s * d
     b_ms, b_by = bound_ms(2 * 4 * b * h * s * d, flops, peak=H100_BF16_TC_FLOPS)
     exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
-    print(f"attention_fwd: {ms:.3f} ms ({recorded} of 20 launches recorded; {flops / ms / 1e9:.1f} "
-          f"TFLOP/s), bound {b_ms:.3f} ms by {b_by} (bf16 tensor cores; the {b * h * s * s:.3g} "
-          f"exponentials alone {exp_ms:.3f} ms), plain {plain_ms:.1f} ms (one (b, h) pair x "
-          f"{b * h}), scaled_dot_product_attention {library_ms:.3f} ms; {n_layers} launches per "
-          f"sampler step: {n_layers * ms:.0f} ms of the median step's "
+    print(f"attention_fwd_wgmma (the Hopper kernel, TMA + wgmma): {ms:.3f} ms (CUDA events over "
+          f"20 calls; {flops / ms / 1e9:.1f} TFLOP/s); the mma.sync kernel at the same "
+          f"inputs {ms_mma:.3f} ms ({flops / ms_mma / 1e9:.1f} TFLOP/s), "
+          f"{ms_mma / ms:.2f}x the Hopper kernel's time; bound {b_ms:.3f} ms by {b_by} (bf16 "
+          f"tensor cores; the {b * h * s * s:.3g} exponentials alone {exp_ms:.3f} ms), plain "
+          f"{plain_ms:.1f} ms (one (b, h) pair x {b * h}), scaled_dot_product_attention "
+          f"{library_ms:.3f} ms ({library_ms / ms:.2f}x the Hopper kernel's time); {n_layers} "
+          f"launches per sampler step: {n_layers * ms:.0f} ms of the median step's "
           f"{statistics.median(step_ms):.0f}")
-    small_video_check(dev)
-    return [{"name": "attention_fwd", "route": "cuda", "source": "fluidnexus_torch/csrc/attention.cu",
-             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:213",
-             "launches": launches["attention_fwd"], "max_abs_err": max(e[0] for e in errs),
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": library_ms}]
+    # the mma.sync bf16 kernel runs on no path: its time is a yardstick of
+    # the Hopper kernel's entry, not an entry of its own
+    hopper = {"name": "attention_fwd_wgmma", "route": "cuda",
+              "source": "fluidnexus_torch/csrc/attention.cu",
+              "replaces": "fluidnexus_tpu/diffusion/video/dit.py:213",
+              "launches": launches["attention_fwd_wgmma"],
+              "max_abs_err": max(e[0] for e in errs["wgmma"]), "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "mma_sync_ms": ms_mma}
+    return [hopper, small_video_check(dev)]
 
 
 def _random_weights(module, seed):
@@ -2107,9 +2208,14 @@ def small_video_check(dev):
     every weight from numpy with a seed: 4 DPM++ steps with one set of noise
     draws (made on the CPU, replayed on the card) and the decode, on the card
     through the f32 kernel and on the CPU through the plain version. Latents
-    and frames at 1e-4 of their scale."""
+    and frames at 1e-4 of their scale. Returns the ``kernels`` entry of the
+    (mma.sync) f32 kernel: the card run's launches, and its error, time and
+    bound at that run's first attention inputs."""
     import copy
 
+    import torch.nn.functional as F
+
+    from fluidnexus_torch.diffusion.video import dit as dit_mod
     from fluidnexus_torch.diffusion.video import sampling
     from fluidnexus_torch.diffusion.video.dit import init_video_dit
     from fluidnexus_torch.diffusion.video.engine import VideoEngine
@@ -2137,7 +2243,15 @@ def small_video_check(dev):
         replayed.append(x)
         return x.to(device)
 
+    captured, real_attn = {}, dit_mod.joint_attention
+
+    def recording_attn(q, k, v):
+        if q.is_cuda and not captured:
+            captured.update(q=q, k=k, v=v)
+        return real_attn(q, k, v)
+
     replayed, runs = [], {}
+    dit_mod.joint_attention = recording_attn
     try:
         for name, device in (("cpu", cpu), ("card", dev)):
             sampling._normal = recording if name == "cpu" else replaying
@@ -2150,15 +2264,38 @@ def small_video_check(dev):
             runs[name] = (lat.cpu(), frames.cpu(), ac.LAUNCHES["attention_fwd"])
     finally:
         sampling._normal = real
+        dit_mod.joint_attention = real_attn
     (l_cpu, f_cpu, n_cpu), (l_dev, f_dev, n_dev) = runs["cpu"], runs["card"]
     dl = float((l_dev - l_cpu).abs().max()) / float(l_cpu.abs().max())
     df = float((f_dev - f_cpu).abs().max()) / float(f_cpu.abs().max())
     print(f"small video, card (f32 kernel, {n_dev} launches) vs plain CPU path ({n_cpu}): "
           f"{len(draws)} noise draws replayed; latents rel {dl:.3e}, frames rel {df:.3e} "
           f"[tol 1e-4]")
-    if not (n_cpu == 0 and n_dev == 2 * VIDEO_STEPS and len(replayed) == len(draws)
-            and dl <= 1e-4 and df <= 1e-4):
+    if not (n_cpu == 0 and n_dev == 2 * VIDEO_STEPS and ac.LAUNCHES["attention_fwd_wgmma"] == 0
+            and len(replayed) == len(draws) and dl <= 1e-4 and df <= 1e-4):
         _fail("the small video run on the card disagrees with the plain CPU path")
+
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    b, h, s, d = q.shape
+    with torch.inference_mode():
+        err = attention_errors(ac.attention_fwd(q, k, v), ac.attention_plain(q, k, v))
+        if not attention_ok(q.dtype, *err):
+            _fail(f"the f32 attention kernel disagrees with its plain version at the small "
+                  f"run's inputs: max|err| {err[0]:.3e} on max|ref| {err[2]:.3e}")
+        ms, recorded = kernel_device_ms(lambda: ac.attention_fwd(q, k, v), "attention_f32_kernel")
+        plain_ms = cuda_ms(lambda: ac.attention_plain(q, k, v))
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
+    b_ms, b_by = bound_ms(4 * 4 * b * h * s * d, 4 * b * h * s * s * d)
+    print(f"attention_fwd (the mma.sync f32 kernel) at the small run's {tuple(q.shape)} "
+          f"{q.dtype}: max|err| {err[0]:.3e} on max|ref| {err[2]:.3e} [tol {F32_TOL:g} x "
+          f"max|ref|]; {ms:.4f} ms ({recorded} of 50 launches recorded), bound {b_ms:.6f} ms "
+          f"by {b_by} (f32 outside the tensor cores), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms")
+    return {"name": "attention_fwd", "route": "cuda", "source": "fluidnexus_torch/csrc/attention.cu",
+            "replaces": "fluidnexus_tpu/diffusion/video/dit.py:213", "launches": n_dev,
+            "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
 
 
 # ------------------------------ video training -------------------------------
@@ -2271,7 +2408,10 @@ def run_train(argv, timer=None):
 
 
 def check_train_launches(launches, what, fwd, bwd):
-    want = {"attention_fwd": fwd, "attention_dq": bwd, "attention_dkv": bwd}
+    """Every forward (bf16, head_dim 64) on the Hopper kernel, the backward
+    kernels ``bwd`` times each, and no other kernel."""
+    want = {"attention_fwd": fwd, "attention_fwd_wgmma": fwd, "attention_dq": bwd,
+            "attention_dkv": bwd}
     other = [n for n, c in launches.items() if n not in want and c]
     if any(launches[n] != c for n, c in want.items()) or other:
         _fail(f"{what} launched {launches}, expected {want} and no other kernel")
@@ -2557,7 +2697,7 @@ def small_video_train_check(dev):
           f"{dg:.2e} [tol 1e-4]; LoRA leaves after 2 steps mean|err| {dmean:.2e} [tol "
           f"{1e-2 * lr:g}], max|err| {dp:.2e} (Adam moves an element by ~lr sign(g) at first: "
           f"one whose gradient is below the kernels' error may flip)")
-    want = {"attention_fwd": 12, "attention_dq": 6, "attention_dkv": 6}
+    want = {"attention_fwd": 12, "attention_fwd_wgmma": 0, "attention_dq": 6, "attention_dkv": 6}
     if not (all(c == 0 for c in n_c.values()) and all(n_d[k] == c for k, c in want.items())
             and len(replayed) == len(draws) and dl <= 1e-5 and dg <= 1e-4
             and dmean <= 1e-2 * lr):
@@ -2672,10 +2812,97 @@ def encode_probe():
         torch.cuda.empty_cache()
 
 
+def tick_flips(trials=120):
+    """``python3 chip_smoke.py tick-flips``: how often the grid-reuse ticks
+    of ``compare_backends`` part at a pair that crosses d2 = h^2. ``train``
+    at the phase-C config writes the rigid rollout's start; then ``trials``
+    copies of it (the first as it is, each other with every coordinate moved
+    by a seeded uniform draw of up to 1e-3 scaled units) go through the v3,
+    v2 and v1 ticks, and v3 once more. Prints, for each pair and for v3
+    against itself, the trials whose estimates part by more than 1e-4 scaled
+    units, those whose in-radius sums differ, and the largest gap of a trial
+    where they do not."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the count runs on an NVIDIA card")
+    from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.sim.pbf import guess_hidden
+    from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
+
+    cuda_build.build(["rasterizer", "pbf", "splat"])
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="fnx_flips_") as tmp:
+        cfg = phase_c_config()
+        scene = smoke_scene()
+        bg = synthetic_background(32768, dev)
+        render_ground_truth(cfg, scene, bg, dev)
+        cfg.model.model_path = os.path.join(tmp, "recon")
+        tp.train(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
+        params, state0, _, _ = rigid_state(future_config(cfg.model.model_path,
+                                                         os.path.join(tmp, "run")), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pairs = [(b, ref) for b, ref, _, _ in BACKEND_PAIRS] + [("v3 again", "v3")]
+    rows = []
+    for trial in range(trials):
+        jitter = (torch.rand(state0.xyz.shape, device=dev, generator=gen) * 2.0 - 1.0) * 1e-3
+        st = guess_hidden(state0 if trial == 0 else state0._replace(xyz=state0.xyz + jitter),
+                          params)
+        out = {b: project_iterations_dense(st, params, RIGID_ITERS, counts_step=1.0,
+                                           backend=b.split()[0])
+               for b in ("v3", "v2", "v1", "v3 again")}
+        rows.append({(b, ref): _tick_gap(out[b], out[ref], st.alive) for b, ref in pairs})
+    for key in pairs:
+        over = [t for t, g in enumerate(rows) if g[key][0] > 1e-4]
+        flips = [t for t, g in enumerate(rows) if not g[key][3]]
+        clean = max((g[key][0] for g in rows if g[key][3]), default=0.0)
+        print(f"tick flips: {key[0]} against {key[1]}: {len(over)} of {trials} trials with "
+              f"max|d estimate| over 1e-4 scaled units {over}, in-radius sums differ in "
+              f"{len(flips)} {flips}; the largest gap where they do not {clean:.3e}; the largest "
+              f"force gap / scale {max(g[key][1] / g[key][2] for g in rows):.3e}")
+
+
+def attention_time():
+    """``python3 chip_smoke.py attention-time``: the attention forward alone
+    at the CogVideoX-5B shape (2, 48, 17 776, 64) bf16, q and k contiguous
+    and v a view of a (b, s, 3 h d) projection as the DiT passes them, drawn
+    from a seed; the Hopper kernel, the mma.sync kernel and
+    scaled_dot_product_attention by CUDA events over 20 calls each, in that
+    order and then in reverse. Builds ``attention`` only: the quick loop for
+    work on the forward kernel."""
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the timing runs on an NVIDIA card")
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.ops import cuda_build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(f"build attention: {cuda_build.build(['attention'])['attention']['seconds']:.1f} s")
+    b, h, s, d = 2, 48, 17776, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, -1))
+    q, k = q.contiguous(), k.contiguous()
+    qc, kc, vc = q, k, v.contiguous()
+    calls = {"wgmma": lambda: ac.attention_fwd(q, k, v),
+             "mma.sync": lambda: ac._attention_fwd_mma_sync(q, k, v),
+             "scaled_dot_product_attention": lambda: F.scaled_dot_product_attention(qc, kc, vc)}
+    flops = 4 * b * h * s * s * d
+    with torch.inference_mode():
+        for name in list(calls) + list(calls)[::-1]:
+            ms = cuda_ms(calls[name], iters=20)
+            print(f"attention forward {name}: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["mutants"]:
         run_mutants()
     elif sys.argv[1:] == ["encode-probe"]:
         encode_probe()
+    elif sys.argv[1:] == ["attention-time"]:
+        attention_time()
+    elif sys.argv[1:] == ["tick-flips"]:
+        tick_flips()
     else:
         main()

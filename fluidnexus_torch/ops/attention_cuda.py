@@ -11,8 +11,13 @@ tokens. On a CPU tensor it takes ``attention_plain`` (autograd differentiates
 it); on a CUDA tensor it launches ``attention_fwd``, or, when a gradient is
 wanted, ``JointAttentionFn``, whose backward launches the two backward
 kernels; a CUDA tensor never falls back to the plain version. The kernels
-take bf16 or f32 with a head_dim of 16, 32, 64 or 128; each launch adds one
-to its count in ``LAUNCHES``.
+take bf16 or f32 with a head_dim of 16, 32, 64 or 128. The forward has two:
+bf16 at head_dim 64 (the 5B and 2B DiTs' heads) takes the Hopper kernel on
+TMA and wgmma (``attention_wgmma_kernel``), every other case the mma.sync
+kernel (``attention_bf16_kernel``, ``attention_f32_kernel``). Each forward
+launch adds one to ``LAUNCHES["attention_fwd"]``, and one of the Hopper
+kernel also to ``LAUNCHES["attention_fwd_wgmma"]``; each backward launch to
+its own count.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ import torch
 
 from fluidnexus_torch.ops import cuda_build
 
-LAUNCHES = {"attention_fwd": 0, "attention_dq": 0, "attention_dkv": 0}
+LAUNCHES = {"attention_fwd": 0, "attention_fwd_wgmma": 0, "attention_dq": 0, "attention_dkv": 0}
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64,)   # the head_dims of the bf16 Hopper kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,6 +46,8 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fnx_attention_fwd.argtypes = [p] * 5 + [i] * 5 + [ll] * 9 + [ctypes.c_float, p]
     lib.fnx_attention_fwd.restype = i
+    lib.fnx_attention_fwd_wgmma.argtypes = [p] * 5 + [i] * 3 + [ll] * 9 + [ctypes.c_float, p]
+    lib.fnx_attention_fwd_wgmma.restype = i
     return lib
 
 
@@ -94,12 +102,23 @@ def attention_bwd_plain(q, k, v, dout, dtype=torch.float32):
         return torch.autograd.grad(out, (qq, kk, vv), dout.to(dtype))
 
 
+def takes_wgmma(dtype, d):
+    """Whether ``attention_fwd`` runs the Hopper kernel (TMA, wgmma) for
+    inputs of ``dtype`` and head_dim ``d``; the mma.sync kernel otherwise."""
+    return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+
+
 def _kernel_layout(x):
-    """``x`` as the kernels read it: d contiguous, every row 16-byte aligned."""
+    """``x`` as the kernels read it, in place where it already is so, else a
+    contiguous copy in a new allocation: d contiguous, a 16-byte-aligned base
+    and b, h, s strides that are positive multiples of 16 bytes (every row
+    16-byte aligned for cp.async; what a TMA tensor map needs). A contiguous
+    view at an unaligned offset is copied too, which ``contiguous()`` would
+    not do."""
     step = 16 // x.element_size()
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(st % step == 0 for st in x.stride()[:3]))
-    return x if ok else x.contiguous()
+          and all(st > 0 and st % step == 0 for st in x.stride()[:3]))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_qkv(q, k, v, what):
@@ -121,20 +140,42 @@ def attention_fwd(q, k, v, lse=False):
     """The forward kernel: ``(b, h, s, d)`` bf16 or f32 inputs of one shape on
     one card, any strides over b, h and s; returns a contiguous ``(b, s, h,
     d)``, and with ``lse=True`` also each row's log-sum-exp of the scaled
-    logits, f32 ``(b, h, s)``, for the backward."""
+    logits, f32 ``(b, h, s)``, for the backward. bf16 at head_dim 64 runs the
+    Hopper kernel (``takes_wgmma``), or raises; it never takes the other."""
     _check_qkv(q, k, v, "attention_fwd")
+    return _forward(q, k, v, lse, takes_wgmma(q.dtype, q.shape[-1]))
+
+
+def _attention_fwd_mma_sync(q, k, v, lse=False):
+    """``attention_fwd`` through the mma.sync kernel whatever the dtype and
+    head_dim: the yardstick that ``chip_smoke.py`` times and checks beside the
+    Hopper kernel at bf16 and head_dim 64. No pipeline calls it."""
+    _check_qkv(q, k, v, "attention_fwd")
+    return _forward(q, k, v, lse, False)
+
+
+def _forward(q, k, v, lse, wgmma):
     b, h, s, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if s > 0:
         q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
-        err = _lib().fnx_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse_t.data_ptr() if lse else None, _DTYPES[q.dtype], b, h, s, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], math.log2(math.e) / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse_t.data_ptr() if lse else None)
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        scale_log2 = math.log2(math.e) / math.sqrt(d)
+        if wgmma:
+            err = _lib().fnx_attention_fwd_wgmma(*ptrs, b, h, s, *strides, scale_log2, stream)
+            if err >= 1000:
+                raise RuntimeError(f"attention_fwd: the TMA tensor map of q, k or v could not be "
+                                   f"encoded (CUresult {err - 1000})")
+        else:
+            err = _lib().fnx_attention_fwd(*ptrs, _DTYPES[q.dtype], b, h, s, d, *strides,
+                                           scale_log2, stream)
         cuda_build.raise_on(err, "attention_fwd launch")
         LAUNCHES["attention_fwd"] += 1
+        LAUNCHES["attention_fwd_wgmma"] += int(wgmma)
     return (out, lse_t) if lse else out
 
 

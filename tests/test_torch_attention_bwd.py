@@ -113,7 +113,8 @@ def test_backward_kernels_match_plain_on_the_card(cuda_device, dtype, d):
         grads = torch.autograd.grad(out, (qq, kk, vv), dout)
         torch.cuda.synchronize()
         assert {n: ac.LAUNCHES[n] - before[n] for n in ac.LAUNCHES} == {
-            "attention_fwd": 1, "attention_dq": 1, "attention_dkv": 1}
+            "attention_fwd": 1, "attention_fwd_wgmma": int(ac.takes_wgmma(dtype, d)),
+            "attention_dq": 1, "attention_dkv": 1}
         refs = ac.attention_bwd_plain(q, k, v, dout)
         if low:
             tol = 1e-3 if dtype == torch.float32 else 5e-2
