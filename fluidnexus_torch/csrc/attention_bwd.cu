@@ -50,6 +50,7 @@
 // warp specialisation, as in the forward.
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -448,6 +449,194 @@ __global__ void __launch_bounds__(256) attention_dkv_f32_kernel(
   }
 }
 
+// ---------------------- bf16 backward at d = 64, wgmma -----------------------
+
+namespace hop = fnx_hopper;
+
+constexpr int HK = 128;                          // keys a block, 64 a consumer warpgroup
+constexpr int HQ = 128;                          // query rows a tile
+constexpr int HSTAGES = 2;                       // Q and dO tiles in flight
+constexpr int HTILE = 128 * hop::ROW_BYTES;      // a 128-row bf16 tile (16 KB)
+constexpr int HROWS = 2 * HQ * 4;                // a query tile's lse log2 e | D, f32
+// K, V; the ring's Q and dO; two dS buffers of two tiles (query columns
+// 0..63, 64..127); the ring's rows; barriers
+constexpr int HROWS_AT = 2 * HTILE + HSTAGES * 2 * HTILE + 2 * 2 * HTILE;
+constexpr int HSMEM = 1024 + HROWS_AT + HSTAGES * HROWS + 8 * (1 + 2 * HSTAGES);
+
+template <bool DQ>
+__global__ void __launch_bounds__(384, 1) attention_bwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ rows, float* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, Strides sdk, Strides sdv, int H, int S, float scale_log2,
+    float scale) {
+  extern __shared__ uint8_t wsmem[];
+  const uint32_t base = (hop::smem_addr(wsmem) + 1023) & ~1023u;   // the swizzle's alignment
+  const uint8_t* gbase = wsmem + (base - hop::smem_addr(wsmem));
+  const uint32_t k_s = base, v_s = base + HTILE, ds_s = base + 2 * HTILE * (1 + HSTAGES);
+  auto q_s = [&](int st) { return base + 2 * HTILE * (1 + st); };
+  auto do_s = [&](int st) { return base + 2 * HTILE * (1 + st) + HTILE; };
+  const uint32_t bar_kv = base + HROWS_AT + HSTAGES * HROWS;
+  auto full = [&](int st) { return bar_kv + 8 * (1 + st); };
+  auto empty = [&](int st) { return bar_kv + 8 * (1 + HSTAGES + st); };
+
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, k0 = blockIdx.x * HK;
+  const int nq = (S + HQ - 1) / HQ;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(bar_kv, 1);
+    for (int st = 0; st < HSTAGES; ++st) {
+      hop::mbar_init(full(st), 1);
+      hop::mbar_init(empty(st), 2);   // one arrival from each consumer warpgroup
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread loads K and V once, then walks the query tiles
+    hop::setmaxnreg_dec<24>();
+    if (t128 == 0) {
+      hop::tma_prefetch(&tq);
+      hop::tma_prefetch(&tdo);
+      hop::mbar_expect_tx(bar_kv, 2 * HTILE);
+      hop::tma_load_4d(k_s, &tk, bar_kv, 0, k0, h, b);
+      hop::tma_load_4d(v_s, &tv, bar_kv, 0, k0, h, b);
+      const float* rb = rows + (long long)blockIdx.y * nq * 2 * HQ;
+      for (int t = 0; t < nq; ++t) {
+        const int st = t % HSTAGES;
+        hop::mbar_wait(empty(st), ((t / HSTAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(full(st), 2 * HTILE + HROWS);
+        hop::tma_load_4d(q_s(st), &tq, full(st), 0, t * HQ, h, b);
+        hop::tma_load_4d(do_s(st), &tdo, full(st), 0, t * HQ, h, b);
+        hop::bulk_load(base + HROWS_AT + st * HROWS, rb + t * 2 * HQ, HROWS, full(st));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw takes keys cw * 64 .. cw * 64 + 63 of the block;
+  // this thread rows r and r + 8 of them (and, in dQ, of each query tile)
+  hop::setmaxnreg_inc<240>();
+  const int cw = wg - 1, lane = t128 & 31, g = lane >> 2, tg = lane & 3;
+  const int r = cw * 64 + (t128 >> 5) * 16 + g;
+  const bool live0 = k0 + r < S, live1 = k0 + r + 8 < S;   // pad keys: P = 0
+  const uint32_t ka = k_s + cw * (HTILE / 2), va = v_s + cw * (HTILE / 2);
+  float acc_dk[32], acc_dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  float* dqb = dq + (long long)blockIdx.y * S * 64;
+
+  hop::mbar_wait(bar_kv, 0);
+  for (int t = 0; t < nq; ++t) {
+    const int st = t % HSTAGES;
+    const uint32_t ds_buf = ds_s + (t & 1) * 2 * HTILE;
+    const float* lr = reinterpret_cast<const float*>(gbase + HROWS_AT + st * HROWS);
+    hop::mbar_wait(full(st), (t / HSTAGES) & 1);
+    // the tile's 128 queries in two halves of 64: what a half holds (S^T,
+    // dP^T, then P and dS fragments) fits beside dK and dV under the 168
+    // registers that the launch bounds give every thread
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t qh = q_s(st) + hh * (HTILE / 2), doh = do_s(st) + hh * (HTILE / 2);
+      const float* lh = lr + 64 * hh;
+      // declared here, not zeroed: each half's first k-step overwrites them,
+      // so nothing of them lives from one half to the next
+      float s[32], dp[32];
+      uint32_t pf[4][4], df[4][4];
+      hop::wgmma_fence();
+      hop::product_abt64(s, ka, qh);       // S^T = K Q^T: 64 keys x 64 queries
+      hop::wgmma_commit();
+      hop::product_abt64(dp, va, doh);     // dP^T = V dO^T
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();                // S^T done, dP^T may still run
+      hop::fence_regs(s);
+      // P^T = 2^(S^T scale_log2 - lse log2 e) in f32, the query of column c
+      // reading its row's lse (+inf past s, so a pad query's P is 0)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lh + 8 * j + 2 * tg);
+        s[4 * j] = live0 ? ex2(fmaf(s[4 * j], scale_log2, -l.x)) : 0.f;
+        s[4 * j + 1] = live0 ? ex2(fmaf(s[4 * j + 1], scale_log2, -l.y)) : 0.f;
+        s[4 * j + 2] = live1 ? ex2(fmaf(s[4 * j + 2], scale_log2, -l.x)) : 0.f;
+        s[4 * j + 3] = live1 ? ex2(fmaf(s[4 * j + 3], scale_log2, -l.y)) : 0.f;
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(dp);
+      // dS^T = P^T o (dP^T - D) with f32 P, into dp
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dd = *reinterpret_cast<const float2*>(lh + HQ + 8 * j + 2 * tg);
+        dp[4 * j] = s[4 * j] * (dp[4 * j] - dd.x);
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - dd.y);
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - dd.x);
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - dd.y);
+      }
+      hop::pack_a_frags(pf, s);
+      hop::pack_a_frags(df, dp);
+      if constexpr (DQ) hop::store_frags(ds_buf + hh * HTILE, df, r, tg);
+      hop::fence_regs(acc_dv);
+      hop::fence_regs(acc_dk);
+      hop::fence_regs(pf);
+      hop::fence_regs(df);
+      hop::wgmma_fence();
+      hop::product_pv(acc_dv, pf, doh);    // dV += P^T dO
+      hop::product_pv(acc_dk, df, qh);     // dK += dS^T Q
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc_dv);
+      hop::fence_regs(acc_dk);
+      hop::fence_regs(pf);
+      hop::fence_regs(df);
+    }
+    if (t128 == 0) hop::mbar_arrive(empty(st));   // the stage's Q, dO and rows are read
+    if constexpr (DQ) {
+      // both consumers' halves of the dS tile written: dQ (this warpgroup's
+      // 64 query rows) = dS K over the block's 128 keys, summed into the f32
+      // workspace times s; rows past s are not stored
+      float acc_dq[32];
+      hop::fence_proxy_async();
+      hop::named_barrier_sync(1, 256);
+      hop::wgmma_fence();
+      hop::product_atb(acc_dq, ds_buf + cw * HTILE, k_s);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc_dq);
+      const int q0 = t * HQ + r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 8 * j + 2 * tg;
+        if (q0 < S)
+          hop::red_add2(dqb + (long long)q0 * 64 + d, acc_dq[4 * j] * scale,
+                        acc_dq[4 * j + 1] * scale);
+        if (q0 + 8 < S)
+          hop::red_add2(dqb + (long long)(q0 + 8) * 64 + d, acc_dq[4 * j + 2] * scale,
+                        acc_dq[4 * j + 3] * scale);
+      }
+    }
+  }
+
+  // dK and dV of keys past s are not written
+  bf16* dkb = dk + b * sdk.b + h * sdk.h;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+  const int key0 = k0 + r, key1 = key0 + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = 8 * j + 2 * tg;
+    if (live0) {
+      *reinterpret_cast<uint32_t*>(dkb + key0 * sdk.s + d) =
+          pack_bf16(acc_dk[4 * j] * scale, acc_dk[4 * j + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + key0 * sdv.s + d) = pack_bf16(acc_dv[4 * j], acc_dv[4 * j + 1]);
+    }
+    if (live1) {
+      *reinterpret_cast<uint32_t*>(dkb + key1 * sdk.s + d) =
+          pack_bf16(acc_dk[4 * j + 2] * scale, acc_dk[4 * j + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + key1 * sdv.s + d) =
+          pack_bf16(acc_dv[4 * j + 2], acc_dv[4 * j + 3]);
+    }
+  }
+}
+
 // ---------------------------------- launches ---------------------------------
 
 struct Args {  // pointers and strides of one backward
@@ -537,6 +726,40 @@ int fnx_attention_bwd(int which, const void* q, const void* k, const void* v, co
   if (dtype == 1) return launch_bwd<bf16>(which == 1, D, a, B, H, S, scale_log2, scale, cs);
   if (dtype == 0) return launch_bwd<float>(which == 1, D, a, B, H, S, scale_log2, scale, cs);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 backward at head_dim 64 on wgmma and TMA, one launch. q, k, v
+// and dout (b, h, s, 64) as fnx_attention_bwd takes them, plus what TMA
+// needs: every stride a multiple of 8 elements, each base 16-byte aligned.
+// st holds the (b, h, s) element strides of q, k, v, dout, dk, dv, in that
+// order (18 values). rows is contiguous f32 (b, h, nq, 2, 128), nq =
+// ceil(s / 128): each query tile's lse times log2(e) (+inf past s), then its
+// D = dO . O (0 past s). dq, when not null, is a zeroed contiguous f32 (b, h,
+// s, 64) into which s dS K is summed; null computes dk and dv alone. Tensor
+// maps are encoded at each call; one that cannot be encoded returns 1000 +
+// its CUresult.
+int fnx_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const void* rows, void* dq, void* dk, void* dv, int B, int H, int S,
+                            const long long* st, float scale_log2, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hop::encode_bf16_rows(&tq, q, B, H, S, st[0], st[1], st[2], HQ);
+  if (err == 0) err = hop::encode_bf16_rows(&tk, k, B, H, S, st[3], st[4], st[5], HK);
+  if (err == 0) err = hop::encode_bf16_rows(&tv, v, B, H, S, st[6], st[7], st[8], HK);
+  if (err == 0) err = hop::encode_bf16_rows(&tdo, dout, B, H, S, st[9], st[10], st[11], HQ);
+  if (err != 0) return 1000 + err;
+  const Strides sdk{st[12], st[13], st[14]}, sdv{st[15], st[16], st[17]};
+  const dim3 grid((S + HK - 1) / HK, B * H);
+  const float* r = static_cast<const float*>(rows);
+  float* dqf = static_cast<float*>(dq);
+  bf16* dkb = static_cast<bf16*>(dk);
+  bf16* dvb = static_cast<bf16*>(dv);
+  const cudaStream_t cs = (cudaStream_t)stream;
+  if (dq != nullptr)
+    return launch_kernel(attention_bwd_wgmma_kernel<true>, grid, 384, (size_t)HSMEM, cs, tq, tk,
+                         tv, tdo, r, dqf, dkb, dvb, sdk, sdv, H, S, scale_log2, scale);
+  return launch_kernel(attention_bwd_wgmma_kernel<false>, grid, 384, (size_t)HSMEM, cs, tq, tk, tv,
+                       tdo, r, dqf, dkb, dvb, sdk, sdv, H, S, scale_log2, scale);
 }
 
 }  // extern "C"

@@ -1,14 +1,21 @@
 // Hopper's building blocks (sm_90a), shared by the port's kernels that use
-// them (csrc/attention.cu's bf16 forward at head_dim 64; csrc/hopper_probe.cu
-// holds each against torch.matmul on one tile):
+// them (csrc/attention.cu's bf16 forward at head_dim 64, csrc/attention_bwd.cu's
+// bf16 backward at head_dim 64; csrc/hopper_probe.cu holds each against
+// torch.matmul on one tile):
 //   - mbarriers: init, arrive, arrive with an expected transaction count, and
 //     a wait on a phase's parity that traps after ~10 s instead of hanging;
 //   - TMA: a 4-D tensor map of a bf16 (b, h, s, d) tensor, encoded on the host
 //     through cudaGetDriverEntryPointByVersion (no -lcuda), and the tile load that
-//     completes on an mbarrier;
+//     completes on an mbarrier; a 1-D bulk copy of contiguous bytes that
+//     completes on one too;
 //   - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile,
-//     fence / commit / wait, an SS product m64n128k16 and an RS product
-//     m64n64k16 (A in registers, B read MN-major), bf16 in, f32 accumulators;
+//     fence / commit / wait, an SS product m64n128k16, an RS product
+//     m64n64k16 (A in registers, B read MN-major) and an SS product m64n64k16
+//     (each operand K-major or MN-major), bf16 in, f32 accumulators;
+//   - bf16 A fragments stored to shared memory in the swizzled tile layout
+//     (for a later product to read), the proxy fence that makes such stores
+//     visible to wgmma, a named barrier, and an f32 pair added to device
+//     memory by one vector reduction;
 //   - setmaxnreg, and a register fence that keeps the compiler from moving
 //     reads of an accumulator above the wait that completes it.
 //
@@ -22,7 +29,9 @@
 //   MN-major (V in O += P V, rows along the depth, the 64 outputs along the
 //     row; the transpose bit): SBO, the stride between 8-row groups along the
 //     depth, is 1024 bytes; LBO, the stride between 64-column atoms, is unused
-//     at 64 columns; a k-step of 16 rows adds 2048 bytes.
+//     at 64 columns; a k-step of 16 rows adds 2048 bytes. An A operand read
+//     MN-major (64 rows of the product along the tile's row) is laid out the
+//     same way.
 //
 // Accumulator layout of m64nNk16 (f32), thread t = 32 w + 4 g + tg of the
 // warpgroup: d[4 j + e] holds row 16 w + g + 8 (e >> 1), column 8 j + 2 tg +
@@ -147,6 +156,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous memory at `src` (16-byte aligned)
+// into shared memory at `dst` (16-byte aligned); they complete on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 // --------------------------------- device: wgmma -----------------------------
 
 // Descriptor of a 128-byte-swizzled tile at shared address `addr` (1024-byte
@@ -226,6 +244,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64) (+)= A (64 x 16) . B (16 x 64), both from shared, each read
+// K-major (0: the depth along the tile's row, as Q and K in S = Q K^T) or
+// MN-major (1: the tile's rows along the depth, through the transpose bit);
+// scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
@@ -247,13 +286,35 @@ __device__ __forceinline__ void product_abt(float (&s)[64], uint32_t a_addr, uin
   for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16_ss(s, da + 2 * kk, db + 2 * kk, kk > 0);
 }
 
-// acc (64 x 64) += P (64 x 128, fragments in registers) . V, V a 128-row tile
-// of 64 bf16 a row at its shared address (MN-major): 8 k-steps.
-__device__ __forceinline__ void product_pv(float (&acc)[32], const uint32_t (&p)[8][4],
+// s (64 x 64) = A . B^T as above with B a 64-row tile: the same 4 k-steps on
+// the m64n64k16 shape.
+__device__ __forceinline__ void product_abt64(float (&s)[32], uint32_t a_addr, uint32_t b_addr) {
+  const uint64_t da = desc_sw128(a_addr, 16, 1024), db = desc_sw128(b_addr, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss<0, 0>(s, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// acc (64 x 64) += P (64 x 16 KS, fragments in registers) . V, V a tile of
+// 16 KS rows of 64 bf16 a row at its shared address (MN-major): KS k-steps
+// (8: a 128-row V).
+template <int KS>
+__device__ __forceinline__ void product_pv(float (&acc)[32], const uint32_t (&p)[KS][4],
                                            uint32_t v_addr) {
   const uint64_t dv = desc_sw128(v_addr, 1024, 1024);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs_mn(acc, p[kk], dv + kk * (16 * ROW_BYTES >> 4));
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_m64n64k16_rs_mn(acc, p[kk], dv + kk * (16 * ROW_BYTES >> 4));
+}
+
+// acc (64 x 64) = A^T . B, A and B 128-row tiles of 64 bf16 a row at their
+// shared addresses (A's rows are the depth: both read MN-major): 8 k-steps,
+// the first overwriting acc.
+__device__ __forceinline__ void product_atb(float (&acc)[32], uint32_t a_addr, uint32_t b_addr) {
+  const uint64_t da = desc_sw128(a_addr, 1024, 1024), db = desc_sw128(b_addr, 1024, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_ss<1, 1>(acc, da + kk * (16 * ROW_BYTES >> 4), db + kk * (16 * ROW_BYTES >> 4),
+                             kk > 0);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -261,15 +322,57 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the (64 x 128) accumulator s as bf16 A fragments of 8 k-steps of 16 columns
-__device__ __forceinline__ void pack_a_frags(uint32_t (&p)[8][4], const float (&s)[64]) {
+// the (64 x 16 KS) accumulator s as bf16 A fragments of KS k-steps of 16
+// columns
+template <int KS>
+__device__ __forceinline__ void pack_a_frags(uint32_t (&p)[KS][4], const float (&s)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     p[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
     p[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
     p[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
     p[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(x) : "memory");
+}
+
+// Rows r and r + 8 of a (rows x 16 KS) bf16 matrix, held as this thread's A
+// fragments p (pack_a_frags's layout: r = 16 w + g, plus a multiple of 16),
+// into `buf`: 128-row tiles of 64 bf16 a row, columns 0..63 in the first,
+// 64..127 in the next, swizzled as TMA writes them, so that a product reads
+// a tile in place. Each store of a warp hits 32 distinct banks.
+template <int KS>
+__device__ __forceinline__ void store_frags(uint32_t buf, const uint32_t (&p)[KS][4], int r,
+                                            int tg) {
+  const int sw = r & 7;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t row0 = buf + (kk >> 2) * 128 * ROW_BYTES + r * ROW_BYTES + tg * 4;
+    const uint32_t row1 = row0 + 8 * ROW_BYTES;
+    const int c = 2 * (kk & 3);   // the 16-byte chunk of columns 16 kk .. 16 kk + 7 in its tile
+    st_shared(row0 + ((c ^ sw) << 4), p[kk][0]);
+    st_shared(row1 + ((c ^ sw) << 4), p[kk][1]);
+    st_shared(row0 + (((c + 1) ^ sw) << 4), p[kk][2]);
+    st_shared(row1 + (((c + 1) ^ sw) << 4), p[kk][3]);
+  }
+}
+
+// makes this thread's stores to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (not 0, which __syncthreads takes) over `n` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// p[0] += a, p[1] += b in device memory (8-byte aligned), one vector reduction
+__device__ __forceinline__ void red_add2(float* p, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
 }
 
 }  // namespace fnx_hopper

@@ -9,15 +9,17 @@ whose TPU path calls the library Pallas flash attention and its ``dkv`` and
 ``softmax(q k^T / sqrt(d)) v`` as ``(b, s, h, d)``, non-causal, over all s
 tokens. On a CPU tensor it takes ``attention_plain`` (autograd differentiates
 it); on a CUDA tensor it launches ``attention_fwd``, or, when a gradient is
-wanted, ``JointAttentionFn``, whose backward launches the two backward
-kernels; a CUDA tensor never falls back to the plain version. The kernels
-take bf16 or f32 with a head_dim of 16, 32, 64 or 128. The forward has two:
-bf16 at head_dim 64 (the 5B and 2B DiTs' heads) takes the Hopper kernel on
-TMA and wgmma (``attention_wgmma_kernel``), every other case the mma.sync
-kernel (``attention_bf16_kernel``, ``attention_f32_kernel``). Each forward
-launch adds one to ``LAUNCHES["attention_fwd"]``, and one of the Hopper
-kernel also to ``LAUNCHES["attention_fwd_wgmma"]``; each backward launch to
-its own count.
+wanted, ``JointAttentionFn``, whose backward launches ``attention_bwd``; a
+CUDA tensor never falls back to the plain version. The kernels take bf16 or
+f32 with a head_dim of 16, 32, 64 or 128. bf16 at head_dim 64 (the 5B and 2B
+DiTs' heads) takes the Hopper kernels on TMA and wgmma: the forward
+``attention_wgmma_kernel``, the backward ``attention_bwd_wgmma_kernel``.
+Every other case takes the mma.sync kernels: the forward
+``attention_bf16_kernel`` / ``attention_f32_kernel``, the backward the
+``dq`` and ``dkv`` pair. Each forward launch adds one to
+``LAUNCHES["attention_fwd"]``, and one of the Hopper kernel also to
+``LAUNCHES["attention_fwd_wgmma"]``; each backward launch adds one to its
+kernel's own count.
 """
 from __future__ import annotations
 
@@ -29,10 +31,13 @@ import torch
 
 from fluidnexus_torch.ops import cuda_build
 
-LAUNCHES = {"attention_fwd": 0, "attention_fwd_wgmma": 0, "attention_dq": 0, "attention_dkv": 0}
+LAUNCHES = {"attention_fwd": 0, "attention_fwd_wgmma": 0, "attention_bwd_wgmma": 0,
+            "attention_dq": 0, "attention_dkv": 0}
 HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64,)   # the head_dims of the bf16 Hopper kernel
+WGMMA_HEAD_DIMS = (64,)   # the head_dims of the bf16 Hopper kernels
+BWD_TILE = 128            # query rows of a tile of the Hopper backward
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LOG2E = math.log2(math.e)
 
 
 def reset_launches():
@@ -59,6 +64,9 @@ def _bwd_lib():
                                       + [ctypes.POINTER(ctypes.c_longlong)]
                                       + [ctypes.c_float] * 2 + [p])
     lib.fnx_attention_bwd.restype = i
+    lib.fnx_attention_bwd_wgmma.argtypes = ([p] * 8 + [i] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                                            + [ctypes.c_float] * 2 + [p])
+    lib.fnx_attention_bwd_wgmma.restype = i
     return lib
 
 
@@ -103,8 +111,9 @@ def attention_bwd_plain(q, k, v, dout, dtype=torch.float32):
 
 
 def takes_wgmma(dtype, d):
-    """Whether ``attention_fwd`` runs the Hopper kernel (TMA, wgmma) for
-    inputs of ``dtype`` and head_dim ``d``; the mma.sync kernel otherwise."""
+    """Whether ``attention_fwd`` and ``attention_bwd`` run the Hopper kernels
+    (TMA, wgmma) for inputs of ``dtype`` and head_dim ``d``; the mma.sync
+    kernels otherwise."""
     return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
 
 
@@ -164,7 +173,7 @@ def _forward(q, k, v, lse, wgmma):
                 lse_t.data_ptr() if lse else None)
         strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        scale_log2 = math.log2(math.e) / math.sqrt(d)
+        scale_log2 = _LOG2E / math.sqrt(d)
         if wgmma:
             err = _lib().fnx_attention_fwd_wgmma(*ptrs, b, h, s, *strides, scale_log2, stream)
             if err >= 1000:
@@ -180,12 +189,35 @@ def _forward(q, k, v, lse, wgmma):
 
 
 def attention_bwd(q, k, v, out, lse, dout):
-    """The two backward kernels: ``q``, ``k``, ``v`` as given to
-    ``attention_fwd``, its ``out`` ``(b, s, h, d)`` and ``lse``, and the
-    upstream gradient ``dout`` ``(b, s, h, d)``. Launches ``dq`` (which also
-    writes D = rowsum(dout * out)) and then ``dkv``; returns dq, dk, dv as
-    ``(b, h, s, d)`` views of contiguous ``(b, s, h, d)`` tensors, the layout
-    the qkv projection's gradient is assembled in."""
+    """The backward kernels: ``q``, ``k``, ``v`` as given to ``attention_fwd``,
+    its ``out`` ``(b, s, h, d)`` and ``lse``, and the upstream gradient
+    ``dout`` ``(b, s, h, d)``; returns dq, dk, dv as ``(b, h, s, d)`` views of
+    contiguous ``(b, s, h, d)`` tensors, the layout the qkv projection's
+    gradient is assembled in. bf16 at head_dim 64 runs the Hopper kernel
+    (``takes_wgmma``), or raises; it never takes the mma.sync pair. Every
+    other case launches ``dq`` (which also writes D = rowsum(dout * out)) and
+    then ``dkv``."""
+    grads = _bwd_grads(q, k, v, out, lse, dout)
+    if q.shape[2]:
+        if takes_wgmma(q.dtype, q.shape[-1]):
+            _backward_wgmma(q, k, v, out, lse, dout, grads)
+        else:
+            _backward_pair(q, k, v, out, lse, dout, grads)
+    return tuple(grads)
+
+
+def _attention_bwd_mma_sync(q, k, v, out, lse, dout):
+    """``attention_bwd`` through the mma.sync pair whatever the dtype and
+    head_dim: the yardstick that ``chip_smoke.py`` times and checks beside the
+    Hopper kernel at bf16 and head_dim 64. No pipeline calls it."""
+    grads = _bwd_grads(q, k, v, out, lse, dout)
+    if q.shape[2]:
+        _backward_pair(q, k, v, out, lse, dout, grads)
+    return tuple(grads)
+
+
+def _bwd_grads(q, k, v, out, lse, dout):
+    """Checks the backward's inputs; returns the empty dq, dk, dv."""
     _check_qkv(q, k, v, "attention_bwd")
     b, h, s, d = q.shape
     for name, x, shape, dtype in (("out", out, (b, s, h, d), q.dtype),
@@ -196,28 +228,73 @@ def attention_bwd(q, k, v, out, lse, dout):
                              f"{dtype} {shape} on {q.device}")
     if not lse.is_contiguous():
         raise ValueError("lse must be contiguous")
-    grads = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-             for _ in range(3)]
-    if s == 0:
-        return tuple(grads)
-    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    return [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+            for _ in range(3)]
+
+
+def _backward_pair(q, k, v, out, lse, dout, grads, dsum=None, which=(0, 1)):
+    """The mma.sync ``dq`` kernel (it writes D into ``dsum``) and then ``dkv``,
+    into ``grads``."""
+    b, h, s, d = q.shape
+    if dsum is None:
+        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ins = [_kernel_layout(x) for x in (q, k, v, out.transpose(1, 2), dout.transpose(1, 2))]
     strides = (ctypes.c_longlong * 24)(*[st for x in ins + grads for st in x.stride()[:3]])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    for which, name in ((0, "attention_dq"), (1, "attention_dkv")):
+    for w in which:
+        name = ("attention_dq", "attention_dkv")[w]
         err = _bwd_lib().fnx_attention_bwd(
-            which, *(x.data_ptr() for x in ins), lse.data_ptr(), dsum.data_ptr(),
+            w, *(x.data_ptr() for x in ins), lse.data_ptr(), dsum.data_ptr(),
             *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, h, s, d, strides,
-            math.log2(math.e) / math.sqrt(d), 1.0 / math.sqrt(d), stream)
+            _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), stream)
         cuda_build.raise_on(err, f"{name} launch")
         LAUNCHES[name] += 1
-    return tuple(grads)
+    return dsum
+
+
+def bwd_rows(lse, dsum):
+    """What the Hopper backward reads of each 128-query tile, f32 ``(b, h,
+    nq, 2, 128)`` with nq = ceil(s / 128): the tile's lse times log2(e)
+    (+inf past s, so a pad query's P is 0), then its D (0 past s). Padded to
+    whole tiles so that each tile's rows are one 16-byte-aligned bulk copy."""
+    b, h, s = lse.shape
+    nq = -(-s // BWD_TILE)
+    pad = nq * BWD_TILE - s
+    lse2 = torch.nn.functional.pad(lse * _LOG2E, (0, pad), value=math.inf)
+    dd = torch.nn.functional.pad(dsum, (0, pad))
+    return torch.stack((lse2.reshape(b, h, nq, BWD_TILE), dd.reshape(b, h, nq, BWD_TILE)), 3)
+
+
+def _launch_bwd_wgmma(q, k, v, dout, rows, dq_acc, dk, dv):
+    """One launch of the Hopper backward: dk and dv (``(b, h, s, 64)``
+    views) and, with ``dq_acc`` an f32 ``(b, h, s, 64)`` of zeros, s dS K
+    summed into it; ``dq_acc`` None computes dk and dv alone."""
+    b, h, s, d = q.shape
+    ins = [_kernel_layout(x) for x in (q, k, v, dout.transpose(1, 2))]
+    strides = (ctypes.c_longlong * 18)(*[st for x in ins + [dk, dv] for st in x.stride()[:3]])
+    err = _bwd_lib().fnx_attention_bwd_wgmma(
+        *(x.data_ptr() for x in ins), rows.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
+        strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= 1000:
+        raise RuntimeError(f"attention_bwd: the TMA tensor map of q, k, v or dout could not be "
+                           f"encoded (CUresult {err - 1000})")
+    cuda_build.raise_on(err, "attention_bwd_wgmma launch")
+    LAUNCHES["attention_bwd_wgmma"] += 1
+
+
+def _backward_wgmma(q, k, v, out, lse, dout, grads):
+    """bf16 at head_dim 64: dq and D from the mma.sync ``dq`` kernel, dk and
+    dv from the Hopper kernel."""
+    dsum = _backward_pair(q, k, v, out, lse, dout, grads, which=(0,))
+    _launch_bwd_wgmma(q, k, v, dout, bwd_rows(lse, dsum), None, grads[1], grads[2])
 
 
 class JointAttentionFn(torch.autograd.Function):
     """The attention with its gradient on the card: the forward kernel saves
-    q, k, v, O and the row log-sum-exp; the backward runs the ``dq`` and
-    ``dkv`` kernels on them."""
+    q, k, v, O and the row log-sum-exp; the backward kernels run on them
+    (``attention_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v):

@@ -116,7 +116,7 @@ def test_which_kernel_takes_which_dtype_and_head_dim(monkeypatch, dtype, d):
         assert entry == "fnx_attention_fwd"
         assert args[5:19] == (int(dtype == torch.bfloat16), 2, 3, 5, d, *strides)
     assert ac.LAUNCHES == {"attention_fwd": 1, "attention_fwd_wgmma": int(wgmma),
-                           "attention_dq": 0, "attention_dkv": 0}
+                           "attention_bwd_wgmma": 0, "attention_dq": 0, "attention_dkv": 0}
 
 
 def test_a_tensor_map_that_cannot_be_encoded_raises_and_falls_back_to_nothing(monkeypatch):
@@ -254,8 +254,8 @@ def test_each_kernel_counts_its_own_launches(cuda_device):
     ac.joint_attention(q, k, v)
     ac.joint_attention(q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16])
     ac.joint_attention(q.float(), k.float(), v.float())
-    assert ac.LAUNCHES == {"attention_fwd": 3, "attention_fwd_wgmma": 1, "attention_dq": 0,
-                           "attention_dkv": 0}
+    assert ac.LAUNCHES == {"attention_fwd": 3, "attention_fwd_wgmma": 1,
+                           "attention_bwd_wgmma": 0, "attention_dq": 0, "attention_dkv": 0}
     out = ac._attention_fwd_mma_sync(q, k, v)
     assert ac.LAUNCHES["attention_fwd_wgmma"] == 1
     emax, emean, scale = _errors(out, ac.attention_plain(q, k, v))
@@ -265,27 +265,48 @@ def test_each_kernel_counts_its_own_launches(cuda_device):
 @pytest.mark.cuda
 def test_hopper_blocks_on_one_tile(cuda_device):
     """csrc/hopper_probe.cu: TMA loads of a 64-row and two 128-row bf16 tiles
-    (row strides 64, 192 and 320 elements), s = A B^T on wgmma from shared
-    memory and o = bf16(s) V with A in registers and V read MN-major. s
-    against torch.matmul of the same bf16 values in f32 (exact products, f32
-    sums in another order: 1e-5 of max|s|), o against the card's own s
-    rounded to bf16 times V (1e-5 of max|o|)."""
+    (row strides 64, 192 and 320 elements) and a 1-D bulk copy of 256 f32;
+    s = A B^T on wgmma from shared memory (m64n128k16) and w = A B[:64]^T
+    (m64n64k16); o = bf16(s) V with A in registers
+    and V read MN-major; t += B^T V with both operands read MN-major, summed
+    into t_out by f32 pair reductions; u_c = bf16(s)[:, 64c:64c+64]^T V[:64]
+    with bf16(s) stored to shared memory as A fragments and read back by the
+    same MN-major product (the attention backward's dS K). s and t against
+    torch.matmul of the same bf16 values in f32 (exact products, f32 sums in
+    another order: 1e-5 of max|ref|), w against s's first 64 columns, o and u against the card's own s
+    rounded to bf16 times V (1e-5 of max|ref|), t_out's start added, the
+    bulk copy exact."""
     lib = cuda_build.load("hopper_probe")
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.fnx_hopper_probe.argtypes = [p] * 5 + [ll] * 3 + [p]
+    lib.fnx_hopper_probe.argtypes = [p] * 10 + [ll] * 3 + [p]
     lib.fnx_hopper_probe.restype = ctypes.c_int
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     a = torch.randn((64, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
     b = torch.randn((128, 192), generator=gen, device=cuda_device).to(torch.bfloat16)[:, 64:128]
     v = torch.randn((128, 320), generator=gen, device=cuda_device).to(torch.bfloat16)[:, 256:]
+    r_in = torch.randn(256, generator=gen, device=cuda_device)
+    t0 = torch.randn((64, 64), generator=gen, device=cuda_device)
     s_out = torch.empty((64, 128), device=cuda_device)
     o_out = torch.empty((64, 64), device=cuda_device)
-    err = lib.fnx_hopper_probe(a.data_ptr(), b.data_ptr(), v.data_ptr(), s_out.data_ptr(),
-                               o_out.data_ptr(), a.stride(0), b.stride(0), v.stride(0),
-                               torch.cuda.current_stream().cuda_stream)
+    t_out = t0.clone()
+    u_out = torch.empty((2, 64, 64), device=cuda_device)
+    w_out = torch.empty((64, 64), device=cuda_device)
+    r_out = torch.empty(256, device=cuda_device)
+    err = lib.fnx_hopper_probe(a.data_ptr(), b.data_ptr(), v.data_ptr(), r_in.data_ptr(),
+                               s_out.data_ptr(), o_out.data_ptr(), t_out.data_ptr(),
+                               u_out.data_ptr(), w_out.data_ptr(), r_out.data_ptr(), a.stride(0),
+                               b.stride(0), v.stride(0), torch.cuda.current_stream().cuda_stream)
     assert err == 0, err
     torch.cuda.synchronize()
     s_ref = a.float() @ b.float().T
     assert float((s_out - s_ref).abs().max()) <= 1e-5 * float(s_ref.abs().max())
-    o_ref = s_out.to(torch.bfloat16).float() @ v.float()
+    assert float((w_out - s_ref[:, :64]).abs().max()) <= 1e-5 * float(s_ref[:, :64].abs().max())
+    p_bf = s_out.to(torch.bfloat16).float()
+    o_ref = p_bf @ v.float()
     assert float((o_out - o_ref).abs().max()) <= 1e-5 * float(o_ref.abs().max())
+    t_ref = b.float().T @ v.float()
+    assert float((t_out - t0 - t_ref).abs().max()) <= 1e-5 * float(t_ref.abs().max())
+    for c in range(2):
+        u_ref = p_bf[:, 64 * c:64 * c + 64].T @ v.float()[:64]
+        assert float((u_out[c] - u_ref).abs().max()) <= 1e-5 * float(u_ref.abs().max()), c
+    torch.testing.assert_close(r_out, r_in, rtol=0, atol=0)

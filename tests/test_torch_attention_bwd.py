@@ -112,9 +112,10 @@ def test_backward_kernels_match_plain_on_the_card(cuda_device, dtype, d):
         out = ac.joint_attention(qq, kk, vv)
         grads = torch.autograd.grad(out, (qq, kk, vv), dout)
         torch.cuda.synchronize()
+        wgmma = int(ac.takes_wgmma(dtype, d))
         assert {n: ac.LAUNCHES[n] - before[n] for n in ac.LAUNCHES} == {
-            "attention_fwd": 1, "attention_fwd_wgmma": int(ac.takes_wgmma(dtype, d)),
-            "attention_dq": 1, "attention_dkv": 1}
+            "attention_fwd": 1, "attention_fwd_wgmma": wgmma, "attention_bwd_wgmma": wgmma,
+            "attention_dq": 1, "attention_dkv": 1 - wgmma}
         refs = ac.attention_bwd_plain(q, k, v, dout)
         if low:
             tol = 1e-3 if dtype == torch.float32 else 5e-2
