@@ -8,12 +8,14 @@ profile a few of each (the card's busy share, host and device ms per
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
-``python3 chip_smoke.py mutants`` builds three broken copies of the attention
-backward and shows that each fails a check; ``python3 chip_smoke.py
-encode-probe`` tries the video training batch's whole-clip VAE encode;
-``python3 chip_smoke.py attention-time`` times the attention forward kernels
-alone at the 5B shape; ``python3 chip_smoke.py tick-flips`` counts how often
-the PBF tick's backends part at a pair that crosses the kernel radius.
+``python3 chip_smoke.py mutants`` builds six broken copies of the attention
+backward (three of the mma.sync pair, three of the Hopper kernel) and shows
+that each fails a check; ``python3 chip_smoke.py encode-probe`` tries the
+video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
+attention-time`` times the attention forward kernels alone at the 5B shape,
+``python3 chip_smoke.py attention-bwd`` checks the backward kernels at ragged
+shapes and times them there; ``python3 chip_smoke.py tick-flips`` counts how
+often the PBF tick's backends part at a pair that crosses the kernel radius.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -69,10 +71,13 @@ hash text; cut: 3 iterations (of 10 000), then 2 with ``--quant_base`` and
 one eval fork (2 sampler steps, no checkpoints written); weights drawn from
 a seed, with the adaLN projections and lora_b drawn small and non-zero (the
 JAX init zeroes them, and then attention never reaches the loss and the
-backward kernels see a zero upstream gradient). The flash-attention backward
-kernels held against the plain backward at ragged shapes and at layer 0's
-captured q, k, v and upstream gradient, in bf16 and in f32 (against an f32
-and an f64 plain version); a small card-vs-CPU training run.
+backward kernels see a zero upstream gradient). Every backward on the
+Hopper flash-attention backward kernel (one pass on wgmma, dQ summed in f32;
+bf16 at head_dim 64), held against the plain backward at ragged shapes and
+at layer 0's captured q, k, v and upstream gradient, and timed beside the
+mma.sync pair (which serves f32 and the other head_dims: held at f32 through
+the f32 kernels against an f32 and an f64 plain version, and in a small
+card-vs-CPU training run) and the library's backward.
 """
 from __future__ import annotations
 
@@ -1840,7 +1845,7 @@ def small_reference_check(dev):
 VIDEO_STEPS = 4               # --num_steps, cut from the CLI's 50
 VIDEO_FRAMES = 49             # sample_video's default clip, 13 latents
 VIDEO_PAIRS = ((0, 0), (0, 47), (1, 13), (1, 47))   # (b, h) held against the plain version
-RAGGED_S = (1, 47, 64, 65, 777, 2274)
+RAGGED_S = (1, 47, 64, 65, 127, 128, 129, 777, 2274)   # 127-129 about the 128-row tiles
 # bf16 output and bf16 P each round to 2^-9 of a value: a weight that
 # dominates its row carries P's rounding straight into the output, so the
 # error reaches ~4e-3 of max|ref| there; f32 is held to 1e-5 of max|ref|
@@ -1926,15 +1931,16 @@ def low_logit_witness(gen, dev):
 
 
 def check_attention_ragged(dev):
-    """The forward kernels, their row log-sum-exp and the two backward kernels
+    """The forward kernels, their row log-sum-exp and the backward kernels
     against their plain versions at ragged sequence lengths, each head_dim the
     DiT configs use and one more, in both types; v a strided view of a (b,
     s, h, 3d) projection, as in the DiT. bf16 at d = 64 goes through the
-    Hopper kernel (``attention_fwd``'s own choice, checked by its launch
-    count), and the mma.sync kernel is held there too (forward and LSE,
-    through ``_attention_fwd_mma_sync``); the backward is fed the Hopper
-    kernel's O and LSE. Each gradient is held at a fraction of its own
-    max|ref|. At 2 274 keys the f32 kernels are also read against an f64
+    Hopper kernels, forward and backward (``attention_fwd``'s and
+    ``attention_bwd``'s own choice, checked by the launch counts), and the
+    mma.sync kernels are held there too (forward and LSE through
+    ``_attention_fwd_mma_sync``, the backward pair through
+    ``_attention_bwd_mma_sync``); the backward is fed the Hopper kernel's O
+    and LSE. Each gradient is held at a fraction of its own max|ref|. At 2 274 keys the f32 kernels are also read against an f64
     plain version. One more case per type and head_dim, at s = 65, has every
     logit near -150 (q + c, k - c): a pad key's P = exp(0 - lse) overflows
     there, and an unmasked one turns dQ into NaN (and takes weight 1 against
@@ -1951,20 +1957,28 @@ def check_attention_ragged(dev):
             for s, low in [(s, False) for s in RAGGED_S] + [(65, True)]:
                 shift = math.sqrt(150.0 / math.sqrt(d)) if low else 0.0
                 q, k, v, v_view, dout = _ragged_inputs(gen, dev, dtype, s, d, shift)
-                before = ac.LAUNCHES["attention_fwd_wgmma"]
+                before = dict(ac.LAUNCHES)
                 out, lse = ac.attention_fwd(q, k, v_view, lse=True)
-                if ac.LAUNCHES["attention_fwd_wgmma"] - before != int(wgmma):
-                    failures.append(("kernel choice", dtype, d, ac.LAUNCHES))
+                grads = ac.attention_bwd(q, k, v_view, out, lse, dout)
+                ran = {n: ac.LAUNCHES[n] - before[n] for n in ac.LAUNCHES}
+                want = {"attention_fwd": 1, "attention_fwd_wgmma": int(wgmma),
+                        "attention_bwd_wgmma": int(wgmma), "attention_dq": 1 - int(wgmma),
+                        "attention_dkv": 1 - int(wgmma)}
+                if ran != want:
+                    failures.append(("kernel choice", dtype, d, ran))
                 ref = ac.attention_plain(q, k, v)
                 fwd = attention_errors(out, ref)
-                grads = ac.attention_bwd(q, k, v_view, out, lse, dout)
-                errs = bwd_errors(grads, ac.attention_bwd_plain(q, k, v, dout))
+                bwd_refs = ac.attention_bwd_plain(q, k, v, dout)
+                errs = bwd_errors(grads, bwd_refs)
                 key = (str(dtype).split(".")[-1] + (" wgmma" if wgmma else ""), d)
-                # the mma.sync kernel where the Hopper kernel serves: (key, O, LSE)
-                outs = [(key, out, lse)]
+                # the mma.sync kernels where the Hopper kernels serve: (key, O,
+                # LSE) and (key, the pair's errors, its gradients)
+                outs, pairs = [(key, out, lse)], []
                 if wgmma:
-                    outs.append((("bfloat16 mma.sync", d),
-                                 *ac._attention_fwd_mma_sync(q, k, v_view, lse=True)))
+                    k_m = ("bfloat16 mma.sync", d)
+                    outs.append((k_m, *ac._attention_fwd_mma_sync(q, k, v_view, lse=True)))
+                    g_m = ac._attention_bwd_mma_sync(q, k, v_view, out, lse, dout)
+                    pairs.append((k_m, bwd_errors(g_m, bwd_refs), g_m))
                 if low:
                     finite = all(bool(torch.isfinite(g).all()) for g in grads)
                     worst_low[key] = (max(e[0] / e[2] for e in [fwd] + errs) if finite
@@ -1976,6 +1990,12 @@ def check_attention_ragged(dev):
                         worst_low[k_o] = e[0] / e[2] if bool(torch.isfinite(o_o).all()) else float("nan")
                         if not worst_low[k_o] <= LOW_TOL[dtype]:
                             failures.append(("low logits", k_o, e))
+                    for k_m, e_m, g_m in pairs:
+                        finite = all(bool(torch.isfinite(g).all()) for g in g_m)
+                        worst_low[k_m] = (max([worst_low[k_m]] + [e[0] / e[2] for e in e_m])
+                                          if finite else float("nan"))
+                        if not worst_low[k_m] <= LOW_TOL[dtype]:
+                            failures.append(("low logits", k_m, finite, e_m))
                     continue
                 lse_ref = ac.attention_lse_plain(q, k)
                 for k_o, o_o, l_o in outs:
@@ -1987,9 +2007,10 @@ def check_attention_ragged(dev):
                     lse_worst = max(lse_worst, lse_err)
                     if lse_err > LSE_TOL:
                         failures.append(("lse", k_o, s, lse_err))
-                worst_bwd[key] = max([worst_bwd.get(key, 0.0)] + [e[0] / e[2] for e in errs])
-                if not bwd_ok(dtype, errs):
-                    failures.append(("bwd", key, s, errs))
+                for k_b, e_b in [(key, errs)] + [(k_m, e_m) for k_m, e_m, _ in pairs]:
+                    worst_bwd[k_b] = max([worst_bwd.get(k_b, 0.0)] + [e[0] / e[2] for e in e_b])
+                    if not bwd_ok(dtype, e_b):
+                        failures.append(("bwd", k_b, s, e_b))
                 if dtype == torch.float32 and s == 2274:
                     e64 = bwd_errors(grads, ac.attention_bwd_plain(q, k, v, dout, torch.float64))
                     o64 = attention_errors(out, ac.attention_plain(q.double(), k.double(),
@@ -2408,10 +2429,11 @@ def run_train(argv, timer=None):
 
 
 def check_train_launches(launches, what, fwd, bwd):
-    """Every forward (bf16, head_dim 64) on the Hopper kernel, the backward
-    kernels ``bwd`` times each, and no other kernel."""
-    want = {"attention_fwd": fwd, "attention_fwd_wgmma": fwd, "attention_dq": bwd,
-            "attention_dkv": bwd}
+    """Every forward and backward (bf16, head_dim 64) on the Hopper kernels,
+    ``fwd`` and ``bwd`` times, and no other kernel: no mma.sync ``dq`` or
+    ``dkv``."""
+    want = {"attention_fwd": fwd, "attention_fwd_wgmma": fwd, "attention_bwd_wgmma": bwd,
+            "attention_dq": 0, "attention_dkv": 0}
     other = [n for n, c in launches.items() if n not in want and c]
     if any(launches[n] != c for n, c in want.items()) or other:
         _fail(f"{what} launched {launches}, expected {want} and no other kernel")
@@ -2422,11 +2444,11 @@ def run_video_train(dev, root):
     iterations), then 2 iterations with ``--quant_base`` ending in an eval
     fork: launch counts, trainables, losses, ms per step (CUDA events, the
     median of steps 2-3), the VAE encode, peak memory, the card's idle share
-    in one more step; the backward kernels against the plain backward at
-    ragged shapes and at layer 0's captured inputs; their times; the small
-    card-vs-CPU training run. Returns the backward kernels' entries of the
-    ``kernels`` line."""
-    import torch.nn.functional as F
+    in one more step; the Hopper backward against the plain backward at
+    layer 0's captured inputs (and run twice); its time beside the mma.sync
+    pair's and the library's; the small card-vs-CPU training run. Returns the
+    ``kernels`` line's entries of the Hopper backward and of the f32 pair
+    (``small_video_train_check``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from fluidnexus_torch.ops import attention_cuda as ac
@@ -2519,74 +2541,103 @@ def run_video_train(dev, root):
     errs = check_layer0_backward(cap)
     q, k, v, out, lse, dout = cap
     b, h, s, d = q.shape
-    fn = lambda: ac.attention_bwd(q, k, v, out, lse, dout)   # noqa: E731
     with torch.no_grad():
-        ms_dq, rec_dq = kernel_device_ms(fn, "attention_dq_bf16_kernel", iters=10)
-        ms_dkv, rec_dkv = kernel_device_ms(fn, "attention_dkv_bf16_kernel", iters=10)
+        # tens of ms a launch: CUDA events time the kernel, the pair and the
+        # library alike; new, pair, pair, new, since the clock falls under
+        # sustained load
+        calls = {"wgmma": lambda: ac.attention_bwd(q, k, v, out, lse, dout),
+                 "mma.sync": lambda: ac._attention_bwd_mma_sync(q, k, v, out, lse, dout)}
+        times = {n: [] for n in calls}
+        for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
+            times[name].append(cuda_ms(calls[name], iters=10))
+        ms, ms_mma = statistics.mean(times["wgmma"]), statistics.mean(times["mma.sync"])
+        kernel_ms, prep_ms = bwd_kernel_ms(q, k, v, out, lse, dout)
     sl = (slice(0, 1), slice(0, 1))
     plain_ms = cuda_ms(lambda: ac.attention_bwd_plain(q[sl], k[sl], v[sl], dout[:1, :, :1]),
                        iters=2, warmup=1) * b * h
+    lib_bwd = sdpa_bwd_ms(q, k, v, dout)
+    prod = 2 * b * h * s * s * d
+    io = b * h * s * d * 2
+    # the gradient's bound: q, k, v, O, dO and the LSE read once, dq, dk, dv
+    # written once, the 5 products
+    bound = bound_ms(8 * io + 4 * b * h * s, 5 * prod, peak=H100_BF16_TC_FLOPS)
+    exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
+    print(f"attention_bwd_wgmma (the Hopper backward, one pass): {ms:.3f} ms a backward "
+          f"({', '.join(f'{t:.3f}' for t in times['wgmma'])}; CUDA events over 10 calls; "
+          f"{5 * prod / ms / 1e9:.1f} TFLOP/s in its 5 products), of which the kernel "
+          f"{kernel_ms:.3f} and D, the rows, the zeroed workspace and the cast {prep_ms:.3f}; the "
+          f"mma.sync pair at the same inputs {ms_mma:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times['mma.sync'])}), {ms_mma / ms:.2f}x; bound "
+          f"{bound[0]:.3f} ms by {bound[1]} ({ms / bound[0]:.2f}x; the {b * h * s * s:.3g} "
+          f"exponentials alone {exp_ms:.3f} ms); the plain backward {plain_ms:.1f} ms (one (b, h) "
+          f"pair x {b * h}); scaled_dot_product_attention's backward {lib_bwd:.3f} ms (its "
+          f"forward and backward less its forward; {lib_bwd / ms:.2f}x); {n_layers} launches per "
+          f"LoRA step: {n_layers * ms:.0f} ms of the median step's {step_med:.0f}")
+    f32_entries = small_video_train_check(dev)
+    del cap, q, k, v, out, lse, dout
+    torch.cuda.empty_cache()
+    return [{"name": "attention_bwd_wgmma", "route": "cuda",
+             "source": "fluidnexus_torch/csrc/attention_bwd.cu",
+             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256",
+             "launches": launches["attention_bwd_wgmma"], "max_abs_err": max(errs.values()),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib_bwd, "mma_sync_ms": ms_mma, "kernel_ms": kernel_ms}] + f32_entries
+
+
+def bwd_kernel_ms(q, k, v, out, lse, dout, iters=10):
+    """The Hopper backward's kernel alone (CUDA events over ``iters``
+    launches on inputs prepared once, its workspace summing on) and the
+    torch work around it in ``attention_bwd`` (D, the rows, the zeroed
+    workspace, the cast), ms."""
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    grads = ac._bwd_grads(q, k, v, out, lse, dout)
+    rows, dq_acc = ac._bwd_wgmma_scratch(out, lse, dout)
+    ms = cuda_ms(lambda: ac._launch_bwd_wgmma(q, k, v, dout, rows, dq_acc, grads[1], grads[2]),
+                 iters=iters)
+    prep_ms = cuda_ms(lambda: (ac._bwd_wgmma_scratch(out, lse, dout), grads[0].copy_(dq_acc)),
+                      iters=iters)
+    return ms, prep_ms
+
+
+def sdpa_bwd_ms(q, k, v, dout, iters=5):
+    """scaled_dot_product_attention's backward at these inputs: its forward
+    and backward less its forward, by CUDA events (timed only; the port
+    never calls it)."""
+    import torch.nn.functional as F
+
     qc, kc, vc = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
     do_c = dout.transpose(1, 2)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(F.scaled_dot_product_attention(qc, kc, vc), (qc, kc, vc), do_c)
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(F.scaled_dot_product_attention(qc, kc, vc), (qc, kc, vc), do_c)
 
-    def sdpa_fwd():
+    def fwd():
         with torch.no_grad():
             F.scaled_dot_product_attention(qc, kc, vc)
 
-    lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=5) - cuda_ms(sdpa_fwd, iters=5)
-    prod = 2 * b * h * s * s * d
-    io = b * h * s * d * 2
-    # the gradient's bound (q, k, v, O, dO and the LSE read once, dq, dk, dv
-    # written once, 5 products) split between the two kernels so that the two
-    # add up to it: dkv takes S = QK^T, dP = dO V^T, dV and dK with q, k, v,
-    # dO, the LSE, dk and dv; dq takes dS K with O and dq. The split's own
-    # recomputation of S and dP in dq is not work the gradient needs.
-    dkv_bound = bound_ms(6 * io + 4 * b * h * s, 4 * prod, peak=H100_BF16_TC_FLOPS)
-    dq_bound = bound_ms(2 * io, prod, peak=H100_BF16_TC_FLOPS)
-    exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
-    print(f"attention_dq: {ms_dq:.3f} ms ({rec_dq} of 10 recorded; {3 * prod / ms_dq / 1e9:.1f} "
-          f"TFLOP/s in its 3 products), bound {dq_bound[0]:.3f} ms by {dq_bound[1]} (its share of "
-          f"the gradient: dS K); attention_dkv: {ms_dkv:.3f} ms ({rec_dkv} of 10; "
-          f"{4 * prod / ms_dkv / 1e9:.1f} TFLOP/s), bound {dkv_bound[0]:.3f} ms by "
-          f"{dkv_bound[1]} (S, dP, dV, dK); the pair {ms_dq + ms_dkv:.3f} ms against the "
-          f"gradient's bound of 5 products, {dq_bound[0] + dkv_bound[0]:.3f} ms "
-          f"({(ms_dq + ms_dkv) / (dq_bound[0] + dkv_bound[0]):.2f}x); each kernel recomputes the "
-          f"{b * h * s * s:.3g} exponentials ({exp_ms:.3f} ms alone); the "
-          f"plain backward {plain_ms:.1f} ms (one (b, h) pair x {b * h}); "
-          f"scaled_dot_product_attention's backward {lib_bwd:.3f} ms (its forward and "
-          f"backward less its forward); {n_layers} launches of each per LoRA step: "
-          f"{n_layers * (ms_dq + ms_dkv):.0f} ms of the median step's {step_med:.0f}")
-    small_video_train_check(dev)
-    del cap, q, k, v, out, lse, dout, qc, kc, vc, do_c
-    torch.cuda.empty_cache()
-    return [{"name": "attention_dq", "route": "cuda",
-             "source": "fluidnexus_torch/csrc/attention_bwd.cu",
-             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256",
-             "launches": launches["attention_dq"], "max_abs_err": errs["dq"],
-             "ms": ms_dq, "plain_ms": plain_ms, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
-             "library_ms": lib_bwd},
-            {"name": "attention_dkv", "route": "cuda",
-             "source": "fluidnexus_torch/csrc/attention_bwd.cu",
-             "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256",
-             "launches": launches["attention_dkv"], "max_abs_err": max(errs["dk"], errs["dv"]),
-             "ms": ms_dkv, "plain_ms": plain_ms, "bound_ms": dkv_bound[0],
-             "bound_by": dkv_bound[1], "library_ms": lib_bwd}]
+    return cuda_ms(fwd_bwd, iters=iters) - cuda_ms(fwd, iters=iters)
 
 
 def check_layer0_backward(cap):
     """The backward kernels at layer 0's captured inputs (q, k, v, the
     forward's O and log-sum-exp, the upstream gradient) on VIDEO_PAIRS, one
-    (b, h) pair at a time against the plain backward: in bf16, then the
-    pair's inputs cast to f32 through the f32 kernels, against an f32 and an
-    f64 plain version. Returns the bf16 max|err| of each output."""
+    (b, h) pair at a time against the plain backward: in bf16 (the Hopper
+    kernel), then the pair's inputs cast to f32 through the f32 kernels,
+    against an f32 and an f64 plain version. The Hopper kernel sums dQ in f32
+    across key blocks in an order that changes from run to run: a second
+    run's dQ is held to the first within the bf16 limit (not bit for bit).
+    Returns the bf16 max|err| of each output."""
     from fluidnexus_torch.ops import attention_cuda as ac
 
     q, k, v, out, lse, dout = cap
     with torch.no_grad():
         grads = ac.attention_bwd(q, k, v, out, lse, dout)
+        again = ac.attention_bwd(q, k, v, out, lse, dout)
+    rerun = [attention_errors(a, g) for a, g in zip(again, grads)]
+    same = [bool(torch.equal(a, g)) for a, g in zip(again, grads)]
+    del again
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     lines, fails = [], []
     for bi, hi in VIDEO_PAIRS:
@@ -2617,6 +2668,11 @@ def check_layer0_backward(cap):
     print(f"attention backward at layer 0's inputs ({tuple(q.shape)} {q.dtype}, v strides "
           f"{v.stride()}) [tol bf16 max {BF16_MAX_TOL:g} mean {BF16_MEAN_TOL:g}, f32 "
           f"{BWD_F32_TOL:g}, lse {LSE_TOL:g}]:\n  " + "\n  ".join(lines))
+    print("attention backward run twice at layer 0's inputs: dq, dk, dv max|diff| / max|first| "
+          + ", ".join(f"{e[0] / e[2]:.2e}" for e in rerun) + f" [tol {BF16_MAX_TOL:g}]; bit for "
+          f"bit {same}")
+    if not all(e[0] <= BF16_MAX_TOL * e[2] for e in rerun):
+        fails.append("rerun")
     if fails:
         _fail(f"the attention backward disagrees with its plain version at layer 0's inputs, "
               f"(b, h) {fails}")
@@ -2633,7 +2689,10 @@ def small_video_train_check(dev):
     (made on the CPU, replayed on the card). Loss at 1e-5, gradients at 1e-4
     of each leaf's max|ref|, the leaves after two steps at a mean |err| of
     1e-2 of lr (Adam's first steps move each element by ~lr sign(g), so an
-    element whose gradient lies below the kernels' error can flip)."""
+    element whose gradient lies below the kernels' error can flip). Returns
+    the ``kernels`` entries of the f32 ``dq`` and ``dkv`` kernels: the card
+    run's launches, and each kernel's error, time and bound at that run's
+    first backward inputs."""
     import copy
 
     from fluidnexus_torch.diffusion.video import engine as eng_mod
@@ -2665,7 +2724,14 @@ def small_video_train_check(dev):
         replayed.append(x)
         return x.to(a[-1])
 
-    runs = {}
+    runs, captured, real_bwd = {}, {}, ac.attention_bwd
+
+    def recording_bwd(*a):
+        if not captured:
+            captured["bwd"] = tuple(x.detach() for x in a)
+        return real_bwd(*a)
+
+    ac.attention_bwd = recording_bwd
     try:
         for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
             if name == "cpu":
@@ -2685,6 +2751,7 @@ def small_video_train_check(dev):
                           dict(ac.LAUNCHES))
     finally:
         sampling._normal, eng_mod._randint = real_normal, real_randint
+        ac.attention_bwd = real_bwd
     (g_c, l_c, p_c, n_c), (g_d, l_d, p_d, n_d) = runs["cpu"], runs["card"]
     dl = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
     dg = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_d, g_c))
@@ -2697,30 +2764,79 @@ def small_video_train_check(dev):
           f"{dg:.2e} [tol 1e-4]; LoRA leaves after 2 steps mean|err| {dmean:.2e} [tol "
           f"{1e-2 * lr:g}], max|err| {dp:.2e} (Adam moves an element by ~lr sign(g) at first: "
           f"one whose gradient is below the kernels' error may flip)")
-    want = {"attention_fwd": 12, "attention_fwd_wgmma": 0, "attention_dq": 6, "attention_dkv": 6}
+    want = {"attention_fwd": 12, "attention_fwd_wgmma": 0, "attention_bwd_wgmma": 0,
+            "attention_dq": 6, "attention_dkv": 6}
     if not (all(c == 0 for c in n_c.values()) and all(n_d[k] == c for k, c in want.items())
             and len(replayed) == len(draws) and dl <= 1e-5 and dg <= 1e-4
             and dmean <= 1e-2 * lr):
         _fail("the small video training run on the card disagrees with the plain CPU path")
 
+    # the f32 pair at the card run's first backward inputs
+    q, k, v, out, lse, dout = captured["bwd"]
+    b, h, s, d = q.shape
+    with torch.no_grad():
+        grads = ac.attention_bwd(q, k, v, out, lse, dout)
+        refs = ac.attention_bwd_plain(q, k, v, dout)
+        err = [float((g - r).abs().max()) for g, r in zip(grads, refs)]
+        scale = [float(r.abs().max()) for r in refs]
+        fn = lambda: ac.attention_bwd(q, k, v, out, lse, dout)   # noqa: E731
+        ms_dq, rec_dq = kernel_device_ms(fn, "attention_dq_f32_kernel")
+        ms_dkv, rec_dkv = kernel_device_ms(fn, "attention_dkv_f32_kernel")
+        plain_ms = cuda_ms(lambda: ac.attention_bwd_plain(q, k, v, dout))
+    lib_bwd = sdpa_bwd_ms(q, k, v, dout, iters=10)
+    if not all(e <= BWD_F32_TOL * max(c, 1e-3 * max(scale)) for e, c in zip(err, scale)):
+        _fail(f"the f32 backward pair disagrees with its plain version at the small run's "
+              f"inputs: max|err| {err} on max|ref| {scale}")
+    prod = 2 * b * h * s * s * d
+    io = b * h * s * d * 4
+    # the gradient's bound split so that the two add up to it: dkv takes S =
+    # QK^T, dP = dO V^T, dV and dK with q, k, v, dO, the LSE, dk and dv; dq
+    # takes dS K with O and dq (its own recomputation of S and dP is not work
+    # the gradient needs)
+    dkv_bound = bound_ms(6 * io + 4 * b * h * s, 4 * prod)
+    dq_bound = bound_ms(2 * io, prod)
+    print(f"attention_dq and attention_dkv (the mma.sync f32 pair) at the small run's "
+          f"{tuple(q.shape)} {q.dtype}: dq, dk, dv max|err| {', '.join(f'{e:.3e}' for e in err)} "
+          f"on max|ref| {', '.join(f'{c:.3e}' for c in scale)} [tol {BWD_F32_TOL:g} x max|ref|]; "
+          f"dq {ms_dq:.4f} ms ({rec_dq} of 50 recorded), bound {dq_bound[0]:.6f} by "
+          f"{dq_bound[1]}; dkv {ms_dkv:.4f} ms ({rec_dkv} of 50), bound {dkv_bound[0]:.6f} by "
+          f"{dkv_bound[1]} (f32 outside the tensor cores); plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention's backward {lib_bwd:.4f} ms")
+    common = {"route": "cuda", "source": "fluidnexus_torch/csrc/attention_bwd.cu",
+              "replaces": "fluidnexus_tpu/diffusion/video/dit.py:256", "plain_ms": plain_ms,
+              "library_ms": lib_bwd}
+    return [{"name": "attention_dq", **common, "launches": n_d["attention_dq"],
+             "max_abs_err": err[0], "ms": ms_dq, "bound_ms": dq_bound[0],
+             "bound_by": dq_bound[1]},
+            {"name": "attention_dkv", **common, "launches": n_d["attention_dkv"],
+             "max_abs_err": max(err[1:]), "ms": ms_dkv, "bound_ms": dkv_bound[0],
+             "bound_by": dkv_bound[1]}]
+
 
 # ------------------------- mutants and the encode probe ----------------------
 
-# Three broken copies of csrc/attention_bwd.cu: (source text, replacement)
+# Broken copies of the attention backward: (file, source text, replacement),
+# each replaced wherever it occurs. The first three break the mma.sync pair,
+# the wgmma_ ones the Hopper kernel and its wrapper.
+BWD_SRC = "fluidnexus_torch/csrc/attention_bwd.cu"
 BWD_MUTANTS = {
     "no_key_mask": [
-        ("        if (ragged && t * BK + j * 8 + tg * 2 + (e & 1) >= S) p = 0.f;   // keys past s\n",
-         ""),
-        ("      const float p = t * BK + j < S ? ex2(fmaf(s, scale_log2, -lse2)) : 0.f;   "
+        (BWD_SRC, "        if (ragged && t * BK + j * 8 + tg * 2 + (e & 1) >= S) p = 0.f;   "
+         "// keys past s\n", ""),
+        (BWD_SRC, "      const float p = t * BK + j < S ? ex2(fmaf(s, scale_log2, -lse2)) : 0.f;   "
          "// keys past s: 0", "      const float p = ex2(fmaf(s, scale_log2, -lse2));"),
     ],
     "no_D_term": [
-        ("s_acc[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));", "s_acc[j][e] = p * dp[j][e];"),
-        ("s_acc[j][e] *= dp[j][e] - dd[j * 8 + tg * 2 + (e & 1)];", "s_acc[j][e] *= dp[j][e];"),
-        ("p * (dpv - drow)", "p * dpv"),
-        ("p * (dpv - rows[BQ + i])", "p * dpv"),
+        (BWD_SRC, "s_acc[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));", "s_acc[j][e] = p * dp[j][e];"),
+        (BWD_SRC, "s_acc[j][e] *= dp[j][e] - dd[j * 8 + tg * 2 + (e & 1)];", "s_acc[j][e] *= dp[j][e];"),
+        (BWD_SRC, "p * (dpv - drow)", "p * dpv"),
+        (BWD_SRC, "p * (dpv - rows[BQ + i])", "p * dpv"),
     ],
-    "lse_base_2": [(" * LOG2E : 0.f;", " : 0.f;")],
+    "lse_base_2": [(BWD_SRC, " * LOG2E : 0.f;", " : 0.f;")],
+    "wgmma_no_key_mask": [(BWD_SRC, "= live0 ? ex2(", "= true ? ex2("),
+                          (BWD_SRC, "= live1 ? ex2(", "= true ? ex2(")],
+    "wgmma_no_D_term": [(BWD_SRC, " - dd.x);", ");"), (BWD_SRC, " - dd.y);", ");")],
+    "wgmma_lse_base_2": [("fluidnexus_torch/ops/attention_cuda.py", "lse * _LOG2E", "lse")],
 }
 _MUTANT_CHECK = """
 import sys, torch
@@ -2735,8 +2851,8 @@ cs.small_video_train_check(dev)
 
 def run_mutants():
     """``python3 chip_smoke.py mutants``: each of BWD_MUTANTS in a copy of the
-    checkout under a temporary directory (the three built in parallel), then
-    the ragged attention check and the small training check on it, with
+    checkout under a temporary directory (all built in parallel), then the
+    ragged attention check and the small training check on it, with
     ``_fail`` made to print. A mutant must fail at least one check."""
     import shutil
 
@@ -2749,15 +2865,14 @@ def run_mutants():
             dst = os.path.join(tmp, name)
             shutil.copytree(root, dst, ignore=shutil.ignore_patterns(
                 "_build", "chiprun_out", "_checkout", ".git", "__pycache__"))
-            path = os.path.join(dst, "fluidnexus_torch", "csrc", "attention_bwd.cu")
-            with open(path) as f:
-                src = f.read()
-            for old, new in edits:
+            for rel, old, new in edits:
+                path = os.path.join(dst, rel)
+                with open(path) as f:
+                    src = f.read()
                 if old not in src:
-                    _fail(f"mutant {name}: {old!r} is not in attention_bwd.cu")
-                src = src.replace(old, new)
-            with open(path, "w") as f:
-                f.write(src)
+                    _fail(f"mutant {name}: {old!r} is not in {rel}")
+                with open(path, "w") as f:
+                    f.write(src.replace(old, new))
             procs[name] = subprocess.Popen(
                 [sys.executable, "-c", "from fluidnexus_torch.ops import cuda_build; "
                  "cuda_build.build(['attention', 'attention_bwd'])"], cwd=dst)
@@ -2895,6 +3010,51 @@ def attention_time():
             print(f"attention forward {name}: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
 
 
+def attention_bwd_time():
+    """``python3 chip_smoke.py attention-bwd``: the attention backward alone.
+    Builds ``attention`` and ``attention_bwd`` (prints the Hopper kernels'
+    -Xptxas -v lines), runs the ragged check (``check_attention_ragged``),
+    then at the CogVideoX-5B shape (2, 48, 17 776, 64) bf16 (q and k
+    contiguous, v a view of a (b, s, 3 h d) projection, dout drawn from a
+    seed, O and the LSE from the forward kernel) times the Hopper backward,
+    the mma.sync pair and scaled_dot_product_attention's backward by CUDA
+    events over 5 calls each, in that order and then in reverse, and the
+    Hopper kernel apart from the torch work around it. The quick loop for
+    work on the backward kernel."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the timing runs on an NVIDIA card")
+    from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.ops import cuda_build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    for name, info in cuda_build.build(["attention", "attention_bwd"]).items():
+        lines = info["log"].splitlines()
+        hop = [i for i, line in enumerate(lines) if "wgmma_kernel" in line and "Compiling" in line]
+        print(f"build {name}: {info['seconds']:.1f} s\n" + "\n".join(
+            line for i in hop for line in lines[i:i + 4]))
+    dev = torch.device("cuda")
+    check_attention_ragged(dev)
+    b, h, s, d = 2, 48, 17776, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, -1))
+    q, k = q.contiguous(), k.contiguous()
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    flops = 5 * 2 * b * h * s * s * d
+    with torch.no_grad():
+        out, lse = ac.attention_fwd(q, k, v, lse=True)
+        calls = {"wgmma": lambda: ac.attention_bwd(q, k, v, out, lse, dout),
+                 "mma.sync pair": lambda: ac._attention_bwd_mma_sync(q, k, v, out, lse, dout)}
+        for name in list(calls) + [None] + list(calls)[::-1]:
+            ms = sdpa_bwd_ms(q, k, v, dout) if name is None else cuda_ms(calls[name], iters=5)
+            print(f"attention backward {name or 'scaled_dot_product_attention'}: {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s in the gradient's 5 products)")
+        kernel_ms, prep_ms = bwd_kernel_ms(q, k, v, out, lse, dout, iters=5)
+    print(f"attention backward wgmma: the kernel {kernel_ms:.3f} ms, D, the rows, the zeroed "
+          f"workspace and the cast {prep_ms:.3f} ms")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["mutants"]:
         run_mutants()
@@ -2902,6 +3062,8 @@ if __name__ == "__main__":
         encode_probe()
     elif sys.argv[1:] == ["attention-time"]:
         attention_time()
+    elif sys.argv[1:] == ["attention-bwd"]:
+        attention_bwd_time()
     elif sys.argv[1:] == ["tick-flips"]:
         tick_flips()
     else:

@@ -7,47 +7,78 @@
 // Replaces the backward of the library Pallas flash_attention that
 // fluidnexus_tpu/diffusion/video/dit.py:_joint_attention calls on a TPU: the
 // dkv and dq kernels behind its custom_vjp (512-row blocks; the sequence
-// padded at the back to a multiple of 512, segment ids masking the pad).
+// padded at the back to a multiple of 512, segment ids masking the pad), with
+// D computed outside them.
 //
 // With s = 1/sqrt(d), P = softmax(s Q K^T) recomputed from the forward's
 // log-sum-exp (P_ij = 2^(s_ij * scale_log2 - lse_i * log2 e), the base set
 // out in attention_common.cuh) and D_i = dO_i . O_i:
 //   dV = P^T dO,  dS = P o (dO V^T - D),  dQ = s dS K,  dK = s dS^T Q.
-// Two kernels, as the TPU split them, so no output is summed across blocks:
-// no atomics, and a rerun gives the same bits.
-//   dq:  one block per (64-query tile, b h) walks the key tiles; it first
-//        computes D for its rows and writes it (f32, (b, h, s)) for dkv,
-//        which is launched after it on the same stream.
-//   dkv: one block per (64-key tile, b h) walks the query tiles, with dK and
-//        dV in registers.
-// Both recompute S and P: 7 products of 2 b h s^2 d operations each against
-// the 5 of a backward that keeps P, the price of the split.
-//
-// Inputs q, k, v, o, dO and outputs dq, dk, dv are (b, h, s, d) with any
-// element strides for b, h and s (d contiguous, rows 16-byte aligned); the
-// DiT's v is a strided view of the qkv projection, read in place. Ragged
-// tiles: rows past s are zero-filled by cp.async, so a pad key adds
-// dS_ij K_j = 0 to dQ, and pad queries (Q and dO zero) add nothing to dK and
-// dV; a pad key's P is still set to 0 before it is used, since
-// 2^(0 - lse_i log2 e) overflows to inf when every logit of row i lies far
-// below 0, and inf times the zero row is NaN. Pad queries' P is set to 0 as
-// well.
-//   bf16: four warps of 16 rows; every product on the tensor cores
-//     (mma.sync m16n8k16, bf16 in, f32 accumulators), P and dS rounded to
-//     bf16 as A fragments straight from the accumulators. dq keeps Q and dO
-//     fragments in registers, dkv keeps K and V; the walked tiles are
-//     double-buffered by cp.async.
-//   f32: plain FMAs, four threads a row, each holding a quarter of the row's
-//     vectors and accumulators, dot products summed by shuffles.
 //
 // Bound on the H100 at the CogVideoX-5B shape (b 2, h 48, s 17 776, d 64):
 // the gradient needs 5 products of 2 b h s^2 d = 3.88e12 operations, 1.94e13,
 // 19.6 ms at bf16's 989 TFLOP/s, and b h s^2 = 3.0e10 exponentials, 7.8 ms at
 // ~3.9e12/s; the bytes (q, k, v, o, dO, lse read once, dq, dk, dv written)
-// 0.5 ms. So it is bound by operations. This design recomputes S and P in
-// both kernels (7 products, 2 b h s^2 exponentials): by construction it sits
-// at least 1.4x above that bound. mma.sync rather than wgmma, no TMA, no
-// warp specialisation, as in the forward.
+// 0.5 ms. So it is bound by operations.
+//
+// Two designs:
+//   attention_bwd_wgmma_kernel, bf16 at d = 64 (the 5B and 2B DiTs' 64-wide
+//     heads), built from hopper_common.cuh: one pass, the 5 products once.
+//     One block per (128-key tile, b h), three warpgroups. The producer
+//     (setmaxnreg 24; one thread) loads the block's K and V once by TMA, then
+//     walks the query tiles: Q and dO (128 rows each) by TMA and the tile's
+//     lse log2 e and D rows (1 KB, padded by the wrapper to whole tiles, so
+//     a 16-byte-aligned 1-D bulk copy) through a ring of HSTAGES stages with
+//     full and empty barriers. Two consumer warpgroups (setmaxnreg 240) of 64
+//     keys each keep dK and dV in registers and take each query tile in two
+//     halves of 64 queries: S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16,
+//     both from shared), P^T in f32 while dP^T is still on the tensor cores,
+//     dS^T = P^T o (dP^T - D) with f32 P, then dV += P^T dO and dK += dS^T Q
+//     (m64n64k16, P^T and dS^T rounded to bf16 in registers, dO and Q read
+//     MN-major). A whole 128-query tile at once would hold S^T and dP^T at
+//     64 registers each beside dK and dV: ptxas gives every thread of a
+//     384-thread block at most 168 registers whatever setmaxnreg asks, and
+//     spilled and serialised the products (94 ms at the 5B shape); halves
+//     fit. Each half's dS^T also goes, as bf16, into a shared tile of 128
+//     keys x 64 queries; when both consumers have written theirs (a named
+//     barrier), each computes dQ for 64 query rows = dS K over the block's
+//     128 keys (m64n64k16, dS read MN-major from that tile, K MN-major),
+//     stages it times s as f32 in the tile it just read and one thread adds
+//     it into an f32 workspace by TMA reduce-add (the wrapper zeroes the
+//     workspace before and casts it to bf16 after). dS tiles are double
+//     buffered. Pad keys (rows past s, TMA zero-fills them) have P set to 0:
+//     their S is 0, and 2^(0 - lse log2 e) overflows to inf when every logit
+//     of a row lies far below 0, and inf times the zero K row would make dQ
+//     NaN. Pad queries have lse = +inf, so their P is 0 and they add nothing
+//     to dK and dV; dK and dV of pad keys are not written, dQ rows past s
+//     are skipped by TMA. dQ is summed across key blocks in an order that
+//     changes from run to run, so its last bits do too; dK and dV are
+//     summed in registers and repeat bit for bit.
+//   the mma.sync pair (f32, and bf16 at d = 16, 32 and 128), as the TPU
+//     split it, so no output is summed across blocks: no atomics, and a
+//     rerun gives the same bits.
+//     dq:  one block per (64-query tile, b h) walks the key tiles; it first
+//          computes D for its rows and writes it (f32, (b, h, s)) for dkv,
+//          which is launched after it on the same stream.
+//     dkv: one block per (64-key tile, b h) walks the query tiles, with dK
+//          and dV in registers.
+//     Both recompute S and P: 7 products of 2 b h s^2 d operations each
+//     against the 5 of a backward that keeps P, so by construction at least
+//     1.4x above the bound.
+//     Inputs q, k, v, o, dO and outputs dq, dk, dv are (b, h, s, d) with any
+//     element strides for b, h and s (d contiguous, rows 16-byte aligned);
+//     the DiT's v is a strided view of the qkv projection, read in place.
+//     Ragged tiles: rows past s are zero-filled by cp.async, so a pad key
+//     adds dS_ij K_j = 0 to dQ, and pad queries (Q and dO zero) add nothing
+//     to dK and dV; a pad key's P is still set to 0 before it is used (the
+//     overflow above). Pad queries' P is set to 0 as well.
+//     bf16: four warps of 16 rows; every product on the tensor cores
+//       (mma.sync m16n8k16, bf16 in, f32 accumulators), P and dS rounded to
+//       bf16 as A fragments straight from the accumulators. dq keeps Q and dO
+//       fragments in registers, dkv keeps K and V; the walked tiles are
+//       double-buffered by cp.async.
+//     f32: plain FMAs, four threads a row, each holding a quarter of the
+//       row's vectors and accumulators, dot products summed by shuffles.
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
@@ -463,13 +494,12 @@ constexpr int HROWS = 2 * HQ * 4;                // a query tile's lse log2 e | 
 constexpr int HROWS_AT = 2 * HTILE + HSTAGES * 2 * HTILE + 2 * 2 * HTILE;
 constexpr int HSMEM = 1024 + HROWS_AT + HSTAGES * HROWS + 8 * (1 + 2 * HSTAGES);
 
-template <bool DQ>
 __global__ void __launch_bounds__(384, 1) attention_bwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-    const float* __restrict__ rows, float* __restrict__ dq, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, Strides sdk, Strides sdv, int H, int S, float scale_log2,
-    float scale) {
+    const __grid_constant__ CUtensorMap tdq, const float* __restrict__ rows,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk, Strides sdv, int H, int S,
+    float scale_log2, float scale) {
   extern __shared__ uint8_t wsmem[];
   const uint32_t base = (hop::smem_addr(wsmem) + 1023) & ~1023u;   // the swizzle's alignment
   const uint8_t* gbase = wsmem + (base - hop::smem_addr(wsmem));
@@ -525,7 +555,6 @@ __global__ void __launch_bounds__(384, 1) attention_bwd_wgmma_kernel(
   float acc_dk[32], acc_dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-  float* dqb = dq + (long long)blockIdx.y * S * 64;
 
   hop::mbar_wait(bar_kv, 0);
   for (int t = 0; t < nq; ++t) {
@@ -574,7 +603,7 @@ __global__ void __launch_bounds__(384, 1) attention_bwd_wgmma_kernel(
       }
       hop::pack_a_frags(pf, s);
       hop::pack_a_frags(df, dp);
-      if constexpr (DQ) hop::store_frags(ds_buf + hh * HTILE, df, r, tg);
+      hop::store_frags(ds_buf + hh * HTILE, df, r, tg);
       hop::fence_regs(acc_dv);
       hop::fence_regs(acc_dk);
       hop::fence_regs(pf);
@@ -590,31 +619,34 @@ __global__ void __launch_bounds__(384, 1) attention_bwd_wgmma_kernel(
       hop::fence_regs(df);
     }
     if (t128 == 0) hop::mbar_arrive(empty(st));   // the stage's Q, dO and rows are read
-    if constexpr (DQ) {
-      // both consumers' halves of the dS tile written: dQ (this warpgroup's
-      // 64 query rows) = dS K over the block's 128 keys, summed into the f32
-      // workspace times s; rows past s are not stored
-      float acc_dq[32];
-      hop::fence_proxy_async();
-      hop::named_barrier_sync(1, 256);
-      hop::wgmma_fence();
-      hop::product_atb(acc_dq, ds_buf + cw * HTILE, k_s);
-      hop::wgmma_commit();
-      hop::wgmma_wait<0>();
-      hop::fence_regs(acc_dq);
-      const int q0 = t * HQ + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = 8 * j + 2 * tg;
-        if (q0 < S)
-          hop::red_add2(dqb + (long long)q0 * 64 + d, acc_dq[4 * j] * scale,
-                        acc_dq[4 * j + 1] * scale);
-        if (q0 + 8 < S)
-          hop::red_add2(dqb + (long long)(q0 + 8) * 64 + d, acc_dq[4 * j + 2] * scale,
-                        acc_dq[4 * j + 3] * scale);
-      }
+    // both consumers' halves of the dS tile written, and the last tile's
+    // reduce-add done reading its buffer (the next tile's dS goes there):
+    // dQ for this warpgroup's 64 query rows = dS K over the block's 128 keys
+    float acc_dq[32];
+    if (t128 == 0) hop::bulk_wait_read<0>();
+    hop::fence_proxy_async();
+    hop::named_barrier_sync<1, 256>();
+    hop::wgmma_fence();
+    const uint32_t dq_s = ds_buf + cw * HTILE;   // no other warpgroup reads this tile
+    hop::product_atb(acc_dq, dq_s, k_s);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc_dq);
+    // s dQ staged in the tile just read, then added by TMA into the f32
+    // workspace (rows past s skipped)
+    hop::store_acc_f32(dq_s, acc_dq, scale, r & 63, tg);
+    hop::fence_proxy_async();
+    if (cw == 0)
+      hop::named_barrier_sync<2, 128>();
+    else
+      hop::named_barrier_sync<3, 128>();
+    if (t128 == 0) {
+      hop::tma_reduce_add_4d(&tdq, dq_s, 0, t * HQ + cw * 64, h, b);
+      hop::tma_reduce_add_4d(&tdq, dq_s + 64 * hop::ROW_BYTES, 32, t * HQ + cw * 64, h, b);
+      hop::bulk_commit();
     }
   }
+  if (t128 == 0) hop::bulk_wait<0>();   // shared memory stays until the last reduce-add is done
 
   // dK and dV of keys past s are not written
   bf16* dkb = dk + b * sdk.b + h * sdk.h;
@@ -731,35 +763,28 @@ int fnx_attention_bwd(int which, const void* q, const void* k, const void* v, co
 // The bf16 backward at head_dim 64 on wgmma and TMA, one launch. q, k, v
 // and dout (b, h, s, 64) as fnx_attention_bwd takes them, plus what TMA
 // needs: every stride a multiple of 8 elements, each base 16-byte aligned.
-// st holds the (b, h, s) element strides of q, k, v, dout, dk, dv, in that
-// order (18 values). rows is contiguous f32 (b, h, nq, 2, 128), nq =
-// ceil(s / 128): each query tile's lse times log2(e) (+inf past s), then its
-// D = dO . O (0 past s). dq, when not null, is a zeroed contiguous f32 (b, h,
-// s, 64) into which s dS K is summed; null computes dk and dv alone. Tensor
-// maps are encoded at each call; one that cannot be encoded returns 1000 +
-// its CUresult.
+// rows is contiguous f32 (b, h, nq, 2, 128), nq = ceil(s / 128): each query
+// tile's lse times log2(e) (+inf past s), then its D = dO . O (0 past s). dq
+// is an f32 (b, h, s, 64) of zeros (any strides a multiple of 4 elements)
+// into which s dS K is summed. st holds the (b, h, s) element strides of q,
+// k, v, dout, dq, dk, dv, in that order (21 values). Tensor maps are encoded
+// at each call; one that cannot be encoded returns 1000 + its CUresult.
 int fnx_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* rows, void* dq, void* dk, void* dv, int B, int H, int S,
                             const long long* st, float scale_log2, float scale, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tdo;
+  CUtensorMap tq, tk, tv, tdo, tdq;
   int err = hop::encode_bf16_rows(&tq, q, B, H, S, st[0], st[1], st[2], HQ);
   if (err == 0) err = hop::encode_bf16_rows(&tk, k, B, H, S, st[3], st[4], st[5], HK);
   if (err == 0) err = hop::encode_bf16_rows(&tv, v, B, H, S, st[6], st[7], st[8], HK);
   if (err == 0) err = hop::encode_bf16_rows(&tdo, dout, B, H, S, st[9], st[10], st[11], HQ);
+  if (err == 0) err = hop::encode_f32_rows(&tdq, dq, B, H, S, st[12], st[13], st[14], 64);
   if (err != 0) return 1000 + err;
-  const Strides sdk{st[12], st[13], st[14]}, sdv{st[15], st[16], st[17]};
-  const dim3 grid((S + HK - 1) / HK, B * H);
-  const float* r = static_cast<const float*>(rows);
-  float* dqf = static_cast<float*>(dq);
-  bf16* dkb = static_cast<bf16*>(dk);
-  bf16* dvb = static_cast<bf16*>(dv);
-  const cudaStream_t cs = (cudaStream_t)stream;
-  if (dq != nullptr)
-    return launch_kernel(attention_bwd_wgmma_kernel<true>, grid, 384, (size_t)HSMEM, cs, tq, tk,
-                         tv, tdo, r, dqf, dkb, dvb, sdk, sdv, H, S, scale_log2, scale);
-  return launch_kernel(attention_bwd_wgmma_kernel<false>, grid, 384, (size_t)HSMEM, cs, tq, tk, tv,
-                       tdo, r, dqf, dkb, dvb, sdk, sdv, H, S, scale_log2, scale);
+  return launch_kernel(attention_bwd_wgmma_kernel, dim3((S + HK - 1) / HK, B * H), 384,
+                       (size_t)HSMEM, (cudaStream_t)stream, tq, tk, tv, tdo, tdq,
+                       static_cast<const float*>(rows), static_cast<bf16*>(dk),
+                       static_cast<bf16*>(dv), Strides{st[15], st[16], st[17]},
+                       Strides{st[18], st[19], st[20]}, H, S, scale_log2, scale);
 }
 
 }  // extern "C"

@@ -4,18 +4,19 @@
 // torch.matmul on one tile):
 //   - mbarriers: init, arrive, arrive with an expected transaction count, and
 //     a wait on a phase's parity that traps after ~10 s instead of hanging;
-//   - TMA: a 4-D tensor map of a bf16 (b, h, s, d) tensor, encoded on the host
-//     through cudaGetDriverEntryPointByVersion (no -lcuda), and the tile load that
-//     completes on an mbarrier; a 1-D bulk copy of contiguous bytes that
-//     completes on one too;
+//   - TMA: a 4-D tensor map of a bf16 or f32 (b, h, s, d) tensor, encoded on
+//     the host through cudaGetDriverEntryPointByVersion (no -lcuda); the tile
+//     load that completes on an mbarrier; the tile reduce-add (f32) from
+//     shared memory into device memory, in a bulk group; a 1-D bulk copy of
+//     contiguous bytes that completes on an mbarrier;
 //   - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile,
 //     fence / commit / wait, an SS product m64n128k16, an RS product
 //     m64n64k16 (A in registers, B read MN-major) and an SS product m64n64k16
 //     (each operand K-major or MN-major), bf16 in, f32 accumulators;
 //   - bf16 A fragments stored to shared memory in the swizzled tile layout
 //     (for a later product to read), the proxy fence that makes such stores
-//     visible to wgmma, a named barrier, and an f32 pair added to device
-//     memory by one vector reduction;
+//     visible to wgmma and TMA, a named barrier, and an f32 accumulator
+//     stored to shared memory as an f32 tensor map's boxes;
 //   - setmaxnreg, and a register fence that keeps the compiler from moving
 //     reads of an accumulator above the wait that completes it.
 //
@@ -74,22 +75,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a bf16 (B, H, S, 64) tensor with element strides sb, sh, ss (d
-// contiguous) as (d, s, h, b), innermost first, read in boxes of 64 x box_s
-// rows of one (b, h) into 128-byte-swizzled shared tiles. Rows past S read as
-// zeros. TMA needs a 16-byte-aligned base and byte strides that are
-// multiples of 16. Returns the CUresult of cuTensorMapEncodeTiled.
-inline int encode_bf16_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb,
-                            long long sh, long long ss, int box_s) {
+// A map of a (B, H, S, 64) tensor of `type` (`bytes` a element) with
+// element strides sb, sh, ss (d contiguous) as (d, s, h, b), innermost first,
+// moved in boxes of box_d x box_s of one (b, h) to and from 128-byte-swizzled
+// shared tiles (box_d elements make one 128-byte row). Rows past S read as
+// zeros and are not written. TMA needs a 16-byte-aligned base and byte
+// strides that are multiples of 16. Returns the CUresult of
+// cuTensorMapEncodeTiled.
+inline int encode_rows(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* ptr,
+                       int B, int H, int S, long long sb, long long sh, long long ss, int box_d,
+                       int box_s) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_s, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(ss * bytes), (cuuint64_t)(sh * bytes),
+                                 (cuuint64_t)(sb * bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, (cuuint32_t)box_s, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// bf16 rows: boxes of 64 x box_s, a whole row a box
+inline int encode_bf16_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb,
+                            long long sh, long long ss, int box_s) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, B, H, S, sb, sh, ss, 64, box_s);
+}
+
+// f32 rows: boxes of 32 x box_s, half a row a box
+inline int encode_f32_rows(CUtensorMap* map, const void* ptr, int B, int H, int S, long long sb,
+                           long long sh, long long ss, int box_s) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, B, H, S, sb, sh, ss, 32, box_s);
 }
 
 // ------------------------------ device: mbarriers ----------------------------
@@ -163,6 +180,31 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Adds the box at shared `src` into the tensor at (c0, c1, c2, c3), innermost
+// first (rows past its bounds are skipped), in this thread's bulk group.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // --------------------------------- device: wgmma -----------------------------
@@ -360,19 +402,37 @@ __device__ __forceinline__ void store_frags(uint32_t buf, const uint32_t (&p)[KS
   }
 }
 
-// makes this thread's stores to shared memory visible to wgmma's reads
+// makes this thread's stores to shared memory visible to the async proxy
+// (wgmma's and TMA's reads)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// barrier `id` (not 0, which __syncthreads takes) over `n` threads
-__device__ __forceinline__ void named_barrier_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+// barrier ID (not 0, which __syncthreads takes) over N threads
+template <int ID, int N>
+__device__ __forceinline__ void named_barrier_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
 }
 
-// p[0] += a, p[1] += b in device memory (8-byte aligned), one vector reduction
-__device__ __forceinline__ void red_add2(float* p, float a, float b) {
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+// Rows r and r + 8 (r = 16 w + g, plus a multiple of 16) of a (64 x 64) f32
+// accumulator, times `scale`, into `buf` (1024-byte aligned) as an f32 map of
+// encode_f32_rows with box_s 64 reads them: columns 0..31, then 32..63, each
+// box 64 rows of 128 bytes, 128-byte swizzled. A warp's stores of one column
+// tile hit each bank twice.
+__device__ __forceinline__ void store_acc_f32(uint32_t buf, const float (&acc)[32], float scale,
+                                              int r, int tg) {
+  const int sw = r & 7;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 2 * (j & 3) + (tg >> 1);   // the 16-byte chunk of columns 8 j + 2 tg in its box
+    const uint32_t a = buf + (j >> 2) * 64 * ROW_BYTES + r * ROW_BYTES + ((c ^ sw) << 4) + (tg & 1) * 8;
+    st_shared_v2(a, acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    st_shared_v2(a + 8 * ROW_BYTES, acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
 }
 
 }  // namespace fnx_hopper

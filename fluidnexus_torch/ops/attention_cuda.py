@@ -194,9 +194,10 @@ def attention_bwd(q, k, v, out, lse, dout):
     ``dout`` ``(b, s, h, d)``; returns dq, dk, dv as ``(b, h, s, d)`` views of
     contiguous ``(b, s, h, d)`` tensors, the layout the qkv projection's
     gradient is assembled in. bf16 at head_dim 64 runs the Hopper kernel
-    (``takes_wgmma``), or raises; it never takes the mma.sync pair. Every
-    other case launches ``dq`` (which also writes D = rowsum(dout * out)) and
-    then ``dkv``."""
+    (``takes_wgmma``; one launch, dq summed in f32 across key blocks, so its
+    last bits change from run to run), or raises; it never takes the
+    mma.sync pair. Every other case launches ``dq`` (which also writes D =
+    rowsum(dout * out)) and then ``dkv``."""
     grads = _bwd_grads(q, k, v, out, lse, dout)
     if q.shape[2]:
         if takes_wgmma(q.dtype, q.shape[-1]):
@@ -232,24 +233,21 @@ def _bwd_grads(q, k, v, out, lse, dout):
             for _ in range(3)]
 
 
-def _backward_pair(q, k, v, out, lse, dout, grads, dsum=None, which=(0, 1)):
-    """The mma.sync ``dq`` kernel (it writes D into ``dsum``) and then ``dkv``,
-    into ``grads``."""
+def _backward_pair(q, k, v, out, lse, dout, grads):
+    """The mma.sync ``dq`` kernel (it also writes D) and then ``dkv``, into
+    ``grads``."""
     b, h, s, d = q.shape
-    if dsum is None:
-        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ins = [_kernel_layout(x) for x in (q, k, v, out.transpose(1, 2), dout.transpose(1, 2))]
     strides = (ctypes.c_longlong * 24)(*[st for x in ins + grads for st in x.stride()[:3]])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    for w in which:
-        name = ("attention_dq", "attention_dkv")[w]
+    for which, name in ((0, "attention_dq"), (1, "attention_dkv")):
         err = _bwd_lib().fnx_attention_bwd(
-            w, *(x.data_ptr() for x in ins), lse.data_ptr(), dsum.data_ptr(),
+            which, *(x.data_ptr() for x in ins), lse.data_ptr(), dsum.data_ptr(),
             *(g.data_ptr() for g in grads), _DTYPES[q.dtype], b, h, s, d, strides,
             _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), stream)
         cuda_build.raise_on(err, f"{name} launch")
         LAUNCHES[name] += 1
-    return dsum
 
 
 def bwd_rows(lse, dsum):
@@ -266,29 +264,42 @@ def bwd_rows(lse, dsum):
 
 
 def _launch_bwd_wgmma(q, k, v, dout, rows, dq_acc, dk, dv):
-    """One launch of the Hopper backward: dk and dv (``(b, h, s, 64)``
-    views) and, with ``dq_acc`` an f32 ``(b, h, s, 64)`` of zeros, s dS K
-    summed into it; ``dq_acc`` None computes dk and dv alone."""
+    """One launch of the Hopper backward: dk and dv into their ``(b, h, s,
+    64)`` views, and s dS K summed into ``dq_acc``, an f32 ``(b, h, s, 64)``
+    view of zeros."""
     b, h, s, d = q.shape
     ins = [_kernel_layout(x) for x in (q, k, v, dout.transpose(1, 2))]
-    strides = (ctypes.c_longlong * 18)(*[st for x in ins + [dk, dv] for st in x.stride()[:3]])
+    strides = (ctypes.c_longlong * 21)(*[st for x in ins + [dq_acc, dk, dv]
+                                         for st in x.stride()[:3]])
     err = _bwd_lib().fnx_attention_bwd_wgmma(
-        *(x.data_ptr() for x in ins), rows.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
-        strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
+        *(x.data_ptr() for x in ins), rows.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, s, strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err >= 1000:
-        raise RuntimeError(f"attention_bwd: the TMA tensor map of q, k, v or dout could not be "
-                           f"encoded (CUresult {err - 1000})")
+        raise RuntimeError(f"attention_bwd: the TMA tensor map of q, k, v, dout or the dq "
+                           f"workspace could not be encoded (CUresult {err - 1000})")
     cuda_build.raise_on(err, "attention_bwd_wgmma launch")
     LAUNCHES["attention_bwd_wgmma"] += 1
 
 
+def _bwd_wgmma_scratch(out, lse, dout):
+    """What the Hopper kernel reads and sums into besides its inputs: the rows
+    (``bwd_rows``) with D = rowsum(dout * out) in f32 by torch (the TPU
+    library computes it outside its kernels too), and the dq workspace, f32
+    zeros ``(b, s, h, d)`` seen as ``(b, h, s, d)``."""
+    b, s, h, d = out.shape
+    dsum = dout.float().mul_(out).sum(-1).transpose(1, 2)
+    dq_acc = torch.zeros((b, s, h, d), dtype=torch.float32, device=out.device)
+    return bwd_rows(lse, dsum), dq_acc.transpose(1, 2)
+
+
 def _backward_wgmma(q, k, v, out, lse, dout, grads):
-    """bf16 at head_dim 64: dq and D from the mma.sync ``dq`` kernel, dk and
-    dv from the Hopper kernel."""
-    dsum = _backward_pair(q, k, v, out, lse, dout, grads, which=(0,))
-    _launch_bwd_wgmma(q, k, v, dout, bwd_rows(lse, dsum), None, grads[1], grads[2])
+    """bf16 at head_dim 64: the Hopper kernel writes dk and dv and sums dq in
+    f32 across the key blocks into the workspace, cast to bf16 into dq
+    afterwards."""
+    rows, dq_acc = _bwd_wgmma_scratch(out, lse, dout)
+    _launch_bwd_wgmma(q, k, v, dout, rows, dq_acc, grads[1], grads[2])
+    grads[0].copy_(dq_acc)
 
 
 class JointAttentionFn(torch.autograd.Function):
