@@ -122,31 +122,33 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel, iters=50):
+def kernel_device_ms(fn, kernel, iters=50, windows=10):
     """Mean device ms per launch of the kernels whose name holds ``kernel``,
-    over ``iters`` calls of ``fn`` under torch.profiler, and the number of
-    launches the profiler recorded. Leaves out the wrapper's host work
-    (checks, allocation, ctypes), which for a kernel of ~0.1 ms is as long as
-    the kernel and would make an event timing of the calls measure the host."""
+    from calls of ``fn`` under torch.profiler, and the text "R of L" that
+    says how many launches the profiler recorded of how many were made.
+    Leaves out the wrapper's host work (checks, allocation, ctypes), which for
+    a kernel of ~0.1 ms is as long as the kernel and would make an event
+    timing of the calls measure the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # the tracer drops records (49 and 38 of 50 seen on the H100): the mean
-    # is taken over the launches it recorded, from the first of up to five
-    # windows that holds at least 90% of them
-    best = 0
-    for _ in range(5):
+    # the tracer drops records (49, 38 and at most 44 of 50 seen on H100s),
+    # and each record it keeps is a whole launch: windows of ``iters`` calls
+    # are traced until they hold at least ``iters`` records, and the mean is
+    # taken over all of them
+    times = []
+    for w in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if len(evs) >= 0.9 * iters:
-            return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / len(evs), len(evs)
-        best = max(best, len(evs))
-    _fail(f"the profiler saw at most {best} launches of {kernel} in five windows, expected {iters}")
+        times += [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(times) >= iters:
+            return sum(times) / 1e3 / len(times), f"{len(times)} of {w * iters}"
+    _fail(f"the profiler recorded {len(times)} launches of {kernel} of the {windows * iters} "
+          f"made in {windows} windows, fewer than {iters}")
 
 
 def bound_ms(nbytes, flops, peak=H100_F32_FLOPS):
@@ -819,7 +821,7 @@ def run_phase_b(dev):
     for name, tm in times.items():
         b_ms, b_by = tm["bound"]
         print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"of 50 launches the profiler recorded; a wrapper call with its "
+              f"launches the profiler recorded; a wrapper call with its "
               f"global sums {tm['call_ms']:.4f} ms; plain {tm['plain_ms']:.4f} ms, library none, "
               f"bound {b_ms:.5f} ms by {b_by}), {launches[name] / ticks:g} launches per tick, "
               f"{inp['pairs']} live candidate pairs")
@@ -1230,7 +1232,7 @@ def run_phase_c(dev, model_path):
         b_ms, b_by = tm["bound"]
         source, replaces, _ = PHASE_C_KERNELS[name]
         print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"of 50 launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
+              f"launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
               f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
               f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
               f"{fit_iters} fit iterations and {n_frames} commits")
@@ -1452,7 +1454,7 @@ def run_rigid(dev, cfg):
         replaces, _ = FUTURE_KERNELS[name]
         path = f"{RIGID_TICKS} rigid ticks" if "v2" in name else "the v1 backend's tick"
         print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"of 50 launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
+              f"launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
               f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
               f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
               f"{path}")
@@ -2310,7 +2312,7 @@ def small_video_check(dev):
     b_ms, b_by = bound_ms(4 * 4 * b * h * s * d, 4 * b * h * s * s * d)
     print(f"attention_fwd (the mma.sync f32 kernel) at the small run's {tuple(q.shape)} "
           f"{q.dtype}: max|err| {err[0]:.3e} on max|ref| {err[2]:.3e} [tol {F32_TOL:g} x "
-          f"max|ref|]; {ms:.4f} ms ({recorded} of 50 launches recorded), bound {b_ms:.6f} ms "
+          f"max|ref|]; {ms:.4f} ms ({recorded} launches recorded), bound {b_ms:.6f} ms "
           f"by {b_by} (f32 outside the tensor cores), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms")
     return {"name": "attention_fwd", "route": "cuda", "source": "fluidnexus_torch/csrc/attention.cu",
@@ -2798,8 +2800,8 @@ def small_video_train_check(dev):
     print(f"attention_dq and attention_dkv (the mma.sync f32 pair) at the small run's "
           f"{tuple(q.shape)} {q.dtype}: dq, dk, dv max|err| {', '.join(f'{e:.3e}' for e in err)} "
           f"on max|ref| {', '.join(f'{c:.3e}' for c in scale)} [tol {BWD_F32_TOL:g} x max|ref|]; "
-          f"dq {ms_dq:.4f} ms ({rec_dq} of 50 recorded), bound {dq_bound[0]:.6f} by "
-          f"{dq_bound[1]}; dkv {ms_dkv:.4f} ms ({rec_dkv} of 50), bound {dkv_bound[0]:.6f} by "
+          f"dq {ms_dq:.4f} ms ({rec_dq} recorded), bound {dq_bound[0]:.6f} by "
+          f"{dq_bound[1]}; dkv {ms_dkv:.4f} ms ({rec_dkv}), bound {dkv_bound[0]:.6f} by "
           f"{dkv_bound[1]} (f32 outside the tensor cores); plain {plain_ms:.4f} ms; "
           f"scaled_dot_product_attention's backward {lib_bwd:.4f} ms")
     common = {"route": "cuda", "source": "fluidnexus_torch/csrc/attention_bwd.cu",
