@@ -8,9 +8,12 @@ profile a few of each (the card's busy share, host and device ms per
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
-``python3 chip_smoke.py mutants`` builds six broken copies of the attention
-backward (three of the mma.sync pair, three of the Hopper kernel) and shows
-that each fails a check; ``python3 chip_smoke.py encode-probe`` tries the
+``python3 chip_smoke.py mutants [attention|rasterizer]`` builds broken copies
+of the kernels (six of the attention backward: three of the mma.sync pair,
+three of the Hopper kernel; four of the rasterizer's backward and combine)
+and shows that each fails a check; ``python3 chip_smoke.py raster [PARENT]``
+checks and times the rasterizer kernels alone at camera 0's tiles (beside
+another checkout's, PARENT, in turns); ``python3 chip_smoke.py encode-probe`` tries the
 video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
 ``python3 chip_smoke.py attention-bwd`` checks the backward kernels at ragged
@@ -311,9 +314,80 @@ def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
             dict(ft=ft, ckpt=ckpt, gacc=gacc, gft=gft, dpk=dpk))
 
 
+def device_kernels(fn, calls=5):
+    """Names of the kernels ``fn`` runs on the card, in order of first
+    launch, from ``calls`` calls under the profiler (it drops records: a
+    window with none is traced again, up to five times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return list(dict.fromkeys(names))
+    return []
+
+
+def device_total_ms(fn, iters=20):
+    """Device ms per call of ``fn``, summed over every kernel it runs (the
+    profiler's records; it may drop some, so this can read low), and the
+    number of records kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / iters, len(ev)
+
+
+def drawn_share(packed_t, counts, tiles_x, tile_x, tile_y, group=64):
+    """Of the live (slot, pixel) pairs, the share a slot draws (alpha at
+    least 1/255, power <= 0), and of the live (slot, group of ``group``
+    consecutive pixels) pairs, the share where it draws on any pixel."""
+    t, k, f = packed_t.shape
+    p = tile_x * tile_y
+    pix = torch.arange(p, device=packed_t.device)
+    drawn = groups = 0
+    for t0 in range(0, t, 64):
+        rows = packed_t[t0:t0 + 64]
+        tid = torch.arange(t0, t0 + rows.shape[0], device=rows.device)
+        px = (((tid % tiles_x) * tile_x)[:, None] + (pix % tile_x)[None]).float()[:, None]
+        py = (((tid // tiles_x) * tile_y)[:, None] + (pix // tile_x)[None]).float()[:, None]
+        dx, dy = rows[..., 0:1] - px, rows[..., 1:2] - py
+        power = -0.5 * (rows[..., 2:3] * dx * dx + rows[..., 4:5] * dy * dy) - rows[..., 3:4] * dx * dy
+        a = torch.clamp(rows[..., 5:6] * torch.exp(power), max=0.99)
+        live = (torch.arange(k, device=rows.device)[None] < counts[t0:t0 + 64, None])[..., None]
+        ok = (power <= 0) & (a >= 1 / 255) & live
+        drawn += int(ok.sum())
+        groups += int(ok.reshape(*ok.shape[:2], p // group, group).any(-1).sum())
+    live_slots = int(counts.sum())
+    return drawn / (live_slots * p), groups / (live_slots * (p // group))
+
+
+def count_distribution(counts, k):
+    """Camera 0's tiles: how the live slots spread over them."""
+    c = counts.long()
+    return (f"camera 0 tile counts: max {int(c.max())}, median {int(c.median())}, mean "
+            f"{float(c.float().mean()):.1f}, {int((c == k).sum())} of {c.numel()} tiles at K {k}, "
+            f"{int((c > k // 2).sum())} above K/2, {int((c == 0).sum())} empty")
+
+
 def time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
     """Kernel, plain version and (where one exists) library times at the main
-    path's shapes, with the bound each is held to."""
+    path's shapes, with the bound each is held to. The kernels and the
+    library call are timed on the device (``kernel_device_ms``): an event
+    timing of a wrapper call also holds its checks, allocation and ctypes
+    call, which are as long as a kernel of ~0.1 ms. That event time is kept
+    beside it as ``call_ms``."""
     from fluidnexus_torch.ops import rasterizer_cuda as tc
 
     tx, ty = rc.tile_x, rc.tile_y
@@ -325,17 +399,26 @@ def time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
     # The bounds count the function's own inputs and outputs, over the live
     # slots only. The transmittance checkpoints are left out: they are this
     # design's way of carrying T from the forward to the backward.
-    ms = cuda_ms(lambda: tc.composite_fwd(packed_t, counts, tiles_x, tx, ty))
+    fwd = lambda: tc.composite_fwd(packed_t, counts, tiles_x, tx, ty)
+    ms, rec = kernel_device_ms(fwd, "composite_fwd_kernel")
     plain = cuda_ms(lambda: tc.composite_plain(packed_t, counts, tiles_x, tx, ty, rc.chunk), iters=3)
     # bytes: live rows + counts read; accum, final T, median written.
     # operations per (live slot, pixel): dx, dy 2, power 9, exp 1, op*exp 1,
     # min 1, T update 2, weight 1, colour accumulate 2C
     nbytes = 4 * (live_slots * f + t) + 4 * t * p * (c + 2)
-    out["composite_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+    out["composite_fwd"] = dict(ms=ms, recorded=rec, call_ms=cuda_ms(fwd, iters=20), plain_ms=plain,
+                                library_ms=None,
                                 bound=bound_ms(nbytes, live_slots * p * (17 + 2 * c)))
 
-    ms = cuda_ms(lambda: tc.composite_bwd(packed_t, counts, saved["gacc"], saved["gft"], saved["ft"],
-                                          saved["ckpt"], tiles_x, tx, ty))
+    bwd = lambda: tc.composite_bwd(packed_t, counts, saved["gacc"], saved["gft"], saved["ft"],
+                                   saved["ckpt"], tiles_x, tx, ty)
+    ms, rec = kernel_device_ms(bwd, "composite_bwd_kernel")
+    # the C entry launches the tile order first: its time counts in the row
+    others = [nm for nm in device_kernels(bwd) if "composite_bwd_kernel" not in nm]
+    order_ms = sum(kernel_device_ms(bwd, nm)[0] for nm in others)
+    print(f"composite_bwd: composite_bwd_kernel {ms:.4f} ms on the card, the call's other kernels "
+          f"{others} {order_ms:.4f} ms")
+    ms += order_ms
     pk = packed_t.clone().requires_grad_(True)
     acc_p, ft_p, _ = tc.composite_plain(pk, counts, tiles_x, tx, ty, rc.chunk)
     loss_p = (acc_p * saved["gacc"]).sum() + (ft_p * saved["gft"]).sum()
@@ -347,20 +430,40 @@ def time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
     # 6 da, 1 dpower, 14 for the geometry and opacity gradients, C colour
     # gradients, 2 suffix, and 6 + C adds of the reduction over pixels
     nbytes = 4 * (live_slots * f + t + t * p * (c + 2)) + 4 * live_slots * f
-    out["composite_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+    out["composite_bwd"] = dict(ms=ms, recorded=rec, call_ms=cuda_ms(bwd, iters=20),
+                                plain_ms=plain, library_ms=None,
                                 bound=bound_ms(nbytes, live_slots * p * (46 + 4 * c)))
 
     dpk = saved["dpk"]
-    ms = cuda_ms(lambda: tc.combine_rows(dpk, tile_gauss, counts, n), iters=20)
+    comb = lambda: tc.combine_rows(dpk, tile_gauss, counts, n)
+    ms, rec = kernel_device_ms(comb, "combine_kernel")
     plain = cuda_ms(lambda: tc.combine_plain(dpk, tile_gauss, counts, n), iters=20)
-    live = (torch.arange(k, device=dpk.device)[None, :] < counts[:, None]).reshape(-1)
-    gid_live, g_live = tile_gauss.reshape(-1)[live], dpk.reshape(-1, f)[live]
+
+    # the yardstick: index_add_ on the live rows, compacted beforehand; the
+    # compaction is timed apart and is not part of it
+    def compact():
+        live = (torch.arange(k, device=dpk.device)[None, :] < counts[:, None]).reshape(-1)
+        return tile_gauss.reshape(-1)[live], dpk.reshape(-1, f)[live]
+
+    compact_ms, compact_rec = device_total_ms(compact)
+    gid_live, g_live = compact()
     acc = torch.zeros((n, f), device=dpk.device)
-    library = cuda_ms(lambda: acc.zero_().index_add_(0, gid_live, g_live), iters=20)
+    lib = lambda: acc.index_add_(0, gid_live, g_live)
+    names = device_kernels(lib)
+    lib_kernel = next((nm for nm in names if "index" in nm.lower()), None)
+    if lib_kernel is None:
+        _fail(f"index_add_ ran no kernel named for indexing: {names}")
+    library, lib_rec = kernel_device_ms(lib, lib_kernel)
+    print(f"combine_rows yardstick: index_add_ runs {names}; its kernel {library:.4f} ms on the "
+          f"card ({lib_rec} recorded), the compaction of the live rows before it "
+          f"{compact_ms:.4f} ms on the card ({compact_rec} kernel records in 20 calls), not part "
+          f"of the yardstick")
     # bytes: live gradient rows and their int64 ids, counts read; (N, F) written
     nbytes = live_slots * (4 * f + 8) + 4 * t + 4 * n * f
-    out["combine_rows"] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                               bound=bound_ms(nbytes, live_slots * f))
+    out["combine_rows"] = dict(ms=ms, recorded=rec, call_ms=cuda_ms(comb, iters=20), plain_ms=plain,
+                               library_ms=library, bound=bound_ms(nbytes, live_slots * f))
+    cmp = "above" if ms > library else "at or below"
+    print(f"combine_rows {ms:.4f} ms on the card is {cmp} index_add_'s {library:.4f} ms")
     return out, live_slots
 
 
@@ -490,6 +593,9 @@ def run_phase_a(dev):
     packed_t, tile_gauss, counts, tiles_x, n = main_path_tiles(cfg, scene, bg, dev)
     print(f"camera 0 tiles: T {packed_t.shape[0]} K {packed_t.shape[1]} F {packed_t.shape[2]} "
           f"live slots {int(counts.sum())} max count {int(counts.max())}")
+    print(count_distribution(counts, rc.tile_capacity))
+    print(f"rasterizer kernels (registers, shared bytes, threads, blocks per SM): "
+          f"{tc.occupancy(packed_t.shape[2] - 7, rc.tile_x, rc.tile_y)}")
     errors, saved = check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
 
     # ---- phase A on the card: the main path. A 2-iteration warm-up first, so
@@ -517,6 +623,9 @@ def run_phase_a(dev):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         _fail(f"the main path launched no {missing}")
+    if launches["composite_bwd"] != FIT_ITERS or launches["combine_rows"] != FIT_ITERS:
+        _fail(f"phase A launched {launches}, expected one composite_bwd and one combine_rows "
+              f"a fit iteration")
 
     # mean ms over the last TIMED_ITERS iterations: the same fit cut to the
     # first FIT_ITERS - TIMED_ITERS iterations, timed alike, is subtracted.
@@ -546,18 +655,27 @@ def run_phase_a(dev):
                                                           device="cuda"), PROFILE_ITERS, ms_iter)
 
     times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
-    sources = {"composite_fwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:139",
-               "composite_bwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:246",
-               "combine_rows": "fluidnexus_tpu/ops/rasterizer_pallas.py:368"}
+    return raster_entries(times, live_slots, errors, launches, FIT_ITERS)
+
+
+RASTER_SOURCES = {"composite_fwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:139",
+                  "composite_bwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:246",
+                  "combine_rows": "fluidnexus_tpu/ops/rasterizer_pallas.py:368"}
+
+
+def raster_entries(times, live_slots, errors, launches, iters):
+    """Prints the rasterizer kernels' times and returns their entries of the
+    ``kernels`` line (``launches`` from ``iters`` fit iterations)."""
     kernels = []
     for name, tm in times.items():
         b_ms, b_by = tm["bound"]
-        print(f"{name}: {tm['ms']:.4f} ms (plain {tm['plain_ms']:.4f} ms, library "
-              f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
-              f"bound {b_ms:.4f} ms by {b_by}), {launches[name] / FIT_ITERS:g} launches "
-              f"per fit iteration, {live_slots} live slots")
+        lib = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+        print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
+              f"launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; plain "
+              f"{tm['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.5f} ms by {b_by}), "
+              f"{launches[name] / iters:g} launches per fit iteration, {live_slots} live slots")
         kernels.append({"name": name, "route": "cuda", "source": "fluidnexus_torch/csrc/rasterizer.cu",
-                        "replaces": sources[name], "launches": launches[name],
+                        "replaces": RASTER_SOURCES[name], "launches": launches[name],
                         "max_abs_err": errors[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": tm["library_ms"]})
     return kernels
@@ -1144,6 +1262,7 @@ def run_phase_c(dev, model_path):
     frame; a profile of 10 fit iterations; the kernel times. Returns the four
     kernels' entries of the ``kernels`` line and what the future stage
     starts from."""
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.pipelines import train_physical_particle as tp
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -1170,7 +1289,7 @@ def run_phase_c(dev, model_path):
     end.record()
     cfg.model.model_path = ""
     end.synchronize()
-    launches = {**{k: v for k, v in pc.LAUNCHES.items()}, **sc.LAUNCHES}
+    launches = {**{k: v for k, v in pc.LAUNCHES.items()}, **sc.LAUNCHES, **tc.LAUNCHES}
     print(f"train A -> B -> C: {start.elapsed_time(end):.1f} ms; launches {launches}")
     metrics = res["metrics"]
     for mm in metrics:
@@ -1184,11 +1303,12 @@ def run_phase_c(dev, model_path):
             _fail(f"phase-C {name} positions are not finite")
     fit_iters = n_frames * PHASE_C_ITERS
     want = {"density_fwd": 2 * fit_iters, "density_bwd": 2 * fit_iters,
-            "splat_fwd": fit_iters + n_frames, "splat_bwd": fit_iters}
+            "splat_fwd": fit_iters + n_frames, "splat_bwd": fit_iters,
+            "composite_bwd": FIT_ITERS + fit_iters, "combine_rows": FIT_ITERS + fit_iters}
     if any(launches[k] != v for k, v in want.items()):
         _fail(f"phase C launched the kernels {launches}, expected {want}")
     print(f"phase C launch counts as expected: {want} ({fit_iters} fit iterations, "
-          f"{n_frames} commits)")
+          f"{n_frames} commits; the rasterizer's backward also in phase A's {FIT_ITERS})")
 
     # ---- the first fit iteration's grids and kernel inputs
     ctx = phase_c_start(cfg, scene, bg, dev)
@@ -2849,21 +2969,68 @@ dev = torch.device("cuda")
 cs.check_attention_ragged(dev)
 cs.small_video_train_check(dev)
 """
+RASTER_SRC = "fluidnexus_torch/csrc/rasterizer.cu"
+RASTER_MUTANTS = {
+    "bwd_no_t_min_mask": [(RASTER_SRC, "const float tba = tb[q] >= T_MIN ? tb[q] : 0.0f;",
+                           "const float tba = tb[q];")],
+    "bwd_no_suffix": [(RASTER_SRC, "__fdividef(suffix[q] + g_t_term[q],", "__fdividef(g_t_term[q],")],
+    "bwd_drops_a_lane_group": [
+        (RASTER_SRC, "u[i] = (up ? hi : lo) + __shfl_xor_sync(FULL_MASK, up ? lo : hi, O);",
+         "u[i] = (up ? hi : lo) + (O == 4 ? 0.0f : __shfl_xor_sync(FULL_MASK, up ? lo : hi, O));")],
+    "combine_one_slot_short": [(RASTER_SRC, "const int n = counts[t] * per_row;",
+                                "const int n = (counts[t] - 1) * per_row;")],
+}
+_RASTER_MUTANT_CHECK = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs._fail = lambda msg: print("FAIL:", str(msg)[:1500], flush=True)
+cs.raster_checks(torch.device("cuda"))
+"""
+# name: (mutants, the libraries they build, the checks they run)
+MUTANT_GROUPS = {"attention": (BWD_MUTANTS, ["attention", "attention_bwd"], _MUTANT_CHECK),
+                 "rasterizer": (RASTER_MUTANTS, ["rasterizer"], _RASTER_MUTANT_CHECK)}
 
 
-def run_mutants():
-    """``python3 chip_smoke.py mutants``: each of BWD_MUTANTS in a copy of the
-    checkout under a temporary directory (all built in parallel), then the
-    ragged attention check and the small training check on it, with
-    ``_fail`` made to print. A mutant must fail at least one check."""
+def raster_checks(dev):
+    """The rasterizer kernels against their plain versions at camera 0's
+    main-path tiles and at each edge case of ``tests/torch_helpers.edge_tiles``
+    (C = 1 and 3): what a rasterizer mutant has to get past."""
+    import types
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+    from tests.torch_helpers import EDGE_CASES, edge_tiles
+
+    cfg = load_config("configs/smoke_dynamics.json")
+    cfg.seed = SEED
+    rc = raster_config_from(cfg)
+    check_kernels(*main_path_tiles(cfg, smoke_scene(), synthetic_background(32768, dev), dev), rc)
+    for case in EDGE_CASES:
+        for c in (1, 3):
+            print(f"edge case {case}, C = {c}:")
+            packed, counts, gid, n, tiles_x = edge_tiles(case, c, seed=c)
+            check_kernels(*(torch.as_tensor(a, device=dev) for a in (packed, gid, counts)),
+                          tiles_x, n, types.SimpleNamespace(tile_x=16, tile_y=16, chunk=32))
+
+
+def run_mutants(groups=tuple(MUTANT_GROUPS)):
+    """``python3 chip_smoke.py mutants [GROUP]``: each mutant of the groups
+    (MUTANT_GROUPS: the attention backward's, the rasterizer's) in a copy of
+    the checkout under a temporary directory (all built in parallel), then
+    its group's checks on it, with ``_fail`` made to print. A mutant must
+    fail at least one check."""
     import shutil
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: the mutants run on an NVIDIA card")
     root = os.path.dirname(os.path.abspath(__file__))
+    mutants = {name: (edits, libs, check) for g in groups
+               for edits_by_name, libs, check in [MUTANT_GROUPS[g]]
+               for name, edits in edits_by_name.items()}
     with tempfile.TemporaryDirectory(prefix="fnx_mutants_") as tmp:
         procs = {}
-        for name, edits in BWD_MUTANTS.items():
+        for name, (edits, libs, _) in mutants.items():
             dst = os.path.join(tmp, name)
             shutil.copytree(root, dst, ignore=shutil.ignore_patterns(
                 "_build", "chiprun_out", "_checkout", ".git", "__pycache__"))
@@ -2877,12 +3044,12 @@ def run_mutants():
                     f.write(src.replace(old, new))
             procs[name] = subprocess.Popen(
                 [sys.executable, "-c", "from fluidnexus_torch.ops import cuda_build; "
-                 "cuda_build.build(['attention', 'attention_bwd'])"], cwd=dst)
+                 f"cuda_build.build({libs!r})"], cwd=dst)
         if any(p.wait() for p in procs.values()):
             _fail("a mutant did not build")
         survived = []
-        for name in BWD_MUTANTS:
-            out = subprocess.run([sys.executable, "-c", _MUTANT_CHECK], capture_output=True,
+        for name, (_, _, check) in mutants.items():
+            out = subprocess.run([sys.executable, "-c", check], capture_output=True,
                                  text=True, cwd=os.path.join(tmp, name))
             print(f"===== mutant {name} (rc {out.returncode})\n{out.stdout[-6000:]}"
                   f"{out.stderr[-1500:]}", flush=True)
@@ -2890,7 +3057,104 @@ def run_mutants():
                 survived.append(name)
     if survived:
         _fail(f"mutants that failed no check (or did not run): {survived}")
-    print(f"every mutant of {list(BWD_MUTANTS)} failed a check")
+    print(f"every mutant of {list(mutants)} failed a check")
+
+
+def _parent_rasterizer(parent, tmp):
+    """The rasterizer wrappers of another checkout (root ``parent``), loaded
+    as their own module and bound to that checkout's ``csrc/rasterizer.cu``,
+    built into ``tmp``. Returns (module, the nvcc process to wait for)."""
+    import importlib.util
+    import types
+    from fluidnexus_torch.ops import cuda_build
+
+    lib_path = os.path.join(tmp, "libparent_rasterizer.so")
+    proc = subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib_path,
+                             os.path.join(parent, "fluidnexus_torch/csrc/rasterizer.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    spec = importlib.util.spec_from_file_location(
+        "parent_rasterizer_cuda", os.path.join(parent, "fluidnexus_torch/ops/rasterizer_cuda.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    import ctypes
+    mod.cuda_build = types.SimpleNamespace(
+        load=lambda name: ctypes.CDLL(lib_path), check=cuda_build.check,
+        raise_on=cuda_build.raise_on, require_cuda=cuda_build.require_cuda)
+    return mod, proc
+
+
+def raster_time(parent=None):
+    """``python3 chip_smoke.py raster [PARENT]``: the rasterizer kernels alone
+    at camera 0's main-path tiles (the phase-A scene, without its fit): builds
+    ``rasterizer`` only, prints the tiles' count distribution and the
+    kernels' occupancy, holds each kernel against its plain version and
+    times it on the card beside its plain version and ``index_add_``. With
+    the root of another checkout as PARENT (a ``git archive`` of the parent
+    commit), that checkout's ``csrc/rasterizer.cu`` is built as well and its
+    three kernels are timed through its own wrappers in turns with this
+    checkout's (parent, this, this, parent) on the same inputs."""
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="fnx_raster_") as tmp:
+        pmod, proc = _parent_rasterizer(parent, tmp) if parent else (None, None)
+        for name, info in cuda_build.build(["rasterizer"]).items():
+            print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
+        if proc is not None:
+            log, _ = proc.communicate()
+            print(f"build of the parent's rasterizer.cu:\n{log.strip()}")
+            if proc.returncode != 0:
+                _fail("the parent's rasterizer.cu did not build")
+        cfg = load_config("configs/smoke_dynamics.json")
+        cfg.seed = SEED
+        rc = raster_config_from(cfg)
+        scene = smoke_scene()
+        bg = synthetic_background(32768, dev)
+        packed_t, tile_gauss, counts, tiles_x, n = main_path_tiles(cfg, scene, bg, dev)
+        print(f"camera 0 tiles: T {packed_t.shape[0]} K {packed_t.shape[1]} F {packed_t.shape[2]} "
+              f"live slots {int(counts.sum())}")
+        print(count_distribution(counts, rc.tile_capacity))
+        px_share, group_share = drawn_share(packed_t, counts, tiles_x, rc.tile_x, rc.tile_y)
+        print(f"live slots draw on {100 * px_share:.1f} % of their (slot, pixel) pairs and on some "
+              f"pixel of {100 * group_share:.1f} % of their (slot, 64-pixel warp group) pairs")
+        print(f"rasterizer kernels (registers, shared bytes, threads, blocks per SM): "
+              f"{tc.occupancy(packed_t.shape[2] - 7, rc.tile_x, rc.tile_y)}")
+        errors, saved = check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
+        times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
+        raster_entries(times, live_slots, errors, {k: 0 for k in times}, 1)
+        if pmod is None:
+            return
+        tx, ty = rc.tile_x, rc.tile_y
+        g = (saved["gacc"], saved["gft"], saved["ft"], saved["ckpt"])
+        dpk_parent = pmod.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
+        dpk_this = tc.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
+        scale = dpk_parent.abs().amax((0, 1)).clamp_min(1e-30)
+        print("composite_bwd this against the parent, max|diff| / max|parent| per field: "
+              + ", ".join(f"{v:.2e}" for v in ((dpk_this - dpk_parent).abs().amax((0, 1))
+                                               / scale).tolist()))
+        calls = {
+            "composite_fwd": ("composite_fwd_kernel",
+                              lambda m: m.composite_fwd(packed_t, counts, tiles_x, tx, ty)),
+            "composite_bwd": ("composite_bwd_kernel",
+                              lambda m: m.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)),
+            "combine_rows": ("combine_kernel",
+                             lambda m: m.combine_rows(saved["dpk"], tile_gauss, counts, n))}
+        for name, (kernel, call) in calls.items():
+            row = []
+            for who, m in (("parent", pmod), ("this", tc), ("this", tc), ("parent", pmod)):
+                fn = lambda: call(m)  # noqa: E731
+                ms, rec = kernel_device_ms(fn, kernel)
+                others = [nm for nm in device_kernels(fn) if kernel not in nm]
+                extra = sum(kernel_device_ms(fn, nm)[0] for nm in others)
+                row.append(f"{who} {ms:.4f} ({rec}) + {extra:.4f} in {len(others)} other kernels")
+            print(f"{name} on the card, ms per call in turns: {', '.join(row)}")
 
 
 def encode_probe():
@@ -3058,8 +3322,8 @@ def attention_bwd_time():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["mutants"]:
-        run_mutants()
+    if sys.argv[1:2] == ["mutants"] and set(sys.argv[2:]) <= set(MUTANT_GROUPS):
+        run_mutants(tuple(sys.argv[2:]) or tuple(MUTANT_GROUPS))
     elif sys.argv[1:] == ["encode-probe"]:
         encode_probe()
     elif sys.argv[1:] == ["attention-time"]:
@@ -3068,5 +3332,7 @@ if __name__ == "__main__":
         attention_bwd_time()
     elif sys.argv[1:] == ["tick-flips"]:
         tick_flips()
+    elif sys.argv[1:2] == ["raster"] and len(sys.argv) <= 3:
+        raster_time(*sys.argv[2:])
     else:
         main()

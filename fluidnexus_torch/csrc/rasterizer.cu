@@ -7,7 +7,8 @@
 //   packed (T, K, F) f32, F = 7 + C, rows [x y | ca cb cc | opacity | color(C) | depth],
 //     tile t's slots front to back by depth; slot s is live iff s < counts[t].
 //   P = tile_x * tile_y pixels per tile, row-major over (tile_y, tile_x);
-//     one block per tile, one thread per pixel.
+//     one block per tile (the forward a thread per pixel, the backward a
+//     thread per BWD_PPT adjacent pixels, the combine 128 threads).
 //
 // Semantics (those of fluidnexus_tpu/ops/rasterizer.py:_composite_tiles):
 //   power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy, dx = x - px, dy = y - py,
@@ -29,8 +30,35 @@ constexpr float T_MIN = 1e-4f;
 constexpr float MEDIAN_DEFAULT = 15.0f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__device__ __forceinline__ float splat_power(const float* r, float dx, float dy) {
-  return -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+// A slot's alpha at pixel (px, py); ok is false where the slot is skipped. The forward
+// and the backward's re-sweep both take it from here, and every step names
+// its rounding (the fused multiply-adds are written out, none is left for
+// the compiler to choose, which it could do differently in the two kernels),
+// so the backward's T is bit-identical to the forward's.
+__device__ __forceinline__ float splat_alpha(const float* r, float px, float py, bool& ok) {
+  const float dx = __fsub_rn(r[0], px);
+  const float dy = __fsub_rn(r[1], py);
+  const float quad = __fmaf_rn(__fmul_rn(r[2], dx), dx, __fmul_rn(__fmul_rn(r[4], dy), dy));
+  const float power = __fmaf_rn(-0.5f, quad, -__fmul_rn(__fmul_rn(r[3], dx), dy));
+  const float a = fminf(ALPHA_MAX, __fmul_rn(r[5], expf(power)));
+  ok = !(power > 0.0f || a < ALPHA_MIN);
+  return a;
+}
+
+// T after a slot of alpha a.
+__device__ __forceinline__ float transmit(float T, float a) { return __fmul_rn(T, __fsub_rn(1.0f, a)); }
+
+// The first N floats of a row in shared memory (16-byte aligned), as float4 loads.
+template <int N>
+__device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const float4 v = reinterpret_cast<const float4*>(src)[k];
+    r[4 * k] = v.x;
+    r[4 * k + 1] = v.y;
+    r[4 * k + 2] = v.z;
+    r[4 * k + 3] = v.w;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -79,12 +107,10 @@ __global__ void composite_fwd_kernel(const float* __restrict__ packed, const int
       const int s = b0 + j;
       if (s % CKPT == 0) ckpt[((size_t)t * nck + s / CKPT) * P + i] = T;
       const float* r = rows + j * F;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = splat_power(r, dx, dy);
-      const float a = fminf(ALPHA_MAX, r[5] * expf(power));
-      if (power > 0.0f || a < ALPHA_MIN) continue;
-      const float t_after = T * (1.0f - a);
+      bool ok;
+      const float a = splat_alpha(r, px, py, ok);
+      if (!ok) continue;
+      const float t_after = transmit(T, a);
       if (T >= T_MIN) {
         const float w = a * T;
 #pragma unroll
@@ -109,119 +135,335 @@ __global__ void composite_fwd_kernel(const float* __restrict__ packed, const int
 //
 // Emits the per-slot packed gradient [dxy | dconic | dop | dcolor | 0] of
 // _bwd_one: no gradient through depth or order, none through the alpha clamp
-// at .99, dop = da * raw / op, and the gT * T_final term.
+// at .99, dop = da * raw / op, and the gT * T_final term. Dead slots and the
+// depth column are written as 0 by the kernel itself.
 //
 // Bound on the H100: by operations, like the forward, plus one reduction of
-// 6 + C values over the P pixels for every live slot. The design walks the
-// live prefix back to front one checkpoint window at a time: it recomputes
-// the window's T before each slot front to back from the saved checkpoint
-// (bit-identical to the forward, since the same products are taken in the
-// same order), keeps them in shared memory, then goes back through the
-// window carrying the suffix colour mass. Each slot's gradient is reduced
-// over the pixels with warp shuffles into shared memory, and the warps'
-// partial sums are added once per window: no global atomics per pixel.
+// G = 6 + C values over the P pixels for every live slot. The design walks
+// the live prefix back to front one checkpoint window at a time, and each
+// window back to front in parts of BWD_SUB slots. A re-sweep recomputes each
+// (slot, pixel)'s alpha and the T before it, front to back from the
+// forward's checkpoint (bit-identical to the forward: splat_alpha is shared
+// and names its rounding), and keeps both in shared memory for one part; the
+// back pass reads them. A window's first part is swept twice (once to reach
+// the second part's T), so a (slot, pixel) takes 1.5 exps on average: with
+// the whole window kept (one exp) the 64 KB of state leaves 3 blocks an SM,
+// and the kernel ran 1.2 times slower. A warp skips the slots that a test
+// of its pixel box (may_draw) rules out. Each thread owns BWD_PPT adjacent
+// pixels and sums their share of a slot in registers first.
+// The geometry gradients come from six moments of dpower in dx, dy (never in
+// px, py: those monomials cancel in f32), so a slot's pixel sums are G plain
+// sums: S0 = sum dp, Sx, Sy, Sxx, Sxy, Syy (dp times dx, dy, dx^2, dx dy,
+// dy^2), and sum w g_c. A warp reduces them with a transposing halving (each
+// level a lane keeps half the open sums and adds its partner's copy: 12
+// shuffles at G = 9, not 5 G), stores one partial per warp, and a warp whose
+// pixels all skip a slot stores zeros without computing. The window's
+// gradient rows are formed from the warps' partials, summed in warp order
+// (deterministic), and written once. The tiles run heaviest first, in an
+// order tile_order_kernel builds from counts just before, so the 512-slot
+// tiles do not trail the grid. The order lives in one buffer of the library
+// (g_tile_order), so backward launches on two streams at once would race
+// on it; the port launches on one stream.
 // ---------------------------------------------------------------------------
+constexpr int BWD_PPT = 2;            // adjacent pixels a thread owns in the backward
+constexpr int BWD_SUB = 16;           // slots of a window whose T and alpha it keeps at once
+constexpr int MAX_BWD_P = 512;        // its shared state is BWD_SUB * P * 8 bytes
+constexpr int MAX_TILES = 1 << 16;    // tiles the order buffer holds (4096 x 4096 at 16 x 16)
+constexpr int ORDER_THREADS = 1024;   // tile_order_kernel's block, one count bucket a thread
+
+__device__ int g_tile_order[MAX_TILES];
+
+// Tiles by descending live count (counts quantised to ORDER_THREADS
+// buckets; within a bucket in no fixed order). One block: a histogram, an
+// exclusive scan from the heaviest bucket, a scatter.
+__global__ void tile_order_kernel(const int* __restrict__ counts, int T, int K) {
+  __shared__ int start[ORDER_THREADS];
+  const int b = threadIdx.x;
+  start[b] = 0;
+  __syncthreads();
+  for (int t = b; t < T; t += ORDER_THREADS) {
+    const int c = min(max(counts[t], 0), K);
+    atomicAdd(&start[ORDER_THREADS - 1 - (int)((long long)c * ORDER_THREADS / (K + 1))], 1);
+  }
+  __syncthreads();
+  for (int off = 1; off < ORDER_THREADS; off <<= 1) {  // inclusive scan
+    const int v = b >= off ? start[b - off] : 0;
+    __syncthreads();
+    start[b] += v;
+    __syncthreads();
+  }
+  const int mine = b ? start[b - 1] : 0;
+  __syncthreads();
+  start[b] = mine;  // exclusive: the bucket's first position
+  __syncthreads();
+  for (int t = b; t < T; t += ORDER_THREADS) {
+    const int c = min(max(counts[t], 0), K);
+    const int bucket = ORDER_THREADS - 1 - (int)((long long)c * ORDER_THREADS / (K + 1));
+    g_tile_order[atomicAdd(&start[bucket], 1)] = t;
+  }
+}
+
+// Transposing sum across the warp of M values a lane holds: at each level
+// (lane offset O) the lanes without bit O keep the first half of the open
+// sums and the others the second half, each adding its partner's copy, so a
+// level costs ceil(M / 2) shuffles. After the five levels a lane holds the
+// whole warp's sum of one value: the one bwd_field() names, if valid.
+template <int M, int O>
+struct WarpHalve {
+  static __device__ __forceinline__ float run(const float (&v)[M]) {
+    constexpr int H = (M + 1) / 2;
+    const bool up = threadIdx.x & O;
+    float u[H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float lo = v[i];
+      const float hi = H + i < M ? v[H + i] : 0.0f;
+      u[i] = (up ? hi : lo) + __shfl_xor_sync(FULL_MASK, up ? lo : hi, O);
+    }
+    return WarpHalve<H, O / 2>::run(u);
+  }
+};
+template <int M>
+struct WarpHalve<M, 0> {
+  static __device__ __forceinline__ float run(const float (&v)[M]) { return v[0]; }
+};
+
+// Which of the M values WarpHalve<M, 16> leaves in this lane, or -1: the
+// split at each level follows the array sizes, and a lane whose kept half
+// holds only padding keeps no value.
+template <int M>
+__device__ __forceinline__ int bwd_field(int lane) {
+  int off = 0, real = M, size = M;
+  for (int o = 16; o > 0; o >>= 1) {
+    const int h = (size + 1) / 2;
+    if (lane & o) {
+      off += h;
+      real -= h;
+    } else {
+      real = min(real, h);
+    }
+    size = h;
+  }
+  return real >= 1 ? off : -1;
+}
+
+// Whether the slot of row r may draw (alpha >= 1/255, as splat_alpha takes
+// it) on any pixel of the box [x0, x1] x [y0, y1]. False only where that is
+// ruled out with room to spare: the least of the positive definite form
+// ca dx^2 + 2 cb dx dy + cc dy^2 over the box (0 at the centre, else on an
+// edge at the clamped stationary point), with a slack of 1e-5 of the form's
+// largest terms, which is ~100 times the f32 rounding of this test and of
+// splat_alpha's own power together.
+__device__ bool may_draw(const float* r, float x0, float x1, float y0, float y1) {
+  const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
+  if (!(ca > 0.0f && cc > 0.0f && ca * cc > cb * cb && op > 0.0f)) return !(op <= 0.0f);
+  const float dxl = r[0] - x1, dxh = r[0] - x0, dyl = r[1] - y1, dyh = r[1] - y0;
+  auto form = [&](float dx, float dy) { return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy; };
+  float qmin = 0.0f;
+  if (!(dxl <= 0.0f && dxh >= 0.0f && dyl <= 0.0f && dyh >= 0.0f)) {
+    const float xs[2] = {dxl, dxh}, ys[2] = {dyl, dyh};
+    qmin = 3e38f;
+    for (int k = 0; k < 2; ++k) {
+      qmin = fminf(qmin, form(xs[k], fminf(fmaxf(-cb * xs[k] / cc, dyl), dyh)));
+      qmin = fminf(qmin, form(fminf(fmaxf(-cb * ys[k] / ca, dxl), dxh), ys[k]));
+    }
+  }
+  const float m = fmaxf(fmaxf(fabsf(dxl), fabsf(dxh)), fmaxf(fabsf(dyl), fabsf(dyh)));
+  const float slack = 1e-5f * ((ca + cc + 2.0f * fabsf(cb)) * m * m + 1.0f);
+  return !(-0.5f * qmin + slack < logf(ALPHA_MIN / op));
+}
+
 template <int C>
-__global__ void composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
-                                     const float* __restrict__ gacc, const float* __restrict__ gft,
-                                     const float* __restrict__ final_t, const float* __restrict__ ckpt,
-                                     float* __restrict__ dpacked,
-                                     int K, int tiles_x, int tile_x, int tile_y) {
+__global__ void __launch_bounds__(MAX_BWD_P / BWD_PPT)
+composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
+                     const float* __restrict__ gacc, const float* __restrict__ gft,
+                     const float* __restrict__ final_t, const float* __restrict__ ckpt,
+                     float* __restrict__ dpacked, int K, int tiles_x, int tile_x, int tile_y) {
   constexpr int F = 7 + C;
-  constexpr int G = 6 + C;  // reduced fields: dx dy dca dcb dcc dop dcolor(C)
-  extern __shared__ float smem[];
-  const int t = blockIdx.x;
-  const int P = blockDim.x;
+  constexpr int FP = (F + 3) / 4 * 4;  // a row's stride in shared memory, float4-aligned
+  constexpr int G = 6 + C;             // S0 Sx Sy Sxx Sxy Syy | sum w g_c
+  static_assert(BWD_PPT == 2, "the state layout below packs two pixels a float4");
+  static_assert(CKPT % BWD_SUB == 0, "a window is kept in whole parts");
+  extern __shared__ float4 smem4[];
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
-  const int nwarps = P >> 5;
-  float* rows = smem;                        // [CKPT][F]
-  float* part = rows + CKPT * F;             // [CKPT][nwarps][G]
-  float* t_before = part + CKPT * nwarps * G;  // [CKPT][P]
+  const int P = nthreads * BWD_PPT;
+  float4* state = smem4;                                           // [BWD_SUB][nthreads]: T, a a pixel
+  float* rows = reinterpret_cast<float*>(state + BWD_SUB * nthreads);  // [CKPT][FP]
+  float* part = rows + CKPT * FP;                                  // [BWD_SUB][nwarps][G]
 
+  const int t = g_tile_order[blockIdx.x];
   const int cnt = counts[t];
+  float* out_tile = dpacked + (size_t)t * K * F;
+  for (int e = cnt * F + i; e < K * F; e += nthreads) out_tile[e] = 0.0f;
   if (cnt == 0) return;  // the whole block: counts[t] is uniform
-  const float px = (float)((t % tiles_x) * tile_x + i % tile_x);
-  const float py = (float)((t / tiles_x) * tile_y + i / tile_x);
+
   const int nck = (K + CKPT - 1) / CKPT;
   const float* tile_rows = packed + (size_t)t * K * F;
-
-  float g[C];
+  float px[BWD_PPT], py[BWD_PPT], g[BWD_PPT][C], g_t_term[BWD_PPT], suffix[BWD_PPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c) g[c] = gacc[((size_t)t * C + c) * P + i];
-  const float g_t_term = gft[(size_t)t * P + i] * final_t[(size_t)t * P + i];
-  float suffix = 0.0f;  // sum over later slots k of (color_k . g) * w_k
+  for (int q = 0; q < BWD_PPT; ++q) {
+    const int p = i * BWD_PPT + q;
+    px[q] = (float)((t % tiles_x) * tile_x + p % tile_x);
+    py[q] = (float)((t / tiles_x) * tile_y + p / tile_x);
+#pragma unroll
+    for (int c = 0; c < C; ++c) g[q][c] = gacc[((size_t)t * C + c) * P + p];
+    g_t_term[q] = gft[(size_t)t * P + p] * final_t[(size_t)t * P + p];
+    suffix[q] = 0.0f;  // sum over later slots k of (color_k . g) * w_k
+  }
+  const int field = bwd_field<G>(lane);
+  // the warp's pixels (64 consecutive ones) lie in this box
+  const int p0 = warp * 32 * BWD_PPT, p1 = p0 + 32 * BWD_PPT - 1;
+  const bool one_row = p0 / tile_x == p1 / tile_x;
+  const float box_x0 = (float)((t % tiles_x) * tile_x + (one_row ? p0 % tile_x : 0));
+  const float box_x1 = (float)((t % tiles_x) * tile_x + (one_row ? p1 % tile_x : tile_x - 1));
+  const float box_y0 = (float)((t / tiles_x) * tile_y + p0 / tile_x);
+  const float box_y1 = (float)((t / tiles_x) * tile_y + p1 / tile_x);
 
   for (int win = (cnt - 1) / CKPT; win >= 0; --win) {
     const int w0 = win * CKPT;
     const int nw = min(CKPT, cnt - w0);
-    __syncthreads();  // the previous window's rows and partial sums are consumed
-    for (int e = i; e < nw * F; e += P) rows[e] = tile_rows[(size_t)w0 * F + e];
-    __syncthreads();
-
-    float T = ckpt[((size_t)t * nck + win) * P + i];
-    for (int j = 0; j < nw; ++j) {
-      t_before[j * P + i] = T;
-      const float* r = rows + j * F;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = splat_power(r, dx, dy);
-      const float a = fminf(ALPHA_MAX, r[5] * expf(power));
-      if (!(power > 0.0f || a < ALPHA_MIN)) T *= 1.0f - a;
-    }
-
-    for (int j = nw - 1; j >= 0; --j) {
-      const float* r = rows + j * F;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power = splat_power(r, dx, dy);
-      const float raw = r[5] * expf(power);
-      const float a = fminf(ALPHA_MAX, raw);
-      const bool ok = !(power > 0.0f || a < ALPHA_MIN);
-      float v[G];
-#pragma unroll
-      for (int f = 0; f < G; ++f) v[f] = 0.0f;
-      if (ok) {
-        const float tb = t_before[j * P + i];
-        const float alive = tb >= T_MIN ? 1.0f : 0.0f;
-        float gdotcol = 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) gdotcol += r[6 + c] * g[c];
-        const float w = a * tb * alive;
-        if (raw < ALPHA_MAX) {
-          const float da = gdotcol * tb * alive - (suffix + g_t_term) / fmaxf(1.0f - a, 0.01f);
-          const float dpower = da * a;
-          v[0] = -dpower * (r[2] * dx + r[3] * dy);
-          v[1] = -dpower * (r[4] * dy + r[3] * dx);
-          v[2] = -0.5f * dpower * dx * dx;
-          v[3] = -dpower * dx * dy;
-          v[4] = -0.5f * dpower * dy * dy;
-          v[5] = da * (raw / fmaxf(r[5], 1e-20f));
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
-        suffix += gdotcol * w;
-      }
-      if (__any_sync(FULL_MASK, ok)) {
-#pragma unroll
-        for (int f = 0; f < G; ++f) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v[f] += __shfl_down_sync(FULL_MASK, v[f], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int f = 0; f < G; ++f) part[(j * nwarps + warp) * G + f] = v[f];
-      }
+    __syncthreads();  // the previous window's rows are consumed
+    for (int e = i; e < nw * F; e += nthreads) {
+      const int j = e / F;
+      rows[j * FP + (e - j * F)] = tile_rows[(size_t)w0 * F + e];
     }
     __syncthreads();
-    for (int e = i; e < nw * G; e += P) {
-      const int j = e / G;
-      const int f = e - j * G;
-      float s = 0.0f;
-      for (int wp = 0; wp < nwarps; ++wp) s += part[(j * nwarps + wp) * G + f];
-      dpacked[((size_t)t * K + w0 + j) * F + f] = s;  // depth column F-1 stays 0
+    // bit j: slot w0 + j may draw on one of this warp's pixels (lane j tests it)
+    const unsigned draws = __ballot_sync(
+        FULL_MASK, lane < nw && may_draw(rows + lane * FP, box_x0, box_x1, box_y0, box_y1));
+
+    // T at each part's start: the forward's checkpoint, then a sweep over the
+    // window's slots before the last part that keeps nothing else
+    constexpr int NPART = CKPT / BWD_SUB;
+    float Tp[NPART][BWD_PPT];
+#pragma unroll
+    for (int q = 0; q < BWD_PPT; ++q) Tp[0][q] = ckpt[((size_t)t * nck + win) * P + i * BWD_PPT + q];
+#pragma unroll
+    for (int pp = 1; pp < NPART; ++pp) {
+#pragma unroll
+      for (int q = 0; q < BWD_PPT; ++q) Tp[pp][q] = Tp[pp - 1][q];
+      if (pp * BWD_SUB >= nw) continue;
+      for (int j = (pp - 1) * BWD_SUB; j < pp * BWD_SUB; ++j) {
+        if (!(draws >> j & 1u)) continue;  // warp-uniform
+        float r[8];  // x y ca cb cc op
+        load_row(rows + j * FP, r);
+#pragma unroll
+        for (int q = 0; q < BWD_PPT; ++q) {
+          bool ok;
+          const float a = splat_alpha(r, px[q], py[q], ok);
+          if (ok) Tp[pp][q] = transmit(Tp[pp][q], a);
+        }
+      }
+    }
+
+    for (int sub = (nw - 1) / BWD_SUB; sub >= 0; --sub) {
+      const int s0 = sub * BWD_SUB;
+      const int ns = min(BWD_SUB, nw - s0);
+      // front to back: T before each slot and its alpha (0 where the slot is
+      // skipped), as the forward took them
+      float T[BWD_PPT];
+#pragma unroll
+      for (int pp = 0; pp < NPART; ++pp) {
+        if (pp == sub) {
+#pragma unroll
+          for (int q = 0; q < BWD_PPT; ++q) T[q] = Tp[pp][q];
+        }
+      }
+      for (int j = 0; j < ns; ++j) {
+        if (!(draws >> (s0 + j) & 1u)) {  // warp-uniform: no pixel of the warp draws
+          state[j * nthreads + i] = make_float4(T[0], 0.0f, T[1], 0.0f);
+          continue;
+        }
+        float r[8];
+        load_row(rows + (s0 + j) * FP, r);
+        float st[2 * BWD_PPT];
+#pragma unroll
+        for (int q = 0; q < BWD_PPT; ++q) {
+          bool ok;
+          const float a = splat_alpha(r, px[q], py[q], ok);
+          st[2 * q] = T[q];
+          st[2 * q + 1] = ok ? a : 0.0f;
+          if (ok) T[q] = transmit(T[q], a);
+        }
+        state[j * nthreads + i] = make_float4(st[0], st[1], st[2], st[3]);
+      }
+      __syncthreads();  // the previous part's partials are consumed
+
+      // back to front: each slot's pixel sums, reduced per warp
+      for (int j = ns - 1; j >= 0; --j) {
+        const float4 st = state[j * nthreads + i];
+        float r[FP];
+        load_row(rows + (s0 + j) * FP, r);
+        const float tb[BWD_PPT] = {st.x, st.z};
+        const float al[BWD_PPT] = {st.y, st.w};
+        float* slot_part = part + (j * nwarps + warp) * G;
+        if (!__any_sync(FULL_MASK, al[0] > 0.0f || al[1] > 0.0f)) {
+          if (field >= 0) slot_part[field] = 0.0f;
+          continue;
+        }
+        float s[G];
+#pragma unroll
+        for (int f = 0; f < G; ++f) s[f] = 0.0f;
+        // a = 0 (skipped) adds zeros and leaves the suffix as it is
+#pragma unroll
+        for (int q = 0; q < BWD_PPT; ++q) {
+          const float a = al[q];
+          const float tba = tb[q] >= T_MIN ? tb[q] : 0.0f;  // T before, masked once below 1e-4
+          float gdotcol = 0.0f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) gdotcol += r[6 + c] * g[q][c];
+          const float w = a * tba;
+          // 1 - a >= .01 wherever dp takes da: the reference's floor at .01
+          // only bites at the clamp
+          const float da = gdotcol * tba - __fdividef(suffix[q] + g_t_term[q], 1.0f - a);
+          // dpower; none through the clamp at .99 (there raw >= .99), and a == raw below it
+          const float dp = a < ALPHA_MAX ? da * a : 0.0f;
+          const float dx = r[0] - px[q];
+          const float dy = r[1] - py[q];
+          const float dpx = dp * dx;
+          const float dpy = dp * dy;
+          s[0] += dp;
+          s[1] += dpx;
+          s[2] += dpy;
+          s[3] += dpx * dx;
+          s[4] += dpx * dy;
+          s[5] += dpy * dy;
+#pragma unroll
+          for (int c = 0; c < C; ++c) s[6 + c] += w * g[q][c];
+          suffix[q] += gdotcol * w;
+        }
+        const float sum = WarpHalve<G, 16>::run(s);
+        if (field >= 0) slot_part[field] = sum;
+      }
+      __syncthreads();
+
+      // the part's gradient rows from the warps' partials, in warp order
+      for (int e = i; e < ns * F; e += nthreads) {
+        const int j = e / F;
+        const int f = e - j * F;
+        const float* r = rows + (s0 + j) * FP;
+        const float* pj = part + j * nwarps * G;
+        auto m = [&](int k) {
+          float acc = 0.0f;
+          for (int wp = 0; wp < nwarps; ++wp) acc += pj[wp * G + k];
+          return acc;
+        };
+        float v;
+        switch (f) {
+          case 0: v = -(r[2] * m(1) + r[3] * m(2)); break;   // dx
+          case 1: v = -(r[4] * m(2) + r[3] * m(1)); break;   // dy
+          case 2: v = -0.5f * m(3); break;                   // dca
+          case 3: v = -m(4); break;                          // dcb
+          case 4: v = -0.5f * m(5); break;                   // dcc
+          case 5: v = m(0) / fmaxf(r[5], 1e-20f); break;     // dop = sum da raw / op
+          default: v = f < 6 + C ? m(f) : 0.0f;              // dcolor; depth 0
+        }
+        out_tile[(size_t)(w0 + s0 + j) * F + f] = v;
+      }
     }
   }
 }
@@ -232,22 +474,45 @@ __global__ void composite_bwd_kernel(const float* __restrict__ packed, const int
 // _combine_kernel/combine_rows_rmw, the adjoint of the per-tile row gather
 // (the reference CUDA backward's atomicAdd).
 //
-// Bound on the H100: by bytes (F floats read and F atomics per live slot, no
-// arithmetic to speak of). One thread per slot; a dead slot reads only its
-// tile's count, never its row. The atomics land in L2, where the (N, F)
-// accumulator of a few MB stays resident.
+// Bound on the H100: by bytes (F floats read and added per live slot, no
+// arithmetic to speak of). One block per tile walks only the tile's live
+// prefix, which is one contiguous run of cnt * F floats of g: neighbouring
+// threads take neighbouring V-float pieces of it (V = 4, 2 or 1, the widest
+// that divides F) and add each with one vector atomic, so a row's adds land
+// in one or two sectors. The (N, F) accumulator of a few MB stays in L2.
 // ---------------------------------------------------------------------------
-__global__ void combine_kernel(const float* __restrict__ g, const long long* __restrict__ gid,
-                               const int* __restrict__ counts, float* __restrict__ out,
-                               int T, int K, int F) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)T * K) return;
-  const int t = (int)(e / K);
-  const int s = (int)(e - (long long)t * K);
-  if (s >= counts[t]) return;
-  const float* src = g + e * F;
-  float* dst = out + gid[e] * F;
-  for (int f = 0; f < F; ++f) atomicAdd(dst + f, src[f]);
+constexpr int COMBINE_THREADS = 128;
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using type = float4;
+};
+template <>
+struct Vec<2> {
+  using type = float2;
+};
+template <>
+struct Vec<1> {
+  using type = float;
+};
+
+template <int V>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine_kernel(const float* __restrict__ g, const long long* __restrict__ gid,
+               const int* __restrict__ counts, float* __restrict__ out, int K, int F) {
+  using VT = typename Vec<V>::type;
+  const int t = blockIdx.x;
+  const int per_row = F / V;
+  const int n = counts[t] * per_row;
+  const VT* src = reinterpret_cast<const VT*>(g + (size_t)t * K * F);
+  const long long* ids = gid + (size_t)t * K;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n; e += COMBINE_THREADS) {
+    const int s = e / per_row;
+    atomicAdd(reinterpret_cast<VT*>(out + ids[s] * F) + (e - s * per_row), src[e]);
+  }
 }
 
 template <typename Kernel>
@@ -257,6 +522,23 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 bool bad_tile(int P) { return P <= 0 || P % 32 != 0 || P > 1024; }
+bool bad_bwd_tile(int P) { return P <= 0 || P % (32 * BWD_PPT) != 0 || P > MAX_BWD_P; }
+
+size_t fwd_smem(int C, int P) { return (size_t)P * (7 + C) * sizeof(float); }
+
+size_t bwd_smem(int C, int P) {
+  const int nthreads = P / BWD_PPT;
+  return BWD_SUB * nthreads * sizeof(float4)
+         + (size_t)(CKPT * ((7 + C + 3) / 4 * 4) + BWD_SUB * (nthreads / 32) * (6 + C)) * sizeof(float);
+}
+
+// The widest vector of floats that divides a row and that g is aligned to.
+int combine_width(const float* g, int F) {
+  const unsigned long long addr = (unsigned long long)g;
+  if (F % 4 == 0 && addr % 16 == 0) return 4;
+  if (F % 2 == 0 && addr % 8 == 0) return 2;
+  return 1;
+}
 
 }  // namespace
 
@@ -264,13 +546,21 @@ extern "C" {
 
 int fnx_ckpt_interval() { return CKPT; }
 
+// The backward's limits: pixels a thread owns, most pixels a tile may have,
+// most tiles a launch may have.
+void fnx_bwd_limits(int* out) {
+  out[0] = BWD_PPT;
+  out[1] = MAX_BWD_P;
+  out[2] = MAX_TILES;
+}
+
 int fnx_composite_fwd(const float* packed, const int* counts, float* accum, float* final_t,
                       float* median, float* ckpt, int T, int K, int C, int tiles_x, int tile_x,
                       int tile_y, void* stream) {
   const int P = tile_x * tile_y;
   if (bad_tile(P)) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  const size_t smem = (size_t)P * (7 + C) * sizeof(float);
+  const size_t smem = fwd_smem(C, P);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (C) {
@@ -294,21 +584,24 @@ int fnx_composite_bwd(const float* packed, const int* counts, const float* gacc,
                       const float* final_t, const float* ckpt, float* dpacked, int T, int K, int C,
                       int tiles_x, int tile_x, int tile_y, void* stream) {
   const int P = tile_x * tile_y;
-  if (bad_tile(P)) return (int)cudaErrorInvalidValue;
+  if (bad_bwd_tile(P) || T > MAX_TILES) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  const size_t smem = (size_t)(CKPT * (7 + C) + CKPT * (P / 32) * (6 + C) + CKPT * P) * sizeof(float);
+  const int nthreads = P / BWD_PPT;
+  const size_t smem = bwd_smem(C, P);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
+  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, T, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   switch (C) {
     case 1:
       if ((err = allow_smem(composite_bwd_kernel<1>, smem)) != cudaSuccess) return (int)err;
-      composite_bwd_kernel<1><<<T, P, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt, dpacked,
-                                                  K, tiles_x, tile_x, tile_y);
+      composite_bwd_kernel<1><<<T, nthreads, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt,
+                                                         dpacked, K, tiles_x, tile_x, tile_y);
       break;
     case 3:
       if ((err = allow_smem(composite_bwd_kernel<3>, smem)) != cudaSuccess) return (int)err;
-      composite_bwd_kernel<3><<<T, P, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt, dpacked,
-                                                  K, tiles_x, tile_x, tile_y);
+      composite_bwd_kernel<3><<<T, nthreads, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt,
+                                                         dpacked, K, tiles_x, tile_x, tile_y);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -318,12 +611,55 @@ int fnx_composite_bwd(const float* packed, const int* counts, const float* gacc,
 
 int fnx_combine_rows(const float* g, const long long* gid, const int* counts, float* out, int T,
                      int K, int F, void* stream) {
-  const long long slots = (long long)T * K;
-  if (slots == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (slots + threads - 1) / threads;
-  combine_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(g, gid, counts, out, T, K, F);
+  if (T == 0 || K == 0 || F == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (combine_width(g, F)) {
+    case 4: combine_kernel<4><<<T, COMBINE_THREADS, 0, st>>>(g, gid, counts, out, K, F); break;
+    case 2: combine_kernel<2><<<T, COMBINE_THREADS, 0, st>>>(g, gid, counts, out, K, F); break;
+    default: combine_kernel<1><<<T, COMBINE_THREADS, 0, st>>>(g, gid, counts, out, K, F);
+  }
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, dynamic shared memory a block, threads a block and
+// resident blocks an SM of kernel `which` (0 forward, 1 backward, 2 the
+// combine at F = 7 + C, vectors as wide as an aligned g allows) at C
+// channels and P pixels a tile.
+int fnx_raster_occupancy(int which, int C, int P, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn;
+  int threads;
+  size_t smem = 0;
+  if (which == 0) {
+    if (bad_tile(P)) return (int)cudaErrorInvalidValue;
+    fn = C == 1 ? (const void*)composite_fwd_kernel<1> : (const void*)composite_fwd_kernel<3>;
+    threads = P;
+    smem = fwd_smem(C, P);
+  } else if (which == 1) {
+    if (bad_bwd_tile(P)) return (int)cudaErrorInvalidValue;
+    fn = C == 1 ? (const void*)composite_bwd_kernel<1> : (const void*)composite_bwd_kernel<3>;
+    threads = P / BWD_PPT;
+    smem = bwd_smem(C, P);
+  } else {
+    const int F = 7 + C;
+    fn = F % 4 == 0 ? (const void*)combine_kernel<4>
+                    : (F % 2 == 0 ? (const void*)combine_kernel<2> : (const void*)combine_kernel<1>);
+    threads = COMBINE_THREADS;
+  }
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return (int)err;
+  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return (int)err;
+  int blocks = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem)) != cudaSuccess)
+    return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)smem;
+  out[2] = threads;
+  out[3] = blocks;
+  return 0;
 }
 
 }  // extern "C"

@@ -27,6 +27,9 @@ import torch
 from fluidnexus_torch.ops import cuda_build
 
 CKPT = 32  # slots between the forward's saved transmittances (csrc/rasterizer.cu)
+BWD_PPT = 2  # adjacent pixels a thread of the backward kernel owns
+MAX_BWD_P = 512  # most pixels a tile may have in the backward (its shared state)
+MAX_TILES = 1 << 16  # most tiles a backward launch may have (its tile order)
 
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "combine_rows": 0}
 
@@ -48,8 +51,14 @@ def _lib():
     lib.fnx_composite_bwd.restype = i
     lib.fnx_combine_rows.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.fnx_combine_rows.restype = i
-    if lib.fnx_ckpt_interval() != CKPT:
-        raise RuntimeError("csrc/rasterizer.cu and rasterizer_cuda.CKPT disagree")
+    lib.fnx_bwd_limits.argtypes = [p]
+    lib.fnx_bwd_limits.restype = None
+    lib.fnx_raster_occupancy.argtypes = [i, i, i, p]
+    lib.fnx_raster_occupancy.restype = i
+    limits = (ctypes.c_int * 3)()
+    lib.fnx_bwd_limits(limits)
+    if lib.fnx_ckpt_interval() != CKPT or tuple(limits) != (BWD_PPT, MAX_BWD_P, MAX_TILES):
+        raise RuntimeError("csrc/rasterizer.cu and rasterizer_cuda's constants disagree")
     return lib
 
 
@@ -154,7 +163,11 @@ def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, til
     cuda_build.check(gft, "gft", torch.float32, (t, 1, p), dev)
     cuda_build.check(final_t, "final_t", torch.float32, (t, 1, p), dev)
     cuda_build.check(ckpt, "ckpt", torch.float32, (t, -(-k // CKPT), p), dev)
-    dpacked = torch.zeros((t, k, 7 + c), dtype=torch.float32, device=dev)
+    if p % (32 * BWD_PPT) or p > MAX_BWD_P or t > MAX_TILES:
+        raise ValueError(f"composite_bwd takes tiles of a multiple of {32 * BWD_PPT} pixels, at "
+                         f"most {MAX_BWD_P}, and at most {MAX_TILES} tiles: got {tile_x} x "
+                         f"{tile_y} and {t} tiles")
+    dpacked = torch.empty((t, k, 7 + c), dtype=torch.float32, device=dev)  # the kernel writes all
     err = _lib().fnx_composite_bwd(
         packed.data_ptr(), counts.data_ptr(), gacc.data_ptr(), gft.data_ptr(),
         final_t.data_ptr(), ckpt.data_ptr(), dpacked.data_ptr(), t, k, c, tiles_x, tile_x,
@@ -162,6 +175,19 @@ def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, til
     cuda_build.raise_on(err, "composite_bwd launch")
     LAUNCHES["composite_bwd"] += 1
     return dpacked
+
+
+def occupancy(c, tile_x, tile_y):
+    """{kernel: (registers a thread, dynamic shared bytes a block, threads a
+    block, resident blocks an SM)} at C channels and the tile size, as the
+    card reports them for the launches the wrappers make."""
+    out = {}
+    for which, name in enumerate(("composite_fwd_kernel", "composite_bwd_kernel", "combine_kernel")):
+        vals = (ctypes.c_int * 4)()
+        cuda_build.raise_on(_lib().fnx_raster_occupancy(which, c, tile_x * tile_y, vals),
+                            f"{name} occupancy")
+        out[name] = tuple(vals)
+    return out
 
 
 def combine_rows(g, gid, counts, n):

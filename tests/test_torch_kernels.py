@@ -12,7 +12,7 @@ import torch
 from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.ops import rasterizer as tr
 from fluidnexus_torch.ops import rasterizer_cuda as tc
-from tests.torch_helpers import cuda_device, packed_tiles  # noqa: F401
+from tests.torch_helpers import EDGE_CASES, cuda_device, edge_tiles, packed_tiles  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +41,96 @@ def test_kernels_match_plain_on_the_card(cuda_device, c):
     gid = torch.randint(0, 40, (6, 96), generator=gen, device=cuda_device)
     torch.testing.assert_close(tc.combine_rows(dpk, gid, cn, 40),
                                tc.combine_plain(dpk, gid, cn, 40), atol=1e-5, rtol=1e-5)
+
+
+def _leave_nan_block(shape, device):
+    """Frees a NaN-filled block of ``shape``: the caching allocator hands it
+    to the next allocation of that size, so an output the kernel must write
+    in full shows any element it left unwritten."""
+    x = torch.full(shape, float("nan"), device=device)
+    del x
+
+
+def _plain_grad(pk, cn, tiles_x, tx, ty, gacc, gft):
+    pk_g = pk.clone().requires_grad_(True)
+    a_p, f_p, _ = tc.composite_plain(pk_g, cn, tiles_x, tx, ty)
+    ((a_p * gacc).sum() + (f_p * gft).sum()).backward()
+    live = (torch.arange(pk.shape[1], device=pk.device)[None, :] < cn[:, None])[..., None]
+    return pk_g.grad * live, live
+
+
+def _assert_fields_close(dpk, ref):
+    for f in range(ref.shape[-1]):  # one scale per field, as chip_smoke.py holds it
+        torch.testing.assert_close(dpk[..., f], ref[..., f], rtol=0,
+                                   atol=1e-4 * float(ref[..., f].abs().max()), msg=f"field {f}")
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_kernels_at_edge_cases_match_plain(cuda_device, c, case):
+    """A full tile (K 512) and an empty one, counts off every multiple of 32
+    and 64, alphas at the .99 clamp, T crossing 1e-4 inside a window, one
+    Gaussian in 64 tiles and ids repeated inside a tile: each kernel against
+    its plain version; dead slots and the depth column of the gradient are 0
+    (written by the kernel into a NaN-filled block), and the combine never
+    reads the dead slots (NaN there)."""
+    packed, counts, gid, n, tiles_x = edge_tiles(case, c, seed=c)
+    pk, cn, gd = (torch.as_tensor(a, device=cuda_device) for a in (packed, counts, gid))
+    accum, ft, med, ckpt = tc.composite_fwd(pk, cn, tiles_x, 16, 16)
+    for a, b in zip((accum, ft, med), tc.composite_plain(pk, cn, tiles_x, 16, 16)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
+    gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
+    ref, live = _plain_grad(pk, cn, tiles_x, 16, 16, gacc, gft)
+    _leave_nan_block(pk.shape, cuda_device)
+    dpk = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, tiles_x, 16, 16)
+    assert not dpk[~live.expand_as(dpk)].any() and not dpk[..., -1].any()
+    _assert_fields_close(dpk, ref)
+    g = torch.where(live, dpk, torch.full_like(dpk, float("nan")))
+    out = tc.combine_rows(g, gd, cn, n)
+    out_p = tc.combine_plain(g, gd, cn, n)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5 * float(out_p.abs().max()))
+
+
+def test_combine_takes_unaligned_rows(cuda_device):
+    """Rows that start off a 16- or 8-byte boundary are added a float at a
+    time, F = 8 and F = 10 alike."""
+    for c in (1, 3):
+        packed, counts, gid, n, _ = edge_tiles("shared", c)
+        gd, cn = torch.as_tensor(gid, device=cuda_device), torch.as_tensor(counts, device=cuda_device)
+        g = torch.randn(packed.shape, device=cuda_device)
+        flat = torch.empty(g.numel() + 1, device=cuda_device)
+        g_off = flat[1:].view(g.shape).copy_(g)
+        out_p = tc.combine_plain(g, gd, cn, n)
+        torch.testing.assert_close(tc.combine_rows(g_off, gd, cn, n), out_p, rtol=0,
+                                   atol=1e-5 * float(out_p.abs().max()))
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8), (32, 16), (24, 8), (8, 4), (12, 8),
+                                  (32, 32)])
+def test_backward_at_each_tile_size(cuda_device, tile):
+    """The backward takes tiles of a multiple of 64 pixels up to 512 and
+    matches its plain version there; it raises on any other tile, which the
+    forward (multiples of 32 up to 1024) still takes."""
+    tx, ty = tile
+    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=5, tiles_x=3)
+    pk = torch.as_tensor(packed, device=cuda_device)
+    cn = torch.as_tensor(counts, device=cuda_device)
+    accum, ft, med, ckpt = tc.composite_fwd(pk, cn, 3, tx, ty)
+    for a, b in zip((accum, ft, med), tc.composite_plain(pk, cn, 3, tx, ty)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
+    gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
+    launches = tc.LAUNCHES["composite_bwd"]
+    if (tx * ty) % 64 or tx * ty > 512:
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty)
+        assert tc.LAUNCHES["composite_bwd"] == launches
+        return
+    ref, _ = _plain_grad(pk, cn, 3, tx, ty, gacc, gft)
+    _assert_fields_close(tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty), ref)
 
 
 def _scene(n, c, seed):

@@ -14,6 +14,7 @@ from fluidnexus_tpu.ops.rasterizer_pallas import combine_rows_rmw, composite_til
 from fluidnexus_torch.ops import rasterizer as tr
 from fluidnexus_torch.ops import rasterizer_cuda as tc
 from tests.test_rasterizer import make_camera, random_scene
+from tests.torch_helpers import EDGE_CASES, edge_tiles
 from tests.torch_helpers import packed_tiles as _packed_tiles
 
 
@@ -64,27 +65,45 @@ def test_build_tile_lists_matches_jax(seed):
     np.testing.assert_array_equal(gt.numpy()[live_t], np.asarray(gj)[live_t])
 
 
+def _composite_inputs(case, c):
+    """(packed, counts, tiles_x): the random tiles of ``packed_tiles`` or one
+    of the kernels' edge cases (``tests/torch_helpers.edge_tiles``)."""
+    if case == "random":
+        packed, counts, _ = _packed_tiles(c=c, seed=c)
+        return packed, counts, 2
+    # the shared Gaussian in 4 x 4 tiles here, not 8 x 8: the Pallas kernel
+    # takes power from expanded monomials (px^2, px py, ...), which lose
+    # digits as px grows (see packed_tiles). At 8 x 8 tiles (px to 128) its
+    # accum is 1.07e-4 from a float64 plain version, the f32 plain one 8.9e-8
+    # (c = 3, seed 3). The card tests hold the kernels at 8 x 8
+    packed, counts, _, _, tiles_x = edge_tiles(case, c, seed=c, shared_tiles_x=4)
+    return packed, counts, tiles_x
+
+
+@pytest.mark.parametrize("case", ("random",) + EDGE_CASES)
 @pytest.mark.parametrize("c", [1, 3])
-def test_composite_plain_matches_pallas(c):
-    packed, counts, live = _packed_tiles(c=c, seed=c)
-    gacc = np.random.default_rng(9).normal(size=(4, c, 256)).astype(np.float32)
-    gft = np.random.default_rng(10).normal(size=(4, 1, 256)).astype(np.float32)
+def test_composite_plain_matches_pallas(c, case):
+    packed, counts, tiles_x = _composite_inputs(case, c)
+    t, k, _ = packed.shape
+    live = (np.arange(k)[None, :] < counts[:, None]).astype(np.float32)
+    gacc = np.random.default_rng(9).normal(size=(t, c, 256)).astype(np.float32)
+    gft = np.random.default_rng(10).normal(size=(t, 1, 256)).astype(np.float32)
 
     def jf(pk):
-        acc, ft, med = composite_tiles_packed(pk, jnp.asarray(live), 2, 16, 16)
+        acc, ft, med = composite_tiles_packed(pk, jnp.asarray(live), tiles_x, 16, 16)
         return acc, ft, med
 
     (acc_j, ft_j, med_j), vjp = jax.vjp(jf, jnp.asarray(packed))
     (dpk_j,) = vjp((jnp.asarray(gacc), jnp.asarray(gft), jnp.zeros_like(med_j)))
 
     pk_t = _t(packed).requires_grad_(True)
-    acc_t, ft_t, med_t = tc.composite_plain(pk_t, _t(counts), 2, 16, 16, chunk=16)
+    acc_t, ft_t, med_t = tc.composite_plain(pk_t, _t(counts), tiles_x, 16, 16, chunk=16)
     for a, b in ((acc_t, acc_j), (ft_t, ft_j), (med_t, med_j)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-4)
     (acc_t * _t(gacc)).sum().add((ft_t * _t(gft)).sum()).backward()
     dpk_t = pk_t.grad.numpy()
     dpk_j = np.array(dpk_j)
-    dead = np.arange(64)[None, :] >= counts[:, None]
+    dead = np.arange(k)[None, :] >= counts[:, None]
     dpk_t[dead] = 0.0  # dead slots are never combined; JAX zeroes only whole blocks
     dpk_j[dead] = 0.0
     # one scale per field: the conic columns grow with dx^2 and would hide an
@@ -95,14 +114,25 @@ def test_composite_plain_matches_pallas(c):
                                    err_msg=f"packed field {f}")
 
 
-def test_combine_plain_matches_pallas():
+def _combine_inputs(case):
+    """(g, gid, counts, n): random rows, or the ids and counts of an edge
+    case with random rows of F = 10."""
     rng = np.random.default_rng(3)
-    t, k, n, f = 12, 32, 64, 10
-    cnt = rng.integers(0, k + 1, (t,)).astype(np.int32)
-    gid = np.stack([rng.permutation(n)[:k] for _ in range(t)]).astype(np.int32)
-    g = rng.normal(size=(t, k, f)).astype(np.float32)
-    live = np.arange(k)[None, :] < cnt[:, None]
-    ref = combine_rows_rmw(jnp.asarray(g * live[..., None]), jnp.asarray(gid),
+    if case == "random":
+        t, k, n, f = 12, 32, 64, 10
+        cnt = rng.integers(0, k + 1, (t,)).astype(np.int32)
+        gid = np.stack([rng.permutation(n)[:k] for _ in range(t)]).astype(np.int32)
+    else:
+        packed, cnt, gid, n, _ = edge_tiles(case, 3)
+        t, k, f = packed.shape
+    return rng.normal(size=(t, k, f)).astype(np.float32), gid, cnt, n
+
+
+@pytest.mark.parametrize("case", ("random",) + EDGE_CASES)
+def test_combine_plain_matches_pallas(case):
+    g, gid, cnt, n = _combine_inputs(case)
+    live = np.arange(g.shape[1])[None, :] < cnt[:, None]
+    ref = combine_rows_rmw(jnp.asarray(g * live[..., None]), jnp.asarray(gid, jnp.int32),
                            jnp.asarray(cnt), n)
     # dead rows carry garbage here: the port's combine must not read them
     out = tc.combine_plain(_t(g), _t(gid).long(), _t(cnt), n)

@@ -33,3 +33,67 @@ def packed_tiles(t=4, k=64, c=3, seed=0, tiles_x=2, tile=16):
     counts[0], counts[1] = k, 0
     live = (np.arange(k)[None, :] < counts[:, None]).astype(np.float32)
     return packed, counts, live
+
+
+EDGE_CASES = ("full", "clamp", "tmin", "shared")
+
+
+def edge_tiles(case, c=3, seed=0, shared_tiles_x=8):
+    """Packed tiles for the rasterizer kernels' edge cases, gathered from n
+    per-Gaussian rows: ``packed = rows[gid]``. Returns (packed (t, k, 7 + c),
+    counts (t,), gid (t, k) int64, n, tiles_x) as numpy; the tiles are 16 x
+    16 near the origin, as in ``packed_tiles``.
+
+    - ``full``: K 512, one tile at full capacity, one empty, counts 333 and
+      77 (no multiple of 32 or 64), faint splats (opacity 0.02-0.3) so that
+      T stays above 1e-4 deep into the full tile;
+    - ``clamp``: opacity 1 for every other Gaussian, centred on a pixel, so
+      alpha sits at the 0.99 clamp there;
+    - ``tmin``: flat splats (conic 0) of alpha 0.18-0.22 over the whole tile,
+      so T crosses 1e-4 inside the second checkpoint window (slot ~41 of 128)
+      at every pixel at once, well clear of 1e-4 at each slot;
+    - ``shared``: 8 x 8 tiles (the dup 8 x 8 spread; ``shared_tiles_x`` x
+      ``shared_tiles_x`` in general) holding one Gaussian in every tile, and
+      ids repeated inside a tile.
+    """
+    rng = np.random.default_rng(seed)
+    tiles_x, k, n = 2, 64, 80
+    counts = [64, 0, 45, 19]
+    if case == "full":
+        k, n, counts = 512, 700, [512, 0, 333, 77]
+    elif case == "tmin":
+        k, n, counts = 128, 150, [128, 0, 70, 41]
+    elif case == "shared":
+        tiles_x, k, n = shared_tiles_x, 32, 90
+        counts = list(rng.integers(1, k + 1, tiles_x * tiles_x))
+        counts[:3] = [k, 0, 31]
+    elif case != "clamp":
+        raise ValueError(case)
+    t = len(counts)
+    span_x, span_y = tiles_x * 16, -(-t // tiles_x) * 16
+    x = rng.uniform(-4, span_x + 4, n)
+    y = rng.uniform(-4, span_y + 4, n)
+    s = rng.uniform(0.05, 0.5, n)
+    conic = np.stack([s, rng.uniform(-0.3, 0.3, n) * s, s * rng.uniform(0.5, 1.5, n)], -1)
+    op = rng.uniform(0.1, 1.0, n)
+    if case == "full":
+        op = rng.uniform(0.02, 0.3, n)
+    elif case == "clamp":
+        x[::2], y[::2] = np.round(x[::2]), np.round(y[::2])
+        conic[::2] = [0.02, 0.0, 0.02]      # the centre and its 4 neighbours clamp
+        op[::2] = 1.0
+    elif case == "tmin":
+        conic = np.zeros((n, 3))   # alpha = opacity at every pixel
+        op = rng.uniform(0.18, 0.22, n)
+    elif case == "shared":
+        x[0], y[0], conic[0] = span_x / 2, span_y / 2, [4e-4, 0.0, 4e-4]
+    rows = np.concatenate([x[:, None], y[:, None], conic, op[:, None],
+                           rng.uniform(0, 1, (n, c)), rng.uniform(1, 5, (n, 1))], -1)
+    gid = np.stack([rng.choice(n, k, replace=False) for _ in range(t)])
+    if case == "shared":
+        gid[:, 0] = 0                       # one Gaussian in all 64 tiles
+        gid[:, 5:9] = gid[:, 4:5]           # and an id four more times inside a tile
+    packed = rows[gid]
+    packed[..., -1] = np.sort(packed[..., -1], 1)  # depth order within each tile
+    return (packed.astype(np.float32), np.asarray(counts, np.int32), gid.astype(np.int64), n,
+            tiles_x)
