@@ -8,12 +8,16 @@ profile a few of each (the card's busy share, host and device ms per
 
 Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
-``python3 chip_smoke.py mutants [attention|rasterizer]`` builds broken copies
-of the kernels (six of the attention backward: three of the mma.sync pair,
-three of the Hopper kernel; four of the rasterizer's backward and combine)
+``python3 chip_smoke.py mutants [attention|rasterizer|pairs]`` builds broken
+copies of the kernels (six of the attention backward: three of the mma.sync
+pair, three of the Hopper kernel; seven of the rasterizer: four of its
+backward and combine, three of its forward; two of the density's adjoint)
 and shows that each fails a check; ``python3 chip_smoke.py raster [PARENT]``
 checks and times the rasterizer kernels alone at camera 0's tiles (beside
-another checkout's, PARENT, in turns); ``python3 chip_smoke.py encode-probe`` tries the
+another checkout's, PARENT, in turns); ``python3 chip_smoke.py pairs
+[PARENT]`` does the same for the gas-loss density's adjoint at the first
+phase-C fit iteration's inputs, with its launch floor (every count 0);
+``python3 chip_smoke.py encode-probe`` tries the
 video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
 ``python3 chip_smoke.py attention-bwd`` checks the backward kernels at ragged
@@ -31,7 +35,9 @@ background splats that stand in for the stage-1 PLY.
 Phase A (``fit_first_frame``): configs/smoke_dynamics.json through the
 port's Config, with iterations_per_time_first cut from 1000 to 30; visual
 capacity 65 536 with the config's 500 + 550 live visual particles; 16 x 16
-tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8.
+tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8; then the
+stage entry's tile check on the card (``train`` refuses 8 x 4 tiles before
+any work) and 3 fit iterations at 32 x 32 tiles.
 
 Phase B (``stabilize_hidden``): the same config with init_hidden_delta 0.01,
 the reference operating point of tools/run_full_scale_recon.py (the Config
@@ -248,14 +254,71 @@ def main_path_tiles(cfg, scene, bg, device):
     return tl.packed.contiguous(), tl.gauss, tl.counts, tl.tiles_x, splats[0].shape[0]
 
 
+def bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def fwd_outputs(packed_t, counts, tiles_x, tx, ty, box_skip=True):
+    """composite_fwd with its outputs in NaN-filled blocks, so an element it
+    leaves unwritten shows."""
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from tests.torch_helpers import leave_nan_blocks
+
+    t, k, f = packed_t.shape
+    p = tx * ty
+    leave_nan_blocks(packed_t.device, (t, f - 7, p), (t, 1, p), (t, 1, p), (t, -(-k // tc.CKPT), p))
+    return tc.composite_fwd(packed_t, counts, tiles_x, tx, ty, box_skip=box_skip)
+
+
+def exact_skip_and_resweep(packed_t, counts, tiles_x, tx, ty, what):
+    """The forward's two exact claims, bit for bit: its box skip changes no
+    output (against the same kernel walking every live slot at every pixel:
+    accum, final T, median and the checkpoints of the live windows), and the
+    backward's re-sweep reaches, at the end of each live window, the T the
+    forward saved at the next window's start, and its final T after the last.
+    Returns the failures, each named with ``what``."""
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+
+    outs = fwd_outputs(packed_t, counts, tiles_x, tx, ty)
+    full = fwd_outputs(packed_t, counts, tiles_x, tx, ty, box_skip=False)
+    k = packed_t.shape[1]
+    nck = -(-k // tc.CKPT)
+    nwin = (counts.long() + tc.CKPT - 1) // tc.CKPT
+    live_win = torch.arange(nck, device=counts.device)[None, :] < nwin[:, None]  # (T, nck)
+    changed = [name for name, a, b in zip(("accum", "final_t", "median"), outs[:3], full[:3])
+               if not bits_equal(a, b)]
+    if not bits_equal(outs[3][live_win], full[3][live_win]):
+        changed.append("the checkpoints")
+    _, ft, _, ckpt = outs
+    gen = torch.Generator(device=packed_t.device).manual_seed(SEED)
+    g = [torch.randn(a.shape, generator=gen, device=a.device) for a in outs[:2]]
+    _, t_end = tc.composite_bwd(packed_t, counts, *g, ft, ckpt, tiles_x, tx, ty, resweep=True)
+    last = torch.arange(nck, device=counts.device)[None, :] == nwin[:, None] - 1
+    want = torch.where(last[..., None], ft, torch.cat([ckpt[:, 1:], ckpt[:, :1]], 1))
+    resweep_ok = bits_equal(t_end[live_win], want[live_win])
+    print(f"exact checks, {what}: the box skip changed {changed or 'no bit'} of the walk of every "
+          f"slot; the backward's re-sweep T at {int(live_win.sum())} window ends "
+          f"{'is' if resweep_ok else 'is NOT'} bit-identical to the forward's checkpoints and "
+          f"final T")
+    failures = [f"{what}: the box skip changed {changed}"] if changed else []
+    if not resweep_ok:
+        failures.append(f"{what}: the backward's re-sweep T differs from the forward's")
+    return failures
+
+
 def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
-    """Each kernel against its plain version on the same inputs; returns the
+    """Each kernel against its plain version on the same inputs, the
+    forward's outputs in NaN-filled blocks; the forward's skip and the
+    backward's re-sweep bit for bit (``exact_skip_and_resweep``). Returns the
     per-kernel errors and the tensors the timing phase reuses."""
     from fluidnexus_torch.ops import rasterizer_cuda as tc
 
     tx, ty = rc.tile_x, rc.tile_y
     gen = torch.Generator(device=packed_t.device).manual_seed(SEED)
-    accum, ft, med, ckpt = tc.composite_fwd(packed_t, counts, tiles_x, tx, ty)
+    exact_failures = exact_skip_and_resweep(packed_t, counts, tiles_x, tx, ty,
+                                            f"{packed_t.shape[0]} tiles of {tx} x {ty}")
+    accum, ft, med, ckpt = fwd_outputs(packed_t, counts, tiles_x, tx, ty)
     pk = packed_t.clone().requires_grad_(True)
     acc_p, ft_p, med_p = tc.composite_plain(pk, counts, tiles_x, tx, ty, rc.chunk)
     torch.cuda.synchronize()
@@ -302,7 +365,7 @@ def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
     print("kernel check: composite_bwd max|err| / max|g| per field [tol 1e-4 x max|g| of the field]: "
           + ", ".join(f"{n} {e:.3e} / {s:.3e}" for n, e, s in zip(fields, g_err, g_scale)))
     print(f"kernel check: combine_rows max|err| {comb_abs:.3e} rel {comb_rel:.3e} [tol 1e-5 rel]")
-    failures = [k for k, v in fwd_err.items() if not v <= 1e-4]
+    failures = exact_failures + [k for k, v in fwd_err.items() if not v <= 1e-4]
     if not med_flips_ok:
         failures.append("median flips")
     failures += [f"composite_bwd {n}" for n, e, s in zip(fields, g_err, g_scale) if not e <= 1e-4 * s]
@@ -331,6 +394,14 @@ def device_kernels(fn, calls=5):
         if names:
             return list(dict.fromkeys(names))
     return []
+
+
+def device_ms_with_others(fn, kernel):
+    """(device ms of ``kernel`` per call, records, device ms of the call's
+    other kernels, their count)."""
+    ms, rec = kernel_device_ms(fn, kernel)
+    others = [nm for nm in device_kernels(fn) if kernel not in nm]
+    return ms, rec, sum(kernel_device_ms(fn, nm)[0] for nm in others), len(others)
 
 
 def device_total_ms(fn, iters=20):
@@ -399,8 +470,12 @@ def time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
     # The bounds count the function's own inputs and outputs, over the live
     # slots only. The transmittance checkpoints are left out: they are this
     # design's way of carrying T from the forward to the backward.
+    # each composite C entry launches the tile order first: its time counts in the row
     fwd = lambda: tc.composite_fwd(packed_t, counts, tiles_x, tx, ty)
-    ms, rec = kernel_device_ms(fwd, "composite_fwd_kernel")
+    ms, rec, order_ms, n_other = device_ms_with_others(fwd, "composite_fwd_kernel")
+    print(f"composite_fwd: composite_fwd_kernel {ms:.4f} ms on the card, the call's {n_other} other "
+          f"kernel(s) {order_ms:.4f} ms")
+    ms += order_ms
     plain = cuda_ms(lambda: tc.composite_plain(packed_t, counts, tiles_x, tx, ty, rc.chunk), iters=3)
     # bytes: live rows + counts read; accum, final T, median written.
     # operations per (live slot, pixel): dx, dy 2, power 9, exp 1, op*exp 1,
@@ -412,12 +487,9 @@ def time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
 
     bwd = lambda: tc.composite_bwd(packed_t, counts, saved["gacc"], saved["gft"], saved["ft"],
                                    saved["ckpt"], tiles_x, tx, ty)
-    ms, rec = kernel_device_ms(bwd, "composite_bwd_kernel")
-    # the C entry launches the tile order first: its time counts in the row
-    others = [nm for nm in device_kernels(bwd) if "composite_bwd_kernel" not in nm]
-    order_ms = sum(kernel_device_ms(bwd, nm)[0] for nm in others)
-    print(f"composite_bwd: composite_bwd_kernel {ms:.4f} ms on the card, the call's other kernels "
-          f"{others} {order_ms:.4f} ms")
+    ms, rec, order_ms, n_other = device_ms_with_others(bwd, "composite_bwd_kernel")
+    print(f"composite_bwd: composite_bwd_kernel {ms:.4f} ms on the card, the call's {n_other} other "
+          f"kernel(s) {order_ms:.4f} ms")
     ms += order_ms
     pk = packed_t.clone().requires_grad_(True)
     acc_p, ft_p, _ = tc.composite_plain(pk, counts, tiles_x, tx, ty, rc.chunk)
@@ -654,8 +726,41 @@ def run_phase_a(dev):
     profile_run("fit iterations", lambda: fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None,
                                                           device="cuda"), PROFILE_ITERS, ms_iter)
 
+    tile_limit_checks(scene, bg)
     times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
     return raster_entries(times, live_slots, errors, launches, FIT_ITERS)
+
+
+def tile_limit_checks(scene, bg, iters=3):
+    """The card's tile limits at the stage entries: ``train`` refuses 8 x 4
+    tiles (32 pixels: the forward takes them, the backward does not) with
+    ValueError before any work, launching nothing; a short phase-A fit at
+    32 x 32 tiles (1 024 pixels, the most the backward takes) goes through
+    both kernels once an iteration with finite losses."""
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+
+    cfg = load_config("configs/smoke_dynamics.json")
+    cfg.seed = SEED
+    cfg.pipe.tile_x, cfg.pipe.tile_y = 8, 4
+    reset_all_launches()
+    try:
+        tp.train(cfg, scene, bg=bg, log=print, device="cuda")
+        _fail("train took 8 x 4 tiles on the card")
+    except ValueError as e:
+        print(f"train with 8 x 4 tiles on the card: ValueError before any work: {e}")
+    if any(all_launches().values()):
+        _fail(f"train launched kernels before refusing its tile: {all_launches()}")
+    cfg.pipe.tile_x = cfg.pipe.tile_y = 32
+    cfg.optim.iterations_per_time_first = iters
+    reset_all_launches()
+    _, _, losses = tp.fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
+    launches = all_launches()
+    print(f"phase A at 32 x 32 tiles, {iters} iterations: losses {losses.tolist()}, launches "
+          f"composite_fwd {launches['composite_fwd']} composite_bwd {launches['composite_bwd']}")
+    if not (torch.isfinite(losses).all() and launches["composite_fwd"] >= iters
+            and launches["composite_bwd"] == iters):
+        _fail("phase A at 32 x 32 tiles did not run through both kernels to finite losses")
 
 
 RASTER_SOURCES = {"composite_fwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:139",
@@ -1136,6 +1241,28 @@ def _candidates(nbr, cnt_c, cnt_n):
     return int((cnt_c[:rows].long() * cnt_n[nbr.long()].long().sum(1)).sum())
 
 
+def density_counts(d):
+    """What the gas-loss density's pair walk does at its arguments ``d``
+    (nbr, cnt, x, y, z, k): occupied rows, live slots, live candidate pairs,
+    pairs in radius (self included), and the bytes of its table (cnt and the
+    occupied rows' 27 neighbours)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, k = d[0], d[1], d[5]
+    rows = int((cnt[:-1] > 0).sum())
+    return dict(rows=rows, n_src=int(cnt.sum()), cand=_candidates(nbr, cnt, cnt),
+                in_radius=int(pc.phase1_plain(nbr, cnt, *d[2:5], torch.ones_like(d[2]), k)[4]),
+                table=4 * (cnt.numel() + 27 * rows))
+
+
+def density_bwd_work(dc):
+    """(bytes, operations) of the density's adjoint: the table, four planes
+    read and three written at the live slots; 9 operations a live candidate
+    pair and DENSITY_BWD_IN_RADIUS_OPS more a pair in radius."""
+    return (dc["table"] + 4 * dc["n_src"] * 7,
+            9 * dc["cand"] + DENSITY_BWD_IN_RADIUS_OPS * dc["in_radius"])
+
+
 def time_phase_c_kernels(inp):
     """Each phase-C kernel's device time, its plain version's time and its
     bound at the first fit iteration's inputs. No single PyTorch call
@@ -1144,12 +1271,12 @@ def time_phase_c_kernels(inp):
     from fluidnexus_torch.sim import splat_cuda as sc
 
     d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
-    nbr, cnt, k = d[0], d[1], d[5]
+    nbr, cnt = d[0], d[1]
     qnbr, qcnt, scnt, h = f[0], f[1], f[5], f[10]
-    n_src, n_q = int(cnt.sum()), int(qcnt.sum())
-    rows, qrows = int((cnt[:-1] > 0).sum()), int((qcnt[:-1] > 0).sum())
-    dens_cand = _candidates(nbr, cnt, cnt)
-    dens_in = int(pc.phase1_plain(nbr, cnt, *d[2:5], torch.ones_like(d[2]), k)[4])
+    dc = density_counts(d)
+    n_src, n_q = dc["n_src"], int(qcnt.sum())
+    rows, qrows = dc["rows"], int((qcnt[:-1] > 0).sum())
+    dens_cand, dens_in = dc["cand"], dc["in_radius"]
     splat_cand = _candidates(qnbr, qcnt, scnt)
     splat_in = sum(int(inside.sum()) for _, inside, _, _ in sc._two_set(
         qnbr, qcnt, f[2:5], scnt, f[6:9], h, int(qcnt.max()), int(scnt.max())))
@@ -1170,14 +1297,13 @@ def time_phase_c_kernels(inp):
           f"{len(src_rows)} source rows holding {n_src_reached} sources, the adjoint "
           f"{n_src_active} sources with a query in reach and {len(q_rows)} query rows "
           f"holding {n_q_reached} queries")
-    table = 4 * (cnt.numel() + 27 * rows)
+    table = dc["table"]
     qtable = 4 * (qcnt.numel() + 27 * qrows + len(src_rows))
     stable = 4 * (cnt.numel() + 27 * rows + len(q_rows))
     plans = {  # name: (wrapper, plain, args, bytes, operations)
         "density_fwd": (pc.density_slots, pc.density_plain, d, table + 4 * n_src * 4,
                         9 * dens_cand + DENSITY_IN_RADIUS_OPS * dens_in),
-        "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, b, table + 4 * n_src * 7,
-                        9 * dens_cand + DENSITY_BWD_IN_RADIUS_OPS * dens_in),
+        "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, b, *density_bwd_work(dc)),
         "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, f,
                       qtable + 4 * (n_q * 7 + n_src_reached * 6),
                       9 * splat_cand + SPLAT_FWD_IN_RADIUS_OPS * splat_in),
@@ -2979,6 +3105,20 @@ RASTER_MUTANTS = {
          "u[i] = (up ? hi : lo) + (O == 4 ? 0.0f : __shfl_xor_sync(FULL_MASK, up ? lo : hi, O));")],
     "combine_one_slot_short": [(RASTER_SRC, "const int n = counts[t] * per_row;",
                                 "const int n = (counts[t] - 1) * per_row;")],
+    "fwd_box_no_slack": [(RASTER_SRC, "const float slack = 1e-5f * ", "const float slack = 0.0f * ")],
+    "fwd_drops_second_pixel": [(RASTER_SRC, "if (!ok) continue;  // skipped: T as it was",
+                                "if (!ok || q == 1) continue;")],
+    "fwd_ignores_last_bucket": [(RASTER_SRC, "const int t = g_tile_order[blockIdx.x], cnt = counts[t];",
+                                 "const int t = g_tile_order[blockIdx.x], cnt = counts[t];\n"
+                                 "  if (cnt == 0) return;")],
+}
+PAIR_SRC = "fluidnexus_torch/csrc/pair_common.cuh"
+PAIRS_MUTANTS = {
+    "density_bwd_skips_neighbour_26": [
+        (PAIR_SRC, "n[q] = nb[q] < C ? cnt[nb[q]] : 0;",
+         "n[q] = nb[q] < C && sub * PER + q != 26 ? cnt[nb[q]] : 0;")],
+    "density_bwd_stages_one_short": [(PAIR_SRC, "const int c1 = min(c0 + CH, n_tot);",
+                                      "const int c1 = min(c0 + CH, n_tot) - 1;")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -2987,20 +3127,30 @@ import chip_smoke as cs
 cs._fail = lambda msg: print("FAIL:", str(msg)[:1500], flush=True)
 cs.raster_checks(torch.device("cuda"))
 """
+_PAIRS_MUTANT_CHECK = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs._fail = lambda msg: print("FAIL:", str(msg)[:1500], flush=True)
+cs.pairs_checks(torch.device("cuda"))
+"""
 # name: (mutants, the libraries they build, the checks they run)
 MUTANT_GROUPS = {"attention": (BWD_MUTANTS, ["attention", "attention_bwd"], _MUTANT_CHECK),
-                 "rasterizer": (RASTER_MUTANTS, ["rasterizer"], _RASTER_MUTANT_CHECK)}
+                 "rasterizer": (RASTER_MUTANTS, ["rasterizer"], _RASTER_MUTANT_CHECK),
+                 "pairs": (PAIRS_MUTANTS, ["pbf"], _PAIRS_MUTANT_CHECK)}
 
 
 def raster_checks(dev):
     """The rasterizer kernels against their plain versions at camera 0's
     main-path tiles and at each edge case of ``tests/torch_helpers.edge_tiles``
-    (C = 1 and 3): what a rasterizer mutant has to get past."""
+    (C = 1 and 3), and the forward's skip and the backward's re-sweep bit for
+    bit there and at ``threshold_tiles``: what a rasterizer mutant has to get
+    past."""
     import types
 
     from fluidnexus_torch.core.config import load_config
     from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
-    from tests.torch_helpers import EDGE_CASES, edge_tiles
+    from tests.torch_helpers import EDGE_CASES, edge_tiles, threshold_tiles
 
     cfg = load_config("configs/smoke_dynamics.json")
     cfg.seed = SEED
@@ -3012,6 +3162,14 @@ def raster_checks(dev):
             packed, counts, gid, n, tiles_x = edge_tiles(case, c, seed=c)
             check_kernels(*(torch.as_tensor(a, device=dev) for a in (packed, gid, counts)),
                           tiles_x, n, types.SimpleNamespace(tile_x=16, tile_y=16, chunk=32))
+    failures = []
+    for c in (1, 3):
+        packed, counts, tiles_x = threshold_tiles(c, seed=c)
+        failures += exact_skip_and_resweep(torch.as_tensor(packed, device=dev),
+                                           torch.as_tensor(counts, device=dev), tiles_x, 16, 16,
+                                           f"threshold tiles, C = {c}")
+    if failures:
+        _fail(f"the rasterizer's exact checks failed: {failures}")
 
 
 def run_mutants(groups=tuple(MUTANT_GROUPS)):
@@ -3060,27 +3218,45 @@ def run_mutants(groups=tuple(MUTANT_GROUPS)):
     print(f"every mutant of {list(mutants)} failed a check")
 
 
-def _parent_rasterizer(parent, tmp):
-    """The rasterizer wrappers of another checkout (root ``parent``), loaded
-    as their own module and bound to that checkout's ``csrc/rasterizer.cu``,
-    built into ``tmp``. Returns (module, the nvcc process to wait for)."""
+def _parent_module(parent, tmp, lib, module):
+    """The wrappers of another checkout (root ``parent``): its module
+    ``module`` (a path under the root) loaded as a module of its own and bound
+    to that checkout's ``fluidnexus_torch/csrc/<lib>.cu``, built into
+    ``tmp``. Returns (module, the nvcc process to wait for)."""
+    import ctypes
     import importlib.util
     import types
     from fluidnexus_torch.ops import cuda_build
 
-    lib_path = os.path.join(tmp, "libparent_rasterizer.so")
+    lib_path = os.path.join(tmp, f"libparent_{lib}.so")
     proc = subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib_path,
-                             os.path.join(parent, "fluidnexus_torch/csrc/rasterizer.cu")],
+                             os.path.join(parent, f"fluidnexus_torch/csrc/{lib}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    spec = importlib.util.spec_from_file_location(
-        "parent_rasterizer_cuda", os.path.join(parent, "fluidnexus_torch/ops/rasterizer_cuda.py"))
+    spec = importlib.util.spec_from_file_location(f"parent_{lib}_wrappers",
+                                                  os.path.join(parent, module))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    import ctypes
     mod.cuda_build = types.SimpleNamespace(
         load=lambda name: ctypes.CDLL(lib_path), check=cuda_build.check,
         raise_on=cuda_build.raise_on, require_cuda=cuda_build.require_cuda)
     return mod, proc
+
+
+def _wait_parent_build(proc, lib):
+    log, _ = proc.communicate()
+    print(f"build of the parent's {lib}.cu:\n{log.strip()}")
+    if proc.returncode != 0:
+        _fail(f"the parent's {lib}.cu did not build")
+
+
+def in_turns(name, kernel, call, pmod, this):
+    """``call(module)`` timed on the card for the parent's wrappers and this
+    checkout's in turns (parent, this, this, parent); prints the row."""
+    row = []
+    for who, m in (("parent", pmod), ("this", this), ("this", this), ("parent", pmod)):
+        ms, rec, extra, n_other = device_ms_with_others(lambda: call(m), kernel)
+        row.append(f"{who} {ms:.4f} ({rec}) + {extra:.4f} in {n_other} other kernels")
+    print(f"{name} on the card, ms per call in turns: {', '.join(row)}")
 
 
 def raster_time(parent=None):
@@ -3104,14 +3280,14 @@ def raster_time(parent=None):
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="fnx_raster_") as tmp:
-        pmod, proc = _parent_rasterizer(parent, tmp) if parent else (None, None)
-        for name, info in cuda_build.build(["rasterizer"]).items():
-            print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
+        pmod, proc = (_parent_module(parent, tmp, "rasterizer", "fluidnexus_torch/ops/rasterizer_cuda.py")
+                      if parent else (None, None))
+        try:
+            built = cuda_build.build(["rasterizer"])
+        except RuntimeError as e:  # the parent's kernels are still timed below
+            built = e
         if proc is not None:
-            log, _ = proc.communicate()
-            print(f"build of the parent's rasterizer.cu:\n{log.strip()}")
-            if proc.returncode != 0:
-                _fail("the parent's rasterizer.cu did not build")
+            _wait_parent_build(proc, "rasterizer")
         cfg = load_config("configs/smoke_dynamics.json")
         cfg.seed = SEED
         rc = raster_config_from(cfg)
@@ -3121,6 +3297,23 @@ def raster_time(parent=None):
         print(f"camera 0 tiles: T {packed_t.shape[0]} K {packed_t.shape[1]} F {packed_t.shape[2]} "
               f"live slots {int(counts.sum())}")
         print(count_distribution(counts, rc.tile_capacity))
+        tx, ty = rc.tile_x, rc.tile_y
+        if pmod is not None:  # the parent alone first, whatever this checkout's build did
+            p_acc, p_ft, _, p_ckpt = pmod.composite_fwd(packed_t, counts, tiles_x, tx, ty)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            pg = [torch.randn(a.shape, generator=gen, device=dev) for a in (p_acc, p_ft)]
+            for name, kernel, fn in (
+                    ("composite_fwd", "composite_fwd_kernel",
+                     lambda: pmod.composite_fwd(packed_t, counts, tiles_x, tx, ty)),
+                    ("composite_bwd", "composite_bwd_kernel",
+                     lambda: pmod.composite_bwd(packed_t, counts, *pg, p_ft, p_ckpt, tiles_x, tx, ty))):
+                ms, rec, extra, n_other = device_ms_with_others(fn, kernel)
+                print(f"parent alone: {name} {ms:.4f} ms on the card ({rec}) + {extra:.4f} in "
+                      f"{n_other} other kernels")
+        if isinstance(built, RuntimeError):
+            raise built
+        for name, info in built.items():
+            print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
         px_share, group_share = drawn_share(packed_t, counts, tiles_x, rc.tile_x, rc.tile_y)
         print(f"live slots draw on {100 * px_share:.1f} % of their (slot, pixel) pairs and on some "
               f"pixel of {100 * group_share:.1f} % of their (slot, 64-pixel warp group) pairs")
@@ -3131,7 +3324,6 @@ def raster_time(parent=None):
         raster_entries(times, live_slots, errors, {k: 0 for k in times}, 1)
         if pmod is None:
             return
-        tx, ty = rc.tile_x, rc.tile_y
         g = (saved["gacc"], saved["gft"], saved["ft"], saved["ckpt"])
         dpk_parent = pmod.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
         dpk_this = tc.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
@@ -3147,14 +3339,121 @@ def raster_time(parent=None):
             "combine_rows": ("combine_kernel",
                              lambda m: m.combine_rows(saved["dpk"], tile_gauss, counts, n))}
         for name, (kernel, call) in calls.items():
-            row = []
-            for who, m in (("parent", pmod), ("this", tc), ("this", tc), ("parent", pmod)):
-                fn = lambda: call(m)  # noqa: E731
-                ms, rec = kernel_device_ms(fn, kernel)
-                others = [nm for nm in device_kernels(fn) if kernel not in nm]
-                extra = sum(kernel_device_ms(fn, nm)[0] for nm in others)
-                row.append(f"{who} {ms:.4f} ({rec}) + {extra:.4f} in {len(others)} other kernels")
-            print(f"{name} on the card, ms per call in turns: {', '.join(row)}")
+            in_turns(name, kernel, call, pmod, tc)
+
+
+def pairs_time(parent=None):
+    """``python3 chip_smoke.py pairs [PARENT]``: the gas-loss density's
+    adjoint (row 9 of PERF.md's kernel table) alone at the first phase-C fit
+    iteration's inputs, made as ``train`` makes them (phases A and B, frame
+    1's simulation; the rasterizer, pbf and splat libraries are built for
+    that). Prints the
+    hidden grid's live cells, live candidate and in-radius pairs and the
+    neighbourhood lists' lengths, the kernel against its plain version (dx
+    into a NaN-filled block), its time on the card beside its bound, and its
+    launch floor: the same kernel on the same (C+1) x M grid with every count
+    0. With the root of another checkout as PARENT (a ``git archive`` of the
+    parent commit), that checkout's ``csrc/pbf.cu`` is built as well, timed
+    alone, held against this one's, and both are timed in turns (parent,
+    this, this, parent), floors included."""
+    from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="fnx_pairs_") as tmp:
+        pmod, proc = (_parent_module(parent, tmp, "pbf", "fluidnexus_torch/sim/pbf_cuda.py")
+                      if parent else (None, None))
+        for name, info in cuda_build.build(["rasterizer", "pbf", "splat"]).items():
+            print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
+        if proc is not None:
+            _wait_parent_build(proc, "pbf")
+        cfg = phase_c_config()
+        scene = smoke_scene()
+        bg = synthetic_background(32768, dev)
+        render_ground_truth(cfg, scene, bg, dev)
+        b = first_iteration_inputs(phase_c_start(cfg, scene, bg, dev))["density_bwd"]
+        nbr, cnt, g = b[0], b[1], b[5]
+        dc = density_counts(b[:5] + b[6:])
+        lists = cnt[nbr.long()].sum(1)[cnt[:-1] > 0].float()
+        print(f"row 9's inputs: C {nbr.shape[0]} M {b[2].shape[1]}, {dc['rows']} live cells, "
+              f"{dc['n_src']} live slots (fullest cell {int(cnt.max())}), {dc['cand']} live "
+              f"candidate pairs, {dc['in_radius']} in radius (self included); a live cell's "
+              f"neighbourhood holds {float(lists.mean()):.1f} live slots on average, at most "
+              f"{int(lists.max())}")
+        floor_args = (nbr, torch.zeros_like(cnt)) + tuple(b[2:])
+        if pmod is not None:
+            for what, args in (("the kernel", b), ("its launch floor", floor_args)):
+                ms, rec = kernel_device_ms(lambda: pmod.density_bwd_slots(*args), "density_bwd_kernel")
+                print(f"parent alone: density_bwd {what} {ms:.4f} ms on the card ({rec})")
+        leave_nan_blocks(dev, tuple(b[2].shape) + (3,))
+        got = pc.density_bwd_slots(*b)
+        want = pc.density_bwd_plain(*b)
+        live = pc._live(cnt, b[2].shape[1])[..., None].expand_as(got)
+        err = float((got - want)[live].abs().max())
+        scale = float(want[live].abs().max())
+        dead_zero = not bool(got[~live].any())
+        print(f"density_bwd dpi/dx max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x scale], dead "
+              f"slots 0: {dead_zero}")
+        if not (err <= 1e-4 * scale and dead_zero):
+            _fail("density_bwd disagrees with its plain version")
+        b_ms, b_by = bound_ms(*density_bwd_work(dc))
+        ms, rec = kernel_device_ms(lambda: pc.density_bwd_slots(*b), "density_bwd_kernel")
+        floor, floor_rec = kernel_device_ms(lambda: pc.density_bwd_slots(*floor_args),
+                                            "density_bwd_kernel")
+        print(f"density_bwd {ms:.4f} ms on the card ({rec}), launch floor (every count 0) "
+              f"{floor:.4f} ms ({floor_rec}), bound {b_ms:.5f} ms by {b_by}")
+        if pmod is None:
+            return
+        theirs = pmod.density_bwd_slots(*b)
+        print(f"density_bwd this against the parent: max|diff| {float((got - theirs).abs().max()):.3e}, "
+              f"bit-identical {bits_equal(got, theirs)}")
+        for what, args in (("density_bwd", b), ("density_bwd launch floor", floor_args)):
+            in_turns(what, "density_bwd_kernel", lambda m, a=args: m.density_bwd_slots(*a), pmod, pc)
+
+
+def pairs_checks(dev):
+    """density_bwd against its plain version (dx into a NaN-filled block) at
+    M = 32 and M = 128 over seeded points with full rows and one isolated
+    point, whose 26 neighbour cells are empty: what a pairs mutant has to get
+    past."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+    from fluidnexus_torch.sim import pbf as tpbf
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks
+
+    failures = []
+    for m, n, box in ((32, 900, 3.0), (128, 1500, 2.0)):
+        rng = np.random.default_rng(m)
+        pts = rng.uniform(0, box, (n, 3))
+        pts[0] = box + 5.5
+        alive = rng.random(n) > 0.1
+        alive[0] = True
+        grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=dev), 1.0,
+                                torch.as_tensor(alive, device=dev), 512, m)
+        cnt, *xyz = pc.planes(grid)
+        k = pc.pair_consts(tpbf.PBFParams(h=1.0))
+        live = grid.bmask
+        g = torch.where(live, torch.as_tensor(rng.standard_normal(live.shape).astype(np.float32),
+                                              device=dev), 0.0).contiguous()
+        leave_nan_blocks(dev, tuple(live.shape) + (3,))
+        got = pc.density_bwd_slots(grid.nbr, cnt, *xyz, g, k)
+        want = pc.density_bwd_plain(grid.nbr, cnt, *xyz, g, k)
+        lv = live[..., None].expand_as(got)
+        err = float((got - want)[lv].abs().max())
+        scale = float(want[lv].abs().max())
+        dead_zero = not bool(got[~lv].any())
+        full = bool((cnt == m).any())
+        print(f"pairs check, M {m}: density_bwd max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
+              f"scale], dead slots 0: {dead_zero}, a full row: {full}")
+        if not (err <= 1e-4 * scale and dead_zero and full):
+            failures.append(f"M {m}")
+    if failures:
+        _fail(f"density_bwd disagrees with its plain version: {failures}")
 
 
 def encode_probe():
@@ -3334,5 +3633,7 @@ if __name__ == "__main__":
         tick_flips()
     elif sys.argv[1:2] == ["raster"] and len(sys.argv) <= 3:
         raster_time(*sys.argv[2:])
+    elif sys.argv[1:2] == ["pairs"] and len(sys.argv) <= 3:
+        pairs_time(*sys.argv[2:])
     else:
         main()

@@ -28,6 +28,117 @@ __device__ __forceinline__ float norm2_rn(float dx, float dy, float dz) {
 // Threads for a row of M slots: whole warps.
 inline int threads_for(int M) { return (M + 31) / 32 * 32; }
 
+// ---------------------------------------------------------------------------
+// A centre row's neighbourhood, staged for a pair loop. A group of L lanes of
+// one warp owns the centre row. The live slots of its 27 neighbour rows, in
+// neighbour order and then slot order, form one list of n_tot entries: slot s
+// of neighbour j is entry pre_j + s, pre_j the live slots of the neighbours
+// before j. load_nbr_table reads the 27 rows' ids and then their counts, each
+// with every load of the group in flight at once (two round trips in all, not
+// two for each neighbour), and keeps ids, counts and list offsets in shared
+// memory. stage_chunk copies the entries [c0, c0 + CH) into shared memory as
+// float4 (x + shift, y + shift, z + shift, w), w a fourth per-slot plane,
+// entry by entry across the group's lanes with their loads in flight; the
+// shift is added once (exact: 0 or +-h, as the per-neighbour staging of the
+// other kernels adds it). Shifts and counts follow shift() and the
+// front-compacted rows, so a pair loop over the list sees the pairs, in the
+// order, of a walk over the 27 rows. Entries past the group's list, up to
+// `fill`, hold far ones (FAR, w = 0): a pair with one is out of radius (its
+// d2 overflows to inf) and every term of it is finite, so a warp can run one
+// trip count for all its groups with no test of the list's end.
+// ---------------------------------------------------------------------------
+constexpr float FAR = 1e30f;
+struct NbrTable {
+  int nb[27];   // neighbour rows, C where there is none
+  int n[27];    // their live slots, 0 where there is none
+  int pre[27];  // their first entry in the list
+};
+
+// Fills tab for centre row `row` (nothing where !active) and returns n_tot
+// to every lane of the group; sub is the lane's place in its group, and lane
+// sub reads the neighbours sub * PER .. sub * PER + PER - 1, so a scan across
+// the group gives each its list offset. Every lane of the warp calls it.
+template <int L>
+__device__ __forceinline__ int load_nbr_table(NbrTable& tab, const int* __restrict__ nbr,
+                                              const int* __restrict__ cnt, int row, int C, int sub,
+                                              bool active) {
+  constexpr int PER = (27 + L - 1) / L;
+  int nb[PER], n[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int j = sub * PER + q;
+    nb[q] = active && j < 27 ? nbr[(size_t)row * 27 + j] : C;
+  }
+  int mine = 0;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    n[q] = nb[q] < C ? cnt[nb[q]] : 0;
+    mine += n[q];
+  }
+  int incl = mine;  // inclusive scan over the group's lanes
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o, L);
+    if (sub >= o) incl += t;
+  }
+  int pre = incl - mine;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int j = sub * PER + q;
+    if (j < 27) {
+      tab.nb[j] = nb[q];
+      tab.n[j] = n[q];
+      tab.pre[j] = pre;
+    }
+    pre += n[q];
+  }
+  __syncwarp();
+  return __shfl_sync(0xffffffffu, incl, L - 1, L);
+}
+
+// Entries [c0, min(c0 + CH, n_tot)) of the group's list into dst, then far
+// entries up to dst[fill - 1] (fill <= CH). Lane sub takes the entries
+// c0 + sub + L m: for each it finds the neighbour j (the last whose pre_j <= e,
+// a five-step search of the table), loads its slot's four planes with every
+// load of ROUND entries in flight, adds the shift and stores the float4.
+// Every lane of the warp calls it.
+template <int L, int CH, int ROUND>
+__device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, int c0, int n_tot,
+                                            int fill, const float* __restrict__ x,
+                                            const float* __restrict__ y, const float* __restrict__ z,
+                                            const float* __restrict__ w, int M, float h, int sub) {
+  const int c1 = min(c0 + CH, n_tot);
+  for (int e0 = c0 + sub; e0 < c0 + fill; e0 += L * ROUND) {
+    float4 v[ROUND];
+    int jj[ROUND];
+#pragma unroll
+    for (int m = 0; m < ROUND; ++m) {
+      const int e = e0 + L * m;
+      jj[m] = -1;
+      if (e < c1) {
+        int j = 0;
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (j + step < 27 && tab.pre[j + step] <= e) j += step;
+        const size_t at = (size_t)tab.nb[j] * M + (e - tab.pre[j]);
+        v[m] = make_float4(x[at], y[at], z[at], w[at]);
+        jj[m] = j;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < ROUND; ++m) {
+      const int e = e0 + L * m;
+      if (jj[m] >= 0)
+        dst[e - c0] = make_float4(__fadd_rn(v[m].x, shift(jj[m], 0, h)),
+                                  __fadd_rn(v[m].y, shift(jj[m], 1, h)),
+                                  __fadd_rn(v[m].z, shift(jj[m], 2, h)), v[m].w);
+      else if (e < c0 + fill)
+        dst[e - c0] = make_float4(FAR, FAR, FAR, 0.0f);
+    }
+  }
+  __syncwarp();
+}
+
 // The solver constants of the PBF pair passes (sim/pbf_cuda.PairConsts).
 struct PairConsts {
   float h, h2, eps, c6, s45, inv_p0, relax, k_p, e_p, inv_denom;

@@ -18,10 +18,11 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// One block per row, one thread per centre slot; dead slots and rows are
-// masked by the counts, so no sentinel coordinates are needed. The pair terms
-// are fnx::pair_terms and fnx::phase2_terms (pair_common.cuh), the same
-// device functions in every generation.
+// One block per row, one thread per centre slot (density_bwd_kernel: half a
+// warp per row); dead slots and rows are masked by the counts, so no
+// sentinel coordinates are needed. The pair terms are fnx::pair_terms and
+// fnx::phase2_terms (pair_common.cuh), the same device functions in every
+// generation.
 
 #include <cuda_runtime.h>
 
@@ -481,54 +482,123 @@ __global__ void __launch_bounds__(MAX_M) density_kernel(
 //
 // Bound on the H100: 9 f32 operations per live candidate pair and 12 more per
 // pair in radius, against one read of four planes and one write of three:
-// bound by operations. Same design as the forward; g is staged beside the
-// shifted coordinates.
+// bound by operations, but at the smoke shapes (~8 live slots a row, ~180
+// candidates each) a row is a few thousand operations, and a walk that waits
+// on each neighbour's id, count and slots in turn is bound by those ~80
+// dependent trips to memory instead. The design: a group of DBW_LANES lanes
+// owns a row (two rows a warp, DBW_ROWS a block), so a row's few live slots
+// fill half a warp; the group reads the 27 ids and counts in two trips
+// (load_nbr_table) and stages the row's whole neighbourhood as one list of
+// shifted coordinates and g, DBW_ROUND entries a lane with their loads in
+// flight (stage_chunk, chunks of DBW_CHUNK entries, which also bounds it at
+// M = MAX_M); then the pair loop runs over the list with no barrier and no
+// branch: a pair out of radius, or with a far entry past the list, adds
+// b = 0, which leaves the sums' bits as they are, so the compiler can
+// overlap the iterations. A lane
+// holds one centre slot, or two where a row of the warp has more than
+// DBW_LANES live slots; a pass covers 32, and a row of more takes more
+// passes. Each slot's sum runs in neighbour order, then slot order, with the
+// arithmetic of the walk over rows, so it adds the same terms in the same
+// order.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) density_bwd_kernel(
+constexpr int DBW_LANES = 16;                         // lanes that own a centre row
+constexpr int DBW_CPL = 32 / DBW_LANES;               // centre slots a lane may hold: a pass covers 32
+constexpr int DBW_WARPS = 2;                          // warps a block
+constexpr int DBW_ROWS = DBW_WARPS * 32 / DBW_LANES;  // rows a block
+constexpr int DBW_CHUNK = 384;                        // list entries a row stages at once
+constexpr int DBW_ROUND = 16;                         // entries a lane stages with its loads in flight
+
+size_t density_bwd_smem() { return (size_t)DBW_ROWS * DBW_CHUNK * sizeof(float4); }
+
+// The pair loop over kn staged entries for the first NC centre slots a lane
+// holds: no branch, so the compiler can overlap the iterations. b = 0 (out
+// of radius, a far entry, a dead centre's garbage never written) adds
+// 0 * e, which leaves a sum's bits as they are; 2 c3 folds the pair's
+// factor 2 in exactly (a power of two).
+template <int NC>
+__device__ __forceinline__ void dbw_sweep(const float4* list, int kn, const float (&xc)[DBW_CPL],
+                                          const float (&yc)[DBW_CPL], const float (&zc)[DBW_CPL],
+                                          const float (&gc)[DBW_CPL], float (&a0)[DBW_CPL],
+                                          float (&a1)[DBW_CPL], float (&a2)[DBW_CPL], float h2,
+                                          float c3x2) {
+#pragma unroll 4
+  for (int k = 0; k < kn; ++k) {
+    const float4 s = list[k];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float ex = __fsub_rn(xc[c], s.x), ey = __fsub_rn(yc[c], s.y), ez = __fsub_rn(zc[c], s.z);
+      const float d2 = norm2_rn(ex, ey, ez);
+      const float t2 = h2 - d2;
+      const float b = d2 < h2 ? (gc[c] + s.w) * (c3x2 * t2 * t2) : 0.0f;
+      a0[c] += b * ex;
+      a1[c] += b * ey;
+      a2[c] += b * ez;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(DBW_WARPS * 32) density_bwd_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ g,
     float* __restrict__ dx, int C, int M, float h, float h2, float c6) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M], sg[MAX_M];
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
-  const bool live = i < n_c;
-  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
-  const float gc = live ? g[at] : 0.0f;
-  const float c3 = -3.0f * c6;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int j = 0; j < 27 && n_c > 0; ++j) {
-    const int nb = nbr[cell * 27 + j];
-    if (nb >= C) continue;
-    const int n_s = cnt[nb];
-    if (n_s == 0) continue;
-    __syncthreads();
-    if (i < n_s) {
-      const size_t src = (size_t)nb * M + i;
-      sx[i] = __fadd_rn(x[src], shift(j, 0, h));
-      sy[i] = __fadd_rn(y[src], shift(j, 1, h));
-      sz[i] = __fadd_rn(z[src], shift(j, 2, h));
-      sg[i] = g[src];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < n_s; ++s) {
-      const float ex = __fsub_rn(xc, sx[s]), ey = __fsub_rn(yc, sy[s]), ez = __fsub_rn(zc, sz[s]);
-      const float d2 = norm2_rn(ex, ey, ez);
-      if (d2 < h2) {
-        const float t2 = h2 - d2;
-        const float b = (gc + sg[s]) * (c3 * t2 * t2) * 2.0f;
-        a0 += b * ex;
-        a1 += b * ey;
-        a2 += b * ez;
-      }
+  static_assert(DBW_LANES * DBW_CPL == 32, "a pass covers 32 centre slots");
+  extern __shared__ float4 dbw_lists[];  // [DBW_ROWS][DBW_CHUNK]
+  __shared__ fnx::NbrTable tabs[DBW_ROWS];
+  const int grp = threadIdx.x / DBW_LANES;
+  const int sub = threadIdx.x % DBW_LANES;
+  const int row = blockIdx.x * DBW_ROWS + grp;
+  float4* list = dbw_lists + grp * DBW_CHUNK;
+  // the table does not wait on the row's own count: an empty row's list is
+  // read and never used
+  const int n_c = row <= C ? cnt[row] : 0;
+  const int n_tot = fnx::load_nbr_table<DBW_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  if (row <= C) {
+    for (int i = n_c + sub; i < M; i += DBW_LANES) {  // dead slots
+      const size_t at = (size_t)row * M + i;
+      dx[3 * at] = 0.0f;
+      dx[3 * at + 1] = 0.0f;
+      dx[3 * at + 2] = 0.0f;
     }
   }
-  if (i < M) {
-    dx[3 * at] = live ? a0 : 0.0f;
-    dx[3 * at + 1] = live ? a1 : 0.0f;
-    dx[3 * at + 2] = live ? a2 : 0.0f;
+  const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_c + 31) / 32);
+  const int list_max = __reduce_max_sync(FULL_MASK, n_c > 0 ? (unsigned)n_tot : 0u);
+  const float c3x2 = 2.0f * (-3.0f * c6);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int left = n_c - pass * 32;  // this row's live centre slots from the pass on
+    // centre slots a lane of the warp holds in this pass, at most
+    const int cpl = __reduce_max_sync(FULL_MASK, left > DBW_LANES ? (unsigned)DBW_CPL : 1u);
+    bool live[DBW_CPL];
+    float xc[DBW_CPL], yc[DBW_CPL], zc[DBW_CPL], gc[DBW_CPL];
+    float a0[DBW_CPL], a1[DBW_CPL], a2[DBW_CPL];
+#pragma unroll
+    for (int c = 0; c < DBW_CPL; ++c) {
+      const int i = sub + c * DBW_LANES;
+      const size_t at = (size_t)row * M + pass * 32 + i;
+      live[c] = i < left;
+      xc[c] = live[c] ? x[at] : 0.0f;
+      yc[c] = live[c] ? y[at] : 0.0f;
+      zc[c] = live[c] ? z[at] : 0.0f;
+      gc[c] = live[c] ? g[at] : 0.0f;
+      a0[c] = a1[c] = a2[c] = 0.0f;
+    }
+    for (int c0 = 0; c0 < list_max; c0 += DBW_CHUNK) {
+      const int kn = min(DBW_CHUNK, list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<DBW_LANES, DBW_CHUNK, DBW_ROUND>(list, tabs[grp], c0, left > 0 ? n_tot : 0,
+                                                        kn, x, y, z, g, M, h, sub);
+      if (cpl == 1)
+        dbw_sweep<1>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
+      else
+        dbw_sweep<DBW_CPL>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+#pragma unroll
+    for (int c = 0; c < DBW_CPL; ++c) {
+      if (!live[c]) continue;
+      const size_t at = (size_t)row * M + pass * 32 + sub + c * DBW_LANES;
+      dx[3 * at] = a0[c];
+      dx[3 * at + 1] = a1[c];
+      dx[3 * at + 2] = a2[c];
+    }
   }
 }
 
@@ -622,8 +692,12 @@ int fnx_pbf_density_bwd(const int* cnt, const int* nbr, const float* x, const fl
                         const float* z, const float* g, float* dx, int C, int M, float h, float h2,
                         float c6, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  density_bwd_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(cnt, nbr, x, y, z, g, dx,
-                                                                         C, M, h, h2, c6);
+  const size_t smem = density_bwd_smem();
+  cudaError_t err = cudaFuncSetAttribute(density_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  density_bwd_kernel<<<C / DBW_ROWS + 1, DBW_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      cnt, nbr, x, y, z, g, dx, C, M, h, h2, c6);
   return (int)cudaGetLastError();
 }
 

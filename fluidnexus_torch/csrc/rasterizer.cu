@@ -7,8 +7,8 @@
 //   packed (T, K, F) f32, F = 7 + C, rows [x y | ca cb cc | opacity | color(C) | depth],
 //     tile t's slots front to back by depth; slot s is live iff s < counts[t].
 //   P = tile_x * tile_y pixels per tile, row-major over (tile_y, tile_x);
-//     one block per tile (the forward a thread per pixel, the backward a
-//     thread per BWD_PPT adjacent pixels, the combine 128 threads).
+//     one block per tile (the forward and the backward a thread per two
+//     adjacent pixels, the combine 128 threads).
 //
 // Semantics (those of fluidnexus_tpu/ops/rasterizer.py:_composite_tiles):
 //   power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy, dx = x - px, dy = y - py,
@@ -62,112 +62,13 @@ __device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
 }
 
 // ---------------------------------------------------------------------------
-// Composite forward. Replaces the Pallas kernel
-// fluidnexus_tpu/ops/rasterizer_pallas.py:_fwd_kernel/_fwd_one (run by _run_fwd).
-//
-// Bound on the H100: one exp and ~20 f32 operations per (slot, pixel) over the
-// live prefix, against one read of the live rows and one write of the
-// (C + 2) P outputs per tile: it is bound by operations. The design keeps the
-// per-pixel state (T, C accumulators, median) in registers, stages the tile's
-// rows through shared memory in batches of P rows with one coalesced load per
-// batch (the shape of the reference renderCUDA), and walks only the live
-// prefix. Every CKPT slots it saves T, so the backward can recompute any slot's
-// T from the window start exactly: final T alone underflows after hundreds of
-// splats and cannot be divided back.
+// Tile order, shared by the forward and the backward: each launches
+// tile_order_kernel on its stream just before itself, and its blocks take
+// their tiles from g_tile_order, heaviest first, so the 512-slot tiles do
+// not trail the grid. The order lives in one buffer of the library, so
+// launches on two streams at once would race on it; the port launches on
+// one stream.
 // ---------------------------------------------------------------------------
-template <int C>
-__global__ void composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
-                                     float* __restrict__ accum, float* __restrict__ final_t,
-                                     float* __restrict__ median, float* __restrict__ ckpt,
-                                     int K, int tiles_x, int tile_x, int tile_y) {
-  constexpr int F = 7 + C;
-  extern __shared__ float rows[];  // [P][F]
-  const int t = blockIdx.x;
-  const int P = blockDim.x;
-  const int i = threadIdx.x;
-  const float px = (float)((t % tiles_x) * tile_x + i % tile_x);
-  const float py = (float)((t / tiles_x) * tile_y + i / tile_x);
-  const int cnt = counts[t];
-  const int nck = (K + CKPT - 1) / CKPT;
-  const float* tile_rows = packed + (size_t)t * K * F;
-
-  float T = 1.0f;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  float depth = MEDIAN_DEFAULT;
-  bool med_set = false;
-
-  for (int b0 = 0; b0 < cnt; b0 += P) {
-    const int nb = min(P, cnt - b0);
-    __syncthreads();  // the previous batch is consumed
-    for (int e = i; e < nb * F; e += P) rows[e] = tile_rows[(size_t)b0 * F + e];
-    __syncthreads();
-    for (int j = 0; j < nb; ++j) {
-      const int s = b0 + j;
-      if (s % CKPT == 0) ckpt[((size_t)t * nck + s / CKPT) * P + i] = T;
-      const float* r = rows + j * F;
-      bool ok;
-      const float a = splat_alpha(r, px, py, ok);
-      if (!ok) continue;
-      const float t_after = transmit(T, a);
-      if (T >= T_MIN) {
-        const float w = a * T;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += w * r[6 + c];
-        if (!med_set && T > 0.5f && t_after < 0.5f) {
-          depth = r[6 + C];
-          med_set = true;
-        }
-      }
-      T = t_after;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) accum[((size_t)t * C + c) * P + i] = acc[c];
-  final_t[(size_t)t * P + i] = T;
-  median[(size_t)t * P + i] = depth;
-}
-
-// ---------------------------------------------------------------------------
-// Composite backward. Replaces the Pallas kernel
-// fluidnexus_tpu/ops/rasterizer_pallas.py:_bwd_kernel/_bwd_one (run by _run_bwd).
-//
-// Emits the per-slot packed gradient [dxy | dconic | dop | dcolor | 0] of
-// _bwd_one: no gradient through depth or order, none through the alpha clamp
-// at .99, dop = da * raw / op, and the gT * T_final term. Dead slots and the
-// depth column are written as 0 by the kernel itself.
-//
-// Bound on the H100: by operations, like the forward, plus one reduction of
-// G = 6 + C values over the P pixels for every live slot. The design walks
-// the live prefix back to front one checkpoint window at a time, and each
-// window back to front in parts of BWD_SUB slots. A re-sweep recomputes each
-// (slot, pixel)'s alpha and the T before it, front to back from the
-// forward's checkpoint (bit-identical to the forward: splat_alpha is shared
-// and names its rounding), and keeps both in shared memory for one part; the
-// back pass reads them. A window's first part is swept twice (once to reach
-// the second part's T), so a (slot, pixel) takes 1.5 exps on average: with
-// the whole window kept (one exp) the 64 KB of state leaves 3 blocks an SM,
-// and the kernel ran 1.2 times slower. A warp skips the slots that a test
-// of its pixel box (may_draw) rules out. Each thread owns BWD_PPT adjacent
-// pixels and sums their share of a slot in registers first.
-// The geometry gradients come from six moments of dpower in dx, dy (never in
-// px, py: those monomials cancel in f32), so a slot's pixel sums are G plain
-// sums: S0 = sum dp, Sx, Sy, Sxx, Sxy, Syy (dp times dx, dy, dx^2, dx dy,
-// dy^2), and sum w g_c. A warp reduces them with a transposing halving (each
-// level a lane keeps half the open sums and adds its partner's copy: 12
-// shuffles at G = 9, not 5 G), stores one partial per warp, and a warp whose
-// pixels all skip a slot stores zeros without computing. The window's
-// gradient rows are formed from the warps' partials, summed in warp order
-// (deterministic), and written once. The tiles run heaviest first, in an
-// order tile_order_kernel builds from counts just before, so the 512-slot
-// tiles do not trail the grid. The order lives in one buffer of the library
-// (g_tile_order), so backward launches on two streams at once would race
-// on it; the port launches on one stream.
-// ---------------------------------------------------------------------------
-constexpr int BWD_PPT = 2;            // adjacent pixels a thread owns in the backward
-constexpr int BWD_SUB = 16;           // slots of a window whose T and alpha it keeps at once
-constexpr int MAX_BWD_P = 512;        // its shared state is BWD_SUB * P * 8 bytes
 constexpr int MAX_TILES = 1 << 16;    // tiles the order buffer holds (4096 x 4096 at 16 x 16)
 constexpr int ORDER_THREADS = 1024;   // tile_order_kernel's block, one count bucket a thread
 
@@ -202,6 +103,205 @@ __global__ void tile_order_kernel(const int* __restrict__ counts, int T, int K) 
     g_tile_order[atomicAdd(&start[bucket], 1)] = t;
   }
 }
+
+// Whether the slot of row r may draw (alpha >= 1/255, as splat_alpha takes
+// it) on any pixel of the box [x0, x1] x [y0, y1]. False only where that is
+// ruled out with room to spare: the least of the positive definite form
+// ca dx^2 + 2 cb dx dy + cc dy^2 over the box (0 at the centre, else on an
+// edge at the clamped stationary point), with a slack of 1e-5 of the form's
+// largest terms, which is ~100 times the f32 rounding of this test and of
+// splat_alpha's own power together.
+__device__ bool may_draw(const float* r, float x0, float x1, float y0, float y1) {
+  const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
+  if (!(ca > 0.0f && cc > 0.0f && ca * cc > cb * cb && op > 0.0f)) return !(op <= 0.0f);
+  const float dxl = r[0] - x1, dxh = r[0] - x0, dyl = r[1] - y1, dyh = r[1] - y0;
+  auto form = [&](float dx, float dy) { return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy; };
+  float qmin = 0.0f;
+  if (!(dxl <= 0.0f && dxh >= 0.0f && dyl <= 0.0f && dyh >= 0.0f)) {
+    const float xs[2] = {dxl, dxh}, ys[2] = {dyl, dyh};
+    qmin = 3e38f;
+    for (int k = 0; k < 2; ++k) {
+      qmin = fminf(qmin, form(xs[k], fminf(fmaxf(-cb * xs[k] / cc, dyl), dyh)));
+      qmin = fminf(qmin, form(fminf(fmaxf(-cb * ys[k] / ca, dxl), dxh), ys[k]));
+    }
+  }
+  const float m = fmaxf(fmaxf(fabsf(dxl), fabsf(dxh)), fmaxf(fabsf(dyl), fabsf(dyh)));
+  const float slack = 1e-5f * ((ca + cc + 2.0f * fabsf(cb)) * m * m + 1.0f);
+  return !(-0.5f * qmin + slack < logf(ALPHA_MIN / op));
+}
+
+// ---------------------------------------------------------------------------
+// Composite forward. Replaces the Pallas kernel
+// fluidnexus_tpu/ops/rasterizer_pallas.py:_fwd_kernel/_fwd_one (run by _run_fwd).
+//
+// Bound on the H100: one exp and ~20 f32 operations per (slot, pixel) over the
+// live prefix, against one read of the live rows and one write of the
+// (C + 2) P outputs per tile: it is bound by operations, and in practice by
+// the instructions issued for them. The design is the backward's: a thread
+// owns FWD_PPT = 2 adjacent pixels and keeps their state (T, C accumulators,
+// median) in registers, so a slot's row is read from shared memory once for
+// two pixels, as float4 loads at the padded stride FP; the tile's live rows
+// are staged in batches of FWD_BATCH with one coalesced load; for each group
+// of 32 slots a warp tests every slot against the box of its 64 pixels
+// (may_draw, a slot a lane) and walks only the slots that may draw there, so
+// a skipped slot costs no exp. A warp's pixels are an 8 x 8 block where the
+// tile's sides are multiples of 8 (at camera 0 it walks 0.574 of the live
+// (slot, pixel) pairs, against 0.611 for 16 x 4 rows), else 64 consecutive
+// pixels. The skip is exact: may_draw passes every slot that splat_alpha
+// takes at one of the warp's pixels, and a slot it takes at none leaves T as
+// it was. The tiles run heaviest first (tile_order_kernel).
+// Every CKPT slots it saves T, so the backward can recompute any slot's T from
+// the window start exactly: final T alone underflows after hundreds of
+// splats and cannot be divided back. A tile of a multiple of 32 pixels that
+// is not one of 64 leaves the last warp's spare lanes without pixels.
+// ---------------------------------------------------------------------------
+constexpr int FWD_PPT = 2;       // adjacent pixels a thread owns in the forward
+constexpr int FWD_BATCH = 128;   // live rows staged in shared memory at once
+constexpr int MAX_FWD_P = 1024;  // most pixels a tile may have
+
+template <int C>
+__global__ void __launch_bounds__(MAX_FWD_P / FWD_PPT)
+composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
+                     float* __restrict__ accum, float* __restrict__ final_t,
+                     float* __restrict__ median, float* __restrict__ ckpt, int K, int tiles_x,
+                     int tile_x, int tile_y, int box_skip) {
+  constexpr int F = 7 + C;
+  constexpr int FP = (F + 3) / 4 * 4;  // a row's stride in shared memory, float4-aligned
+  static_assert(FWD_PPT == 2, "a thread's two pixels are written as a float2");
+  static_assert(CKPT == 32 && FWD_BATCH % CKPT == 0, "a group of 32 slots is a checkpoint window");
+  extern __shared__ float4 fwd_smem4[];
+  float* rows = reinterpret_cast<float*>(fwd_smem4);  // [FWD_BATCH][FP]
+  const int P = tile_x * tile_y;
+  const int nthreads = blockDim.x;
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int t = g_tile_order[blockIdx.x], cnt = counts[t];
+  const int nck = (K + CKPT - 1) / CKPT;
+  const float* tile_rows = packed + (size_t)t * K * F;
+  const int tx0 = (t % tiles_x) * tile_x, ty0 = (t / tiles_x) * tile_y;
+  // this thread's first pixel, and the box [bx0, bx1] x [by0, by1] that holds
+  // the warp's pixels (tile coordinates)
+  int p0, bx0, bx1, by0, by1;
+  if (tile_x % 8 == 0 && tile_y % 8 == 0) {  // an 8 x 8 block a warp
+    bx0 = warp % (tile_x / 8) * 8;
+    by0 = warp / (tile_x / 8) * 8;
+    bx1 = bx0 + 7;
+    by1 = by0 + 7;
+    p0 = (by0 + lane / 4) * tile_x + bx0 + FWD_PPT * (lane % 4);
+  } else {  // up to 64 consecutive pixels a warp
+    const int w0 = warp * 32 * FWD_PPT, w1 = min(w0 + 32 * FWD_PPT, P) - 1;
+    const bool one_row = w0 / tile_x == w1 / tile_x;
+    bx0 = one_row ? w0 % tile_x : 0;
+    bx1 = one_row ? w1 % tile_x : tile_x - 1;
+    by0 = w0 / tile_x;
+    by1 = w1 / tile_x;
+    p0 = i * FWD_PPT;
+  }
+  const bool mine = p0 < P;  // a spare lane holds no pixel
+  const float box_x0 = (float)(tx0 + bx0), box_x1 = (float)(tx0 + bx1);
+  const float box_y0 = (float)(ty0 + by0), box_y1 = (float)(ty0 + by1);
+
+  // T only falls, so it crosses 0.5 at most once: the median needs no flag
+  float px[FWD_PPT], py[FWD_PPT], T[FWD_PPT], acc[FWD_PPT][C], depth[FWD_PPT];
+#pragma unroll
+  for (int q = 0; q < FWD_PPT; ++q) {
+    px[q] = (float)(tx0 + (p0 + q) % tile_x);
+    py[q] = (float)(ty0 + (p0 + q) / tile_x);
+    T[q] = 1.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[q][c] = 0.0f;
+    depth[q] = MEDIAN_DEFAULT;
+  }
+
+  for (int b0 = 0; b0 < cnt; b0 += FWD_BATCH) {
+    const int nb = min(FWD_BATCH, cnt - b0);
+    __syncthreads();  // the previous batch is consumed
+    for (int e = i; e < nb * F; e += nthreads) {
+      const int j = e / F;
+      rows[j * FP + (e - j * F)] = tile_rows[(size_t)b0 * F + e];
+    }
+    __syncthreads();
+    for (int g0 = 0; g0 < nb; g0 += CKPT) {
+      const int ng = min(CKPT, nb - g0);
+      if (mine)
+        *reinterpret_cast<float2*>(ckpt + ((size_t)t * nck + (b0 + g0) / CKPT) * P + p0) =
+            make_float2(T[0], T[1]);
+      // bit j: slot g0 + j may draw on one of the warp's pixels (lane j tests it)
+      unsigned draws = __ballot_sync(
+          FULL_MASK, lane < ng && (!box_skip || may_draw(rows + (g0 + lane) * FP, box_x0,
+                                                         box_x1, box_y0, box_y1)));
+      while (draws) {  // warp-uniform
+        const int j = __ffs(draws) - 1;
+        draws &= draws - 1;
+        float r[FP];
+        load_row(rows + (g0 + j) * FP, r);
+#pragma unroll
+        for (int q = 0; q < FWD_PPT; ++q) {
+          bool ok;
+          const float a = splat_alpha(r, px[q], py[q], ok);
+          if (!ok) continue;  // skipped: T as it was
+          const float t_after = transmit(T[q], a);
+          if (T[q] >= T_MIN) {
+            const float w = a * T[q];
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[q][c] += w * r[6 + c];
+            if (T[q] > 0.5f && t_after < 0.5f) depth[q] = r[6 + C];
+          }
+          T[q] = t_after;
+        }
+      }
+    }
+  }
+  if (!mine) return;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    *reinterpret_cast<float2*>(accum + ((size_t)t * C + c) * P + p0) = make_float2(acc[0][c], acc[1][c]);
+  *reinterpret_cast<float2*>(final_t + (size_t)t * P + p0) = make_float2(T[0], T[1]);
+  *reinterpret_cast<float2*>(median + (size_t)t * P + p0) = make_float2(depth[0], depth[1]);
+}
+
+// ---------------------------------------------------------------------------
+// Composite backward. Replaces the Pallas kernel
+// fluidnexus_tpu/ops/rasterizer_pallas.py:_bwd_kernel/_bwd_one (run by _run_bwd).
+//
+// Emits the per-slot packed gradient [dxy | dconic | dop | dcolor | 0] of
+// _bwd_one: no gradient through depth or order, none through the alpha clamp
+// at .99, dop = da * raw / op, and the gT * T_final term. Dead slots and the
+// depth column are written as 0 by the kernel itself.
+//
+// Bound on the H100: by operations, like the forward, plus one reduction of
+// G = 6 + C values over the P pixels for every live slot. The design walks
+// the live prefix back to front one checkpoint window at a time, and each
+// window back to front in parts of BWD_SUB slots. A re-sweep recomputes each
+// (slot, pixel)'s alpha and the T before it, front to back from the
+// forward's checkpoint (bit-identical to the forward: splat_alpha is shared
+// and names its rounding), and keeps both in shared memory for one part; the
+// back pass reads them. A window's first part is swept twice (once to reach
+// the second part's T), so a (slot, pixel) takes 1.5 exps on average: with
+// the whole window kept (one exp) the 64 KB of state leaves 3 blocks an SM,
+// and the kernel ran 1.2 times slower. A warp skips the slots that a test
+// of its pixel box (may_draw) rules out. Each thread owns BWD_PPT adjacent
+// pixels and sums their share of a slot in registers first.
+// The geometry gradients come from six moments of dpower in dx, dy (never in
+// px, py: those monomials cancel in f32), so a slot's pixel sums are G plain
+// sums: S0 = sum dp, Sx, Sy, Sxx, Sxy, Syy (dp times dx, dy, dx^2, dx dy,
+// dy^2), and sum w g_c. A warp reduces them with a transposing halving (each
+// level a lane keeps half the open sums and adds its partner's copy: 12
+// shuffles at G = 9, not 5 G), stores one partial per warp, and a warp whose
+// pixels all skip a slot stores zeros without computing. The window's
+// gradient rows are formed from the warps' partials, summed in warp order
+// (deterministic), and written once. The tiles run heaviest first
+// (tile_order_kernel). With t_end given, the kernel also writes the T its
+// re-sweep reaches at the end of each window, (T, ceil(K / CKPT), P), which a
+// check holds bit for bit against the forward's next checkpoint and final T.
+// ---------------------------------------------------------------------------
+constexpr int BWD_PPT = 2;            // adjacent pixels a thread owns in the backward
+constexpr int BWD_SUB = 16;           // slots of a window whose T and alpha it keeps at once
+constexpr int MAX_BWD_P = 1024;       // its shared state is BWD_SUB * P * 8 bytes (128 KB)
+// Tiles of up to 2 * BWD_SMALL threads' pixels take an instantiation bounded
+// at BWD_SMALL threads: bounded at 512, the 16 x 16 tiles ran 2 % slower.
+constexpr int BWD_SMALL = 256;
 
 // Transposing sum across the warp of M values a lane holds: at each level
 // (lane offset O) the lanes without bit O keep the first half of the open
@@ -247,38 +347,13 @@ __device__ __forceinline__ int bwd_field(int lane) {
   return real >= 1 ? off : -1;
 }
 
-// Whether the slot of row r may draw (alpha >= 1/255, as splat_alpha takes
-// it) on any pixel of the box [x0, x1] x [y0, y1]. False only where that is
-// ruled out with room to spare: the least of the positive definite form
-// ca dx^2 + 2 cb dx dy + cc dy^2 over the box (0 at the centre, else on an
-// edge at the clamped stationary point), with a slack of 1e-5 of the form's
-// largest terms, which is ~100 times the f32 rounding of this test and of
-// splat_alpha's own power together.
-__device__ bool may_draw(const float* r, float x0, float x1, float y0, float y1) {
-  const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
-  if (!(ca > 0.0f && cc > 0.0f && ca * cc > cb * cb && op > 0.0f)) return !(op <= 0.0f);
-  const float dxl = r[0] - x1, dxh = r[0] - x0, dyl = r[1] - y1, dyh = r[1] - y0;
-  auto form = [&](float dx, float dy) { return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy; };
-  float qmin = 0.0f;
-  if (!(dxl <= 0.0f && dxh >= 0.0f && dyl <= 0.0f && dyh >= 0.0f)) {
-    const float xs[2] = {dxl, dxh}, ys[2] = {dyl, dyh};
-    qmin = 3e38f;
-    for (int k = 0; k < 2; ++k) {
-      qmin = fminf(qmin, form(xs[k], fminf(fmaxf(-cb * xs[k] / cc, dyl), dyh)));
-      qmin = fminf(qmin, form(fminf(fmaxf(-cb * ys[k] / ca, dxl), dxh), ys[k]));
-    }
-  }
-  const float m = fmaxf(fmaxf(fabsf(dxl), fabsf(dxh)), fmaxf(fabsf(dyl), fabsf(dyh)));
-  const float slack = 1e-5f * ((ca + cc + 2.0f * fabsf(cb)) * m * m + 1.0f);
-  return !(-0.5f * qmin + slack < logf(ALPHA_MIN / op));
-}
-
-template <int C>
-__global__ void __launch_bounds__(MAX_BWD_P / BWD_PPT)
+template <int C, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
                      const float* __restrict__ gacc, const float* __restrict__ gft,
                      const float* __restrict__ final_t, const float* __restrict__ ckpt,
-                     float* __restrict__ dpacked, int K, int tiles_x, int tile_x, int tile_y) {
+                     float* __restrict__ dpacked, float* __restrict__ t_end, int K, int tiles_x,
+                     int tile_x, int tile_y) {
   constexpr int F = 7 + C;
   constexpr int FP = (F + 3) / 4 * 4;  // a row's stride in shared memory, float4-aligned
   constexpr int G = 6 + C;             // S0 Sx Sy Sxx Sxy Syy | sum w g_c
@@ -390,6 +465,10 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
           if (ok) T[q] = transmit(T[q], a);
         }
         state[j * nthreads + i] = make_float4(st[0], st[1], st[2], st[3]);
+      }
+      if (t_end != nullptr && s0 + ns == nw) {  // the window's last part: T after its last slot
+#pragma unroll
+        for (int q = 0; q < BWD_PPT; ++q) t_end[((size_t)t * nck + win) * P + i * BWD_PPT + q] = T[q];
       }
       __syncthreads();  // the previous part's partials are consumed
 
@@ -521,10 +600,29 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-bool bad_tile(int P) { return P <= 0 || P % 32 != 0 || P > 1024; }
+// The backward's instantiation for C channels and a block of nthreads.
+const void* bwd_kernel(int C, int nthreads) {
+  const bool small = nthreads <= BWD_SMALL;
+  switch (C) {
+    case 1:
+      return small ? (const void*)composite_bwd_kernel<1, BWD_SMALL>
+                   : (const void*)composite_bwd_kernel<1, MAX_BWD_P / BWD_PPT>;
+    case 3:
+      return small ? (const void*)composite_bwd_kernel<3, BWD_SMALL>
+                   : (const void*)composite_bwd_kernel<3, MAX_BWD_P / BWD_PPT>;
+    default:
+      return nullptr;
+  }
+}
+
+// The tiles each kernel takes: the forward multiples of 32 pixels (its
+// spare lanes masked), the backward multiples of 32 * BWD_PPT.
+bool bad_tile(int P) { return P <= 0 || P % 32 != 0 || P > MAX_FWD_P; }
 bool bad_bwd_tile(int P) { return P <= 0 || P % (32 * BWD_PPT) != 0 || P > MAX_BWD_P; }
 
-size_t fwd_smem(int C, int P) { return (size_t)P * (7 + C) * sizeof(float); }
+int fwd_threads(int P) { return (P / FWD_PPT + 31) / 32 * 32; }
+
+size_t fwd_smem(int C, int P) { return (size_t)FWD_BATCH * ((7 + C + 3) / 4 * 4) * sizeof(float); }
 
 size_t bwd_smem(int C, int P) {
   const int nthreads = P / BWD_PPT;
@@ -546,33 +644,40 @@ extern "C" {
 
 int fnx_ckpt_interval() { return CKPT; }
 
-// The backward's limits: pixels a thread owns, most pixels a tile may have,
-// most tiles a launch may have.
-void fnx_bwd_limits(int* out) {
-  out[0] = BWD_PPT;
-  out[1] = MAX_BWD_P;
-  out[2] = MAX_TILES;
+// The kernels' limits: the forward's pixel multiple and most pixels a tile,
+// the backward's, and the most tiles a launch may have.
+void fnx_raster_limits(int* out) {
+  out[0] = 32;
+  out[1] = MAX_FWD_P;
+  out[2] = 32 * BWD_PPT;
+  out[3] = MAX_BWD_P;
+  out[4] = MAX_TILES;
 }
 
+// box_skip 0 walks every live slot at every pixel: the check that the skip
+// changes no bit.
 int fnx_composite_fwd(const float* packed, const int* counts, float* accum, float* final_t,
                       float* median, float* ckpt, int T, int K, int C, int tiles_x, int tile_x,
-                      int tile_y, void* stream) {
+                      int tile_y, int box_skip, void* stream) {
   const int P = tile_x * tile_y;
-  if (bad_tile(P)) return (int)cudaErrorInvalidValue;
+  if (bad_tile(P) || T > MAX_TILES) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
+  const int nthreads = fwd_threads(P);
   const size_t smem = fwd_smem(C, P);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
+  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, T, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   switch (C) {
     case 1:
       if ((err = allow_smem(composite_fwd_kernel<1>, smem)) != cudaSuccess) return (int)err;
-      composite_fwd_kernel<1><<<T, P, smem, st>>>(packed, counts, accum, final_t, median, ckpt, K,
-                                                  tiles_x, tile_x, tile_y);
+      composite_fwd_kernel<1><<<T, nthreads, smem, st>>>(packed, counts, accum, final_t, median,
+                                                         ckpt, K, tiles_x, tile_x, tile_y, box_skip);
       break;
     case 3:
       if ((err = allow_smem(composite_fwd_kernel<3>, smem)) != cudaSuccess) return (int)err;
-      composite_fwd_kernel<3><<<T, P, smem, st>>>(packed, counts, accum, final_t, median, ckpt, K,
-                                                  tiles_x, tile_x, tile_y);
+      composite_fwd_kernel<3><<<T, nthreads, smem, st>>>(packed, counts, accum, final_t, median,
+                                                         ckpt, K, tiles_x, tile_x, tile_y, box_skip);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -580,9 +685,10 @@ int fnx_composite_fwd(const float* packed, const int* counts, float* accum, floa
   return (int)cudaGetLastError();
 }
 
+// t_end may be null; where given, the re-sweep's T at each window's end.
 int fnx_composite_bwd(const float* packed, const int* counts, const float* gacc, const float* gft,
-                      const float* final_t, const float* ckpt, float* dpacked, int T, int K, int C,
-                      int tiles_x, int tile_x, int tile_y, void* stream) {
+                      const float* final_t, const float* ckpt, float* dpacked, float* t_end, int T,
+                      int K, int C, int tiles_x, int tile_x, int tile_y, void* stream) {
   const int P = tile_x * tile_y;
   if (bad_bwd_tile(P) || T > MAX_TILES) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
@@ -592,20 +698,12 @@ int fnx_composite_bwd(const float* packed, const int* counts, const float* gacc,
   tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, T, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  switch (C) {
-    case 1:
-      if ((err = allow_smem(composite_bwd_kernel<1>, smem)) != cudaSuccess) return (int)err;
-      composite_bwd_kernel<1><<<T, nthreads, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt,
-                                                         dpacked, K, tiles_x, tile_x, tile_y);
-      break;
-    case 3:
-      if ((err = allow_smem(composite_bwd_kernel<3>, smem)) != cudaSuccess) return (int)err;
-      composite_bwd_kernel<3><<<T, nthreads, smem, st>>>(packed, counts, gacc, gft, final_t, ckpt,
-                                                         dpacked, K, tiles_x, tile_x, tile_y);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const void* fn = bwd_kernel(C, nthreads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if ((err = allow_smem(fn, smem)) != cudaSuccess) return (int)err;
+  void* args[] = {&packed, &counts, &gacc, &gft, &final_t, &ckpt, &dpacked, &t_end,
+                  &K, &tiles_x, &tile_x, &tile_y};
+  if ((err = cudaLaunchKernel(fn, T, nthreads, args, smem, st)) != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -633,12 +731,12 @@ int fnx_raster_occupancy(int which, int C, int P, int* out) {
   if (which == 0) {
     if (bad_tile(P)) return (int)cudaErrorInvalidValue;
     fn = C == 1 ? (const void*)composite_fwd_kernel<1> : (const void*)composite_fwd_kernel<3>;
-    threads = P;
+    threads = fwd_threads(P);
     smem = fwd_smem(C, P);
   } else if (which == 1) {
     if (bad_bwd_tile(P)) return (int)cudaErrorInvalidValue;
-    fn = C == 1 ? (const void*)composite_bwd_kernel<1> : (const void*)composite_bwd_kernel<3>;
     threads = P / BWD_PPT;
+    fn = bwd_kernel(C, threads);
     smem = bwd_smem(C, P);
   } else {
     const int F = 7 + C;

@@ -16,6 +16,10 @@ tile, with ``counts`` (T,) int32: slot k of tile t is live iff k < counts[t].
 On a CPU tensor the wrappers take the plain versions. On a CUDA tensor they
 launch the kernel or raise; no CUDA tensor reaches a plain version through
 them. Each kernel launch adds one to its entry in ``LAUNCHES``.
+
+Tiles the card takes (``check_tile``, the one place the limits are stated):
+the forward a multiple of 32 pixels up to 1 024, the backward a multiple of
+64 up to 1 024, at most 65 536 tiles a launch. On the CPU every tile runs.
 """
 from __future__ import annotations
 
@@ -27,9 +31,10 @@ import torch
 from fluidnexus_torch.ops import cuda_build
 
 CKPT = 32  # slots between the forward's saved transmittances (csrc/rasterizer.cu)
+FWD_STEP, MAX_FWD_P = 32, 1024  # the forward's tiles: multiples of 32 pixels, at most 1 024
 BWD_PPT = 2  # adjacent pixels a thread of the backward kernel owns
-MAX_BWD_P = 512  # most pixels a tile may have in the backward (its shared state)
-MAX_TILES = 1 << 16  # most tiles a backward launch may have (its tile order)
+BWD_STEP, MAX_BWD_P = 32 * BWD_PPT, 1024  # the backward's tiles (its shared state)
+MAX_TILES = 1 << 16  # most tiles a launch may have (the tile order)
 
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "combine_rows": 0}
 
@@ -45,21 +50,49 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fnx_ckpt_interval.argtypes = []
     lib.fnx_ckpt_interval.restype = i
-    lib.fnx_composite_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.fnx_composite_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.fnx_composite_fwd.restype = i
-    lib.fnx_composite_bwd.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.fnx_composite_bwd.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.fnx_composite_bwd.restype = i
     lib.fnx_combine_rows.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.fnx_combine_rows.restype = i
-    lib.fnx_bwd_limits.argtypes = [p]
-    lib.fnx_bwd_limits.restype = None
+    lib.fnx_raster_limits.argtypes = [p]
+    lib.fnx_raster_limits.restype = None
     lib.fnx_raster_occupancy.argtypes = [i, i, i, p]
     lib.fnx_raster_occupancy.restype = i
-    limits = (ctypes.c_int * 3)()
-    lib.fnx_bwd_limits(limits)
-    if lib.fnx_ckpt_interval() != CKPT or tuple(limits) != (BWD_PPT, MAX_BWD_P, MAX_TILES):
+    limits = (ctypes.c_int * 5)()
+    lib.fnx_raster_limits(limits)
+    if lib.fnx_ckpt_interval() != CKPT or tuple(limits) != (FWD_STEP, MAX_FWD_P, BWD_STEP,
+                                                            MAX_BWD_P, MAX_TILES):
         raise RuntimeError("csrc/rasterizer.cu and rasterizer_cuda's constants disagree")
     return lib
+
+
+def check_tile(tile_x, tile_y, device, backward=True):
+    """Raise ValueError, naming the tile and the limits, unless the card's
+    kernels take ``tile_x`` x ``tile_y`` tiles: the forward a multiple of
+    FWD_STEP pixels up to MAX_FWD_P; with ``backward`` (a stage that trains)
+    also the backward, a multiple of BWD_STEP up to MAX_BWD_P. On the CPU the
+    plain versions take every tile, as the JAX package does, and nothing is
+    checked."""
+    if torch.device(device).type != "cuda":
+        return
+    p = tile_x * tile_y
+    kernels = [("forward", FWD_STEP, MAX_FWD_P)] + ([("backward", BWD_STEP, MAX_BWD_P)]
+                                                     if backward else [])
+    for what, step, most in kernels:
+        if tile_x <= 0 or tile_y <= 0 or p % step or p > most:
+            raise ValueError(
+                f"the card's rasterizer {what} takes tiles of a multiple of {step} pixels, at "
+                f"most {most}: got {tile_x} x {tile_y} = {p} (the forward takes multiples of "
+                f"{FWD_STEP} up to {MAX_FWD_P}; a stage that trains also needs the backward's "
+                f"multiples of {BWD_STEP} up to {MAX_BWD_P}; on the CPU every tile runs)")
+
+
+def _check_tiles(t, tile_x, tile_y, device, backward):
+    check_tile(tile_x, tile_y, device, backward)
+    if t > MAX_TILES:
+        raise ValueError(f"the card's rasterizer takes at most {MAX_TILES} tiles a launch, got {t}")
 
 
 def _tile_shape(packed, tile_x, tile_y):
@@ -130,30 +163,37 @@ def combine_plain(g, gid, counts, n):
 # --------------------------------- kernels ----------------------------------
 
 
-def composite_fwd(packed, counts, tiles_x, tile_x, tile_y):
+def composite_fwd(packed, counts, tiles_x, tile_x, tile_y, box_skip=True):
     """Kernel 1: returns accum (T,C,P), final T (T,1,P), median (T,1,P) and
-    the transmittance checkpoints (T, ceil(K/CKPT), P) the backward reads."""
+    the transmittance checkpoints (T, ceil(K/CKPT), P) the backward reads.
+    ``box_skip=False`` walks every live slot at every pixel, which must give
+    the same bits: a check of the skip."""
     cuda_build.require_cuda(packed, "composite_fwd")
     t, k, c, p = _tile_shape(packed, tile_x, tile_y)
     dev = packed.device
     cuda_build.check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
     cuda_build.check(counts, "counts", torch.int32, (t,), dev)
+    _check_tiles(t, tile_x, tile_y, dev, backward=False)
     accum = torch.empty((t, c, p), dtype=torch.float32, device=dev)
     final_t = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
     med = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
     ckpt = torch.empty((t, -(-k // CKPT), p), dtype=torch.float32, device=dev)
     err = _lib().fnx_composite_fwd(
         packed.data_ptr(), counts.data_ptr(), accum.data_ptr(), final_t.data_ptr(),
-        med.data_ptr(), ckpt.data_ptr(), t, k, c, tiles_x, tile_x, tile_y,
+        med.data_ptr(), ckpt.data_ptr(), t, k, c, tiles_x, tile_x, tile_y, int(box_skip),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.raise_on(err, "composite_fwd launch")
     LAUNCHES["composite_fwd"] += 1
     return accum, final_t, med, ckpt
 
 
-def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, tile_y):
+def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, tile_y,
+                  resweep=False):
     """Kernel 2: the per-slot packed gradient (T,K,F) of kernel 1's accum and
-    final T; the depth column and dead slots are zero."""
+    final T; the depth column and dead slots are zero. With ``resweep``, also
+    the T its re-sweep reaches at the end of each live window, (T,
+    ceil(K/CKPT), P), NaN past the live windows: it equals the forward's next
+    checkpoint, or its final T after the last window, bit for bit."""
     cuda_build.require_cuda(packed, "composite_bwd")
     t, k, c, p = _tile_shape(packed, tile_x, tile_y)
     dev = packed.device
@@ -163,18 +203,17 @@ def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, til
     cuda_build.check(gft, "gft", torch.float32, (t, 1, p), dev)
     cuda_build.check(final_t, "final_t", torch.float32, (t, 1, p), dev)
     cuda_build.check(ckpt, "ckpt", torch.float32, (t, -(-k // CKPT), p), dev)
-    if p % (32 * BWD_PPT) or p > MAX_BWD_P or t > MAX_TILES:
-        raise ValueError(f"composite_bwd takes tiles of a multiple of {32 * BWD_PPT} pixels, at "
-                         f"most {MAX_BWD_P}, and at most {MAX_TILES} tiles: got {tile_x} x "
-                         f"{tile_y} and {t} tiles")
+    _check_tiles(t, tile_x, tile_y, dev, backward=True)
     dpacked = torch.empty((t, k, 7 + c), dtype=torch.float32, device=dev)  # the kernel writes all
+    t_end = torch.full(ckpt.shape, float("nan"), device=dev) if resweep else None
     err = _lib().fnx_composite_bwd(
         packed.data_ptr(), counts.data_ptr(), gacc.data_ptr(), gft.data_ptr(),
-        final_t.data_ptr(), ckpt.data_ptr(), dpacked.data_ptr(), t, k, c, tiles_x, tile_x,
-        tile_y, torch.cuda.current_stream(dev).cuda_stream)
+        final_t.data_ptr(), ckpt.data_ptr(), dpacked.data_ptr(),
+        None if t_end is None else t_end.data_ptr(), t, k, c, tiles_x, tile_x, tile_y,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.raise_on(err, "composite_bwd launch")
     LAUNCHES["composite_bwd"] += 1
-    return dpacked
+    return (dpacked, t_end) if resweep else dpacked
 
 
 def occupancy(c, tile_x, tile_y):

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.core.config import Config
 from fluidnexus_torch.data.scene import cameras_by_time
+from fluidnexus_torch.ops import rasterizer_cuda
 from fluidnexus_torch.pipelines.train_background import save_image
 from fluidnexus_torch.pipelines.train_physical_particle import (
     _load_background, pbf_params_from_config, raster_config_from, solver_tick,
@@ -66,7 +67,10 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
     set. Returns one dict per frame: the JAX package's frame, p0, hidden,
     visual and p_ratio, and the remove_invalid kills and the hidden and
     visual points the rigid body moved. ``scene_info`` is required:
-    ``read_scene`` comes with the stage CLI."""
+    ``read_scene`` comes with the stage CLI. On the card, a tile its
+    rasterizer's forward does not take raises ValueError before any work
+    (``rasterizer_cuda.check_tile``)."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=False)
     if scene_info is None:
         raise ValueError("predict needs a scene_info: reading a scene from disk comes with the "
                          "stage CLI")

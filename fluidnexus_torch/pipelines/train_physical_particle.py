@@ -41,6 +41,7 @@ from fluidnexus_torch.core.optim import AdamState, adam_init, adam_step
 from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.data.scene import cameras_by_time
 from fluidnexus_torch.ops.neighbors import build_dense_grid, radius_graph
+from fluidnexus_torch.ops import rasterizer_cuda
 from fluidnexus_torch.ops.rasterizer import RasterizerConfig
 from fluidnexus_torch.sim.pbf import (
     PBFParams, confirm_guess, density_ratio_at, guess_from_nn, guess_hidden, remove_invalid,
@@ -315,7 +316,9 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
     already multiplied by ``scale_factor`` (detach_visual_and_scale, ref
     :188) and ``losses`` is the (iterations,) tensor of per-step losses.
     ``bg`` defaults to the PLY at ``cfg.model.bg_load_path`` when that is
-    set."""
+    set. On the card, a tile its rasterizer does not take raises
+    ValueError before any work (``rasterizer_cuda.check_tile``)."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=True)
     dev = resolve_device(device)
     o, m = cfg.optim, cfg.model
     params = pbf_params_from_config(cfg)
@@ -591,7 +594,10 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
     and every phase-C frame after it (``<model_path>/checkpoint``).
     ``resume_from_frame >= 1`` restarts phase C at that frame from the saved
     checkpoint of the frame before (the reference cannot resume, SURVEY §5).
-    ``scene_info`` is required: ``read_scene`` comes with the stage CLI."""
+    ``scene_info`` is required: ``read_scene`` comes with the stage CLI. On
+    the card, a tile its rasterizer's forward and backward do not both take
+    raises ValueError before any work (``rasterizer_cuda.check_tile``)."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=True)
     if scene_info is None:
         raise ValueError("train needs a scene_info: reading a scene from disk comes with the "
                          "stage CLI")

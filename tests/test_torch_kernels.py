@@ -12,7 +12,9 @@ import torch
 from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.ops import rasterizer as tr
 from fluidnexus_torch.ops import rasterizer_cuda as tc
-from tests.torch_helpers import EDGE_CASES, cuda_device, edge_tiles, packed_tiles  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401
+    EDGE_CASES, cuda_device, edge_tiles, leave_nan_blocks, packed_tiles, threshold_tiles,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,14 +43,6 @@ def test_kernels_match_plain_on_the_card(cuda_device, c):
     gid = torch.randint(0, 40, (6, 96), generator=gen, device=cuda_device)
     torch.testing.assert_close(tc.combine_rows(dpk, gid, cn, 40),
                                tc.combine_plain(dpk, gid, cn, 40), atol=1e-5, rtol=1e-5)
-
-
-def _leave_nan_block(shape, device):
-    """Frees a NaN-filled block of ``shape``: the caching allocator hands it
-    to the next allocation of that size, so an output the kernel must write
-    in full shows any element it left unwritten."""
-    x = torch.full(shape, float("nan"), device=device)
-    del x
 
 
 def _plain_grad(pk, cn, tiles_x, tx, ty, gacc, gft):
@@ -83,7 +77,7 @@ def test_kernels_at_edge_cases_match_plain(cuda_device, c, case):
     gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
     gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
     ref, live = _plain_grad(pk, cn, tiles_x, 16, 16, gacc, gft)
-    _leave_nan_block(pk.shape, cuda_device)
+    leave_nan_blocks(cuda_device, pk.shape)
     dpk = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, tiles_x, 16, 16)
     assert not dpk[~live.expand_as(dpk)].any() and not dpk[..., -1].any()
     _assert_fields_close(dpk, ref)
@@ -108,9 +102,9 @@ def test_combine_takes_unaligned_rows(cuda_device):
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8), (32, 16), (24, 8), (8, 4), (12, 8),
-                                  (32, 32)])
+                                  (32, 32), (64, 16), (16, 6)])
 def test_backward_at_each_tile_size(cuda_device, tile):
-    """The backward takes tiles of a multiple of 64 pixels up to 512 and
+    """The backward takes tiles of a multiple of 64 pixels up to 1024 and
     matches its plain version there; it raises on any other tile, which the
     forward (multiples of 32 up to 1024) still takes."""
     tx, ty = tile
@@ -124,13 +118,91 @@ def test_backward_at_each_tile_size(cuda_device, tile):
     gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
     gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
     launches = tc.LAUNCHES["composite_bwd"]
-    if (tx * ty) % 64 or tx * ty > 512:
+    if (tx * ty) % 64 or tx * ty > tc.MAX_BWD_P:
         with pytest.raises(ValueError, match="multiple of 64"):
             tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty)
         assert tc.LAUNCHES["composite_bwd"] == launches
         return
     ref, _ = _plain_grad(pk, cn, 3, tx, ty, gacc, gft)
     _assert_fields_close(tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty), ref)
+
+
+def _nan_outputs(t, k, c, p, device):
+    """NaN-filled blocks of the forward's four output shapes."""
+    leave_nan_blocks(device, (t, c, p), (t, 1, p), (t, 1, p), (t, -(-k // tc.CKPT), p))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _live_windows(counts, k):
+    nwin = (counts.long() + tc.CKPT - 1) // tc.CKPT
+    w = torch.arange(-(-k // tc.CKPT), device=counts.device)[None, :]
+    return w < nwin[:, None], w == nwin[:, None] - 1
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_forward_at_edge_cases(cuda_device, c, case):
+    """The forward into NaN-filled blocks against its plain version at each
+    edge case, and its box skip changing no bit of what it writes (against
+    the same kernel walking every live slot at every pixel)."""
+    packed, counts, _, _, tiles_x = edge_tiles(case, c, seed=c)
+    pk, cn = torch.as_tensor(packed, device=cuda_device), torch.as_tensor(counts, device=cuda_device)
+    t, k, _ = pk.shape
+    _nan_outputs(t, k, c, 256, cuda_device)
+    out = tc.composite_fwd(pk, cn, tiles_x, 16, 16)
+    for a, b in zip(out[:3], tc.composite_plain(pk, cn, tiles_x, 16, 16)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    full = tc.composite_fwd(pk, cn, tiles_x, 16, 16, box_skip=False)
+    for a, b in zip(out[:3], full[:3]):
+        assert torch.equal(_bits(a), _bits(b))
+    live, _ = _live_windows(cn, k)
+    assert torch.equal(_bits(out[3][live]), _bits(full[3][live]))
+
+
+@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (32, 5), (32, 1)])
+def test_forward_masks_spare_lanes(cuda_device, tile):
+    """Tiles of a multiple of 32 pixels that is not one of 64: the last warp
+    holds spare lanes without pixels; every pixel is still written, and
+    matches the plain version."""
+    tx, ty = tile
+    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=7, tiles_x=3)
+    pk, cn = torch.as_tensor(packed, device=cuda_device), torch.as_tensor(counts, device=cuda_device)
+    _nan_outputs(6, 96, 3, tx * ty, cuda_device)
+    out = tc.composite_fwd(pk, cn, 3, tx, ty)
+    for a, b in zip(out[:3], tc.composite_plain(pk, cn, 3, tx, ty)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES + ("threshold",))
+def test_backward_takes_the_forwards_checkpoints(cuda_device, case):
+    """The backward fed the forward's checkpoints and final T: its re-sweep
+    reaches, bit for bit, the forward's next checkpoint at each live
+    window's end and its final T after the last; its gradient is the same
+    bits whether the forward skipped slots or walked every one, and (but at
+    the threshold tiles, where torch's exp rounds some alphas to the other
+    side of 1/255) matches the plain version."""
+    if case == "threshold":
+        packed, counts, tiles_x = threshold_tiles(3, seed=3)
+    else:
+        packed, counts, _, _, tiles_x = edge_tiles(case, 3, seed=3)
+    pk, cn = torch.as_tensor(packed, device=cuda_device), torch.as_tensor(counts, device=cuda_device)
+    k = pk.shape[1]
+    accum, ft, _, ckpt = tc.composite_fwd(pk, cn, tiles_x, 16, 16)
+    _, ft_full, _, ckpt_full = tc.composite_fwd(pk, cn, tiles_x, 16, 16, box_skip=False)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
+    gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
+    dpk, t_end = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, tiles_x, 16, 16, resweep=True)
+    live, last = _live_windows(cn, k)
+    want = torch.where(last[..., None], ft, torch.cat([ckpt[:, 1:], ckpt[:, :1]], 1))
+    assert torch.equal(_bits(t_end[live]), _bits(want[live]))
+    dpk_full = tc.composite_bwd(pk, cn, gacc, gft, ft_full, ckpt_full, tiles_x, 16, 16)
+    assert torch.equal(_bits(dpk), _bits(dpk_full))
+    if case != "threshold":
+        _assert_fields_close(dpk, _plain_grad(pk, cn, tiles_x, 16, 16, gacc, gft)[0])
 
 
 def _scene(n, c, seed):

@@ -16,7 +16,7 @@ from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim import splat_cuda as sc
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import cuda_device, leave_nan_blocks  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +45,34 @@ def test_density_kernels_match_plain_on_the_card(cuda_device, m, n, box):
     g = torch.where(live, g, 0.0).contiguous()
     _held(pc.density_bwd_slots(grid.nbr, cnt, *xyz, g, k),
           pc.density_bwd_plain(grid.nbr, cnt, *xyz, g, k), live[..., None].expand(-1, -1, 3))
+
+
+@pytest.mark.parametrize("m,n,box", [(32, 900, 3.0), (128, 1500, 2.0)])
+def test_density_bwd_at_its_edges(cuda_device, m, n, box):
+    """The density's adjoint into a NaN-filled block against its plain
+    version at M = 32 and M = 128 (a row of 128 live slots takes four passes
+    and its neighbourhood several staged chunks), with full rows and one
+    point alone, whose 26 neighbour cells are empty: its gradient is the self
+    pair's exact 0."""
+    rng = np.random.default_rng(m + 1)
+    pts = rng.uniform(0, box, (n, 3))
+    pts[0] = box + 5.5
+    alive = rng.random(n) > 0.1
+    alive[0] = True
+    grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=cuda_device), 1.0,
+                            torch.as_tensor(alive, device=cuda_device), 512, m)
+    cnt, *xyz = pc.planes(grid)
+    assert bool((cnt == m).any()), "no full cell"
+    k = pc.pair_consts(tpbf.PBFParams(h=1.0))
+    live = grid.bmask
+    g = torch.where(live, torch.as_tensor(rng.standard_normal(live.shape).astype(np.float32),
+                                          device=cuda_device), 0.0).contiguous()
+    leave_nan_blocks(cuda_device, live.shape + (3,))
+    got = pc.density_bwd_slots(grid.nbr, cnt, *xyz, g, k)
+    _held(got, pc.density_bwd_plain(grid.nbr, cnt, *xyz, g, k), live[..., None].expand(-1, -1, 3))
+    row, col = int(grid.prow[0]), int(grid.pcol[0])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
+    assert not got[row, col].any()
 
 
 @pytest.mark.parametrize("ms,mq", [(8, 32), (32, 8), (128, 64)])

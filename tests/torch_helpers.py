@@ -13,6 +13,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def leave_nan_blocks(device, *shapes):
+    """Frees NaN-filled blocks of these shapes, and keeps no other free block:
+    the caching allocator hands them to the next allocations of those sizes,
+    so an output a kernel must write in full shows any element it left
+    unwritten."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.full(sh, float("nan"), device=device) for sh in shapes]
+    del blocks
+
+
 def packed_tiles(t=4, k=64, c=3, seed=0, tiles_x=2, tile=16):
     """Depth-sorted packed rows ``(t, k, 7 + c)`` around each tile, with a live
     prefix per tile; returns (packed, counts, live) as numpy. The tiles sit
@@ -97,3 +108,47 @@ def edge_tiles(case, c=3, seed=0, shared_tiles_x=8):
     packed[..., -1] = np.sort(packed[..., -1], 1)  # depth order within each tile
     return (packed.astype(np.float32), np.asarray(counts, np.int32), gid.astype(np.int64), n,
             tiles_x)
+
+
+def threshold_tiles(c=3, seed=0, tiles_x=8, k=64, front=8):
+    """Packed 16 x 16 tiles (tiles_x x tiles_x of them, k live slots each) whose
+    slots after the first ``front`` sit at the edge of the forward's box test:
+    an axis-aligned splat just outside a corner of one warp's pixel box (a
+    tile's 16 columns x 4 rows), its opacity set so that its alpha at that
+    corner pixel is 1/255 to within -3e-7..6e-7 relative. Whether it draws
+    there is decided by the last rounding, so a box test that cut its margin
+    would skip some slots that draw. The ``front`` slots are broad faint
+    splats over the tile. Returns (packed (t, k, 7 + c), counts (t,),
+    tiles_x) as numpy; no plain version agrees with the kernel on every
+    threshold slot (torch's exp rounds differently), so only the kernel with
+    and without its skip are held to each other."""
+    rng = np.random.default_rng(seed)
+    t = tiles_x * tiles_x
+    ty, tx = np.divmod(np.arange(t), tiles_x)
+    rows = np.zeros((t, k, 7 + c))
+    # the broad front splats: centred in the tile, alpha 0.05-0.3
+    rows[:, :front, 0] = tx[:, None] * 16 + rng.uniform(2, 14, (t, front))
+    rows[:, :front, 1] = ty[:, None] * 16 + rng.uniform(2, 14, (t, front))
+    s = rng.uniform(0.002, 0.02, (t, front))
+    rows[:, :front, 2], rows[:, :front, 4] = s, s * rng.uniform(0.5, 1.5, (t, front))
+    rows[:, :front, 5] = rng.uniform(0.05, 0.3, (t, front))
+    # the threshold splats: a corner of warp w's box, the centre dx, dy beyond it
+    n = k - front
+    warp = rng.integers(0, 4, (t, n))
+    right, below = rng.random((t, n)) < 0.5, rng.random((t, n)) < 0.5
+    dx, dy = rng.uniform(0.5, 3, (t, n)), rng.uniform(0.5, 3, (t, n))
+    ca = rng.uniform(0.05, 0.5, (t, n))
+    cc = ca * rng.uniform(0.5, 1.5, (t, n))
+    corner_x = tx[:, None] * 16 + np.where(right, 15, 0)
+    corner_y = ty[:, None] * 16 + 4 * warp + np.where(below, 3, 0)
+    x = corner_x + np.where(right, dx, -dx)
+    y = corner_y + np.where(below, dy, -dy)
+    q = ca * (x - corner_x) ** 2 + cc * (y - corner_y) ** 2
+    op = np.exp(0.5 * q) / 255 * (1 + rng.uniform(-3e-7, 6e-7, (t, n)))
+    keep = op <= 1.0                        # else a weaker splat, far from the edge
+    rows[:, front:, 0], rows[:, front:, 1] = x, y
+    rows[:, front:, 2], rows[:, front:, 4] = ca, cc
+    rows[:, front:, 5] = np.where(keep, op, 0.01)
+    rows[..., 6:6 + c] = rng.uniform(0, 1, (t, k, c))
+    rows[..., 6 + c] = np.sort(rng.uniform(1, 5, (t, k)), 1)
+    return rows.astype(np.float32), np.full(t, k, np.int32), tiles_x
