@@ -11,12 +11,14 @@ It needs one card and exits non-zero, printing no result, without one.
 ``python3 chip_smoke.py mutants [attention|rasterizer|pairs]`` builds broken
 copies of the kernels (six of the attention backward: three of the mma.sync
 pair, three of the Hopper kernel; seven of the rasterizer: four of its
-backward and combine, three of its forward; two of the density's adjoint)
-and shows that each fails a check; ``python3 chip_smoke.py raster [PARENT]``
+backward and combine, three of its forward; six of the pair kernels: two of
+the density's adjoint, two of the density, two of the splat adjoint) and
+shows that each fails a check; ``python3 chip_smoke.py raster [PARENT]``
 checks and times the rasterizer kernels alone at camera 0's tiles (beside
 another checkout's, PARENT, in turns); ``python3 chip_smoke.py pairs
-[PARENT]`` does the same for the gas-loss density's adjoint at the first
-phase-C fit iteration's inputs, with its launch floor (every count 0);
+[PARENT]`` does the same for the gas-loss density, its adjoint and the splat
+adjoint at the first phase-C fit iteration's inputs, with their launch
+floors (every count 0; the splat adjoint also with every query count 0);
 ``python3 chip_smoke.py encode-probe`` tries the
 video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
@@ -1195,43 +1197,79 @@ def first_iteration_inputs(ctx):
                 calls={k: len(v) for k, v in rec.items()})
 
 
-def check_phase_c_kernels(inp):
-    """The four phase-C kernels against their plain versions at the first
-    fit iteration's inputs: pi, the density gradient, wv, ws, g_est and
-    g_vel each at 1e-4 of its own scale over live slots, 0 at dead slots.
-    Returns the max abs error per kernel."""
+def phase_c_calls():
+    """Per phase-C kernel: (wrapper, plain version, its output fields)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
 
-    d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
-    out = {"density_fwd": (pc.density_slots(*d), pc.density_plain(*d)),
-           "density_bwd": (pc.density_bwd_slots(*b), pc.density_bwd_plain(*b)),
-           "splat_fwd": (sc.splat_fwd_slots(*f), sc.splat_fwd_plain(*f)),
-           "splat_bwd": (sc.splat_bwd_slots(*s), sc.splat_bwd_plain(*s))}
+    return {"density_fwd": (pc.density_slots, pc.density_plain, ("pi",)),
+            "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, ("dpi/dx",)),
+            "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, ("wv", "ws")),
+            "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, ("g_est", "g_vel"))}
+
+
+def held_in_nan_blocks(name, args, what):
+    """Phase-C kernel ``name`` at ``args`` with its outputs in NaN-filled
+    blocks (so a slot it leaves unwritten shows), against its plain version
+    on the same inputs: each output field at 1e-4 of its own scale over the
+    live centre slots (the count at args[1], the planes' width at args[2]),
+    and exactly 0 at dead slots. Prints a line per field; returns (max|err|,
+    the names of the fields that failed)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks
+
+    wrapper, plain, fields = phase_c_calls()[name]
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    leave_nan_blocks(args[2].device, *(tuple(w.shape) for w in want))
+    got = wrapper(*args)
+    got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
-    hidden_live = pc._live(d[1], d[2].shape[1])
-    query_live = pc._live(f[1], f[2].shape[1])
-    source_live = pc._live(s[1], s[2].shape[1])
-    fields = (("density_fwd", "pi", out["density_fwd"][0], out["density_fwd"][1], hidden_live),
-              ("density_bwd", "dpi/dx", out["density_bwd"][0], out["density_bwd"][1], hidden_live),
-              ("splat_fwd", "wv", out["splat_fwd"][0][0], out["splat_fwd"][1][0], query_live),
-              ("splat_fwd", "ws", out["splat_fwd"][0][1], out["splat_fwd"][1][1], query_live),
-              ("splat_bwd", "g_est", out["splat_bwd"][0][0], out["splat_bwd"][1][0], source_live),
-              ("splat_bwd", "g_vel", out["splat_bwd"][0][1], out["splat_bwd"][1][1], source_live))
-    errors, failures = {}, []
-    for kernel, name, got, want, live in fields:
-        err = float((got - want)[live].abs().max())
-        scale = float(want[live].abs().max())
-        dead_zero = not bool(got[~live].any())
+    live = pc._live(args[1], args[2].shape[1])
+    worst, failures = 0.0, []
+    for field, g, w in zip(fields, got, want):
+        lv = live if g.dim() == 2 else live[..., None].expand_as(g)
+        err = float((g - w)[lv].abs().max())
+        scale = float(w[lv].abs().max())
+        dead_zero = not bool(g[~lv].any())
         ok = err <= 1e-4 * scale and scale > 0 and dead_zero
-        print(f"phase C kernel check: {kernel} {name} max|err| {err:.3e} / scale {scale:.3e} "
-              f"[tol 1e-4 x scale], dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
-        errors[kernel] = max(errors.get(kernel, 0.0), err)
+        print(f"{what}: {name} {field} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x scale], "
+              f"dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
+        worst = max(worst, err)
         if not ok:
-            failures.append(f"{kernel} {name}")
+            failures.append(f"{name} {field}")
+    return worst, failures
+
+
+def check_phase_c_kernels(inp):
+    """The four phase-C kernels against their plain versions at the first
+    fit iteration's inputs, each output written into NaN-filled blocks: pi,
+    the density gradient, wv, ws, g_est and g_vel each at 1e-4 of its own
+    scale over live slots, 0 at dead slots. Returns the max abs error per
+    kernel."""
+    errors, failures = {}, []
+    for name in PHASE_C_KERNELS:
+        errors[name], failed = held_in_nan_blocks(name, inp[name], "phase C kernel check")
+        failures += failed
     if failures:
         _fail(f"the phase-C kernels disagree with their plain versions: {failures}")
     return errors
+
+
+def launch_floors(name, args):
+    """The launch floors of phase-C kernel ``name`` at ``args``: the same
+    launch with every count 0 and, for the splat adjoint, with every query
+    count 0 and the sources live (most of its source rows have no query in
+    reach on the main path). {label: arguments}."""
+    zero = torch.zeros_like
+    if name in ("density_fwd", "density_bwd"):
+        return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:])}
+    if name == "splat_fwd":
+        return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:5]) + (zero(args[5]),)
+                + tuple(args[6:])}
+    return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:6]) + (zero(args[6]),)
+            + tuple(args[7:]),
+            "every query count 0": tuple(args[:6]) + (zero(args[6]),) + tuple(args[7:])}
 
 
 def _candidates(nbr, cnt_c, cnt_n):
@@ -1263,11 +1301,20 @@ def density_bwd_work(dc):
             9 * dc["cand"] + DENSITY_BWD_IN_RADIUS_OPS * dc["in_radius"])
 
 
-def time_phase_c_kernels(inp):
-    """Each phase-C kernel's device time, its plain version's time and its
-    bound at the first fit iteration's inputs. No single PyTorch call
-    computes these pair sums, so there is no library time."""
-    from fluidnexus_torch.sim import pbf_cuda as pc
+def splat_bwd_reach(s):
+    """The splat adjoint's work at its arguments ``s``: the live source rows
+    that have a query in reach, the sources they hold, and their query
+    lists' lengths (tensor)."""
+    rnbr, scnt, qcnt = s[0].long(), s[1], s[6]
+    lists = qcnt[rnbr].sum(1)
+    active = (scnt[:-1] > 0) & (lists > 0)
+    return int(active.sum()), int(scnt[:-1][active].sum()), lists[active].float()
+
+
+def phase_c_plans(inp):
+    """Each phase-C kernel's wrapper, plain version, arguments, bytes and
+    operations at the first fit iteration's inputs (the counts the bounds
+    are made of, printed)."""
     from fluidnexus_torch.sim import splat_cuda as sc
 
     d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
@@ -1290,7 +1337,7 @@ def time_phase_c_kernels(inp):
     q_rows = torch.unique(rnbr[scnt[:-1] > 0])
     q_rows = q_rows[q_rows < cq]
     n_q_reached = int(qcnt[q_rows].sum())
-    n_src_active = int(scnt[:-1][(qcnt[rnbr] > 0).any(1)].sum())
+    n_src_active = splat_bwd_reach(s)[1]
     print(f"phase C bounds: density {dens_cand} live candidate pairs, {dens_in} in radius (self "
           f"included); splat {splat_cand} live candidate pairs, {splat_in} in radius; "
           f"{n_src} live source and {n_q} live query slots; the forward reaches "
@@ -1300,25 +1347,34 @@ def time_phase_c_kernels(inp):
     table = dc["table"]
     qtable = 4 * (qcnt.numel() + 27 * qrows + len(src_rows))
     stable = 4 * (cnt.numel() + 27 * rows + len(q_rows))
-    plans = {  # name: (wrapper, plain, args, bytes, operations)
-        "density_fwd": (pc.density_slots, pc.density_plain, d, table + 4 * n_src * 4,
-                        9 * dens_cand + DENSITY_IN_RADIUS_OPS * dens_in),
-        "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, b, *density_bwd_work(dc)),
-        "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, f,
-                      qtable + 4 * (n_q * 7 + n_src_reached * 6),
+    calls = phase_c_calls()
+    work = {
+        "density_fwd": (table + 4 * n_src * 4, 9 * dens_cand + DENSITY_IN_RADIUS_OPS * dens_in),
+        "density_bwd": density_bwd_work(dc),
+        "splat_fwd": (qtable + 4 * (n_q * 7 + n_src_reached * 6),
                       9 * splat_cand + SPLAT_FWD_IN_RADIUS_OPS * splat_in),
-        "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, s,
-                      stable + 4 * (n_src_active * 6 + n_q_reached * 7 + n_src * 6),
+        "splat_bwd": (stable + 4 * (n_src_active * 6 + n_q_reached * 7 + n_src * 6),
                       9 * splat_cand + SPLAT_BWD_IN_RADIUS_OPS * splat_in
                       + SPLAT_BWD_SLOT_OPS * n_src),
     }
+    return {name: (calls[name][0], calls[name][1], inp[name], *work[name]) for name in work}
+
+
+def time_phase_c_kernels(inp):
+    """Each phase-C kernel's device time, its launch floor (every count 0),
+    its plain version's time and its bound at the first fit iteration's
+    inputs. No single PyTorch call computes these pair sums, so there is no
+    library time."""
     out = {}
-    for name, (fn, plain, args, nbytes, ops) in plans.items():
-        ms, recorded = kernel_device_ms(lambda: fn(*args), PHASE_C_KERNELS[name][2])
+    for name, (fn, plain, args, nbytes, ops) in phase_c_plans(inp).items():
+        kernel = PHASE_C_KERNELS[name][2]
+        ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
+        floor_args = launch_floors(name, args)["every count 0"]
+        floor_ms, _ = kernel_device_ms(lambda: fn(*floor_args), kernel)
         call_ms = cuda_ms(lambda: fn(*args), iters=50)
         plain_ms = cuda_ms(lambda: plain(*args), iters=3)
-        out[name] = dict(ms=ms, recorded=recorded, call_ms=call_ms, plain_ms=plain_ms,
-                         bound=bound_ms(nbytes, ops), nbytes=nbytes, ops=ops)
+        out[name] = dict(ms=ms, recorded=recorded, floor_ms=floor_ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound=bound_ms(nbytes, ops), nbytes=nbytes, ops=ops)
     return out
 
 
@@ -1478,14 +1534,15 @@ def run_phase_c(dev, model_path):
         b_ms, b_by = tm["bound"]
         source, replaces, _ = PHASE_C_KERNELS[name]
         print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"launches the profiler recorded; a wrapper call {tm['call_ms']:.4f} ms; "
+              f"launches the profiler recorded; launch floor, every count 0, "
+              f"{tm['floor_ms']:.4f} ms; a wrapper call {tm['call_ms']:.4f} ms; "
               f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
               f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
               f"{fit_iters} fit iterations and {n_frames} commits")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": errors[name], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "library_ms": None, "floor_ms": tm["floor_ms"]})
     return kernels, dict(path=model_path, scene=scene, bg=bg)
 
 
@@ -3113,12 +3170,23 @@ RASTER_MUTANTS = {
                                  "  if (cnt == 0) return;")],
 }
 PAIR_SRC = "fluidnexus_torch/csrc/pair_common.cuh"
+PBF_SRC = "fluidnexus_torch/csrc/pbf.cu"
+SPLAT_SRC = "fluidnexus_torch/csrc/splat.cu"
 PAIRS_MUTANTS = {
     "density_bwd_skips_neighbour_26": [
         (PAIR_SRC, "n[q] = nb[q] < C ? cnt[nb[q]] : 0;",
          "n[q] = nb[q] < C && sub * PER + q != 26 ? cnt[nb[q]] : 0;")],
     "density_bwd_stages_one_short": [(PAIR_SRC, "const int c1 = min(c0 + CH, n_tot);",
                                       "const int c1 = min(c0 + CH, n_tot) - 1;")],
+    "density_skips_the_self_entry": [(PBF_SRC, "wa[c] = d2 < h2 ? fmaf(",
+                                      "wa[c] = d2 > 0.0f && d2 < h2 ? fmaf(")],
+    "density_stages_one_short": [(PBF_SRC, "left > 0 ? n_tot : 0, kn, x, y, z, nullptr,",
+                                  "left > 0 ? n_tot - 1 : 0, kn, x, y, z, nullptr,")],
+    "splat_bwd_empty_rows_unwritten": [(SPLAT_SRC, "gx4[i] = gv4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
+                                        ";")],
+    "splat_bwd_fd_by_a_product": [
+        (SPLAT_SRC, "const float fd = d2 < h2 ? (a.v0", "const float fd = (float)(d2 < h2) * (a.v0"),
+        (SPLAT_SRC, "(-3.0f * t2 * t2)\n                               : 0.0f;", "(-3.0f * t2 * t2);")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -3137,7 +3205,7 @@ cs.pairs_checks(torch.device("cuda"))
 # name: (mutants, the libraries they build, the checks they run)
 MUTANT_GROUPS = {"attention": (BWD_MUTANTS, ["attention", "attention_bwd"], _MUTANT_CHECK),
                  "rasterizer": (RASTER_MUTANTS, ["rasterizer"], _RASTER_MUTANT_CHECK),
-                 "pairs": (PAIRS_MUTANTS, ["pbf"], _PAIRS_MUTANT_CHECK)}
+                 "pairs": (PAIRS_MUTANTS, ["pbf", "splat"], _PAIRS_MUTANT_CHECK)}
 
 
 def raster_checks(dev):
@@ -3342,118 +3410,170 @@ def raster_time(parent=None):
             in_turns(name, kernel, call, pmod, tc)
 
 
+PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_bwd": 11}  # rows of PERF.md's kernel table
+PAIRS_LIBS = {"density_fwd": "pbf", "density_bwd": "pbf", "splat_fwd": "splat", "splat_bwd": "splat"}
+SPLAT_BWD_CHUNK = 256  # query list entries the splat adjoint stages at once (csrc/splat.cu)
+
+
 def pairs_time(parent=None):
-    """``python3 chip_smoke.py pairs [PARENT]``: the gas-loss density's
-    adjoint (row 9 of PERF.md's kernel table) alone at the first phase-C fit
-    iteration's inputs, made as ``train`` makes them (phases A and B, frame
-    1's simulation; the rasterizer, pbf and splat libraries are built for
-    that). Prints the
+    """``python3 chip_smoke.py pairs [PARENT]``: the gas-loss density, its
+    adjoint and the splat adjoint (rows 8, 9 and 11 of PERF.md's kernel
+    table) alone at the first phase-C fit iteration's inputs, made as
+    ``train`` makes them (phases A and B, frame 1's simulation; the
+    rasterizer, pbf and splat libraries are built for that). Prints the
     hidden grid's live cells, live candidate and in-radius pairs and the
-    neighbourhood lists' lengths, the kernel against its plain version (dx
-    into a NaN-filled block), its time on the card beside its bound, and its
-    launch floor: the same kernel on the same (C+1) x M grid with every count
-    0. With the root of another checkout as PARENT (a ``git archive`` of the
-    parent commit), that checkout's ``csrc/pbf.cu`` is built as well, timed
-    alone, held against this one's, and both are timed in turns (parent,
-    this, this, parent), floors included."""
+    neighbourhood lists' lengths, the splat adjoint's source rows with a
+    query in reach and their query lists, each kernel against its plain
+    version (outputs in NaN-filled blocks), its time on the card beside its
+    bound, and its launch floors: the same launch with every count 0 and, for
+    the splat adjoint, with every query count 0 and the sources live; and
+    the splat forward's (row 10) time and floor. With the root of another
+    checkout as PARENT (a ``git archive`` of the parent commit), that
+    checkout's ``csrc/pbf.cu`` and ``csrc/splat.cu`` are built as well, its
+    kernels are timed alone and held against this one's bit for bit, and
+    both are timed in turns (parent, this, this, parent), floors included."""
     from fluidnexus_torch.ops import cuda_build
     from fluidnexus_torch.sim import pbf_cuda as pc
-    from tests.torch_helpers import leave_nan_blocks
+    from fluidnexus_torch.sim import splat_cuda as sc
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
+    this = {"pbf": pc, "splat": sc}
     with tempfile.TemporaryDirectory(prefix="fnx_pairs_") as tmp:
-        pmod, proc = (_parent_module(parent, tmp, "pbf", "fluidnexus_torch/sim/pbf_cuda.py")
-                      if parent else (None, None))
+        pmods, procs = {}, {}
+        if parent:
+            for lib, module in (("pbf", "fluidnexus_torch/sim/pbf_cuda.py"),
+                                ("splat", "fluidnexus_torch/sim/splat_cuda.py")):
+                pmods[lib], procs[lib] = _parent_module(parent, tmp, lib, module)
         for name, info in cuda_build.build(["rasterizer", "pbf", "splat"]).items():
             print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
-        if proc is not None:
-            _wait_parent_build(proc, "pbf")
+        for lib, proc in procs.items():
+            _wait_parent_build(proc, lib)
         cfg = phase_c_config()
         scene = smoke_scene()
         bg = synthetic_background(32768, dev)
         render_ground_truth(cfg, scene, bg, dev)
-        b = first_iteration_inputs(phase_c_start(cfg, scene, bg, dev))["density_bwd"]
-        nbr, cnt, g = b[0], b[1], b[5]
+        inp = first_iteration_inputs(phase_c_start(cfg, scene, bg, dev))
+        b = inp["density_bwd"]
+        nbr, cnt = b[0], b[1]
         dc = density_counts(b[:5] + b[6:])
         lists = cnt[nbr.long()].sum(1)[cnt[:-1] > 0].float()
-        print(f"row 9's inputs: C {nbr.shape[0]} M {b[2].shape[1]}, {dc['rows']} live cells, "
+        print(f"rows 8 and 9's inputs: C {nbr.shape[0]} M {b[2].shape[1]}, {dc['rows']} live cells, "
               f"{dc['n_src']} live slots (fullest cell {int(cnt.max())}), {dc['cand']} live "
               f"candidate pairs, {dc['in_radius']} in radius (self included); a live cell's "
               f"neighbourhood holds {float(lists.mean()):.1f} live slots on average, at most "
               f"{int(lists.max())}")
-        floor_args = (nbr, torch.zeros_like(cnt)) + tuple(b[2:])
-        if pmod is not None:
-            for what, args in (("the kernel", b), ("its launch floor", floor_args)):
-                ms, rec = kernel_device_ms(lambda: pmod.density_bwd_slots(*args), "density_bwd_kernel")
-                print(f"parent alone: density_bwd {what} {ms:.4f} ms on the card ({rec})")
-        leave_nan_blocks(dev, tuple(b[2].shape) + (3,))
-        got = pc.density_bwd_slots(*b)
-        want = pc.density_bwd_plain(*b)
-        live = pc._live(cnt, b[2].shape[1])[..., None].expand_as(got)
-        err = float((got - want)[live].abs().max())
-        scale = float(want[live].abs().max())
-        dead_zero = not bool(got[~live].any())
-        print(f"density_bwd dpi/dx max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x scale], dead "
-              f"slots 0: {dead_zero}")
-        if not (err <= 1e-4 * scale and dead_zero):
-            _fail("density_bwd disagrees with its plain version")
-        b_ms, b_by = bound_ms(*density_bwd_work(dc))
-        ms, rec = kernel_device_ms(lambda: pc.density_bwd_slots(*b), "density_bwd_kernel")
-        floor, floor_rec = kernel_device_ms(lambda: pc.density_bwd_slots(*floor_args),
-                                            "density_bwd_kernel")
-        print(f"density_bwd {ms:.4f} ms on the card ({rec}), launch floor (every count 0) "
-              f"{floor:.4f} ms ({floor_rec}), bound {b_ms:.5f} ms by {b_by}")
-        if pmod is None:
+        s = inp["splat_bwd"]
+        rows, sources, qlists = splat_bwd_reach(s)
+        print(f"row 11's inputs: Cs {s[0].shape[0]} Ms {s[2].shape[1]}, Cq {s[6].numel() - 1} Mq "
+              f"{s[7].shape[1]}; {int((s[1][:-1] > 0).sum())} live source rows holding "
+              f"{int(s[1].sum())} sources, {int(s[6].sum())} live queries; {rows} source rows "
+              f"holding {sources} sources have a query in reach, their query lists "
+              f"{float(qlists.mean()):.1f} entries on average, at most {int(qlists.max())}")
+        plans = phase_c_plans(inp)
+        runs = {}  # (kernel, what): arguments
+        for name in (*PAIRS_ROWS, "splat_fwd"):
+            runs[(name, "the kernel")] = plans[name][2]
+            for label, args in launch_floors(name, plans[name][2]).items():
+                runs[(name, f"launch floor, {label}")] = args
+
+        def call(module, name, args):
+            return getattr(module, plans[name][0].__name__)(*args)
+
+        if pmods:
+            for (name, what), args in runs.items():
+                if name in PAIRS_ROWS:
+                    ms, rec = kernel_device_ms(lambda: call(pmods[PAIRS_LIBS[name]], name, args),
+                                               PHASE_C_KERNELS[name][2])
+                    print(f"parent alone: row {PAIRS_ROWS[name]} {name} {what} {ms:.4f} ms on the "
+                          f"card ({rec})")
+        failures = []
+        for name in PAIRS_ROWS:
+            failures += held_in_nan_blocks(name, plans[name][2], f"row {PAIRS_ROWS[name]}")[1]
+        if failures:
+            _fail(f"the pair kernels disagree with their plain versions: {failures}")
+        for (name, what), args in runs.items():
+            ms, rec = kernel_device_ms(lambda: call(this[PAIRS_LIBS[name]], name, args),
+                                       PHASE_C_KERNELS[name][2])
+            bound = ""
+            if what == "the kernel":
+                b_ms, b_by = bound_ms(*plans[name][3:])
+                bound = f", bound {b_ms:.5f} ms by {b_by}"
+            print(f"row {PAIRS_ROWS.get(name, 10)} {name} {what}: {ms:.4f} ms on the card "
+                  f"({rec}){bound}")
+        if not pmods:
             return
-        theirs = pmod.density_bwd_slots(*b)
-        print(f"density_bwd this against the parent: max|diff| {float((got - theirs).abs().max()):.3e}, "
-              f"bit-identical {bits_equal(got, theirs)}")
-        for what, args in (("density_bwd", b), ("density_bwd launch floor", floor_args)):
-            in_turns(what, "density_bwd_kernel", lambda m, a=args: m.density_bwd_slots(*a), pmod, pc)
+        for name in PAIRS_ROWS:
+            mine, theirs = (call(m[PAIRS_LIBS[name]], name, plans[name][2]) for m in (this, pmods))
+            mine, theirs = ((o,) if torch.is_tensor(o) else o for o in (mine, theirs))
+            diff = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
+            same = all(bits_equal(a, b) for a, b in zip(mine, theirs))
+            print(f"row {PAIRS_ROWS[name]} {name} this against the parent: max|diff| {diff:.3e}, "
+                  f"bit-identical {same}")
+        for (name, what), args in runs.items():
+            if name in PAIRS_ROWS:
+                lib = PAIRS_LIBS[name]
+                in_turns(f"row {PAIRS_ROWS[name]} {name} {what}", PHASE_C_KERNELS[name][2],
+                         lambda m, n=name, a=args: call(m, n, a), pmods[lib], this[lib])
 
 
 def pairs_checks(dev):
-    """density_bwd against its plain version (dx into a NaN-filled block) at
-    M = 32 and M = 128 over seeded points with full rows and one isolated
-    point, whose 26 neighbour cells are empty: what a pairs mutant has to get
-    past."""
-    from fluidnexus_torch.ops.neighbors import build_dense_grid
+    """The gas-loss density, its adjoint and the splat adjoint against their
+    plain versions, every output written into NaN-filled blocks: the density
+    pair at M = 32 and M = 128 over seeded points with full rows and one
+    isolated point, whose 26 neighbour cells are empty (its pi must be the
+    plain version's bit for bit: the self term alone); the splat adjoint at
+    (Ms, Mq) = (32, 32) and (128, 128) with full query rows, query lists
+    that span several staged chunks, and source rows with no query in reach,
+    which must read exactly 0, as must row Cs. What a pairs mutant has to
+    get past."""
     from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.sim import pbf_cuda as pc
-    from tests.torch_helpers import leave_nan_blocks
+    from fluidnexus_torch.sim import splat_cuda as sc
+    from tests.torch_helpers import isolated_point_grid, splat_edge_grids
 
     failures = []
-    for m, n, box in ((32, 900, 3.0), (128, 1500, 2.0)):
-        rng = np.random.default_rng(m)
-        pts = rng.uniform(0, box, (n, 3))
-        pts[0] = box + 5.5
-        alive = rng.random(n) > 0.1
-        alive[0] = True
-        grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=dev), 1.0,
-                                torch.as_tensor(alive, device=dev), 512, m)
+    k = pc.pair_consts(tpbf.PBFParams(h=1.0))
+    for m in (32, 128):
+        grid, rng = isolated_point_grid(m, dev, seed=m)
         cnt, *xyz = pc.planes(grid)
-        k = pc.pair_consts(tpbf.PBFParams(h=1.0))
         live = grid.bmask
         g = torch.where(live, torch.as_tensor(rng.standard_normal(live.shape).astype(np.float32),
                                               device=dev), 0.0).contiguous()
-        leave_nan_blocks(dev, tuple(live.shape) + (3,))
-        got = pc.density_bwd_slots(grid.nbr, cnt, *xyz, g, k)
-        want = pc.density_bwd_plain(grid.nbr, cnt, *xyz, g, k)
-        lv = live[..., None].expand_as(got)
-        err = float((got - want)[lv].abs().max())
-        scale = float(want[lv].abs().max())
-        dead_zero = not bool(got[~lv].any())
+        for name, args in (("density_fwd", (grid.nbr, cnt, *xyz, k)),
+                           ("density_bwd", (grid.nbr, cnt, *xyz, g, k))):
+            failures += [f"M {m}: {f}" for f in
+                         held_in_nan_blocks(name, args, f"pairs check, M {m}")[1]]
+        row, col = int(grid.prow[0]), int(grid.pcol[0])
+        alone = int(cnt[grid.nbr[row].long()].sum()) == 1
+        pi = pc.density_slots(grid.nbr, cnt, *xyz, k)[row, col]
+        want = pc.density_plain(grid.nbr, cnt, *xyz, k)[row, col]
         full = bool((cnt == m).any())
-        print(f"pairs check, M {m}: density_bwd max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
-              f"scale], dead slots 0: {dead_zero}, a full row: {full}")
-        if not (err <= 1e-4 * scale and dead_zero and full):
-            failures.append(f"M {m}")
+        print(f"pairs check, M {m}: a full row {full}; the isolated point (alone: {alone}) pi "
+              f"{float(pi):.9g}, plain {float(want):.9g}, bit for bit {bits_equal(pi, want)}")
+        if not (full and alone and bits_equal(pi, want)):
+            failures.append(f"M {m}: the full row or the isolated point")
+    for ms, mq in ((32, 32), (128, 128)):
+        planes, qplanes, rnbr, vel, p, q = splat_edge_grids(ms, mq, dev, seed=ms + mq)
+        args = (rnbr, *planes, vel, *qplanes, p, q, 1.0)
+        what = f"pairs check, (Ms, Mq) = ({ms}, {mq})"
+        failures += [f"({ms}, {mq}): {f}" for f in held_in_nan_blocks("splat_bwd", args, what)[1]]
+        scnt, qcnt = planes[0], qplanes[0]
+        lists = qcnt[rnbr.long()].sum(1)
+        none = torch.nonzero((lists == 0) & (scnt[:-1] > 0))[:, 0]
+        gx, gv = sc.splat_bwd_slots(*args)
+        zero = not bool(gx[none].any() or gv[none].any())
+        chunked = int(lists.max()) > SPLAT_BWD_CHUNK
+        print(f"{what}: {len(none)} live source rows with no query in reach, all 0: {zero}; a "
+              f"full query row {bool((qcnt == mq).any())}; the longest query list "
+              f"{int(lists.max())} entries (more than one chunk of {SPLAT_BWD_CHUNK}: {chunked})")
+        if not (len(none) > 0 and zero and chunked and bool((qcnt == mq).any())):
+            failures.append(f"({ms}, {mq}): the rows with no query in reach or the lists")
     if failures:
-        _fail(f"density_bwd disagrees with its plain version: {failures}")
+        _fail(f"the pair kernels disagree with their plain versions: {failures}")
 
 
 def encode_probe():

@@ -30,24 +30,34 @@ inline int threads_for(int M) { return (M + 31) / 32 * 32; }
 
 // ---------------------------------------------------------------------------
 // A centre row's neighbourhood, staged for a pair loop. A group of L lanes of
-// one warp owns the centre row. The live slots of its 27 neighbour rows, in
-// neighbour order and then slot order, form one list of n_tot entries: slot s
-// of neighbour j is entry pre_j + s, pre_j the live slots of the neighbours
-// before j. load_nbr_table reads the 27 rows' ids and then their counts, each
-// with every load of the group in flight at once (two round trips in all, not
-// two for each neighbour), and keeps ids, counts and list offsets in shared
-// memory. stage_chunk copies the entries [c0, c0 + CH) into shared memory as
-// float4 (x + shift, y + shift, z + shift, w), w a fourth per-slot plane,
-// entry by entry across the group's lanes with their loads in flight; the
-// shift is added once (exact: 0 or +-h, as the per-neighbour staging of the
-// other kernels adds it). Shifts and counts follow shift() and the
-// front-compacted rows, so a pair loop over the list sees the pairs, in the
-// order, of a walk over the 27 rows. Entries past the group's list, up to
-// `fill`, hold far ones (FAR, w = 0): a pair with one is out of radius (its
-// d2 overflows to inf) and every term of it is finite, so a warp can run one
-// trip count for all its groups with no test of the list's end.
+// one warp owns the centre row (GROUP_LANES in the kernels that use it). The
+// live slots of its 27 neighbour rows, in neighbour order and then slot
+// order, form one list of n_tot entries: slot s of neighbour j is entry
+// pre_j + s, pre_j the live slots of the neighbours before j. load_nbr_table
+// reads the 27 rows' ids and then their counts, each with every load of the
+// group in flight at once (two round trips in all, not two for each
+// neighbour), and keeps ids, counts and list offsets in shared memory.
+// stage_chunk copies the entries [c0, c0 + CH) into shared memory as float4
+// (x + shift, y + shift, z + shift, w), w a fourth per-slot plane or 0
+// (Extra), and where asked a second float4 list (v0, v1, v2, 0) of a
+// per-slot 3-vector, entry by entry across the group's lanes with their loads
+// in flight; the shift is added once (exact: 0 or +-h, as the per-neighbour
+// staging of the other kernels adds it). Shifts and counts follow shift() and
+// the front-compacted rows, so a pair loop over the list sees the pairs, in
+// the order, of a walk over the 27 rows. Entries past the group's list, up to
+// `fill`, hold far ones (FAR, w = 0, and a second list's entry 0): a pair
+// with one is out of radius (its d2 overflows to inf, so h^2 - d2 is -inf),
+// and a pair loop that selects its terms on d2 < h^2 (never multiplies one by
+// a 0/1 factor) stays finite, so a warp can run one trip count for all its
+// groups with no test of the list's end.
 // ---------------------------------------------------------------------------
 constexpr float FAR = 1e30f;
+constexpr int GROUP_LANES = 16;                           // lanes that own a centre row
+constexpr int GROUP_CPL = 32 / GROUP_LANES;               // centre slots a lane may hold: a pass covers 32
+constexpr int GROUP_WARPS = 2;                            // warps a block
+constexpr int GROUP_ROWS = GROUP_WARPS * 32 / GROUP_LANES;  // rows a block
+static_assert(GROUP_LANES * GROUP_CPL == 32, "a pass covers 32 centre slots");
+
 struct NbrTable {
   int nb[27];   // neighbour rows, C where there is none
   int n[27];    // their live slots, 0 where there is none
@@ -96,20 +106,27 @@ __device__ __forceinline__ int load_nbr_table(NbrTable& tab, const int* __restri
   return __shfl_sync(0xffffffffu, incl, L - 1, L);
 }
 
-// Entries [c0, min(c0 + CH, n_tot)) of the group's list into dst, then far
-// entries up to dst[fill - 1] (fill <= CH). Lane sub takes the entries
-// c0 + sub + L m: for each it finds the neighbour j (the last whose pre_j <= e,
-// a five-step search of the table), loads its slot's four planes with every
-// load of ROUND entries in flight, adds the shift and stores the float4.
-// Every lane of the warp calls it.
-template <int L, int CH, int ROUND>
+// What stage_chunk stages beside the shifted coordinates: nothing (w = 0; no
+// load spent on a plane the pair loop ignores), the fourth plane w, or w and
+// a second list of the per-slot 3-vector v3 ((C+1, M, 3), interleaved).
+enum Extra { NO_W, W_PLANE, W_VEC3 };
+
+// Entries [c0, min(c0 + CH, n_tot)) of the group's list into dst (and dst2
+// for W_VEC3), then far entries up to dst[fill - 1] (fill <= CH). Lane sub
+// takes the entries c0 + sub + L m: for each it finds the neighbour j (the
+// last whose pre_j <= e, a five-step search of the table), loads its slot's
+// planes with every load of ROUND entries in flight, adds the shift and
+// stores the float4s. Every lane of the warp calls it.
+template <int L, int CH, int ROUND, Extra X = W_PLANE>
 __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, int c0, int n_tot,
                                             int fill, const float* __restrict__ x,
                                             const float* __restrict__ y, const float* __restrict__ z,
-                                            const float* __restrict__ w, int M, float h, int sub) {
+                                            const float* __restrict__ w, int M, float h, int sub,
+                                            float4* dst2 = nullptr,
+                                            const float* __restrict__ v3 = nullptr) {
   const int c1 = min(c0 + CH, n_tot);
   for (int e0 = c0 + sub; e0 < c0 + fill; e0 += L * ROUND) {
-    float4 v[ROUND];
+    float4 v[ROUND], u[ROUND];
     int jj[ROUND];
 #pragma unroll
     for (int m = 0; m < ROUND; ++m) {
@@ -121,19 +138,23 @@ __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, in
         for (int step = 16; step > 0; step >>= 1)
           if (j + step < 27 && tab.pre[j + step] <= e) j += step;
         const size_t at = (size_t)tab.nb[j] * M + (e - tab.pre[j]);
-        v[m] = make_float4(x[at], y[at], z[at], w[at]);
+        v[m] = make_float4(x[at], y[at], z[at], X == NO_W ? 0.0f : w[at]);
+        if constexpr (X == W_VEC3) u[m] = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
         jj[m] = j;
       }
     }
 #pragma unroll
     for (int m = 0; m < ROUND; ++m) {
       const int e = e0 + L * m;
-      if (jj[m] >= 0)
+      if (jj[m] >= 0) {
         dst[e - c0] = make_float4(__fadd_rn(v[m].x, shift(jj[m], 0, h)),
                                   __fadd_rn(v[m].y, shift(jj[m], 1, h)),
                                   __fadd_rn(v[m].z, shift(jj[m], 2, h)), v[m].w);
-      else if (e < c0 + fill)
+        if constexpr (X == W_VEC3) dst2[e - c0] = u[m];
+      } else if (e < c0 + fill) {
         dst[e - c0] = make_float4(FAR, FAR, FAR, 0.0f);
+        if constexpr (X == W_VEC3) dst2[e - c0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
     }
   }
   __syncwarp();

@@ -18,8 +18,8 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// One block per row, one thread per centre slot (density_bwd_kernel: half a
-// warp per row); dead slots and rows are masked by the counts, so no
+// One block per row, one thread per centre slot (the gas loss's density and
+// its adjoint: half a warp per row); dead slots and rows are masked by the counts, so no
 // sentinel coordinates are needed. The pair terms are fnx::pair_terms and
 // fnx::phase2_terms (pair_common.cuh), the same device functions in every
 // generation.
@@ -409,6 +409,40 @@ __global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The gas loss's density and its adjoint: two pair walks over the same grid
+// and the same 27 neighbours, at ~8 live slots a row on the main path. A walk
+// of one block per row that waits on each neighbour's id, count and slots in
+// turn is bound by those ~80 dependent trips to memory, not by its
+// operations, and a lane per centre slot leaves most of a warp idle. Both
+// kernels take one design instead: a group of GROUP_LANES lanes owns a row
+// (two rows a warp, GROUP_ROWS a block), so a row's few live slots fill half
+// a warp; the group reads the 27 ids and counts in two trips
+// (load_nbr_table) and stages the row's whole neighbourhood as one list of
+// shifted coordinates, many entries a lane with their loads in flight
+// (stage_chunk, chunks of DENS_CHUNK entries, which also bounds it at
+// M = MAX_M); then the pair loop runs over the list with no barrier and no
+// branch: a pair out of radius, or with a far entry past the list, adds
+// nothing, which leaves the sums' bits as they are, so the compiler can
+// overlap the iterations. A lane holds one centre slot, or two where a row of
+// the warp has more than GROUP_LANES live slots; a pass covers 32, and a row
+// of more takes more passes. Each slot's sum runs in neighbour order, then
+// slot order, with the arithmetic of a walk over the rows, so it adds the
+// same terms in the same order.
+// ---------------------------------------------------------------------------
+using fnx::GROUP_CPL;
+using fnx::GROUP_LANES;
+using fnx::GROUP_ROWS;
+using fnx::GROUP_WARPS;
+constexpr int DENS_CHUNK = 384;  // list entries a row stages at once
+constexpr int DENS_ROUND = 16;   // entries a lane stages with its loads in flight (the adjoint)
+// the density stages a whole chunk in one round of loads: with three planes
+// an entry the registers allow it, and a list of up to DENS_CHUNK entries
+// (~270 at most on the main path) then costs one trip, not two
+constexpr int DENS_FWD_ROUND = DENS_CHUNK / GROUP_LANES;
+
+size_t density_smem() { return (size_t)GROUP_ROWS * DENS_CHUNK * sizeof(float4); }
+
+// ---------------------------------------------------------------------------
 // Gas-loss density. Replaces the Pallas kernel
 // fluidnexus_tpu/sim/pbf_pallas.py:_density_kernel_v2 (wrapper
 // density_slots_v2). Per live slot: pi = sum over every live slot s of the 27
@@ -417,56 +451,85 @@ __global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
 //
 // Bound on the H100: 9 f32 operations per live candidate pair (the shifted
 // difference, d2 and the test) and 5 more per pair in radius, against one
-// read of three coordinate planes and one written plane: bound by operations.
-// Same design as phase 1 (one block per row, one thread per centre slot,
-// each neighbour row staged once in shared memory), with one accumulator.
-// d2 is formed without FMA, as in phases 1 and 2, so the kernel and its plain
-// version take the same pairs; the power (h^2 - d2)^3 is left to the
-// compiler: it goes to 0 at d2 = h^2, so a flip at the threshold moves pi by
-// nothing measurable.
+// read of three coordinate planes and one written plane: bound by operations,
+// and in practice by the latency of the walk (the design above). Points of
+// this kernel:
+// - The list carries three planes: stage_chunk's NO_W form loads no fourth
+//   plane (staging x again as one would cost a load a staged entry, an L1 hit,
+//   for nothing) and leaves the float4's w at 0; the entry stays one 16-byte
+//   shared load in the pair loop.
+// - The self pair needs no test: its entry is neighbour 13's own slot with
+//   shift 0, so each difference is x - x = 0 exactly and d2 = 0.
+// - d2 is formed without FMA, as in phases 1 and 2, so the kernel and its
+//   plain version take the same pairs; the power is c6 t2 t2 times t2 added
+//   by one FMA, as the walk over rows compiled `pi += c6 t2 t2 t2` (nvcc
+//   contracts the last product into the sum), and the select keeps the sum
+//   where d2 >= h^2 (a far entry's t2 is -inf, so its terms must never reach
+//   the sum, not even times 0).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) density_kernel(
+template <int NC>
+__device__ __forceinline__ void density_sweep(const float4* list, int kn, const float (&xc)[GROUP_CPL],
+                                              const float (&yc)[GROUP_CPL],
+                                              const float (&zc)[GROUP_CPL], float (&wa)[GROUP_CPL],
+                                              float h2, float c6) {
+#pragma unroll 16
+  for (int k = 0; k < kn; ++k) {
+    const float4 s = list[k];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float d2 = norm2_rn(__fsub_rn(xc[c], s.x), __fsub_rn(yc[c], s.y), __fsub_rn(zc[c], s.z));
+      const float t2 = h2 - d2;
+      wa[c] = d2 < h2 ? fmaf(c6 * t2 * t2, t2, wa[c]) : wa[c];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) density_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi, int C, int M,
     float h, float h2, float c6) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M];
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
-  if (n_c == 0) {
-    if (i < M) pi[at] = 0.0f;
-    return;
-  }
-  const bool live = i < n_c;
-  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
-  float wa = 0.0f;
-  for (int j = 0; j < 27; ++j) {
-    const int nb = nbr[cell * 27 + j];
-    if (nb >= C) continue;
-    const int n_s = cnt[nb];
-    if (n_s == 0) continue;
-    __syncthreads();
-    if (i < n_s) {
-      const size_t src = (size_t)nb * M + i;
-      sx[i] = __fadd_rn(x[src], shift(j, 0, h));
-      sy[i] = __fadd_rn(y[src], shift(j, 1, h));
-      sz[i] = __fadd_rn(z[src], shift(j, 2, h));
+  extern __shared__ float4 dens_lists[];  // [GROUP_ROWS][DENS_CHUNK]
+  __shared__ fnx::NbrTable tabs[GROUP_ROWS];
+  const int grp = threadIdx.x / GROUP_LANES;
+  const int sub = threadIdx.x % GROUP_LANES;
+  const int row = blockIdx.x * GROUP_ROWS + grp;
+  float4* list = dens_lists + grp * DENS_CHUNK;
+  const int n_c = row <= C ? cnt[row] : 0;
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  if (row <= C)
+    for (int i = n_c + sub; i < M; i += GROUP_LANES) pi[(size_t)row * M + i] = 0.0f;  // dead slots
+  const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_c + 31) / 32);
+  const int list_max = __reduce_max_sync(FULL_MASK, n_c > 0 ? (unsigned)n_tot : 0u);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int left = n_c - pass * 32;  // this row's live centre slots from the pass on
+    // centre slots a lane of the warp holds in this pass, at most
+    const int cpl = __reduce_max_sync(FULL_MASK, left > GROUP_LANES ? (unsigned)GROUP_CPL : 1u);
+    bool live[GROUP_CPL];
+    float xc[GROUP_CPL], yc[GROUP_CPL], zc[GROUP_CPL], wa[GROUP_CPL];
+#pragma unroll
+    for (int c = 0; c < GROUP_CPL; ++c) {
+      const int i = sub + c * GROUP_LANES;
+      const size_t at = (size_t)row * M + pass * 32 + i;
+      live[c] = i < left;
+      xc[c] = live[c] ? x[at] : 0.0f;
+      yc[c] = live[c] ? y[at] : 0.0f;
+      zc[c] = live[c] ? z[at] : 0.0f;
+      wa[c] = 0.0f;
     }
-    __syncthreads();
-    if (!live) continue;
-    const bool self_row = nb == cell;
-    for (int s = 0; s < n_s; ++s) {
-      const float d2 = (self_row && s == i)
-                           ? 0.0f
-                           : norm2_rn(__fsub_rn(xc, sx[s]), __fsub_rn(yc, sy[s]), __fsub_rn(zc, sz[s]));
-      if (d2 < h2) {
-        const float t2 = h2 - d2;
-        wa += c6 * t2 * t2 * t2;
-      }
+    for (int c0 = 0; c0 < list_max; c0 += DENS_CHUNK) {
+      const int kn = min(DENS_CHUNK, list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<GROUP_LANES, DENS_CHUNK, DENS_FWD_ROUND, fnx::NO_W>(
+          list, tabs[grp], c0, left > 0 ? n_tot : 0, kn, x, y, z, nullptr, M, h, sub);
+      if (cpl == 1)
+        density_sweep<1>(list, kn, xc, yc, zc, wa, h2, c6);
+      else
+        density_sweep<GROUP_CPL>(list, kn, xc, yc, zc, wa, h2, c6);
+      __syncwarp();  // the chunk is consumed before the next one is staged
     }
+#pragma unroll
+    for (int c = 0; c < GROUP_CPL; ++c)
+      if (live[c]) pi[(size_t)row * M + pass * 32 + sub + c * GROUP_LANES] = wa[c];
   }
-  if (i < M) pi[at] = live ? wa : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -482,33 +545,9 @@ __global__ void __launch_bounds__(MAX_M) density_kernel(
 //
 // Bound on the H100: 9 f32 operations per live candidate pair and 12 more per
 // pair in radius, against one read of four planes and one write of three:
-// bound by operations, but at the smoke shapes (~8 live slots a row, ~180
-// candidates each) a row is a few thousand operations, and a walk that waits
-// on each neighbour's id, count and slots in turn is bound by those ~80
-// dependent trips to memory instead. The design: a group of DBW_LANES lanes
-// owns a row (two rows a warp, DBW_ROWS a block), so a row's few live slots
-// fill half a warp; the group reads the 27 ids and counts in two trips
-// (load_nbr_table) and stages the row's whole neighbourhood as one list of
-// shifted coordinates and g, DBW_ROUND entries a lane with their loads in
-// flight (stage_chunk, chunks of DBW_CHUNK entries, which also bounds it at
-// M = MAX_M); then the pair loop runs over the list with no barrier and no
-// branch: a pair out of radius, or with a far entry past the list, adds
-// b = 0, which leaves the sums' bits as they are, so the compiler can
-// overlap the iterations. A lane
-// holds one centre slot, or two where a row of the warp has more than
-// DBW_LANES live slots; a pass covers 32, and a row of more takes more
-// passes. Each slot's sum runs in neighbour order, then slot order, with the
-// arithmetic of the walk over rows, so it adds the same terms in the same
-// order.
+// bound by operations, and in practice by the latency of the walk. The list
+// carries g as its fourth plane.
 // ---------------------------------------------------------------------------
-constexpr int DBW_LANES = 16;                         // lanes that own a centre row
-constexpr int DBW_CPL = 32 / DBW_LANES;               // centre slots a lane may hold: a pass covers 32
-constexpr int DBW_WARPS = 2;                          // warps a block
-constexpr int DBW_ROWS = DBW_WARPS * 32 / DBW_LANES;  // rows a block
-constexpr int DBW_CHUNK = 384;                        // list entries a row stages at once
-constexpr int DBW_ROUND = 16;                         // entries a lane stages with its loads in flight
-
-size_t density_bwd_smem() { return (size_t)DBW_ROWS * DBW_CHUNK * sizeof(float4); }
 
 // The pair loop over kn staged entries for the first NC centre slots a lane
 // holds: no branch, so the compiler can overlap the iterations. b = 0 (out
@@ -516,10 +555,10 @@ size_t density_bwd_smem() { return (size_t)DBW_ROWS * DBW_CHUNK * sizeof(float4)
 // 0 * e, which leaves a sum's bits as they are; 2 c3 folds the pair's
 // factor 2 in exactly (a power of two).
 template <int NC>
-__device__ __forceinline__ void dbw_sweep(const float4* list, int kn, const float (&xc)[DBW_CPL],
-                                          const float (&yc)[DBW_CPL], const float (&zc)[DBW_CPL],
-                                          const float (&gc)[DBW_CPL], float (&a0)[DBW_CPL],
-                                          float (&a1)[DBW_CPL], float (&a2)[DBW_CPL], float h2,
+__device__ __forceinline__ void dbw_sweep(const float4* list, int kn, const float (&xc)[GROUP_CPL],
+                                          const float (&yc)[GROUP_CPL], const float (&zc)[GROUP_CPL],
+                                          const float (&gc)[GROUP_CPL], float (&a0)[GROUP_CPL],
+                                          float (&a1)[GROUP_CPL], float (&a2)[GROUP_CPL], float h2,
                                           float c3x2) {
 #pragma unroll 4
   for (int k = 0; k < kn; ++k) {
@@ -537,23 +576,22 @@ __device__ __forceinline__ void dbw_sweep(const float4* list, int kn, const floa
   }
 }
 
-__global__ void __launch_bounds__(DBW_WARPS * 32) density_bwd_kernel(
+__global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ g,
     float* __restrict__ dx, int C, int M, float h, float h2, float c6) {
-  static_assert(DBW_LANES * DBW_CPL == 32, "a pass covers 32 centre slots");
-  extern __shared__ float4 dbw_lists[];  // [DBW_ROWS][DBW_CHUNK]
-  __shared__ fnx::NbrTable tabs[DBW_ROWS];
-  const int grp = threadIdx.x / DBW_LANES;
-  const int sub = threadIdx.x % DBW_LANES;
-  const int row = blockIdx.x * DBW_ROWS + grp;
-  float4* list = dbw_lists + grp * DBW_CHUNK;
+  extern __shared__ float4 dens_lists[];  // [GROUP_ROWS][DENS_CHUNK]
+  __shared__ fnx::NbrTable tabs[GROUP_ROWS];
+  const int grp = threadIdx.x / GROUP_LANES;
+  const int sub = threadIdx.x % GROUP_LANES;
+  const int row = blockIdx.x * GROUP_ROWS + grp;
+  float4* list = dens_lists + grp * DENS_CHUNK;
   // the table does not wait on the row's own count: an empty row's list is
   // read and never used
   const int n_c = row <= C ? cnt[row] : 0;
-  const int n_tot = fnx::load_nbr_table<DBW_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
   if (row <= C) {
-    for (int i = n_c + sub; i < M; i += DBW_LANES) {  // dead slots
+    for (int i = n_c + sub; i < M; i += GROUP_LANES) {  // dead slots
       const size_t at = (size_t)row * M + i;
       dx[3 * at] = 0.0f;
       dx[3 * at + 1] = 0.0f;
@@ -566,13 +604,13 @@ __global__ void __launch_bounds__(DBW_WARPS * 32) density_bwd_kernel(
   for (int pass = 0; pass < passes; ++pass) {
     const int left = n_c - pass * 32;  // this row's live centre slots from the pass on
     // centre slots a lane of the warp holds in this pass, at most
-    const int cpl = __reduce_max_sync(FULL_MASK, left > DBW_LANES ? (unsigned)DBW_CPL : 1u);
-    bool live[DBW_CPL];
-    float xc[DBW_CPL], yc[DBW_CPL], zc[DBW_CPL], gc[DBW_CPL];
-    float a0[DBW_CPL], a1[DBW_CPL], a2[DBW_CPL];
+    const int cpl = __reduce_max_sync(FULL_MASK, left > GROUP_LANES ? (unsigned)GROUP_CPL : 1u);
+    bool live[GROUP_CPL];
+    float xc[GROUP_CPL], yc[GROUP_CPL], zc[GROUP_CPL], gc[GROUP_CPL];
+    float a0[GROUP_CPL], a1[GROUP_CPL], a2[GROUP_CPL];
 #pragma unroll
-    for (int c = 0; c < DBW_CPL; ++c) {
-      const int i = sub + c * DBW_LANES;
+    for (int c = 0; c < GROUP_CPL; ++c) {
+      const int i = sub + c * GROUP_LANES;
       const size_t at = (size_t)row * M + pass * 32 + i;
       live[c] = i < left;
       xc[c] = live[c] ? x[at] : 0.0f;
@@ -581,20 +619,20 @@ __global__ void __launch_bounds__(DBW_WARPS * 32) density_bwd_kernel(
       gc[c] = live[c] ? g[at] : 0.0f;
       a0[c] = a1[c] = a2[c] = 0.0f;
     }
-    for (int c0 = 0; c0 < list_max; c0 += DBW_CHUNK) {
-      const int kn = min(DBW_CHUNK, list_max - c0);  // the warp's trip count
-      fnx::stage_chunk<DBW_LANES, DBW_CHUNK, DBW_ROUND>(list, tabs[grp], c0, left > 0 ? n_tot : 0,
-                                                        kn, x, y, z, g, M, h, sub);
+    for (int c0 = 0; c0 < list_max; c0 += DENS_CHUNK) {
+      const int kn = min(DENS_CHUNK, list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<GROUP_LANES, DENS_CHUNK, DENS_ROUND>(list, tabs[grp], c0, left > 0 ? n_tot : 0,
+                                                            kn, x, y, z, g, M, h, sub);
       if (cpl == 1)
         dbw_sweep<1>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
       else
-        dbw_sweep<DBW_CPL>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
+        dbw_sweep<GROUP_CPL>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
       __syncwarp();  // the chunk is consumed before the next one is staged
     }
 #pragma unroll
-    for (int c = 0; c < DBW_CPL; ++c) {
+    for (int c = 0; c < GROUP_CPL; ++c) {
       if (!live[c]) continue;
-      const size_t at = (size_t)row * M + pass * 32 + sub + c * DBW_LANES;
+      const size_t at = (size_t)row * M + pass * 32 + sub + c * GROUP_LANES;
       dx[3 * at] = a0[c];
       dx[3 * at + 1] = a1[c];
       dx[3 * at + 2] = a2[c];
@@ -683,8 +721,12 @@ int fnx_pbf_phase2_v1(const int* cnt, const int* ncnt, const float* xng, const f
 int fnx_pbf_density(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
                     float* pi, int C, int M, float h, float h2, float c6, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  density_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(cnt, nbr, x, y, z, pi, C, M, h,
-                                                                     h2, c6);
+  const size_t smem = density_smem();
+  cudaError_t err = cudaFuncSetAttribute(density_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  density_kernel<<<C / GROUP_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      cnt, nbr, x, y, z, pi, C, M, h, h2, c6);
   return (int)cudaGetLastError();
 }
 
@@ -692,11 +734,11 @@ int fnx_pbf_density_bwd(const int* cnt, const int* nbr, const float* x, const fl
                         const float* z, const float* g, float* dx, int C, int M, float h, float h2,
                         float c6, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  const size_t smem = density_bwd_smem();
+  const size_t smem = density_smem();
   cudaError_t err = cudaFuncSetAttribute(density_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  density_bwd_kernel<<<C / DBW_ROWS + 1, DBW_WARPS * 32, smem, (cudaStream_t)stream>>>(
+  density_bwd_kernel<<<C / GROUP_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
       cnt, nbr, x, y, z, g, dx, C, M, h, h2, c6);
   return (int)cudaGetLastError();
 }

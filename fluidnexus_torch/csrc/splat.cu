@@ -15,9 +15,9 @@
 //     table, Cq where there is none;
 //   neighbour j sits at cell offset (j/9 - 1, (j/3)%3 - 1, j%3 - 1), so a
 //   neighbour's coordinate relative to the centre cell is its own plus o_j h.
-// Per-slot vectors are (C+1, M, 3) f32. One block per centre row, one thread
-// per centre slot; dead slots and rows are masked by cnt, so no sentinel
-// coordinates are needed, and every output is 0 at dead slots.
+// Per-slot vectors are (C+1, M, 3) f32. Dead slots and rows are masked by
+// cnt, so no sentinel coordinates are needed, and every output is 0 at dead
+// slots.
 //
 // Pair math, that of fluidnexus_tpu/sim/pbf_pallas.py:_splat_fwd_kernel and
 // _splat_bwd_kernel: d2 = |x_c - (x_n + o_j h)|^2 formed without FMA, as the
@@ -34,10 +34,11 @@
 // wv and ws; the adjoint reads only the source rows that have a query in
 // reach and the query rows they reach, and writes both gradients of every
 // live source. Which of the two bounds depends on how the sets overlap;
-// chip_smoke.py counts both from the run's grids. The design
-// stages each neighbour row, shifted by its offset, in
-// shared memory once per block and keeps every per-slot sum in registers.
-// No float atomics: each output is written by the one thread that owns it.
+// chip_smoke.py counts both from the run's grids. The forward takes one block
+// per query row and one thread per query slot, and stages each neighbour row,
+// shifted by its offset, in shared memory once per block; the adjoint's design
+// is set out at its kernel. Both keep every per-slot sum in registers. No
+// float atomics: each output is written by the one thread that owns it.
 
 #include <cuda_runtime.h>
 
@@ -115,65 +116,142 @@ __global__ void __launch_bounds__(MAX_M) splat_fwd_kernel(
 //   g_est = sum_i 2 f W'(d2) (x_s - x_i),   g_vel = sum_i W p_i.
 // Each pair adds its term directly, where the Pallas kernel forms
 // (sum f W') x_s - sum f W' x_i.
+//
+// Design. The time of a walk of one block per source row is its ~80
+// dependent trips to memory (each neighbour's id, then its count, then its
+// slots), and on the main path only ~1 source row in 6 has a query in reach:
+// the rest walk their 27 neighbours to write zeros. So the kernel takes the
+// row-group design of the gas loss's density (pbf.cu, pair_common.cuh): a
+// group of GROUP_LANES lanes owns a source row, two rows a warp; the group
+// reads the 27 query rows' ids (rnbr, Cq = none) and counts in two trips
+// (load_nbr_table); a row whose list is empty writes its row's zeros, and a
+// warp whose two rows both have empty lists leaves there. The others stage
+// the query list in chunks of SPB_CHUNK entries as two float4 lists, (x, y,
+// z shifted, q) and (p0, p1, p2, 0) (stage_chunk's W_VEC3), and run one
+// branch-free pair loop over it, the warp's trip count the longer list of its
+// two rows; a centre keeps its x, y, z and vel in registers, with six
+// accumulators. Out of radius and at a far entry past the list (d2 = inf,
+// h^2 - d2 = -inf, -3 t2 t2 = inf; its p and q are 0) the pair's factors f W'
+// and W are selected to 0, never multiplied by 0, so the sums keep their bits
+// and each slot adds the terms of the walk over rows in its order.
+// Every output slot is written: dead slots, live sources with no query in
+// reach and row Cs get 0.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) splat_bwd_kernel(
+using fnx::GROUP_CPL;
+using fnx::GROUP_LANES;
+using fnx::GROUP_ROWS;
+using fnx::GROUP_WARPS;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int SPB_CHUNK = 256;                   // query list entries a row stages at once
+constexpr int SPB_ROUND = SPB_CHUNK / GROUP_LANES;  // a whole chunk in one round of loads
+
+size_t splat_bwd_smem() { return (size_t)GROUP_ROWS * SPB_CHUNK * 2 * sizeof(float4); }
+
+// A source slot of a pass: its position and velocity, and its six sums.
+struct Src {
+  float x, y, z, v0, v1, v2;
+  float e0, e1, e2, g0, g1, g2;
+};
+
+// The pair loop over kn staged query entries for the first NC source slots a
+// lane holds: no branch, so the compiler can overlap the iterations.
+template <int NC>
+__device__ __forceinline__ void splat_bwd_sweep(const float4* xl, const float4* pl, int kn,
+                                                Src (&c)[GROUP_CPL], float h2) {
+#pragma unroll 8
+  for (int k = 0; k < kn; ++k) {
+    const float4 s = xl[k], p = pl[k];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      Src& a = c[i];
+      const float dx = __fsub_rn(a.x, s.x), dy = __fsub_rn(a.y, s.y), dz = __fsub_rn(a.z, s.z);
+      const float d2 = norm2_rn(dx, dy, dz);
+      const float t2 = h2 - d2;
+      const float w = d2 < h2 ? t2 * t2 * t2 : 0.0f;
+      const float fd = d2 < h2 ? (a.v0 * p.x + a.v1 * p.y + a.v2 * p.z - s.w) * (-3.0f * t2 * t2)
+                               : 0.0f;
+      a.e0 += fd * dx;
+      a.e1 += fd * dy;
+      a.e2 += fd * dz;
+      a.g0 += w * p.x;
+      a.g1 += w * p.y;
+      a.g2 += w * p.z;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) splat_bwd_kernel(
     const int* __restrict__ scnt, const int* __restrict__ rnbr, const float* __restrict__ xs,
     const float* __restrict__ ys, const float* __restrict__ zs, const float* __restrict__ vel,
     const int* __restrict__ qcnt, const float* __restrict__ xq, const float* __restrict__ yq,
     const float* __restrict__ zq, const float* __restrict__ p, const float* __restrict__ q,
     float* __restrict__ gx, float* __restrict__ gv, int Cs, int Ms, int Cq, int Mq, float h,
     float h2) {
-  __shared__ float qx[MAX_M], qy[MAX_M], qz[MAX_M], p0[MAX_M], p1[MAX_M], p2[MAX_M], qq[MAX_M];
-  const int row = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)row * Ms + i;
-  const int n_c = scnt[row];
-  const bool live = i < n_c;
-  const float xc = live ? xs[at] : 0.0f, yc = live ? ys[at] : 0.0f, zc = live ? zs[at] : 0.0f;
-  const float v0 = live ? vel[3 * at] : 0.0f, v1 = live ? vel[3 * at + 1] : 0.0f,
-              v2 = live ? vel[3 * at + 2] : 0.0f;
-  float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
-  for (int j = 0; j < 27 && n_c > 0; ++j) {
-    const int nb = rnbr[row * 27 + j];
-    if (nb >= Cq) continue;
-    const int n_q = qcnt[nb];
-    if (n_q == 0) continue;
-    __syncthreads();
-    for (int s = i; s < n_q; s += blockDim.x) {
-      const size_t src = (size_t)nb * Mq + s;
-      qx[s] = __fadd_rn(xq[src], shift(j, 0, h));
-      qy[s] = __fadd_rn(yq[src], shift(j, 1, h));
-      qz[s] = __fadd_rn(zq[src], shift(j, 2, h));
-      p0[s] = p[3 * src];
-      p1[s] = p[3 * src + 1];
-      p2[s] = p[3 * src + 2];
-      qq[s] = q[src];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < n_q; ++s) {
-      const float dx = __fsub_rn(xc, qx[s]), dy = __fsub_rn(yc, qy[s]), dz = __fsub_rn(zc, qz[s]);
-      const float d2 = norm2_rn(dx, dy, dz);
-      if (d2 < h2) {
-        const float t2 = h2 - d2;
-        const float w = t2 * t2 * t2;
-        const float fd = (v0 * p0[s] + v1 * p1[s] + v2 * p2[s] - qq[s]) * (-3.0f * t2 * t2);
-        e0 += fd * dx;
-        e1 += fd * dy;
-        e2 += fd * dz;
-        g0 += w * p0[s];
-        g1 += w * p1[s];
-        g2 += w * p2[s];
+  extern __shared__ float4 spb_lists[];  // [GROUP_ROWS][2][SPB_CHUNK]
+  __shared__ fnx::NbrTable tabs[GROUP_ROWS];
+  const int grp = threadIdx.x / GROUP_LANES;
+  const int sub = threadIdx.x % GROUP_LANES;
+  const int row = blockIdx.x * GROUP_ROWS + grp;
+  float4* xl = spb_lists + grp * 2 * SPB_CHUNK;
+  float4* pl = xl + SPB_CHUNK;
+  const int n_c = row <= Cs ? scnt[row] : 0;
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], rnbr, qcnt, row, Cq, sub, row < Cs);
+  const int n_w = n_tot > 0 ? n_c : 0;  // the live slots the pair loop writes
+  if (row <= Cs) {  // the slots the pair loop does not write
+    if (n_w == 0 && Ms % 4 == 0) {  // the row's every slot, 16 bytes a store (the entry checks alignment)
+      float4* gx4 = reinterpret_cast<float4*>(gx + (size_t)3 * row * Ms);
+      float4* gv4 = reinterpret_cast<float4*>(gv + (size_t)3 * row * Ms);
+      for (int i = sub; i < 3 * Ms / 4; i += GROUP_LANES) gx4[i] = gv4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      for (int i = n_w + sub; i < Ms; i += GROUP_LANES) {  // dead slots, or the row's every slot
+        const size_t at = (size_t)row * Ms + i;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) gx[3 * at + a] = gv[3 * at + a] = 0.0f;
       }
     }
   }
-  if (i < Ms) {
-    gx[3 * at] = live ? 2.0f * e0 : 0.0f;
-    gx[3 * at + 1] = live ? 2.0f * e1 : 0.0f;
-    gx[3 * at + 2] = live ? 2.0f * e2 : 0.0f;
-    gv[3 * at] = live ? g0 : 0.0f;
-    gv[3 * at + 1] = live ? g1 : 0.0f;
-    gv[3 * at + 2] = live ? g2 : 0.0f;
+  const int list_max = __reduce_max_sync(FULL_MASK, n_w > 0 ? (unsigned)n_tot : 0u);
+  if (list_max == 0) return;  // neither row of the warp has a query in reach
+  const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_w + 31) / 32);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int left = n_w - pass * 32;  // this row's live centre slots from the pass on
+    const int cpl = __reduce_max_sync(FULL_MASK, left > GROUP_LANES ? (unsigned)GROUP_CPL : 1u);
+    bool live[GROUP_CPL];
+    Src c[GROUP_CPL];
+#pragma unroll
+    for (int i = 0; i < GROUP_CPL; ++i) {
+      const int s = sub + i * GROUP_LANES;
+      const size_t at = (size_t)row * Ms + pass * 32 + s;
+      live[i] = s < left;
+      c[i].x = live[i] ? xs[at] : 0.0f;
+      c[i].y = live[i] ? ys[at] : 0.0f;
+      c[i].z = live[i] ? zs[at] : 0.0f;
+      c[i].v0 = live[i] ? vel[3 * at] : 0.0f;
+      c[i].v1 = live[i] ? vel[3 * at + 1] : 0.0f;
+      c[i].v2 = live[i] ? vel[3 * at + 2] : 0.0f;
+      c[i].e0 = c[i].e1 = c[i].e2 = c[i].g0 = c[i].g1 = c[i].g2 = 0.0f;
+    }
+    for (int c0 = 0; c0 < list_max; c0 += SPB_CHUNK) {
+      const int kn = min(SPB_CHUNK, list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<GROUP_LANES, SPB_CHUNK, SPB_ROUND, fnx::W_VEC3>(
+          xl, tabs[grp], c0, left > 0 ? n_tot : 0, kn, xq, yq, zq, q, Mq, h, sub, pl, p);
+      if (cpl == 1)
+        splat_bwd_sweep<1>(xl, pl, kn, c, h2);
+      else
+        splat_bwd_sweep<GROUP_CPL>(xl, pl, kn, c, h2);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+#pragma unroll
+    for (int i = 0; i < GROUP_CPL; ++i) {
+      if (!live[i]) continue;
+      const size_t at = (size_t)row * Ms + pass * 32 + sub + i * GROUP_LANES;
+      gx[3 * at] = 2.0f * c[i].e0;
+      gx[3 * at + 1] = 2.0f * c[i].e1;
+      gx[3 * at + 2] = 2.0f * c[i].e2;
+      gv[3 * at] = c[i].g0;
+      gv[3 * at + 1] = c[i].g1;
+      gv[3 * at + 2] = c[i].g2;
+    }
   }
 }
 
@@ -198,9 +276,14 @@ int fnx_splat_bwd(const int* scnt, const int* rnbr, const float* xs, const float
                   const float* zs, const float* vel, const int* qcnt, const float* xq,
                   const float* yq, const float* zq, const float* p, const float* q, float* gx,
                   float* gv, int Cs, int Ms, int Cq, int Mq, float h, float h2, void* stream) {
-  if (Cq < 0 || Cs < 0 || Mq <= 0 || Mq > MAX_M || Ms <= 0 || Ms > MAX_M)
+  if (Cq < 0 || Cs < 0 || Mq <= 0 || Mq > MAX_M || Ms <= 0 || Ms > MAX_M ||
+      ((size_t)gx | (size_t)gv) % sizeof(float4) != 0)
     return (int)cudaErrorInvalidValue;
-  splat_bwd_kernel<<<Cs + 1, threads_for(Ms), 0, (cudaStream_t)stream>>>(
+  const size_t smem = splat_bwd_smem();
+  cudaError_t err = cudaFuncSetAttribute(splat_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  splat_bwd_kernel<<<Cs / GROUP_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
       scnt, rnbr, xs, ys, zs, vel, qcnt, xq, yq, zq, p, q, gx, gv, Cs, Ms, Cq, Mq, h, h2);
   return (int)cudaGetLastError();
 }

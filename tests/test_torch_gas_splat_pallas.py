@@ -102,3 +102,65 @@ def test_splat_plain_versions_match_pallas_interpret():
         assert not got[:-1].numpy()[~slive].any() and not got[-1].any()
 
 
+
+
+def test_density_plain_matches_pallas_interpret_with_an_isolated_point():
+    """density_plain against density_slots_v2 in interpret mode on a grid
+    where one point sits alone (its 26 neighbour cells are empty): its pi is
+    the self term c6 h^6 alone in both, and the other live slots agree."""
+    rng = np.random.default_rng(5)
+    pts = np.concatenate([rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (24, 3)),
+                          [[5.5, 5.5, 5.5]]]).astype(np.float32)
+    alive = rng.random(25) > 0.1
+    alive[-1] = True
+    jg = jnb.build_dense_grid(jnp.asarray(pts), 1.0, jnp.asarray(alive), 8, 8)
+    k = pbf_cuda.pair_consts(tpbf.PBFParams(h=1.0))
+    pi_j = _np(jpallas.density_slots_v2(jg, k.h, k.eps, k.c6, k.s45))
+
+    tg = convert.dense_grid_from_numpy(jg, device=CPU)
+    cnt, x, y, z = pbf_cuda.planes(tg)
+    live = tg.bmask[:-1].numpy()
+    row, col = int(tg.prow[-1]), int(tg.pcol[-1])
+    assert int(cnt[tg.nbr[row].long()].sum()) == 1, "the last point is not alone"
+    assert live.sum() > 15
+    pi_t = pbf_cuda.density_plain(tg.nbr, cnt, x, y, z, k)
+    np.testing.assert_allclose(pi_t[:-1].numpy()[live], pi_j[live], rtol=1e-5, atol=1e-7)
+    self_term = np.float32(k.c6) * np.float32(k.h2) ** 3
+    np.testing.assert_allclose([float(pi_t[row, col]), pi_j[row, col]], self_term, rtol=1e-6)
+    assert not pi_t[:-1].numpy()[~live].any() and not pi_t[-1].any()
+
+
+def test_splat_bwd_plain_matches_pallas_interpret_with_sources_out_of_reach():
+    """splat_bwd_plain against splat_bwd_slots in interpret mode on grids
+    where one source cell has no query cell among its 27 neighbours: its live
+    sources read exactly 0 in both, and the other live sources agree."""
+    rng = np.random.default_rng(6)
+    src = np.concatenate([rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (24, 3)),
+                          rng.uniform([5.2, 0.2, 0.2], [5.8, 0.8, 0.8], (6, 3))]).astype(np.float32)
+    alive = rng.random(30) > 0.1
+    qry = rng.uniform(0.1, 1.9, (30, 3)).astype(np.float32)
+    q_alive = rng.random(30) > 0.1
+    jg = jnb.build_dense_grid(jnp.asarray(src), 1.0, jnp.asarray(alive), 8, 8)
+    jq, jr = jnb.bin_queries(jg, 1.0, jnp.asarray(qry), jnp.asarray(q_alive), 8, 8)
+    vel_s = (rng.standard_normal(jg.bxyz.shape) * _np(jg.bmask)[..., None]).astype(np.float32)
+    p_s = (rng.standard_normal(jq.bxyz.shape) * _np(jq.bmask)[..., None]).astype(np.float32)
+    q_s = (rng.standard_normal(jq.bmask.shape) * _np(jq.bmask)).astype(np.float32)
+    gx_j, gv_j = jpallas.splat_bwd_slots(jg, jq, jr, jnp.asarray(vel_s), jnp.asarray(p_s),
+                                         jnp.asarray(q_s), 1.0)
+
+    tg, tq = (convert.dense_grid_from_numpy(g, device=CPU) for g in (jg, jq))
+    tr = _t(jr)
+    planes, qplanes = pbf_cuda.planes(tg), pbf_cuda.planes(tq)
+    slive = tg.bmask[:-1].numpy()
+    out_of_reach = (qplanes[0][tr.long()].sum(1) == 0).numpy()[:, None] & slive
+    assert out_of_reach.sum() >= 3 and (slive & ~out_of_reach).sum() > 15
+    gx_t, gv_t = splat_cuda.splat_bwd_plain(tr, *planes, torch.as_tensor(vel_s), *qplanes,
+                                            torch.as_tensor(p_s), torch.as_tensor(q_s), 1.0)
+    for got, ref in ((gx_t, gx_j), (gv_t, gv_j)):
+        ref = _np(ref)
+        scale = float(np.abs(ref[slive]).max())
+        assert scale > 0
+        np.testing.assert_allclose(got[:-1].numpy()[slive], ref[slive], rtol=1e-4,
+                                   atol=1e-5 * scale)
+        assert not got[:-1].numpy()[out_of_reach].any() and not ref[out_of_reach].any()
+        assert not got[:-1].numpy()[~slive].any() and not got[-1].any()

@@ -16,7 +16,8 @@ from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim import splat_cuda as sc
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import cuda_device, leave_nan_blocks  # noqa: F401
+from tests.torch_helpers import (ISOLATED_GRIDS, cuda_device, isolated_point_grid,  # noqa: F401
+                                 leave_nan_blocks, splat_edge_grids)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,13 +55,8 @@ def test_density_bwd_at_its_edges(cuda_device, m, n, box):
     and its neighbourhood several staged chunks), with full rows and one
     point alone, whose 26 neighbour cells are empty: its gradient is the self
     pair's exact 0."""
-    rng = np.random.default_rng(m + 1)
-    pts = rng.uniform(0, box, (n, 3))
-    pts[0] = box + 5.5
-    alive = rng.random(n) > 0.1
-    alive[0] = True
-    grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=cuda_device), 1.0,
-                            torch.as_tensor(alive, device=cuda_device), 512, m)
+    assert ISOLATED_GRIDS[m] == (n, box)
+    grid, rng = isolated_point_grid(m, cuda_device, seed=m + 1)
     cnt, *xyz = pc.planes(grid)
     assert bool((cnt == m).any()), "no full cell"
     k = pc.pair_consts(tpbf.PBFParams(h=1.0))
@@ -73,6 +69,50 @@ def test_density_bwd_at_its_edges(cuda_device, m, n, box):
     row, col = int(grid.prow[0]), int(grid.pcol[0])
     assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
     assert not got[row, col].any()
+
+
+@pytest.mark.parametrize("m", [32, 128])
+def test_density_at_its_edges(cuda_device, m):
+    """The gas-loss density into a NaN-filled block against its plain
+    version at M = 32 and M = 128 with full rows (a row's neighbourhood list
+    spans more than one staged chunk of 384 entries), and one point alone,
+    whose 26 neighbour cells are empty: its pi is the self term alone, the
+    plain version's bit for bit."""
+    grid, _ = isolated_point_grid(m, cuda_device, seed=m + 2)
+    cnt, *xyz = pc.planes(grid)
+    assert bool((cnt == m).any()), "no full cell"
+    assert int(cnt[grid.nbr.long()].sum(1).max()) > 384, "no list spans two chunks"
+    k = pc.pair_consts(tpbf.PBFParams(h=1.0))
+    want = pc.density_plain(grid.nbr, cnt, *xyz, k)
+    leave_nan_blocks(cuda_device, tuple(want.shape))
+    got = pc.density_slots(grid.nbr, cnt, *xyz, k)
+    _held(got, want, grid.bmask)
+    row, col = int(grid.prow[0]), int(grid.pcol[0])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
+    assert torch.equal(got[row, col:col + 1].view(torch.int32), want[row, col:col + 1].view(torch.int32))
+
+
+@pytest.mark.parametrize("ms,mq", [(32, 32), (128, 128)])
+def test_splat_bwd_at_its_edges(cuda_device, ms, mq):
+    """The splat adjoint into NaN-filled blocks against its plain version at
+    (Ms, Mq) = (32, 32) and (128, 128): full query rows whose source
+    neighbours' query lists span more than one staged chunk of 256 entries,
+    source rows with no query in reach, which read exactly 0, and row Cs."""
+    planes, qplanes, rnbr, vel, p, q = splat_edge_grids(ms, mq, cuda_device, seed=ms + mq + 1)
+    args = (rnbr, *planes, vel, *qplanes, p, q, 1.0)
+    scnt, qcnt = planes[0], qplanes[0]
+    lists = qcnt[rnbr.long()].sum(1)
+    assert bool((qcnt == mq).any()) and int(lists.max()) > 256
+    none = (lists == 0) & (scnt[:-1] > 0)
+    assert bool(none.any()), "every source row has a query in reach"
+    gx_p, gv_p = sc.splat_bwd_plain(*args)
+    leave_nan_blocks(cuda_device, tuple(gx_p.shape), tuple(gv_p.shape))
+    gx, gv = sc.splat_bwd_slots(*args)
+    slive = pc._live(scnt, planes[1].shape[1])[..., None].expand(-1, -1, 3)
+    _held(gx, gx_p, slive)
+    _held(gv, gv_p, slive)
+    assert not gx[:-1][none].any() and not gv[:-1][none].any()
+    assert not gx[-1].any() and not gv[-1].any()
 
 
 @pytest.mark.parametrize("ms,mq", [(8, 32), (32, 8), (128, 64)])

@@ -152,3 +152,61 @@ def threshold_tiles(c=3, seed=0, tiles_x=8, k=64, front=8):
     rows[..., 6:6 + c] = rng.uniform(0, 1, (t, k, c))
     rows[..., 6 + c] = np.sort(rng.uniform(1, 5, (t, k)), 1)
     return rows.astype(np.float32), np.full(t, k, np.int32), tiles_x
+
+
+# The gas-loss density's and the splat adjoint's edge cases (csrc/pbf.cu,
+# csrc/splat.cu): points at h = 1 in grids of 512 rows.
+ISOLATED_GRIDS = {32: (900, 3.0), 128: (1500, 2.0)}   # M: (points, box edge)
+
+
+def isolated_point_grid(m, device, seed):
+    """Seeded points in a box with full rows at M = ``m`` (32: 900 points in a
+    3-unit box, 128: 1500 in a 2-unit box, ~10 % dead), so a row's
+    neighbourhood list spans several of the kernels' staged chunks, and
+    point 0 alone 5.5 units past the box: its 26 neighbour cells are empty.
+    Returns (grid, rng), the generator left for the caller's next draws."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+
+    n, box = ISOLATED_GRIDS[m]
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, box, (n, 3))
+    pts[0] = box + 5.5
+    alive = rng.random(n) > 0.1
+    alive[0] = True
+    grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=device), 1.0,
+                            torch.as_tensor(alive, device=device), 512, m)
+    return grid, rng
+
+
+def splat_edge_grids(ms, mq, device, seed):
+    """A source and a query grid for the splat adjoint's edge cases, at
+    capacities ``ms`` and ``mq`` (32 or 128): sources in a box with full rows
+    (``ISOLATED_GRIDS``), and 60 more in a cluster 4-5.5 units past it with
+    no query cell among their 27 neighbours; queries packed into the same box
+    (1 200 in 3 units at 32, 1 800 in 2 at 128) so query rows are full and a
+    source row's list of queries spans more than one staged chunk. About 10 %
+    of either set is dead. Returns (planes, qplanes, rnbr, vel, p, q): the
+    ``pbf_cuda.planes`` of each grid, ``bin_queries``' source-to-query table,
+    the sources' velocities and the per-query planes p (3) and q, 0 at dead
+    slots."""
+    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid, slot_gather
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    n, box = ISOLATED_GRIDS[ms]
+    nq, qbox = {32: (1200, 3.0), 128: (1800, 2.0)}[mq]
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.uniform(0, box, (n, 3)), rng.uniform(box + 4, box + 5.5, (60, 3))])
+    qry = rng.uniform(0, min(box, qbox), (nq, 3))
+    alive = rng.random(len(src)) > 0.1
+    q_alive = rng.random(nq) > 0.1
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32) if a.dtype == np.float64 else a, device=device)
+
+    grid = build_dense_grid(t(src), 1.0, t(alive), 512, ms)
+    qgrid, rnbr = bin_queries(grid, 1.0, t(qry), t(q_alive), 512, mq)
+    vel = slot_gather(grid, t(rng.normal(size=(len(src), 3)))).contiguous()
+    qlive = qgrid.bmask
+    p = torch.where(qlive[..., None], t(rng.normal(size=tuple(qlive.shape) + (3,))), 0.0)
+    q = torch.where(qlive, t(rng.normal(size=tuple(qlive.shape))), 0.0)
+    return pc.planes(grid), pc.planes(qgrid), rnbr, vel, p.contiguous(), q.contiguous()
