@@ -11,14 +11,17 @@ It needs one card and exits non-zero, printing no result, without one.
 ``python3 chip_smoke.py mutants [attention|rasterizer|pairs]`` builds broken
 copies of the kernels (six of the attention backward: three of the mma.sync
 pair, three of the Hopper kernel; seven of the rasterizer: four of its
-backward and combine, three of its forward; six of the pair kernels: two of
-the density's adjoint, two of the density, two of the splat adjoint) and
-shows that each fails a check; ``python3 chip_smoke.py raster [PARENT]``
-checks and times the rasterizer kernels alone at camera 0's tiles (beside
-another checkout's, PARENT, in turns); ``python3 chip_smoke.py pairs
-[PARENT]`` does the same for the gas-loss density, its adjoint and the splat
-adjoint at the first phase-C fit iteration's inputs, with their launch
-floors (every count 0; the splat adjoint also with every query count 0);
+backward and combine, three of its forward; ten of the pair kernels: two
+each of the density's adjoint, the density, the splat adjoint, the splat
+forward and phase 2 v3) and shows that each fails a check; ``python3
+chip_smoke.py raster [PARENT]`` checks and times the rasterizer kernels
+alone at camera 0's tiles (beside another checkout's, PARENT, in turns);
+``python3 chip_smoke.py pairs [PARENT]`` does the same for the pair kernels
+of rows 7-13 of PERF.md's kernel table (the gas-loss density, its adjoint
+and both splat kernels at the first phase-C fit iteration's inputs, phases
+1 and 2 of the PBF tick and phase 2 v2 at phase B's first tick), with their
+launch floors (every count 0; the splat forward also with every source
+count 0, the splat adjoint with every query count 0);
 ``python3 chip_smoke.py encode-probe`` tries the
 video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
@@ -804,6 +807,8 @@ PHASE1_IN_RADIUS_OPS = 12 + 12
 PHASE2_IN_RADIUS_OPS = 12 + 14
 PHASE1_SLOT_OPS = 20
 PHASE2_SLOT_OPS = 14
+PBF_KERNELS = {"pbf_phase1": "phase1_kernel", "pbf_phase2": "phase2_kernel",  # CUDA kernel names
+               "pbf_phase2_v2": "phase2_v2_kernel"}
 
 
 def phase_b_config():
@@ -847,10 +852,12 @@ def first_tick_inputs(cfg, params, dev):
     c = grid.max_cells
     occupied = cnt[:c] > 0
     pairs = int((cnt[:c].long() * cnt[grid.nbr.long()].long().sum(1)).sum())
+    lists = cnt[grid.nbr.long()].sum(1)[occupied].float()
     print(f"phase B first-tick grid: C {c} M {grid.capacity}, {int(occupied.sum())} occupied "
           f"cells, fullest {int(cnt.max())}, mean {float(cnt[:c][occupied].float().mean()):.2f}, "
           f"{int(grid.bmask.sum())} live slots, {pairs} live candidate pairs, overflow "
-          f"{int(grid.overflow)}")
+          f"{int(grid.overflow)}; a live row's neighbourhood list holds "
+          f"{float(lists.mean()):.1f} live slots on average, at most {int(lists.max())}")
     return dict(nbr=grid.nbr, cnt=cnt, xyz=xyz, imass=imass, counts=counts,
                 live=grid.bmask, k=pc.pair_consts(params), pairs=pairs,
                 rows=int(occupied.sum()))
@@ -871,8 +878,6 @@ def check_pbf_kernels(inp):
     lam, pi_raw, nl, s_p6, s_edges = pc.phase1_slots(nbr, cnt, *xyz, inp["imass"], k)
     lam_p, pi_p, nl_p, s_p6_p, s_edges_p = pc.phase1_plain(nbr, cnt, *xyz, inp["imass"], k)
     nc = (nl + inp["counts"]).contiguous()
-    *new, s_corr, s_ns = pc.phase2_slots(nbr, cnt, *xyz, lam, nc, k)
-    *new_p, s_corr_p, s_ns_p = pc.phase2_plain(nbr, cnt, *xyz, lam, nc, k)
     torch.cuda.synchronize()
     n_live = int(live.sum())
     failures = []
@@ -894,61 +899,123 @@ def check_pbf_kernels(inp):
           f"[tol {int(1e-5 * n_live)}]")
     if flips > int(1e-5 * n_live):
         failures.append("phase1 nl")
-    e_upd = [held(f"phase2 update {a}", n - x, n_p - x, 1e-4)
-             for a, n, n_p, x in zip("xyz", new, new_p, xyz)]
-    for a, n, n_p in zip("xyz", new, new_p):
-        print(f"pbf kernel check: phase2 coordinate {a} max|err| "
-              f"{float((n - n_p)[live].abs().max()):.3e} / scale {float(n_p[live].abs().max()):.3e}")
-    dead_ok = not (lam[~live].any() or pi_raw[~live].any() or nl[~live].any()) and all(
-        bool((n[~live] == x[~live]).all()) for n, x in zip(new, xyz))
-    if not dead_ok:
+    if lam[~live].any() or pi_raw[~live].any() or nl[~live].any():
         failures.append("dead slots")
-    for name, a, b in (("s_p6", s_p6, s_p6_p), ("s_edges", s_edges, s_edges_p),
-                       ("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
+    for name, a, b in (("s_p6", s_p6, s_p6_p), ("s_edges", s_edges, s_edges_p)):
         rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
         print(f"pbf kernel check: {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} "
               f"[tol 1e-5]")
         if not rel <= 1e-5:
             failures.append(name)
+    e_upd, failed, s_ns = held_phase2((nbr, cnt, *xyz, lam, nc, k), live, "pbf kernel check")
+    failures += failed
     if failures:
         _fail(f"the PBF kernels disagree with their plain versions: {failures}")
     # the in-radius pair counts the bounds need: s_edges counts the pairs
     # with d2 <= h^2, self pairs included; s_ns the non-self ones
-    return ({"pbf_phase1": max(e_lam, e_pi), "pbf_phase2": max(e_upd)},
-            dict(lam=lam, nc=nc, in_radius1=int(s_edges), in_radius2=int(s_ns)))
+    return ({"pbf_phase1": max(e_lam, e_pi), "pbf_phase2": e_upd},
+            dict(lam=lam, nc=nc, in_radius1=int(s_edges), in_radius2=s_ns))
 
 
-def time_pbf_kernels(inp, saved):
-    """Each PBF kernel's device time and its plain version's time at the
-    first tick's shapes, with its bound; the event-timed wrapper call (with
-    its global sums) beside them. No single PyTorch call computes these pair
-    sums, so there is no library time."""
+def held_phase2(args, live, what):
+    """Phase 2 v3 at ``args`` (nbr, cnt, x, y, z, lam, nc, k) with its outputs
+    in NaN-filled blocks (so a slot or a row's partial sums left unwritten
+    show), against its plain version on the same inputs: each axis of the
+    Jacobi update (new - old coordinates) at 1e-4 of its own scale over the
+    live slots (the update is held, not the coordinate, whose scale ~h would
+    hide it), dead slots, empty rows and row C keeping their coordinates bit
+    for bit, and the global sums s_corr and s_ns at 1e-5 relative. Prints a
+    line per output; returns (max|err| of the update, the names of the
+    outputs that failed, the plain version's s_ns)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks
+
+    xyz = args[2:5]
+    *new_p, s_corr_p, s_ns_p = pc.phase2_plain(*args)
+    leave_nan_blocks(xyz[0].device, *(tuple(x.shape) for x in xyz), (args[1].numel(), 2))
+    *new, s_corr, s_ns = pc.phase2_slots(*args)
+    torch.cuda.synchronize()
+    worst, failures = 0.0, []
+    for a, n, n_p, x in zip("xyz", new, new_p, xyz):
+        err = float(((n - x) - (n_p - x))[live].abs().max())
+        scale = float((n_p - x)[live].abs().max())
+        kept = bool((n[~live] == x[~live]).all())  # a NaN left unwritten is a change
+        ok = err <= 1e-4 * scale and kept
+        print(f"{what}: phase2 update {a} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
+              f"scale]; coordinate max|err| {float((n - n_p)[live].abs().max()):.3e} / scale "
+              f"{float(n_p[live].abs().max()):.3e}; dead slots kept: {kept}"
+              + ("" if ok else " FAILED"))
+        worst = max(worst, err)
+        if not ok:
+            failures.append(f"phase2 {a}")
+    for name, a, b in (("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        print(f"{what}: phase2 {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} "
+              f"[tol 1e-5]" + ("" if rel <= 1e-5 else " FAILED"))
+        if not rel <= 1e-5:
+            failures.append(f"phase2 {name}")
+    return worst, failures, int(s_ns_p)
+
+
+def pbf_plain_saved(inp):
+    """What phase 2 takes at the first tick's inputs, from the plain versions
+    on the card (so no kernel of this checkout runs to make it): lambda, nc
+    and the in-radius pair counts of ``check_pbf_kernels``."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
-    a1 = (nbr, cnt, *xyz, inp["imass"], k)
-    a2 = (nbr, cnt, *xyz, saved["lam"], saved["nc"], k)
+    lam, _, nl, _, s_edges = pc.phase1_plain(nbr, cnt, *xyz, inp["imass"], k)
+    nc = (nl + inp["counts"]).contiguous()
+    s_ns = pc.phase2_plain(nbr, cnt, *xyz, lam, nc, k)[4]
+    return dict(lam=lam.contiguous(), nc=nc, in_radius1=int(s_edges), in_radius2=int(s_ns))
+
+
+def pbf_plans(inp, saved):
+    """Phase B's pair kernels at the first tick's inputs: {name: (wrapper,
+    plain version, arguments, bytes, operations)} for phases 1 and 2 (v3) and,
+    as a witness that shares their pair terms, phase 2 v2 (row 7)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
     n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
     in1, in2 = saved["in_radius1"], saved["in_radius2"]
     ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * PHASE1_SLOT_OPS
-    ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
-            + n_live * PHASE2_SLOT_OPS)
+    ops2 = pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
     print(f"pbf bounds: {pairs} live candidate pairs, {in1} in radius (self included), "
-          f"{in2} non-self in radius; {ops1} and {ops2} f32 operations")
+          f"{in2} non-self in radius; {ops1} and {ops2 + n_live * PHASE2_SLOT_OPS} f32 "
+          f"operations")
     # bytes: the live slots of the input planes, cnt and the occupied rows of
     # nbr read once; the live slots of the output planes written once (phase 2
     # also writes its two per-row partial sums)
     table = 4 * (cnt.numel() + 27 * rows)
+    lam, nc = saved["lam"], saved["nc"]
+    return {"pbf_phase1": (pc.phase1_slots, pc.phase1_plain, (nbr, cnt, *xyz, inp["imass"], k),
+                           table + 4 * n_live * (4 + 3), ops1),
+            "pbf_phase2": (pc.phase2_slots, pc.phase2_plain, (nbr, cnt, *xyz, lam, nc, k),
+                           table + 4 * n_live * (5 + 3) + 8 * rows,
+                           ops2 + n_live * PHASE2_SLOT_OPS),
+            "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
+                              table + 4 * n_live * (4 + 3) + 8 * rows,
+                              ops2 + n_live * RAW_SLOT_OPS)}
+
+
+def time_pbf_kernels(inp, saved):
+    """Each PBF kernel's device time, its launch floor (every count 0) and
+    its plain version's time at the first tick's shapes, with its bound; the
+    event-timed wrapper call (with its global sums) beside them. No single
+    PyTorch call computes these pair sums, so there is no library time."""
     out = {}
-    for name, kernel, fn, plain, args, n_in, n_out, ops in (
-            ("pbf_phase1", "phase1_kernel", pc.phase1_slots, pc.phase1_plain, a1, 4, 3, ops1),
-            ("pbf_phase2", "phase2_kernel", pc.phase2_slots, pc.phase2_plain, a2, 5, 3, ops2)):
+    for name, (fn, plain, args, nbytes, ops) in pbf_plans(inp, saved).items():
+        if name == "pbf_phase2_v2":  # timed at the rigid rollout's inputs
+            continue
+        kernel = PBF_KERNELS[name]
         ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
+        floor_args = launch_floors(name, args)["every count 0"]
+        floor_ms, _ = kernel_device_ms(lambda: fn(*floor_args), kernel)
         call_ms = cuda_ms(lambda: fn(*args), iters=50)
         plain_ms = cuda_ms(lambda: plain(*args), iters=3)
-        nbytes = table + 4 * n_live * (n_in + n_out) + (8 * rows if name == "pbf_phase2" else 0)
-        out[name] = dict(ms=ms, recorded=recorded, call_ms=call_ms, plain_ms=plain_ms,
-                         library_ms=None, bound=bound_ms(nbytes, ops))
+        out[name] = dict(ms=ms, recorded=recorded, floor_ms=floor_ms, call_ms=call_ms,
+                         plain_ms=plain_ms, library_ms=None, bound=bound_ms(nbytes, ops))
     return out
 
 
@@ -1046,14 +1113,16 @@ def run_phase_b(dev):
     for name, tm in times.items():
         b_ms, b_by = tm["bound"]
         print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"launches the profiler recorded; a wrapper call with its "
+              f"launches the profiler recorded; launch floor, every count 0, "
+              f"{tm['floor_ms']:.4f} ms; a wrapper call with its "
               f"global sums {tm['call_ms']:.4f} ms; plain {tm['plain_ms']:.4f} ms, library none, "
               f"bound {b_ms:.5f} ms by {b_by}), {launches[name] / ticks:g} launches per tick, "
               f"{inp['pairs']} live candidate pairs")
         kernels.append({"name": name, "route": "cuda", "source": "fluidnexus_torch/csrc/pbf.cu",
                         "replaces": sources[name], "launches": launches[name],
                         "max_abs_err": errors[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "floor_ms": tm["floor_ms"]})
     return kernels
 
 
@@ -1198,23 +1267,25 @@ def first_iteration_inputs(ctx):
 
 
 def phase_c_calls():
-    """Per phase-C kernel: (wrapper, plain version, its output fields)."""
+    """Per phase-C kernel, and phase 2 v2 (held at phase B's first tick in
+    ``pairs``): (wrapper, plain version, its per-slot output fields)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
 
     return {"density_fwd": (pc.density_slots, pc.density_plain, ("pi",)),
             "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, ("dpi/dx",)),
             "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, ("wv", "ws")),
-            "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, ("g_est", "g_vel"))}
+            "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, ("g_est", "g_vel")),
+            "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, ("dsum",))}
 
 
 def held_in_nan_blocks(name, args, what):
-    """Phase-C kernel ``name`` at ``args`` with its outputs in NaN-filled
-    blocks (so a slot it leaves unwritten shows), against its plain version
-    on the same inputs: each output field at 1e-4 of its own scale over the
-    live centre slots (the count at args[1], the planes' width at args[2]),
-    and exactly 0 at dead slots. Prints a line per field; returns (max|err|,
-    the names of the fields that failed)."""
+    """Pair kernel ``name`` (of ``phase_c_calls``) at ``args`` with its outputs
+    in NaN-filled blocks (so a slot it leaves unwritten shows), against its
+    plain version on the same inputs: each output field at 1e-4 of its own
+    scale over the live centre slots (the count at args[1], the planes' width
+    at args[2]), and exactly 0 at dead slots. Prints a line per field;
+    returns (max|err|, the names of the fields that failed)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from tests.torch_helpers import leave_nan_blocks
 
@@ -1257,16 +1328,19 @@ def check_phase_c_kernels(inp):
 
 
 def launch_floors(name, args):
-    """The launch floors of phase-C kernel ``name`` at ``args``: the same
-    launch with every count 0 and, for the splat adjoint, with every query
-    count 0 and the sources live (most of its source rows have no query in
-    reach on the main path). {label: arguments}."""
+    """The launch floors of pair kernel ``name`` (phase C's, or phase B's
+    ``pbf_*``) at ``args``: the same launch with every count 0 and, for the
+    splat forward, with every source count 0 and the queries live, for the
+    splat adjoint with every query count 0 and the sources live (most of its
+    source rows have no query in reach on the main path). {label:
+    arguments}."""
     zero = torch.zeros_like
-    if name in ("density_fwd", "density_bwd"):
-        return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:])}
     if name == "splat_fwd":
         return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:5]) + (zero(args[5]),)
-                + tuple(args[6:])}
+                + tuple(args[6:]),
+                "every source count 0": tuple(args[:5]) + (zero(args[5]),) + tuple(args[6:])}
+    if name != "splat_bwd":
+        return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:])}
     return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:6]) + (zero(args[6]),)
             + tuple(args[7:]),
             "every query count 0": tuple(args[:6]) + (zero(args[6]),) + tuple(args[7:])}
@@ -3187,6 +3261,13 @@ PAIRS_MUTANTS = {
     "splat_bwd_fd_by_a_product": [
         (SPLAT_SRC, "const float fd = d2 < h2 ? (a.v0", "const float fd = (float)(d2 < h2) * (a.v0"),
         (SPLAT_SRC, "(-3.0f * t2 * t2)\n                               : 0.0f;", "(-3.0f * t2 * t2);")],
+    "splat_fwd_empty_rows_unwritten": [(SPLAT_SRC, "wv4[i] = zero;", ";")],
+    "splat_fwd_stages_one_short": [(SPLAT_SRC, "c0, n_tot, kn, xs, ys,", "c0, n_tot - 1, kn, xs, ys,")],
+    "phase2_self_by_d2": [(PBF_SRC, "const bool self = c0 + e == ci.self_e;",
+                           "const bool self = norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
+                           "__fsub_rn(ci.z, s.z)) == 0.0f;")],
+    "phase2_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
+                                   "const float cr_i = c[i].a.cra,")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -3410,28 +3491,57 @@ def raster_time(parent=None):
             in_turns(name, kernel, call, pmod, tc)
 
 
-PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_bwd": 11}  # rows of PERF.md's kernel table
-PAIRS_LIBS = {"density_fwd": "pbf", "density_bwd": "pbf", "splat_fwd": "splat", "splat_bwd": "splat"}
-SPLAT_BWD_CHUNK = 256  # query list entries the splat adjoint stages at once (csrc/splat.cu)
+PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_fwd": 10, "splat_bwd": 11,  # rows of
+              "pbf_phase1": 12, "pbf_phase2": 13, "pbf_phase2_v2": 7}  # PERF.md's kernel table
+PAIRS_LIBS = {"density_fwd": "pbf", "density_bwd": "pbf", "splat_fwd": "splat", "splat_bwd": "splat",
+              "pbf_phase1": "pbf", "pbf_phase2": "pbf", "pbf_phase2_v2": "pbf"}
+SPLAT_CHUNK = 256  # list entries either splat kernel stages at once (csrc/splat.cu)
+P2_CHUNK = 256  # list entries phase 2 v3 stages at once (csrc/pbf.cu)
+
+
+def pair_kernel(name):
+    """The CUDA kernel name of pair kernel ``name`` (a row of PAIRS_ROWS)."""
+    return PHASE_C_KERNELS[name][2] if name in PHASE_C_KERNELS else PBF_KERNELS[name]
+
+
+def phase2_part(mod, nbr, cnt, x, y, z, lam, nc, k):
+    """The per-row partial sums (C+1, 2) of s_corr and s_ns that phase 2 v3
+    writes, through the C entry of ``mod`` (this checkout's ``pbf_cuda`` or
+    another's) with the arguments its ``phase2_slots`` passes."""
+    c, m = nbr.shape[0], x.shape[1]
+    out = [torch.empty_like(x) for _ in range(3)]
+    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
+    err = mod._lib().fnx_pbf_phase2(
+        cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), lam.data_ptr(),
+        nc.data_ptr(), *(o.data_ptr() for o in out), part.data_ptr(), c, m, k.h, k.h2, k.eps,
+        k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom, k.inv_p0, mod._stream(x))
+    if err:
+        _fail(f"phase 2's C entry returned {err}")
+    return part
 
 
 def pairs_time(parent=None):
-    """``python3 chip_smoke.py pairs [PARENT]``: the gas-loss density, its
-    adjoint and the splat adjoint (rows 8, 9 and 11 of PERF.md's kernel
-    table) alone at the first phase-C fit iteration's inputs, made as
-    ``train`` makes them (phases A and B, frame 1's simulation; the
-    rasterizer, pbf and splat libraries are built for that). Prints the
-    hidden grid's live cells, live candidate and in-radius pairs and the
-    neighbourhood lists' lengths, the splat adjoint's source rows with a
-    query in reach and their query lists, each kernel against its plain
-    version (outputs in NaN-filled blocks), its time on the card beside its
-    bound, and its launch floors: the same launch with every count 0 and, for
-    the splat adjoint, with every query count 0 and the sources live; and
-    the splat forward's (row 10) time and floor. With the root of another
-    checkout as PARENT (a ``git archive`` of the parent commit), that
-    checkout's ``csrc/pbf.cu`` and ``csrc/splat.cu`` are built as well, its
-    kernels are timed alone and held against this one's bit for bit, and
-    both are timed in turns (parent, this, this, parent), floors included."""
+    """``python3 chip_smoke.py pairs [PARENT]``: the pair kernels of rows 8-13
+    and 7 of PERF.md's kernel table alone: the gas-loss density, its adjoint,
+    the splat forward and the splat adjoint at the first phase-C fit
+    iteration's inputs, made as ``train`` makes them (phases A and B, frame
+    1's simulation; the rasterizer, pbf and splat libraries are built for
+    that), and phases 1 and 2 of the PBF tick (v3) and phase 2 v2, which
+    shares their pair terms, at phase B's first tick (``first_tick_inputs``,
+    lambda and nc from the plain versions). Prints both grids' live rows,
+    slots, pairs and neighbourhood lists, the splat adjoint's source rows
+    with a query in reach, each kernel against its plain version (outputs in
+    NaN-filled blocks; phase 1's as ``check_pbf_kernels`` holds them), and
+    every kernel's time on the card
+    beside its bound and its launch floors: the same launch with every count
+    0 and, for the splat forward, with every source count 0 and the queries
+    live, for the splat adjoint with every query count 0 and the sources
+    live. With the root of another checkout as PARENT (a ``git archive`` of
+    the parent commit), that checkout's ``csrc/pbf.cu`` and ``csrc/splat.cu``
+    are built as well, its kernels are timed alone (phase B's before any
+    kernel of this checkout runs) and held against this one's bit for bit
+    (phase 2's per-row partial sums too), and both are timed in turns
+    (parent, this, this, parent), floors included."""
     from fluidnexus_torch.ops import cuda_build
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -3452,6 +3562,40 @@ def pairs_time(parent=None):
             print(f"build {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
         for lib, proc in procs.items():
             _wait_parent_build(proc, lib)
+
+        def call(module, name, args):
+            return getattr(module, plans[name][0].__name__)(*args)
+
+        def time_alone(modules, who, names):
+            for (name, what), args in runs.items():
+                if name in names:
+                    ms, rec = kernel_device_ms(lambda: call(modules[PAIRS_LIBS[name]], name, args),
+                                               pair_kernel(name))
+                    bound = ""
+                    if what == "the kernel":
+                        b_ms, b_by = bound_ms(*plans[name][3:])
+                        bound = f", bound {b_ms:.5f} ms by {b_by}"
+                    print(f"{who}: row {PAIRS_ROWS[name]} {name} {what} {ms:.4f} ms on the card "
+                          f"({rec}){bound}")
+
+        plans, runs = {}, {}  # name: (wrapper, plain, args, bytes, ops); (name, what): arguments
+
+        def add_runs(names):
+            for name in names:
+                runs[(name, "the kernel")] = plans[name][2]
+                for label, args in launch_floors(name, plans[name][2]).items():
+                    runs[(name, f"launch floor, {label}")] = args
+
+        # phase B's first tick: no kernel of this checkout runs to make it
+        cfg_b, params_b = phase_b_config()
+        inp_b = first_tick_inputs(cfg_b, params_b, dev)
+        saved_b = pbf_plain_saved(inp_b)
+        plans.update(pbf_plans(inp_b, saved_b))
+        pbf_rows = ("pbf_phase1", "pbf_phase2", "pbf_phase2_v2")
+        add_runs(pbf_rows)
+        if pmods:
+            time_alone(pmods, "parent alone", pbf_rows)
+
         cfg = phase_c_config()
         scene = smoke_scene()
         bg = synthetic_background(32768, dev)
@@ -3466,6 +3610,14 @@ def pairs_time(parent=None):
               f"candidate pairs, {dc['in_radius']} in radius (self included); a live cell's "
               f"neighbourhood holds {float(lists.mean()):.1f} live slots on average, at most "
               f"{int(lists.max())}")
+        f = inp["splat_fwd"]
+        qnbr, qcnt, scnt = f[0], f[1], f[5]
+        slists = scnt[qnbr.long()].sum(1)[qcnt[:-1] > 0].float()
+        print(f"row 10's inputs: Cq {qnbr.shape[0]} Mq {f[2].shape[1]}, {int((qcnt[:-1] > 0).sum())} "
+              f"live query rows holding {int(qcnt.sum())} queries (fullest row {int(qcnt.max())}); "
+              f"their source lists {float(slists.mean()):.1f} entries on average, at most "
+              f"{int(slists.max())}; {int((slists == 0).sum())} live query rows have no source in "
+              f"reach")
         s = inp["splat_bwd"]
         rows, sources, qlists = splat_bwd_reach(s)
         print(f"row 11's inputs: Cs {s[0].shape[0]} Ms {s[2].shape[1]}, Cq {s[6].numel() - 1} Mq "
@@ -3473,67 +3625,58 @@ def pairs_time(parent=None):
               f"{int(s[1].sum())} sources, {int(s[6].sum())} live queries; {rows} source rows "
               f"holding {sources} sources have a query in reach, their query lists "
               f"{float(qlists.mean()):.1f} entries on average, at most {int(qlists.max())}")
-        plans = phase_c_plans(inp)
-        runs = {}  # (kernel, what): arguments
-        for name in (*PAIRS_ROWS, "splat_fwd"):
-            runs[(name, "the kernel")] = plans[name][2]
-            for label, args in launch_floors(name, plans[name][2]).items():
-                runs[(name, f"launch floor, {label}")] = args
-
-        def call(module, name, args):
-            return getattr(module, plans[name][0].__name__)(*args)
-
+        plans.update(phase_c_plans(inp))
+        c_rows = ("density_fwd", "density_bwd", "splat_fwd", "splat_bwd")
+        add_runs(c_rows)
         if pmods:
-            for (name, what), args in runs.items():
-                if name in PAIRS_ROWS:
-                    ms, rec = kernel_device_ms(lambda: call(pmods[PAIRS_LIBS[name]], name, args),
-                                               PHASE_C_KERNELS[name][2])
-                    print(f"parent alone: row {PAIRS_ROWS[name]} {name} {what} {ms:.4f} ms on the "
-                          f"card ({rec})")
+            time_alone(pmods, "parent alone", c_rows)
+
         failures = []
-        for name in PAIRS_ROWS:
+        for name in c_rows:
             failures += held_in_nan_blocks(name, plans[name][2], f"row {PAIRS_ROWS[name]}")[1]
+        failures += held_in_nan_blocks("pbf_phase2_v2", plans["pbf_phase2_v2"][2], "row 7")[1]
         if failures:
             _fail(f"the pair kernels disagree with their plain versions: {failures}")
-        for (name, what), args in runs.items():
-            ms, rec = kernel_device_ms(lambda: call(this[PAIRS_LIBS[name]], name, args),
-                                       PHASE_C_KERNELS[name][2])
-            bound = ""
-            if what == "the kernel":
-                b_ms, b_by = bound_ms(*plans[name][3:])
-                bound = f", bound {b_ms:.5f} ms by {b_by}"
-            print(f"row {PAIRS_ROWS.get(name, 10)} {name} {what}: {ms:.4f} ms on the card "
-                  f"({rec}){bound}")
+        check_pbf_kernels(inp_b)  # rows 12 and 13; phase 2 into NaN-filled blocks
+        time_alone(this, "this checkout", PAIRS_ROWS)
         if not pmods:
             return
         for name in PAIRS_ROWS:
             mine, theirs = (call(m[PAIRS_LIBS[name]], name, plans[name][2]) for m in (this, pmods))
             mine, theirs = ((o,) if torch.is_tensor(o) else o for o in (mine, theirs))
+            if name == "pbf_phase2":
+                mine, theirs = (o + (phase2_part(m, *plans[name][2]),)
+                                for o, m in ((mine, pc), (theirs, pmods["pbf"])))
             diff = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
-            same = all(bits_equal(a, b) for a, b in zip(mine, theirs))
+            same = [bits_equal(a, b) for a, b in zip(mine, theirs)]
             print(f"row {PAIRS_ROWS[name]} {name} this against the parent: max|diff| {diff:.3e}, "
-                  f"bit-identical {same}")
+                  f"bit-identical {all(same)} (per output {same})")
         for (name, what), args in runs.items():
-            if name in PAIRS_ROWS:
-                lib = PAIRS_LIBS[name]
-                in_turns(f"row {PAIRS_ROWS[name]} {name} {what}", PHASE_C_KERNELS[name][2],
-                         lambda m, n=name, a=args: call(m, n, a), pmods[lib], this[lib])
+            lib = PAIRS_LIBS[name]
+            in_turns(f"row {PAIRS_ROWS[name]} {name} {what}", pair_kernel(name),
+                     lambda m, n=name, a=args: call(m, n, a), pmods[lib], this[lib])
 
 
 def pairs_checks(dev):
-    """The gas-loss density, its adjoint and the splat adjoint against their
-    plain versions, every output written into NaN-filled blocks: the density
-    pair at M = 32 and M = 128 over seeded points with full rows and one
-    isolated point, whose 26 neighbour cells are empty (its pi must be the
-    plain version's bit for bit: the self term alone); the splat adjoint at
-    (Ms, Mq) = (32, 32) and (128, 128) with full query rows, query lists
-    that span several staged chunks, and source rows with no query in reach,
-    which must read exactly 0, as must row Cs. What a pairs mutant has to
-    get past."""
+    """The gas-loss density, its adjoint, both splat kernels and phase 2 v3
+    against their plain versions, every output written into NaN-filled
+    blocks: the density pair at M = 32 and M = 128 over seeded points with
+    full rows and one isolated point, whose 26 neighbour cells are empty (its
+    pi must be the plain version's bit for bit: the self term alone); the
+    splat adjoint at (Ms, Mq) = (32, 32) and (128, 128) with full query rows,
+    query lists that span several staged chunks, and source rows with no
+    query in reach, which must read exactly 0, as must row Cs; the splat
+    forward at the same capacities with full source rows whose lists span
+    several chunks and query rows with no source in reach, which must read
+    exactly 0, as must row Cq; phase 2 at M = 32 and M = 128, at e_p 4 and
+    2.5, over the density's grid with two live particles at one position in
+    one row (a non-self pair at d2 = 0), whose isolated point must keep its
+    coordinates bit for bit (its update is exactly 0). What a pairs mutant
+    has to get past."""
     from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
-    from tests.torch_helpers import isolated_point_grid, splat_edge_grids
+    from tests.torch_helpers import isolated_point_grid, splat_edge_grids, splat_fwd_edge_grids
 
     failures = []
     k = pc.pair_consts(tpbf.PBFParams(h=1.0))
@@ -3566,12 +3709,50 @@ def pairs_checks(dev):
         none = torch.nonzero((lists == 0) & (scnt[:-1] > 0))[:, 0]
         gx, gv = sc.splat_bwd_slots(*args)
         zero = not bool(gx[none].any() or gv[none].any())
-        chunked = int(lists.max()) > SPLAT_BWD_CHUNK
+        chunked = int(lists.max()) > SPLAT_CHUNK
         print(f"{what}: {len(none)} live source rows with no query in reach, all 0: {zero}; a "
               f"full query row {bool((qcnt == mq).any())}; the longest query list "
-              f"{int(lists.max())} entries (more than one chunk of {SPLAT_BWD_CHUNK}: {chunked})")
+              f"{int(lists.max())} entries (more than one chunk of {SPLAT_CHUNK}: {chunked})")
         if not (len(none) > 0 and zero and chunked and bool((qcnt == mq).any())):
             failures.append(f"({ms}, {mq}): the rows with no query in reach or the lists")
+        qnbr, qplanes, planes, vel = splat_fwd_edge_grids(ms, mq, dev, seed=ms + mq + 2)
+        args = (qnbr, *qplanes, *planes, vel, 1.0)
+        what = f"pairs check, splat forward (Ms, Mq) = ({ms}, {mq})"
+        failures += [f"fwd ({ms}, {mq}): {f}" for f in held_in_nan_blocks("splat_fwd", args, what)[1]]
+        qcnt, scnt = qplanes[0], planes[0]
+        lists = scnt[qnbr.long()].sum(1)
+        none = torch.nonzero((lists == 0) & (qcnt[:-1] > 0))[:, 0]
+        wv, ws = sc.splat_fwd_slots(*args)
+        zero = not bool(wv[none].any() or ws[none].any() or wv[-1].any() or ws[-1].any())
+        chunked = int(lists.max()) > SPLAT_CHUNK
+        print(f"{what}: {len(none)} live query rows with no source in reach and row Cq, all 0: "
+              f"{zero}; a full source row {bool((scnt == ms).any())}; the longest source list "
+              f"{int(lists.max())} entries (more than one chunk of {SPLAT_CHUNK}: {chunked})")
+        if not (len(none) > 0 and zero and chunked and bool((scnt == ms).any())):
+            failures.append(f"fwd ({ms}, {mq}): the rows with no source in reach or the lists")
+    for m, e_p in ((32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)):
+        # epsilon 1e-2: a pair at d2 = 0 has cg ~ eps^-1/2, whose terms the
+        # update's sums then cancel; at the default 1e-8 the comparison would
+        # read the two summation orders' rounding of ~1e4-times larger terms
+        k2 = pc.pair_consts(tpbf.PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
+        grid, _ = isolated_point_grid(m, dev, seed=m + 3, coincident=True)
+        cnt, *xyz = pc.planes(grid)
+        lam, _, nl, _, _ = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k2)
+        args = (grid.nbr, cnt, *xyz, lam.contiguous(), (nl + 3.0).contiguous(), k2)
+        what = f"pairs check, phase 2 M {m} e_p {e_p}"
+        failures += [f"phase 2 M {m} e_p {e_p}: {f}" for f in
+                     held_phase2(args, grid.bmask, what)[1]]
+        row, col = int(grid.prow[0]), int(grid.pcol[0])
+        new = pc.phase2_slots(*args)[:3]
+        kept = all(bits_equal(n[row, col], x[row, col]) for n, x in zip(new, xyz))
+        same = bool((xyz[0][grid.prow[1], grid.pcol[1]] == xyz[0][grid.prow[2], grid.pcol[2]]) &
+                    (grid.prow[1] == grid.prow[2]))
+        longest = int(cnt[grid.nbr.long()].sum(1).max())
+        print(f"{what}: the isolated point's coordinates kept bit for bit {kept}; points 1 and 2 "
+              f"coincide in one row {same}; the longest list {longest} entries (more than one "
+              f"chunk of {P2_CHUNK}: {longest > P2_CHUNK})")
+        if not (kept and same and longest > P2_CHUNK):
+            failures.append(f"phase 2 M {m} e_p {e_p}: the isolated point or the grid")
     if failures:
         _fail(f"the pair kernels disagree with their plain versions: {failures}")
 

@@ -30,7 +30,7 @@ inline int threads_for(int M) { return (M + 31) / 32 * 32; }
 
 // ---------------------------------------------------------------------------
 // A centre row's neighbourhood, staged for a pair loop. A group of L lanes of
-// one warp owns the centre row (GROUP_LANES in the kernels that use it). The
+// one warp owns the centre row (8, 16 or 32 in the kernels that use it). The
 // live slots of its 27 neighbour rows, in neighbour order and then slot
 // order, form one list of n_tot entries: slot s of neighbour j is entry
 // pre_j + s, pre_j the live slots of the neighbours before j. load_nbr_table
@@ -107,16 +107,19 @@ __device__ __forceinline__ int load_nbr_table(NbrTable& tab, const int* __restri
 }
 
 // What stage_chunk stages beside the shifted coordinates: nothing (w = 0; no
-// load spent on a plane the pair loop ignores), the fourth plane w, or w and
-// a second list of the per-slot 3-vector v3 ((C+1, M, 3), interleaved).
-enum Extra { NO_W, W_PLANE, W_VEC3 };
+// load spent on a plane the pair loop ignores), the fourth plane w, w and a
+// second list of the per-slot 3-vector v3 ((C+1, M, 3), interleaved), or the
+// second list alone (w = 0).
+enum Extra { NO_W, W_PLANE, W_VEC3, VEC3 };
+__host__ __device__ constexpr bool loads_w(Extra X) { return X == W_PLANE || X == W_VEC3; }
+__host__ __device__ constexpr bool loads_vec3(Extra X) { return X == W_VEC3 || X == VEC3; }
 
 // Entries [c0, min(c0 + CH, n_tot)) of the group's list into dst (and dst2
-// for W_VEC3), then far entries up to dst[fill - 1] (fill <= CH). Lane sub
-// takes the entries c0 + sub + L m: for each it finds the neighbour j (the
-// last whose pre_j <= e, a five-step search of the table), loads its slot's
-// planes with every load of ROUND entries in flight, adds the shift and
-// stores the float4s. Every lane of the warp calls it.
+// for W_VEC3 and VEC3), then far entries up to dst[fill - 1] (fill <= CH).
+// Lane sub takes the entries c0 + sub + L m: for each it finds the neighbour
+// j (the last whose pre_j <= e, a five-step search of the table), loads its
+// slot's planes with every load of ROUND entries in flight, adds the shift
+// and stores the float4s. Every lane of the warp calls it.
 template <int L, int CH, int ROUND, Extra X = W_PLANE>
 __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, int c0, int n_tot,
                                             int fill, const float* __restrict__ x,
@@ -138,8 +141,8 @@ __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, in
         for (int step = 16; step > 0; step >>= 1)
           if (j + step < 27 && tab.pre[j + step] <= e) j += step;
         const size_t at = (size_t)tab.nb[j] * M + (e - tab.pre[j]);
-        v[m] = make_float4(x[at], y[at], z[at], X == NO_W ? 0.0f : w[at]);
-        if constexpr (X == W_VEC3) u[m] = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
+        v[m] = make_float4(x[at], y[at], z[at], loads_w(X) ? w[at] : 0.0f);
+        if constexpr (loads_vec3(X)) u[m] = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
         jj[m] = j;
       }
     }
@@ -150,10 +153,10 @@ __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, in
         dst[e - c0] = make_float4(__fadd_rn(v[m].x, shift(jj[m], 0, h)),
                                   __fadd_rn(v[m].y, shift(jj[m], 1, h)),
                                   __fadd_rn(v[m].z, shift(jj[m], 2, h)), v[m].w);
-        if constexpr (X == W_VEC3) dst2[e - c0] = u[m];
+        if constexpr (loads_vec3(X)) dst2[e - c0] = u[m];
       } else if (e < c0 + fill) {
         dst[e - c0] = make_float4(FAR, FAR, FAR, 0.0f);
-        if constexpr (X == W_VEC3) dst2[e - c0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if constexpr (loads_vec3(X)) dst2[e - c0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     }
   }

@@ -18,9 +18,9 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// One block per row, one thread per centre slot (the gas loss's density and
-// its adjoint: half a warp per row); dead slots and rows are masked by the counts, so no
-// sentinel coordinates are needed. The pair terms are fnx::pair_terms and
+// One block per row, one thread per centre slot (phase 2 v3, the gas loss's
+// density and its adjoint: half a warp per row); dead slots and rows are
+// masked by the counts, so no sentinel coordinates are needed. The pair terms are fnx::pair_terms and
 // fnx::phase2_terms (pair_common.cuh), the same device functions in every
 // generation.
 
@@ -236,61 +236,6 @@ __global__ void __launch_bounds__(MAX_M) phase1_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2, v3. Replaces the Pallas kernel
-// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3).
-// Per live slot, over its non-self pairs:
-//   corr = -k_p (w / w(dq))^e_p, b = (lambda_i + lambda_s + corr) cg,
-//   x_new = x_i + ((sum b) x_i - sum b x_s) / p0 / max(nc_i, 1e-20),
-// where nc = nl + counts. It writes the UPDATED coordinates, not the deltas;
-// dead slots and empty rows keep their input coordinates. Each row also
-// writes its partial sums of corr and of the non-self in-radius count
-// (row_partials).
-//
-// Bound on the H100: as phase 1, ~35 f32 operations per live candidate pair
-// against one read of four planes and one write of three: bound by
-// operations. Same design as phase 1; lambda is staged beside the shifted
-// coordinates.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) phase2_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
-    const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
-    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M], sl[MAX_M];
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
-  if (n_c == 0) {
-    if (i < M) {
-      xo[at] = x[at];
-      yo[at] = y[at];
-      zo[at] = z[at];
-    }
-    if (i == 0) part[2 * cell] = part[2 * cell + 1] = 0.0f;
-    return;
-  }
-  const bool live = i < n_c;
-  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
-  const float lc = live ? lam[at] : 0.0f;
-  const Sums2 a = phase2_walk(TableRows{cnt, nbr, x, y, z, lam, C, M}, cell, i, live, xc, yc, zc,
-                              lc, k, sx, sy, sz, sl);
-  if (i < M) {
-    if (live) {
-      const float scale = k.inv_p0 / fmaxf(nc[at], 1e-20f);
-      xo[at] = xc + (a.ba * xc - a.bx) * scale;
-      yo[at] = yc + (a.ba * yc - a.by) * scale;
-      zo[at] = zc + (a.ba * zc - a.bz) * scale;
-    } else {
-      xo[at] = x[at];
-      yo[at] = y[at];
-      zo[at] = z[at];
-    }
-  }
-  row_partials(a.cra, a.nsa, i, cell, part);
-}
-
-// ---------------------------------------------------------------------------
 // Phase 1, v2 and v1: the raw sums, with lambda left to the caller
 // (sim/pbf_dense._project_core, as fluidnexus_tpu/sim/pbf_dense.py:155-160
 // does). Per live slot: pi_raw = sum w, sg = (sum cg) x_i - sum cg x_s
@@ -387,7 +332,8 @@ __device__ __forceinline__ void phase2_raw(const Rows& rows, const int* cnt, con
 // Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v2
 // (wrapper phase2_slots_v2). Bound on the H100: 9 f32 operations per live
 // candidate pair and 25 + e_p per pair in radius, against one read of four
-// planes and one write of three: bound by operations. Design as phase 2 v3.
+// planes and one write of three: bound by operations. Design as phase 1 v3,
+// with lambda staged beside the shifted coordinates (phase2_walk).
 __global__ void __launch_bounds__(MAX_M) phase2_v2_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
@@ -409,25 +355,25 @@ __global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The gas loss's density and its adjoint: two pair walks over the same grid
-// and the same 27 neighbours, at ~8 live slots a row on the main path. A walk
+// The gas loss's density and its adjoint, and phase 2 v3: pair walks over a
+// grid's 27 neighbours, at ~7-8 live slots a row on their main paths. A walk
 // of one block per row that waits on each neighbour's id, count and slots in
 // turn is bound by those ~80 dependent trips to memory, not by its
-// operations, and a lane per centre slot leaves most of a warp idle. Both
-// kernels take one design instead: a group of GROUP_LANES lanes owns a row
-// (two rows a warp, GROUP_ROWS a block), so a row's few live slots fill half
-// a warp; the group reads the 27 ids and counts in two trips
-// (load_nbr_table) and stages the row's whole neighbourhood as one list of
-// shifted coordinates, many entries a lane with their loads in flight
-// (stage_chunk, chunks of DENS_CHUNK entries, which also bounds it at
-// M = MAX_M); then the pair loop runs over the list with no barrier and no
-// branch: a pair out of radius, or with a far entry past the list, adds
-// nothing, which leaves the sums' bits as they are, so the compiler can
-// overlap the iterations. A lane holds one centre slot, or two where a row of
-// the warp has more than GROUP_LANES live slots; a pass covers 32, and a row
-// of more takes more passes. Each slot's sum runs in neighbour order, then
-// slot order, with the arithmetic of a walk over the rows, so it adds the
-// same terms in the same order.
+// operations, and a lane per centre slot leaves most of a warp idle. The
+// three kernels take one design instead: a group of lanes owns a row (in the
+// density and its adjoint GROUP_LANES = 16, two rows a warp; in phase 2 8,
+// four rows a warp), so a row's few live slots fill its group; the group
+// reads the 27 ids and counts in two trips (load_nbr_table) and stages the
+// row's whole neighbourhood as one list of shifted coordinates, many entries
+// a lane with their loads in flight (stage_chunk, in chunks, which also
+// bounds it at M = MAX_M); then the pair loop runs over the list with no
+// barrier and no branch: a pair out of radius, or with a far entry past the
+// list, adds nothing, which leaves the sums' bits as they are, so the
+// compiler can overlap the iterations. A lane holds one centre slot, or two
+// where a row of the warp has more live slots than its group has lanes; a
+// pass covers twice the group, and a row of more takes more passes. Each
+// slot's sum runs in neighbour order, then slot order, with the arithmetic
+// of a walk over the rows, so it adds the same terms in the same order.
 // ---------------------------------------------------------------------------
 using fnx::GROUP_CPL;
 using fnx::GROUP_LANES;
@@ -640,6 +586,219 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Phase 2, v3. Replaces the Pallas kernel
+// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3).
+// Per live slot, over its non-self pairs:
+//   corr = -k_p (w / w(dq))^e_p, b = (lambda_i + lambda_s + corr) cg,
+//   x_new = x_i + ((sum b) x_i - sum b x_s) / p0 / max(nc_i, 1e-20),
+// where nc = nl + counts. It writes the UPDATED coordinates, not the deltas;
+// dead slots, empty rows and row C keep their input coordinates. Each row
+// also writes its partial sums of corr and of the non-self in-radius count:
+// part[row] = (s_corr, s_ns), which the caller adds up (no float atomics).
+//
+// Bound on the H100: ~35 f32 operations per live candidate pair against one
+// read of four planes and one write of three: bound by operations, and in
+// practice by the latency of the walk. The design above, with these points:
+// - A group of P2_LANES = 8 lanes owns a row, four rows a warp: the hidden
+//   grid's live rows hold ~7 live slots (at most 8 on phase B's first tick,
+//   17 in phase C's), which fill 8 lanes but left 16 half idle, and 16-lane
+//   groups read 0.0316 ms against 0.0237 on the H100. A lane holds up to
+//   two centre slots, so a pass covers 16 and a row of more takes passes.
+// - Lambda is the list's fourth plane. A chunk holds P2_CHUNK = 256 entries,
+//   less than a whole neighbourhood at M = 32 (27 x 32): at the 168
+//   registers a thread the loop takes, the registers allow six blocks an SM,
+//   and chunks of 27 x 32 (55 KB a block) would allow four (read ~10 %
+//   slower); phase B's lists hold 165 entries on average, 216 at most.
+// - The pair loop calls pair_terms and phase2_terms unchanged, with the
+//   power's repeat count int_pow made a constant where the launch has one
+//   (IP: 4 at PBFParams.e_p 4, three products; 0, powf, at a non-integer
+//   e_p), so the unrolled loop holds no loop of its own; any other int_pow
+//   runs the runtime loop (IP = -1).
+// - The self pair is found by index, never by d2 = 0: the centre's own entry
+//   is neighbour 13's (the row itself, as TableRows::open's nb == cell says)
+//   at its slot, pre[13] + slot. Two live particles at the same coordinates
+//   in one row are a non-self pair with d2 = 0 and cg != 0.
+// - A dead centre slot's registers hold 0, a point inside the cell, so it
+//   pairs with real entries: its sums are selected to 0 before the row's
+//   partials, and it writes its input coordinate.
+// - The row's partials are reduced in the tree of the one-block-a-row walk,
+//   whose warps each summed 32 slots: slot s + 16 added to slot s (that
+//   walk's shuffle at offset 16: here the odd pass's slot to the even
+//   pass's), then s + 8 to s (a lane's second slot to its first), then
+//   offsets 4, 2, 1 across the group, and the warps' sums added in order
+//   from 0, so s_corr and s_ns keep their bits.
+// - Empty rows and row C copy x, y, z by 16-byte loads and stores where the
+//   entry finds M % 4 == 0 and every plane aligned, and write part 0.
+// ---------------------------------------------------------------------------
+constexpr int P2_LANES = 8;                           // lanes that own a row
+constexpr int P2_CPL = 2;                             // centre slots a lane may hold
+constexpr int P2_PASS = P2_LANES * P2_CPL;            // centre slots a pass covers: 16
+constexpr int P2_ROWS = GROUP_WARPS * 32 / P2_LANES;  // rows a block
+constexpr int P2_CHUNK = 256;                         // list entries a row stages at once
+constexpr int P2_ROUND = 16;  // entries a lane stages with its loads in flight
+static_assert(2 * P2_PASS == 32, "two passes make the 32 slots of the partials' tree");
+
+size_t phase2_smem() { return (size_t)P2_ROWS * P2_CHUNK * sizeof(float4); }
+
+// A centre slot of a pass: its coordinates and lambda, the list entry of its
+// self pair, and its sums.
+struct Cen2 {
+  float x, y, z, l;
+  int self_e;
+  Sums2 a;
+};
+
+// The pair loop over kn staged entries (the list's entries c0 ..) for the
+// first NC centre slots a lane holds: no branch, so the compiler can overlap
+// the iterations.
+template <int NC, int IP>
+__device__ __forceinline__ void phase2_sweep(const float4* list, int c0, int kn,
+                                             Cen2 (&c)[P2_CPL], const PairConsts& k0) {
+  PairConsts k = k0;
+  if (IP >= 0) k.int_pow = IP;
+#pragma unroll 4
+  for (int e = 0; e < kn; ++e) {
+    const float4 s = list[e];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      Cen2& ci = c[i];
+      const bool self = c0 + e == ci.self_e;
+      const Pair p = pair_terms(ci.x, ci.y, ci.z, s.x, s.y, s.z, self, k);
+      const Pair2 q = phase2_terms(p, self, ci.l, s.w, k);
+      ci.a.ba += q.b;
+      ci.a.cra += q.corr * q.ns;
+      ci.a.nsa += q.ns;
+      ci.a.bx += q.b * s.x;
+      ci.a.by += q.b * s.y;
+      ci.a.bz += q.b * s.z;
+    }
+  }
+}
+
+template <int IP>
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
+    const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
+    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
+  extern __shared__ float4 p2_lists[];  // [P2_ROWS][P2_CHUNK]
+  __shared__ fnx::NbrTable tabs[P2_ROWS];
+  const int grp = threadIdx.x / P2_LANES;
+  const int sub = threadIdx.x % P2_LANES;
+  const int row = blockIdx.x * P2_ROWS + grp;
+  float4* list = p2_lists + grp * P2_CHUNK;
+  const int n_c = row <= C ? cnt[row] : 0;
+  const fnx::NbrTable& tab = tabs[grp];
+  const int n_tot = fnx::load_nbr_table<P2_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  if (row <= C) {  // the slots the pair loop does not write keep their coordinates
+    if (n_c == 0 && vec) {  // the row's every slot, 16 bytes a load and a store
+      const size_t o = (size_t)row * M / 4;
+      for (int i = sub; i < M / 4; i += P2_LANES) {
+        reinterpret_cast<float4*>(xo)[o + i] = reinterpret_cast<const float4*>(x)[o + i];
+        reinterpret_cast<float4*>(yo)[o + i] = reinterpret_cast<const float4*>(y)[o + i];
+        reinterpret_cast<float4*>(zo)[o + i] = reinterpret_cast<const float4*>(z)[o + i];
+      }
+    } else {
+      for (int i = n_c + sub; i < M; i += P2_LANES) {  // dead slots, or the row's every slot
+        const size_t at = (size_t)row * M + i;
+        xo[at] = x[at];
+        yo[at] = y[at];
+        zo[at] = z[at];
+      }
+    }
+    if (n_c == 0 && sub == 0) part[2 * row] = part[2 * row + 1] = 0.0f;
+  }
+  const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_c + P2_PASS - 1) / P2_PASS);
+  const int list_max = __reduce_max_sync(FULL_MASK, n_c > 0 ? (unsigned)n_tot : 0u);
+  // the list entry of slot 0's self pair: neighbour 13 is the row itself
+  const int self0 = row < C && tab.nb[fnx::SELF_J] == row ? tab.pre[fnx::SELF_J] : -(1 << 30);
+  float s_corr = 0.0f, s_ns = 0.0f;  // the row's partial sums, pass by pass
+  float hold_cr[P2_CPL], hold_ns[P2_CPL];  // an even pass's sums, for the odd pass after it
+  for (int pass = 0; pass < passes; ++pass) {
+    const int left = n_c - pass * P2_PASS;  // this row's live centre slots from the pass on
+    // centre slots a lane of the warp holds in this pass, at most
+    const int cpl = __reduce_max_sync(FULL_MASK, left > P2_LANES ? (unsigned)P2_CPL : 1u);
+    bool live[P2_CPL];
+    Cen2 c[P2_CPL];
+#pragma unroll
+    for (int i = 0; i < P2_CPL; ++i) {
+      const int s = sub + i * P2_LANES;
+      const size_t at = (size_t)row * M + pass * P2_PASS + s;
+      live[i] = s < left;
+      c[i].x = live[i] ? x[at] : 0.0f;
+      c[i].y = live[i] ? y[at] : 0.0f;
+      c[i].z = live[i] ? z[at] : 0.0f;
+      c[i].l = live[i] ? lam[at] : 0.0f;
+      c[i].self_e = self0 + pass * P2_PASS + s;
+      c[i].a = Sums2{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    }
+    for (int c0 = 0; c0 < list_max; c0 += P2_CHUNK) {
+      const int kn = min(P2_CHUNK, list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<P2_LANES, P2_CHUNK, P2_ROUND>(list, tab, c0, left > 0 ? n_tot : 0, kn, x,
+                                                     y, z, lam, M, k.h, sub);
+      if (cpl == 1)
+        phase2_sweep<1, IP>(list, c0, kn, c, k);
+      else
+        phase2_sweep<P2_CPL, IP>(list, c0, kn, c, k);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+#pragma unroll
+    for (int i = 0; i < P2_CPL; ++i) {
+      if (!live[i]) continue;
+      const size_t at = (size_t)row * M + pass * P2_PASS + sub + i * P2_LANES;
+      const Sums2& a = c[i].a;
+      const float scale = k.inv_p0 / fmaxf(nc[at], 1e-20f);
+      xo[at] = c[i].x + (a.ba * c[i].x - a.bx) * scale;
+      yo[at] = c[i].y + (a.ba * c[i].y - a.by) * scale;
+      zo[at] = c[i].z + (a.ba * c[i].z - a.bz) * scale;
+    }
+    // the row's partials in the walk's tree (above): an even pass's sums wait
+    // for the odd pass after it, or for 0 where the warp has no such pass
+    const bool odd = pass % 2 == 1;
+#pragma unroll
+    for (int i = 0; i < P2_CPL; ++i) {
+      const float cr_i = live[i] ? c[i].a.cra : 0.0f, ns_i = live[i] ? c[i].a.nsa : 0.0f;
+      hold_cr[i] = odd ? hold_cr[i] + cr_i : cr_i;
+      hold_ns[i] = odd ? hold_ns[i] + ns_i : ns_i;
+    }
+    if (!odd && pass < passes - 1) continue;
+    if (!odd) {
+#pragma unroll
+      for (int i = 0; i < P2_CPL; ++i) {
+        hold_cr[i] += 0.0f;
+        hold_ns[i] += 0.0f;
+      }
+    }
+    float cr = hold_cr[0] + hold_cr[1];
+    float ns = hold_ns[0] + hold_ns[1];
+#pragma unroll
+    for (int off = P2_LANES / 2; off > 0; off >>= 1) {
+      cr += __shfl_down_sync(FULL_MASK, cr, off, P2_LANES);
+      ns += __shfl_down_sync(FULL_MASK, ns, off, P2_LANES);
+    }
+    s_corr += cr;
+    s_ns += ns;
+  }
+  if (n_c > 0 && sub == 0) {
+    part[2 * row] = s_corr;
+    part[2 * row + 1] = s_ns;
+  }
+}
+
+template <int IP>
+int launch_phase2(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
+                  const float* lam, const float* nc, float* xo, float* yo, float* zo, float* part,
+                  int C, int M, const PairConsts& k, bool vec, cudaStream_t stream) {
+  const size_t smem = phase2_smem();
+  cudaError_t err = cudaFuncSetAttribute(phase2_kernel<IP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  phase2_kernel<IP><<<C / P2_ROWS + 1, GROUP_WARPS * 32, smem, stream>>>(
+      cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
+  return (int)cudaGetLastError();
+}
+
 PairConsts consts(float h, float h2, float eps, float c6, float s45, float inv_p0, float relax,
                   float k_p, float e_p, int int_pow, float inv_denom) {
   return PairConsts{h, h2, eps, c6, s45, inv_p0, relax, k_p, e_p, inv_denom, int_pow};
@@ -668,10 +827,13 @@ int fnx_pbf_phase2(const int* cnt, const int* nbr, const float* x, const float* 
                    int C, int M, float h, float h2, float eps, float c6, float s45, float k_p,
                    float e_p, int int_pow, float inv_denom, float inv_p0, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase2_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
-      cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M,
-      consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow, inv_denom));
-  return (int)cudaGetLastError();
+  const PairConsts k = consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow, inv_denom);
+  const bool vec = M % 4 == 0 && ((size_t)x | (size_t)y | (size_t)z | (size_t)xo | (size_t)yo |
+                                  (size_t)zo) % sizeof(float4) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (int_pow == 4) return launch_phase2<4>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+  if (int_pow == 0) return launch_phase2<0>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+  return launch_phase2<-1>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
 }
 
 int fnx_pbf_phase1_v2(const int* cnt, const int* nbr, const float* x, const float* y,

@@ -34,11 +34,10 @@
 // wv and ws; the adjoint reads only the source rows that have a query in
 // reach and the query rows they reach, and writes both gradients of every
 // live source. Which of the two bounds depends on how the sets overlap;
-// chip_smoke.py counts both from the run's grids. The forward takes one block
-// per query row and one thread per query slot, and stages each neighbour row,
-// shifted by its offset, in shared memory once per block; the adjoint's design
-// is set out at its kernel. Both keep every per-slot sum in registers. No
-// float atomics: each output is written by the one thread that owns it.
+// chip_smoke.py counts both from the run's grids. Both kernels take one
+// design, set out at the forward, the one from each set's side. Both keep
+// every per-slot sum in registers. No float atomics: each output is written
+// by the one thread that owns it.
 
 #include <cuda_runtime.h>
 
@@ -46,64 +45,116 @@
 
 namespace {
 
+using fnx::GROUP_CPL;
+using fnx::GROUP_LANES;
+using fnx::GROUP_ROWS;
+using fnx::GROUP_WARPS;
 using fnx::MAX_M;   // slots per cell row in either grid
 using fnx::norm2_rn;
-using fnx::shift;
-using fnx::threads_for;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // Forward. Replaces fluidnexus_tpu/sim/pbf_pallas.py:_splat_fwd_kernel
 // (wrapper splat_slots). Per live query slot, over the live source slots of
-// its 27 neighbour cells: wv = sum W vel_s (3) and ws = sum W.
+// its 27 neighbour cells (read through qnbr, Cs = none): wv = sum W vel_s (3)
+// and ws = sum W.
+//
+// Design. On the main path only ~141 of the 4 097 query rows hold a live
+// query, and a walk of one block per row that waits on each neighbour's id,
+// count and slots in turn spends its time on those ~80 dependent trips to
+// memory, not on its pairs. So the kernel takes the row design of the gas
+// loss's density (pbf.cu, pair_common.cuh) with a whole warp to a query row:
+// the warp reads the 27 source rows' ids and counts in two trips
+// (load_nbr_table); a row whose list is empty writes its zeros by 16-byte
+// stores (the entry checks alignment) and its warp leaves there. The others
+// stage the source list in chunks of SPF_CHUNK entries, in one round of
+// loads, as two float4 lists, (x, y, z shifted, 0) and (v0, v1, v2, 0)
+// (stage_chunk's VEC3: no fourth plane is loaded), and run one branch-free
+// pair loop over it, a lane to a query slot (a row of more than 32 takes
+// passes); the warp's trip count is its own row's list, so no far entry is
+// staged. Out of radius W is selected to 0, which leaves a sum's bits as
+// they are. Each slot adds the terms of the walk over rows in its order
+// (neighbour, then slot), each a += W v by one FMA as the walk's
+// `a += w * v` compiled, so the kernel is bit for bit the walk's. Why a warp to a row, where the density gives a row half a warp:
+// the live query rows hold up to 32 queries over lists of up to 234 sources
+// (PERF.md), and their serial loops set the kernel's time; in half a warp a
+// lane of a full row held two slots and ran twice the instructions an entry
+// (0.0114 ms against 0.0078 on the H100). Every output slot is written: dead
+// slots, live queries with no source in reach and row Cq get 0.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) splat_fwd_kernel(
+constexpr int SPF_ROWS = GROUP_WARPS;       // query rows a block: a warp each
+constexpr int SPF_CHUNK = 256;              // source list entries a row stages at once
+constexpr int SPF_ROUND = SPF_CHUNK / 32;   // a whole chunk in one round of loads
+
+size_t splat_fwd_smem() { return (size_t)SPF_ROWS * SPF_CHUNK * 2 * sizeof(float4); }
+
+// The pair loop over kn staged source entries for a lane's query slot: no
+// branch, so the compiler can overlap the iterations.
+__device__ __forceinline__ void splat_fwd_sweep(const float4* xl, const float4* vl, int kn,
+                                                float xc, float yc, float zc, float& a0,
+                                                float& a1, float& a2, float& aw, float h2) {
+#pragma unroll 8
+  for (int k = 0; k < kn; ++k) {
+    const float4 s = xl[k], v = vl[k];
+    const float d2 = norm2_rn(__fsub_rn(xc, s.x), __fsub_rn(yc, s.y), __fsub_rn(zc, s.z));
+    const float t2 = h2 - d2;
+    const float w = d2 < h2 ? t2 * t2 * t2 : 0.0f;
+    aw += w;
+    a0 += w * v.x;
+    a1 += w * v.y;
+    a2 += w * v.z;
+  }
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) splat_fwd_kernel(
     const int* __restrict__ qcnt, const int* __restrict__ qnbr, const float* __restrict__ xq,
     const float* __restrict__ yq, const float* __restrict__ zq, const int* __restrict__ scnt,
     const float* __restrict__ xs, const float* __restrict__ ys, const float* __restrict__ zs,
     const float* __restrict__ vel, float* __restrict__ wv, float* __restrict__ ws, int Cq, int Mq,
     int Cs, int Ms, float h, float h2) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M], sv0[MAX_M], sv1[MAX_M], sv2[MAX_M];
-  const int row = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)row * Mq + i;
-  const int n_c = qcnt[row];
-  const bool live = i < n_c;
-  const float xc = live ? xq[at] : 0.0f, yc = live ? yq[at] : 0.0f, zc = live ? zq[at] : 0.0f;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, aw = 0.0f;
-  for (int j = 0; j < 27 && n_c > 0; ++j) {
-    const int nb = qnbr[row * 27 + j];
-    if (nb >= Cs) continue;  // the same for the whole block
-    const int n_s = scnt[nb];
-    if (n_s == 0) continue;
-    __syncthreads();  // the previous row is consumed
-    for (int s = i; s < n_s; s += blockDim.x) {
-      const size_t src = (size_t)nb * Ms + s;
-      sx[s] = __fadd_rn(xs[src], shift(j, 0, h));
-      sy[s] = __fadd_rn(ys[src], shift(j, 1, h));
-      sz[s] = __fadd_rn(zs[src], shift(j, 2, h));
-      sv0[s] = vel[3 * src];
-      sv1[s] = vel[3 * src + 1];
-      sv2[s] = vel[3 * src + 2];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < n_s; ++s) {
-      const float d2 = norm2_rn(__fsub_rn(xc, sx[s]), __fsub_rn(yc, sy[s]), __fsub_rn(zc, sz[s]));
-      if (d2 < h2) {
-        const float t2 = h2 - d2;
-        const float w = t2 * t2 * t2;
-        aw += w;
-        a0 += w * sv0[s];
-        a1 += w * sv1[s];
-        a2 += w * sv2[s];
+  extern __shared__ float4 spf_lists[];  // [SPF_ROWS][2][SPF_CHUNK]
+  __shared__ fnx::NbrTable tabs[SPF_ROWS];
+  const int grp = threadIdx.x / 32;
+  const int sub = threadIdx.x % 32;
+  const int row = blockIdx.x * SPF_ROWS + grp;
+  float4* xl = spf_lists + grp * 2 * SPF_CHUNK;
+  float4* vl = xl + SPF_CHUNK;
+  const int n_c = row <= Cq ? qcnt[row] : 0;
+  const int n_tot = fnx::load_nbr_table<32>(tabs[grp], qnbr, scnt, row, Cs, sub, row < Cq);
+  const int n_w = n_tot > 0 ? n_c : 0;  // the live slots the pair loop writes
+  if (row <= Cq) {  // the slots the pair loop does not write
+    if (n_w == 0 && Mq % 4 == 0) {  // the row's every slot, 16 bytes a store
+      float4* wv4 = reinterpret_cast<float4*>(wv + (size_t)3 * row * Mq);
+      float4* ws4 = reinterpret_cast<float4*>(ws + (size_t)row * Mq);
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int i = sub; i < 3 * Mq / 4; i += 32) wv4[i] = zero;
+      for (int i = sub; i < Mq / 4; i += 32) ws4[i] = zero;
+    } else {
+      for (int i = n_w + sub; i < Mq; i += 32) {  // dead slots, or the row's every slot
+        const size_t at = (size_t)row * Mq + i;
+        wv[3 * at] = wv[3 * at + 1] = wv[3 * at + 2] = ws[at] = 0.0f;
       }
     }
   }
-  if (i < Mq) {
-    wv[3 * at] = live ? a0 : 0.0f;
-    wv[3 * at + 1] = live ? a1 : 0.0f;
-    wv[3 * at + 2] = live ? a2 : 0.0f;
-    ws[at] = live ? aw : 0.0f;
+  if (n_w == 0) return;  // no source in reach: the same for the whole warp
+  for (int i = sub; i - sub < n_w; i += 32) {  // a pass: this lane's query slot i
+    const bool live = i < n_w;
+    const size_t at = (size_t)row * Mq + i;
+    const float xc = live ? xq[at] : 0.0f, yc = live ? yq[at] : 0.0f, zc = live ? zq[at] : 0.0f;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, aw = 0.0f;
+    for (int c0 = 0; c0 < n_tot; c0 += SPF_CHUNK) {
+      const int kn = min(SPF_CHUNK, n_tot - c0);
+      fnx::stage_chunk<32, SPF_CHUNK, SPF_ROUND, fnx::VEC3>(xl, tabs[grp], c0, n_tot, kn, xs, ys,
+                                                            zs, nullptr, Ms, h, sub, vl, vel);
+      splat_fwd_sweep(xl, vl, kn, xc, yc, zc, a0, a1, a2, aw, h2);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+    if (live) {
+      wv[3 * at] = a0;
+      wv[3 * at + 1] = a1;
+      wv[3 * at + 2] = a2;
+      ws[at] = aw;
+    }
   }
 }
 
@@ -117,31 +168,22 @@ __global__ void __launch_bounds__(MAX_M) splat_fwd_kernel(
 // Each pair adds its term directly, where the Pallas kernel forms
 // (sum f W') x_s - sum f W' x_i.
 //
-// Design. The time of a walk of one block per source row is its ~80
-// dependent trips to memory (each neighbour's id, then its count, then its
-// slots), and on the main path only ~1 source row in 6 has a query in reach:
-// the rest walk their 27 neighbours to write zeros. So the kernel takes the
-// row-group design of the gas loss's density (pbf.cu, pair_common.cuh): a
-// group of GROUP_LANES lanes owns a source row, two rows a warp; the group
-// reads the 27 query rows' ids (rnbr, Cq = none) and counts in two trips
-// (load_nbr_table); a row whose list is empty writes its row's zeros, and a
-// warp whose two rows both have empty lists leaves there. The others stage
-// the query list in chunks of SPB_CHUNK entries as two float4 lists, (x, y,
-// z shifted, q) and (p0, p1, p2, 0) (stage_chunk's W_VEC3), and run one
-// branch-free pair loop over it, the warp's trip count the longer list of its
-// two rows; a centre keeps its x, y, z and vel in registers, with six
-// accumulators. Out of radius and at a far entry past the list (d2 = inf,
-// h^2 - d2 = -inf, -3 t2 t2 = inf; its p and q are 0) the pair's factors f W'
-// and W are selected to 0, never multiplied by 0, so the sums keep their bits
-// and each slot adds the terms of the walk over rows in its order.
+// Design: the forward's, from the source side, with half a warp to a row (a
+// group of GROUP_LANES lanes, two rows a warp: the source rows hold ~8 live
+// slots). A group reads the 27 query rows' ids (rnbr, Cq = none) and counts;
+// on the main path only ~1 source row in 6 has a query in reach, and the rest
+// write their row's zeros (a warp whose two rows have none leaves there).
+// The others stage the query list in chunks of
+// SPB_CHUNK entries as two float4 lists, (x, y, z shifted, q) and (p0, p1,
+// p2, 0) (stage_chunk's W_VEC3), and run one branch-free pair loop over it; a
+// centre keeps its x, y, z and vel in registers, with six accumulators. Out
+// of radius and at a far entry (d2 = inf, h^2 - d2 = -inf, -3 t2 t2 = inf;
+// its p and q are 0) the pair's factors f W' and W are selected to 0, never
+// multiplied by 0, so the sums keep their bits and each slot adds the terms
+// of the walk over rows in its order.
 // Every output slot is written: dead slots, live sources with no query in
 // reach and row Cs get 0.
 // ---------------------------------------------------------------------------
-using fnx::GROUP_CPL;
-using fnx::GROUP_LANES;
-using fnx::GROUP_ROWS;
-using fnx::GROUP_WARPS;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int SPB_CHUNK = 256;                   // query list entries a row stages at once
 constexpr int SPB_ROUND = SPB_CHUNK / GROUP_LANES;  // a whole chunk in one round of loads
 
@@ -265,9 +307,14 @@ int fnx_splat_fwd(const int* qcnt, const int* qnbr, const float* xq, const float
                   const float* zq, const int* scnt, const float* xs, const float* ys,
                   const float* zs, const float* vel, float* wv, float* ws, int Cq, int Mq, int Cs,
                   int Ms, float h, float h2, void* stream) {
-  if (Cq < 0 || Cs < 0 || Mq <= 0 || Mq > MAX_M || Ms <= 0 || Ms > MAX_M)
+  if (Cq < 0 || Cs < 0 || Mq <= 0 || Mq > MAX_M || Ms <= 0 || Ms > MAX_M ||
+      ((size_t)wv | (size_t)ws) % sizeof(float4) != 0)
     return (int)cudaErrorInvalidValue;
-  splat_fwd_kernel<<<Cq + 1, threads_for(Mq), 0, (cudaStream_t)stream>>>(
+  const size_t smem = splat_fwd_smem();
+  cudaError_t err = cudaFuncSetAttribute(splat_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  splat_fwd_kernel<<<Cq / SPF_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
       qcnt, qnbr, xq, yq, zq, scnt, xs, ys, zs, vel, wv, ws, Cq, Mq, Cs, Ms, h, h2);
   return (int)cudaGetLastError();
 }

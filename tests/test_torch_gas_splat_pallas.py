@@ -164,3 +164,34 @@ def test_splat_bwd_plain_matches_pallas_interpret_with_sources_out_of_reach():
                                    atol=1e-5 * scale)
         assert not got[:-1].numpy()[out_of_reach].any() and not ref[out_of_reach].any()
         assert not got[:-1].numpy()[~slive].any() and not got[-1].any()
+
+
+def test_splat_fwd_plain_matches_pallas_interpret_with_queries_out_of_reach():
+    """splat_fwd_plain against splat_slots in interpret mode on grids where
+    one query cell has no source cell among its 27 neighbours: its live
+    queries read exactly 0 in both, and the other live queries agree."""
+    rng = np.random.default_rng(7)
+    src = rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (30, 3)).astype(np.float32)
+    alive = rng.random(30) > 0.1
+    qry = np.concatenate([rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (24, 3)),
+                          rng.uniform([5.2, 0.2, 0.2], [5.8, 0.8, 0.8], (6, 3))]).astype(np.float32)
+    q_alive = rng.random(30) > 0.1
+    jg = jnb.build_dense_grid(jnp.asarray(src), 1.0, jnp.asarray(alive), 8, 8)
+    jq, _ = jnb.bin_queries(jg, 1.0, jnp.asarray(qry), jnp.asarray(q_alive), 8, 8)
+    vel_s = (rng.standard_normal(jg.bxyz.shape) * _np(jg.bmask)[..., None]).astype(np.float32)
+    wv_j, ws_j = jpallas.splat_slots(jg, jq, jnp.asarray(vel_s), 1.0)
+
+    tg, tq = (convert.dense_grid_from_numpy(g, device=CPU) for g in (jg, jq))
+    planes, qplanes = pbf_cuda.planes(tg), pbf_cuda.planes(tq)
+    qlive = tq.bmask[:-1].numpy()
+    out_of_reach = (planes[0][tq.nbr.long()].sum(1) == 0).numpy()[:, None] & qlive
+    assert out_of_reach.sum() >= 3 and (qlive & ~out_of_reach).sum() > 15
+    wv_t, ws_t = splat_cuda.splat_fwd_plain(tq.nbr, *qplanes, *planes, torch.as_tensor(vel_s), 1.0)
+    for got, ref in ((wv_t, wv_j), (ws_t, ws_j)):
+        ref = _np(ref)
+        scale = float(np.abs(ref[qlive]).max())
+        assert scale > 0
+        np.testing.assert_allclose(got[:-1].numpy()[qlive], ref[qlive], rtol=1e-5,
+                                   atol=1e-6 * scale)
+        assert not got[:-1].numpy()[out_of_reach].any() and not ref[out_of_reach].any()
+        assert not got[:-1].numpy()[~qlive].any() and not got[-1].any()

@@ -93,10 +93,18 @@ def test_slot_point_gather_round_trip():
 # ------------------------------ pair passes ---------------------------------
 
 
-def _pair_inputs(seed=0, n_live=400, capacity=512, spread=2.0, caps=(512, 32)):
-    params_j = _params(jpbf.PBFParams, dense_max_cells=caps[0], dense_cell_capacity=caps[1])
-    params_t = _params(tpbf.PBFParams, dense_max_cells=caps[0], dense_cell_capacity=caps[1])
+def _pair_inputs(seed=0, n_live=400, capacity=512, spread=2.0, caps=(512, 32), coincident=False,
+                 **kw):
+    """Both packages' parameters, states and dense grids; with ``coincident``
+    point 1's estimate sits on point 0's (two live particles at one position:
+    a non-self pair at d2 = 0). ``kw`` goes to both parameter sets."""
+    params_j = _params(jpbf.PBFParams, dense_max_cells=caps[0], dense_cell_capacity=caps[1], **kw)
+    params_t = _params(tpbf.PBFParams, dense_max_cells=caps[0], dense_cell_capacity=caps[1], **kw)
     st_j, st_t = _mk_state(n_live, capacity, seed=seed, spread=spread)
+    if coincident:
+        est = st_j.estimate_xyz.at[1].set(st_j.estimate_xyz[0])
+        st_j = st_j._replace(estimate_xyz=est)
+        st_t = st_t._replace(estimate_xyz=_t(est))
     jg = jnb.build_dense_grid(st_j.estimate_xyz, params_j.h, st_j.alive, *caps)
     tg = convert.dense_grid_from_numpy(jg, device=CPU)
     return params_j, params_t, st_j, st_t, jg, tg
@@ -152,9 +160,25 @@ def test_pair_passes_match_the_v3_pallas_kernels():
     """phase1_plain/phase2_plain against phase1_slots_v3/phase2_slots_v3 in
     interpret mode on an 8-cell x 8-slot grid: live slots and the global sums
     (raw dead-slot outputs depend on the Pallas STRIP)."""
+    _check_v3_pallas(seed=11)
+
+
+def test_pair_passes_match_the_v3_pallas_kernels_with_coincident_points():
+    """As above with two live particles at one position in one cell: both
+    packages take the self pair by index (neighbour 13, the slot's own), so
+    the two make a non-self pair at d2 = 0, with cg != 0 and its s_corr term.
+    Epsilon 1e-2: that pair's cg grows as eps^-1/2 and the update's sums
+    cancel its terms, so at the default 1e-8 the comparison would read two
+    summation orders' rounding of ~1e4-times larger terms."""
+    tg = _check_v3_pallas(seed=12, coincident=True, epsilon=1e-2)
+    assert int(tg.prow[0]) == int(tg.prow[1]) < tg.max_cells
+    assert int(tg.pcol[0]) != int(tg.pcol[1])
+
+
+def _check_v3_pallas(seed, **kw):
     caps = (8, 8)
     params_j, params_t, st_j, st_t, jg, tg = _pair_inputs(
-        seed=11, n_live=40, capacity=64, spread=0.6, caps=caps)
+        seed=seed, n_live=40, capacity=64, spread=0.6, caps=caps, **kw)
     c, m = caps
     mc = jg.bmask[:-1]
     cnt_j, _, sent = jpallas._planes(jg)
@@ -193,6 +217,7 @@ def test_pair_passes_match_the_v3_pallas_kernels():
         np.testing.assert_allclose(n[:-1].numpy()[live], cells(ref)[live], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose([float(t_corr), float(t_ns)], [float(s_corr), float(s_ns)],
                                rtol=1e-5)
+    return tg
 
 
 # -------------------------------- the tick ----------------------------------

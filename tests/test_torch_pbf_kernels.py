@@ -14,7 +14,7 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim.pbf import PBFParams
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import cuda_device, isolated_point_grid, leave_nan_blocks  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +61,42 @@ def test_pbf_kernels_match_plain_on_the_card(cuda_device, m, n, box, e_p):
         torch.testing.assert_close(d, d_p, rtol=0, atol=1e-4 * float(d_p.abs().max()))
     torch.testing.assert_close(torch.stack([s_corr, s_ns]), torch.stack([corr_p, ns_p]),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])
+def test_phase2_at_its_edges(cuda_device, m, e_p):
+    """Phase 2 (v3) into NaN-filled blocks against its plain version at M = 32
+    and M = 128 (a row of 128 takes four passes; lists span more than one
+    staged chunk of 256 entries), at e_p 4 (the power multiplied out)
+    and 2.5 (powf), over full rows with two live particles at one position in
+    one row (a non-self pair at d2 = 0, which the kernel must tell from the
+    self pair by index) and one point alone, whose update is exactly 0: its
+    coordinates are kept bit for bit. Epsilon 1e-2: the pair at d2 = 0 has
+    cg ~ eps^-1/2, whose terms the update's sums cancel; at the default 1e-8
+    the comparison would read two summation orders' rounding of ~1e4-times
+    larger terms."""
+    grid, _ = isolated_point_grid(m, cuda_device, seed=m + 4, coincident=True)
+    cnt, *xyz = pc.planes(grid)
+    k = pc.pair_consts(PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
+    lam, _, nl, _, _ = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k)
+    args = (grid.nbr, cnt, *xyz, lam.contiguous(), (nl + 3.0).contiguous(), k)
+    assert int(grid.prow[1]) == int(grid.prow[2]) < grid.max_cells
+    assert all(bool(p[grid.prow[1], grid.pcol[1]] == p[grid.prow[2], grid.pcol[2]]) for p in xyz)
+    assert int(cnt[grid.nbr.long()].sum(1).max()) > 256
+    *new_p, corr_p, ns_p = pc.phase2_plain(*args)
+    leave_nan_blocks(cuda_device, *(tuple(x.shape) for x in xyz), (cnt.numel(), 2))
+    *new, corr, ns = pc.phase2_slots(*args)
+    live = grid.bmask
+    for a, b, x0 in zip(new, new_p, xyz):
+        torch.testing.assert_close(a[~live], x0[~live], rtol=0, atol=0)   # coordinates kept
+        d, d_p = (a - x0)[live], (b - x0)[live]                            # the Jacobi update
+        torch.testing.assert_close(d, d_p, rtol=0, atol=1e-4 * float(d_p.abs().max()))
+    torch.testing.assert_close(torch.stack([corr, ns]), torch.stack([corr_p, ns_p]), rtol=1e-5,
+                               atol=0)
+    row, col = int(grid.prow[0]), int(grid.pcol[0])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
+    for a, x0 in zip(new, xyz):
+        assert torch.equal(a[row, col:col + 1].view(torch.int32), x0[row, col:col + 1].view(torch.int32))
 
 
 def test_tick_on_the_card_matches_the_cpu(cuda_device, monkeypatch):

@@ -17,7 +17,7 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim import splat_cuda as sc
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.torch_helpers import (ISOLATED_GRIDS, cuda_device, isolated_point_grid,  # noqa: F401
-                                 leave_nan_blocks, splat_edge_grids)
+                                 leave_nan_blocks, splat_edge_grids, splat_fwd_edge_grids)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +113,29 @@ def test_splat_bwd_at_its_edges(cuda_device, ms, mq):
     _held(gv, gv_p, slive)
     assert not gx[:-1][none].any() and not gv[:-1][none].any()
     assert not gx[-1].any() and not gv[-1].any()
+
+
+@pytest.mark.parametrize("ms,mq", [(32, 32), (128, 128)])
+def test_splat_fwd_at_its_edges(cuda_device, ms, mq):
+    """The splat forward into NaN-filled blocks against its plain version at
+    (Ms, Mq) = (32, 32) and (128, 128): full source rows whose query
+    neighbours' source lists span more than one staged chunk of 256 entries,
+    query rows with no source in reach, which read exactly 0, and row Cq."""
+    qnbr, qplanes, planes, vel = splat_fwd_edge_grids(ms, mq, cuda_device, seed=ms + mq + 3)
+    args = (qnbr, *qplanes, *planes, vel, 1.0)
+    qcnt, scnt = qplanes[0], planes[0]
+    lists = scnt[qnbr.long()].sum(1)
+    assert bool((scnt == ms).any()) and int(lists.max()) > 256
+    none = (lists == 0) & (qcnt[:-1] > 0)
+    assert bool(none.any()), "every query row has a source in reach"
+    wv_p, ws_p = sc.splat_fwd_plain(*args)
+    leave_nan_blocks(cuda_device, tuple(wv_p.shape), tuple(ws_p.shape))
+    wv, ws = sc.splat_fwd_slots(*args)
+    qlive = pc._live(qcnt, qplanes[1].shape[1])
+    _held(ws, ws_p, qlive)
+    _held(wv, wv_p, qlive[..., None].expand(-1, -1, 3))
+    assert not wv[:-1][none].any() and not ws[:-1][none].any()
+    assert not wv[-1].any() and not ws[-1].any()
 
 
 @pytest.mark.parametrize("ms,mq", [(8, 32), (32, 8), (128, 64)])

@@ -159,12 +159,14 @@ def threshold_tiles(c=3, seed=0, tiles_x=8, k=64, front=8):
 ISOLATED_GRIDS = {32: (900, 3.0), 128: (1500, 2.0)}   # M: (points, box edge)
 
 
-def isolated_point_grid(m, device, seed):
+def isolated_point_grid(m, device, seed, coincident=False):
     """Seeded points in a box with full rows at M = ``m`` (32: 900 points in a
     3-unit box, 128: 1500 in a 2-unit box, ~10 % dead), so a row's
     neighbourhood list spans several of the kernels' staged chunks, and
     point 0 alone 5.5 units past the box: its 26 neighbour cells are empty.
-    Returns (grid, rng), the generator left for the caller's next draws."""
+    With ``coincident``, points 1 and 2 are live and share their coordinates
+    (two slots of one row at d2 = 0 that are not a self pair). Returns
+    (grid, rng), the generator left for the caller's next draws."""
     from fluidnexus_torch.ops.neighbors import build_dense_grid
 
     n, box = ISOLATED_GRIDS[m]
@@ -173,6 +175,9 @@ def isolated_point_grid(m, device, seed):
     pts[0] = box + 5.5
     alive = rng.random(n) > 0.1
     alive[0] = True
+    if coincident:
+        pts[2] = pts[1]
+        alive[1:3] = True
     grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=device), 1.0,
                             torch.as_tensor(alive, device=device), 512, m)
     return grid, rng
@@ -210,3 +215,34 @@ def splat_edge_grids(ms, mq, device, seed):
     p = torch.where(qlive[..., None], t(rng.normal(size=tuple(qlive.shape) + (3,))), 0.0)
     q = torch.where(qlive, t(rng.normal(size=tuple(qlive.shape))), 0.0)
     return pc.planes(grid), pc.planes(qgrid), rnbr, vel, p.contiguous(), q.contiguous()
+
+
+def splat_fwd_edge_grids(ms, mq, device, seed):
+    """A source and a query grid for the splat forward's edge cases, at
+    capacities ``ms`` and ``mq`` (32 or 128): sources in a box with full rows
+    (``ISOLATED_GRIDS``), so a query row's list of sources spans more than
+    one staged chunk; queries packed into the same box (1 200 in 3 units at
+    32, 1 800 in 2 at 128, so query rows are full) and 60 more in a cluster
+    4-5.5 units past it with no source cell among their 27 neighbours. About
+    10 % of either set is dead. Returns (qnbr, qplanes, planes, vel): the
+    query-to-source table, the ``pbf_cuda.planes`` of each grid and the
+    sources' velocities."""
+    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid, slot_gather
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    n, box = ISOLATED_GRIDS[ms]
+    nq, qbox = {32: (1200, 3.0), 128: (1800, 2.0)}[mq]
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(0, box, (n, 3))
+    qry = np.concatenate([rng.uniform(0, min(box, qbox), (nq, 3)),
+                          rng.uniform(box + 4, box + 5.5, (60, 3))])
+    alive = rng.random(n) > 0.1
+    q_alive = rng.random(len(qry)) > 0.1
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32) if a.dtype == np.float64 else a, device=device)
+
+    grid = build_dense_grid(t(src), 1.0, t(alive), 512, ms)
+    qgrid, _ = bin_queries(grid, 1.0, t(qry), t(q_alive), 512, mq)
+    vel = slot_gather(grid, t(rng.normal(size=(n, 3)))).contiguous()
+    return qgrid.nbr, pc.planes(qgrid), pc.planes(grid), vel
