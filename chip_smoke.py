@@ -11,17 +11,20 @@ It needs one card and exits non-zero, printing no result, without one.
 ``python3 chip_smoke.py mutants [attention|rasterizer|pairs]`` builds broken
 copies of the kernels (six of the attention backward: three of the mma.sync
 pair, three of the Hopper kernel; seven of the rasterizer: four of its
-backward and combine, three of its forward; ten of the pair kernels: two
+backward and combine, three of its forward; sixteen of the pair kernels: two
 each of the density's adjoint, the density, the splat adjoint, the splat
-forward and phase 2 v3) and shows that each fails a check; ``python3
-chip_smoke.py raster [PARENT]`` checks and times the rasterizer kernels
-alone at camera 0's tiles (beside another checkout's, PARENT, in turns);
-``python3 chip_smoke.py pairs [PARENT]`` does the same for the pair kernels
-of rows 7-13 of PERF.md's kernel table (the gas-loss density, its adjoint
-and both splat kernels at the first phase-C fit iteration's inputs, phases
-1 and 2 of the PBF tick and phase 2 v2 at phase B's first tick), with their
+forward, phase 2 v3 and phase 2 v2, four of phase 1 v3) and shows that each
+fails a check; ``python3 chip_smoke.py raster [PARENT]`` checks and times
+the rasterizer kernels alone at camera 0's tiles (beside another checkout's,
+PARENT, in turns); ``python3 chip_smoke.py pairs [PARENT]`` does the same
+for the pair kernels of rows 6-13 of PERF.md's kernel table (the gas-loss
+density, its adjoint and both splat kernels at the first phase-C fit
+iteration's inputs, phases 1 and 2 of the PBF tick and phases 1 and 2 v2 at
+phase B's first tick), with their
 launch floors (every count 0; the splat forward also with every source
-count 0, the splat adjoint with every query count 0);
+count 0, the splat adjoint with every query count 0); ``python3
+chip_smoke.py pbf-variants PARENT VARIANT...`` holds source variants of the
+PBF kernels to PARENT bit for bit and times phases 1 and 2 v2 in turns;
 ``python3 chip_smoke.py encode-probe`` tries the
 video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
@@ -808,7 +811,7 @@ PHASE2_IN_RADIUS_OPS = 12 + 14
 PHASE1_SLOT_OPS = 20
 PHASE2_SLOT_OPS = 14
 PBF_KERNELS = {"pbf_phase1": "phase1_kernel", "pbf_phase2": "phase2_kernel",  # CUDA kernel names
-               "pbf_phase2_v2": "phase2_v2_kernel"}
+               "pbf_phase1_v2": "phase1_v2_kernel", "pbf_phase2_v2": "phase2_v2_kernel"}
 
 
 def phase_b_config():
@@ -865,56 +868,74 @@ def first_tick_inputs(cfg, params, dev):
 
 def check_pbf_kernels(inp):
     """Both PBF kernels against their plain versions on the first tick's
-    inputs, live slots only. lambda, pi_raw and each axis of the Jacobi
-    update (new - old coordinates) at 1e-4 of their own scale: the update is
-    held, not the coordinate, whose scale (~h) would hide it. The kernels
-    form d2 without fused multiply-adds, as the plain version does, so nl
-    agrees exactly; flips at d2 = h^2 are allowed on at most 1e-5 of the live
-    slots. The four global sums at 1e-5 relative. Dead slots: lambda,
-    pi_raw and nl 0, coordinates unchanged."""
-    from fluidnexus_torch.sim import pbf_cuda as pc
-
+    inputs, live slots only, each with its outputs in NaN-filled blocks:
+    phase 1 as ``held_phase1`` holds it, with nl's flips at d2 = h^2 allowed
+    on at most 1e-5 of the live slots, and phase 2 (on the kernel's lambda
+    and nc) as ``held_phase2`` holds it."""
     nbr, cnt, xyz, k, live = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"], inp["live"]
-    lam, pi_raw, nl, s_p6, s_edges = pc.phase1_slots(nbr, cnt, *xyz, inp["imass"], k)
-    lam_p, pi_p, nl_p, s_p6_p, s_edges_p = pc.phase1_plain(nbr, cnt, *xyz, inp["imass"], k)
-    nc = (nl + inp["counts"]).contiguous()
-    torch.cuda.synchronize()
     n_live = int(live.sum())
-    failures = []
-
-    def held(name, a, b, tol):
-        err = float((a - b)[live].abs().max())
-        scale = float(b[live].abs().max())
-        ok = err <= tol * scale
-        print(f"pbf kernel check: {name} max|err| {err:.3e} / scale {scale:.3e} [tol {tol:g} x scale]"
-              + ("" if ok else " FAILED"))
-        if not ok:
-            failures.append(name)
-        return err
-
-    e_lam = held("phase1 lambda", lam, lam_p, 1e-4)
-    e_pi = held("phase1 pi_raw", pi_raw, pi_p, 1e-4)
-    flips = int((nl != nl_p)[live].sum())
-    print(f"pbf kernel check: phase1 nl differs on {flips} of {n_live} live slots "
-          f"[tol {int(1e-5 * n_live)}]")
-    if flips > int(1e-5 * n_live):
-        failures.append("phase1 nl")
-    if lam[~live].any() or pi_raw[~live].any() or nl[~live].any():
-        failures.append("dead slots")
-    for name, a, b in (("s_p6", s_p6, s_p6_p), ("s_edges", s_edges, s_edges_p)):
-        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-        print(f"pbf kernel check: {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} "
-              f"[tol 1e-5]")
-        if not rel <= 1e-5:
-            failures.append(name)
+    e_p1, failures, (lam, _, nl, _, s_edges) = held_phase1(
+        (nbr, cnt, *xyz, inp["imass"], k), live, "pbf kernel check", int(1e-5 * n_live))
+    nc = (nl + inp["counts"]).contiguous()
     e_upd, failed, s_ns = held_phase2((nbr, cnt, *xyz, lam, nc, k), live, "pbf kernel check")
     failures += failed
     if failures:
         _fail(f"the PBF kernels disagree with their plain versions: {failures}")
     # the in-radius pair counts the bounds need: s_edges counts the pairs
     # with d2 <= h^2, self pairs included; s_ns the non-self ones
-    return ({"pbf_phase1": max(e_lam, e_pi), "pbf_phase2": e_upd},
+    return ({"pbf_phase1": e_p1, "pbf_phase2": e_upd},
             dict(lam=lam, nc=nc, in_radius1=int(s_edges), in_radius2=s_ns))
+
+
+def _rel_held(what, name, a, b, failures):
+    """A global sum at 1e-5 relative; prints a line, adds ``name`` to
+    ``failures`` where it fails."""
+    rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    print(f"{what}: {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} [tol 1e-5]"
+          + ("" if rel <= 1e-5 else " FAILED"))
+    if not rel <= 1e-5:
+        failures.append(name)
+
+
+def held_phase1(args, live, what, flips=0):
+    """Phase 1 v3 at ``args`` (nbr, cnt, x, y, z, imass, k) with its outputs in
+    NaN-filled blocks (so a slot left unwritten shows), against its plain
+    version on the same inputs: lambda and pi_raw at 1e-4 of their own scale
+    over the live slots, nl exact but on at most ``flips`` live slots (a pair
+    at d2 = h^2), exactly 0 at dead slots, empty rows and row C, and the
+    global sums s_p6 and s_edges at 1e-5 relative. Prints a line per output;
+    returns (max|err| of lambda and pi_raw, the names of the outputs that
+    failed, the kernel's outputs (lam, pi_raw, nl, s_p6, s_edges))."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks
+
+    x = args[2]
+    want = pc.phase1_plain(*args)
+    leave_nan_blocks(x.device, *(tuple(x.shape),) * 3)
+    got = pc.phase1_slots(*args)
+    torch.cuda.synchronize()
+    worst, failures = 0.0, []
+    for name, a, b in zip(("lambda", "pi_raw"), got, want):
+        err = float((a - b)[live].abs().max())
+        scale = float(b[live].abs().max())
+        ok = err <= 1e-4 * scale
+        print(f"{what}: phase1 {name} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x scale]"
+              + ("" if ok else " FAILED"))
+        worst = max(worst, err)
+        if not ok:
+            failures.append(f"phase1 {name}")
+    n_flips = int((got[2] != want[2])[live].sum())
+    print(f"{what}: phase1 nl differs on {n_flips} of {int(live.sum())} live slots [tol {flips}]")
+    if n_flips > flips:
+        failures.append("phase1 nl")
+    dead_zero = all(bool((a[~live] == 0).all()) for a in got[:3])  # a NaN left unwritten is not 0
+    print(f"{what}: phase1 dead slots, empty rows and row C 0: {dead_zero}"
+          + ("" if dead_zero else " FAILED"))
+    if not dead_zero:
+        failures.append("phase1 dead slots")
+    for name, a, b in zip(("s_p6", "s_edges"), got[3:], want[3:]):
+        _rel_held(what, f"phase1 {name}", a, b, failures)
+    return worst, failures, got
 
 
 def held_phase2(args, live, what):
@@ -949,12 +970,53 @@ def held_phase2(args, live, what):
         if not ok:
             failures.append(f"phase2 {a}")
     for name, a, b in (("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
-        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-        print(f"{what}: phase2 {name} {float(a):.6e} against {float(b):.6e}, rel {rel:.3e} "
-              f"[tol 1e-5]" + ("" if rel <= 1e-5 else " FAILED"))
-        if not rel <= 1e-5:
-            failures.append(f"phase2 {name}")
+        _rel_held(what, f"phase2 {name}", a, b, failures)
     return worst, failures, int(s_ns_p)
+
+
+def held_phase2_v2(args, live, what):
+    """Phase 2 v2 at ``args`` (nbr, cnt, x, y, z, lam, k) through its C entry
+    with dsum and the per-row partial sums in NaN-filled blocks, against its
+    plain version on the same inputs: each axis of dsum at 1e-4 of its own
+    scale over the live slots and exactly 0 at dead slots, empty rows and row
+    C; each row's partial s_corr at 1e-5 of the rows' largest, its s_ns
+    exactly, and both 0 at empty rows; the wrapper's global sums at 1e-5
+    relative. Prints a line per output; returns (max|err| of dsum, the names
+    of the outputs that failed)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import leave_nan_blocks, phase2_part, plain_row_partials
+
+    cnt, lam = args[1], args[5]
+    dsum_p, s_corr_p, s_ns_p = pc.phase2_v2_plain(*args)
+    part_p = plain_row_partials(*args)
+    leave_nan_blocks(lam.device, tuple(dsum_p.shape), (cnt.numel(), 2))
+    dsum, part = phase2_part(pc, "pbf_phase2_v2", args)
+    _, s_corr, s_ns = pc.phase2_v2_slots(*args)
+    torch.cuda.synchronize()
+    worst, failures = 0.0, []
+    for a, axis in enumerate("xyz"):
+        err = float((dsum[..., a] - dsum_p[..., a])[live].abs().max())
+        scale = float(dsum_p[..., a][live].abs().max())
+        dead_zero = bool((dsum[..., a][~live] == 0).all())  # a NaN left unwritten is not 0
+        ok = err <= 1e-4 * scale and dead_zero
+        print(f"{what}: phase2 v2 dsum {axis} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
+              f"scale]; dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
+        worst = max(worst, err)
+        if not ok:
+            failures.append(f"phase2 v2 dsum {axis}")
+    e_corr = float((part[:, 0] - part_p[:, 0]).abs().max())
+    s_corr_scale = float(part_p[:, 0].abs().max())
+    ns_same = torch.equal(part[:, 1], part_p[:, 1])
+    empty_zero = bool((part[cnt == 0] == 0).all())
+    ok = e_corr <= 1e-5 * s_corr_scale and ns_same and empty_zero
+    print(f"{what}: phase2 v2 per-row partials: s_corr max|err| {e_corr:.3e} / scale "
+          f"{s_corr_scale:.3e} [tol 1e-5 x scale], s_ns exact {ns_same}, empty rows 0 "
+          f"{empty_zero}" + ("" if ok else " FAILED"))
+    if not ok:
+        failures.append("phase2 v2 part")
+    for name, a, b in (("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
+        _rel_held(what, f"phase2 v2 {name}", a, b, failures)
+    return worst, failures
 
 
 def pbf_plain_saved(inp):
@@ -973,13 +1035,16 @@ def pbf_plain_saved(inp):
 def pbf_plans(inp, saved):
     """Phase B's pair kernels at the first tick's inputs: {name: (wrapper,
     plain version, arguments, bytes, operations)} for phases 1 and 2 (v3) and,
-    as a witness that shares their pair terms, phase 2 v2 (row 7)."""
+    phases 1 and 2 v2 (rows 6 and 7), which share their pair terms: phase 2
+    v2 its row-group body with phase 2 v3, phase 1 v2 the one-block-a-row walk
+    phase 1 v3 replaced (a witness)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
     n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
     in1, in2 = saved["in_radius1"], saved["in_radius2"]
-    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * PHASE1_SLOT_OPS
+    ops1_raw = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS
+    ops1 = ops1_raw + n_live * PHASE1_SLOT_OPS
     ops2 = pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
     print(f"pbf bounds: {pairs} live candidate pairs, {in1} in radius (self included), "
           f"{in2} non-self in radius; {ops1} and {ops2 + n_live * PHASE2_SLOT_OPS} f32 "
@@ -994,6 +1059,8 @@ def pbf_plans(inp, saved):
             "pbf_phase2": (pc.phase2_slots, pc.phase2_plain, (nbr, cnt, *xyz, lam, nc, k),
                            table + 4 * n_live * (5 + 3) + 8 * rows,
                            ops2 + n_live * PHASE2_SLOT_OPS),
+            "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
+                              table + 4 * n_live * (3 + 6), ops1_raw + n_live * RAW_SLOT_OPS),
             "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
                               table + 4 * n_live * (4 + 3) + 8 * rows,
                               ops2 + n_live * RAW_SLOT_OPS)}
@@ -1006,7 +1073,7 @@ def time_pbf_kernels(inp, saved):
     PyTorch call computes these pair sums, so there is no library time."""
     out = {}
     for name, (fn, plain, args, nbytes, ops) in pbf_plans(inp, saved).items():
-        if name == "pbf_phase2_v2":  # timed at the rigid rollout's inputs
+        if name in ("pbf_phase1_v2", "pbf_phase2_v2"):  # timed at the rigid rollout's inputs
             continue
         kernel = PBF_KERNELS[name]
         ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
@@ -1267,7 +1334,7 @@ def first_iteration_inputs(ctx):
 
 
 def phase_c_calls():
-    """Per phase-C kernel, and phase 2 v2 (held at phase B's first tick in
+    """Per phase-C kernel, and phase 1 v2 (held at phase B's first tick in
     ``pairs``): (wrapper, plain version, its per-slot output fields)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -1276,7 +1343,8 @@ def phase_c_calls():
             "density_bwd": (pc.density_bwd_slots, pc.density_bwd_plain, ("dpi/dx",)),
             "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, ("wv", "ws")),
             "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, ("g_est", "g_vel")),
-            "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, ("dsum",))}
+            "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain,
+                              ("pi_raw", "sg", "c2d2", "nlen"))}
 
 
 def held_in_nan_blocks(name, args, what):
@@ -3268,6 +3336,19 @@ PAIRS_MUTANTS = {
                            "__fsub_rn(ci.z, s.z)) == 0.0f;")],
     "phase2_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
                                    "const float cr_i = c[i].a.cra,")],
+    "phase1_self_by_d2": [(PBF_SRC, "s.z, c0 + e == ci.self_e, k);",
+                           "s.z, norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
+                           "__fsub_rn(ci.z, s.z)) == 0.0f, k);")],
+    "phase1_c2a_unselected": [(PBF_SRC, "ci.a.c2a = p.cg != 0.0f ? fmaf(p.cg * p.cg, p.d2, ci.a.c2a) "
+                               ": ci.a.c2a;", "ci.a.c2a = fmaf(p.cg * p.cg, p.d2, ci.a.c2a);")],
+    "phase1_stages_one_short": [(PBF_SRC, "list, tab, c0, left > 0 ? g.n_tot : 0, kn, x, y, z, nullptr,",
+                                 "list, tab, c0, left > 0 ? g.n_tot - 1 : 0, kn, x, y, z, nullptr,")],
+    "phase1_empty_rows_unwritten": [(PBF_SRC, "if (g.row <= C) {  // dead slots, or the row's every slot",
+                                     "if (g.row <= C && g.n_c > 0) {")],
+    "phase2_v2_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
+                                      "const float cr_i = live[i] || OUT == DSUM ? c[i].a.cra : 0.0f,")],
+    "phase2_v2_empty_rows_unwritten": [(PBF_SRC, "zero_span(xo + (size_t)row * M * 3,",
+                                        "if (n_c > 0) zero_span(xo + (size_t)row * M * 3,")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -3492,11 +3573,14 @@ def raster_time(parent=None):
 
 
 PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_fwd": 10, "splat_bwd": 11,  # rows of
-              "pbf_phase1": 12, "pbf_phase2": 13, "pbf_phase2_v2": 7}  # PERF.md's kernel table
+              "pbf_phase1": 12, "pbf_phase2": 13, "pbf_phase1_v2": 6,  # PERF.md's kernel table
+              "pbf_phase2_v2": 7}
 PAIRS_LIBS = {"density_fwd": "pbf", "density_bwd": "pbf", "splat_fwd": "splat", "splat_bwd": "splat",
-              "pbf_phase1": "pbf", "pbf_phase2": "pbf", "pbf_phase2_v2": "pbf"}
+              "pbf_phase1": "pbf", "pbf_phase2": "pbf", "pbf_phase1_v2": "pbf",
+              "pbf_phase2_v2": "pbf"}
 SPLAT_CHUNK = 256  # list entries either splat kernel stages at once (csrc/splat.cu)
-P2_CHUNK = 256  # list entries phase 2 v3 stages at once (csrc/pbf.cu)
+P1_CHUNK = 256  # list entries phase 1 v3 stages at once (csrc/pbf.cu)
+P2_CHUNK = 256  # list entries phase 2 (v3 and v2) stages at once (csrc/pbf.cu)
 
 
 def pair_kernel(name):
@@ -3504,35 +3588,20 @@ def pair_kernel(name):
     return PHASE_C_KERNELS[name][2] if name in PHASE_C_KERNELS else PBF_KERNELS[name]
 
 
-def phase2_part(mod, nbr, cnt, x, y, z, lam, nc, k):
-    """The per-row partial sums (C+1, 2) of s_corr and s_ns that phase 2 v3
-    writes, through the C entry of ``mod`` (this checkout's ``pbf_cuda`` or
-    another's) with the arguments its ``phase2_slots`` passes."""
-    c, m = nbr.shape[0], x.shape[1]
-    out = [torch.empty_like(x) for _ in range(3)]
-    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
-    err = mod._lib().fnx_pbf_phase2(
-        cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(), lam.data_ptr(),
-        nc.data_ptr(), *(o.data_ptr() for o in out), part.data_ptr(), c, m, k.h, k.h2, k.eps,
-        k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom, k.inv_p0, mod._stream(x))
-    if err:
-        _fail(f"phase 2's C entry returned {err}")
-    return part
-
-
 def pairs_time(parent=None):
-    """``python3 chip_smoke.py pairs [PARENT]``: the pair kernels of rows 8-13
-    and 7 of PERF.md's kernel table alone: the gas-loss density, its adjoint,
-    the splat forward and the splat adjoint at the first phase-C fit
+    """``python3 chip_smoke.py pairs [PARENT]``: the pair kernels of rows 6-13
+    of PERF.md's kernel table alone: the gas-loss density, its adjoint, the
+    splat forward and the splat adjoint at the first phase-C fit
     iteration's inputs, made as ``train`` makes them (phases A and B, frame
     1's simulation; the rasterizer, pbf and splat libraries are built for
-    that), and phases 1 and 2 of the PBF tick (v3) and phase 2 v2, which
-    shares their pair terms, at phase B's first tick (``first_tick_inputs``,
-    lambda and nc from the plain versions). Prints both grids' live rows,
-    slots, pairs and neighbourhood lists, the splat adjoint's source rows
-    with a query in reach, each kernel against its plain version (outputs in
-    NaN-filled blocks; phase 1's as ``check_pbf_kernels`` holds them), and
-    every kernel's time on the card
+    that), and phases 1 and 2 of the PBF tick (v3) and phases 1 and 2 v2,
+    which share their pair terms, at phase B's first tick
+    (``first_tick_inputs``, lambda and nc from the plain versions). Prints
+    both grids' live rows, slots, pairs and neighbourhood lists, the splat
+    adjoint's source rows with a query in reach, each kernel against its
+    plain version (outputs in NaN-filled blocks; phases 1 and 2 v3 as
+    ``check_pbf_kernels`` holds them, phase 2 v2 with its per-row partial
+    sums), and every kernel's time on the card
     beside its bound and its launch floors: the same launch with every count
     0 and, for the splat forward, with every source count 0 and the queries
     live, for the splat adjoint with every query count 0 and the sources
@@ -3540,11 +3609,12 @@ def pairs_time(parent=None):
     the parent commit), that checkout's ``csrc/pbf.cu`` and ``csrc/splat.cu``
     are built as well, its kernels are timed alone (phase B's before any
     kernel of this checkout runs) and held against this one's bit for bit
-    (phase 2's per-row partial sums too), and both are timed in turns
+    (phase 2's and phase 2 v2's per-row partial sums too), and both are timed in turns
     (parent, this, this, parent), floors included."""
     from fluidnexus_torch.ops import cuda_build
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
+    from tests.torch_helpers import phase2_part
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
@@ -3591,7 +3661,7 @@ def pairs_time(parent=None):
         inp_b = first_tick_inputs(cfg_b, params_b, dev)
         saved_b = pbf_plain_saved(inp_b)
         plans.update(pbf_plans(inp_b, saved_b))
-        pbf_rows = ("pbf_phase1", "pbf_phase2", "pbf_phase2_v2")
+        pbf_rows = ("pbf_phase1", "pbf_phase2", "pbf_phase1_v2", "pbf_phase2_v2")
         add_runs(pbf_rows)
         if pmods:
             time_alone(pmods, "parent alone", pbf_rows)
@@ -3634,18 +3704,19 @@ def pairs_time(parent=None):
         failures = []
         for name in c_rows:
             failures += held_in_nan_blocks(name, plans[name][2], f"row {PAIRS_ROWS[name]}")[1]
-        failures += held_in_nan_blocks("pbf_phase2_v2", plans["pbf_phase2_v2"][2], "row 7")[1]
+        failures += held_in_nan_blocks("pbf_phase1_v2", plans["pbf_phase1_v2"][2], "row 6")[1]
+        failures += held_phase2_v2(plans["pbf_phase2_v2"][2], inp_b["live"], "row 7")[1]
         if failures:
             _fail(f"the pair kernels disagree with their plain versions: {failures}")
-        check_pbf_kernels(inp_b)  # rows 12 and 13; phase 2 into NaN-filled blocks
+        check_pbf_kernels(inp_b)  # rows 12 and 13, into NaN-filled blocks
         time_alone(this, "this checkout", PAIRS_ROWS)
         if not pmods:
             return
         for name in PAIRS_ROWS:
             mine, theirs = (call(m[PAIRS_LIBS[name]], name, plans[name][2]) for m in (this, pmods))
             mine, theirs = ((o,) if torch.is_tensor(o) else o for o in (mine, theirs))
-            if name == "pbf_phase2":
-                mine, theirs = (o + (phase2_part(m, *plans[name][2]),)
+            if name in ("pbf_phase2", "pbf_phase2_v2"):
+                mine, theirs = (o + phase2_part(m, name, plans[name][2])[-1:]
                                 for o, m in ((mine, pc), (theirs, pmods["pbf"])))
             diff = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
             same = [bits_equal(a, b) for a, b in zip(mine, theirs)]
@@ -3657,10 +3728,54 @@ def pairs_time(parent=None):
                      lambda m, n=name, a=args: call(m, n, a), pmods[lib], this[lib])
 
 
+def pbf_variants(parent, *variants):
+    """``python3 chip_smoke.py pbf-variants PARENT VARIANT...``: phase B's PBF
+    kernels (rows 12, 13, 6 and 7 of PERF.md's kernel table) of source
+    variants against another checkout, PARENT, at the first tick's inputs.
+    Each root holds ``fluidnexus_torch/csrc`` and ``sim/pbf_cuda.py`` (a
+    copy of the checkout with its sources edited). For each variant: whether
+    every output, phase 2's per-row partial sums too, is bit-identical to
+    the parent's, then rows 12 and 7 and their launch floors timed in turns
+    (parent, variant, variant, parent)."""
+    from tests.torch_helpers import phase2_part
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    with tempfile.TemporaryDirectory(prefix="fnx_variants_") as tmp:
+        mods, procs = {}, {}
+        for i, root in enumerate((parent,) + variants):
+            os.makedirs(os.path.join(tmp, str(i)))
+            mods[root], procs[root] = _parent_module(root, os.path.join(tmp, str(i)), "pbf",
+                                                     "fluidnexus_torch/sim/pbf_cuda.py")
+        for root, proc in procs.items():
+            print(f"{root}:", end=" ")
+            _wait_parent_build(proc, "pbf")
+        cfg, params = phase_b_config()
+        inp = first_tick_inputs(cfg, params, torch.device("cuda"))
+        plans = pbf_plans(inp, pbf_plain_saved(inp))
+        pm = mods[parent]
+        for root in variants:
+            vm = mods[root]
+            for name, (fn, _, args, _, _) in plans.items():
+                outs = [getattr(m, fn.__name__)(*args) for m in (vm, pm)]
+                if name in ("pbf_phase2", "pbf_phase2_v2"):
+                    outs = [o + phase2_part(m, name, args)[-1:] for o, m in zip(outs, (vm, pm))]
+                same = [bits_equal(a, b) for a, b in zip(*outs)]
+                print(f"{root}: row {PAIRS_ROWS[name]} {name} against {parent}: bit-identical "
+                      f"{all(same)} (per output {same})")
+            for name in ("pbf_phase1", "pbf_phase2_v2"):
+                args = plans[name][2]
+                for label, a in [("the kernel", args)] + list(launch_floors(name, args).items()):
+                    in_turns(f"{root}: row {PAIRS_ROWS[name]} {name} {label}", pair_kernel(name),
+                             lambda m, n=name, a=a: getattr(m, plans[n][0].__name__)(*a), pm, vm)
+
+
 def pairs_checks(dev):
-    """The gas-loss density, its adjoint, both splat kernels and phase 2 v3
-    against their plain versions, every output written into NaN-filled
-    blocks: the density pair at M = 32 and M = 128 over seeded points with
+    """The gas-loss density, its adjoint, both splat kernels, phase 1 v3 and
+    phase 2 (v3 and v2) against their plain versions, every output written
+    into NaN-filled blocks: the density pair at M = 32 and M = 128 over seeded points with
     full rows and one isolated point, whose 26 neighbour cells are empty (its
     pi must be the plain version's bit for bit: the self term alone); the
     splat adjoint at (Ms, Mq) = (32, 32) and (128, 128) with full query rows,
@@ -3671,12 +3786,21 @@ def pairs_checks(dev):
     exactly 0, as must row Cq; phase 2 at M = 32 and M = 128, at e_p 4 and
     2.5, over the density's grid with two live particles at one position in
     one row (a non-self pair at d2 = 0), whose isolated point must keep its
-    coordinates bit for bit (its update is exactly 0). What a pairs mutant
-    has to get past."""
+    coordinates bit for bit (its update is exactly 0), and phase 2 v2 there
+    (its dsum and each row's partial sums, the isolated point's dsum exactly
+    0); phase 1 v3 at M = 32 and M = 128 over such a grid, nl exact, the
+    isolated point's pi_raw and nl bit for bit (its self pair alone), and
+    against phase 1 v2's walk over 20 coincident pairs at the default
+    epsilon (``tests/torch_helpers.phase1_against_the_walk``: only sums that
+    take the self pair by index, in the walk's order, round alike). What a
+    pairs mutant has to get past."""
     from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
-    from tests.torch_helpers import isolated_point_grid, splat_edge_grids, splat_fwd_edge_grids
+    from tests.torch_helpers import (
+        coincident_pairs_grid, isolated_point_grid, phase1_against_the_walk, splat_edge_grids,
+        splat_fwd_edge_grids,
+    )
 
     failures = []
     k = pc.pair_consts(tpbf.PBFParams(h=1.0))
@@ -3753,6 +3877,50 @@ def pairs_checks(dev):
               f"chunk of {P2_CHUNK}: {longest > P2_CHUNK})")
         if not (kept and same and longest > P2_CHUNK):
             failures.append(f"phase 2 M {m} e_p {e_p}: the isolated point or the grid")
+        what = f"pairs check, phase 2 v2 M {m} e_p {e_p}"
+        failures += [f"phase 2 v2 M {m} e_p {e_p}: {f}" for f in
+                     held_phase2_v2(args[:6] + (k2,), grid.bmask, what)[1]]
+        dsum = pc.phase2_v2_slots(*args[:6], k2)[0]
+        alone = not bool(dsum[row, col].any())
+        print(f"{what}: the isolated point's dsum 0: {alone}")
+        if not alone:
+            failures.append(f"phase 2 v2 M {m} e_p {e_p}: the isolated point")
+    for m in (32, 128):
+        # epsilon 1e-2 as for phase 2: sg cancels the pair at d2 = 0's terms
+        k1 = pc.pair_consts(tpbf.PBFParams(h=1.0, epsilon=1e-2))
+        grid, rng = isolated_point_grid(m, dev, seed=m + 5, coincident=True)
+        cnt, *xyz = pc.planes(grid)
+        live = grid.bmask
+        im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
+                             device=dev)
+        args = (grid.nbr, cnt, *xyz, torch.where(live, im, 1.0).contiguous(), k1)
+        what = f"pairs check, phase 1 M {m}"
+        _, failed, got = held_phase1(args, live, what)
+        failures += [f"phase 1 M {m}: {f}" for f in failed]
+        row, col = int(grid.prow[0]), int(grid.pcol[0])
+        want = pc.phase1_plain(*args)
+        alone = all(bits_equal(g[row, col], w[row, col]) for g, w in zip(got[1:3], want[1:3]))
+        same = bool((xyz[0][grid.prow[1], grid.pcol[1]] == xyz[0][grid.prow[2], grid.pcol[2]]) &
+                    (grid.prow[1] == grid.prow[2]))
+        longest = int(cnt[grid.nbr.long()].sum(1).max())
+        print(f"{what}: the isolated point's pi_raw and nl bit for bit {alone}; points 1 and 2 "
+              f"coincide in one row {same}; the longest list {longest} entries (more than one "
+              f"chunk of {P1_CHUNK}: {longest > P1_CHUNK})")
+        if not (alone and same and longest > P1_CHUNK):
+            failures.append(f"phase 1 M {m}: the isolated point or the grid")
+    for m in (32, 128):
+        grid, rng = coincident_pairs_grid(m, dev, seed=m + 7)
+        live = grid.bmask
+        im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
+                             device=dev)
+        same_pi, same_nl, rel = phase1_against_the_walk(
+            grid, torch.where(live, im, 1.0).contiguous(), k)
+        ok = same_pi and same_nl and rel <= 1e-6
+        print(f"pairs check, phase 1 against phase 1 v2's walk, M {m}, 20 coincident pairs: "
+              f"pi_raw bit for bit {same_pi}, nl exact {same_nl}, lambda max rel diff {rel:.3e} "
+              f"[tol 1e-6]" + ("" if ok else " FAILED"))
+        if not ok:
+            failures.append(f"phase 1 M {m}: the walk's sums")
     if failures:
         _fail(f"the pair kernels disagree with their plain versions: {failures}")
 
@@ -3936,5 +4104,7 @@ if __name__ == "__main__":
         raster_time(*sys.argv[2:])
     elif sys.argv[1:2] == ["pairs"] and len(sys.argv) <= 3:
         pairs_time(*sys.argv[2:])
+    elif sys.argv[1:2] == ["pbf-variants"] and len(sys.argv) >= 4:
+        pbf_variants(*sys.argv[2:])
     else:
         main()

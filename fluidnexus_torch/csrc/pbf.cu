@@ -18,13 +18,17 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// One block per row, one thread per centre slot (phase 2 v3, the gas loss's
-// density and its adjoint: half a warp per row); dead slots and rows are
-// masked by the counts, so no sentinel coordinates are needed. The pair terms are fnx::pair_terms and
+// The v3 passes, phase 2 v2, the gas loss's density and its adjoint give a
+// row to a group of lanes (8 or 16) over one staged neighbourhood list; phase
+// 1 v2 and the v1 kernels walk with one block per row, one thread per centre
+// slot. Dead slots and rows are masked by the counts, so no sentinel
+// coordinates are needed. The pair terms are fnx::pair_terms and
 // fnx::phase2_terms (pair_common.cuh), the same device functions in every
 // generation.
 
 #include <cuda_runtime.h>
+
+#include <initializer_list>
 
 #include "pair_common.cuh"
 
@@ -52,18 +56,18 @@ struct Row {
   bool self_row;  // the centre cell itself
 };
 
-// v3 and v2: through nbr into the (C+1, M) planes.
+// Phase 1 v2: through nbr into the (C+1, M) planes.
 struct TableRows {
   const int* cnt;
   const int* nbr;
-  const float *x, *y, *z, *lam;
+  const float *x, *y, *z;
   int C, M;
 
   __device__ __forceinline__ Row open(int cell, int j) const {
     const int nb = nbr[cell * 27 + j];
     if (nb >= C) return Row{0, nullptr, nullptr, nullptr, nullptr, false};
     const size_t o = (size_t)nb * M;
-    return Row{cnt[nb], x + o, y + o, z + o, lam ? lam + o : nullptr, nb == cell};
+    return Row{cnt[nb], x + o, y + o, z + o, nullptr, nb == cell};
   }
 };
 
@@ -187,55 +191,6 @@ __device__ __forceinline__ void row_partials(float cra, float nsa, int i, int ce
 }
 
 // ---------------------------------------------------------------------------
-// Phase 1, v3. Replaces the Pallas kernel
-// fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v3 (wrapper phase1_slots_v3).
-// Per live slot: the raw poly6 sum pi_raw (self included), the in-radius count
-// nl (self included), and lambda, computed here from the spiky sums:
-//   sg = (sum cg) x_i - sum cg x_s,  p_ratio = pi_raw / imass / p0,
-//   lambda = -(p_ratio - 1) / (sum cg^2 d2 / p0^2 + |sg|^2 / p0^2 + relax).
-// Dead slots and row C write 0.
-//
-// Bound on the H100: ~30 f32 operations per live candidate pair (a live
-// centre slot and a live slot of one of its 27 neighbour cells), against one
-// read of the coordinate planes and imass and one write of three planes: it
-// is bound by operations. The design stages each neighbour row, shifted by
-// its offset, in shared memory once per block (one coalesced read per row
-// instead of one per centre slot), keeps every per-slot sum in registers, and
-// walks only the live slots of live rows, so empty rows exit at once.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(MAX_M) phase1_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
-    float* __restrict__ lam, float* __restrict__ pi_raw, float* __restrict__ nl, int C, int M,
-    PairConsts k) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M];
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
-  if (n_c == 0) {  // an empty row, row C among them
-    if (i < M) lam[at] = pi_raw[at] = nl[at] = 0.0f;
-    return;
-  }
-  const bool live = i < n_c;
-  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
-  const Sums1 a = phase1_walk(TableRows{cnt, nbr, x, y, z, nullptr, C, M}, cell, i, live, xc, yc,
-                              zc, k, sx, sy, sz);
-  if (i >= M) return;
-  if (!live) {
-    lam[at] = pi_raw[at] = nl[at] = 0.0f;
-    return;
-  }
-  const float sg0 = a.cga * xc - a.bx, sg1 = a.cga * yc - a.by, sg2 = a.cga * zc - a.bz;
-  const float ip2 = k.inv_p0 * k.inv_p0;
-  const float gr_dot = (sg0 * sg0 + sg1 * sg1 + sg2 * sg2) * ip2;
-  const float p_ratio = a.wa / imass[at] * k.inv_p0;
-  lam[at] = -(p_ratio - 1.0f) / (a.c2a * ip2 + gr_dot + k.relax);
-  pi_raw[at] = a.wa;
-  nl[at] = a.nla;
-}
-
-// ---------------------------------------------------------------------------
 // Phase 1, v2 and v1: the raw sums, with lambda left to the caller
 // (sim/pbf_dense._project_core, as fluidnexus_tpu/sim/pbf_dense.py:155-160
 // does). Per live slot: pi_raw = sum w, sg = (sum cg) x_i - sum cg x_s
@@ -271,13 +226,14 @@ __device__ __forceinline__ void phase1_raw(const Rows& rows, const int* cnt, con
 // coordinate planes resident in VMEM; here through nbr from device memory.
 // Bound on the H100: 9 f32 operations per live candidate pair and 24 more per
 // pair in radius, against one read of three planes and one write of six:
-// bound by operations. Design as phase 1 v3 (phase1_walk).
+// bound by operations. Design: one block a row, each neighbour row staged in
+// shared memory in turn (stage), one thread a centre slot (phase1_walk).
 __global__ void __launch_bounds__(MAX_M) phase1_v2_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
     float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
     PairConsts k) {
-  phase1_raw(TableRows{cnt, nbr, x, y, z, nullptr, C, M}, cnt, x, y, z, pi_raw, sg, c2d2, nlen, M,
+  phase1_raw(TableRows{cnt, nbr, x, y, z, C, M}, cnt, x, y, z, pi_raw, sg, c2d2, nlen, M,
              k);
 }
 
@@ -286,7 +242,7 @@ __global__ void __launch_bounds__(MAX_M) phase1_v2_kernel(
 // tensor gathered before the launch; here from the gathered (C, 27, 3, M)
 // rows and (C, 27) counts. Bound on the H100: the operations of v2 against
 // one read of the occupied rows' gathered blocks (27 x 3 x M floats each):
-// by bytes where those blocks outweigh the arithmetic. Same walk as v2.
+// by bytes where those blocks outweigh the arithmetic. Same walk as phase 1 v2.
 __global__ void __launch_bounds__(MAX_M) phase1_v1_kernel(
     const int* __restrict__ cnt, const int* __restrict__ ncnt, const float* __restrict__ xng,
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
@@ -296,11 +252,12 @@ __global__ void __launch_bounds__(MAX_M) phase1_v1_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2, v2 and v1: the raw position-delta sums, with the 1/p0/max(nc, eps)
+// Phase 2, v1: the raw position-delta sums, with the 1/p0/max(nc, eps)
 // scaling left to the caller (fluidnexus_tpu/sim/pbf_dense.py:210). Per live
 // slot dsum = (sum b) x_i - sum b x_s (C+1, M, 3), 0 at dead slots and empty
 // rows; each row's partial sums of corr and of the non-self in-radius count
-// (row_partials).
+// (row_partials). Phase 2 v2 computes the same on row groups (below) and
+// must keep this walk's bits.
 // ---------------------------------------------------------------------------
 template <class Rows>
 __device__ __forceinline__ void phase2_raw(const Rows& rows, const int* cnt, const float* x,
@@ -329,23 +286,12 @@ __device__ __forceinline__ void phase2_raw(const Rows& rows, const int* cnt, con
   row_partials(a.cra, a.nsa, i, cell, part);
 }
 
-// Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v2
-// (wrapper phase2_slots_v2). Bound on the H100: 9 f32 operations per live
-// candidate pair and 25 + e_p per pair in radius, against one read of four
-// planes and one write of three: bound by operations. Design as phase 1 v3,
-// with lambda staged beside the shifted coordinates (phase2_walk).
-__global__ void __launch_bounds__(MAX_M) phase2_v2_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
-    float* __restrict__ dsum, float* __restrict__ part, int C, int M, PairConsts k) {
-  phase2_raw(TableRows{cnt, nbr, x, y, z, lam, C, M}, cnt, x, y, z, lam, dsum, part, M, k);
-}
-
 // Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel
 // (wrapper phase2_slots), which reads the neighbour lambdas from a (C, 27, M)
 // tensor gathered before the launch, as this kernel does (lng). Bound on the
 // H100: the operations of v2 against one read of the occupied rows' gathered
-// coordinate and lambda blocks. Same walk as v2.
+// coordinate and lambda blocks. One block a row (phase2_walk), lambda staged
+// beside the shifted coordinates.
 __global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
     const int* __restrict__ cnt, const int* __restrict__ ncnt, const float* __restrict__ xng,
     const float* __restrict__ lng, const float* __restrict__ x, const float* __restrict__ y,
@@ -355,14 +301,15 @@ __global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The gas loss's density and its adjoint, and phase 2 v3: pair walks over a
-// grid's 27 neighbours, at ~7-8 live slots a row on their main paths. A walk
+// The gas loss's density and its adjoint, phases 1 and 2 v3 and phase 2 v2:
+// pair walks over a grid's 27 neighbours, at ~7-8 live slots a row on their
+// main paths. A walk
 // of one block per row that waits on each neighbour's id, count and slots in
 // turn is bound by those ~80 dependent trips to memory, not by its
-// operations, and a lane per centre slot leaves most of a warp idle. The
-// three kernels take one design instead: a group of lanes owns a row (in the
-// density and its adjoint GROUP_LANES = 16, two rows a warp; in phase 2 8,
-// four rows a warp), so a row's few live slots fill its group; the group
+// operations, and a lane per centre slot leaves most of a warp idle. These
+// kernels take one design instead: a group of lanes owns a row (in the
+// density and its adjoint GROUP_LANES = 16, two rows a warp; in the PBF
+// passes 8, four rows a warp), so a row's few live slots fill its group; the group
 // reads the 27 ids and counts in two trips (load_nbr_table) and stages the
 // row's whole neighbourhood as one list of shifted coordinates, many entries
 // a lane with their loads in flight (stage_chunk, in chunks, which also
@@ -587,59 +534,243 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2, v3. Replaces the Pallas kernel
-// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3).
-// Per live slot, over its non-self pairs:
-//   corr = -k_p (w / w(dq))^e_p, b = (lambda_i + lambda_s + corr) cg,
-//   x_new = x_i + ((sum b) x_i - sum b x_s) / p0 / max(nc_i, 1e-20),
-// where nc = nl + counts. It writes the UPDATED coordinates, not the deltas;
-// dead slots, empty rows and row C keep their input coordinates. Each row
-// also writes its partial sums of corr and of the non-self in-radius count:
-// part[row] = (s_corr, s_ns), which the caller adds up (no float atomics).
-//
-// Bound on the H100: ~35 f32 operations per live candidate pair against one
-// read of four planes and one write of three: bound by operations, and in
-// practice by the latency of the walk. The design above, with these points:
-// - A group of P2_LANES = 8 lanes owns a row, four rows a warp: the hidden
+// The PBF passes on row groups: phases 1 and 2 of the grid-reuse tick (v3)
+// and phase 2 of the per-iteration rebuild (v2), the design above with
+// these points in common:
+// - A group of ROW_LANES = 8 lanes owns a row, four rows a warp: the hidden
 //   grid's live rows hold ~7 live slots (at most 8 on phase B's first tick,
 //   17 in phase C's), which fill 8 lanes but left 16 half idle, and 16-lane
-//   groups read 0.0316 ms against 0.0237 on the H100. A lane holds up to
-//   two centre slots, so a pass covers 16 and a row of more takes passes.
-// - Lambda is the list's fourth plane. A chunk holds P2_CHUNK = 256 entries,
-//   less than a whole neighbourhood at M = 32 (27 x 32): at the 168
-//   registers a thread the loop takes, the registers allow six blocks an SM,
-//   and chunks of 27 x 32 (55 KB a block) would allow four (read ~10 %
-//   slower); phase B's lists hold 165 entries on average, 216 at most.
-// - The pair loop calls pair_terms and phase2_terms unchanged, with the
-//   power's repeat count int_pow made a constant where the launch has one
-//   (IP: 4 at PBFParams.e_p 4, three products; 0, powf, at a non-integer
-//   e_p), so the unrolled loop holds no loop of its own; any other int_pow
-//   runs the runtime loop (IP = -1).
+//   groups read 0.0316 ms against 0.0237 for phase 2 v3 on the H100. A lane
+//   holds up to two centre slots, so a pass covers 16 and a row of more
+//   takes passes.
+// - The pair loops call pair_terms (and phase2_terms) unchanged, and each sum
+//   adds what the one-block-a-row walk (phase1_walk, phase2_walk) added, in
+//   its order, so every slot keeps that walk's bits.
 // - The self pair is found by index, never by d2 = 0: the centre's own entry
 //   is neighbour 13's (the row itself, as TableRows::open's nb == cell says)
 //   at its slot, pre[13] + slot. Two live particles at the same coordinates
 //   in one row are a non-self pair with d2 = 0 and cg != 0.
 // - A dead centre slot's registers hold 0, a point inside the cell, so it
-//   pairs with real entries: its sums are selected to 0 before the row's
-//   partials, and it writes its input coordinate.
-// - The row's partials are reduced in the tree of the one-block-a-row walk,
-//   whose warps each summed 32 slots: slot s + 16 added to slot s (that
-//   walk's shuffle at offset 16: here the odd pass's slot to the even
-//   pass's), then s + 8 to s (a lane's second slot to its first), then
-//   offsets 4, 2, 1 across the group, and the warps' sums added in order
-//   from 0, so s_corr and s_ns keep their bits.
-// - Empty rows and row C copy x, y, z by 16-byte loads and stores where the
-//   entry finds M % 4 == 0 and every plane aligned, and write part 0.
+//   pairs with real entries: nothing of its sums is written or summed.
+// - Empty rows and row C are written by 16-byte stores where the entry finds
+//   M % 4 == 0 and every plane aligned.
 // ---------------------------------------------------------------------------
-constexpr int P2_LANES = 8;                           // lanes that own a row
-constexpr int P2_CPL = 2;                             // centre slots a lane may hold
-constexpr int P2_PASS = P2_LANES * P2_CPL;            // centre slots a pass covers: 16
-constexpr int P2_ROWS = GROUP_WARPS * 32 / P2_LANES;  // rows a block
-constexpr int P2_CHUNK = 256;                         // list entries a row stages at once
-constexpr int P2_ROUND = 16;  // entries a lane stages with its loads in flight
-static_assert(2 * P2_PASS == 32, "two passes make the 32 slots of the partials' tree");
+constexpr int ROW_LANES = 8;                            // lanes that own a row
+constexpr int ROW_CPL = 2;                              // centre slots a lane may hold
+constexpr int ROW_PASS = ROW_LANES * ROW_CPL;           // centre slots a pass covers: 16
+constexpr int ROW_ROWS = GROUP_WARPS * 32 / ROW_LANES;  // rows a block
 
-size_t phase2_smem() { return (size_t)P2_ROWS * P2_CHUNK * sizeof(float4); }
+// A group's row, its place in the group, the row's live slots and list
+// length, the warp's passes and longest list, and the list entry of slot 0's
+// self pair. Every lane of the warp calls it.
+struct RowGroup {
+  int sub, row, n_c, n_tot, passes, list_max, self0;
+};
+
+__device__ __forceinline__ RowGroup open_row(fnx::NbrTable& tab, const int* __restrict__ cnt,
+                                             const int* __restrict__ nbr, int C) {
+  RowGroup g;
+  g.sub = threadIdx.x % ROW_LANES;
+  g.row = blockIdx.x * ROW_ROWS + threadIdx.x / ROW_LANES;
+  g.n_c = g.row <= C ? cnt[g.row] : 0;
+  g.n_tot = fnx::load_nbr_table<ROW_LANES>(tab, nbr, cnt, g.row, C, g.sub, g.row < C);
+  g.passes = __reduce_max_sync(FULL_MASK, (unsigned)(g.n_c + ROW_PASS - 1) / ROW_PASS);
+  g.list_max = __reduce_max_sync(FULL_MASK, g.n_c > 0 ? (unsigned)g.n_tot : 0u);
+  // neighbour 13 is the row itself
+  g.self0 = g.row < C && tab.nb[fnx::SELF_J] == g.row ? tab.pre[fnx::SELF_J] : -(1 << 30);
+  return g;
+}
+
+// Centre slots a lane of the warp holds in a pass, at most, where this
+// group's row has `left` live slots from the pass on.
+__device__ __forceinline__ int pass_cpl(int left) {
+  return __reduce_max_sync(FULL_MASK, left > ROW_LANES ? (unsigned)ROW_CPL : 1u);
+}
+
+// Stores 0 over the floats [i0, i1) of the span at p, lane sub of a row's
+// group, by 16-byte stores where vec (then i0 = 0, and p and i1 are multiples
+// of 4 floats).
+__device__ __forceinline__ void zero_span(float* p, int i0, int i1, int sub, bool vec) {
+  if (vec) {
+    for (int i = sub; i < i1 / 4; i += ROW_LANES)
+      reinterpret_cast<float4*>(p)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    for (int i = i0 + sub; i < i1; i += ROW_LANES) p[i] = 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Phase 1, v3. Replaces the Pallas kernel
+// fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v3 (wrapper phase1_slots_v3).
+// Per live slot: the raw poly6 sum pi_raw (self included), the in-radius count
+// nl (self included), and lambda, computed here from the spiky sums:
+//   sg = (sum cg) x_i - sum cg x_s,  p_ratio = pi_raw / imass / p0,
+//   lambda = -(p_ratio - 1) / (sum cg^2 d2 / p0^2 + |sg|^2 / p0^2 + relax).
+// Dead slots, empty rows and row C write 0.
+//
+// Bound on the H100: ~30 f32 operations per live candidate pair against one
+// read of the coordinate planes and imass and one write of three planes:
+// bound by operations, and in practice by the latency of the walk. The row
+// groups above, with these points:
+// - The list carries three planes (stage_chunk's NO_W form, w = 0): phase 1
+//   reads nothing of a neighbour slot but its coordinates.
+// - A far entry past the group's list has d2 = inf and cg = 0, so the walk's
+//   c2a += cg^2 d2 would add 0 * inf = NaN there: that term is selected on
+//   the pair being in reach (cg != 0). The walk's terms out of reach are +0,
+//   so the select keeps its bits; nvcc contracted that sum into
+//   fma(cg * cg, d2, c2a), written out here. w is selected on d2 < h^2 inside
+//   pair_terms and nl on d2 <= h^2, and cg x_s is 0 * 1e30 = 0.
+// - d2 is formed by norm2_rn with no FMA, so nl agrees with the plain version
+//   pair for pair.
+// - The grid fits in one wave (phase B: 513 blocks, at most four an SM), so
+//   the loop is bound by its own latency, not by occupancy: it is unrolled 8
+//   (4 % faster than 4 on the H100, at the same 128 registers; 16 no
+//   faster). Staging a chunk in one round of 32 entries a lane took 211
+//   registers and gained nothing beside it, and 16 lanes a row read 15 %
+//   slower (twice the warps, twice the instructions).
+// ---------------------------------------------------------------------------
+constexpr int P1_CHUNK = 256;  // list entries a row stages at once
+constexpr int P1_ROUND = 16;   // entries a lane stages with its loads in flight
+
+size_t phase1_smem() { return (size_t)ROW_ROWS * P1_CHUNK * sizeof(float4); }
+
+// A centre slot of a pass: its coordinates, the list entry of its self pair
+// and its sums.
+struct Cen1 {
+  float x, y, z;
+  int self_e;
+  Sums1 a;
+};
+
+// The pair loop over kn staged entries (the list's entries c0 ..) for the
+// first NC centre slots a lane holds: no branch, so the compiler can overlap
+// the iterations.
+template <int NC>
+__device__ __forceinline__ void phase1_sweep(const float4* list, int c0, int kn,
+                                             Cen1 (&c)[ROW_CPL], const PairConsts& k) {
+#pragma unroll 8
+  for (int e = 0; e < kn; ++e) {
+    const float4 s = list[e];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      Cen1& ci = c[i];
+      const Pair p = pair_terms(ci.x, ci.y, ci.z, s.x, s.y, s.z, c0 + e == ci.self_e, k);
+      ci.a.wa += p.w;
+      ci.a.cga += p.cg;
+      ci.a.c2a = p.cg != 0.0f ? fmaf(p.cg * p.cg, p.d2, ci.a.c2a) : ci.a.c2a;
+      ci.a.nla += p.d2 <= k.h2 ? 1.0f : 0.0f;
+      ci.a.bx += p.cg * s.x;
+      ci.a.by += p.cg * s.y;
+      ci.a.bz += p.cg * s.z;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
+    float* __restrict__ lam, float* __restrict__ pi_raw, float* __restrict__ nl, int C, int M,
+    PairConsts k, bool vec) {
+  extern __shared__ float4 p1_lists[];  // [ROW_ROWS][P1_CHUNK]
+  __shared__ fnx::NbrTable tabs[ROW_ROWS];
+  const int grp = threadIdx.x / ROW_LANES;
+  float4* list = p1_lists + grp * P1_CHUNK;
+  const fnx::NbrTable& tab = tabs[grp];
+  const RowGroup g = open_row(tabs[grp], cnt, nbr, C);
+  if (g.row <= C) {  // dead slots, or the row's every slot
+    const size_t o = (size_t)g.row * M;
+    const bool all4 = g.n_c == 0 && vec;
+    zero_span(lam + o, g.n_c, M, g.sub, all4);
+    zero_span(pi_raw + o, g.n_c, M, g.sub, all4);
+    zero_span(nl + o, g.n_c, M, g.sub, all4);
+  }
+  for (int pass = 0; pass < g.passes; ++pass) {
+    const int left = g.n_c - pass * ROW_PASS;  // this row's live centre slots from the pass on
+    const int cpl = pass_cpl(left);
+    bool live[ROW_CPL];
+    Cen1 c[ROW_CPL];
+#pragma unroll
+    for (int i = 0; i < ROW_CPL; ++i) {
+      const int s = g.sub + i * ROW_LANES;
+      const size_t at = (size_t)g.row * M + pass * ROW_PASS + s;
+      live[i] = s < left;
+      c[i].x = live[i] ? x[at] : 0.0f;
+      c[i].y = live[i] ? y[at] : 0.0f;
+      c[i].z = live[i] ? z[at] : 0.0f;
+      c[i].self_e = g.self0 + pass * ROW_PASS + s;
+      c[i].a = Sums1{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    }
+    for (int c0 = 0; c0 < g.list_max; c0 += P1_CHUNK) {
+      const int kn = min(P1_CHUNK, g.list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<ROW_LANES, P1_CHUNK, P1_ROUND, fnx::NO_W>(
+          list, tab, c0, left > 0 ? g.n_tot : 0, kn, x, y, z, nullptr, M, k.h, g.sub);
+      if (cpl == 1)
+        phase1_sweep<1>(list, c0, kn, c, k);
+      else
+        phase1_sweep<ROW_CPL>(list, c0, kn, c, k);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+#pragma unroll
+    for (int i = 0; i < ROW_CPL; ++i) {
+      if (!live[i]) continue;
+      const size_t at = (size_t)g.row * M + pass * ROW_PASS + g.sub + i * ROW_LANES;
+      const Sums1& a = c[i].a;
+      const float xc = c[i].x, yc = c[i].y, zc = c[i].z;
+      const float sg0 = a.cga * xc - a.bx, sg1 = a.cga * yc - a.by, sg2 = a.cga * zc - a.bz;
+      const float ip2 = k.inv_p0 * k.inv_p0;
+      const float gr_dot = (sg0 * sg0 + sg1 * sg1 + sg2 * sg2) * ip2;
+      const float p_ratio = a.wa / imass[at] * k.inv_p0;
+      lam[at] = -(p_ratio - 1.0f) / (a.c2a * ip2 + gr_dot + k.relax);
+      pi_raw[at] = a.wa;
+      nl[at] = a.nla;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Phase 2, v3 and v2. Replaces the Pallas kernels
+// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3)
+// and :_phase2_kernel_v2 (wrapper phase2_slots_v2). Per live slot, over its
+// non-self pairs: corr = -k_p (w / w(dq))^e_p, b = (lambda_i + lambda_s +
+// corr) cg, and the raw delta dsum = (sum b) x_i - sum b x_s. What a launch
+// writes (P2Out):
+// - UPDATE (v3): the UPDATED coordinates x_new = x_i + dsum / p0 /
+//   max(nc_i, 1e-20), nc = nl + counts; dead slots, empty rows and row C keep
+//   their input coordinates.
+// - DSUM (v2): dsum, (C+1, M, 3) interleaved, with the 1/p0/max(nc, eps)
+//   scaling left to the caller (fluidnexus_tpu/sim/pbf_dense.py:210); 0 at
+//   dead slots, empty rows and row C. It reads no nc.
+// Each row also writes its partial sums of corr and of the non-self
+// in-radius count: part[row] = (s_corr, s_ns), which the caller adds up (no
+// float atomics).
+//
+// Bound on the H100: ~35 f32 operations per live candidate pair against one
+// read of four planes (five with nc) and one write of three: bound by
+// operations, and in practice by the latency of the walk. The row groups
+// above, with these points:
+// - Lambda is the list's fourth plane. A chunk holds P2_CHUNK = 256 entries,
+//   less than a whole neighbourhood at M = 32 (27 x 32): at the 168
+//   registers a thread the loop takes, the registers allow six blocks an SM,
+//   and chunks of 27 x 32 (55 KB a block) would allow four (read ~10 %
+//   slower); phase B's lists hold 165 entries on average, 216 at most.
+// - The power's repeat count int_pow is made a constant where the launch has
+//   one (IP: 4 at PBFParams.e_p 4, three products; 0, powf, at a non-integer
+//   e_p), so the unrolled loop holds no loop of its own; any other int_pow
+//   runs the runtime loop (IP = -1).
+// - The row's partials are reduced in the tree of the one-block-a-row walk
+//   (row_partials), whose warps each summed 32 slots: slot s + 16 added to
+//   slot s (that walk's shuffle at offset 16: here the odd pass's slot to the
+//   even pass's), then s + 8 to s (a lane's second slot to its first), then
+//   offsets 4, 2, 1 across the group, and the warps' sums added in order
+//   from 0, so s_corr and s_ns keep their bits. A dead slot adds 0.
+// ---------------------------------------------------------------------------
+constexpr int P2_CHUNK = 256;  // list entries a row stages at once
+constexpr int P2_ROUND = 16;   // entries a lane stages with its loads in flight
+static_assert(2 * ROW_PASS == 32, "two passes make the 32 slots of the partials' tree");
+
+size_t phase2_smem() { return (size_t)ROW_ROWS * P2_CHUNK * sizeof(float4); }
+
+enum P2Out { UPDATE, DSUM };
 
 // A centre slot of a pass: its coordinates and lambda, the list entry of its
 // self pair, and its sums.
@@ -654,7 +785,7 @@ struct Cen2 {
 // the iterations.
 template <int NC, int IP>
 __device__ __forceinline__ void phase2_sweep(const float4* list, int c0, int kn,
-                                             Cen2 (&c)[P2_CPL], const PairConsts& k0) {
+                                             Cen2 (&c)[ROW_CPL], const PairConsts& k0) {
   PairConsts k = k0;
   if (IP >= 0) k.int_pow = IP;
 #pragma unroll 4
@@ -676,96 +807,102 @@ __device__ __forceinline__ void phase2_sweep(const float4* list, int c0, int kn,
   }
 }
 
-template <int IP>
-__global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
+// The body of both kernels. xo, yo, zo: the updated planes (UPDATE); xo
+// alone, dsum (DSUM), with nc, yo and zo unused.
+template <int IP, P2Out OUT>
+__device__ __forceinline__ void phase2_rows(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
     const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
-    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
-  extern __shared__ float4 p2_lists[];  // [P2_ROWS][P2_CHUNK]
-  __shared__ fnx::NbrTable tabs[P2_ROWS];
-  const int grp = threadIdx.x / P2_LANES;
-  const int sub = threadIdx.x % P2_LANES;
-  const int row = blockIdx.x * P2_ROWS + grp;
+    float* __restrict__ zo, float* __restrict__ part, int C, int M, const PairConsts& k,
+    bool vec) {
+  extern __shared__ float4 p2_lists[];  // [ROW_ROWS][P2_CHUNK]
+  __shared__ fnx::NbrTable tabs[ROW_ROWS];
+  const int grp = threadIdx.x / ROW_LANES;
   float4* list = p2_lists + grp * P2_CHUNK;
-  const int n_c = row <= C ? cnt[row] : 0;
   const fnx::NbrTable& tab = tabs[grp];
-  const int n_tot = fnx::load_nbr_table<P2_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
-  if (row <= C) {  // the slots the pair loop does not write keep their coordinates
-    if (n_c == 0 && vec) {  // the row's every slot, 16 bytes a load and a store
-      const size_t o = (size_t)row * M / 4;
-      for (int i = sub; i < M / 4; i += P2_LANES) {
-        reinterpret_cast<float4*>(xo)[o + i] = reinterpret_cast<const float4*>(x)[o + i];
-        reinterpret_cast<float4*>(yo)[o + i] = reinterpret_cast<const float4*>(y)[o + i];
-        reinterpret_cast<float4*>(zo)[o + i] = reinterpret_cast<const float4*>(z)[o + i];
+  const RowGroup g = open_row(tabs[grp], cnt, nbr, C);
+  const int row = g.row, n_c = g.n_c, sub = g.sub;
+  if (row <= C) {  // the slots the pair loop does not write
+    if constexpr (OUT == UPDATE) {  // keep their coordinates
+      if (n_c == 0 && vec) {  // the row's every slot, 16 bytes a load and a store
+        const size_t o = (size_t)row * M / 4;
+        for (int i = sub; i < M / 4; i += ROW_LANES) {
+          reinterpret_cast<float4*>(xo)[o + i] = reinterpret_cast<const float4*>(x)[o + i];
+          reinterpret_cast<float4*>(yo)[o + i] = reinterpret_cast<const float4*>(y)[o + i];
+          reinterpret_cast<float4*>(zo)[o + i] = reinterpret_cast<const float4*>(z)[o + i];
+        }
+      } else {
+        for (int i = n_c + sub; i < M; i += ROW_LANES) {  // dead slots, or the row's every slot
+          const size_t at = (size_t)row * M + i;
+          xo[at] = x[at];
+          yo[at] = y[at];
+          zo[at] = z[at];
+        }
       }
-    } else {
-      for (int i = n_c + sub; i < M; i += P2_LANES) {  // dead slots, or the row's every slot
-        const size_t at = (size_t)row * M + i;
-        xo[at] = x[at];
-        yo[at] = y[at];
-        zo[at] = z[at];
-      }
+    } else {  // read 0: the row's floats from 3 n_c on
+      zero_span(xo + (size_t)row * M * 3, 3 * n_c, 3 * M, sub, n_c == 0 && vec);
     }
     if (n_c == 0 && sub == 0) part[2 * row] = part[2 * row + 1] = 0.0f;
   }
-  const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_c + P2_PASS - 1) / P2_PASS);
-  const int list_max = __reduce_max_sync(FULL_MASK, n_c > 0 ? (unsigned)n_tot : 0u);
-  // the list entry of slot 0's self pair: neighbour 13 is the row itself
-  const int self0 = row < C && tab.nb[fnx::SELF_J] == row ? tab.pre[fnx::SELF_J] : -(1 << 30);
   float s_corr = 0.0f, s_ns = 0.0f;  // the row's partial sums, pass by pass
-  float hold_cr[P2_CPL], hold_ns[P2_CPL];  // an even pass's sums, for the odd pass after it
-  for (int pass = 0; pass < passes; ++pass) {
-    const int left = n_c - pass * P2_PASS;  // this row's live centre slots from the pass on
-    // centre slots a lane of the warp holds in this pass, at most
-    const int cpl = __reduce_max_sync(FULL_MASK, left > P2_LANES ? (unsigned)P2_CPL : 1u);
-    bool live[P2_CPL];
-    Cen2 c[P2_CPL];
+  float hold_cr[ROW_CPL], hold_ns[ROW_CPL];  // an even pass's sums, for the odd pass after it
+  for (int pass = 0; pass < g.passes; ++pass) {
+    const int left = n_c - pass * ROW_PASS;  // this row's live centre slots from the pass on
+    const int cpl = pass_cpl(left);
+    bool live[ROW_CPL];
+    Cen2 c[ROW_CPL];
 #pragma unroll
-    for (int i = 0; i < P2_CPL; ++i) {
-      const int s = sub + i * P2_LANES;
-      const size_t at = (size_t)row * M + pass * P2_PASS + s;
+    for (int i = 0; i < ROW_CPL; ++i) {
+      const int s = sub + i * ROW_LANES;
+      const size_t at = (size_t)row * M + pass * ROW_PASS + s;
       live[i] = s < left;
       c[i].x = live[i] ? x[at] : 0.0f;
       c[i].y = live[i] ? y[at] : 0.0f;
       c[i].z = live[i] ? z[at] : 0.0f;
       c[i].l = live[i] ? lam[at] : 0.0f;
-      c[i].self_e = self0 + pass * P2_PASS + s;
+      c[i].self_e = g.self0 + pass * ROW_PASS + s;
       c[i].a = Sums2{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     }
-    for (int c0 = 0; c0 < list_max; c0 += P2_CHUNK) {
-      const int kn = min(P2_CHUNK, list_max - c0);  // the warp's trip count
-      fnx::stage_chunk<P2_LANES, P2_CHUNK, P2_ROUND>(list, tab, c0, left > 0 ? n_tot : 0, kn, x,
-                                                     y, z, lam, M, k.h, sub);
+    for (int c0 = 0; c0 < g.list_max; c0 += P2_CHUNK) {
+      const int kn = min(P2_CHUNK, g.list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<ROW_LANES, P2_CHUNK, P2_ROUND>(list, tab, c0, left > 0 ? g.n_tot : 0, kn,
+                                                      x, y, z, lam, M, k.h, sub);
       if (cpl == 1)
         phase2_sweep<1, IP>(list, c0, kn, c, k);
       else
-        phase2_sweep<P2_CPL, IP>(list, c0, kn, c, k);
+        phase2_sweep<ROW_CPL, IP>(list, c0, kn, c, k);
       __syncwarp();  // the chunk is consumed before the next one is staged
     }
 #pragma unroll
-    for (int i = 0; i < P2_CPL; ++i) {
+    for (int i = 0; i < ROW_CPL; ++i) {
       if (!live[i]) continue;
-      const size_t at = (size_t)row * M + pass * P2_PASS + sub + i * P2_LANES;
+      const size_t at = (size_t)row * M + pass * ROW_PASS + sub + i * ROW_LANES;
       const Sums2& a = c[i].a;
-      const float scale = k.inv_p0 / fmaxf(nc[at], 1e-20f);
-      xo[at] = c[i].x + (a.ba * c[i].x - a.bx) * scale;
-      yo[at] = c[i].y + (a.ba * c[i].y - a.by) * scale;
-      zo[at] = c[i].z + (a.ba * c[i].z - a.bz) * scale;
+      if constexpr (OUT == UPDATE) {
+        const float scale = k.inv_p0 / fmaxf(nc[at], 1e-20f);
+        xo[at] = c[i].x + (a.ba * c[i].x - a.bx) * scale;
+        yo[at] = c[i].y + (a.ba * c[i].y - a.by) * scale;
+        zo[at] = c[i].z + (a.ba * c[i].z - a.bz) * scale;
+      } else {
+        xo[3 * at] = a.ba * c[i].x - a.bx;
+        xo[3 * at + 1] = a.ba * c[i].y - a.by;
+        xo[3 * at + 2] = a.ba * c[i].z - a.bz;
+      }
     }
     // the row's partials in the walk's tree (above): an even pass's sums wait
     // for the odd pass after it, or for 0 where the warp has no such pass
     const bool odd = pass % 2 == 1;
 #pragma unroll
-    for (int i = 0; i < P2_CPL; ++i) {
+    for (int i = 0; i < ROW_CPL; ++i) {
       const float cr_i = live[i] ? c[i].a.cra : 0.0f, ns_i = live[i] ? c[i].a.nsa : 0.0f;
       hold_cr[i] = odd ? hold_cr[i] + cr_i : cr_i;
       hold_ns[i] = odd ? hold_ns[i] + ns_i : ns_i;
     }
-    if (!odd && pass < passes - 1) continue;
+    if (!odd && pass < g.passes - 1) continue;
     if (!odd) {
 #pragma unroll
-      for (int i = 0; i < P2_CPL; ++i) {
+      for (int i = 0; i < ROW_CPL; ++i) {
         hold_cr[i] += 0.0f;
         hold_ns[i] += 0.0f;
       }
@@ -773,9 +910,9 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
     float cr = hold_cr[0] + hold_cr[1];
     float ns = hold_ns[0] + hold_ns[1];
 #pragma unroll
-    for (int off = P2_LANES / 2; off > 0; off >>= 1) {
-      cr += __shfl_down_sync(FULL_MASK, cr, off, P2_LANES);
-      ns += __shfl_down_sync(FULL_MASK, ns, off, P2_LANES);
+    for (int off = ROW_LANES / 2; off > 0; off >>= 1) {
+      cr += __shfl_down_sync(FULL_MASK, cr, off, ROW_LANES);
+      ns += __shfl_down_sync(FULL_MASK, ns, off, ROW_LANES);
     }
     s_corr += cr;
     s_ns += ns;
@@ -786,17 +923,59 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
   }
 }
 
+// Phase 2 v3 (UPDATE) and v2 (DSUM): one body under two kernel names.
 template <int IP>
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
+    const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
+    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
+  phase2_rows<IP, UPDATE>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
+}
+
+template <int IP>
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_v2_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
+    const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
+    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
+  phase2_rows<IP, DSUM>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
+}
+
+template <int IP, P2Out OUT>
+int launch_phase2_at(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
+                     const float* lam, const float* nc, float* xo, float* yo, float* zo,
+                     float* part, int C, int M, const PairConsts& k, bool vec,
+                     cudaStream_t stream) {
+  const size_t smem = phase2_smem();
+  const auto kernel = OUT == UPDATE ? phase2_kernel<IP> : phase2_v2_kernel<IP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<C / ROW_ROWS + 1, GROUP_WARPS * 32, smem, stream>>>(cnt, nbr, x, y, z, lam, nc, xo, yo,
+                                                                zo, part, C, M, k, vec);
+  return (int)cudaGetLastError();
+}
+
+// Phase 2 with the power's repeat count k.int_pow made a constant where it is
+// 4 or 0 (phase2_kernel's IP).
+template <P2Out OUT>
 int launch_phase2(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
                   const float* lam, const float* nc, float* xo, float* yo, float* zo, float* part,
-                  int C, int M, const PairConsts& k, bool vec, cudaStream_t stream) {
-  const size_t smem = phase2_smem();
-  cudaError_t err = cudaFuncSetAttribute(phase2_kernel<IP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  phase2_kernel<IP><<<C / P2_ROWS + 1, GROUP_WARPS * 32, smem, stream>>>(
-      cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
-  return (int)cudaGetLastError();
+                  int C, int M, const PairConsts& k, bool vec, cudaStream_t s) {
+  if (k.int_pow == 4)
+    return launch_phase2_at<4, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+  if (k.int_pow == 0)
+    return launch_phase2_at<0, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+  return launch_phase2_at<-1, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+}
+
+// Every plane's rows start on 16 bytes: M % 4 == 0 and each plane aligned.
+bool rows_aligned(int M, std::initializer_list<const void*> planes) {
+  if (M % 4 != 0) return false;
+  for (const void* p : planes)
+    if ((size_t)p % sizeof(float4) != 0) return false;
+  return true;
 }
 
 PairConsts consts(float h, float h2, float eps, float c6, float s45, float inv_p0, float relax,
@@ -816,9 +995,14 @@ int fnx_pbf_phase1(const int* cnt, const int* nbr, const float* x, const float* 
                    const float* imass, float* lam, float* pi_raw, float* nl, int C, int M, float h,
                    float h2, float eps, float c6, float s45, float inv_p0, float relax, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase1_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
+  const size_t smem = phase1_smem();
+  cudaError_t err = cudaFuncSetAttribute(phase1_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  phase1_kernel<<<C / ROW_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
       cnt, nbr, x, y, z, imass, lam, pi_raw, nl, C, M,
-      consts(h, h2, eps, c6, s45, inv_p0, relax, 0.0f, 0.0f, 0, 0.0f));
+      consts(h, h2, eps, c6, s45, inv_p0, relax, 0.0f, 0.0f, 0, 0.0f),
+      rows_aligned(M, {lam, pi_raw, nl}));
   return (int)cudaGetLastError();
 }
 
@@ -827,13 +1011,10 @@ int fnx_pbf_phase2(const int* cnt, const int* nbr, const float* x, const float* 
                    int C, int M, float h, float h2, float eps, float c6, float s45, float k_p,
                    float e_p, int int_pow, float inv_denom, float inv_p0, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  const PairConsts k = consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow, inv_denom);
-  const bool vec = M % 4 == 0 && ((size_t)x | (size_t)y | (size_t)z | (size_t)xo | (size_t)yo |
-                                  (size_t)zo) % sizeof(float4) == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (int_pow == 4) return launch_phase2<4>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
-  if (int_pow == 0) return launch_phase2<0>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
-  return launch_phase2<-1>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+  return launch_phase2<UPDATE>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M,
+                               consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow,
+                                      inv_denom),
+                               rows_aligned(M, {x, y, z, xo, yo, zo}), (cudaStream_t)stream);
 }
 
 int fnx_pbf_phase1_v2(const int* cnt, const int* nbr, const float* x, const float* y,
@@ -851,10 +1032,9 @@ int fnx_pbf_phase2_v2(const int* cnt, const int* nbr, const float* x, const floa
                       float h, float h2, float eps, float c6, float s45, float k_p, float e_p,
                       int int_pow, float inv_denom, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase2_v2_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
-      cnt, nbr, x, y, z, lam, dsum, part, C, M,
-      consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom));
-  return (int)cudaGetLastError();
+  return launch_phase2<DSUM>(cnt, nbr, x, y, z, lam, nullptr, dsum, nullptr, nullptr, part, C, M,
+                             consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom),
+                             rows_aligned(M, {dsum}), (cudaStream_t)stream);
 }
 
 int fnx_pbf_phase1_v1(const int* cnt, const int* ncnt, const float* xng, const float* x,

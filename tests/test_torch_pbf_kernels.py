@@ -14,7 +14,10 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim.pbf import PBFParams
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import cuda_device, isolated_point_grid, leave_nan_blocks  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401
+    coincident_pairs_grid, cuda_device, isolated_point_grid, leave_nan_blocks,
+    phase1_against_the_walk,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +64,66 @@ def test_pbf_kernels_match_plain_on_the_card(cuda_device, m, n, box, e_p):
         torch.testing.assert_close(d, d_p, rtol=0, atol=1e-4 * float(d_p.abs().max()))
     torch.testing.assert_close(torch.stack([s_corr, s_ns]), torch.stack([corr_p, ns_p]),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("m", [32, 128])
+def test_phase1_at_its_edges(cuda_device, m):
+    """Phase 1 (v3) into NaN-filled blocks against its plain version at M = 32
+    and M = 128 (a row of 128 takes eight passes; lists span more than one
+    staged chunk of 256 entries), over full rows with two live particles at
+    one position in one row (a non-self pair at d2 = 0, which the kernel must
+    tell from the self pair by index) and one point alone, whose sums are its
+    self pair's: pi_raw and nl bit for bit. lambda and pi_raw at 1e-4 of
+    their scale, nl exact, dead slots, empty rows and row C exactly 0.
+    Epsilon 1e-2 as in ``test_phase2_at_its_edges``: the pair at d2 = 0 has
+    cg ~ eps^-1/2, whose terms sg cancels."""
+    grid, rng = isolated_point_grid(m, cuda_device, seed=m + 5, coincident=True)
+    cnt, *xyz = pc.planes(grid)
+    live = grid.bmask
+    im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
+                         device=cuda_device)
+    im = torch.where(live, im, 1.0).contiguous()
+    k = pc.pair_consts(PBFParams(h=1.0, epsilon=1e-2))
+    args = (grid.nbr, cnt, *xyz, im, k)
+    assert int(grid.prow[1]) == int(grid.prow[2]) < grid.max_cells
+    assert all(bool(p[grid.prow[1], grid.pcol[1]] == p[grid.prow[2], grid.pcol[2]]) for p in xyz)
+    assert int(cnt[grid.nbr.long()].sum(1).max()) > 256
+    lam_p, pi_p, nl_p, s_p6_p, s_edges_p = pc.phase1_plain(*args)
+    leave_nan_blocks(cuda_device, *(tuple(xyz[0].shape),) * 3)
+    lam, pi_raw, nl, s_p6, s_edges = pc.phase1_slots(*args)
+    for got, want in zip((lam, pi_raw), (lam_p, pi_p)):
+        torch.testing.assert_close(got[live], want[live], rtol=0,
+                                   atol=1e-4 * float(want[live].abs().max()))
+    for got in (lam, pi_raw, nl):
+        assert torch.equal(got[~live], torch.zeros_like(got[~live]))   # NaN where unwritten
+    torch.testing.assert_close(nl, nl_p, rtol=0, atol=0)
+    torch.testing.assert_close(torch.stack([s_p6, s_edges]), torch.stack([s_p6_p, s_edges_p]),
+                               rtol=1e-5, atol=0)
+    row, col = int(grid.prow[0]), int(grid.pcol[0])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
+    for got, want in ((pi_raw, pi_p), (nl, nl_p)):
+        assert torch.equal(got[row, col:col + 1].view(torch.int32),
+                           want[row, col:col + 1].view(torch.int32))
+    assert float(nl[row, col]) == 1.0
+
+
+@pytest.mark.parametrize("m", [32, 128])
+def test_phase1_keeps_the_walks_sums(cuda_device, m):
+    """Phase 1 (v3) against phase 1 v2, whose walk over the rows takes the
+    self pair by index and adds each slot's pairs in the order v3 keeps, over
+    20 pairs of live particles at one position at the default epsilon: their
+    cg ~ 1e5 cancels in sg, so sums that took such a pair for the self pair
+    (cg 0) would round otherwise, far beyond the epilogue's few ulp. pi_raw
+    bit for bit, nl exact, lambda within 1e-6 relative (the epilogue's f32
+    rounding)."""
+    grid, rng = coincident_pairs_grid(m, cuda_device, seed=m + 7)
+    live = grid.bmask
+    im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
+                         device=cuda_device)
+    same_pi, same_nl, rel = phase1_against_the_walk(
+        grid, torch.where(live, im, 1.0).contiguous(), pc.pair_consts(PBFParams(h=1.0)))
+    assert same_pi and same_nl
+    assert rel <= 1e-6, rel
 
 
 @pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])

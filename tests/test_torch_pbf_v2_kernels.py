@@ -13,7 +13,9 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim.pbf import PBFParams, RigidSpec, create_rigid_body, solver_loop
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.test_torch_pbf_kernels import _grid_inputs
-from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401
+    cuda_device, isolated_point_grid, leave_nan_blocks, phase2_part, plain_row_partials,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +55,42 @@ def test_v2_and_v1_kernels_match_plain_on_the_card(cuda_device, m, n, box, e_p):
     torch.testing.assert_close(d1[0], d2, rtol=0, atol=0, msg="v1 dsum")
     torch.testing.assert_close(torch.stack([s_corr, s_ns]), torch.stack(ref2[1:]), rtol=1e-5,
                                atol=0)
+
+
+@pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])
+def test_phase2_v2_at_its_edges(cuda_device, m, e_p):
+    """Phase 2 v2 into NaN-filled blocks against its plain version at M = 32
+    and M = 128 (lists span more than one staged chunk of 256 entries), at
+    e_p 4 and 2.5, over full rows with two live particles at one position in
+    one row (a non-self pair at d2 = 0) and one point alone, whose dsum is
+    exactly 0: dsum at 1e-4 of its scale, 0 at dead slots, empty rows and row
+    C; each row's partial sums, s_corr at 1e-5 of the rows' scale and s_ns
+    exactly, 0 at empty rows; the wrapper's global sums at 1e-5. Epsilon 1e-2
+    as in ``test_phase2_at_its_edges``."""
+    grid, _ = isolated_point_grid(m, cuda_device, seed=m + 6, coincident=True)
+    cnt, *xyz = pc.planes(grid)
+    live = grid.bmask
+    k = pc.pair_consts(PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
+    lam = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k)[0].contiguous()
+    args = (grid.nbr, cnt, *xyz, lam, k)
+    assert int(grid.prow[1]) == int(grid.prow[2]) < grid.max_cells
+    assert int(cnt[grid.nbr.long()].sum(1).max()) > 256
+    dsum_p, corr_p, ns_p = pc.phase2_v2_plain(*args)
+    part_p = plain_row_partials(*args)
+    leave_nan_blocks(cuda_device, tuple(dsum_p.shape), (cnt.numel(), 2))
+    dsum, part = phase2_part(pc, "pbf_phase2_v2", args)
+    _held(dsum, dsum_p, live, "v2 dsum")
+    empty = cnt == 0
+    assert torch.equal(part[empty], torch.zeros_like(part[empty]))       # NaN where unwritten
+    torch.testing.assert_close(part[:, 0], part_p[:, 0], rtol=0,
+                               atol=1e-5 * float(part_p[:, 0].abs().max()))
+    torch.testing.assert_close(part[:, 1], part_p[:, 1], rtol=0, atol=0)
+    _, corr, ns = pc.phase2_v2_slots(*args)
+    torch.testing.assert_close(torch.stack([corr, ns]), torch.stack([corr_p, ns_p]), rtol=1e-5,
+                               atol=0)
+    row, col = int(grid.prow[0]), int(grid.pcol[0])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
+    assert not dsum[row, col].any()
 
 
 def test_rigid_solver_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch):

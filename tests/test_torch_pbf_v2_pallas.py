@@ -7,6 +7,7 @@ tracing, not on the size. Live slots and the corrected global sums are held
 another order, and the sums to 1e-5 relative."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fluidnexus_tpu.ops import neighbors as jnb
@@ -20,14 +21,20 @@ from tests.test_torch_pbf import _mk_state
 CPU = torch.device("cpu")
 
 
-def pallas_case(seed=11):
+def pallas_case(seed=11, coincident=False):
     """An 8-cell x 8-slot grid of 40 live points in 2 x 2 x 2 cells at h = 1,
-    as the JAX package and as the port hold it, the pair constants, and a
-    lambda per live slot from the Pallas phase 1 (the formula of
-    sim/pbf_dense.py:155-160)."""
+    as the JAX package and as the port hold it, and the pair constants. With
+    ``coincident`` point 1's estimate sits on point 0's (two live particles
+    at one position: a non-self pair at d2 = 0) and epsilon is 1e-2: that
+    pair's cg grows as eps^-1/2 and the sums cancel its terms, so at the
+    default 1e-8 the comparison would read two summation orders' rounding of
+    ~1e4-times larger terms."""
     caps = (8, 8)
     kw = dict(h=1.0, p0=1.5, dense_max_cells=caps[0], dense_cell_capacity=caps[1])
     st_j, _ = _mk_state(40, 64, seed=seed, spread=0.6)
+    if coincident:
+        kw["epsilon"] = 1e-2
+        st_j = st_j._replace(estimate_xyz=st_j.estimate_xyz.at[1].set(st_j.estimate_xyz[0]))
     jg = jnb.build_dense_grid(st_j.estimate_xyz, 1.0, st_j.alive, *caps)
     tg = convert.dense_grid_from_numpy(jg, device=CPU)
     live = tg.bmask.numpy()
@@ -64,8 +71,16 @@ def check_phase2(got, ref, live):
                                rtol=1e-5)
 
 
-def test_v2_passes_match_the_v2_pallas_kernels():
-    params_j, k, jg, tg, live = pallas_case()
+@pytest.mark.parametrize("coincident", [False, True])
+def test_v2_passes_match_the_v2_pallas_kernels(coincident):
+    """The v2 plain versions against the v2 Pallas kernels, and with two live
+    particles at one position in one cell: both packages take the self pair
+    by index, so the two make a non-self pair at d2 = 0 with cg != 0, its
+    s_corr term and its count."""
+    params_j, k, jg, tg, live = pallas_case(coincident=coincident)
+    if coincident:
+        assert int(tg.prow[0]) == int(tg.prow[1]) < tg.max_cells
+        assert int(tg.pcol[0]) != int(tg.pcol[1])
     ref1 = jpallas.phase1_slots_v2(jg, k.h, k.eps, k.c6, k.s45)
     cnt, x, y, z = pbf_cuda.planes(tg)
     got1 = pbf_cuda.phase1_v2_plain(tg.nbr, cnt, x, y, z, k)

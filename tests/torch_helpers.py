@@ -183,6 +183,92 @@ def isolated_point_grid(m, device, seed, coincident=False):
     return grid, rng
 
 
+def coincident_pairs_grid(m, device, seed, pairs=20):
+    """Seeded points in a box with full rows at M = ``m`` (``ISOLATED_GRIDS``,
+    ~10 % dead) where points 2j + 1 sit on points 2j for j < ``pairs``, all
+    live: non-self pairs at d2 = 0 in many rows. At the default epsilon such
+    a pair's cg is ~1e5 and its terms in sg = (sum cg) x_i - sum cg x_s
+    cancel, so only the rounding of sums that hold them (and take the self
+    pair by index, in the walk's order) reproduces the bits. Returns (grid,
+    rng), the generator left for the caller's next draws."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+
+    n, box = ISOLATED_GRIDS[m]
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, box, (n, 3))
+    alive = rng.random(n) > 0.1
+    pts[1:2 * pairs:2] = pts[0:2 * pairs:2]
+    alive[:2 * pairs] = True
+    grid = build_dense_grid(torch.as_tensor(pts.astype(np.float32), device=device), 1.0,
+                            torch.as_tensor(alive, device=device), 512, m)
+    return grid, rng
+
+
+def phase1_against_the_walk(grid, imass, k):
+    """Phase 1 v3's kernel against phase 1 v2's, the one-block-a-row walk
+    that takes the self pair by index and sums each slot's pairs in the order
+    phase 1 v3 keeps, on ``grid`` with per-slot inverse masses ``imass`` and
+    pair constants ``k``: (pi_raw bit for bit, nl equal to nlen, the largest
+    relative difference over the live slots of lambda from lambda formed from
+    v2's sums, p_ratio in f32 as the kernel forms it and the rest in f64).
+    With the same sums only the kernel's f32 epilogue over positive terms
+    parts the two, a few ulp."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    cnt, *xyz = pc.planes(grid)
+    lam, pi_raw, nl, _, _ = pc.phase1_slots(grid.nbr, cnt, *xyz, imass, k)
+    pi2, sg, c2d2, nlen, _, _ = pc.phase1_v2_slots(grid.nbr, cnt, *xyz, k)
+    p_ratio = (pi2 / imass * k.inv_p0).double()
+    ip2 = k.inv_p0 ** 2
+    ref = -(p_ratio - 1.0) / (c2d2.double() * ip2 + (sg.double() ** 2).sum(-1) * ip2 + k.relax)
+    rel = ((lam.double() - ref).abs() / ref.abs().clamp(min=1e-30))[grid.bmask]
+    return (torch.equal(pi_raw.view(torch.int32), pi2.view(torch.int32)), torch.equal(nl, nlen),
+            float(rel.max()))
+
+
+def phase2_part(mod, name, args):
+    """Phase 2 v3 (``name`` pbf_phase2, ``args`` (nbr, cnt, x, y, z, lam, nc,
+    k)) or v2 (pbf_phase2_v2, (nbr, cnt, x, y, z, lam, k)) through the C entry
+    of ``mod`` (a ``pbf_cuda`` module, this checkout's or another's) with the
+    arguments its wrapper passes: (the updated planes x, y, z, or dsum, then
+    the per-row partial sums (C+1, 2) of s_corr and s_ns, which the wrapper
+    adds up)."""
+    nbr, cnt, x, y, z, lam = args[:6]
+    k = args[-1]
+    c, m = nbr.shape[0], x.shape[1]
+    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
+    ptrs = [cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            lam.data_ptr()]
+    consts = [k.h, k.h2, k.eps, k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom]
+    if name == "pbf_phase2":
+        out = tuple(torch.empty_like(x) for _ in range(3))
+        err = mod._lib().fnx_pbf_phase2(
+            *ptrs, args[6].data_ptr(), *(o.data_ptr() for o in out), part.data_ptr(), c, m,
+            *consts, k.inv_p0, mod._stream(x))
+    else:
+        out = (torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device),)
+        err = mod._lib().fnx_pbf_phase2_v2(*ptrs, out[0].data_ptr(), part.data_ptr(), c, m,
+                                           *consts, mod._stream(x))
+    if err:
+        raise RuntimeError(f"{name}'s C entry returned {err}")
+    return out + (part,)
+
+
+def plain_row_partials(nbr, cnt, x, y, z, lam, k):
+    """The per-row partial sums (C+1, 2) of s_corr and s_ns over each row's
+    live slots that phase 2 (v3 or v2) writes, from its plain version's sums
+    (summed in another order than the kernel's tree)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    rows, mu = pc._extent(nbr, cnt)
+    _, _, cra, nsa = pc._phase2_sums(nbr, cnt, (x, y, z), lam, k, rows, mu)
+    live = pc._live(cnt, mu)[:rows]
+    part = torch.zeros((cnt.numel(), 2), device=x.device)
+    part[:rows, 0] = torch.where(live, cra, 0.0).sum(1)
+    part[:rows, 1] = torch.where(live, nsa, 0.0).sum(1)
+    return part
+
+
 def splat_edge_grids(ms, mq, device, seed):
     """A source and a query grid for the splat adjoint's edge cases, at
     capacities ``ms`` and ``mq`` (32 or 128): sources in a box with full rows
