@@ -811,7 +811,8 @@ PHASE2_IN_RADIUS_OPS = 12 + 14
 PHASE1_SLOT_OPS = 20
 PHASE2_SLOT_OPS = 14
 PBF_KERNELS = {"pbf_phase1": "phase1_kernel", "pbf_phase2": "phase2_kernel",  # CUDA kernel names
-               "pbf_phase1_v2": "phase1_v2_kernel", "pbf_phase2_v2": "phase2_v2_kernel"}
+               "pbf_phase1_v2": "phase1_v2_kernel", "pbf_phase2_v2": "phase2_v2_kernel",
+               "pbf_phase1_v1": "phase1_v1_kernel", "pbf_phase2_v1": "phase2_v1_kernel"}
 
 
 def phase_b_config():
@@ -861,6 +862,7 @@ def first_tick_inputs(cfg, params, dev):
           f"{int(grid.bmask.sum())} live slots, {pairs} live candidate pairs, overflow "
           f"{int(grid.overflow)}; a live row's neighbourhood list holds "
           f"{float(lists.mean()):.1f} live slots on average, at most {int(lists.max())}")
+    row_stats(cnt, c, "phase B first-tick rows")
     return dict(nbr=grid.nbr, cnt=cnt, xyz=xyz, imass=imass, counts=counts,
                 live=grid.bmask, k=pc.pair_consts(params), pairs=pairs,
                 rows=int(occupied.sum()))
@@ -974,24 +976,29 @@ def held_phase2(args, live, what):
     return worst, failures, int(s_ns_p)
 
 
-def held_phase2_v2(args, live, what):
-    """Phase 2 v2 at ``args`` (nbr, cnt, x, y, z, lam, k) through its C entry
-    with dsum and the per-row partial sums in NaN-filled blocks, against its
-    plain version on the same inputs: each axis of dsum at 1e-4 of its own
-    scale over the live slots and exactly 0 at dead slots, empty rows and row
-    C; each row's partial s_corr at 1e-5 of the rows' largest, its s_ns
-    exactly, and both 0 at empty rows; the wrapper's global sums at 1e-5
-    relative. Prints a line per output; returns (max|err| of dsum, the names
-    of the outputs that failed)."""
+def held_phase2_raw(name, args, live, what):
+    """Phase 2 v2 (``name`` pbf_phase2_v2, ``args`` (nbr, cnt, x, y, z, lam,
+    k)) or v1 (pbf_phase2_v1, (ncnt, xng, lng, cnt, x, y, z, lam, k)) through
+    its C entry with dsum and the per-row partial sums in NaN-filled blocks,
+    against its plain version on the same inputs: each axis of dsum at 1e-4
+    of its own scale over the live slots and exactly 0 at dead slots, empty
+    rows and row C; each row's partial s_corr at 1e-5 of the rows' largest,
+    its s_ns exactly, and both 0 at empty rows; the wrapper's global sums at
+    1e-5 relative. Prints a line per output; returns (max|err| of dsum, the
+    names of the outputs that failed)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from tests.torch_helpers import leave_nan_blocks, phase2_part, plain_row_partials
 
-    cnt, lam = args[1], args[5]
-    dsum_p, s_corr_p, s_ns_p = pc.phase2_v2_plain(*args)
-    part_p = plain_row_partials(*args)
+    v1 = name == "pbf_phase2_v1"
+    label = "phase2 v1" if v1 else "phase2 v2"
+    wrapper, plain = (pc.phase2_v1_slots, pc.phase2_v1_plain) if v1 else \
+        (pc.phase2_v2_slots, pc.phase2_v2_plain)
+    cnt, lam = args[-6], args[-2]
+    dsum_p, s_corr_p, s_ns_p = plain(*args)
+    part_p = plain_row_partials(args[0], cnt, *args[-5:], gathered=args[:3] if v1 else None)
     leave_nan_blocks(lam.device, tuple(dsum_p.shape), (cnt.numel(), 2))
-    dsum, part = phase2_part(pc, "pbf_phase2_v2", args)
-    _, s_corr, s_ns = pc.phase2_v2_slots(*args)
+    dsum, part = phase2_part(pc, name, args)
+    _, s_corr, s_ns = wrapper(*args)
     torch.cuda.synchronize()
     worst, failures = 0.0, []
     for a, axis in enumerate("xyz"):
@@ -999,52 +1006,53 @@ def held_phase2_v2(args, live, what):
         scale = float(dsum_p[..., a][live].abs().max())
         dead_zero = bool((dsum[..., a][~live] == 0).all())  # a NaN left unwritten is not 0
         ok = err <= 1e-4 * scale and dead_zero
-        print(f"{what}: phase2 v2 dsum {axis} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
+        print(f"{what}: {label} dsum {axis} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x "
               f"scale]; dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
         worst = max(worst, err)
         if not ok:
-            failures.append(f"phase2 v2 dsum {axis}")
+            failures.append(f"{label} dsum {axis}")
     e_corr = float((part[:, 0] - part_p[:, 0]).abs().max())
     s_corr_scale = float(part_p[:, 0].abs().max())
     ns_same = torch.equal(part[:, 1], part_p[:, 1])
     empty_zero = bool((part[cnt == 0] == 0).all())
     ok = e_corr <= 1e-5 * s_corr_scale and ns_same and empty_zero
-    print(f"{what}: phase2 v2 per-row partials: s_corr max|err| {e_corr:.3e} / scale "
+    print(f"{what}: {label} per-row partials: s_corr max|err| {e_corr:.3e} / scale "
           f"{s_corr_scale:.3e} [tol 1e-5 x scale], s_ns exact {ns_same}, empty rows 0 "
           f"{empty_zero}" + ("" if ok else " FAILED"))
     if not ok:
-        failures.append("phase2 v2 part")
-    for name, a, b in (("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
-        _rel_held(what, f"phase2 v2 {name}", a, b, failures)
+        failures.append(f"{label} part")
+    for nm, a, b in (("s_corr", s_corr, s_corr_p), ("s_ns", s_ns, s_ns_p)):
+        _rel_held(what, f"{label} {nm}", a, b, failures)
     return worst, failures
 
 
 def pbf_plain_saved(inp):
     """What phase 2 takes at the first tick's inputs, from the plain versions
     on the card (so no kernel of this checkout runs to make it): lambda, nc
-    and the in-radius pair counts of ``check_pbf_kernels``."""
+    and the in-radius pair counts of ``check_pbf_kernels``, and the v1
+    pre-gathers of the rows and of that lambda."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
     lam, _, nl, _, s_edges = pc.phase1_plain(nbr, cnt, *xyz, inp["imass"], k)
+    lam = lam.contiguous()
     nc = (nl + inp["counts"]).contiguous()
     s_ns = pc.phase2_plain(nbr, cnt, *xyz, lam, nc, k)[4]
-    return dict(lam=lam.contiguous(), nc=nc, in_radius1=int(s_edges), in_radius2=int(s_ns))
+    ncnt, xng = pc.gather_v1(nbr, cnt, *xyz)
+    return dict(lam=lam, nc=nc, in_radius1=int(s_edges), in_radius2=int(s_ns), ncnt=ncnt,
+                xng=xng, lng=pc.gather_lam_v1(nbr, lam))
 
 
 def pbf_plans(inp, saved):
     """Phase B's pair kernels at the first tick's inputs: {name: (wrapper,
-    plain version, arguments, bytes, operations)} for phases 1 and 2 (v3) and,
-    phases 1 and 2 v2 (rows 6 and 7), which share their pair terms: phase 2
-    v2 its row-group body with phase 2 v3, phase 1 v2 the one-block-a-row walk
-    phase 1 v3 replaced (a witness)."""
+    plain version, arguments, bytes, operations)} for phases 1 and 2 (v3,
+    rows 12 and 13)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
     n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
     in1, in2 = saved["in_radius1"], saved["in_radius2"]
-    ops1_raw = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS
-    ops1 = ops1_raw + n_live * PHASE1_SLOT_OPS
+    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * PHASE1_SLOT_OPS
     ops2 = pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
     print(f"pbf bounds: {pairs} live candidate pairs, {in1} in radius (self included), "
           f"{in2} non-self in radius; {ops1} and {ops2 + n_live * PHASE2_SLOT_OPS} f32 "
@@ -1058,12 +1066,59 @@ def pbf_plans(inp, saved):
                            table + 4 * n_live * (4 + 3), ops1),
             "pbf_phase2": (pc.phase2_slots, pc.phase2_plain, (nbr, cnt, *xyz, lam, nc, k),
                            table + 4 * n_live * (5 + 3) + 8 * rows,
-                           ops2 + n_live * PHASE2_SLOT_OPS),
-            "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
-                              table + 4 * n_live * (3 + 6), ops1_raw + n_live * RAW_SLOT_OPS),
-            "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
-                              table + 4 * n_live * (4 + 3) + 8 * rows,
-                              ops2 + n_live * RAW_SLOT_OPS)}
+                           ops2 + n_live * PHASE2_SLOT_OPS)}
+
+
+def v2_v1_plans(inp, saved):
+    """Phases 1 and 2 v2 and v1 (rows 6, 7, 4 and 5) at the inputs ``inp``
+    (phase B's first tick, or the rigid rollout's first iteration) with
+    ``saved``'s lambda, v1 pre-gathers and in-radius pair counts: {name:
+    (wrapper, plain version, arguments, bytes, operations)}."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
+    lam, ncnt, xng, lng = saved["lam"], saved["ncnt"], saved["xng"], saved["lng"]
+    n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
+    in1, in2 = saved["in_radius1"], saved["in_radius2"]
+    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * RAW_SLOT_OPS
+    ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
+            + n_live * RAW_SLOT_OPS)
+    # bytes: cnt and the occupied rows' table read once (nbr for v2, the
+    # gathered counts for v1), the live centre slots' planes read once, the
+    # live slots' outputs written once; v1 also reads, of the occupied rows'
+    # gathered blocks (27 x 3 x M coordinates, 27 x M lambdas), the live
+    # entries, which is all its kernels touch
+    table = 4 * (cnt.numel() + 27 * rows)
+    gathered_live = int(ncnt[cnt[:ncnt.shape[0]] > 0].sum())
+    return {
+        "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
+                          table + 4 * n_live * (3 + 6), ops1),
+        "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
+                          table + 4 * n_live * (4 + 3) + 8 * rows, ops2),
+        "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain, (ncnt, xng, cnt, *xyz, k),
+                          table + 4 * 3 * gathered_live + 4 * n_live * (3 + 6), ops1),
+        "pbf_phase2_v1": (pc.phase2_v1_slots, pc.phase2_v1_plain,
+                          (ncnt, xng, lng, cnt, *xyz, lam, k),
+                          table + 4 * 4 * gathered_live + 4 * n_live * (4 + 3) + 8 * rows, ops2),
+    }
+
+
+def row_stats(cnt, c, what):
+    """Prints the live rows of a C-row grid (``cnt`` (C+1,)) as the row-group
+    kernels deal them: occupied rows, live slots, the fullest row, the rows
+    over 8, 16 and 24 live slots (a lane of 8 holds two centre slots past 8,
+    three past 16; a pass of two slots a lane covers 16, of 16 lanes 32), the
+    warps of four rows (8 lanes a row) holding a row over 8, and of two rows
+    (16 lanes a row) holding one over 16, among the warps holding a live row."""
+    rows = cnt[:c]
+    occ = rows[rows > 0]
+    over = ", ".join(f"{int((rows > t).sum())} over {t}" for t in (8, 16, 24))
+    w4, w2 = rows[:c // 4 * 4].view(-1, 4), rows[:c // 2 * 2].view(-1, 2)
+    print(f"{what}: {int(occ.numel())} occupied rows of {c}, {int(rows.sum())} live slots, "
+          f"fullest {int(rows.max())}, mean {float(occ.float().mean()):.2f}; rows {over}; "
+          f"warps of 4 rows holding a row over 8: {int((w4 > 8).any(1).sum())} of "
+          f"{int((w4 > 0).any(1).sum())}; warps of 2 rows holding a row over 16: "
+          f"{int((w2 > 16).any(1).sum())} of {int((w2 > 0).any(1).sum())}")
 
 
 def time_pbf_kernels(inp, saved):
@@ -1073,8 +1128,6 @@ def time_pbf_kernels(inp, saved):
     PyTorch call computes these pair sums, so there is no library time."""
     out = {}
     for name, (fn, plain, args, nbytes, ops) in pbf_plans(inp, saved).items():
-        if name in ("pbf_phase1_v2", "pbf_phase2_v2"):  # timed at the rigid rollout's inputs
-            continue
         kernel = PBF_KERNELS[name]
         ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
         floor_args = launch_floors(name, args)["every count 0"]
@@ -1334,8 +1387,9 @@ def first_iteration_inputs(ctx):
 
 
 def phase_c_calls():
-    """Per phase-C kernel, and phase 1 v2 (held at phase B's first tick in
-    ``pairs``): (wrapper, plain version, its per-slot output fields)."""
+    """Per phase-C kernel, and phases 1 v2 and v1 (held at phase B's first
+    tick in ``pairs``): (wrapper, plain version, its per-slot output
+    fields)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
 
@@ -1344,6 +1398,8 @@ def phase_c_calls():
             "splat_fwd": (sc.splat_fwd_slots, sc.splat_fwd_plain, ("wv", "ws")),
             "splat_bwd": (sc.splat_bwd_slots, sc.splat_bwd_plain, ("g_est", "g_vel")),
             "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain,
+                              ("pi_raw", "sg", "c2d2", "nlen")),
+            "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain,
                               ("pi_raw", "sg", "c2d2", "nlen"))}
 
 
@@ -1352,8 +1408,9 @@ def held_in_nan_blocks(name, args, what):
     in NaN-filled blocks (so a slot it leaves unwritten shows), against its
     plain version on the same inputs: each output field at 1e-4 of its own
     scale over the live centre slots (the count at args[1], the planes' width
-    at args[2]), and exactly 0 at dead slots. Prints a line per field;
-    returns (max|err|, the names of the fields that failed)."""
+    at args[2]; for phase 1 v1 at args[2] and args[3]), and exactly 0 at dead
+    slots. Prints a line per field; returns (max|err|, the names of the
+    fields that failed)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from tests.torch_helpers import leave_nan_blocks
 
@@ -1364,7 +1421,8 @@ def held_in_nan_blocks(name, args, what):
     got = wrapper(*args)
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
-    live = pc._live(args[1], args[2].shape[1])
+    at = 2 if name == "pbf_phase1_v1" else 1
+    live = pc._live(args[at], args[at + 1].shape[1])
     worst, failures = 0.0, []
     for field, g, w in zip(fields, got, want):
         lv = live if g.dim() == 2 else live[..., None].expand_as(g)
@@ -1397,12 +1455,16 @@ def check_phase_c_kernels(inp):
 
 def launch_floors(name, args):
     """The launch floors of pair kernel ``name`` (phase C's, or phase B's
-    ``pbf_*``) at ``args``: the same launch with every count 0 and, for the
-    splat forward, with every source count 0 and the queries live, for the
-    splat adjoint with every query count 0 and the sources live (most of its
-    source rows have no query in reach on the main path). {label:
-    arguments}."""
+    ``pbf_*``) at ``args``: the same launch with every count 0 (for v1 the
+    gathered counts too) and, for the splat forward, with every source count
+    0 and the queries live, for the splat adjoint with every query count 0
+    and the sources live (most of its source rows have no query in reach on
+    the main path). {label: arguments}."""
     zero = torch.zeros_like
+    if name in ("pbf_phase1_v1", "pbf_phase2_v1"):
+        at = 2 if name == "pbf_phase1_v1" else 3  # cnt, after ncnt, xng (and lng)
+        return {"every count 0": (zero(args[0]),) + tuple(args[1:at]) + (zero(args[at]),)
+                + tuple(args[at + 1:])}
     if name == "splat_fwd":
         return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:5]) + (zero(args[5]),)
                 + tuple(args[6:]),
@@ -1930,6 +1992,7 @@ def rigid_first_inputs(params, state0):
           f"cells, fullest {int(cnt.max())}, {int(grid.bmask.sum())} live slots of "
           f"{int(state.num_alive)} alive, {pairs} live candidate pairs, overflow "
           f"{int(grid.overflow)}")
+    row_stats(cnt, c, "rigid first iteration rows")
     return dict(nbr=grid.nbr, cnt=cnt, xyz=xyz, imass=imass, live=grid.bmask,
                 k=pc.pair_consts(params), params=params, pairs=pairs, rows=int(occupied.sum()))
 
@@ -2119,40 +2182,18 @@ def time_rigid_kernels(inp, saved):
     timed apart. No single PyTorch call computes these pair sums."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
-    nbr, cnt, xyz, k = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"]
+    nbr, cnt, xyz = inp["nbr"], inp["cnt"], inp["xyz"]
     lam, ncnt, xng, lng = saved["lam"], saved["ncnt"], saved["xng"], saved["lng"]
-    n_live, rows, pairs = int(inp["live"].sum()), inp["rows"], inp["pairs"]
-    m = xyz[0].shape[1]
-    in1, in2 = saved["in_radius1"], saved["in_radius2"]
-    ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * RAW_SLOT_OPS
-    ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
-            + n_live * RAW_SLOT_OPS)
     g1 = cuda_ms(lambda: pc.gather_v1(nbr, cnt, *xyz), iters=20)
     g2 = cuda_ms(lambda: pc.gather_lam_v1(nbr, lam), iters=20)
-    print(f"rigid bounds: {pairs} live candidate pairs, {in1} in radius (self included), {in2} "
-          f"non-self in radius; {ops1} and {ops2} f32 operations. The v1 pre-gather "
-          f"(plain torch, all {nbr.shape[0]} rows): coordinates {g1:.4f} ms, lambdas "
-          f"{g2:.4f} ms; {xng.numel() * 4} + {lng.numel() * 4} bytes")
-    # bytes: cnt and the occupied rows' table read once (nbr for v2, the
-    # gathered counts for v1), the live centre slots' planes read once, the
-    # live slots' outputs written once; v1 also reads, of the occupied rows'
-    # gathered blocks (27 x 3 x M coordinates, 27 x M lambdas), the live
-    # entries, which is all its walk touches
-    table = 4 * (cnt.numel() + 27 * rows)
-    gathered_live = int(ncnt[cnt[:ncnt.shape[0]] > 0].sum())
-    print(f"rigid bounds: the v1 kernels read {gathered_live} live entries of the {rows} "
-          f"occupied rows' {rows * 27 * m} gathered neighbour slots")
-    plans = {  # name: (wrapper, plain, args, bytes, operations)
-        "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
-                          table + 4 * n_live * (3 + 6), ops1),
-        "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
-                          table + 4 * n_live * (4 + 3) + 8 * rows, ops2),
-        "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain, (ncnt, xng, cnt, *xyz, k),
-                          table + 4 * 3 * gathered_live + 4 * n_live * (3 + 6), ops1),
-        "pbf_phase2_v1": (pc.phase2_v1_slots, pc.phase2_v1_plain,
-                          (ncnt, xng, lng, cnt, *xyz, lam, k),
-                          table + 4 * 4 * gathered_live + 4 * n_live * (4 + 3) + 8 * rows, ops2),
-    }
+    plans = v2_v1_plans(inp, saved)
+    print(f"rigid bounds: {inp['pairs']} live candidate pairs, {saved['in_radius1']} in radius "
+          f"(self included), {saved['in_radius2']} non-self in radius; "
+          f"{plans['pbf_phase1_v2'][4]} and {plans['pbf_phase2_v2'][4]} f32 operations. The v1 "
+          f"pre-gather (plain torch, all {nbr.shape[0]} rows): coordinates {g1:.4f} ms, lambdas "
+          f"{g2:.4f} ms; {xng.numel() * 4} + {lng.numel() * 4} bytes; the v1 kernels read "
+          f"{int(ncnt[cnt[:ncnt.shape[0]] > 0].sum())} live entries of the {inp['rows']} occupied "
+          f"rows' {inp['rows'] * 27 * xyz[0].shape[1]} gathered neighbour slots")
     out = {}
     for name, (fn, plain, args, nbytes, ops) in plans.items():
         ms, recorded = kernel_device_ms(lambda: fn(*args), FUTURE_KERNELS[name][1])
@@ -3316,39 +3357,62 @@ PBF_SRC = "fluidnexus_torch/csrc/pbf.cu"
 SPLAT_SRC = "fluidnexus_torch/csrc/splat.cu"
 PAIRS_MUTANTS = {
     "density_bwd_skips_neighbour_26": [
-        (PAIR_SRC, "n[q] = nb[q] < C ? cnt[nb[q]] : 0;",
-         "n[q] = nb[q] < C && sub * PER + q != 26 ? cnt[nb[q]] : 0;")],
+        (PAIR_SRC, "n[q] = src.count(nb[q]);", "n[q] = sub * PER + q != 26 ? src.count(nb[q]) : 0;")],
     "density_bwd_stages_one_short": [(PAIR_SRC, "const int c1 = min(c0 + CH, n_tot);",
                                       "const int c1 = min(c0 + CH, n_tot) - 1;")],
     "density_skips_the_self_entry": [(PBF_SRC, "wa[c] = d2 < h2 ? fmaf(",
                                       "wa[c] = d2 > 0.0f && d2 < h2 ? fmaf(")],
-    "density_stages_one_short": [(PBF_SRC, "left > 0 ? n_tot : 0, kn, x, y, z, nullptr,",
-                                  "left > 0 ? n_tot - 1 : 0, kn, x, y, z, nullptr,")],
+    "density_stages_one_short": [(PBF_SRC, "left > 0 ? n_tot : 0, kn, src, h, sub);",
+                                  "left > 0 ? n_tot - 1 : 0, kn, src, h, sub);")],
     "splat_bwd_empty_rows_unwritten": [(SPLAT_SRC, "gx4[i] = gv4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);",
                                         ";")],
     "splat_bwd_fd_by_a_product": [
         (SPLAT_SRC, "const float fd = d2 < h2 ? (a.v0", "const float fd = (float)(d2 < h2) * (a.v0"),
         (SPLAT_SRC, "(-3.0f * t2 * t2)\n                               : 0.0f;", "(-3.0f * t2 * t2);")],
     "splat_fwd_empty_rows_unwritten": [(SPLAT_SRC, "wv4[i] = zero;", ";")],
-    "splat_fwd_stages_one_short": [(SPLAT_SRC, "c0, n_tot, kn, xs, ys,", "c0, n_tot - 1, kn, xs, ys,")],
+    "splat_fwd_stages_one_short": [(SPLAT_SRC, "c0, n_tot, kn, src, h,", "c0, n_tot - 1, kn, src, h,")],
+    # phase 2's body, shared by v3 (row 13), v2 (row 7) and v1 (row 5)
     "phase2_self_by_d2": [(PBF_SRC, "const bool self = c0 + e == ci.self_e;",
                            "const bool self = norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
                            "__fsub_rn(ci.z, s.z)) == 0.0f;")],
     "phase2_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
                                    "const float cr_i = c[i].a.cra,")],
+    # phase 1's body, shared by v3 (row 12) and v2 (row 6)
     "phase1_self_by_d2": [(PBF_SRC, "s.z, c0 + e == ci.self_e, k);",
                            "s.z, norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
                            "__fsub_rn(ci.z, s.z)) == 0.0f, k);")],
     "phase1_c2a_unselected": [(PBF_SRC, "ci.a.c2a = p.cg != 0.0f ? fmaf(p.cg * p.cg, p.d2, ci.a.c2a) "
                                ": ci.a.c2a;", "ci.a.c2a = fmaf(p.cg * p.cg, p.d2, ci.a.c2a);")],
-    "phase1_stages_one_short": [(PBF_SRC, "list, tab, c0, left > 0 ? g.n_tot : 0, kn, x, y, z, nullptr,",
-                                 "list, tab, c0, left > 0 ? g.n_tot - 1 : 0, kn, x, y, z, nullptr,")],
+    "phase1_stages_one_short": [(PBF_SRC, "fnx::NO_W>(list, tab, c0, left > 0 ? g.n_tot : 0,",
+                                 "fnx::NO_W>(list, tab, c0, left > 0 ? g.n_tot - 1 : 0,")],
     "phase1_empty_rows_unwritten": [(PBF_SRC, "if (g.row <= C) {  // dead slots, or the row's every slot",
                                      "if (g.row <= C && g.n_c > 0) {")],
+    # the DSUM epilogue (v2 and v1)
     "phase2_v2_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
                                       "const float cr_i = live[i] || OUT == DSUM ? c[i].a.cra : 0.0f,")],
-    "phase2_v2_empty_rows_unwritten": [(PBF_SRC, "zero_span(xo + (size_t)row * M * 3,",
-                                        "if (n_c > 0) zero_span(xo + (size_t)row * M * 3,")],
+    "phase2_v2_empty_rows_unwritten": [(PBF_SRC, "zero_span<ROW_LANES>(xo + (size_t)row * M * 3,",
+                                        "if (n_c > 0) zero_span<ROW_LANES>(xo + (size_t)row * M * 3,")],
+    # row 6 alone: its RAW zeros, and its launches (inv_p0 = 0) taking c2a unselected
+    "phase1_v2_empty_rows_unwritten": [(PBF_SRC, "      zero_span<L>(o1 + 3 * o, 3 * g.n_c, 3 * M, g.sub, all4);",
+                                        "      if (g.n_c > 0) zero_span<L>(o1 + 3 * o, 3 * g.n_c, 3 * M, g.sub, all4);")],
+    "phase1_v2_c2a_unselected": [(PBF_SRC, "ci.a.c2a = p.cg != 0.0f ? fmaf(",
+                                  "ci.a.c2a = p.cg != 0.0f || k.inv_p0 == 0.0f ? fmaf(")],
+    # row 5 alone: the gathered source
+    "gathered_stages_one_short": [(PBF_SRC, "(list, tab, c0, left > 0 ? g.n_tot : 0, kn,",
+                                   "(list, tab, c0, left > 0 ? g.n_tot - (int)Src::GATHERED : 0, kn,")],
+    "gathered_self_by_d2": [
+        (PBF_SRC, "Cen2 (&c)[ROW_CPL], const PairConsts& k0) {",
+         "Cen2 (&c)[ROW_CPL], const PairConsts& k0, bool by_d2 = false) {"),
+        (PBF_SRC, "const bool self = c0 + e == ci.self_e;",
+         "const bool self = by_d2 ? norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
+         "__fsub_rn(ci.z, s.z)) == 0.0f : c0 + e == ci.self_e;"),
+        (PBF_SRC, "(list, c0, kn, c, k);\n      else\n        phase2_sweep<ROW_CPL, IP>(list, c0, kn, c, k);",
+         "(list, c0, kn, c, k, Src::GATHERED);\n      else\n"
+         "        phase2_sweep<ROW_CPL, IP>(list, c0, kn, c, k, Src::GATHERED);")],
+    "row_c_reads_ncnt": [(PAIR_SRC, "return active ? row * 27 + j : -1;",
+                          "return active || j < 27 ? row * 27 + j : -1;")],
+    "phase2_v1_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
+                                      "const float cr_i = live[i] || Src::GATHERED ? c[i].a.cra : 0.0f,")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -3574,13 +3638,14 @@ def raster_time(parent=None):
 
 PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_fwd": 10, "splat_bwd": 11,  # rows of
               "pbf_phase1": 12, "pbf_phase2": 13, "pbf_phase1_v2": 6,  # PERF.md's kernel table
-              "pbf_phase2_v2": 7}
-PAIRS_LIBS = {"density_fwd": "pbf", "density_bwd": "pbf", "splat_fwd": "splat", "splat_bwd": "splat",
-              "pbf_phase1": "pbf", "pbf_phase2": "pbf", "pbf_phase1_v2": "pbf",
-              "pbf_phase2_v2": "pbf"}
+              "pbf_phase2_v2": 7, "pbf_phase1_v1": 4, "pbf_phase2_v1": 5}
+PAIRS_LIBS = {name: "splat" if name.startswith("splat") else "pbf" for name in PAIRS_ROWS}
+PAIRS_PART = ("pbf_phase2", "pbf_phase2_v2", "pbf_phase2_v1")  # rows with per-row partial sums
+V2_V1_ROWS = ("pbf_phase1_v2", "pbf_phase2_v2", "pbf_phase1_v1", "pbf_phase2_v1")
 SPLAT_CHUNK = 256  # list entries either splat kernel stages at once (csrc/splat.cu)
-P1_CHUNK = 256  # list entries phase 1 v3 stages at once (csrc/pbf.cu)
-P2_CHUNK = 256  # list entries phase 2 (v3 and v2) stages at once (csrc/pbf.cu)
+P1_CHUNK = 256  # list entries phase 1 (v3 and v2) stages at once (csrc/pbf.cu)
+P2_CHUNK = 256  # list entries phase 2 (v3, v2 and v1) stages at once (csrc/pbf.cu)
+PHASE_B, RIGID, PHASE_C = "phase B's first tick", "the rigid inputs", "phase C"
 
 
 def pair_kernel(name):
@@ -3588,33 +3653,66 @@ def pair_kernel(name):
     return PHASE_C_KERNELS[name][2] if name in PHASE_C_KERNELS else PBF_KERNELS[name]
 
 
+def with_part(module, name, args, out):
+    """``out``, the wrapper's outputs of ``name`` at ``args``, with the per-row
+    partial sums of phase 2 (v3, v2, v1) through the C entry of ``module``."""
+    from tests.torch_helpers import phase2_part
+
+    out = (out,) if torch.is_tensor(out) else tuple(out)
+    return out + phase2_part(module, name, args)[-1:] if name in PAIRS_PART else out
+
+
+def rigid_inputs_by_train(cfg, scene, bg, dev, tmp):
+    """The rigid rollout's first-iteration inputs made as the main run makes
+    them: ``train`` A -> B -> C at the smoke widths (``cfg``, phase C's, on
+    ``scene`` and ``bg``) with its checkpoints under ``tmp``, then phase C's
+    frame-2 checkpoint and the future config's cylinder (``rigid_state``) and
+    ``rigid_first_inputs``, its row statistics printed; then
+    ``check_rigid_kernels`` there (this checkout's kernels). Returns (inputs,
+    what the check saved: lambda, the v1 pre-gathers, the in-radius
+    counts)."""
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+
+    cfg.model.model_path = os.path.join(tmp, "recon")
+    try:
+        tp.train(cfg, scene, bg=bg, log=lambda *a, **k: None, device="cuda")
+    finally:
+        cfg.model.model_path = ""
+    fcfg = future_config(os.path.join(tmp, "recon"), os.path.join(tmp, "future"))
+    params, state0, _, _ = rigid_state(fcfg, dev)
+    inp = rigid_first_inputs(params, state0)
+    return inp, check_rigid_kernels(inp)[1]
+
+
 def pairs_time(parent=None):
-    """``python3 chip_smoke.py pairs [PARENT]``: the pair kernels of rows 6-13
+    """``python3 chip_smoke.py pairs [PARENT]``: the pair kernels of rows 4-13
     of PERF.md's kernel table alone: the gas-loss density, its adjoint, the
     splat forward and the splat adjoint at the first phase-C fit
     iteration's inputs, made as ``train`` makes them (phases A and B, frame
     1's simulation; the rasterizer, pbf and splat libraries are built for
-    that), and phases 1 and 2 of the PBF tick (v3) and phases 1 and 2 v2,
-    which share their pair terms, at phase B's first tick
-    (``first_tick_inputs``, lambda and nc from the plain versions). Prints
-    both grids' live rows, slots, pairs and neighbourhood lists, the splat
-    adjoint's source rows with a query in reach, each kernel against its
-    plain version (outputs in NaN-filled blocks; phases 1 and 2 v3 as
-    ``check_pbf_kernels`` holds them, phase 2 v2 with its per-row partial
-    sums), and every kernel's time on the card
+    that); phases 1 and 2 of the PBF tick (v3), 1 and 2 v2 and 1 and 2 v1 at
+    phase B's first tick (``first_tick_inputs``, lambda and nc from the plain
+    versions); and phases 1 and 2 v2 and v1 again at the rigid rollout's
+    first-iteration inputs, where they run (``rigid_inputs_by_train``: ``train``
+    A -> B -> C as the main run calls it, then the rollout's first grid).
+    Prints the grids' live rows, slots and lists (``row_stats`` for phase B's
+    and the rigid grid), the splat adjoint's source rows with a query in
+    reach, each kernel against its plain version (outputs in NaN-filled
+    blocks; phases 1 and 2 v3 as ``check_pbf_kernels`` holds them, phase 2 v2
+    and v1 with their per-row partial sums; at the rigid inputs as
+    ``check_rigid_kernels`` holds them), and every kernel's time on the card
     beside its bound and its launch floors: the same launch with every count
     0 and, for the splat forward, with every source count 0 and the queries
     live, for the splat adjoint with every query count 0 and the sources
     live. With the root of another checkout as PARENT (a ``git archive`` of
     the parent commit), that checkout's ``csrc/pbf.cu`` and ``csrc/splat.cu``
     are built as well, its kernels are timed alone (phase B's before any
-    kernel of this checkout runs) and held against this one's bit for bit
-    (phase 2's and phase 2 v2's per-row partial sums too), and both are timed in turns
-    (parent, this, this, parent), floors included."""
+    kernel of this checkout runs) and held against this one's bit for bit at
+    each input (phase 2's per-row partial sums too), and both are timed in
+    turns (parent, this, this, parent), floors included."""
     from fluidnexus_torch.ops import cuda_build
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
-    from tests.torch_helpers import phase2_part
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
@@ -3633,38 +3731,37 @@ def pairs_time(parent=None):
         for lib, proc in procs.items():
             _wait_parent_build(proc, lib)
 
-        def call(module, name, args):
-            return getattr(module, plans[name][0].__name__)(*args)
+        plans, runs = {}, {}  # (name, where): (wrapper, plain, args, bytes, ops); (name, where, what): args
 
-        def time_alone(modules, who, names):
-            for (name, what), args in runs.items():
-                if name in names:
-                    ms, rec = kernel_device_ms(lambda: call(modules[PAIRS_LIBS[name]], name, args),
-                                               pair_kernel(name))
+        def call(module, name, where, args):
+            return getattr(module, plans[(name, where)][0].__name__)(*args)
+
+        def add(where, new_plans):
+            for name, plan in new_plans.items():
+                plans[(name, where)] = plan
+                runs[(name, where, "the kernel")] = plan[2]
+                for label, args in launch_floors(name, plan[2]).items():
+                    runs[(name, where, f"launch floor, {label}")] = args
+
+        def time_alone(modules, who, where):
+            for (name, w, what), args in runs.items():
+                if w == where:
+                    ms, rec = kernel_device_ms(
+                        lambda: call(modules[PAIRS_LIBS[name]], name, w, args), pair_kernel(name))
                     bound = ""
                     if what == "the kernel":
-                        b_ms, b_by = bound_ms(*plans[name][3:])
+                        b_ms, b_by = bound_ms(*plans[(name, w)][3:])
                         bound = f", bound {b_ms:.5f} ms by {b_by}"
-                    print(f"{who}: row {PAIRS_ROWS[name]} {name} {what} {ms:.4f} ms on the card "
-                          f"({rec}){bound}")
-
-        plans, runs = {}, {}  # name: (wrapper, plain, args, bytes, ops); (name, what): arguments
-
-        def add_runs(names):
-            for name in names:
-                runs[(name, "the kernel")] = plans[name][2]
-                for label, args in launch_floors(name, plans[name][2]).items():
-                    runs[(name, f"launch floor, {label}")] = args
+                    print(f"{who}: row {PAIRS_ROWS[name]} {name} at {w}, {what} {ms:.4f} ms on the "
+                          f"card ({rec}){bound}")
 
         # phase B's first tick: no kernel of this checkout runs to make it
         cfg_b, params_b = phase_b_config()
         inp_b = first_tick_inputs(cfg_b, params_b, dev)
         saved_b = pbf_plain_saved(inp_b)
-        plans.update(pbf_plans(inp_b, saved_b))
-        pbf_rows = ("pbf_phase1", "pbf_phase2", "pbf_phase1_v2", "pbf_phase2_v2")
-        add_runs(pbf_rows)
+        add(PHASE_B, {**pbf_plans(inp_b, saved_b), **v2_v1_plans(inp_b, saved_b)})
         if pmods:
-            time_alone(pmods, "parent alone", pbf_rows)
+            time_alone(pmods, "parent alone", PHASE_B)
 
         cfg = phase_c_config()
         scene = smoke_scene()
@@ -3695,81 +3792,102 @@ def pairs_time(parent=None):
               f"{int(s[1].sum())} sources, {int(s[6].sum())} live queries; {rows} source rows "
               f"holding {sources} sources have a query in reach, their query lists "
               f"{float(qlists.mean()):.1f} entries on average, at most {int(qlists.max())}")
-        plans.update(phase_c_plans(inp))
-        c_rows = ("density_fwd", "density_bwd", "splat_fwd", "splat_bwd")
-        add_runs(c_rows)
+        add(PHASE_C, phase_c_plans(inp))
         if pmods:
-            time_alone(pmods, "parent alone", c_rows)
+            time_alone(pmods, "parent alone", PHASE_C)
+
+        inp_r, saved_r = rigid_inputs_by_train(cfg, scene, bg, dev, tmp)
+        add(RIGID, v2_v1_plans(inp_r, saved_r))
+        if pmods:
+            time_alone(pmods, "parent alone", RIGID)
 
         failures = []
-        for name in c_rows:
-            failures += held_in_nan_blocks(name, plans[name][2], f"row {PAIRS_ROWS[name]}")[1]
-        failures += held_in_nan_blocks("pbf_phase1_v2", plans["pbf_phase1_v2"][2], "row 6")[1]
-        failures += held_phase2_v2(plans["pbf_phase2_v2"][2], inp_b["live"], "row 7")[1]
+        for name in PHASE_C_KERNELS:
+            failures += held_in_nan_blocks(name, plans[(name, PHASE_C)][2],
+                                           f"row {PAIRS_ROWS[name]}")[1]
+        for name in ("pbf_phase1_v2", "pbf_phase1_v1"):
+            failures += held_in_nan_blocks(name, plans[(name, PHASE_B)][2],
+                                           f"row {PAIRS_ROWS[name]} at {PHASE_B}")[1]
+        for name in ("pbf_phase2_v2", "pbf_phase2_v1"):
+            failures += held_phase2_raw(name, plans[(name, PHASE_B)][2], inp_b["live"],
+                                        f"row {PAIRS_ROWS[name]} at {PHASE_B}")[1]
         if failures:
             _fail(f"the pair kernels disagree with their plain versions: {failures}")
         check_pbf_kernels(inp_b)  # rows 12 and 13, into NaN-filled blocks
-        time_alone(this, "this checkout", PAIRS_ROWS)
+        for where in (PHASE_B, PHASE_C, RIGID):
+            time_alone(this, "this checkout", where)
         if not pmods:
             return
-        for name in PAIRS_ROWS:
-            mine, theirs = (call(m[PAIRS_LIBS[name]], name, plans[name][2]) for m in (this, pmods))
-            mine, theirs = ((o,) if torch.is_tensor(o) else o for o in (mine, theirs))
-            if name in ("pbf_phase2", "pbf_phase2_v2"):
-                mine, theirs = (o + phase2_part(m, name, plans[name][2])[-1:]
-                                for o, m in ((mine, pc), (theirs, pmods["pbf"])))
+        for (name, where), plan in plans.items():
+            lib = PAIRS_LIBS[name]
+            mine, theirs = (with_part(m, name, plan[2], call(m, name, where, plan[2]))
+                            for m in (pc if lib == "pbf" else sc,
+                                      pmods[lib]))
             diff = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
             same = [bits_equal(a, b) for a, b in zip(mine, theirs)]
-            print(f"row {PAIRS_ROWS[name]} {name} this against the parent: max|diff| {diff:.3e}, "
-                  f"bit-identical {all(same)} (per output {same})")
-        for (name, what), args in runs.items():
+            print(f"row {PAIRS_ROWS[name]} {name} at {where} this against the parent: max|diff| "
+                  f"{diff:.3e}, bit-identical {all(same)} (per output {same})")
+        for (name, where, what), args in runs.items():
             lib = PAIRS_LIBS[name]
-            in_turns(f"row {PAIRS_ROWS[name]} {name} {what}", pair_kernel(name),
-                     lambda m, n=name, a=args: call(m, n, a), pmods[lib], this[lib])
+            in_turns(f"row {PAIRS_ROWS[name]} {name} at {where}, {what}", pair_kernel(name),
+                     lambda m, n=name, w=where, a=args: call(m, n, w, a), pmods[lib], this[lib])
 
 
 def pbf_variants(parent, *variants):
-    """``python3 chip_smoke.py pbf-variants PARENT VARIANT...``: phase B's PBF
-    kernels (rows 12, 13, 6 and 7 of PERF.md's kernel table) of source
-    variants against another checkout, PARENT, at the first tick's inputs.
-    Each root holds ``fluidnexus_torch/csrc`` and ``sim/pbf_cuda.py`` (a
-    copy of the checkout with its sources edited). For each variant: whether
-    every output, phase 2's per-row partial sums too, is bit-identical to
-    the parent's, then rows 12 and 7 and their launch floors timed in turns
-    (parent, variant, variant, parent)."""
-    from tests.torch_helpers import phase2_part
+    """``python3 chip_smoke.py pbf-variants PARENT VARIANT...``: the PBF pair
+    kernels of source variants against another checkout, PARENT, at phase
+    B's first tick (rows 12, 13, 6, 7, 4 and 5 of PERF.md's kernel table) and
+    at the rigid rollout's first-iteration inputs (rows 6, 7, 4 and 5; made
+    by ``rigid_inputs_by_train``, which builds this checkout's rasterizer,
+    pbf and splat). Each root holds ``fluidnexus_torch/csrc`` and
+    ``sim/pbf_cuda.py`` (a copy of the checkout with its sources edited). For
+    each variant: whether every output, phase 2's per-row partial sums too,
+    is bit-identical to the parent's at both inputs, then rows 6 and 5 and
+    their launch floors timed in turns (parent, variant, variant, parent) at
+    both inputs."""
+    from fluidnexus_torch.ops import cuda_build
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="fnx_variants_") as tmp:
         mods, procs = {}, {}
         for i, root in enumerate((parent,) + variants):
             os.makedirs(os.path.join(tmp, str(i)))
             mods[root], procs[root] = _parent_module(root, os.path.join(tmp, str(i)), "pbf",
                                                      "fluidnexus_torch/sim/pbf_cuda.py")
+        cuda_build.build(["rasterizer", "pbf", "splat"])
         for root, proc in procs.items():
             print(f"{root}:", end=" ")
             _wait_parent_build(proc, "pbf")
         cfg, params = phase_b_config()
-        inp = first_tick_inputs(cfg, params, torch.device("cuda"))
-        plans = pbf_plans(inp, pbf_plain_saved(inp))
+        inp = first_tick_inputs(cfg, params, dev)
+        saved = pbf_plain_saved(inp)
+        plans = {PHASE_B: {**pbf_plans(inp, saved), **v2_v1_plans(inp, saved)}}
+        cfg_c = phase_c_config()
+        scene = smoke_scene()
+        bg = synthetic_background(32768, dev)
+        render_ground_truth(cfg_c, scene, bg, dev)
+        plans[RIGID] = v2_v1_plans(*rigid_inputs_by_train(cfg_c, scene, bg, dev, tmp))
         pm = mods[parent]
         for root in variants:
             vm = mods[root]
-            for name, (fn, _, args, _, _) in plans.items():
-                outs = [getattr(m, fn.__name__)(*args) for m in (vm, pm)]
-                if name in ("pbf_phase2", "pbf_phase2_v2"):
-                    outs = [o + phase2_part(m, name, args)[-1:] for o, m in zip(outs, (vm, pm))]
-                same = [bits_equal(a, b) for a, b in zip(*outs)]
-                print(f"{root}: row {PAIRS_ROWS[name]} {name} against {parent}: bit-identical "
-                      f"{all(same)} (per output {same})")
-            for name in ("pbf_phase1", "pbf_phase2_v2"):
-                args = plans[name][2]
-                for label, a in [("the kernel", args)] + list(launch_floors(name, args).items()):
-                    in_turns(f"{root}: row {PAIRS_ROWS[name]} {name} {label}", pair_kernel(name),
-                             lambda m, n=name, a=a: getattr(m, plans[n][0].__name__)(*a), pm, vm)
+            for where, at in plans.items():
+                for name, (fn, _, args, _, _) in at.items():
+                    outs = [with_part(m, name, args, getattr(m, fn.__name__)(*args))
+                            for m in (vm, pm)]
+                    same = [bits_equal(a, b) for a, b in zip(*outs)]
+                    print(f"{root}: row {PAIRS_ROWS[name]} {name} at {where} against {parent}: "
+                          f"bit-identical {all(same)} (per output {same})")
+            for where, at in plans.items():
+                for name in ("pbf_phase1_v2", "pbf_phase2_v1"):
+                    fn, _, args, _, _ = at[name]
+                    for label, a in [("the kernel", args)] + list(launch_floors(name, args).items()):
+                        in_turns(f"{root}: row {PAIRS_ROWS[name]} {name} at {where}, {label}",
+                                 pair_kernel(name),
+                                 lambda m, f=fn.__name__, a=a: getattr(m, f)(*a), pm, vm)
 
 
 def pairs_checks(dev):
@@ -3789,17 +3907,18 @@ def pairs_checks(dev):
     coordinates bit for bit (its update is exactly 0), and phase 2 v2 there
     (its dsum and each row's partial sums, the isolated point's dsum exactly
     0); phase 1 v3 at M = 32 and M = 128 over such a grid, nl exact, the
-    isolated point's pi_raw and nl bit for bit (its self pair alone), and
-    against phase 1 v2's walk over 20 coincident pairs at the default
-    epsilon (``tests/torch_helpers.phase1_against_the_walk``: only sums that
-    take the self pair by index, in the walk's order, round alike). What a
-    pairs mutant has to get past."""
+    isolated point's pi_raw and nl bit for bit (its self pair alone); phases
+    1 v3 and v2 against phase 1 v1's walk over 20 coincident pairs and over
+    graded rows at the default epsilon
+    (``tests/torch_helpers.phase1_against_the_walk``: only sums that take the
+    self pair by index, in the walk's order, round alike); and
+    ``rows_6_and_5_checks``. What a pairs mutant has to get past."""
     from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
     from tests.torch_helpers import (
-        coincident_pairs_grid, isolated_point_grid, phase1_against_the_walk, splat_edge_grids,
-        splat_fwd_edge_grids,
+        coincident_pairs_grid, graded_rows_grid, isolated_point_grid, phase1_against_the_walk,
+        splat_edge_grids, splat_fwd_edge_grids,
     )
 
     failures = []
@@ -3879,7 +3998,7 @@ def pairs_checks(dev):
             failures.append(f"phase 2 M {m} e_p {e_p}: the isolated point or the grid")
         what = f"pairs check, phase 2 v2 M {m} e_p {e_p}"
         failures += [f"phase 2 v2 M {m} e_p {e_p}: {f}" for f in
-                     held_phase2_v2(args[:6] + (k2,), grid.bmask, what)[1]]
+                     held_phase2_raw("pbf_phase2_v2", args[:6] + (k2,), grid.bmask, what)[1]]
         dsum = pc.phase2_v2_slots(*args[:6], k2)[0]
         alone = not bool(dsum[row, col].any())
         print(f"{what}: the isolated point's dsum 0: {alone}")
@@ -3909,20 +4028,78 @@ def pairs_checks(dev):
         if not (alone and same and longest > P1_CHUNK):
             failures.append(f"phase 1 M {m}: the isolated point or the grid")
     for m in (32, 128):
-        grid, rng = coincident_pairs_grid(m, dev, seed=m + 7)
-        live = grid.bmask
-        im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
-                             device=dev)
-        same_pi, same_nl, rel = phase1_against_the_walk(
-            grid, torch.where(live, im, 1.0).contiguous(), k)
-        ok = same_pi and same_nl and rel <= 1e-6
-        print(f"pairs check, phase 1 against phase 1 v2's walk, M {m}, 20 coincident pairs: "
-              f"pi_raw bit for bit {same_pi}, nl exact {same_nl}, lambda max rel diff {rel:.3e} "
-              f"[tol 1e-6]" + ("" if ok else " FAILED"))
-        if not ok:
-            failures.append(f"phase 1 M {m}: the walk's sums")
+        for kind, (grid, rng) in (("20 coincident pairs", coincident_pairs_grid(m, dev, seed=m + 7)),
+                                  ("graded rows", graded_rows_grid(m, dev, seed=m + 13))):
+            live = grid.bmask
+            im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
+                                 device=dev)
+            same_pi, same_nl, rel, raw_same = phase1_against_the_walk(
+                grid, torch.where(live, im, 1.0).contiguous(), k)
+            ok = same_pi and same_nl and rel <= 1e-6 and all(raw_same)
+            print(f"pairs check, phases 1 v3 and v2 against phase 1 v1's walk, M {m}, {kind}: "
+                  f"v3 pi_raw bit for bit {same_pi}, nl exact {same_nl}, lambda max rel diff "
+                  f"{rel:.3e} [tol 1e-6]; v2 pi_raw, sg, c2d2, nlen bit for bit {raw_same}"
+                  + ("" if ok else " FAILED"))
+            if not ok:
+                failures.append(f"phase 1 M {m}, {kind}: the walk's sums")
+    failures += rows_6_and_5_checks(dev)
     if failures:
         _fail(f"the pair kernels disagree with their plain versions: {failures}")
+
+
+def rows_6_and_5_checks(dev):
+    """Phase 1 v2 (row 6) and phase 2 v1 (row 5) at M = 32 and 128 over
+    ``tests/torch_helpers.graded_rows_grid``, whose rows hold 1-8, 9-16,
+    17-24 and more live slots (every count of centre slots a lane and of
+    passes), d2 = 0 pairs in one row and a lone point: row 6 into NaN-filled
+    blocks against its plain version at epsilon 1e-2, its lone point's
+    pi_raw and nlen bit for bit; row 5 at e_p 4 and 2.5 with its dsum and
+    per-row partial sums in NaN-filled blocks against its plain version, its
+    gathered rows followed by guard rows that hold live neighbours
+    (``guarded_gather``: row C must read none), its lone point's dsum 0, and
+    dsum and partials bit for bit those of phase 2 v2 on the same rows.
+    Returns the failures."""
+    from fluidnexus_torch.sim import pbf as tpbf
+    from fluidnexus_torch.sim import pbf_cuda as pc
+    from tests.torch_helpers import GRADED_BANDS, graded_rows_grid, guarded_gather, phase2_part
+
+    failures = []
+    for m in (32, 128):
+        grid, _ = graded_rows_grid(m, dev, seed=m + 11)
+        cnt, *xyz = pc.planes(grid)
+        live, occ = grid.bmask, cnt[cnt > 0]
+        bands = [int(((occ >= lo) & (occ <= hi)).sum()) for lo, hi in GRADED_BANDS if hi <= m]
+        longest = int(cnt[grid.nbr.long()].sum(1).max())
+        print(f"graded rows, M {m}: live rows in the bands {GRADED_BANDS[:len(bands)]}: {bands}; "
+              f"the longest list {longest} entries")
+        if min(bands) == 0 or longest <= P1_CHUNK:
+            failures.append(f"graded rows M {m}: the grid")
+        row, col = int(grid.prow[-1]), int(grid.pcol[-1])
+        k1 = pc.pair_consts(tpbf.PBFParams(h=1.0, epsilon=1e-2))
+        args = (grid.nbr, cnt, *xyz, k1)
+        what = f"pairs check, row 6, graded rows M {m}"
+        failures += [f"row 6 M {m}: {f}" for f in held_in_nan_blocks("pbf_phase1_v2", args, what)[1]]
+        got, want = pc.phase1_v2_slots(*args), pc.phase1_v2_plain(*args)
+        alone = all(bits_equal(got[i][row, col], want[i][row, col]) for i in (0, 3))
+        print(f"{what}: the lone point's pi_raw and nlen bit for bit {alone}")
+        if not alone:
+            failures.append(f"row 6 M {m}: the lone point")
+        for e_p in (4.0, 2.5):
+            k2 = pc.pair_consts(tpbf.PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
+            lam = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k2)[0].contiguous()
+            args1 = (*guarded_gather(grid.nbr, cnt, *xyz, lam), cnt, *xyz, lam, k2)
+            args2 = (grid.nbr, cnt, *xyz, lam, k2)
+            what = f"pairs check, row 5, graded rows M {m} e_p {e_p}"
+            failures += [f"row 5 M {m} e_p {e_p}: {f}" for f in
+                         held_phase2_raw("pbf_phase2_v1", args1, live, what)[1]]
+            v1, v2 = phase2_part(pc, "pbf_phase2_v1", args1), phase2_part(pc, "pbf_phase2_v2", args2)
+            alone = not bool(v1[0][row, col].any())
+            same = [bits_equal(a, b) for a, b in zip(v1, v2)]
+            print(f"{what}: the lone point's dsum 0: {alone}; dsum and partials bit for bit row "
+                  f"7's: {same}")
+            if not (alone and all(same)):
+                failures.append(f"row 5 M {m} e_p {e_p}: the lone point or row 7")
+    return failures
 
 
 def encode_probe():

@@ -34,9 +34,10 @@ inline int threads_for(int M) { return (M + 31) / 32 * 32; }
 // live slots of its 27 neighbour rows, in neighbour order and then slot
 // order, form one list of n_tot entries: slot s of neighbour j is entry
 // pre_j + s, pre_j the live slots of the neighbours before j. load_nbr_table
-// reads the 27 rows' ids and then their counts, each with every load of the
-// group in flight at once (two round trips in all, not two for each
-// neighbour), and keeps ids, counts and list offsets in shared memory.
+// reads the 27 neighbours' handles and then their counts from a source (Src,
+// below), each with every load of the group in flight at once (two round
+// trips in all, not two for each neighbour; one where the handles need no
+// load), and keeps handles, counts and list offsets in shared memory.
 // stage_chunk copies the entries [c0, c0 + CH) into shared memory as float4
 // (x + shift, y + shift, z + shift, w), w a fourth per-slot plane or 0
 // (Extra), and where asked a second float4 list (v0, v1, v2, 0) of a
@@ -59,30 +60,88 @@ constexpr int GROUP_ROWS = GROUP_WARPS * 32 / GROUP_LANES;  // rows a block
 static_assert(GROUP_LANES * GROUP_CPL == 32, "a pass covers 32 centre slots");
 
 struct NbrTable {
-  int nb[27];   // neighbour rows, C where there is none
+  int nb[27];   // the neighbours' handles (Src)
   int n[27];    // their live slots, 0 where there is none
   int pre[27];  // their first entry in the list
+};
+
+// What stage_chunk stages beside the shifted coordinates: nothing (w = 0; no
+// load spent on a plane the pair loop ignores), the fourth plane w, w and a
+// second list of the per-slot 3-vector v3 ((C+1, M, 3), interleaved), or the
+// second list alone (w = 0).
+enum Extra { NO_W, W_PLANE, W_VEC3, VEC3 };
+__host__ __device__ constexpr bool loads_w(Extra X) { return X == W_PLANE || X == W_VEC3; }
+__host__ __device__ constexpr bool loads_vec3(Extra X) { return X == W_VEC3 || X == VEC3; }
+
+// The sources a group's list is staged from. Each names neighbour j of a row
+// by a handle, gives the live count behind it and loads its slot s.
+// PlaneSource, the default, is every kernel's but phase 2 v1's: the handle is
+// the neighbour's row, read from nbr (C where there is none), and slot s lies
+// at h * M + s of the (C+1, M) planes x, y, z (w, v3 where the Extra loads
+// them), whose counts are cnt.
+struct PlaneSource {
+  static constexpr bool GATHERED = false;
+  const int* nbr;
+  const int* cnt;
+  const float *x, *y, *z, *w, *v3;
+  int C, M;
+
+  __device__ __forceinline__ int handle(int row, int j, bool active) const {
+    return active ? nbr[(size_t)row * 27 + j] : C;
+  }
+  __device__ __forceinline__ int count(int h) const { return h < C ? cnt[h] : 0; }
+  __device__ __forceinline__ bool is_self(int h, int row) const { return h == row; }
+  template <Extra X>
+  __device__ __forceinline__ void load(int h, int s, float4& v, float4& u) const {
+    const size_t at = (size_t)h * M + s;
+    v = make_float4(x[at], y[at], z[at], loads_w(X) ? w[at] : 0.0f);
+    if constexpr (loads_vec3(X)) u = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
+  }
+};
+
+// GatheredSource, phase 2 v1's: the neighbour rows copied for each row before
+// the launch (sim/pbf_cuda.gather_v1, as the JAX package's v1 tick gathers
+// them): coordinates xng (C, 27, 3, M), a fourth plane lng (C, 27, M) and
+// counts ncnt (C, 27). The handle of neighbour j of row r is r * 27 + j, which
+// needs no load, so the table takes one trip; rows C and past have none (-1).
+// Neighbour 13 of a row is the row itself, whatever its copy holds.
+struct GatheredSource {
+  static constexpr bool GATHERED = true;
+  const int* ncnt;
+  const float *xng, *lng;
+  int M;
+
+  __device__ __forceinline__ int handle(int row, int j, bool active) const {
+    return active ? row * 27 + j : -1;
+  }
+  __device__ __forceinline__ int count(int h) const { return h >= 0 ? ncnt[h] : 0; }
+  __device__ __forceinline__ bool is_self(int h, int) const { return h >= 0; }
+  template <Extra X>
+  __device__ __forceinline__ void load(int h, int s, float4& v, float4&) const {
+    static_assert(!loads_vec3(X), "the gathered rows carry no 3-vector");
+    const float* p = xng + (size_t)h * 3 * M + s;
+    v = make_float4(p[0], p[M], p[2 * M], loads_w(X) ? lng[(size_t)h * M + s] : 0.0f);
+  }
 };
 
 // Fills tab for centre row `row` (nothing where !active) and returns n_tot
 // to every lane of the group; sub is the lane's place in its group, and lane
 // sub reads the neighbours sub * PER .. sub * PER + PER - 1, so a scan across
 // the group gives each its list offset. Every lane of the warp calls it.
-template <int L>
-__device__ __forceinline__ int load_nbr_table(NbrTable& tab, const int* __restrict__ nbr,
-                                              const int* __restrict__ cnt, int row, int C, int sub,
+template <int L, class Src>
+__device__ __forceinline__ int load_nbr_table(NbrTable& tab, const Src& src, int row, int sub,
                                               bool active) {
   constexpr int PER = (27 + L - 1) / L;
   int nb[PER], n[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     const int j = sub * PER + q;
-    nb[q] = active && j < 27 ? nbr[(size_t)row * 27 + j] : C;
+    nb[q] = src.handle(row, j, active && j < 27);
   }
   int mine = 0;
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
-    n[q] = nb[q] < C ? cnt[nb[q]] : 0;
+    n[q] = src.count(nb[q]);
     mine += n[q];
   }
   int incl = mine;  // inclusive scan over the group's lanes
@@ -106,27 +165,16 @@ __device__ __forceinline__ int load_nbr_table(NbrTable& tab, const int* __restri
   return __shfl_sync(0xffffffffu, incl, L - 1, L);
 }
 
-// What stage_chunk stages beside the shifted coordinates: nothing (w = 0; no
-// load spent on a plane the pair loop ignores), the fourth plane w, w and a
-// second list of the per-slot 3-vector v3 ((C+1, M, 3), interleaved), or the
-// second list alone (w = 0).
-enum Extra { NO_W, W_PLANE, W_VEC3, VEC3 };
-__host__ __device__ constexpr bool loads_w(Extra X) { return X == W_PLANE || X == W_VEC3; }
-__host__ __device__ constexpr bool loads_vec3(Extra X) { return X == W_VEC3 || X == VEC3; }
-
 // Entries [c0, min(c0 + CH, n_tot)) of the group's list into dst (and dst2
 // for W_VEC3 and VEC3), then far entries up to dst[fill - 1] (fill <= CH).
 // Lane sub takes the entries c0 + sub + L m: for each it finds the neighbour
 // j (the last whose pre_j <= e, a five-step search of the table), loads its
 // slot's planes with every load of ROUND entries in flight, adds the shift
 // and stores the float4s. Every lane of the warp calls it.
-template <int L, int CH, int ROUND, Extra X = W_PLANE>
+template <int L, int CH, int ROUND, Extra X = W_PLANE, class Src>
 __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, int c0, int n_tot,
-                                            int fill, const float* __restrict__ x,
-                                            const float* __restrict__ y, const float* __restrict__ z,
-                                            const float* __restrict__ w, int M, float h, int sub,
-                                            float4* dst2 = nullptr,
-                                            const float* __restrict__ v3 = nullptr) {
+                                            int fill, const Src& src, float h, int sub,
+                                            float4* dst2 = nullptr) {
   const int c1 = min(c0 + CH, n_tot);
   for (int e0 = c0 + sub; e0 < c0 + fill; e0 += L * ROUND) {
     float4 v[ROUND], u[ROUND];
@@ -140,9 +188,7 @@ __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, in
 #pragma unroll
         for (int step = 16; step > 0; step >>= 1)
           if (j + step < 27 && tab.pre[j + step] <= e) j += step;
-        const size_t at = (size_t)tab.nb[j] * M + (e - tab.pre[j]);
-        v[m] = make_float4(x[at], y[at], z[at], loads_w(X) ? w[at] : 0.0f);
-        if constexpr (loads_vec3(X)) u[m] = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
+        src.template load<X>(tab.nb[j], e - tab.pre[j], v[m], u[m]);
         jj[m] = j;
       }
     }

@@ -18,17 +18,21 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// The v3 passes, phase 2 v2, the gas loss's density and its adjoint give a
-// row to a group of lanes (8 or 16) over one staged neighbourhood list; phase
-// 1 v2 and the v1 kernels walk with one block per row, one thread per centre
-// slot. Dead slots and rows are masked by the counts, so no sentinel
+// Every kernel but phase 1 v1 gives a row to a group of lanes over one staged
+// neighbourhood list (the row groups, below); phase 2 v1 stages its list from
+// the gathered rows (pair_common.cuh's GatheredSource), the others from the
+// planes through nbr. Phase 1 v1 walks with one block per row, one thread per
+// centre slot (phase1_walk): the sums the row groups' phase 1 must keep bit
+// for bit. Dead slots and rows are masked by the counts, so no sentinel
 // coordinates are needed. The pair terms are fnx::pair_terms and
 // fnx::phase2_terms (pair_common.cuh), the same device functions in every
 // generation.
 
+
 #include <cuda_runtime.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "pair_common.cuh"
 
@@ -54,21 +58,6 @@ struct Row {
   int n;
   const float *x, *y, *z, *lam;
   bool self_row;  // the centre cell itself
-};
-
-// Phase 1 v2: through nbr into the (C+1, M) planes.
-struct TableRows {
-  const int* cnt;
-  const int* nbr;
-  const float *x, *y, *z;
-  int C, M;
-
-  __device__ __forceinline__ Row open(int cell, int j) const {
-    const int nb = nbr[cell * 27 + j];
-    if (nb >= C) return Row{0, nullptr, nullptr, nullptr, nullptr, false};
-    const size_t o = (size_t)nb * M;
-    return Row{cnt[nb], x + o, y + o, z + o, nullptr, nb == cell};
-  }
 };
 
 // v1: from the pre-gathered rows. Offset 13 of an occupied cell is the cell.
@@ -134,64 +123,8 @@ __device__ __forceinline__ Sums1 phase1_walk(const Rows& rows, int cell, int i, 
   }
   return a;
 }
-
-// Phase 2's sums for one centre slot with lambda lc: sum b, sum b x_s, and
-// over the non-self pairs in radius sum corr and their count.
-struct Sums2 {
-  float ba, cra, nsa, bx, by, bz;
-};
-
-template <class Rows>
-__device__ __forceinline__ Sums2 phase2_walk(const Rows& rows, int cell, int i, bool live, float xc,
-                                             float yc, float zc, float lc, const PairConsts& k,
-                                             float* sx, float* sy, float* sz, float* sl) {
-  Sums2 a{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int j = 0; j < 27; ++j) {
-    const Row r = stage(rows, cell, j, i, k.h, sx, sy, sz, sl);
-    if (r.n == 0 || !live) continue;
-    for (int s = 0; s < r.n; ++s) {
-      const bool self = r.self_row && s == i;
-      const Pair p = pair_terms(xc, yc, zc, sx[s], sy[s], sz[s], self, k);
-      const Pair2 q = phase2_terms(p, self, lc, sl[s], k);
-      a.ba += q.b;
-      a.cra += q.corr * q.ns;
-      a.nsa += q.ns;
-      a.bx += q.b * sx[s];
-      a.by += q.b * sy[s];
-      a.bz += q.b * sz[s];
-    }
-  }
-  return a;
-}
-
-// The row's partial sums of corr and of the non-self in-radius count over
-// its live slots (dead threads hold 0), by warp shuffles and one pass over
-// the block's warps: part[row] = (s_corr, s_ns). The caller adds the rows
-// up, so the global sums need no float atomics and are the same every run.
-__device__ __forceinline__ void row_partials(float cra, float nsa, int i, int cell, float* part) {
-  __shared__ float red[2][MAX_M / 32];
-  for (int off = 16; off > 0; off >>= 1) {
-    cra += __shfl_down_sync(FULL_MASK, cra, off);
-    nsa += __shfl_down_sync(FULL_MASK, nsa, off);
-  }
-  if (i % 32 == 0) {
-    red[0][i / 32] = cra;
-    red[1][i / 32] = nsa;
-  }
-  __syncthreads();
-  if (i == 0) {
-    float a = 0.0f, b = 0.0f;
-    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
-      a += red[0][w];
-      b += red[1][w];
-    }
-    part[2 * cell] = a;
-    part[2 * cell + 1] = b;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Phase 1, v2 and v1: the raw sums, with lambda left to the caller
+// Phase 1, v1: the raw sums, with lambda left to the caller
 // (sim/pbf_dense._project_core, as fluidnexus_tpu/sim/pbf_dense.py:155-160
 // does). Per live slot: pi_raw = sum w, sg = (sum cg) x_i - sum cg x_s
 // (C+1, M, 3), c2d2 = sum cg^2 d2, nlen = the in-radius count (self
@@ -221,28 +154,14 @@ __device__ __forceinline__ void phase1_raw(const Rows& rows, const int* cnt, con
   nlen[at] = live ? a.nla : 0.0f;
 }
 
-// Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v2
-// (wrapper phase1_slots_v2), which reads its neighbour rows through nbr from
-// coordinate planes resident in VMEM; here through nbr from device memory.
-// Bound on the H100: 9 f32 operations per live candidate pair and 24 more per
-// pair in radius, against one read of three planes and one write of six:
-// bound by operations. Design: one block a row, each neighbour row staged in
-// shared memory in turn (stage), one thread a centre slot (phase1_walk).
-__global__ void __launch_bounds__(MAX_M) phase1_v2_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
-    float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
-    PairConsts k) {
-  phase1_raw(TableRows{cnt, nbr, x, y, z, C, M}, cnt, x, y, z, pi_raw, sg, c2d2, nlen, M,
-             k);
-}
-
 // Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel
 // (wrapper phase1_slots), which reads its neighbour rows from a (C, 81, M)
 // tensor gathered before the launch; here from the gathered (C, 27, 3, M)
 // rows and (C, 27) counts. Bound on the H100: the operations of v2 against
 // one read of the occupied rows' gathered blocks (27 x 3 x M floats each):
-// by bytes where those blocks outweigh the arithmetic. Same walk as phase 1 v2.
+// by bytes where those blocks outweigh the arithmetic. The one-block-a-row
+// walk: each neighbour row staged in shared memory in turn (stage), one
+// thread a centre slot (phase1_walk).
 __global__ void __launch_bounds__(MAX_M) phase1_v1_kernel(
     const int* __restrict__ cnt, const int* __restrict__ ncnt, const float* __restrict__ xng,
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
@@ -251,76 +170,28 @@ __global__ void __launch_bounds__(MAX_M) phase1_v1_kernel(
   phase1_raw(GatheredRows{ncnt, xng, nullptr, M}, cnt, x, y, z, pi_raw, sg, c2d2, nlen, M, k);
 }
 
-// ---------------------------------------------------------------------------
-// Phase 2, v1: the raw position-delta sums, with the 1/p0/max(nc, eps)
-// scaling left to the caller (fluidnexus_tpu/sim/pbf_dense.py:210). Per live
-// slot dsum = (sum b) x_i - sum b x_s (C+1, M, 3), 0 at dead slots and empty
-// rows; each row's partial sums of corr and of the non-self in-radius count
-// (row_partials). Phase 2 v2 computes the same on row groups (below) and
-// must keep this walk's bits.
-// ---------------------------------------------------------------------------
-template <class Rows>
-__device__ __forceinline__ void phase2_raw(const Rows& rows, const int* cnt, const float* x,
-                                           const float* y, const float* z, const float* lam,
-                                           float* dsum, float* part, int M,
-                                           const PairConsts& k) {
-  __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M], sl[MAX_M];
-  const int cell = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
-  if (n_c == 0) {
-    if (i < M) dsum[3 * at] = dsum[3 * at + 1] = dsum[3 * at + 2] = 0.0f;
-    if (i == 0) part[2 * cell] = part[2 * cell + 1] = 0.0f;
-    return;
-  }
-  const bool live = i < n_c;
-  const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
-  const float lc = live ? lam[at] : 0.0f;
-  const Sums2 a = phase2_walk(rows, cell, i, live, xc, yc, zc, lc, k, sx, sy, sz, sl);
-  if (i < M) {
-    dsum[3 * at] = live ? a.ba * xc - a.bx : 0.0f;
-    dsum[3 * at + 1] = live ? a.ba * yc - a.by : 0.0f;
-    dsum[3 * at + 2] = live ? a.ba * zc - a.bz : 0.0f;
-  }
-  row_partials(a.cra, a.nsa, i, cell, part);
-}
-
-// Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel
-// (wrapper phase2_slots), which reads the neighbour lambdas from a (C, 27, M)
-// tensor gathered before the launch, as this kernel does (lng). Bound on the
-// H100: the operations of v2 against one read of the occupied rows' gathered
-// coordinate and lambda blocks. One block a row (phase2_walk), lambda staged
-// beside the shifted coordinates.
-__global__ void __launch_bounds__(MAX_M) phase2_v1_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ ncnt, const float* __restrict__ xng,
-    const float* __restrict__ lng, const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ lam, float* __restrict__ dsum,
-    float* __restrict__ part, int M, PairConsts k) {
-  phase2_raw(GatheredRows{ncnt, xng, lng, M}, cnt, x, y, z, lam, dsum, part, M, k);
-}
 
 // ---------------------------------------------------------------------------
-// The gas loss's density and its adjoint, phases 1 and 2 v3 and phase 2 v2:
-// pair walks over a grid's 27 neighbours, at ~7-8 live slots a row on their
-// main paths. A walk
-// of one block per row that waits on each neighbour's id, count and slots in
-// turn is bound by those ~80 dependent trips to memory, not by its
-// operations, and a lane per centre slot leaves most of a warp idle. These
-// kernels take one design instead: a group of lanes owns a row (in the
-// density and its adjoint GROUP_LANES = 16, two rows a warp; in the PBF
-// passes 8, four rows a warp), so a row's few live slots fill its group; the group
-// reads the 27 ids and counts in two trips (load_nbr_table) and stages the
-// row's whole neighbourhood as one list of shifted coordinates, many entries
-// a lane with their loads in flight (stage_chunk, in chunks, which also
-// bounds it at M = MAX_M); then the pair loop runs over the list with no
-// barrier and no branch: a pair out of radius, or with a far entry past the
-// list, adds nothing, which leaves the sums' bits as they are, so the
-// compiler can overlap the iterations. A lane holds one centre slot, or two
-// where a row of the warp has more live slots than its group has lanes; a
-// pass covers twice the group, and a row of more takes more passes. Each
-// slot's sum runs in neighbour order, then slot order, with the arithmetic
-// of a walk over the rows, so it adds the same terms in the same order.
+// The gas loss's density and its adjoint, and every PBF pass but phase 1 v1:
+// pair walks over a grid's 27 neighbours, at ~7-9 live slots a row on their
+// main paths. A walk of one block per row that waits on each neighbour's id,
+// count and slots in turn is bound by those ~80 dependent trips to memory,
+// not by its operations, and a lane per centre slot leaves most of a warp
+// idle. These kernels take one design instead: a group of lanes owns a row
+// (in the density and its adjoint GROUP_LANES = 16, two rows a warp; in the
+// PBF passes 8 or 16, below), so a row's few live slots fill its group; the
+// group reads the 27 neighbours' handles and counts in at most two trips
+// (load_nbr_table) and stages the row's whole neighbourhood as one list of
+// shifted coordinates, many entries a lane with their loads in flight
+// (stage_chunk, in chunks, which also bounds it at M = MAX_M); then the pair
+// loop runs over the list with no barrier and no branch: a pair out of
+// radius, or with a far entry past the list, adds nothing, which leaves the
+// sums' bits as they are, so the compiler can overlap the iterations. A lane
+// holds one centre slot, or more where a row of the warp has more live slots
+// than its group has lanes; a row of more than a pass covers takes more
+// passes. Each slot's sum runs in neighbour order, then slot order, with the
+// arithmetic of a walk over the rows, so it adds the same terms in the same
+// order.
 // ---------------------------------------------------------------------------
 using fnx::GROUP_CPL;
 using fnx::GROUP_LANES;
@@ -387,8 +258,9 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_kernel(
   const int sub = threadIdx.x % GROUP_LANES;
   const int row = blockIdx.x * GROUP_ROWS + grp;
   float4* list = dens_lists + grp * DENS_CHUNK;
+  const fnx::PlaneSource src{nbr, cnt, x, y, z, nullptr, nullptr, C, M};
   const int n_c = row <= C ? cnt[row] : 0;
-  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], src, row, sub, row < C);
   if (row <= C)
     for (int i = n_c + sub; i < M; i += GROUP_LANES) pi[(size_t)row * M + i] = 0.0f;  // dead slots
   const int passes = __reduce_max_sync(FULL_MASK, (unsigned)(n_c + 31) / 32);
@@ -412,7 +284,7 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_kernel(
     for (int c0 = 0; c0 < list_max; c0 += DENS_CHUNK) {
       const int kn = min(DENS_CHUNK, list_max - c0);  // the warp's trip count
       fnx::stage_chunk<GROUP_LANES, DENS_CHUNK, DENS_FWD_ROUND, fnx::NO_W>(
-          list, tabs[grp], c0, left > 0 ? n_tot : 0, kn, x, y, z, nullptr, M, h, sub);
+          list, tabs[grp], c0, left > 0 ? n_tot : 0, kn, src, h, sub);
       if (cpl == 1)
         density_sweep<1>(list, kn, xc, yc, zc, wa, h2, c6);
       else
@@ -481,8 +353,9 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
   float4* list = dens_lists + grp * DENS_CHUNK;
   // the table does not wait on the row's own count: an empty row's list is
   // read and never used
+  const fnx::PlaneSource src{nbr, cnt, x, y, z, g, nullptr, C, M};
   const int n_c = row <= C ? cnt[row] : 0;
-  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], nbr, cnt, row, C, sub, row < C);
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], src, row, sub, row < C);
   if (row <= C) {
     for (int i = n_c + sub; i < M; i += GROUP_LANES) {  // dead slots
       const size_t at = (size_t)row * M + i;
@@ -515,7 +388,7 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
     for (int c0 = 0; c0 < list_max; c0 += DENS_CHUNK) {
       const int kn = min(DENS_CHUNK, list_max - c0);  // the warp's trip count
       fnx::stage_chunk<GROUP_LANES, DENS_CHUNK, DENS_ROUND>(list, tabs[grp], c0, left > 0 ? n_tot : 0,
-                                                            kn, x, y, z, g, M, h, sub);
+                                                            kn, src, h, sub);
       if (cpl == 1)
         dbw_sweep<1>(list, kn, xc, yc, zc, gc, a0, a1, a2, h2, c3x2);
       else
@@ -534,84 +407,104 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The PBF passes on row groups: phases 1 and 2 of the grid-reuse tick (v3)
-// and phase 2 of the per-iteration rebuild (v2), the design above with
-// these points in common:
-// - A group of ROW_LANES = 8 lanes owns a row, four rows a warp: the hidden
-//   grid's live rows hold ~7 live slots (at most 8 on phase B's first tick,
-//   17 in phase C's), which fill 8 lanes but left 16 half idle, and 16-lane
-//   groups read 0.0316 ms against 0.0237 for phase 2 v3 on the H100. A lane
-//   holds up to two centre slots, so a pass covers 16 and a row of more
-//   takes passes.
+// The PBF passes on row groups: phases 1 and 2 of the grid-reuse tick (v3),
+// phases 1 and 2 of the per-iteration rebuild (v2) and phase 2 v1, the design
+// above with these points in common:
+// - A group of L lanes owns a row, 64 / L rows a block, and a lane holds up
+//   to CPL centre slots, so a pass covers L * CPL slots and a row of more
+//   takes passes. Each kernel name has its own (L, CPL), fixed at compile
+//   time: phases 1 and 2 v3 and phase 2 (v2, v1) take (8, 2) (ROW_LANES,
+//   ROW_CPL), for the hidden grid's rows of ~7 live slots (at most 8 on phase
+//   B's first tick; 16-lane groups read 0.0316 ms against 0.0237 for phase 2
+//   v3 on the H100), and phase 2's partial sums need that tree. Phase 1 v2
+//   runs on the rigid tick's rebuilt grid, whose rows hold 8.7 live slots on
+//   average and up to 20: it takes (P1V2_LANES, P1V2_CPL) (below).
+// - Within a pass, a warp's lanes hold one centre slot, or CPL where a row of
+//   the warp has more live slots than its group has lanes (pass_cpl).
 // - The pair loops call pair_terms (and phase2_terms) unchanged, and each sum
-//   adds what the one-block-a-row walk (phase1_walk, phase2_walk) added, in
-//   its order, so every slot keeps that walk's bits.
+//   adds what a one-block-a-row walk over the rows (phase1_walk, and phase
+//   2's walk, which these kernels replaced) added, in its order, so every
+//   slot keeps that walk's bits.
 // - The self pair is found by index, never by d2 = 0: the centre's own entry
-//   is neighbour 13's (the row itself, as TableRows::open's nb == cell says)
-//   at its slot, pre[13] + slot. Two live particles at the same coordinates
-//   in one row are a non-self pair with d2 = 0 and cg != 0.
+//   is neighbour 13's (the row itself: the planes' nbr names the row, and a
+//   gathered row's neighbour 13 is its own copy) at its slot, pre[13] + slot.
+//   Two live particles at the same coordinates in one row are a non-self
+//   pair with d2 = 0 and cg != 0.
 // - A dead centre slot's registers hold 0, a point inside the cell, so it
 //   pairs with real entries: nothing of its sums is written or summed.
 // - Empty rows and row C are written by 16-byte stores where the entry finds
 //   M % 4 == 0 and every plane aligned.
 // ---------------------------------------------------------------------------
-constexpr int ROW_LANES = 8;                            // lanes that own a row
-constexpr int ROW_CPL = 2;                              // centre slots a lane may hold
-constexpr int ROW_PASS = ROW_LANES * ROW_CPL;           // centre slots a pass covers: 16
-constexpr int ROW_ROWS = GROUP_WARPS * 32 / ROW_LANES;  // rows a block
+constexpr int ROW_LANES = 8;  // lanes that own a row (phases 1 and 2 v3, phase 2 v2 and v1)
+constexpr int ROW_CPL = 2;    // centre slots a lane may hold there: a pass covers 16
 
 // A group's row, its place in the group, the row's live slots and list
 // length, the warp's passes and longest list, and the list entry of slot 0's
-// self pair. Every lane of the warp calls it.
+// self pair. The row's live count comes from cnt, or, for the gathered rows,
+// from its own copy, neighbour 13 (so row C, which has no copies, reads
+// none). Every lane of the warp calls it.
 struct RowGroup {
   int sub, row, n_c, n_tot, passes, list_max, self0;
 };
 
-__device__ __forceinline__ RowGroup open_row(fnx::NbrTable& tab, const int* __restrict__ cnt,
-                                             const int* __restrict__ nbr, int C) {
+template <int L, int CPL, class Src>
+__device__ __forceinline__ RowGroup open_row(fnx::NbrTable& tab, const Src& src,
+                                             const int* __restrict__ cnt, int C) {
   RowGroup g;
-  g.sub = threadIdx.x % ROW_LANES;
-  g.row = blockIdx.x * ROW_ROWS + threadIdx.x / ROW_LANES;
-  g.n_c = g.row <= C ? cnt[g.row] : 0;
-  g.n_tot = fnx::load_nbr_table<ROW_LANES>(tab, nbr, cnt, g.row, C, g.sub, g.row < C);
-  g.passes = __reduce_max_sync(FULL_MASK, (unsigned)(g.n_c + ROW_PASS - 1) / ROW_PASS);
+  g.sub = threadIdx.x % L;
+  g.row = blockIdx.x * (GROUP_WARPS * 32 / L) + threadIdx.x / L;
+  if constexpr (!Src::GATHERED) g.n_c = g.row <= C ? cnt[g.row] : 0;
+  g.n_tot = fnx::load_nbr_table<L>(tab, src, g.row, g.sub, g.row < C);
+  if constexpr (Src::GATHERED) g.n_c = g.row <= C ? tab.n[fnx::SELF_J] : 0;
+  g.passes = __reduce_max_sync(FULL_MASK, (unsigned)(g.n_c + L * CPL - 1) / (L * CPL));
   g.list_max = __reduce_max_sync(FULL_MASK, g.n_c > 0 ? (unsigned)g.n_tot : 0u);
-  // neighbour 13 is the row itself
-  g.self0 = g.row < C && tab.nb[fnx::SELF_J] == g.row ? tab.pre[fnx::SELF_J] : -(1 << 30);
+  g.self0 = g.row < C && src.is_self(tab.nb[fnx::SELF_J], g.row) ? tab.pre[fnx::SELF_J]
+                                                                  : -(1 << 30);
   return g;
 }
 
 // Centre slots a lane of the warp holds in a pass, at most, where this
 // group's row has `left` live slots from the pass on.
+template <int L, int CPL>
 __device__ __forceinline__ int pass_cpl(int left) {
-  return __reduce_max_sync(FULL_MASK, left > ROW_LANES ? (unsigned)ROW_CPL : 1u);
+  return __reduce_max_sync(FULL_MASK, left > L ? (unsigned)CPL : 1u);
 }
 
 // Stores 0 over the floats [i0, i1) of the span at p, lane sub of a row's
-// group, by 16-byte stores where vec (then i0 = 0, and p and i1 are multiples
-// of 4 floats).
+// group of L, by 16-byte stores where vec (then i0 = 0, and p and i1 are
+// multiples of 4 floats).
+template <int L>
 __device__ __forceinline__ void zero_span(float* p, int i0, int i1, int sub, bool vec) {
   if (vec) {
-    for (int i = sub; i < i1 / 4; i += ROW_LANES)
+    for (int i = sub; i < i1 / 4; i += L)
       reinterpret_cast<float4*>(p)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   } else {
-    for (int i = i0 + sub; i < i1; i += ROW_LANES) p[i] = 0.0f;
+    for (int i = i0 + sub; i < i1; i += L) p[i] = 0.0f;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Phase 1, v3. Replaces the Pallas kernel
-// fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v3 (wrapper phase1_slots_v3).
-// Per live slot: the raw poly6 sum pi_raw (self included), the in-radius count
-// nl (self included), and lambda, computed here from the spiky sums:
+// Phase 1, v3 and v2. Replaces the Pallas kernels
+// fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v3 (wrapper
+// phase1_slots_v3) and :_phase1_kernel_v2 (wrapper phase1_slots_v2). Per
+// live slot the sums over its pairs: the raw poly6 sum pi_raw (self
+// included), the in-radius count nl (self included), sum cg, sum cg^2 d2 and
+// sum cg x_s. What a launch writes (P1Out):
+// - LAMBDA (v3): pi_raw, nl and lambda, computed here from the spiky sums:
 //   sg = (sum cg) x_i - sum cg x_s,  p_ratio = pi_raw / imass / p0,
 //   lambda = -(p_ratio - 1) / (sum cg^2 d2 / p0^2 + |sg|^2 / p0^2 + relax).
-// Dead slots, empty rows and row C write 0.
+// - RAW (v2): pi_raw, sg (C+1, M, 3) interleaved, c2d2 = sum cg^2 d2 and
+//   nlen = nl, with lambda left to the caller (sim/pbf_dense._project_core,
+//   as fluidnexus_tpu/sim/pbf_dense.py:155-160 does); it reads no imass.
+//   Each output is the expression phase1_raw writes for phase 1 v1 (nvcc
+//   contracts sg's a.cga * xc - a.bx alike in both), so v1 and v2 agree bit
+//   for bit.
+// Dead slots, empty rows and row C write 0, so the global sums are plain sums.
 //
 // Bound on the H100: ~30 f32 operations per live candidate pair against one
-// read of the coordinate planes and imass and one write of three planes:
-// bound by operations, and in practice by the latency of the walk. The row
-// groups above, with these points:
+// read of the coordinate planes (and imass) and one write of three planes
+// (six for RAW): bound by operations, and in practice by the latency of the
+// walk. The row groups above, with these points:
 // - The list carries three planes (stage_chunk's NO_W form, w = 0): phase 1
 //   reads nothing of a neighbour slot but its coordinates.
 // - A far entry past the group's list has d2 = inf and cg = 0, so the walk's
@@ -622,20 +515,45 @@ __device__ __forceinline__ void zero_span(float* p, int i0, int i1, int sub, boo
 //   pair_terms and nl on d2 <= h^2, and cg x_s is 0 * 1e30 = 0.
 // - d2 is formed by norm2_rn with no FMA, so nl agrees with the plain version
 //   pair for pair.
-// - The grid fits in one wave (phase B: 513 blocks, at most four an SM), so
-//   the loop is bound by its own latency, not by occupancy: it is unrolled 8
-//   (4 % faster than 4 on the H100, at the same 128 registers; 16 no
-//   faster). Staging a chunk in one round of 32 entries a lane took 211
-//   registers and gained nothing beside it, and 16 lanes a row read 15 %
-//   slower (twice the warps, twice the instructions).
+// - No sum runs across slots, so how the slots are dealt to lanes leaves
+//   every slot's bits as they are; only the time depends on it.
+// - v3 (phase B: 513 blocks, one wave at up to four an SM, rows of at most 8
+//   live slots) is bound by its loop's own latency, not by occupancy: the
+//   loop is unrolled 8 (4 % faster than 4 on the H100, at the same 128
+//   registers; 16 no faster); staging a chunk in one round of 32 entries a
+//   lane took 211 registers and gained nothing beside it, and 16 lanes a row
+//   read 15 % slower (twice the warps, twice the instructions).
+// - v2 runs on the rigid tick's rebuilt grid: 2 817 live rows of 8.7 live
+//   slots on average and 20 at most, 1 274 over 8, where 8 lanes a row give
+//   619 of 705 warps two centre slots a lane. Timed there against the
+//   parent's walk (0.057 ms) on the H100: 8 lanes x 2 slots 0.056 ms, 8 x 3
+//   0.050, 32 x 1 0.041, 16 x 1 0.042 (rows over 16 take a second pass), 16
+//   x 2 0.037 (P1V2_LANES, P1V2_CPL: two rows a warp, one pass for every
+//   row up to 32, 128 registers, so 1 025 blocks stay one wave at eight an
+//   SM; 8 x 3 took 168, six an SM, which one wave of 513 still fits).
+// - v2 also skips, warp-uniformly, an entry that no lane's centre slot is
+//   within reach of (P1V2_SKIP): only ~17 % of the rigid grid's candidate
+//   pairs are in radius. Past d2 = h^2 (1 + 1e-5) every term of a pair is
+//   exactly +0 (w and nl by their tests; rlen, with rsqrtf's 2 ulp, stays
+//   above h, so cg = 0), and adding +0 to a sum that is never -0 leaves its
+//   bits, so the skip keeps the walk's sums. 0.037 -> 0.031 ms at the rigid
+//   inputs, 0.025 -> 0.023 at phase B's first tick. v3 keeps its branch-free
+//   loop (its time is not this slice's to move).
 // ---------------------------------------------------------------------------
 constexpr int P1_CHUNK = 256;  // list entries a row stages at once
 constexpr int P1_ROUND = 16;   // entries a lane stages with its loads in flight
+constexpr int P1V2_LANES = 16;    // phase 1 v2: lanes that own a row,
+constexpr int P1V2_CPL = 2;       // the centre slots a lane may hold (a pass covers 32),
+constexpr bool P1V2_SKIP = true;  // and the skip of entries out of every lane's reach
+constexpr float P1_REACH = 1.00001f;  // of h^2: past it a pair's terms are all +0
 
-size_t phase1_smem() { return (size_t)ROW_ROWS * P1_CHUNK * sizeof(float4); }
+template <int L>
+size_t phase1_smem() { return (size_t)(GROUP_WARPS * 32 / L) * P1_CHUNK * sizeof(float4); }
 
-// A centre slot of a pass: its coordinates, the list entry of its self pair
-// and its sums.
+enum P1Out { LAMBDA, RAW };
+
+// Phase 1's sums for one centre slot (Sums1) and what the slot's pass needs:
+// its coordinates and the list entry of its self pair.
 struct Cen1 {
   float x, y, z;
   int self_e;
@@ -644,13 +562,21 @@ struct Cen1 {
 
 // The pair loop over kn staged entries (the list's entries c0 ..) for the
 // first NC centre slots a lane holds: no branch, so the compiler can overlap
-// the iterations.
-template <int NC>
-__device__ __forceinline__ void phase1_sweep(const float4* list, int c0, int kn,
-                                             Cen1 (&c)[ROW_CPL], const PairConsts& k) {
+// the iterations; with SKIP, one warp-uniform branch an entry (above).
+template <int NC, int CPL, bool SKIP>
+__device__ __forceinline__ void phase1_sweep(const float4* list, int c0, int kn, Cen1 (&c)[CPL],
+                                             const PairConsts& k) {
 #pragma unroll 8
   for (int e = 0; e < kn; ++e) {
     const float4 s = list[e];
+    if constexpr (SKIP) {  // no lane of the warp within reach: every term is +0
+      bool near = false;
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        near |= norm2_rn(__fsub_rn(c[i].x, s.x), __fsub_rn(c[i].y, s.y),
+                         __fsub_rn(c[i].z, s.z)) <= k.h2 * P1_REACH;
+      if (!__any_sync(FULL_MASK, near)) continue;
+    }
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       Cen1& ci = c[i];
@@ -666,78 +592,118 @@ __device__ __forceinline__ void phase1_sweep(const float4* list, int c0, int kn,
   }
 }
 
+// The body of both kernels. LAMBDA: o0 lam, o1 pi_raw, o2 nl (o3 unused).
+// RAW: o0 pi_raw, o1 sg, o2 c2d2, o3 nlen (imass unused).
+template <int L, int CPL, bool SKIP, P1Out OUT>
+__device__ __forceinline__ void phase1_rows(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
+    float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
+    float* __restrict__ o3, int C, int M, const PairConsts& k, bool vec) {
+  constexpr int PASS = L * CPL;  // centre slots a pass covers
+  extern __shared__ float4 p1_lists[];  // [64 / L][P1_CHUNK]
+  __shared__ fnx::NbrTable tabs[GROUP_WARPS * 32 / L];
+  const int grp = threadIdx.x / L;
+  float4* list = p1_lists + grp * P1_CHUNK;
+  const fnx::NbrTable& tab = tabs[grp];
+  const fnx::PlaneSource src{nbr, cnt, x, y, z, nullptr, nullptr, C, M};
+  const RowGroup g = open_row<L, CPL>(tabs[grp], src, cnt, C);
+  if (g.row <= C) {  // dead slots, or the row's every slot
+    const size_t o = (size_t)g.row * M;
+    const bool all4 = g.n_c == 0 && vec;
+    zero_span<L>(o0 + o, g.n_c, M, g.sub, all4);
+    zero_span<L>(o2 + o, g.n_c, M, g.sub, all4);
+    if constexpr (OUT == LAMBDA) {
+      zero_span<L>(o1 + o, g.n_c, M, g.sub, all4);
+    } else {
+      zero_span<L>(o1 + 3 * o, 3 * g.n_c, 3 * M, g.sub, all4);
+      zero_span<L>(o3 + o, g.n_c, M, g.sub, all4);
+    }
+  }
+  for (int pass = 0; pass < g.passes; ++pass) {
+    const int left = g.n_c - pass * PASS;  // this row's live centre slots from the pass on
+    const int cpl = pass_cpl<L, CPL>(left);
+    bool live[CPL];
+    Cen1 c[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int s = g.sub + i * L;
+      const size_t at = (size_t)g.row * M + pass * PASS + s;
+      live[i] = s < left;
+      c[i].x = live[i] ? x[at] : 0.0f;
+      c[i].y = live[i] ? y[at] : 0.0f;
+      c[i].z = live[i] ? z[at] : 0.0f;
+      c[i].self_e = g.self0 + pass * PASS + s;
+      c[i].a = Sums1{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    }
+    for (int c0 = 0; c0 < g.list_max; c0 += P1_CHUNK) {
+      const int kn = min(P1_CHUNK, g.list_max - c0);  // the warp's trip count
+      fnx::stage_chunk<L, P1_CHUNK, P1_ROUND, fnx::NO_W>(list, tab, c0, left > 0 ? g.n_tot : 0,
+                                                          kn, src, k.h, g.sub);
+      if (cpl == 1)
+        phase1_sweep<1, CPL, SKIP>(list, c0, kn, c, k);
+      else
+        phase1_sweep<CPL, CPL, SKIP>(list, c0, kn, c, k);
+      __syncwarp();  // the chunk is consumed before the next one is staged
+    }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      if (!live[i]) continue;
+      const size_t at = (size_t)g.row * M + pass * PASS + g.sub + i * L;
+      const Sums1& a = c[i].a;
+      const float xc = c[i].x, yc = c[i].y, zc = c[i].z;
+      if constexpr (OUT == LAMBDA) {
+        const float sg0 = a.cga * xc - a.bx, sg1 = a.cga * yc - a.by, sg2 = a.cga * zc - a.bz;
+        const float ip2 = k.inv_p0 * k.inv_p0;
+        const float gr_dot = (sg0 * sg0 + sg1 * sg1 + sg2 * sg2) * ip2;
+        const float p_ratio = a.wa / imass[at] * k.inv_p0;
+        o0[at] = -(p_ratio - 1.0f) / (a.c2a * ip2 + gr_dot + k.relax);
+        o1[at] = a.wa;
+        o2[at] = a.nla;
+      } else {
+        o0[at] = a.wa;
+        o1[3 * at] = a.cga * xc - a.bx;
+        o1[3 * at + 1] = a.cga * yc - a.by;
+        o1[3 * at + 2] = a.cga * zc - a.bz;
+        o2[at] = a.c2a;
+        o3[at] = a.nla;
+      }
+    }
+  }
+}
+
+// Phase 1 v3 (LAMBDA) and v2 (RAW): one body under two kernel names.
 __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
     float* __restrict__ lam, float* __restrict__ pi_raw, float* __restrict__ nl, int C, int M,
     PairConsts k, bool vec) {
-  extern __shared__ float4 p1_lists[];  // [ROW_ROWS][P1_CHUNK]
-  __shared__ fnx::NbrTable tabs[ROW_ROWS];
-  const int grp = threadIdx.x / ROW_LANES;
-  float4* list = p1_lists + grp * P1_CHUNK;
-  const fnx::NbrTable& tab = tabs[grp];
-  const RowGroup g = open_row(tabs[grp], cnt, nbr, C);
-  if (g.row <= C) {  // dead slots, or the row's every slot
-    const size_t o = (size_t)g.row * M;
-    const bool all4 = g.n_c == 0 && vec;
-    zero_span(lam + o, g.n_c, M, g.sub, all4);
-    zero_span(pi_raw + o, g.n_c, M, g.sub, all4);
-    zero_span(nl + o, g.n_c, M, g.sub, all4);
-  }
-  for (int pass = 0; pass < g.passes; ++pass) {
-    const int left = g.n_c - pass * ROW_PASS;  // this row's live centre slots from the pass on
-    const int cpl = pass_cpl(left);
-    bool live[ROW_CPL];
-    Cen1 c[ROW_CPL];
-#pragma unroll
-    for (int i = 0; i < ROW_CPL; ++i) {
-      const int s = g.sub + i * ROW_LANES;
-      const size_t at = (size_t)g.row * M + pass * ROW_PASS + s;
-      live[i] = s < left;
-      c[i].x = live[i] ? x[at] : 0.0f;
-      c[i].y = live[i] ? y[at] : 0.0f;
-      c[i].z = live[i] ? z[at] : 0.0f;
-      c[i].self_e = g.self0 + pass * ROW_PASS + s;
-      c[i].a = Sums1{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    }
-    for (int c0 = 0; c0 < g.list_max; c0 += P1_CHUNK) {
-      const int kn = min(P1_CHUNK, g.list_max - c0);  // the warp's trip count
-      fnx::stage_chunk<ROW_LANES, P1_CHUNK, P1_ROUND, fnx::NO_W>(
-          list, tab, c0, left > 0 ? g.n_tot : 0, kn, x, y, z, nullptr, M, k.h, g.sub);
-      if (cpl == 1)
-        phase1_sweep<1>(list, c0, kn, c, k);
-      else
-        phase1_sweep<ROW_CPL>(list, c0, kn, c, k);
-      __syncwarp();  // the chunk is consumed before the next one is staged
-    }
-#pragma unroll
-    for (int i = 0; i < ROW_CPL; ++i) {
-      if (!live[i]) continue;
-      const size_t at = (size_t)g.row * M + pass * ROW_PASS + g.sub + i * ROW_LANES;
-      const Sums1& a = c[i].a;
-      const float xc = c[i].x, yc = c[i].y, zc = c[i].z;
-      const float sg0 = a.cga * xc - a.bx, sg1 = a.cga * yc - a.by, sg2 = a.cga * zc - a.bz;
-      const float ip2 = k.inv_p0 * k.inv_p0;
-      const float gr_dot = (sg0 * sg0 + sg1 * sg1 + sg2 * sg2) * ip2;
-      const float p_ratio = a.wa / imass[at] * k.inv_p0;
-      lam[at] = -(p_ratio - 1.0f) / (a.c2a * ip2 + gr_dot + k.relax);
-      pi_raw[at] = a.wa;
-      nl[at] = a.nla;
-    }
-  }
+  phase1_rows<ROW_LANES, ROW_CPL, false, LAMBDA>(cnt, nbr, x, y, z, imass, lam, pi_raw, nl,
+                                                 nullptr, C, M, k, vec);
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_v2_kernel(
+    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
+    float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
+    PairConsts k, bool vec) {
+  phase1_rows<P1V2_LANES, P1V2_CPL, P1V2_SKIP, RAW>(cnt, nbr, x, y, z, nullptr, pi_raw, sg, c2d2,
+                                                    nlen, C, M, k, vec);
 }
 
 // ---------------------------------------------------------------------------
-// Phase 2, v3 and v2. Replaces the Pallas kernels
-// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3)
-// and :_phase2_kernel_v2 (wrapper phase2_slots_v2). Per live slot, over its
+// Phase 2, v3, v2 and v1. Replaces the Pallas kernels
+// fluidnexus_tpu/sim/pbf_pallas.py:_phase2_kernel_v3 (wrapper phase2_slots_v3),
+// :_phase2_kernel_v2 (wrapper phase2_slots_v2) and :_phase2_kernel (wrapper
+// phase2_slots, which reads the neighbour rows from tensors gathered before
+// the launch, as v1 does here: GatheredSource). Per live slot, over its
 // non-self pairs: corr = -k_p (w / w(dq))^e_p, b = (lambda_i + lambda_s +
 // corr) cg, and the raw delta dsum = (sum b) x_i - sum b x_s. What a launch
 // writes (P2Out):
 // - UPDATE (v3): the UPDATED coordinates x_new = x_i + dsum / p0 /
 //   max(nc_i, 1e-20), nc = nl + counts; dead slots, empty rows and row C keep
 //   their input coordinates.
-// - DSUM (v2): dsum, (C+1, M, 3) interleaved, with the 1/p0/max(nc, eps)
+// - DSUM (v2, v1): dsum, (C+1, M, 3) interleaved, with the 1/p0/max(nc, eps)
 //   scaling left to the caller (fluidnexus_tpu/sim/pbf_dense.py:210); 0 at
 //   dead slots, empty rows and row C. It reads no nc.
 // Each row also writes its partial sums of corr and of the non-self
@@ -745,9 +711,10 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_kernel(
 // float atomics).
 //
 // Bound on the H100: ~35 f32 operations per live candidate pair against one
-// read of four planes (five with nc) and one write of three: bound by
-// operations, and in practice by the latency of the walk. The row groups
-// above, with these points:
+// read of four planes (five with nc; v1 reads its list's entries from the
+// gathered copies) and one write of three: bound by operations, and in
+// practice by the latency of the walk. The row groups above, with these
+// points:
 // - Lambda is the list's fourth plane. A chunk holds P2_CHUNK = 256 entries,
 //   less than a whole neighbourhood at M = 32 (27 x 32): at the 168
 //   registers a thread the loop takes, the registers allow six blocks an SM,
@@ -758,19 +725,31 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_kernel(
 //   e_p), so the unrolled loop holds no loop of its own; any other int_pow
 //   runs the runtime loop (IP = -1).
 // - The row's partials are reduced in the tree of the one-block-a-row walk
-//   (row_partials), whose warps each summed 32 slots: slot s + 16 added to
-//   slot s (that walk's shuffle at offset 16: here the odd pass's slot to the
-//   even pass's), then s + 8 to s (a lane's second slot to its first), then
+//   these kernels replaced, whose warps each summed 32 slots by shuffles at
+//   offsets 16, 8, 4, 2, 1 and then added the warps' sums in order from 0:
+//   slot s + 16 added to slot s (here the odd pass's slot to the even
+//   pass's), then s + 8 to s (a lane's second slot to its first), then
 //   offsets 4, 2, 1 across the group, and the warps' sums added in order
-//   from 0, so s_corr and s_ns keep their bits. A dead slot adds 0.
+//   from 0, so s_corr and s_ns keep their bits. A dead slot adds 0. That
+//   tree fixes (L, CPL) at (8, 2).
+// - v1's table is its gathered counts, one trip (no nbr), and its list is
+//   staged from the gathered copies: the row's own count and self entry come
+//   from its neighbour 13, so row C, which has no copy, reads none of them.
 // ---------------------------------------------------------------------------
 constexpr int P2_CHUNK = 256;  // list entries a row stages at once
 constexpr int P2_ROUND = 16;   // entries a lane stages with its loads in flight
+constexpr int ROW_PASS = ROW_LANES * ROW_CPL;  // centre slots a pass covers: 16
 static_assert(2 * ROW_PASS == 32, "two passes make the 32 slots of the partials' tree");
 
-size_t phase2_smem() { return (size_t)ROW_ROWS * P2_CHUNK * sizeof(float4); }
+size_t phase2_smem() { return (size_t)(GROUP_WARPS * 32 / ROW_LANES) * P2_CHUNK * sizeof(float4); }
 
 enum P2Out { UPDATE, DSUM };
+
+// Phase 2's sums for one centre slot with lambda lc: sum b, sum b x_s, and
+// over the non-self pairs in radius sum corr and their count.
+struct Sums2 {
+  float ba, cra, nsa, bx, by, bz;
+};
 
 // A centre slot of a pass: its coordinates and lambda, the list entry of its
 // self pair, and its sums.
@@ -807,21 +786,23 @@ __device__ __forceinline__ void phase2_sweep(const float4* list, int c0, int kn,
   }
 }
 
-// The body of both kernels. xo, yo, zo: the updated planes (UPDATE); xo
-// alone, dsum (DSUM), with nc, yo and zo unused.
-template <int IP, P2Out OUT>
+// The body of the three kernels. src: where the list is staged from (the
+// planes through nbr, whose counts are cnt, or v1's gathered rows, with cnt
+// unused). xo, yo, zo: the updated planes (UPDATE); xo alone, dsum (DSUM),
+// with nc, yo and zo unused.
+template <int IP, P2Out OUT, class Src>
 __device__ __forceinline__ void phase2_rows(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const Src& src, const int* __restrict__ cnt, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
     const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
     float* __restrict__ zo, float* __restrict__ part, int C, int M, const PairConsts& k,
     bool vec) {
-  extern __shared__ float4 p2_lists[];  // [ROW_ROWS][P2_CHUNK]
-  __shared__ fnx::NbrTable tabs[ROW_ROWS];
+  extern __shared__ float4 p2_lists[];  // [64 / ROW_LANES][P2_CHUNK]
+  __shared__ fnx::NbrTable tabs[GROUP_WARPS * 32 / ROW_LANES];
   const int grp = threadIdx.x / ROW_LANES;
   float4* list = p2_lists + grp * P2_CHUNK;
   const fnx::NbrTable& tab = tabs[grp];
-  const RowGroup g = open_row(tabs[grp], cnt, nbr, C);
+  const RowGroup g = open_row<ROW_LANES, ROW_CPL>(tabs[grp], src, cnt, C);
   const int row = g.row, n_c = g.n_c, sub = g.sub;
   if (row <= C) {  // the slots the pair loop does not write
     if constexpr (OUT == UPDATE) {  // keep their coordinates
@@ -841,7 +822,7 @@ __device__ __forceinline__ void phase2_rows(
         }
       }
     } else {  // read 0: the row's floats from 3 n_c on
-      zero_span(xo + (size_t)row * M * 3, 3 * n_c, 3 * M, sub, n_c == 0 && vec);
+      zero_span<ROW_LANES>(xo + (size_t)row * M * 3, 3 * n_c, 3 * M, sub, n_c == 0 && vec);
     }
     if (n_c == 0 && sub == 0) part[2 * row] = part[2 * row + 1] = 0.0f;
   }
@@ -849,7 +830,7 @@ __device__ __forceinline__ void phase2_rows(
   float hold_cr[ROW_CPL], hold_ns[ROW_CPL];  // an even pass's sums, for the odd pass after it
   for (int pass = 0; pass < g.passes; ++pass) {
     const int left = n_c - pass * ROW_PASS;  // this row's live centre slots from the pass on
-    const int cpl = pass_cpl(left);
+    const int cpl = pass_cpl<ROW_LANES, ROW_CPL>(left);
     bool live[ROW_CPL];
     Cen2 c[ROW_CPL];
 #pragma unroll
@@ -867,7 +848,7 @@ __device__ __forceinline__ void phase2_rows(
     for (int c0 = 0; c0 < g.list_max; c0 += P2_CHUNK) {
       const int kn = min(P2_CHUNK, g.list_max - c0);  // the warp's trip count
       fnx::stage_chunk<ROW_LANES, P2_CHUNK, P2_ROUND>(list, tab, c0, left > 0 ? g.n_tot : 0, kn,
-                                                      x, y, z, lam, M, k.h, sub);
+                                                      src, k.h, sub);
       if (cpl == 1)
         phase2_sweep<1, IP>(list, c0, kn, c, k);
       else
@@ -923,51 +904,55 @@ __device__ __forceinline__ void phase2_rows(
   }
 }
 
-// Phase 2 v3 (UPDATE) and v2 (DSUM): one body under two kernel names.
+// Phase 2 v3 (UPDATE), v2 (DSUM) and v1 (DSUM from the gathered rows): one
+// body under three kernel names.
 template <int IP>
 __global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
     const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
     float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
-  phase2_rows<IP, UPDATE>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
+  phase2_rows<IP, UPDATE>(fnx::PlaneSource{nbr, cnt, x, y, z, lam, nullptr, C, M}, cnt, x, y, z,
+                          lam, nc, xo, yo, zo, part, C, M, k, vec);
 }
 
 template <int IP>
 __global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_v2_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ lam,
-    const float* __restrict__ nc, float* __restrict__ xo, float* __restrict__ yo,
-    float* __restrict__ zo, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
-  phase2_rows<IP, DSUM>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec);
+    float* __restrict__ dsum, float* __restrict__ part, int C, int M, PairConsts k, bool vec) {
+  phase2_rows<IP, DSUM>(fnx::PlaneSource{nbr, cnt, x, y, z, lam, nullptr, C, M}, cnt, x, y, z,
+                        lam, nullptr, dsum, nullptr, nullptr, part, C, M, k, vec);
 }
 
-template <int IP, P2Out OUT>
-int launch_phase2_at(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
-                     const float* lam, const float* nc, float* xo, float* yo, float* zo,
-                     float* part, int C, int M, const PairConsts& k, bool vec,
-                     cudaStream_t stream) {
-  const size_t smem = phase2_smem();
-  const auto kernel = OUT == UPDATE ? phase2_kernel<IP> : phase2_v2_kernel<IP>;
-  cudaError_t err =
+template <int IP>
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase2_v1_kernel(
+    const int* __restrict__ ncnt, const float* __restrict__ xng, const float* __restrict__ lng,
+    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
+    const float* __restrict__ lam, float* __restrict__ dsum, float* __restrict__ part, int C,
+    int M, PairConsts k, bool vec) {
+  phase2_rows<IP, DSUM>(fnx::GatheredSource{ncnt, xng, lng, M}, nullptr, x, y, z, lam, nullptr,
+                        dsum, nullptr, nullptr, part, C, M, k, vec);
+}
+
+// Launches a row-group kernel over rows 0..C at 64 / L rows a block with smem
+// bytes of dynamic shared memory; returns the CUDA error code.
+template <int L, class... P, class... A>
+int launch_rows(void (*kernel)(P...), int C, size_t smem, cudaStream_t stream, A... args) {
+  const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<C / ROW_ROWS + 1, GROUP_WARPS * 32, smem, stream>>>(cnt, nbr, x, y, z, lam, nc, xo, yo,
-                                                                zo, part, C, M, k, vec);
+  kernel<<<C / (GROUP_WARPS * 32 / L) + 1, GROUP_WARPS * 32, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// Phase 2 with the power's repeat count k.int_pow made a constant where it is
-// 4 or 0 (phase2_kernel's IP).
-template <P2Out OUT>
-int launch_phase2(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
-                  const float* lam, const float* nc, float* xo, float* yo, float* zo, float* part,
-                  int C, int M, const PairConsts& k, bool vec, cudaStream_t s) {
-  if (k.int_pow == 4)
-    return launch_phase2_at<4, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
-  if (k.int_pow == 0)
-    return launch_phase2_at<0, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
-  return launch_phase2_at<-1, OUT>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M, k, vec, s);
+// Calls launch with the power's repeat count made a constant where it is 4 or
+// 0 (phase 2's IP), as std::integral_constant<int, IP>.
+template <class F>
+int with_int_pow(int int_pow, F launch) {
+  if (int_pow == 4) return launch(std::integral_constant<int, 4>{});
+  if (int_pow == 0) return launch(std::integral_constant<int, 0>{});
+  return launch(std::integral_constant<int, -1>{});
 }
 
 // Every plane's rows start on 16 bytes: M % 4 == 0 and each plane aligned.
@@ -995,15 +980,10 @@ int fnx_pbf_phase1(const int* cnt, const int* nbr, const float* x, const float* 
                    const float* imass, float* lam, float* pi_raw, float* nl, int C, int M, float h,
                    float h2, float eps, float c6, float s45, float inv_p0, float relax, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  const size_t smem = phase1_smem();
-  cudaError_t err = cudaFuncSetAttribute(phase1_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  phase1_kernel<<<C / ROW_ROWS + 1, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      cnt, nbr, x, y, z, imass, lam, pi_raw, nl, C, M,
-      consts(h, h2, eps, c6, s45, inv_p0, relax, 0.0f, 0.0f, 0, 0.0f),
-      rows_aligned(M, {lam, pi_raw, nl}));
-  return (int)cudaGetLastError();
+  return launch_rows<ROW_LANES>(phase1_kernel, C, phase1_smem<ROW_LANES>(), (cudaStream_t)stream,
+                                cnt, nbr, x, y, z, imass, lam, pi_raw, nl, C, M,
+                                consts(h, h2, eps, c6, s45, inv_p0, relax, 0.0f, 0.0f, 0, 0.0f),
+                                rows_aligned(M, {lam, pi_raw, nl}));
 }
 
 int fnx_pbf_phase2(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,
@@ -1011,20 +991,23 @@ int fnx_pbf_phase2(const int* cnt, const int* nbr, const float* x, const float* 
                    int C, int M, float h, float h2, float eps, float c6, float s45, float k_p,
                    float e_p, int int_pow, float inv_denom, float inv_p0, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  return launch_phase2<UPDATE>(cnt, nbr, x, y, z, lam, nc, xo, yo, zo, part, C, M,
-                               consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow,
-                                      inv_denom),
-                               rows_aligned(M, {x, y, z, xo, yo, zo}), (cudaStream_t)stream);
+  const PairConsts k = consts(h, h2, eps, c6, s45, inv_p0, 0.0f, k_p, e_p, int_pow, inv_denom);
+  const bool vec = rows_aligned(M, {x, y, z, xo, yo, zo});
+  return with_int_pow(int_pow, [&](auto ip) {
+    return launch_rows<ROW_LANES>(phase2_kernel<decltype(ip)::value>, C, phase2_smem(),
+                                  (cudaStream_t)stream, cnt, nbr, x, y, z, lam, nc, xo, yo, zo,
+                                  part, C, M, k, vec);
+  });
 }
 
 int fnx_pbf_phase1_v2(const int* cnt, const int* nbr, const float* x, const float* y,
                       const float* z, float* pi_raw, float* sg, float* c2d2, float* nlen, int C,
                       int M, float h, float h2, float eps, float c6, float s45, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase1_v2_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
-      cnt, nbr, x, y, z, pi_raw, sg, c2d2, nlen, C, M,
-      consts(h, h2, eps, c6, s45, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0.0f));
-  return (int)cudaGetLastError();
+  return launch_rows<P1V2_LANES>(phase1_v2_kernel, C, phase1_smem<P1V2_LANES>(),
+                                 (cudaStream_t)stream, cnt, nbr, x, y, z, pi_raw, sg, c2d2, nlen,
+                                 C, M, consts(h, h2, eps, c6, s45, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0.0f),
+                                 rows_aligned(M, {pi_raw, sg, c2d2, nlen}));
 }
 
 int fnx_pbf_phase2_v2(const int* cnt, const int* nbr, const float* x, const float* y,
@@ -1032,9 +1015,13 @@ int fnx_pbf_phase2_v2(const int* cnt, const int* nbr, const float* x, const floa
                       float h, float h2, float eps, float c6, float s45, float k_p, float e_p,
                       int int_pow, float inv_denom, void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  return launch_phase2<DSUM>(cnt, nbr, x, y, z, lam, nullptr, dsum, nullptr, nullptr, part, C, M,
-                             consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom),
-                             rows_aligned(M, {dsum}), (cudaStream_t)stream);
+  const PairConsts k = consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom);
+  const bool vec = rows_aligned(M, {dsum});
+  return with_int_pow(int_pow, [&](auto ip) {
+    return launch_rows<ROW_LANES>(phase2_v2_kernel<decltype(ip)::value>, C, phase2_smem(),
+                                  (cudaStream_t)stream, cnt, nbr, x, y, z, lam, dsum, part, C, M,
+                                  k, vec);
+  });
 }
 
 int fnx_pbf_phase1_v1(const int* cnt, const int* ncnt, const float* xng, const float* x,
@@ -1048,16 +1035,20 @@ int fnx_pbf_phase1_v1(const int* cnt, const int* ncnt, const float* xng, const f
   return (int)cudaGetLastError();
 }
 
+// cnt is not read: a gathered row's live count is its own copy's, ncnt[row, 13].
 int fnx_pbf_phase2_v1(const int* cnt, const int* ncnt, const float* xng, const float* lng,
                       const float* x, const float* y, const float* z, const float* lam,
                       float* dsum, float* part, int C, int M, float h, float h2, float eps,
                       float c6, float s45, float k_p, float e_p, int int_pow, float inv_denom,
                       void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase2_v1_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
-      cnt, ncnt, xng, lng, x, y, z, lam, dsum, part, M,
-      consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom));
-  return (int)cudaGetLastError();
+  const PairConsts k = consts(h, h2, eps, c6, s45, 0.0f, 0.0f, k_p, e_p, int_pow, inv_denom);
+  const bool vec = rows_aligned(M, {dsum});
+  return with_int_pow(int_pow, [&](auto ip) {
+    return launch_rows<ROW_LANES>(phase2_v1_kernel<decltype(ip)::value>, C, phase2_smem(),
+                                  (cudaStream_t)stream, ncnt, xng, lng, x, y, z, lam, dsum, part,
+                                  C, M, k, vec);
+  });
 }
 
 int fnx_pbf_density(const int* cnt, const int* nbr, const float* x, const float* y, const float* z,

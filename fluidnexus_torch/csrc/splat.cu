@@ -119,8 +119,9 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) splat_fwd_kernel(
   const int row = blockIdx.x * SPF_ROWS + grp;
   float4* xl = spf_lists + grp * 2 * SPF_CHUNK;
   float4* vl = xl + SPF_CHUNK;
+  const fnx::PlaneSource src{qnbr, scnt, xs, ys, zs, nullptr, vel, Cs, Ms};
   const int n_c = row <= Cq ? qcnt[row] : 0;
-  const int n_tot = fnx::load_nbr_table<32>(tabs[grp], qnbr, scnt, row, Cs, sub, row < Cq);
+  const int n_tot = fnx::load_nbr_table<32>(tabs[grp], src, row, sub, row < Cq);
   const int n_w = n_tot > 0 ? n_c : 0;  // the live slots the pair loop writes
   if (row <= Cq) {  // the slots the pair loop does not write
     if (n_w == 0 && Mq % 4 == 0) {  // the row's every slot, 16 bytes a store
@@ -144,8 +145,8 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) splat_fwd_kernel(
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, aw = 0.0f;
     for (int c0 = 0; c0 < n_tot; c0 += SPF_CHUNK) {
       const int kn = min(SPF_CHUNK, n_tot - c0);
-      fnx::stage_chunk<32, SPF_CHUNK, SPF_ROUND, fnx::VEC3>(xl, tabs[grp], c0, n_tot, kn, xs, ys,
-                                                            zs, nullptr, Ms, h, sub, vl, vel);
+      fnx::stage_chunk<32, SPF_CHUNK, SPF_ROUND, fnx::VEC3>(xl, tabs[grp], c0, n_tot, kn, src, h,
+                                                            sub, vl);
       splat_fwd_sweep(xl, vl, kn, xc, yc, zc, a0, a1, a2, aw, h2);
       __syncwarp();  // the chunk is consumed before the next one is staged
     }
@@ -236,8 +237,9 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) splat_bwd_kernel(
   const int row = blockIdx.x * GROUP_ROWS + grp;
   float4* xl = spb_lists + grp * 2 * SPB_CHUNK;
   float4* pl = xl + SPB_CHUNK;
+  const fnx::PlaneSource src{rnbr, qcnt, xq, yq, zq, q, p, Cq, Mq};
   const int n_c = row <= Cs ? scnt[row] : 0;
-  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], rnbr, qcnt, row, Cq, sub, row < Cs);
+  const int n_tot = fnx::load_nbr_table<GROUP_LANES>(tabs[grp], src, row, sub, row < Cs);
   const int n_w = n_tot > 0 ? n_c : 0;  // the live slots the pair loop writes
   if (row <= Cs) {  // the slots the pair loop does not write
     if (n_w == 0 && Ms % 4 == 0) {  // the row's every slot, 16 bytes a store (the entry checks alignment)
@@ -276,7 +278,7 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) splat_bwd_kernel(
     for (int c0 = 0; c0 < list_max; c0 += SPB_CHUNK) {
       const int kn = min(SPB_CHUNK, list_max - c0);  // the warp's trip count
       fnx::stage_chunk<GROUP_LANES, SPB_CHUNK, SPB_ROUND, fnx::W_VEC3>(
-          xl, tabs[grp], c0, left > 0 ? n_tot : 0, kn, xq, yq, zq, q, Mq, h, sub, pl, p);
+          xl, tabs[grp], c0, left > 0 ? n_tot : 0, kn, src, h, sub, pl);
       if (cpl == 1)
         splat_bwd_sweep<1>(xl, pl, kn, c, h2);
       else

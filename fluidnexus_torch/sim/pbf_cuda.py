@@ -415,7 +415,8 @@ def _check_planes(nbr, cnt, planes_, names, table="nbr"):
 
 
 def phase1_slots(nbr, cnt, x, y, z, imass, k: PairConsts):
-    """Kernel 1 (csrc/pbf.cu): (lam, pi_raw, nl, s_p6, s_edges)."""
+    """Row 12 of PERF.md's kernel table (csrc/pbf.cu ``phase1_kernel``): (lam,
+    pi_raw, nl, s_p6, s_edges)."""
     cuda_build.require_cuda(nbr, "phase1_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z, imass), ("x", "y", "z", "imass"))
     lam, pi_raw, nl = (torch.empty_like(x) for _ in range(3))
@@ -429,7 +430,7 @@ def phase1_slots(nbr, cnt, x, y, z, imass, k: PairConsts):
 
 
 def phase2_slots(nbr, cnt, x, y, z, lam, nc, k: PairConsts):
-    """Kernel 2 (csrc/pbf.cu): (x, y, z updated, s_corr, s_ns)."""
+    """Row 13 (csrc/pbf.cu ``phase2_kernel``): (x, y, z updated, s_corr, s_ns)."""
     cuda_build.require_cuda(nbr, "phase2_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z, lam, nc), ("x", "y", "z", "lam", "nc"))
     xo, yo, zo = (torch.empty_like(x) for _ in range(3))
@@ -446,7 +447,7 @@ def phase2_slots(nbr, cnt, x, y, z, lam, nc, k: PairConsts):
 
 
 def density_slots(nbr, cnt, x, y, z, k: PairConsts):
-    """Kernel 3 (csrc/pbf.cu): the gas-loss density pi (C+1, M)."""
+    """Row 8 (csrc/pbf.cu ``density_kernel``): the gas-loss density pi (C+1, M)."""
     cuda_build.require_cuda(nbr, "density_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z), ("x", "y", "z"))
     pi = torch.empty_like(x)
@@ -459,7 +460,7 @@ def density_slots(nbr, cnt, x, y, z, k: PairConsts):
 
 
 def density_bwd_slots(nbr, cnt, x, y, z, g, k: PairConsts):
-    """Kernel 4 (csrc/pbf.cu): the density's adjoint (C+1, M, 3)."""
+    """Row 9 (csrc/pbf.cu ``density_bwd_kernel``): the density's adjoint (C+1, M, 3)."""
     cuda_build.require_cuda(nbr, "density_bwd_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z, g), ("x", "y", "z", "g"))
     dx = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
@@ -472,7 +473,8 @@ def density_bwd_slots(nbr, cnt, x, y, z, g, k: PairConsts):
 
 
 def phase1_v2_slots(nbr, cnt, x, y, z, k: PairConsts):
-    """Kernel 5 (csrc/pbf.cu): (pi_raw, sg, c2d2, nlen, s_p6, s_edges)."""
+    """Row 6 (csrc/pbf.cu ``phase1_v2_kernel``): (pi_raw, sg, c2d2, nlen, s_p6,
+    s_edges)."""
     cuda_build.require_cuda(nbr, "phase1_v2_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z), ("x", "y", "z"))
     pi_raw, c2d2, nlen = (torch.empty_like(x) for _ in range(3))
@@ -487,7 +489,7 @@ def phase1_v2_slots(nbr, cnt, x, y, z, k: PairConsts):
 
 
 def phase2_v2_slots(nbr, cnt, x, y, z, lam, k: PairConsts):
-    """Kernel 6 (csrc/pbf.cu): (dsum, s_corr, s_ns)."""
+    """Row 7 (csrc/pbf.cu ``phase2_v2_kernel``): (dsum, s_corr, s_ns)."""
     cuda_build.require_cuda(nbr, "phase2_v2_slots")
     c, m = _check_planes(nbr, cnt, (x, y, z, lam), ("x", "y", "z", "lam"))
     dsum = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
@@ -511,7 +513,8 @@ def _check_gathered(ncnt, xng, cnt, planes_, names, lng=None):
 
 
 def phase1_v1_slots(ncnt, xng, cnt, x, y, z, k: PairConsts):
-    """Kernel 7 (csrc/pbf.cu): as ``phase1_v2_slots`` from the gathered rows."""
+    """Row 4 (csrc/pbf.cu ``phase1_v1_kernel``): as ``phase1_v2_slots`` from
+    the gathered rows."""
     cuda_build.require_cuda(xng, "phase1_v1_slots")
     c, m = _check_gathered(ncnt, xng, cnt, (x, y, z), ("x", "y", "z"))
     pi_raw, c2d2, nlen = (torch.empty_like(x) for _ in range(3))
@@ -526,7 +529,8 @@ def phase1_v1_slots(ncnt, xng, cnt, x, y, z, k: PairConsts):
 
 
 def phase2_v1_slots(ncnt, xng, lng, cnt, x, y, z, lam, k: PairConsts):
-    """Kernel 8 (csrc/pbf.cu): as ``phase2_v2_slots`` from the gathered rows."""
+    """Row 5 (csrc/pbf.cu ``phase2_v1_kernel``): as ``phase2_v2_slots`` from
+    the gathered rows (each row's own count from its copy, ``ncnt[row, 13]``)."""
     cuda_build.require_cuda(xng, "phase2_v1_slots")
     c, m = _check_gathered(ncnt, xng, cnt, (x, y, z, lam), ("x", "y", "z", "lam"), lng)
     dsum = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)

@@ -109,20 +109,22 @@ def test_phase1_at_its_edges(cuda_device, m):
 
 @pytest.mark.parametrize("m", [32, 128])
 def test_phase1_keeps_the_walks_sums(cuda_device, m):
-    """Phase 1 (v3) against phase 1 v2, whose walk over the rows takes the
-    self pair by index and adds each slot's pairs in the order v3 keeps, over
-    20 pairs of live particles at one position at the default epsilon: their
-    cg ~ 1e5 cancels in sg, so sums that took such a pair for the self pair
-    (cg 0) would round otherwise, far beyond the epilogue's few ulp. pi_raw
-    bit for bit, nl exact, lambda within 1e-6 relative (the epilogue's f32
-    rounding)."""
+    """Phase 1 (v3, row 12) and phase 1 v2 (row 6), which share one row-group
+    body, against phase 1 v1 (row 4), whose walk over the rows takes the
+    self pair by index and adds each slot's pairs in the order the row groups
+    keep, over 20 pairs of live particles at one position at the default
+    epsilon: their cg ~ 1e5 cancels in sg, so sums that took such a pair for
+    the self pair (cg 0) would round otherwise, far beyond the epilogue's few
+    ulp. Row 12: pi_raw bit for bit, nl exact, lambda within 1e-6 relative
+    (the epilogue's f32 rounding); row 6: every output bit for bit."""
     grid, rng = coincident_pairs_grid(m, cuda_device, seed=m + 7)
     live = grid.bmask
     im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
                          device=cuda_device)
-    same_pi, same_nl, rel = phase1_against_the_walk(
+    same_pi, same_nl, rel, raw_same = phase1_against_the_walk(
         grid, torch.where(live, im, 1.0).contiguous(), pc.pair_consts(PBFParams(h=1.0)))
     assert same_pi and same_nl
+    assert all(raw_same), raw_same
     assert rel <= 1e-6, rel
 
 

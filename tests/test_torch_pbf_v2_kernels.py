@@ -14,7 +14,8 @@ from fluidnexus_torch.sim.pbf import PBFParams, RigidSpec, create_rigid_body, so
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.test_torch_pbf_kernels import _grid_inputs
 from tests.torch_helpers import (  # noqa: F401
-    cuda_device, isolated_point_grid, leave_nan_blocks, phase2_part, plain_row_partials,
+    GRADED_BANDS, cuda_device, graded_rows_grid, guarded_gather, isolated_point_grid,
+    leave_nan_blocks, phase2_part, plain_row_partials,
 )
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +92,95 @@ def test_phase2_v2_at_its_edges(cuda_device, m, e_p):
     row, col = int(grid.prow[0]), int(grid.pcol[0])
     assert int(cnt[grid.nbr[row].long()].sum()) == 1, "point 0 is not alone"
     assert not dsum[row, col].any()
+
+
+def _bands_present(cnt, m):
+    """Every band of ``GRADED_BANDS`` up to m holds a live row."""
+    live = cnt[cnt > 0]
+    return all(bool(((live >= lo) & (live <= hi)).any()) for lo, hi in GRADED_BANDS if hi <= m)
+
+
+@pytest.mark.parametrize("m,eps", [(32, 1e-2), (32, 1e-8), (128, 1e-2), (128, 1e-8)])
+def test_phase1_v2_at_its_edges(cuda_device, m, eps):
+    """Phase 1 v2 (row 6) into NaN-filled blocks against its plain version at
+    M = 32 and M = 128 over ``graded_rows_grid``: rows of 1-8, 9-16, 17-24
+    and more live slots, so that every count of centre slots a lane and of
+    passes runs, lists longer than a staged chunk, live particles paired at
+    d2 = 0 in one row, and one point alone. pi_raw and c2d2 at 1e-4 of their
+    scale, nlen exact, all 0 at dead slots, empty rows and row C; the global
+    sums at 1e-5; the lone point's pi_raw and nlen bit for bit (its self pair
+    alone); and every output bit for bit against phase 1 v1's walk (row 4).
+    sg is held to the plain version at epsilon 1e-2 only: at the default 1e-8
+    the d2 = 0 pairs' cg ~ 1e5 cancels in sg, so two summation orders part by
+    their rounding of those terms, and only the walk's order holds it."""
+    grid, _ = graded_rows_grid(m, cuda_device, seed=m + 11)
+    cnt, *xyz = pc.planes(grid)
+    assert _bands_present(cnt, m)
+    assert int(cnt[grid.nbr.long()].sum(1).max()) > 256
+    live = grid.bmask
+    k = pc.pair_consts(PBFParams(h=1.0, epsilon=eps))
+    args = (grid.nbr, cnt, *xyz, k)
+    want = pc.phase1_v2_plain(*args)
+    leave_nan_blocks(cuda_device, *(tuple(w.shape) for w in want[:4]))
+    got = pc.phase1_v2_slots(*args)
+    for name, g, w in zip(("pi_raw", "sg", "c2d2"), got, want):
+        if name != "sg" or eps == 1e-2:
+            _held(g, w, live, f"row 6 {name}")
+    assert not got[1][~live].any()
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)       # nlen exactly
+    torch.testing.assert_close(torch.stack(got[4:]), torch.stack(want[4:]), rtol=1e-5, atol=0)
+    row, col = int(grid.prow[-1]), int(grid.pcol[-1])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "the last point is not alone"
+    for g, w in ((got[0], want[0]), (got[3], want[3])):
+        assert torch.equal(g[row, col:col + 1].view(torch.int32), w[row, col:col + 1].view(torch.int32))
+    ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
+    walk = pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)
+    for name, g, w in zip(("pi_raw", "sg", "c2d2", "nlen"), got, walk):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), f"row 6 {name} against row 4"
+
+
+@pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])
+def test_phase2_v1_at_its_edges(cuda_device, m, e_p):
+    """Phase 2 v1 (row 5) through its C entry into NaN-filled blocks against
+    its plain version at M = 32 and M = 128, at e_p 4 and 2.5, over
+    ``graded_rows_grid`` (rows of every band, so one and two passes of one and
+    two centre slots a lane, d2 = 0 pairs in one row, one point alone), its
+    gathered rows followed by guard rows that hold live neighbours
+    (``guarded_gather``), which row C must not read: dsum at 1e-4 of its
+    scale, 0 at dead slots, empty rows and row C; each row's partial sums
+    against ``plain_row_partials`` (s_corr at 1e-5 of the rows' scale, s_ns
+    exactly, 0 at empty rows and row C); the wrapper's global sums at 1e-5;
+    the lone point's dsum exactly 0; dsum and the partial sums bit for bit
+    those of phase 2 v2 (row 7) on the same rows. Epsilon 1e-2 as in
+    ``test_phase2_v2_at_its_edges``."""
+    grid, _ = graded_rows_grid(m, cuda_device, seed=m + 12)
+    cnt, *xyz = pc.planes(grid)
+    assert _bands_present(cnt, m)
+    live = grid.bmask
+    k = pc.pair_consts(PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
+    lam = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k)[0].contiguous()
+    ncnt, xng, lng = guarded_gather(grid.nbr, cnt, *xyz, lam)
+    args = (ncnt, xng, lng, cnt, *xyz, lam, k)
+    args2 = (grid.nbr, cnt, *xyz, lam, k)
+    dsum_p, corr_p, ns_p = pc.phase2_v1_plain(*args)
+    part_p = plain_row_partials(*args2)
+    leave_nan_blocks(cuda_device, tuple(dsum_p.shape), (cnt.numel(), 2))
+    dsum, part = phase2_part(pc, "pbf_phase2_v1", args)
+    _held(dsum, dsum_p, live, "row 5 dsum")
+    empty = cnt == 0
+    assert torch.equal(part[empty], torch.zeros_like(part[empty]))       # NaN where unwritten
+    torch.testing.assert_close(part[:, 0], part_p[:, 0], rtol=0,
+                               atol=1e-5 * float(part_p[:, 0].abs().max()))
+    torch.testing.assert_close(part[:, 1], part_p[:, 1], rtol=0, atol=0)
+    _, corr, ns = pc.phase2_v1_slots(*args)
+    torch.testing.assert_close(torch.stack([corr, ns]), torch.stack([corr_p, ns_p]), rtol=1e-5,
+                               atol=0)
+    row, col = int(grid.prow[-1]), int(grid.pcol[-1])
+    assert int(cnt[grid.nbr[row].long()].sum()) == 1, "the last point is not alone"
+    assert not dsum[row, col].any()
+    dsum2, part2 = phase2_part(pc, "pbf_phase2_v2", args2)
+    torch.testing.assert_close(dsum, dsum2, rtol=0, atol=0)
+    torch.testing.assert_close(part, part2, rtol=0, atol=0)
 
 
 def test_rigid_solver_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch):

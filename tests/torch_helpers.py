@@ -204,42 +204,110 @@ def coincident_pairs_grid(m, device, seed, pairs=20):
     return grid, rng
 
 
+def graded_rows_grid(m, device, seed, edge=5):
+    """Seeded points on an ``edge``^3 block of unit cells (h = 1) whose live
+    counts cover every band the row-group kernels deal differently: 1-8, 9-16,
+    17-24 and 25-32 live slots a row, and at M = ``m`` = 128 also 33-64 and
+    65-128 (``GRADED_BANDS``), a band drawn for each cell and a count in it.
+    About 10 % more points are dead, the first point of 20 cells has a live
+    twin at its coordinates (non-self pairs at d2 = 0 in one row), and one
+    point sits alone 5.5 units past the block, so its 26 neighbour cells are
+    empty. Rows of one warp hold counts of different bands, and a row's
+    neighbourhood list spans more than one staged chunk of 256 entries.
+    Returns (grid, rng), the generator left for the caller's next draws."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+
+    rng = np.random.default_rng(seed)
+    bands = [b for b in GRADED_BANDS if b[1] <= m]
+    cells = np.stack(np.meshgrid(*[np.arange(edge)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    counts = [int(rng.integers(lo, hi + 1)) for lo, hi in
+              (bands[i] for i in rng.integers(0, len(bands), len(cells)))]
+    pts = np.concatenate([c + rng.uniform(0.01, 0.99, (n, 3)) for c, n in zip(cells, counts)])
+    starts = np.cumsum([0] + counts[:-1])
+    twins = [s for s, n in zip(starts, counts) if n >= 2][:20]
+    pts[np.array(twins) + 1] = pts[twins]
+    dead = rng.uniform(0, edge, (len(pts) // 10, 3))
+    lone = np.full((1, 3), edge + 5.5)
+    alive = np.concatenate([np.ones(len(pts), bool), np.zeros(len(dead), bool), [True]])
+    xyz = np.concatenate([pts, dead, lone]).astype(np.float32)
+    order = rng.permutation(len(xyz) - 1)
+    xyz[:-1], alive[:-1] = xyz[:-1][order], alive[:-1][order]
+    grid = build_dense_grid(torch.as_tensor(xyz, device=device), 1.0,
+                            torch.as_tensor(alive, device=device), 512, m)
+    return grid, rng
+
+
+GRADED_BANDS = ((1, 8), (9, 16), (17, 24), (25, 32), (33, 64), (65, 128))
+
+
+def guarded_gather(nbr, cnt, x, y, z, lam, guard=16):
+    """The v1 pre-gather (``pbf_cuda.gather_v1``, ``gather_lam_v1``) as the
+    first C rows of tensors with ``guard`` more rows past them, which hold a
+    full row's count at every neighbour, coordinates of 0.5 and lambdas of 1:
+    a kernel that reads the gathered rows of row C or past (they have none)
+    finds live neighbours in reach of row C's slots there, and its outputs
+    show it. Returns (ncnt, xng,
+    lng), each contiguous."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    ncnt, xng = pc.gather_v1(nbr, cnt, x, y, z)
+    lng = pc.gather_lam_v1(nbr, lam)
+    c, m = ncnt.shape[0], x.shape[1]
+    out = []
+    for t, fill in ((ncnt, m), (xng, 0.5), (lng, 1.0)):
+        g = torch.full((c + guard,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+        g[:c] = t
+        out.append(g[:c])
+    return tuple(out)
+
+
 def phase1_against_the_walk(grid, imass, k):
-    """Phase 1 v3's kernel against phase 1 v2's, the one-block-a-row walk
-    that takes the self pair by index and sums each slot's pairs in the order
-    phase 1 v3 keeps, on ``grid`` with per-slot inverse masses ``imass`` and
-    pair constants ``k``: (pi_raw bit for bit, nl equal to nlen, the largest
-    relative difference over the live slots of lambda from lambda formed from
-    v2's sums, p_ratio in f32 as the kernel forms it and the rest in f64).
-    With the same sums only the kernel's f32 epilogue over positive terms
-    parts the two, a few ulp."""
+    """Phase 1 v3 (row 12) and phase 1 v2 (row 6) against phase 1 v1 (row 4),
+    the one-block-a-row walk that takes the self pair by index and sums each
+    slot's pairs in the order the row groups keep, over ``pbf_cuda.gather_v1``
+    of ``grid``, with per-slot inverse masses ``imass`` and pair constants
+    ``k``: (row 12's pi_raw bit for bit, its nl equal to nlen, the largest
+    relative difference over the live slots of its lambda from lambda formed
+    from the walk's sums, p_ratio in f32 as the kernel forms it and the rest
+    in f64; row 6's pi_raw, sg, c2d2 and nlen each bit for bit). With the same
+    sums only row 12's f32 epilogue over positive terms parts it from the
+    walk's, a few ulp; row 6 writes the walk's own expressions."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     cnt, *xyz = pc.planes(grid)
+    ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
+    walk = pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)
     lam, pi_raw, nl, _, _ = pc.phase1_slots(grid.nbr, cnt, *xyz, imass, k)
-    pi2, sg, c2d2, nlen, _, _ = pc.phase1_v2_slots(grid.nbr, cnt, *xyz, k)
+    raw = pc.phase1_v2_slots(grid.nbr, cnt, *xyz, k)
+    pi2, sg, c2d2, nlen = walk[:4]
     p_ratio = (pi2 / imass * k.inv_p0).double()
     ip2 = k.inv_p0 ** 2
     ref = -(p_ratio - 1.0) / (c2d2.double() * ip2 + (sg.double() ** 2).sum(-1) * ip2 + k.relax)
     rel = ((lam.double() - ref).abs() / ref.abs().clamp(min=1e-30))[grid.bmask]
     return (torch.equal(pi_raw.view(torch.int32), pi2.view(torch.int32)), torch.equal(nl, nlen),
-            float(rel.max()))
+            float(rel.max()),
+            [torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(raw[:4], walk[:4])])
 
 
 def phase2_part(mod, name, args):
     """Phase 2 v3 (``name`` pbf_phase2, ``args`` (nbr, cnt, x, y, z, lam, nc,
-    k)) or v2 (pbf_phase2_v2, (nbr, cnt, x, y, z, lam, k)) through the C entry
-    of ``mod`` (a ``pbf_cuda`` module, this checkout's or another's) with the
-    arguments its wrapper passes: (the updated planes x, y, z, or dsum, then
-    the per-row partial sums (C+1, 2) of s_corr and s_ns, which the wrapper
-    adds up)."""
-    nbr, cnt, x, y, z, lam = args[:6]
+    k)), v2 (pbf_phase2_v2, (nbr, cnt, x, y, z, lam, k)) or v1 (pbf_phase2_v1,
+    (ncnt, xng, lng, cnt, x, y, z, lam, k)) through the C entry of ``mod`` (a
+    ``pbf_cuda`` module, this checkout's or another's) with the arguments its
+    wrapper passes: (the updated planes x, y, z, or dsum, then the per-row
+    partial sums (C+1, 2) of s_corr and s_ns, which the wrapper adds up)."""
     k = args[-1]
-    c, m = nbr.shape[0], x.shape[1]
-    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
-    ptrs = [cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            lam.data_ptr()]
     consts = [k.h, k.h2, k.eps, k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom]
+    if name == "pbf_phase2_v1":
+        ncnt, xng, lng, cnt, x, y, z, lam = args[:8]
+        ptrs = [cnt.data_ptr(), ncnt.data_ptr(), xng.data_ptr(), lng.data_ptr(), x.data_ptr(),
+                y.data_ptr(), z.data_ptr(), lam.data_ptr()]
+    else:
+        nbr, cnt, x, y, z, lam = args[:6]
+        ptrs = [cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                lam.data_ptr()]
+    c, m = cnt.numel() - 1, x.shape[1]
+    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
     if name == "pbf_phase2":
         out = tuple(torch.empty_like(x) for _ in range(3))
         err = mod._lib().fnx_pbf_phase2(
@@ -247,21 +315,23 @@ def phase2_part(mod, name, args):
             *consts, k.inv_p0, mod._stream(x))
     else:
         out = (torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device),)
-        err = mod._lib().fnx_pbf_phase2_v2(*ptrs, out[0].data_ptr(), part.data_ptr(), c, m,
-                                           *consts, mod._stream(x))
+        entry = mod._lib().fnx_pbf_phase2_v1 if name == "pbf_phase2_v1" else \
+            mod._lib().fnx_pbf_phase2_v2
+        err = entry(*ptrs, out[0].data_ptr(), part.data_ptr(), c, m, *consts, mod._stream(x))
     if err:
         raise RuntimeError(f"{name}'s C entry returned {err}")
     return out + (part,)
 
 
-def plain_row_partials(nbr, cnt, x, y, z, lam, k):
+def plain_row_partials(nbr, cnt, x, y, z, lam, k, gathered=None):
     """The per-row partial sums (C+1, 2) of s_corr and s_ns over each row's
-    live slots that phase 2 (v3 or v2) writes, from its plain version's sums
-    (summed in another order than the kernel's tree)."""
+    live slots that phase 2 (v3, v2, or v1 with ``gathered`` = (ncnt, xng,
+    lng) and ``nbr`` = ncnt) writes, from its plain version's sums (summed in
+    another order than the kernel's tree)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     rows, mu = pc._extent(nbr, cnt)
-    _, _, cra, nsa = pc._phase2_sums(nbr, cnt, (x, y, z), lam, k, rows, mu)
+    _, _, cra, nsa = pc._phase2_sums(nbr, cnt, (x, y, z), lam, k, rows, mu, gathered)
     live = pc._live(cnt, mu)[:rows]
     part = torch.zeros((cnt.numel(), 2), device=x.device)
     part[:rows, 0] = torch.where(live, cra, 0.0).sum(1)
