@@ -10,17 +10,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It needs one card and exits non-zero, printing no result, without one.
 ``python3 chip_smoke.py mutants [attention|rasterizer|pairs]`` builds broken
 copies of the kernels (six of the attention backward: three of the mma.sync
-pair, three of the Hopper kernel; seven of the rasterizer: four of its
-backward and combine, three of its forward; sixteen of the pair kernels: two
-each of the density's adjoint, the density, the splat adjoint, the splat
-forward, phase 2 v3 and phase 2 v2, four of phase 1 v3) and shows that each
-fails a check; ``python3 chip_smoke.py raster [PARENT]`` checks and times
-the rasterizer kernels alone at camera 0's tiles (beside another checkout's,
-PARENT, in turns); ``python3 chip_smoke.py pairs [PARENT]`` does the same
-for the pair kernels of rows 6-13 of PERF.md's kernel table (the gas-loss
-density, its adjoint and both splat kernels at the first phase-C fit
-iteration's inputs, phases 1 and 2 of the PBF tick and phases 1 and 2 v2 at
-phase B's first tick), with their
+pair, three of the Hopper kernel; eight of the rasterizer: five of its
+backward and combine (one sums a chunked tile's first chunk alone), three of
+its forward; twenty-four of the pair
+kernels: two each of the density's adjoint, the density, the splat adjoint
+and the splat forward, two of phase 2's body, two of its dsum epilogue, four
+of phase 1's body, two of phase 1 v2 alone, four of phase 2 v1 alone, and
+two of phase 1 v1 alone: its self pair taken by d2 = 0 instead of by index,
+and its skip's reach tightened to 0.95 h^2) and shows that each fails a
+check; ``python3 chip_smoke.py raster [PARENT]`` checks and times the
+rasterizer kernels alone at camera 0's tiles (beside another checkout's,
+PARENT, in turns and bit for bit), then at its 12 x 12 and 64 x 32 tiles;
+``python3 chip_smoke.py pairs [PARENT]`` does the same for the pair kernels
+of rows 4-13 of PERF.md's kernel table (the gas-loss density, its adjoint
+and both splat kernels at the first phase-C fit iteration's inputs, phases
+1 and 2 of the PBF tick, 1 and 2 v2 and 1 and 2 v1 at phase B's first tick,
+and 1 and 2 v2 and v1 at the rigid rollout's first iteration), with their
 launch floors (every count 0; the splat forward also with every source
 count 0, the splat adjoint with every query count 0); ``python3
 chip_smoke.py pbf-variants PARENT VARIANT...`` holds source variants of the
@@ -43,9 +48,11 @@ background splats that stand in for the stage-1 PLY.
 Phase A (``fit_first_frame``): configs/smoke_dynamics.json through the
 port's Config, with iterations_per_time_first cut from 1000 to 30; visual
 capacity 65 536 with the config's 500 + 550 live visual particles; 16 x 16
-tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8; then the
-stage entry's tile check on the card (``train`` refuses 8 x 4 tiles before
-any work) and 3 fit iterations at 32 x 32 tiles.
+tiles (T = 60 x 34 = 2040, P = 256), tile_capacity 512, dup 8 x 8; the
+rasterizer kernels are also held to their plain versions at camera 0's 12 x
+12 and 64 x 32 tiles (two chunks a tile); then 3 fit iterations each at 8 x
+4, 12 x 12 and 64 x 32 tiles, and ``train`` refusing a tile with no pixel
+before any work.
 
 Phase B (``stabilize_hidden``): the same config with init_hidden_delta 0.01,
 the reference operating point of tools/run_full_scale_recon.py (the Config
@@ -677,6 +684,7 @@ def run_phase_a(dev):
     print(f"rasterizer kernels (registers, shared bytes, threads, blocks per SM): "
           f"{tc.occupancy(packed_t.shape[2] - 7, rc.tile_x, rc.tile_y)}")
     errors, saved = check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
+    other_tile_checks(cfg, scene, bg, dev)
 
     # ---- phase A on the card: the main path. A 2-iteration warm-up first, so
     # the timed runs below do not carry the process's one-time costs (lazy
@@ -740,35 +748,72 @@ def run_phase_a(dev):
 
 
 def tile_limit_checks(scene, bg, iters=3):
-    """The card's tile limits at the stage entries: ``train`` refuses 8 x 4
-    tiles (32 pixels: the forward takes them, the backward does not) with
-    ValueError before any work, launching nothing; a short phase-A fit at
-    32 x 32 tiles (1 024 pixels, the most the backward takes) goes through
-    both kernels once an iteration with finite losses."""
+    """Phase A on the card at tiles beside the main path's 16 x 16: ``iters``
+    fit iterations each through ``fit_first_frame`` at 8 x 4 (32 pixels, no
+    multiple of 64), 12 x 12 (144, no multiple of 32) and 64 x 32 (2 048, two
+    chunks a tile), with finite losses and one ``composite_bwd`` launch an
+    iteration; then ``train`` refuses a tile with no pixel (0 x 16) with
+    ValueError before any work, launching nothing."""
     from fluidnexus_torch.core.config import load_config
     from fluidnexus_torch.pipelines import train_physical_particle as tp
 
     cfg = load_config("configs/smoke_dynamics.json")
     cfg.seed = SEED
-    cfg.pipe.tile_x, cfg.pipe.tile_y = 8, 4
+    cfg.optim.iterations_per_time_first = iters
+    for tile in ((8, 4),) + OTHER_TILES:
+        cfg.pipe.tile_x, cfg.pipe.tile_y = tile
+        reset_all_launches()
+        _, _, losses = tp.fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
+        launches = all_launches()
+        print(f"phase A at {tile[0]} x {tile[1]} tiles, {iters} iterations: losses "
+              f"{losses.tolist()}, launches composite_fwd {launches['composite_fwd']} "
+              f"composite_bwd {launches['composite_bwd']}")
+        if not (torch.isfinite(losses).all() and launches["composite_fwd"] >= iters
+                and launches["composite_bwd"] == iters):
+            _fail(f"phase A at {tile[0]} x {tile[1]} tiles did not run through both kernels to "
+                  f"finite losses")
+    cfg.pipe.tile_x, cfg.pipe.tile_y = 0, 16
     reset_all_launches()
     try:
         tp.train(cfg, scene, bg=bg, log=print, device="cuda")
-        _fail("train took 8 x 4 tiles on the card")
+        _fail("train took 0 x 16 tiles on the card")
     except ValueError as e:
-        print(f"train with 8 x 4 tiles on the card: ValueError before any work: {e}")
+        print(f"train with 0 x 16 tiles on the card: ValueError before any work: {e}")
     if any(all_launches().values()):
         _fail(f"train launched kernels before refusing its tile: {all_launches()}")
-    cfg.pipe.tile_x = cfg.pipe.tile_y = 32
-    cfg.optim.iterations_per_time_first = iters
-    reset_all_launches()
-    _, _, losses = tp.fit_first_frame(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
-    launches = all_launches()
-    print(f"phase A at 32 x 32 tiles, {iters} iterations: losses {losses.tolist()}, launches "
-          f"composite_fwd {launches['composite_fwd']} composite_bwd {launches['composite_bwd']}")
-    if not (torch.isfinite(losses).all() and launches["composite_fwd"] >= iters
-            and launches["composite_bwd"] == iters):
-        _fail("phase A at 32 x 32 tiles did not run through both kernels to finite losses")
+
+
+# tiles beside the main path's 16 x 16 at which camera 0's tiles are checked:
+# no multiple of 32 pixels, and over 1 024 (two chunks a tile)
+OTHER_TILES = ((12, 12), (64, 32))
+
+
+def other_tile_checks(cfg, scene, bg, dev, timed=False):
+    """The three rasterizer kernels against their plain versions at camera
+    0's tiles of each size of OTHER_TILES (``check_kernels``), with the
+    occupancy of the instantiations they take; with ``timed``, their times
+    beside their plain versions', bounds and the library's
+    (``time_kernels``)."""
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+
+    saved_tile = cfg.pipe.tile_x, cfg.pipe.tile_y
+    try:
+        for tile in OTHER_TILES:
+            cfg.pipe.tile_x, cfg.pipe.tile_y = tile
+            rc = raster_config_from(cfg)
+            packed_t, tile_gauss, counts, tiles_x, n = main_path_tiles(cfg, scene, bg, dev)
+            print(f"camera 0 at {tile[0]} x {tile[1]} tiles: T {packed_t.shape[0]} K "
+                  f"{packed_t.shape[1]} live slots {int(counts.sum())}, {tc.chunks(tile[0] * tile[1])} "
+                  f"chunk(s) a tile; rasterizer kernels (registers, shared bytes, threads, blocks "
+                  f"per SM): {tc.occupancy(packed_t.shape[2] - 7, *tile)}")
+            errors, saved = check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
+            if timed:
+                times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
+                print(f"at {tile[0]} x {tile[1]} tiles:")
+                raster_entries(times, live_slots, errors, {k: 0 for k in times}, 1)
+    finally:
+        cfg.pipe.tile_x, cfg.pipe.tile_y = saved_tile
 
 
 RASTER_SOURCES = {"composite_fwd": "fluidnexus_tpu/ops/rasterizer_pallas.py:139",
@@ -978,7 +1023,7 @@ def held_phase2(args, live, what):
 
 def held_phase2_raw(name, args, live, what):
     """Phase 2 v2 (``name`` pbf_phase2_v2, ``args`` (nbr, cnt, x, y, z, lam,
-    k)) or v1 (pbf_phase2_v1, (ncnt, xng, lng, cnt, x, y, z, lam, k)) through
+    k)) or v1 (pbf_phase2_v1, (ncnt, xng, lng, x, y, z, lam, k)) through
     its C entry with dsum and the per-row partial sums in NaN-filled blocks,
     against its plain version on the same inputs: each axis of dsum at 1e-4
     of its own scale over the live slots and exactly 0 at dead slots, empty
@@ -993,7 +1038,7 @@ def held_phase2_raw(name, args, live, what):
     label = "phase2 v1" if v1 else "phase2 v2"
     wrapper, plain = (pc.phase2_v1_slots, pc.phase2_v1_plain) if v1 else \
         (pc.phase2_v2_slots, pc.phase2_v2_plain)
-    cnt, lam = args[-6], args[-2]
+    cnt, lam = pc._own_counts(args[0]) if v1 else args[1], args[-2]
     dsum_p, s_corr_p, s_ns_p = plain(*args)
     part_p = plain_row_partials(args[0], cnt, *args[-5:], gathered=args[:3] if v1 else None)
     leave_nan_blocks(lam.device, tuple(dsum_p.shape), (cnt.numel(), 2))
@@ -1083,22 +1128,23 @@ def v2_v1_plans(inp, saved):
     ops1 = pairs * CANDIDATE_OPS + in1 * PHASE1_IN_RADIUS_OPS + n_live * RAW_SLOT_OPS
     ops2 = (pairs * CANDIDATE_OPS + in2 * (PHASE2_IN_RADIUS_OPS + max(k.int_pow, 1) - 1)
             + n_live * RAW_SLOT_OPS)
-    # bytes: cnt and the occupied rows' table read once (nbr for v2, the
+    # bytes: the occupied rows' table read once (nbr and cnt for v2, the
     # gathered counts for v1), the live centre slots' planes read once, the
     # live slots' outputs written once; v1 also reads, of the occupied rows'
     # gathered blocks (27 x 3 x M coordinates, 27 x M lambdas), the live
     # entries, which is all its kernels touch
-    table = 4 * (cnt.numel() + 27 * rows)
+    table = 4 * 27 * rows
+    table2 = table + 4 * cnt.numel()
     gathered_live = int(ncnt[cnt[:ncnt.shape[0]] > 0].sum())
     return {
         "pbf_phase1_v2": (pc.phase1_v2_slots, pc.phase1_v2_plain, (nbr, cnt, *xyz, k),
-                          table + 4 * n_live * (3 + 6), ops1),
+                          table2 + 4 * n_live * (3 + 6), ops1),
         "pbf_phase2_v2": (pc.phase2_v2_slots, pc.phase2_v2_plain, (nbr, cnt, *xyz, lam, k),
-                          table + 4 * n_live * (4 + 3) + 8 * rows, ops2),
-        "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain, (ncnt, xng, cnt, *xyz, k),
+                          table2 + 4 * n_live * (4 + 3) + 8 * rows, ops2),
+        "pbf_phase1_v1": (pc.phase1_v1_slots, pc.phase1_v1_plain, (ncnt, xng, *xyz, k),
                           table + 4 * 3 * gathered_live + 4 * n_live * (3 + 6), ops1),
         "pbf_phase2_v1": (pc.phase2_v1_slots, pc.phase2_v1_plain,
-                          (ncnt, xng, lng, cnt, *xyz, lam, k),
+                          (ncnt, xng, lng, *xyz, lam, k),
                           table + 4 * 4 * gathered_live + 4 * n_live * (4 + 3) + 8 * rows, ops2),
     }
 
@@ -1408,8 +1454,8 @@ def held_in_nan_blocks(name, args, what):
     in NaN-filled blocks (so a slot it leaves unwritten shows), against its
     plain version on the same inputs: each output field at 1e-4 of its own
     scale over the live centre slots (the count at args[1], the planes' width
-    at args[2]; for phase 1 v1 at args[2] and args[3]), and exactly 0 at dead
-    slots. Prints a line per field; returns (max|err|, the names of the
+    at args[2]; for phase 1 v1 its gathered counts' own, ncnt[:, 13], and
+    args[2]), and exactly 0 at dead slots. Prints a line per field; returns (max|err|, the names of the
     fields that failed)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
     from tests.torch_helpers import leave_nan_blocks
@@ -1421,8 +1467,8 @@ def held_in_nan_blocks(name, args, what):
     got = wrapper(*args)
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
-    at = 2 if name == "pbf_phase1_v1" else 1
-    live = pc._live(args[at], args[at + 1].shape[1])
+    cnt = pc._own_counts(args[0]) if name == "pbf_phase1_v1" else args[1]
+    live = pc._live(cnt, args[2].shape[1])
     worst, failures = 0.0, []
     for field, g, w in zip(fields, got, want):
         lv = live if g.dim() == 2 else live[..., None].expand_as(g)
@@ -1461,10 +1507,8 @@ def launch_floors(name, args):
     and the sources live (most of its source rows have no query in reach on
     the main path). {label: arguments}."""
     zero = torch.zeros_like
-    if name in ("pbf_phase1_v1", "pbf_phase2_v1"):
-        at = 2 if name == "pbf_phase1_v1" else 3  # cnt, after ncnt, xng (and lng)
-        return {"every count 0": (zero(args[0]),) + tuple(args[1:at]) + (zero(args[at]),)
-                + tuple(args[at + 1:])}
+    if name in ("pbf_phase1_v1", "pbf_phase2_v1"):  # a row's count is its copy's
+        return {"every count 0": (zero(args[0]),) + tuple(args[1:])}
     if name == "splat_fwd":
         return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:5]) + (zero(args[5]),)
                 + tuple(args[6:]),
@@ -2011,21 +2055,25 @@ def check_rigid_kernels(inp):
     iteration's inputs, live slots only: pi_raw, c2d2 and each axis of sg and
     of dsum at 1e-4 of their own scale, nlen exactly (flips at d2 = h^2
     allowed on at most 1e-5 of the live slots), the four global sums at 1e-5
-    relative, dead slots 0. Then v1 against v2: the same walk over copies of
-    the same rows, so identical, or within 1e-6 of each field's scale."""
+    relative, dead slots 0. Then phase 1 v2 and v1 against phase 1 v1's
+    checking mode, the walk (``phase1_v1_slots(..., walk=True)``), whose sums
+    in its order they keep: v1 identical, v2 identical or within 1e-6 of each
+    field's scale; and phase 2 v1 against v2: one body over copies of the
+    same rows, so identical, or within 1e-6."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     nbr, cnt, xyz, k, live = inp["nbr"], inp["cnt"], inp["xyz"], inp["k"], inp["live"]
     ncnt, xng = pc.gather_v1(nbr, cnt, *xyz)
-    p1 = {"v2": pc.phase1_v2_slots(nbr, cnt, *xyz, k), "v1": pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)}
+    p1 = {"v2": pc.phase1_v2_slots(nbr, cnt, *xyz, k), "v1": pc.phase1_v1_slots(ncnt, xng, *xyz, k)}
+    walk = pc.phase1_v1_slots(ncnt, xng, *xyz, k, walk=True)
     p1_plain = {"v2": pc.phase1_v2_plain(nbr, cnt, *xyz, k),
-                "v1": pc.phase1_v1_plain(ncnt, xng, cnt, *xyz, k)}
+                "v1": pc.phase1_v1_plain(ncnt, xng, *xyz, k)}
     lam = _lambda(inp["params"], live, *p1["v2"][:3], inp["imass"])
     lng = pc.gather_lam_v1(nbr, lam)
     p2 = {"v2": pc.phase2_v2_slots(nbr, cnt, *xyz, lam, k),
-          "v1": pc.phase2_v1_slots(ncnt, xng, lng, cnt, *xyz, lam, k)}
+          "v1": pc.phase2_v1_slots(ncnt, xng, lng, *xyz, lam, k)}
     p2_plain = {"v2": pc.phase2_v2_plain(nbr, cnt, *xyz, lam, k),
-                "v1": pc.phase2_v1_plain(ncnt, xng, lng, cnt, *xyz, lam, k)}
+                "v1": pc.phase2_v1_plain(ncnt, xng, lng, *xyz, lam, k)}
     torch.cuda.synchronize()
     n_live = int(live.sum())
     failures, errors = [], {}
@@ -2061,17 +2109,19 @@ def check_rigid_kernels(inp):
                   f"{rel:.3e} [tol 1e-5]")
             if not rel <= 1e-5:
                 failures.append(f"{v} {name}")
-    pairs_v1 = [(f"phase 1 {name}", a, b) for name, a, b in zip(
-        ("pi_raw", "sg", "c2d2", "nlen"), p1["v1"][:4], p1["v2"][:4])] + [
-        ("phase 2 dsum", p2["v1"][0], p2["v2"][0])]
-    for name, a, b in pairs_v1:
+    fields = ("pi_raw", "sg", "c2d2", "nlen")
+    pairs_v1 = [(f"v{v} against the walk", f"phase 1 {name}", a, b, tol)
+                for v, tol in (("1", 0.0), ("2", 1e-6))
+                for name, a, b in zip(fields, p1["v" + v][:4], walk[:4])] + [
+        ("v1 against v2", "phase 2 dsum", p2["v1"][0], p2["v2"][0], 1e-6)]
+    for which, name, a, b, tol in pairs_v1:
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
-        same = err == 0.0
-        print(f"rigid kernel check: v1 against v2, {name}: {'identical' if same else f'max|err| {err:.3e} / scale {scale:.3e}'} "
-              f"[identical, or 1e-6 x scale]")
-        if not err <= 1e-6 * scale:
-            failures.append(f"v1 against v2 {name}")
+        same = bits_equal(a, b)
+        print(f"rigid kernel check: {which}, {name}: {'identical' if same else f'max|err| {err:.3e} / scale {scale:.3e}'} "
+              f"[identical{f', or {tol:g} x scale' if tol else ''}]")
+        if not (same or err <= tol * scale):
+            failures.append(f"{which} {name}")
     if failures:
         _fail(f"the v2 and v1 kernels disagree: {failures}")
     return errors, dict(lam=lam, ncnt=ncnt, xng=xng, lng=lng, in_radius1=int(p1["v2"][5]),
@@ -3345,11 +3395,13 @@ RASTER_MUTANTS = {
          "u[i] = (up ? hi : lo) + (O == 4 ? 0.0f : __shfl_xor_sync(FULL_MASK, up ? lo : hi, O));")],
     "combine_one_slot_short": [(RASTER_SRC, "const int n = counts[t] * per_row;",
                                 "const int n = (counts[t] - 1) * per_row;")],
+    "bwd_sums_the_first_chunk_alone": [(RASTER_SRC, "for (int c = 0; c < nch; ++c) acc +=",
+                                        "for (int c = 0; c < 1; ++c) acc +=")],
     "fwd_box_no_slack": [(RASTER_SRC, "const float slack = 1e-5f * ", "const float slack = 0.0f * ")],
     "fwd_drops_second_pixel": [(RASTER_SRC, "if (!ok) continue;  // skipped: T as it was",
                                 "if (!ok || q == 1) continue;")],
-    "fwd_ignores_last_bucket": [(RASTER_SRC, "const int t = g_tile_order[blockIdx.x], cnt = counts[t];",
-                                 "const int t = g_tile_order[blockIdx.x], cnt = counts[t];\n"
+    "fwd_ignores_last_bucket": [(RASTER_SRC, "const int t = tc.t, cnt = counts[t];",
+                                 "const int t = tc.t, cnt = counts[t];\n"
                                  "  if (cnt == 0) return;")],
 }
 PAIR_SRC = "fluidnexus_torch/csrc/pair_common.cuh"
@@ -3413,6 +3465,24 @@ PAIRS_MUTANTS = {
                           "return active || j < 27 ? row * 27 + j : -1;")],
     "phase2_v1_dead_slots_in_part": [(PBF_SRC, "const float cr_i = live[i] ? c[i].a.cra : 0.0f,",
                                       "const float cr_i = live[i] || Src::GATHERED ? c[i].a.cra : 0.0f,")],
+    # row 4 alone: phase 1's body over the gathered rows
+    "row4_self_by_d2": [
+        (PBF_SRC, "Cen1 (&c)[CPL],\n                                             const PairConsts& k) {",
+         "Cen1 (&c)[CPL],\n                                             const PairConsts& k, bool by_d2 = false) {"),
+        (PBF_SRC, "s.z, c0 + e == ci.self_e, k);",
+         "s.z, by_d2 ? norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
+         "__fsub_rn(ci.z, s.z)) == 0.0f : c0 + e == ci.self_e, k);"),
+        (PBF_SRC, "(list, c0, kn, c, k);\n      else\n        phase1_sweep<CPL, CPL, SKIP>(list, c0, kn, c, k);",
+         "(list, c0, kn, c, k, Src::GATHERED);\n      else\n"
+         "        phase1_sweep<CPL, CPL, SKIP>(list, c0, kn, c, k, Src::GATHERED);")],
+    "row4_skip_tightened": [
+        (PBF_SRC, "Cen1 (&c)[CPL],\n                                             const PairConsts& k) {",
+         "Cen1 (&c)[CPL],\n                                             const PairConsts& k, bool tight = false) {"),
+        (PBF_SRC, "__fsub_rn(c[i].z, s.z)) <= k.h2 * P1_REACH;",
+         "__fsub_rn(c[i].z, s.z)) <= k.h2 * (tight ? 0.95f : P1_REACH);"),
+        (PBF_SRC, "(list, c0, kn, c, k);\n      else\n        phase1_sweep<CPL, CPL, SKIP>(list, c0, kn, c, k);",
+         "(list, c0, kn, c, k, Src::GATHERED);\n      else\n"
+         "        phase1_sweep<CPL, CPL, SKIP>(list, c0, kn, c, k, Src::GATHERED);")],
 }
 _RASTER_MUTANT_CHECK = """
 import sys, torch
@@ -3436,7 +3506,8 @@ MUTANT_GROUPS = {"attention": (BWD_MUTANTS, ["attention", "attention_bwd"], _MUT
 
 def raster_checks(dev):
     """The rasterizer kernels against their plain versions at camera 0's
-    main-path tiles and at each edge case of ``tests/torch_helpers.edge_tiles``
+    main-path tiles, at its tiles of OTHER_TILES and at each edge case of
+    ``tests/torch_helpers.edge_tiles``
     (C = 1 and 3), and the forward's skip and the backward's re-sweep bit for
     bit there and at ``threshold_tiles``: what a rasterizer mutant has to get
     past."""
@@ -3449,7 +3520,9 @@ def raster_checks(dev):
     cfg = load_config("configs/smoke_dynamics.json")
     cfg.seed = SEED
     rc = raster_config_from(cfg)
-    check_kernels(*main_path_tiles(cfg, smoke_scene(), synthetic_background(32768, dev), dev), rc)
+    scene, bg = smoke_scene(), synthetic_background(32768, dev)
+    check_kernels(*main_path_tiles(cfg, scene, bg, dev), rc)
+    other_tile_checks(cfg, scene, bg, dev)
     for case in EDGE_CASES:
         for c in (1, 3):
             print(f"edge case {case}, C = {c}:")
@@ -3516,7 +3589,8 @@ def _parent_module(parent, tmp, lib, module):
     """The wrappers of another checkout (root ``parent``): its module
     ``module`` (a path under the root) loaded as a module of its own and bound
     to that checkout's ``fluidnexus_torch/csrc/<lib>.cu``, built into
-    ``tmp``. Returns (module, the nvcc process to wait for)."""
+    ``tmp`` (the pbf wrappers through ``_counts_first``). Returns (module,
+    the nvcc process to wait for)."""
     import ctypes
     import importlib.util
     import types
@@ -3533,7 +3607,7 @@ def _parent_module(parent, tmp, lib, module):
     mod.cuda_build = types.SimpleNamespace(
         load=lambda name: ctypes.CDLL(lib_path), check=cuda_build.check,
         raise_on=cuda_build.raise_on, require_cuda=cuda_build.require_cuda)
-    return mod, proc
+    return (_counts_first(mod) if lib == "pbf" else mod), proc
 
 
 def _wait_parent_build(proc, lib):
@@ -3561,8 +3635,10 @@ def raster_time(parent=None):
     times it on the card beside its plain version and ``index_add_``. With
     the root of another checkout as PARENT (a ``git archive`` of the parent
     commit), that checkout's ``csrc/rasterizer.cu`` is built as well and its
-    three kernels are timed through its own wrappers in turns with this
-    checkout's (parent, this, this, parent) on the same inputs."""
+    three kernels are held bit for bit and timed through its own wrappers in
+    turns with this checkout's (parent, this, this, parent) on the same
+    inputs (``parent_in_turns``). Last, ``other_tile_checks`` holds and times
+    this checkout's kernels at camera 0's tiles of OTHER_TILES."""
     from fluidnexus_torch.core.config import load_config
     from fluidnexus_torch.ops import cuda_build
     from fluidnexus_torch.ops import rasterizer_cuda as tc
@@ -3616,24 +3692,59 @@ def raster_time(parent=None):
         errors, saved = check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
         times, live_slots = time_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
         raster_entries(times, live_slots, errors, {k: 0 for k in times}, 1)
-        if pmod is None:
-            return
-        g = (saved["gacc"], saved["gft"], saved["ft"], saved["ckpt"])
-        dpk_parent = pmod.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
-        dpk_this = tc.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
-        scale = dpk_parent.abs().amax((0, 1)).clamp_min(1e-30)
-        print("composite_bwd this against the parent, max|diff| / max|parent| per field: "
-              + ", ".join(f"{v:.2e}" for v in ((dpk_this - dpk_parent).abs().amax((0, 1))
-                                               / scale).tolist()))
-        calls = {
-            "composite_fwd": ("composite_fwd_kernel",
-                              lambda m: m.composite_fwd(packed_t, counts, tiles_x, tx, ty)),
-            "composite_bwd": ("composite_bwd_kernel",
-                              lambda m: m.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)),
-            "combine_rows": ("combine_kernel",
-                             lambda m: m.combine_rows(saved["dpk"], tile_gauss, counts, n))}
-        for name, (kernel, call) in calls.items():
-            in_turns(name, kernel, call, pmod, tc)
+        if pmod is not None:
+            parent_in_turns(pmod, packed_t, tile_gauss, counts, tiles_x, n, rc, saved)
+        other_tile_checks(cfg, scene, bg, dev, timed=True)
+
+
+def parent_in_turns(pmod, packed_t, tile_gauss, counts, tiles_x, n, rc, saved):
+    """The parent's rasterizer wrappers ``pmod`` against this checkout's at
+    camera 0's tiles: whether each kernel's outputs are bit-identical to the
+    parent's on the same inputs (the forward's accum, final T, median and its
+    checkpoints of the live windows, the only ones it writes; the backward's
+    packed gradient; the combine's rows at one slot a row, since at the main
+    path's ids, a Gaussian in many tiles, its atomics add in no fixed order,
+    and two runs of one build part too, which is printed beside it), the
+    backward's difference per field, then the three kernels timed in turns
+    (parent, this, this, parent)."""
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+
+    tx, ty = rc.tile_x, rc.tile_y
+    g = (saved["gacc"], saved["gft"], saved["ft"], saved["ckpt"])
+    k = packed_t.shape[1]
+    nwin = (counts.long() + tc.CKPT - 1) // tc.CKPT
+    live_win = torch.arange(-(-k // tc.CKPT), device=counts.device)[None, :] < nwin[:, None]
+    fwd_p = pmod.composite_fwd(packed_t, counts, tiles_x, tx, ty)
+    fwd_t = tc.composite_fwd(packed_t, counts, tiles_x, tx, ty)
+    same = {"composite_fwd": all(bits_equal(a, b) for a, b in zip(fwd_p[:3], fwd_t[:3]))
+            and bits_equal(fwd_p[3][live_win], fwd_t[3][live_win])}
+    dpk_parent = pmod.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
+    dpk_this = tc.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)
+    same["composite_bwd"] = bits_equal(dpk_parent, dpk_this)
+    one = torch.arange(counts.numel() * k, device=counts.device).view(counts.numel(), k)
+    same["combine_rows at one slot a row"] = bits_equal(
+        pmod.combine_rows(saved["dpk"], one, counts, one.numel()),
+        tc.combine_rows(saved["dpk"], one, counts, one.numel()))
+    same["combine_rows at the main path's ids"] = bits_equal(
+        pmod.combine_rows(saved["dpk"], tile_gauss, counts, n),
+        tc.combine_rows(saved["dpk"], tile_gauss, counts, n))
+    same["combine_rows at those ids, this twice"] = bits_equal(
+        tc.combine_rows(saved["dpk"], tile_gauss, counts, n),
+        tc.combine_rows(saved["dpk"], tile_gauss, counts, n))
+    print(f"this against the parent at {tx} x {ty} tiles, bit-identical: {same}")
+    scale = dpk_parent.abs().amax((0, 1)).clamp_min(1e-30)
+    print("composite_bwd this against the parent, max|diff| / max|parent| per field: "
+          + ", ".join(f"{v:.2e}" for v in ((dpk_this - dpk_parent).abs().amax((0, 1))
+                                           / scale).tolist()))
+    calls = {
+        "composite_fwd": ("composite_fwd_kernel",
+                          lambda m: m.composite_fwd(packed_t, counts, tiles_x, tx, ty)),
+        "composite_bwd": ("composite_bwd_kernel",
+                          lambda m: m.composite_bwd(packed_t, counts, *g, tiles_x, tx, ty)),
+        "combine_rows": ("combine_kernel",
+                         lambda m: m.combine_rows(saved["dpk"], tile_gauss, counts, n))}
+    for name, (kernel, call) in calls.items():
+        in_turns(name, kernel, call, pmod, tc)
 
 
 PAIRS_ROWS = {"density_fwd": 8, "density_bwd": 9, "splat_fwd": 10, "splat_bwd": 11,  # rows of
@@ -3659,7 +3770,51 @@ def with_part(module, name, args, out):
     from tests.torch_helpers import phase2_part
 
     out = (out,) if torch.is_tensor(out) else tuple(out)
-    return out + phase2_part(module, name, args)[-1:] if name in PAIRS_PART else out
+    if name not in PAIRS_PART:
+        return out
+    if name == "pbf_phase2_v1" and getattr(module, "counts_first", False):
+        return out + (_counts_first_phase2_v1_part(module, args),)
+    return out + phase2_part(module, name, args)[-1:]
+
+
+def _counts_first(mod):
+    """``mod``, the pbf wrappers of another checkout, made to take this
+    checkout's v1 arguments where its v1 wrappers and C entries take the row
+    counts ``cnt`` (C+1,) after the gathered tensors: cnt is then made from
+    each gathered row's own count, ncnt[:, 13], and 0 for row C. Its phase 1
+    v1 is then the one-block-a-row walk, whatever ``walk`` asks. Such a
+    module is marked ``counts_first``; any other is returned as it is."""
+    import inspect
+
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    if "cnt" not in inspect.signature(mod.phase1_v1_slots).parameters:
+        return mod
+    p1, p2 = mod.phase1_v1_slots, mod.phase2_v1_slots
+    mod.phase1_v1_slots = lambda ncnt, xng, *a, walk=False: p1(ncnt, xng, pc._own_counts(ncnt), *a)
+    mod.phase2_v1_slots = lambda ncnt, xng, lng, *a: p2(ncnt, xng, lng, pc._own_counts(ncnt), *a)
+    mod.phase1_v1_slots.__name__, mod.phase2_v1_slots.__name__ = "phase1_v1_slots", "phase2_v1_slots"
+    mod.counts_first = True
+    return mod
+
+
+def _counts_first_phase2_v1_part(mod, args):
+    """The per-row partial sums (C+1, 2) of phase 2 v1 through the C entry of
+    a ``_counts_first`` module at this checkout's arguments ``args`` (ncnt,
+    xng, lng, x, y, z, lam, k)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    ncnt, xng, lng, x, y, z, lam, k = args
+    cnt = pc._own_counts(ncnt)
+    c, m = x.shape[0] - 1, x.shape[1]
+    dsum = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
+    part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
+    err = mod._lib().fnx_pbf_phase2_v1(
+        *(t.data_ptr() for t in (cnt, ncnt, xng, lng, x, y, z, lam, dsum, part)), c, m, k.h, k.h2,
+        k.eps, k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom, mod._stream(x))
+    if err:
+        raise RuntimeError(f"pbf_phase2_v1's C entry returned {err}")
+    return part
 
 
 def rigid_inputs_by_train(cfg, scene, bg, dev, tmp):
@@ -3908,11 +4063,11 @@ def pairs_checks(dev):
     (its dsum and each row's partial sums, the isolated point's dsum exactly
     0); phase 1 v3 at M = 32 and M = 128 over such a grid, nl exact, the
     isolated point's pi_raw and nl bit for bit (its self pair alone); phases
-    1 v3 and v2 against phase 1 v1's walk over 20 coincident pairs and over
-    graded rows at the default epsilon
+    1 v3, v2 and v1 against phase 1 v1's checking mode, the walk, over 20
+    coincident pairs and over graded rows at the default epsilon
     (``tests/torch_helpers.phase1_against_the_walk``: only sums that take the
     self pair by index, in the walk's order, round alike); and
-    ``rows_6_and_5_checks``. What a pairs mutant has to get past."""
+    ``graded_rows_checks``. What a pairs mutant has to get past."""
     from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -4036,24 +4191,27 @@ def pairs_checks(dev):
             same_pi, same_nl, rel, raw_same = phase1_against_the_walk(
                 grid, torch.where(live, im, 1.0).contiguous(), k)
             ok = same_pi and same_nl and rel <= 1e-6 and all(raw_same)
-            print(f"pairs check, phases 1 v3 and v2 against phase 1 v1's walk, M {m}, {kind}: "
-                  f"v3 pi_raw bit for bit {same_pi}, nl exact {same_nl}, lambda max rel diff "
-                  f"{rel:.3e} [tol 1e-6]; v2 pi_raw, sg, c2d2, nlen bit for bit {raw_same}"
-                  + ("" if ok else " FAILED"))
+            print(f"pairs check, phases 1 v3, v2 and v1 against phase 1 v1's walk, M {m}, "
+                  f"{kind}: v3 pi_raw bit for bit {same_pi}, nl exact {same_nl}, lambda max rel "
+                  f"diff {rel:.3e} [tol 1e-6]; v2 then v1 pi_raw, sg, c2d2, nlen bit for bit "
+                  f"{raw_same}" + ("" if ok else " FAILED"))
             if not ok:
                 failures.append(f"phase 1 M {m}, {kind}: the walk's sums")
-    failures += rows_6_and_5_checks(dev)
+    failures += graded_rows_checks(dev)
     if failures:
         _fail(f"the pair kernels disagree with their plain versions: {failures}")
 
 
-def rows_6_and_5_checks(dev):
-    """Phase 1 v2 (row 6) and phase 2 v1 (row 5) at M = 32 and 128 over
-    ``tests/torch_helpers.graded_rows_grid``, whose rows hold 1-8, 9-16,
-    17-24 and more live slots (every count of centre slots a lane and of
-    passes), d2 = 0 pairs in one row and a lone point: row 6 into NaN-filled
-    blocks against its plain version at epsilon 1e-2, its lone point's
-    pi_raw and nlen bit for bit; row 5 at e_p 4 and 2.5 with its dsum and
+def graded_rows_checks(dev):
+    """Phase 1 v2 (row 6), phase 1 v1 (row 4) and phase 2 v1 (row 5) at M =
+    32 and 128 over ``tests/torch_helpers.graded_rows_grid``, whose rows hold
+    1-8, 9-16, 17-24 and more live slots (every count of centre slots a lane
+    and of passes), d2 = 0 pairs in one row and a lone point: rows 6 and 4
+    into NaN-filled blocks against their plain versions at epsilon 1e-2, row
+    4's gathered rows followed by guard rows that hold live neighbours
+    (``guarded_gather``: row C must read none), row 6's lone point's pi_raw
+    and nlen bit for bit, row 4's every output bit for bit row 6's; row 5 at
+    e_p 4 and 2.5 with its dsum and
     per-row partial sums in NaN-filled blocks against its plain version, its
     gathered rows followed by guard rows that hold live neighbours
     (``guarded_gather``: row C must read none), its lone point's dsum 0, and
@@ -4084,10 +4242,17 @@ def rows_6_and_5_checks(dev):
         print(f"{what}: the lone point's pi_raw and nlen bit for bit {alone}")
         if not alone:
             failures.append(f"row 6 M {m}: the lone point")
+        args4 = (*guarded_gather(grid.nbr, cnt, *xyz, torch.zeros_like(xyz[0]))[:2], *xyz, k1)
+        what = f"pairs check, row 4, graded rows M {m}"
+        failures += [f"row 4 M {m}: {f}" for f in held_in_nan_blocks("pbf_phase1_v1", args4, what)[1]]
+        same = [bits_equal(a, b) for a, b in zip(pc.phase1_v1_slots(*args4)[:4], got[:4])]
+        print(f"{what}: pi_raw, sg, c2d2, nlen bit for bit row 6's: {same}")
+        if not all(same):
+            failures.append(f"row 4 M {m}: row 6's bits")
         for e_p in (4.0, 2.5):
             k2 = pc.pair_consts(tpbf.PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
             lam = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k2)[0].contiguous()
-            args1 = (*guarded_gather(grid.nbr, cnt, *xyz, lam), cnt, *xyz, lam, k2)
+            args1 = (*guarded_gather(grid.nbr, cnt, *xyz, lam), *xyz, lam, k2)
             args2 = (grid.nbr, cnt, *xyz, lam, k2)
             what = f"pairs check, row 5, graded rows M {m} e_p {e_p}"
             failures += [f"row 5 M {m} e_p {e_p}: {f}" for f in

@@ -75,10 +75,10 @@ __host__ __device__ constexpr bool loads_vec3(Extra X) { return X == W_VEC3 || X
 
 // The sources a group's list is staged from. Each names neighbour j of a row
 // by a handle, gives the live count behind it and loads its slot s.
-// PlaneSource, the default, is every kernel's but phase 2 v1's: the handle is
-// the neighbour's row, read from nbr (C where there is none), and slot s lies
-// at h * M + s of the (C+1, M) planes x, y, z (w, v3 where the Extra loads
-// them), whose counts are cnt.
+// PlaneSource, the default, is every kernel's but phases 1 and 2 v1's: the
+// handle is the neighbour's row, read from nbr (C where there is none), and
+// slot s lies at h * M + s of the (C+1, M) planes x, y, z (w, v3 where the
+// Extra loads them), whose counts are cnt.
 struct PlaneSource {
   static constexpr bool GATHERED = false;
   const int* nbr;
@@ -99,11 +99,12 @@ struct PlaneSource {
   }
 };
 
-// GatheredSource, phase 2 v1's: the neighbour rows copied for each row before
-// the launch (sim/pbf_cuda.gather_v1, as the JAX package's v1 tick gathers
-// them): coordinates xng (C, 27, 3, M), a fourth plane lng (C, 27, M) and
-// counts ncnt (C, 27). The handle of neighbour j of row r is r * 27 + j, which
-// needs no load, so the table takes one trip; rows C and past have none (-1).
+// GatheredSource, phases 1 and 2 v1's: the neighbour rows copied for each
+// row before the launch (sim/pbf_cuda.gather_v1, as the JAX package's v1 tick
+// gathers them): coordinates xng (C, 27, 3, M), a fourth plane lng (C, 27, M;
+// phase 2's lambdas, null in phase 1) and counts ncnt (C, 27). The handle of
+// neighbour j of row r is r * 27 + j, which needs no load, so the table takes
+// one trip; rows C and past have none (-1).
 // Neighbour 13 of a row is the row itself, whatever its copy holds.
 struct GatheredSource {
   static constexpr bool GATHERED = true;

@@ -18,13 +18,14 @@
 // The v1 kernels read their neighbour rows from tensors gathered before the
 // launch (sim/pbf_cuda.gather_v1): xng (C, 27, 3, M) the neighbour rows'
 // coordinates, lng (C, 27, M) their lambdas, ncnt (C, 27) their live counts.
-// Every kernel but phase 1 v1 gives a row to a group of lanes over one staged
-// neighbourhood list (the row groups, below); phase 2 v1 stages its list from
-// the gathered rows (pair_common.cuh's GatheredSource), the others from the
-// planes through nbr. Phase 1 v1 walks with one block per row, one thread per
-// centre slot (phase1_walk): the sums the row groups' phase 1 must keep bit
-// for bit. Dead slots and rows are masked by the counts, so no sentinel
-// coordinates are needed. The pair terms are fnx::pair_terms and
+// Every kernel gives a row to a group of lanes over one staged neighbourhood
+// list (the row groups, below); phases 1 and 2 v1 stage their lists from the
+// gathered rows (pair_common.cuh's GatheredSource), the others from the
+// planes through nbr. Phase 1 v1 keeps, as a checking mode of its entry, the
+// one-block-a-row walk it had before (phase1_walk_kernel: one block per row,
+// one thread per centre slot), whose sums in its order every row group's
+// phase 1 must keep bit for bit. Dead slots and rows are masked by the
+// counts, so no sentinel coordinates are needed. The pair terms are fnx::pair_terms and
 // fnx::phase2_terms (pair_common.cuh), the same device functions in every
 // generation.
 
@@ -60,7 +61,8 @@ struct Row {
   bool self_row;  // the centre cell itself
 };
 
-// v1: from the pre-gathered rows. Offset 13 of an occupied cell is the cell.
+// The walk's rows: the pre-gathered ones. Offset 13 of an occupied cell is the
+// cell.
 struct GatheredRows {
   const int* ncnt;
   const float* xng;
@@ -124,23 +126,27 @@ __device__ __forceinline__ Sums1 phase1_walk(const Rows& rows, int cell, int i, 
   return a;
 }
 // ---------------------------------------------------------------------------
-// Phase 1, v1: the raw sums, with lambda left to the caller
-// (sim/pbf_dense._project_core, as fluidnexus_tpu/sim/pbf_dense.py:155-160
-// does). Per live slot: pi_raw = sum w, sg = (sum cg) x_i - sum cg x_s
-// (C+1, M, 3), c2d2 = sum cg^2 d2, nlen = the in-radius count (self
-// included). Dead slots and empty rows write 0, so the global sums are the
-// plain sums of pi_raw and nlen.
+// Phase 1 v1's checking mode (fnx_pbf_phase1_v1 with walk = 1): the raw sums
+// of phase 1 v1 (below) by the one-block-a-row walk, each neighbour row
+// staged in shared memory in turn (stage), one thread a centre slot
+// (phase1_walk), the self pair taken by index. It adds each slot's terms in
+// the order the row groups keep, so every row group's phase 1 must match it
+// bit for bit; it is the one order that shows a self pair taken by d2 = 0
+// (phase 1's outputs see that only through their rounding). No stage runs
+// it. A row's live count is its own copy's, ncnt[row, 13]; row C has none
+// and walks nothing. Dead slots and empty rows write 0.
 // ---------------------------------------------------------------------------
-template <class Rows>
-__device__ __forceinline__ void phase1_raw(const Rows& rows, const int* cnt, const float* x,
-                                           const float* y, const float* z, float* pi_raw,
-                                           float* sg, float* c2d2, float* nlen, int M,
-                                           const PairConsts& k) {
+__global__ void __launch_bounds__(MAX_M) phase1_walk_kernel(
+    const int* __restrict__ ncnt, const float* __restrict__ xng, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
+    float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
+    PairConsts k) {
   __shared__ float sx[MAX_M], sy[MAX_M], sz[MAX_M];
+  const GatheredRows rows{ncnt, xng, nullptr, M};
   const int cell = blockIdx.x;
   const int i = threadIdx.x;
   const size_t at = (size_t)cell * M + i;
-  const int n_c = cnt[cell];
+  const int n_c = cell < C ? ncnt[(size_t)cell * 27 + fnx::SELF_J] : 0;
   const bool live = i < n_c;
   const float xc = live ? x[at] : 0.0f, yc = live ? y[at] : 0.0f, zc = live ? z[at] : 0.0f;
   Sums1 a{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -154,26 +160,10 @@ __device__ __forceinline__ void phase1_raw(const Rows& rows, const int* cnt, con
   nlen[at] = live ? a.nla : 0.0f;
 }
 
-// Replaces the Pallas kernel fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel
-// (wrapper phase1_slots), which reads its neighbour rows from a (C, 81, M)
-// tensor gathered before the launch; here from the gathered (C, 27, 3, M)
-// rows and (C, 27) counts. Bound on the H100: the operations of v2 against
-// one read of the occupied rows' gathered blocks (27 x 3 x M floats each):
-// by bytes where those blocks outweigh the arithmetic. The one-block-a-row
-// walk: each neighbour row staged in shared memory in turn (stage), one
-// thread a centre slot (phase1_walk).
-__global__ void __launch_bounds__(MAX_M) phase1_v1_kernel(
-    const int* __restrict__ cnt, const int* __restrict__ ncnt, const float* __restrict__ xng,
-    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
-    float* __restrict__ pi_raw, float* __restrict__ sg, float* __restrict__ c2d2,
-    float* __restrict__ nlen, int M, PairConsts k) {
-  phase1_raw(GatheredRows{ncnt, xng, nullptr, M}, cnt, x, y, z, pi_raw, sg, c2d2, nlen, M, k);
-}
-
 
 // ---------------------------------------------------------------------------
-// The gas loss's density and its adjoint, and every PBF pass but phase 1 v1:
-// pair walks over a grid's 27 neighbours, at ~7-9 live slots a row on their
+// The gas loss's density and its adjoint, and every PBF pass: pair walks
+// over a grid's 27 neighbours, at ~7-9 live slots a row on their
 // main paths. A walk of one block per row that waits on each neighbour's id,
 // count and slots in turn is bound by those ~80 dependent trips to memory,
 // not by its operations, and a lane per centre slot leaves most of a warp
@@ -408,7 +398,7 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
 
 // ---------------------------------------------------------------------------
 // The PBF passes on row groups: phases 1 and 2 of the grid-reuse tick (v3),
-// phases 1 and 2 of the per-iteration rebuild (v2) and phase 2 v1, the design
+// of the per-iteration rebuild (v2) and of the v1 projection, the design
 // above with these points in common:
 // - A group of L lanes owns a row, 64 / L rows a block, and a lane holds up
 //   to CPL centre slots, so a pass covers L * CPL slots and a row of more
@@ -416,15 +406,15 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) density_bwd_kernel(
 //   time: phases 1 and 2 v3 and phase 2 (v2, v1) take (8, 2) (ROW_LANES,
 //   ROW_CPL), for the hidden grid's rows of ~7 live slots (at most 8 on phase
 //   B's first tick; 16-lane groups read 0.0316 ms against 0.0237 for phase 2
-//   v3 on the H100), and phase 2's partial sums need that tree. Phase 1 v2
-//   runs on the rigid tick's rebuilt grid, whose rows hold 8.7 live slots on
-//   average and up to 20: it takes (P1V2_LANES, P1V2_CPL) (below).
+//   v3 on the H100), and phase 2's partial sums need that tree. Phases 1 v2
+//   and v1 run on the rigid tick's rebuilt grid, whose rows hold 8.7 live
+//   slots on average and up to 20: they take (P1V2_LANES, P1V2_CPL) (below).
 // - Within a pass, a warp's lanes hold one centre slot, or CPL where a row of
 //   the warp has more live slots than its group has lanes (pass_cpl).
 // - The pair loops call pair_terms (and phase2_terms) unchanged, and each sum
-//   adds what a one-block-a-row walk over the rows (phase1_walk, and phase
-//   2's walk, which these kernels replaced) added, in its order, so every
-//   slot keeps that walk's bits.
+//   adds what a one-block-a-row walk over the rows (phase1_walk_kernel, and
+//   phase 2's walk, which these kernels replaced) added, in its order, so
+//   every slot keeps that walk's bits.
 // - The self pair is found by index, never by d2 = 0: the centre's own entry
 //   is neighbour 13's (the row itself: the planes' nbr names the row, and a
 //   gathered row's neighbour 13 is its own copy) at its slot, pre[13] + slot.
@@ -484,20 +474,22 @@ __device__ __forceinline__ void zero_span(float* p, int i0, int i1, int sub, boo
 }
 
 // ---------------------------------------------------------------------------
-// Phase 1, v3 and v2. Replaces the Pallas kernels
+// Phase 1, v3, v2 and v1. Replaces the Pallas kernels
 // fluidnexus_tpu/sim/pbf_pallas.py:_phase1_kernel_v3 (wrapper
-// phase1_slots_v3) and :_phase1_kernel_v2 (wrapper phase1_slots_v2). Per
+// phase1_slots_v3), :_phase1_kernel_v2 (wrapper phase1_slots_v2) and
+// :_phase1_kernel (wrapper phase1_slots, which reads the neighbour rows from
+// a tensor gathered before the launch, as v1 does here: GatheredSource). Per
 // live slot the sums over its pairs: the raw poly6 sum pi_raw (self
 // included), the in-radius count nl (self included), sum cg, sum cg^2 d2 and
 // sum cg x_s. What a launch writes (P1Out):
 // - LAMBDA (v3): pi_raw, nl and lambda, computed here from the spiky sums:
 //   sg = (sum cg) x_i - sum cg x_s,  p_ratio = pi_raw / imass / p0,
 //   lambda = -(p_ratio - 1) / (sum cg^2 d2 / p0^2 + |sg|^2 / p0^2 + relax).
-// - RAW (v2): pi_raw, sg (C+1, M, 3) interleaved, c2d2 = sum cg^2 d2 and
-//   nlen = nl, with lambda left to the caller (sim/pbf_dense._project_core,
+// - RAW (v2, v1): pi_raw, sg (C+1, M, 3) interleaved, c2d2 = sum cg^2 d2
+//   and nlen = nl, with lambda left to the caller (sim/pbf_dense._project_core,
 //   as fluidnexus_tpu/sim/pbf_dense.py:155-160 does); it reads no imass.
-//   Each output is the expression phase1_raw writes for phase 1 v1 (nvcc
-//   contracts sg's a.cga * xc - a.bx alike in both), so v1 and v2 agree bit
+//   Each output is the expression phase1_walk_kernel writes (nvcc contracts
+//   sg's a.cga * xc - a.bx alike in both), so v2, v1 and the walk agree bit
 //   for bit.
 // Dead slots, empty rows and row C write 0, so the global sums are plain sums.
 //
@@ -538,7 +530,12 @@ __device__ __forceinline__ void zero_span(float* p, int i0, int i1, int sub, boo
 //   above h, so cg = 0), and adding +0 to a sum that is never -0 leaves its
 //   bits, so the skip keeps the walk's sums. 0.037 -> 0.031 ms at the rigid
 //   inputs, 0.025 -> 0.023 at phase B's first tick. v3 keeps its branch-free
-//   loop (its time is not this slice's to move).
+//   loop.
+// - v1 is v2's configuration over the gathered rows (GatheredSource: the
+//   table in one trip, the row's own count and self entry from its copy,
+//   neighbour 13, so row C, which has no copy, reads none); its sums are
+//   v2's, entry for entry, so it writes v2's bits. It replaced the walk,
+//   which its entry keeps as a checking mode (phase1_walk_kernel).
 // ---------------------------------------------------------------------------
 constexpr int P1_CHUNK = 256;  // list entries a row stages at once
 constexpr int P1_ROUND = 16;   // entries a lane stages with its loads in flight
@@ -592,11 +589,13 @@ __device__ __forceinline__ void phase1_sweep(const float4* list, int c0, int kn,
   }
 }
 
-// The body of both kernels. LAMBDA: o0 lam, o1 pi_raw, o2 nl (o3 unused).
-// RAW: o0 pi_raw, o1 sg, o2 c2d2, o3 nlen (imass unused).
-template <int L, int CPL, bool SKIP, P1Out OUT>
+// The body of the three kernels. src: where the list is staged from (the
+// planes through nbr, whose counts are cnt, or v1's gathered rows, with cnt
+// unused). LAMBDA: o0 lam, o1 pi_raw, o2 nl (o3 unused). RAW: o0 pi_raw, o1
+// sg, o2 c2d2, o3 nlen (imass unused).
+template <int L, int CPL, bool SKIP, P1Out OUT, class Src>
 __device__ __forceinline__ void phase1_rows(
-    const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
+    const Src& src, const int* __restrict__ cnt, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
     float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ o3, int C, int M, const PairConsts& k, bool vec) {
@@ -606,7 +605,6 @@ __device__ __forceinline__ void phase1_rows(
   const int grp = threadIdx.x / L;
   float4* list = p1_lists + grp * P1_CHUNK;
   const fnx::NbrTable& tab = tabs[grp];
-  const fnx::PlaneSource src{nbr, cnt, x, y, z, nullptr, nullptr, C, M};
   const RowGroup g = open_row<L, CPL>(tabs[grp], src, cnt, C);
   if (g.row <= C) {  // dead slots, or the row's every slot
     const size_t o = (size_t)g.row * M;
@@ -672,14 +670,16 @@ __device__ __forceinline__ void phase1_rows(
   }
 }
 
-// Phase 1 v3 (LAMBDA) and v2 (RAW): one body under two kernel names.
+// Phase 1 v3 (LAMBDA), v2 (RAW) and v1 (RAW from the gathered rows): one
+// body under three kernel names.
 __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_kernel(
     const int* __restrict__ cnt, const int* __restrict__ nbr, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ imass,
     float* __restrict__ lam, float* __restrict__ pi_raw, float* __restrict__ nl, int C, int M,
     PairConsts k, bool vec) {
-  phase1_rows<ROW_LANES, ROW_CPL, false, LAMBDA>(cnt, nbr, x, y, z, imass, lam, pi_raw, nl,
-                                                 nullptr, C, M, k, vec);
+  phase1_rows<ROW_LANES, ROW_CPL, false, LAMBDA>(
+      fnx::PlaneSource{nbr, cnt, x, y, z, nullptr, nullptr, C, M}, cnt, x, y, z, imass, lam,
+      pi_raw, nl, nullptr, C, M, k, vec);
 }
 
 __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_v2_kernel(
@@ -687,8 +687,19 @@ __global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_v2_kernel(
     const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
     float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
     PairConsts k, bool vec) {
-  phase1_rows<P1V2_LANES, P1V2_CPL, P1V2_SKIP, RAW>(cnt, nbr, x, y, z, nullptr, pi_raw, sg, c2d2,
-                                                    nlen, C, M, k, vec);
+  phase1_rows<P1V2_LANES, P1V2_CPL, P1V2_SKIP, RAW>(
+      fnx::PlaneSource{nbr, cnt, x, y, z, nullptr, nullptr, C, M}, cnt, x, y, z, nullptr, pi_raw,
+      sg, c2d2, nlen, C, M, k, vec);
+}
+
+__global__ void __launch_bounds__(GROUP_WARPS * 32) phase1_v1_kernel(
+    const int* __restrict__ ncnt, const float* __restrict__ xng, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, float* __restrict__ pi_raw,
+    float* __restrict__ sg, float* __restrict__ c2d2, float* __restrict__ nlen, int C, int M,
+    PairConsts k, bool vec) {
+  phase1_rows<P1V2_LANES, P1V2_CPL, P1V2_SKIP, RAW>(
+      fnx::GatheredSource{ncnt, xng, nullptr, M}, nullptr, x, y, z, nullptr, pi_raw, sg, c2d2,
+      nlen, C, M, k, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -1024,19 +1035,27 @@ int fnx_pbf_phase2_v2(const int* cnt, const int* nbr, const float* x, const floa
   });
 }
 
-int fnx_pbf_phase1_v1(const int* cnt, const int* ncnt, const float* xng, const float* x,
-                      const float* y, const float* z, float* pi_raw, float* sg, float* c2d2,
-                      float* nlen, int C, int M, float h, float h2, float eps, float c6, float s45,
+// walk = 1 launches the checking mode, the one-block-a-row walk
+// (phase1_walk_kernel), in place of the row groups. A gathered row's live
+// count is its own copy's, ncnt[row, 13], in either mode.
+int fnx_pbf_phase1_v1(const int* ncnt, const float* xng, const float* x, const float* y,
+                      const float* z, float* pi_raw, float* sg, float* c2d2, float* nlen, int C,
+                      int M, float h, float h2, float eps, float c6, float s45, int walk,
                       void* stream) {
   if (bad_shape(C, M)) return (int)cudaErrorInvalidValue;
-  phase1_v1_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
-      cnt, ncnt, xng, x, y, z, pi_raw, sg, c2d2, nlen, M,
-      consts(h, h2, eps, c6, s45, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0.0f));
-  return (int)cudaGetLastError();
+  const PairConsts k = consts(h, h2, eps, c6, s45, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0.0f);
+  if (walk) {
+    phase1_walk_kernel<<<C + 1, threads_for(M), 0, (cudaStream_t)stream>>>(
+        ncnt, xng, x, y, z, pi_raw, sg, c2d2, nlen, C, M, k);
+    return (int)cudaGetLastError();
+  }
+  return launch_rows<P1V2_LANES>(phase1_v1_kernel, C, phase1_smem<P1V2_LANES>(),
+                                 (cudaStream_t)stream, ncnt, xng, x, y, z, pi_raw, sg, c2d2, nlen,
+                                 C, M, k, rows_aligned(M, {pi_raw, sg, c2d2, nlen}));
 }
 
-// cnt is not read: a gathered row's live count is its own copy's, ncnt[row, 13].
-int fnx_pbf_phase2_v1(const int* cnt, const int* ncnt, const float* xng, const float* lng,
+// A gathered row's live count is its own copy's, ncnt[row, 13].
+int fnx_pbf_phase2_v1(const int* ncnt, const float* xng, const float* lng,
                       const float* x, const float* y, const float* z, const float* lam,
                       float* dsum, float* part, int C, int M, float h, float h2, float eps,
                       float c6, float s45, float k_p, float e_p, int int_pow, float inv_denom,

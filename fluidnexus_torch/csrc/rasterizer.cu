@@ -6,9 +6,10 @@
 // Layout shared by the three kernels:
 //   packed (T, K, F) f32, F = 7 + C, rows [x y | ca cb cc | opacity | color(C) | depth],
 //     tile t's slots front to back by depth; slot s is live iff s < counts[t].
-//   P = tile_x * tile_y pixels per tile, row-major over (tile_y, tile_x);
-//     one block per tile (the forward and the backward a thread per two
-//     adjacent pixels, the combine 128 threads).
+//   P = tile_x * tile_y pixels per tile, row-major over (tile_y, tile_x),
+//     any P >= 1; one block per tile, or per chunk of MAX_BLOCK_P pixels of a
+//     larger tile (the forward and the backward a thread per two adjacent
+//     pixels, the combine 128 threads per tile).
 //
 // Semantics (those of fluidnexus_tpu/ops/rasterizer.py:_composite_tiles):
 //   power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy, dx = x - px, dy = y - py,
@@ -64,20 +65,28 @@ __device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
 // ---------------------------------------------------------------------------
 // Tile order, shared by the forward and the backward: each launches
 // tile_order_kernel on its stream just before itself, and its blocks take
-// their tiles from g_tile_order, heaviest first, so the 512-slot tiles do
-// not trail the grid. The order lives in one buffer of the library, so
-// launches on two streams at once would race on it; the port launches on
-// one stream.
+// their tiles from `order`, heaviest first, so the 512-slot tiles do not
+// trail the grid. The order is a workspace of T ints that the wrapper sizes
+// for each launch and hands in (allocated on the launch's stream), so a
+// launch takes any number of tiles and launches on two streams at once do
+// not share it. A tile of more than MAX_BLOCK_P pixels runs as chunks of at
+// most MAX_BLOCK_P, one block each; a tile's chunks take neighbouring
+// blocks, so the order stays per tile.
 // ---------------------------------------------------------------------------
-constexpr int MAX_TILES = 1 << 16;    // tiles the order buffer holds (4096 x 4096 at 16 x 16)
 constexpr int ORDER_THREADS = 1024;   // tile_order_kernel's block, one count bucket a thread
+constexpr int MAX_BLOCK_P = 1024;     // most pixels one block of the forward or the backward takes
 
-__device__ int g_tile_order[MAX_TILES];
+// Chunks of at most MAX_BLOCK_P pixels a tile of P pixels runs as.
+__host__ __device__ __forceinline__ int tile_chunks(int P) {
+  return (P + MAX_BLOCK_P - 1) / MAX_BLOCK_P;
+}
 
 // Tiles by descending live count (counts quantised to ORDER_THREADS
 // buckets; within a bucket in no fixed order). One block: a histogram, an
-// exclusive scan from the heaviest bucket, a scatter.
-__global__ void tile_order_kernel(const int* __restrict__ counts, int T, int K) {
+// exclusive scan from the heaviest bucket, a scatter, each thread striding
+// over the T tiles.
+__global__ void tile_order_kernel(const int* __restrict__ counts, int* __restrict__ order, int T,
+                                  int K) {
   __shared__ int start[ORDER_THREADS];
   const int b = threadIdx.x;
   start[b] = 0;
@@ -100,7 +109,35 @@ __global__ void tile_order_kernel(const int* __restrict__ counts, int T, int K) 
   for (int t = b; t < T; t += ORDER_THREADS) {
     const int c = min(max(counts[t], 0), K);
     const int bucket = ORDER_THREADS - 1 - (int)((long long)c * ORDER_THREADS / (K + 1));
-    g_tile_order[atomicAdd(&start[bucket], 1)] = t;
+    order[atomicAdd(&start[bucket], 1)] = t;
+  }
+}
+
+// A block's tile and chunk: the order's entry blockIdx.x / nch, chunk
+// blockIdx.x % nch (nch = 1 where every tile fits one block).
+struct TileChunk {
+  int t, chunk;
+};
+template <bool ANY>
+__device__ __forceinline__ TileChunk tile_chunk(const int* __restrict__ order, int P) {
+  if constexpr (ANY) {
+    const int nch = tile_chunks(P);
+    return TileChunk{order[blockIdx.x / nch], (int)(blockIdx.x % nch)};
+  } else {
+    return TileChunk{order[blockIdx.x], 0};
+  }
+}
+
+// Stores a thread's two adjacent pixels a, b at dst[0] and dst[1]: one
+// float2 where the tile's rows of P floats keep dst on 8 bytes (P even;
+// then both pixels lie in the tile or neither does), else each on its own,
+// b only where it lies in the tile.
+__device__ __forceinline__ void store_pair(float* dst, float a, float b, bool even, bool second) {
+  if (even) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    dst[0] = a;
+    if (second) dst[1] = b;
   }
 }
 
@@ -152,19 +189,29 @@ __device__ bool may_draw(const float* r, float x0, float x1, float y0, float y1)
 // it was. The tiles run heaviest first (tile_order_kernel).
 // Every CKPT slots it saves T, so the backward can recompute any slot's T from
 // the window start exactly: final T alone underflows after hundreds of
-// splats and cannot be divided back. A tile of a multiple of 32 pixels that
-// is not one of 64 leaves the last warp's spare lanes without pixels.
+// splats and cannot be divided back.
+// Any tile runs. The tiles of the main path (a multiple of 32 pixels, at most
+// MAX_BLOCK_P) take the instantiation ANY = false, one block a tile, a
+// thread's two pixels stored as a float2, a ragged last warp's spare lanes
+// masked. Every other tile takes ANY = true: a pixel past P is masked at the
+// pixel (an odd P gives the last thread one pixel, and the (T, ., P) rows of
+// an odd P start on odd floats, so its stores go a float at a time); a tile
+// of more than MAX_BLOCK_P pixels runs as chunks of MAX_BLOCK_P (16 of the 8
+// x 8 blocks, or 1 024 consecutive pixels), a block each, every chunk
+// walking the tile's one slot list in the same depth order: compositing is
+// per pixel, so the chunks give the bits one block would; a warp that holds
+// no pixel of the tile walks nothing.
 // ---------------------------------------------------------------------------
 constexpr int FWD_PPT = 2;       // adjacent pixels a thread owns in the forward
 constexpr int FWD_BATCH = 128;   // live rows staged in shared memory at once
-constexpr int MAX_FWD_P = 1024;  // most pixels a tile may have
 
-template <int C>
-__global__ void __launch_bounds__(MAX_FWD_P / FWD_PPT)
-composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
-                     float* __restrict__ accum, float* __restrict__ final_t,
-                     float* __restrict__ median, float* __restrict__ ckpt, int K, int tiles_x,
-                     int tile_x, int tile_y, int box_skip) {
+template <int C, bool ANY>
+__global__ void __launch_bounds__(MAX_BLOCK_P / FWD_PPT)
+composite_fwd_kernel(const int* __restrict__ order, const float* __restrict__ packed,
+                     const int* __restrict__ counts, float* __restrict__ accum,
+                     float* __restrict__ final_t, float* __restrict__ median,
+                     float* __restrict__ ckpt, int K, int tiles_x, int tile_x, int tile_y,
+                     int box_skip) {
   constexpr int F = 7 + C;
   constexpr int FP = (F + 3) / 4 * 4;  // a row's stride in shared memory, float4-aligned
   static_assert(FWD_PPT == 2, "a thread's two pixels are written as a float2");
@@ -175,20 +222,25 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
   const int nthreads = blockDim.x;
   const int i = threadIdx.x;
   const int lane = i & 31;
-  const int warp = i >> 5;
-  const int t = g_tile_order[blockIdx.x], cnt = counts[t];
+  const TileChunk tc = tile_chunk<ANY>(order, P);
+  const int t = tc.t, cnt = counts[t];
+  // this thread's and its warp's place in the whole tile
+  const int gi = tc.chunk * (MAX_BLOCK_P / FWD_PPT) + i;
+  const int warp = gi >> 5;
   const int nck = (K + CKPT - 1) / CKPT;
   const float* tile_rows = packed + (size_t)t * K * F;
   const int tx0 = (t % tiles_x) * tile_x, ty0 = (t / tiles_x) * tile_y;
   // this thread's first pixel, and the box [bx0, bx1] x [by0, by1] that holds
   // the warp's pixels (tile coordinates)
   int p0, bx0, bx1, by0, by1;
+  bool warp_live = true;  // the warp holds a pixel of the tile
   if (tile_x % 8 == 0 && tile_y % 8 == 0) {  // an 8 x 8 block a warp
     bx0 = warp % (tile_x / 8) * 8;
     by0 = warp / (tile_x / 8) * 8;
     bx1 = bx0 + 7;
     by1 = by0 + 7;
     p0 = (by0 + lane / 4) * tile_x + bx0 + FWD_PPT * (lane % 4);
+    if constexpr (ANY) warp_live = by0 < tile_y;
   } else {  // up to 64 consecutive pixels a warp
     const int w0 = warp * 32 * FWD_PPT, w1 = min(w0 + 32 * FWD_PPT, P) - 1;
     const bool one_row = w0 / tile_x == w1 / tile_x;
@@ -196,9 +248,13 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
     bx1 = one_row ? w1 % tile_x : tile_x - 1;
     by0 = w0 / tile_x;
     by1 = w1 / tile_x;
-    p0 = i * FWD_PPT;
+    p0 = gi * FWD_PPT;
+    if constexpr (ANY) warp_live = w0 < P;
   }
   const bool mine = p0 < P;  // a spare lane holds no pixel
+  // where the thread's second pixel lies in the tile, and whether its pair
+  // may be stored as one float2
+  const bool second = !ANY || p0 + 1 < P, even = !ANY || P % 2 == 0;
   const float box_x0 = (float)(tx0 + bx0), box_x1 = (float)(tx0 + bx1);
   const float box_y0 = (float)(ty0 + by0), box_y1 = (float)(ty0 + by1);
 
@@ -225,12 +281,12 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
     for (int g0 = 0; g0 < nb; g0 += CKPT) {
       const int ng = min(CKPT, nb - g0);
       if (mine)
-        *reinterpret_cast<float2*>(ckpt + ((size_t)t * nck + (b0 + g0) / CKPT) * P + p0) =
-            make_float2(T[0], T[1]);
+        store_pair(ckpt + ((size_t)t * nck + (b0 + g0) / CKPT) * P + p0, T[0], T[1], even, second);
       // bit j: slot g0 + j may draw on one of the warp's pixels (lane j tests it)
       unsigned draws = __ballot_sync(
-          FULL_MASK, lane < ng && (!box_skip || may_draw(rows + (g0 + lane) * FP, box_x0,
-                                                         box_x1, box_y0, box_y1)));
+          FULL_MASK, warp_live && lane < ng &&
+                         (!box_skip || may_draw(rows + (g0 + lane) * FP, box_x0, box_x1, box_y0,
+                                                box_y1)));
       while (draws) {  // warp-uniform
         const int j = __ffs(draws) - 1;
         draws &= draws - 1;
@@ -256,9 +312,9 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
   if (!mine) return;
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    *reinterpret_cast<float2*>(accum + ((size_t)t * C + c) * P + p0) = make_float2(acc[0][c], acc[1][c]);
-  *reinterpret_cast<float2*>(final_t + (size_t)t * P + p0) = make_float2(T[0], T[1]);
-  *reinterpret_cast<float2*>(median + (size_t)t * P + p0) = make_float2(depth[0], depth[1]);
+    store_pair(accum + ((size_t)t * C + c) * P + p0, acc[0][c], acc[1][c], even, second);
+  store_pair(final_t + (size_t)t * P + p0, T[0], T[1], even, second);
+  store_pair(median + (size_t)t * P + p0, depth[0], depth[1], even, second);
 }
 
 // ---------------------------------------------------------------------------
@@ -295,10 +351,21 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
 // (tile_order_kernel). With t_end given, the kernel also writes the T its
 // re-sweep reaches at the end of each window, (T, ceil(K / CKPT), P), which a
 // check holds bit for bit against the forward's next checkpoint and final T.
+// Any tile runs. The main path's tiles (a multiple of 64 pixels, at most
+// MAX_BLOCK_P) take the instantiation ANY = false: full warps, one block a
+// tile. Every other tile takes ANY = true: a pixel past P (an odd P, a
+// ragged last warp, a chunk's spare warps) reads nothing, keeps alpha 0 and
+// adds nothing, so its lane's sums stay +0 and WarpHalve and the warp
+// partials sum the tile's pixels alone. The shared state is BWD_SUB * P * 8
+// bytes (128 KB at MAX_BLOCK_P), so a larger tile runs as chunks of
+// MAX_BLOCK_P consecutive pixels, a block each, and a chunk writes its own
+// G sums of each live slot (its warps' partials in warp order) into a
+// workspace (T, nch, K, G); chunk_sum_kernel then forms each gradient row
+// from the chunks' sums added in chunk order: deterministic, with no
+// atomics, so a tile's gradient repeats bit for bit.
 // ---------------------------------------------------------------------------
 constexpr int BWD_PPT = 2;            // adjacent pixels a thread owns in the backward
 constexpr int BWD_SUB = 16;           // slots of a window whose T and alpha it keeps at once
-constexpr int MAX_BWD_P = 1024;       // its shared state is BWD_SUB * P * 8 bytes (128 KB)
 // Tiles of up to 2 * BWD_SMALL threads' pixels take an instantiation bounded
 // at BWD_SMALL threads: bounded at 512, the 16 x 16 tiles ran 2 % slower.
 constexpr int BWD_SMALL = 256;
@@ -347,12 +414,28 @@ __device__ __forceinline__ int bwd_field(int lane) {
   return real >= 1 ? off : -1;
 }
 
-template <int C, int MAXT>
+// Field f of a live slot's gradient row r from its pixel sums m(0 .. G-1):
+// [dx dy | dca dcb dcc | dop | dcolor (C) | 0].
+template <int C, class Sums>
+__device__ __forceinline__ float grad_field(int f, const float* r, Sums m) {
+  switch (f) {
+    case 0: return -(r[2] * m(1) + r[3] * m(2));   // dx
+    case 1: return -(r[4] * m(2) + r[3] * m(1));   // dy
+    case 2: return -0.5f * m(3);                   // dca
+    case 3: return -m(4);                          // dcb
+    case 4: return -0.5f * m(5);                   // dcc
+    case 5: return m(0) / fmaxf(r[5], 1e-20f);     // dop = sum da raw / op
+    default: return f < 6 + C ? m(f) : 0.0f;       // dcolor; depth 0
+  }
+}
+
+template <int C, int MAXT, bool ANY>
 __global__ void __launch_bounds__(MAXT)
-composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
-                     const float* __restrict__ gacc, const float* __restrict__ gft,
-                     const float* __restrict__ final_t, const float* __restrict__ ckpt,
-                     float* __restrict__ dpacked, float* __restrict__ t_end, int K, int tiles_x,
+composite_bwd_kernel(const int* __restrict__ order, const float* __restrict__ packed,
+                     const int* __restrict__ counts, const float* __restrict__ gacc,
+                     const float* __restrict__ gft, const float* __restrict__ final_t,
+                     const float* __restrict__ ckpt, float* __restrict__ dpacked,
+                     float* __restrict__ t_end, float* __restrict__ chunk_sums, int K, int tiles_x,
                      int tile_x, int tile_y) {
   constexpr int F = 7 + C;
   constexpr int FP = (F + 3) / 4 * 4;  // a row's stride in shared memory, float4-aligned
@@ -364,34 +447,43 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
   const int nwarps = nthreads >> 5;
   const int i = threadIdx.x;
   const int lane = i & 31;
-  const int warp = i >> 5;
-  const int P = nthreads * BWD_PPT;
+  const int P = ANY ? tile_x * tile_y : nthreads * BWD_PPT;
   float4* state = smem4;                                           // [BWD_SUB][nthreads]: T, a a pixel
   float* rows = reinterpret_cast<float*>(state + BWD_SUB * nthreads);  // [CKPT][FP]
   float* part = rows + CKPT * FP;                                  // [BWD_SUB][nwarps][G]
 
-  const int t = g_tile_order[blockIdx.x];
+  const TileChunk tc = tile_chunk<ANY>(order, P);
+  const int t = tc.t;
   const int cnt = counts[t];
+  // chunks of the tile; with more than one the rows are formed by chunk_sum_kernel
+  const int nch = ANY ? tile_chunks(P) : 1;
+  // this thread's place in the whole tile
+  const int gi = tc.chunk * (MAX_BLOCK_P / BWD_PPT) + i;
   float* out_tile = dpacked + (size_t)t * K * F;
-  for (int e = cnt * F + i; e < K * F; e += nthreads) out_tile[e] = 0.0f;
+  if (nch == 1)
+    for (int e = cnt * F + i; e < K * F; e += nthreads) out_tile[e] = 0.0f;
   if (cnt == 0) return;  // the whole block: counts[t] is uniform
 
   const int nck = (K + CKPT - 1) / CKPT;
   const float* tile_rows = packed + (size_t)t * K * F;
+  bool in_tile[BWD_PPT];  // the pixel lies in the tile
   float px[BWD_PPT], py[BWD_PPT], g[BWD_PPT][C], g_t_term[BWD_PPT], suffix[BWD_PPT];
 #pragma unroll
   for (int q = 0; q < BWD_PPT; ++q) {
-    const int p = i * BWD_PPT + q;
+    const int p = gi * BWD_PPT + q;
+    in_tile[q] = !ANY || p < P;
     px[q] = (float)((t % tiles_x) * tile_x + p % tile_x);
     py[q] = (float)((t / tiles_x) * tile_y + p / tile_x);
 #pragma unroll
-    for (int c = 0; c < C; ++c) g[q][c] = gacc[((size_t)t * C + c) * P + p];
-    g_t_term[q] = gft[(size_t)t * P + p] * final_t[(size_t)t * P + p];
+    for (int c = 0; c < C; ++c) g[q][c] = in_tile[q] ? gacc[((size_t)t * C + c) * P + p] : 0.0f;
+    g_t_term[q] = in_tile[q] ? gft[(size_t)t * P + p] * final_t[(size_t)t * P + p] : 0.0f;
     suffix[q] = 0.0f;  // sum over later slots k of (color_k . g) * w_k
   }
   const int field = bwd_field<G>(lane);
-  // the warp's pixels (64 consecutive ones) lie in this box
-  const int p0 = warp * 32 * BWD_PPT, p1 = p0 + 32 * BWD_PPT - 1;
+  // the warp's pixels (up to 64 consecutive ones, from p0) lie in this box
+  const int p0 = (gi >> 5) * 32 * BWD_PPT;
+  const int p1 = ANY ? min(p0 + 32 * BWD_PPT, P) - 1 : p0 + 32 * BWD_PPT - 1;
+  const bool warp_live = !ANY || p0 < P;  // the warp holds a pixel of the tile
   const bool one_row = p0 / tile_x == p1 / tile_x;
   const float box_x0 = (float)((t % tiles_x) * tile_x + (one_row ? p0 % tile_x : 0));
   const float box_x1 = (float)((t % tiles_x) * tile_x + (one_row ? p1 % tile_x : tile_x - 1));
@@ -409,14 +501,16 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
     __syncthreads();
     // bit j: slot w0 + j may draw on one of this warp's pixels (lane j tests it)
     const unsigned draws = __ballot_sync(
-        FULL_MASK, lane < nw && may_draw(rows + lane * FP, box_x0, box_x1, box_y0, box_y1));
+        FULL_MASK,
+        warp_live && lane < nw && may_draw(rows + lane * FP, box_x0, box_x1, box_y0, box_y1));
 
     // T at each part's start: the forward's checkpoint, then a sweep over the
     // window's slots before the last part that keeps nothing else
     constexpr int NPART = CKPT / BWD_SUB;
     float Tp[NPART][BWD_PPT];
 #pragma unroll
-    for (int q = 0; q < BWD_PPT; ++q) Tp[0][q] = ckpt[((size_t)t * nck + win) * P + i * BWD_PPT + q];
+    for (int q = 0; q < BWD_PPT; ++q)
+      Tp[0][q] = in_tile[q] ? ckpt[((size_t)t * nck + win) * P + gi * BWD_PPT + q] : 0.0f;
 #pragma unroll
     for (int pp = 1; pp < NPART; ++pp) {
 #pragma unroll
@@ -439,7 +533,7 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
       const int s0 = sub * BWD_SUB;
       const int ns = min(BWD_SUB, nw - s0);
       // front to back: T before each slot and its alpha (0 where the slot is
-      // skipped), as the forward took them
+      // skipped, or the pixel lies past the tile), as the forward took them
       float T[BWD_PPT];
 #pragma unroll
       for (int pp = 0; pp < NPART; ++pp) {
@@ -461,14 +555,15 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
           bool ok;
           const float a = splat_alpha(r, px[q], py[q], ok);
           st[2 * q] = T[q];
-          st[2 * q + 1] = ok ? a : 0.0f;
+          st[2 * q + 1] = ok && in_tile[q] ? a : 0.0f;
           if (ok) T[q] = transmit(T[q], a);
         }
         state[j * nthreads + i] = make_float4(st[0], st[1], st[2], st[3]);
       }
       if (t_end != nullptr && s0 + ns == nw) {  // the window's last part: T after its last slot
 #pragma unroll
-        for (int q = 0; q < BWD_PPT; ++q) t_end[((size_t)t * nck + win) * P + i * BWD_PPT + q] = T[q];
+        for (int q = 0; q < BWD_PPT; ++q)
+          if (in_tile[q]) t_end[((size_t)t * nck + win) * P + gi * BWD_PPT + q] = T[q];
       }
       __syncthreads();  // the previous part's partials are consumed
 
@@ -479,7 +574,7 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
         load_row(rows + (s0 + j) * FP, r);
         const float tb[BWD_PPT] = {st.x, st.z};
         const float al[BWD_PPT] = {st.y, st.w};
-        float* slot_part = part + (j * nwarps + warp) * G;
+        float* slot_part = part + (j * nwarps + (i >> 5)) * G;
         if (!__any_sync(FULL_MASK, al[0] > 0.0f || al[1] > 0.0f)) {
           if (field >= 0) slot_part[field] = 0.0f;
           continue;
@@ -490,6 +585,7 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
         // a = 0 (skipped) adds zeros and leaves the suffix as it is
 #pragma unroll
         for (int q = 0; q < BWD_PPT; ++q) {
+          if (!in_tile[q]) continue;  // adds nothing: the lane's sums stay +0
           const float a = al[q];
           const float tba = tb[q] >= T_MIN ? tb[q] : 0.0f;  // T before, masked once below 1e-4
           float gdotcol = 0.0f;
@@ -520,31 +616,61 @@ composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
       }
       __syncthreads();
 
-      // the part's gradient rows from the warps' partials, in warp order
-      for (int e = i; e < ns * F; e += nthreads) {
-        const int j = e / F;
-        const int f = e - j * F;
-        const float* r = rows + (s0 + j) * FP;
-        const float* pj = part + j * nwarps * G;
-        auto m = [&](int k) {
-          float acc = 0.0f;
-          for (int wp = 0; wp < nwarps; ++wp) acc += pj[wp * G + k];
-          return acc;
-        };
-        float v;
-        switch (f) {
-          case 0: v = -(r[2] * m(1) + r[3] * m(2)); break;   // dx
-          case 1: v = -(r[4] * m(2) + r[3] * m(1)); break;   // dy
-          case 2: v = -0.5f * m(3); break;                   // dca
-          case 3: v = -m(4); break;                          // dcb
-          case 4: v = -0.5f * m(5); break;                   // dcc
-          case 5: v = m(0) / fmaxf(r[5], 1e-20f); break;     // dop = sum da raw / op
-          default: v = f < 6 + C ? m(f) : 0.0f;              // dcolor; depth 0
+      if (nch == 1) {
+        // the part's gradient rows from the warps' partials, in warp order
+        for (int e = i; e < ns * F; e += nthreads) {
+          const int j = e / F;
+          const float* pj = part + j * nwarps * G;
+          auto m = [&](int k) {
+            float acc = 0.0f;
+            for (int wp = 0; wp < nwarps; ++wp) acc += pj[wp * G + k];
+            return acc;
+          };
+          out_tile[(size_t)(w0 + s0 + j) * F + (e - j * F)] =
+              grad_field<C>(e - j * F, rows + (s0 + j) * FP, m);
         }
-        out_tile[(size_t)(w0 + s0 + j) * F + f] = v;
+      } else {
+        // the chunk's sums of the part's slots, its warps' partials in warp order
+        float* cs = chunk_sums + (((size_t)t * nch + tc.chunk) * K + w0 + s0) * G;
+        for (int e = i; e < ns * G; e += nthreads) {
+          const int j = e / G;
+          const float* pj = part + j * nwarps * G + (e - j * G);
+          float acc = 0.0f;
+          for (int wp = 0; wp < nwarps; ++wp) acc += pj[wp * G];
+          cs[e] = acc;
+        }
       }
     }
   }
+}
+
+// The gradient rows of tiles that ran as nch > 1 chunks: each live slot's
+// pixel sums are its chunks' sums (chunk_sums (T, nch, K, G)) added in chunk
+// order; dead slots and the depth column read 0. A thread an element of a
+// tile's (K, F) rows, blocks over (tile, CHUNK_SUM_THREADS elements).
+constexpr int CHUNK_SUM_THREADS = 256;
+
+template <int C>
+__global__ void __launch_bounds__(CHUNK_SUM_THREADS)
+chunk_sum_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
+                 const float* __restrict__ chunk_sums, float* __restrict__ dpacked, int K, int nch) {
+  constexpr int F = 7 + C;
+  constexpr int G = 6 + C;
+  const int t = blockIdx.x;
+  const int e = blockIdx.y * CHUNK_SUM_THREADS + threadIdx.x;
+  if (e >= K * F) return;
+  const int j = e / F, f = e - j * F;
+  float v = 0.0f;
+  if (j < counts[t]) {
+    const float* cs = chunk_sums + ((size_t)t * nch * K + j) * G;
+    auto m = [&](int k) {
+      float acc = 0.0f;
+      for (int c = 0; c < nch; ++c) acc += cs[(size_t)c * K * G + k];
+      return acc;
+    };
+    v = grad_field<C>(f, packed + ((size_t)t * K + j) * F, m);
+  }
+  dpacked[(size_t)t * K * F + e] = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -600,34 +726,60 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// The backward's instantiation for C channels and a block of nthreads.
-const void* bwd_kernel(int C, int nthreads) {
-  const bool small = nthreads <= BWD_SMALL;
-  switch (C) {
-    case 1:
-      return small ? (const void*)composite_bwd_kernel<1, BWD_SMALL>
-                   : (const void*)composite_bwd_kernel<1, MAX_BWD_P / BWD_PPT>;
-    case 3:
-      return small ? (const void*)composite_bwd_kernel<3, BWD_SMALL>
-                   : (const void*)composite_bwd_kernel<3, MAX_BWD_P / BWD_PPT>;
-    default:
-      return nullptr;
-  }
+// The tiles of the main path, which take the instantiations with ANY =
+// false: the forward's a multiple of 32 pixels, the backward's of 32 *
+// BWD_PPT, at most MAX_BLOCK_P. Every other tile takes ANY = true.
+bool fwd_any(int P) { return P % 32 != 0 || P > MAX_BLOCK_P; }
+bool bwd_any(int P) { return P % (32 * BWD_PPT) != 0 || P > MAX_BLOCK_P; }
+
+// Threads of a block of either kernel: a thread per ppt pixels of a block's
+// chunk (the whole tile up to MAX_BLOCK_P), in whole warps.
+int block_threads(int P, int ppt) {
+  const int bp = P < MAX_BLOCK_P ? P : MAX_BLOCK_P;
+  return ((bp + ppt - 1) / ppt + 31) / 32 * 32;
 }
 
-// The tiles each kernel takes: the forward multiples of 32 pixels (its
-// spare lanes masked), the backward multiples of 32 * BWD_PPT.
-bool bad_tile(int P) { return P <= 0 || P % 32 != 0 || P > MAX_FWD_P; }
-bool bad_bwd_tile(int P) { return P <= 0 || P % (32 * BWD_PPT) != 0 || P > MAX_BWD_P; }
+template <int C>
+const void* fwd_kernel_c(int P) {
+  return fwd_any(P) ? (const void*)composite_fwd_kernel<C, true>
+                    : (const void*)composite_fwd_kernel<C, false>;
+}
 
-int fwd_threads(int P) { return (P / FWD_PPT + 31) / 32 * 32; }
+// The forward's instantiation for C channels and tiles of P pixels.
+const void* fwd_kernel(int C, int P) {
+  return C == 1 ? fwd_kernel_c<1>(P) : (C == 3 ? fwd_kernel_c<3>(P) : nullptr);
+}
 
-size_t fwd_smem(int C, int P) { return (size_t)FWD_BATCH * ((7 + C + 3) / 4 * 4) * sizeof(float); }
+// Tiles of up to 2 * BWD_SMALL pixels take an instantiation bounded at
+// BWD_SMALL threads.
+template <int C>
+const void* bwd_kernel_c(int P) {
+  constexpr int BIG = MAX_BLOCK_P / BWD_PPT;
+  const bool small = block_threads(P, BWD_PPT) <= BWD_SMALL;
+  if (bwd_any(P))
+    return small ? (const void*)composite_bwd_kernel<C, BWD_SMALL, true>
+                 : (const void*)composite_bwd_kernel<C, BIG, true>;
+  return small ? (const void*)composite_bwd_kernel<C, BWD_SMALL, false>
+               : (const void*)composite_bwd_kernel<C, BIG, false>;
+}
 
-size_t bwd_smem(int C, int P) {
-  const int nthreads = P / BWD_PPT;
+// The backward's instantiation for C channels and tiles of P pixels.
+const void* bwd_kernel(int C, int P) {
+  return C == 1 ? bwd_kernel_c<1>(P) : (C == 3 ? bwd_kernel_c<3>(P) : nullptr);
+}
+
+size_t fwd_smem(int C) { return (size_t)FWD_BATCH * ((7 + C + 3) / 4 * 4) * sizeof(float); }
+
+size_t bwd_smem(int C, int nthreads) {
   return BWD_SUB * nthreads * sizeof(float4)
          + (size_t)(CKPT * ((7 + C + 3) / 4 * 4) + BWD_SUB * (nthreads / 32) * (6 + C)) * sizeof(float);
+}
+
+// Blocks of a launch over T tiles of P pixels: one a chunk; 0 where that
+// does not fit a grid.
+unsigned grid_blocks(int T, int P) {
+  const long long n = (long long)T * tile_chunks(P);
+  return n <= 0x7fffffffLL ? (unsigned)n : 0u;
 }
 
 // The widest vector of floats that divides a row and that g is aligned to.
@@ -644,66 +796,73 @@ extern "C" {
 
 int fnx_ckpt_interval() { return CKPT; }
 
-// The kernels' limits: the forward's pixel multiple and most pixels a tile,
-// the backward's, and the most tiles a launch may have.
+// The kernels' limits: the most pixels one block of the forward or the
+// backward takes (a larger tile runs as chunks of it), and the pixels a
+// thread owns.
 void fnx_raster_limits(int* out) {
-  out[0] = 32;
-  out[1] = MAX_FWD_P;
-  out[2] = 32 * BWD_PPT;
-  out[3] = MAX_BWD_P;
-  out[4] = MAX_TILES;
+  out[0] = MAX_BLOCK_P;
+  out[1] = BWD_PPT;
 }
 
-// box_skip 0 walks every live slot at every pixel: the check that the skip
-// changes no bit.
-int fnx_composite_fwd(const float* packed, const int* counts, float* accum, float* final_t,
-                      float* median, float* ckpt, int T, int K, int C, int tiles_x, int tile_x,
-                      int tile_y, int box_skip, void* stream) {
-  const int P = tile_x * tile_y;
-  if (bad_tile(P) || T > MAX_TILES) return (int)cudaErrorInvalidValue;
+// order: a workspace of T ints (the tile order). box_skip 0 walks every live
+// slot at every pixel: the check that the skip changes no bit.
+int fnx_composite_fwd(int* order, const float* packed, const int* counts, float* accum,
+                      float* final_t, float* median, float* ckpt, int T, int K, int C, int tiles_x,
+                      int tile_x, int tile_y, int box_skip, void* stream) {
+  if (tile_x <= 0 || tile_y <= 0 || T < 0) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  const int nthreads = fwd_threads(P);
-  const size_t smem = fwd_smem(C, P);
+  const int P = tile_x * tile_y;
+  const void* fn = fwd_kernel(C, P);
+  const unsigned blocks = grid_blocks(T, P);
+  if (fn == nullptr || blocks == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(C);
   cudaStream_t st = (cudaStream_t)stream;
-  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, T, K);
+  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, order, T, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  switch (C) {
-    case 1:
-      if ((err = allow_smem(composite_fwd_kernel<1>, smem)) != cudaSuccess) return (int)err;
-      composite_fwd_kernel<1><<<T, nthreads, smem, st>>>(packed, counts, accum, final_t, median,
-                                                         ckpt, K, tiles_x, tile_x, tile_y, box_skip);
-      break;
-    case 3:
-      if ((err = allow_smem(composite_fwd_kernel<3>, smem)) != cudaSuccess) return (int)err;
-      composite_fwd_kernel<3><<<T, nthreads, smem, st>>>(packed, counts, accum, final_t, median,
-                                                         ckpt, K, tiles_x, tile_x, tile_y, box_skip);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if ((err = allow_smem(fn, smem)) != cudaSuccess) return (int)err;
+  const int* ord = order;
+  void* args[] = {&ord, &packed, &counts, &accum, &final_t, &median, &ckpt,
+                  &K, &tiles_x, &tile_x, &tile_y, &box_skip};
+  if ((err = cudaLaunchKernel(fn, blocks, block_threads(P, FWD_PPT), args, smem, st)) != cudaSuccess)
+    return (int)err;
   return (int)cudaGetLastError();
 }
 
-// t_end may be null; where given, the re-sweep's T at each window's end.
-int fnx_composite_bwd(const float* packed, const int* counts, const float* gacc, const float* gft,
-                      const float* final_t, const float* ckpt, float* dpacked, float* t_end, int T,
-                      int K, int C, int tiles_x, int tile_x, int tile_y, void* stream) {
-  const int P = tile_x * tile_y;
-  if (bad_bwd_tile(P) || T > MAX_TILES) return (int)cudaErrorInvalidValue;
+// order: a workspace of T ints (the tile order); chunk_sums: one of (T,
+// chunks, K, 6 + C) floats where a tile runs as more than one chunk (P >
+// MAX_BLOCK_P), else unread and may be null. t_end may be null; where given,
+// the re-sweep's T at each window's end.
+int fnx_composite_bwd(int* order, const float* packed, const int* counts, const float* gacc,
+                      const float* gft, const float* final_t, const float* ckpt, float* dpacked,
+                      float* t_end, float* chunk_sums, int T, int K, int C, int tiles_x,
+                      int tile_x, int tile_y, void* stream) {
+  if (tile_x <= 0 || tile_y <= 0 || T < 0) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  const int nthreads = P / BWD_PPT;
-  const size_t smem = bwd_smem(C, P);
+  const int P = tile_x * tile_y;
+  const int nch = tile_chunks(P);
+  const int nthreads = block_threads(P, BWD_PPT);
+  const void* fn = bwd_kernel(C, P);
+  const unsigned blocks = grid_blocks(T, P);
+  if (fn == nullptr || blocks == 0 || (nch > 1 && chunk_sums == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(C, nthreads);
   cudaStream_t st = (cudaStream_t)stream;
-  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, T, K);
+  tile_order_kernel<<<1, ORDER_THREADS, 0, st>>>(counts, order, T, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const void* fn = bwd_kernel(C, nthreads);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if ((err = allow_smem(fn, smem)) != cudaSuccess) return (int)err;
-  void* args[] = {&packed, &counts, &gacc, &gft, &final_t, &ckpt, &dpacked, &t_end,
-                  &K, &tiles_x, &tile_x, &tile_y};
-  if ((err = cudaLaunchKernel(fn, T, nthreads, args, smem, st)) != cudaSuccess) return (int)err;
+  const int* ord = order;
+  void* args[] = {&ord, &packed, &counts, &gacc, &gft, &final_t, &ckpt, &dpacked, &t_end,
+                  &chunk_sums, &K, &tiles_x, &tile_x, &tile_y};
+  if ((err = cudaLaunchKernel(fn, blocks, nthreads, args, smem, st)) != cudaSuccess) return (int)err;
+  if (nch > 1 && K > 0) {
+    const dim3 grid(T, (K * (7 + C) + CHUNK_SUM_THREADS - 1) / CHUNK_SUM_THREADS);
+    if (C == 1)
+      chunk_sum_kernel<1><<<grid, CHUNK_SUM_THREADS, 0, st>>>(packed, counts, chunk_sums, dpacked, K, nch);
+    else
+      chunk_sum_kernel<3><<<grid, CHUNK_SUM_THREADS, 0, st>>>(packed, counts, chunk_sums, dpacked, K, nch);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -721,29 +880,29 @@ int fnx_combine_rows(const float* g, const long long* gid, const int* counts, fl
 
 // Registers a thread, dynamic shared memory a block, threads a block and
 // resident blocks an SM of kernel `which` (0 forward, 1 backward, 2 the
-// combine at F = 7 + C, vectors as wide as an aligned g allows) at C
-// channels and P pixels a tile.
+// combine at F = 7 + C, vectors as wide as an aligned g allows), in the
+// instantiation a launch over tiles of P pixels takes, at C channels.
 int fnx_raster_occupancy(int which, int C, int P, int* out) {
   cudaFuncAttributes attr;
   const void* fn;
   int threads;
   size_t smem = 0;
+  if ((which == 0 || which == 1) && P <= 0) return (int)cudaErrorInvalidValue;
   if (which == 0) {
-    if (bad_tile(P)) return (int)cudaErrorInvalidValue;
-    fn = C == 1 ? (const void*)composite_fwd_kernel<1> : (const void*)composite_fwd_kernel<3>;
-    threads = fwd_threads(P);
-    smem = fwd_smem(C, P);
+    fn = fwd_kernel(C, P);
+    threads = block_threads(P, FWD_PPT);
+    smem = fwd_smem(C);
   } else if (which == 1) {
-    if (bad_bwd_tile(P)) return (int)cudaErrorInvalidValue;
-    threads = P / BWD_PPT;
-    fn = bwd_kernel(C, threads);
-    smem = bwd_smem(C, P);
+    fn = bwd_kernel(C, P);
+    threads = block_threads(P, BWD_PPT);
+    smem = bwd_smem(C, threads);
   } else {
     const int F = 7 + C;
     fn = F % 4 == 0 ? (const void*)combine_kernel<4>
                     : (F % 2 == 0 ? (const void*)combine_kernel<2> : (const void*)combine_kernel<1>);
     threads = COMBINE_THREADS;
   }
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=

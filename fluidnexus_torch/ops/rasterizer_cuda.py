@@ -17,9 +17,10 @@ On a CPU tensor the wrappers take the plain versions. On a CUDA tensor they
 launch the kernel or raise; no CUDA tensor reaches a plain version through
 them. Each kernel launch adds one to its entry in ``LAUNCHES``.
 
-Tiles the card takes (``check_tile``, the one place the limits are stated):
-the forward a multiple of 32 pixels up to 1 024, the backward a multiple of
-64 up to 1 024, at most 65 536 tiles a launch. On the CPU every tile runs.
+Tiles the card takes (``check_tile``): every tile of at least one pixel, any
+number of them, as on the CPU. A tile of more than ``BLOCK_P`` pixels runs
+as chunks of ``BLOCK_P``, a block each; the backward then sums each slot's
+chunks in a small second pass (``chunk_sum_kernel``), in chunk order.
 """
 from __future__ import annotations
 
@@ -31,10 +32,8 @@ import torch
 from fluidnexus_torch.ops import cuda_build
 
 CKPT = 32  # slots between the forward's saved transmittances (csrc/rasterizer.cu)
-FWD_STEP, MAX_FWD_P = 32, 1024  # the forward's tiles: multiples of 32 pixels, at most 1 024
+BLOCK_P = 1024  # most pixels one block of the forward or the backward takes
 BWD_PPT = 2  # adjacent pixels a thread of the backward kernel owns
-BWD_STEP, MAX_BWD_P = 32 * BWD_PPT, 1024  # the backward's tiles (its shared state)
-MAX_TILES = 1 << 16  # most tiles a launch may have (the tile order)
 
 LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "combine_rows": 0}
 
@@ -50,9 +49,9 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fnx_ckpt_interval.argtypes = []
     lib.fnx_ckpt_interval.restype = i
-    lib.fnx_composite_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.fnx_composite_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.fnx_composite_fwd.restype = i
-    lib.fnx_composite_bwd.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.fnx_composite_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fnx_composite_bwd.restype = i
     lib.fnx_combine_rows.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.fnx_combine_rows.restype = i
@@ -60,39 +59,27 @@ def _lib():
     lib.fnx_raster_limits.restype = None
     lib.fnx_raster_occupancy.argtypes = [i, i, i, p]
     lib.fnx_raster_occupancy.restype = i
-    limits = (ctypes.c_int * 5)()
+    limits = (ctypes.c_int * 2)()
     lib.fnx_raster_limits(limits)
-    if lib.fnx_ckpt_interval() != CKPT or tuple(limits) != (FWD_STEP, MAX_FWD_P, BWD_STEP,
-                                                            MAX_BWD_P, MAX_TILES):
+    if lib.fnx_ckpt_interval() != CKPT or tuple(limits) != (BLOCK_P, BWD_PPT):
         raise RuntimeError("csrc/rasterizer.cu and rasterizer_cuda's constants disagree")
     return lib
 
 
-def check_tile(tile_x, tile_y, device, backward=True):
-    """Raise ValueError, naming the tile and the limits, unless the card's
-    kernels take ``tile_x`` x ``tile_y`` tiles: the forward a multiple of
-    FWD_STEP pixels up to MAX_FWD_P; with ``backward`` (a stage that trains)
-    also the backward, a multiple of BWD_STEP up to MAX_BWD_P. On the CPU the
-    plain versions take every tile, as the JAX package does, and nothing is
-    checked."""
-    if torch.device(device).type != "cuda":
-        return
-    p = tile_x * tile_y
-    kernels = [("forward", FWD_STEP, MAX_FWD_P)] + ([("backward", BWD_STEP, MAX_BWD_P)]
-                                                     if backward else [])
-    for what, step, most in kernels:
-        if tile_x <= 0 or tile_y <= 0 or p % step or p > most:
-            raise ValueError(
-                f"the card's rasterizer {what} takes tiles of a multiple of {step} pixels, at "
-                f"most {most}: got {tile_x} x {tile_y} = {p} (the forward takes multiples of "
-                f"{FWD_STEP} up to {MAX_FWD_P}; a stage that trains also needs the backward's "
-                f"multiples of {BWD_STEP} up to {MAX_BWD_P}; on the CPU every tile runs)")
+def check_tile(tile_x, tile_y, device):
+    """Raise ValueError, naming the tile, where no rasterizer can render
+    ``tile_x`` x ``tile_y`` tiles: a side of 0 or less. The card's kernels
+    take every other tile, forward and backward, as the JAX package and the
+    plain versions do; on the CPU nothing is checked."""
+    if torch.device(device).type == "cuda" and (tile_x <= 0 or tile_y <= 0):
+        raise ValueError(f"the card's rasterizer takes tiles of at least 1 x 1 pixels: got "
+                         f"{tile_x} x {tile_y}")
 
 
-def _check_tiles(t, tile_x, tile_y, device, backward):
-    check_tile(tile_x, tile_y, device, backward)
-    if t > MAX_TILES:
-        raise ValueError(f"the card's rasterizer takes at most {MAX_TILES} tiles a launch, got {t}")
+def chunks(p):
+    """Blocks a tile of ``p`` pixels runs as in either kernel: chunks of at
+    most BLOCK_P pixels."""
+    return -(-p // BLOCK_P)
 
 
 def _tile_shape(packed, tile_x, tile_y):
@@ -173,13 +160,14 @@ def composite_fwd(packed, counts, tiles_x, tile_x, tile_y, box_skip=True):
     dev = packed.device
     cuda_build.check(packed, "packed", torch.float32, (t, k, 7 + c), dev)
     cuda_build.check(counts, "counts", torch.int32, (t,), dev)
-    _check_tiles(t, tile_x, tile_y, dev, backward=False)
+    check_tile(tile_x, tile_y, dev)
+    order = torch.empty((t,), dtype=torch.int32, device=dev)  # the tile order's workspace
     accum = torch.empty((t, c, p), dtype=torch.float32, device=dev)
     final_t = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
     med = torch.empty((t, 1, p), dtype=torch.float32, device=dev)
     ckpt = torch.empty((t, -(-k // CKPT), p), dtype=torch.float32, device=dev)
     err = _lib().fnx_composite_fwd(
-        packed.data_ptr(), counts.data_ptr(), accum.data_ptr(), final_t.data_ptr(),
+        order.data_ptr(), packed.data_ptr(), counts.data_ptr(), accum.data_ptr(), final_t.data_ptr(),
         med.data_ptr(), ckpt.data_ptr(), t, k, c, tiles_x, tile_x, tile_y, int(box_skip),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.raise_on(err, "composite_fwd launch")
@@ -203,14 +191,18 @@ def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, til
     cuda_build.check(gft, "gft", torch.float32, (t, 1, p), dev)
     cuda_build.check(final_t, "final_t", torch.float32, (t, 1, p), dev)
     cuda_build.check(ckpt, "ckpt", torch.float32, (t, -(-k // CKPT), p), dev)
-    _check_tiles(t, tile_x, tile_y, dev, backward=True)
+    check_tile(tile_x, tile_y, dev)
+    order = torch.empty((t,), dtype=torch.int32, device=dev)  # the tile order's workspace
+    # each chunk's pixel sums of each slot, where a tile runs as more than one
+    nch = chunks(p)
+    sums = torch.empty((t, nch, k, 6 + c), dtype=torch.float32, device=dev) if nch > 1 else None
     dpacked = torch.empty((t, k, 7 + c), dtype=torch.float32, device=dev)  # the kernel writes all
     t_end = torch.full(ckpt.shape, float("nan"), device=dev) if resweep else None
     err = _lib().fnx_composite_bwd(
-        packed.data_ptr(), counts.data_ptr(), gacc.data_ptr(), gft.data_ptr(),
+        order.data_ptr(), packed.data_ptr(), counts.data_ptr(), gacc.data_ptr(), gft.data_ptr(),
         final_t.data_ptr(), ckpt.data_ptr(), dpacked.data_ptr(),
-        None if t_end is None else t_end.data_ptr(), t, k, c, tiles_x, tile_x, tile_y,
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if t_end is None else t_end.data_ptr(), None if sums is None else sums.data_ptr(),
+        t, k, c, tiles_x, tile_x, tile_y, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.raise_on(err, "composite_bwd launch")
     LAUNCHES["composite_bwd"] += 1
     return (dpacked, t_end) if resweep else dpacked
@@ -219,7 +211,7 @@ def composite_bwd(packed, counts, gacc, gft, final_t, ckpt, tiles_x, tile_x, til
 def occupancy(c, tile_x, tile_y):
     """{kernel: (registers a thread, dynamic shared bytes a block, threads a
     block, resident blocks an SM)} at C channels and the tile size, as the
-    card reports them for the launches the wrappers make."""
+    card reports them for the instantiations the wrappers' launches take."""
     out = {}
     for which, name in enumerate(("composite_fwd_kernel", "composite_bwd_kernel", "combine_kernel")):
         vals = (ctypes.c_int * 4)()

@@ -67,10 +67,10 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
     set. Returns one dict per frame: the JAX package's frame, p0, hidden,
     visual and p_ratio, and the remove_invalid kills and the hidden and
     visual points the rigid body moved. ``scene_info`` is required:
-    ``read_scene`` comes with the stage CLI. On the card, a tile its
-    rasterizer's forward does not take raises ValueError before any work
-    (``rasterizer_cuda.check_tile``)."""
-    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=False)
+    ``read_scene`` comes with the stage CLI. A tile with a side of 0 or less
+    raises ValueError before any work (``rasterizer_cuda.check_tile``); the
+    card takes every other tile."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
     if scene_info is None:
         raise ValueError("predict needs a scene_info: reading a scene from disk comes with the "
                          "stage CLI")

@@ -316,9 +316,9 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
     already multiplied by ``scale_factor`` (detach_visual_and_scale, ref
     :188) and ``losses`` is the (iterations,) tensor of per-step losses.
     ``bg`` defaults to the PLY at ``cfg.model.bg_load_path`` when that is
-    set. On the card, a tile its rasterizer does not take raises
-    ValueError before any work (``rasterizer_cuda.check_tile``)."""
-    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=True)
+    set. A tile with a side of 0 or less raises ValueError before any work
+    (``rasterizer_cuda.check_tile``); the card takes every other tile."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
     dev = resolve_device(device)
     o, m = cfg.optim, cfg.model
     params = pbf_params_from_config(cfg)
@@ -594,10 +594,10 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
     and every phase-C frame after it (``<model_path>/checkpoint``).
     ``resume_from_frame >= 1`` restarts phase C at that frame from the saved
     checkpoint of the frame before (the reference cannot resume, SURVEY §5).
-    ``scene_info`` is required: ``read_scene`` comes with the stage CLI. On
-    the card, a tile its rasterizer's forward and backward do not both take
-    raises ValueError before any work (``rasterizer_cuda.check_tile``)."""
-    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device, backward=True)
+    ``scene_info`` is required: ``read_scene`` comes with the stage CLI. A
+    tile with a side of 0 or less raises ValueError before any work
+    (``rasterizer_cuda.check_tile``); the card takes every other tile."""
+    rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
     if scene_info is None:
         raise ValueError("train needs a scene_info: reading a scene from disk comes with the "
                          "stage CLI")

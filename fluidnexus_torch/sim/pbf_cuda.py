@@ -28,9 +28,10 @@ s < cnt[row].
 - ``gather_v1(nbr, cnt, x, y, z)`` -> (ncnt (C, 27) i32, xng (C, 27, 3, M))
   and ``gather_lam_v1(nbr, lam)`` -> lng (C, 27, M): the v1 pre-gather of
   the neighbour rows, plain torch as in the JAX package (``_gathers``).
-- ``phase1_v1(ncnt, xng, cnt, x, y, z, k)`` and ``phase2_v1(ncnt, xng, lng,
-  cnt, x, y, z, lam, k)``: ``phase1_v2``/``phase2_v2`` reading the neighbour
-  rows from the gathered tensors instead of through ``nbr``.
+- ``phase1_v1(ncnt, xng, x, y, z, k)`` and ``phase2_v1(ncnt, xng, lng, x,
+  y, z, lam, k)``: ``phase1_v2``/``phase2_v2`` reading the neighbour rows
+  from the gathered tensors instead of through ``nbr``; a row's live count is
+  its own copy's, ``ncnt[row, 13]`` (row C has none).
 - ``density(nbr, cnt, x, y, z, k)`` -> pi: the gas loss's per-slot poly6
   sum, self included, 0 at dead slots.
 - ``density_bwd(nbr, cnt, x, y, z, g, k)`` -> (C+1, M, 3): its adjoint for
@@ -41,7 +42,9 @@ On a CPU tensor they take the plain versions (``*_plain``: the same math as
 (``phase1_slots``, ``phase2_slots``, ``phase1_v2_slots``,
 ``phase2_v2_slots``, ``phase1_v1_slots``, ``phase2_v1_slots``,
 ``density_slots``, ``density_bwd_slots``) or raise; no CUDA tensor reaches a plain version
-through them. Each kernel launch adds one to its entry in ``LAUNCHES``.
+through them. Each kernel launch adds one to its entry in ``LAUNCHES``;
+``phase1_v1_slots(..., walk=True)``, a checking mode that no path takes,
+counts under ``pbf_phase1_v1_walk``.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ from fluidnexus_torch.ops.neighbors import _OFFSETS, DenseGrid
 MAX_M = 128   # slots per cell row the kernels take (csrc/pbf.cu)
 
 LAUNCHES = {"pbf_phase1": 0, "pbf_phase2": 0, "pbf_phase1_v2": 0, "pbf_phase2_v2": 0,
-            "pbf_phase1_v1": 0, "pbf_phase2_v1": 0, "density_fwd": 0, "density_bwd": 0}
+            "pbf_phase1_v1": 0, "pbf_phase2_v1": 0, "density_fwd": 0, "density_bwd": 0,
+            "pbf_phase1_v1_walk": 0}
 
 
 def reset_launches():
@@ -117,9 +121,9 @@ def _lib():
     lib.fnx_pbf_phase1_v2.restype = i
     lib.fnx_pbf_phase2_v2.argtypes = [p] * 8 + [i] * 2 + [f] * 7 + [i] + [f] + [p]
     lib.fnx_pbf_phase2_v2.restype = i
-    lib.fnx_pbf_phase1_v1.argtypes = [p] * 10 + [i] * 2 + [f] * 5 + [p]
+    lib.fnx_pbf_phase1_v1.argtypes = [p] * 9 + [i] * 2 + [f] * 5 + [i] + [p]
     lib.fnx_pbf_phase1_v1.restype = i
-    lib.fnx_pbf_phase2_v1.argtypes = [p] * 10 + [i] * 2 + [f] * 7 + [i] + [f] + [p]
+    lib.fnx_pbf_phase2_v1.argtypes = [p] * 9 + [i] * 2 + [f] * 7 + [i] + [f] + [p]
     lib.fnx_pbf_phase2_v1.restype = i
     lib.fnx_pbf_density.argtypes = [p] * 6 + [i] * 2 + [f] * 3 + [p]
     lib.fnx_pbf_density.restype = i
@@ -268,9 +272,15 @@ def phase1_v2_plain(nbr, cnt, x, y, z, k: PairConsts):
     return _phase1_raw(nbr, cnt, (x, y, z), k)
 
 
-def phase1_v1_plain(ncnt, xng, cnt, x, y, z, k: PairConsts):
+def _own_counts(ncnt):
+    """(C+1,) live counts of the gathered rows: each row's own copy's,
+    ``ncnt[row, 13]``, and 0 for row C."""
+    return torch.cat([ncnt[:, 13], ncnt.new_zeros(1)])
+
+
+def phase1_v1_plain(ncnt, xng, x, y, z, k: PairConsts):
     """Phase 1 v1 in plain torch, from the gathered rows: as ``phase1_v2_plain``."""
-    return _phase1_raw(ncnt, cnt, (x, y, z), k, gathered=(ncnt, xng))
+    return _phase1_raw(ncnt, _own_counts(ncnt), (x, y, z), k, gathered=(ncnt, xng))
 
 
 def _ipow(x, k: PairConsts):
@@ -341,9 +351,9 @@ def phase2_v2_plain(nbr, cnt, x, y, z, lam, k: PairConsts):
     return _phase2_raw(nbr, cnt, (x, y, z), lam, k)
 
 
-def phase2_v1_plain(ncnt, xng, lng, cnt, x, y, z, lam, k: PairConsts):
+def phase2_v1_plain(ncnt, xng, lng, x, y, z, lam, k: PairConsts):
     """Phase 2 v1 in plain torch, from the gathered rows: as ``phase2_v2_plain``."""
-    return _phase2_raw(ncnt, cnt, (x, y, z), lam, k, gathered=(ncnt, xng, lng))
+    return _phase2_raw(ncnt, _own_counts(ncnt), (x, y, z), lam, k, gathered=(ncnt, xng, lng))
 
 
 def gather_v1(nbr, cnt, x, y, z):
@@ -399,15 +409,15 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_planes(nbr, cnt, planes_, names, table="nbr"):
-    """Checks the (C, 27) i32 ``table`` (``nbr``, or v1's gathered counts),
-    ``cnt`` and the (C+1, M) f32 planes; returns (C, M)."""
+def _check_planes(nbr, cnt, planes_, names):
+    """Checks the (C, 27) i32 ``nbr``, ``cnt`` and the (C+1, M) f32 planes;
+    returns (C, M)."""
     c = nbr.shape[0]
     m = planes_[0].shape[1]
     dev = nbr.device
     if m > MAX_M:
         raise ValueError(f"the PBF kernels take at most {MAX_M} slots per cell, got {m}")
-    cuda_build.check(nbr, table, torch.int32, (c, 27), dev)
+    cuda_build.check(nbr, "nbr", torch.int32, (c, 27), dev)
     cuda_build.check(cnt, "cnt", torch.int32, (c + 1,), dev)
     for p, name in zip(planes_, names):
         cuda_build.check(p, name, torch.float32, (c + 1, m), dev)
@@ -504,41 +514,54 @@ def phase2_v2_slots(nbr, cnt, x, y, z, lam, k: PairConsts):
     return dsum, s[0], s[1]
 
 
-def _check_gathered(ncnt, xng, cnt, planes_, names, lng=None):
-    c, m = _check_planes(ncnt, cnt, planes_, names, table="ncnt")
-    cuda_build.check(xng, "xng", torch.float32, (c, 27, 3, m), ncnt.device)
+def _check_gathered(ncnt, xng, planes_, names, lng=None):
+    """Checks v1's gathered counts ``ncnt`` (C, 27) i32 and rows ``xng`` (C,
+    27, 3, M) (and ``lng`` (C, 27, M)) and the (C+1, M) f32 planes; returns
+    (C, M)."""
+    c, m = ncnt.shape[0], planes_[0].shape[1]
+    dev = ncnt.device
+    if m > MAX_M:
+        raise ValueError(f"the PBF kernels take at most {MAX_M} slots per cell, got {m}")
+    cuda_build.check(ncnt, "ncnt", torch.int32, (c, 27), dev)
+    for p, name in zip(planes_, names):
+        cuda_build.check(p, name, torch.float32, (c + 1, m), dev)
+    cuda_build.check(xng, "xng", torch.float32, (c, 27, 3, m), dev)
     if lng is not None:
-        cuda_build.check(lng, "lng", torch.float32, (c, 27, m), ncnt.device)
+        cuda_build.check(lng, "lng", torch.float32, (c, 27, m), dev)
     return c, m
 
 
-def phase1_v1_slots(ncnt, xng, cnt, x, y, z, k: PairConsts):
+def phase1_v1_slots(ncnt, xng, x, y, z, k: PairConsts, walk=False):
     """Row 4 (csrc/pbf.cu ``phase1_v1_kernel``): as ``phase1_v2_slots`` from
-    the gathered rows."""
+    the gathered rows (each row's own count from its copy, ``ncnt[row,
+    13]``). ``walk=True`` launches the checking mode instead, the
+    one-block-a-row walk (``phase1_walk_kernel``) whose sums every row
+    group's phase 1 keeps bit for bit; no path takes it, and it counts under
+    ``pbf_phase1_v1_walk``."""
     cuda_build.require_cuda(xng, "phase1_v1_slots")
-    c, m = _check_gathered(ncnt, xng, cnt, (x, y, z), ("x", "y", "z"))
+    c, m = _check_gathered(ncnt, xng, (x, y, z), ("x", "y", "z"))
     pi_raw, c2d2, nlen = (torch.empty_like(x) for _ in range(3))
     sg = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
     err = _lib().fnx_pbf_phase1_v1(
-        cnt.data_ptr(), ncnt.data_ptr(), xng.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        ncnt.data_ptr(), xng.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
         pi_raw.data_ptr(), sg.data_ptr(), c2d2.data_ptr(), nlen.data_ptr(), c, m, k.h, k.h2,
-        k.eps, k.c6, k.s45, _stream(x))
+        k.eps, k.c6, k.s45, int(walk), _stream(x))
     cuda_build.raise_on(err, "pbf phase1 v1 launch")
-    LAUNCHES["pbf_phase1_v1"] += 1
+    LAUNCHES["pbf_phase1_v1_walk" if walk else "pbf_phase1_v1"] += 1
     return pi_raw, sg, c2d2, nlen, pi_raw.sum(), nlen.sum()
 
 
-def phase2_v1_slots(ncnt, xng, lng, cnt, x, y, z, lam, k: PairConsts):
+def phase2_v1_slots(ncnt, xng, lng, x, y, z, lam, k: PairConsts):
     """Row 5 (csrc/pbf.cu ``phase2_v1_kernel``): as ``phase2_v2_slots`` from
     the gathered rows (each row's own count from its copy, ``ncnt[row, 13]``)."""
     cuda_build.require_cuda(xng, "phase2_v1_slots")
-    c, m = _check_gathered(ncnt, xng, cnt, (x, y, z, lam), ("x", "y", "z", "lam"), lng)
+    c, m = _check_gathered(ncnt, xng, (x, y, z, lam), ("x", "y", "z", "lam"), lng)
     dsum = torch.empty(x.shape + (3,), dtype=torch.float32, device=x.device)
     part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
     err = _lib().fnx_pbf_phase2_v1(
-        cnt.data_ptr(), ncnt.data_ptr(), xng.data_ptr(), lng.data_ptr(), x.data_ptr(),
-        y.data_ptr(), z.data_ptr(), lam.data_ptr(), dsum.data_ptr(), part.data_ptr(), c, m, k.h,
-        k.h2, k.eps, k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom, _stream(x))
+        ncnt.data_ptr(), xng.data_ptr(), lng.data_ptr(), x.data_ptr(), y.data_ptr(),
+        z.data_ptr(), lam.data_ptr(), dsum.data_ptr(), part.data_ptr(), c, m, k.h, k.h2, k.eps,
+        k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom, _stream(x))
     cuda_build.raise_on(err, "pbf phase2 v1 launch")
     LAUNCHES["pbf_phase2_v1"] += 1
     s = part.sum(0)
@@ -587,15 +610,15 @@ def phase2_v2(nbr, cnt, x, y, z, lam, k: PairConsts):
     return phase2_v2_slots(nbr, cnt, x, y, z, lam, k)
 
 
-def phase1_v1(ncnt, xng, cnt, x, y, z, k: PairConsts):
+def phase1_v1(ncnt, xng, x, y, z, k: PairConsts):
     """Phase 1 v1: ``phase1_v1_plain`` on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
-        return phase1_v1_plain(ncnt, xng, cnt, x, y, z, k)
-    return phase1_v1_slots(ncnt, xng, cnt, x, y, z, k)
+        return phase1_v1_plain(ncnt, xng, x, y, z, k)
+    return phase1_v1_slots(ncnt, xng, x, y, z, k)
 
 
-def phase2_v1(ncnt, xng, lng, cnt, x, y, z, lam, k: PairConsts):
+def phase2_v1(ncnt, xng, lng, x, y, z, lam, k: PairConsts):
     """Phase 2 v1: ``phase2_v1_plain`` on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
-        return phase2_v1_plain(ncnt, xng, lng, cnt, x, y, z, lam, k)
-    return phase2_v1_slots(ncnt, xng, lng, cnt, x, y, z, lam, k)
+        return phase2_v1_plain(ncnt, xng, lng, x, y, z, lam, k)
+    return phase2_v1_slots(ncnt, xng, lng, x, y, z, lam, k)

@@ -85,7 +85,7 @@ def _project_core(nbr, cnt, xyz, live, params: PBFParams, backend: str, imass_s,
         pi_raw, sg, c2d2, nlen, s_p6, s_edges = pbf_cuda.phase1_v2(nbr, cnt, *xyz, k)
     elif backend == "v1":
         ncnt, xng = pbf_cuda.gather_v1(nbr, cnt, *xyz)
-        pi_raw, sg, c2d2, nlen, s_p6, s_edges = pbf_cuda.phase1_v1(ncnt, xng, cnt, *xyz, k)
+        pi_raw, sg, c2d2, nlen, s_p6, s_edges = pbf_cuda.phase1_v1(ncnt, xng, *xyz, k)
     else:
         raise ValueError(f"_project_core runs the v2 or v1 kernels, not {backend!r}")
     p0 = params.p0
@@ -98,7 +98,7 @@ def _project_core(nbr, cnt, xyz, live, params: PBFParams, backend: str, imass_s,
         dsum, s_corr, s_ns = pbf_cuda.phase2_v2(nbr, cnt, *xyz, lam, k)
     else:
         lng = pbf_cuda.gather_lam_v1(nbr, lam)
-        dsum, s_corr, s_ns = pbf_cuda.phase2_v1(ncnt, xng, lng, cnt, *xyz, lam, k)
+        dsum, s_corr, s_ns = pbf_cuda.phase2_v1(ncnt, xng, lng, *xyz, lam, k)
     delta = dsum / p0 / torch.clamp(nlen + counts_s, min=1e-20)[..., None]
     return CoreOut(delta, pi, p_ratio, lam, nlen, s_p6, s_edges, s_corr, s_ns)
 

@@ -101,14 +101,19 @@ def test_combine_takes_unaligned_rows(cuda_device):
                                    atol=1e-5 * float(out_p.abs().max()))
 
 
+# tiles beside the main path's 16 x 16: no multiple of 32 or 64 pixels, odd
+# pixel counts, and over 1 024 pixels (run as chunks of tc.BLOCK_P)
+OTHER_TILES = [(5, 5), (12, 12), (10, 10), (48, 32), (64, 32), (64, 64)]
+
+
 @pytest.mark.parametrize("tile", [(16, 16), (8, 8), (16, 8), (32, 16), (24, 8), (8, 4), (12, 8),
-                                  (32, 32), (64, 16), (16, 6)])
+                                  (32, 32), (64, 16), (16, 6)] + OTHER_TILES)
 def test_backward_at_each_tile_size(cuda_device, tile):
-    """The backward takes tiles of a multiple of 64 pixels up to 1024 and
-    matches its plain version there; it raises on any other tile, which the
-    forward (multiples of 32 up to 1024) still takes."""
+    """The forward and the backward take every tile and match their plain
+    versions there; the splats spread over the whole tile, so each chunk of
+    a tile over 1 024 pixels draws."""
     tx, ty = tile
-    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=5, tiles_x=3)
+    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=5, tiles_x=3, tile=max(tx, ty))
     pk = torch.as_tensor(packed, device=cuda_device)
     cn = torch.as_tensor(counts, device=cuda_device)
     accum, ft, med, ckpt = tc.composite_fwd(pk, cn, 3, tx, ty)
@@ -117,14 +122,11 @@ def test_backward_at_each_tile_size(cuda_device, tile):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
     gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
-    launches = tc.LAUNCHES["composite_bwd"]
-    if (tx * ty) % 64 or tx * ty > tc.MAX_BWD_P:
-        with pytest.raises(ValueError, match="multiple of 64"):
-            tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty)
-        assert tc.LAUNCHES["composite_bwd"] == launches
-        return
-    ref, _ = _plain_grad(pk, cn, 3, tx, ty, gacc, gft)
-    _assert_fields_close(tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty), ref)
+    ref, live = _plain_grad(pk, cn, 3, tx, ty, gacc, gft)
+    leave_nan_blocks(cuda_device, pk.shape)
+    dpk = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, tx, ty)
+    assert not dpk[~live.expand_as(dpk)].any() and not dpk[..., -1].any()
+    _assert_fields_close(dpk, ref)
 
 
 def _nan_outputs(t, k, c, p, device):
@@ -162,18 +164,62 @@ def test_forward_at_edge_cases(cuda_device, c, case):
     assert torch.equal(_bits(out[3][live]), _bits(full[3][live]))
 
 
-@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (32, 5), (32, 1)])
+@pytest.mark.parametrize("tile", [(8, 4), (16, 6), (32, 5), (32, 1)] + OTHER_TILES)
 def test_forward_masks_spare_lanes(cuda_device, tile):
-    """Tiles of a multiple of 32 pixels that is not one of 64: the last warp
-    holds spare lanes without pixels; every pixel is still written, and
-    matches the plain version."""
+    """Tiles whose last warp holds spare lanes without pixels (a multiple of
+    32 pixels that is not one of 64, or of no 32), an odd pixel count (a
+    thread's second pixel past the tile, the rows on odd floats), tiles run
+    as chunks: every pixel is still written, and matches the plain
+    version."""
     tx, ty = tile
-    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=7, tiles_x=3)
+    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=7, tiles_x=3, tile=max(tx, ty))
     pk, cn = torch.as_tensor(packed, device=cuda_device), torch.as_tensor(counts, device=cuda_device)
     _nan_outputs(6, 96, 3, tx * ty, cuda_device)
     out = tc.composite_fwd(pk, cn, 3, tx, ty)
     for a, b in zip(out[:3], tc.composite_plain(pk, cn, 3, tx, ty)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_a_launch_of_70_000_tiles(cuda_device):
+    """70 000 tiles of 4 x 4 pixels in one launch (more than the 65 536 the
+    tile order once held): forward and backward against their plain
+    versions, the combine against ``index_add_``."""
+    t, tiles_x = 70_000, 350
+    packed, counts, _ = packed_tiles(t=t, k=8, c=3, seed=9, tiles_x=tiles_x, tile=4)
+    pk = torch.as_tensor(packed, device=cuda_device)
+    cn = torch.as_tensor(counts, device=cuda_device)
+    _nan_outputs(t, 8, 3, 16, cuda_device)
+    accum, ft, med, ckpt = tc.composite_fwd(pk, cn, tiles_x, 4, 4)
+    for a, b in zip((accum, ft, med), tc.composite_plain(pk, cn, tiles_x, 4, 4)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
+    gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
+    ref, live = _plain_grad(pk, cn, tiles_x, 4, 4, gacc, gft)
+    dpk = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, tiles_x, 4, 4)
+    assert not dpk[~live.expand_as(dpk)].any()
+    _assert_fields_close(dpk, ref)
+    gid = torch.randint(0, 5000, (t, 8), generator=gen, device=cuda_device)
+    out_p = tc.combine_plain(dpk, gid, cn, 5000)
+    torch.testing.assert_close(tc.combine_rows(dpk, gid, cn, 5000), out_p, rtol=0,
+                               atol=1e-5 * float(out_p.abs().max()))
+
+
+def test_a_chunked_backward_repeats_bit_for_bit(cuda_device):
+    """Tiles of 64 x 32 = 2 048 pixels run as two chunks, whose sums are
+    added in chunk order with no atomics: two backwards give the same bits,
+    and match the plain version."""
+    packed, counts, _ = packed_tiles(t=6, k=96, c=3, seed=11, tiles_x=3, tile=64)
+    pk = torch.as_tensor(packed, device=cuda_device)
+    cn = torch.as_tensor(counts, device=cuda_device)
+    accum, ft, _, ckpt = tc.composite_fwd(pk, cn, 3, 64, 32)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    gacc = torch.randn(accum.shape, generator=gen, device=cuda_device)
+    gft = torch.randn(ft.shape, generator=gen, device=cuda_device)
+    first = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, 64, 32)
+    second = tc.composite_bwd(pk, cn, gacc, gft, ft, ckpt, 3, 64, 32)
+    assert torch.equal(_bits(first), _bits(second))
+    _assert_fields_close(first, _plain_grad(pk, cn, 3, 64, 32, gacc, gft)[0])
 
 
 @pytest.mark.parametrize("case", EDGE_CASES + ("threshold",))

@@ -15,7 +15,7 @@ from fluidnexus_torch.sim.pbf import PBFParams
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.torch_helpers import (  # noqa: F401
-    coincident_pairs_grid, cuda_device, isolated_point_grid, leave_nan_blocks,
+    coincident_pairs_grid, cuda_device, guarded_gather, isolated_point_grid, leave_nan_blocks,
     phase1_against_the_walk,
 )
 
@@ -109,14 +109,15 @@ def test_phase1_at_its_edges(cuda_device, m):
 
 @pytest.mark.parametrize("m", [32, 128])
 def test_phase1_keeps_the_walks_sums(cuda_device, m):
-    """Phase 1 (v3, row 12) and phase 1 v2 (row 6), which share one row-group
-    body, against phase 1 v1 (row 4), whose walk over the rows takes the
-    self pair by index and adds each slot's pairs in the order the row groups
-    keep, over 20 pairs of live particles at one position at the default
-    epsilon: their cg ~ 1e5 cancels in sg, so sums that took such a pair for
-    the self pair (cg 0) would round otherwise, far beyond the epilogue's few
-    ulp. Row 12: pi_raw bit for bit, nl exact, lambda within 1e-6 relative
-    (the epilogue's f32 rounding); row 6: every output bit for bit."""
+    """Phase 1 (v3, row 12), phase 1 v2 (row 6) and phase 1 v1 (row 4), which
+    share one row-group body, against phase 1 v1's checking mode, the walk
+    over the rows, which takes the self pair by index and adds each slot's
+    pairs in the order the row groups keep, over 20 pairs of live particles
+    at one position at the default epsilon: their cg ~ 1e5 cancels in sg, so
+    sums that took such a pair for the self pair (cg 0) would round
+    otherwise, far beyond the epilogue's few ulp. Row 12: pi_raw bit for bit,
+    nl exact, lambda within 1e-6 relative (the epilogue's f32 rounding); rows
+    6 and 4: every output bit for bit."""
     grid, rng = coincident_pairs_grid(m, cuda_device, seed=m + 7)
     live = grid.bmask
     im = torch.as_tensor((0.8 + 0.4 * rng.random(tuple(live.shape))).astype(np.float32),
@@ -126,6 +127,32 @@ def test_phase1_keeps_the_walks_sums(cuda_device, m):
     assert same_pi and same_nl
     assert all(raw_same), raw_same
     assert rel <= 1e-6, rel
+
+
+@pytest.mark.parametrize("m", [32, pc.MAX_M])
+def test_phase1_v1_keeps_the_walks_bits(cuda_device, m):
+    """Phase 1 v1 (row 4: the row groups over the gathered rows) into
+    NaN-filled blocks against its checking mode, the walk, at atol=0, over
+    ``test_phase1_at_its_edges``' grid at the default epsilon: M = 32 and M =
+    MAX_M with full rows, empty rows, two live particles at one position in
+    one row and one point alone, the gathered rows followed by guard rows
+    that hold live neighbours (``guarded_gather``), which row C must not
+    read. pi_raw, sg, c2d2 and nlen bit for bit, each 0 at dead slots, empty
+    rows and row C."""
+    grid, _ = isolated_point_grid(m, cuda_device, seed=m + 5, coincident=True)
+    cnt, *xyz = pc.planes(grid)
+    live = grid.bmask
+    assert bool((cnt == m).any()) and bool((cnt[:-1] == 0).any())
+    assert int(grid.prow[1]) == int(grid.prow[2]) < grid.max_cells
+    ncnt, xng, _ = guarded_gather(grid.nbr, cnt, *xyz, torch.zeros_like(xyz[0]))
+    k = pc.pair_consts(PBFParams(h=1.0))
+    walk = pc.phase1_v1_slots(ncnt, xng, *xyz, k, walk=True)
+    leave_nan_blocks(cuda_device, *(tuple(w.shape) for w in walk[:4]))
+    got = pc.phase1_v1_slots(ncnt, xng, *xyz, k)
+    for name, g, w in zip(("pi_raw", "sg", "c2d2", "nlen"), got, walk):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), f"row 4 {name}"
+        assert not g[~live].any(), f"row 4 {name} off the live slots"
+    assert torch.equal(torch.stack(got[4:]), torch.stack(walk[4:]))
 
 
 @pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])

@@ -20,7 +20,7 @@ def test_v1_passes_match_the_v1_pallas_kernels():
     ncnt, xng = pbf_cuda.gather_v1(tg.nbr, cnt, x, y, z)
     c, m = tg.max_cells, tg.capacity
     assert ncnt.shape == (c, 27) and xng.shape == (c, 27, 3, m)
-    got1 = pbf_cuda.phase1_v1_plain(ncnt, xng, cnt, x, y, z, k)
+    got1 = pbf_cuda.phase1_v1_plain(ncnt, xng, x, y, z, k)
     check_phase1(got1, ref1, live)
     # the gathered rows are the v2 walk's rows: v1 and v2 agree exactly
     for a, b in zip(got1, pbf_cuda.phase1_v2_plain(tg.nbr, cnt, x, y, z, k)):
@@ -32,7 +32,7 @@ def test_v1_passes_match_the_v1_pallas_kernels():
     lam_t = torch.zeros_like(x)
     lam_t[:-1] = torch.as_tensor(lam)
     lng = pbf_cuda.gather_lam_v1(tg.nbr, lam_t)
-    got2 = pbf_cuda.phase2_v1_plain(ncnt, xng, lng, cnt, x, y, z, lam_t, k)
+    got2 = pbf_cuda.phase2_v1_plain(ncnt, xng, lng, x, y, z, lam_t, k)
     check_phase2(got2, ref2, live)
     for a, b in zip(got2, pbf_cuda.phase2_v2_plain(tg.nbr, cnt, x, y, z, lam_t, k)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

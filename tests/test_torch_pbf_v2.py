@@ -203,10 +203,11 @@ def test_project_iterations_dense_rejects_an_unknown_backend():
 
 
 @pytest.mark.parametrize("name", ["phase1_v2_slots", "phase2_v2_slots", "phase1_v1_slots",
-                                  "phase2_v1_slots"])
+                                  "phase2_v1_slots", "phase1_v1_slots walk"])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """The kernel wrappers never fall back to a plain version: a CPU tensor
-    is refused before any build or launch."""
+    is refused before any build or launch (row 4's checking mode, the walk,
+    too)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     params = _params(tpbf.PBFParams)
@@ -217,11 +218,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
     args = {"phase1_v2_slots": (grid.nbr, cnt, *xyz),
             "phase2_v2_slots": (grid.nbr, cnt, *xyz, lam),
-            "phase1_v1_slots": (ncnt, xng, cnt, *xyz),
-            "phase2_v1_slots": (ncnt, xng, pc.gather_lam_v1(grid.nbr, lam), cnt, *xyz, lam)}
+            "phase1_v1_slots": (ncnt, xng, *xyz),
+            "phase2_v1_slots": (ncnt, xng, pc.gather_lam_v1(grid.nbr, lam), *xyz, lam)}
+    fn, mode = (name.split() + [None])[:2]
     before = dict(pc.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        getattr(pc, name)(*args[name], pc.pair_consts(params))
+        getattr(pc, fn)(*args[fn], pc.pair_consts(params), **({"walk": True} if mode else {}))
     assert pc.LAUNCHES == before
 
 

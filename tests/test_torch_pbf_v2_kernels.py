@@ -38,11 +38,14 @@ def test_v2_and_v1_kernels_match_plain_on_the_card(cuda_device, m, n, box, e_p):
     ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
 
     out2 = pc.phase1_v2_slots(grid.nbr, cnt, *xyz, k)
-    out1 = pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)
+    out1 = pc.phase1_v1_slots(ncnt, xng, *xyz, k)
+    walk = pc.phase1_v1_slots(ncnt, xng, *xyz, k, walk=True)
     ref = pc.phase1_v2_plain(grid.nbr, cnt, *xyz, k)
-    for name, a, b, r in zip(("pi_raw", "sg", "c2d2"), out2, out1, ref):
-        _held(a, r, live, f"v2 {name}")
+    for name, a, b, w, r in zip(("pi_raw", "sg", "c2d2", "nlen"), out2, out1, walk, ref):
+        if name != "nlen":
+            _held(a, r, live, f"v2 {name}")
         torch.testing.assert_close(b, a, rtol=0, atol=0, msg=f"v1 {name}")
+        torch.testing.assert_close(b, w, rtol=0, atol=0, msg=f"v1 {name} against the walk")
     torch.testing.assert_close(out2[3], ref[3], rtol=0, atol=0)       # nlen exactly
     torch.testing.assert_close(torch.stack(out2[4:]), torch.stack(ref[4:]), rtol=1e-5, atol=0)
 
@@ -50,7 +53,7 @@ def test_v2_and_v1_kernels_match_plain_on_the_card(cuda_device, m, n, box, e_p):
     lam = -(pi / 1.5 - 1.0) / (c2d2 / 2.25 + ((sg / 1.5) ** 2).sum(-1) + 0.01)
     lam = torch.where(live, lam, 0.0).contiguous()
     d2, s_corr, s_ns = pc.phase2_v2_slots(grid.nbr, cnt, *xyz, lam, k)
-    d1 = pc.phase2_v1_slots(ncnt, xng, pc.gather_lam_v1(grid.nbr, lam), cnt, *xyz, lam, k)
+    d1 = pc.phase2_v1_slots(ncnt, xng, pc.gather_lam_v1(grid.nbr, lam), *xyz, lam, k)
     ref2 = pc.phase2_v2_plain(grid.nbr, cnt, *xyz, lam, k)
     _held(d2, ref2[0], live, "v2 dsum")
     torch.testing.assert_close(d1[0], d2, rtol=0, atol=0, msg="v1 dsum")
@@ -134,9 +137,9 @@ def test_phase1_v2_at_its_edges(cuda_device, m, eps):
     for g, w in ((got[0], want[0]), (got[3], want[3])):
         assert torch.equal(g[row, col:col + 1].view(torch.int32), w[row, col:col + 1].view(torch.int32))
     ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
-    walk = pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)
+    walk = pc.phase1_v1_slots(ncnt, xng, *xyz, k, walk=True)
     for name, g, w in zip(("pi_raw", "sg", "c2d2", "nlen"), got, walk):
-        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), f"row 6 {name} against row 4"
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), f"row 6 {name} against the walk"
 
 
 @pytest.mark.parametrize("m,e_p", [(32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)])
@@ -160,7 +163,7 @@ def test_phase2_v1_at_its_edges(cuda_device, m, e_p):
     k = pc.pair_consts(PBFParams(h=1.0, e_p=e_p, epsilon=1e-2))
     lam = pc.phase1_plain(grid.nbr, cnt, *xyz, torch.ones_like(xyz[0]), k)[0].contiguous()
     ncnt, xng, lng = guarded_gather(grid.nbr, cnt, *xyz, lam)
-    args = (ncnt, xng, lng, cnt, *xyz, lam, k)
+    args = (ncnt, xng, lng, *xyz, lam, k)
     args2 = (grid.nbr, cnt, *xyz, lam, k)
     dsum_p, corr_p, ns_p = pc.phase2_v1_plain(*args)
     part_p = plain_row_partials(*args2)
@@ -212,6 +215,7 @@ def test_rigid_solver_loop_on_the_card_matches_the_cpu(cuda_device, monkeypatch)
     got, got_d = run(cuda_device)
     assert (pc.LAUNCHES["pbf_phase1_v2"], pc.LAUNCHES["pbf_phase2_v2"]) == (3, 3)
     assert pc.LAUNCHES["pbf_phase1"] == pc.LAUNCHES["pbf_phase1_v1"] == 0
+    assert pc.LAUNCHES["pbf_phase1_v1_walk"] == 0
     torch.testing.assert_close(got.estimate_xyz.cpu(), ref.estimate_xyz, rtol=0, atol=1e-4)
     torch.testing.assert_close(got.force.cpu(), ref.force, rtol=1e-3, atol=1e-3)
     for key in ref_d:

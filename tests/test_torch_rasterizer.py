@@ -144,12 +144,16 @@ def _raster_kw(cam, c):
                 height=cam.height)
 
 
-@pytest.mark.parametrize("c", [1, 3])
-def test_rasterize_matches_jax(c):
+def _rasterize_against_jax(c, tile_x=16, tile_y=16):
+    """The port's ``rasterize`` against JAX's (``backend="xla"``) at tiles of
+    tile_x x tile_y: colour, final T and depth at 1e-4, radii exact, the five
+    gradients at 2e-3 of their scale."""
     cam = make_camera(width=64, height=32)
     means, cols, ops, scales, rots = random_scene(n=50, c=c, seed=c)
-    cfg_j = jr.RasterizerConfig(tile_capacity=64, chunk=16, dup_x=4, dup_y=2, backend="xla")
-    cfg_t = tr.RasterizerConfig(tile_capacity=64, chunk=16, dup_x=4, dup_y=2)
+    tiles = dict(tile_x=tile_x, tile_y=tile_y)
+    cfg_j = jr.RasterizerConfig(tile_capacity=64, chunk=16, dup_x=4, dup_y=2, backend="xla",
+                                **tiles)
+    cfg_t = tr.RasterizerConfig(tile_capacity=64, chunk=16, dup_x=4, dup_y=2, **tiles)
     kw = _raster_kw(cam, c)
     bg = np.zeros(c, np.float32)
     args = (means, cols, ops, scales, rots)
@@ -163,7 +167,13 @@ def test_rasterize_matches_jax(c):
         return tr.rasterize(m, co, o, s, r, view_matrix=_t(cam.world_view),
                             proj_matrix=_t(cam.full_proj), bg_color=_t(bg), config=cfg_t, **kw)
 
-    out_j = jf(*(jnp.asarray(a) for a in args))
+    def jloss(*a):
+        out = jf(*a)
+        return (out.color ** 2).sum() + 0.3 * out.final_t.sum(), out
+
+    # the forward once, its outputs beside the gradients
+    (_, out_j), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        *(jnp.asarray(a) for a in args))
     targs = [_t(a).requires_grad_(True) for a in args]
     out_t = tf(*targs)
     np.testing.assert_allclose(out_t.color.detach().numpy(), np.asarray(out_j.color), atol=1e-4)
@@ -171,16 +181,25 @@ def test_rasterize_matches_jax(c):
     np.testing.assert_allclose(out_t.depth.numpy(), np.asarray(out_j.depth), atol=1e-4)
     np.testing.assert_array_equal(out_t.radii.numpy(), np.asarray(out_j.radii))
 
-    def jloss(*a):
-        out = jf(*a)
-        return (out.color ** 2).sum() + 0.3 * out.final_t.sum()
-
-    gj = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in args))
     ((out_t.color ** 2).sum() + 0.3 * out_t.final_t.sum()).backward()
     for name, a, b in zip(("means", "cols", "ops", "scales", "rots"), gj, targs):
         scale = max(float(jnp.abs(a).max()), 1e-6)
         np.testing.assert_allclose(b.grad.numpy(), np.asarray(a), atol=2e-3 * scale,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_rasterize_matches_jax(c):
+    _rasterize_against_jax(c)
+
+
+@pytest.mark.parametrize("tile", [(5, 5), (12, 12), (64, 32)])
+def test_rasterize_matches_jax_at_other_tiles(tile):
+    """Tiles the card takes beside the main path's 16 x 16: odd pixel counts
+    (5 x 5), no multiple of 32 or 64 (12 x 12), over 1 024 pixels (64 x 32,
+    which the card runs as two chunks); the 64 x 32 frame's edges cut the 5
+    x 5 and 12 x 12 tiles."""
+    _rasterize_against_jax(3, *tile)
 
 
 def test_cpu_wrappers_take_the_plain_versions():

@@ -262,23 +262,28 @@ def guarded_gather(nbr, cnt, x, y, z, lam, guard=16):
 
 
 def phase1_against_the_walk(grid, imass, k):
-    """Phase 1 v3 (row 12) and phase 1 v2 (row 6) against phase 1 v1 (row 4),
-    the one-block-a-row walk that takes the self pair by index and sums each
-    slot's pairs in the order the row groups keep, over ``pbf_cuda.gather_v1``
-    of ``grid``, with per-slot inverse masses ``imass`` and pair constants
-    ``k``: (row 12's pi_raw bit for bit, its nl equal to nlen, the largest
+    """Phase 1 v3 (row 12), phase 1 v2 (row 6) and phase 1 v1 (row 4) against
+    phase 1 v1's checking mode (``phase1_v1_slots(..., walk=True)``), the
+    one-block-a-row walk that takes the self pair by index and sums each
+    slot's pairs in the order the row groups keep, over ``grid``'s v1
+    pre-gather followed by guard rows (``guarded_gather``: a kernel whose row
+    C reads gathered rows it has none of shows in its outputs), with per-slot
+    inverse masses ``imass`` and pair constants ``k``: (row 12's pi_raw bit
+    for bit, its nl equal to nlen, the largest
     relative difference over the live slots of its lambda from lambda formed
     from the walk's sums, p_ratio in f32 as the kernel forms it and the rest
-    in f64; row 6's pi_raw, sg, c2d2 and nlen each bit for bit). With the same
-    sums only row 12's f32 epilogue over positive terms parts it from the
-    walk's, a few ulp; row 6 writes the walk's own expressions."""
+    in f64; rows 6's and 4's pi_raw, sg, c2d2 and nlen each bit for bit). With
+    the same sums only row 12's f32 epilogue over positive terms parts it
+    from the walk's, a few ulp; rows 6 and 4 write the walk's own
+    expressions."""
     from fluidnexus_torch.sim import pbf_cuda as pc
 
     cnt, *xyz = pc.planes(grid)
-    ncnt, xng = pc.gather_v1(grid.nbr, cnt, *xyz)
-    walk = pc.phase1_v1_slots(ncnt, xng, cnt, *xyz, k)
+    ncnt, xng, _ = guarded_gather(grid.nbr, cnt, *xyz, torch.zeros_like(xyz[0]))
+    walk = pc.phase1_v1_slots(ncnt, xng, *xyz, k, walk=True)
     lam, pi_raw, nl, _, _ = pc.phase1_slots(grid.nbr, cnt, *xyz, imass, k)
     raw = pc.phase1_v2_slots(grid.nbr, cnt, *xyz, k)
+    row4 = pc.phase1_v1_slots(ncnt, xng, *xyz, k)
     pi2, sg, c2d2, nlen = walk[:4]
     p_ratio = (pi2 / imass * k.inv_p0).double()
     ip2 = k.inv_p0 ** 2
@@ -286,27 +291,28 @@ def phase1_against_the_walk(grid, imass, k):
     rel = ((lam.double() - ref).abs() / ref.abs().clamp(min=1e-30))[grid.bmask]
     return (torch.equal(pi_raw.view(torch.int32), pi2.view(torch.int32)), torch.equal(nl, nlen),
             float(rel.max()),
-            [torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(raw[:4], walk[:4])])
+            [torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for got in (raw, row4) for a, b in zip(got[:4], walk[:4])])
 
 
 def phase2_part(mod, name, args):
     """Phase 2 v3 (``name`` pbf_phase2, ``args`` (nbr, cnt, x, y, z, lam, nc,
     k)), v2 (pbf_phase2_v2, (nbr, cnt, x, y, z, lam, k)) or v1 (pbf_phase2_v1,
-    (ncnt, xng, lng, cnt, x, y, z, lam, k)) through the C entry of ``mod`` (a
+    (ncnt, xng, lng, x, y, z, lam, k)) through the C entry of ``mod`` (a
     ``pbf_cuda`` module, this checkout's or another's) with the arguments its
     wrapper passes: (the updated planes x, y, z, or dsum, then the per-row
     partial sums (C+1, 2) of s_corr and s_ns, which the wrapper adds up)."""
     k = args[-1]
     consts = [k.h, k.h2, k.eps, k.c6, k.s45, k.k_p, k.e_p, k.int_pow, k.inv_denom]
     if name == "pbf_phase2_v1":
-        ncnt, xng, lng, cnt, x, y, z, lam = args[:8]
-        ptrs = [cnt.data_ptr(), ncnt.data_ptr(), xng.data_ptr(), lng.data_ptr(), x.data_ptr(),
-                y.data_ptr(), z.data_ptr(), lam.data_ptr()]
+        ncnt, xng, lng, x, y, z, lam = args[:7]
+        ptrs = [ncnt.data_ptr(), xng.data_ptr(), lng.data_ptr(), x.data_ptr(), y.data_ptr(),
+                z.data_ptr(), lam.data_ptr()]
     else:
         nbr, cnt, x, y, z, lam = args[:6]
         ptrs = [cnt.data_ptr(), nbr.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
                 lam.data_ptr()]
-    c, m = cnt.numel() - 1, x.shape[1]
+    c, m = x.shape[0] - 1, x.shape[1]
     part = torch.empty((c + 1, 2), dtype=torch.float32, device=x.device)
     if name == "pbf_phase2":
         out = tuple(torch.empty_like(x) for _ in range(3))
