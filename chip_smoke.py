@@ -35,7 +35,9 @@ video training batch's whole-clip VAE encode; ``python3 chip_smoke.py
 attention-time`` times the attention forward kernels alone at the 5B shape,
 ``python3 chip_smoke.py attention-bwd`` checks the backward kernels at ragged
 shapes and times them there; ``python3 chip_smoke.py tick-flips`` counts how
-often the PBF tick's backends part at a pair that crosses the kernel radius.
+often the PBF tick's backends part at a pair that crosses the kernel radius;
+``python3 chip_smoke.py stages`` runs the stages phase alone, and
+``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -77,6 +79,16 @@ Rigid rollout: from the same checkpoint, ticks of guess -> ``solver_loop``
 with the cylinder (10 Jacobi iterations, the grid rebuilt every iteration:
 the v2 kernels) -> confirm -> ``update_visual``; the v2 and v1 kernels held
 against their plain versions and each other at the first iteration's inputs.
+
+Stages (``run_stages``): a capture written to a temporary folder at the
+same geometry (transforms files, ``train0{c}/{t:03d}.png`` for frames 0-2,
+``train0{c}_bg/000.png``, the fake-view folders, every PNG written by
+``save_image`` from the port's renders), then the three stage ``main``s in
+process on the card: ``train_background`` on configs/smoke_background.json
+at full width (100 000 initial Gaussians, capacity 120 000) for 400 of its
+15 000 iterations with the densify, opacity-reset and large-prune intervals
+cut so that each fires, ``train_physical_particle`` from its PLY (frames
+0-2, 10 + 2 x 5 fit iterations) and ``future_simulation`` (2 frames).
 
 Video (``sample_video.main`` at its defaults): the CogVideoX-5B DiT and VAE on
 seeded random weights, 49 frames at 480 x 720 (13 latents, 17 776 tokens),
@@ -627,6 +639,7 @@ def main():
         kernels = run_phase_a(dev) + run_phase_b(dev)
         phase_c_kernels, recon = run_phase_c(dev, os.path.join(tmp, "recon"))
         kernels += phase_c_kernels + run_future(dev, recon, os.path.join(tmp, "future"))
+        kernels += run_stages(dev, os.path.join(tmp, "stages"))
         kernels += run_video(dev, os.path.join(tmp, "video"))
         kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
     print(json.dumps({"kernels": kernels}))
@@ -1792,6 +1805,339 @@ def run_phase_c(dev, model_path):
                         "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None, "floor_ms": tm["floor_ms"]})
     return kernels, dict(path=model_path, scene=scene, bg=bg)
+
+
+# ------------------------- the stages from disk (1 -> 2 -> 4) -------------------------
+
+STAGE1_ITERS = 400            # of configs/smoke_background.json's 15 000
+STAGE1_EVENTS = dict(densify_from_iter=100, densification_interval=100,
+                     opacity_reset_interval=250, prune_large_interval=350)
+# densify_grad_threshold, cut from 0.0002: the mean screen-space gradient
+# densify compares with it is taken in pixels, and on this capture it stays
+# near 1e-5 at most, so at 0.0002 no densify clones or splits. 0.0002 x 2 /
+# 960 is that threshold in pixels of a 960-wide frame for a gradient taken in
+# NDC units (x W / 2); with it every densify clones and splits at full width
+STAGE1_GRAD_THRESHOLD = 0.0002 * 2 / 960
+STAGE1_WINDOW = 20            # iterations a timing window holds
+STAGE2_FIRST_ITERS = 10       # iterations_per_time_first, cut from 1000
+STAGE2_ITERS = 5              # iterations_per_time_current and _max, cut from 1000
+STAGE_FRAMES = 3              # the capture's frames 0-2 (duration, cut from 120 / 180)
+STAGE4_FRAMES = 2             # future_pred_frames, cut from the README's 60
+CAPTURE_COLUMN_RISE = 0.01    # the rendered column moves up this much a frame
+
+
+def capture_cameras(root, n_frames):
+    """transforms_train.json, transforms_test.json and transforms.json for
+    ``smoke_scene``'s five cameras (OpenGL c2w, as a FluidNexus capture holds
+    them), and the cameras the port's reader makes of them: camera hacks and
+    all, so the frames are rendered from the poses ``read_scene`` gives."""
+    from fluidnexus_torch.data.readers import read_cameras_real_capture
+
+    scene = smoke_scene(n_frames=1)
+    frames = []
+    for cam in scene.train_cameras:
+        c2w = np.eye(4)
+        c2w[:3, :3] = cam.R
+        c2w[:3, 3] = cam.camera_center.astype(np.float64)
+        c2w[:3, 1:3] *= -1
+        frames.append({"file_path": cam.image_name, "transform_matrix": c2w.tolist(),
+                       "camera_hw": [cam.height, cam.width], "camera_angle_x": cam.fovx})
+    test = [f for f in frames if f["file_path"] == "train02"]
+    for name, sel in (("transforms.json", frames), ("transforms_test.json", test),
+                      ("transforms_train.json", [f for f in frames if f not in test])):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump({"frames": sel}, f)
+    return read_cameras_real_capture(root, "transforms.json", duration=n_frames, read_image=False)
+
+
+def write_capture(root, dev, fake_views, refined_strength):
+    """A capture at the FluidNexus-Smoke geometry: 5 cameras at 960 x 544,
+    ``train0{c}_bg/000.png`` (the seeded background splats in colour, what
+    stage 1 fits) and ``train0{c}/{t:03d}.png`` for frames 0-2 (the smoke
+    column, moved up a little each frame, in gray over that background),
+    copied into the fake-view folders of ``fake_views``. Every PNG is written
+    by the port's ``save_image`` from the port's renders. Returns the
+    seconds the writing took."""
+    import time
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.data.readers import fake_view_folder
+    from fluidnexus_torch.ops.rasterizer import rasterize
+    from fluidnexus_torch.pipelines.train_background import save_image
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+    from fluidnexus_torch.sim.state import make_visual_state
+    from fluidnexus_torch.splat.dynamics import constant_visual_attrs, create_visual_points
+    from fluidnexus_torch.splat.render import render_particles_with_background, to_gray3
+    from fluidnexus_torch.utils.maths import normalize
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    cams = capture_cameras(root, STAGE_FRAMES)
+    cfg = load_config("configs/smoke_dynamics.json")
+    rc = raster_config_from(cfg)
+    bg = synthetic_background(32768, dev)
+    m = cfg.model
+    pts = create_visual_points(m, np.random.default_rng(SEED + 2))
+    attrs = constant_visual_attrs(m.visual_capacity, 1, device=dev)
+    with torch.no_grad():
+        for cam in cams:
+            kw = dict(view_matrix=torch.as_tensor(cam.world_view, device=dev),
+                      proj_matrix=torch.as_tensor(cam.full_proj, device=dev),
+                      tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=cam.width,
+                      height=cam.height, bg_color=torch.zeros(3, device=dev), config=rc)
+            name, t = cam.image_name, cam.time_idx
+            if t == 0:
+                out = rasterize(bg.xyz, bg.color, torch.sigmoid(bg.opacity[:, 0]),
+                                torch.exp(bg.scaling), normalize(bg.rotation), **kw)
+                save_image(os.path.join(root, f"{name}_bg", "000.png"), out.color)
+            moved = pts + np.array([0.0, 0.02 + CAPTURE_COLUMN_RISE * t, 0.0], np.float32)
+            vis = make_visual_state(m.visual_capacity, moved, device=dev)
+            out = render_particles_with_background(vis.xyz, vis.alive, attrs, bg, **kw)
+            img = to_gray3(out.color.clamp(0, 1))
+            save_image(os.path.join(root, name, f"{t:03d}.png"), img)
+            if name[-1] in fake_views:
+                save_image(os.path.join(root, fake_view_folder("smoke", "2", name[-1],
+                                                               refined_strength),
+                                        f"frame_{t:06d}.png"), img)
+    return time.perf_counter() - t0
+
+
+def derived_config(src, path, changes):
+    """``src`` with ``changes`` (JSON wins over the CLI, so the cuts go into a
+    copy), written to ``path``; prints each change."""
+    with open(src) as f:
+        data = json.load(f)
+    for k, v in changes.items():
+        print(f"  {src}: {k} {data.get(k, '(default)')} -> {v}")
+    data.update(changes)
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+    return path
+
+
+def run_stages(dev, tmp):
+    """The three stage CLIs in process, in order, on the card, from a capture
+    on disk (``write_capture``): stage 1 (``train_background.main``,
+    configs/smoke_background.json at full width: 100 000 initial Gaussians
+    in a 120 000 capacity, 16 x 16 tiles, K 512, dup 8 x 8) for
+    STAGE1_ITERS iterations with every host event firing, its launches (one
+    of each rasterizer kernel an iteration), ms per iteration, the densify
+    counts, a profile, and the three rasterizer kernels against their plain
+    versions and timed at the last iteration's inputs; then stage 2
+    (``train_physical_particle.main``) from stage 1's PLY for frames 1-2,
+    and stage 4 (``future_simulation.main``) for 2 future frames. Returns the
+    rasterizer kernels' entries at stage 1's shape."""
+    import time
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.ops.rasterizer import tile_packed
+    from fluidnexus_torch.pipelines import future_simulation as tf
+    from fluidnexus_torch.pipelines import train_background as tbg
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.utils.maths import normalize
+
+    os.makedirs(tmp, exist_ok=True)
+    cap, bg_dir = os.path.join(tmp, "capture"), os.path.join(tmp, "background")
+    recon, future = os.path.join(tmp, "recon"), os.path.join(tmp, "future")
+    dyn = load_config("configs/smoke_dynamics.json").model
+    secs = write_capture(cap, dev, dyn.train_views_fake, dyn.refined_strength)
+    n_png = sum(len(fs) for _, _, fs in os.walk(cap))
+    print(f"stages: wrote the capture ({n_png} files under {cap}) in {secs:.2f} s")
+
+    read_s = {}
+
+    def timed_read(stage, real):
+        def read(cfg, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(cfg, *a, **kw)
+            read_s[stage] = time.perf_counter() - t0
+            n = sum(1 for c in out.train_cameras + out.test_cameras if c.image is not None)
+            print(f"stage {stage}: read_scene read {n} camera images "
+                  f"({len(out.train_cameras)} train, {len(out.test_cameras)} test, "
+                  f"{out.train_cameras[0].width}x{out.train_cameras[0].height}) in "
+                  f"{read_s[stage]:.3f} s")
+            return out
+        return read
+
+    # ---- stage 1
+    print("stage 1 config (configs/smoke_background.json, cut):")
+    cfg1 = derived_config("configs/smoke_background.json", os.path.join(tmp, "stage1.json"),
+                          dict(iterations=STAGE1_ITERS, save_iterations=[STAGE1_ITERS],
+                               densify_grad_threshold=STAGE1_GRAD_THRESHOLD, **STAGE1_EVENTS))
+    events, grads_seen = [], []
+    real_make, real_read, real_densify = tbg.make_train_step, tbg.read_scene, tbg.densify_and_prune
+
+    def densify_seen(model, *a, **kw):
+        """The mean screen gradients densify compares with its threshold."""
+        seen = model.alive & (model.denom > 0)
+        g = (model.xyz_gradient_accum[seen] / model.denom[seen]).double()
+        q = torch.quantile(g, torch.tensor([0.5, 0.99, 0.999], device=g.device, dtype=g.dtype))
+        grads_seen.append((int(seen.sum()), *q.tolist(), float(g.max()),
+                           int((g >= STAGE1_GRAD_THRESHOLD).sum()), int((g >= 0.0002).sum())))
+        return real_densify(model, *a, **kw)
+
+    def timed_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(*sa, **skw):
+            out = step(*sa, **skw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            return out
+        return timed
+
+    tbg.make_train_step, tbg.read_scene = timed_make, timed_read(1, real_read)
+    tbg.densify_and_prune = densify_seen
+    torch.cuda.synchronize()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        model, stats = tbg.main(["--config", cfg1, "--data_path", cap, "--model_path", bg_dir,
+                                 "--seed", str(SEED)], device="cuda")
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    finally:
+        tbg.make_train_step, tbg.read_scene = real_make, real_read
+        tbg.densify_and_prune = real_densify
+    launches1 = all_launches()
+    want = {k: STAGE1_ITERS for k in ("composite_fwd", "composite_bwd", "combine_rows")}
+    if any(launches1[k] != v for k, v in want.items()) or any(
+            v for k, v in launches1.items() if k not in want):
+        _fail(f"stage 1 launched {launches1}, expected {want} and no other kernel")
+    print(f"stage 1 launch counts as expected: {want} (one of each an iteration; a full "
+          f"15 000-iteration run launches 15 000 of each)")
+    if len(events) != STAGE1_ITERS:
+        _fail(f"stage 1 ran {len(events)} steps, expected {STAGE1_ITERS}")
+    windows = [events[i].elapsed_time(events[i + STAGE1_WINDOW]) / STAGE1_WINDOW
+               for i in range(0, STAGE1_ITERS - STAGE1_WINDOW, STAGE1_WINDOW)]
+    ms1 = statistics.median(windows)
+    print(f"stage 1: {STAGE1_ITERS} iterations in {wall1:.2f} s of main with the read and set-up; "
+          f"ms per iteration over windows of {STAGE1_WINDOW}: "
+          f"{', '.join(f'{w:.3f}' for w in windows)}; median {ms1:.3f} ms per iteration")
+    # ``pruned`` is counted as the JAX package counts it: with the screen-size
+    # prune on, dead slots whose (unused) scale passes 0.1 x extent count too
+    for d, (n, q50, q99, q999, gmax, over, over_cfg) in zip(stats["densify"], grads_seen):
+        print(f"stage 1 densify at {d['iteration']}: alive {d['alive']} (cloned {d['cloned']}, "
+              f"split {d['split']}, pruned {d['pruned']} dead slots included, dropped "
+              f"{d['dropped']}); mean screen gradient of the {n} Gaussians seen: median "
+              f"{q50:.4g}, p99 {q99:.4g}, p99.9 {q999:.4g}, max {gmax:.4g}; {over} at or over "
+              f"{STAGE1_GRAD_THRESHOLD:.4g}, {over_cfg} at or over the config's 0.0002")
+    if not sum(d["cloned"] for d in stats["densify"]) or not sum(
+            d["split"] for d in stats["densify"]):
+        _fail("stage 1's densify cloned or split nothing: its writes never ran on the card")
+    if [d["iteration"] for d in stats["densify"]] != list(range(
+            STAGE1_EVENTS["densify_from_iter"] + STAGE1_EVENTS["densification_interval"],
+            STAGE1_ITERS + 1, STAGE1_EVENTS["densification_interval"])):
+        _fail(f"stage 1 densified at {[d['iteration'] for d in stats['densify']]}")
+    alive = int(model.num_alive)
+    ply = os.path.join(bg_dir, "point_cloud", f"iteration_{STAGE1_ITERS}", "point_cloud.ply")
+    print(f"stage 1 wrote {ply} ({os.path.getsize(ply)} bytes, {alive} Gaussians of "
+          f"{model.capacity})")
+    for name in tbg.TRAINABLE:
+        if not bool(torch.isfinite(getattr(model, name)[model.alive]).all()):
+            _fail(f"stage 1's {name} is not finite")
+
+    # the last iteration's rasterizer inputs: camera 0, the model as the step renders it
+    cfg = load_config(cfg1)
+    rc = tp.raster_config_from(cfg)
+    from fluidnexus_torch.data.scene import read_scene
+    cfg.model.data_path, cfg.model.is_bg = cap, True
+    cam = read_scene(cfg).train_cameras[0]
+    kw = dict(view_matrix=torch.as_tensor(cam.world_view, device=dev),
+              proj_matrix=torch.as_tensor(cam.full_proj, device=dev), tan_fovx=cam.tan_fovx,
+              tan_fovy=cam.tan_fovy, width=cam.width, height=cam.height)
+    with torch.no_grad():
+        tl = tile_packed(model.xyz, model.color, torch.sigmoid(model.opacity),
+                         torch.exp(model.scaling), normalize(model.rotation), model.alive,
+                         config=rc, **kw)
+    packed_t = tl.packed.contiguous()
+    print(f"stage 1 camera 0 tiles: T {packed_t.shape[0]} K {packed_t.shape[1]} F "
+          f"{packed_t.shape[2]} live slots {int(tl.counts.sum())} max count "
+          f"{int(tl.counts.max())}; tiles {rc.tile_x}x{rc.tile_y} dup {rc.dup_x}x{rc.dup_y}")
+    print(count_distribution(tl.counts, rc.tile_capacity))
+    errors, saved = check_kernels(packed_t, tl.gauss, tl.counts, tl.tiles_x, model.capacity, rc)
+
+    step = tbg.make_train_step(cam.width, cam.height, rc, cfg.optim.lambda_dssim,
+                               cfg.optim.lambda_reg_scaling, cfg.optim.scaling_reg_ratio_threshold)
+    from fluidnexus_torch.core.optim import adam_init
+
+    gt = torch.tensor(cam.image.transpose(2, 0, 1), device=dev)
+    fovs = torch.tensor([cam.tan_fovx, cam.tan_fovy], device=dev)
+    lrs = dict(xyz=1e-5, color=2.5e-3, scaling=5e-3, rotation=1e-3, opacity=5e-2)
+
+    def steps(n):
+        m, opt = model, adam_init(tbg._trainable(model))
+        for _ in range(n):
+            m, opt, _, _ = step(m, opt, kw["view_matrix"], kw["proj_matrix"], fovs, gt,
+                                torch.zeros(3, device=dev), lrs)
+
+    profile_run("stage-1 iterations", lambda: steps(5), 5, ms1)
+    times, live_slots = time_kernels(packed_t, tl.gauss, tl.counts, tl.tiles_x, model.capacity, rc,
+                                     saved)
+    kernels = []
+    for entry in raster_entries(times, live_slots, errors, launches1, STAGE1_ITERS):
+        entry["name"] += "_stage1"
+        kernels.append(entry)
+
+    # ---- stage 2 from stage 1's PLY
+    it5 = os.path.join(bg_dir, "point_cloud", f"iteration_{STAGE1_ITERS:05d}")
+    os.symlink(f"iteration_{STAGE1_ITERS}", it5)
+    print(f"stages: stage 1 writes iteration_{STAGE1_ITERS}, stages 2 and 4 read "
+          f"iteration_{STAGE1_ITERS:05d} (the JAX package's hand-off): linked {it5}")
+    cut = dict(duration=STAGE_FRAMES, start_time=0, time_step=1,
+               bg_load_iteration=STAGE1_ITERS)
+    print("stage 2 config (configs/smoke_dynamics.json, cut):")
+    cfg2 = derived_config("configs/smoke_dynamics.json", os.path.join(tmp, "stage2.json"),
+                          dict(cut, init_hidden_delta=PHASE_B_DELTA,
+                               iterations_per_time_first=STAGE2_FIRST_ITERS,
+                               iterations_per_time_current=STAGE2_ITERS,
+                               iterations_per_time_current_max=STAGE2_ITERS))
+    real_read = tp.read_scene
+    tp.read_scene = timed_read(2, real_read)
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        res = tp.main(["--config", cfg2, "--data_path", cap, "--model_path", recon,
+                       "--bg_load_path", bg_dir, "--seed", str(SEED)], device="cuda")
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        tp.read_scene = real_read
+    frames2 = [mm["frame"] for mm in res["metrics"]]
+    print(f"stage 2: main in {wall2:.2f} s; frames {frames2}; launches {all_launches()}")
+    if frames2 != list(range(1, STAGE_FRAMES)) or not all(
+            np.isfinite(mm["loss"]) for mm in res["metrics"]):
+        _fail("stage 2 did not give a finite loss for each frame")
+
+    # ---- stage 4 from stage 2's checkpoints
+    print("stage 4 config (configs/smoke_future_simulation.json, cut):")
+    cfg4 = derived_config("configs/smoke_future_simulation.json",
+                          os.path.join(tmp, "stage4.json"),
+                          dict(cut, future_pred_frames=STAGE4_FRAMES))
+    real_read = tf.read_scene
+    tf.read_scene = timed_read(4, real_read)
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        frames4 = tf.main(["--config", cfg4, "--data_path", cap, "--load_path", recon,
+                           "--model_path", future, "--bg_load_path", bg_dir, "--seed", str(SEED)],
+                          device="cuda")
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+    finally:
+        tf.read_scene = real_read
+    print(f"stage 4: main in {wall4:.2f} s; launches {all_launches()}")
+    if len(frames4) != STAGE4_FRAMES or not all(np.isfinite(f["p_ratio"]) for f in frames4):
+        _fail("stage 4 did not give a finite p_ratio for each future frame")
+    renders = os.listdir(os.path.join(future, "training_render"))
+    print(f"stage 4 wrote {len(renders)} renders")
+    if "jax" in sys.modules or any(k.startswith("fluidnexus_tpu") for k in sys.modules):
+        _fail("the stages imported JAX or the JAX package")
+    print(f"stages: capture reads {', '.join(f'stage {k} {v:.3f} s' for k, v in read_s.items())}; "
+          f"no JAX in the process")
+    return kernels
 
 
 # ------------------------------ future (stage 4) ------------------------------
@@ -4431,8 +4777,84 @@ def attention_bwd_time():
           f"workspace and the cast {prep_ms:.3f} ms")
 
 
+PNG_TIME_REPS = 5             # timed reads of the Paeth frame
+
+
+def png_time():
+    """The PNG decode a capture's reads go through, on this machine's CPU (no
+    card needed): a 960 x 544 RGB frame with every row Paeth-filtered (the
+    slowest filter to undo), read by ``utils/png.read_png`` (the compiled
+    unfilter), and its rows unfiltered by the plain Python version."""
+    import struct
+    import time
+    import zlib
+
+    from fluidnexus_torch.pipelines.train_background import _png_chunk
+    from fluidnexus_torch.utils import png
+
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (544, 960, 3)).astype(np.uint8)
+    rows = img.reshape(544, -1).astype(np.int64)
+    filt = []
+    for y in range(544):
+        cur = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(3, np.int64), cur[:-3]])
+        upleft = np.concatenate([np.zeros(3, np.int64), up[:-3]])
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        filt.append(b"\x04" + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+    raw = b"".join(filt)
+    with tempfile.TemporaryDirectory(prefix="fnx_png_") as tmp:
+        path = os.path.join(tmp, "paeth.png")
+        header = struct.pack(">IIBBBBB", 960, 544, 8, 2, 0, 0, 0)
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                    + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+        png.read_png(path)   # builds the unfilter at first use
+        times = []
+        for _ in range(PNG_TIME_REPS):
+            t0 = time.perf_counter()
+            got = png.read_png(path)
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(got, img):
+            _fail("read_png gave other pixels than were written")
+        t0 = time.perf_counter()
+        plain = png._unfilter_plain(raw, 544, 960 * 3, 3)
+        plain_s = time.perf_counter() - t0
+        if not np.array_equal(plain, img.reshape(544, -1)):
+            _fail("the plain unfilter gave other pixels than were written")
+    print(f"png-time: read_png of a 960 x 544 RGB PNG, every row Paeth: "
+          f"{', '.join(f'{t:.4f}' for t in times)} s (median {statistics.median(times):.4f} s); "
+          f"the plain Python unfilter of its rows alone {plain_s:.3f} s; {os.cpu_count()} CPUs")
+    return statistics.median(times)
+
+
+def stages_only():
+    """The ``stages`` phase alone: builds the rasterizer, pbf and splat
+    kernels, then ``run_stages``, and prints its ``kernels`` entries."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    from fluidnexus_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for name, info in cuda_build.build(["rasterizer", "pbf", "splat"]).items():
+        print(f"build {name}: {info['seconds']:.1f} s")
+    png_time()
+    with tempfile.TemporaryDirectory(prefix="fnx_stages_") as tmp:
+        print(json.dumps({"kernels": run_stages(torch.device("cuda"), tmp)}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["mutants"] and set(sys.argv[2:]) <= set(MUTANT_GROUPS):
+    if sys.argv[1:] == ["png-time"]:
+        png_time()
+    elif sys.argv[1:] == ["stages"]:
+        stages_only()
+    elif sys.argv[1:2] == ["mutants"] and set(sys.argv[2:]) <= set(MUTANT_GROUPS):
         run_mutants(tuple(sys.argv[2:]) or tuple(MUTANT_GROUPS))
     elif sys.argv[1:] == ["encode-probe"]:
         encode_probe()

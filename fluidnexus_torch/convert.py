@@ -15,6 +15,7 @@ from fluidnexus_torch.diffusion.video.dit import VideoDiT
 from fluidnexus_torch.diffusion.video.vae3d import VideoVAE
 from fluidnexus_torch.ops.neighbors import DenseGrid
 from fluidnexus_torch.sim.state import ParticleState, VisualState
+from fluidnexus_torch.splat.background import BackgroundModel
 from fluidnexus_torch.splat.dynamics import BackgroundSplats, VisualAttrs
 
 
@@ -89,6 +90,18 @@ def adam_state_from_numpy(s, device="cuda") -> AdamState:
 def adam_state_to_numpy(s: AdamState) -> AdamState:
     return AdamState(mu={k: _n(v) for k, v in s.mu.items()},
                      nu={k: _n(v) for k, v in s.nu.items()}, count=_n(s.count))
+
+
+def background_model_from_numpy(model, opt=None, device="cuda"):
+    """The JAX package's stage-1 ``BackgroundModel`` (and, if given, its Adam
+    state), as numpy arrays, as the port's ``splat.background``
+    ``BackgroundModel`` (and ``AdamState``): (model, opt)."""
+    def field(name):
+        t = _t(getattr(model, name), device)
+        return t.bool() if name == "alive" else t.to(torch.float32)
+
+    out = BackgroundModel(**{name: field(name) for name in BackgroundModel._fields})
+    return out, (adam_state_from_numpy(opt, device) if opt is not None else None)
 
 
 # ------------------------- flax parameter trees -------------------------

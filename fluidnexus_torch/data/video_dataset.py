@@ -4,11 +4,11 @@
 machine has no Pillow), and ``make_video_dataset``, which picks a dataset by
 the content of the root as the JAX package does.
 
-Waiting for their pieces, each named in the error it raises: a frame whose
-size differs from (height, width) (the LANCZOS resample of the JAX package's
-PIL path, which comes with the reconstruction readers' ``_resize``); the mp4
-datasets ``SFTVideoDataset`` and ``WebVideoDataset`` (a video decoder: the
-JAX package's goes through OpenCV).
+A frame whose size differs from (height, width) is resampled with PIL's
+8-bit LANCZOS (``utils/lanczos``), as the JAX package's PIL path does.
+Waiting for their piece, named in the error they raise: the mp4 datasets
+``SFTVideoDataset`` and ``WebVideoDataset`` (a video decoder: the JAX
+package's goes through OpenCV).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 
+from fluidnexus_torch.utils.lanczos import resize_u8
 from fluidnexus_torch.utils.png import read_png, to_rgb
 
 VIDEO_EXTS = (".mp4", ".avi", ".mkv", ".webm")
@@ -25,6 +26,20 @@ def nearest_smaller_4k_plus_1(n: int) -> int:
     """The causal VAE needs 4k+1 frames."""
     r = n % 4
     return n - 3 if r == 0 else n - r + 1
+
+
+def read_frames(paths, height: int, width: int) -> np.ndarray:
+    """PNG frames as (T, H, W, 3) f32 in [-1, 1] (data_video.py:
+    (x-127.5)/127.5): each converted to RGB, and one at another size than
+    (height, width) resampled with PIL's 8-bit LANCZOS, as the JAX package's
+    PIL path does."""
+    out = []
+    for p in paths:
+        img = to_rgb(read_png(p))
+        if img.shape[:2] != (height, width):
+            img = resize_u8(np.ascontiguousarray(img), width, height)
+        out.append(img.astype(np.float32))
+    return (np.stack(out) - 127.5) / 127.5
 
 
 def pad_last_frame(frames: np.ndarray, num_frames: int) -> np.ndarray:
@@ -65,16 +80,8 @@ class ClipFolderDataset:
         n = min(len(frames), self.num_frames)
         n = (n - 1) // 4 * 4 + 1
         start = rng.integers(0, max(len(frames) - n, 0) + 1)
-        out = []
-        for f in frames[start:start + n]:
-            img = to_rgb(read_png(os.path.join(folder, f)))
-            if img.shape[:2] != (self.height, self.width):
-                raise NotImplementedError(
-                    f"{os.path.join(folder, f)} is {img.shape[1]}x{img.shape[0]}, not "
-                    f"{self.width}x{self.height}: resampling a frame (LANCZOS) is not ported yet; "
-                    "it comes with the reconstruction readers' _resize")
-            out.append(img.astype(np.float32))
-        return (np.stack(out) - 127.5) / 127.5
+        return read_frames([os.path.join(folder, f) for f in frames[start:start + n]],
+                           self.height, self.width)
 
     def sample_batch(self, batch: int, rng: np.random.Generator):
         names = [self.clips[rng.integers(len(self.clips))] for _ in range(batch)]

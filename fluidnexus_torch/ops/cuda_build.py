@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -83,6 +84,39 @@ def load(name: str) -> ctypes.CDLL:
     path = library_path(name)
     if not path.exists():
         build([name])
+    return ctypes.CDLL(str(path))
+
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+_HOST_LOCK = threading.Lock()
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library built from ``csrc/{name}.cpp``, compiling it first
+    if it is not built yet. Raises if the compiler is missing or fails.
+    Thread-safe: the readers decode on a thread pool, and the first calls
+    must not build it twice."""
+    with _HOST_LOCK:
+        return _load_host(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_host(name: str) -> ctypes.CDLL:
+    src = CSRC / f"{name}.cpp"
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError(f"no host C++ compiler ($CXX, g++ or c++) to build {src}")
+    digest = hashlib.sha1(src.read_bytes() + " ".join(HOST_FLAGS).encode()).hexdigest()[:12]
+    path = BUILD_DIR / f"lib{name}-{digest}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {src} failed ({cxx} exit {proc.returncode}):\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, path)
     return ctypes.CDLL(str(path))
 
 

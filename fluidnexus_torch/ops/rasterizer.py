@@ -57,10 +57,13 @@ class RasterOutput(NamedTuple):
 
 
 def project_gaussians(means3d, scales, rotations, view_matrix, proj_matrix, tan_fovx, tan_fovy,
-                      width, height, near=0.2, alive=None):
+                      width, height, near=0.2, alive=None, xy_offset=None):
     """World -> screen, per Gaussian (preprocessCUDA, forward.cu:149-248).
     ``view_matrix``/``proj_matrix`` are (4,4) in the row-vector convention;
-    ``tan_fovx``/``tan_fovy`` are floats or 0-d tensors."""
+    ``tan_fovx``/``tan_fovy`` are floats or 0-d tensors. ``xy_offset``, an
+    (N, 2) zero tensor, is added to the pixel-space means: its gradient is
+    the screen-space mean gradient that densification accumulates (the
+    reference's dummy means2D tensor, pipe_dynamics.py:60-66)."""
     f32 = torch.float32
     mt = means3d.to(f32).T
     mx, my, mz = mt[0], mt[1], mt[2]
@@ -144,6 +147,8 @@ def project_gaussians(means3d, scales, rotations, view_matrix, proj_matrix, tan_
     px = ((hx * p_w + 1.0) * width - 1.0) * 0.5
     py = ((hy * p_w + 1.0) * height - 1.0) * 0.5
     xy = torch.stack([px, py], -1)
+    if xy_offset is not None:
+        xy = xy + xy_offset
 
     valid = in_front & (torch.abs(det) > 0.0) & (radius > 0.0)
     if alive is not None:
@@ -243,7 +248,7 @@ class Tiles(NamedTuple):
 
 def tile_packed(means3d, colors, opacities, scales, rotations, alive=None, *,
                 view_matrix, proj_matrix, tan_fovx, tan_fovy, width: int, height: int,
-                config: RasterizerConfig = RasterizerConfig()) -> Tiles:
+                config: RasterizerConfig = RasterizerConfig(), xy_offset=None) -> Tiles:
     """Project, build the tile lists and gather one packed row per tile slot:
     the inputs of the compositor's kernels. ``opacities`` is the activated
     opacity, (N,) or (N,1)."""
@@ -254,7 +259,7 @@ def tile_packed(means3d, colors, opacities, scales, rotations, alive=None, *,
 
     with record_function("fnx.project"):
         proj = project_gaussians(means3d, scales, rotations, view_matrix, proj_matrix,
-                                 tan_fovx, tan_fovy, width, height, cfg.near, alive)
+                                 tan_fovx, tan_fovy, width, height, cfg.near, alive, xy_offset)
     with torch.no_grad(), record_function("fnx.tile_lists"):
         tile_gauss, counts = _build_tile_lists(
             Projected(*(t.detach() for t in proj)), cfg, tiles_x, tiles_y,
@@ -271,16 +276,18 @@ def tile_packed(means3d, colors, opacities, scales, rotations, alive=None, *,
 
 def rasterize(means3d, colors, opacities, scales, rotations, alive=None, *,
               view_matrix, proj_matrix, tan_fovx, tan_fovy, width: int, height: int,
-              bg_color, config: RasterizerConfig = RasterizerConfig()):
+              bg_color, config: RasterizerConfig = RasterizerConfig(), xy_offset=None):
     """Render Gaussians to an image: RasterOutput(color (C,H,W), depth,
     final_t, radii). Differentiable w.r.t. means3d / colors / opacities /
     scales / rotations; the tile ordering and depth are constants, as in the
     reference backward. ``opacities`` is the activated opacity, (N,) or (N,1);
-    ``alive`` masks padding rows of static-capacity buffers."""
+    ``alive`` masks padding rows of static-capacity buffers; ``xy_offset``
+    (``project_gaussians``) exposes the screen-space mean gradient."""
     cfg = config
     tl = tile_packed(means3d, colors, opacities, scales, rotations, alive,
                      view_matrix=view_matrix, proj_matrix=proj_matrix, tan_fovx=tan_fovx,
-                     tan_fovy=tan_fovy, width=width, height=height, config=cfg)
+                     tan_fovy=tan_fovy, width=width, height=height, config=cfg,
+                     xy_offset=xy_offset)
     tiles_x, tiles_y = tl.tiles_x, tl.tiles_y
     with record_function("fnx.composite"):
         accum, t_run, med = composite(tl.packed, tl.counts, tiles_x, cfg.tile_x, cfg.tile_y,

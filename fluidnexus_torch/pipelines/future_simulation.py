@@ -15,7 +15,9 @@ The frame's layers are ``torch.profiler.record_function`` spans:
 ``fnx.future_tick`` (remove_invalid, emission, solver tick, push-outs of the
 hidden particles, commit), ``fnx.rigid`` (each push-out), ``fnx.update_visual``,
 ``fnx.render`` and ``fnx.save`` (the PNGs and the npy checkpoint).
-``main`` and ``read_scene`` come with the stage CLI.
+``predict`` reads the scene from ``cfg.model.data_path`` (``data/scene.read_scene``)
+when it is not handed one; ``main`` is the stage CLI
+(``python -m fluidnexus_torch future_simulation``).
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ import torch
 from torch.profiler import record_function
 
 from fluidnexus_torch import resolve_device
-from fluidnexus_torch.core.config import Config
-from fluidnexus_torch.data.scene import cameras_by_time
+from fluidnexus_torch.core.config import Config, dump_config, parse_cli
+from fluidnexus_torch.data.scene import cameras_by_time, read_scene
 from fluidnexus_torch.ops import rasterizer_cuda
 from fluidnexus_torch.pipelines.train_background import save_image
 from fluidnexus_torch.pipelines.train_physical_particle import (
@@ -66,15 +68,14 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
     ``bg`` defaults to the PLY at ``cfg.model.bg_load_path`` when that is
     set. Returns one dict per frame: the JAX package's frame, p0, hidden,
     visual and p_ratio, and the remove_invalid kills and the hidden and
-    visual points the rigid body moved. ``scene_info`` is required:
-    ``read_scene`` comes with the stage CLI. A tile with a side of 0 or less
-    raises ValueError before any work (``rasterizer_cuda.check_tile``); the
-    card takes every other tile."""
+    visual points the rigid body moved. Without a ``scene_info`` the scene
+    is read from ``cfg.model.data_path`` (``read_scene``). A tile with a side
+    of 0 or less raises ValueError before any work
+    (``rasterizer_cuda.check_tile``); the card takes every other tile."""
     rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
-    if scene_info is None:
-        raise ValueError("predict needs a scene_info: reading a scene from disk comes with the "
-                         "stage CLI")
     dev = resolve_device(device)
+    if scene_info is None:
+        scene_info = read_scene(cfg)
     o, m = cfg.optim, cfg.model
     params = pbf_params_from_config(cfg)
     raster_cfg = raster_config_from(cfg)
@@ -206,3 +207,19 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
             f"killed={int(n_killed)} rigid moved hidden={int(n_rh)} visual={int(n_rv)} "
             f"p_ratio={p_ratio:.6f}")
     return frames
+
+
+def main(argv=None, device="cuda"):
+    """``python -m fluidnexus_torch future_simulation``: the JAX CLI's flags
+    (``core/config.parse_cli``); writes ``cfg_args.json`` under
+    ``model_path`` when that is set. Returns ``predict``'s frames."""
+    cfg = parse_cli(argv, description="future simulation rollout")
+    if cfg.model.model_path:
+        dump_config(cfg, os.path.join(cfg.model.model_path, "cfg_args.json"))
+    frames = predict(cfg, device=device)
+    print(f"done: {len(frames)} future frames")
+    return frames
+
+
+if __name__ == "__main__":
+    main()

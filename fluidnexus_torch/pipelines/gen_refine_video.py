@@ -1,15 +1,23 @@
 """Helpers of the long-video refinement stage that ``sample_video`` uses
 (counterpart of ``fluidnexus_tpu/pipelines/gen_refine_video.py``, its
-``latent_prefix_len`` and ``save_frames``). The chained refinement itself and
-``load_frames`` come with the stage CLIs.
+``load_frames``, ``latent_prefix_len`` and ``save_frames``). The chained
+refinement itself comes with its own slice.
 """
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
 import numpy as np
 
+from fluidnexus_torch.data.video_dataset import read_frames
 from fluidnexus_torch.pipelines.train_background import save_image
+
+
+def load_frames(folder: str, indices: Sequence[int], pattern: str, height: int, width: int):
+    """The frames ``folder/(pattern % i)`` as ``video_dataset.read_frames``
+    gives them: (T, H, W, 3) in [-1, 1], at (height, width)."""
+    return read_frames([os.path.join(folder, pattern % i) for i in indices], height, width)
 
 
 def save_frames(folder: str, frames, start_index: int, pattern="frame_%06d.png"):

@@ -1,6 +1,9 @@
-"""Video sampling CLI (t2v) (counterpart of
+"""Video sampling CLI (t2v, and i2v from prefix frames) (counterpart of
 ``fluidnexus_tpu/pipelines/sample_video.py``): sample a clip from a text
 prompt with the video DiT and decode it with the causal VAE into PNG frames.
+``--prefix_folder``/``--prefix_frames``/``--prefix_pattern`` read PNG frames
+(``gen_refine_video.load_frames``), encode them and keep their latents clean
+during sampling.
 
     python -m fluidnexus_torch.pipelines.sample_video --prompt "smoke rising" \
         --out_folder out --allow_fake_conditioning
@@ -8,8 +11,8 @@ prompt with the video DiT and decode it with the causal VAE into PNG frames.
 Without ``--dit_ckpt``/``--vae_ckpt`` the weights are drawn from a seed, as
 the JAX CLI's are. Text goes through the hash pseudo-encoder only
 (``--allow_fake_conditioning``, implied by ``--tiny``). Not ported yet:
-``--base`` (CogVideoX YAML configs), ``--t5_dir``, ``--tp``/``--dp``,
-``--pack_video`` and ``--prefix_folder``.
+``--base`` (CogVideoX YAML configs), ``--t5_dir``, ``--tp``/``--dp`` and
+``--pack_video``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from fluidnexus_torch.diffusion.video.conditioner import make_text_encoder
 from fluidnexus_torch.diffusion.video.dit import VideoDiTConfig
 from fluidnexus_torch.diffusion.video.engine import VideoEngine
 from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig
-from fluidnexus_torch.pipelines.gen_refine_video import save_frames
+from fluidnexus_torch.pipelines.gen_refine_video import latent_prefix_len, load_frames, save_frames
 
 
 def configs(num_frames, height, width, tiny):
@@ -44,6 +47,9 @@ def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(description="sample a video clip (t2v)")
     ap.add_argument("--prompt", required=True)
     ap.add_argument("--out_folder", required=True)
+    ap.add_argument("--prefix_folder", default="", help="i2v prefix frames (optional)")
+    ap.add_argument("--prefix_frames", type=int, default=0)
+    ap.add_argument("--prefix_pattern", default="%03d.png")
     ap.add_argument("--num_frames", type=int, default=49)
     ap.add_argument("--num_steps", type=int, default=50)
     ap.add_argument("--cfg_scale", type=float, default=6.0)
@@ -80,7 +86,15 @@ def main(argv=None, device="cuda"):
     shape = (1, dit_cfg.latent_frames, dit_cfg.in_channels, dit_cfg.latent_height,
              dit_cfg.latent_width)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
-    lat = engine.sample(params, shape, text_emb, uc, rng=rng, num_steps=args.num_steps)
+    prefix_lat = None
+    if args.prefix_folder and args.prefix_frames > 0:
+        frames = load_frames(args.prefix_folder, range(args.prefix_frames), args.prefix_pattern,
+                             args.height, args.width)
+        z = engine.encode_first_stage(vae, torch.as_tensor(frames, dtype=torch.float32,
+                                                           device=dev)[None], rng)
+        prefix_lat = z.permute(0, 1, 4, 2, 3)[:, :latent_prefix_len(args.prefix_frames)].clone()
+    lat = engine.sample(params, shape, text_emb, uc, rng=rng, num_steps=args.num_steps,
+                        prefix_clean_frames=prefix_lat)
     decoded = engine.decode_first_stage(vae, lat.permute(0, 1, 3, 4, 2))
     save_frames(args.out_folder, decoded[0].cpu().numpy(), 0)
     print(f"wrote {decoded.shape[1]} frames to {args.out_folder}")

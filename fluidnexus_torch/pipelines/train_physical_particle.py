@@ -16,7 +16,9 @@ Parity target: FluidDynamics/entries_fluid_nexus/train_physical_particle.py.
   losses, one Adam step per iteration), the commit and the per-frame npy
   checkpoints.
 
-``main``, ``read_scene`` and the file readers come with the stage CLI.
+``train`` reads the scene from ``cfg.model.data_path`` (``data/scene.read_scene``)
+when it is not handed one; ``main`` is the stage CLI
+(``python -m fluidnexus_torch train_physical_particle``).
 
 The fit steps' layers are ``torch.profiler.record_function`` spans named
 ``fnx.*`` (grid_nn, advect, render, photometric_loss, distance_penalty, exyz,
@@ -36,10 +38,10 @@ import torch
 from torch.profiler import record_function
 
 from fluidnexus_torch import resolve_device
-from fluidnexus_torch.core.config import Config
+from fluidnexus_torch.core.config import Config, dump_config, parse_cli
 from fluidnexus_torch.core.optim import AdamState, adam_init, adam_step
 from fluidnexus_torch.data.cameras import Camera
-from fluidnexus_torch.data.scene import cameras_by_time
+from fluidnexus_torch.data.scene import cameras_by_time, read_scene
 from fluidnexus_torch.ops.neighbors import build_dense_grid, radius_graph
 from fluidnexus_torch.ops import rasterizer_cuda
 from fluidnexus_torch.ops.rasterizer import RasterizerConfig
@@ -594,14 +596,14 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
     and every phase-C frame after it (``<model_path>/checkpoint``).
     ``resume_from_frame >= 1`` restarts phase C at that frame from the saved
     checkpoint of the frame before (the reference cannot resume, SURVEY §5).
-    ``scene_info`` is required: ``read_scene`` comes with the stage CLI. A
-    tile with a side of 0 or less raises ValueError before any work
-    (``rasterizer_cuda.check_tile``); the card takes every other tile."""
+    Without a ``scene_info`` the scene is read from ``cfg.model.data_path``
+    (``read_scene``). A tile with a side of 0 or less raises ValueError
+    before any work (``rasterizer_cuda.check_tile``); the card takes every
+    other tile."""
     rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
-    if scene_info is None:
-        raise ValueError("train needs a scene_info: reading a scene from disk comes with the "
-                         "stage CLI")
     dev = resolve_device(device)
+    if scene_info is None:
+        scene_info = read_scene(cfg)
     o, m = cfg.optim, cfg.model
     params = pbf_params_from_config(cfg)
     raster_cfg = raster_config_from(cfg)
@@ -627,3 +629,35 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
         save_visual(visual, attrs, ckpt_path, 0)
     return _phase_c(cfg, scene_info, state, visual, attrs, bg, raster_cfg, params,
                     rng, writer, log, ckpt_path, start_frame=1)
+
+
+def main(argv=None, device="cuda"):
+    """``python -m fluidnexus_torch train_physical_particle``: the JAX CLI's
+    flags (``core/config.parse_cli``) and ``--resume_from_frame N``, taken
+    out of argv before the config is parsed. Writes ``cfg_args.json`` and a
+    TensorBoard log under ``model_path`` when that is set. Returns
+    ``train``'s result."""
+    import sys
+
+    resume = -1
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--resume_from_frame" in argv:
+        i = argv.index("--resume_from_frame")
+        resume = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    cfg = parse_cli(argv, description="train physical particles")
+    if cfg.detect_anomaly:  # --detect_anomaly parity (helper_parser.py:24,46)
+        torch.autograd.set_detect_anomaly(True)
+    writer = None
+    if cfg.model.model_path:
+        dump_config(cfg, os.path.join(cfg.model.model_path, "cfg_args.json"))
+        from fluidnexus_torch.utils.tb import TrainLogger
+
+        writer = TrainLogger(cfg.model.model_path)
+    result = train(cfg, writer=writer, resume_from_frame=resume, device=device)
+    print(f"done: {len(result['metrics'])} frames")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -278,7 +278,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
             os.makedirs(tdir, exist_ok=True)
             with open(os.path.join(tdir, f"{it:06d}.txt"), "w") as f:
                 f.write(str(captions[0]) + "\n")
-            tb.scalar("eval/loss", float(eloss), it)
+            tb.add_scalar("eval/loss", float(eloss), it)
             stride = max(1, vid.shape[0] // 8)
             tb.image_grid("samples", list(vid[::stride][:8]), it)
             log(f"eval @ {it}: loss {float(eloss):.5f} sample -> {path}")
@@ -327,7 +327,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
                 ips = (it - start_it + 1) / max(time.time() - t0, 1e-9)
                 log(f"iter {it}/{args.iterations} loss {float(loss):.5f} ({ips:.2f} it/s) "
                     f"[{timer.report()}]")
-                tb.scalar("train/loss", float(loss), it)
+                tb.add_scalar("train/loss", float(loss), it)
             if args.eval_interval > 0 and it % args.eval_interval == 0:
                 eval_sample(it, latents, captions)
             if args.save_dir and it % args.save_every == 0:

@@ -1,5 +1,5 @@
 """TensorBoard logging for the training pipelines (counterpart of
-``fluidnexus_tpu/utils/tb.py``, what ``train_video`` uses of it): a
+``fluidnexus_tpu/utils/tb.py``, what the port's pipelines use of it): a
 ``SummaryWriter`` rooted at the run's folder, and a no-op when tensorboard is
 not importable, so no pipeline depends on it. Images are (H, W), (H, W, C)
 or (C, H, W) float arrays in [0, 1]."""
@@ -25,11 +25,11 @@ class TrainLogger:
         os.makedirs(model_path, exist_ok=True)
         self._w = SummaryWriter(model_path)
 
-    def scalar(self, tag: str, value, step: int):
+    def add_scalar(self, tag: str, value, step: int):
         if self._w is not None:
             self._w.add_scalar(tag, float(value), step)
 
-    def image(self, tag: str, img, step: int):
+    def add_image(self, tag: str, img, step: int):
         """(H, W) / (H, W, C) / (C, H, W) float in [0, 1] -> a TB image."""
         if self._w is None:
             return
@@ -58,4 +58,4 @@ class TrainLogger:
             arr = np.concatenate([arr, np.zeros((pad, h, w, c), np.float32)])
         grid = (arr.reshape(nrow, ncol, h, w, c).transpose(0, 2, 1, 3, 4)
                 .reshape(nrow * h, ncol * w, c))
-        self.image(tag, grid, step)
+        self.add_image(tag, grid, step)

@@ -106,9 +106,13 @@ def test_predict_matches_jax(tmp_path):
     assert lit > 0
 
 
-def test_predict_needs_a_scene():
-    with pytest.raises(ValueError, match="scene_info"):
-        tfuture.predict(TConfig(), None, device="cpu")
+def test_predict_needs_a_scene(tmp_path):
+    """Without a scene_info, ``predict`` reads the scene at data_path, and a
+    folder with no capture raises before any work."""
+    cfg = TConfig()
+    cfg.model.data_path = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="transforms"):
+        tfuture.predict(cfg, None, device="cpu")
 
 
 def test_future_emitters_match_jax():

@@ -374,6 +374,10 @@ def test_train_runs_a_b_c_and_resumes(tmp_path):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_train_needs_a_scene():
-    with pytest.raises(ValueError, match="scene_info"):
-        ttrain.train(_small(TConfig()), None, device="cpu")
+def test_train_needs_a_scene(tmp_path):
+    """Without a scene_info, ``train`` reads the scene at data_path, and a
+    folder with no capture raises before any work."""
+    cfg = _small(TConfig())
+    cfg.model.data_path = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="transforms"):
+        ttrain.train(cfg, None, device="cpu")

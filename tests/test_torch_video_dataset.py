@@ -43,9 +43,16 @@ def test_read_png_reads_save_image_and_refuses_16_bit(tmp_path):
     save_image(str(tmp_path / "a.png"), x)
     np.testing.assert_array_equal(read_png(str(tmp_path / "a.png")),
                                   np.asarray(Image.open(tmp_path / "a.png")))
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "b.png")
-    with pytest.raises(ValueError, match="8-bit"):
-        read_png(str(tmp_path / "b.png"))
+    # 16-bit gray is read as its high byte, as libpng's strip_16 gives it;
+    # 16 bits on a palette image is outside the PNG standard and refused
+    a16 = np.random.default_rng(1).integers(0, 65536, (4, 5)).astype(np.uint16)
+    Image.fromarray(a16).save(tmp_path / "b.png")
+    np.testing.assert_array_equal(read_png(str(tmp_path / "b.png"))[..., 0], a16 >> 8)
+    data = bytearray((tmp_path / "b.png").read_bytes())
+    data[24], data[25] = 16, 3
+    (tmp_path / "c.png").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="bit depth 16, color type 3"):
+        read_png(str(tmp_path / "c.png"))
 
 
 def _clips(root, sizes, seed=0):
@@ -81,9 +88,13 @@ def test_dataset_helpers_and_what_is_not_ported(tmp_path):
     x = np.arange(5 * 2).reshape(5, 2)
     for n in (3, 5, 8):
         np.testing.assert_array_equal(tds.pad_last_frame(x, n), jds.pad_last_frame(x, n))
+    # a frame at another size is resampled with PIL's 8-bit LANCZOS, as JAX's is
     _clips(tmp_path, {"a": (5, 16, 20)})
-    with pytest.raises(NotImplementedError, match="LANCZOS"):
-        tds.ClipFolderDataset(str(tmp_path), 5, 16, 24).sample_batch(1, np.random.default_rng(0))
+    got, _ = tds.ClipFolderDataset(str(tmp_path), 5, 16, 24).sample_batch(
+        1, np.random.default_rng(0))
+    ref, _ = jds.ClipFolderDataset(str(tmp_path), 5, 16, 24).sample_batch(
+        1, np.random.default_rng(0))
+    np.testing.assert_array_equal(got, ref)
     (tmp_path / "videos" / "x.mp4").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="video decoder"):
         tds.make_video_dataset(str(tmp_path), 5, 16, 20)
