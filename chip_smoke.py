@@ -83,12 +83,23 @@ against their plain versions and each other at the first iteration's inputs.
 Stages (``run_stages``): a capture written to a temporary folder at the
 same geometry (transforms files, ``train0{c}/{t:03d}.png`` for frames 0-2,
 ``train0{c}_bg/000.png``, the fake-view folders, every PNG written by
-``save_image`` from the port's renders), then the three stage ``main``s in
+``save_image`` from the port's renders), then the four stage ``main``s in
 process on the card: ``train_background`` on configs/smoke_background.json
 at full width (100 000 initial Gaussians, capacity 120 000) for 400 of its
 15 000 iterations with the densify, opacity-reset and large-prune intervals
 cut so that each fires, ``train_physical_particle`` from its PLY (frames
-0-2, 10 + 2 x 5 fit iterations) and ``future_simulation`` (2 frames).
+0-2, 10 + 2 x 5 fit iterations), ``train_visual_particle`` (stage 3) from
+its checkpoints on configs/smoke_dynamics.json at full width (visual
+capacity 65 536, 3 colour channels, the four fields fitted over the PLY,
+``--init_scales_w_xyz_dist`` on), 21 iterations a frame of its 250 -> 1 000;
+``dataset_builders smooth_visual`` on stage 3's checkpoints, then
+``future_simulation`` (2 frames) from level one and again from the smoothed
+level two; last the DataProcessing hand-offs on the card's host through
+their CLIs (``convert`` original_to_zero123, zero123_cams,
+zero123_to_cogvideox, cogvideox_to_original; ``dataset_builders``
+simulation_to_cogvideox on stage 4's renders, cogvideox_dataset and
+cogvideox_paths on the capture). The process must end with no jax, JAX
+package, PIL or cv2 module loaded.
 
 Video (``sample_video.main`` at its defaults): the CogVideoX-5B DiT and VAE on
 seeded random weights, 49 frames at 480 x 720 (13 latents, 17 776 tokens),
@@ -1807,7 +1818,7 @@ def run_phase_c(dev, model_path):
     return kernels, dict(path=model_path, scene=scene, bg=bg)
 
 
-# ------------------------- the stages from disk (1 -> 2 -> 4) -------------------------
+# ---------------- the stages from disk (1 -> 2 -> 3 -> smoothing -> 4 -> hand-offs) ----------------
 
 STAGE1_ITERS = 400            # of configs/smoke_background.json's 15 000
 STAGE1_EVENTS = dict(densify_from_iter=100, densification_interval=100,
@@ -1823,6 +1834,9 @@ STAGE2_FIRST_ITERS = 10       # iterations_per_time_first, cut from 1000
 STAGE2_ITERS = 5              # iterations_per_time_current and _max, cut from 1000
 STAGE_FRAMES = 3              # the capture's frames 0-2 (duration, cut from 120 / 180)
 STAGE4_FRAMES = 2             # future_pred_frames, cut from the README's 60
+STAGE3_ITERS = 21             # iterations_per_time_current_level_two and _max, cut from 250 -> 1 000
+STAGE3_WINDOW = 5             # iterations a stage-3 timing window holds (4 windows a frame)
+KNN_REPS = 5                  # timed knn calls at each size
 CAPTURE_COLUMN_RISE = 0.01    # the rendered column moves up this much a frame
 
 
@@ -1916,7 +1930,7 @@ def derived_config(src, path, changes):
 
 
 def run_stages(dev, tmp):
-    """The three stage CLIs in process, in order, on the card, from a capture
+    """The four stage CLIs in process, in order, on the card, from a capture
     on disk (``write_capture``): stage 1 (``train_background.main``,
     configs/smoke_background.json at full width: 100 000 initial Gaussians
     in a 120 000 capacity, 16 x 16 tiles, K 512, dup 8 x 8) for
@@ -1925,8 +1939,11 @@ def run_stages(dev, tmp):
     counts, a profile, and the three rasterizer kernels against their plain
     versions and timed at the last iteration's inputs; then stage 2
     (``train_physical_particle.main``) from stage 1's PLY for frames 1-2,
-    and stage 4 (``future_simulation.main``) for 2 future frames. Returns the
-    rasterizer kernels' entries at stage 1's shape."""
+    stage 3 (``run_stage3``), the smoothing of its attributes, stage 4
+    (``future_simulation.main``) for 2 future frames from level one and from
+    the smoothed level two (``run_stage4``), and the hand-offs
+    (``run_hand_offs``). Returns the rasterizer kernels' entries at stage 1's
+    and at stage 3's shapes."""
     import time
 
     from fluidnexus_torch.core.config import load_config
@@ -2111,33 +2128,373 @@ def run_stages(dev, tmp):
             np.isfinite(mm["loss"]) for mm in res["metrics"]):
         _fail("stage 2 did not give a finite loss for each frame")
 
-    # ---- stage 4 from stage 2's checkpoints
+    # ---- stage 3 from stage 2's checkpoints, the smoothing, stage 4 from both
+    level2 = os.path.join(tmp, "level_two")
+    kernels += run_stage3(dev, tmp, cap, recon, bg_dir, level2, cut, timed_read)
+    from fluidnexus_torch.data import dataset_builders as db
+
+    window = load_config("configs/smoke_dynamics.json").optim.smoothed_window_size
+    ckpt2 = os.path.join(level2, "checkpoint_level_two")
+    n_smoothed = db.main(["smooth_visual", "--ckpt_dir", ckpt2, "--window", str(window)])
+    smoothed = sorted(f for f in os.listdir(ckpt2) if f"_smoothed_ws{window}" in f)
+    print(f"dataset_builders smooth_visual (window {window}): {n_smoothed} frames, "
+          f"{len(smoothed)} files")
+    if n_smoothed != STAGE_FRAMES or len(smoothed) != 4 * STAGE_FRAMES:
+        _fail("smooth_visual did not write the four smoothed attributes of every frame")
+
     print("stage 4 config (configs/smoke_future_simulation.json, cut):")
     cfg4 = derived_config("configs/smoke_future_simulation.json",
                           os.path.join(tmp, "stage4.json"),
                           dict(cut, future_pred_frames=STAGE4_FRAMES))
+    argv4 = ["--config", cfg4, "--data_path", cap, "--load_path", recon, "--bg_load_path",
+             bg_dir, "--seed", str(SEED)]
+    y_one = run_stage4(argv4, future, timed_read, "4")
+    y_two = run_stage4(argv4 + ["--level_two_load_path", level2, "--use_level_two_in_future",
+                                "--use_level_two_smoothed_in_future"],
+                       os.path.join(tmp, "future_level_two"), timed_read, "4 from level two")
+    vis2 = np.percentile(np.load(os.path.join(
+        ckpt2, f"frame_{STAGE_FRAMES - 1:03d}_visual_xyz.npy"))[:, 1], [0, 50, 100])
+    print(f"stage 4's first future frame (frame {STAGE_FRAMES}), the visual particles' y as "
+          f"saved (positions / 100; min, median, max): from level one "
+          f"{', '.join(f'{v:.6f}' for v in y_one)}; from level two "
+          f"{', '.join(f'{v:.6f}' for v in y_two)}. Stage 3's frame {STAGE_FRAMES - 1} holds y "
+          f"{', '.join(f'{v:.6f}' for v in vis2)} in world units (saved unscaled): stage 4 loads "
+          f"them unscaled beside hidden particles and emitted visual particles in scaled units "
+          f"(x 100), so they are advected and rendered 100x too close to the origin, as in the "
+          f"JAX package (future_simulation.py:66-78, splat/dynamics.py:278)")
+
+    run_hand_offs(tmp, cap, os.path.join(tmp, "future_level_two"))
+    imported = [m for m in ("jax", "fluidnexus_tpu", "PIL", "cv2") if m in sys.modules] + [
+        m for m in sys.modules if m.startswith(("fluidnexus_tpu.", "jax.", "PIL.", "cv2."))]
+    if imported:
+        _fail(f"the stages imported {imported}")
+    print(f"stages: capture reads {', '.join(f'stage {k} {v:.3f} s' for k, v in read_s.items())}; "
+          f"no jax, fluidnexus_tpu, PIL or cv2 in the process")
+    return kernels
+
+
+def run_stage4(argv, out, timed_read, stage):
+    """``future_simulation.main`` with ``argv`` into ``out`` on the card (the
+    run called stage ``stage`` in what it prints): a
+    finite p_ratio each future frame, its renders, exactly its launches
+    (``solver_iterations_future`` of each v3 PBF kernel, one splat forward
+    and one composite forward a rendered camera each frame) and no other.
+    Returns the y range of the first future frame's visual particles as
+    saved."""
+    import time
+
+    from fluidnexus_torch.core.config import parse_cli
+    from fluidnexus_torch.data.scene import cameras_by_time
+    from fluidnexus_torch.pipelines import future_simulation as tf
+
+    label, scenes = f"stage {stage}", []
+
+    def read(cfg, *a, **kw):
+        scenes.append(timed_read(stage, real_read)(cfg, *a, **kw))
+        return scenes[-1]
+
     real_read = tf.read_scene
-    tf.read_scene = timed_read(4, real_read)
+    tf.read_scene = read
+    torch.cuda.synchronize()
     reset_all_launches()
     try:
         t0 = time.perf_counter()
-        frames4 = tf.main(["--config", cfg4, "--data_path", cap, "--load_path", recon,
-                           "--model_path", future, "--bg_load_path", bg_dir, "--seed", str(SEED)],
-                          device="cuda")
+        frames = tf.main(argv + ["--model_path", out], device="cuda")
         torch.cuda.synchronize()
-        wall4 = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     finally:
         tf.read_scene = real_read
-    print(f"stage 4: main in {wall4:.2f} s; launches {all_launches()}")
-    if len(frames4) != STAGE4_FRAMES or not all(np.isfinite(f["p_ratio"]) for f in frames4):
-        _fail("stage 4 did not give a finite p_ratio for each future frame")
-    renders = os.listdir(os.path.join(future, "training_render"))
-    print(f"stage 4 wrote {len(renders)} renders")
-    if "jax" in sys.modules or any(k.startswith("fluidnexus_tpu") for k in sys.modules):
-        _fail("the stages imported JAX or the JAX package")
-    print(f"stages: capture reads {', '.join(f'stage {k} {v:.3f} s' for k, v in read_s.items())}; "
-          f"no JAX in the process")
+    launches = all_launches()
+    o = parse_cli(argv).optim
+    scene = scenes[-1]
+    cams = cameras_by_time(scene.train_cameras)[0] + cameras_by_time(scene.test_cameras).get(0, [])
+    n_cams, n_names = len(cams), len({c.image_name for c in cams})
+    print(f"{label}: main in {wall:.2f} s; p_ratio {[f['p_ratio'] for f in frames]}; "
+          f"launches {launches}")
+    if len(frames) != STAGE4_FRAMES or not all(np.isfinite(f["p_ratio"]) for f in frames):
+        _fail(f"{label} did not give a finite p_ratio for each future frame")
+    renders = os.listdir(os.path.join(out, "training_render"))
+    print(f"{label} wrote {len(renders)} renders ({n_cams} cameras a frame rendered under "
+          f"{n_names} names: a camera in both the training and the test set writes one file)")
+    if len(renders) != STAGE4_FRAMES * n_names:
+        _fail(f"{label} wrote {len(renders)} renders, expected {STAGE4_FRAMES * n_names}")
+    want = {"pbf_phase1": STAGE4_FRAMES * o.solver_iterations_future,
+            "pbf_phase2": STAGE4_FRAMES * o.solver_iterations_future,
+            "splat_fwd": STAGE4_FRAMES, "composite_fwd": STAGE4_FRAMES * n_cams}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        _fail(f"{label} launched {launches}, expected {want} and no other kernel")
+    y = np.load(os.path.join(out, "checkpoint", f"frame_{frames[0]['frame']:03d}_visual_xyz.npy"))
+    if not np.isfinite(y).all():
+        _fail(f"{label}'s visual particles are not finite")
+    return np.percentile(y[:, 1], [0, 50, 100])
+
+
+def run_stage3(dev, tmp, cap, recon, bg_dir, level2, cut, timed_read):
+    """Stage 3 (``train_visual_particle.main``) on the card from stage 2's
+    checkpoints of frames 0-2 and stage 1's PLY: configs/smoke_dynamics.json
+    at full width (visual capacity 65 536, 3 colour channels, all four fields
+    fitted with their inherit, consistency and regulariser settings, 16 x 16
+    tiles, K 512, batch 1) with ``--init_scales_w_xyz_dist`` on and the
+    iterations cut to STAGE3_ITERS a frame. Checks exactly STAGE3_ITERS x
+    frames launches of each rasterizer kernel and no other, a finite loss a
+    frame and every checkpoint file; prints ms per iteration (CUDA events
+    after each step, median of windows), the knn's ms at 65 536 (this run's
+    live rows, and every row live), a profile, and holds and times the three
+    rasterizer kernels at the last iteration's attributes through camera 0.
+    Returns their ``_stage3`` entries of the ``kernels`` line."""
+    import time
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.core.optim import adam_init
+    from fluidnexus_torch.data.scene import cameras_by_time, read_scene
+    from fluidnexus_torch.ops.knn import mean_dist_to_knn
+    from fluidnexus_torch.ops.rasterizer import tile_packed
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.pipelines import train_visual_particle as tvp
+    from fluidnexus_torch.splat.render import compose_splats
+
+    print("stage 3 config (configs/smoke_dynamics.json, cut):")
+    cfg3 = derived_config("configs/smoke_dynamics.json", os.path.join(tmp, "stage3.json"),
+                          dict(cut, iterations_per_time_current_level_two=STAGE3_ITERS,
+                               iterations_per_time_current_level_two_max=STAGE3_ITERS))
+    print("stage 3: --init_scales_w_xyz_dist on, a choice of this run (no shipped config sets "
+          "it): the simple-knn scale init runs on the card")
+    argv = ["--config", cfg3, "--data_path", cap, "--load_path", recon, "--model_path", level2,
+            "--bg_load_path", bg_dir, "--init_scales_w_xyz_dist", "--seed", str(SEED)]
+    events, last, knn_ms = [], {}, []
+    real_make, real_read, real_knn = tvp.make_level_two_step, tvp.read_scene, tvp.mean_dist_to_knn
+
+    def timed_make(*a, **kw):
+        step = real_make(*a, **kw)
+        last["make"] = (a, kw)
+
+        def timed(*sa):
+            out = step(*sa)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            last["args"], last["out"] = sa, out
+            return out
+        return timed
+
+    def timed_knn(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_knn(*a, **kw)
+        end.record()
+        end.synchronize()
+        knn_ms.append(start.elapsed_time(end))
+        return out
+
+    tvp.make_level_two_step, tvp.read_scene = timed_make, timed_read(3, real_read)
+    tvp.mean_dist_to_knn = timed_knn
+    torch.cuda.synchronize()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        results = tvp.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tvp.make_level_two_step, tvp.read_scene = real_make, real_read
+        tvp.mean_dist_to_knn = real_knn
+    launches = all_launches()
+    cfg = tvp.parse_cli(argv)
+    o, m = cfg.optim, cfg.model
+    n_iters = STAGE3_ITERS * STAGE_FRAMES
+    src = load_config("configs/smoke_dynamics.json").optim
+    print(f"stage 3: main in {wall:.2f} s; visual capacity {m.visual_capacity}, "
+          f"{'3 colour channels' if m.level_two_color_3ch else '1 colour channel'}, fitted "
+          f"{[f for f in tvp.FIELDS if getattr(o, f'fit_{f}')]}, batch {o.batch}, tiles "
+          f"{cfg.pipe.tile_x} x {cfg.pipe.tile_y}, K {cfg.pipe.tile_capacity}; {STAGE3_ITERS} "
+          f"iterations a frame (the config's {src.iterations_per_time_current_level_two} -> "
+          f"{src.iterations_per_time_current_level_two_max} over the frames, cut)")
+    for r in results:
+        print(f"stage 3 frame {r['frame']}: loss {r['loss']:.6f} l1 {r['l1']:.6f}")
+    if [r["frame"] for r in results] != list(range(STAGE_FRAMES)) or not all(
+            np.isfinite(r["loss"]) for r in results):
+        _fail("stage 3 did not give a finite loss for each frame")
+    want = {k: n_iters for k in ("composite_fwd", "composite_bwd", "combine_rows")}
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        _fail(f"stage 3 launched {launches}, expected {want} and no other kernel")
+    print(f"stage 3 launch counts as expected: {want} (one of each an iteration)")
+    ckpt = os.path.join(level2, "checkpoint_level_two")
+    names = {f"frame_{t:03d}_visual_{f}.npy" for t in range(STAGE_FRAMES)
+             for f in ("xyz", "color", "scales", "rotation", "opacity")}
+    if not names <= set(os.listdir(ckpt)) or not os.path.exists(
+            os.path.join(level2, "cfg_args.json")):
+        _fail(f"stage 3's checkpoint_level_two lacks {sorted(names - set(os.listdir(ckpt)))}")
+    color = np.load(os.path.join(ckpt, f"frame_{STAGE_FRAMES - 1:03d}_visual_color.npy"))
+    print(f"stage 3 wrote {len(names)} checkpoint files; frame {STAGE_FRAMES - 1}: {len(color)} "
+          f"visual particles, colour {tuple(color.shape)} in {color.min():.4f} .. "
+          f"{color.max():.4f}")
+    if color.shape[1] != 3 or not np.isfinite(color).all():
+        _fail("stage 3's colours are not finite (N, 3)")
+    if len(events) != n_iters:
+        _fail(f"stage 3 ran {len(events)} steps, expected {n_iters}")
+    windows = [events[f * STAGE3_ITERS + i].elapsed_time(events[f * STAGE3_ITERS + i
+                                                                + STAGE3_WINDOW]) / STAGE3_WINDOW
+               for f in range(STAGE_FRAMES)
+               for i in range(0, STAGE3_ITERS - STAGE3_WINDOW, STAGE3_WINDOW)]
+    ms3 = statistics.median(windows)
+    print(f"stage 3: ms per iteration over windows of {STAGE3_WINDOW} inside each frame: "
+          f"{', '.join(f'{w:.3f}' for w in windows)}; median {ms3:.3f} ms per iteration")
+
+    # the knn: this run's calls (65 536 rows, the live ones taking part), then
+    # every row of a 65 536 capacity live, each held to its CPU value
+    (trainable, fixed, _, _, vxyz, alive, _, cams, gts, lrs) = last["args"]
+    n_live = int(alive.sum())
+    print(f"knn in stage 3 (mean_dist_to_knn over {vxyz.shape[0]} rows, {n_live} live): "
+          f"{', '.join(f'{t:.3f}' for t in knn_ms)} ms a frame (CUDA events)")
+    got = mean_dist_to_knn(vxyz, alive=alive)
+    ref = mean_dist_to_knn(vxyz.cpu(), alive=alive.cpu())
+    knn_err = float((got.cpu() - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    full = (torch.rand((m.visual_capacity, 3), generator=gen) * torch.tensor([0.06, 0.4, 0.06])
+            + torch.tensor([0.296, 0.0, -0.33])).to(dev)
+    times = {}
+    for what, args in (("stage 3's rows", (vxyz, alive)), ("every row live", (full, None))):
+        ts = []
+        for _ in range(KNN_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            mean_dist_to_knn(args[0], alive=args[1])
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        times[what] = statistics.median(ts)
+        print(f"knn at {m.visual_capacity} rows, {what}: {', '.join(f'{t:.3f}' for t in ts)} ms "
+              f"(median {times[what]:.3f})")
+    sub = full[:4096]
+    sub_err = float((mean_dist_to_knn(sub).cpu() - mean_dist_to_knn(sub.cpu())).abs().max())
+    print(f"knn on the card against the CPU: {knn_err:.3g} of the largest at stage 3's rows; "
+          f"{sub_err:.3g} max abs over 4 096 rows all live")
+    if knn_err > 1e-6 or sub_err > 1e-6 * float(mean_dist_to_knn(sub.cpu()).max()):
+        _fail("the knn on the card disagrees with the CPU")
+
+    # rows 1-3 at the last iteration's attributes through frame 2's camera 0
+    rc = tp.raster_config_from(cfg)
+    attrs = fixed._replace(**last["out"][0])
+    bg = tp._load_background(cfg, None, dev, lambda *a: None)
+    cam = cameras_by_time(read_scene(cfg).train_cameras)[STAGE_FRAMES - 1][0]
+    kw = dict(view_matrix=torch.as_tensor(cam.world_view, device=dev),
+              proj_matrix=torch.as_tensor(cam.full_proj, device=dev), tan_fovx=cam.tan_fovx,
+              tan_fovy=cam.tan_fovy, width=cam.width, height=cam.height)
+    with torch.no_grad():
+        means, col, ops, scales, rots, live = compose_splats(vxyz, alive, attrs, bg)
+        tl = tile_packed(means, col, ops, scales, rots, live, config=rc, **kw)
+    packed_t = tl.packed.contiguous()
+    print(f"stage 3 camera 0 tiles ({cam.image_name}, frame {STAGE_FRAMES - 1}): T "
+          f"{packed_t.shape[0]} K {packed_t.shape[1]} F {packed_t.shape[2]} live slots "
+          f"{int(tl.counts.sum())} max count {int(tl.counts.max())}; {means.shape[0]} splats "
+          f"({n_live} visual live of {vxyz.shape[0]}, {bg.n} background)")
+    print(count_distribution(tl.counts, rc.tile_capacity))
+    errors, saved = check_kernels(packed_t, tl.gauss, tl.counts, tl.tiles_x, means.shape[0], rc)
+
+    (a, akw) = last["make"]
+    step = real_make(*a, **akw)
+
+    def steps(n):
+        tr, opt = trainable, adam_init(trainable)
+        for _ in range(n):
+            tr, opt, _, _ = step(tr, fixed, fixed, 1.0, vxyz, alive, opt, cams, gts, lrs)
+
+    profile_run("stage-3 iterations", lambda: steps(5), 5, ms3)
+    times_k, live_slots = time_kernels(packed_t, tl.gauss, tl.counts, tl.tiles_x, means.shape[0],
+                                       rc, saved)
+    kernels = []
+    for entry in raster_entries(times_k, live_slots, errors, launches, n_iters):
+        entry["name"] += "_stage3"
+        kernels.append(entry)
     return kernels
+
+
+def run_hand_offs(tmp, cap, future):
+    """The DataProcessing hand-offs on the card's host, each through its CLI:
+    ``python -m fluidnexus_torch convert`` original_to_zero123 on the
+    capture, zero123_cams on its transforms.json, zero123_to_cogvideox and
+    cogvideox_to_original on what they made; ``dataset_builders``
+    simulation_to_cogvideox (with the un-shift) on stage 4's renders, and
+    cogvideox_dataset (2-frame clips, packed) and cogvideox_paths on the
+    capture laid out as one sequence. Checks each output's count and size."""
+    import time
+
+    from fluidnexus_torch.__main__ import main as runner
+    from fluidnexus_torch.data import dataset_builders as db
+    from fluidnexus_torch.utils.png import read_png
+
+    out = os.path.join(tmp, "hand_offs")
+    n_cams = 5
+
+    def held(label, folder, count, shape, t0):
+        names = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+        shapes = {read_png(os.path.join(folder, n)).shape for n in names}
+        print(f"hand-off {label}: {len(names)} PNGs of {sorted(shapes)} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if len(names) != count or shapes != {shape}:
+            _fail(f"hand-off {label} wrote {len(names)} PNGs of {shapes}, expected {count} of "
+                  f"{shape}")
+
+    z123 = os.path.join(out, "zero123")
+    t0 = time.perf_counter()
+    runner(["convert", "original_to_zero123", "--data_root", cap, "--out_root", z123,
+            "--camera_prefix", "train"])
+    for t in range(STAGE_FRAMES):
+        held(f"original_to_zero123 frame {t}", os.path.join(z123, f"frame_{t:03d}"), n_cams,
+             (512, 512, 3), t0)
+    t0 = time.perf_counter()
+    runner(["convert", "zero123_cams", "--transforms_json", os.path.join(cap, "transforms.json"),
+            "--out_dir", os.path.join(out, "camera")])
+    rts = [np.load(os.path.join(out, "camera", f"{c:02d}.npy")) for c in range(n_cams)]
+    ortho = max(float(np.abs(rt[:, :3] @ rt[:, :3].T - np.eye(3)).max()) for rt in rts)
+    print(f"hand-off zero123_cams: {len(rts)} W2C (3, 4) npys, |R R^T - I| at most {ortho:.2g}, "
+          f"in {time.perf_counter() - t0:.2f} s")
+    if any(rt.shape != (3, 4) for rt in rts) or ortho > 1e-5:
+        _fail("zero123_cams did not write a rotation and translation a camera")
+    t0 = time.perf_counter()
+    runner(["convert", "zero123_to_cogvideox", "--zero123_folder",
+            os.path.join(z123, "frame_000"), "--out_folder", os.path.join(out, "cogvideox")])
+    held("zero123_to_cogvideox", os.path.join(out, "cogvideox"), n_cams, (480, 720, 3), t0)
+    t0 = time.perf_counter()
+    runner(["convert", "cogvideox_to_original", "--refined_folder", os.path.join(out, "cogvideox"),
+            "--out_folder", os.path.join(out, "rawsize")])
+    held("cogvideox_to_original", os.path.join(out, "rawsize"), n_cams, (1920, 1080, 3), t0)
+
+    renders = sorted(os.listdir(os.path.join(future, "training_render")))
+    size = read_png(os.path.join(future, "training_render", renders[0])).shape
+    t0 = time.perf_counter()
+    db.main(["simulation_to_cogvideox", "--exp_path", future, "--unshift"])
+    held("simulation_to_cogvideox", os.path.join(future, "training_render_for_cogvideox"),
+         len(renders), (480, 720, 3), t0)
+    held("simulation_to_cogvideox (un-shifted)", os.path.join(future, "training_render_unshift"),
+         len(renders), size, t0)
+
+    root = os.path.join(out, "captures")
+    os.makedirs(os.path.join(root, "smoke"))
+    with open(os.path.join(root, "capture_set.csv"), "w") as f:
+        f.write("sequence\nsmoke\n")
+    for c in range(n_cams):
+        os.symlink(os.path.join(cap, f"train0{c}"), os.path.join(root, "smoke", f"camera{c:02d}"))
+    cvx = os.path.join(out, "cogvideox_dataset")
+    t0 = time.perf_counter()
+    db.main(["cogvideox_dataset", "--capture_root", root, "--out_root", cvx, "--num_cams",
+             str(n_cams), "--min_frame_id", "0", "--num_all_frames", str(STAGE_FRAMES),
+             "--start_frame_step", "1", "--frame_step", "1", "--num_frames", "2", "--pack_video"])
+    clips = sorted(os.listdir(os.path.join(cvx, "videos")))
+    for clip in clips:
+        held(f"cogvideox_dataset {clip}", os.path.join(cvx, "videos", clip), 2, (480, 720, 3), t0)
+    db.main(["cogvideox_paths", "--capture_root", root, "--out_root", cvx, "--num_val", "1"])
+    with open(os.path.join(cvx, "all_val_paths20.json")) as f:
+        val = json.load(f)
+    avis = sorted(os.listdir(os.path.join(cvx, "avi")))
+    labels = sorted(os.listdir(os.path.join(cvx, "labels")))
+    print(f"hand-off cogvideox_dataset: {len(clips)} clips, {len(avis)} AVIs "
+          f"({os.path.getsize(os.path.join(cvx, 'avi', avis[0]))} bytes each), {len(labels)} "
+          f"captions; cogvideox_paths: {len(val)} validation clips")
+    if len(clips) != n_cams or len(avis) != n_cams or len(labels) != n_cams or val != clips:
+        _fail("cogvideox_dataset or cogvideox_paths wrote other clips than expected")
 
 
 # ------------------------------ future (stage 4) ------------------------------
@@ -4789,7 +5146,6 @@ def png_time():
     import time
     import zlib
 
-    from fluidnexus_torch.pipelines.train_background import _png_chunk
     from fluidnexus_torch.utils import png
 
     rng = np.random.default_rng(SEED)
@@ -4810,8 +5166,8 @@ def png_time():
         path = os.path.join(tmp, "paeth.png")
         header = struct.pack(">IIBBBBB", 960, 544, 8, 2, 0, 0, 0)
         with open(path, "wb") as f:
-            f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
-                    + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+            f.write(b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", header)
+                    + png._chunk(b"IDAT", zlib.compress(raw, 6)) + png._chunk(b"IEND", b""))
         png.read_png(path)   # builds the unfilter at first use
         times = []
         for _ in range(PNG_TIME_REPS):

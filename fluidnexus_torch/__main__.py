@@ -1,6 +1,7 @@
 """Stage runner (counterpart of ``fluidnexus_tpu/__main__.py``):
 ``python -m fluidnexus_torch <stage> [args...]`` for the stages the port has.
-Each stage's ``main`` runs on the card (``device="cuda"``)."""
+Each stage's ``main`` runs on the card (``device="cuda"``); ``convert`` (the
+DataProcessing format conversions) runs on the host."""
 from __future__ import annotations
 
 import importlib
@@ -9,9 +10,11 @@ import sys
 STAGES = {
     "train_background": "fluidnexus_torch.pipelines.train_background",
     "train_physical_particle": "fluidnexus_torch.pipelines.train_physical_particle",
+    "train_visual_particle": "fluidnexus_torch.pipelines.train_visual_particle",
     "future_simulation": "fluidnexus_torch.pipelines.future_simulation",
     "train_video": "fluidnexus_torch.pipelines.train_video",
     "sample_video": "fluidnexus_torch.pipelines.sample_video",
+    "convert": "fluidnexus_torch.data.conversions",
 }
 
 

@@ -1,7 +1,7 @@
 """Video finetune datasets (counterpart of
 ``fluidnexus_tpu/data/video_dataset.py``): the frame-folder layout,
-``ClipFolderDataset``, read with the port's own PNG decoder (the card's
-machine has no Pillow), and ``make_video_dataset``, which picks a dataset by
+``ClipFolderDataset``, read with the port's own PNG decoder (no process of
+the port imports Pillow), and ``make_video_dataset``, which picks a dataset by
 the content of the root as the JAX package does.
 
 A frame whose size differs from (height, width) is resampled with PIL's

@@ -27,9 +27,7 @@ CLI: python -m fluidnexus_torch train_background --config <json> ...
 from __future__ import annotations
 
 import os
-import struct
 import time
-import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -50,35 +48,20 @@ from fluidnexus_torch.splat.background import (
     create_from_points, densify_and_prune, densify_noise, prune_large_points,
     prune_near_cam_points, prune_near_points, reset_opacity,
 )
-from fluidnexus_torch.utils.losses import l1_loss, psnr, ssim
+from fluidnexus_torch.utils.losses import l1_loss, psnr, scale_ratio_penalty, ssim
 from fluidnexus_torch.utils.maths import expon_lr, get_world_to_view, normalize
+from fluidnexus_torch.utils.png import write_png
 
 SMOKE_LOCATION = (0.328, -0.04, -0.34)   # prune_near_cam_points' reference point
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
 def save_image(path, img_chw):
     """A (C, H, W) image in [0, 1] as an 8-bit PNG, gray for one channel and
     RGB for three: the pixels the JAX package's PIL writer stores
-    (clip to [0, 1], times 255, truncated to uint8), written by a small
-    zlib + struct encoder (filter 0 on every row), so no imaging library is
-    needed."""
+    (clip to [0, 1], times 255, truncated to uint8), written by
+    ``utils/png.write_png``, so no imaging library is needed."""
     arr = (torch.clamp(torch.as_tensor(img_chw), 0, 1) * 255).detach().cpu().numpy()
-    arr = arr.astype(np.uint8).transpose(1, 2, 0)
-    h, w, c = arr.shape
-    if c not in (1, 3):
-        raise ValueError(f"save_image writes 1 or 3 channels, got {c}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], 1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
-    png = (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
-           + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _png_chunk(b"IEND", b""))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(png)
+    write_png(path, arr.astype(np.uint8).transpose(1, 2, 0))
 
 
 def _trainable(model: BackgroundModel):
@@ -118,13 +101,8 @@ def make_train_step(width: int, height: int, raster_cfg: RasterizerConfig,
             l1v = l1_loss(out.color, gt)
             loss = (1.0 - lambda_dssim) * l1v + lambda_dssim * (1.0 - ssim(out.color, gt))
             if lambda_reg_scaling > 0:
-                # amax/amin share the gradient among tied scales, as jnp.max does
-                s = torch.exp(p["scaling"])
-                ratio = torch.amax(s, -1) / torch.clamp(torch.amin(s, -1), min=1e-12)
-                reg = torch.where(model.alive,
-                                  torch.clamp(ratio - scaling_reg_ratio_threshold, min=0.0),
-                                  torch.zeros_like(ratio))
-                loss = loss + lambda_reg_scaling * reg.sum() / torch.clamp(model.alive.sum(), min=1)
+                loss = loss + lambda_reg_scaling * scale_ratio_penalty(
+                    p["scaling"], model.alive, scaling_reg_ratio_threshold)
         with record_function("fnx.backward"):
             grads = torch.autograd.grad(loss, [*p.values(), xy_off])
         with record_function("fnx.adam"):

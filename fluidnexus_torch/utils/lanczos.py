@@ -1,6 +1,6 @@
 """PIL's LANCZOS resample, arithmetic for arithmetic, on the host with numpy:
 the JAX package resizes through Pillow (``Image.resize(..., Image.LANCZOS)``)
-and the card's machine has no Pillow.
+and no process of the port imports Pillow.
 
 This is Pillow's ``libImaging/Resample.c`` for a whole-image box:
 

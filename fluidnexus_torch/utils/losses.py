@@ -66,3 +66,17 @@ def psnr(img1, img2):
     """PSNR per image over flattened pixels (image_utils.py:8-10)."""
     mse = torch.mean((img1 - img2) ** 2)
     return 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp(mse, min=1e-12)))
+
+
+def scale_ratio_penalty(log_scales, alive, threshold: float):
+    """The scale-anisotropy regulariser of stages 1 and 3 (the JAX package's
+    ``train_background.py:80-84`` and ``train_visual_particle.py:98-101``):
+    the sum over the alive rows of max(max(s) / max(min(s), 1e-12) -
+    threshold, 0), s = exp(log_scales), over max(#alive, 1). ``amax`` and
+    ``amin`` share the gradient among tied scales, as ``jnp.max`` does
+    (``torch.max`` gives it to one of them): stage 3's knn init writes one
+    value to all three axes."""
+    s = torch.exp(log_scales)
+    ratio = torch.amax(s, -1) / torch.clamp(torch.amin(s, -1), min=1e-12)
+    reg = torch.where(alive, torch.clamp(ratio - threshold, min=0.0), 0.0)
+    return reg.sum() / torch.clamp(alive.sum(), min=1)

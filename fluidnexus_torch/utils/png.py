@@ -1,5 +1,8 @@
-"""A PNG reader with no imaging library (zlib + struct), the inverse of
-``pipelines/train_background.save_image``: the card's machine has no Pillow.
+"""PNG reading and writing with no imaging library (zlib + struct), so that no
+process of the port needs Pillow. ``encode_png`` is the port's one PNG
+encoder (8-bit gray or RGB, filter 0 on every row; ``write_png`` writes its
+bytes to a file); ``read_png`` reads what it writes and every other PNG
+libpng reads.
 
 ``read_png`` decodes every PNG that the JAX package's native loader
 (``runtime/image_loader.cpp``, libpng) reads: gray at 1, 2, 4, 8 and 16
@@ -17,6 +20,7 @@ built at first use); ``_unfilter_plain`` is its plain Python version.
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 import zlib
 
@@ -28,6 +32,39 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A uint8 (H, W) or (H, W, 1) gray or (H, W, 3) RGB image as the bytes
+    of an 8-bit PNG: the pixels Pillow's ``Image.fromarray(img).save`` stores,
+    filter 0 on every row and zlib level 6."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"PNGs are written from uint8 images, got {arr.dtype}")
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.ndim != 3 or arr.shape[-1] not in (1, 3):
+        raise ValueError(f"PNGs are written from (H, W), (H, W, 1) or (H, W, 3), got {arr.shape}")
+    h, w, c = arr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], 1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray):
+    """``encode_png(img)`` written to ``path``, its folder made as needed."""
+    data = encode_png(img)
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _unfilter_plain(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarray:

@@ -1,0 +1,89 @@
+"""The port's TensorBoard event writer (``utils/tb.py``, which imports no
+tensorboard, TensorFlow or imaging package): its records framed as
+TensorBoard reads them (a little-endian length and the data, each followed
+by its masked CRC-32C, checked here by a bitwise CRC-32C of the test's own),
+each an ``Event`` parsed with tensorboard's protobuf classes, with the
+fields ``torch.utils.tensorboard.SummaryWriter`` writes for the same call:
+the file version first, scalars as ``simple_value``, images as 8-bit RGB
+PNGs (gray repeated)."""
+import glob
+import os
+import struct
+
+import numpy as np
+
+from fluidnexus_torch.utils.tb import TrainLogger, crc32c
+
+
+def _bitwise_crc32c(data: bytes) -> int:
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def _masked(data: bytes) -> int:
+    c = _bitwise_crc32c(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _records(folder):
+    (path,) = glob.glob(os.path.join(folder, "events.out.tfevents.*"))
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        assert struct.unpack("<I", data[pos + 8:pos + 12])[0] == _masked(header)
+        body = data[pos + 12:pos + 12 + n]
+        assert struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])[0] == _masked(body)
+        out.append(body)
+        pos += 16 + n
+    return out
+
+
+def test_event_file_holds_summary_writer_events(tmp_path):
+    from tensorboard.compat.proto.event_pb2 import Event
+
+    from fluidnexus_torch.utils.png import read_png
+
+    rng = np.random.default_rng(0)
+    hwc = rng.uniform(-0.2, 1.2, (9, 13, 3)).astype(np.float32)
+    chw_gray = rng.uniform(0, 1, (1, 6, 10)).astype(np.float32)
+    w = TrainLogger(str(tmp_path / "run"))
+    w.add_scalar("level_two/loss", 0.125, 0)
+    w.add_scalar("level_two/loss", np.float32(1.0) / 3, 7)
+    w.add_scalar("train/loss", -2.5e-7, 123456789)
+    w.add_image("render/0", hwc, 0)
+    w.add_image("render/1", chw_gray, 1)
+    events = [Event.FromString(r) for r in _records(str(tmp_path / "run"))]
+    assert len(events) == 6 and events[0].file_version == "brain.Event:2"
+    scalars = [(e.step, v.tag, np.float32(v.simple_value))
+               for e in events[1:4] for v in e.summary.value]
+    assert scalars == [(0, "level_two/loss", np.float32(0.125)),
+                       (7, "level_two/loss", np.float32(1.0) / 3),
+                       (123456789, "train/loss", np.float32(-2.5e-7))]
+    want = {"render/0": np.clip(hwc * 255, 0, 255).astype(np.uint8),
+            "render/1": np.repeat(np.clip(chw_gray * 255, 0, 255).astype(np.uint8)
+                                  .transpose(1, 2, 0), 3, -1)}
+    for step, e in enumerate(events[4:]):
+        (v,) = e.summary.value
+        im = v.image
+        assert e.step == step and e.wall_time > 0
+        assert (im.height, im.width, im.colorspace) == want[v.tag].shape
+        (tmp_path / "decoded.png").write_bytes(im.encoded_image_string)
+        np.testing.assert_array_equal(read_png(str(tmp_path / "decoded.png")), want[v.tag])
+
+
+def test_crc32c_and_a_logger_without_a_folder(tmp_path):
+    assert crc32c(b"123456789") == 0xE3069283   # the CRC-32C check value
+    blob = np.random.default_rng(1).integers(0, 256, 999).astype(np.uint8).tobytes()
+    assert crc32c(blob) == _bitwise_crc32c(blob)
+    w = TrainLogger("")
+    w.add_scalar("a", 1.0, 0)
+    w.add_image("b", np.zeros((4, 4), np.float32), 0)
+    w.image_grid("g", np.zeros((3, 4, 4), np.float32), 0)
+    assert os.listdir(tmp_path) == []
