@@ -36,7 +36,10 @@ attention-time`` times the attention forward kernels alone at the 5B shape,
 ``python3 chip_smoke.py attention-bwd`` checks the backward kernels at ragged
 shapes and times them there; ``python3 chip_smoke.py tick-flips`` counts how
 often the PBF tick's backends part at a pair that crosses the kernel radius;
-``python3 chip_smoke.py stages`` runs the stages phase alone, and
+``python3 chip_smoke.py stages`` runs the stages phase alone,
+``python3 chip_smoke.py refine`` the refinement phase alone,
+``python3 chip_smoke.py refine-encode-probe`` tries the refinement windows'
+whole VAE encode beside the resident 5B DiT, and
 ``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
 The last line of its output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -125,6 +128,18 @@ at layer 0's captured q, k, v and upstream gradient, and timed beside the
 mma.sync pair (which serves f32 and the other head_dims: held at f32 through
 the f32 kernels against an f32 and an f64 plain version, and in a small
 card-vs-CPU training run) and the library's backward.
+
+Refinement (``gen_refine_video.main --preset refine_smoke`` and
+``gen_future_video.main --preset future_smoke``): the CogVideoX-5B DiT and
+VAE on seeded weights, hash text, batch-2 CFG, the presets' windows at 480 x
+720: two 65-frame windows (17 latents, 23 176 tokens; prefix 9, frame_step
+2, strength 0.5) over a seeded input folder of ``frame_%06d.png`` and a GT
+folder of ``%03d.png`` at the capture's 960 x 544 (resampled by LANCZOS),
+then one 73-frame window (19 latents, 25 876 tokens; strength 0.75) over a
+seeded render folder and reconstruction frames; cut: ``--num_steps`` 8 and
+6 (4 DiT steps a window at those strengths; the CLIs run 50),
+``--num_windows`` 2 (of 3); both with ``--pack_video``. Row 14 held and
+timed at each run's layer-0 inputs, and a small card-vs-CPU refinement.
 """
 from __future__ import annotations
 
@@ -653,6 +668,7 @@ def main():
         kernels += run_stages(dev, os.path.join(tmp, "stages"))
         kernels += run_video(dev, os.path.join(tmp, "video"))
         kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
+        kernels += run_refine(dev, os.path.join(tmp, "refine"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -4054,6 +4070,451 @@ def small_video_train_check(dev):
              "bound_by": dkv_bound[1]}]
 
 
+# ----------------------------- the refinement stage ---------------------------
+
+REFINE_STEPS = 8              # --num_steps, cut from 50: at strength 0.5 the sampler runs 4
+REFINE_WINDOWS = 2            # --num_windows, cut from the preset's 3
+REFINE_BODY_STARTS = (3, 115)  # --window_start_indices: frames 3, 5, ..., 113, then 115, ..., 225
+REFINE_GT_START = 1           # --gt_prefix_start: GT frames 1, 3, ..., 17
+FUTURE_STEPS = 6              # --num_steps, cut from 50: at strength 0.75 the sampler runs 4
+FUTURE_SINCE = 9              # --gen_future_since: reconstruction 0-8, renders 9, 11, ..., 135
+CAPTURE_HW = (544, 960)       # the FluidNexus capture's frame, resampled to 480 x 720 on reading
+
+
+def plume_frames(indices, seed):
+    """Seeded (H, W, 3) uint8 frames at the capture's size, one for each
+    index: a soft column rising with the index over a dim background, and
+    pixel noise."""
+    h, w = CAPTURE_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    rng = np.random.default_rng(seed)
+    for i in indices:
+        cy = h - 60.0 - 1.5 * i
+        col = np.exp(-((x - w / 2 - 20 * np.sin(0.1 * i)) ** 2 / (2 * 70.0 ** 2)
+                       + (y - cy) ** 2 / (2 * 160.0 ** 2)))
+        img = np.stack([200 * col + 20, 210 * col + 24, 220 * col + 30], -1)
+        yield i, (img + rng.normal(0, 3, img.shape)).clip(0, 255).astype(np.uint8)
+
+
+def write_frames(folder, pattern, indices, seed):
+    """The frames of ``plume_frames`` as PNGs ``folder/(pattern % i)``,
+    written on 8 threads (zlib lets go of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fluidnexus_torch.utils.png import write_png
+
+    os.makedirs(folder, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda f: write_png(os.path.join(folder, pattern % f[0]), f[1]),
+                      plume_frames(indices, seed)))
+    return folder
+
+
+def timed_cli(main, argv):
+    """``main(argv, device="cuda")`` with a CUDA event at the start and the
+    end of every DiT forward, VAE encode, VAE decode and sampler call, layer
+    0's attention inputs of the first forward captured and every attention
+    call counted. Returns (main's result, {"seconds", "launches", "peak",
+    "q", "k", "v", "attention_calls", "steps" (ms per sampler step, by
+    sampler call), "encode", "decode" (ms), "decoded" (shape and finiteness
+    of each decode)})."""
+    import time
+
+    from fluidnexus_torch.diffusion.video import dit as dit_mod
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+
+    names = ("dit_apply", "encode_first_stage", "decode_first_stage", "sample")
+    real = {n: getattr(VideoEngine, n) for n in names}
+    real_attn = dit_mod.joint_attention
+    events, captured, calls, decoded = [], {}, [0], []
+
+    def wrapped(n):
+        def call(self, *a, **kw):
+            events.append((n, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+            out = real[n](self, *a, **kw)
+            events.append((n + "_end", torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+            if n == "decode_first_stage":
+                decoded.append((tuple(out.shape), bool(torch.isfinite(out).all())))
+            return out
+        return call
+
+    def recording_attn(q, k, v):
+        calls[0] += 1
+        if not captured:
+            captured.update(q=q, k=k, v=v)
+        return real_attn(q, k, v)
+
+    for n in names:
+        setattr(VideoEngine, n, wrapped(n))
+    dit_mod.joint_attention = recording_attn
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = main(argv, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+    finally:
+        for n in names:
+            setattr(VideoEngine, n, real[n])
+        dit_mod.joint_attention = real_attn
+    info = dict(seconds=seconds, launches=launches, peak=torch.cuda.max_memory_allocated(),
+                attention_calls=calls[0], decoded=decoded, steps=[], encode=[], decode=[],
+                **captured)
+    for i, (n, a) in enumerate(events):
+        if n == "sample":
+            info["steps"].append([])
+        elif n == "dit_apply":
+            # a sampler step: this forward's start to the next one's or the sampler's end
+            nxt = next(ev for kind, ev in events[i + 1:] if kind in ("dit_apply", "sample_end"))
+            info["steps"][-1].append(a.elapsed_time(nxt))
+        elif n in ("encode_first_stage", "decode_first_stage"):
+            info[n.split("_")[0]].append(a.elapsed_time(events[i + 1][1]))
+    return out, info
+
+
+def refine_attention_entry(name, info, forwards, n_layers):
+    """Row 14 at one run's layer-0 inputs of its first forward: the Hopper
+    kernel against the plain version on ``VIDEO_PAIRS`` in bf16 and, on the
+    same pairs cast to f32, the f32 kernel (which sees a missing mask of the
+    ragged last key tile); its time beside the plain version's and
+    scaled_dot_product_attention's by CUDA events; the run's launches, all
+    on the Hopper kernel. Returns the ``kernels`` entry."""
+    import torch.nn.functional as F
+
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    launches, q, k, v = info["launches"], info["q"], info["k"], info["v"]
+    want = {"attention_fwd": n_layers * forwards, "attention_fwd_wgmma": n_layers * forwards}
+    idle = [n for n, c in launches.items() if n not in want and c]
+    if any(launches[n] != c for n, c in want.items()) or idle \
+            or info["attention_calls"] != want["attention_fwd_wgmma"]:
+        _fail(f"{name}: {info['attention_calls']} attention calls launched {launches}, expected "
+              f"{want} and no other kernel")
+    b, h, s, d = q.shape
+    with torch.inference_mode():
+        out = ac.attention_fwd(q, k, v)
+        errs = []
+        for bi, hi in VIDEO_PAIRS:
+            sl = (slice(bi, bi + 1), slice(hi, hi + 1))
+            errs.append(attention_errors(out[bi:bi + 1, :, hi:hi + 1],
+                                         ac.attention_plain(q[sl], k[sl], v[sl])))
+        del out
+        errs32 = []
+        for bi, hi in VIDEO_PAIRS:
+            q32, k32, v32 = (x[bi:bi + 1, hi:hi + 1].float() for x in (q, k, v))
+            errs32.append(attention_errors(ac.attention_fwd(q32, k32, v32),
+                                           ac.attention_plain(q32, k32, v32)))
+        torch.cuda.synchronize()
+        print(f"{name}: attention (wgmma kernel) at layer 0's inputs {tuple(q.shape)} {q.dtype} "
+              f"({s} tokens = 226 text + {s - 226} video, ragged: {s} = {s // 64} x 64 + "
+              f"{s % 64}), (b, h) {VIDEO_PAIRS}: max|err| "
+              + ", ".join(f"{e[0]:.3e}" for e in errs) + "; mean|err| "
+              + ", ".join(f"{e[1]:.3e}" for e in errs) + "; max|ref| "
+              + ", ".join(f"{e[2]:.3e}" for e in errs)
+              + f" [tol max {BF16_MAX_TOL:g}, mean {BF16_MEAN_TOL:g} x max|ref|]; in f32 "
+              + ", ".join(f"{e[0] / e[2]:.3e}" for e in errs32) + f" [tol {F32_TOL:g}]")
+        if not all(attention_ok(q.dtype, *e) for e in errs) \
+                or not all(attention_ok(torch.float32, *e) for e in errs32):
+            _fail(f"{name}: the attention kernel disagrees with its plain version at layer 0's "
+                  f"inputs")
+        ms = cuda_ms(lambda: ac.attention_fwd(q, k, v), iters=20)
+        sl = (slice(0, 1), slice(0, 1))
+        plain_ms = cuda_ms(lambda: ac.attention_plain(q[sl], k[sl], v[sl]), iters=3,
+                           warmup=1) * b * h
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc), iters=10)
+    flops = 4 * b * h * s * s * d
+    b_ms, b_by = bound_ms(2 * 4 * b * h * s * d, flops, peak=H100_BF16_TC_FLOPS)
+    exp_ms = b * h * s * s / H100_EXP_PER_S * 1e3
+    print(f"{name}: attention_fwd_wgmma {ms:.3f} ms (CUDA events over 20 calls; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), bound {b_ms:.3f} ms by {b_by} (bf16 tensor cores; "
+          f"the {b * h * s * s:.3g} exponentials alone {exp_ms:.3f} ms), {ms / b_ms:.2f}x it; "
+          f"plain {plain_ms:.1f} ms (one (b, h) pair x {b * h}); scaled_dot_product_attention "
+          f"{library_ms:.3f} ms ({library_ms / ms:.2f}x the kernel's time); "
+          f"{launches['attention_fwd_wgmma']} launches in {forwards} DiT forwards")
+    return {"name": f"attention_fwd_wgmma_{name}", "route": "cuda",
+            "source": "fluidnexus_torch/csrc/attention.cu",
+            "replaces": "fluidnexus_tpu/diffusion/video/dit.py:213",
+            "launches": launches["attention_fwd_wgmma"], "max_abs_err": max(e[0] for e in errs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "shape": [b, h, s, d]}
+
+
+def print_cli_times(name, info):
+    steps = [t for run in info["steps"] for t in run]
+    print(f"{name}: ms per sampler step " + "; ".join(
+        ", ".join(f"{t:.1f}" for t in run) for run in info["steps"])
+        + f" (median {statistics.median(steps):.1f}); VAE encode "
+        + ", ".join(f"{t:.1f}" for t in info["encode"]) + " ms a window; VAE decode "
+        + ", ".join(f"{t:.1f}" for t in info["decode"]) + f" ms; main end to end "
+        f"{info['seconds']:.2f} s; peak allocated {info['peak'] / 2**30:.2f} GiB")
+
+
+def check_frames_folder(name, folder, names):
+    """The folder holds exactly ``names``, 480 x 720 RGB PNGs."""
+    from fluidnexus_torch.utils.png import read_png
+
+    got = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+    shapes = {read_png(os.path.join(folder, n)).shape for n in (got[0], got[-1])} if got else set()
+    print(f"{name}: {folder}: {len(got)} PNGs, {got[0] if got else None} .. "
+          f"{got[-1] if got else None}, {sorted(shapes)}")
+    if got != sorted(names) or shapes != {(480, 720, 3)}:
+        _fail(f"{name}: {folder} holds {len(got)} PNGs of {sorted(shapes)}, expected "
+              f"{len(names)} ({names[0]} .. {names[-1]}) of (480, 720, 3)")
+    return got
+
+
+def check_packed_video(name, path, folder, n):
+    """The packed video holds n frames of 480 x 720; an uncompressed AVI
+    (the port's last resort) holds the PNGs' pixels exactly."""
+    from fluidnexus_torch.utils.png import read_png
+    from fluidnexus_torch.utils.video_io import read_video_with_fps
+
+    frames, fps = read_video_with_fps(path)
+    names = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+    exact = None
+    if path.endswith(".avi"):
+        exact = all(np.array_equal(frames[i], read_png(os.path.join(folder, names[i])))
+                    for i in (0, n // 2, n - 1))
+    print(f"{name}: packed video {path} ({os.path.getsize(path) / 2**20:.1f} MiB), "
+          f"{frames.shape} at {fps:g} fps" + ("" if exact is None else
+                                               f"; frames 0, {n // 2}, {n - 1} equal to the PNGs: {exact}"))
+    if frames.shape != (n, 480, 720, 3) or exact is False:
+        _fail(f"{name}: the packed video {path} does not hold the {n} frames")
+
+
+def run_refine(dev, root):
+    """The refinement stage through its two CLIs at the CogVideoX-5B
+    geometry on seeded weights, with the shipped presets (module docstring):
+    ``gen_refine_video.main --preset refine_smoke`` (two 65-frame windows,
+    23 176 tokens) and ``gen_future_video.main --preset future_smoke`` (one
+    73-frame window, 25 876 tokens) on seeded input folders at the capture's
+    960 x 544; launch counts, ms per sampler step, encode and decode ms, peak
+    memory, the frames written and the packed video; row 14 held and timed at
+    each run's layer-0 inputs; the small card-vs-CPU refinement. Returns the
+    ``kernels`` entries of row 14 at the two shapes."""
+    from fluidnexus_torch.data.readers import future_view_folder
+    from fluidnexus_torch.pipelines import gen_future_video, gen_refine_video
+    from fluidnexus_torch.pipelines.sample_video import configs
+
+    step = 2   # both presets' frame_step
+    n_layers = configs(65, 480, 720, tiny=False)[0].num_layers
+    inp = write_frames(os.path.join(root, "zero123"), "frame_%06d.png",
+                       [s + step * i for s in REFINE_BODY_STARTS for i in range(56)], SEED + 11)
+    gt = write_frames(os.path.join(root, "gt"), "%03d.png",
+                      [REFINE_GT_START + step * i for i in range(9)], SEED + 12)
+    renders = write_frames(os.path.join(root, "renders"), "render_frame%03d_train00_0000.png",
+                           [FUTURE_SINCE + step * i for i in range(64)], SEED + 13)
+    recon = write_frames(os.path.join(root, "recon"), "%03d.png", range(FUTURE_SINCE), SEED + 14)
+
+    out = os.path.join(root, "refined")
+    argv = ["--preset", "refine_smoke", "--input_folder", inp, "--gt_prefix_folder", gt,
+            "--out_folder", out, "--num_steps", str(REFINE_STEPS), "--num_windows",
+            str(REFINE_WINDOWS), "--window_start_indices", *map(str, REFINE_BODY_STARTS),
+            "--gt_prefix_start", str(REFINE_GT_START), "--allow_fake_conditioning",
+            "--pack_video"]
+    print(f"refine: gen_refine_video.main({argv}): the CogVideoX-5B DiT ({n_layers} layers) and "
+          f"VAE on seeded weights, the preset's 65-frame windows at 480 x 720 (17 latents, "
+          f"23 176 tokens), prefix 9, frame_step 2, strength 0.5, hash text, batch-2 CFG; "
+          f"inputs at {CAPTURE_HW[1]} x {CAPTURE_HW[0]}, resampled by LANCZOS; cut: --num_steps "
+          f"{REFINE_STEPS} (4 DiT steps a window at strength 0.5; the preset's CLI runs 50), "
+          f"--num_windows {REFINE_WINDOWS} (of 3); encode chunk "
+          f"{gen_refine_video.ENCODE_CHUNK} (0: the whole window)")
+    (written, video), info = timed_cli(gen_refine_video.main, argv)
+    print_cli_times("refine", info)
+    forwards = sum(len(r) for r in info["steps"])
+    if written != [65, 56] or forwards != 2 * 4 or len(info["encode"]) != 2 \
+            or info["decoded"] != [((1, 65, 480, 720, 3), True)] * 2:
+        _fail(f"refine: wrote {written} frames in {forwards} DiT forwards, "
+              f"{len(info['encode'])} encodes and decodes {info['decoded']}; expected [65, 56], "
+              f"8, 2 and two finite (1, 65, 480, 720, 3)")
+    check_frames_folder("refine", out, [f"frame_{i:06d}.png" for i in range(121)])
+    check_packed_video("refine", video, out, 121)
+    entries = [refine_attention_entry("refine", info, forwards, n_layers)]
+    del info
+
+    out_root = os.path.join(root, "future")
+    argv = ["--preset", "future_smoke", "--sim_render_folder", renders, "--recon_frames_folder",
+            recon, "--out_root", out_root, "--gen_future_since", str(FUTURE_SINCE),
+            "--num_steps", str(FUTURE_STEPS), "--allow_fake_conditioning", "--pack_video"]
+    print(f"future: gen_future_video.main({argv}): the same model, the preset's 73-frame window "
+          f"(19 latents, 25 876 tokens), prefix 9, frame_step 2, strength 0.75, camera train00; "
+          f"cut: --num_steps {FUTURE_STEPS} (4 DiT steps at strength 0.75; the CLI runs 50)")
+    (folder, video), info = timed_cli(gen_future_video.main, argv)
+    print_cli_times("future", info)
+    forwards = sum(len(r) for r in info["steps"])
+    want = os.path.join(out_root, future_view_folder("smoke", "0", "0d75", FUTURE_SINCE, False))
+    if folder != want or forwards != 4 or len(info["encode"]) != 1 \
+            or info["decoded"] != [((1, 73, 480, 720, 3), True)]:
+        _fail(f"future: wrote {folder} in {forwards} DiT forwards, {len(info['encode'])} "
+              f"encodes and decodes {info['decoded']}; expected {want}, 4, 1 and one finite "
+              f"(1, 73, 480, 720, 3)")
+    check_frames_folder("future", folder,
+                        [f"frame_{FUTURE_SINCE + i:06d}.png" for i in range(64)])
+    check_packed_video("future", video, folder, 64)
+    entries.append(refine_attention_entry("future", info, forwards, n_layers))
+    del info
+    small_refine_check(dev, root)
+    return entries
+
+
+def small_refine_check(dev, root):
+    """``refine_long_video`` with ``sample_video --tiny``'s DiT and VAE
+    (f32, every weight from numpy with a seed) at 64 x 96, 9-frame windows,
+    prefix 5, 2 windows, frame_step 2 and body starts (3, 11), 4 steps at
+    strength 0.5: on the CPU (the plain attention), then on the card (the
+    f32 kernel) with the CPU's noise draws replayed. Decoded frames at 1e-4
+    of their scale, the PNGs within one level, the same names."""
+    import copy
+
+    from fluidnexus_torch.diffusion.video import sampling
+    from fluidnexus_torch.diffusion.video.dit import init_video_dit
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.diffusion.video.vae3d import init_vae
+    from fluidnexus_torch.pipelines.gen_refine_video import RefineConfig, refine_long_video
+    from fluidnexus_torch.pipelines.sample_video import configs
+    from fluidnexus_torch.utils.png import read_png, write_png
+
+    rng = np.random.default_rng(SEED + 15)
+    inp, gt = os.path.join(root, "small_in"), os.path.join(root, "small_gt")
+    for folder, pattern, idx in ((inp, "frame_%06d.png", range(3, 18)), (gt, "%03d.png", range(10))):
+        os.makedirs(folder, exist_ok=True)
+        for i in idx:
+            write_png(os.path.join(folder, pattern % i),
+                      rng.integers(0, 256, (80, 120, 3)).astype(np.uint8))
+    dit_cfg, vae_cfg = configs(9, 64, 96, tiny=True)
+    gen = torch.Generator().manual_seed(SEED)
+    dit = _random_weights(init_video_dit(dit_cfg, gen), SEED + 16)
+    vae = _random_weights(init_vae(vae_cfg, gen), SEED + 17)
+    text = torch.as_tensor(np.random.default_rng(SEED + 18).normal(size=(1, 8, 64)),
+                           dtype=torch.float32)
+    engine = VideoEngine(dit_cfg, vae_cfg)
+    cfg = RefineConfig(window_frames=9, prefix_frames=5, num_windows=2, sdedit_strength=0.5,
+                       num_steps=4, height=64, width=96, frame_step=2,
+                       window_start_indices=(3, 11), gt_prefix_start=1)
+    draws, replayed, real, real_decode = [], [], sampling._normal, VideoEngine.decode_first_stage
+
+    def recording(shape, generator, device):
+        draws.append(real(shape, generator, device))
+        return draws[-1]
+
+    def replaying(shape, generator, device):
+        replayed.append(draws[len(replayed)])
+        return replayed[-1].to(device)
+
+    decoded, run = {}, []
+
+    def keep_decode(self, vae_, z, chunk=2):
+        out = real_decode(self, vae_, z, chunk)
+        decoded.setdefault(run[-1], []).append(out.cpu())
+        return out
+
+    VideoEngine.decode_first_stage = keep_decode
+    try:
+        for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            sampling._normal = recording if name == "cpu" else replaying
+            run.append(name)
+            reset_all_launches()
+            written = refine_long_video(engine, copy.deepcopy(dit).to(device),
+                                        copy.deepcopy(vae).to(device), text.to(device),
+                                        torch.zeros_like(text).to(device), inp, gt,
+                                        os.path.join(root, f"small_out_{name}"), cfg,
+                                        torch.Generator(device=device).manual_seed(SEED),
+                                        log=lambda *a: None)
+            if written != [9, 4]:
+                _fail(f"small refine on the {name} wrote {written}, expected [9, 4]")
+        launches = all_launches()
+    finally:
+        sampling._normal = real
+        VideoEngine.decode_first_stage = real_decode
+    rel = max(float((c - g).abs().max()) / float(g.abs().max())
+              for c, g in zip(decoded["card"], decoded["cpu"]))
+    names = sorted(os.listdir(os.path.join(root, "small_out_cpu")))
+    levels = max(int(np.abs(read_png(os.path.join(root, "small_out_card", n)).astype(int)
+                            - read_png(os.path.join(root, "small_out_cpu", n))).max())
+                 for n in names)
+    print(f"small refine, card (f32 kernel, {launches['attention_fwd']} launches) vs plain CPU "
+          f"path: {len(draws)} noise draws replayed; decoded frames rel {rel:.3e} [tol 1e-4], "
+          f"{len(names)} PNGs, at most {levels} levels apart [tol 1]")
+    if not (len(replayed) == len(draws) and rel <= 1e-4 and levels <= 1
+            and names == sorted(os.listdir(os.path.join(root, "small_out_card")))
+            and launches["attention_fwd"] == 2 * 2 * 2 and launches["attention_fwd_wgmma"] == 0):
+        _fail("the small refinement on the card disagrees with the plain CPU path")
+
+
+def refine_only():
+    """``python3 chip_smoke.py refine``: builds ``attention`` only, runs
+    ``run_refine`` and prints its ``kernels`` entries."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    from fluidnexus_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    print(f"build attention: {cuda_build.build(['attention'])['attention']['seconds']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="fnx_refine_") as tmp:
+        print(json.dumps({"kernels": run_refine(torch.device("cuda"), tmp)}))
+
+
+def refine_encode_probe():
+    """``python3 chip_smoke.py refine-encode-probe``: the refinement windows'
+    VAE encode (65 frames, refine_smoke; 73, future_smoke; 480 x 720, the
+    posterior drawn) with the 5B DiT and the VAE resident, whole (the JAX
+    package's) and in chunks of 2 latents (train_video's default), each with
+    its time and its peak memory above what is resident, or the
+    out-of-memory error: the reading that ``gen_refine_video.ENCODE_CHUNK``
+    follows."""
+    import time
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: the probe runs on an NVIDIA card")
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.pipelines.sample_video import configs
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    engine = VideoEngine(*configs(65, 480, 720, tiny=False))
+    dit = engine.init_params(torch.Generator(device=dev).manual_seed(0))
+    vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.synchronize()
+    print(f"resident: the DiT {sum(p.numel() * p.element_size() for p in dit.parameters()) / 2**30:.2f}"
+          f" GiB, the VAE {sum(p.numel() * p.element_size() for p in vae.parameters()) / 2**30:.2f}"
+          f" GiB; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
+    for frames in (65, 73):
+        x = torch.rand((1, frames, 480, 720, 3), generator=gen, device=dev) * 2 - 1
+        for chunk in (0, 2):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            try:
+                z = engine.encode_first_stage(vae, x, gen, chunk=chunk)
+                torch.cuda.synchronize()
+                print(f"encode {frames} frames, chunk {chunk} (0: the whole window): "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms, peak "
+                      f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+                      f"resident {base / 2**30:.2f} GiB, latents {tuple(z.shape)}")
+                del z
+            except torch.OutOfMemoryError as e:
+                print(f"encode {frames} frames, chunk {chunk} (0: the whole window): out of "
+                      f"memory after {time.perf_counter() - t0:.2f} s: {str(e).splitlines()[0]}")
+        del x
+
+
 # ------------------------- mutants and the encode probe ----------------------
 
 # Broken copies of the attention backward: (file, source text, replacement),
@@ -5214,6 +5675,10 @@ if __name__ == "__main__":
         run_mutants(tuple(sys.argv[2:]) or tuple(MUTANT_GROUPS))
     elif sys.argv[1:] == ["encode-probe"]:
         encode_probe()
+    elif sys.argv[1:] == ["refine"]:
+        refine_only()
+    elif sys.argv[1:] == ["refine-encode-probe"]:
+        refine_encode_probe()
     elif sys.argv[1:] == ["attention-time"]:
         attention_time()
     elif sys.argv[1:] == ["attention-bwd"]:

@@ -14,6 +14,8 @@ STAGES = {
     "future_simulation": "fluidnexus_torch.pipelines.future_simulation",
     "train_video": "fluidnexus_torch.pipelines.train_video",
     "sample_video": "fluidnexus_torch.pipelines.sample_video",
+    "gen_refine_video": "fluidnexus_torch.pipelines.gen_refine_video",
+    "gen_future_video": "fluidnexus_torch.pipelines.gen_future_video",
     "convert": "fluidnexus_torch.data.conversions",
 }
 

@@ -60,15 +60,18 @@ def sorted_names(params):
 
 
 class ClipAdamW:
-    """``optax.chain(clip_by_global_norm(1.0), adamw(lr))`` over a dict of f32
-    tensors, updated in place (the trainables are the only copy kept).
+    """``optax.chain(clip_by_global_norm(max_norm), adamw(lr, b1, b2, eps,
+    weight_decay))`` over a dict of f32 tensors, updated in place (the
+    trainables are the only copy kept); the defaults are optax's.
     ``count``, ``mu`` and ``nu`` are the optax state's leaves, in its order
     for a name-sorted tree."""
 
-    MAX_NORM, B1, B2, EPS, WEIGHT_DECAY = 1.0, 0.9, 0.999, 1e-8, 1e-4
-
-    def __init__(self, params: Dict[str, torch.Tensor], lr: float):
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float, max_norm: float = 1.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
         self.params, self.lr = params, lr
+        self.max_norm, self.b1, self.b2, self.eps = max_norm, b1, b2, eps
+        self.weight_decay = weight_decay
         self.count = 0
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -91,15 +94,15 @@ class ClipAdamW:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]):
-        b1, b2 = self.B1, self.B2
+        b1, b2 = self.b1, self.b2
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = g_norm < self.MAX_NORM
+        keep = g_norm < self.max_norm
         self.count += 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
         for k, p in self.params.items():
-            g = torch.where(keep, grads[k], (grads[k] / g_norm) * self.MAX_NORM)
+            g = torch.where(keep, grads[k], (grads[k] / g_norm) * self.max_norm)
             mu = self.mu[k].mul_(b1).add_((1 - b1) * g)
             nu = self.nu[k].mul_(b2).add_((1 - b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS) + self.WEIGHT_DECAY * p
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
             p.add_(-self.lr * u)

@@ -10,35 +10,43 @@ during sampling.
 
 Without ``--dit_ckpt``/``--vae_ckpt`` the weights are drawn from a seed, as
 the JAX CLI's are. Text goes through the hash pseudo-encoder only
-(``--allow_fake_conditioning``, implied by ``--tiny``). Not ported yet:
-``--base`` (CogVideoX YAML configs), ``--t5_dir``, ``--tp``/``--dp`` and
-``--pack_video``.
+(``--allow_fake_conditioning``, implied by ``--tiny``); a ``--t5_dir`` raises
+until the T5 encoder is ported. ``--base`` merges the reference's CogVideoX
+YAML configs (``diffusion/video/config_yaml``, which needs PyYAML) into the
+defaults of the clip geometry, the sampler and the T5 directory, and gives
+the DiT and VAE geometry; ``--t5_dir ""`` overrides a YAML's T5 directory.
+``--pack_video`` packs the PNGs into a video (``utils/video_io``). Not
+ported: ``--tp``/``--dp``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from fluidnexus_torch import resolve_device
-from fluidnexus_torch.convert import vae3d_from_numpy, video_dit_from_numpy
-from fluidnexus_torch.core.checkpoint import load_params, load_params_prefer_ema
-from fluidnexus_torch.diffusion.video.conditioner import make_text_encoder
 from fluidnexus_torch.diffusion.video.dit import VideoDiTConfig
-from fluidnexus_torch.diffusion.video.engine import VideoEngine
 from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig
-from fluidnexus_torch.pipelines.gen_refine_video import latent_prefix_len, load_frames, save_frames
+from fluidnexus_torch.pipelines.gen_refine_video import (
+    latent_prefix_len, load_frames, load_models, save_frames,
+)
 
 
-def configs(num_frames, height, width, tiny):
-    """The DiT and VAE configs of a run: the CogVideoX-5B geometry, or the
-    JAX CLI's ``--tiny`` one (hidden 64, 2 layers, 4 heads, f32)."""
+def configs(num_frames, height, width, tiny, run_cfg=None):
+    """The DiT and VAE configs of a run: the JAX CLI's ``--tiny`` one (hidden
+    64, 2 layers, 4 heads, f32), else a ``--base`` run config's model (the
+    merged YAMLs' geometry), else the CogVideoX-5B geometry; the latent grid
+    is the clip's."""
     lat_t = (num_frames - 1) // 4 + 1
     if tiny:
         return (VideoDiTConfig(hidden_size=64, num_layers=2, num_heads=4, text_hidden_size=64,
                                text_length=8, latent_frames=lat_t, latent_height=height // 8,
                                latent_width=width // 8, dtype=torch.float32),
                 VAE3DConfig(ch=16, ch_mult=(1, 2, 2, 4), num_res_blocks=1))
+    if run_cfg is not None:
+        return (dataclasses.replace(run_cfg.dit, latent_frames=lat_t, latent_height=height // 8,
+                                    latent_width=width // 8), run_cfg.vae)
     return (VideoDiTConfig(latent_frames=lat_t, latent_height=height // 8,
                            latent_width=width // 8), VAE3DConfig())
 
@@ -57,30 +65,35 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--width", type=int, default=720)
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
+    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--allow_fake_conditioning", action="store_true",
                     help="run with hash pseudo-embeddings (test/smoke only; implied by --tiny)")
+    ap.add_argument("--pack_video", action="store_true",
+                    help="also pack the frames into a video file (mp4, or an uncompressed AVI)")
+    ap.add_argument("--fps", type=int, default=8)
+    ap.add_argument("--base", nargs="+", default=[],
+                    help="reference CogVideoX YAML config(s), merged in order: the sampler's "
+                         "and the model's geometry defaults come from them (needs PyYAML)")
+    pre, _ = ap.parse_known_args(argv)
+    run_cfg = None
+    if pre.base:
+        from fluidnexus_torch.diffusion.video.config_yaml import load_cogvideox_yaml
+
+        run_cfg = load_cogvideox_yaml(pre.base)
+        ap.set_defaults(num_frames=run_cfg.train.max_num_frames,
+                        num_steps=run_cfg.sampler.num_steps, cfg_scale=run_cfg.sampler.scale,
+                        height=run_cfg.train.video_size[0], width=run_cfg.train.video_size[1],
+                        t5_dir=run_cfg.t5_dir)
     args = ap.parse_args(argv)
     dev = resolve_device(device)
     # f32 products and convolutions in full f32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny)
-    engine = VideoEngine(dit_cfg, vae_cfg, cfg_scale=args.cfg_scale)
-    if args.dit_ckpt:
-        params = video_dit_from_numpy(load_params_prefer_ema(args.dit_ckpt), dit_cfg, dev)
-    else:
-        params = engine.init_params(torch.Generator(device=dev).manual_seed(0))
-    if args.vae_ckpt:
-        vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
-    else:
-        vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
-    enc = make_text_encoder(None, max_length=dit_cfg.text_length,
-                            hidden=dit_cfg.text_hidden_size,
-                            allow_fake=args.allow_fake_conditioning or args.tiny)
-    text_emb = enc([args.prompt], device=dev)
+    dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny, run_cfg)
+    engine, params, vae, text_emb = load_models(args, dev, dit_cfg, vae_cfg, args.cfg_scale)
     uc = torch.zeros_like(text_emb)
 
     shape = (1, dit_cfg.latent_frames, dit_cfg.in_channels, dit_cfg.latent_height,
@@ -97,6 +110,10 @@ def main(argv=None, device="cuda"):
                         prefix_clean_frames=prefix_lat)
     decoded = engine.decode_first_stage(vae, lat.permute(0, 1, 3, 4, 2))
     save_frames(args.out_folder, decoded[0].cpu().numpy(), 0)
+    if args.pack_video:
+        from fluidnexus_torch.utils.video_io import frames_folder_to_video
+
+        print("video:", frames_folder_to_video(args.out_folder, fps=args.fps))
     print(f"wrote {decoded.shape[1]} frames to {args.out_folder}")
     return decoded
 

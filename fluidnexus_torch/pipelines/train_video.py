@@ -29,9 +29,13 @@ Every draw (the VAE posterior, the caption drops, the timestep index and the
 noise) comes from one ``torch.Generator`` seeded with ``--seed``, in the JAX
 order; the clip choice from ``numpy.random.default_rng(--seed)``. Without
 ``--dit_ckpt``/``--vae_ckpt`` (the flat npz) the weights are drawn from a
-seed, as the JAX CLI draws them. Not ported: ``--base`` (the CogVideoX YAML
-configs), ``--t5_dir`` (text goes through the hash pseudo-encoder,
-``--allow_fake_conditioning``, implied by ``--tiny``) and ``--tp``.
+seed, as the JAX CLI draws them. Text goes through the hash pseudo-encoder
+(``--allow_fake_conditioning``, implied by ``--tiny``); a ``--t5_dir``
+raises until the T5 encoder is ported. ``--base`` merges the reference's
+CogVideoX YAML configs (``diffusion/video/config_yaml``, which needs PyYAML)
+into the flags' defaults (``apply_base_yaml``; explicit flags win) and gives
+the DiT and VAE geometry and the optimizer's clip, betas, eps and weight
+decay, as in the JAX package. Not ported: ``--tp``.
 """
 from __future__ import annotations
 
@@ -131,7 +135,7 @@ class VideoTrainer:
     step), the optimizer and the EMA. ``step`` is one train step."""
 
     def __init__(self, engine: VideoEngine, dit: torch.nn.Module, lr: float, ema_decay: float,
-                 is_i2v: bool = True, masters=None):
+                 is_i2v: bool = True, masters=None, opt=None):
         self.engine, self.dit, self.is_i2v, self.decay = engine, dit, is_i2v, ema_decay
         self.lora = engine.dit_config.lora_rank > 0
         dit.requires_grad_(False)
@@ -148,7 +152,7 @@ class VideoTrainer:
             self.params = {n: src[n].detach().to(own[n].device, torch.float32).clone()
                            for n in own}
             self._sync()
-        self.opt = ClipAdamW(self.params, lr)
+        self.opt = ClipAdamW(self.params, lr, **(opt or {}))
         self.ema = self.fresh_ema() if ema_decay > 0 else None
 
     def fresh_ema(self):
@@ -226,8 +230,12 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny)
+    run_cfg = getattr(args, "run_cfg", None)
+    dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny, run_cfg)
     dit_cfg = dataclasses.replace(dit_cfg, lora_rank=args.lora_rank, base_quant=args.quant_base)
+    enc = make_text_encoder(args.t5_dir or None, max_length=dit_cfg.text_length,
+                            hidden=dit_cfg.text_hidden_size,
+                            allow_fake=args.allow_fake_conditioning or args.tiny)
     engine = VideoEngine(dit_cfg, vae_cfg, fixed_frames=args.fixed_frames)
     masters = None
     if args.dit_ckpt:
@@ -244,11 +252,13 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
         vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
     else:
         vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
+    opt = {}
+    if run_cfg is not None:
+        t = run_cfg.train
+        opt = dict(max_norm=t.grad_clip, b1=t.betas[0], b2=t.betas[1], eps=t.eps,
+                   weight_decay=t.weight_decay)
     trainer = VideoTrainer(engine, dit, args.lr, args.ema_decay, is_i2v=not args.t2v,
-                           masters=masters)
-    enc = make_text_encoder(None, max_length=dit_cfg.text_length,
-                            hidden=dit_cfg.text_hidden_size,
-                            allow_fake=args.allow_fake_conditioning or args.tiny)
+                           masters=masters, opt=opt)
     ds = make_video_dataset(args.data_root, args.num_frames, args.height, args.width)
     rng_np = np.random.default_rng(args.seed)
     tb = TrainLogger(args.save_dir)
@@ -349,8 +359,12 @@ def build_argparser():
     ap.add_argument("--resume_from", default="",
                     help="save_dir (or train_state_*.npz) to resume the full training state "
                          "from: params, optimizer moments, EMA, generator, iteration")
+    ap.add_argument("--base", nargs="+", default=[],
+                    help="reference CogVideoX YAML config(s) (cogvideox_5b_lora_prefixi2v.yaml "
+                         "sft_pi2v_<exp>.yaml), merged in order into the defaults (needs PyYAML)")
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
+    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
     ap.add_argument("--iterations", type=int, default=10000)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -386,12 +400,32 @@ def build_argparser():
     return ap
 
 
-def main(argv=None, device="cuda", log=print):
-    ap = build_argparser()
+def apply_base_yaml(ap, argv=None):
+    """The two-pass parse: --base YAMLs set the defaults (the reference's
+    sat config merge), explicit flags win. Returns the parsed args with a
+    ``run_cfg`` attribute (a CogVideoXRunConfig, or None)."""
+    pre, _ = ap.parse_known_args(argv)
+    cfg = None
+    if pre.base:
+        from fluidnexus_torch.diffusion.video.config_yaml import load_cogvideox_yaml
+
+        cfg = load_cogvideox_yaml(pre.base)
+        t = cfg.train
+        ap.set_defaults(
+            iterations=t.train_iters, batch=t.micro_batch, lr=t.lr, lora_rank=cfg.lora_rank,
+            fixed_frames=cfg.fixed_frames, ucg_rate=cfg.ucg_rate, num_frames=t.max_num_frames,
+            height=t.video_size[0], width=t.video_size[1], log_every=t.log_interval,
+            save_every=t.save_interval, save_dir=t.save, eval_interval=t.eval_interval,
+            data_root=(t.train_data[0] if t.train_data else ""), t5_dir=cfg.t5_dir)
     args = ap.parse_args(argv)
+    args.run_cfg = cfg
     if not args.data_root:
-        ap.error("--data_root is required")
-    return train(args, log=log, device=device)
+        ap.error("--data_root is required (directly or via --base train_data)")
+    return args
+
+
+def main(argv=None, device="cuda", log=print):
+    return train(apply_base_yaml(build_argparser(), argv), log=log, device=device)
 
 
 if __name__ == "__main__":

@@ -1,19 +1,31 @@
-"""Writing clips without an ffmpeg binary or an imaging library (counterpart
-of ``fluidnexus_tpu/utils/video_io.py``, its ``write_video``).
+"""Video files without an ffmpeg binary or an imaging library (counterpart
+of ``fluidnexus_tpu/utils/video_io.py``).
 
-The JAX package's chain: an mp4 through OpenCV's built-in encoder, else
-imageio-ffmpeg, else an AVI. Its AVI holds JPEG frames encoded by PIL; the
-port has no JPEG encoder (no imaging library may be needed on the card's
+Writing, the JAX package's chain: an mp4 through OpenCV's built-in encoder,
+else imageio-ffmpeg, else an AVI. Its AVI holds JPEG frames encoded by PIL;
+the port has no JPEG encoder (no imaging library may be needed on the card's
 machine), so its last resort holds the frames uncompressed (24-bit 'DIB '
 frames in a RIFF AVI, which ffmpeg and VLC play).
+
+Reading (``read_video_with_fps``, ``read_video``): an AVI of uncompressed
+frames, the port's own, is read by ``read_avi_raw`` (OpenCV 5.0.0's FFmpeg
+backend corrupts its heap decoding one); any other file through OpenCV when
+it imports, else an AVI through ``read_avi_raw`` (which raises on an MJPEG
+frame: the port has no JPEG decoder) and the rest through imageio, as in
+the JAX package.
+
+``frames_folder_to_video`` packs a folder of PNG frames (read by
+``utils/png.read_png``) into a video.
 """
 from __future__ import annotations
 
 import os
 import struct
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
+
+from fluidnexus_torch.utils.png import read_png, to_rgb
 
 
 def _to_uint8(frames) -> np.ndarray:
@@ -101,3 +113,130 @@ def write_video(path: str, frames, fps: int = 8) -> str:
     if not path.endswith(".avi"):
         path = path + ".avi"
     return write_avi_raw(path, arr, fps=fps)
+
+
+def _avi_chunks(data: bytes, path: str):
+    """(fourcc, payload) of every chunk of a RIFF AVI, LIST chunks
+    descended into."""
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path}: not an AVI")
+    pos, ends = 12, [len(data)]
+    while pos + 8 <= ends[-1]:
+        fourcc = data[pos:pos + 4]
+        (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
+        if fourcc == b"LIST":
+            ends.append(pos + 8 + size)
+            pos += 12  # past the list type
+            continue
+        yield fourcc, data[pos + 8:pos + 8 + size]
+        pos += 8 + size + size % 2
+        while len(ends) > 1 and pos >= ends[-1]:
+            ends.pop()
+
+
+def _avi_format(data: bytes, path: str):
+    """(width, height, bit count, compression fourcc, fps) of the AVI's
+    first video stream."""
+    video, fps = False, 0.0
+    for fourcc, body in _avi_chunks(data, path):
+        if fourcc == b"strh":
+            video = body[:4] == b"vids"
+            if video:
+                scale, rate = struct.unpack("<II", body[20:28])
+                fps = rate / scale if scale else 0.0
+        elif fourcc == b"strf" and video:
+            _, w, h, _, bits, comp = struct.unpack("<IiiHH4s", body[:20])
+            return w, h, bits, comp, fps
+    raise ValueError(f"{path}: an AVI with no video stream format")
+
+
+def _is_raw_avi(path: str) -> bool:
+    if not path.endswith(".avi"):
+        return False
+    with open(path, "rb") as f:
+        data = f.read()
+    return _avi_format(data, path)[3] == b"\0\0\0\0"
+
+
+def read_avi_raw(path: str):
+    """(frames (T, H, W, 3) uint8 RGB, fps) of an AVI of uncompressed 24-bit
+    frames ('00db' chunks of BGR rows, bottom-up for a positive height, each
+    row padded to 4 bytes): the format ``write_avi_raw`` writes. A JPEG
+    frame ('00dc' or an MJPG stream) raises NotImplementedError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h, bits, comp, fps = _avi_format(data, path)
+    if comp != b"\0\0\0\0" or bits != 24:
+        raise NotImplementedError(
+            f"{path}: frames of compression {comp!r} at {bits} bits; the port reads only "
+            "uncompressed 24-bit AVIs, and an MJPEG AVI waits for a JPEG decoder (the JAX "
+            "package decodes it with PIL or OpenCV)")
+    row, hh = (w * 3 + 3) // 4 * 4, abs(h)
+    frames: List[np.ndarray] = []
+    for fourcc, body in _avi_chunks(data, path):
+        if fourcc[2:] == b"dc":
+            raise NotImplementedError(f"{path}: a compressed frame chunk {fourcc!r} waits for "
+                                      "a JPEG decoder")
+        if fourcc[2:] == b"db" and body:
+            img = np.frombuffer(body[:row * hh], np.uint8).reshape(hh, row)[:, :w * 3]
+            img = img.reshape(hh, w, 3)[..., ::-1]
+            frames.append(img[::-1] if h > 0 else img)
+    if not frames:
+        raise ValueError(f"{path}: no video chunks")
+    return np.ascontiguousarray(np.stack(frames)), fps
+
+
+def _cv2_read(path: str):
+    """(frames uint8 RGB, fps) through OpenCV, or None where it does not
+    import or cannot open the file."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        return None
+    fps = float(cap.get(cv2.CAP_PROP_FPS) or 0.0)
+    frames: List[np.ndarray] = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f[..., ::-1].copy())
+    cap.release()
+    if not frames:
+        return None
+    return np.stack(frames), fps
+
+
+def read_video_with_fps(path: str):
+    """(frames (T, H, W, 3) uint8, fps); fps is 0.0 where the container
+    lacks it (module docstring for the decoders tried)."""
+    if _is_raw_avi(path):
+        return read_avi_raw(path)
+    got = _cv2_read(path)
+    if got is not None:
+        return got
+    if path.endswith(".avi"):
+        return read_avi_raw(path)
+    import imageio.v2 as imageio
+
+    reader = imageio.get_reader(path)
+    fps = float(reader.get_meta_data().get("fps", 0.0) or 0.0)
+    return np.stack([np.asarray(f) for f in reader]), fps
+
+
+def read_video(path: str) -> np.ndarray:
+    return read_video_with_fps(path)[0]
+
+
+def frames_folder_to_video(folder: str, out_path: Optional[str] = None, fps: int = 8,
+                           pattern: str = ".png") -> str:
+    """Pack the folder's frames (file names ending in ``pattern``, in name
+    order, as RGB) into a video at ``out_path`` (default: the folder's name
+    + .mp4) through ``write_video``; returns the path written."""
+    names = sorted(f for f in os.listdir(folder) if f.endswith(pattern))
+    if not names:
+        raise FileNotFoundError(f"no {pattern} frames in {folder}")
+    frames = np.stack([to_rgb(read_png(os.path.join(folder, n))) for n in names])
+    return write_video(out_path or folder.rstrip("/") + ".mp4", frames, fps=fps)

@@ -101,6 +101,7 @@ def test_sample_video_reads_prefix_frames(tmp_path):
     and resampled, encoded, and their latents held clean through sampling."""
     import torch
 
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
     from fluidnexus_torch.pipelines import sample_video
 
     rng = np.random.default_rng(0)
@@ -108,19 +109,19 @@ def test_sample_video_reads_prefix_frames(tmp_path):
         Image.fromarray(rng.integers(0, 256, (40, 56, 3)).astype(np.uint8)).save(
             tmp_path / f"{i:03d}.png")
     seen = {}
-    real = sample_video.VideoEngine.sample
+    real = VideoEngine.sample
 
     def spy(self, *a, **kw):
         seen["prefix"] = kw.get("prefix_clean_frames")
         return real(self, *a, **kw)
 
-    sample_video.VideoEngine.sample = spy
+    VideoEngine.sample = spy
     try:
         out = sample_video.main(["--tiny", "--prompt", "x", "--out_folder", str(tmp_path / "out"),
                                  "--num_frames", "9", "--height", "32", "--width", "48",
                                  "--num_steps", "2", "--prefix_folder", str(tmp_path),
                                  "--prefix_frames", "5"], device="cpu")
     finally:
-        sample_video.VideoEngine.sample = real
+        VideoEngine.sample = real
     assert seen["prefix"] is not None and tuple(seen["prefix"].shape[:2]) == (1, 2)
     assert torch.isfinite(out).all() and len(os.listdir(tmp_path / "out")) == 9
