@@ -38,6 +38,7 @@ shapes and times them there; ``python3 chip_smoke.py tick-flips`` counts how
 often the PBF tick's backends part at a pair that crosses the kernel radius;
 ``python3 chip_smoke.py stages`` runs the stages phase alone,
 ``python3 chip_smoke.py refine`` the refinement phase alone,
+``python3 chip_smoke.py novel-view`` the Zero123 phase alone,
 ``python3 chip_smoke.py refine-encode-probe`` tries the refinement windows'
 whole VAE encode beside the resident 5B DiT, and
 ``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
@@ -140,6 +141,21 @@ seeded render folder and reconstruction frames; cut: ``--num_steps`` 8 and
 6 (4 DiT steps a window at those strengths; the CLIs run 50),
 ``--num_windows`` 2 (of 3); both with ``--pack_video``. Row 14 held and
 timed at each run's layer-0 inputs, and a small card-vs-CPU refinement.
+
+Novel view (``run_novel_view``, Zero123): a seeded capture of 3 frames x 5
+cameras at 960 x 544 (the stages phase's cameras) through ``convert
+original_to_zero123`` (512-px PNGs) and ``zero123_cams``; ``python -m
+fluidnexus_torch train_novel_view`` at the full geometry (UNet 320 x (1, 2,
+4, 4), CLIP ViT-L/14, KL-VAE 128, 256 px) on seeded weights with the EMA,
+the iteration-20 checkpoints and TensorBoard grids; cut: batch 96 -> 8,
+iterations 52 000 -> 20; the training step at batches 16, 32 and 96 until
+one runs out of memory; ``infer_novel_view`` from the checkpoint at its
+defaults for 2 frames (8 views, 50 DDIM steps, CFG 3.0); ``convert
+zero123_to_cogvideox`` on a view's frames; the UNet (batch 2, both CFG
+halves), CLIP and the VAE on the card against the CPU, both held to a
+float64 CPU run; a profile of a DDIM step and of a training step. No
+hand-written kernel is on this path: it adds no ``kernels`` entry and
+prints the launch counts, all 0.
 """
 from __future__ import annotations
 
@@ -669,6 +685,7 @@ def main():
         kernels += run_video(dev, os.path.join(tmp, "video"))
         kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
         kernels += run_refine(dev, os.path.join(tmp, "refine"))
+        kernels += run_novel_view(dev, os.path.join(tmp, "novel_view"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -5666,6 +5683,413 @@ def stages_only():
         print(json.dumps({"kernels": run_stages(torch.device("cuda"), tmp)}))
 
 
+# ------------------------------ novel view (Zero123) ------------------------------
+
+NV_ITERS, NV_BATCH = 20, 8       # cut from the reference finetune's 52 000 iterations of batch 96
+NV_PROBE_BATCHES = (16, 32, 96)
+NV_TOL = 1e-4                    # card against the CPU in f64, x max|f64| ...
+NV_F32_RATIO = 2.0               # ... or at most this x the CPU's own f32 error there
+NV_VIEWS = (0, 1, 3, 4)          # infer_novel_view's default targets from camera 2
+
+
+class _Tee:
+    """stdout kept in a buffer as it is printed."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def write_nv_capture(root):
+    """A capture at the FluidNexus-Smoke geometry for the novel-view phase:
+    the stages phase's five cameras (``capture_cameras``: transforms.json)
+    and ``train0{c}/{t:03d}.png`` for frames 0-2 at 960 x 544, seeded images
+    (a bright column over a gradient, moved with the frame and the camera,
+    and noise; no rasterizer is needed)."""
+    from fluidnexus_torch.utils.png import write_png
+
+    os.makedirs(root, exist_ok=True)
+    capture_cameras(root, STAGE_FRAMES)
+    rng = np.random.default_rng(SEED + 30)
+    h, w = CAPTURE_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for c in range(5):
+        for t in range(STAGE_FRAMES):
+            cx = w * (0.3 + 0.1 * c) + 12 * t
+            col = np.exp(-((xx - cx) / 60.0) ** 2) * np.clip((h - yy - 30 * t) / h, 0, 1)
+            base = 0.15 + 0.2 * xx / w + 0.1 * yy / h
+            img = (base + 0.7 * col)[..., None] * np.array([1.0, 0.95, 0.9], np.float32)
+            img = img + rng.normal(0, 0.02, (h, w, 3))
+            write_png(os.path.join(root, f"train0{c}", f"{t:03d}.png"),
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def _nv_held(label, card, cpu32, cpu64):
+    """The card's f32 result and the CPU's, each against the CPU in float64
+    (the same weights and inputs): the card's error at most NV_F32_RATIO x
+    the CPU's own f32 error, or within NV_TOL of scale. Prints card vs CPU
+    f32 too."""
+    card, cpu32 = card.detach().double().cpu(), cpu32.detach().double()
+    scale = float(cpu64.abs().max())
+    e_card, e_cpu = (float((x - cpu64).abs().max()) / scale for x in (card, cpu32))
+    e_pair = float((card - cpu32).abs().max()) / scale
+    ok = bool(torch.isfinite(card).all()) and (e_card <= NV_F32_RATIO * e_cpu
+                                               or e_card <= NV_TOL)
+    print(f"novel-view card vs CPU {label}: against the CPU in f64 (max|f64| {scale:.3e}) the "
+          f"card {e_card:.2e}, the CPU in f32 {e_cpu:.2e} of scale [card <= {NV_F32_RATIO:g} x "
+          f"CPU, or <= {NV_TOL:g}]; card vs CPU f32 {e_pair:.2e} {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def run_novel_view(dev, root):
+    """The Zero123 stage through its two CLIs at the full geometry (UNet
+    320 x (1, 2, 4, 4), CLIP ViT-L/14, KL-VAE 128; 256 px, 32 x 32 latents)
+    on seeded weights: a capture of 3 frames x 5 cameras through ``convert
+    original_to_zero123`` (512-px PNGs) and ``zero123_cams``;
+    ``train_novel_view`` for NV_ITERS steps of batch NV_BATCH (cut from 52 000
+    of 96) with the EMA, checkpoints and TensorBoard grids; a probe of the
+    larger batches; ``infer_novel_view`` from its iter_0000020 (2 frames x 4
+    views, 50 DDIM steps, CFG 3.0); ``convert zero123_to_cogvideox`` on the
+    output; the UNet (batch 2, both CFG halves), CLIP and the VAE on the card
+    against the CPU at NV_TOL; component times; a profile of a sampler step
+    and a training step. No hand-written kernel is on this path: the launch
+    counts stay 0. Returns no ``kernels`` entry."""
+    import contextlib
+    import shutil
+    import time
+
+    from fluidnexus_torch.__main__ import main as runner
+    from fluidnexus_torch.convert import novel_view_from_numpy
+    from fluidnexus_torch.core.checkpoint import load_params
+    from fluidnexus_torch.diffusion.ldm.model import NovelViewModel, get_pose_delta
+    from fluidnexus_torch.pipelines import train_novel_view as tnv
+    from fluidnexus_torch.pipelines.infer_novel_view import load_image
+    from fluidnexus_torch.utils.png import read_png
+    from fluidnexus_torch.utils.tb import device_memory_stats
+
+    free_gib = shutil.disk_usage(root if os.path.isdir(root) else os.path.dirname(root)).free / 2**30
+    print(f"novel-view: {free_gib:.1f} GiB free where the phase writes (two 5 GB checkpoints)")
+
+    # ---- the dataset, through the DataProcessing hand-offs
+    t_phase = t0 = time.perf_counter()
+    cap, z123 = os.path.join(root, "capture"), os.path.join(root, "zero123")
+    write_nv_capture(cap)
+    runner(["convert", "original_to_zero123", "--data_root", cap, "--out_root", z123,
+            "--camera_prefix", "train"])
+    runner(["convert", "zero123_cams", "--transforms_json", os.path.join(cap, "transforms.json"),
+            "--out_dir", os.path.join(z123, "camera")])
+    frames = sorted(d for d in os.listdir(z123) if d.startswith("frame_"))
+    shapes = {read_png(os.path.join(z123, f, n)).shape for f in frames
+              for n in os.listdir(os.path.join(z123, f))}
+    n_png = sum(len(os.listdir(os.path.join(z123, f))) for f in frames)
+    cams = sorted(os.listdir(os.path.join(z123, "camera")))
+    print(f"novel-view dataset: {len(frames)} frames, {n_png} PNGs of {sorted(shapes)}, "
+          f"{len(cams)} cameras, in {time.perf_counter() - t0:.2f} s")
+    if len(frames) != STAGE_FRAMES or n_png != 5 * STAGE_FRAMES or shapes != {(512, 512, 3)} \
+            or len(cams) != 5:
+        _fail("novel-view: the Zero123 dataset is not 3 frames x 5 cameras of 512 px")
+
+    # ---- training through the CLI, each step and data batch timed on the card
+    real_step, real_batch = tnv.NovelViewTrainer.step, tnv.ViewPairDataset.sample_batch
+    step_ms, data_ms, counts = [], [], {}
+
+    def timed_step(self, *a):
+        if not counts:
+            for k in ("unet", "clip", "vae", "cc"):
+                counts[k] = sum(p.numel() for n, p in self.model.named_parameters()
+                                if n.startswith(k + "."))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_step(self, *a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_batch(self, *a):
+        t = time.perf_counter()
+        out = real_batch(self, *a)
+        data_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    save = os.path.join(root, "run")
+    argv = ["train_novel_view", "--data_dir", z123, "--save_dir", save, "--image_size", "256",
+            "--batch", str(NV_BATCH), "--iterations", str(NV_ITERS), "--log_every", "5",
+            "--save_every", str(NV_ITERS), "--sample_every", str(NV_ITERS), "--sample_steps", "50",
+            "--max_log_images", "4"]
+    print(f"novel-view: python -m fluidnexus_torch {' '.join(argv)} (full width, EMA 0.9999; "
+          f"cut: batch 96 -> {NV_BATCH}, iterations 52 000 -> {NV_ITERS})")
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tnv.NovelViewTrainer.step, tnv.ViewPairDataset.sample_batch = timed_step, timed_batch
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            runner(argv)
+    finally:
+        tnv.NovelViewTrainer.step, tnv.ViewPairDataset.sample_batch = real_step, real_batch
+    train_s = time.perf_counter() - t0
+    mem = device_memory_stats(dev)
+    gc_cuda()
+    logs = [ln for ln in tee.text().splitlines() if ln.startswith("iter ")]
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in logs]
+    print(f"novel-view parameters: " + ", ".join(f"{k} {v:,}" for k, v in counts.items())
+          + f"; total {sum(counts.values()):,}")
+    print(f"novel-view train: {train_s:.1f} s for {NV_ITERS} iterations; ms per step (the card, "
+          f"synchronised) {', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 10 "
+          f"{statistics.median(step_ms[-10:]):.1f} ms; host data (PNG decode + LANCZOS 512 -> "
+          f"256 of {2 * NV_BATCH} images) median {statistics.median(data_ms):.1f} ms a batch; "
+          f"device_memory_stats {json.dumps({k: round(v, 1) for k, v in mem.items()})}")
+    if len(losses) != NV_ITERS // 5 or not all(math.isfinite(x) for x in losses) \
+            or len(step_ms) != NV_ITERS:
+        _fail(f"novel-view train: log lines {logs}, {len(step_ms)} steps")
+    trees = {}
+    for name in ("iter_0000020", "iter_0000020_ema"):
+        tree = load_params(os.path.join(save, name))
+        leaves = _leaves(tree)
+        finite = all(np.isfinite(x).all() for x in leaves)
+        size = sum(x.size for x in leaves)
+        gib = os.path.getsize(os.path.join(save, name + ".npz")) / 2**30
+        print(f"novel-view checkpoint {name}.npz: {gib:.2f} GiB, {sorted(tree)} {len(leaves)} "
+              f"leaves, {size:,} values, finite {finite}")
+        if sorted(tree) != ["cc", "clip", "unet", "vae"] or size != sum(counts.values()) \
+                or not finite:
+            _fail(f"novel-view: {name} did not load back as the full tree")
+        trees[name] = tree
+    ema_moved = max(float(np.abs(a - b).max()) for a, b in zip(
+        _leaves(trees["iter_0000020"]["unet"]), _leaves(trees["iter_0000020_ema"]["unet"])))
+    del trees["iter_0000020_ema"]
+    events = [f for f in os.listdir(save) if f.startswith("events.out.tfevents")]
+    blob = b"".join(open(os.path.join(save, f), "rb").read() for f in events)
+    grids = {t: blob.count(t.encode()) for t in ("train/conditioning", "train/targets",
+                                                 "train/samples_cfg_scale_3.00")}
+    print(f"novel-view event file: {len(blob)} bytes, grids {grids} (iterations 1 and "
+          f"{NV_ITERS}); the EMA differs from the live UNet by up to {ema_moved:.3e}")
+    if any(v != 2 for v in grids.values()) or ema_moved <= 0:
+        _fail("novel-view: the event file does not hold the three grids twice, or the EMA "
+              "never moved")
+
+    nv_batch_probe(dev)
+
+    # ---- sampling through the CLI
+    out = os.path.join(root, "novel_views")
+    real_sample, view_ms = NovelViewModel.ddim_sample, []
+
+    def timed_sample(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_sample(self, *a, **k)
+        torch.cuda.synchronize()
+        view_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    argv = ["infer_novel_view", "--data_dir", z123, "--out_dir", out, "--ckpt",
+            os.path.join(save, "iter_0000020"), "--num_frames", "2"]
+    print(f"novel-view: python -m fluidnexus_torch {' '.join(argv)} (source camera 2, targets "
+          f"{NV_VIEWS}, 50 DDIM steps, CFG 3.0, 256 px, the _ema sibling)")
+    NovelViewModel.ddim_sample = timed_sample
+    t0 = time.perf_counter()
+    try:
+        runner(argv)
+    finally:
+        NovelViewModel.ddim_sample = real_sample
+    infer_s = time.perf_counter() - t0
+    gc_cuda()
+    launches = all_launches()
+    print(f"novel-view launches of the hand-written kernels over training and sampling: "
+          f"{launches}")
+    if any(launches.values()):
+        _fail("novel-view: the Zero123 path launched a hand-written kernel")
+    stds = []
+    for c in NV_VIEWS:
+        for i in range(2):
+            path = os.path.join(out, f"zero123_finetune_52000_cam2to{c}", f"frame_{i:06d}.png")
+            if not os.path.exists(path):
+                _fail(f"novel-view: {path} was not written")
+            img = read_png(path)
+            stds.append(float(img.std()))
+            if img.shape != (256, 256, 3) or img.std() == 0:
+                _fail(f"novel-view: {path} is {img.shape} with std {img.std()}")
+    print(f"novel-view infer: {infer_s:.1f} s for 8 views (load included); ms per view "
+          f"(50 steps + decode) {', '.join(f'{t:.1f}' for t in view_ms)}; PNG std "
+          f"{min(stds):.1f}-{max(stds):.1f}")
+
+    t0 = time.perf_counter()
+    cvx = os.path.join(root, "cogvideox")
+    runner(["convert", "zero123_to_cogvideox", "--zero123_folder",
+            os.path.join(out, "zero123_finetune_52000_cam2to0"), "--out_folder", cvx])
+    handed = sorted(os.listdir(cvx))
+    hshapes = {read_png(os.path.join(cvx, n)).shape for n in handed}
+    print(f"novel-view hand-off zero123_to_cogvideox: {handed} of {sorted(hshapes)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if handed != ["frame_000000.png", "frame_000001.png"] or hshapes != {(480, 720, 3)}:
+        _fail("novel-view: zero123_to_cogvideox did not write the two 480 x 720 frames")
+
+    # ---- card against CPU, component times, profiles
+    tree = trees.pop("iter_0000020")
+    model = novel_view_from_numpy(tree, None, dev)
+    cpu = novel_view_from_numpy(tree, None, "cpu")
+    cpu64 = novel_view_from_numpy(tree, None, "cpu").double()
+    del tree
+    cond = torch.as_tensor(load_image(os.path.join(z123, "frame_000", "02.png")))[None]
+    rts = [np.load(os.path.join(z123, "camera", f"{c:02d}.npy")) for c in (0, 2)]
+    dt = torch.as_tensor(get_pose_delta(rts[0], rts[1])[None])
+    gen = torch.Generator().manual_seed(SEED + 31)
+    lat = 256 // cpu.downsample_factor
+    x = torch.randn((1, lat, lat, 4), generator=gen)
+    t = torch.tensor([500, 500])
+    ok = True
+    with torch.no_grad():
+        ctx, concat = cpu.conditioning(cond, dt)
+        inputs = {"x_in": torch.cat([torch.cat([x, x]), torch.cat([concat, torch.zeros_like(
+            concat)])], -1), "ctx2": torch.cat([ctx, torch.zeros_like(ctx)]), "cond": cond, "x": x}
+        pairs = (("UNet (batch 2, both CFG halves)",
+                  lambda m, i: m.unet(i["x_in"], t.to(i["x"].device), i["ctx2"])),
+                 ("CLIP", lambda m, i: m.clip(i["cond"])),
+                 ("VAE encode", lambda m, i: m.vae.encode(i["cond"] * 2 - 1)),
+                 ("VAE decode", lambda m, i: m.vae.decode(i["x"])))
+        on_card = {k: v.to(dev) for k, v in inputs.items()}
+        in_f64 = {k: v.double() for k, v in inputs.items()}
+        times = {}
+        for label, fn in pairs:
+            t0 = time.perf_counter()
+            ref = fn(cpu, inputs)
+            cpu_s = time.perf_counter() - t0
+            ok &= _nv_held(f"{label} (CPU {cpu_s:.2f} s)", fn(model, on_card), ref,
+                           fn(cpu64, in_f64))
+            times[label] = cuda_ms(lambda: fn(model, on_card), iters=10)
+    del cpu, cpu64
+    print("novel-view card ms: " + "; ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; a view {statistics.median(view_ms):.1f} (the infer run's median)")
+    if not ok:
+        _fail("novel-view: the card and the CPU disagree")
+    nv_profiles(model, cond.to(dev), dt.to(dev), statistics.median(step_ms[-10:]))
+    del model
+    gc_cuda()
+    print(f"novel-view phase: {time.perf_counter() - t_phase:.1f} s")
+    return []
+
+
+def _leaves(tree):
+    out = []
+    for v in tree.values():
+        out += _leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def nv_random_batch(b, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tgt = torch.rand((b, 256, 256, 3), generator=g, device=dev)
+    cond = torch.rand((b, 256, 256, 3), generator=g, device=dev)
+    return tgt, cond, torch.randn((b, 4), generator=g, device=dev)
+
+
+def nv_batch_probe(dev):
+    """Training steps of a fresh seeded model at each of NV_PROBE_BATCHES in
+    turn, until one runs out of memory: the ms of the second step and the
+    peak memory, and the first batch that does not fit."""
+    import time
+
+    from fluidnexus_torch.diffusion.ldm.model import build_novel_view, init_novel_view
+    from fluidnexus_torch.pipelines.train_novel_view import NovelViewTrainer, lambda_linear_schedule
+
+    model = init_novel_view(build_novel_view(dev), torch.Generator(device=dev).manual_seed(SEED))
+    trainer = NovelViewTrainer(model, lambda_linear_schedule(1e-4), lambda_linear_schedule(1e-3),
+                               0.9999)
+    fits, first_oom = [], None
+    for b in NV_PROBE_BATCHES:
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            batch = nv_random_batch(b, dev, SEED + b)
+            rng = torch.Generator(device=dev).manual_seed(SEED)
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.step(*batch, rng)
+                torch.cuda.synchronize()
+            fits.append((b, (time.perf_counter() - t0) * 1e3,
+                         torch.cuda.max_memory_allocated() / 2**30))
+            del batch
+        except torch.cuda.OutOfMemoryError:
+            first_oom = b
+            break
+    del trainer, model
+    gc_cuda()
+    print("novel-view batch probe: " + "; ".join(
+        f"batch {b} fits: {ms:.1f} ms a step, peak {gib:.2f} GiB" for b, ms, gib in fits)
+          + (f"; batch {first_oom} runs out of memory" if first_oom else
+             f"; every batch of {NV_PROBE_BATCHES} fits"))
+
+
+def nv_profiles(model, cond, dt, train_ms):
+    """torch.profiler over 5 DDIM steps (a batch-2 UNet forward and the
+    update each) and over 2 training steps of batch NV_BATCH: the card's
+    busy ms, its idle share and the top device ops."""
+    from fluidnexus_torch.pipelines.train_novel_view import NovelViewTrainer, lambda_linear_schedule
+    from fluidnexus_torch.utils.profiling import annotate
+
+    rng = torch.Generator(device=cond.device).manual_seed(SEED)
+    with torch.no_grad():
+        model_eps, lad, x0 = model._sampler_setup(cond, dt, 50, 1.0, 3.0, 256, rng)
+
+        def steps(n):
+            x = x0
+            for i in range(n):
+                with annotate("fnx.sampler_step"):
+                    at, ap = float(lad["a_t"][i]), float(lad["a_prev"][i])
+                    eps = model_eps(x, lad["times"][i])
+                    pred = (x - math.sqrt(1 - at) * eps) / math.sqrt(at)
+                    x = math.sqrt(ap) * pred + float(lad["dir_coef"][i]) * eps \
+                        + float(lad["sigma"][i]) * torch.randn(x.shape, generator=rng,
+                                                               device=x.device)
+            return x
+
+        step_ms = cuda_ms(lambda: steps(1), iters=10)
+        print(f"novel-view sampler step: {step_ms:.3f} ms (a batch-2 UNet forward and the update)")
+        profile_run("DDIM steps", lambda: steps(5), 5, step_ms)
+    trainer = NovelViewTrainer(model, lambda_linear_schedule(1e-4), lambda_linear_schedule(1e-3),
+                               0.9999)
+    batch = nv_random_batch(NV_BATCH, cond.device, SEED + 1)
+
+    def train_steps(n):
+        for _ in range(n):
+            with annotate("fnx.train_step"):
+                trainer.step(*batch, rng)
+
+    train_steps(1)
+    profile_run(f"training steps of batch {NV_BATCH}", lambda: train_steps(2), 2, train_ms)
+    del trainer, batch
+
+
+def novel_view_only():
+    """``python3 chip_smoke.py novel-view``: ``run_novel_view`` alone (no
+    kernel to build)."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    with tempfile.TemporaryDirectory(prefix="fnx_novel_view_") as tmp:
+        print(json.dumps({"kernels": run_novel_view(torch.device("cuda"), tmp)}))
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -5677,6 +6101,8 @@ if __name__ == "__main__":
         encode_probe()
     elif sys.argv[1:] == ["refine"]:
         refine_only()
+    elif sys.argv[1:] == ["novel-view"]:
+        novel_view_only()
     elif sys.argv[1:] == ["refine-encode-probe"]:
         refine_encode_probe()
     elif sys.argv[1:] == ["attention-time"]:

@@ -16,6 +16,8 @@ STAGES = {
     "sample_video": "fluidnexus_torch.pipelines.sample_video",
     "gen_refine_video": "fluidnexus_torch.pipelines.gen_refine_video",
     "gen_future_video": "fluidnexus_torch.pipelines.gen_future_video",
+    "train_novel_view": "fluidnexus_torch.pipelines.train_novel_view",
+    "infer_novel_view": "fluidnexus_torch.pipelines.infer_novel_view",
     "convert": "fluidnexus_torch.data.conversions",
 }
 

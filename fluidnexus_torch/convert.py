@@ -184,3 +184,14 @@ def vae3d_from_numpy(params, cfg, device="cuda"):
     with torch.device(device):
         vae = VideoVAE(cfg)
     return load_flax_params(vae, params, device)
+
+
+def novel_view_from_numpy(params, configs=None, device="cuda"):
+    """The JAX ``NovelViewModel`` param tree ({"unet", "vae", "clip", "cc"},
+    numpy) as the port's ``NovelViewModel``; ``configs`` are its keyword
+    arguments (``unet_config``, ``vae_config``, ``clip_config``), the full
+    geometry when None. ``flax_params_to_numpy(model.named_parameters())``
+    gives the tree back."""
+    from fluidnexus_torch.diffusion.ldm.model import build_novel_view
+
+    return load_flax_params(build_novel_view(device, **(configs or {})), params, device)

@@ -13,7 +13,7 @@ defaults to 1e-2): the updates scaled by max_norm / |g| only when |g| >=
 max_norm (``clip_grad_norm_`` scales by max_norm / (|g| + 1e-6) always)."""
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
@@ -63,10 +63,12 @@ class ClipAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(lr, b1, b2, eps,
     weight_decay))`` over a dict of f32 tensors, updated in place (the
     trainables are the only copy kept); the defaults are optax's.
-    ``count``, ``mu`` and ``nu`` are the optax state's leaves, in its order
-    for a name-sorted tree."""
+    ``max_norm=None`` is ``adamw`` alone. ``lr`` is a number or a schedule,
+    a function of the update count before this update (optax's
+    ``scale_by_schedule``). ``count``, ``mu`` and ``nu`` are the optax
+    state's leaves, in its order for a name-sorted tree."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], lr: float, max_norm: float = 1.0,
+    def __init__(self, params: Dict[str, torch.Tensor], lr, max_norm: Optional[float] = 1.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4):
         self.params, self.lr = params, lr
@@ -95,14 +97,18 @@ class ClipAdamW:
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]):
         b1, b2 = self.b1, self.b2
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = g_norm < self.max_norm
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            keep = g_norm < self.max_norm
         self.count += 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
         for k, p in self.params.items():
-            g = torch.where(keep, grads[k], (grads[k] / g_norm) * self.max_norm)
+            g = grads[k]
+            if self.max_norm is not None:
+                g = torch.where(keep, g, (g / g_norm) * self.max_norm)
             mu = self.mu[k].mul_(b1).add_((1 - b1) * g)
             nu = self.nu[k].mul_(b2).add_((1 - b2) * (g * g))
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
-            p.add_(-self.lr * u)
+            p.add_(-lr * u)

@@ -171,7 +171,12 @@ def read_png(path: str) -> np.ndarray:
     format, for a file that is not a PNG or holds a format the PNG standard
     does not define."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """``read_png`` of a PNG file's bytes (a tar member, say); ``path`` names
+    them in its errors."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path} is not a PNG")
     pos, header, idat, plte, trns = len(_SIGNATURE), None, [], None, None

@@ -119,9 +119,24 @@ class TrainLogger:
             f.write(header + struct.pack("<I", _masked_crc(header)) + event
                     + struct.pack("<I", _masked_crc(event)))
 
+    @property
+    def enabled(self) -> bool:
+        return self._path is not None
+
     def add_scalar(self, tag: str, value, step: int):
         if self._path is not None:
             self._write(_event(time.time(), int(step), value=_scalar_value(tag, float(value))))
+
+    scalar = add_scalar
+
+    def scalars(self, prefix: str, values: dict, step: int):
+        """``prefix/key`` scalars of a dict; a value that is not one number
+        is skipped."""
+        for k, v in values.items():
+            try:
+                self.add_scalar(f"{prefix}/{k}", float(np.asarray(v)), step)
+            except (TypeError, ValueError):
+                pass
 
     def add_image(self, tag: str, img, step: int):
         """(H, W) / (H, W, C) / (C, H, W) float in [0, 1] -> a TB image."""
@@ -156,3 +171,22 @@ class TrainLogger:
         grid = (arr.reshape(nrow, ncol, h, w, c).transpose(0, 2, 1, 3, 4)
                 .reshape(nrow * h, ncol * w, c))
         self.add_image(tag, grid, step)
+
+
+def device_memory_stats(device=None) -> dict:
+    """Peak, in-use and total memory of a CUDA device in MiB, from the CUDA
+    caching allocator: ``peak_mib`` (``max_memory_allocated``), ``in_use_mib``
+    (``memory_allocated``) and ``limit_mib`` (the card's total memory). An
+    empty dict for a CPU device, or with no device given and no card."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            return {}
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    return {"peak_mib": torch.cuda.max_memory_allocated(device) / 2**20,
+            "in_use_mib": torch.cuda.memory_allocated(device) / 2**20,
+            "limit_mib": torch.cuda.get_device_properties(device).total_memory / 2**20}

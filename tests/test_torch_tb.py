@@ -87,3 +87,29 @@ def test_crc32c_and_a_logger_without_a_folder(tmp_path):
     w.add_image("b", np.zeros((4, 4), np.float32), 0)
     w.image_grid("g", np.zeros((3, 4, 4), np.float32), 0)
     assert os.listdir(tmp_path) == []
+
+
+def test_scalar_scalars_and_enabled(tmp_path):
+    """``scalar`` writes what ``add_scalar`` writes; ``scalars`` writes each
+    entry of a dict under ``prefix/key`` and skips a value that is not one
+    number, as the JAX package's logger does; ``enabled`` is whether a
+    folder was given."""
+    from tensorboard.compat.proto.event_pb2 import Event
+
+    w = TrainLogger(str(tmp_path / "run"))
+    assert w.enabled and not TrainLogger("").enabled
+    w.scalar("train/loss", 0.5, 3)
+    w.scalars("perf", {"peak_mib": 1024.0, "in_use_mib": np.float32(7.5), "shape": (1, 2)}, 4)
+    events = [Event.FromString(r) for r in _records(str(tmp_path / "run"))]
+    got = [(e.step, v.tag, v.simple_value) for e in events[1:] for v in e.summary.value]
+    assert got == [(3, "train/loss", 0.5), (4, "perf/peak_mib", 1024.0),
+                   (4, "perf/in_use_mib", 7.5)]
+
+
+def test_device_memory_stats_is_empty_on_the_cpu():
+    """No allocator to read on the CPU: the JAX package's ``{}``."""
+    from fluidnexus_torch.utils.tb import device_memory_stats
+
+    assert device_memory_stats("cpu") == {}
+    assert device_memory_stats(None) == {} or set(device_memory_stats(None)) == {
+        "peak_mib", "in_use_mib", "limit_mib"}
