@@ -39,6 +39,7 @@ often the PBF tick's backends part at a pair that crosses the kernel radius;
 ``python3 chip_smoke.py stages`` runs the stages phase alone,
 ``python3 chip_smoke.py refine`` the refinement phase alone,
 ``python3 chip_smoke.py novel-view`` the Zero123 phase alone,
+``python3 chip_smoke.py text-data`` the text-and-data phase alone,
 ``python3 chip_smoke.py refine-encode-probe`` tries the refinement windows'
 whole VAE encode beside the resident 5B DiT, and
 ``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
@@ -156,6 +157,18 @@ halves), CLIP and the VAE on the card against the CPU, both held to a
 float64 CPU run; a profile of a DDIM step and of a training step. No
 hand-written kernel is on this path: it adds no ``kernels`` entry and
 prints the launch counts, all 0.
+
+Text and data (``run_text_data``): the T5-XXL encoder at its full geometry
+(24 blocks, d_model 4 096, 64 heads of 64, d_ff 10 240, gated-gelu, vocab
+32 128, f32) on seeded weights, 2 prompts at 226 tokens through a WordLevel
+tokenizer the script writes (the t5-v1_1-xxl files do not ship); its first
+two blocks at full width card against CPU, then written as a Hugging Face
+Flax directory (a msgpack writer of the script's own) that ``--t5_dir``
+reads: ``sample_video`` at the 5B geometry (2 of 50 steps) and
+``train_video`` at the 5B geometry (1 LoRA step each, batch 2) on an mp4
+root and on webdataset tar shards that the script writes with OpenCV at 480
+x 720, 49 frames at 8 fps; whether tensorstore (the orbax reader) imports.
+No hand-written kernel is added: the DiT's attention kernels carry it.
 """
 from __future__ import annotations
 
@@ -686,6 +699,7 @@ def main():
         kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
         kernels += run_refine(dev, os.path.join(tmp, "refine"))
         kernels += run_novel_view(dev, os.path.join(tmp, "novel_view"))
+        kernels += run_text_data(dev, os.path.join(tmp, "text_data"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -6090,6 +6104,375 @@ def novel_view_only():
     with tempfile.TemporaryDirectory(prefix="fnx_novel_view_") as tmp:
         print(json.dumps({"kernels": run_novel_view(torch.device("cuda"), tmp)}))
 
+
+# ------------------------------ text and data ---------------------------------
+
+T5_TOL = 1e-4                 # card against CPU, f32 both (TF32 off), x max|ref|
+T5_WORDS = ("<pad> </s> <unk> a smoke plume rises past the cylinder in cold air slowly wind "
+            "blows left right over ball bounces thin column white grey dense light").split()
+T5_PROMPTS = (" ".join(T5_WORDS[3 + (i * 7) % (len(T5_WORDS) - 3)] for i in range(300)),
+              "a thin white smoke plume rises slowly past the cylinder in cold air")
+TEXT_TRAIN_ITERS = 1          # --iterations a data layout, cut from the CLI's 10 000
+TEXT_SAMPLE_STEPS = 2         # --num_steps of sample_video --t5_dir
+
+
+def write_t5_tokenizer(d):
+    """A WordLevel tokenizer over T5_WORDS in Hugging Face's format (the
+    t5-v1_1-xxl sentencepiece model does not ship with the repository)."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    os.makedirs(d, exist_ok=True)
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(T5_WORDS)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(os.path.join(d, "tokenizer.json"))
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+                   "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 512}, f)
+
+
+def init_t5(model, generator):
+    """transformers' Flax T5 init, drawn from ``generator``: the embedding
+    normal(1), q normal((inner d_kv)^-1/2), k, v, o and the bias table
+    normal(inner^-1/2), wi normal(d_model^-1/2), wo normal(d_ff^-1/2), the
+    norms 1."""
+    c = model.cfg
+    inner = c.num_heads * c.d_kv
+    std = {"q": (inner * c.d_kv) ** -0.5, "k": inner ** -0.5, "v": inner ** -0.5,
+           "o": inner ** -0.5, "relative_attention_bias": inner ** -0.5,
+           "wi": c.d_model ** -0.5, "wi_0": c.d_model ** -0.5, "wi_1": c.d_model ** -0.5,
+           "wo": c.d_ff ** -0.5, "shared": 1.0}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if parts[-1] == "weight" and "norm" in parts[-2]:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std[parts[-2]], generator=generator)
+    return model
+
+
+def write_flax_msgpack(path, tree):
+    """``tree`` (nested dicts of numpy arrays) in flax's msgpack format, as
+    ``FlaxPreTrainedModel.save_pretrained`` writes ``flax_model.msgpack``:
+    maps of maps, each leaf an ext value of type 1 holding the msgpack array
+    (shape, dtype name, raw bytes). Leaves are streamed (no copy of the
+    tree in memory); none may exceed flax's 2^30-byte chunk size."""
+    import struct
+
+    def head(fix, n, fix_max, wide):
+        if n <= fix_max:
+            return bytes([fix | n])
+        code, fmt = wide
+        return bytes([code]) + struct.pack(fmt, n)
+
+    def string(s):
+        b = s.encode()
+        return head(0xA0, len(b), 31, (0xDA, ">H")) + b
+
+    with open(path, "wb") as f:
+        def put(node):
+            if isinstance(node, dict):
+                f.write(head(0x80, len(node), 15, (0xDE, ">H")))
+                for k, v in node.items():
+                    f.write(string(str(k)))
+                    put(v)
+                return
+            a = np.ascontiguousarray(node)
+            if a.nbytes > 2 ** 30:
+                raise ValueError(f"a leaf of {a.nbytes} bytes needs flax's chunked form")
+            inner = (b"\x93" + head(0x90, a.ndim, 15, (0xDC, ">H"))
+                     + b"".join(b"\xce" + struct.pack(">I", n) for n in a.shape)
+                     + string(a.dtype.name) + b"\xc6" + struct.pack(">I", a.nbytes))
+            f.write(b"\xc9" + struct.pack(">I", len(inner) + a.nbytes) + b"\x01" + inner)
+            f.write(memoryview(a).cast("B"))
+
+        put(tree)
+
+
+def write_flax_t5(d, model):
+    """A Hugging Face Flax T5 directory from a port ``T5Encoder``:
+    ``config.json``, ``flax_model.msgpack`` (the flax layout,
+    ``convert.flax_params_to_numpy``) and the WordLevel tokenizer."""
+    from fluidnexus_torch.convert import flax_params_to_numpy
+
+    c = model.cfg
+    write_t5_tokenizer(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"architectures": ["T5EncoderModel"], "model_type": "t5",
+                   "vocab_size": c.vocab_size, "d_model": c.d_model, "d_kv": c.d_kv,
+                   "d_ff": c.d_ff, "num_layers": c.num_layers, "num_heads": c.num_heads,
+                   "relative_attention_num_buckets": c.relative_attention_num_buckets,
+                   "relative_attention_max_distance": c.relative_attention_max_distance,
+                   "layer_norm_epsilon": c.layer_norm_epsilon,
+                   "feed_forward_proj": c.feed_forward_proj, "pad_token_id": 0,
+                   "eos_token_id": 1}, f)
+    write_flax_msgpack(os.path.join(d, "flax_model.msgpack"),
+                       flax_params_to_numpy(dict(model.named_parameters())))
+
+
+def write_mp4_clip(path, seed, frames=VIDEO_FRAMES, height=480, width=720, fps=8):
+    """A seeded clip (blocks of 32 x 32 pixels drifting one pixel a frame)
+    through OpenCV's mp4 encoder."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, 256, (-(-height // 32) + 1, -(-width // 32) + 2, 3), dtype=np.uint8)
+    big = np.kron(low, np.ones((32, 32, 1), np.uint8))
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (width, height))
+    if not out.isOpened():
+        _fail(f"OpenCV cannot open an mp4 writer for {path}")
+    for i in range(frames):
+        out.write(np.ascontiguousarray(big[i % 32:i % 32 + height, i:i + width, ::-1]))
+    out.release()
+
+
+def write_video_roots(root):
+    """The two reference layouts at 480 x 720, 49 frames at 8 fps: an
+    SFTVideoDataset root (videos/*.mp4 + labels/*.txt) and a root of two
+    webdataset tar shards (<key>.mp4, <key>.txt, <key>.json: duration, fps).
+    Returns (sft root, shard root)."""
+    import tarfile
+
+    sft, web, stage = (os.path.join(root, n) for n in ("sft", "web", "stage"))
+    for d in (os.path.join(sft, "videos"), os.path.join(sft, "labels"), web, stage):
+        os.makedirs(d, exist_ok=True)
+    captions = {"clip0": "a thin white smoke plume rises slowly",
+                "clip1": "smoke blows left past the cylinder"}
+    for i, (key, caption) in enumerate(captions.items()):
+        write_mp4_clip(os.path.join(sft, "videos", key + ".mp4"), SEED + 30 + i)
+        with open(os.path.join(sft, "labels", key + ".txt"), "w") as f:
+            f.write(caption + "\n")
+        with tarfile.open(os.path.join(web, f"shard{i}.tar"), "w") as tf:
+            for j in range(2):
+                name = f"s{i}{j}"
+                write_mp4_clip(os.path.join(stage, name + ".mp4"), SEED + 40 + 2 * i + j)
+                with open(os.path.join(stage, name + ".txt"), "w") as f:
+                    f.write(f"{caption}, take {j}")
+                with open(os.path.join(stage, name + ".json"), "w") as f:
+                    json.dump({"duration": VIDEO_FRAMES / 8, "fps": 8}, f)
+                for ext in ("mp4", "txt", "json"):
+                    tf.add(os.path.join(stage, f"{name}.{ext}"), arcname=f"{name}.{ext}")
+    return sft, web
+
+
+def held_rel(what, got, ref, tol):
+    err = float((got.double() - ref.double()).abs().max())
+    scale = float(ref.double().abs().max())
+    print(f"{what}: max|err| {err:.3e}, max|ref| {scale:.3e} ({err / scale:.3e} of it; "
+          f"tol {tol:g})")
+    if not err <= tol * scale:
+        _fail(f"{what} disagrees beyond {tol:g} of max|ref|")
+
+
+def run_text_data(dev, root):
+    """The video stage's real inputs: (a) the T5-XXL encoder at its full
+    geometry (24 blocks, d_model 4096, 64 heads x 64, d_ff 10 240,
+    gated-gelu, vocab 32 128, f32) on seeded weights, 2 prompts at 226
+    tokens: ms per encode and peak memory, and the first two blocks at full
+    width on the card against the CPU; (b) those two blocks written as a
+    Hugging Face Flax directory (config.json, flax_model.msgpack, a WordLevel
+    tokenizer) and read back by ``T5TextEncoder``; ``sample_video --t5_dir``
+    at the 5B geometry, and ``train_video --t5_dir`` on an mp4 root and on
+    tar shards (``make_video_dataset``), the full XXL left resident during
+    the first training run so that its peak counts the encoder's 19 GB; (c)
+    whether tensorstore (the orbax checkpoint reader) imports. Adds no
+    kernel: T5 reaches no Pallas kernel. Returns []."""
+    import time
+
+    from fluidnexus_torch.diffusion.video import t5 as t5_mod
+    from fluidnexus_torch.diffusion.video.conditioner import T5TextEncoder
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.pipelines import sample_video, train_video
+    from fluidnexus_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    try:
+        import tensorstore
+        print(f"text-data: tensorstore imports ({getattr(tensorstore, '__version__', 'version ?')}"
+              "): the orbax checkpoints of the JAX package load here")
+    except ImportError as e:
+        print(f"text-data: tensorstore does not import ({e}): orbax checkpoints cannot load "
+              "here, the flat npz can")
+    from transformers import AutoTokenizer
+
+    tdir = os.path.join(root, "t5_xxl_depth2")
+    write_t5_tokenizer(tdir)
+    tok = AutoTokenizer.from_pretrained(tdir)
+    batch = tok(list(T5_PROMPTS), truncation=True, max_length=226, padding="max_length",
+                return_tensors="np")
+    ids = torch.as_tensor(batch["input_ids"], device=dev)
+    mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    print(f"text-data: {type(tok).__name__} from {tdir}: prompt tokens "
+          f"{[int(n) for n in batch['attention_mask'].sum(1)]} of 226")
+
+    # ---- (a) T5-XXL at full geometry
+    cfg = t5_mod.T5Config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    with torch.device("meta"):
+        xxl = t5_mod.T5Encoder(cfg)
+    xxl = init_t5(xxl.to_empty(device=dev), torch.Generator(device=dev).manual_seed(SEED + 21))
+    n_params = sum(p.numel() for p in xxl.parameters())
+    with torch.no_grad():
+        out = xxl(ids, mask)
+        encode_ms = [cuda_ms(lambda: xxl(ids, mask), iters=1, warmup=0) for _ in range(5)]
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"text-data: T5-XXL encoder ({cfg.num_layers} blocks, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads x {cfg.d_kv}, d_ff {cfg.d_ff}, {cfg.feed_forward_proj}, vocab "
+          f"{cfg.vocab_size}, f32, TF32 off) {n_params} parameters on seeded weights: ms per "
+          f"encode of 2 x 226 tokens {', '.join(f'{t:.2f}' for t in encode_ms)} (median "
+          f"{statistics.median(encode_ms):.2f}); peak allocated {peak / 2**30:.2f} GiB above "
+          f"the {base_mem / 2**30:.2f} GiB held before (weights {n_params * 4 / 2**30:.2f}) "
+          f"[{smi}]")
+    if tuple(out.shape) != (2, 226, cfg.d_model) or not torch.isfinite(out).all():
+        _fail(f"the XXL encode is not finite (2, 226, {cfg.d_model}): {tuple(out.shape)}")
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    with torch.device("meta"):
+        two = t5_mod.T5Encoder(cfg2)
+    own = dict(xxl.state_dict())
+    two = two.to_empty(device=dev)
+    two.load_state_dict({k: own[k] for k in two.state_dict()})
+    with torch.device("meta"):
+        two_cpu = t5_mod.T5Encoder(cfg2)
+    two_cpu = two_cpu.to_empty(device="cpu")
+    two_cpu.load_state_dict({k: v.cpu() for k, v in two.state_dict().items()})
+    with torch.no_grad():
+        ref2 = two_cpu(ids.cpu(), mask.cpu())
+        out2 = two(ids, mask)
+    held_rel("text-data: T5 at full width, depth 2, card against CPU (2 x 226 tokens)",
+             out2.cpu(), ref2, T5_TOL)
+
+    # ---- (b) the Flax directory and the CLIs
+    t0 = time.perf_counter()
+    write_flax_t5(tdir, two_cpu)
+    size = os.path.getsize(os.path.join(tdir, "flax_model.msgpack"))
+    del two_cpu, ref2
+    t1 = time.perf_counter()
+    enc = T5TextEncoder(tdir, 226, dev)
+    load_s = time.perf_counter() - t1
+    got = enc(list(T5_PROMPTS))
+    print(f"text-data: flax_model.msgpack {size / 2**30:.2f} GiB written in "
+          f"{t1 - t0:.1f} s, read by T5TextEncoder in {load_s:.1f} s [{smi}]")
+    held_rel("text-data: T5TextEncoder from the directory against the module it was written "
+             "from", got, out2, T5_TOL)
+    del enc, got
+
+    seen = {}
+    real_sample = VideoEngine.sample
+
+    def sample(self, params, shape, text_emb, *a, **kw):
+        seen["text"] = text_emb
+        return real_sample(self, params, shape, text_emb, *a, **kw)
+
+    prompt = T5_PROMPTS[1]
+    out_folder = os.path.join(root, "sampled")
+    argv = ["--prompt", prompt, "--out_folder", out_folder, "--t5_dir", tdir,
+            "--num_steps", str(TEXT_SAMPLE_STEPS)]
+    n_layers = sample_video.configs(VIDEO_FRAMES, 480, 720, tiny=False)[0].num_layers
+    VideoEngine.sample = sample
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        decoded = sample_video.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+    finally:
+        VideoEngine.sample = real_sample
+    peak = torch.cuda.max_memory_allocated()
+    print(f"text-data: sample_video.main({argv}) at the 5B geometry (49 x 480 x 720): "
+          f"launches {launches}; {seconds:.2f} s end to end; peak allocated "
+          f"{peak / 2**30:.2f} GiB (the XXL's {n_params * 4 / 2**30:.2f} GiB resident beside "
+          f"it) [{smi}]")
+    want = {"attention_fwd": n_layers * TEXT_SAMPLE_STEPS,
+            "attention_fwd_wgmma": n_layers * TEXT_SAMPLE_STEPS}
+    if any(launches[n] != c for n, c in want.items()) or any(
+            c for n, c in launches.items() if n not in want):
+        _fail(f"sample_video --t5_dir launched {launches}, expected {want} and no other kernel")
+    if tuple(decoded.shape) != (1, VIDEO_FRAMES, 480, 720, 3) or not torch.isfinite(decoded).all():
+        _fail(f"sample_video --t5_dir decoded {tuple(decoded.shape)}, not a finite clip")
+    if len(os.listdir(out_folder)) != VIDEO_FRAMES:
+        _fail(f"sample_video --t5_dir wrote {len(os.listdir(out_folder))} PNGs")
+    with torch.no_grad():
+        ref = two(*(torch.as_tensor(tok([prompt], truncation=True, max_length=226,
+                                        padding="max_length", return_tensors="np")[k],
+                                    device=dev) for k in ("input_ids", "attention_mask")))
+    held_rel("text-data: sample_video's text embedding against the module's", seen["text"], ref,
+             T5_TOL)
+    del decoded
+
+    sft, web = write_video_roots(os.path.join(root, "data"))
+    for label, data_root, keep_xxl in (("mp4 files (SFTVideoDataset)", sft, True),
+                                       ("tar shards (WebVideoDataset)", web, False)):
+        if not keep_xxl:
+            del xxl, own
+            gc_cuda()
+        argv = ["--data_root", data_root, "--t5_dir", tdir, "--batch", "2", "--lora_rank",
+                str(LORA_RANK), "--log_every", "1", "--fixed_frames", "3", "--iterations",
+                str(TEXT_TRAIN_ITERS)]
+        timer = StageTimer()
+        result, launches, seconds, peak, tseen = run_train(argv, timer)
+        loss = result[1]
+        del result   # its EMA tree holds the run's DiT
+        ds = train_video.make_video_dataset(data_root, VIDEO_FRAMES, 480, 720)
+        print(f"text-data: train_video --t5_dir on {label} ({type(ds).__name__}, "
+              f"{TEXT_TRAIN_ITERS} LoRA step of batch 2 at the 5B geometry): loss {loss:.5f}; "
+              f"launches {launches}; ms per LoRA step "
+              f"{', '.join(f'{t:.1f}' for t in timer.ms['train_step'])}, VAE encode "
+              f"{', '.join(f'{t:.1f}' for t in timer.ms['vae_encode'])}, data "
+              f"{', '.join(f'{t:.1f}' for t in timer.ms['data'])}; "
+              f"{seconds:.2f} s end to end; peak allocated "
+              f"{peak / 2**30:.2f} GiB"
+              + (f" with the full XXL ({n_params * 4 / 2**30:.2f} GiB) resident" if keep_xxl
+                 else "") + f" [{smi}]")
+        check_train_launches(launches, f"train_video --t5_dir on {label}",
+                             2 * n_layers * TEXT_TRAIN_ITERS, n_layers * TEXT_TRAIN_ITERS)
+        if not math.isfinite(loss):
+            _fail(f"train_video --t5_dir on {label}: loss {loss}")
+        # each caption's embedding, or zeros where ucg dropped it
+        captions = ds.sample_batch(2, np.random.default_rng(0))[1]
+        with torch.no_grad():
+            ref = two(*(torch.as_tensor(tok(captions, truncation=True, max_length=226,
+                                            padding="max_length", return_tensors="np")[k],
+                                        device=dev) for k in ("input_ids", "attention_mask")))
+        txt = tseen["text"]
+        kept = [bool(txt[i].abs().max() > 0) for i in range(len(captions))]
+        print(f"text-data: the step's captions {captions}, kept by ucg {kept}")
+        for i, k in enumerate(kept):
+            if k:
+                held_rel(f"text-data: caption {i}'s embedding in the step", txt[i], ref[i],
+                         T5_TOL)
+        del tseen, txt, ref, ds
+        gc_cuda()
+    for m in ("jax", "flax", "fluidnexus_tpu"):
+        if m in sys.modules:
+            _fail(f"the text-data phase imported {m}")
+    print(f"text-data phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return []
+
+
+def text_data_only():
+    """``python3 chip_smoke.py text-data``: builds ``attention`` and
+    ``attention_bwd``, runs ``run_text_data``."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    from fluidnexus_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for name, info in cuda_build.build(["attention", "attention_bwd"]).items():
+        print(f"build {name}: {info['seconds']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="fnx_text_data_") as tmp:
+        run_text_data(torch.device("cuda"), tmp)
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -6103,6 +6486,8 @@ if __name__ == "__main__":
         refine_only()
     elif sys.argv[1:] == ["novel-view"]:
         novel_view_only()
+    elif sys.argv[1:] == ["text-data"]:
+        text_data_only()
     elif sys.argv[1:] == ["refine-encode-probe"]:
         refine_encode_probe()
     elif sys.argv[1:] == ["attention-time"]:

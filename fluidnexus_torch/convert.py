@@ -19,6 +19,17 @@ from fluidnexus_torch.splat.background import BackgroundModel
 from fluidnexus_torch.splat.dynamics import BackgroundSplats, VisualAttrs
 
 
+def as_torch(x) -> torch.Tensor:
+    """A numpy leaf as a tensor; a bfloat16 leaf (``ml_dtypes``, as
+    tensorstore reads one from an orbax checkpoint) as ``torch.bfloat16``."""
+    x = np.asarray(x)
+    if not x.flags.c_contiguous:
+        x = x.copy()
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(x)
+
+
 def _t(x, device):
     return torch.as_tensor(np.array(x), device=device)
 
@@ -146,7 +157,7 @@ def load_flax_params(module, params, device="cuda"):
             src = flat[name]
             if tuple(src.shape) != tuple(prm.shape):
                 raise ValueError(f"{name}: tree {src.shape}, module {tuple(prm.shape)}")
-            prm.copy_(torch.as_tensor(np.ascontiguousarray(src)).to(prm.dtype))
+            prm.copy_(as_torch(src).to(prm.dtype))
     return module
 
 
@@ -154,14 +165,15 @@ def flax_params_to_numpy(named):
     """The inverse of ``load_flax_params``: {dotted name: tensor} (a
     module's ``named_parameters()``, or such a dict with some leaves
     replaced, as the EMA of the trainables) as a nested flax tree of numpy.
-    A ``weight`` (out, in, *k) goes back to a ``kernel`` (*k, in, out); float
-    leaves are saved as f32, the JAX package's parameter type, and int8
-    leaves as they are."""
+    A ``weight`` (out, in, *k) goes back to a ``kernel`` (*k, in, out) (a
+    1-d ``weight``, as T5's layer norms name theirs in flax too, stays);
+    float leaves are saved as f32, the JAX package's parameter type, and
+    int8 leaves as they are."""
     tree: dict = {}
     for name, x in named.items():
         x = x.detach()
         arr = (x.float() if x.is_floating_point() else x).cpu().numpy()
-        if name.split(".")[-1] == "weight":
+        if name.split(".")[-1] == "weight" and arr.ndim >= 2:
             name = name[:-len("weight")] + "kernel"
             arr = np.transpose(arr, tuple(range(2, arr.ndim)) + (1, 0))
         *parents, leaf = name.split(".")
@@ -184,6 +196,19 @@ def vae3d_from_numpy(params, cfg, device="cuda"):
     with torch.device(device):
         vae = VideoVAE(cfg)
     return load_flax_params(vae, params, device)
+
+
+def t5_encoder_from_numpy(params, cfg, device="cuda"):
+    """A Flax T5 parameter tree (numpy; ``utils/flax_msgpack``) as the port's
+    ``T5Encoder`` on ``device``, in f32. Of a whole T5's tree (decoder, LM
+    head) only ``shared`` and ``encoder`` are taken, as
+    ``FlaxT5EncoderModel`` takes them."""
+    from fluidnexus_torch.diffusion.video.t5 import T5Encoder
+
+    with torch.device("meta"):
+        model = T5Encoder(cfg)
+    tree = {"shared": params["shared"], "encoder": params["encoder"]}
+    return load_flax_params(model.to_empty(device=device), tree, device)
 
 
 def novel_view_from_numpy(params, configs=None, device="cuda"):

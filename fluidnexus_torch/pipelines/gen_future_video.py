@@ -71,7 +71,9 @@ def build_argparser():
     ap.add_argument("--prompt", default="a smoke plume")
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
-    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
+    ap.add_argument("--t5_dir", default="",
+                    help="Hugging Face Flax T5 directory (t5-v1_1-xxl: config.json, "
+                         "flax_model.msgpack or its index, the tokenizer)")
     ap.add_argument("--window_frames", type=int, default=49)
     ap.add_argument("--prefix_frames", type=int, default=9)
     ap.add_argument("--num_steps", type=int, default=50)

@@ -18,9 +18,10 @@ which the reconstruction reads through ``data/readers.fake_view_folder``:
 
 The DiT and the VAE stay on the card. Without ``--dit_ckpt``/``--vae_ckpt``
 (the JAX package's flat npz) the weights are drawn from seeds 0 and 1, as the
-JAX CLI draws them; text goes through the hash pseudo-encoder
-(``--allow_fake_conditioning``, implied by ``--tiny``), and a ``--t5_dir``
-raises until the T5 encoder is ported. Every draw (each window's VAE
+JAX CLI draws them; text goes through the T5 encoder of ``--t5_dir`` (a
+Hugging Face Flax directory, ``diffusion/video/conditioner``), released once
+the prompt is encoded, or the hash pseudo-encoder
+(``--allow_fake_conditioning``, implied by ``--tiny``). Every draw (each window's VAE
 posterior, then its sampler noise) comes from one ``torch.Generator`` seeded
 with 2, where the JAX CLI splits ``PRNGKey(2)`` into an encode and a sampler
 key per window. Not ported: ``--tp``/``--dp``.
@@ -153,11 +154,14 @@ def refine_long_video(engine: VideoEngine, dit, vae, text_emb, uc_text_emb, inpu
 def load_models(args, dev, dit_cfg, vae_cfg, cfg_scale: float = 6.0):
     """The engine, the DiT and the VAE (from ``args.dit_ckpt``/``vae_ckpt``,
     the flat npz, the DiT's ``_ema`` sibling preferred; else drawn from
-    seeds 0 and 1) and the embedding of ``args.prompt``, all on ``dev``. A
-    ``args.t5_dir`` raises before any weight is made."""
+    seeds 0 and 1) and the embedding of ``args.prompt``, all on ``dev``. The
+    prompt is encoded first and the text encoder let go before any weight of
+    the DiT is made (it is used for nothing else)."""
     enc = make_text_encoder(args.t5_dir or None, max_length=dit_cfg.text_length,
                             hidden=dit_cfg.text_hidden_size,
-                            allow_fake=args.allow_fake_conditioning or args.tiny)
+                            allow_fake=args.allow_fake_conditioning or args.tiny, device=dev)
+    text_emb = enc([args.prompt], device=dev)
+    del enc
     engine = VideoEngine(dit_cfg, vae_cfg, cfg_scale=cfg_scale)
     if args.dit_ckpt:
         dit = video_dit_from_numpy(load_params_prefer_ema(args.dit_ckpt), dit_cfg, dev)
@@ -167,7 +171,7 @@ def load_models(args, dev, dit_cfg, vae_cfg, cfg_scale: float = 6.0):
         vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
     else:
         vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
-    return engine, dit, vae, enc([args.prompt], device=dev)
+    return engine, dit, vae, text_emb
 
 
 def apply_preset(ap, argv):
@@ -193,7 +197,9 @@ def build_argparser():
     ap.add_argument("--prompt", default="a smoke plume")
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
-    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
+    ap.add_argument("--t5_dir", default="",
+                    help="Hugging Face Flax T5 directory (t5-v1_1-xxl: config.json, "
+                         "flax_model.msgpack or its index, the tokenizer)")
     ap.add_argument("--strength", type=float, default=0.5)
     ap.add_argument("--num_steps", type=int, default=50)
     ap.add_argument("--num_windows", type=int, default=3)

@@ -9,9 +9,10 @@ during sampling.
         --out_folder out --allow_fake_conditioning
 
 Without ``--dit_ckpt``/``--vae_ckpt`` the weights are drawn from a seed, as
-the JAX CLI's are. Text goes through the hash pseudo-encoder only
-(``--allow_fake_conditioning``, implied by ``--tiny``); a ``--t5_dir`` raises
-until the T5 encoder is ported. ``--base`` merges the reference's CogVideoX
+the JAX CLI's are. Text goes through the T5 encoder of ``--t5_dir`` (a
+Hugging Face Flax directory), released once the prompt is encoded, or the
+hash pseudo-encoder (``--allow_fake_conditioning``, implied by ``--tiny``).
+``--base`` merges the reference's CogVideoX
 YAML configs (``diffusion/video/config_yaml``, which needs PyYAML) into the
 defaults of the clip geometry, the sampler and the T5 directory, and gives
 the DiT and VAE geometry; ``--t5_dir ""`` overrides a YAML's T5 directory.
@@ -65,7 +66,9 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--width", type=int, default=720)
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
-    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
+    ap.add_argument("--t5_dir", default="",
+                    help="Hugging Face Flax T5 directory (t5-v1_1-xxl: config.json, "
+                         "flax_model.msgpack or its index, the tokenizer)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--allow_fake_conditioning", action="store_true",

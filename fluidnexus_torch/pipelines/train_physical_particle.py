@@ -308,7 +308,7 @@ def _load_background(cfg: Config, bg, dev, log):
 
 
 def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = None, log=print,
-                    device="cuda", rng: Optional[np.random.Generator] = None):
+                    device="cuda", rng: Optional[np.random.Generator] = None, writer=None):
     """Phase A of the reconstruction (JAX ``train`` lines up to the x100
     scaling): create the visual column, then ``iterations_per_time_first``
     Adam steps against the frame-0 cameras. Both draw from ``rng``, by
@@ -318,7 +318,9 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
     already multiplied by ``scale_factor`` (detach_visual_and_scale, ref
     :188) and ``losses`` is the (iterations,) tensor of per-step losses.
     ``bg`` defaults to the PLY at ``cfg.model.bg_load_path`` when that is
-    set. A tile with a side of 0 or less raises ValueError before any work
+    set. ``writer`` (a ``utils/tb.TrainLogger``), when given, gets the loss
+    as ``train_loss_frame_000/total`` every 50 iterations, as in JAX. A tile
+    with a side of 0 or less raises ValueError before any work
     (``rasterizer_cuda.check_tile``); the card takes every other tile."""
     rasterizer_cuda.check_tile(cfg.pipe.tile_x, cfg.pipe.tile_y, device)
     dev = resolve_device(device)
@@ -359,6 +361,8 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
                                   float(np.float32(lr)), torch.as_tensor(w, device=dev),
                                   torch.as_tensor(inv_w, device=dev))
         losses.append(loss)
+        if writer and it % 50 == 0:
+            writer.add_scalar("train_loss_frame_000/total", float(loss), it)
     losses = torch.stack(losses) if losses else torch.zeros((0,), device=dev)
     log(f"phase A done in {time.time()-t0:.1f}s "
         f"loss={float(losses[-1]) if len(losses) else float('nan'):.5f}")
@@ -621,7 +625,8 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
         return _phase_c(cfg, scene_info, state, visual, attrs, bg, raster_cfg, params,
                         rng, writer, log, ckpt_path, start_frame=resume_from_frame)
 
-    visual, attrs, _ = fit_first_frame(cfg, scene_info, bg=bg, log=log, device=dev, rng=rng)
+    visual, attrs, _ = fit_first_frame(cfg, scene_info, bg=bg, log=log, device=dev, rng=rng,
+                                       writer=writer)
     state, _ = stabilize_hidden(cfg, params, log=log, device=dev)
     log(f"phase B done: hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
     if ckpt_path:

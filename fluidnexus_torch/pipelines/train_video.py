@@ -29,9 +29,14 @@ Every draw (the VAE posterior, the caption drops, the timestep index and the
 noise) comes from one ``torch.Generator`` seeded with ``--seed``, in the JAX
 order; the clip choice from ``numpy.random.default_rng(--seed)``. Without
 ``--dit_ckpt``/``--vae_ckpt`` (the flat npz) the weights are drawn from a
-seed, as the JAX CLI draws them. Text goes through the hash pseudo-encoder
-(``--allow_fake_conditioning``, implied by ``--tiny``); a ``--t5_dir``
-raises until the T5 encoder is ported. ``--base`` merges the reference's
+seed, as the JAX CLI draws them; ``--dit_ckpt`` and ``--resume_from`` also
+read the JAX package's orbax directories (``core/checkpoint``). The data
+root is picked as JAX picks it (``data/video_dataset.make_video_dataset``):
+webdataset tar shards, ``videos/*.mp4`` with ``labels/*.txt``, or folders of
+PNG frames. The captions go through the T5 encoder of ``--t5_dir`` (a
+Hugging Face Flax directory; it stays on the card, since every step encodes)
+or the hash pseudo-encoder (``--allow_fake_conditioning``, implied by
+``--tiny``). ``--base`` merges the reference's
 CogVideoX YAML configs (``diffusion/video/config_yaml``, which needs PyYAML)
 into the flags' defaults (``apply_base_yaml``; explicit flags win) and gives
 the DiT and VAE geometry and the optimizer's clip, betas, eps and weight
@@ -50,8 +55,8 @@ import torch
 
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.convert import (
-    _flatten_flax, _torch_layout, flax_params_to_numpy, load_flax_params, vae3d_from_numpy,
-    video_dit_from_numpy,
+    _flatten_flax, _torch_layout, as_torch, flax_params_to_numpy, load_flax_params,
+    vae3d_from_numpy, video_dit_from_numpy,
 )
 from fluidnexus_torch.core.checkpoint import load_params, save_params
 from fluidnexus_torch.core.optim import ClipAdamW, sorted_names
@@ -207,7 +212,7 @@ class VideoTrainer:
             flat = _flat_torch_layout(tree)
             with torch.no_grad():
                 for n, p in self.params.items():
-                    p.copy_(torch.as_tensor(np.ascontiguousarray(flat[n]), dtype=torch.float32))
+                    p.copy_(as_torch(flat[n]).float())
             self._sync()
 
 
@@ -235,7 +240,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
     dit_cfg = dataclasses.replace(dit_cfg, lora_rank=args.lora_rank, base_quant=args.quant_base)
     enc = make_text_encoder(args.t5_dir or None, max_length=dit_cfg.text_length,
                             hidden=dit_cfg.text_hidden_size,
-                            allow_fake=args.allow_fake_conditioning or args.tiny)
+                            allow_fake=args.allow_fake_conditioning or args.tiny, device=dev)
     engine = VideoEngine(dit_cfg, vae_cfg, fixed_frames=args.fixed_frames)
     masters = None
     if args.dit_ckpt:
@@ -244,7 +249,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
             params = quantize_dit_params(params)   # a float checkpoint into the int8 config
         dit = video_dit_from_numpy(params, dit_cfg, dev)
         if args.lora_rank <= 0:
-            masters = {n: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32)
+            masters = {n: as_torch(x).float()
                        for n, x in _flat_torch_layout(params).items()}   # the f32 values
     else:
         dit = engine.init_params(torch.Generator(device=dev).manual_seed(0))
@@ -364,7 +369,9 @@ def build_argparser():
                          "sft_pi2v_<exp>.yaml), merged in order into the defaults (needs PyYAML)")
     ap.add_argument("--dit_ckpt", default="")
     ap.add_argument("--vae_ckpt", default="")
-    ap.add_argument("--t5_dir", default="", help="T5-XXL weights (not ported yet: raises)")
+    ap.add_argument("--t5_dir", default="",
+                    help="Hugging Face Flax T5 directory (t5-v1_1-xxl: config.json, "
+                         "flax_model.msgpack or its index, the tokenizer)")
     ap.add_argument("--iterations", type=int, default=10000)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)

@@ -24,6 +24,7 @@ from fluidnexus_tpu.diffusion.video import config_yaml as jcy
 from fluidnexus_tpu.pipelines import sample_video as jsv
 from fluidnexus_tpu.pipelines import train_video as jtv
 from tests.test_torch_gen_presets import parsed_args
+from tests.test_torch_t5 import T5Reached, t5_spy
 from tests.test_torch_train_video import LR, Draws
 from tests.test_torch_train_video_cli import _clip_folder, _tiny_ckpts
 
@@ -218,5 +219,7 @@ def test_train_tiny_with_base_takes_the_yaml_optimizer_as_jax(tmp_path, monkeypa
         np.testing.assert_allclose(ema[k].detach().numpy(), jeflat[k], rtol=0, atol=2e-2 * LR,
                                    err_msg=k)
     # without --t5_dir "" the YAML's T5 directory reaches the encoder
-    with pytest.raises(NotImplementedError, match="T5 not ported yet"):
+    seen = t5_spy(monkeypatch)
+    with pytest.raises(T5Reached):
         ttv.main(argv[:4] + argv[6:], device="cpu", log=lambda *a: None)
+    assert seen == ["t5"]

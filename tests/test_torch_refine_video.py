@@ -29,6 +29,7 @@ from fluidnexus_tpu.pipelines import gen_future_video as jfut
 from fluidnexus_tpu.pipelines import gen_refine_video as jref
 from fluidnexus_tpu.utils import video_io as jvio
 from tests.test_torch_sample_video import save_with_jax
+from tests.test_torch_t5 import T5Reached, t5_spy
 from tests.test_torch_video_dit import dit_params, random_flax_params
 from tests.test_torch_video_sampling import record_noise, replay_noise
 
@@ -245,13 +246,17 @@ def test_stage_runner_runs_the_clis(tmp_path, monkeypatch, stage):
         np.testing.assert_array_equal(np.asarray(Image.open(x)), np.asarray(Image.open(y)))
 
 
-def test_t5_dir_raises_until_t5_is_ported(tmp_path):
+def test_t5_dir_raises_until_t5_is_ported(tmp_path, monkeypatch):
+    """``--t5_dir`` reaches the T5 loader before any weight is made or any
+    output written (the encoder itself: tests/test_torch_t5.py)."""
     _cli_inputs(tmp_path)
+    seen = t5_spy(monkeypatch)
     for kind, main in (("refine", tref.main), ("future", tfut.main)):
-        with pytest.raises(NotImplementedError, match="T5 not ported yet"):
+        with pytest.raises(T5Reached):
             main(_cli_argv(tmp_path, kind, str(tmp_path / kind)) + ["--t5_dir", "/t5"],
                  device="cpu")
         assert not os.path.exists(tmp_path / kind)
+    assert seen == ["/t5", "/t5"]
 
 
 def _png_modes(folder, seed=44):

@@ -5,12 +5,14 @@ by its masked CRC-32C, checked here by a bitwise CRC-32C of the test's own),
 each an ``Event`` parsed with tensorboard's protobuf classes, with the
 fields ``torch.utils.tensorboard.SummaryWriter`` writes for the same call:
 the file version first, scalars as ``simple_value``, images as 8-bit RGB
-PNGs (gray repeated)."""
+PNGs (gray repeated). Last, phase A of the reconstruction's ``train``
+writes its scalar at the JAX ``train``'s tags, steps and values."""
 import glob
 import os
 import struct
 
 import numpy as np
+import pytest
 
 from fluidnexus_torch.utils.tb import TrainLogger, crc32c
 
@@ -113,3 +115,55 @@ def test_device_memory_stats_is_empty_on_the_cpu():
     assert device_memory_stats("cpu") == {}
     assert device_memory_stats(None) == {} or set(device_memory_stats(None)) == {
         "peak_mib", "in_use_mib", "limit_mib"}
+
+
+class _StopAfterPhaseA(BaseException):
+    pass
+
+
+class _Recorder:
+    """The JAX ``train``'s writer: records (tag, value, step)."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+
+def test_phase_a_scalar_is_jax_s(tmp_path, monkeypatch):
+    """Phase A of ``train`` writes ``train_loss_frame_000/total`` at JAX's
+    steps (every 50th of 101 iterations) and values (the fit's losses, 1e-4
+    relative, as in ``tests/test_torch_fit_first_frame.py``); both runs stop
+    where phase B starts."""
+    from tensorboard.compat.proto.event_pb2 import Event
+
+    from fluidnexus_torch.core.config import Config as TConfig
+    from fluidnexus_torch.pipelines import train_physical_particle as ttrain
+    from fluidnexus_tpu.core.config import Config as JConfig
+    from fluidnexus_tpu.pipelines import train_physical_particle as jtrain
+    from tests.test_torch_fit_first_frame import _port_scene, _small
+    from tests.test_train_physical import smoke_like_scene
+
+    def stop(*a, **k):
+        raise _StopAfterPhaseA
+
+    scene = smoke_like_scene()
+    cfg_j, cfg_t = _small(JConfig()), _small(TConfig())
+    for cfg in (cfg_j, cfg_t):
+        cfg.optim.iterations_per_time_first = 101
+    cfg_j.pipe.backend = "xla"
+    monkeypatch.setattr(jtrain, "make_particle_state", stop)
+    monkeypatch.setattr(ttrain, "stabilize_hidden", stop)
+    rec = _Recorder()
+    with pytest.raises(_StopAfterPhaseA):
+        jtrain.train(cfg_j, scene, writer=rec, log=lambda *a: None)
+    with pytest.raises(_StopAfterPhaseA):
+        ttrain.train(cfg_t, _port_scene(scene), writer=TrainLogger(str(tmp_path / "run")),
+                     log=lambda *a: None, device="cpu")
+    events = [Event.FromString(r) for r in _records(str(tmp_path / "run"))[1:]]
+    got = [(v.tag, v.simple_value, e.step) for e in events for v in e.summary.value]
+    assert [(t, s) for t, _, s in got] == [(t, s) for t, _, s in rec.scalars] == [
+        ("train_loss_frame_000/total", 50), ("train_loss_frame_000/total", 100)]
+    np.testing.assert_allclose([v for _, v, _ in got], [v for _, v, _ in rec.scalars],
+                               rtol=1e-4)

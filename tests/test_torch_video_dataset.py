@@ -95,9 +95,11 @@ def test_dataset_helpers_and_what_is_not_ported(tmp_path):
     ref, _ = jds.ClipFolderDataset(str(tmp_path), 5, 16, 24).sample_batch(
         1, np.random.default_rng(0))
     np.testing.assert_array_equal(got, ref)
+    # a video file under videos/ picks the mp4 dataset, as in JAX (the mp4 and
+    # tar-shard datasets: tests/test_torch_video_files.py)
     (tmp_path / "videos" / "x.mp4").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="video decoder"):
-        tds.make_video_dataset(str(tmp_path), 5, 16, 20)
+    assert isinstance(tds.make_video_dataset(str(tmp_path), 5, 16, 20), tds.SFTVideoDataset)
+    assert isinstance(jds.make_video_dataset(str(tmp_path), 5, 16, 20), jds.SFTVideoDataset)
 
 
 def test_raw_avi_holds_the_frames(tmp_path):
