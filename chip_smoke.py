@@ -40,6 +40,10 @@ often the PBF tick's backends part at a pair that crosses the kernel radius;
 ``python3 chip_smoke.py refine`` the refinement phase alone,
 ``python3 chip_smoke.py novel-view`` the Zero123 phase alone,
 ``python3 chip_smoke.py text-data`` the text-and-data phase alone,
+``python3 chip_smoke.py port-eval`` the port-and-metrics phase alone,
+``python3 chip_smoke.py port-5b`` the ``port`` stage on the 42-layer SAT DiT
+and the ``--vgg16`` sFID finding (VGG16 on 10 000 + 10 000 images, scipy's
+sqrtm timed),
 ``python3 chip_smoke.py refine-encode-probe`` tries the refinement windows'
 whole VAE encode beside the resident 5B DiT, and
 ``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
@@ -169,6 +173,21 @@ reads: ``sample_video`` at the 5B geometry (2 of 50 steps) and
 root and on webdataset tar shards that the script writes with OpenCV at 480
 x 720, 49 frames at 8 fps; whether tensorstore (the orbax reader) imports.
 No hand-written kernel is added: the DiT's attention kernels carry it.
+
+Port and metrics (``run_port_eval``): seeded checkpoints in the reference's
+layouts (a Zero123 Lightning ``.ckpt`` at the full geometry with the
+upstream 4-channel input conv, a SAT ``{"module": ...}`` at the 5B width in
+the raw SAT-lora2 layout at rank 128, a 3D-VAE under
+``first_stage_model.``, the text-data phase's Flax T5 directory) through
+``python -m fluidnexus_torch port ... --out_dir ... --quant_base``; cut: the
+SAT DiT has 2 of its 42 layers (the 42-layer file is 21 GB; ``port-5b``
+runs it through the CLI); ``infer_novel_view --ckpt`` on the saved Zero123
+for one view of 10 DDIM steps (50 in the CLI). Then ``evaluate_adm`` on 10
+000 + 10 000 seeded images at 256 px (the reference evaluator's block),
+``--vgg16`` at 64 px (it raises on the reference's NHWC images, as in JAX),
+FVD on 256 + 256 clips of 16 x 224 x 224 and the
+perceptual similarity of 64 pairs at 256 px, each held card against CPU on
+a few. Row 14 runs in the DiT's forward, at (1, 48, 258, 64).
 """
 from __future__ import annotations
 
@@ -700,6 +719,8 @@ def main():
         kernels += run_refine(dev, os.path.join(tmp, "refine"))
         kernels += run_novel_view(dev, os.path.join(tmp, "novel_view"))
         kernels += run_text_data(dev, os.path.join(tmp, "text_data"))
+        kernels += run_port_eval(dev, os.path.join(tmp, "port_eval"),
+                                 t5_dir=os.path.join(tmp, "text_data", "t5_xxl_depth2"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -4209,9 +4230,9 @@ def timed_cli(main, argv):
     return out, info
 
 
-def refine_attention_entry(name, info, forwards, n_layers):
+def refine_attention_entry(name, info, forwards, n_layers, pairs=VIDEO_PAIRS):
     """Row 14 at one run's layer-0 inputs of its first forward: the Hopper
-    kernel against the plain version on ``VIDEO_PAIRS`` in bf16 and, on the
+    kernel against the plain version on ``pairs`` (default VIDEO_PAIRS) in bf16 and, on the
     same pairs cast to f32, the f32 kernel (which sees a missing mask of the
     ragged last key tile); its time beside the plain version's and
     scaled_dot_product_attention's by CUDA events; the run's launches, all
@@ -4231,20 +4252,20 @@ def refine_attention_entry(name, info, forwards, n_layers):
     with torch.inference_mode():
         out = ac.attention_fwd(q, k, v)
         errs = []
-        for bi, hi in VIDEO_PAIRS:
+        for bi, hi in pairs:
             sl = (slice(bi, bi + 1), slice(hi, hi + 1))
             errs.append(attention_errors(out[bi:bi + 1, :, hi:hi + 1],
                                          ac.attention_plain(q[sl], k[sl], v[sl])))
         del out
         errs32 = []
-        for bi, hi in VIDEO_PAIRS:
+        for bi, hi in pairs:
             q32, k32, v32 = (x[bi:bi + 1, hi:hi + 1].float() for x in (q, k, v))
             errs32.append(attention_errors(ac.attention_fwd(q32, k32, v32),
                                            ac.attention_plain(q32, k32, v32)))
         torch.cuda.synchronize()
         print(f"{name}: attention (wgmma kernel) at layer 0's inputs {tuple(q.shape)} {q.dtype} "
               f"({s} tokens = 226 text + {s - 226} video, ragged: {s} = {s // 64} x 64 + "
-              f"{s % 64}), (b, h) {VIDEO_PAIRS}: max|err| "
+              f"{s % 64}), (b, h) {pairs}: max|err| "
               + ", ".join(f"{e[0]:.3e}" for e in errs) + "; mean|err| "
               + ", ".join(f"{e[1]:.3e}" for e in errs) + "; max|ref| "
               + ", ".join(f"{e[2]:.3e}" for e in errs)
@@ -6473,6 +6494,789 @@ def text_data_only():
     with tempfile.TemporaryDirectory(prefix="fnx_text_data_") as tmp:
         run_text_data(torch.device("cuda"), tmp)
 
+
+# ---------------------------- port and evaluate_adm ---------------------------
+
+
+PE_DIT_LAYERS = 2             # the SAT DiT's depth at the 5B width (port-5b: all 42)
+PE_ADM_N = 10_000             # images a set (the reference evaluator's block)
+PE_ADM_PX = 256
+PE_VGG_PX = 64
+PE_FVD_N = 256                # clips a set
+PE_FVD_T = 16
+PE_PERC_PAIRS = 64
+PE_PERC_PX = 256
+PE_SUBSET = 500               # images whose features, FID and sFID are held card against CPU
+PE_VIEW_STEPS = 10            # the hand-off view's DDIM steps (the CLI's default 50)
+PE_SQRTM_DIM = 1792           # scipy's sqrtm timed at this size (port-5b; sFID's finding)
+
+PE_TOL = 1e-4                 # card against CPU, x max|ref| (forwards, features, logits)
+PE_METRIC_TOL = 1e-4          # FID / sFID / FVD card against CPU, relative
+PE_QUANT_TOL = 1e-2           # the int8 DiT's checksum against the float one, relative
+# a sphere test that flips between card and CPU must be borderline in float64:
+# |d - r| within 1e-4 of r, plus 4x the f32 rounding of |u|^2 - 2 u.v + |v|^2
+# (up to 1.2e-6 of |u|^2 + |v|^2 on 2 000 + 2 000 of the default features)
+PE_PR_REL, PE_PR_NORM = 1e-4, 4.8e-6
+
+
+def pe_held(what, got, ref, tol=PE_TOL):
+    got, ref = torch.as_tensor(got).double().cpu(), torch.as_tensor(ref).double().cpu()
+    if got.shape != ref.shape:
+        _fail(f"{what}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
+    held_rel(what, got, ref, tol)
+
+
+def pe_flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        out.update(pe_flat(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def pe_same_tree(what, a, b):
+    fa, fb = pe_flat(a), pe_flat(b)
+    bad = [k for k in fa if k not in fb or fa[k].dtype != fb[k].dtype
+           or fa[k].shape != fb[k].shape or not np.array_equal(fa[k], fb[k])]
+    if sorted(fa) != sorted(fb) or bad:
+        _fail(f"{what}: the saved tree differs from the drill's ({len(fa)} / {len(fb)} leaves; "
+              f"first differing {bad[:3]})")
+    print(f"port-eval: {what}: {len(fa)} leaves read back bit for bit")
+
+
+def pe_printed(text):
+    """{name: (the printed '<x>M' count, checksum or None)} of [port] lines."""
+    rows = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) >= 4 and parts[0] == "[port]" and parts[3] == "params":
+            rows[parts[1]] = (parts[2], float(parts[-1]) if "checksum" in line else None)
+        elif len(parts) >= 2 and parts[:2] == ["[port]", "t5"]:
+            rows["t5"] = (None, float(parts[-1]))
+    return rows
+
+
+def pe_count(module):
+    return f"{sum(p.numel() for p in module.parameters()) / 1e6:.2f}M"
+
+
+def pe_checksum(what, got, printed, tol=1e-5):
+    """A forward's checksum against the drill's printed one (6 digits)."""
+    x = float(got.float().abs().sum())
+    print(f"port-eval: {what}: checksum {x:.6g} against the printed {printed:.6g}")
+    if not abs(x - printed) <= tol * abs(printed):
+        _fail(f"{what}: checksum {x:.6g} is not the printed {printed:.6g} (tol {tol:g})")
+
+
+def pe_run(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its stdout captured (and echoed), every
+    launch count set to 0 before, layer 0's attention inputs captured, the
+    trees ``port_drill`` reports and saves kept: (result, stdout, info)."""
+    import contextlib
+    import io
+    import time
+
+    from fluidnexus_torch.diffusion.video import dit as dit_mod
+    from fluidnexus_torch.pipelines import port_drill as pd
+
+    real_attn, real_save, real_report = dit_mod.joint_attention, pd._save, pd._report
+    info = {"saved": {}, "reported": {}, "attention_calls": 0}
+
+    def recording_attn(q, k, v):
+        info["attention_calls"] += 1
+        if "q" not in info:
+            info.update(q=q, k=k, v=v)
+        return real_attn(q, k, v)
+
+    def save(out_dir, name, tree):
+        info["saved"][name] = tree
+        return real_save(out_dir, name, tree)
+
+    def report(name, tree, fwd=None):
+        # the DiT's float tree at the depth the card-vs-CPU check takes
+        info["reported"][name] = {k: v for k, v in tree.items()
+                                  if not (k.startswith("block_") and int(k[6:]) >= 2)}
+        return real_report(name, tree, fwd)
+
+    buf = io.StringIO()
+    dit_mod.joint_attention, pd._save, pd._report = recording_attn, save, report
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        info["seconds"] = time.perf_counter() - t0
+        info["launches"] = all_launches()
+    finally:
+        dit_mod.joint_attention, pd._save, pd._report = real_attn, real_save, real_report
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue(), info
+
+
+def write_port_checkpoints(dev, root, dit_layers, t5_dir, only_dit=False):
+    """Seeded checkpoints in the reference's layouts: a Zero123 Lightning
+    ``.ckpt`` (``{"state_dict": ...}``, the upstream 4-channel input conv),
+    a SAT ``{"module": ...}`` of ``dit_layers`` layers at the 5B width in the
+    raw SAT-lora2 layout at rank LORA_RANK, a 3D-VAE under
+    ``first_stage_model.``, and (unless ``t5_dir`` holds one) a Flax T5
+    directory at depth 2 and full width; with ``only_dit`` the SAT file
+    alone. All f32. Returns the paths and the DiT's and 3D-VAE's configs."""
+    import time
+
+    from fluidnexus_torch.diffusion.ldm.model import build_novel_view
+    from fluidnexus_torch.diffusion.video import t5 as t5_mod
+    from fluidnexus_torch.diffusion.video.dit import VideoDiTConfig
+    from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig, VideoVAE
+    from tests.torch_helpers import (
+        sat_dit_state_dict, seeded_fill_, video_vae_reference_sd, zero123_reference_sd,
+    )
+
+    os.makedirs(root, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    paths, t0 = {}, time.perf_counter()
+
+    def save(name, obj):
+        paths[name] = os.path.join(root, name)
+        torch.save(obj, paths[name])
+        print(f"port-eval: wrote {name}: {os.path.getsize(paths[name]) / 2**30:.2f} GiB "
+              f"({time.perf_counter() - t0:.1f} s so far)")
+
+    if not only_dit:
+        model = seeded_fill_(build_novel_view(dev), gen)
+        sd = {k: v.detach().contiguous().cpu() for k, v in zero123_reference_sd(model).items()}
+        del model
+        save("last.ckpt", {"state_dict": sd, "global_step": 0, "epoch": 0})
+        del sd
+    dcfg = VideoDiTConfig(latent_frames=2, latent_height=8, latent_width=8, num_layers=dit_layers)
+    sd = {k: v.cpu() for k, v in sat_dit_state_dict(dcfg, gen, lora_rank=LORA_RANK).items()}
+    save("mp_rank_00_model_states.pt", {"module": sd, "iteration": 0})
+    del sd
+    vcfg = VAE3DConfig()
+    if only_dit:
+        return paths, dcfg, vcfg
+    with torch.device(dev):
+        vae = seeded_fill_(VideoVAE(vcfg), gen)
+    sd = {"first_stage_model." + k: v.detach().contiguous().cpu()
+          for k, v in video_vae_reference_sd(dict(vae.named_parameters()), vcfg).items()}
+    del vae
+    save("3d-vae.pt", {"state_dict": sd})
+    del sd
+    gc_cuda()
+    if not (t5_dir and os.path.isfile(os.path.join(t5_dir, "flax_model.msgpack"))):
+        t5_dir = os.path.join(root, "t5_depth2")
+        with torch.device("meta"):
+            t5 = t5_mod.T5Encoder(dataclasses.replace(t5_mod.T5Config(), num_layers=2))
+        t5 = init_t5(t5.to_empty(device=dev), gen)
+        write_flax_t5(t5_dir, t5)
+        del t5
+        print(f"port-eval: wrote the Flax T5 directory {t5_dir}")
+    else:
+        print(f"port-eval: the Flax T5 directory of the text-data phase: {t5_dir}")
+    paths["t5"] = t5_dir
+    return paths, dcfg, vcfg
+
+
+def port_checks(dev, paths, out, printed, info, dcfg, vcfg, quant):
+    """The trees read back bit for bit, the modules loaded from them give
+    the printed counts and checksums, each forward card against CPU.
+    Returns the card's Zero123 (None without one)."""
+    from fluidnexus_torch.core.checkpoint import load_params
+    from fluidnexus_torch.diffusion.ldm.model import build_novel_view
+    from fluidnexus_torch.diffusion.video.dit import VideoDiT
+    from fluidnexus_torch.diffusion.video.vae3d import VideoVAE
+    from fluidnexus_torch.pipelines import port_drill as pd
+
+    with torch.device("meta"):
+        nv = build_novel_view("meta")
+        counts = {"video.dit": pe_count(VideoDiT(dcfg))}
+        if "zero123" in info["saved"]:
+            counts.update({"zero123.unet": pe_count(nv.unet), "zero123.vae": pe_count(nv.vae),
+                           "zero123.clip": pe_count(nv.clip), "zero123.cc": pe_count(nv.cc),
+                           "video.vae3d": pe_count(VideoVAE(vcfg)), "t5": None})
+    if set(printed) != set(counts):
+        _fail(f"port printed {sorted(printed)}, expected {sorted(counts)}")
+    for name, (n, _) in printed.items():
+        if n != counts[name]:
+            _fail(f"port: {name} printed {n} params, the module has {counts[name]}")
+    print(f"port-eval: printed counts equal the modules' own: {counts} "
+          f"(NovelViewModel {sum(p.numel() for p in nv.parameters())} parameters)")
+    del nv
+
+    saved = {name: load_params(os.path.join(out, name)) for name in info["saved"]}
+    for name, tree in info["saved"].items():
+        pe_same_tree(f"{name}.npz", saved[name], tree)
+
+    check_dit(dev, saved, printed, info, dcfg, quant)
+    if "zero123" not in saved:
+        return None
+    check_vae3d(dev, saved, printed, vcfg)
+    emb = pd.drill_t5(paths["t5"], device="cpu")
+    pe_checksum("t5 on the CPU", emb, printed["t5"][1], tol=PE_TOL)
+    return check_zero123(dev, saved, printed, info["saved"]["zero123"])
+
+
+def check_zero123(dev, saved, printed, tree):
+    """The Zero123 module from the saved tree: its checksums, card against
+    CPU (the VAE encode by the novel-view phase's rule against float64).
+    Returns the card's module, built from the drill's in-memory ``tree``
+    (bit for bit the saved one)."""
+    from fluidnexus_torch.convert import novel_view_from_numpy
+
+    size = 224                                          # ViT-L/14's input
+    models = {"card": novel_view_from_numpy(tree, device=dev),
+              "cpu": novel_view_from_numpy(saved["zero123"], device="cpu")}
+    results = {}
+    for key, m in models.items():
+        d = next(m.parameters()).device
+        lat = 64 // m.downsample_factor
+        with torch.no_grad():
+            ctx, concat = m.conditioning(torch.zeros((1, size, size, 3), device=d),
+                                         torch.zeros((1, 4), device=d))
+            eps = m.unet(torch.zeros((1, lat, lat, m.unet_config.in_channels), device=d),
+                         torch.zeros((1,), dtype=torch.int32, device=d), ctx)
+        results[key] = (ctx.cpu(), concat.cpu(), eps.cpu())
+    vae64 = models.pop("cpu").vae.double()
+    with torch.no_grad():
+        concat64 = vae64.encode(-torch.ones((1, size, size, 3), dtype=torch.float64))
+    del vae64
+    for i, (name, label) in enumerate((("zero123.clip", "CLIP + cc"),
+                                       ("zero123.vae", "VAE encode"),
+                                       ("zero123.unet", "UNet"))):
+        pe_checksum(f"{name} from zero123.npz on the card", results["card"][i], printed[name][1])
+        if name == "zero123.vae":   # the CPU's f32 encode strays: the novel-view phase's rule
+            if not _nv_held(f"(port-eval) {label}", results["card"][i], results["cpu"][i],
+                            concat64):
+                _fail("port-eval: the Zero123 VAE encode, card against CPU")
+        else:
+            pe_held(f"port-eval: Zero123 {label} card against CPU", results["card"][i],
+                    results["cpu"][i])
+    return models["card"]
+
+
+def check_dit(dev, saved, printed, info, dcfg, quant):
+    """The DiT from the saved (int8) tree; the ported tree at depth 2 in f32,
+    card against CPU."""
+    from fluidnexus_torch.convert import video_dit_from_numpy
+
+    qcfg = dataclasses.replace(dcfg, base_quant=quant)
+    dit = video_dit_from_numpy(saved["video_dit"], qcfg, dev)
+    zeros = (torch.zeros((1, dcfg.latent_frames, dcfg.in_channels, dcfg.latent_height,
+                          dcfg.latent_width), device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev),
+             torch.zeros((1, dcfg.text_length, dcfg.text_hidden_size), device=dev))
+    with torch.no_grad():
+        out_q = dit(*zeros)
+    del dit
+    pe_checksum("video.dit from video_dit.npz (int8 base) on the card", out_q,
+                printed["video.dit"][1], tol=PE_QUANT_TOL if quant else 1e-5)
+    cfg2 = dataclasses.replace(dcfg, num_layers=2, dtype=torch.float32)
+    g = torch.Generator().manual_seed(SEED + 23)
+    inputs = (torch.randn(zeros[0].shape, generator=g), torch.tensor([500], dtype=torch.int32),
+              torch.randn(zeros[2].shape, generator=g))
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        m = video_dit_from_numpy(info["reported"]["video.dit"], cfg2, d)
+        with torch.no_grad():
+            outs[d.type] = m(*(x.to(d) for x in inputs)).cpu()
+        del m
+    pe_held("port-eval: the ported DiT at the 5B width, depth 2, f32, card against CPU",
+            outs[dev.type], outs["cpu"])
+
+
+def check_vae3d(dev, saved, printed, vcfg):
+    """The 3D-VAE from its saved tree, card against CPU."""
+    from fluidnexus_torch.convert import vae3d_from_numpy
+
+    g = torch.Generator().manual_seed(SEED + 27)
+    fac = 2 ** (len(vcfg.ch_mult) - 1)
+    x = torch.rand((1, 5, fac * 8, fac * 8, 3), generator=g) * 2 - 1
+    zs = {}
+    for d in (dev, torch.device("cpu")):
+        v = vae3d_from_numpy(saved["video_vae"], vcfg, d)
+        with torch.no_grad():
+            if d == dev:
+                pe_checksum("video.vae3d from video_vae.npz on the card",
+                            v.encode(torch.zeros_like(x, device=d))[0], printed["video.vae3d"][1])
+            zs[d.type] = v.encode(x.to(d))[0].cpu()
+        del v
+    pe_held("port-eval: 3D-VAE encode card against CPU", zs[dev.type], zs["cpu"])
+
+
+def write_view_data(root, size=256):
+    """frame_000/02.png (a seeded 256-px image) and camera/{00,02}.npy (W2C
+    [R|T]) for one ``infer_novel_view`` view from camera 2 to camera 0."""
+    from fluidnexus_torch.utils.png import write_png
+
+    rng = np.random.default_rng(SEED + 24)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([0.2 + 0.6 * np.exp(-((xx - 0.5) / 0.15) ** 2) * (1 - yy)] * 3, -1)
+    img = np.clip(img + rng.normal(0, 0.02, img.shape), 0, 1)
+    write_png(os.path.join(root, "frame_000", "02.png"), (img * 255).astype(np.uint8))
+    os.makedirs(os.path.join(root, "camera"), exist_ok=True)
+    for cam, angle in ((0, -0.6), (2, 0.0)):
+        c, s = math.cos(angle), math.sin(angle)
+        r = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        np.save(os.path.join(root, "camera", f"{cam:02d}.npy"),
+                np.concatenate([r, (-r @ np.array([3 * s, 0.2, 3 * c]))[:, None]], 1))
+
+
+def hand_off_view(dev, root, out, model):
+    """``infer_novel_view --ckpt <out>/zero123`` makes one view; the same
+    view from ``model`` (the drill's in-memory tree) must equal it bit for
+    bit."""
+    import time
+
+    from fluidnexus_torch.pipelines import infer_novel_view as inv
+    from fluidnexus_torch.utils.png import read_png
+
+    data = os.path.join(root, "view_data")
+    write_view_data(data)
+    argv = ["--data_dir", data, "--out_dir", os.path.join(root, "view_cli"), "--ckpt",
+            os.path.join(out, "zero123"), "--target_cams", "0", "--num_frames", "1",
+            "--num_steps", str(PE_VIEW_STEPS)]
+    t0 = time.perf_counter()
+    inv.main(argv, device=dev.type)
+    seconds = time.perf_counter() - t0
+    inv.run_inference(model, data, os.path.join(root, "view_tree"), target_cams=(0,),
+                      num_frames=1, num_steps=PE_VIEW_STEPS, log=lambda *a: None)
+    name = os.path.join("zero123_finetune_52000_cam2to0", "frame_000000.png")
+    a, b = (read_png(os.path.join(root, d, name)) for d in ("view_cli", "view_tree"))
+    print(f"port-eval: infer_novel_view --ckpt {out}/zero123 ({PE_VIEW_STEPS} DDIM steps, "
+          f"{seconds:.1f} s with the load): {a.shape} {a.dtype}, mean {a.mean():.2f}; the view "
+          f"from the drill's in-memory tree {'equals it bit for bit' if np.array_equal(a, b) else 'DIFFERS'}")
+    if not np.array_equal(a, b):
+        _fail("the hand-off view differs from the in-memory tree's")
+    gc_cuda()
+
+
+def _blurred_shift(x, axis, shift):
+    """The sample set: x averaged with itself shifted by one along ``axis``,
+    plus ``shift`` (float in, float out)."""
+    return 0.5 * (x + torch.roll(x, 1, axis)) + shift
+
+
+def adm_images(n, px, generator):
+    """(n, px, px, 3) uint8 images on the generator's device: a gradient of
+    its own an image (offset 40-215, slopes up to +-40 levels) plus noise of
+    30 levels at 256 px (scaled with the side, so that the mean over a cell
+    of the features' 8 x 8 grid keeps ~1 level of it); the sample set is the blurred copy tinted by +3 levels of red
+    and -3 of blue, off the references' manifold (a shift of brightness
+    would move along it), which at 10 000 images a set leaves P and R
+    inside (0, 1)."""
+    dev = generator.device
+    a, b, c = (torch.rand((n, 1, 1, 1), generator=generator, device=dev) for _ in range(3))
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, px, device=dev),
+                            torch.linspace(-1, 1, px, device=dev), indexing="ij")
+    x = (40 + 175 * a + 40 * (2 * b - 1) * xx[None, :, :, None]
+         + 40 * (2 * c - 1) * yy[None, :, :, None]
+         + 30 * px / 256 * torch.randn((n, px, px, 3), generator=generator, device=dev))
+    ref = x.clamp(0, 255).to(torch.uint8)
+    tint = torch.tensor([3.0, 0.0, -3.0], device=dev)
+    smp = _blurred_shift(ref.float(), 2, tint).clamp(0, 255).to(torch.uint8)
+    return ref.cpu().numpy(), smp.cpu().numpy()
+
+
+def pe_pr_points(ref_feats, smp_feats, device):
+    """``precision_recall``'s steps on ``device`` (``manifold_radii``, then
+    ``evaluate_pr``) and the sphere tests point by point: (P, R, the
+    samples inside a reference sphere, the references inside a sample
+    sphere)."""
+    from fluidnexus_torch.utils import adm_metrics as am
+
+    r1, r2 = (am.manifold_radii(f, device=device) for f in (ref_feats, smp_feats))
+    prec, rec = am.evaluate_pr(ref_feats, r1, smp_feats, r2, device=device)
+    d = am.pairwise_sq_distances(ref_feats, smp_feats, device)
+    r1, r2 = (torch.as_tensor(r[:, 0], device=d.device) for r in (r1, r2))
+    return (float(prec[0]), float(rec[0]), (d <= r1[:, None]).any(0).cpu().numpy(),
+            (d <= r2[None]).any(1).cpu().numpy())
+
+
+def pe_pr_held(got, ref_feats, smp_feats, dev):
+    """``evaluate_adm``'s P and R (``got``, from the card) against the CPU's
+    on the same features, point by point: every point whose sphere test
+    differs between card and CPU must have a distance to a sphere's centre
+    that lies, in float64, within PE_PR_REL of that sphere's radius plus
+    PE_PR_NORM of |u|^2 + |v|^2."""
+    pts = {"card": pe_pr_points(ref_feats, smp_feats, dev),
+           "cpu": pe_pr_points(ref_feats, smp_feats, "cpu")}
+    for key, (p, r, inside_ref, inside_smp) in pts.items():
+        if (p, r) != (float(inside_ref.mean()), float(inside_smp.mean())):
+            _fail(f"P/R on the {key}: ({p}, {r}) is not the mean of its sphere tests")
+    if pts["card"][:2] != (got["Precision"], got["Recall"]):
+        _fail(f"P/R: evaluate_adm wrote {got}, its steps on the card give {pts['card'][:2]}")
+    cpu_pr = pts["cpu"][:2]
+    if not all(0 < x < 1 for x in cpu_pr):
+        _fail(f"P/R on the CPU {cpu_pr}: 0 < P, R < 1 expected")
+    flip_s = np.flatnonzero(pts["card"][2] != pts["cpu"][2])   # samples
+    flip_r = np.flatnonzero(pts["card"][3] != pts["cpu"][3])   # references
+    far = 0
+    if len(flip_s) or len(flip_r):
+        f1, f2 = (torch.as_tensor(np.asarray(f, np.float64), device=dev)
+                  for f in (ref_feats, smp_feats))
+        n1, n2 = (f1 * f1).sum(1), (f2 * f2).sum(1)
+        # radius: the 4th smallest squared distance (the point itself at rank 0)
+        r1, r2 = (torch.kthvalue(torch.cdist(f, f) ** 2, 4, 1).values for f in (f1, f2))
+        # a flipped sample j against every reference sphere (i, j); a flipped
+        # reference i against every sample sphere (i, j)
+        s, r = torch.as_tensor(flip_s, device=dev), torch.as_tensor(flip_r, device=dev)
+        for d, rad, norms, axis in (
+                (torch.cdist(f1, f2[s]) ** 2, r1[:, None], n1[:, None] + n2[s][None], 0),
+                (torch.cdist(f1[r], f2) ** 2, r2[None], n1[r][:, None] + n2[None], 1)):
+            near = (d - rad).abs() <= PE_PR_REL * rad + PE_PR_NORM * norms
+            far += int((~near.any(axis)).sum())
+    print(f"port-eval: P/R of {len(ref_feats)} against {len(smp_feats)} (evaluate_adm's features): "
+          f"card {pts['card'][:2]}, CPU {cpu_pr}; sphere tests that differ: {len(flip_s)} samples, "
+          f"{len(flip_r)} references, {far} of them not borderline")
+    if far:
+        _fail(f"P/R: {far} sphere tests differ between card and CPU away from a radius")
+
+
+def write_vgg16(path, g):
+    """A seeded torchvision-layout VGG16 state dict (every ``features.*`` and
+    ``classifier.*`` key) at ``path``."""
+    from fluidnexus_torch.utils import perceptual as per
+
+    dev, sd, cin = g.device, {}, 3
+    for idx, cout in zip(per.CONV_IDX, per.CONV_CH):
+        sd[f"features.{idx}.weight"] = (torch.randn((cout, cin, 3, 3), generator=g, device=dev)
+                                        * math.sqrt(2.0 / (cin * 9))).cpu()
+        sd[f"features.{idx}.bias"] = (0.01 * torch.randn(cout, generator=g, device=dev)).cpu()
+        cin = cout
+    for i, (o, c) in zip((0, 3, 6), ((4096, 25088), (4096, 4096), (1000, 4096))):
+        sd[f"classifier.{i}.weight"] = (torch.randn((o, c), generator=g, device=dev)
+                                        / math.sqrt(c)).cpu()
+        sd[f"classifier.{i}.bias"] = torch.zeros(o)
+    torch.save(sd, path)
+
+
+def run_adm(dev, root, smi):
+    """``evaluate_adm`` through the runner on PE_ADM_N against PE_ADM_N seeded
+    uint8 images (``adm_images``: the sample set a blurred, shifted copy),
+    default features; the features, distance blocks and host sqrtm timed
+    apart; the features, FID and sFID of PE_SUBSET images held card against
+    CPU, P and R of the whole run against the CPU's on its features. Then
+    ``--vgg16`` on the reference's NHWC layout at PE_VGG_PX (raises, as in
+    the JAX package) and the VGG features of 16 images as the network reads
+    them (N, C, H, W), card against CPU."""
+    import time
+
+    import yaml
+
+    from fluidnexus_torch.__main__ import main as runner
+    from fluidnexus_torch.utils import adm_metrics as am
+    from fluidnexus_torch.utils import perceptual as per
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    n, px = PE_ADM_N, PE_ADM_PX
+    t0 = time.perf_counter()
+    ref, smp = adm_images(n, px, g)
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    ref_p, smp_p = os.path.join(root, "ref.npz"), os.path.join(root, "samples", "smp.npz")
+    np.savez(ref_p, arr_0=ref)
+    np.savez(smp_p, arr_0=smp)
+    print(f"port-eval: {n} + {n} uint8 images of {px} x {px} x 3 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    times = {"features": [], "distances": [], "sqrtm": []}
+    feats = []
+    real = am.default_feature_fn, am.pairwise_sq_distances, am.ADMStatistics.frechet_distance
+
+    def features(images, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real[0](images, *a, **kw)
+        times["features"].append((time.perf_counter() - t) * 1e3)
+        feats.append(out)
+        return out
+
+    def distances(u, v, device="cuda"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real[1](u, v, device)
+        torch.cuda.synchronize()
+        times["distances"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def frechet(self, other, eps=1e-6):
+        t = time.perf_counter()
+        out = real[2](self, other, eps)
+        times["sqrtm"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    am.default_feature_fn, am.pairwise_sq_distances = features, distances
+    am.ADMStatistics.frechet_distance = frechet
+    try:
+        t0 = time.perf_counter()
+        runner(["evaluate_adm", "--ref_batch", ref_p, "--sample_batch", smp_p])
+        seconds = time.perf_counter() - t0
+    finally:
+        am.default_feature_fn, am.pairwise_sq_distances = real[:2]
+        am.ADMStatistics.frechet_distance = real[2]
+
+    with open(os.path.join(root, "samples", "evaluation_metrics.yaml")) as f:
+        got = yaml.safe_load(f)
+    print(f"port-eval: evaluate_adm ({n} against {n} at {px} px, default features; pool "
+          f"{feats[0][0].shape[1]}, spatial {feats[0][1].shape[1]} dims): {got}; {seconds:.2f} s "
+          f"end to end; features ms {', '.join(f'{t:.1f}' for t in times['features'])}; "
+          f"distance blocks ({len(times['distances'])} of {n} x {n}) ms "
+          f"{', '.join(f'{t:.1f}' for t in times['distances'])}; host FID / sFID (scipy sqrtm, "
+          f"float64) ms {', '.join(f'{t:.1f}' for t in times['sqrtm'])} [{smi}]")
+    if not (got["FID"] > 0 and got["sFID"] > 0 and 0 < got["Precision"] < 1
+            and 0 < got["Recall"] < 1):
+        _fail(f"evaluate_adm: {got} (FID, sFID > 0 and 0 < P, R < 1 expected)")
+    k = PE_SUBSET
+    cpu_s, cpu_r = (am.default_feature_fn(x[:k], device="cpu") for x in (smp, ref))
+    for i, what in enumerate(("pool", "spatial")):
+        pe_held(f"port-eval: default features ({what}) of {k} images card against CPU",
+                feats[0][i][:k], cpu_s[i])
+    card_s, card_r = (tuple(f[:k] for f in fs) for fs in feats)
+    for i, what in enumerate(("FID", "sFID")):
+        a = am.compute_statistics(card_s[i]).frechet_distance(am.compute_statistics(card_r[i]))
+        b = am.compute_statistics(cpu_s[i]).frechet_distance(am.compute_statistics(cpu_r[i]))
+        print(f"port-eval: {what} of {k} against {k}: card {a!r}, CPU {b!r}")
+        if not abs(a - b) <= PE_METRIC_TOL * abs(b):
+            _fail(f"{what} of the subset: card {a} against CPU {b}")
+    t0 = time.perf_counter()
+    pe_pr_held(got, feats[1][0], feats[0][0], dev)
+    print(f"port-eval: P/R card against CPU {time.perf_counter() - t0:.1f} s")
+    del ref, smp, feats, cpu_s, cpu_r, card_s, card_r
+    gc_cuda()
+
+    vp = os.path.join(root, "vgg16.pth")
+    write_vgg16(vp, g)
+    ref, smp = adm_images(n, PE_VGG_PX, g)
+    np.savez(ref_p, arr_0=ref)
+    np.savez(smp_p, arr_0=smp)
+    try:
+        runner(["evaluate_adm", "--ref_batch", ref_p, "--sample_batch", smp_p, "--vgg16", vp])
+        _fail("evaluate_adm --vgg16 ran on (N, H, W, 3) images; the JAX package's raises")
+    except RuntimeError as e:
+        print(f"port-eval: evaluate_adm --vgg16 on the reference's ({n}, {PE_VGG_PX}, "
+              f"{PE_VGG_PX}, 3) uint8 npz raises, as the JAX package's does: "
+              f"{str(e).splitlines()[0]}")
+    x = ref[:16].transpose(0, 3, 1, 2)
+    card, cpu = (am.vgg_feature_fn(per.load_torch_vgg16(vp), device=d)(x) for d in (dev, "cpu"))
+    for i, what in enumerate(("pool", "spatial")):
+        pe_held(f"port-eval: VGG16 features ({what}) of 16 images card against CPU", card[i],
+                cpu[i])
+    gc_cuda()
+
+
+def vgg_sfid_finding(dev, root, smi):
+    """The sFID finding of ``--vgg16``: VGG16's features of PE_ADM_N +
+    PE_ADM_N images at PE_VGG_PX as the network reads them (N, C, H, W),
+    their FID, P and R, the spatial features' width and the float64
+    covariance it takes, and scipy's sqrtm timed at PE_SQRTM_DIM."""
+    import time
+
+    from scipy import linalg
+
+    from fluidnexus_torch.utils import adm_metrics as am
+    from fluidnexus_torch.utils import perceptual as per
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    vp = os.path.join(root, "vgg16.pth")
+    write_vgg16(vp, g)
+    n = PE_ADM_N
+    ref, smp = adm_images(n, PE_VGG_PX, g)
+    fn = am.vgg_feature_fn(per.load_torch_vgg16(vp), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vr, vs = fn(ref.transpose(0, 3, 1, 2)), fn(smp.transpose(0, 3, 1, 2))
+    torch.cuda.synchronize()
+    vgg_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fid = am.compute_statistics(vs[0]).frechet_distance(am.compute_statistics(vr[0]))
+    fid_ms = (time.perf_counter() - t0) * 1e3
+    prec, rec = am.precision_recall(vr[0], vs[0], device=dev)
+    dims = vr[1].shape[1]
+    rng = np.random.default_rng(SEED)
+    m = PE_SQRTM_DIM
+    a, b = rng.normal(size=(m, m)), rng.normal(size=(m, m))
+    s1, s2 = a @ a.T / m, b @ b.T / m
+    t0 = time.perf_counter()
+    linalg.sqrtm(s1.dot(s2))
+    sq_s = time.perf_counter() - t0
+    print(f"port-5b: VGG16 features of {n} + {n} images at {PE_VGG_PX} px as the network "
+          f"reads them ((N, 3, H, W)): {vgg_ms:.1f} ms; pool {vr[0].shape[1]} dims, FID over them "
+          f"{fid!r} ({fid_ms:.1f} ms), P {prec}, R {rec}; spatial {dims} dims: its float64 "
+          f"covariance {dims ** 2 * 8 / 2**30:.2f} GiB; scipy sqrtm on this host {sq_s:.2f} s "
+          f"at {m} dims, so ~{sq_s * (dims / m) ** 3 / 3600:.1f} h at {dims} (n^3): sFID not "
+          f"computed [{smi}]")
+    if not (np.isfinite(vr[0]).all() and np.isfinite(vs[0]).all() and math.isfinite(fid)):
+        _fail(f"VGG16 features or their FID not finite ({fid})")
+    gc_cuda()
+
+
+def run_fvd_perceptual(dev, smi):
+    """FVD through ``i3d_feature_fn(random_params(0))`` on PE_FVD_N against
+    PE_FVD_N seeded clips of PE_FVD_T x 224 x 224 (the sample set blurred and
+    shifted), and ``compute_perceptual_similarity_from_list`` on
+    PE_PERC_PAIRS pairs at PE_PERC_PX; each held card against CPU on a few."""
+    import time
+
+    from fluidnexus_torch.utils import i3d
+    from fluidnexus_torch.utils import perceptual as per
+    from fluidnexus_torch.utils import video_metrics as vm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    shape = (PE_FVD_N, PE_FVD_T, 224, 224, 3)   # the I3D detector's input
+    a = torch.rand(shape, generator=g, device=dev)
+    b = _blurred_shift(a, 3, 0.02).clamp(0, 1)
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    params = i3d.random_params(0)
+    fn = vm.i3d_feature_fn(params, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa, fb = fn(a), fn(b)
+    torch.cuda.synchronize()
+    feat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fvd = vm.frechet_distance(fa, fb)
+    fd_ms = (time.perf_counter() - t0) * 1e3
+    print(f"port-eval: FVD (I3D logits, random_params(0)) of {shape[0]} against {shape[0]} clips "
+          f"of {shape[1]} x {shape[2]} x {shape[3]}: {fvd!r}; I3D features {feat_ms:.1f} ms "
+          f"({feat_ms / (2 * shape[0]):.2f} ms a clip, batch 8), host Frechet (eigh, float64) "
+          f"{fd_ms:.1f} ms [{smi}]")
+    if not (math.isfinite(fvd) and fvd > 0 and np.isfinite(fa).all()):
+        _fail(f"FVD {fvd}")
+    cpu = i3d.i3d_logits(params, a[:2], device="cpu")
+    pe_held("port-eval: I3D logits of 2 clips card against CPU", fa[:2], cpu)
+    del a, b
+
+    vp = per.random_params(0)
+    n, px = PE_PERC_PAIRS, PE_PERC_PX
+    p = torch.rand((n, 3, px, px), generator=g, device=dev)
+    t = _blurred_shift(p, 3, 0.02).clamp(0, 1)
+    pred, tgt = list(p.cpu().numpy()), list(t.cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = per.compute_perceptual_similarity_from_list(pred, tgt, vp, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"port-eval: compute_perceptual_similarity_from_list on {n} pairs at {px} x {px}: "
+          f"{got}; {ms:.1f} ms [{smi}]")
+    a4 = per.compute_perceptual_similarity_from_list(pred[:4], tgt[:4], vp, device=dev)
+    c4 = per.compute_perceptual_similarity_from_list(pred[:4], tgt[:4], vp, device="cpu")
+    for k in c4:
+        print(f"port-eval: {k} of 4 pairs: card {a4[k]!r}, CPU {c4[k]!r}")
+        if not abs(a4[k] - c4[k]) <= PE_METRIC_TOL * abs(c4[k]):
+            _fail(f"{k} of 4 pairs: card {a4[k]} against CPU {c4[k]}")
+    gc_cuda()
+
+
+def run_port_eval(dev, root, t5_dir=None, full_dit=False):
+    """The ``port`` and ``evaluate_adm`` stages. ``python -m fluidnexus_torch
+    port --zero123 ... --vae3d ... --t5 ... --out_dir ... --quant_base`` in
+    process on seeded checkpoints in the reference's layouts (Zero123 at the
+    full UNet / ViT-L/14 / KL-VAE geometry with the upstream 4-channel input
+    conv, the 3D-VAE at VAE3DConfig(), T5 at full width and depth 2); the SAT
+    DiT at the 5B width in the raw LoRA layout at rank LORA_RANK: with
+    ``full_dit`` all 42 layers through the CLI's ``--cogvideox``, else
+    ``drill_cogvideox`` on PE_DIT_LAYERS layers (the 42-layer file is 21
+    GB and its port takes minutes: ``port-5b``). Row 14 held at the DiT
+    forward's layer-0 inputs and counted there; the saved trees read back bit
+    for bit, the modules loaded from them give the printed counts and
+    checksums, every forward card against CPU; ``infer_novel_view --ckpt`` on
+    the saved Zero123 against the in-memory tree; then the metrics (ADM, VGG,
+    FVD, perceptual), or with ``full_dit`` the VGG sFID finding. Returns the
+    row-14 ``kernels`` entry."""
+    import shutil
+    import time
+
+    from fluidnexus_torch.__main__ import main as runner
+    from fluidnexus_torch.pipelines import port_drill as pd
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    os.makedirs(root, exist_ok=True)
+    with open("/proc/meminfo") as f:
+        mem = {l.split(":")[0]: int(l.split()[1]) for l in f if l.split(":")[0] in
+               ("MemTotal", "MemAvailable")}
+    print(f"port-eval: {shutil.disk_usage(root).free / 2**30:.1f} GiB free in {root}; host "
+          f"memory {mem['MemAvailable'] / 2**20:.1f} of {mem['MemTotal'] / 2**20:.1f} GiB "
+          f"available [{smi}]")
+    dit_layers = 42 if full_dit else PE_DIT_LAYERS
+    marks = [t_phase]
+
+    def mark(what):
+        marks.append(time.perf_counter())
+        print(f"port-eval: {what} {marks[-1] - marks[-2]:.1f} s")
+
+    paths, dcfg, vcfg = write_port_checkpoints(dev, os.path.join(root, "ckpt"), dit_layers,
+                                               t5_dir, only_dit=full_dit)
+    mark("the checkpoints")
+    out = os.path.join(root, "ports")
+    if full_dit:
+        argv = ["--cogvideox", paths["mp_rank_00_model_states.pt"], "--out_dir", out,
+                "--quant_base"]
+        _, text, info = pe_run(runner, ["port"] + argv)
+    else:
+        argv = ["--zero123", paths["last.ckpt"], "--vae3d", paths["3d-vae.pt"], "--t5",
+                paths["t5"], "--out_dir", out, "--quant_base"]
+        _, text, info = pe_run(runner, ["port"] + argv)
+        _, dit_text, dit_info = pe_run(pd.drill_cogvideox, paths["mp_rank_00_model_states.pt"],
+                                       out, dit_cfg=dcfg, quant=True)
+        text += dit_text
+        for k in ("saved", "reported"):
+            info[k].update(dit_info[k])
+        info.update({k: dit_info[k] for k in ("launches", "q", "k", "v", "attention_calls")})
+        info["seconds"] += dit_info["seconds"]
+    print(f"port-eval: python -m fluidnexus_torch port {' '.join(argv)}"
+          + ("" if full_dit else f" and drill_cogvideox at {dit_layers} layers")
+          + f": {info['seconds']:.1f} s [{smi}]")
+    if "all requested port maps ran OK" not in text:
+        _fail("port did not end with its OK line")
+    printed = pe_printed(text)
+    entry = refine_attention_entry("port", info, 1, dit_layers, pairs=((0, 0), (0, 47)))
+    for k in ("q", "k", "v"):
+        info.pop(k)
+    mark("port")
+    model = port_checks(dev, paths, out, printed, info, dcfg, vcfg, quant=True)
+    info.clear()
+    mark("the checks")
+    if model is not None:
+        hand_off_view(dev, root, out, model)
+        del model
+        mark("the hand-off view")
+    gc_cuda()
+    shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
+    if full_dit:
+        vgg_sfid_finding(dev, root, smi)
+        mark("the VGG sFID finding")
+    else:
+        run_adm(dev, root, smi)
+        mark("evaluate_adm and VGG")
+        run_fvd_perceptual(dev, smi)
+        mark("FVD and perceptual")
+    for m in ("jax", "flax", "fluidnexus_tpu"):
+        if m in sys.modules:
+            _fail(f"the port-eval phase imported {m}")
+    print(f"port-eval phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return [entry]
+
+
+def port_eval_only(full_dit=False):
+    """``python3 chip_smoke.py port-eval`` (``port-5b``: the 42-layer SAT
+    DiT through the CLI and the VGG sFID finding, in place of the other
+    checkpoints and metrics): builds ``attention``, runs ``run_port_eval``."""
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    from fluidnexus_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for name, info in cuda_build.build(["attention"]).items():
+        print(f"build {name}: {info['seconds']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="fnx_port_eval_") as tmp:
+        print(json.dumps({"kernels": run_port_eval(torch.device("cuda"), tmp,
+                                                   full_dit=full_dit)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -6488,6 +7292,10 @@ if __name__ == "__main__":
         novel_view_only()
     elif sys.argv[1:] == ["text-data"]:
         text_data_only()
+    elif sys.argv[1:] == ["port-eval"]:
+        port_eval_only()
+    elif sys.argv[1:] == ["port-5b"]:
+        port_eval_only(full_dit=True)
     elif sys.argv[1:] == ["refine-encode-probe"]:
         refine_encode_probe()
     elif sys.argv[1:] == ["attention-time"]:

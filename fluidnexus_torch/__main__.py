@@ -19,6 +19,8 @@ STAGES = {
     "train_novel_view": "fluidnexus_torch.pipelines.train_novel_view",
     "infer_novel_view": "fluidnexus_torch.pipelines.infer_novel_view",
     "convert": "fluidnexus_torch.data.conversions",
+    "port": "fluidnexus_torch.pipelines.port_drill",
+    "evaluate_adm": "fluidnexus_torch.utils.adm_metrics",
 }
 
 

@@ -30,6 +30,13 @@ def as_torch(x) -> torch.Tensor:
     return torch.as_tensor(x)
 
 
+def float_tensors(params, device):
+    """A flat dict of weights (numpy arrays or tensors) as f32 tensors on
+    ``device``."""
+    return {k: as_torch(v).to(device, torch.float32) if not torch.is_tensor(v)
+            else v.to(device, torch.float32) for k, v in params.items()}
+
+
 def _t(x, device):
     return torch.as_tensor(np.array(x), device=device)
 
@@ -141,19 +148,28 @@ def _torch_layout(name, x):
     return name[:-len("kernel")] + "weight", np.transpose(x, (nd - 1, nd - 2) + tuple(range(nd - 2)))
 
 
-def load_flax_params(module, params, device="cuda"):
+def flax_param_names(params):
+    """The module parameter names that ``load_flax_params`` fills from the
+    flax tree ``params``."""
+    return {_torch_layout(k, v)[0] for k, v in _flatten_flax(params).items()}
+
+
+def load_flax_params(module, params, device="cuda", keep_missing=False):
     """Copy a flax param tree (numpy leaves) into ``module``'s parameters,
     each cast to the parameter's dtype; the two sets of names must be the
-    same. Returns the module on ``device``."""
+    same, except that with ``keep_missing`` a parameter the tree lacks keeps
+    the module's value. Returns the module on ``device``."""
     flat = dict(_torch_layout(k, v) for k, v in _flatten_flax(params).items())
     own = dict(module.named_parameters())
-    if set(flat) != set(own):
+    if set(flat) - set(own) or (set(own) - set(flat) and not keep_missing):
         raise ValueError(f"flax tree and module differ: only in the tree "
                          f"{sorted(set(flat) - set(own))[:8]}, only in the module "
                          f"{sorted(set(own) - set(flat))[:8]}")
     module = module.to(device)
     with torch.no_grad():
         for name, prm in module.named_parameters():
+            if name not in flat:
+                continue
             src = flat[name]
             if tuple(src.shape) != tuple(prm.shape):
                 raise ValueError(f"{name}: tree {src.shape}, module {tuple(prm.shape)}")

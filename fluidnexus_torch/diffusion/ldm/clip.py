@@ -9,18 +9,18 @@ numerics the JAX package fixes: every LayerNorm at flax's default eps 1e-6,
 the MLP's quick-gelu ``h * sigmoid(1.702 h)``, and the resize to the tower's
 size as ``jax.image.resize(..., "bilinear")`` does it: a triangle kernel
 stretched by the shrink factor when it shrinks (antialiased), each output's
-weights divided by their sum (``resize_weights``).
+weights divided by their sum (``utils/resize``).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 from torch import nn
 
 from fluidnexus_torch.diffusion.ldm.unet import LayerNorm, attention
+from fluidnexus_torch.utils.resize import resize_bilinear
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -34,36 +34,6 @@ class CLIPVisionConfig:
     layers: int = 24
     heads: int = 16
     output_dim: int = 768
-
-
-@functools.lru_cache(maxsize=None)
-def resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in, n_out) f32 weights of ``jax.image.resize``'s "bilinear" along
-    one axis (``compute_weight_mat`` with antialiasing): output j samples
-    input position (j + 0.5) n_in / n_out - 0.5 with the triangle kernel,
-    widened by n_in / n_out when that exceeds 1."""
-    inv_scale = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = np.maximum(np.float32(0), np.float32(1) - np.abs(x))
-    total = w.sum(0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, np.float32(1)), np.float32(0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, np.float32(0)).astype(np.float32)
-
-
-def resize_bilinear(x, size: int):
-    """(B, H, W, C) -> (B, size, size, C) as ``jax.image.resize(x, (B, size,
-    size, C), "bilinear")``, which leaves an axis already at ``size`` as it
-    is."""
-    for axis in (1, 2):
-        n = x.shape[axis]
-        if n != size:
-            w = torch.as_tensor(resize_weights(n, size), dtype=x.dtype, device=x.device)
-            x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
-    return x
 
 
 class MHA(nn.Module):

@@ -320,3 +320,19 @@ def test_video_clis_encode_through_t5(tmp_path, monkeypatch):
         2, np.random.default_rng(0))
     assert latents.shape == (2, 3, 16, 4, 6)
     held(txt.numpy(), jenc(captions), "train_video")
+
+
+def test_drill_t5_matches_the_jax_drill(t5_dirs, capsys):
+    """``python -m fluidnexus_torch port --t5 <dir>``'s encoder against the
+    JAX package's drill: the same embedding (held to TOL) and the same
+    printed shape and checksum (within TOL relative)."""
+    from fluidnexus_torch.pipelines import port_drill as tdrill
+    from fluidnexus_tpu.pipelines import port_drill as jdrill
+
+    ref = jdrill.drill_t5(t5_dirs["gated"], max_length=16)
+    ref_line = capsys.readouterr().out.split("forward checksum")
+    got = tdrill.drill_t5(t5_dirs["gated"], max_length=16, device="cpu")
+    line = capsys.readouterr().out.split("forward checksum")
+    held(got.numpy(), ref, "drill_t5")
+    assert line[0] == ref_line[0]
+    assert abs(float(line[1]) - float(ref_line[1])) <= TOL * abs(float(ref_line[1]))

@@ -408,3 +408,286 @@ def splat_fwd_edge_grids(ms, mq, device, seed):
     qgrid, _ = bin_queries(grid, 1.0, t(qry), t(q_alive), 512, mq)
     vel = slot_gather(grid, t(rng.normal(size=(n, 3)))).contiguous()
     return qgrid.nbr, pc.planes(qgrid), pc.planes(grid), vel
+
+
+# ------------------- the reference's torch checkpoint layouts -------------------
+# Writers of the state dicts that ``diffusion/port.py``'s maps read, each the
+# mirror of its map: given a port module's parameters ({dotted flax name:
+# tensor in the torch layout}), the reference-named dict whose map gives
+# those parameters back. Tensors stay where they are (CPU or card).
+
+
+def seeded_fill_(module, generator):
+    """Every float parameter of ``module`` drawn from ``generator``: a
+    weight of rank >= 2 normal / sqrt(its fan-in), a 1-d ``scale``/``weight``
+    1 + 0.05 normal, any other 1-d 0.05 normal."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if not p.is_floating_point():
+                continue
+            z = torch.randn(p.shape, generator=generator, device=p.device)
+            if p.dim() >= 2:
+                z = z / float(np.sqrt(p[0].numel()))
+            elif name.split(".")[-1] in ("scale", "weight") or name.endswith("_scale"):
+                z = 1 + 0.05 * z
+            else:
+                z = 0.05 * z
+            p.copy_(z.to(p.dtype))
+    return module
+
+
+def sub_params(named, prefix):
+    n = len(prefix)
+    return {k[n:]: v for k, v in named.items() if k.startswith(prefix)}
+
+
+def unet_reference_sd(p, cfg):
+    """openaimodel UNetModel keys (``port_zero123_unet``'s input)."""
+    sd = {}
+
+    def pair(tp, fp, w="weight", b="bias"):
+        sd[tp + ".weight"] = p[f"{fp}.{w}"]
+        if f"{fp}.{b}" in p:
+            sd[tp + ".bias"] = p[f"{fp}.{b}"]
+
+    def gn(tp, fp):
+        pair(tp, fp + ".GroupNorm_0", "scale")
+
+    def resblock(tp, fp):
+        gn(tp + ".in_layers.0", fp + ".GroupNorm32_0")
+        pair(tp + ".in_layers.2", fp + ".conv1")
+        pair(tp + ".emb_layers.1", fp + ".emb_proj")
+        gn(tp + ".out_layers.0", fp + ".GroupNorm32_1")
+        pair(tp + ".out_layers.3", fp + ".conv2")
+        if fp + ".skip.weight" in p:
+            pair(tp + ".skip_connection", fp + ".skip")
+
+    def spatial(tp, fp):
+        gn(tp + ".norm", fp + ".GroupNorm32_0")
+        pair(tp + ".proj_in", fp + ".proj_in")
+        pair(tp + ".proj_out", fp + ".proj_out")
+        for i in range(cfg.transformer_depth):
+            tb, fb = f"{tp}.transformer_blocks.{i}", f"{fp}.block_{i}"
+            for k in (1, 2, 3):
+                pair(f"{tb}.norm{k}", f"{fb}.LayerNorm_{k - 1}", "scale")
+            for a in ("attn1", "attn2"):
+                for x in ("to_q", "to_k", "to_v"):
+                    pair(f"{tb}.{a}.{x}", f"{fb}.{a}.{x}")
+                pair(f"{tb}.{a}.to_out.0", f"{fb}.{a}.to_out")
+            pair(tb + ".ff.net.0.proj", fb + ".ff_in")
+            pair(tb + ".ff.net.2", fb + ".ff_out")
+
+    pair("time_embed.0", "time_fc1")
+    pair("time_embed.2", "time_fc2")
+    pair("input_blocks.0.0", "conv_in")
+    gn("out.0", "GroupNorm32_0")
+    pair("out.2", "conv_out")
+    attn_res, n = set(cfg.attention_resolutions), len(cfg.channel_mult)
+    k, ds = 1, 1
+    for i in range(n):
+        for j in range(cfg.num_res_blocks):
+            resblock(f"input_blocks.{k}.0", f"down_{i}_res_{j}")
+            if ds in attn_res:
+                spatial(f"input_blocks.{k}.1", f"down_{i}_attn_{j}")
+            k += 1
+        if i != n - 1:
+            pair(f"input_blocks.{k}.0.op", f"down_{i}_downsample")
+            k, ds = k + 1, ds * 2
+    resblock("middle_block.0", "mid_res_1")
+    spatial("middle_block.1", "mid_attn")
+    resblock("middle_block.2", "mid_res_2")
+    k = 0
+    for i in reversed(range(n)):
+        for j in range(cfg.num_res_blocks + 1):
+            resblock(f"output_blocks.{k}.0", f"up_{i}_res_{j}")
+            idx = 1
+            if ds in attn_res:
+                spatial(f"output_blocks.{k}.{idx}", f"up_{i}_attn_{j}")
+                idx += 1
+            if i != 0 and j == cfg.num_res_blocks:
+                pair(f"output_blocks.{k}.{idx}.conv", f"up_{i}_upsample")
+                ds //= 2
+            k += 1
+    return sd
+
+
+def kl_vae_reference_sd(p, cfg):
+    """SD AutoencoderKL keys (``port_kl_vae``'s input)."""
+    sd = {}
+
+    def pair(tp, fp, w="weight"):
+        sd[tp + ".weight"], sd[tp + ".bias"] = p[f"{fp}.{w}"], p[fp + ".bias"]
+
+    def res(tp, fp):
+        pair(tp + ".norm1", fp + ".GroupNorm_0", "scale")
+        pair(tp + ".conv1", fp + ".conv1")
+        pair(tp + ".norm2", fp + ".GroupNorm_1", "scale")
+        pair(tp + ".conv2", fp + ".conv2")
+        if fp + ".nin_shortcut.weight" in p:
+            pair(tp + ".nin_shortcut", fp + ".nin_shortcut")
+
+    def attn(tp, fp):
+        pair(tp + ".norm", fp + ".GroupNorm_0", "scale")
+        for x in ("q", "k", "v", "proj_out"):
+            pair(f"{tp}.{x}", f"{fp}.{x}")
+
+    n = len(cfg.ch_mult)
+    for side, blocks in (("encoder", cfg.num_res_blocks), ("decoder", cfg.num_res_blocks + 1)):
+        pair(f"{side}.conv_in", f"{side}.conv_in")
+        res(f"{side}.mid.block_1", f"{side}.mid_block_1")
+        attn(f"{side}.mid.attn_1", f"{side}.mid_attn")
+        res(f"{side}.mid.block_2", f"{side}.mid_block_2")
+        pair(f"{side}.norm_out", f"{side}.GroupNorm_0", "scale")
+        pair(f"{side}.conv_out", f"{side}.conv_out")
+        way, sample = ("down", "downsample") if side == "encoder" else ("up", "upsample")
+        for i in range(n):
+            for j in range(blocks):
+                res(f"{side}.{way}.{i}.block.{j}", f"{side}.{way}_{i}_block_{j}")
+            if (side == "encoder" and i != n - 1) or (side == "decoder" and i != 0):
+                pair(f"{side}.{way}.{i}.{sample}.conv", f"{side}.{way}_{i}_{sample}")
+    pair("quant_conv", "quant_conv")
+    pair("post_quant_conv", "post_quant_conv")
+    return sd
+
+
+def clip_reference_sd(p, layers):
+    """OpenAI CLIP ``visual.*`` keys (``port_openai_clip_visual``'s input)."""
+    sd = {"conv1.weight": p["patch_embed.weight"], "class_embedding": p["class_embedding"],
+          "positional_embedding": p["positional_embedding"], "proj": p["proj"]}
+    for name in ("ln_pre", "ln_post"):
+        sd[name + ".weight"], sd[name + ".bias"] = p[name + ".scale"], p[name + ".bias"]
+    for i in range(layers):
+        tb = f"transformer.resblocks.{i}"
+        for k in (1, 2):
+            sd[f"{tb}.ln_{k}.weight"] = p[f"ln{k}_{i}.scale"]
+            sd[f"{tb}.ln_{k}.bias"] = p[f"ln{k}_{i}.bias"]
+        sd[tb + ".attn.in_proj_weight"] = p[f"attn_{i}.qkv.weight"]
+        sd[tb + ".attn.in_proj_bias"] = p[f"attn_{i}.qkv.bias"]
+        sd[tb + ".attn.out_proj.weight"] = p[f"attn_{i}.out.weight"]
+        sd[tb + ".attn.out_proj.bias"] = p[f"attn_{i}.out.bias"]
+        for x, y in (("c_fc", "mlp_fc"), ("c_proj", "mlp_proj")):
+            sd[f"{tb}.mlp.{x}.weight"] = p[f"{y}_{i}.weight"]
+            sd[f"{tb}.mlp.{x}.bias"] = p[f"{y}_{i}.bias"]
+    return sd
+
+
+def zero123_reference_sd(model, upstream_4ch=True):
+    """A Lightning ``LatentDiffusion`` state dict (``model.diffusion_model.``,
+    ``first_stage_model.``, ``cond_stage_model.model.visual.``,
+    ``cc_projection.``) of a port ``NovelViewModel``. With ``upstream_4ch``
+    the UNet's input conv keeps its first 4 input channels, as the upstream
+    zero123-xl checkpoint has it (the map pads the other 4 with zeros)."""
+    named = dict(model.named_parameters())
+    sd = {}
+    unet = unet_reference_sd(sub_params(named, "unet."), model.unet_config)
+    if upstream_4ch:
+        unet["input_blocks.0.0.weight"] = unet["input_blocks.0.0.weight"][:, :4]
+    for prefix, part in (("model.diffusion_model.", unet),
+                         ("first_stage_model.",
+                          kl_vae_reference_sd(sub_params(named, "vae."), model.vae_config)),
+                         ("cond_stage_model.model.visual.",
+                          clip_reference_sd(sub_params(named, "clip."),
+                                            model.clip_config.layers))):
+        sd.update({prefix + k: v for k, v in part.items()})
+    sd["cc_projection.weight"], sd["cc_projection.bias"] = named["cc.weight"], named["cc.bias"]
+    return sd
+
+
+def video_vae_reference_sd(p, cfg):
+    """CogVideoX ContextParallel{En,De}coder3D keys (``port_video_vae``'s
+    input) of a port ``VideoVAE``'s parameters."""
+    sd = {}
+
+    def cconv(tp, fp):
+        sd[tp + ".conv.weight"], sd[tp + ".conv.bias"] = p[fp + ".conv.weight"], p[fp + ".conv.bias"]
+
+    def conv2d(tp, fp):
+        sd[tp + ".weight"], sd[tp + ".bias"] = p[fp + ".conv.weight"], p[fp + ".conv.bias"]
+
+    def norm(tp, fp, zq):
+        w = ".norm_layer" if zq else ""
+        sd[tp + w + ".weight"], sd[tp + w + ".bias"] = p[fp + ".scale"], p[fp + ".bias"]
+        if zq:
+            cconv(tp + ".conv_y", fp + ".conv_y")
+            cconv(tp + ".conv_b", fp + ".conv_b")
+
+    def res(tp, fp, zq):
+        norm(tp + ".norm1", fp + ".norm1", zq)
+        cconv(tp + ".conv1", fp + ".conv1")
+        norm(tp + ".norm2", fp + ".norm2", zq)
+        cconv(tp + ".conv2", fp + ".conv2")
+        if fp + ".nin_shortcut.weight" in p:
+            sd[tp + ".nin_shortcut.weight"] = p[fp + ".nin_shortcut.weight"][:, :, None, None, None]
+            sd[tp + ".nin_shortcut.bias"] = p[fp + ".nin_shortcut.bias"]
+
+    n = len(cfg.ch_mult)
+    for side, zq, blocks in (("encoder", False, cfg.num_res_blocks),
+                             ("decoder", True, cfg.num_res_blocks + 1)):
+        cconv(f"{side}.conv_in", f"{side}.conv_in")
+        res(f"{side}.mid.block_1", f"{side}.mid_block_1", zq)
+        res(f"{side}.mid.block_2", f"{side}.mid_block_2", zq)
+        norm(f"{side}.norm_out", f"{side}.norm_out", zq)
+        cconv(f"{side}.conv_out", f"{side}.conv_out")
+        way, sample = ("down", "downsample") if side == "encoder" else ("up", "upsample")
+        for i in range(n):
+            for j in range(blocks):
+                res(f"{side}.{way}.{i}.block.{j}", f"{side}.{way}_{i}_block_{j}", zq)
+            if (side == "encoder" and i != n - 1) or (side == "decoder" and i != 0):
+                conv2d(f"{side}.{way}.{i}.{sample}.conv", f"{side}.{way}_{i}_{sample}")
+    return sd
+
+
+def sat_dit_state_dict(cfg, generator, lora_rank=0, dtype=torch.float32):
+    """A SAT ``DiffusionTransformer`` state dict at ``cfg`` (the keys and
+    shapes ``port_video_dit`` reads), drawn from ``generator`` on its device:
+    weights normal / sqrt(fan-in), biases 0.02 normal, LayerNorm weights 1 +
+    0.05 normal. With ``lora_rank`` the attention linears are in the raw
+    SAT-lora2 layout (``.original.weight``, ``matrix_A.{p}`` (r, in) and
+    ``matrix_B.{p}`` (out / P, r); 3 partitions for ``query_key_value``, 1
+    for ``dense``), as a finetune of cogvideox_5b_lora_prefixi2v.yaml saves
+    them."""
+    d, hd, t = cfg.hidden_size, cfg.head_dim, cfg.temb_dim
+    p, ci, co = cfg.patch_size, cfg.in_channels, cfg.out_channels
+    dev = generator.device
+
+    def w(*shape):
+        fan = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        return (torch.randn(shape, generator=generator, device=dev) / float(np.sqrt(fan))
+                if len(shape) > 1 else 0.02 * torch.randn(shape, generator=generator,
+                                                         device=dev)).to(dtype)
+
+    def ln(key, n):
+        sd[key + ".weight"] = (1 + 0.05 * torch.randn(n, generator=generator,
+                                                       device=dev)).to(dtype)
+        sd[key + ".bias"] = w(n)
+
+    def lin(key, n_out, n_in, parts=0):
+        if lora_rank and parts:
+            sd[key + ".original.weight"], sd[key + ".original.bias"] = w(n_out, n_in), w(n_out)
+            for i in range(parts):
+                sd[f"{key}.matrix_A.{i}"] = w(lora_rank, n_in)
+                sd[f"{key}.matrix_B.{i}"] = w(n_out // parts, lora_rank)
+        else:
+            sd[key + ".weight"], sd[key + ".bias"] = w(n_out, n_in), w(n_out)
+
+    sd = {"mixins.patch_embed.proj.weight": w(d, ci, p, p),
+          "mixins.patch_embed.proj.bias": w(d)}
+    lin("mixins.patch_embed.text_proj", d, cfg.text_hidden_size)
+    lin("time_embed.0", t, d)
+    lin("time_embed.2", t, t)
+    ln("transformer.final_layernorm", d)
+    ln("mixins.final_layer.norm_final", d)
+    lin("mixins.final_layer.adaLN_modulation.1", 2 * d, t)
+    lin("mixins.final_layer.linear", p * p * co, d)
+    for i in range(cfg.num_layers):
+        tl, a = f"transformer.layers.{i}", "mixins.adaln_layer"
+        lin(f"{a}.adaLN_modulations.{i}.1", 12 * d, t)
+        ln(f"{a}.query_layernorm_list.{i}", hd)
+        ln(f"{a}.key_layernorm_list.{i}", hd)
+        ln(f"{tl}.input_layernorm", d)
+        ln(f"{tl}.post_attention_layernorm", d)
+        lin(f"{tl}.attention.query_key_value", 3 * d, d, parts=3)
+        lin(f"{tl}.attention.dense", d, d, parts=1)
+        lin(f"{tl}.mlp.dense_h_to_4h", cfg.mlp_ratio * d, d)
+        lin(f"{tl}.mlp.dense_4h_to_h", d, cfg.mlp_ratio * d)
+    return sd
