@@ -3,6 +3,7 @@ the checkout, hold each against its plain PyTorch version at the shapes the
 main path gives it, run phases A and B of the reconstruction at the smoke
 configuration's full widths, then the whole stage A -> B -> C through
 ``train``, time kernels, fit iterations, solver ticks and phase-C frames, and
+(``python3 chip_smoke.py profiles``: the default run and these profiles)
 profile a few of each (the card's busy share, host and device ms per
 ``fnx.*`` span).
 
@@ -119,12 +120,17 @@ layer 0's inputs of the first step and at ragged shapes, and timed beside the
 mma.sync kernel (which serves f32 and the other head_dims, held there too)
 and the library call.
 
+In the default run the video, video-training, refinement and text-data
+phases cut the 5B DiT to SMOKE_DIT_LAYERS (6) of its 42 blocks, at its full
+width and token counts, so every attention kernel sees the 5B shapes; the
+single-phase commands (``refine``, ``text-data``) run all 42.
+
 Video training (``train_video.train``, LoRA finetuning): the CogVideoX-5B DiT
-(hidden 3 072, 42 layers, 48 heads of 64, text 226 x 4 096) at batch 2 on
+(hidden 3 072, 48 heads of 64, text 226 x 4 096) at batch 2 on
 one clip of 49 seeded 480 x 720 PNGs (13 x 60 x 90 latents, 17 776 tokens),
 rank 128, per-block rematerialisation, a bf16 base, 3 clean prefix latents,
-hash text; cut: 3 iterations (of 10 000), then 2 with ``--quant_base`` and
-one eval fork (2 sampler steps, no checkpoints written); weights drawn from
+hash text; cut: 2 iterations (of 10 000), then 1 with ``--quant_base`` on 9
+frames and one eval fork (2 sampler steps, no checkpoints written); weights drawn from
 a seed, with the adaLN projections and lora_b drawn small and non-zero (the
 JAX init zeroes them, and then attention never reaches the loss and the
 backward kernels see a zero upstream gradient). Every backward on the
@@ -138,27 +144,28 @@ card-vs-CPU training run) and the library's backward.
 Refinement (``gen_refine_video.main --preset refine_smoke`` and
 ``gen_future_video.main --preset future_smoke``): the CogVideoX-5B DiT and
 VAE on seeded weights, hash text, batch-2 CFG, the presets' windows at 480 x
-720: two 65-frame windows (17 latents, 23 176 tokens; prefix 9, frame_step
+720: one 65-frame window (17 latents, 23 176 tokens; prefix 9, frame_step
 2, strength 0.5) over a seeded input folder of ``frame_%06d.png`` and a GT
 folder of ``%03d.png`` at the capture's 960 x 544 (resampled by LANCZOS),
 then one 73-frame window (19 latents, 25 876 tokens; strength 0.75) over a
 seeded render folder and reconstruction frames; cut: ``--num_steps`` 8 and
 6 (4 DiT steps a window at those strengths; the CLIs run 50),
-``--num_windows`` 2 (of 3); both with ``--pack_video``. Row 14 held and
-timed at each run's layer-0 inputs, and a small card-vs-CPU refinement.
+``--num_windows`` 1 (of 3); both with ``--pack_video``. Row 14 held and
+timed at each run's layer-0 inputs, and a small card-vs-CPU refinement of
+two chained windows.
 
 Novel view (``run_novel_view``, Zero123): a seeded capture of 3 frames x 5
 cameras at 960 x 544 (the stages phase's cameras) through ``convert
 original_to_zero123`` (512-px PNGs) and ``zero123_cams``; ``python -m
 fluidnexus_torch train_novel_view`` at the full geometry (UNet 320 x (1, 2,
 4, 4), CLIP ViT-L/14, KL-VAE 128, 256 px) on seeded weights with the EMA,
-the iteration-20 checkpoints and TensorBoard grids; cut: batch 96 -> 8,
-iterations 52 000 -> 20; the training step at batches 16, 32 and 96 until
-one runs out of memory; ``infer_novel_view`` from the checkpoint at its
-defaults for 2 frames (8 views, 50 DDIM steps, CFG 3.0); ``convert
-zero123_to_cogvideox`` on a view's frames; the UNet (batch 2, both CFG
-halves), CLIP and the VAE on the card against the CPU, both held to a
-float64 CPU run; a profile of a DDIM step and of a training step. No
+the iteration-5 checkpoints and TensorBoard grids (10 DDIM steps); cut:
+batch 96 -> 8, iterations 52 000 -> 5; ``infer_novel_view`` from the
+checkpoint for 1 frame (4 views, 10 DDIM steps of its 50, CFG 3.0);
+``convert zero123_to_cogvideox`` on a view's frames; the UNet (batch 2, both
+CFG halves), CLIP and the VAE on the card against the CPU, both held to a
+float64 CPU run. ``python3 chip_smoke.py novel-view`` also probes the
+training step at batch 96 and profiles a DDIM step and a training step. No
 hand-written kernel is on this path: it adds no ``kernels`` entry and
 prints the launch counts, all 0.
 
@@ -168,8 +175,8 @@ Text and data (``run_text_data``): the T5-XXL encoder at its full geometry
 tokenizer the script writes (the t5-v1_1-xxl files do not ship); its first
 two blocks at full width card against CPU, then written as a Hugging Face
 Flax directory (a msgpack writer of the script's own) that ``--t5_dir``
-reads: ``sample_video`` at the 5B geometry (2 of 50 steps) and
-``train_video`` at the 5B geometry (1 LoRA step each, batch 2) on an mp4
+reads: ``sample_video`` at the 5B width (2 of 50 steps, 9 frames) and
+``train_video`` at the 5B width (1 LoRA step each, batch 2, 9 frames) on an mp4
 root and on webdataset tar shards that the script writes with OpenCV at 480
 x 720, 49 frames at 8 fps; whether tensorstore (the orbax reader) imports.
 No hand-written kernel is added: the DiT's attention kernels carry it.
@@ -188,9 +195,23 @@ for one view of 10 DDIM steps (50 in the CLI). Then ``evaluate_adm`` on 10
 FVD on 256 + 256 clips of 16 x 224 x 224 and the
 perceptual similarity of 64 pairs at 256 px, each held card against CPU on
 a few. Row 14 runs in the DiT's forward, at (1, 48, 258, 64).
+
+Parallel (``run_parallel``, item 16; ``python3 chip_smoke.py parallel``
+alone): two ranks on cuda:0 under gloo with a ``file://`` rendezvous (NCCL
+refuses two ranks on one device) run ``sample_video --tp 2`` and ``--dp 2``
+at the 5B width (48 heads, 24 a rank) with 2 of its 42 blocks, 2 sampler
+steps, 9 frames and the training phase's non-zero init, one ``train_video
+--tp 2`` LoRA step (9 frames), and one phase-C fit iteration at ``pipe.dp`` 2 from
+the phase-C reconstruction (5 cameras padded to 6); this process runs each
+on one rank and holds the ranks to it. The VAE's time-sharded encode and
+decode run at n = 1 under a one-rank NCCL group: gloo's point-to-point
+takes no CUDA tensor, so the halo ring cannot run on two ranks of one card.
+Rows 14 and 15 at (2, 24, 17 776, 64) add their own ``kernels`` entries,
+with the launches at 24 heads on rank 0.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -211,6 +232,7 @@ SEED = 0
 FIT_ITERS = 30
 TIMED_ITERS = 20
 PROFILE_ITERS = 10
+PROFILES = True               # profile_run on; the default run (main) sets it off
 
 
 def _fail(msg):
@@ -408,6 +430,62 @@ def exact_skip_and_resweep(packed_t, counts, tiles_x, tx, ty, what):
     return failures
 
 
+# The compositing's cut-offs: a slot draws where power <= 0 and alpha >=
+# 1/255, a pixel stops once T < 1e-4, and the median is the depth where T
+# crosses 0.5. The kernel takes power by fma and alpha by CUDA's expf, the
+# plain version by torch's separately rounded operations, so an alpha within
+# an ulp or two of 1/255 may draw in one and not in the other (then accum
+# and T part by ~alpha, 3.9e-3, and the backward at that pixel with them),
+# and a T within rounding of 0.5 may cross at one slot in one and at the
+# next in the other. The bands are ~10x the f32 error of each quantity: one
+# rounding of power and expf for alpha (~1e-6 relative), T's product over a
+# few hundred slots (~1e-6 absolute at 0.5, ~3e-5 relative at 1e-4).
+NEAR_ALPHA, NEAR_POWER, NEAR_HALF, NEAR_STOP = 1e-5, 1e-5, 1e-5, 3e-4
+# most pixels that may lie near a cut-off: the dense main-path tiles of the
+# reconstruction (409 011 live slots, 115 tiles full at K 512) put 0.32 %
+# there, most of them pixels whose T walks past 1e-4 in small steps
+NEAR_SHARE = 1e-2
+
+
+def near_cutoff_pixels(packed_t, counts, tiles_x, tx, ty, tiles=32):
+    """{cut-off: (T, P) bool} of the pixels where, walked in f64, a live
+    slot's alpha lies within NEAR_ALPHA (relative) of 1/255 ("alpha"), a
+    drawing slot's power within NEAR_POWER of its terms' size from 0 (an
+    exact 0 is no cut-off; "power"), or T before or after a drawing slot
+    within NEAR_HALF of 0.5 ("half") or before one within NEAR_STOP
+    (relative) of 1e-4 ("stop"): pixels that rounding may put on either side
+    of a cut-off."""
+    t, k, f = packed_t.shape
+    p = tx * ty
+    dev = packed_t.device
+    pix = torch.arange(p, device=dev)
+    out = {c: torch.zeros((t, p), dtype=torch.bool, device=dev)
+           for c in ("alpha", "power", "half", "stop")}
+    kmax = int(counts.max()) if t else 0
+    for t0 in range(0, t, tiles):
+        rows = packed_t[t0:t0 + tiles, :kmax].double()
+        tid = torch.arange(t0, t0 + rows.shape[0], device=dev)
+        px = (((tid % tiles_x) * tx)[:, None] + (pix % tx)[None]).double()[:, None]
+        py = (((tid // tiles_x) * ty)[:, None] + (pix // tx)[None]).double()[:, None]
+        dx, dy = rows[..., 0:1] - px, rows[..., 1:2] - py
+        quad, cross = rows[..., 2:3] * dx * dx + rows[..., 4:5] * dy * dy, rows[..., 3:4] * dx * dy
+        power = -0.5 * quad - cross
+        alpha = torch.clamp(rows[..., 5:6] * torch.exp(power), max=0.99)
+        live = (torch.arange(kmax, device=dev)[None] < counts[t0:t0 + tiles, None])[..., None]
+        draw = live & (power <= 0) & (alpha >= 1 / 255)
+        t_after = torch.cumprod(torch.where(draw, 1 - alpha, torch.ones_like(alpha)), 1)
+        t_before = torch.cat([torch.ones_like(t_after[:, :1]), t_after[:, :-1]], 1)
+        near = {"alpha": live & (power <= 0) & ((alpha * 255 - 1).abs() <= NEAR_ALPHA),
+                "power": live & (alpha >= 1 / 255)
+                & (power.abs() < NEAR_POWER * (0.5 * quad.abs() + cross.abs())),
+                "half": draw & (((t_before - 0.5).abs() <= NEAR_HALF)
+                                | ((t_after - 0.5).abs() <= NEAR_HALF)),
+                "stop": draw & ((t_before * 1e4 - 1).abs() <= NEAR_STOP)}
+        for c, m in near.items():
+            out[c][t0:t0 + tiles] = m.any(1)
+    return out
+
+
 def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
     """Each kernel against its plain version on the same inputs, the
     forward's outputs in NaN-filled blocks; the forward's skip and the
@@ -423,20 +501,23 @@ def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
     pk = packed_t.clone().requires_grad_(True)
     acc_p, ft_p, med_p = tc.composite_plain(pk, counts, tiles_x, tx, ty, rc.chunk)
     torch.cuda.synchronize()
-    # the median is the depth where T crosses 0.5. Where T lands within
-    # rounding of 0.5, one version sees the crossing and the other sees none
-    # and keeps the default 15: such flips are allowed on at most 1e-5 of the
-    # pixels; every other pixel is held to 1e-4
-    off = (med - med_p).abs() > 1e-4
-    flips = off & ((med == 15.0) | (med_p == 15.0))
-    fwd_err = {"accum": (accum - acc_p).abs().max().item(),
-               "final_t": (ft - ft_p).abs().max().item(),
-               "median": (med - med_p).abs()[~flips].max().item()}
-    med_mismatch = int(off.sum())
-    med_flips_ok = int(flips.sum()) == med_mismatch and med_mismatch <= max(1, 1e-5 * med.numel())
+    # a pixel near a cut-off (``near_cutoff_pixels``) may take either side of
+    # it: such pixels may part on at most 1e-5 of the pixels, and take no
+    # upstream gradient in the backward's check; every other pixel is held
+    # to 1e-4
+    by_cut = near_cutoff_pixels(packed_t, counts, tiles_x, tx, ty)
+    near = (by_cut["alpha"] | by_cut["power"] | by_cut["half"] | by_cut["stop"])[:, None, :]
+    far = ~near
+    fwd_err = {"accum": ((accum - acc_p).abs() * far).max().item(),
+               "final_t": ((ft - ft_p).abs() * far).max().item(),
+               "median": ((med - med_p).abs() * far).max().item()}
+    off = (((accum - acc_p).abs() > 1e-4).any(1, keepdim=True) | ((ft - ft_p).abs() > 1e-4)
+           | ((med - med_p).abs() > 1e-4))
+    n_near, n_off = int(near.sum()), int(off.sum())
+    cut_ok = n_near <= max(1, NEAR_SHARE * med.numel()) and n_off <= max(1, 1e-5 * med.numel())
 
-    gacc = torch.randn(accum.shape, generator=gen, device=accum.device)
-    gft = torch.randn(ft.shape, generator=gen, device=ft.device)
+    gacc = torch.randn(accum.shape, generator=gen, device=accum.device) * far
+    gft = torch.randn(ft.shape, generator=gen, device=ft.device) * far
     dpk = tc.composite_bwd(packed_t, counts, gacc, gft, ft, ckpt, tiles_x, tx, ty)
     (dpk_p,) = torch.autograd.grad((acc_p * gacc).sum() + (ft_p * gft).sum(), pk)
     live = (torch.arange(packed_t.shape[1], device=pk.device)[None, :] < counts[:, None])[..., None]
@@ -458,17 +539,18 @@ def check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc):
     comb_rel = comb_abs / max(out_p.abs().max().item(), 1e-30)
 
     print(f"kernel check: composite_fwd max|err| accum {fwd_err['accum']:.3e} final_t "
-          f"{fwd_err['final_t']:.3e} median {fwd_err['median']:.3e} "
-          f"(0.5-crossing flips {med_mismatch} of {med.numel()} pixels) "
-          f"[tol 1e-4; flips <= 1e-5 of the pixels]")
+          f"{fwd_err['final_t']:.3e} median {fwd_err['median']:.3e} away from the cut-offs "
+          f"[tol 1e-4]; {n_near} of {med.numel()} pixels near a cut-off (by cut-off "
+          f"{ {c: int(m.sum()) for c, m in by_cut.items()} }) [tol {NEAR_SHARE:g} of them], "
+          f"{n_off} of them part by more than 1e-4 [tol 1e-5 of the pixels]")
     fields = ["dx", "dy", "dca", "dcb", "dcc", "dop"] + [f"dcolor{i}" for i in range(len(g_scale) - 7)] \
         + ["ddepth"]
     print("kernel check: composite_bwd max|err| / max|g| per field [tol 1e-4 x max|g| of the field]: "
           + ", ".join(f"{n} {e:.3e} / {s:.3e}" for n, e, s in zip(fields, g_err, g_scale)))
     print(f"kernel check: combine_rows max|err| {comb_abs:.3e} rel {comb_rel:.3e} [tol 1e-5 rel]")
     failures = exact_failures + [k for k, v in fwd_err.items() if not v <= 1e-4]
-    if not med_flips_ok:
-        failures.append("median flips")
+    if not cut_ok:
+        failures.append("pixels near a cut-off")
     failures += [f"composite_bwd {n}" for n, e, s in zip(fields, g_err, g_scale) if not e <= 1e-4 * s]
     if not comb_rel <= 1e-5:
         failures.append("combine_rows")
@@ -663,8 +745,13 @@ def profile_run(label, run, n, ms_unit):
     """``run()`` (``n`` units of work with their set-up) under torch.profiler:
     the card's busy share, and each ``fnx.*`` span's host ms and the device
     ms of the kernels launched inside it, per unit. Kernels launched from
-    autograd's own thread show in the op table, not under a span."""
+    autograd's own thread show in the op table, not under a span. A
+    measurement, not a check: it runs only with PROFILES (``python3
+    chip_smoke.py profiles``), so the default run stays well inside its limit."""
     from torch.profiler import ProfilerActivity, profile
+
+    if not PROFILES:
+        return
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -690,7 +777,14 @@ def profile_run(label, run, n, ms_unit):
     print(ka.table(sort_by="self_cpu_time_total", row_limit=15))
 
 
-def main():
+def main(profiles=False):
+    """The default run; with ``profiles`` also the profiles of every phase
+    and the Zero123 batch probe (``python3 chip_smoke.py profiles``)."""
+    import time
+
+    global PROFILES
+    PROFILES = profiles
+
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
     from fluidnexus_torch.ops import cuda_build
@@ -709,18 +803,35 @@ def main():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
 
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]} s")
+        return out
+
     with tempfile.TemporaryDirectory(prefix="fnx_smoke_") as tmp:
-        kernels = run_phase_a(dev) + run_phase_b(dev)
-        phase_c_kernels, recon = run_phase_c(dev, os.path.join(tmp, "recon"))
-        kernels += phase_c_kernels + run_future(dev, recon, os.path.join(tmp, "future"))
-        kernels += run_stages(dev, os.path.join(tmp, "stages"))
-        kernels += run_video(dev, os.path.join(tmp, "video"))
-        kernels += run_video_train(dev, os.path.join(tmp, "video_train"))
-        kernels += run_refine(dev, os.path.join(tmp, "refine"))
-        kernels += run_novel_view(dev, os.path.join(tmp, "novel_view"))
-        kernels += run_text_data(dev, os.path.join(tmp, "text_data"))
-        kernels += run_port_eval(dev, os.path.join(tmp, "port_eval"),
-                                 t5_dir=os.path.join(tmp, "text_data", "t5_xxl_depth2"))
+        kernels = timed("A", run_phase_a, dev) + timed("B", run_phase_b, dev)
+        phase_c_kernels, recon = timed("C", run_phase_c, dev, os.path.join(tmp, "recon"))
+        kernels += phase_c_kernels + timed("future", run_future, dev, recon,
+                                           os.path.join(tmp, "future"))
+        kernels += timed("stages", run_stages, dev, os.path.join(tmp, "stages"))
+        with dit_depth(SMOKE_DIT_LAYERS):
+            kernels += timed("video", run_video, dev, os.path.join(tmp, "video"))
+            kernels += timed("video_train", run_video_train, dev,
+                             os.path.join(tmp, "video_train"))
+            kernels += timed("refine", run_refine, dev, os.path.join(tmp, "refine"))
+        kernels += timed("novel_view", run_novel_view, dev, os.path.join(tmp, "novel_view"),
+                         probes=profiles)
+        with dit_depth(SMOKE_DIT_LAYERS):
+            kernels += timed("text_data", run_text_data, dev, os.path.join(tmp, "text_data"))
+        kernels += timed("port_eval", run_port_eval, dev, os.path.join(tmp, "port_eval"),
+                         t5_dir=os.path.join(tmp, "text_data", "t5_xxl_depth2"))
+        kernels += timed("parallel", run_parallel, dev, os.path.join(tmp, "parallel"),
+                         os.path.join(tmp, "recon"))
+    print(f"phase seconds {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3153,6 +3264,10 @@ def small_reference_check(dev):
 
 VIDEO_STEPS = 4               # --num_steps, cut from the CLI's 50
 VIDEO_FRAMES = 49             # sample_video's default clip, 13 latents
+# blocks of the 5B DiT's 42 in the default run's video, video_train, refine
+# and text_data phases: the width, the token counts and so every attention
+# kernel's shape stay the 5B clip's; the single-phase commands run all 42
+SMOKE_DIT_LAYERS = 6
 VIDEO_PAIRS = ((0, 0), (0, 47), (1, 13), (1, 47))   # (b, h) held against the plain version
 RAGGED_S = (1, 47, 64, 65, 127, 128, 129, 777, 2274)   # 127-129 about the 128-row tiles
 # bf16 output and bf16 P each round to 2^-9 of a value: a weight that
@@ -3630,11 +3745,12 @@ def small_video_check(dev):
 
 # ------------------------------ video training -------------------------------
 
-TRAIN_ITERS = 3               # --iterations, cut from the CLI's 10 000
-QUANT_ITERS = 2
+TRAIN_ITERS = 2               # --iterations, cut from the CLI's 10 000 (3 before the
+QUANT_ITERS = 1               # parallel phase came, 2 here: an iteration is 21 s)
+QUANT_FRAMES = 9              # the --quant_base run's --num_frames (its eval fork decodes them)
 EVAL_STEPS = 2                # the eval fork's sampler steps (the CLI's default 20)
 LORA_RANK = 128
-TRAINABLES_5B = 264_241_152   # rank 128 over qkv, out, fc1, fc2 of 42 blocks
+TRAINABLES_A_BLOCK = 6_291_456   # rank 128 over qkv, out, fc1, fc2 (264 241 152 in 42 blocks)
 ADALN_STD = 0.1               # x lecun: gates ~0.1, so attention reaches the loss
 LORA_B_STD = 0.01             # / sqrt(rank): the adapters add ~1 % to a projection
 
@@ -3749,11 +3865,11 @@ def check_train_launches(launches, what, fwd, bwd):
 
 
 def run_video_train(dev, root):
-    """LoRA training of the 5B DiT through ``train_video.train`` (3
-    iterations), then 2 iterations with ``--quant_base`` ending in an eval
-    fork: launch counts, trainables, losses, ms per step (CUDA events, the
-    median of steps 2-3), the VAE encode, peak memory, the card's idle share
-    in one more step; the Hopper backward against the plain backward at
+    """LoRA training of the 5B DiT through ``train_video.train`` (2
+    iterations), then 1 iteration with ``--quant_base`` on QUANT_FRAMES
+    frames ending in an eval fork: launch counts, trainables, losses, ms per
+    step (CUDA events, the last step), the VAE encode, peak memory, the card's
+    idle share in one more step; the Hopper backward against the plain backward at
     layer 0's captured inputs (and run twice); its time beside the mma.sync
     pair's and the library's; the small card-vs-CPU training run. Returns the
     ``kernels`` line's entries of the Hopper backward and of the f32 pair
@@ -3794,8 +3910,8 @@ def run_video_train(dev, root):
           f"train end to end {seconds:.2f} s; peak allocated {peak / 2**30:.2f} GiB")
     check_train_launches(launches, "the LoRA run", 2 * n_layers * TRAIN_ITERS,
                          n_layers * TRAIN_ITERS)
-    if n_train != TRAINABLES_5B:
-        _fail(f"{n_train} trainables, expected {TRAINABLES_5B}")
+    if n_train != TRAINABLES_A_BLOCK * n_layers:
+        _fail(f"{n_train} trainables, expected {TRAINABLES_A_BLOCK * n_layers}")
     lb = trainer.params["block_0.attn.qkv.lora_b"]
     if not (all(math.isfinite(x) for x in seen["losses"]) and math.isfinite(loss)
             and all(bool(torch.isfinite(p).all()) for p in trainer.params.values())
@@ -3827,7 +3943,8 @@ def run_video_train(dev, root):
     qtimer = StageTimer()
     (qdit, qloss, _), qlaunches, qseconds, qpeak, qseen = run_train(
         base + ["--iterations", str(QUANT_ITERS), "--quant_base", "--eval_interval",
-                str(QUANT_ITERS), "--eval_steps", str(EVAL_STEPS)], qtimer)
+                str(QUANT_ITERS), "--eval_steps", str(EVAL_STEPS), "--num_frames",
+                str(QUANT_FRAMES)], qtimer)
     qstep = qtimer.ms["train_step"]
     print(f"video training --quant_base: launches {qlaunches}; losses "
           f"{', '.join(f'{x:.5f}' for x in qseen['losses'])}; ms per step "
@@ -3839,7 +3956,7 @@ def run_video_train(dev, root):
                          2 * n_layers * QUANT_ITERS + n_layers * (1 + EVAL_STEPS),
                          n_layers * QUANT_ITERS)
     clips = qseen["decoded"]
-    if not (len(clips) == 1 and tuple(clips[0].shape) == (1, VIDEO_FRAMES, 480, 720, 3)
+    if not (len(clips) == 1 and tuple(clips[0].shape) == (1, QUANT_FRAMES, 480, 720, 3)
             and bool(torch.isfinite(clips[0]).all()) and math.isfinite(qloss)
             and all(math.isfinite(x) for x in qseen["losses"])):
         _fail("the --quant_base run or its eval clip is not finite or of the expected shape")
@@ -4125,7 +4242,8 @@ def small_video_train_check(dev):
 # ----------------------------- the refinement stage ---------------------------
 
 REFINE_STEPS = 8              # --num_steps, cut from 50: at strength 0.5 the sampler runs 4
-REFINE_WINDOWS = 2            # --num_windows, cut from the preset's 3
+REFINE_WINDOWS = 1            # --num_windows, cut from the preset's 3 (the chained windows:
+                              # small_refine_check's two, card against CPU)
 REFINE_BODY_STARTS = (3, 115)  # --window_start_indices: frames 3, 5, ..., 113, then 115, ..., 225
 REFINE_GT_START = 1           # --gt_prefix_start: GT frames 1, 3, ..., 17
 FUTURE_STEPS = 6              # --num_steps, cut from 50: at strength 0.75 the sampler runs 4
@@ -4344,8 +4462,8 @@ def check_packed_video(name, path, folder, n):
 def run_refine(dev, root):
     """The refinement stage through its two CLIs at the CogVideoX-5B
     geometry on seeded weights, with the shipped presets (module docstring):
-    ``gen_refine_video.main --preset refine_smoke`` (two 65-frame windows,
-    23 176 tokens) and ``gen_future_video.main --preset future_smoke`` (one
+    ``gen_refine_video.main --preset refine_smoke`` (REFINE_WINDOWS 65-frame
+    windows, 23 176 tokens) and ``gen_future_video.main --preset future_smoke`` (one
     73-frame window, 25 876 tokens) on seeded input folders at the capture's
     960 x 544; launch counts, ms per sampler step, encode and decode ms, peak
     memory, the frames written and the packed video; row 14 held and timed at
@@ -4356,9 +4474,11 @@ def run_refine(dev, root):
     from fluidnexus_torch.pipelines.sample_video import configs
 
     step = 2   # both presets' frame_step
+    starts = REFINE_BODY_STARTS[:REFINE_WINDOWS]
+    n_written = [65] + [56] * (REFINE_WINDOWS - 1)   # a later window repeats 9 prefix frames
     n_layers = configs(65, 480, 720, tiny=False)[0].num_layers
     inp = write_frames(os.path.join(root, "zero123"), "frame_%06d.png",
-                       [s + step * i for s in REFINE_BODY_STARTS for i in range(56)], SEED + 11)
+                       [s + step * i for s in starts for i in range(56)], SEED + 11)
     gt = write_frames(os.path.join(root, "gt"), "%03d.png",
                       [REFINE_GT_START + step * i for i in range(9)], SEED + 12)
     renders = write_frames(os.path.join(root, "renders"), "render_frame%03d_train00_0000.png",
@@ -4368,7 +4488,7 @@ def run_refine(dev, root):
     out = os.path.join(root, "refined")
     argv = ["--preset", "refine_smoke", "--input_folder", inp, "--gt_prefix_folder", gt,
             "--out_folder", out, "--num_steps", str(REFINE_STEPS), "--num_windows",
-            str(REFINE_WINDOWS), "--window_start_indices", *map(str, REFINE_BODY_STARTS),
+            str(REFINE_WINDOWS), "--window_start_indices", *map(str, starts),
             "--gt_prefix_start", str(REFINE_GT_START), "--allow_fake_conditioning",
             "--pack_video"]
     print(f"refine: gen_refine_video.main({argv}): the CogVideoX-5B DiT ({n_layers} layers) and "
@@ -4381,13 +4501,15 @@ def run_refine(dev, root):
     (written, video), info = timed_cli(gen_refine_video.main, argv)
     print_cli_times("refine", info)
     forwards = sum(len(r) for r in info["steps"])
-    if written != [65, 56] or forwards != 2 * 4 or len(info["encode"]) != 2 \
-            or info["decoded"] != [((1, 65, 480, 720, 3), True)] * 2:
+    if written != n_written or forwards != REFINE_WINDOWS * 4 \
+            or len(info["encode"]) != REFINE_WINDOWS \
+            or info["decoded"] != [((1, 65, 480, 720, 3), True)] * REFINE_WINDOWS:
         _fail(f"refine: wrote {written} frames in {forwards} DiT forwards, "
-              f"{len(info['encode'])} encodes and decodes {info['decoded']}; expected [65, 56], "
-              f"8, 2 and two finite (1, 65, 480, 720, 3)")
-    check_frames_folder("refine", out, [f"frame_{i:06d}.png" for i in range(121)])
-    check_packed_video("refine", video, out, 121)
+              f"{len(info['encode'])} encodes and decodes {info['decoded']}; expected "
+              f"{n_written}, {REFINE_WINDOWS * 4}, {REFINE_WINDOWS} and {REFINE_WINDOWS} finite "
+              f"(1, 65, 480, 720, 3)")
+    check_frames_folder("refine", out, [f"frame_{i:06d}.png" for i in range(sum(n_written))])
+    check_packed_video("refine", video, out, sum(n_written))
     entries = [refine_attention_entry("refine", info, forwards, n_layers)]
     del info
 
@@ -5720,8 +5842,11 @@ def stages_only():
 
 # ------------------------------ novel view (Zero123) ------------------------------
 
-NV_ITERS, NV_BATCH = 20, 8       # cut from the reference finetune's 52 000 iterations of batch 96
-NV_PROBE_BATCHES = (16, 32, 96)
+NV_ITERS, NV_BATCH = 5, 8        # cut from the reference finetune's 52 000 iterations of batch 96
+NV_SAMPLE_STEPS = 10             # --sample_steps of the logged grids (the CLI's 50)
+NV_LAST = f"iter_{NV_ITERS:07d}"
+NV_PROBE_BATCHES = (96,)         # the reference finetune's batch (16 and 32 fit: PR 20)
+NV_INFER_FRAMES, NV_INFER_STEPS = 1, 10   # infer_novel_view's --num_frames, --num_steps (410, 50)
 NV_TOL = 1e-4                    # card against the CPU in f64, x max|f64| ...
 NV_F32_RATIO = 2.0               # ... or at most this x the CPU's own f32 error there
 NV_VIEWS = (0, 1, 3, 4)          # infer_novel_view's default targets from camera 2
@@ -5785,20 +5910,22 @@ def _nv_held(label, card, cpu32, cpu64):
     return ok
 
 
-def run_novel_view(dev, root):
+def run_novel_view(dev, root, probes=False):
     """The Zero123 stage through its two CLIs at the full geometry (UNet
     320 x (1, 2, 4, 4), CLIP ViT-L/14, KL-VAE 128; 256 px, 32 x 32 latents)
     on seeded weights: a capture of 3 frames x 5 cameras through ``convert
     original_to_zero123`` (512-px PNGs) and ``zero123_cams``;
     ``train_novel_view`` for NV_ITERS steps of batch NV_BATCH (cut from 52 000
     of 96) with the EMA, checkpoints and TensorBoard grids; a probe of the
-    larger batches; ``infer_novel_view`` from its iter_0000020 (2 frames x 4
-    views, 50 DDIM steps, CFG 3.0); ``convert zero123_to_cogvideox`` on the
-    output; the UNet (batch 2, both CFG halves), CLIP and the VAE on the card
-    against the CPU at NV_TOL; component times; a profile of a sampler step
-    and a training step. No hand-written kernel is on this path: the launch
-    counts stay 0. Returns no ``kernels`` entry."""
-    import contextlib
+    reference's batch; ``infer_novel_view`` from its last checkpoint
+    (NV_INFER_FRAMES frames x 4 views, NV_INFER_STEPS DDIM steps, CFG 3.0);
+    ``convert zero123_to_cogvideox`` on the output; the UNet (batch 2, both
+    CFG halves), CLIP and the VAE on the card against the CPU at NV_TOL; component times; a profile of a sampler step
+    and a training step. The probe and the profiles are measurements, not
+    checks: they run with ``probes`` (``python3 chip_smoke.py novel-view``),
+    not in the default run. No hand-written kernel is on this path: the
+    launch counts stay 0. Returns no ``kernels`` entry."""
+    import copy
     import shutil
     import time
 
@@ -5858,7 +5985,8 @@ def run_novel_view(dev, root):
     save = os.path.join(root, "run")
     argv = ["train_novel_view", "--data_dir", z123, "--save_dir", save, "--image_size", "256",
             "--batch", str(NV_BATCH), "--iterations", str(NV_ITERS), "--log_every", "5",
-            "--save_every", str(NV_ITERS), "--sample_every", str(NV_ITERS), "--sample_steps", "50",
+            "--save_every", str(NV_ITERS), "--sample_every", str(NV_ITERS), "--sample_steps",
+            str(NV_SAMPLE_STEPS),
             "--max_log_images", "4"]
     print(f"novel-view: python -m fluidnexus_torch {' '.join(argv)} (full width, EMA 0.9999; "
           f"cut: batch 96 -> {NV_BATCH}, iterations 52 000 -> {NV_ITERS})")
@@ -5880,15 +6008,21 @@ def run_novel_view(dev, root):
     print(f"novel-view parameters: " + ", ".join(f"{k} {v:,}" for k, v in counts.items())
           + f"; total {sum(counts.values()):,}")
     print(f"novel-view train: {train_s:.1f} s for {NV_ITERS} iterations; ms per step (the card, "
-          f"synchronised) {', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 10 "
-          f"{statistics.median(step_ms[-10:]):.1f} ms; host data (PNG decode + LANCZOS 512 -> "
+          f"synchronised) {', '.join(f'{t:.1f}' for t in step_ms)}; median of steps 2-{NV_ITERS} "
+          f"{statistics.median(step_ms[1:]):.1f} ms; host data (PNG decode + LANCZOS 512 -> "
           f"256 of {2 * NV_BATCH} images) median {statistics.median(data_ms):.1f} ms a batch; "
           f"device_memory_stats {json.dumps({k: round(v, 1) for k, v in mem.items()})}")
     if len(losses) != NV_ITERS // 5 or not all(math.isfinite(x) for x in losses) \
             or len(step_ms) != NV_ITERS:
         _fail(f"novel-view train: log lines {logs}, {len(step_ms)} steps")
+    marks = [time.perf_counter()]
+
+    def mark(what):
+        marks.append(time.perf_counter())
+        print(f"novel-view: {what} {marks[-1] - marks[-2]:.1f} s")
+
     trees = {}
-    for name in ("iter_0000020", "iter_0000020_ema"):
+    for name in (NV_LAST, NV_LAST + "_ema"):
         tree = load_params(os.path.join(save, name))
         leaves = _leaves(tree)
         finite = all(np.isfinite(x).all() for x in leaves)
@@ -5901,8 +6035,8 @@ def run_novel_view(dev, root):
             _fail(f"novel-view: {name} did not load back as the full tree")
         trees[name] = tree
     ema_moved = max(float(np.abs(a - b).max()) for a, b in zip(
-        _leaves(trees["iter_0000020"]["unet"]), _leaves(trees["iter_0000020_ema"]["unet"])))
-    del trees["iter_0000020_ema"]
+        _leaves(trees[NV_LAST]["unet"]), _leaves(trees[NV_LAST + "_ema"]["unet"])))
+    del trees[NV_LAST + "_ema"]
     events = [f for f in os.listdir(save) if f.startswith("events.out.tfevents")]
     blob = b"".join(open(os.path.join(save, f), "rb").read() for f in events)
     grids = {t: blob.count(t.encode()) for t in ("train/conditioning", "train/targets",
@@ -5913,7 +6047,10 @@ def run_novel_view(dev, root):
         _fail("novel-view: the event file does not hold the three grids twice, or the EMA "
               "never moved")
 
-    nv_batch_probe(dev)
+    mark("the checkpoints and the event file read back")
+    if probes:
+        nv_batch_probe(dev)
+        mark("the batch probe")
 
     # ---- sampling through the CLI
     out = os.path.join(root, "novel_views")
@@ -5928,9 +6065,10 @@ def run_novel_view(dev, root):
         return res
 
     argv = ["infer_novel_view", "--data_dir", z123, "--out_dir", out, "--ckpt",
-            os.path.join(save, "iter_0000020"), "--num_frames", "2"]
+            os.path.join(save, NV_LAST), "--num_frames", str(NV_INFER_FRAMES), "--num_steps",
+            str(NV_INFER_STEPS)]
     print(f"novel-view: python -m fluidnexus_torch {' '.join(argv)} (source camera 2, targets "
-          f"{NV_VIEWS}, 50 DDIM steps, CFG 3.0, 256 px, the _ema sibling)")
+          f"{NV_VIEWS}, CFG 3.0, 256 px, the _ema sibling)")
     NovelViewModel.ddim_sample = timed_sample
     t0 = time.perf_counter()
     try:
@@ -5946,7 +6084,7 @@ def run_novel_view(dev, root):
         _fail("novel-view: the Zero123 path launched a hand-written kernel")
     stds = []
     for c in NV_VIEWS:
-        for i in range(2):
+        for i in range(NV_INFER_FRAMES):
             path = os.path.join(out, f"zero123_finetune_52000_cam2to{c}", f"frame_{i:06d}.png")
             if not os.path.exists(path):
                 _fail(f"novel-view: {path} was not written")
@@ -5954,9 +6092,9 @@ def run_novel_view(dev, root):
             stds.append(float(img.std()))
             if img.shape != (256, 256, 3) or img.std() == 0:
                 _fail(f"novel-view: {path} is {img.shape} with std {img.std()}")
-    print(f"novel-view infer: {infer_s:.1f} s for 8 views (load included); ms per view "
-          f"(50 steps + decode) {', '.join(f'{t:.1f}' for t in view_ms)}; PNG std "
-          f"{min(stds):.1f}-{max(stds):.1f}")
+    print(f"novel-view infer: {infer_s:.1f} s for {len(stds)} views (load included); ms per "
+          f"view ({NV_INFER_STEPS} steps + decode) {', '.join(f'{t:.1f}' for t in view_ms)}; "
+          f"PNG std {min(stds):.1f}-{max(stds):.1f}")
 
     t0 = time.perf_counter()
     cvx = os.path.join(root, "cogvideox")
@@ -5966,14 +6104,16 @@ def run_novel_view(dev, root):
     hshapes = {read_png(os.path.join(cvx, n)).shape for n in handed}
     print(f"novel-view hand-off zero123_to_cogvideox: {handed} of {sorted(hshapes)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    if handed != ["frame_000000.png", "frame_000001.png"] or hshapes != {(480, 720, 3)}:
-        _fail("novel-view: zero123_to_cogvideox did not write the two 480 x 720 frames")
+    if handed != [f"frame_{i:06d}.png" for i in range(NV_INFER_FRAMES)] \
+            or hshapes != {(480, 720, 3)}:
+        _fail("novel-view: zero123_to_cogvideox did not write the view's 480 x 720 frames")
 
     # ---- card against CPU, component times, profiles
-    tree = trees.pop("iter_0000020")
-    model = novel_view_from_numpy(tree, None, dev)
+    mark("sampling and the hand-off")
+    tree = trees.pop(NV_LAST)
     cpu = novel_view_from_numpy(tree, None, "cpu")
-    cpu64 = novel_view_from_numpy(tree, None, "cpu").double()
+    cpu64 = copy.deepcopy(cpu).double()      # one build from the tree: the others copy it
+    model = copy.deepcopy(cpu).to(dev)
     del tree
     cond = torch.as_tensor(load_image(os.path.join(z123, "frame_000", "02.png")))[None]
     rts = [np.load(os.path.join(z123, "camera", f"{c:02d}.npy")) for c in (0, 2)]
@@ -6007,7 +6147,10 @@ def run_novel_view(dev, root):
           + f"; a view {statistics.median(view_ms):.1f} (the infer run's median)")
     if not ok:
         _fail("novel-view: the card and the CPU disagree")
-    nv_profiles(model, cond.to(dev), dt.to(dev), statistics.median(step_ms[-10:]))
+    mark("card against CPU")
+    if probes:
+        nv_profiles(model, cond.to(dev), dt.to(dev), statistics.median(step_ms[1:]))
+        mark("the profiles")
     del model
     gc_cuda()
     print(f"novel-view phase: {time.perf_counter() - t_phase:.1f} s")
@@ -6123,7 +6266,7 @@ def novel_view_only():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     with tempfile.TemporaryDirectory(prefix="fnx_novel_view_") as tmp:
-        print(json.dumps({"kernels": run_novel_view(torch.device("cuda"), tmp)}))
+        print(json.dumps({"kernels": run_novel_view(torch.device("cuda"), tmp, probes=True)}))
 
 
 # ------------------------------ text and data ---------------------------------
@@ -6134,7 +6277,9 @@ T5_WORDS = ("<pad> </s> <unk> a smoke plume rises past the cylinder in cold air 
 T5_PROMPTS = (" ".join(T5_WORDS[3 + (i * 7) % (len(T5_WORDS) - 3)] for i in range(300)),
               "a thin white smoke plume rises slowly past the cylinder in cold air")
 TEXT_TRAIN_ITERS = 1          # --iterations a data layout, cut from the CLI's 10 000
+TEXT_TRAIN_FRAMES = 9         # its --num_frames, of the 49-frame clips (the CLI's 49)
 TEXT_SAMPLE_STEPS = 2         # --num_steps of sample_video --t5_dir
+TEXT_SAMPLE_FRAMES = 9        # its --num_frames (49 before the parallel phase came: 21 s more)
 
 
 def write_t5_tokenizer(d):
@@ -6392,8 +6537,8 @@ def run_text_data(dev, root):
     prompt = T5_PROMPTS[1]
     out_folder = os.path.join(root, "sampled")
     argv = ["--prompt", prompt, "--out_folder", out_folder, "--t5_dir", tdir,
-            "--num_steps", str(TEXT_SAMPLE_STEPS)]
-    n_layers = sample_video.configs(VIDEO_FRAMES, 480, 720, tiny=False)[0].num_layers
+            "--num_steps", str(TEXT_SAMPLE_STEPS), "--num_frames", str(TEXT_SAMPLE_FRAMES)]
+    n_layers = sample_video.configs(TEXT_SAMPLE_FRAMES, 480, 720, tiny=False)[0].num_layers
     VideoEngine.sample = sample
     try:
         torch.cuda.synchronize()
@@ -6407,7 +6552,8 @@ def run_text_data(dev, root):
     finally:
         VideoEngine.sample = real_sample
     peak = torch.cuda.max_memory_allocated()
-    print(f"text-data: sample_video.main({argv}) at the 5B geometry (49 x 480 x 720): "
+    print(f"text-data: sample_video.main({argv}) at the 5B geometry ({TEXT_SAMPLE_FRAMES} x 480 "
+          f"x 720): "
           f"launches {launches}; {seconds:.2f} s end to end; peak allocated "
           f"{peak / 2**30:.2f} GiB (the XXL's {n_params * 4 / 2**30:.2f} GiB resident beside "
           f"it) [{smi}]")
@@ -6416,9 +6562,10 @@ def run_text_data(dev, root):
     if any(launches[n] != c for n, c in want.items()) or any(
             c for n, c in launches.items() if n not in want):
         _fail(f"sample_video --t5_dir launched {launches}, expected {want} and no other kernel")
-    if tuple(decoded.shape) != (1, VIDEO_FRAMES, 480, 720, 3) or not torch.isfinite(decoded).all():
+    if tuple(decoded.shape) != (1, TEXT_SAMPLE_FRAMES, 480, 720, 3) \
+            or not torch.isfinite(decoded).all():
         _fail(f"sample_video --t5_dir decoded {tuple(decoded.shape)}, not a finite clip")
-    if len(os.listdir(out_folder)) != VIDEO_FRAMES:
+    if len(os.listdir(out_folder)) != TEXT_SAMPLE_FRAMES:
         _fail(f"sample_video --t5_dir wrote {len(os.listdir(out_folder))} PNGs")
     with torch.no_grad():
         ref = two(*(torch.as_tensor(tok([prompt], truncation=True, max_length=226,
@@ -6436,14 +6583,15 @@ def run_text_data(dev, root):
             gc_cuda()
         argv = ["--data_root", data_root, "--t5_dir", tdir, "--batch", "2", "--lora_rank",
                 str(LORA_RANK), "--log_every", "1", "--fixed_frames", "3", "--iterations",
-                str(TEXT_TRAIN_ITERS)]
+                str(TEXT_TRAIN_ITERS), "--num_frames", str(TEXT_TRAIN_FRAMES)]
         timer = StageTimer()
         result, launches, seconds, peak, tseen = run_train(argv, timer)
         loss = result[1]
         del result   # its EMA tree holds the run's DiT
-        ds = train_video.make_video_dataset(data_root, VIDEO_FRAMES, 480, 720)
+        ds = train_video.make_video_dataset(data_root, TEXT_TRAIN_FRAMES, 480, 720)
         print(f"text-data: train_video --t5_dir on {label} ({type(ds).__name__}, "
-              f"{TEXT_TRAIN_ITERS} LoRA step of batch 2 at the 5B geometry): loss {loss:.5f}; "
+              f"{TEXT_TRAIN_ITERS} LoRA step of batch 2 at the 5B width, {TEXT_TRAIN_FRAMES} "
+              f"frames): loss {loss:.5f}; "
               f"launches {launches}; ms per LoRA step "
               f"{', '.join(f'{t:.1f}' for t in timer.ms['train_step'])}, VAE encode "
               f"{', '.join(f'{t:.1f}' for t in timer.ms['vae_encode'])}, data "
@@ -6572,7 +6720,6 @@ def pe_run(fn, *args, **kw):
     """``fn(*args, **kw)`` with its stdout captured (and echoed), every
     launch count set to 0 before, layer 0's attention inputs captured, the
     trees ``port_drill`` reports and saves kept: (result, stdout, info)."""
-    import contextlib
     import io
     import time
 
@@ -7277,6 +7424,437 @@ def port_eval_only(full_dit=False):
                                                    full_dit=full_dit)}))
 
 
+# ------------------------------- parallel -------------------------------------
+
+PAR_LAYERS = 2                # of the 5B DiT's 42 blocks, in the two-rank runs
+PAR_STEPS = 2                 # sampler steps of the two-rank sampling runs
+PAR_FRAMES = 9                # --num_frames of the two-rank CLIs (3 latents, 4 276 tokens)
+PAR_CP = (9, 64, 96)          # frames, height, width of the CP VAE check (the VAE's full channels)
+PAR_RECON_BATCH = 5           # cameras of the phase-C iteration at pipe.dp 2 (padded to 6)
+# bf16 latents after PAR_STEPS guided steps: a rank's GEMMs split or batch the
+# work differently (the row-parallel partial sums meet in a bf16 all_reduce),
+# so outputs part by bf16's 2^-8, which the guidance's 1 + 6 (cond - uncond)
+# multiplies up to ~7x a step: max|diff| within 5e-2 of max|ref| and the
+# mean within 1e-2 of mean|ref| (one rank's runs agree bit for bit)
+PAR_TOL, PAR_MEAN_TOL = 5e-2, 1e-2
+# train_video --tp 2: the loss is one f32 reduction of bf16 products either
+# way (1.76e-6 and 2.00e-6 relative in two card runs), so 1e-4 relative
+PAR_LOSS_TOL = 1e-4
+PAR_TIMEOUT = 600             # seconds the two ranks get for all their runs
+PAR_SHAPE = (2, 24, 17776, 64)   # rows 14 and 15 at 24 heads a rank, the 5B clip
+
+
+def _depth_configs(real, layers):
+    """``sample_video.configs`` with the DiT cut to ``layers`` blocks (the
+    ``--tiny`` DiT as it is)."""
+    def configs(num_frames, height, width, tiny, run_cfg=None):
+        dit_cfg, vae_cfg = real(num_frames, height, width, tiny, run_cfg)
+        return (dit_cfg if tiny else dataclasses.replace(dit_cfg, num_layers=layers)), vae_cfg
+
+    return configs
+
+
+@contextlib.contextmanager
+def dit_depth(layers):
+    """The video CLIs (``sample_video``, ``train_video``, ``gen_refine_video``,
+    ``gen_future_video``) build their DiT with ``layers`` blocks inside."""
+    from fluidnexus_torch.pipelines import sample_video, train_video
+
+    real = sample_video.configs
+    sample_video.configs = train_video.configs = _depth_configs(real, layers)
+    try:
+        yield
+    finally:
+        sample_video.configs = train_video.configs = real
+
+
+def _par_argv(root):
+    """The argv of the two-rank runs' CLIs (run the same on one rank)."""
+    return {
+        "sample": ["--prompt", "smoke rising past a cylinder", "--num_steps", str(PAR_STEPS),
+                   "--num_frames", str(PAR_FRAMES), "--allow_fake_conditioning"],
+        "train": ["--data_root", os.path.join(root, "clips"), "--iterations", "1", "--batch", "2",
+                  "--num_frames", str(PAR_FRAMES), "--allow_fake_conditioning",
+                  "--lora_rank", str(LORA_RANK), "--log_every", "1"],
+    }
+
+
+def _par_run(task, root, out_dir, group_size, recon):
+    """One run of the parallel phase on this process (a rank, or the one
+    rank): the CLI of ``task`` with the DiT cut to PAR_LAYERS blocks and the
+    non-zero init of the training phase (so every block's gates let its
+    attention and MLP reach the output), or the phase-C fit iteration.
+    Returns what the parent holds the runs to, and the launch counts."""
+    from fluidnexus_torch.diffusion.video.dit import gather_dit_state, lora_param_filter
+    from fluidnexus_torch.diffusion.video.engine import VideoEngine
+    from fluidnexus_torch.pipelines import sample_video, train_video
+
+    argv = _par_argv(root)
+    seen = {}
+    real = (sample_video.configs, train_video.configs, VideoEngine.init_params,
+            VideoEngine.sample)
+
+    def sample(self, *a, **kw):
+        lat = real[3](self, *a, **kw)
+        seen["lat"] = lat.float().cpu()
+        return lat
+
+    init = _train_init(real[2])
+
+    def init_params(self, generator):
+        model = init(self, generator)
+        seen["lora0"] = {n: p.detach().float().cpu().clone()
+                         for n, p in model.named_parameters() if lora_param_filter(n)}
+        return model
+
+    sample_video.configs = train_video.configs = _depth_configs(real[0], PAR_LAYERS)
+    VideoEngine.init_params, VideoEngine.sample = init_params, sample
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        if task.startswith("sample"):
+            flags = {"sample_tp": ["--tp", "2"], "sample_dp": ["--dp", "2"], "sample": []}[task]
+            decoded = sample_video.main(argv["sample"] + flags + [
+                "--out_folder", os.path.join(out_dir, task)], device="cuda")
+            torch.cuda.synchronize()
+            res = {"lat": seen["lat"], "frames": tuple(decoded.shape),
+                   "finite": bool(torch.isfinite(decoded).all())}
+        elif task.startswith("train"):
+            flags = ["--tp", "2"] if task == "train_tp" else []
+            dit, loss, _ = train_video.main(argv["train"] + flags, device="cuda", log=print)
+            lora = {n: p for n, p in dit.named_parameters() if lora_param_filter(n)}
+            full = gather_dit_state(dit, lora)
+            torch.cuda.synchronize()
+            res = {"loss": loss, "lora": {n: x.detach().float().cpu() for n, x in full.items()},
+                   "lora0": seen["lora0"], "local_qkv": tuple(dict(dit.named_parameters())[
+                       "block_0.attn.qkv.weight"].shape)}
+        else:
+            res = _par_recon(recon, group_size)
+        launches = all_launches()
+    finally:
+        sample_video.configs, train_video.configs, VideoEngine.init_params, VideoEngine.sample = real
+    res["launches"] = launches
+    return res
+
+
+def _par_recon(recon, dp):
+    """One phase-C fit iteration on the smoke scene from the reconstruction
+    ``recon``'s frame-1 checkpoint, its camera batch of PAR_RECON_BATCH split over the
+    ``pipe.dp`` ranks (``train_physical_particle._recon_group``). Returns the
+    loss, its terms and the fitted positions."""
+    from fluidnexus_torch.data.scene import cameras_by_time
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+
+    dev = torch.device("cuda")
+    cfg = phase_c_config()
+    cfg.optim.batch, cfg.pipe.dp = PAR_RECON_BATCH, dp
+    scene = smoke_scene()
+    bg = synthetic_background(32768, dev)
+    render_ground_truth(cfg, scene, bg, dev)
+    params = tp.pbf_params_from_config(cfg)
+    ckpt = os.path.join(recon, "checkpoint")
+    state = tp.load_hidden(ckpt, 1, cfg.model.hidden_capacity, params, device=dev)
+    visual, attrs = tp.load_visual(ckpt, 1, cfg.model.visual_capacity, channels=1, device=dev)
+    cams = cameras_by_time(scene.train_cameras)[2]
+    step = tp.make_current_frame_step(bg, tp.raster_config_from(cfg), cams[0].width,
+                                      cams[0].height, params, cfg.optim, 3,
+                                      group=tp._recon_group(cfg, dev))
+    sel, w, inv_w = tp._select_batch(np.random.default_rng(SEED), len(cams), PAR_RECON_BATCH, 2)
+    views, projs, fovs = tp._cam_tensors(cams, dev)
+    sel_t = torch.as_tensor(sel, device=dev)
+    nn = state.estimate_xyz / params.scale_factor
+    torch.cuda.synchronize()
+    reset_all_launches()
+    nn, _, loss, aux = step(nn, tp.adam_init({"nn": nn}), state, visual, attrs,
+                            (views[sel_t], projs[sel_t], fovs[sel_t]), tp._gts(cams, 3, dev)[sel_t],
+                            1e-4, torch.as_tensor(w, device=dev), torch.as_tensor(inv_w, device=dev))
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+            "nn": nn.cpu(), "alive": state.alive.cpu(), "slots": len(sel)}
+
+
+def _par_rank(rank, world, rdv, root, out_dir, recon):
+    """A rank of the parallel phase: gloo over a ``file://`` rendezvous (NCCL
+    refuses two ranks on one card), cuda:0, every two-rank run in turn, each
+    result saved for the parent."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        for task in ("sample_tp", "sample_dp", "train_tp", "recon_dp"):
+            res = _par_run(task, root, out_dir, world, recon)
+            torch.save(res, os.path.join(out_dir, f"{task}.rank{rank}.pt"))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_held(what, got, ref, tol, mean_tol=None):
+    """max|got - ref| over max|ref| against ``tol`` (and, with
+    ``mean_tol``, mean|got - ref| over mean|ref|); fails past them."""
+    diff = (got.float() - ref.float()).abs()
+    err, scale = float(diff.max()), float(ref.float().abs().max())
+    mean = float(diff.mean()) / float(ref.float().abs().mean())
+    print(f"parallel: {what}: max|diff| {err:.3e} of max|ref| {scale:.3e} ({err / scale:.2e}; "
+          f"tol {tol:g}); mean|diff| / mean|ref| {mean:.2e}"
+          + (f" (tol {mean_tol:g})" if mean_tol else ""))
+    if not err <= tol * scale or (mean_tol and not mean <= mean_tol):
+        _fail(f"parallel: {what} disagrees with one rank's run")
+    return err / scale
+
+
+def _par_cp_check(dev, tmp):
+    """``cp_vae_encode``/``cp_vae_decode`` on the card through a one-rank
+    NCCL group (gloo's point-to-point takes no CUDA tensor, so the two ranks
+    on one card cannot run the halo ring): the front pad, the masked group-
+    norm moments summed over the group, the uniform temporal pool and
+    doubling, against the serial pass at 1e-4 of scale."""
+    import torch.distributed as dist
+
+    from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig, init_vae
+    from fluidnexus_torch.parallel.cp import cp_vae_decode, cp_vae_encode
+    from fluidnexus_torch.parallel.mesh import make_mesh
+
+    t, hh, ww = PAR_CP
+    vae = init_vae(VAE3DConfig(), torch.Generator(device=dev).manual_seed(SEED))
+    x = torch.as_tensor(np.random.default_rng(SEED + 8).uniform(-1, 1, (1, t, hh, ww, 3)),
+                        dtype=torch.float32, device=dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, dp=1, tp=1, time=1, device_type="cuda")
+        with torch.no_grad():
+            z_ser = vae.encode(x, sample=False)[0]
+            z_cp = cp_vae_encode(vae, x, mesh)
+            d_ser = vae.decode(z_ser)[0]
+            d_cp = cp_vae_decode(vae, z_ser, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    e = _par_held(f"cp_vae_encode at n = 1 under NCCL, {tuple(x.shape)} (3 front pads) against "
+                  f"the serial encode", z_cp, z_ser, 1e-4)
+    d = _par_held(f"cp_vae_decode at n = 1 under NCCL, latents {tuple(z_ser.shape)} (1 front "
+                  f"pad) against the serial decode", d_cp, d_ser, 1e-4)
+    return max(e, d)
+
+
+def _par_kernel_entries(launches_fwd, launches_bwd):
+    """Rows 14 and 15 at PAR_SHAPE (24 heads, a rank's share of the 5B's 48
+    under --tp 2) on seeded bf16 inputs: against the plain versions on two
+    (b, h) pairs, their CUDA-event times beside the bound, the plain
+    versions' and the library's. Returns their ``kernels`` entries."""
+    import torch.nn.functional as F
+
+    from fluidnexus_torch.ops import attention_cuda as ac
+
+    b, h, s, d = PAR_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    q, k, v, dout = (torch.randn(PAR_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    dout = dout.transpose(1, 2).contiguous()     # (b, s, h, d), the layout the DiT hands back
+    pairs = ((0, 0), (1, 23))
+    with torch.no_grad():
+        out, lse = ac.attention_fwd(q, k, v, lse=True)
+        grads = ac.attention_bwd(q, k, v, out, lse, dout)
+        f_err = b_err = 0.0
+        for bi, hi in pairs:
+            sl = (slice(bi, bi + 1), slice(hi, hi + 1))
+            e = attention_errors(out[bi:bi + 1, :, hi:hi + 1], ac.attention_plain(q[sl], k[sl], v[sl]))
+            eb = bwd_errors([g[sl] for g in grads],
+                            ac.attention_bwd_plain(q[sl], k[sl], v[sl], dout[bi:bi + 1, :, hi:hi + 1]))
+            if not (attention_ok(torch.bfloat16, *e) and bwd_ok(torch.bfloat16, eb)):
+                _fail(f"rows 14/15 at {PAR_SHAPE} disagree with their plain versions at {(bi, hi)}")
+            f_err, b_err = max(f_err, e[0]), max(b_err, *(x[0] for x in eb))
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: ac.attention_fwd(q, k, v), iters=10)
+        bwd_ms = cuda_ms(lambda: ac.attention_bwd(q, k, v, out, lse, dout), iters=5)
+        sl = (slice(0, 1), slice(0, 1))
+        plain = cuda_ms(lambda: ac.attention_plain(q[sl], k[sl], v[sl]), iters=2, warmup=1) * b * h
+        plain_bwd = cuda_ms(lambda: ac.attention_bwd_plain(q[sl], k[sl], v[sl], dout[:1, :, :1]),
+                            iters=2, warmup=1) * b * h
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10)
+    lib_bwd = sdpa_bwd_ms(q, k, v, dout)
+    prod = 2 * b * h * s * s * d
+    io = b * h * s * d * 2
+    fb = bound_ms(4 * io, 2 * prod, peak=H100_BF16_TC_FLOPS)
+    bb = bound_ms(8 * io + 4 * b * h * s, 5 * prod, peak=H100_BF16_TC_FLOPS)
+    print(f"parallel: row 14 (attention_fwd_wgmma) at {PAR_SHAPE} bf16: {ms:.3f} ms (bound "
+          f"{fb[0]:.3f} by {fb[1]}, plain {plain:.1f}, scaled_dot_product_attention {lib:.3f}); "
+          f"row 15 (attention_bwd_wgmma): {bwd_ms:.3f} ms (bound {bb[0]:.3f} by {bb[1]}, plain "
+          f"{plain_bwd:.1f}, the library's backward {lib_bwd:.3f}); max|err| {f_err:.3e} / "
+          f"{b_err:.3e}; launches at 24 heads on rank 0: {launches_fwd} forward, {launches_bwd} "
+          f"backward")
+    common = {"route": "cuda", "heads": h}
+    return [dict(common, name="attention_fwd_wgmma_tp2", source="fluidnexus_torch/csrc/attention.cu",
+                 replaces="fluidnexus_tpu/diffusion/video/dit.py:213", launches=launches_fwd,
+                 max_abs_err=f_err, ms=ms, plain_ms=plain, bound_ms=fb[0], bound_by=fb[1],
+                 library_ms=lib),
+            dict(common, name="attention_bwd_wgmma_tp2",
+                 source="fluidnexus_torch/csrc/attention_bwd.cu",
+                 replaces="fluidnexus_tpu/diffusion/video/dit.py:256", launches=launches_bwd,
+                 max_abs_err=b_err, ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb[0],
+                 bound_by=bb[1], library_ms=lib_bwd)]
+
+
+def run_parallel(dev, root, recon):
+    """Item 16 on the card: two ranks on cuda:0 under gloo (NCCL refuses two
+    ranks on one device) run ``sample_video --tp 2`` and ``--dp 2`` at the 5B
+    width (48 heads, 24 a rank under --tp) with PAR_LAYERS blocks and
+    PAR_STEPS sampler steps, one ``train_video --tp 2`` LoRA step, and one
+    phase-C fit iteration at ``pipe.dp`` 2 from the reconstruction
+    ``recon``; this process runs each on one rank and holds the ranks
+    to it. Then the VAE's time-sharded encode and decode at n = 1 under NCCL
+    (``_par_cp_check``) and rows 14 and 15 at 24 heads. Returns their
+    ``kernels`` entries."""
+    import time
+
+    t0 = time.perf_counter()
+    gc_cuda()    # the ranks share the card with this process
+    out_dir = os.path.join(root, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    write_train_clip(os.path.join(root, "clips"), frames=PAR_FRAMES)
+    print(f"parallel: two gloo ranks on cuda:0; the 5B DiT cut to {PAR_LAYERS} of 42 blocks "
+          f"(hidden 3072, 48 heads), the non-zero init; sample_video --num_steps {PAR_STEPS} "
+          f"({PAR_FRAMES} x 480 x 720, 4 276 tokens) at --tp 2 and at --dp 2; train_video --tp 2 "
+          f"one LoRA step (rank {LORA_RANK}, batch 2, {PAR_FRAMES} frames); one phase-C fit "
+          f"iteration at pipe.dp 2 (batch {PAR_RECON_BATCH}, padded to 6)")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_par_rank, args=(r, 2, os.path.join(root, "rendezvous"), root,
+                                                 out_dir, recon)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + PAR_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if [p.exitcode for p in procs] != [0, 0]:
+        _fail(f"parallel: the ranks exited {[p.exitcode for p in procs]}")
+    t_ranks = time.perf_counter() - t0
+
+    def ranks(task):
+        return [torch.load(os.path.join(out_dir, f"{task}.rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+    one = {t: _par_run(t, root, out_dir, 1, recon) for t in ("sample", "train", "recon")}
+    worst = {}
+    for task in ("sample_tp", "sample_dp"):
+        got = ranks(task)
+        for r, res in enumerate(got):
+            if not res["finite"] or res["frames"] != (1, PAR_FRAMES, 480, 720, 3):
+                _fail(f"parallel: {task} rank {r} decoded {res['frames']} (finite {res['finite']})")
+            worst[task] = _par_held(f"{task} rank {r}'s latents after {PAR_STEPS} steps",
+                                    res["lat"], one["sample"]["lat"], PAR_TOL, PAR_MEAN_TOL)
+        heads = 24 if task == "sample_tp" else 48
+        want = PAR_LAYERS * PAR_STEPS
+        for r, res in enumerate(got):
+            lc = res["launches"]
+            print(f"parallel: {task} rank {r} launches {lc}")
+            if lc["attention_fwd_wgmma"] != want:
+                _fail(f"parallel: {task} rank {r} launched the Hopper forward "
+                      f"{lc['attention_fwd_wgmma']} times, expected {want} ({heads} heads)")
+        pngs = [sorted(os.listdir(os.path.join(out_dir, task)))]
+        if len(pngs[0]) != PAR_FRAMES:
+            _fail(f"parallel: {task} wrote {len(pngs[0])} PNGs, expected {PAR_FRAMES}")
+    train = ranks("train_tp")
+    lr = 1e-3
+
+    def median_step(res):
+        """The median |change| of the LoRA leaves over the step, over lr."""
+        return float(torch.cat([(res["lora"][n] - x).abs().flatten()
+                                for n, x in res["lora0"].items()]).median()) / lr
+
+    # Adam's first update is lr * g / (|g| + eps) plus the decay, so the
+    # step moves about every LoRA element by lr: the median change is held
+    # within 10 % of lr on one rank and on each of the two
+    one_step = median_step(one["train"])
+    for r, res in enumerate(train):
+        if res["local_qkv"] != (3 * 3072 // 2, 3072):
+            _fail(f"parallel: train_tp rank {r} holds qkv {res['local_qkv']}, not half the heads")
+        rel = abs(res["loss"] - one["train"]["loss"]) / abs(one["train"]["loss"])
+        print(f"parallel: train_tp rank {r} loss {res['loss']:.6f}, one rank "
+              f"{one['train']['loss']:.6f} ({rel:.2e}; tol {PAR_LOSS_TOL:g}); launches "
+              f"{res['launches']}")
+        if not rel <= PAR_LOSS_TOL:
+            _fail("parallel: train_video --tp 2's loss disagrees with one rank's")
+        if any(not torch.equal(res["lora0"][n], x) for n, x in one["train"]["lora0"].items()):
+            _fail(f"parallel: train_tp rank {r} started from other LoRA leaves than one rank")
+        # leaves whose gradient is bf16 noise may take the other sign, the
+        # rest agree
+        diffs = torch.cat([(res["lora"][n] - x).abs().flatten()
+                           for n, x in one["train"]["lora"].items()])
+        step = median_step(res)
+        print(f"parallel: train_tp rank {r}'s LoRA leaves after the step against one rank's: max "
+              f"|diff| {float(diffs.max()):.3e}, mean {float(diffs.mean()):.3e} (lr {lr:g}; tol "
+              f"max 2 lr, mean 0.05 lr); median |step| {step:.4f} lr, one rank's {one_step:.4f} "
+              f"lr (tol 0.9-1.1 lr)")
+        if not (float(diffs.max()) <= 2 * lr and float(diffs.mean()) <= 0.05 * lr
+                and 0.9 <= step <= 1.1 and 0.9 <= one_step <= 1.1):
+            _fail("parallel: train_video --tp 2's LoRA step disagrees with one rank's")
+        check_train_launches(res["launches"], f"train_tp rank {r}", 2 * PAR_LAYERS, PAR_LAYERS)
+    recon = ranks("recon_dp")
+    ref = one["recon"]
+    for r, res in enumerate(recon):
+        rel = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+        dnn = (res["nn"] - ref["nn"])[ref["alive"]].abs()
+        print(f"parallel: recon_dp rank {r}: loss {res['loss']:.6f} against one rank's "
+              f"{ref['loss']:.6f} ({rel:.2e}), terms {res['aux']} / {ref['aux']}; nn max|diff| "
+              f"{float(dnn.max()):.3e}, mean {float(dnn.mean()):.3e} (lr 1e-4); launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }")
+        if not (rel <= 1e-4 and float(dnn.max()) <= 2e-4 and float(dnn.mean()) <= 5e-6):
+            _fail("parallel: the phase-C iteration at pipe.dp 2 disagrees with one rank's")
+        if res["launches"]["composite_bwd"] != 3:
+            _fail(f"parallel: recon_dp rank {r} rendered {res['launches']['composite_bwd']} "
+                  f"cameras, expected 3 of the 6 padded slots")
+    cp_err = _par_cp_check(dev, root)
+    entries = _par_kernel_entries(
+        train[0]["launches"]["attention_fwd_wgmma"]
+        + ranks("sample_tp")[0]["launches"]["attention_fwd_wgmma"],
+        train[0]["launches"]["attention_bwd_wgmma"])
+    print(f"parallel: rank vs one-rank errors (max|diff| / max|ref|) sample_tp "
+          f"{worst['sample_tp']:.2e}, sample_dp {worst['sample_dp']:.2e}, cp {cp_err:.2e}; the "
+          f"ranks {t_ranks:.1f} s; the phase {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def parallel_only():
+    """``python3 chip_smoke.py parallel``: builds the kernels, makes a
+    reconstruction (phases A -> B -> C at the smoke config, cut to 5 and 3
+    fit iterations), then ``run_parallel``."""
+    from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    cuda_build.build(["rasterizer", "pbf", "splat", "attention", "attention_bwd"])
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="fnx_parallel_") as tmp:
+        cfg = phase_c_config()
+        cfg.optim.iterations_per_time_first = 5
+        cfg.optim.iterations_per_time_current = cfg.optim.iterations_per_time_current_max = 3
+        scene = smoke_scene()
+        bg = synthetic_background(32768, dev)
+        render_ground_truth(cfg, scene, bg, dev)
+        cfg.model.model_path = os.path.join(tmp, "recon")
+        tp.train(cfg, scene, bg=bg, log=lambda *a: None, device="cuda")
+        print(json.dumps({"kernels": run_parallel(dev, os.path.join(tmp, "parallel"),
+                                                  cfg.model.model_path)}))
+
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -7302,6 +7880,10 @@ if __name__ == "__main__":
         attention_time()
     elif sys.argv[1:] == ["attention-bwd"]:
         attention_bwd_time()
+    elif sys.argv[1:] == ["parallel"]:
+        parallel_only()
+    elif sys.argv[1:] == ["profiles"]:
+        main(profiles=True)
     elif sys.argv[1:] == ["tick-flips"]:
         tick_flips()
     elif sys.argv[1:2] == ["raster"] and len(sys.argv) <= 3:

@@ -10,7 +10,9 @@ the host. Moments are exposed for the densification "optimizer surgery".
 ``ClipAdamW`` is the video trainer's ``optax.chain(clip_by_global_norm,
 adamw)`` with optax's defaults (eps 1e-8, weight decay 1e-4; torch's AdamW
 defaults to 1e-2): the updates scaled by max_norm / |g| only when |g| >=
-max_norm (``clip_grad_norm_`` scales by max_norm / (|g| + 1e-6) always)."""
+max_norm (``clip_grad_norm_`` scales by max_norm / (|g| + 1e-6) always).
+Across ranks (``ClipAdamW.shard``) the moments are ZeRO-sharded over the
+mesh's 'data' axis and the clip's norm is taken over the whole gradient."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
@@ -18,6 +20,9 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 
 import torch
+import torch.distributed as dist
+
+from fluidnexus_torch.parallel.mesh import chunk, gather, group
 
 
 class AdamState(NamedTuple):
@@ -77,12 +82,42 @@ class ClipAdamW:
         self.count = 0
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
+        # set by ``shard``: the mesh, each moment's ZeRO dim and the
+        # tensor-parallel leaves
+        self.mesh, self.zero, self.tp_sharded = None, {}, frozenset()
+
+    def shard(self, zero_dims, mesh, tp_sharded=()):
+        """ZeRO over the mesh's 'data' axis: each moment keeps this rank's
+        chunk along ``zero_dims[name]`` (None: whole), each step updates
+        that chunk of its parameter and all-gathers the parameter back.
+        ``tp_sharded`` names the parameters split over 'model' (their
+        squares are summed over it for the clip)."""
+        self.mesh, self.zero, self.tp_sharded = mesh, dict(zero_dims), frozenset(tp_sharded)
+        dg = group(mesh, "data")
+        for k in self.params:
+            if self.zero.get(k) is not None:
+                self.mu[k] = chunk(self.mu[k], self.zero[k], dg).clone()
+                self.nu[k] = chunk(self.nu[k], self.zero[k], dg).clone()
+
+    def _full(self, name, x):
+        """A moment whole over 'data' from this rank's chunk of it."""
+        if self.zero.get(name) is not None:
+            x = gather(x, self.zero[name], group(self.mesh, "data"))
+        return x
+
+    def _local(self, name, x):
+        if self.zero.get(name) is not None:
+            x = chunk(x, self.zero[name], group(self.mesh, "data"))
+        return x
 
     def state_leaves(self):
-        """[count, mu leaves, nu leaves], each name-sorted."""
+        """[count, mu leaves, nu leaves], each name-sorted and whole over
+        'data' (the moments of a parameter split over 'model' stay this
+        rank's shard, as the parameter does)."""
         names = sorted_names(self.params)
-        return ([torch.tensor(self.count, dtype=torch.int32)] + [self.mu[n] for n in names]
-                + [self.nu[n] for n in names])
+        return ([torch.tensor(self.count, dtype=torch.int32)]
+                + [self._full(n, self.mu[n]) for n in names]
+                + [self._full(n, self.nu[n]) for n in names])
 
     def load_state_leaves(self, leaves):
         names = sorted_names(self.params)
@@ -91,24 +126,44 @@ class ClipAdamW:
         self.count = int(leaves[0])
         with torch.no_grad():
             for i, n in enumerate(names):
-                self.mu[n].copy_(torch.as_tensor(np.asarray(leaves[1 + i])))
-                self.nu[n].copy_(torch.as_tensor(np.asarray(leaves[1 + len(names) + i])))
+                for dst, leaf in ((self.mu, leaves[1 + i]), (self.nu, leaves[1 + len(names) + i])):
+                    leaf = leaf if torch.is_tensor(leaf) else torch.as_tensor(np.asarray(leaf))
+                    dst[n].copy_(self._local(n, leaf))
+
+    def _global_norm(self, grads):
+        """|g| over the whole gradient: the tensor-parallel leaves' squares
+        summed over 'model', the replicated ones counted once."""
+        sq = [torch.sum(g * g) for k, g in grads.items() if k not in self.tp_sharded]
+        total = sum(sq) if sq else 0.0
+        if self.tp_sharded:
+            part = sum(torch.sum(grads[k] * grads[k]) for k in sorted(self.tp_sharded))
+            dist.all_reduce(part, group=group(self.mesh, "model"))
+            total = total + part
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]):
         b1, b2 = self.b1, self.b2
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         if self.max_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            g_norm = self._global_norm(grads)
             keep = g_norm < self.max_norm
         self.count += 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
+        dg = group(self.mesh, "data")
         for k, p in self.params.items():
             g = grads[k]
             if self.max_norm is not None:
                 g = torch.where(keep, g, (g / g_norm) * self.max_norm)
+            d = self.zero.get(k)
+            pk = p if d is None else chunk(p, d, dg)
+            if d is not None:
+                g = chunk(g, d, dg)
             mu = self.mu[k].mul_(b1).add_((1 - b1) * g)
             nu = self.nu[k].mul_(b2).add_((1 - b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
-            p.add_(-lr * u)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * pk
+            if d is None:
+                p.add_(-lr * u)
+            else:
+                p.copy_(gather(pk + (-lr * u), d, dg))

@@ -75,6 +75,13 @@ def _randint(high, shape, generator, device):
     return torch.randint(0, high, tuple(shape), generator=generator, device=device)
 
 
+def _rows(x, part):
+    """Rows r B .. (r + 1) B of a draw over n B rows, part = (r, n)."""
+    r, n = part
+    b = x.shape[0] // n
+    return x[r * b:(r + 1) * b]
+
+
 def _f32(x):
     """A scalar rounded to f32, as the JAX package holds its ladders."""
     return float(np.float32(x))
@@ -108,14 +115,15 @@ class NovelViewModel(nn.Module):
 
     # --------------------------- conditioning --------------------------------
 
-    def conditioning(self, cond_image, pose_delta, rng=None, cfg_dropout=False):
+    def conditioning(self, cond_image, pose_delta, rng=None, cfg_dropout=False, part=(0, 1)):
         """cond_image (B, H, W, 3) in [0, 1]; pose_delta (B, 4). Returns
         (context (B, 1, 768), concat latent (B, h, w, 4)). With
-        ``cfg_dropout`` (and ``rng``), the 5/5/5 scheme (ddpm.py:813-827)."""
+        ``cfg_dropout`` (and ``rng``), the 5/5/5 scheme (ddpm.py:813-827);
+        ``part`` as in ``loss_fn``."""
         clip_emb = self.clip(cond_image)
         concat = self.vae.encode(cond_image * 2 - 1)
         if cfg_dropout and rng is not None:
-            r = _uniform((cond_image.shape[0],), rng, cond_image.device)
+            r = _rows(_uniform((part[1] * cond_image.shape[0],), rng, cond_image.device), part)
             drop_prompt = r < 0.10                     # 5 % prompt only + 5 % both
             drop_image = (r >= 0.05) & (r < 0.15)      # 5 % image only + 5 % both
             clip_emb = torch.where(drop_prompt[:, None], 0.0, clip_emb)
@@ -125,18 +133,21 @@ class NovelViewModel(nn.Module):
 
     # ------------------------------- loss ------------------------------------
 
-    def loss_fn(self, target_image, cond_image, pose_delta, rng: torch.Generator):
+    def loss_fn(self, target_image, cond_image, pose_delta, rng: torch.Generator, part=(0, 1)):
         """The eps-prediction MSE (LatentDiffusion.p_losses); target and cond
         images (B, H, W, 3) in [0, 1]. The target's latent is a posterior
-        sample."""
+        sample. ``part`` = (r, n): the images are rows r B .. (r + 1) B of
+        an n B batch, whose draws are made whole and cut (data-parallel
+        ranks draw what one rank would)."""
         dev = target_image.device
         lat = target_image.shape[1] // self.downsample_factor
         b = target_image.shape[0]
-        enc_noise = _normal((b, lat, lat, self.vae_config.z_channels), rng, dev)
+        nb = part[1] * b
+        enc_noise = _rows(_normal((nb, lat, lat, self.vae_config.z_channels), rng, dev), part)
         z = self.vae.encode(target_image * 2 - 1, noise=enc_noise)
-        ctx, concat = self.conditioning(cond_image, pose_delta, rng, cfg_dropout=True)
-        t = _randint(self.num_timesteps, (b,), rng, dev)
-        noise = _normal(z.shape, rng, dev)
+        ctx, concat = self.conditioning(cond_image, pose_delta, rng, cfg_dropout=True, part=part)
+        t = _rows(_randint(self.num_timesteps, (nb,), rng, dev), part)
+        noise = _rows(_normal((nb,) + tuple(z.shape[1:]), rng, dev), part)
         z_t = (self._ladder("ac", dev)[t][:, None, None, None] * z
                + self._ladder("1mac", dev)[t][:, None, None, None] * noise)
         eps = self.unet(torch.cat([z_t, concat], -1), t, ctx)

@@ -29,6 +29,15 @@ as int8 ``kernel_q`` (in, out) with an f32 per-column ``kernel_scale``.
 ``remat`` recomputes each block (or, with ``remat_group`` g > 1, each group of
 g blocks, nesting a scope per block) in the backward with
 ``torch.utils.checkpoint``.
+
+Tensor parallelism (``shard_dit_``, over the mesh's ``model`` axis, one rank
+a shard): ``attn.qkv`` and ``mlp.fc1`` are split by column, ``attn.out``
+and ``mlp.fc2`` by row, and each row-parallel product (its LoRA term
+included) is summed with one ``all_reduce``, its bias added once after it.
+``qkv`` is split by head within q, within k and within v, so each rank runs
+the attention on its own ``num_heads / tp`` heads. Everything else,
+the adaLN projections included, stays replicated. ``gather_dit_state`` puts
+the full tree back together, so checkpoints keep the full layout.
 """
 from __future__ import annotations
 
@@ -39,10 +48,12 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fluidnexus_torch.ops.attention_cuda import joint_attention
+from fluidnexus_torch.parallel.mesh import COLUMN, ROW, group, param_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +156,37 @@ def _empty(*shape, dtype):
 LORA_ALPHA = 1.0   # the JAX LoRADense's lora_alpha, which no caller sets
 
 
+class _CopyToModel(torch.autograd.Function):
+    """A column-parallel layer's input: the identity forward, its gradient
+    summed over the ``model`` group backward."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.grp)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """A row-parallel layer's partial products summed over the ``model``
+    group; the gradient passes through unchanged."""
+
+    @staticmethod
+    def forward(ctx, y, grp):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=grp)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class LoRADense(nn.Module):
     """flax ``nn.Dense(features, dtype)`` and the JAX ``LoRADense``: ``x @
     kernel`` (or, with ``quant``, ``(x @ kernel_q) * kernel_scale``, the
@@ -169,17 +211,27 @@ class LoRADense(nn.Module):
             self.lora_b = _empty(rank, out_features, dtype=torch.float32)
         else:
             self.lora_a = self.lora_b = None
+        # tensor parallel: None, "col" or "row", and the model group
+        self.tp_mode, self.tp_group = None, None
 
     def forward(self, x):
         dt = self.dtype
         x = x.to(dt)
+        row = self.tp_mode == "row"
+        if self.tp_mode == "col":
+            x = _CopyToModel.apply(x, self.tp_group)
+        bias = None if row else self.bias.to(dt)
         if self.quant:
-            y = torch.matmul(x, self.kernel_q.to(dt)) * self.kernel_scale.to(dt) + self.bias.to(dt)
+            y = torch.matmul(x, self.kernel_q.to(dt)) * self.kernel_scale.to(dt)
+            y = y if row else y + bias
         else:
-            y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
+            y = F.linear(x, self.weight.to(dt), bias)
         if self.lora_a is not None:
             y = y + torch.matmul(torch.matmul(x, self.lora_a.to(dt)), self.lora_b.to(dt)) \
                 * LORA_ALPHA
+        if row:
+            # the partial products, LoRA term included, in one reduce
+            y = _ReduceFromModel.apply(y, self.tp_group) + self.bias.to(dt)
         return y
 
 
@@ -216,10 +268,12 @@ class JointAttention(nn.Module):
     def forward(self, x, rope_cos, rope_sin):
         c = self.cfg
         b, s, _ = x.shape
-        q, k, v = torch.split(self.qkv(x), c.hidden_size, dim=-1)
+        qkv = self.qkv(x)
+        width = qkv.shape[-1] // 3   # hidden_size, or its share under tensor parallel
+        q, k, v = torch.split(qkv, width, dim=-1)
 
         def heads(t):
-            return t.reshape(b, s, c.num_heads, c.head_dim).transpose(1, 2)
+            return t.reshape(b, s, width // c.head_dim, c.head_dim).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)   # v stays a strided view
         q = _ln(q) * self.q_ln_scale.to(c.dtype)
@@ -233,7 +287,7 @@ class JointAttention(nn.Module):
         k = torch.cat([k[:, :, :tl], apply_rope(k[:, :, tl:], rope_cos, rope_sin).to(k.dtype)], 2)
 
         attn = joint_attention(q, k, v)  # (b, s, h, d)
-        return self.out(attn.reshape(b, s, c.hidden_size))
+        return self.out(attn.reshape(b, s, width))
 
 
 class MLP(nn.Module):
@@ -432,6 +486,96 @@ def quantize_dit_params(params):
                     else walk(v)) for k, v in tree.items()}
 
     return walk(params)
+
+
+# ----------------------------- tensor parallel -------------------------------
+
+def _qkv_rows(width: int, r: int, n: int, device=None):
+    """The fused q|k|v output columns rank r of n owns: its heads within q,
+    within k and within v."""
+    h = width // 3
+    w = h // n
+    return torch.cat([torch.arange(j * h + r * w, j * h + (r + 1) * w, device=device)
+                      for j in range(3)])
+
+
+def tp_split(name: str, full: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """Rank r of n's shard of a DiT leaf (the whole leaf if replicated)."""
+    spec = param_shardings([name])[name]
+    if spec is None or n == 1:
+        return full
+    dim = spec[0]
+    if ".attn.qkv." in name:
+        return full.index_select(dim, _qkv_rows(full.shape[dim], r, n, full.device))
+    return full.chunk(n, dim)[r]
+
+
+def tp_merge(name: str, parts) -> torch.Tensor:
+    """The full leaf from its ranks' shards, in rank order (the inverse of
+    ``tp_split``)."""
+    spec = param_shardings([name])[name]
+    if spec is None or len(parts) == 1:
+        return parts[0]
+    dim = spec[0]
+    if ".attn.qkv." in name:
+        thirds = [p.chunk(3, dim) for p in parts]
+        return torch.cat([thirds[r][j] for j in range(3) for r in range(len(parts))], dim)
+    return torch.cat(list(parts), dim)
+
+
+def shard_dit_(model: VideoDiT, mesh) -> VideoDiT:
+    """Split ``model`` in place to this rank's tensor-parallel shard over
+    the mesh's ``model`` axis (every rank holding the same full weights
+    before). Returns the model."""
+    grp = group(mesh, "model")
+    n = 1 if grp is None else dist.get_world_size(grp)
+    if n == 1:
+        return model
+    c = model.cfg
+    if c.num_heads % n or (c.mlp_ratio * c.hidden_size) % n:
+        raise ValueError(f"--tp {n} does not divide {c.num_heads} heads")
+    r = dist.get_rank(grp)
+    for mname, mod in model.named_modules():
+        if not isinstance(mod, LoRADense):
+            continue
+        mode = "col" if mname.endswith(COLUMN) else "row" if mname.endswith(ROW) else None
+        if mode is None:
+            continue
+        with torch.no_grad():
+            for leaf, p in list(mod.named_parameters(recurse=False)):
+                shard = tp_split(f"{mname}.{leaf}", p.data, r, n)
+                if shard is not p.data:
+                    setattr(mod, leaf, nn.Parameter(shard.clone(), requires_grad=p.requires_grad))
+        mod.tp_mode, mod.tp_group = mode, grp
+    model.tp_group = grp
+    return model
+
+
+def tp_partial_grad(name: str) -> bool:
+    """True for the leaves whose gradient each tensor-parallel rank holds
+    only a partial sum of: a column split's ``lora_a`` and a row split's
+    ``lora_b`` (replicated beside a split factor)."""
+    mod, _, leaf = name.rpartition(".")
+    return (leaf == "lora_a" and mod.endswith(COLUMN)) or (leaf == "lora_b" and mod.endswith(ROW))
+
+
+def gather_tp(name: str, x: torch.Tensor, grp) -> torch.Tensor:
+    """The full value of leaf ``name`` from each rank's shard ``x``."""
+    n = 1 if grp is None else dist.get_world_size(grp)
+    if n == 1 or param_shardings([name])[name] is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.detach().contiguous(), group=grp)
+    return tp_merge(name, parts)
+
+
+def gather_dit_state(model: VideoDiT, named=None):
+    """{name: full tensor} of the model's parameters (or of ``named``, a
+    subset in the model's layout, e.g. an EMA), gathered over the model
+    group when the model is tensor-parallel."""
+    named = dict(model.named_parameters()) if named is None else named
+    grp = getattr(model, "tp_group", None)
+    return {n: gather_tp(n, x, grp) for n, x in named.items()}
 
 
 def lora_param_filter(name: str) -> bool:

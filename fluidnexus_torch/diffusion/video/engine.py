@@ -43,6 +43,9 @@ class VideoEngine:
     cfg_scale: float = 6.0
     cfg_exp: float = 5.0
 
+    # the 'data' group of a data-parallel generation run (shard_for_generation)
+    data_group = None
+
     def __post_init__(self):
         # the 1000-step zero-SNR ladder for training-time indexing, f32 as the
         # JAX engine holds it; index 0 is the noisiest
@@ -59,6 +62,20 @@ class VideoEngine:
 
     def init_vae_params(self, generator: torch.Generator) -> VideoVAE:
         return init_vae(self.vae_config, generator)
+
+    def shard_for_generation(self, params: VideoDiT, vae, mesh):
+        """Place the weights for a tensor- and data-parallel generation run:
+        the DiT split in place to this rank's shard over the mesh's 'model'
+        axis (``dit.shard_dit_``), the VAE replicated (every rank already
+        holds the same weights); with 2 'data' ranks each CFG pair's forward
+        is split over them (``sampling._denoise_cfg``). Returns (params,
+        vae)."""
+        from fluidnexus_torch.diffusion.video.dit import shard_dit_
+        from fluidnexus_torch.parallel.mesh import axis_size, group
+
+        shard_dit_(params, mesh)
+        self.data_group = group(mesh, "data") if axis_size(mesh, "data") > 1 else None
+        return params, vae
 
     def dit_apply(self, params: VideoDiT, x, t, cond):
         """One DiT forward: (B, T, C, H, W) latents, (B,) timesteps, (B, L,
@@ -85,17 +102,21 @@ class VideoEngine:
     # --------------------------------- loss ---------------------------------
 
     def loss_fn(self, params: VideoDiT, latents, text_emb, rng: torch.Generator,
-                is_i2v: bool = True):
+                is_i2v: bool = True, part: Tuple[int, int] = (0, 1)):
         """latents: (B, T, C, H, W) scaled x0. A timestep index and the noise
         are drawn from ``rng`` (in the JAX order: index, then noise); the
         first ``fixed_frames`` latents stay clean for prefix-i2v; the v-
         prediction's x0 against the latents, weighted 1/(1 - abar). Returns
-        (scalar loss, {"idx", "per_sample"})."""
+        (scalar loss, {"idx", "per_sample"}). ``part`` = (r, n): the latents
+        are rows r B .. (r + 1) B of an n B batch, whose draws are made
+        whole and cut (data parallel ranks draw what one rank would)."""
         b, dev = latents.shape[0], latents.device
-        idx = _randint(self.num_timesteps, (b,), rng, dev)
+        r, n = part
+        rows = slice(r * b, (r + 1) * b)
+        idx = _randint(self.num_timesteps, (n * b,), rng, dev)[rows]
         a = self.alpha_sqrt_ladder.to(dev)[idx]
         t_ids = self.ladder_t_ids.to(dev)[idx]
-        noise = sampling._normal(latents.shape, rng, dev)
+        noise = sampling._normal((n * b,) + tuple(latents.shape[1:]), rng, dev)[rows]
 
         a_d = append_dims(a, latents.dim())
         s_d = append_dims(torch.sqrt(1 - a**2), latents.dim())
@@ -138,6 +159,7 @@ class VideoEngine:
             guider=guider, rng=rng, num_timesteps=self.num_timesteps,
             frames_z=frames_z, sdedit_strength=sdedit_strength,
             prefix_clean_frames=prefix_clean_frames, fixed_frames=self.fixed_frames,
+            data_group=self.data_group,
         )
 
 

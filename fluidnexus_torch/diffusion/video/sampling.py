@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fluidnexus_torch.diffusion.schedules import DiffusionSchedule, append_dims
 
@@ -69,9 +70,17 @@ class DynamicCFG:
         return x_uncond + s * (x_cond - x_uncond)
 
 
-def _denoise_cfg(denoiser, guider, x, alpha_sqrt, t_idx, cond, uc, step_index):
+def _denoise_cfg(denoiser, guider, x, alpha_sqrt, t_idx, cond, uc, step_index,
+                 data_group=None):
     if uc is None:
         return denoiser(x, alpha_sqrt, t_idx, cond)
+    if data_group is not None and dist.get_world_size(data_group) == 2:
+        # the CFG pair split over 'data': rank 0 runs the cond half, rank 1
+        # the uncond half, then both halves are gathered on both
+        d = denoiser(x, alpha_sqrt, t_idx, uc if dist.get_rank(data_group) else cond)
+        dc, du = torch.empty_like(d), torch.empty_like(d)
+        dist.all_gather([dc, du], d.contiguous(), group=data_group)
+        return guider(du, dc, step_index)
     # one batch-2 forward for cond and uncond; the DiT has no cross-batch ops
     d = denoiser(torch.cat([x, x], 0), alpha_sqrt, t_idx, torch.cat([cond, uc], 0))
     dc, du = torch.chunk(d, 2, 0)
@@ -101,13 +110,15 @@ def sample_dpmpp2m_sde(
     sdedit_strength: Optional[float] = None,
     prefix_clean_frames=None,
     fixed_frames: int = 0,
+    data_group=None,
 ):
     """VP-SDE DPM-Solver++(2M). ``frames_z`` + ``sdedit_strength``: start
     from noised input latents at sdedit_index = round(steps (1 - strength)).
     ``prefix_clean_frames``: re-pasted over the first frames at every step.
     ``fixed_frames``: the first latents of ``x`` pasted back at every step
     (the engine's prefix-i2v frames).
-    ``rng`` is the torch.Generator every draw comes from."""
+    ``rng`` is the torch.Generator every draw comes from. ``data_group``, a
+    group of 2 ranks, splits each CFG pair's forward over them."""
     if rng is None:
         raise ValueError("the stochastic sampler needs a torch.Generator (rng)")
     alpha_sqrt, t_ids = zero_snr_alphas_sqrt(num_steps, num_timesteps)
@@ -138,7 +149,8 @@ def sample_dpmpp2m_sde(
         if prefix_clean_frames is not None:
             x = torch.cat([prefix_clean_frames, x[:, cur_fix:]], 1)
 
-        denoised = _denoise_cfg(denoiser, guider, x, a, t_ids[i], cond, uc, num_steps - i)
+        denoised = _denoise_cfg(denoiser, guider, x, a, t_ids[i], cond, uc, num_steps - i,
+                                data_group)
         if num_steps - i == 1:
             x, old_denoised = denoised, denoised
             continue

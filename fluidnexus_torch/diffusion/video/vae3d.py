@@ -9,8 +9,16 @@ collection of the chunked decode is an explicit dict here: ``encode`` and
 entry per causal 3D conv (the last k_t - 1 frames of its padded input). The
 spatial-only convs run as ``conv3d`` with a 1 x 3 x 3 kernel, the per-frame
 ``conv2d`` of the JAX package. Module and parameter names follow the flax
-tree (a conv ``kernel`` is a ``weight`` here); the context-parallel branches
-and the width-tiled decode are not ported.
+tree (a conv ``kernel`` is a ``weight`` here); the width-tiled decode is not
+ported.
+
+Context parallelism over time (``parallel/cp.py``'s ``cp_vae_encode`` and
+``cp_vae_decode``): ``encode`` and ``decode`` take ``cp=CPState(...)``, and
+each rank of the ``time`` group runs its shard of a front-padded sequence.
+Causal convs then take their k_t - 1 frames from the previous rank (a ring
+exchange), group norms sum their moments over the group with the front pads
+masked out, and the temporal down- and upsamplers take their uniform branch,
+as the JAX modules do under ``shard_map``.
 """
 from __future__ import annotations
 
@@ -48,14 +56,37 @@ class VAE3DConfig:
         return len(self.ch_mult)
 
 
+@dataclasses.dataclass(frozen=True)
+class CPState:
+    """Context-parallel state threaded through the VAE modules.
+
+    group: the ``time`` process group the time axis is sharded over.
+    pad:   replicated-frame-0 pad frames at the CURRENT temporal resolution
+           ((p + 1) // 2 - 1 after a temporal downsample, 2 p + 1 after a
+           temporal upsample).
+    n:     the group's size."""
+
+    group: object
+    pad: int
+    n: int
+
+    def downsampled(self) -> "CPState":
+        return dataclasses.replace(self, pad=(self.pad + 1) // 2 - 1)
+
+    def upsampled(self) -> "CPState":
+        return dataclasses.replace(self, pad=2 * self.pad + 1)
+
+
 class _Chunk:
     """One chunk's view of the conv cache: whether it is the first chunk,
-    the cache it reads and the cache it leaves for the next chunk."""
+    the cache it reads and the cache it leaves for the next chunk; ``cp``,
+    the context-parallel state of a time-sharded pass (no cache then)."""
 
-    def __init__(self, first_chunk, cache):
+    def __init__(self, first_chunk, cache, cp: Optional[CPState] = None):
         self.first = first_chunk
         self.cache_in = cache or {}
         self.cache_out = {}
+        self.cp = cp
 
 
 class _Weights(nn.Module):
@@ -70,7 +101,8 @@ class _Weights(nn.Module):
 
 class CausalConv3d(nn.Module):
     """3D conv, causal in time: k_t - 1 frames padded on the left with a
-    replicate of the first frame (first chunk) or the previous chunk's cache."""
+    replicate of the first frame (first chunk), the previous chunk's cache,
+    or, time-sharded, the previous rank's last frames."""
 
     def __init__(self, c_in, c_out, kernel_size=(3, 3, 3), dtype=torch.float32):
         super().__init__()
@@ -81,16 +113,43 @@ class CausalConv3d(nn.Module):
     def forward(self, x, st: _Chunk):
         kt, kh, kw = self.kernel_size
         pad_t = kt - 1
-        if pad_t > 0:
+        if pad_t > 0 and st.cp is not None:
+            from fluidnexus_torch.parallel.cp import halo_exchange_time
+
+            # rank 0 replicates its first local frame, which under the
+            # front-pad layout is frame 0: the serial pad
+            x = halo_exchange_time(x, kt, st.cp.group, dim=2)
+        elif pad_t > 0:
             front = x[:, :, :1].expand(-1, -1, pad_t, -1, -1) if st.first else st.cache_in[self.key]
             x = torch.cat([front, x], 2)
             st.cache_out[self.key] = x[:, :, -pad_t:].clone()
         return F.conv3d(x, self.conv.weight, self.conv.bias, padding=(0, kh // 2, kw // 2))
 
 
-def group_norm(x, scale, bias, groups=32, eps=1e-6):
-    """GroupNorm over (c // groups, t, h, w), statistics in f32."""
+def group_norm(x, scale, bias, groups=32, eps=1e-6, cp: Optional[CPState] = None):
+    """GroupNorm over (c // groups, t, h, w), statistics in f32. Time-
+    sharded (``cp``), the moments are summed over the group and masked to the
+    real frames: the front pads are frame-0 copies."""
     c = x.shape[1]
+    if cp is not None:
+        import torch.distributed as dist
+
+        b, _, t, h, w = x.shape
+        g = min(groups, c)
+        xg = x.to(torch.float32).reshape(b, g, c // g, t, h, w)
+        gidx = dist.get_rank(cp.group) * t + torch.arange(t, device=x.device)
+        mask = (gidx >= cp.pad).to(torch.float32).reshape(1, 1, 1, t, 1, 1)
+        sums = torch.cat([(xg * mask).sum((2, 3, 4, 5)).reshape(-1),
+                          (xg * xg * mask).sum((2, 3, 4, 5)).reshape(-1),
+                          mask.sum().reshape(1) * (h * w * (c // g))])
+        dist.all_reduce(sums, group=cp.group)
+        s1, s2, cnt = sums[:b * g], sums[b * g:2 * b * g], sums[-1]
+        mu = (s1 / cnt).reshape(b, g, 1, 1, 1, 1)
+        var = torch.clamp((s2 / cnt).reshape(b, g, 1, 1, 1, 1) - mu * mu, min=0.0)
+        xn = ((xg - mu) * torch.rsqrt(var + eps)).reshape(b, c, t, h, w)
+        shape = (1, c, 1, 1, 1)
+        return (xn * scale.to(torch.float32).reshape(shape)
+                + bias.to(torch.float32).reshape(shape)).to(x.dtype)
     return F.group_norm(x.to(torch.float32), min(groups, c), scale.to(torch.float32),
                         bias.to(torch.float32), eps).to(x.dtype)
 
@@ -119,14 +178,16 @@ class Norm3D(nn.Module):
             self.conv_b = CausalConv3d(zq_ch, c, (1, 1, 1), dtype)
 
     def forward(self, x, zq, st: _Chunk):
-        h = group_norm(x, self.scale, self.bias)
+        h = group_norm(x, self.scale, self.bias, cp=st.cp)
         if zq is None:
             return h
         # zq resized to x's (t, h, w); the first frame kept apart when the
-        # temporal sizes differ on an odd length
+        # temporal sizes differ on an odd length. Time-sharded, both axes are
+        # front-padded to even shard-uniform lengths, and the plain nearest
+        # resize of each shard is the serial split
         zt, xt = zq.shape[2], x.shape[2]
         if tuple(zq.shape[2:]) != tuple(x.shape[2:]):
-            if xt > zt and xt % 2 == 1:
+            if st.cp is None and xt > zt and xt % 2 == 1:
                 zq = torch.cat([resize_nearest(zq[:, :, :1], (1,) + tuple(x.shape[3:])),
                                 resize_nearest(zq[:, :, 1:], (xt - 1,) + tuple(x.shape[3:]))], 2)
             else:
@@ -163,8 +224,14 @@ class DownSample3D(nn.Module):
         self.conv = _Weights(c, c, (3, 3), dtype)
 
     def forward(self, x, st: _Chunk):
-        if self.compress_time and x.shape[2] > 1:
-            if x.shape[2] % 2 == 1 and st.first:
+        t_total = x.shape[2] * (st.cp.n if st.cp is not None else 1)
+        if self.compress_time and t_total > 1:
+            if st.cp is not None:
+                # the front-padded even layout: pairs never straddle shards
+                if x.shape[2] % 2:
+                    raise ValueError("the time-sharded temporal pool needs an even local t")
+                x = (x[:, :, 0::2] + x[:, :, 1::2]) / 2.0
+            elif x.shape[2] % 2 == 1 and st.first:
                 first, rest = x[:, :, :1], x[:, :, 1:]
                 if rest.shape[2] > 0:
                     rest = (rest[:, :, 0::2] + rest[:, :, 1::2]) / 2.0
@@ -186,8 +253,11 @@ class Upsample3D(nn.Module):
 
     def forward(self, x, st: _Chunk):
         t, h, w = x.shape[2:]
-        if self.compress_time and t > 1:
-            if t % 2 == 1 and st.first:
+        t_total = t * (st.cp.n if st.cp is not None else 1)
+        if self.compress_time and t_total > 1:
+            # time-sharded: plain doubling; the pad region (2 p + 1 pads)
+            # absorbs the serial first frame's non-doubling
+            if st.cp is None and t % 2 == 1 and st.first:
                 x = torch.cat([resize_nearest(x[:, :, :1], (1, 2 * h, 2 * w)),
                                resize_nearest(x[:, :, 1:], (2 * (t - 1), 2 * h, 2 * w))], 2)
             else:
@@ -226,6 +296,8 @@ class Encoder3D(nn.Module):
                 h = getattr(self, f"down_{i_level}_block_{i_block}")(h, None, st)
             if i_level != c.num_resolutions - 1:
                 h = getattr(self, f"down_{i_level}_downsample")(h, st)
+                if st.cp is not None and i_level < c.temporal_compress_level:
+                    st.cp = st.cp.downsampled()
         h = self.mid_block_2(self.mid_block_1(h, None, st), None, st)
         return self.conv_out(F.silu(self.norm_out(h, None, st)), st)
 
@@ -263,6 +335,8 @@ class Decoder3D(nn.Module):
                 h = getattr(self, f"up_{i_level}_block_{i_block}")(h, zq, st)
             if i_level != 0:
                 h = getattr(self, f"up_{i_level}_upsample")(h, st)
+                if st.cp is not None and i_level >= c.num_resolutions - c.temporal_compress_level:
+                    st.cp = st.cp.upsampled()
         return self.conv_out(F.silu(self.norm_out(h, zq, st)), st)
 
 
@@ -289,9 +363,10 @@ class VideoVAE(nn.Module):
                 mod.key = name
 
     def encode(self, x, rng: Optional[torch.Generator] = None, first_chunk=True, sample=True,
-               cache=None):
-        """x (B, T, H, W, C) -> (z (B, T', H', W', Cz), cache)."""
-        st = _Chunk(first_chunk, cache)
+               cache=None, cp: Optional[CPState] = None):
+        """x (B, T, H, W, C) -> (z (B, T', H', W', Cz), cache); with ``cp``,
+        x is this rank's shard of a front-padded sequence."""
+        st = _Chunk(first_chunk, cache, cp)
         mean, logvar = torch.chunk(self.encoder(_to_cf(x.to(self.cfg.dtype)), st), 2, dim=1)
         if sample and rng is not None:
             # drawn channel-last, the JAX package's layout, so the draws match
@@ -301,9 +376,10 @@ class VideoVAE(nn.Module):
             z = mean
         return _to_cl(z * self.cfg.scale_factor), st.cache_out
 
-    def decode(self, z, first_chunk=True, cache=None):
-        """z (B, T, H, W, Cz) -> (frames (B, T', H', W', C), cache)."""
-        st = _Chunk(first_chunk, cache)
+    def decode(self, z, first_chunk=True, cache=None, cp: Optional[CPState] = None):
+        """z (B, T, H, W, Cz) -> (frames (B, T', H', W', C), cache); with
+        ``cp``, z is this rank's shard of a front-padded sequence."""
+        st = _Chunk(first_chunk, cache, cp)
         out = self.decoder(_to_cf(z.to(self.cfg.dtype) / self.cfg.scale_factor), st)
         return _to_cl(out), st.cache_out
 

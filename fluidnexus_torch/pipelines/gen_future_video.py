@@ -12,8 +12,7 @@ up directly.
         --sim_render_folder future/renders --recon_frames_folder capture/train00 \
         --out_root capture --allow_fake_conditioning
 
-Weights, text and draws as in ``gen_refine_video``. Not ported:
-``--tp``/``--dp``.
+Weights, text, draws and ``--tp``/``--dp`` as in ``gen_refine_video``.
 """
 from __future__ import annotations
 
@@ -26,8 +25,9 @@ import torch
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.data.readers import future_view_folder
 from fluidnexus_torch.pipelines.gen_refine_video import (
-    RefineConfig, apply_preset, load_frames, load_models, refine_window, save_frames,
+    RefineConfig, _quiet, apply_preset, load_frames, load_models, refine_window, save_frames,
 )
+from fluidnexus_torch.parallel.mesh import is_main
 
 
 def refine_future(engine, dit, vae, text_emb, uc_text_emb, sim_render_folder: str,
@@ -79,6 +79,9 @@ def build_argparser():
     ap.add_argument("--num_steps", type=int, default=50)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=720)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards for the DiT forward")
+    ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--allow_fake_conditioning", action="store_true",
                     help="run with hash pseudo-embeddings (test/smoke only; implied by --tiny)")
@@ -108,9 +111,9 @@ def main(argv=None, device="cuda"):
                         args.sim_render_folder, args.recon_frames_folder, args.out_root,
                         args.camera_name, args.capture_part, args.gen_future_since,
                         args.strength, cfg, torch.Generator(device=dev).manual_seed(2),
-                        args.is_wind)
+                        args.is_wind, log=print if is_main() else _quiet)
     video = None
-    if args.pack_video:
+    if args.pack_video and is_main():
         from fluidnexus_torch.utils.video_io import frames_folder_to_video
 
         video = frames_folder_to_video(out, fps=args.fps)

@@ -24,7 +24,11 @@ the prompt is encoded, or the hash pseudo-encoder
 (``--allow_fake_conditioning``, implied by ``--tiny``). Every draw (each window's VAE
 posterior, then its sampler noise) comes from one ``torch.Generator`` seeded
 with 2, where the JAX CLI splits ``PRNGKey(2)`` into an encode and a sampler
-key per window. Not ported: ``--tp``/``--dp``.
+key per window.
+
+``--tp``/``--dp`` run across ranks (``torchrun --nproc_per_node tp*dp``):
+the DiT split over ``tp`` ranks, each CFG pair over 2 ``dp`` ranks
+(``VideoEngine.shard_for_generation``); rank 0 alone writes and logs.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from fluidnexus_torch import resolve_device
+from fluidnexus_torch.parallel.mesh import is_main
 from fluidnexus_torch.convert import vae3d_from_numpy, video_dit_from_numpy
 from fluidnexus_torch.core.checkpoint import load_params, load_params_prefer_ema
 from fluidnexus_torch.data.video_dataset import read_frames
@@ -82,12 +87,18 @@ def load_frames(folder: str, indices: Sequence[int], pattern: str, height: int, 
 def save_frames(folder: str, frames, start_index: int, pattern="frame_%06d.png"):
     """(T, H, W, 3) frames in [-1, 1] as 8-bit PNGs: the pixels of the JAX
     package's ``clip((f + 1) 127.5, 0, 255).astype(uint8)``."""
+    if not is_main():
+        return
     os.makedirs(folder, exist_ok=True)
     for i, f in enumerate(np.asarray(frames, np.float32)):
         arr = np.clip((f + 1) * 127.5, 0, 255).astype(np.uint8)
         # save_image multiplies by 255 and truncates: k / 255 gives back k
         save_image(os.path.join(folder, pattern % (start_index + i)),
                    arr.transpose(2, 0, 1).astype(np.float32) / 255.0)
+
+
+def _quiet(*_args, **_kwargs):
+    """The log of a rank other than 0."""
 
 
 def latent_prefix_len(prefix_frames: int) -> int:
@@ -156,7 +167,14 @@ def load_models(args, dev, dit_cfg, vae_cfg, cfg_scale: float = 6.0):
     the flat npz, the DiT's ``_ema`` sibling preferred; else drawn from
     seeds 0 and 1) and the embedding of ``args.prompt``, all on ``dev``. The
     prompt is encoded first and the text encoder let go before any weight of
-    the DiT is made (it is used for nothing else)."""
+    the DiT is made (it is used for nothing else). With ``args.tp`` x ``args.dp`` > 1 the
+    weights are placed over a mesh of that many ranks, made first: it raises
+    when fewer run."""
+    mesh = None
+    if getattr(args, "tp", 1) * getattr(args, "dp", 1) > 1:
+        from fluidnexus_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.dp * args.tp, dp=args.dp, tp=args.tp, device_type=dev.type)
     enc = make_text_encoder(args.t5_dir or None, max_length=dit_cfg.text_length,
                             hidden=dit_cfg.text_hidden_size,
                             allow_fake=args.allow_fake_conditioning or args.tiny, device=dev)
@@ -171,6 +189,8 @@ def load_models(args, dev, dit_cfg, vae_cfg, cfg_scale: float = 6.0):
         vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
     else:
         vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
+    if mesh is not None:
+        dit, vae = engine.shard_for_generation(dit, vae, mesh)
     return engine, dit, vae, text_emb
 
 
@@ -214,6 +234,11 @@ def build_argparser():
                     help="window 1's GT prefix start frame (sdedit_prefix_start_idx_one)")
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=720)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards for the DiT (the TPU answer "
+                         "to the reference's CPU<->GPU 5B offload ping-pong)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel shards (the batch-2 CFG forward)")
     ap.add_argument("--tiny", action="store_true", help="tiny random model (smoke test)")
     ap.add_argument("--allow_fake_conditioning", action="store_true",
                     help="run with hash pseudo-embeddings (test/smoke only; implied by --tiny)")
@@ -243,9 +268,10 @@ def main(argv=None, device="cuda"):
                        gt_prefix_start=args.gt_prefix_start)
     written = refine_long_video(engine, dit, vae, text_emb, torch.zeros_like(text_emb),
                                 args.input_folder, args.gt_prefix_folder, args.out_folder, cfg,
-                                torch.Generator(device=dev).manual_seed(2))
+                                torch.Generator(device=dev).manual_seed(2),
+                                log=print if is_main() else _quiet)
     video = None
-    if args.pack_video:
+    if args.pack_video and is_main():
         from fluidnexus_torch.utils.video_io import frames_folder_to_video
 
         video = frames_folder_to_video(args.out_folder, fps=args.fps)

@@ -16,8 +16,9 @@ hash pseudo-encoder (``--allow_fake_conditioning``, implied by ``--tiny``).
 YAML configs (``diffusion/video/config_yaml``, which needs PyYAML) into the
 defaults of the clip geometry, the sampler and the T5 directory, and gives
 the DiT and VAE geometry; ``--t5_dir ""`` overrides a YAML's T5 directory.
-``--pack_video`` packs the PNGs into a video (``utils/video_io``). Not
-ported: ``--tp``/``--dp``.
+``--pack_video`` packs the PNGs into a video (``utils/video_io``).
+``--tp``/``--dp`` run across ranks (``torchrun --nproc_per_node tp*dp``), as
+in ``gen_refine_video``; rank 0 alone writes and logs.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.diffusion.video.dit import VideoDiTConfig
 from fluidnexus_torch.diffusion.video.vae3d import VAE3DConfig
+from fluidnexus_torch.parallel.mesh import is_main
 from fluidnexus_torch.pipelines.gen_refine_video import (
     latent_prefix_len, load_frames, load_models, save_frames,
 )
@@ -70,6 +72,11 @@ def main(argv=None, device="cuda"):
                     help="Hugging Face Flax T5 directory (t5-v1_1-xxl: config.json, "
                          "flax_model.msgpack or its index, the tokenizer)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards for the DiT forward (the TPU "
+                         "replacement for the reference's CPU<->GPU offload)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel shards (the batch-2 CFG forward)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--allow_fake_conditioning", action="store_true",
                     help="run with hash pseudo-embeddings (test/smoke only; implied by --tiny)")
@@ -113,11 +120,12 @@ def main(argv=None, device="cuda"):
                         prefix_clean_frames=prefix_lat)
     decoded = engine.decode_first_stage(vae, lat.permute(0, 1, 3, 4, 2))
     save_frames(args.out_folder, decoded[0].cpu().numpy(), 0)
-    if args.pack_video:
-        from fluidnexus_torch.utils.video_io import frames_folder_to_video
+    if is_main():
+        if args.pack_video:
+            from fluidnexus_torch.utils.video_io import frames_folder_to_video
 
-        print("video:", frames_folder_to_video(args.out_folder, fps=args.fps))
-    print(f"wrote {decoded.shape[1]} frames to {args.out_folder}")
+            print("video:", frames_folder_to_video(args.out_folder, fps=args.fps))
+        print(f"wrote {decoded.shape[1]} frames to {args.out_folder}")
     return decoded
 
 

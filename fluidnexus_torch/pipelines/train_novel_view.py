@@ -27,19 +27,26 @@ first iteration and every ``--sample_every``.
 Every draw of the model comes from one ``torch.Generator`` seeded with
 ``--seed`` (the loss's four, then the log sample's); the pairs from
 ``numpy.random.default_rng(--seed)``. Without ``--ckpt`` the weights are
-drawn from a seed (``init_novel_view``). One card: the JAX package's
-data-parallel mesh has no counterpart here, and ``--dp`` is not ported.
+drawn from a seed (``init_novel_view``).
+
+Across ranks (``torchrun --nproc_per_node N``) the batch splits over dp =
+gcd(batch, N) 'data' ranks, which must use every rank: each rank samples the
+whole batch and makes the whole batch's draws, steps on its rows, and the
+gradients are mean-reduced over 'data' before one replicated AdamW step.
+The EMA, the logs and the checkpoints stay on rank 0.
 """
 from __future__ import annotations
 
 import argparse
 import glob
+import math
 import os
 import tarfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.convert import flax_params_to_numpy, novel_view_from_numpy
@@ -51,6 +58,7 @@ from fluidnexus_torch.diffusion.ldm.model import (
     NovelViewModel, build_novel_view, get_pose_delta, init_novel_view,
 )
 from fluidnexus_torch.diffusion.ldm.unet import UNetConfig
+from fluidnexus_torch.parallel import mesh as pm
 from fluidnexus_torch.utils.lanczos import resize_u8
 from fluidnexus_torch.utils.png import decode_png, read_png, to_rgb
 from fluidnexus_torch.utils.profiling import annotate, trace
@@ -245,8 +253,8 @@ class NovelViewTrainer:
     """The trainables (the UNet's and ``cc``'s parameters), their AdamW
     (``cc`` at 10x the rate) and their EMA; ``step`` is one train step."""
 
-    def __init__(self, model: NovelViewModel, lr_fn, cc_lr_fn, ema_decay: float):
-        self.model, self.decay = model, ema_decay
+    def __init__(self, model: NovelViewModel, lr_fn, cc_lr_fn, ema_decay: float, mesh=None):
+        self.model, self.decay, self.mesh = model, ema_decay, mesh
         model.vae.requires_grad_(False)
         model.clip.requires_grad_(False)
         named = dict(model.named_parameters())
@@ -260,10 +268,19 @@ class NovelViewTrainer:
 
     def step(self, tgt, cond, dt, rng: torch.Generator):
         """One step on (B, H, W, 3) target and cond images and (B, 4) pose
-        deltas; returns the loss (a 0-d tensor on the model's device)."""
-        loss = self.model.loss_fn(tgt, cond, dt, rng)
+        deltas (this rank's rows across 'data' ranks); returns the loss over
+        the whole batch (a 0-d tensor on the model's device). Across ranks
+        the gradients are the mean over 'data'."""
+        dp = pm.axis_size(self.mesh, "data")
+        loss = self.model.loss_fn(tgt, cond, dt, rng, part=(pm.axis_rank(self.mesh, "data"), dp))
         grads = torch.autograd.grad(loss, [*self.unet.values(), *self.cc.values()])
         grads = dict(zip([*self.unet, *self.cc], grads))
+        if dp > 1:
+            dg = pm.group(self.mesh, "data")
+            loss = loss.detach().clone()
+            for g in [loss, *grads.values()]:
+                dist.all_reduce(g, group=dg)
+                g.div_(dp)
         for opt in self.opts:
             opt.step(grads)
         if self.ema is not None:
@@ -292,6 +309,10 @@ def train(args, log=print, device="cuda"):
     # f32 products and convolutions in full f32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dp = math.gcd(args.batch, pm.world_size())   # the batch must divide over 'data'
+    mesh = pm.make_mesh(dp, dp=dp, device_type=dev.type) if dp > 1 else None
+    main_rank = pm.is_main()
+    log = log if main_rank else (lambda *_a, **_k: None)
     configs = TINY_CONFIGS if args.tiny else {}
     if args.ckpt:
         model = novel_view_from_numpy(load_params(args.ckpt), configs, dev)
@@ -304,12 +325,14 @@ def train(args, log=print, device="cuda"):
     base_lr = args.lr * args.batch if args.scale_lr else args.lr
     lr_fn = lambda_linear_schedule(base_lr, warm_up_steps=args.warmup_steps)
     cc_lr_fn = lambda_linear_schedule(10 * base_lr, warm_up_steps=args.warmup_steps)
-    trainer = NovelViewTrainer(model, lr_fn, cc_lr_fn, args.ema_decay)
+    # the EMA and the logs stay on rank 0
+    trainer = NovelViewTrainer(model, lr_fn, cc_lr_fn, args.ema_decay if main_rank else 0.0,
+                               mesh=mesh)
 
     ds = make_pair_dataset(args.data_dir, args.image_size, cond_view=args.cond_view,
                            target_view=args.target_view, seed=args.seed)
     rng_np = np.random.default_rng(args.seed)
-    tb = TrainLogger(args.save_dir or None)
+    tb = TrainLogger(args.save_dir if main_rank else None)
 
     def log_images(it, tgt, cond, dt):
         """ImageLogger parity (Zero123/helpers/custom_callbacks.py:77-115):
@@ -338,7 +361,8 @@ def train(args, log=print, device="cuda"):
                     tgt, cond = torch.as_tensor(tgt, device=dev), torch.as_tensor(cond, device=dev)
                     dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
                 with annotate("fnx.train_step"):
-                    loss = trainer.step(tgt, cond, dt, rng)
+                    loss = trainer.step(pm.data_shard(tgt, mesh), pm.data_shard(cond, mesh),
+                                        pm.data_shard(dt, mesh), rng)
                 if it % args.log_every == 0:
                     ips = it / (time.time() - t0)
                     mem = device_memory_stats(dev)
@@ -349,14 +373,16 @@ def train(args, log=print, device="cuda"):
                     tb.scalar("train/lr_abs", lr_fn(it), it)
                     tb.scalar("perf/iters_per_sec", ips, it)
                     tb.scalars("perf", mem, it)
-                if tb.enabled and args.sample_every and (it == 1 or it % args.sample_every == 0):
+                # every rank samples, so that their generators stay in step
+                if args.save_dir and args.sample_every and (
+                        it == 1 or it % args.sample_every == 0):
                     with annotate("fnx.log_images"):
                         log_images(it, tgt, cond, dt)
-                if args.save_dir and it % args.save_every == 0:
+                if args.save_dir and it % args.save_every == 0 and main_rank:
                     save(f"iter_{it:07d}")
     except KeyboardInterrupt:
         # melk parity (Zero123/main.py:254-260): a last checkpoint, then re-raise
-        if args.save_dir:
+        if args.save_dir and main_rank:
             save("last")
             log(f"interrupted: saved {os.path.join(args.save_dir, 'last')}")
         raise

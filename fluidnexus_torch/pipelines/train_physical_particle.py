@@ -2,7 +2,11 @@
 ``fluidnexus_tpu/pipelines/train_physical_particle.py``).
 
 Parity target: FluidDynamics/entries_fluid_nexus/train_physical_particle.py.
-``train`` runs the stage's three phases on one device:
+``train`` runs the stage's three phases on one device, or, with
+``cfg.pipe.dp`` > 1 under ``torchrun --nproc_per_node dp``, with the camera
+batch of each fit step split over dp ranks (each renders its sub-batch; the
+weighted partial sums of loss and gradient are summed over the ranks before
+one replicated Adam step; rank 0 alone writes):
 
 - ``fit_first_frame`` (phase A) fits the first frame's visual particle
   positions against the multi-view images (camera render, gray L1 + SSIM,
@@ -35,6 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from fluidnexus_torch import resolve_device
@@ -45,6 +50,7 @@ from fluidnexus_torch.data.scene import cameras_by_time, read_scene
 from fluidnexus_torch.ops.neighbors import build_dense_grid, radius_graph
 from fluidnexus_torch.ops import rasterizer_cuda
 from fluidnexus_torch.ops.rasterizer import RasterizerConfig
+from fluidnexus_torch.parallel.mesh import is_main
 from fluidnexus_torch.sim.pbf import (
     PBFParams, confirm_guess, density_ratio_at, guess_from_nn, guess_hidden, remove_invalid,
     visual_xyz_from_nn, warn_capacity_overflow,
@@ -125,11 +131,33 @@ def tick_guess(state: ParticleState, params: PBFParams, solver_iterations: int,
 # ------------------------------- phase A step --------------------------------
 
 
+def _camera_shard(cams, gts, w, grp):
+    """This rank's contiguous sub-batch of a (padded) camera batch over the
+    'data' group."""
+    if grp is None:
+        return cams, gts, w
+    n, r = dist.get_world_size(grp), dist.get_rank(grp)
+    return tuple(c.chunk(n)[r] for c in cams), gts.chunk(n)[r], w.chunk(n)[r]
+
+
+def _sum_over(grp, *tensors):
+    """Each tensor summed in place over the group (no-op without one)."""
+    if grp is not None:
+        for t in tensors:
+            dist.all_reduce(t, group=grp)
+
+
 def make_first_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, height,
                           lambda_dssim, lambda_first_distance, distance_threshold_visual,
-                          channels: int):
-    """Phase-A fit step on one device. ``w`` carries per-camera weights and
-    ``inv_w`` = 1 / (number of real cameras)."""
+                          channels: int, group=None):
+    """Phase-A fit step. ``w`` carries per-camera weights (0 for the pad
+    slots when the batch does not divide by dp) and ``inv_w`` = 1 / (number
+    of real cameras). With ``group`` (the mesh's 'data' group) each rank
+    renders its sub-batch of the cameras and the weighted partial sums of
+    loss, l1 and gradient are summed over the group, the camera-independent
+    distance term scaled by 1/dp, so every rank takes the same Adam step:
+    the single-device step's weighted sums."""
+    dp = 1 if group is None else dist.get_world_size(group)
 
     def loss_fn(vxyz, alive, attrs, cams, gts, w, inv_w):
         def one(cam_view, cam_proj, fovs, gt):
@@ -154,18 +182,21 @@ def make_first_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, hei
         loss = (losses * w).sum() * inv_w
         if lambda_first_distance > 0:
             with record_function("fnx.distance_penalty"):
-                loss = loss + lambda_first_distance * distance_penalty(
+                loss = loss + (lambda_first_distance / dp) * distance_penalty(
                     vxyz, alive, distance_threshold_visual)
         return loss, (l1s * w).sum() * inv_w
 
     def step(visual_xyz, alive, attrs: VisualAttrs, opt: AdamState, cams, gts, lr, w, inv_w):
         x = visual_xyz.detach().requires_grad_(True)
+        cams, gts, w = _camera_shard(cams, gts, w, group)
         loss, l1v = loss_fn(x, alive, attrs, cams, gts, w, inv_w)
         with record_function("fnx.backward"):
             (grad,) = torch.autograd.grad(loss, x)
+        loss, l1v = loss.detach(), l1v.detach()
+        _sum_over(group, loss, l1v, grad)
         with record_function("fnx.adam"):
             new, opt = adam_step({"xyz": visual_xyz}, {"xyz": grad}, opt, {"xyz": lr})
-        return new["xyz"], opt, loss.detach(), l1v.detach()
+        return new["xyz"], opt, loss, l1v
 
     return step
 
@@ -179,7 +210,7 @@ def _alive_mean(values, alive):
 
 
 def make_current_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, height,
-                            params: PBFParams, o, channels: int):
+                            params: PBFParams, o, channels: int, group=None):
     """Phase-C fit step on one device: the learnable hidden positions ``nn``
     (world units) advect the visual particles, which are rendered and
     compared with the frame's images; the current distance penalty, the exyz
@@ -187,8 +218,11 @@ def make_current_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, h
     by ``alive``, takes one Adam step. One dense grid at ``nn *
     scale_factor`` is built per iteration and shared by the advection and the
     gas loss, which evaluate at the same positions; the next-step gas term
-    builds its own at ``guess_from_nn``."""
+    builds its own at ``guess_from_nn``. ``group`` splits the camera batch
+    as in ``make_first_frame_step``; the camera-independent particle-space
+    terms (distance, exyz, gas) run on every rank, scaled by 1/dp."""
     lambda_dssim = o.lambda_dssim
+    dp = 1 if group is None else dist.get_world_size(group)
 
     def loss_fn(nn, state: ParticleState, visual: VisualState, attrs, cams, gts, w, inv_w):
         with record_function("fnx.grid_nn"):
@@ -219,28 +253,28 @@ def make_current_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, h
         aux = {"l1": (l1s * w).sum() * inv_w}
         if o.lambda_current_distance > 0:
             with record_function("fnx.distance_penalty"):
-                loss = loss + o.lambda_current_distance * distance_penalty(
+                loss = loss + (o.lambda_current_distance / dp) * distance_penalty(
                     vxyz_world, visual.alive, o.distance_threshold_visual)
         if o.lambda_exyz > 0:
             with record_function("fnx.exyz"):
                 # masked MSE over alive particles (ref :371-373)
                 diff = (nn * params.scale_factor - state.estimate_xyz) ** 2
                 exyz_v = torch.where(state.alive[:, None], diff, 0.0).sum() / (
-                    torch.clamp(state.alive.sum(), min=1) * 3)
+                    torch.clamp(state.alive.sum(), min=1) * 3) / dp
                 loss = loss + o.lambda_exyz * exyz_v
                 aux["exyz"] = exyz_v
         if o.lambda_gas_constraints > 0:
             with record_function("fnx.gas_loss"):
                 ratio = density_ratio_at(nn * params.scale_factor, state.alive, state.imass,
                                          params, grid=grid_nn)
-                gas_v = _alive_mean((ratio - 1.0) ** 2, state.alive)
+                gas_v = _alive_mean((ratio - 1.0) ** 2, state.alive) / dp
                 loss = loss + o.lambda_gas_constraints * gas_v
                 aux["gas"] = gas_v
         if o.lambda_next_gas_constraints > 0:
             with record_function("fnx.next_gas_loss"):
                 nxt = guess_from_nn(nn, state, params)
                 ratio2 = density_ratio_at(nxt, state.alive, state.imass, params)
-                gas2_v = _alive_mean((ratio2 - 1.0) ** 2, state.alive)
+                gas2_v = _alive_mean((ratio2 - 1.0) ** 2, state.alive) / dp
                 loss = loss + o.lambda_next_gas_constraints * gas2_v
                 aux["next_gas"] = gas2_v
         return loss, aux
@@ -248,13 +282,16 @@ def make_current_frame_step(bg: Optional[BackgroundSplats], raster_cfg, width, h
     def step(exyz_nn, opt: AdamState, state: ParticleState, visual: VisualState,
              attrs: VisualAttrs, cams, gts, lr, w, inv_w):
         x = exyz_nn.detach().requires_grad_(True)
+        cams, gts, w = _camera_shard(cams, gts, w, group)
         loss, aux = loss_fn(x, state, visual, attrs, cams, gts, w, inv_w)
         with record_function("fnx.backward"):
             (grad,) = torch.autograd.grad(loss, x)
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        _sum_over(group, loss, grad, *aux.values())
         with record_function("fnx.adam"):
             grad = torch.where(state.alive[:, None], grad, 0.0)
             new, opt = adam_step({"nn": exyz_nn}, {"nn": grad}, opt, {"nn": lr})
-        return new["nn"], opt, loss.detach(), {k: v.detach() for k, v in aux.items()}
+        return new["nn"], opt, loss, aux
 
     return step
 
@@ -268,6 +305,20 @@ def _cam_tensors(cams: List[Camera], device):
     fovs = torch.as_tensor(np.asarray([[c.tan_fovx, c.tan_fovy] for c in cams], np.float32),
                            device=device)
     return views, projs, fovs
+
+
+def _recon_group(cfg: Config, dev):
+    """The 'data' group of camera data parallelism (``pipe.dp`` ranks), or
+    None at dp 1; raises when fewer ranks run."""
+    if cfg.pipe.dp <= 1:
+        return None
+    from fluidnexus_torch.parallel.mesh import group, make_mesh, world_size
+
+    n = world_size()
+    if n < cfg.pipe.dp:
+        raise ValueError(f"--dp {cfg.pipe.dp} but only {n} devices visible")
+    return group(make_mesh(cfg.pipe.dp, dp=cfg.pipe.dp, tp=1, time=1, device_type=dev.type),
+                 "data")
 
 
 def _select_batch(rng, n_cams: int, batch: int, dp: int):
@@ -341,7 +392,8 @@ def fit_first_frame(cfg: Config, scene_info, bg: Optional[BackgroundSplats] = No
     attrs = constant_visual_attrs(m.visual_capacity, channels=1, device=dev)
 
     step = make_first_frame_step(bg, raster_cfg, width, height, o.lambda_dssim,
-                                 o.lambda_first_distance, o.distance_threshold_visual, channels)
+                                 o.lambda_first_distance, o.distance_threshold_visual, channels,
+                                 group=_recon_group(cfg, dev))
     opt = adam_init({"xyz": visual.xyz})
     cviews, cprojs, cfovs = _cam_tensors(train_by_t[0], dev)
     gts0 = _gts(train_by_t[0], channels, dev)
@@ -510,7 +562,8 @@ def _phase_c(cfg: Config, scene_info, state: ParticleState, visual: VisualState,
     extent = scene_info.nerf_normalization["radius"]
     emitters = EmitterPoints.from_config(m)
     caps = emission_caps(cfg, emitters)
-    step = make_current_frame_step(bg, raster_cfg, cam0.width, cam0.height, params, o, 3)
+    step = make_current_frame_step(bg, raster_cfg, cam0.width, cam0.height, params, o, 3,
+                                   group=_recon_group(cfg, dev))
 
     metrics_per_frame = []
     for t in range(start_frame, n_frames):
@@ -546,7 +599,7 @@ def _phase_c(cfg: Config, scene_info, state: ParticleState, visual: VisualState,
                 f"checkpoints are under {ckpt_path or '(no model_path)'}")
         log(f"frame {t}/{n_frames-1}: loss={loss:.5f} "
             f"hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
-        if ckpt_path:
+        if ckpt_path and is_main():
             save_hidden(state, params, ckpt_path, t)
             save_visual(visual, attrs, ckpt_path, t)
 
@@ -629,7 +682,7 @@ def train(cfg: Config, scene_info=None, writer=None, log=print, resume_from_fram
                                        writer=writer)
     state, _ = stabilize_hidden(cfg, params, log=log, device=dev)
     log(f"phase B done: hidden={int(state.num_alive)} visual={int(visual.num_alive)}")
-    if ckpt_path:
+    if ckpt_path and is_main():
         save_hidden(state, params, ckpt_path, 0)
         save_visual(visual, attrs, ckpt_path, 0)
     return _phase_c(cfg, scene_info, state, visual, attrs, bg, raster_cfg, params,
@@ -654,13 +707,15 @@ def main(argv=None, device="cuda"):
     if cfg.detect_anomaly:  # --detect_anomaly parity (helper_parser.py:24,46)
         torch.autograd.set_detect_anomaly(True)
     writer = None
-    if cfg.model.model_path:
+    if cfg.model.model_path and is_main():
         dump_config(cfg, os.path.join(cfg.model.model_path, "cfg_args.json"))
         from fluidnexus_torch.utils.tb import TrainLogger
 
         writer = TrainLogger(cfg.model.model_path)
-    result = train(cfg, writer=writer, resume_from_frame=resume, device=device)
-    print(f"done: {len(result['metrics'])} frames")
+    result = train(cfg, writer=writer, resume_from_frame=resume, device=device,
+                   log=print if is_main() else (lambda *_a, **_k: None))
+    if is_main():
+        print(f"done: {len(result['metrics'])} frames")
     return result
 
 

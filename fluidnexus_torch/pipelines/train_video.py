@@ -40,18 +40,30 @@ or the hash pseudo-encoder (``--allow_fake_conditioning``, implied by
 CogVideoX YAML configs (``diffusion/video/config_yaml``, which needs PyYAML)
 into the flags' defaults (``apply_base_yaml``; explicit flags win) and gives
 the DiT and VAE geometry and the optimizer's clip, betas, eps and weight
-decay, as in the JAX package. Not ported: ``--tp``.
+decay, as in the JAX package.
+
+Across ranks (``torchrun --nproc_per_node N``): ``--tp`` splits the DiT over
+that many ranks (``dit.shard_dit_``) and the batch splits over dp =
+gcd(batch, N // tp) 'data' ranks, which must use every rank. Every rank
+samples, encodes and conditions the whole batch with the same draws, then
+steps on its rows; gradients of the LoRA leaves are mean-reduced over
+'data' (and summed over 'model' where a rank holds a partial sum), the
+moments are ZeRO-sharded over 'data' (``parallel/mesh.zero_shard_opt_state``)
+and the updated chunks all-gathered. Rank 0 alone writes and logs;
+checkpoints keep the full layout.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fluidnexus_torch import resolve_device
 from fluidnexus_torch.convert import (
@@ -62,12 +74,19 @@ from fluidnexus_torch.core.checkpoint import load_params, save_params
 from fluidnexus_torch.core.optim import ClipAdamW, sorted_names
 from fluidnexus_torch.data.video_dataset import make_video_dataset
 from fluidnexus_torch.diffusion.video.conditioner import apply_ucg, make_text_encoder
-from fluidnexus_torch.diffusion.video.dit import quantize_dit_params
+from fluidnexus_torch.diffusion.video.dit import (
+    gather_dit_state, quantize_dit_params, shard_dit_, tp_partial_grad, tp_split,
+)
 from fluidnexus_torch.diffusion.video.engine import VideoEngine, lora_merge, lora_partition
+from fluidnexus_torch.parallel import mesh as pm
 from fluidnexus_torch.pipelines.sample_video import configs
 from fluidnexus_torch.utils.profiling import StageTimer, annotate, trace
 from fluidnexus_torch.utils.tb import TrainLogger
 from fluidnexus_torch.utils.video_io import write_video
+
+
+def _quiet(*_args, **_kwargs):
+    """The log of a rank other than 0."""
 
 
 def _has_float_block_kernels(params) -> bool:
@@ -85,27 +104,30 @@ def _has_float_block_kernels(params) -> bool:
     return walk(params, False)
 
 
-def _flat_save(path, step, rng: torch.Generator, opt: ClipAdamW, ema):
+def _flat_save(path, step, rng: torch.Generator, trainer: "VideoTrainer"):
     """The resume sidecar: step, the generator's state, the optimizer's
-    leaves (count, moments) and the EMA's, each name-sorted."""
+    leaves (count, moments) and the EMA's, each name-sorted and whole."""
     flat = {"step": np.asarray(step), "rng_key": rng.get_state().numpy()}
-    for i, leaf in enumerate(opt.state_leaves()):
+    for i, leaf in enumerate(trainer.opt_leaves()):
         flat[f"o_{i}"] = leaf.detach().cpu().numpy()
-    if ema is not None:
+    if trainer.ema is not None:
+        ema = trainer.whole(trainer.ema)
         for i, n in enumerate(sorted_names(ema)):
             flat[f"e_{i}"] = ema[n].detach().cpu().numpy()
-    np.savez(path, **flat)
+    if pm.is_main():
+        np.savez(path, **flat)
 
 
-def _flat_load(path, opt: ClipAdamW, ema, log=print):
+def _flat_load(path, trainer: "VideoTrainer", log=print):
     """Restore the optimizer (and the EMA, in place) from a sidecar; returns
     (step, generator state, ema) with ema None when the run wants one and
     the sidecar has none (saved with --ema_decay 0)."""
+    ema = trainer.ema
     with np.load(path) as z:
         step = int(z["step"])
         rng_state = torch.as_tensor(z["rng_key"])
         n_opt = sum(1 for f in z.files if f.startswith("o_"))
-        opt.load_state_leaves([z[f"o_{i}"] for i in range(n_opt)])
+        trainer.load_opt_leaves([z[f"o_{i}"] for i in range(n_opt)])
         if ema is not None and "e_0" not in z.files:
             log("resume: checkpoint has no EMA state (saved with ema_decay=0); "
                 "seeding a fresh EMA from the resumed params")
@@ -113,7 +135,7 @@ def _flat_load(path, opt: ClipAdamW, ema, log=print):
         if ema is not None:
             with torch.no_grad():
                 for i, n in enumerate(sorted_names(ema)):
-                    ema[n].copy_(torch.as_tensor(z[f"e_{i}"]))
+                    ema[n].copy_(trainer.local(n, torch.as_tensor(z[f"e_{i}"])))
     return step, rng_state, ema
 
 
@@ -137,11 +159,15 @@ def _weights(dit: torch.nn.Module, named):
 class VideoTrainer:
     """One training run's state: the DiT, its trainables (the LoRA leaves
     of the module at rank > 0; f32 masters of every weight for the full
-    step), the optimizer and the EMA. ``step`` is one train step."""
+    step), the optimizer and the EMA. ``step`` is one train step. With a
+    ``mesh`` the DiT is this rank's tensor-parallel shard (``shard_dit_``
+    before), the step takes this rank's rows of the batch and the moments
+    are ZeRO-sharded over 'data'."""
 
     def __init__(self, engine: VideoEngine, dit: torch.nn.Module, lr: float, ema_decay: float,
-                 is_i2v: bool = True, masters=None, opt=None):
+                 is_i2v: bool = True, masters=None, opt=None, mesh=None):
         self.engine, self.dit, self.is_i2v, self.decay = engine, dit, is_i2v, ema_decay
+        self.mesh = mesh
         self.lora = engine.dit_config.lora_rank > 0
         dit.requires_grad_(False)
         if self.lora:
@@ -158,7 +184,33 @@ class VideoTrainer:
                            for n in own}
             self._sync()
         self.opt = ClipAdamW(self.params, lr, **(opt or {}))
+        if mesh is not None:
+            pm.zero_shard_opt_state(self.opt, mesh, pm.param_shardings(self.params))
         self.ema = self.fresh_ema() if ema_decay > 0 else None
+
+    def whole(self, named):
+        """{name: full tensor} of {name: this rank's tensor-parallel shard}."""
+        return gather_dit_state(self.dit, named)
+
+    def local(self, name, full):
+        """This rank's tensor-parallel shard of a full leaf."""
+        return tp_split(name, full, pm.axis_rank(self.mesh, "model"),
+                        pm.axis_size(self.mesh, "model"))
+
+    def opt_leaves(self):
+        """The optimizer's leaves (count, moments), each whole: the
+        optimizer gathers its ZeRO chunks over 'data', this its tensor-
+        parallel shards over 'model'."""
+        names = sorted_names(self.params)
+        leaves = self.opt.state_leaves()
+        return leaves[:1] + [self.whole({n: x})[n] for n, x in zip(names * 2, leaves[1:])]
+
+    def load_opt_leaves(self, leaves):
+        """Restore the optimizer from whole leaves (``opt_leaves``)."""
+        names = sorted_names(self.params)
+        self.opt.load_state_leaves(
+            leaves[:1] + [self.local(n, torch.as_tensor(np.asarray(x)))
+                          for n, x in zip(names * 2, leaves[1:])])
 
     def fresh_ema(self):
         return {n: p.detach().clone() for n, p in self.params.items()}
@@ -171,18 +223,26 @@ class VideoTrainer:
                     own[n].copy_(p)
 
     def step(self, latents, text_emb, rng: torch.Generator):
-        """One step of ``loss_fn`` on (B, T, C, H, W) latents; returns the
-        loss (a 0-d tensor on the latents' device)."""
+        """One step of ``loss_fn`` on (B, T, C, H, W) latents (this rank's
+        rows across ranks); returns the loss over the whole batch (a 0-d
+        tensor on the latents' device)."""
+        part = (pm.axis_rank(self.mesh, "data"), pm.axis_size(self.mesh, "data"))
         if self.lora:
-            loss = self.engine.loss_fn(self.dit, latents, text_emb, rng, self.is_i2v)[0]
+            loss = self.engine.loss_fn(self.dit, latents, text_emb, rng, self.is_i2v, part)[0]
             grads = torch.autograd.grad(loss, list(self.params.values()))
             grads = dict(zip(self.params, grads))
+            if self.mesh is not None:
+                self._reduce(grads)
         else:
             with torch.no_grad():
-                loss = self.engine.loss_fn(self.dit, latents, text_emb, rng, self.is_i2v)[0]
+                loss = self.engine.loss_fn(self.dit, latents, text_emb, rng, self.is_i2v, part)[0]
             # JAX's freeze_non_lora zeroes every gradient but the LoRA
             # leaves', and at rank 0 there are none: the step's gradient is 0
             grads = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        if self.mesh is not None:
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=pm.group(self.mesh, "data"))
+            loss = loss / part[1]
         self.opt.step(grads)
         self._sync()
         if self.ema is not None:
@@ -191,22 +251,45 @@ class VideoTrainer:
                     e.mul_(self.decay).add_((1.0 - self.decay) * self.params[n])
         return loss.detach()
 
+    def _reduce(self, grads):
+        """Gradients across ranks: summed over 'model' where this rank holds
+        a partial sum (a replicated LoRA factor beside a split one), then
+        the mean over 'data'."""
+        mg, dg = pm.group(self.mesh, "model"), pm.group(self.mesh, "data")
+        dp = pm.axis_size(self.mesh, "data")
+        for k, g in grads.items():
+            if pm.axis_size(self.mesh, "model") > 1 and tp_partial_grad(k):
+                dist.all_reduce(g, group=mg)
+            if dp > 1:
+                dist.all_reduce(g, group=dg)
+                g.div_(dp)
+
     def tree(self):
         """{name: tensor} of the weights as the JAX tree holds them (the
-        masters for the full step)."""
-        if self.lora:
-            return dict(self.dit.named_parameters())
-        return self.params
+        masters for the full step), whole on every rank."""
+        own = dict(self.dit.named_parameters()) if self.lora else self.params
+        return self.whole(own)
 
     def ema_tree(self):
         """The tree with the EMA in place of the trainables, or None."""
         if self.ema is None:
             return None
-        return lora_merge(self.ema, self.tree()) if self.lora else self.ema
+        ema = self.whole(self.ema)
+        return lora_merge(ema, self.tree()) if self.lora else ema
 
     def load_tree(self, tree):
         """Load a numpy param tree (a checkpoint) into the module and the
-        trainables."""
+        trainables (this rank's shards of them across ranks)."""
+        if self.mesh is not None:
+            flat = _flat_torch_layout(tree)
+            own = dict(self.dit.named_parameters())
+            with torch.no_grad():
+                for k, p in own.items():
+                    p.copy_(self.local(k, as_torch(flat[k]).to(p.device, p.dtype)))
+                for k, p in ({} if self.lora else self.params).items():
+                    p.copy_(self.local(k, as_torch(flat[k]).to(p.device).float()))
+            self._sync()
+            return
         load_flax_params(self.dit, tree, next(self.dit.parameters()).device)
         if not self.lora:
             flat = _flat_torch_layout(tree)
@@ -234,6 +317,13 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
     # f32 products and convolutions in full f32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    world = pm.world_size()
+    dp = math.gcd(args.batch, world // args.tp)   # the batch must divide over 'data'
+    mesh = None
+    if dp * args.tp > 1:
+        mesh = pm.make_mesh(dp * args.tp, dp=dp, tp=args.tp, device_type=dev.type)
+    main_rank = pm.is_main()
+    log = log if main_rank else _quiet
 
     run_cfg = getattr(args, "run_cfg", None)
     dit_cfg, vae_cfg = configs(args.num_frames, args.height, args.width, args.tiny, run_cfg)
@@ -257,16 +347,21 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
         vae = vae3d_from_numpy(load_params(args.vae_ckpt), vae_cfg, dev)
     else:
         vae = engine.init_vae_params(torch.Generator(device=dev).manual_seed(1))
+    if mesh is not None:
+        shard_dit_(dit, mesh)
+        if masters is not None:
+            r, n = pm.axis_rank(mesh, "model"), pm.axis_size(mesh, "model")
+            masters = {k: tp_split(k, x, r, n) for k, x in masters.items()}
     opt = {}
     if run_cfg is not None:
         t = run_cfg.train
         opt = dict(max_norm=t.grad_clip, b1=t.betas[0], b2=t.betas[1], eps=t.eps,
                    weight_decay=t.weight_decay)
     trainer = VideoTrainer(engine, dit, args.lr, args.ema_decay, is_i2v=not args.t2v,
-                           masters=masters, opt=opt)
+                           masters=masters, opt=opt, mesh=mesh)
     ds = make_video_dataset(args.data_root, args.num_frames, args.height, args.width)
     rng_np = np.random.default_rng(args.seed)
-    tb = TrainLogger(args.save_dir)
+    tb = TrainLogger(args.save_dir if main_rank else "")
 
     def eval_sample(it, latents, captions):
         """The eval fork: a loss and a sampled clip with the EMA weights
@@ -285,7 +380,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
                               num_steps=args.eval_steps, prefix_clean_frames=prefix)
             frames = engine.decode_first_stage(vae, z.permute(0, 1, 3, 4, 2))
         vid = np.clip((frames[0].float().cpu().numpy() + 1.0) / 2.0, 0.0, 1.0)
-        if args.save_dir:
+        if args.save_dir and main_rank:
             root = os.path.join(args.save_dir, "video", f"samples_gs_{it:06d}")
             os.makedirs(root, exist_ok=True)
             path = write_video(os.path.join(root, "000000.mp4"), (vid * 255).astype(np.uint8), fps=8)
@@ -311,7 +406,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
                 raise FileNotFoundError(f"no train_state_* under {state_path}")
             state_path = os.path.join(args.resume_from, states[-1])
         want_ema = trainer.ema is not None
-        step, rng_state, trainer.ema = _flat_load(state_path, trainer.opt, trainer.ema, log=log)
+        step, rng_state, trainer.ema = _flat_load(state_path, trainer, log=log)
         trainer.load_tree(load_params(os.path.join(os.path.dirname(state_path),
                                                    f"iter_{step:07d}")))
         if want_ema and trainer.ema is None:
@@ -336,7 +431,7 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
             latents = z.permute(0, 1, 4, 2, 3).clone()     # (B, T, C, H, W), out of inference mode
             txt = apply_ucg(enc(captions, device=dev), rng, args.ucg_rate)
             with timer.stage("train_step") as st, annotate("train_step"):
-                loss = trainer.step(latents, txt, rng)
+                loss = trainer.step(pm.data_shard(latents, mesh), pm.data_shard(txt, mesh), rng)
                 st.block_on = loss
             if it % args.log_every == 0:
                 ips = (it - start_it + 1) / max(time.time() - t0, 1e-9)
@@ -346,14 +441,16 @@ def train(args, log=print, device="cuda", timer: StageTimer = None):
             if args.eval_interval > 0 and it % args.eval_interval == 0:
                 eval_sample(it, latents, captions)
             if args.save_dir and it % args.save_every == 0:
-                save_params(os.path.join(args.save_dir, f"iter_{it:07d}"),
-                            flax_params_to_numpy(trainer.tree()))
-                if trainer.ema is not None:
-                    # the tree the generation CLIs prefer (load_params_prefer_ema)
-                    save_params(os.path.join(args.save_dir, f"iter_{it:07d}_ema"),
-                                flax_params_to_numpy(trainer.ema_tree()))
+                tree, ema_tree = trainer.tree(), trainer.ema_tree()
+                if main_rank:
+                    save_params(os.path.join(args.save_dir, f"iter_{it:07d}"),
+                                flax_params_to_numpy(tree))
+                    if ema_tree is not None:
+                        # the tree the generation CLIs prefer (load_params_prefer_ema)
+                        save_params(os.path.join(args.save_dir, f"iter_{it:07d}_ema"),
+                                    flax_params_to_numpy(ema_tree))
                 _flat_save(os.path.join(args.save_dir, f"train_state_{it:07d}.npz"), it, rng,
-                           trainer.opt, trainer.ema)
+                           trainer)
     return dit, float(loss), trainer.ema_tree()
 
 
@@ -392,6 +489,7 @@ def build_argparser():
     ap.add_argument("--num_frames", type=int, default=49)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=720)
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=50)
     ap.add_argument("--save_every", type=int, default=1000)

@@ -19,6 +19,7 @@ import yaml
 from fluidnexus_torch.utils import adm_metrics as tam
 from fluidnexus_torch.utils import perceptual as tper
 from fluidnexus_tpu.utils import adm_metrics as jam
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 FEATURE_TOL = 1e-5
 DIST_TOL = 1e-6

@@ -20,6 +20,7 @@ import torch
 from fluidnexus_torch.ops import attention_cuda as ac
 from fluidnexus_torch.ops import cuda_build
 from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _qkv(b, h, s, d, seed):

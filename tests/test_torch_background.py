@@ -32,6 +32,7 @@ from fluidnexus_tpu.ops.rasterizer import rasterize as j_rasterize
 from fluidnexus_tpu.pipelines import train_background as jbg
 from fluidnexus_tpu.splat import background as jback
 from tests.test_train_background import synthetic_scene
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TRAINABLE = ("xyz", "color", "scaling", "rotation", "opacity")

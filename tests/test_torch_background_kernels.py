@@ -20,6 +20,7 @@ from fluidnexus_torch.ops.rasterizer import RasterizerConfig, rasterize
 from fluidnexus_torch.pipelines import train_background as tbg
 from fluidnexus_torch.splat import background as tback
 from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

@@ -23,6 +23,7 @@ from fluidnexus_tpu.core import checkpoint as jck
 from fluidnexus_tpu.diffusion.video import dit as jdit
 from tests.test_torch_ldm import CLI_CLIP, CLI_UNET, TINY_VAE, tiny_models
 from tests.test_torch_video_dit import TINY, dit_params, jax_and_torch_cfg
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _video_tree(kind):

@@ -27,6 +27,7 @@ from tests.test_torch_gen_presets import parsed_args
 from tests.test_torch_t5 import T5Reached, t5_spy
 from tests.test_torch_train_video import LR, Draws
 from tests.test_torch_train_video_cli import _clip_folder, _tiny_ckpts
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 BASE = {
     "model": {
@@ -138,7 +139,7 @@ def test_base_on_sample_video_sets_the_jax_defaults(tmp_path, monkeypatch):
     argv = ["--prompt", "p", "--out_folder", "o", "--base", *paths, "--height", "240"]
     got = parsed_args(tsv.main, argv, monkeypatch)
     want = parsed_args(jsv.main, argv, monkeypatch)
-    assert got == {k: v for k, v in want.items() if k not in ("tp", "dp")}
+    assert got == want
     assert (got["num_steps"], got["cfg_scale"], got["num_frames"], got["height"],
             got["width"], got["t5_dir"]) == (40, 5.5, 49, 240, 720, "t5-v1_1-xxl")
     assert parsed_args(tsv.main, argv + ["--t5_dir", ""], monkeypatch)["t5_dir"] == ""
@@ -159,7 +160,7 @@ def test_base_on_train_video_sets_the_jax_defaults(tmp_path, monkeypatch):
         got = vars(ttv.apply_base_yaml(ttv.build_argparser(), argv))
         want = vars(jtv.apply_base_yaml(jtv.build_argparser(), argv))
         assert got.pop("run_cfg") == tcy.load_cogvideox_yaml(paths)
-        want.pop("run_cfg"), want.pop("tp")
+        want.pop("run_cfg")
         assert got.pop("encode_chunk") == 2 and want.pop("encode_chunk") == 0
         assert got == want
     assert (got["lr"], got["data_root"], got["iterations"], got["lora_rank"],

@@ -29,6 +29,7 @@ from fluidnexus_tpu.data import conversions as jconv
 from fluidnexus_tpu.data import dataset_builders as jdb
 from tests.test_dataset_builders import capture as capture_fixture
 from tests.test_torch_readers import encode_png
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -315,6 +316,7 @@ def test_hand_offs_run_without_pil_or_cv2(tmp_path):
         print("no imaging library")
     """)
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                         timeout=120, cwd=str(tmp_path))
+                         timeout=120, cwd=str(tmp_path),
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})   # one intra-op thread
     assert res.returncode == 0, res.stderr
     assert "no imaging library" in res.stdout and "converted 1 frames" in res.stdout

@@ -14,6 +14,7 @@ from fluidnexus_tpu.core.ply import save_background_ply as j_save_background_ply
 from fluidnexus_tpu.splat.dynamics import BackgroundSplats as JBackgroundSplats
 from fluidnexus_torch.core import config as tcfg
 from fluidnexus_torch.splat.dynamics import BackgroundSplats as TBackgroundSplats
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CONFIGS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "configs", "*.json")))
 

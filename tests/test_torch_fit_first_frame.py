@@ -26,6 +26,7 @@ from fluidnexus_torch.pipelines import train_physical_particle as ttrain
 from fluidnexus_torch.splat import dynamics as tdyn
 from tests.test_torch_small_math import _background
 from tests.test_train_physical import smoke_like_scene
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _small(cfg):

@@ -26,6 +26,7 @@ from tests.test_torch_fit_first_frame import _port_scene
 from tests.test_torch_future import _future_cfg
 from tests.test_torch_small_math import _background
 from tests.test_train_physical import smoke_like_scene
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 BG_ITERATION = 7
 

@@ -16,6 +16,7 @@ from fluidnexus_tpu.sim.state import make_particle_state as j_make_particle_stat
 from fluidnexus_torch import convert
 from fluidnexus_torch.ops import neighbors as tnb
 from fluidnexus_torch.sim import pbf as tpbf
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -13,6 +13,7 @@ from fluidnexus_tpu.sim import pbf_pallas as jpallas
 from fluidnexus_torch import convert
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda, splat_cuda
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

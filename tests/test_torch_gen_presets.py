@@ -14,12 +14,13 @@ from fluidnexus_torch.pipelines import gen_refine_video as tref
 from fluidnexus_tpu.core import gen_presets as jgp
 from fluidnexus_tpu.pipelines import gen_future_video as jfut
 from fluidnexus_tpu.pipelines import gen_refine_video as jref
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 PRESETS = ("refine_smoke", "refine_ball", "refine_scalar", "future_smoke", "future_ball",
            "future_scalar", "wind_smoke")
 REQUIRED = {"refine": ["--input_folder", "in", "--gt_prefix_folder", "gt", "--out_folder", "out"],
             "future": ["--sim_render_folder", "r", "--recon_frames_folder", "c", "--out_root", "o"]}
-JAX_ONLY = {"tp", "dp"}   # --tp/--dp wait for the port's parallel package
+JAX_ONLY = set()   # every JAX flag, --tp/--dp included, is the port's too
 
 
 class Parsed(Exception):

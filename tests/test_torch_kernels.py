@@ -12,7 +12,8 @@ import torch
 from fluidnexus_torch.data.cameras import Camera
 from fluidnexus_torch.ops import rasterizer as tr
 from fluidnexus_torch.ops import rasterizer_cuda as tc
-from tests.torch_helpers import (  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
+    one_intra_op_thread,  # noqa: F401
     EDGE_CASES, cuda_device, edge_tiles, leave_nan_blocks, packed_tiles, threshold_tiles,
 )
 

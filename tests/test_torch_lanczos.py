@@ -16,6 +16,7 @@ from fluidnexus_torch.pipelines import gen_refine_video as trefine
 from fluidnexus_torch.utils.lanczos import coefficients, resize_f32, resize_u8
 from fluidnexus_tpu.data import readers as jreaders
 from fluidnexus_tpu.pipelines import gen_refine_video as jrefine
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 SIZES = [((54, 96), (48, 72)),     # the ratio of 960 x 544 -> 720 x 480
          ((27, 48), (50, 90)),     # upscale on both axes

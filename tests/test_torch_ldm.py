@@ -26,6 +26,7 @@ from fluidnexus_tpu.diffusion.ldm import clip as jc
 from fluidnexus_tpu.diffusion.ldm import model as jm
 from fluidnexus_tpu.diffusion.ldm import unet as ju
 from tests.test_torch_video_dit import random_flax_params
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 MODULE_TOL = 1e-5
 SAMPLER_TOL = 1e-4

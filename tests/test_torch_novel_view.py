@@ -307,7 +307,8 @@ def test_clis_run_without_pil_jax_or_tensorboard(tmp_path):
         print(sorted(os.listdir(root + "/run")))
     """)
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                         timeout=300, cwd=str(tmp_path))
+                         timeout=300, cwd=str(tmp_path),
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})   # one intra-op thread
     assert res.returncode == 0, res.stderr
     assert "iter_0000001.npz" in res.stdout and "iter_0000001_ema.npz" in res.stdout
     assert os.path.exists(tmp_path / "out" / "zero123_finetune_52000_cam2to1" / "frame_000000.png")

@@ -19,6 +19,7 @@ from fluidnexus_torch.ops import neighbors as tnb
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -14,7 +14,8 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim.pbf import PBFParams
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import (  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
+    one_intra_op_thread,  # noqa: F401
     coincident_pairs_grid, cuda_device, guarded_gather, isolated_point_grid, leave_nan_blocks,
     phase1_against_the_walk,
 )

@@ -10,6 +10,7 @@ import torch
 from fluidnexus_tpu.sim import pbf_pallas as jpallas
 from fluidnexus_torch.sim import pbf_cuda
 from tests.test_torch_pbf_v2_pallas import check_phase1, check_phase2, lambda_from, pallas_case
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def test_v1_passes_match_the_v1_pallas_kernels():

@@ -26,6 +26,7 @@ from fluidnexus_torch import convert
 from fluidnexus_torch.ops import neighbors as tnb
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_dense as tdense
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

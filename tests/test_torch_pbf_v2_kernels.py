@@ -13,7 +13,8 @@ from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim.pbf import PBFParams, RigidSpec, create_rigid_body, solver_loop
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.test_torch_pbf_kernels import _grid_inputs
-from tests.torch_helpers import (  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
+    one_intra_op_thread,  # noqa: F401
     GRADED_BANDS, cuda_device, graded_rows_grid, guarded_gather, isolated_point_grid,
     leave_nan_blocks, phase2_part, plain_row_partials,
 )

@@ -17,6 +17,7 @@ from fluidnexus_torch import convert
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda
 from tests.test_torch_pbf import _mk_state
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -22,6 +22,7 @@ from fluidnexus_torch.pipelines import train_physical_particle as ttrain
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim.state import make_particle_state
 from fluidnexus_torch.splat import dynamics as tdyn
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -36,6 +36,7 @@ from fluidnexus_torch.sim import state as tstate
 from fluidnexus_torch.splat import dynamics as tdyn
 from tests.test_torch_fit_first_frame import _port_scene
 from tests.test_train_physical import smoke_like_scene
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -16,7 +16,8 @@ from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim import splat_cuda as sc
 from fluidnexus_torch.sim.state import make_particle_state
-from tests.torch_helpers import (ISOLATED_GRIDS, cuda_device, isolated_point_grid,  # noqa: F401
+from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
+    one_intra_op_thread,ISOLATED_GRIDS, cuda_device, isolated_point_grid,  # noqa: F401
                                  leave_nan_blocks, splat_edge_grids, splat_fwd_edge_grids)
 
 pytestmark = pytest.mark.cuda

@@ -39,7 +39,8 @@ from fluidnexus_tpu.diffusion.video import dit as jdit
 from fluidnexus_tpu.diffusion.video import vae3d as jv
 from fluidnexus_tpu.pipelines import port_drill as jdrill
 from tests.test_port_video_dit import make_state_dict
-from tests.torch_helpers import (
+from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
+    one_intra_op_thread,
     clip_reference_sd, kl_vae_reference_sd, seeded_fill_, unet_reference_sd,
     video_vae_reference_sd, zero123_reference_sd,
 )

@@ -15,6 +15,7 @@ from fluidnexus_torch.ops import rasterizer as tr
 from fluidnexus_torch.ops import rasterizer_cuda as tc
 from tests.test_rasterizer import make_camera, random_scene
 from tests.torch_helpers import EDGE_CASES, edge_tiles
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 from tests.torch_helpers import packed_tiles as _packed_tiles
 
 

@@ -19,6 +19,7 @@ from fluidnexus_tpu.core.config import Config as JConfig
 from fluidnexus_tpu.data import readers as jreaders
 from fluidnexus_tpu.data.scene import read_scene as j_read_scene
 from fluidnexus_tpu.runtime.native_loader import native_available
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 N_FRAMES = 4
 

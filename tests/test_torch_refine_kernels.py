@@ -26,6 +26,7 @@ from fluidnexus_torch.pipelines.sample_video import configs
 from fluidnexus_torch.utils.png import read_png, write_png
 from fluidnexus_torch.utils.video_io import read_video
 from tests.torch_helpers import cuda_device  # noqa: F401
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

@@ -32,6 +32,7 @@ from tests.test_torch_sample_video import save_with_jax
 from tests.test_torch_t5 import T5Reached, t5_spy
 from tests.test_torch_video_dit import dit_params, random_flax_params
 from tests.test_torch_video_sampling import record_noise, replay_noise
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 H = W = 32
 WIN, PRE = 9, 5

@@ -24,6 +24,7 @@ from fluidnexus_tpu.diffusion.video import engine as jeng
 from fluidnexus_tpu.pipelines import sample_video as jsv
 from tests.test_torch_video_dit import dit_params, random_flax_params
 from tests.test_torch_video_sampling import record_noise, replay_noise
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 ARGV = ["--tiny", "--prompt", "smoke rises past a cylinder", "--num_frames", "9", "--height",
         "32", "--width", "48", "--num_steps", "4", "--seed", "3"]

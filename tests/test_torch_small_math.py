@@ -29,6 +29,7 @@ from fluidnexus_torch.splat.render import render_particles_with_background as t_
 from fluidnexus_torch.utils import losses as tloss
 from fluidnexus_torch.utils import maths as tmaths
 from fluidnexus_torch.utils.maths import expon_lr as t_expon_lr
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

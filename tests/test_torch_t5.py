@@ -19,6 +19,7 @@ from fluidnexus_torch.diffusion.video import conditioner as tcond
 from fluidnexus_torch.diffusion.video import t5 as tt5
 from fluidnexus_torch.utils import flax_msgpack
 from fluidnexus_tpu.diffusion.video import conditioner as jcond
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 WORDS = ["<pad>", "</s>", "<unk>", "a", "smoke", "plume", "rises", "ball", "bounces", "the",

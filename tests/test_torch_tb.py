@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from fluidnexus_torch.utils.tb import TrainLogger, crc32c
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _bitwise_crc32c(data: bytes) -> int:

@@ -10,6 +10,7 @@ from fluidnexus_torch.core.config import Config
 from fluidnexus_torch.ops import rasterizer_cuda as tc
 from fluidnexus_torch.pipelines import future_simulation as fs
 from fluidnexus_torch.pipelines import train_physical_particle as tp
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 # (tile_x, tile_y)
 UNSUPPORTED = [(0, 16), (16, 0), (16, -4), (-8, 8), (0, 0)]

@@ -34,6 +34,7 @@ from fluidnexus_torch.pipelines import train_video as ttv
 from fluidnexus_tpu.diffusion.video import dit as jdit
 from fluidnexus_tpu.diffusion.video import engine as jeng
 from tests.test_torch_video_dit import TINY, dit_inputs, random_flax_params
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 

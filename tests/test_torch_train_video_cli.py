@@ -20,6 +20,7 @@ from fluidnexus_tpu.diffusion.video import dit as jdit
 from fluidnexus_tpu.diffusion.video import vae3d as jv
 from tests.test_torch_train_video import LR, Draws, nest, random_tree
 from tests.test_torch_video_dit import random_flax_params
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _clip_folder(root, n=9, h=32, w=48, seed=0):

@@ -14,6 +14,7 @@ from fluidnexus_torch.convert import vae3d_from_numpy
 from fluidnexus_torch.diffusion.video import vae3d as tv
 from fluidnexus_tpu.diffusion.video import vae3d as jv
 from tests.test_torch_video_dit import random_flax_params
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CONFIGS = {
     "tiny": dict(ch=16, ch_mult=(1, 2), num_res_blocks=1, z_channels=4,

@@ -12,6 +12,7 @@ from fluidnexus_torch.data import video_dataset as tds
 from fluidnexus_torch.pipelines.train_background import save_image
 from fluidnexus_torch.utils.png import read_png, to_rgb
 from fluidnexus_tpu.data import video_dataset as jds
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def _smooth(rng, h, w, c):

@@ -15,6 +15,7 @@ import torch
 from fluidnexus_torch.convert import _flatten_flax, video_dit_from_numpy
 from fluidnexus_torch.diffusion.video import dit as tdit
 from fluidnexus_tpu.diffusion.video import dit as jdit
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 TINY = dict(hidden_size=64, num_layers=2, num_heads=4, patch_size=2, in_channels=4,
             out_channels=4, text_hidden_size=32, text_length=5, latent_frames=3,

@@ -16,6 +16,7 @@ import pytest
 from fluidnexus_torch.data import video_dataset as tds
 from fluidnexus_tpu.data import video_dataset as jds
 from fluidnexus_tpu.utils.video_io import write_video
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def write_clip(path, n, fps=8, h=40, w=56, seed=0):

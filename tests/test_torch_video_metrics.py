@@ -21,6 +21,7 @@ from fluidnexus_torch.utils import video_metrics as tvm
 from fluidnexus_tpu.utils import i3d as ji3d
 from fluidnexus_tpu.utils import perceptual as jper
 from fluidnexus_tpu.utils import video_metrics as jvm
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 I3D_TOL = 1e-4

@@ -11,6 +11,7 @@ import torch
 
 from fluidnexus_torch.diffusion.video import sampling as ts
 from fluidnexus_tpu.diffusion.video import sampling as js
+from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 SHAPE = (1, 4, 3, 6, 6)   # (B, T, C, H, W) latents
 

@@ -5,6 +5,19 @@ import pytest
 import torch
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One torch intra-op thread for a module's tests (a module that imports
+    this fixture uses it). The suite runs six workers at once on a host of a
+    few cores, and a CPU op split over threads that other workers hold waits
+    on them: the phase-C tests took 197 s alone at 8 threads and 83 s at
+    one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, for tests marked `cuda`; they skip where there is none."""
