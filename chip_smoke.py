@@ -45,6 +45,7 @@ often the PBF tick's backends part at a pair that crosses the kernel radius;
 ``python3 chip_smoke.py port-5b`` the ``port`` stage on the 42-layer SAT DiT
 and the ``--vgg16`` sFID finding (VGG16 on 10 000 + 10 000 images, scipy's
 sqrtm timed),
+``python3 chip_smoke.py scalar`` the ScalarFlow phase alone,
 ``python3 chip_smoke.py refine-encode-probe`` tries the refinement windows'
 whole VAE encode beside the resident 5B DiT, and
 ``python3 chip_smoke.py png-time`` times the PNG decode on any CPU.
@@ -110,6 +111,20 @@ zero123_to_cogvideox, cogvideox_to_original; ``dataset_builders``
 simulation_to_cogvideox on stage 4's renders, cogvideox_dataset and
 cogvideox_paths on the capture). The process must end with no jax, JAX
 package, PIL or cv2 module loaded.
+
+ScalarFlow (``run_scalar``): 6 seeded raw stacks of 5 cameras at 1 062 x
+600 in ScalarFlow's (5, H, W) float layout (frame 0 a static background with
+noise, frames 1-5 add the port's gray render of configs/scalar_dynamics.json's
+seeded column) through ``dataset_builders scalar_flow_preprocess``'s CLI
+(the nlmeans kernel, 5 launches a stack), the kernel held bit for bit
+against ``denoise_plain`` at those frames, uniform noise, 0 / 255 halves and
+16 x 12, 7 x 5 and 1 x 1, timed beside the plain version and OpenCV (in a
+subprocess, where the machine has it); then a ScalarReal capture of the
+no_bg frames (``colmap_frames/colmap_{20-24}``, the fake views 0134) through
+``train_physical_particle --loader scalar_real`` (configs/scalar_dynamics.json:
+gm_fluid, no background, gray; cut: frames 20-22, 10 + 2 x 5 fit iterations)
+and ``future_simulation`` (configs/scalar_future_simulation.json, 3 of 60
+future frames), every rasterizer launch at C = 1.
 
 Video (``sample_video.main`` at its defaults): the CogVideoX-5B DiT and VAE on
 seeded random weights, 49 frames at 480 x 720 (13 latents, 17 776 tokens),
@@ -798,7 +813,8 @@ def main(profiles=False):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    built = cuda_build.build(["rasterizer", "pbf", "splat", "attention", "attention_bwd"])
+    built = cuda_build.build(["rasterizer", "pbf", "splat", "attention", "attention_bwd",
+                              "nlmeans"])
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         print(info["log"].strip())
@@ -818,6 +834,7 @@ def main(profiles=False):
         kernels += phase_c_kernels + timed("future", run_future, dev, recon,
                                            os.path.join(tmp, "future"))
         kernels += timed("stages", run_stages, dev, os.path.join(tmp, "stages"))
+        kernels += timed("scalar", run_scalar, dev, os.path.join(tmp, "scalar"))
         with dit_depth(SMOKE_DIT_LAYERS):
             kernels += timed("video", run_video, dev, os.path.join(tmp, "video"))
             kernels += timed("video_train", run_video_train, dev,
@@ -839,6 +856,7 @@ def main(profiles=False):
 
 def reset_all_launches():
     from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.ops import nlmeans_cuda as nc
     from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -847,15 +865,17 @@ def reset_all_launches():
     pc.reset_launches()
     sc.reset_launches()
     ac.reset_launches()
+    nc.reset_launches()
 
 
 def all_launches():
     from fluidnexus_torch.ops import attention_cuda as ac
+    from fluidnexus_torch.ops import nlmeans_cuda as nc
     from fluidnexus_torch.ops import rasterizer_cuda as tc
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
 
-    return {**tc.LAUNCHES, **pc.LAUNCHES, **sc.LAUNCHES, **ac.LAUNCHES}
+    return {**tc.LAUNCHES, **pc.LAUNCHES, **sc.LAUNCHES, **ac.LAUNCHES, **nc.LAUNCHES}
 
 
 def run_phase_a(dev):
@@ -2019,14 +2039,16 @@ KNN_REPS = 5                  # timed knn calls at each size
 CAPTURE_COLUMN_RISE = 0.01    # the rendered column moves up this much a frame
 
 
-def capture_cameras(root, n_frames):
+def capture_cameras(root, n_frames, width=960, height=544, **read):
     """transforms_train.json, transforms_test.json and transforms.json for
-    ``smoke_scene``'s five cameras (OpenGL c2w, as a FluidNexus capture holds
-    them), and the cameras the port's reader makes of them: camera hacks and
-    all, so the frames are rendered from the poses ``read_scene`` gives."""
+    ``smoke_scene``'s five cameras at ``width`` x ``height`` (OpenGL c2w, as
+    a FluidNexus capture holds them), and the cameras the port's reader makes
+    of them (``read`` goes to it: the ScalarReal layout's
+    ``dataset_style``, say): camera hacks and all, so the frames are rendered
+    from the poses ``read_scene`` gives."""
     from fluidnexus_torch.data.readers import read_cameras_real_capture
 
-    scene = smoke_scene(n_frames=1)
+    scene = smoke_scene(width=width, height=height, n_frames=1)
     frames = []
     for cam in scene.train_cameras:
         c2w = np.eye(4)
@@ -2040,7 +2062,8 @@ def capture_cameras(root, n_frames):
                       ("transforms_train.json", [f for f in frames if f not in test])):
         with open(os.path.join(root, name), "w") as f:
             json.dump({"frames": sel}, f)
-    return read_cameras_real_capture(root, "transforms.json", duration=n_frames, read_image=False)
+    return read_cameras_real_capture(root, "transforms.json", duration=n_frames, read_image=False,
+                                     **read)
 
 
 def write_capture(root, dev, fake_views, refined_strength):
@@ -2097,11 +2120,17 @@ def write_capture(root, dev, fake_views, refined_strength):
 
 def derived_config(src, path, changes):
     """``src`` with ``changes`` (JSON wins over the CLI, so the cuts go into a
-    copy), written to ``path``; prints each change."""
+    copy), written to ``path``; prints each change beside the value the
+    configuration had (its own, or the Config default it leaves)."""
+    from fluidnexus_torch.core.config import load_config
+
     with open(src) as f:
         data = json.load(f)
+    cfg = load_config(src)
     for k, v in changes.items():
-        print(f"  {src}: {k} {data.get(k, '(default)')} -> {v}")
+        had = next((getattr(part, k) for part in (cfg.model, cfg.optim, cfg.pipe, cfg)
+                    if hasattr(part, k)), "(none)")
+        print(f"  {src}: {k} {data[k] if k in data else f'{had} (default)'} -> {v}")
     data.update(changes)
     with open(path, "w") as f:
         json.dump(data, f, indent=1)
@@ -2352,9 +2381,10 @@ def run_stages(dev, tmp):
     return kernels
 
 
-def run_stage4(argv, out, timed_read, stage):
+def run_stage4(argv, out, timed_read, stage, n_frames=STAGE4_FRAMES):
     """``future_simulation.main`` with ``argv`` into ``out`` on the card (the
-    run called stage ``stage`` in what it prints): a
+    run called stage ``stage`` in what it prints), ``n_frames`` future
+    frames: a
     finite p_ratio each future frame, its renders, exactly its launches
     (``solver_iterations_future`` of each v3 PBF kernel, one splat forward
     and one composite forward a rendered camera each frame) and no other.
@@ -2390,16 +2420,16 @@ def run_stage4(argv, out, timed_read, stage):
     n_cams, n_names = len(cams), len({c.image_name for c in cams})
     print(f"{label}: main in {wall:.2f} s; p_ratio {[f['p_ratio'] for f in frames]}; "
           f"launches {launches}")
-    if len(frames) != STAGE4_FRAMES or not all(np.isfinite(f["p_ratio"]) for f in frames):
+    if len(frames) != n_frames or not all(np.isfinite(f["p_ratio"]) for f in frames):
         _fail(f"{label} did not give a finite p_ratio for each future frame")
     renders = os.listdir(os.path.join(out, "training_render"))
     print(f"{label} wrote {len(renders)} renders ({n_cams} cameras a frame rendered under "
           f"{n_names} names: a camera in both the training and the test set writes one file)")
-    if len(renders) != STAGE4_FRAMES * n_names:
-        _fail(f"{label} wrote {len(renders)} renders, expected {STAGE4_FRAMES * n_names}")
-    want = {"pbf_phase1": STAGE4_FRAMES * o.solver_iterations_future,
-            "pbf_phase2": STAGE4_FRAMES * o.solver_iterations_future,
-            "splat_fwd": STAGE4_FRAMES, "composite_fwd": STAGE4_FRAMES * n_cams}
+    if len(renders) != n_frames * n_names:
+        _fail(f"{label} wrote {len(renders)} renders, expected {n_frames * n_names}")
+    want = {"pbf_phase1": n_frames * o.solver_iterations_future,
+            "pbf_phase2": n_frames * o.solver_iterations_future,
+            "splat_fwd": n_frames, "composite_fwd": n_frames * n_cams}
     if any(launches[k] != v for k, v in want.items()) or any(
             v for k, v in launches.items() if k not in want):
         _fail(f"{label} launched {launches}, expected {want} and no other kernel")
@@ -7855,6 +7885,588 @@ def parallel_only():
 
 
 
+# ------------------------------ ScalarFlow -----------------------------------
+
+SCALAR_HW = (1062, 600)       # a ScalarFlow camera frame, H x W (Eckert et al. 2019)
+SCALAR_STACKS = 6             # raw stacks: frame 0 smoke-free, frames 1-5 the plume
+SCALAR_FRAMES = 3             # duration of stages 2 and 4: frames 20-22 (cut from 120 / 141)
+SCALAR_FIRST_ITERS = 10       # iterations_per_time_first, cut from the default 1000
+SCALAR_ITERS = 5              # iterations_per_time_current and _max, cut from 250
+SCALAR_FUTURE = 3             # future_pred_frames, cut from 60
+SCALAR_RISE = 0.01            # the plume moves up this much a frame
+SCALAR_NOISE = 0.02           # the raw frames' noise, of the [0, 1] range (~5 levels)
+SCALAR_EDGE_SHAPES = ((16, 12), (7, 5), (1, 1))   # the reflected border wraps again
+NLMEANS_TIMED = 4             # timed launches a camera frame (20 over the 5)
+NLMEANS_PLAIN_TIMED = 3
+# int32 operations an offset and pixel of the least work, the sliding-sum
+# form: a column sum's new squared difference and its update (sub, mul, add,
+# sub of the row that leaves), the window's (add, sub), the two weighted sums
+NLMEANS_OPS = 8
+H100_INT32_OPS = 132 * 64 * 1.98e9   # 64 INT32 lanes an SM x 132 SMs x the 1.98 GHz boost
+# (Hopper white paper: 16 INT32 units in each of an SM's four partitions)
+
+_CV2_SCRIPT = """
+import json, sys, time
+import numpy as np
+try:
+    import cv2
+except ImportError as e:
+    print(json.dumps({"cv2": None, "why": str(e)}))
+    sys.exit(0)
+frames = np.load(sys.argv[1])
+outs, times = [], []
+for rep in range(2):
+    for f in frames:
+        t0 = time.perf_counter()
+        o = cv2.fastNlMeansDenoising(f, None, 3, 7, 21)
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            outs.append(o)
+np.save(sys.argv[2], np.stack(outs))
+print(json.dumps({"cv2": cv2.__version__, "threads": cv2.getNumThreads(),
+                  "ms": [t * 1e3 for t in times]}))
+"""
+
+
+def scalar_stacks(sim, cams, dev):
+    """ScalarFlow's raw capture as ``scalar_flow_preprocess`` reads it:
+    SCALAR_STACKS files ``cam/imgsUnproc_{t:06d}.npz`` holding "data", a (5,
+    H, W) float32 stack in [0, 1] with the cameras in SCALARFLOW_CAMERA_IDS
+    order, each frame upside down. A camera's frame is a seeded smooth static
+    background with noise; frames 1 on add the port's gray render (no
+    background splats, C = 1) of configs/scalar_dynamics.json's seeded
+    visual column through that camera, moved up SCALAR_RISE a frame.
+    Returns the seconds it took."""
+    import time
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.data.dataset_builders import SCALARFLOW_CAMERA_IDS
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+    from fluidnexus_torch.sim.state import make_visual_state
+    from fluidnexus_torch.splat.dynamics import constant_visual_attrs, create_visual_points
+    from fluidnexus_torch.splat.render import render_particles_with_background
+
+    t0 = time.perf_counter()
+    cfg = load_config("configs/scalar_dynamics.json")
+    m, rc = cfg.model, raster_config_from(cfg)
+    pts = create_visual_points(m, np.random.default_rng(SEED + 2))
+    attrs = constant_visual_attrs(m.visual_capacity, 1, device=dev)
+    by_name = {c.image_name[-1]: c for c in cams}
+    rng = np.random.default_rng(SEED + 3)
+    h, w = SCALAR_HW
+    y, x = np.mgrid[:h, :w].astype(np.float32) / max(h, w)
+    backgrounds = {}
+    for cam_id in SCALARFLOW_CAMERA_IDS:
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        backgrounds[cam_id] = (0.10 + 0.04 * np.sin(7 * x + ph[0]) * np.cos(5 * y + ph[1])
+                               + 0.03 * np.sin(13 * (x + y) + ph[2]) + 0.05 * y)
+    os.makedirs(os.path.join(sim, "cam"))
+    for t in range(SCALAR_STACKS):
+        stack = np.empty((5, h, w), np.float32)
+        moved = pts + np.array([0.0, 0.02 + SCALAR_RISE * t, 0.0], np.float32)
+        vis = make_visual_state(m.visual_capacity, moved, device=dev)
+        for idx, cam_id in enumerate(SCALARFLOW_CAMERA_IDS):
+            img = backgrounds[cam_id] + rng.normal(0, SCALAR_NOISE, (h, w))
+            if t > 0:
+                cam = by_name[str(cam_id)]
+                with torch.no_grad():
+                    out = render_particles_with_background(
+                        vis.xyz, vis.alive, attrs, None,
+                        view_matrix=torch.as_tensor(cam.world_view, device=dev),
+                        proj_matrix=torch.as_tensor(cam.full_proj, device=dev),
+                        tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=w, height=h,
+                        bg_color=torch.zeros(1, device=dev), config=rc)
+                img = img + out.color.mean(0).clamp(0, 1).cpu().numpy()
+            stack[idx] = np.flipud(np.clip(img, 0, 1))
+        np.savez(os.path.join(sim, "cam", f"imgsUnproc_{t:06d}.npz"), data=stack)
+    return time.perf_counter() - t0
+
+
+def nlmeans_cases(sim, dev):
+    """The kernel's inputs held against the plain version, uint8 on the
+    card: stack 1's five camera frames cast as the preprocess casts them,
+    uniform noise and 0 / 255 halves at SCALAR_HW (the table's far end), and
+    noise at SCALAR_EDGE_SHAPES. Returns (name, image) pairs, the cameras
+    first."""
+    from fluidnexus_torch.data.dataset_builders import SCALARFLOW_CAMERA_IDS
+
+    with np.load(os.path.join(sim, "cam", "imgsUnproc_000001.npz")) as npz:
+        stack = torch.as_tensor(npz["data"], device=dev)
+    cases = [(f"camera {c}, frame 1", torch.flip(torch.clamp(stack[i] * 255, 0, 255)
+                                                 .to(torch.uint8), (0,)))
+             for i, c in enumerate(SCALARFLOW_CAMERA_IDS)]
+    rng = np.random.default_rng(SEED + 4)
+    h, w = SCALAR_HW
+    halves = np.zeros((h, w), np.uint8)
+    halves[:, w // 2:] = 255
+    cases += [("uniform noise", rng.integers(0, 256, (h, w), dtype=np.uint8)),
+              ("0 / 255 halves", halves)]
+    cases += [(f"noise {eh}x{ew}", rng.integers(0, 256, (eh, ew), dtype=np.uint8))
+              for eh, ew in SCALAR_EDGE_SHAPES]
+    return [(n, torch.as_tensor(img, device=dev).contiguous()) for n, img in cases]
+
+
+def check_nlmeans(cases):
+    """Each case through the kernel and ``denoise_plain`` on the card: fails
+    on any differing pixel. Returns the kernel's outputs and the largest
+    |difference| (0)."""
+    from fluidnexus_torch.ops import nlmeans_cuda as nc
+    from fluidnexus_torch.utils.nlmeans import denoise_plain
+
+    outs, worst = [], 0
+    for name, img in cases:
+        got = nc.nlmeans_cuda(img)
+        ref = denoise_plain(img)
+        torch.cuda.synchronize()
+        diff = int((got != ref).sum())
+        err = int((got.int() - ref.int()).abs().max())
+        print(f"nlmeans {name} ({img.shape[0]}x{img.shape[1]}): {diff} pixels differ from "
+              f"denoise_plain (max |diff| {err})")
+        if diff:
+            _fail(f"the nlmeans kernel differs from denoise_plain on {name}")
+        outs.append(got)
+        worst = max(worst, err)
+    return outs, worst
+
+
+def time_nlmeans(frames):
+    """ms a frame of the kernel (CUDA events around each launch, median over
+    NLMEANS_TIMED launches a frame) and of ``denoise_plain`` on the card
+    (median of NLMEANS_PLAIN_TIMED, the first frame)."""
+    from fluidnexus_torch.ops import nlmeans_cuda as nc
+    from fluidnexus_torch.utils.nlmeans import denoise_plain
+
+    def event_ms(fn, img, n):
+        times = []
+        for _ in range(n):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(img)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return times
+
+    for img in frames:
+        nc.nlmeans_cuda(img)
+    kernel = [t for img in frames for t in event_ms(nc.nlmeans_cuda, img, NLMEANS_TIMED)]
+    plain = event_ms(denoise_plain, frames[0], NLMEANS_PLAIN_TIMED)
+    return statistics.median(kernel), kernel, statistics.median(plain)
+
+
+def opencv_beside(frames, outs, tmp):
+    """OpenCV's fastNlMeansDenoising(., None, 3, 7, 21) on the same frames in a
+    subprocess (this process loads no cv2), where the machine has it: its
+    host ms a frame and how many pixels differ from the kernel. Printed, not
+    checked."""
+    src, dst = os.path.join(tmp, "cv2_in.npy"), os.path.join(tmp, "cv2_out.npy")
+    np.save(src, np.stack([f.cpu().numpy() for f in frames]))
+    res = subprocess.run([sys.executable, "-c", _CV2_SCRIPT, src, dst], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        print(f"nlmeans: the OpenCV subprocess exited {res.returncode}: {res.stderr[-2000:]}")
+        return None
+    info = json.loads(res.stdout.strip().splitlines()[-1])
+    if info["cv2"] is None:
+        print(f"nlmeans: no OpenCV on this machine ({info['why']})")
+        return None
+    ref = np.load(dst)
+    diff = int(sum(int((o.cpu().numpy() != r).sum()) for o, r in zip(outs, ref)))
+    ms = statistics.median(info["ms"])
+    print(f"nlmeans: OpenCV {info['cv2']} ({info['threads']} threads) on the host: {ms:.3f} ms a "
+          f"frame (median of {len(info['ms'])}: {', '.join(f'{t:.1f}' for t in info['ms'])}); "
+          f"{diff} of {len(outs) * outs[0].numel()} pixels differ from the kernel")
+    return ms
+
+
+def check_preprocess_outputs(sim, dev):
+    """The preprocess's PNGs of the last stack, by the port's own means: each
+    camera's raw frame is the npz cast and flipped, its denoise is
+    ``denoise_plain`` of that, and its no_bg is ``separate_background`` of
+    the denoise against frame 0's."""
+    from fluidnexus_torch.data.dataset_builders import SCALARFLOW_CAMERA_IDS, separate_background
+    from fluidnexus_torch.utils.nlmeans import denoise_plain
+    from fluidnexus_torch.utils.png import read_png
+
+    t = SCALAR_STACKS - 1
+    with np.load(os.path.join(sim, "cam", f"imgsUnproc_{t:06d}.npz")) as npz:
+        stack = npz["data"]
+
+    def png(tree, k):
+        return read_png(os.path.join(sim, tree, f"imgs_{k:06d}.png"))[..., 0]
+
+    for idx, cam in enumerate(SCALARFLOW_CAMERA_IDS):
+        raw = png(f"cam{cam}_raw", t)
+        want_raw = np.flip(np.clip(stack[idx] * 255, 0, 255).astype(np.uint8), axis=0)
+        den = denoise_plain(torch.as_tensor(raw, device=dev)).cpu().numpy()
+        no_bg = separate_background(torch.as_tensor(den), torch.as_tensor(png(f"cam{cam}_denoise",
+                                                                               0))).numpy()
+        for what, a, b in (("raw", raw, want_raw), ("denoise", png(f"cam{cam}_denoise", t), den),
+                           ("no_bg", png(f"cam{cam}_no_bg", t), no_bg)):
+            if not np.array_equal(a, b):
+                _fail(f"scalar_flow_preprocess: cam{cam}_{what} of frame {t} is not what the "
+                      f"plain path gives ({int((a != b).sum())} pixels)")
+    shares = [float((png(f"cam{cam}_no_bg", t) > 0).mean()) for cam in SCALARFLOW_CAMERA_IDS]
+    print(f"scalar_flow_preprocess: frame {t}'s raw, denoise and no_bg PNGs of every camera equal "
+          f"the plain path's; the plume (no_bg > 0) covers "
+          f"{', '.join(f'{100 * v:.2f}' for v in shares)} % of cameras "
+          f"{', '.join(map(str, SCALARFLOW_CAMERA_IDS))}")
+
+
+def write_scalar_capture(cap, sim, n_stacks):
+    """The ScalarReal layout ``read_scene(loader scalar_real)`` reads, from
+    the preprocess's ``cam{j}_no_bg`` frames (stacks 1 on, as frames
+    start_time on): ``colmap_frames/colmap_{t}/train0{j}.png`` and, for the
+    config's fake views, the refined-view folders' ``frame_{k:06d}.png``.
+    Returns the count of files written."""
+    import shutil
+
+    from fluidnexus_torch.core.config import load_config
+    from fluidnexus_torch.data.readers import fake_view_folder
+
+    m = load_config("configs/scalar_dynamics.json").model
+    n = 0
+    for k in range(n_stacks - 1):
+        for cam in "01234":
+            src = os.path.join(sim, f"cam{cam}_no_bg", f"imgs_{k + 1:06d}.png")
+            dsts = [os.path.join(cap, "colmap_frames", f"colmap_{m.start_time + k}",
+                                 f"train0{cam}.png")]
+            if cam in m.train_views_fake:
+                dsts.append(os.path.join(cap, fake_view_folder("scalar", m.train_views[:1], cam,
+                                                               m.refined_strength),
+                                         f"frame_{k:06d}.png"))
+            for dst in dsts:
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copyfile(src, dst)
+                n += 1
+    return n
+
+
+def _rasterizer_channels(tc, seen):
+    """Wrap the rasterizer's two kernel wrappers to count their launches by
+    colour channels C; returns a function that puts them back."""
+    real = tc.composite_fwd, tc.composite_bwd
+
+    def fwd(packed, *a, **kw):
+        seen[("composite_fwd", packed.shape[2] - 7)] += 1
+        return real[0](packed, *a, **kw)
+
+    def bwd(packed, *a, **kw):
+        seen[("composite_bwd", packed.shape[2] - 7)] += 1
+        return real[1](packed, *a, **kw)
+
+    tc.composite_fwd, tc.composite_bwd = fwd, bwd
+
+    def restore():
+        tc.composite_fwd, tc.composite_bwd = real
+    return restore
+
+
+def scalar_raster_check(res, cam, cfg, dev):
+    """The rasterizer's three kernels against their plain versions
+    (``check_kernels``, its limits) at this path's own tiles: the last
+    frame's fitted visual particles of stage 2 (``gm_fluid``: no background,
+    C = 1) through ``cam`` at the configuration's tile settings. Also prints
+    how many of those particles the dense splat's query cells would drop
+    (``bin_queries`` over the hidden state's grid at its caps): dropped
+    queries are not advected."""
+    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid
+    from fluidnexus_torch.ops.rasterizer import tile_packed
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+    from fluidnexus_torch.splat.render import compose_splats
+
+    rc = raster_config_from(cfg)
+    vis, params, st = res["visual"], res["params"], res["state"]
+    with torch.no_grad():
+        splats = compose_splats(vis.xyz / params.scale_factor, vis.alive, res["attrs"], None)
+        tl = tile_packed(*splats, view_matrix=torch.as_tensor(cam.world_view, device=dev),
+                         proj_matrix=torch.as_tensor(cam.full_proj, device=dev),
+                         tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=cam.width,
+                         height=cam.height, config=rc)
+        grid = build_dense_grid(st.xyz, params.h, st.alive, params.dense_max_cells,
+                                params.dense_cell_capacity)
+        qgrid, _ = bin_queries(grid, params.h, vis.xyz, vis.alive, params.dense_max_cells,
+                               params.dense_cell_capacity)
+    packed_t = tl.packed.contiguous()
+    print(f"scalar stage 2 camera {cam.image_name} tiles ({cam.width} x {cam.height}, the last "
+          f"frame's {int(vis.alive.sum())} visual particles, no background): T "
+          f"{packed_t.shape[0]} K {packed_t.shape[1]} F {packed_t.shape[2]} live slots "
+          f"{int(tl.counts.sum())} max count {int(tl.counts.max())}; tiles {rc.tile_x}x{rc.tile_y} "
+          f"dup {rc.dup_x}x{rc.dup_y}")
+    print(count_distribution(tl.counts, rc.tile_capacity))
+    print(f"scalar stage 2: the dense splat's query cells ({params.dense_cell_capacity} slots) "
+          f"drop {int(qgrid.overflow)} of the last frame's {int(vis.alive.sum())} visual "
+          f"particles")
+    if packed_t.shape[2] != 8 or not int(tl.counts.sum()):
+        _fail(f"scalar stage 2's tiles are {tuple(packed_t.shape)} with "
+              f"{int(tl.counts.sum())} live slots: expected C = 1 and some splat drawn")
+    check_kernels(packed_t, tl.gauss, tl.counts, tl.tiles_x, splats[0].shape[0], rc)
+
+
+def run_scalar(dev, root):
+    """The ScalarFlow capture on the card: raw stacks (``scalar_stacks``)
+    through ``dataset_builders scalar_flow_preprocess``'s CLI (the main path
+    of the nlmeans kernel: 5 launches a stack, 1 a camera), the kernel held
+    bit for bit against ``denoise_plain`` and timed, OpenCV beside it where
+    the machine has it, then the ScalarReal capture written from the no_bg
+    frames and the reconstruction (``train_physical_particle --loader
+    scalar_real --config configs/scalar_dynamics.json``, phases A -> B -> C
+    over frames 20-22) and the future (``future_simulation --config
+    configs/scalar_future_simulation.json``, SCALAR_FUTURE frames) through
+    their CLIs: ``gm_fluid``, no background, gray images, emit ratios 1.61,
+    alpha -3, buoyancy_max_y 0.8. Checks the launches exactly (every
+    rasterizer launch at C = 1), the rasterizer kernels against their plain
+    versions at this path's tiles (``scalar_raster_check``), that no PLY was read and that no jax, JAX
+    package, PIL or cv2 is loaded. Returns the nlmeans entry of the
+    ``kernels`` line."""
+    import collections
+    import time
+
+    from fluidnexus_torch.core.config import parse_cli
+    from fluidnexus_torch.data import dataset_builders as db
+    from fluidnexus_torch.data.scene import cameras_by_time
+    from fluidnexus_torch.ops import rasterizer_cuda as tc
+    from fluidnexus_torch.pipelines import future_simulation as tf
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.splat.dynamics import BackgroundSplats
+
+    t_phase = time.perf_counter()
+    h, w = SCALAR_HW
+    sim, cap = os.path.join(root, "sim", "input"), os.path.join(root, "capture")
+    recon, future = os.path.join(root, "recon"), os.path.join(root, "future")
+    os.makedirs(cap, exist_ok=True)
+    cams = capture_cameras(cap, 1, width=w, height=h, dataset_style="scalar", start_time=20)
+    secs = scalar_stacks(sim, cams, dev)
+    print(f"scalar: wrote {SCALAR_STACKS} raw stacks of 5 x {h} x {w} float32 (frame 0 "
+          f"smoke-free, noise {SCALAR_NOISE}) in {secs:.2f} s")
+
+    # ---- the main path of the kernel: the preprocess CLI
+    host = {"s": 0.0, "n": 0, "bytes": 0}
+    real_imwrite = db.imwrite
+
+    def timed_imwrite(path, arr):
+        t0 = time.perf_counter()
+        real_imwrite(path, arr)
+        host["s"] += time.perf_counter() - t0
+        host["n"] += 1
+        host["bytes"] += os.path.getsize(path)
+
+    db.imwrite = timed_imwrite
+    torch.cuda.synchronize()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        n = db.main(["scalar_flow_preprocess", "--sim_input_path", sim])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        db.imwrite = real_imwrite
+    launches = all_launches()
+    want = {"nlmeans": 5 * SCALAR_STACKS}
+    print(f"scalar_flow_preprocess: {n} frames x 5 cameras in {wall:.3f} s; {host['n']} PNGs, "
+          f"{host['bytes']} bytes; the PNG encodes and writes {host['s']:.3f} s "
+          f"({100 * host['s'] / wall:.1f} % of the CLI, on the host); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if n != SCALAR_STACKS or host["n"] != 5 * (2 * SCALAR_STACKS + 3 * (SCALAR_STACKS - 1)):
+        _fail(f"scalar_flow_preprocess processed {n} frames and wrote {host['n']} PNGs")
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        _fail(f"scalar_flow_preprocess launched {launches}, expected {want} and no other kernel")
+    check_preprocess_outputs(sim, dev)
+
+    # ---- the kernel against the plain version, its time and bound, OpenCV
+    cases = nlmeans_cases(sim, dev)
+    outs, err = check_nlmeans(cases)
+    frames = [img for _, img in cases[:5]]
+    ms, all_ms, plain_ms = time_nlmeans(frames)
+    b = bound_ms(2 * h * w, NLMEANS_OPS * 21 * 21 * h * w, peak=H100_INT32_OPS)
+    print(f"nlmeans kernel at {h} x {w}: {ms:.4f} ms a frame (median of {len(all_ms)}: "
+          f"{min(all_ms):.4f}-{max(all_ms):.4f}), 5 launches a stack; bound {b[0]:.4f} ms by "
+          f"{b[1]} ({NLMEANS_OPS} int32 operations an offset and pixel at "
+          f"{H100_INT32_OPS / 1e12:.2f} T/s; {2 * h * w} bytes at 3.35 TB/s); the direct form "
+          f"does 49 x 2 an offset and pixel; denoise_plain on the card {plain_ms:.3f} ms")
+    cv_ms = opencv_beside(frames, outs[:5], root)
+
+    # ---- stages 2 and 4 on the ScalarReal capture
+    n_files = write_scalar_capture(cap, sim, SCALAR_STACKS)
+    print(f"scalar: the ScalarReal capture holds {n_files} frames from the no_bg trees (frames "
+          f"20-{20 + SCALAR_STACKS - 2}, the fake views 0134 too)")
+    plys, channels = [], collections.Counter()
+    real_ply = BackgroundSplats.from_ply.__func__
+
+    def from_ply(cls, *a, **kw):
+        plys.append(a)
+        return real_ply(cls, *a, **kw)
+
+    fits, ticks, scenes = [], [], []
+    real = dict(fit=tp.fit_frame, tick2=tp.solver_tick, tick4=tf.solver_tick, read=tp.read_scene)
+
+    def events_around(fn, log, n_of=None):
+        def run(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            log.append((s, e, n_of(a) if n_of else 1))
+            return out
+        return run
+
+    def read(cfg, *a, **kw):
+        scenes.append(real["read"](cfg, *a, **kw))
+        return scenes[-1]
+
+    print("scalar stage 2 config (configs/scalar_dynamics.json, cut):")
+    cut = dict(duration=SCALAR_FRAMES)
+    cfg2 = derived_config("configs/scalar_dynamics.json", os.path.join(root, "scalar2.json"),
+                          dict(cut, iterations_per_time_first=SCALAR_FIRST_ITERS,
+                               iterations_per_time_current=SCALAR_ITERS,
+                               iterations_per_time_current_max=SCALAR_ITERS))
+    BackgroundSplats.from_ply = classmethod(from_ply)
+    restore = _rasterizer_channels(tc, channels)
+    tp.fit_frame = events_around(real["fit"], fits, n_of=lambda a: a[7])
+    tp.solver_tick = events_around(real["tick2"], ticks, n_of=lambda a: a[2])
+    tp.read_scene = read
+    torch.cuda.synchronize()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        res = tp.main(["--config", cfg2, "--data_path", cap, "--model_path", recon, "--loader",
+                       "scalar_real", "--seed", str(SEED)], device="cuda")
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        tp.fit_frame, tp.solver_tick, tp.read_scene = real["fit"], real["tick2"], real["read"]
+        BackgroundSplats.from_ply = classmethod(real_ply)
+        restore()
+    launches2, seen2 = all_launches(), dict(channels)
+    cfg_s = scenes[-1]
+    o = parse_cli(["--config", cfg2]).optim
+    metrics = res["metrics"]
+    for mm in metrics:
+        print(f"scalar stage 2 frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
+              f"visual {mm['visual']} held-out l1 {mm.get('l1', float('nan')):.4f} psnr "
+              f"{mm.get('psnr', float('nan')):.3f}")
+    if [mm["frame"] for mm in metrics] != list(range(1, SCALAR_FRAMES)) or not all(
+            np.isfinite(mm["loss"]) for mm in metrics):
+        _fail("scalar stage 2 did not give a finite loss for each frame")
+    train_by_t = cameras_by_time(cfg_s.train_cameras)
+    test_by_t = cameras_by_time(cfg_s.test_cameras)
+    if not all(c.image.ndim == 2 for c in cfg_s.train_cameras) or not any(
+            c.is_fake_view for c in cfg_s.train_cameras):
+        _fail("scalar stage 2 did not read gray frames and fake views")
+    fit_iters = (SCALAR_FRAMES - 1) * SCALAR_ITERS
+    evals = sum(len(test_by_t.get(t, [])) for t in range(1, SCALAR_FRAMES))
+    steps = o.batch * (SCALAR_FIRST_ITERS + fit_iters)
+    tick_iters = sum(k for _, _, k in ticks)
+    want = {"composite_fwd": steps + evals, "composite_bwd": steps, "combine_rows": steps,
+            "density_fwd": 2 * fit_iters, "density_bwd": 2 * fit_iters,
+            "splat_fwd": fit_iters + SCALAR_FRAMES - 1, "splat_bwd": fit_iters,
+            "pbf_phase1": tick_iters, "pbf_phase2": tick_iters}
+    print(f"scalar stage 2: main in {wall2:.2f} s; {len(train_by_t[0])} training cameras a frame "
+          f"({sum(c.is_fake_view for c in train_by_t[0])} fake views), {evals} test renders; "
+          f"launches {launches2}; rasterizer launches by C {seen2}")
+    if any(launches2[k] != v for k, v in want.items()) or any(
+            v for k, v in launches2.items() if k not in want):
+        _fail(f"scalar stage 2 launched {launches2}, expected {want} and no other kernel")
+    if set(c for _, c in seen2) != {1} or sum(v for (k, _), v in seen2.items()
+                                              if k == "composite_fwd") != want["composite_fwd"]:
+        _fail(f"scalar stage 2's rasterizer launches by C are {seen2}: expected every one at C = 1")
+    scalar_raster_check(res, train_by_t[SCALAR_FRAMES - 1][0], parse_cli(["--config", cfg2]), dev)
+    fit_ms = [s.elapsed_time(e) / k for s, e, k in fits]
+    tick_ms = [s.elapsed_time(e) for s, e, _ in ticks]
+    print(f"scalar stage 2: ms a fit iteration a frame {', '.join(f'{v:.3f}' for v in fit_ms)} "
+          f"({SCALAR_ITERS} iterations, 1 camera at {w} x {h}); ms a tick (phase B's "
+          f"{len(ticks) - (SCALAR_FRAMES - 1)} stable ticks, then the frames') median "
+          f"{statistics.median(tick_ms):.3f} ({min(tick_ms):.3f}-{max(tick_ms):.3f}, "
+          f"{o.solver_iterations} Jacobi iterations each)")
+
+    print("scalar stage 4 config (configs/scalar_future_simulation.json, cut):")
+    cfg4 = derived_config("configs/scalar_future_simulation.json",
+                          os.path.join(root, "scalar4.json"),
+                          dict(cut, future_pred_frames=SCALAR_FUTURE))
+    argv4 = ["--config", cfg4, "--data_path", cap, "--load_path", recon, "--loader",
+             "scalar_real", "--seed", str(SEED)]
+    ticks4 = []
+    read_s = {}
+
+    def timed_read(stage, real_read):
+        def rd(cfg, *a, **kw):
+            t0 = time.perf_counter()
+            out = real_read(cfg, *a, **kw)
+            read_s[stage] = time.perf_counter() - t0
+            return out
+        return rd
+
+    tf.solver_tick = events_around(real["tick4"], ticks4)
+    BackgroundSplats.from_ply = classmethod(from_ply)
+    restore = _rasterizer_channels(tc, channels)
+    channels.clear()
+    try:
+        y = run_stage4(argv4, future, timed_read, "scalar 4", n_frames=SCALAR_FUTURE)
+        torch.cuda.synchronize()
+    finally:
+        tf.solver_tick = real["tick4"]
+        BackgroundSplats.from_ply = classmethod(real_ply)
+        restore()
+    seen4 = dict(channels)
+    ms4 = [s.elapsed_time(e) for s, e, _ in ticks4]
+    print(f"scalar stage 4: the first future frame's visual y (min, median, max) "
+          f"{', '.join(f'{v:.6f}' for v in y)}; ms a future tick {', '.join(f'{v:.3f}' for v in ms4)} "
+          f"({parse_cli(argv4).optim.solver_iterations_future} Jacobi iterations each); rasterizer "
+          f"launches by C {seen4}; read {read_s.get('scalar 4', 0.0):.3f} s")
+    if set(c for _, c in seen4) != {1}:
+        _fail(f"scalar stage 4's rasterizer launches by C are {seen4}: expected C = 1")
+    if plys:
+        _fail(f"the ScalarReal stages read background PLYs {plys}")
+    print("scalar: no background PLY was read (gm_fluid renders its particles alone)")
+    if PROFILES:
+        cfg4p = derived_config("configs/scalar_future_simulation.json",
+                               os.path.join(root, "scalar4p.json"),
+                               dict(cut, future_pred_frames=1))
+        argv4p = ["--config", cfg4p, "--data_path", cap, "--load_path", recon, "--loader",
+                  "scalar_real", "--seed", str(SEED), "--model_path",
+                  os.path.join(root, "future_profile")]
+
+        def one_future_frame():
+            tf.main(argv4p, device="cuda")
+
+        one_future_frame()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_future_frame()
+        torch.cuda.synchronize()
+        profile_run("scalar stage-4 run of 1 future frame (read, set-up and save included)",
+                    one_future_frame, 1, (time.perf_counter() - t0) * 1e3)
+    imported = [m for m in ("jax", "fluidnexus_tpu", "PIL", "cv2") if m in sys.modules] + [
+        m for m in sys.modules if m.startswith(("fluidnexus_tpu.", "jax.", "PIL.", "cv2."))]
+    if imported:
+        _fail(f"the scalar phase imported {imported}")
+    cv_text = "not measured" if cv_ms is None else f"{cv_ms:.3f}"
+    print(f"scalar: no jax, fluidnexus_tpu, PIL or cv2 in the process; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s (OpenCV's host ms a frame: {cv_text})")
+    return [dict(name="nlmeans", route="cuda", source="fluidnexus_torch/csrc/nlmeans.cu",
+                 replaces="fluidnexus_tpu/data/dataset_builders.py:52", launches=launches["nlmeans"],
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                 library_ms=None)]
+
+
+def scalar_only():
+    """``python3 chip_smoke.py scalar``: builds the rasterizer, pair and
+    nlmeans kernels and runs ``run_scalar``."""
+    from fluidnexus_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for name, info in cuda_build.build(["rasterizer", "pbf", "splat", "nlmeans"]).items():
+        print(f"build {name}: {info['seconds']:.1f} s")
+        if name == "nlmeans":
+            print(info["log"].strip())
+    with tempfile.TemporaryDirectory(prefix="fnx_scalar_") as tmp:
+        print(json.dumps({"kernels": run_scalar(torch.device("cuda"), tmp)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -7882,6 +8494,8 @@ if __name__ == "__main__":
         attention_bwd_time()
     elif sys.argv[1:] == ["parallel"]:
         parallel_only()
+    elif sys.argv[1:] == ["scalar"]:
+        scalar_only()
     elif sys.argv[1:] == ["profiles"]:
         main(profiles=True)
     elif sys.argv[1:] == ["tick-flips"]:

@@ -1,8 +1,11 @@
 """Dataset-tree builders (counterpart of ``fluidnexus_tpu/data/dataset_builders.py``):
-captures -> Zero123 / CogVideoX training trees, simulation renders ->
-CogVideoX frames, and the temporal smoothing of the level-two attributes.
+raw ScalarFlow captures -> per-camera PNG trees, captures -> Zero123 /
+CogVideoX training trees, simulation renders -> CogVideoX frames, and the
+temporal smoothing of the level-two attributes.
 
 Parity targets (reference DataProcessing/):
+  - scalar_flow/preprocess.py:26-117 + helpers.py (raw ScalarFlow npz ->
+    per-camera raw / denoised / background-separated PNG folders)
   - fluid_nexus_real/create_zero123_dataset.py (square 512 crops per
     (sequence, frame, camera)) and create_zero123_paths.py (seq_to_cam.json +
     train/val path lists)
@@ -17,11 +20,15 @@ As in the JAX package, clips are frame folders under videos/<name>/ (what
 writes each clip through ``utils/video_io.write_video`` as an AVI (the
 port's holds uncompressed frames). Frames are read, resized and written as
 ``data/conversions`` does, with no imaging library. The ScalarFlow
-preprocess (``scalar_flow_preprocess``, ``denoise_image``,
-``separate_background``) is not here: it needs OpenCV's
-``fastNlMeansDenoising``.
+preprocess runs on the entry point's device: on the card each frame stays
+there from its uint8 cast to its last output, and the non-local-means
+denoise (OpenCV's ``fastNlMeansDenoising`` in the JAX package) is the
+kernel of ``ops/nlmeans_cuda``; on the CPU it is ``utils/nlmeans.
+denoise_plain``. Both equal OpenCV bit for bit.
 
 CLI: python -m fluidnexus_torch.data.dataset_builders <cmd> ...
+(``main(argv, device="cuda")``; only ``scalar_flow_preprocess`` uses the
+device).
 """
 from __future__ import annotations
 
@@ -33,8 +40,16 @@ import shutil
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from fluidnexus_torch import resolve_device
 from fluidnexus_torch.data.conversions import imread_rgb, imwrite, letterbox, pad_square, resize
+from fluidnexus_torch.ops.nlmeans_cuda import nlmeans_cuda
+from fluidnexus_torch.utils.nlmeans import denoise_plain
+
+# ScalarFlow camera order inside the raw npz stacks (preprocess.py:21; the
+# order of the capture rig's info.json)
+SCALARFLOW_CAMERA_IDS = (2, 1, 0, 4, 3)
 
 # ScalarReal per-view un-shift offsets (image_utils.unshift:168-204)
 SCALAR_UNSHIFT = {
@@ -64,6 +79,85 @@ def shift_image(image: np.ndarray, offset_h: int, offset_w: int) -> np.ndarray:
     wsrc = slice(max(-offset_w, 0), image.shape[1] + min(-offset_w, 0))
     out[hs, ws] = image[hsrc, wsrc]
     return out
+
+
+# ------------------------------- ScalarFlow ----------------------------------
+
+
+def denoise_image(gray, strength: int = 3, device="cuda") -> torch.Tensor:
+    """Non-local-means denoise (helpers.denoise:8-33, single-frame branch):
+    OpenCV's ``fastNlMeansDenoising(gray, None, strength, 7, 21)`` of a 2-D
+    image cast to uint8, bit for bit, as a uint8 tensor on ``device``: the
+    kernel on a card, ``denoise_plain`` on the CPU."""
+    g = torch.as_tensor(gray, device=resolve_device(device)).to(torch.uint8).contiguous()
+    if g.device.type == "cpu":
+        return denoise_plain(g, float(strength))
+    return nlmeans_cuda(g, float(strength))
+
+
+def separate_background(cur, first, threshold: int = 8, scale: float = 1.0) -> torch.Tensor:
+    """Subtract the first (smoke-free) frame and zero everything at or under
+    the threshold (helpers.separate_background:36-59), on the inputs' device:
+    uint8 in int16, clipped to 0-255; with ``scale`` > 1 multiplied in
+    float32 by float32(scale), clipped and truncated to uint8, as the JAX
+    package's numpy does."""
+    cur, first = torch.as_tensor(cur), torch.as_tensor(first)
+    sub = (cur.to(torch.int16) - first.to(torch.int16)).clamp(0, 255).to(torch.uint8)
+    out = torch.where(sub > threshold, sub, torch.zeros_like(sub))
+    if scale > 1.0:
+        f32 = torch.tensor(scale, dtype=torch.float32, device=out.device)
+        out = (out.to(torch.float32) * f32).clamp(0, 255).to(torch.uint8)
+    return out
+
+
+def scalar_flow_preprocess(sim_input_path: str, camera_ids: Sequence[int] = SCALARFLOW_CAMERA_IDS,
+                           threshold: int = 8, log=print, device="cuda") -> int:
+    """Raw ScalarFlow npz stacks -> per-camera PNG trees
+    (preprocess.py:26-84): cam/<imgsUnproc_%06d.npz>["data"] (one gray frame
+    per camera, stored upside down, float [0,1]) becomes
+      cam{j}_raw/imgs_%06d.png                 flipped + u8
+      cam{j}_denoise/...                       NL-means denoised
+      cam{j}_no_bg/...                         denoised minus first frame
+      cam{j}_no_denoise_no_bg/...              raw minus first frame
+      cam{j}_no_denoise_no_bg_scale145/...     ... scaled by 1.45
+    The first file gives raw and denoise only. A file ``np.load`` cannot
+    open is logged ("Error loading <name>") and skipped. Each stack goes to
+    ``device`` once and each PNG comes back once. Returns the number of
+    frames processed."""
+    dev = resolve_device(device)
+    cam_dir = os.path.join(sim_input_path, "cam")
+    names = sorted(os.listdir(cam_dir))
+    firsts_raw, firsts_den = {}, {}
+    n_frames = 0
+
+    def write(tree, name, img):
+        imwrite(os.path.join(sim_input_path, tree, name), img.cpu().numpy())
+
+    for t, name in enumerate(names):
+        try:
+            npz = np.load(os.path.join(cam_dir, name))
+        except Exception:   # whatever np.load raises skips the file, as in the JAX package
+            log(f"Error loading {name}")
+            continue
+        with npz:
+            frames = torch.as_tensor(npz["data"], device=dev)
+        out_name = name.replace(".npz", ".png").replace("Unproc", "")
+        for idx, cam in enumerate(camera_ids):
+            raw = torch.flip(torch.clamp(frames[idx] * 255, 0, 255).to(torch.uint8), (0,))
+            write(f"cam{cam}_raw", out_name, raw)
+            den = denoise_image(raw, device=dev)
+            write(f"cam{cam}_denoise", out_name, den)
+            if t == 0:
+                firsts_raw[cam], firsts_den[cam] = raw, den
+                continue
+            write(f"cam{cam}_no_bg", out_name, separate_background(den, firsts_den[cam], threshold))
+            write(f"cam{cam}_no_denoise_no_bg", out_name,
+                  separate_background(raw, firsts_raw[cam], threshold))
+            write(f"cam{cam}_no_denoise_no_bg_scale145", out_name,
+                  separate_background(raw, firsts_raw[cam], threshold, scale=1.45))
+        n_frames += 1
+    log(f"scalar_flow_preprocess: {n_frames} frames x {len(camera_ids)} cams -> {sim_input_path}")
+    return n_frames
 
 
 # ----------------------------- Zero123 dataset -------------------------------
@@ -264,9 +358,12 @@ def _read_sequences(capture_root: str) -> List[str]:
     return [ln.split(",")[0] for ln in lines[1:]]
 
 
-def main(argv: Optional[List[str]] = None):
+def main(argv: Optional[List[str]] = None, device="cuda"):
     ap = argparse.ArgumentParser(description="FluidNexus dataset-tree builders")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("scalar_flow_preprocess")
+    p.add_argument("--sim_input_path", required=True)
 
     p = sub.add_parser("zero123_dataset")
     p.add_argument("--capture_root", required=True)
@@ -314,6 +411,8 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--window", type=int, default=5)
 
     a = ap.parse_args(argv)
+    if a.cmd == "scalar_flow_preprocess":
+        return scalar_flow_preprocess(a.sim_input_path, device=device)
     if a.cmd == "zero123_dataset":
         return create_zero123_dataset(a.capture_root, a.out_root, _read_sequences(a.capture_root),
                                       a.num_cams, a.size)

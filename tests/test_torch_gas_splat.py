@@ -155,6 +155,37 @@ def test_visual_xyz_from_nn_matches_jax_dense():
     assert not g_t.numpy()[~alive].any()
 
 
+def test_queries_past_a_cells_capacity_stay_still_as_in_the_dense_branch():
+    """Forty visual particles on one spot (as emissions at a ratio over 1
+    pile up at an emitter) fill one query cell past ``dense_cell_capacity``
+    (32). The port leaves the 8 past it where they are, as the JAX package's
+    dense branch does, and moves every other query as that branch does (to
+    1e-5); the JAX package's padded top-K branch, which its CPU runs take,
+    moves all forty alike, and the rest as the port does."""
+    rng = np.random.default_rng(12)
+    n, nq = 256, 120
+    pos = rng.uniform(0.0, 6.0, (n, 3)).astype(np.float32)
+    qpos = rng.uniform(0.5, 5.5, (nq, 3)).astype(np.float32)
+    qpos[:40] = 3.4
+    q_alive = np.ones(nq, bool)
+    params_j, params_t = _params(jpbf.PBFParams), _params(tpbf.PBFParams)
+    st_j = j_make_particle_state(n, jnp.asarray(pos), init_velocity_y=10.0)
+    st_t = convert.particle_state_from_numpy(jax.tree.map(np.asarray, st_j), device=CPU)
+    nn = (pos / params_t.scale_factor + 0.002 * rng.normal(size=(n, 3))).astype(np.float32)
+    args = (jnp.asarray(qpos), jnp.asarray(q_alive), jnp.asarray(nn), st_j, params_j)
+    dense = _np(jpbf.visual_xyz_from_nn(*args, dense=True))
+    top_k = _np(jpbf.visual_xyz_from_nn(*args, dense=False))
+    got = tpbf.visual_xyz_from_nn(torch.as_tensor(qpos), torch.as_tensor(q_alive),
+                                  torch.as_tensor(nn), st_t, params_t).numpy()
+    still, still_k = np.all(got == qpos, axis=1), np.all(top_k == qpos, axis=1)
+    assert int(still[:40].sum()) == 8 and not still_k[:40].any()
+    np.testing.assert_array_equal(still[40:], still_k[40:])     # no source in reach
+    np.testing.assert_array_equal(np.all(dense == qpos, axis=1), still)
+    np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(top_k[:40], np.broadcast_to(top_k[0], (40, 3)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[~still], top_k[~still], rtol=1e-5, atol=1e-5)
+
+
 def test_shared_grid_matches_the_internal_build():
     """A pre-built grid at the same positions gives the same values and
     gradients, bit for bit, as the build inside each sum (the phase-C step

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from fluidnexus_tpu.core.config import Config as JConfig
+from fluidnexus_tpu.core.config import load_config as j_load_config
 from fluidnexus_tpu.core.optim import adam_init as j_adam_init
 from fluidnexus_tpu.data.scene import cameras_by_time as j_cameras_by_time
 from fluidnexus_tpu.ops.rasterizer import RasterizerConfig as JRasterizerConfig
@@ -30,6 +31,7 @@ from fluidnexus_tpu.sim import state as jstate
 from fluidnexus_tpu.splat import dynamics as jdyn
 from fluidnexus_torch import convert
 from fluidnexus_torch.core.config import Config as TConfig
+from fluidnexus_torch.core.config import load_config as t_load_config
 from fluidnexus_torch.core.optim import adam_init as t_adam_init
 from fluidnexus_torch.pipelines import train_physical_particle as ttrain
 from fluidnexus_torch.sim import state as tstate
@@ -39,6 +41,7 @@ from tests.test_train_physical import smoke_like_scene
 from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _np(x):
@@ -66,8 +69,8 @@ def _small(cfg):
     return cfg
 
 
-def _caps(params):
-    return dataclasses.replace(params, dense_max_cells=512, dense_cell_capacity=32)
+def _caps(params, cell_capacity=32):
+    return dataclasses.replace(params, dense_max_cells=512, dense_cell_capacity=cell_capacity)
 
 
 def _jax_raster(cfg):
@@ -76,13 +79,13 @@ def _jax_raster(cfg):
                              dup_x=p.dup_x, dup_y=p.dup_y, chunk=p.chunk, backend="xla")
 
 
-def _start_state(cfg, seed=0):
+def _start_state(cfg, seed=0, cell_capacity=32):
     """A JAX hidden state on the small pillar (one stable guess moved the
     estimates; random imass), the visual column x100 and its attrs, as
     numpy-backed JAX trees."""
     o, m = cfg.optim, cfg.model
     rng = np.random.default_rng(seed)
-    params = _caps(jtrain.pbf_params_from_config(cfg))
+    params = _caps(jtrain.pbf_params_from_config(cfg), cell_capacity)
     pts = jdyn.create_hidden_points(m)
     st = jstate.make_particle_state(m.hidden_capacity, jnp.asarray(pts),
                                     init_velocity_y=o.init_hidden_velocity)
@@ -257,14 +260,13 @@ def _frame_files(path, t):
     return sorted(f for f in os.listdir(path) if f.startswith(f"frame_{t:03d}_"))
 
 
-def test_phase_c_matches_jax(tmp_path):
-    """``_phase_c`` over frames 1-2 x 3 iterations from one converted state
-    and one seed: per-frame loss (1e-4 relative), alive counts (exact) and
-    the per-frame npy checkpoints (positions within the Adam bound)."""
-    jcfg, tcfg = _small(JConfig()), _small(TConfig())
-    params_j, st_j, vis_j, attrs_j = _start_state(jcfg, seed=1)
-    params_t = _caps(ttrain.pbf_params_from_config(tcfg))
-    scene = smoke_like_scene()
+def _run_phase_c(tmp_path, jcfg, tcfg, scene, cell_capacity=32):
+    """``_phase_c`` over frames 1-2 from one converted state and one seed in
+    both packages, each writing its per-frame npy checkpoints under
+    ``tmp_path``. Returns (port's result, JAX's result, the JAX start
+    state)."""
+    params_j, st_j, vis_j, attrs_j = _start_state(jcfg, seed=1, cell_capacity=cell_capacity)
+    params_t = _caps(ttrain.pbf_params_from_config(tcfg), cell_capacity)
     ref = jtrain._phase_c(jcfg, scene, st_j, vis_j, attrs_j, None, _jax_raster(jcfg), params_j,
                           np.random.default_rng(7), None, lambda *a: None,
                           str(tmp_path / "jax"), start_frame=1)
@@ -280,29 +282,221 @@ def test_phase_c_matches_jax(tmp_path):
     assert any("emitted" in line for line in logs)
     for a, b in zip(got["metrics"], ref["metrics"]):
         assert (a["hidden"], a["visual"]) == (b["hidden"], b["visual"])
-        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
     assert got["metrics"][1]["visual"] > got["metrics"][0]["visual"] > int(vis_j.alive.sum())
-    # positions (saved in world units) to 1e-4 scaled units; the velocity
-    # dx / secs to that over secs, the drag force (k v (1 - p_ratio) over the
-    # solver iterations) to k x iterations times that; the rest exactly
+    return got, ref, st_j
+
+
+def _check_checkpoints(tmp_path, jcfg, t, rows=None):
+    """Frame ``t``'s npy checkpoints of both packages: positions (saved in
+    world units) to 1e-4 scaled units; the velocity dx / secs to that over
+    secs, the drag force (k v (1 - p_ratio) over the solver iterations) to k
+    x iterations times that; the rest exactly. With ``rows`` (checkpoint name
+    -> row mask, or None), the toleranced arrays are held on those rows
+    alone, or not at all."""
     secs, k, iters = 0.033, jcfg.optim.k, jcfg.optim.solver_iterations
     tol = {"xyz": 1e-6, "velocity": 1e-4 / secs, "force": 1e-4 / secs * k * iters}
-    for t in (1, 2):
-        names = _frame_files(tmp_path / "jax", t)
-        assert names == _frame_files(tmp_path / "torch", t) and len(names) == 15
-        for name in names:
-            a = tmp_path / "torch" / name
-            b = tmp_path / "jax" / name
-            if name.endswith(".json"):
-                assert a.read_text() == b.read_text(), name
+    names = _frame_files(tmp_path / "jax", t)
+    assert names == _frame_files(tmp_path / "torch", t) and len(names) == 15
+    for name in names:
+        a = tmp_path / "torch" / name
+        b = tmp_path / "jax" / name
+        if name.endswith(".json"):
+            assert a.read_text() == b.read_text(), name
+            continue
+        x, y = np.load(a), np.load(b)
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        key = next((key for key in tol if key in name), None)
+        if key is None:
+            np.testing.assert_array_equal(x, y, err_msg=name)
+            continue
+        if rows is not None:
+            keep = rows(name)
+            if keep is None:
                 continue
-            x, y = np.load(a), np.load(b)
-            assert x.shape == y.shape and x.dtype == y.dtype, name
-            key = next((key for key in tol if key in name), None)
-            if key is None:
-                np.testing.assert_array_equal(x, y, err_msg=name)
-            else:
-                np.testing.assert_allclose(x, y, rtol=0, atol=tol[key], err_msg=name)
+            x, y = x[keep], y[keep]
+        np.testing.assert_allclose(x, y, rtol=0, atol=tol[key], err_msg=name)
+
+
+def _phase_c_parity(tmp_path, jcfg, tcfg, scene, cell_capacity=32):
+    """``_run_phase_c``, then per-frame loss (1e-4 relative), alive counts
+    (exact) and every row of the per-frame npy checkpoints
+    (``_check_checkpoints``: positions within the Adam bound)."""
+    got, ref, _ = _run_phase_c(tmp_path, jcfg, tcfg, scene, cell_capacity)
+    for a, b in zip(got["metrics"], ref["metrics"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+    for t in (1, 2):
+        _check_checkpoints(tmp_path, jcfg, t)
+    return got
+
+
+def test_phase_c_matches_jax(tmp_path):
+    """``_phase_c`` over frames 1-2 x 3 iterations at ``_small``'s settings."""
+    _phase_c_parity(tmp_path, _small(JConfig()), _small(TConfig()), smoke_like_scene())
+
+
+def _gm_fluid(load_config):
+    """configs/scalar_dynamics.json's optimisation and model settings, the
+    ScalarReal configuration (``gm_fluid``: no background, gray images; emit
+    ratios 1.61, alpha -3, buoyancy_max_y 0.8, its lambdas, thresholds and
+    batch 1), at ``_small``'s sizes: its capacities, pillar, raster caps and
+    iterations (3 a frame, 2 stable ticks of 3 Jacobi iterations)."""
+    cfg = load_config(os.path.join(REPO, "configs", "scalar_dynamics.json"))
+    o, m, p = cfg.optim, cfg.model, cfg.pipe
+    m.hidden_capacity, m.visual_capacity = 2048, 1024
+    m.init_hidden_radius_max, m.init_hidden_y_min, m.init_hidden_y_max = 0.02, 0.0, 0.4
+    m.init_visual_num_pts, m.init_thick_visual_num_pts = 150, 50
+    m.init_visual_y_min, m.init_visual_y_thick_min, m.init_visual_y_max = 0.0, 0.1, 0.4
+    o.iterations_per_time_first = 2
+    o.iterations_per_time_current = o.iterations_per_time_current_max = 3
+    o.stable_iterations, o.solver_iterations = 2, 3
+    p.tile_capacity, p.chunk, p.dup_x, p.dup_y = 64, 16, 3, 3
+    return cfg
+
+
+def _gray_scene():
+    """``smoke_like_scene`` with its frames as the ScalarReal reader gives
+    them under ``gray_image``: float32 (H, W)."""
+    scene = smoke_like_scene()
+    for c in scene.train_cameras:
+        c.image = c.image_real = np.ascontiguousarray(c.image[..., 0])
+    return scene
+
+
+# 1.61 emits the emitter lattice once and 61 % of it again onto itself, so
+# emissions pile visual particles into the emitter's cells of h. The port's
+# dense splat bins the visual particles into query cells of
+# dense_cell_capacity (32 by default) and leaves those past it unmoved, as
+# the JAX package's dense (TPU) branch does; the JAX package's CPU branch,
+# the reference here, has no such cap (tests/test_torch_gas_splat.py,
+# ``test_queries_past_a_cells_capacity_stay_still_as_in_the_dense_branch``).
+# So the runs at 1.61 give the query cells 64 slots.
+NO_QUERY_DROPS = 64
+
+
+def test_phase_c_gm_fluid_matches_jax(tmp_path):
+    """The same harness at the ScalarReal configuration (``_gm_fluid``) on
+    gray frames, with its own visual emission ratio of 1.61: its buoyancy,
+    alpha, thresholds, lambdas, batch and visual emission reach both
+    packages' phase C alike. The hidden emission runs at a ratio of 1 here:
+    above 1 its coincident particles part the packages by rounding in the
+    solver tick (``test_phase_c_gm_fluid_parts_only_near_hidden_duplicates``)."""
+    jcfg, tcfg = _gm_fluid(j_load_config), _gm_fluid(t_load_config)
+    assert jcfg.model.gray_image and tcfg.model.model == "gm_fluid"
+    assert (tcfg.optim.alpha, tcfg.optim.buoyancy_max_y, tcfg.optim.emit_ratio_hidden,
+            tcfg.optim.emit_ratio_visual, tcfg.optim.batch) == (-3.0, 0.8, 1.61, 1.61, 1)
+    for o in (jcfg.optim, tcfg.optim):
+        o.emit_ratio_hidden = 1.0
+    got = _phase_c_parity(tmp_path, jcfg, tcfg, _gray_scene(), cell_capacity=NO_QUERY_DROPS)
+    assert all(np.isfinite(m["loss"]) for m in got["metrics"])
+
+
+def _hidden_duplicate_ids(plans, emitters, next_id):
+    """Particle ids of the hidden candidates that share their position with
+    another candidate of their frame's plan: ``emit_hidden`` numbers a
+    plan's rows from the state's ``next_id`` on, in order."""
+    ids = []
+    for points, plan in plans:
+        if not np.array_equal(points, emitters.hidden):
+            continue
+        _, inv, cnt = np.unique(plan, axis=0, return_inverse=True, return_counts=True)
+        ids.append(next_id + np.flatnonzero(cnt[inv.ravel()] > 1))
+        next_id += len(plan)
+    return np.concatenate(ids)
+
+
+@pytest.mark.parametrize("lambda_image", [1.0, 0.0])
+def test_phase_c_gm_fluid_parts_only_near_hidden_duplicates(tmp_path, monkeypatch, lambda_image):
+    """``_gm_fluid`` at both of its emission ratios of 1.61. The hidden
+    duplicates part the packages in the solver tick
+    (``test_hidden_emission_over_one_parts_the_packages_only_at_its_duplicates``),
+    and with them the loss, a sum over every particle, so the loss is not
+    held here. Alive counts are held exactly, and so is every untoleranced
+    array on every row. Every hidden and visual particle farther than 1.5 h
+    from a hidden duplicate is held at ``_check_checkpoints``' tolerances
+    after frame 1. In frame 2 the emitted layer's difference reaches the
+    pillar through the image loss, whose pixels and SSIM windows the two
+    share, so with that term the far particles are held after frame 1 alone;
+    without it (``lambda_image`` 0) they are held after frame 2 too."""
+    plans = []
+    real_plan = jtrain.plan_emission
+
+    def plan_emission(points, *a, **kw):
+        plans.append((points, real_plan(points, *a, **kw)))
+        return plans[-1][1]
+
+    monkeypatch.setattr(jtrain, "plan_emission", plan_emission)
+    jcfg, tcfg = _gm_fluid(j_load_config), _gm_fluid(t_load_config)
+    for o in (jcfg.optim, tcfg.optim):
+        o.lambda_image = lambda_image
+    got, _, st_j = _run_phase_c(tmp_path, jcfg, tcfg, _gray_scene(),
+                                cell_capacity=NO_QUERY_DROPS)
+    assert all(np.isfinite(m["loss"]) for m in got["metrics"])
+    dup_ids = _hidden_duplicate_ids(plans, jdyn.EmitterPoints.from_config(jcfg.model),
+                                    int(st_j.next_id))
+    assert len(dup_ids) == 2 * 88
+    reach = 1.5 * float(_caps(ttrain.pbf_params_from_config(tcfg)).h) / 100.0
+    for t in (1, 2):
+        ids = np.load(tmp_path / "jax" / f"frame_{t:03d}_particle_id.npy").ravel()
+        xyz = np.load(tmp_path / "jax" / f"frame_{t:03d}_xyz.npy")
+        vxyz = np.load(tmp_path / "jax" / f"frame_{t:03d}_visual_xyz.npy")
+        dups = xyz[np.isin(ids, dup_ids)]
+        assert len(dups) == 88 * t
+
+        def far(pos):
+            return np.linalg.norm(pos[:, None] - dups[None], axis=-1).min(1) > reach
+
+        far_hidden, far_visual = far(xyz), far(vxyz)
+        assert far_hidden.mean() > 0.7 and far_visual.mean() > 0.7
+        held = t == 1 or lambda_image == 0.0
+
+        def rows(name):
+            if not held:
+                return None
+            return far_visual if "visual" in name else far_hidden
+
+        _check_checkpoints(tmp_path, jcfg, t, rows)
+
+
+def test_hidden_emission_over_one_parts_the_packages_only_at_its_duplicates():
+    """At configs/scalar_dynamics.json's emit_ratio_hidden of 1.61 both
+    packages plan the same candidates (the emitter lattice once and 61 % of
+    it again, as the reference's emit_new_particles does), so 44 of the 117
+    sit on another. A solver tick's spiky gradient between two coincident
+    particles has no direction (x_i - x_j = 0), and each package forms it
+    from sums whose rounding, at rlen = sqrt(eps) where its coefficient is
+    ~9 000, pushes the pair apart: duplicates leave the tick apart, in each
+    package in its own directions. Alive counts agree, and every particle
+    farther than h from a duplicate agrees to 1e-5 scaled units."""
+    from fluidnexus_tpu.sim import pbf as jpbf
+
+    jcfg, tcfg = _gm_fluid(j_load_config), _gm_fluid(t_load_config)
+    o = jcfg.optim
+    params_j, st_j, _, _ = _start_state(jcfg, seed=1)
+    params_t = _caps(ttrain.pbf_params_from_config(tcfg))
+    plan_j = jdyn.plan_emission(jdyn.EmitterPoints.from_config(jcfg.model).hidden,
+                                o.emit_ratio_hidden, np.random.default_rng(7))
+    plan_t = tdyn.plan_emission(tdyn.EmitterPoints.from_config(tcfg.model).hidden,
+                                tcfg.optim.emit_ratio_hidden, np.random.default_rng(7))
+    np.testing.assert_array_equal(plan_t, plan_j)
+    counts = np.unique(plan_j, axis=0, return_counts=True)[1]
+    assert (len(plan_j), int((counts > 1).sum())) == (117, 44)
+    new, mask = jdyn.pad_emission(plan_j, len(plan_j))
+    st = jdyn.emit_hidden(jpbf.remove_invalid(st_j, params_j), new, o.init_hidden_velocity,
+                          o.alpha, mask=mask)
+    ref, _ = jtrain.solver_tick(st, params_j, o.solver_iterations, False)
+    got, _ = ttrain.solver_tick(convert.particle_state_from_numpy(
+        jax.tree.map(np.asarray, st), CPU), params_t, o.solver_iterations, False)
+    x0, alive = _np(st.estimate_xyz), _np(st.alive)
+    xj, xt = _np(ref.estimate_xyz), got.estimate_xyz.numpy()
+    np.testing.assert_array_equal(got.alive.numpy(), _np(ref.alive))
+    rows = np.flatnonzero(alive)
+    coincident = [r for r in rows
+                  if np.count_nonzero(np.all(x0[rows] == x0[r], axis=1)) > 1]
+    assert len(coincident) == 88
+    far = rows[np.min(np.linalg.norm(x0[rows][:, None] - x0[coincident][None], axis=-1),
+                      axis=1) > float(params_t.h)]
+    assert len(far) > 0.8 * len(rows)
+    np.testing.assert_allclose(xt[far], xj[far], rtol=0, atol=1e-5)
 
 
 def test_evaluate_frame_matches_jax():
