@@ -223,6 +223,19 @@ decode run at n = 1 under a one-rank NCCL group: gloo's point-to-point
 takes no CUDA tensor, so the halo ring cannot run on two ranks of one card.
 Rows 14 and 15 at (2, 24, 17 776, 64) add their own ``kernels`` entries,
 with the launches at 24 heads on rank 0.
+
+The root tools and examples (``run_full_scale_cut``, ``run_orbit``,
+``run_demo``, ``run_profile_raster``): the reference-scale reconstruction
+tool at full width (960 x 544, 5 + 1 cameras, ~27 720 hidden particles,
+32 x 32 tiles of 384, dup 3 x 3) with 2 of its 120 frames and 30 of its
+1 000 + 1 000 fit iterations, its rasterizer kernels held at its tiles;
+``render_orbit`` of a seeded 32 768-splat PLY, 12 frames at 960 x 544;
+the fit-and-rollout demo in full; ``profile_raster`` at the bench
+workload. Each checks its launches exactly. ``python3 chip_smoke.py
+full-scale [FRAMES]`` runs the tool at the reference's counts. Rows 10 and
+11 are timed with the query cells at 32 and at 128 slots at phase C's
+first iteration and at ScalarReal's last frame, and held there at 128
+(``splat_at_both_caps``). None adds a ``kernels`` entry.
 """
 from __future__ import annotations
 
@@ -820,6 +833,7 @@ def main(profiles=False):
         print(info["log"].strip())
 
     seconds = {}
+    t_run = time.perf_counter()
 
     def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
@@ -833,6 +847,11 @@ def main(profiles=False):
         phase_c_kernels, recon = timed("C", run_phase_c, dev, os.path.join(tmp, "recon"))
         kernels += phase_c_kernels + timed("future", run_future, dev, recon,
                                            os.path.join(tmp, "future"))
+        kernels += timed("full_scale_cut", run_full_scale_cut, dev, os.path.join(tmp, "full_scale"))
+        kernels += timed("orbit", run_orbit, dev, os.path.join(tmp, "orbit"))
+        kernels += timed("demo", run_demo, dev)
+        kernels += timed("profile_raster", run_profile_raster, dev,
+                         os.path.join(tmp, "raster_profile"))
         kernels += timed("stages", run_stages, dev, os.path.join(tmp, "stages"))
         kernels += timed("scalar", run_scalar, dev, os.path.join(tmp, "scalar"))
         with dit_depth(SMOKE_DIT_LAYERS):
@@ -849,6 +868,7 @@ def main(profiles=False):
         kernels += timed("parallel", run_parallel, dev, os.path.join(tmp, "parallel"),
                          os.path.join(tmp, "recon"))
     print(f"phase seconds {seconds}")
+    print(f"chip_smoke: the default run took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1591,7 +1611,7 @@ def run_frame_1(ctx, iters):
     cams = cameras_by_time(ctx["scene"].train_cameras)[1]
     nn, losses = tp.fit_frame(cfg, params, ctx["step"], state, visual, ctx["attrs"], cams, iters,
                               ctx["scene"].nerf_normalization["radius"], rng, dev)
-    state, visual = tp.commit_frame(params, state, visual, nn)
+    state, visual, _ = tp.commit_frame(params, state, visual, nn)
     return state, visual, losses, emitted
 
 
@@ -1614,7 +1634,7 @@ def first_iteration_inputs(ctx):
     nn = state.estimate_xyz / params.scale_factor
     C, M = params.dense_max_cells, params.dense_cell_capacity
     grid = build_dense_grid(nn * params.scale_factor, params.h, state.alive, C, M)
-    qgrid, _ = bin_queries(grid, params.h, visual.xyz, visual.alive, C, M)
+    qgrid, _ = bin_queries(grid, params.h, visual.xyz, visual.alive, C, sc.MAX_M)
     print(f"phase C frame 1: {int(state.alive.sum())} hidden and {int(visual.alive.sum())} visual "
           f"particles alive after its simulation; emitted {emitted[0]} hidden and {emitted[1]} "
           f"visual candidates")
@@ -1625,7 +1645,7 @@ def first_iteration_inputs(ctx):
               f"{int((cnt > 0).sum())} occupied cells, fullest {int(cnt.max())}, "
               f"{int(g.bmask.sum())} of {n_live} points binned, overflow {int(g.overflow)}")
     print(f"phase C first iteration: {int(qgrid.overflow)} visual queries dropped from the query "
-          f"grid (they get delta 0, as in the JAX package)")
+          f"grid of {sc.MAX_M} slots a cell (they get delta 0)")
 
     rec = {name: [] for name in PHASE_C_KERNELS}
     hooks = ((pc, "density", "density_fwd"), (pc, "density_bwd", "density_bwd"),
@@ -1947,7 +1967,7 @@ def run_phase_c(dev, model_path):
     metrics = res["metrics"]
     for mm in metrics:
         print(f"phase C frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
-              f"visual {mm['visual']}")
+              f"visual {mm['visual']}, {mm['query_drops']} dropped by the splat's query cells")
     if len(metrics) != n_frames or not all(np.isfinite(mm["loss"]) for mm in metrics):
         _fail("phase C did not give a finite loss for each frame")
     for name in ("state", "visual"):
@@ -1967,6 +1987,12 @@ def run_phase_c(dev, model_path):
     ctx = phase_c_start(cfg, scene, bg, dev)
     inp = first_iteration_inputs(ctx)
     errors = check_phase_c_kernels(inp)
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+
+    params, st = ctx["params"], inp["state"]
+    splat_at_both_caps("phase C first iteration", build_dense_grid(
+        st.estimate_xyz, params.h, st.alive, params.dense_max_cells, params.dense_cell_capacity),
+        (st.estimate_xyz - st.xyz) / params.secs, inp["visual"].xyz, inp["visual"].alive, params)
     small_phase_c_check(dev)
 
     # ---- ms per fit iteration and per frame, from the same saved start
@@ -8166,27 +8192,19 @@ def scalar_raster_check(res, cam, cfg, dev):
     """The rasterizer's three kernels against their plain versions
     (``check_kernels``, its limits) at this path's own tiles: the last
     frame's fitted visual particles of stage 2 (``gm_fluid``: no background,
-    C = 1) through ``cam`` at the configuration's tile settings. Also prints
-    how many of those particles the dense splat's query cells would drop
-    (``bin_queries`` over the hidden state's grid at its caps): dropped
-    queries are not advected."""
-    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid
+    C = 1) through ``cam`` at the configuration's tile settings."""
     from fluidnexus_torch.ops.rasterizer import tile_packed
     from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
     from fluidnexus_torch.splat.render import compose_splats
 
     rc = raster_config_from(cfg)
-    vis, params, st = res["visual"], res["params"], res["state"]
+    vis, params = res["visual"], res["params"]
     with torch.no_grad():
         splats = compose_splats(vis.xyz / params.scale_factor, vis.alive, res["attrs"], None)
         tl = tile_packed(*splats, view_matrix=torch.as_tensor(cam.world_view, device=dev),
                          proj_matrix=torch.as_tensor(cam.full_proj, device=dev),
                          tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, width=cam.width,
                          height=cam.height, config=rc)
-        grid = build_dense_grid(st.xyz, params.h, st.alive, params.dense_max_cells,
-                                params.dense_cell_capacity)
-        qgrid, _ = bin_queries(grid, params.h, vis.xyz, vis.alive, params.dense_max_cells,
-                               params.dense_cell_capacity)
     packed_t = tl.packed.contiguous()
     print(f"scalar stage 2 camera {cam.image_name} tiles ({cam.width} x {cam.height}, the last "
           f"frame's {int(vis.alive.sum())} visual particles, no background): T "
@@ -8194,9 +8212,6 @@ def scalar_raster_check(res, cam, cfg, dev):
           f"{int(tl.counts.sum())} max count {int(tl.counts.max())}; tiles {rc.tile_x}x{rc.tile_y} "
           f"dup {rc.dup_x}x{rc.dup_y}")
     print(count_distribution(tl.counts, rc.tile_capacity))
-    print(f"scalar stage 2: the dense splat's query cells ({params.dense_cell_capacity} slots) "
-          f"drop {int(qgrid.overflow)} of the last frame's {int(vis.alive.sum())} visual "
-          f"particles")
     if packed_t.shape[2] != 8 or not int(tl.counts.sum()):
         _fail(f"scalar stage 2's tiles are {tuple(packed_t.shape)} with "
               f"{int(tl.counts.sum())} live slots: expected C = 1 and some splat drawn")
@@ -8345,7 +8360,8 @@ def run_scalar(dev, root):
     for mm in metrics:
         print(f"scalar stage 2 frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
               f"visual {mm['visual']} held-out l1 {mm.get('l1', float('nan')):.4f} psnr "
-              f"{mm.get('psnr', float('nan')):.3f}")
+              f"{mm.get('psnr', float('nan')):.3f}; the splat's query cells dropped "
+              f"{mm['query_drops']} visual particles")
     if [mm["frame"] for mm in metrics] != list(range(1, SCALAR_FRAMES)) or not all(
             np.isfinite(mm["loss"]) for mm in metrics):
         _fail("scalar stage 2 did not give a finite loss for each frame")
@@ -8372,6 +8388,12 @@ def run_scalar(dev, root):
                                               if k == "composite_fwd") != want["composite_fwd"]:
         _fail(f"scalar stage 2's rasterizer launches by C are {seen2}: expected every one at C = 1")
     scalar_raster_check(res, train_by_t[SCALAR_FRAMES - 1][0], parse_cli(["--config", cfg2]), dev)
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+
+    st, pr = res["state"], res["params"]
+    splat_at_both_caps(f"scalar stage 2 frame {20 + SCALAR_FRAMES - 1}", build_dense_grid(
+        st.estimate_xyz, pr.h, st.alive, pr.dense_max_cells, pr.dense_cell_capacity),
+        st.velocity, res["visual"].xyz, res["visual"].alive, pr, need_pile=True)
     fit_ms = [s.elapsed_time(e) / k for s, e, k in fits]
     tick_ms = [s.elapsed_time(e) for s, e, _ in ticks]
     print(f"scalar stage 2: ms a fit iteration a frame {', '.join(f'{v:.3f}' for v in fit_ms)} "
@@ -8467,6 +8489,246 @@ def scalar_only():
         print(json.dumps({"kernels": run_scalar(torch.device("cuda"), tmp)}))
 
 
+# ------------- the reference-scale run, the camera paths and the examples -------------
+
+FULL_SCALE_CUT = ["--frames", "2", "--iters", "30", "--first_iters", "30"]   # of 120, 1 000, 1 000
+FULL_SCALE_FRAMES = 10        # ``full-scale``'s default: of the reference's 120
+FULL_SCALE_OUT = "runs/full_scale_torch"
+ORBIT_FRAMES = 12             # render_orbit's --frames, cut from its 60
+ORBIT_SPLATS = 32768
+DEMO_FIT_STEPS = 201
+
+
+def splat_args_at(grid, vel, points, alive, params, mq):
+    """The two splat kernels' arguments as ``sim/pbf._splat_delta`` makes
+    them, with the queries ``points`` binned at ``mq`` slots a cell over the
+    source ``grid``; the adjoint's p and q from a seeded cotangent (the
+    pairs, not the values, set its time). Returns (qgrid, forward args,
+    adjoint args)."""
+    from fluidnexus_torch.ops.neighbors import bin_queries, slot_gather
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    qgrid, rnbr = bin_queries(grid, params.h, points, alive, params.dense_max_cells, mq)
+    planes, qplanes = pc.planes(grid), pc.planes(qgrid)
+    vel_s = slot_gather(grid, vel).contiguous()
+    gen = torch.Generator(device=points.device).manual_seed(SEED)
+    pq = torch.randn((points.shape[0], 4), generator=gen, device=points.device) * alive[:, None]
+    pq_s = slot_gather(qgrid, pq)
+    return (qgrid, (qgrid.nbr, *qplanes, *planes, vel_s, params.h),
+            (rnbr, *planes, vel_s, *qplanes, pq_s[..., :3].contiguous(),
+             pq_s[..., 3].contiguous(), params.h))
+
+
+def splat_at_both_caps(what, grid, vel, points, alive, params, need_pile=False):
+    """Rows 10 and 11 at ``what``'s inputs with the query cells at
+    ``dense_cell_capacity`` slots (the sources' capacity, which the queries
+    were binned at before) and at
+    ``splat_cuda.MAX_M`` (the path's since): the fullest query cell, the
+    live queries dropped and both kernels' device times at each; at MAX_M
+    both held against their plain versions in NaN-filled blocks. With
+    ``need_pile`` it fails unless a query cell holds more than
+    ``dense_cell_capacity``. Returns {mq: (forward ms, adjoint ms, fullest,
+    dropped)}."""
+    from fluidnexus_torch.sim import splat_cuda as sc
+
+    out, n_live = {}, int(alive.sum())
+    for mq in (params.dense_cell_capacity, sc.MAX_M):
+        qgrid, fwd, bwd = splat_args_at(grid, vel, points, alive, params, mq)
+        f_ms, _ = kernel_device_ms(lambda: sc.splat_fwd_slots(*fwd),
+                                   PHASE_C_KERNELS["splat_fwd"][2])
+        b_ms, _ = kernel_device_ms(lambda: sc.splat_bwd_slots(*bwd),
+                                   PHASE_C_KERNELS["splat_bwd"][2])
+        out[mq] = (f_ms, b_ms, int(fwd[1].max()), int(qgrid.overflow))
+        print(f"{what}: query cells of {mq} slots: fullest {out[mq][2]}, {out[mq][3]} of {n_live} "
+              f"live queries dropped; splat_fwd {f_ms:.4f} ms, splat_bwd {b_ms:.4f} ms on the "
+              f"card (profiler, mean a launch)")
+    if need_pile and out[sc.MAX_M][2] <= params.dense_cell_capacity:
+        _fail(f"{what}: no query cell holds more than {params.dense_cell_capacity} queries, so "
+              f"the kernels are not held at a cell past the old capacity")
+    failures = []
+    for name, args in (("splat_fwd", fwd), ("splat_bwd", bwd)):
+        failures += held_in_nan_blocks(name, args, f"{what} at Mq {sc.MAX_M}")[1]
+    if failures:
+        _fail(f"{what}: the splat kernels at Mq {sc.MAX_M} disagree with their plain versions: "
+              f"{failures}")
+    return out
+
+
+def check_launches(what, launches, want):
+    """Fails unless ``launches`` are exactly ``want`` and no other kernel ran."""
+    if any(launches[k] != v for k, v in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        _fail(f"{what} launched {launches}, expected {want} and no other kernel")
+    print(f"{what}: launches as expected, {want}")
+
+
+def run_full_scale_cut(dev, root):
+    """``python -m fluidnexus_torch.tools.run_full_scale_recon`` at full width
+    (960 x 544, 5 + 1 cameras, ~27 720 hidden particles, 32 x 32 tiles of
+    384, dup 3 x 3) with a cut depth (FULL_SCALE_CUT: 2 frames, 30 + 30 fit
+    iterations): its report, finite losses, every file under --out, exactly
+    its launches, then the rasterizer's three kernels against their plain
+    versions at the tool's tiles (its first fit iteration: the initial
+    column at camera 0). No kernel entry."""
+    import time
+
+    from fluidnexus_torch.pipelines.train_physical_particle import raster_config_from
+    from fluidnexus_torch.tools import run_full_scale_recon as fs
+
+    out = os.path.join(root, "out")
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = fs.main(FULL_SCALE_CUT + ["--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg, o = res["config"], res["config"].optim
+    metrics = res["metrics"]
+    if [mm["frame"] for mm in metrics] != [1] or not all(np.isfinite(mm["loss"]) for mm in metrics):
+        _fail(f"the full-scale tool's cut gave frames {metrics}")
+    if not {"RUN.md", "run.log", "metrics.npy", "recon"} <= set(os.listdir(out)):
+        _fail(f"the full-scale tool wrote {sorted(os.listdir(out))} under --out")
+    ticks = 2 * o.stable_iterations + 2   # the truth's and the reconstruction's, and a frame's each
+    fit = o.iterations_per_time_first + o.iterations_per_time_current
+    check_launches(f"full-scale tool cut ({wall:.1f} s)", all_launches(), {
+        "composite_fwd": 6 * 2 + fit + 1, "composite_bwd": fit, "combine_rows": fit,
+        "pbf_phase1": 10 * ticks, "pbf_phase2": 10 * ticks,
+        "density_fwd": 2 * o.iterations_per_time_current,
+        "density_bwd": 2 * o.iterations_per_time_current,
+        "splat_fwd": o.iterations_per_time_current + 1, "splat_bwd": o.iterations_per_time_current})
+    rc = raster_config_from(cfg)
+    packed_t, tile_gauss, counts, tiles_x, n = main_path_tiles(cfg, res["scene"], None, dev)
+    print(f"full-scale tool tiles (camera 0, frame 0, the initial {cfg.model.init_visual_num_pts} "
+          f"+ {cfg.model.init_thick_visual_num_pts} visual particles): T {packed_t.shape[0]} K "
+          f"{packed_t.shape[1]} live slots {int(counts.sum())} max count {int(counts.max())}; "
+          f"tiles {rc.tile_x}x{rc.tile_y} capacity {rc.tile_capacity} dup {rc.dup_x}x{rc.dup_y}")
+    print(count_distribution(counts, rc.tile_capacity))
+    check_kernels(packed_t, tile_gauss, counts, tiles_x, n, rc)
+    return []
+
+
+def run_orbit(dev, root):
+    """``python -m fluidnexus_torch.examples.render_orbit`` on a seeded
+    32 768-splat PLY, ORBIT_FRAMES frames at 960 x 544: exactly one
+    composite forward a frame and no other kernel, the AVI read back, and a
+    2-frame orbit at 160 x 96 card against the CPU (within one level of the
+    8-bit video: 32 768 overlapping splats sum in another order on the
+    card). No kernel entry."""
+    import time
+
+    from fluidnexus_torch.core.ply import save_background_ply
+    from fluidnexus_torch.examples import render_orbit as ro
+    from fluidnexus_torch.utils.video_io import read_video
+
+    rng = np.random.default_rng(SEED + 25)
+    n = ORBIT_SPLATS
+    ply = os.path.join(root, "splat.ply")
+    os.makedirs(root, exist_ok=True)
+    save_background_ply(ply, rng.normal(0.0, 0.35, (n, 3)), rng.uniform(0.05, 0.95, (n, 3)),
+                        rng.normal(0.0, 1.5, (n, 1)), rng.uniform(-5.0, -3.5, (n, 3)),
+                        rng.normal(size=(n, 4)))
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    path = ro.main(["--ply", ply, "--out", os.path.join(root, "orbit.avi"), "--frames",
+                    str(ORBIT_FRAMES)], device="cuda")
+    wall = time.perf_counter() - t0
+    check_launches(f"render_orbit ({ORBIT_FRAMES} frames at 960 x 544, {n} splats, {wall:.2f} s "
+                   f"with the PLY read and the AVI write)", all_launches(),
+                   {"composite_fwd": ORBIT_FRAMES})
+    frames = read_video(path)
+    if frames.shape != (ORBIT_FRAMES, 544, 960, 3) or frames.max() < 64:
+        _fail(f"render_orbit wrote {frames.shape} frames, max {frames.max()}")
+    print(f"render_orbit: {path}, {os.path.getsize(path)} bytes, mean level "
+          f"{frames.mean():.2f}")
+    card = ro.render_frames(ply, 2, 2.5, 0.3, 160, 96, device="cuda")
+    cpu = ro.render_frames(ply, 2, 2.5, 0.3, 160, 96, device="cpu")
+    diff = np.abs(card - cpu)
+    err = float(diff.max())
+    print(f"render_orbit card against CPU at 160 x 96: max|err| {err:.3e} [tol 1/255, a level "
+          f"of the 8-bit video], {int((diff > 1e-4).sum())} of {diff.size} values past 1e-4")
+    if not err <= 1.0 / 255.0:
+        _fail(f"render_orbit's card frames part from the CPU's by {err}")
+    return []
+
+
+def run_demo(dev):
+    """``python -m fluidnexus_torch.examples.fit_gaussians_demo`` in full: the
+    201-step fit (PSNR must rise by 5 dB), the 5 ticks, exactly their
+    launches; then 2 ticks card against the CPU (1e-3: chained f32 Jacobi
+    iterations, as in the CPU test against JAX). No kernel entry."""
+    import time
+
+    from fluidnexus_torch.examples import fit_gaussians_demo as demo
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = demo.main(device="cuda")
+    wall = time.perf_counter() - t0
+    ticks = len(res["ticks"])
+    check_launches(f"fit_gaussians_demo ({wall:.2f} s)", all_launches(), {
+        "composite_fwd": DEMO_FIT_STEPS + 2, "composite_bwd": DEMO_FIT_STEPS,
+        "combine_rows": DEMO_FIT_STEPS, "pbf_phase1": 10 * ticks, "pbf_phase2": 10 * ticks,
+        "splat_fwd": ticks})
+    psnrs = res["psnrs"]
+    if not psnrs[-1] > psnrs[0] + 5.0 or not all(np.isfinite([r["p_ratio"] for r in res["ticks"]])):
+        _fail(f"the demo's fit went {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB, ticks {res['ticks']}")
+    st_c, vis_c, _ = demo.rollout(dev, 2)
+    st_h, vis_h, _ = demo.rollout(torch.device("cpu"), 2)
+    err = max(float((st_c.xyz.cpu() - st_h.xyz).abs().max()),
+              float((vis_c.xyz.cpu() - vis_h.xyz).abs().max()))
+    print(f"fit_gaussians_demo: PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB; 2 ticks card against "
+          f"CPU max|err| {err:.3e} scaled units [tol 1e-3]")
+    if not err <= 1e-3:
+        _fail(f"the demo's ticks on the card part from the CPU's by {err}")
+    return []
+
+
+def run_profile_raster(dev, root):
+    """``python -m fluidnexus_torch.examples.profile_raster``: its step time,
+    the trace it writes and its kernel table, which must hold the three
+    rasterizer kernels; exactly its launches. No kernel entry."""
+    from fluidnexus_torch.examples import profile_raster as pr
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    ms, table = pr.main([root])
+    steps = 1 + 2 * pr.STEPS   # its warm-up, the timed steps and the traced ones
+    check_launches("profile_raster", all_launches(), {
+        k: steps for k in ("composite_fwd", "composite_bwd", "combine_rows")})
+    names = " ".join(name for _, name in table)
+    missing = [k for k in ("composite_fwd_kernel", "composite_bwd_kernel", "combine_kernel")
+               if k not in names]
+    if missing or not os.path.exists(os.path.join(root, "trace.json")) or not np.isfinite(ms):
+        _fail(f"profile_raster: {ms} ms a step, kernels missing from its table {missing}")
+    return []
+
+
+def full_scale_only(frames=FULL_SCALE_FRAMES):
+    """``python3 chip_smoke.py full-scale [FRAMES]``: the reference-scale
+    tool on the card at the reference's counts (1 000 + 1 000 fit iterations
+    at 960 x 544, --hidden_delta 0.01), FRAMES frames of its 120, into
+    FULL_SCALE_OUT; prints its log and its RUN.md, and fails unless every
+    frame gave a finite loss."""
+    from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.tools import run_full_scale_recon as fs
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this script runs on an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    cuda_build.build(["rasterizer", "pbf", "splat"])
+    res = fs.main(["--frames", str(frames), "--out", FULL_SCALE_OUT])
+    metrics = res["metrics"]
+    if len(metrics) != frames - 1 or not all(np.isfinite(mm["loss"]) for mm in metrics):
+        _fail(f"the full-scale run completed {len(metrics)} of {frames - 1} frames")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["png-time"]:
         png_time()
@@ -8496,6 +8758,8 @@ if __name__ == "__main__":
         parallel_only()
     elif sys.argv[1:] == ["scalar"]:
         scalar_only()
+    elif sys.argv[1:2] == ["full-scale"] and len(sys.argv) <= 3:
+        full_scale_only(*map(int, sys.argv[2:]))
     elif sys.argv[1:] == ["profiles"]:
         main(profiles=True)
     elif sys.argv[1:] == ["tick-flips"]:

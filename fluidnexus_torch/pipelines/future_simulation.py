@@ -38,8 +38,9 @@ from fluidnexus_torch.pipelines.train_physical_particle import (
     _load_background, pbf_params_from_config, raster_config_from, solver_tick,
 )
 from fluidnexus_torch.sim.pbf import (
-    RigidBody, RigidSpec, confirm_guess, create_rigid_body, project_rigid_constraints,
-    project_rigid_constraints_visual, remove_invalid, update_visual,
+    QUERY_DROPS, RigidBody, RigidSpec, confirm_guess, create_rigid_body,
+    project_rigid_constraints, project_rigid_constraints_visual, remove_invalid, update_visual,
+    warn_capacity_overflow,
 )
 from fluidnexus_torch.splat.dynamics import (
     BackgroundSplats, EmitterPoints, constant_visual_attrs, emit_hidden, emit_visual, load_hidden,
@@ -163,7 +164,7 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
                 moved_hidden = _moved(before, state.estimate_xyz)
             state = confirm_guess(state, cur_params)
         with record_function("fnx.update_visual"):
-            visual = update_visual(visual, state, cur_params)
+            visual, dropped = update_visual(visual, state, cur_params, return_dropped=True)
         if use_rigid is not None:
             before = visual.xyz
             visual = project_rigid_constraints_visual(visual, use_rigid, cur_params)
@@ -194,15 +195,20 @@ def predict(cfg: Config, scene_info=None, log=print, save_renders: bool = True,
                 save_hidden(state, cur_params, out_ckpt, frame_idx)
                 save_visual(visual, attrs, out_ckpt, frame_idx)
 
-        # one host read for the frame's counts and its last p_ratio
-        hidden_alive, n_visual, n_killed, n_rh, n_rv, p_ratio = torch.stack(
+        # one host read for the frame's counts, its last p_ratio and the splat's drops
+        hidden_alive, n_visual, n_killed, n_rh, n_rv, p_ratio, n_dropped = torch.stack(
             [t.to(torch.float64) for t in (state.num_alive, visual.num_alive, killed,
-                                           moved_hidden, moved_visual, diags["p_ratio"][-1])]
+                                           moved_hidden, moved_visual, diags["p_ratio"][-1],
+                                           dropped)]
         ).tolist()
         hidden_alive = int(hidden_alive)
+        warn_capacity_overflow({"overflow": n_dropped}, f"future {fut} advection",
+                               strict=cfg.strict_capacity,
+                               log=log, what=QUERY_DROPS)
         frames.append({"frame": frame_idx, "p0": cur_p0, "hidden": hidden_alive,
                        "visual": int(n_visual), "p_ratio": p_ratio, "killed": int(n_killed),
-                       "rigid_hidden": int(n_rh), "rigid_visual": int(n_rv)})
+                       "rigid_hidden": int(n_rh), "rigid_visual": int(n_rv),
+                       "query_drops": int(n_dropped)})
         log(f"future {fut}: p0={cur_p0:.3f} hidden={hidden_alive} visual={int(n_visual)} "
             f"killed={int(n_killed)} rigid moved hidden={int(n_rh)} visual={int(n_rv)} "
             f"p_ratio={p_ratio:.6f}")

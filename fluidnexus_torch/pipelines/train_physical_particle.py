@@ -53,7 +53,7 @@ from fluidnexus_torch.ops.rasterizer import RasterizerConfig
 from fluidnexus_torch.parallel.mesh import is_main
 from fluidnexus_torch.sim.pbf import (
     PBFParams, confirm_guess, density_ratio_at, guess_from_nn, guess_hidden, remove_invalid,
-    visual_xyz_from_nn, warn_capacity_overflow,
+    QUERY_DROPS, visual_xyz_from_nn, warn_capacity_overflow,
 )
 from fluidnexus_torch.sim.pbf_dense import project_iterations_dense
 from fluidnexus_torch.sim.state import (
@@ -536,15 +536,18 @@ def fit_frame(cfg: Config, params: PBFParams, step, state: ParticleState, visual
 def commit_frame(params: PBFParams, state: ParticleState, visual: VisualState, exyz_nn):
     """confirm_from_nn + advect visual + wo_velocity (ref :456-458): the
     visual particles move by the splat of the fitted positions (its own grid),
-    the fitted positions become the alive estimates, then confirm_guess."""
+    the fitted positions become the alive estimates, then confirm_guess.
+    Returns (state, visual, the visual particles the splat's query cells
+    dropped, a device scalar)."""
     with record_function("fnx.commit"), torch.no_grad():
-        new_visual_xyz = visual_xyz_from_nn(visual.xyz, visual.alive, exyz_nn, state, params)
+        new_visual_xyz, dropped = visual_xyz_from_nn(visual.xyz, visual.alive, exyz_nn, state,
+                                                     params, return_dropped=True)
         a = state.alive[:, None]
         state = state._replace(estimate_xyz=torch.where(a, exyz_nn * params.scale_factor,
                                                         state.estimate_xyz))
         visual = visual._replace(xyz=torch.where(visual.alive[:, None], new_visual_xyz, visual.xyz))
         state = confirm_guess(state, params)
-    return state, visual
+    return state, visual, dropped
 
 
 def _phase_c(cfg: Config, scene_info, state: ParticleState, visual: VisualState,
@@ -579,10 +582,12 @@ def _phase_c(cfg: Config, scene_info, state: ParticleState, visual: VisualState,
         loss = float(losses[-1]) if losses else float("nan")
         if writer:
             writer.add_scalar(f"train_loss_frame_{t:03d}/total", loss, t)
-        state, visual = commit_frame(params, state, visual, exyz_nn)
+        state, visual, dropped = commit_frame(params, state, visual, exyz_nn)
+        n_dropped = warn_capacity_overflow({"overflow": dropped}, f"frame {t} advection",
+                                           strict=cfg.strict_capacity, log=log, what=QUERY_DROPS)
 
         frame_metrics = {"frame": t, "loss": loss, "hidden": int(state.num_alive),
-                         "visual": int(visual.num_alive)}
+                         "visual": int(visual.num_alive), "query_drops": n_dropped}
         # held-out evaluation (training_report parity, ref :588-741)
         if test_by_t.get(t):
             ev, img0 = evaluate_frame(visual, attrs, bg, test_by_t[t], raster_cfg,

@@ -145,17 +145,25 @@ def remove_invalid(state: ParticleState, params: PBFParams) -> ParticleState:
     return state._replace(alive=keep)
 
 
-def warn_capacity_overflow(diags, context: str, strict: bool = False, log=print) -> int:
-    """Report the points the static-capacity grids dropped in a tick (one
-    host read of the stacked ``overflow``); raises instead under ``strict``
-    (--strict_capacity). Returns the dropped count."""
+GRID_DROPS = ("neighbor grid dropped {n} point-slots this tick — pair sums are missing "
+              "particles. Raise dense_max_cells / dense_cell_capacity (dense path) or "
+              "cell_capacity / KNN_K (padded path) to cover the scene.")
+QUERY_DROPS = ("the visual query grid dropped {n} particles (past "
+               f"{splat_cuda.MAX_M} in a cell of h, or in cells past dense_max_cells); "
+               "they were not advected. Raise dense_max_cells or spread the emitters.")
+
+
+def warn_capacity_overflow(diags, context: str, strict: bool = False, log=print,
+                           what: str = GRID_DROPS) -> int:
+    """Report the points a static-capacity grid dropped (one host read of
+    the stacked ``overflow``): a solver tick's grids, or with ``what=
+    QUERY_DROPS`` the splat's query cells; a count already on the host
+    reads nothing. Raises instead under ``strict`` (--strict_capacity).
+    Returns the dropped count."""
     ov = diags.get("overflow")
-    total = int(ov.sum()) if ov is not None else 0
+    total = int(torch.as_tensor(ov).sum()) if ov is not None else 0
     if total > 0:
-        msg = (f"[capacity] {context}: neighbor grid dropped {total} "
-               "point-slots this tick — pair sums are missing particles. "
-               "Raise dense_max_cells / dense_cell_capacity (dense path) or "
-               "cell_capacity / KNN_K (padded path) to cover the scene.")
+        msg = f"[capacity overflow] {context}: " + what.format(n=total)
         if strict:
             raise RuntimeError(msg + " (--strict_capacity raised)")
         log(msg)
@@ -187,23 +195,35 @@ def solver_loop(state: ParticleState, params: PBFParams, iterations: int,
     return state, stack_diags(diags)
 
 
+def _splat_to_points(points, point_alive, state: ParticleState, params: PBFParams):
+    """(delta, the live points the query cells dropped, a device scalar) of
+    ``splat_velocity_to_points``."""
+    with torch.no_grad():
+        grid = build_dense_grid(state.estimate_xyz, params.h, state.alive,
+                                params.dense_max_cells, params.dense_cell_capacity)
+        delta, _, dropped, _ = _splat_delta(grid, state.velocity, points, point_alive, params)
+    return delta, dropped
+
+
 def splat_velocity_to_points(points, point_alive, state: ParticleState, params: PBFParams):
     """The poly6-weighted velocity splat from the hidden estimates to
     ``points``, as a position delta (update_visual_particles,
     gm_dynamics.py:1360-1402): delta = secs sum_j w_j v_j / max(sum_j w_j,
     eps), through the two-lattice splat forward kernel over every in-radius
-    source (the JAX package's accelerator branch, ``dense=True``). No
-    gradient."""
-    with torch.no_grad():
-        grid = build_dense_grid(state.estimate_xyz, params.h, state.alive,
-                                params.dense_max_cells, params.dense_cell_capacity)
-        return _splat_delta(grid, state.velocity, points, point_alive, params)[0]
+    source (the JAX package's accelerator branch, ``dense=True``, with query
+    cells of ``splat_cuda.MAX_M`` slots). No gradient."""
+    return _splat_to_points(points, point_alive, state, params)[0]
 
 
-def update_visual(visual: VisualState, state: ParticleState, params: PBFParams) -> VisualState:
-    """The visual particles advected by the dense splat of the hidden velocities."""
-    delta = splat_velocity_to_points(visual.xyz, visual.alive, state, params)
-    return visual._replace(xyz=torch.where(visual.alive[:, None], visual.xyz + delta, visual.xyz))
+def update_visual(visual: VisualState, state: ParticleState, params: PBFParams,
+                  return_dropped: bool = False):
+    """The visual particles advected by the dense splat of the hidden
+    velocities; with ``return_dropped``, (visual, the count its query cells
+    dropped, a device scalar)."""
+    delta, dropped = _splat_to_points(visual.xyz, visual.alive, state, params)
+    visual = visual._replace(xyz=torch.where(visual.alive[:, None], visual.xyz + delta,
+                                             visual.xyz))
+    return (visual, dropped) if return_dropped else visual
 
 
 # --------------------------- differentiable NN paths ------------------------
@@ -267,12 +287,15 @@ def density_ratio_at(positions, alive, imass, params: PBFParams, grid: Optional[
 
 def _splat_delta(grid: DenseGrid, vel, points, point_alive, params: PBFParams):
     """The splat forward over the source ``grid``: (delta (Nq, 3), ws (Nq,),
-    the tables the adjoint reads). The queries are binned on the grid's
-    lattice; the forward kernel gives the per-slot sums, c6 applied outside
-    the kernel, so the eps clamp is max(c6 ws, eps). Dead and dropped queries
-    read the zero row Cq: delta 0."""
-    C, M = params.dense_max_cells, params.dense_cell_capacity
-    qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, C, M)
+    the live queries dropped (a device scalar), the tables the adjoint
+    reads). The queries are binned on the grid's lattice at the kernels'
+    ``splat_cuda.MAX_M`` slots a cell, whatever the sources' capacity: piled
+    emissions fill a query cell long before they crowd the hidden grid. The
+    forward kernel gives the per-slot sums, c6 applied outside the kernel, so
+    the eps clamp is max(c6 ws, eps). Dead and dropped queries read the zero
+    row Cq: delta 0."""
+    qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, params.dense_max_cells,
+                              splat_cuda.MAX_M)
     planes, qplanes = pbf_cuda.planes(grid), pbf_cuda.planes(qgrid)
     vel_s = slot_gather(grid, vel).contiguous()
     wv_s, ws_s = splat_cuda.splat_fwd(qgrid.nbr, *qplanes, *planes, vel_s, params.h)
@@ -280,7 +303,7 @@ def _splat_delta(grid: DenseGrid, vel, points, point_alive, params: PBFParams):
     wvs = point_gather(qgrid, torch.cat([wv_s * c6, ws_s[..., None] * c6], -1))  # row Cq: 0
     ws = wvs[:, 3]
     delta = params.secs * wvs[:, :3] / torch.clamp(ws, min=params.epsilon)[:, None]
-    return delta, ws, (grid, qgrid, rnbr, planes, qplanes, vel_s)
+    return delta, ws, qgrid.overflow, (grid, qgrid, rnbr, planes, qplanes, vel_s)
 
 
 class _SplatDelta(torch.autograd.Function):
@@ -288,18 +311,20 @@ class _SplatDelta(torch.autograd.Function):
     queries ``points`` over the sources in ``grid`` (the JAX
     ``_splat_delta_dense`` custom VJP, sim/pbf.py:373-455). Differentiable in
     ``src`` (through W) and ``vel``; ``points`` is treated as detached. Dead
-    and dropped queries get delta 0; dropped sources contribute nothing."""
+    and dropped queries get delta 0; dropped sources contribute nothing.
+    Returns (delta, the live queries dropped)."""
 
     @staticmethod
     def forward(ctx, src, vel, points, point_alive, params: PBFParams, grid: DenseGrid):
-        delta, ws, tables = _splat_delta(grid, vel, points, point_alive, params)
+        delta, ws, dropped, tables = _splat_delta(grid, vel, points, point_alive, params)
         ctx.save_for_backward(ws, delta)
         ctx.tables = tables
         ctx.params = params
-        return delta
+        ctx.mark_non_differentiable(dropped)
+        return delta, dropped
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         ws, delta = ctx.saved_tensors
         grid, qgrid, rnbr, planes, qplanes, vel_s = ctx.tables
         params = ctx.params
@@ -316,19 +341,23 @@ class _SplatDelta(torch.autograd.Function):
 
 
 def visual_xyz_from_nn(visual_xyz, visual_alive, estimate_xyz_nn, state: ParticleState,
-                       params: PBFParams, grid: Optional[DenseGrid] = None):
+                       params: PBFParams, grid: Optional[DenseGrid] = None,
+                       return_dropped: bool = False):
     """Differentiable advection of the (detached) visual particles by the
     learnable hidden positions (get_visual_xyz_from_nn,
     gm_dynamics.py:1453-1500) through the two-set splat over the dense grid.
     ``estimate_xyz_nn`` is in world units (the optimizer's down-scaled
     space); the result is in scaled space. ``grid`` is an optional pre-built
     source grid at ``estimate_xyz_nn * scale_factor``, checked as in
-    ``density_ratio_at``."""
+    ``density_ratio_at``. With ``return_dropped``, (positions, the live
+    visual particles the query cells dropped, a device scalar): those keep
+    their position."""
     est = estimate_xyz_nn * params.scale_factor
     vel = (est - state.xyz) / params.secs
     vx = visual_xyz.detach()
     grid = _grid_for(est, state.alive, params, grid, "visual_xyz_from_nn")
-    return vx + _SplatDelta.apply(est, vel, vx, visual_alive, params, grid)
+    delta, dropped = _SplatDelta.apply(est, vel, vx, visual_alive, params, grid)
+    return (vx + delta, dropped) if return_dropped else vx + delta
 
 
 def guess_from_nn(estimate_xyz_nn, state: ParticleState, params: PBFParams):

@@ -69,23 +69,34 @@ def _two_set(nbr, cnt_c, xyz_c, cnt_n, xyz_n, h, mu_c, mu_n):
         yield nb, pair & (d2 < h * h), d, d2
 
 
+def _reaching_rows(nbr, cnt_c, cnt_n):
+    """The centre rows that hold a live slot and have a live slot of the
+    other grid among their 27 neighbour rows: the only rows with a non-zero
+    output. The plain versions walk these alone (a pile of queries widens
+    every walked row to its count), each row as the whole walk would."""
+    return torch.nonzero((cnt_c[:-1] > 0) & (cnt_n[nbr.long()].sum(1) > 0)).flatten()
+
+
 def splat_fwd_plain(qnbr, qcnt, xq, yq, zq, scnt, xs, ys, zs, vel, h: float):
     """The forward in plain torch: (wv (Cq+1, Mq, 3), ws (Cq+1, Mq))."""
     wv = torch.zeros(xq.shape + (3,), dtype=xq.dtype, device=xq.device)
     ws = torch.zeros_like(xq)
-    mu_q, mu_s = int(qcnt.max()), int(scnt.max())
-    if mu_q == 0 or mu_s == 0:
+    rows = _reaching_rows(qnbr, qcnt, scnt)
+    if len(rows) == 0:
         return wv, ws
-    aw = torch.zeros_like(xq[:-1, :mu_q])
+    cnt_r = qcnt[rows]
+    mu_q, mu_s = int(cnt_r.max()), int(scnt.max())
+    aw = torch.zeros((len(rows), mu_q), dtype=xq.dtype, device=xq.device)
     acc = [torch.zeros_like(aw) for _ in range(3)]
-    for nb, inside, _, d2 in _two_set(qnbr, qcnt, (xq, yq, zq), scnt, (xs, ys, zs), h, mu_q, mu_s):
+    for nb, inside, _, d2 in _two_set(qnbr[rows], cnt_r, (xq[rows], yq[rows], zq[rows]), scnt,
+                                      (xs, ys, zs), h, mu_q, mu_s):
         t2 = h * h - d2
         w = torch.where(inside, t2 * t2 * t2, 0.0)
         aw = aw + w.sum(-1)
         acc = [a + (w * vel[nb, :mu_s, ax][:, None, :]).sum(-1) for ax, a in enumerate(acc)]
-    live = _live(qcnt[:-1], mu_q)
-    ws[:-1, :mu_q] = torch.where(live, aw, 0.0)
-    wv[:-1, :mu_q] = torch.where(live[..., None], torch.stack(acc, -1), 0.0)
+    live = _live(cnt_r, mu_q)
+    ws[rows, :mu_q] = torch.where(live, aw, 0.0)
+    wv[rows, :mu_q] = torch.where(live[..., None], torch.stack(acc, -1), 0.0)
     return wv, ws
 
 
@@ -93,13 +104,16 @@ def splat_bwd_plain(rnbr, scnt, xs, ys, zs, vel, qcnt, xq, yq, zq, p, q, h: floa
     """The adjoint in plain torch: (g_est, g_vel), each (C+1, M, 3)."""
     gx = torch.zeros(xs.shape + (3,), dtype=xs.dtype, device=xs.device)
     gv = torch.zeros_like(gx)
-    mu_s, mu_q = int(scnt.max()), int(qcnt.max())
-    if mu_q == 0 or mu_s == 0:
+    rows = _reaching_rows(rnbr, scnt, qcnt)
+    if len(rows) == 0:
         return gx, gv
-    v = [vel[:-1, :mu_s, ax][..., None] for ax in range(3)]
-    e = [torch.zeros_like(xs[:-1, :mu_s]) for _ in range(3)]
+    cnt_r = scnt[rows]
+    mu_s, mu_q = int(cnt_r.max()), int(qcnt.max())
+    v = [vel[rows, :mu_s, ax][..., None] for ax in range(3)]
+    e = [torch.zeros((len(rows), mu_s), dtype=xs.dtype, device=xs.device) for _ in range(3)]
     g = [torch.zeros_like(e[0]) for _ in range(3)]
-    for nb, inside, d, d2 in _two_set(rnbr, scnt, (xs, ys, zs), qcnt, (xq, yq, zq), h, mu_s, mu_q):
+    for nb, inside, d, d2 in _two_set(rnbr[rows], cnt_r, (xs[rows], ys[rows], zs[rows]), qcnt,
+                                      (xq, yq, zq), h, mu_s, mu_q):
         t2 = h * h - d2
         w = torch.where(inside, t2 * t2 * t2, 0.0)
         dw = torch.where(inside, -3.0 * t2 * t2, 0.0)
@@ -107,9 +121,9 @@ def splat_bwd_plain(rnbr, scnt, xs, ys, zs, vel, qcnt, xq, yq, zq, p, q, h: floa
         fd = (v[0] * pn[0] + v[1] * pn[1] + v[2] * pn[2] - q[nb, :mu_q][:, None, :]) * dw
         e = [a + (fd * da).sum(-1) for a, da in zip(e, d)]
         g = [a + (w * pa).sum(-1) for a, pa in zip(g, pn)]
-    live = _live(scnt[:-1], mu_s)[..., None]
-    gx[:-1, :mu_s] = torch.where(live, 2.0 * torch.stack(e, -1), 0.0)
-    gv[:-1, :mu_s] = torch.where(live, torch.stack(g, -1), 0.0)
+    live = _live(cnt_r, mu_s)[..., None]
+    gx[rows, :mu_s] = torch.where(live, 2.0 * torch.stack(e, -1), 0.0)
+    gv[rows, :mu_s] = torch.where(live, torch.stack(g, -1), 0.0)
     return gx, gv
 
 

@@ -4,6 +4,8 @@
 branch, their gradcheck, and the checks of a passed grid. The kernels' plain
 versions against the Pallas kernels are in test_torch_gas_splat_pallas.py.
 Inputs are seeded numpy arrays handed to both."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,10 +160,11 @@ def test_visual_xyz_from_nn_matches_jax_dense():
 def test_queries_past_a_cells_capacity_stay_still_as_in_the_dense_branch():
     """Forty visual particles on one spot (as emissions at a ratio over 1
     pile up at an emitter) fill one query cell past ``dense_cell_capacity``
-    (32). The port leaves the 8 past it where they are, as the JAX package's
-    dense branch does, and moves every other query as that branch does (to
-    1e-5); the JAX package's padded top-K branch, which its CPU runs take,
-    moves all forty alike, and the rest as the port does."""
+    (32). The port bins queries at the splat kernels' 128 slots a cell, so
+    all forty move as the JAX package's padded top-K branch (its CPU runs)
+    moves them (1e-5), where its dense branch leaves the 8 past 32 still;
+    the other 80 queries move as the dense branch moves them, and report no
+    drop."""
     rng = np.random.default_rng(12)
     n, nq = 256, 120
     pos = rng.uniform(0.0, 6.0, (n, 3)).astype(np.float32)
@@ -175,15 +178,102 @@ def test_queries_past_a_cells_capacity_stay_still_as_in_the_dense_branch():
     args = (jnp.asarray(qpos), jnp.asarray(q_alive), jnp.asarray(nn), st_j, params_j)
     dense = _np(jpbf.visual_xyz_from_nn(*args, dense=True))
     top_k = _np(jpbf.visual_xyz_from_nn(*args, dense=False))
-    got = tpbf.visual_xyz_from_nn(torch.as_tensor(qpos), torch.as_tensor(q_alive),
-                                  torch.as_tensor(nn), st_t, params_t).numpy()
+    got, dropped = tpbf.visual_xyz_from_nn(torch.as_tensor(qpos), torch.as_tensor(q_alive),
+                                           torch.as_tensor(nn), st_t, params_t,
+                                           return_dropped=True)
+    got = got.numpy()
     still, still_k = np.all(got == qpos, axis=1), np.all(top_k == qpos, axis=1)
-    assert int(still[:40].sum()) == 8 and not still_k[:40].any()
+    assert int(np.all(dense[:40] == qpos[:40], axis=1).sum()) == 8, "JAX's dense branch changed"
+    assert int(dropped) == 0 and not still[:40].any()
+    np.testing.assert_allclose(got[:40], top_k[:40], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[:40], np.broadcast_to(got[0], (40, 3)), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(still[40:], still_k[40:])     # no source in reach
-    np.testing.assert_array_equal(np.all(dense == qpos, axis=1), still)
-    np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(top_k[:40], np.broadcast_to(top_k[0], (40, 3)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[40:], dense[40:], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got[~still], top_k[~still], rtol=1e-5, atol=1e-5)
+
+
+def _piled_visual(rng, n_pile, params):
+    """A hidden cloud with a velocity and ``n_pile`` visual particles on one
+    spot inside it, plus 40 spread around: (ParticleState, VisualState, nn)."""
+    from fluidnexus_torch.sim.state import make_particle_state, make_visual_state
+
+    pos = rng.uniform(0.0, 6.0, (256, 3)).astype(np.float32)
+    st = make_particle_state(256, pos, init_velocity_y=10.0, device="cpu")
+    st = st._replace(estimate_xyz=st.xyz + 0.1)
+    vis = np.concatenate([np.full((n_pile, 3), 3.4, np.float32),
+                          rng.uniform(0.5, 5.5, (40, 3)).astype(np.float32)])
+    nn = (pos / params.scale_factor + 0.002 * rng.normal(size=(256, 3))).astype(np.float32)
+    return st, make_visual_state(n_pile + 64, vis, device="cpu"), torch.as_tensor(nn)
+
+
+def test_a_pile_past_the_kernels_slots_leaves_its_tail_still_and_reports_it():
+    """140 visual particles on one spot: the query cell holds the kernels'
+    128, so the last 12 stay where they are, and the fit's advection,
+    ``update_visual`` and the phase-C commit each report 12 through
+    ``warn_capacity_overflow``, which raises under --strict_capacity."""
+    from fluidnexus_torch.pipelines import train_physical_particle as ttrain
+
+    params = _params(tpbf.PBFParams)
+    st, vis, nn = _piled_visual(np.random.default_rng(13), 140, params)
+    moved, dropped = tpbf.visual_xyz_from_nn(vis.xyz, vis.alive, nn, st, params,
+                                             return_dropped=True)
+    still = np.all(moved.numpy() == vis.xyz.numpy(), axis=1)[:140]
+    assert int(dropped) == 12 and still[128:].all() and not still[:128].any()
+    vis2, dropped2 = tpbf.update_visual(vis, st, params, return_dropped=True)
+    still2 = np.all(vis2.xyz.numpy() == vis.xyz.numpy(), axis=1)[:140]
+    assert int(dropped2) == 12 and still2[128:].all() and not still2[:128].any()
+    *_, dropped3 = ttrain.commit_frame(params, st, vis, nn)
+    logs = []
+    assert tpbf.warn_capacity_overflow({"overflow": dropped3}, "frame 1 advection",
+                                       log=logs.append, what=tpbf.QUERY_DROPS) == 12
+    assert len(logs) == 1 and "capacity overflow" in logs[0] and "dropped 12" in logs[0]
+    with pytest.raises(RuntimeError, match="strict_capacity"):
+        tpbf.warn_capacity_overflow({"overflow": dropped3}, "frame 1 advection", strict=True,
+                                    what=tpbf.QUERY_DROPS)
+
+
+def test_a_future_frame_reports_the_piles_drops_and_strict_raises(tmp_path):
+    """``predict`` from a checkpoint whose 140 visual particles sit on one
+    spot inside the hidden cloud: the frame's dict and its log report the 12
+    the query cell drops, as a capacity overflow, and --strict_capacity
+    raises on them."""
+    from fluidnexus_torch.core.config import Config
+    from fluidnexus_torch.data.cameras import Camera
+    from fluidnexus_torch.data.readers import SceneInfo
+    from fluidnexus_torch.pipelines import future_simulation as tfuture
+    from fluidnexus_torch.pipelines.train_physical_particle import pbf_params_from_config
+    from fluidnexus_torch.sim.state import make_particle_state, make_visual_state
+    from fluidnexus_torch.splat.dynamics import constant_visual_attrs, save_hidden, save_visual
+
+    cfg = Config()
+    o, m = cfg.optim, cfg.model
+    m.load_path = str(tmp_path / "recon")
+    m.hidden_capacity = m.visual_capacity = 2048   # over the future emitters' padded plans
+    o.future_pred_frames, o.solver_iterations_future = 1, 2
+    o.H, o.emit_ratio_hidden, o.emit_ratio_visual = 2.0, 0.0, 0.0
+    params = pbf_params_from_config(cfg)
+    rng = np.random.default_rng(14)
+    base = np.array([0.326, 0.05, -0.3], np.float32) * 100
+    st = make_particle_state(2048, (rng.uniform(-3, 3, (300, 3)) + base).astype(np.float32),
+                             init_velocity_y=50.0, device="cpu")
+    save_hidden(st._replace(estimate_xyz=st.xyz), params, os.path.join(m.load_path, "checkpoint"), 1)
+    vis = make_visual_state(2048, np.broadcast_to(base + 0.3, (140, 3)).copy(), device="cpu")
+    save_visual(vis, constant_visual_attrs(2048, 1, device="cpu"),
+                os.path.join(m.load_path, "checkpoint"), 1)
+    R = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1.0]])
+    cams = [Camera(uid=t, R=R, T=-R.T @ np.array([0.326, 0.05, 1.7]), fovx=0.7, fovy=0.55,
+                   width=32, height=24, image_name="train00", time_idx=t) for t in range(2)]
+    scene = SceneInfo(point_cloud=None, train_cameras=cams, test_cameras=[],
+                      nerf_normalization={"radius": 2.0, "translate": np.zeros(3)})
+    logs = []
+    frames = tfuture.predict(cfg, scene_info=scene, log=logs.append, save_renders=False,
+                             device="cpu")
+    assert frames[0]["query_drops"] == 12 and frames[0]["visual"] == 140
+    assert [line for line in logs if "capacity overflow" in line] == [
+        "[capacity overflow] future 0 advection: " + tpbf.QUERY_DROPS.format(n=12)]
+    cfg.strict_capacity = True
+    with pytest.raises(RuntimeError, match="strict_capacity"):
+        tfuture.predict(cfg, scene_info=scene, log=logs.append, save_renders=False, device="cpu")
 
 
 def test_shared_grid_matches_the_internal_build():
