@@ -77,7 +77,7 @@ Phase C (``train``, phases A -> B -> C in one call): the same config with
 iterations_per_time_current and _max cut from 1000 to 30, frames 1-2; the
 config's batch 1, emit_ratio_visual 1.0, extra_visual_ratio 0.01 and
 emit_ratio_hidden 0. Each fit iteration builds one hidden grid of 4 096 x 32
-and one visual query grid of 4 096 x 32. ``train`` writes its npy
+and one visual query list of 4 096 rows. ``train`` writes its npy
 checkpoints to a temporary directory.
 
 Future (``predict``, stage 4): configs/smoke_future_simulation.json from
@@ -232,10 +232,13 @@ tool at full width (960 x 544, 5 + 1 cameras, ~27 720 hidden particles,
 ``render_orbit`` of a seeded 32 768-splat PLY, 12 frames at 960 x 544;
 the fit-and-rollout demo in full; ``profile_raster`` at the bench
 workload. Each checks its launches exactly. ``python3 chip_smoke.py
-full-scale [FRAMES]`` runs the tool at the reference's counts. Rows 10 and
-11 are timed with the query cells at 32 and at 128 slots at phase C's
-first iteration and at ScalarReal's last frame, and held there at 128
-(``splat_at_both_caps``). None adds a ``kernels`` entry.
+full-scale [FRAMES]`` runs the tool at the reference's counts, prints each
+frame's fullest query cell and the queries past 128 in a cell, and fails
+on any query drop. Rows 10 and 11 are held against their plain versions in
+NaN-filled blocks and timed at phase C's first iteration, at a seeded pile
+of 1 100 queries in one cell of h (and 600 over three cells) in its hidden
+cloud and at ScalarReal's last frame (``splat_list_check``). None adds a
+``kernels`` entry.
 """
 from __future__ import annotations
 
@@ -1622,7 +1625,7 @@ def first_iteration_inputs(ctx):
     import copy
 
     from fluidnexus_torch.data.scene import cameras_by_time
-    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid
+    from fluidnexus_torch.ops.neighbors import build_dense_grid, sort_queries
     from fluidnexus_torch.pipelines import train_physical_particle as tp
     from fluidnexus_torch.sim import pbf_cuda as pc
     from fluidnexus_torch.sim import splat_cuda as sc
@@ -1634,18 +1637,19 @@ def first_iteration_inputs(ctx):
     nn = state.estimate_xyz / params.scale_factor
     C, M = params.dense_max_cells, params.dense_cell_capacity
     grid = build_dense_grid(nn * params.scale_factor, params.h, state.alive, C, M)
-    qgrid, _ = bin_queries(grid, params.h, visual.xyz, visual.alive, C, sc.MAX_M)
+    ql = sort_queries(grid, params.h, visual.xyz, visual.alive, C)
     print(f"phase C frame 1: {int(state.alive.sum())} hidden and {int(visual.alive.sum())} visual "
           f"particles alive after its simulation; emitted {emitted[0]} hidden and {emitted[1]} "
           f"visual candidates")
-    for name, g, n_live in (("hidden grid", grid, int(state.alive.sum())),
-                            ("visual query grid", qgrid, int(visual.alive.sum()))):
-        cnt = g.bmask.sum(-1)
-        print(f"phase C first iteration, {name}: C {g.max_cells} M {g.capacity}, "
-              f"{int((cnt > 0).sum())} occupied cells, fullest {int(cnt.max())}, "
-              f"{int(g.bmask.sum())} of {n_live} points binned, overflow {int(g.overflow)}")
-    print(f"phase C first iteration: {int(qgrid.overflow)} visual queries dropped from the query "
-          f"grid of {sc.MAX_M} slots a cell (they get delta 0)")
+    cnt = grid.bmask.sum(-1)
+    print(f"phase C first iteration, hidden grid: C {grid.max_cells} M {grid.capacity}, "
+          f"{int((cnt > 0).sum())} occupied cells, fullest {int(cnt.max())}, "
+          f"{int(grid.bmask.sum())} of {int(state.alive.sum())} points binned, overflow "
+          f"{int(grid.overflow)}")
+    print(f"phase C first iteration, visual query list: C {ql.max_cells}, "
+          f"{int((ql.cnt > 0).sum())} occupied cells, fullest {int(ql.cnt.max())}, "
+          f"{int(ql.start[-1])} of {int(visual.alive.sum())} queries listed; {int(ql.overflow)} "
+          f"in cells past C dropped (they get delta 0)")
 
     rec = {name: [] for name in PHASE_C_KERNELS}
     hooks = ((pc, "density", "density_fwd"), (pc, "density_bwd", "density_bwd"),
@@ -1698,10 +1702,13 @@ def held_in_nan_blocks(name, args, what):
     plain version on the same inputs: each output field at 1e-4 of its own
     scale over the live centre slots (the count at args[1], the planes' width
     at args[2]; for phase 1 v1 its gathered counts' own, ncnt[:, 13], and
-    args[2]), and exactly 0 at dead slots. Prints a line per field; returns (max|err|, the names of the
-    fields that failed)."""
+    args[2]), and exactly 0 at dead slots; for the splat forward each column
+    of its (Nq+1, 4) output over the listed queries (qstart and qcnt at
+    args[1:3]) and exactly 0 at entry Nq (it writes no entry past the rows).
+    Prints a line per field; returns (max|err|, the names of the fields that
+    failed)."""
     from fluidnexus_torch.sim import pbf_cuda as pc
-    from tests.torch_helpers import leave_nan_blocks
+    from tests.torch_helpers import leave_nan_blocks, listed_mask
 
     wrapper, plain, fields = phase_c_calls()[name]
     want = plain(*args)
@@ -1710,14 +1717,22 @@ def held_in_nan_blocks(name, args, what):
     got = wrapper(*args)
     got = got if isinstance(got, tuple) else (got,)
     torch.cuda.synchronize()
-    cnt = pc._own_counts(args[0]) if name == "pbf_phase1_v1" else args[1]
-    live = pc._live(cnt, args[2].shape[1])
+    if name == "splat_fwd":
+        listed = listed_mask(args[1], args[2], args[3].shape[0])
+        last = torch.zeros_like(listed)
+        last[-1] = True
+        got, want = (got[0][:, :3], got[0][:, 3]), (want[0][:, :3], want[0][:, 3])
+        masks = [(listed[:, None].expand(-1, 3), last[:, None].expand(-1, 3)), (listed, last)]
+    else:
+        cnt = pc._own_counts(args[0]) if name == "pbf_phase1_v1" else args[1]
+        live = pc._live(cnt, args[2].shape[1])
+        masks = [(lv, ~lv) for lv in (live if g.dim() == 2 else live[..., None].expand_as(g)
+                                      for _, g in zip(fields, got))]
     worst, failures = 0.0, []
-    for field, g, w in zip(fields, got, want):
-        lv = live if g.dim() == 2 else live[..., None].expand_as(g)
+    for field, g, w, (lv, dead) in zip(fields, got, want, masks):
         err = float((g - w)[lv].abs().max())
         scale = float(w[lv].abs().max())
-        dead_zero = not bool(g[~lv].any())
+        dead_zero = not bool(g[dead].any())
         ok = err <= 1e-4 * scale and scale > 0 and dead_zero
         print(f"{what}: {name} {field} max|err| {err:.3e} / scale {scale:.3e} [tol 1e-4 x scale], "
               f"dead slots 0: {dead_zero}" + ("" if ok else " FAILED"))
@@ -1752,15 +1767,16 @@ def launch_floors(name, args):
     zero = torch.zeros_like
     if name in ("pbf_phase1_v1", "pbf_phase2_v1"):  # a row's count is its copy's
         return {"every count 0": (zero(args[0]),) + tuple(args[1:])}
-    if name == "splat_fwd":
-        return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:5]) + (zero(args[5]),)
-                + tuple(args[6:]),
-                "every source count 0": tuple(args[:5]) + (zero(args[5]),) + tuple(args[6:])}
+    if name == "splat_fwd":  # (qnbr, qstart, qcnt, xq, yq, zq, scnt, ...)
+        return {"every count 0": tuple(args[:2]) + (zero(args[2]),) + tuple(args[3:6])
+                + (zero(args[6]),) + tuple(args[7:]),
+                "every source count 0": tuple(args[:6]) + (zero(args[6]),) + tuple(args[7:])}
     if name != "splat_bwd":
         return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:])}
-    return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:6]) + (zero(args[6]),)
-            + tuple(args[7:]),
-            "every query count 0": tuple(args[:6]) + (zero(args[6]),) + tuple(args[7:])}
+    # (rnbr, scnt, xs, ys, zs, vel, qstart, qcnt, ...)
+    return {"every count 0": (args[0], zero(args[1])) + tuple(args[2:7]) + (zero(args[7]),)
+            + tuple(args[8:]),
+            "every query count 0": tuple(args[:7]) + (zero(args[7]),) + tuple(args[8:])}
 
 
 def _candidates(nbr, cnt_c, cnt_n):
@@ -1796,32 +1812,35 @@ def splat_bwd_reach(s):
     """The splat adjoint's work at its arguments ``s``: the live source rows
     that have a query in reach, the sources they hold, and their query
     lists' lengths (tensor)."""
-    rnbr, scnt, qcnt = s[0].long(), s[1], s[6]
+    rnbr, scnt, qcnt = s[0].long(), s[1], s[7]
     lists = qcnt[rnbr].sum(1)
     active = (scnt[:-1] > 0) & (lists > 0)
     return int(active.sum()), int(scnt[:-1][active].sum()), lists[active].float()
 
 
-def phase_c_plans(inp):
-    """Each phase-C kernel's wrapper, plain version, arguments, bytes and
-    operations at the first fit iteration's inputs (the counts the bounds
-    are made of, printed)."""
+def splat_work(f, s):
+    """(bytes, operations) of the splat forward at its arguments ``f`` and of
+    its adjoint at ``s``, with the counts they are made of (printed by the
+    callers). The forward reads the query list (start and cnt whole, 3 floats
+    of each listed query), the 27 source rows of each occupied query row and
+    only the source rows that those reach, and writes 4 floats a listed query
+    and entry Nq; the adjoint reads the source rows that have a query in
+    reach (6 floats a source), the 27 query rows of each occupied source row
+    and the queries of the query rows those reach (their start and cnt, 7
+    floats a query), and writes 6 floats a live source. 9 operations a live
+    candidate pair, SPLAT_FWD_IN_RADIUS_OPS / SPLAT_BWD_IN_RADIUS_OPS more a
+    pair in radius."""
     from fluidnexus_torch.sim import splat_cuda as sc
 
-    d, b, f, s = (inp[k] for k in PHASE_C_KERNELS)
-    nbr, cnt = d[0], d[1]
-    qnbr, qcnt, scnt, h = f[0], f[1], f[5], f[10]
-    dc = density_counts(d)
-    n_src, n_q = dc["n_src"], int(qcnt.sum())
-    rows, qrows = dc["rows"], int((qcnt[:-1] > 0).sum())
-    dens_cand, dens_in = dc["cand"], dc["in_radius"]
-    splat_cand = _candidates(qnbr, qcnt, scnt)
-    splat_in = sum(int(inside.sum()) for _, inside, _, _ in sc._two_set(
-        qnbr, qcnt, f[2:5], scnt, f[6:9], h, int(qcnt.max()), int(scnt.max())))
-    # the splat reads only what its pairs reach: the forward the source rows
-    # that the occupied query rows reach, the adjoint the sources that have a
-    # query in reach and the query rows that the occupied source rows reach
+    qnbr, qstart, qcnt, scnt, h = f[0], f[1], f[2], f[6], f[11]
     rnbr, cs, cq = s[0].long(), scnt.numel() - 1, qcnt.numel() - 1
+    n_src, n_q = int(scnt.sum()), int(qcnt.sum())
+    cand = _candidates(qnbr, qcnt, scnt)
+    ent, row_of = sc.listed_entries(qstart, qcnt, torch.arange(cq, device=qcnt.device))
+    one = torch.ones(len(ent) + 1, dtype=qcnt.dtype, device=qcnt.device)
+    in_radius = sum(int(inside.sum()) for _, inside, _, _ in sc._two_set(
+        qnbr[row_of], one, (f[3][ent, None], f[4][ent, None], f[5][ent, None]), scnt, f[7:10], h,
+        1, int(scnt.max())))
     src_rows = torch.unique(qnbr[qcnt[:-1] > 0].long())
     src_rows = src_rows[src_rows < cs]
     n_src_reached = int(scnt[src_rows].sum())
@@ -1829,39 +1848,67 @@ def phase_c_plans(inp):
     q_rows = q_rows[q_rows < cq]
     n_q_reached = int(qcnt[q_rows].sum())
     n_src_active = splat_bwd_reach(s)[1]
-    print(f"phase C bounds: density {dens_cand} live candidate pairs, {dens_in} in radius (self "
-          f"included); splat {splat_cand} live candidate pairs, {splat_in} in radius; "
-          f"{n_src} live source and {n_q} live query slots; the forward reaches "
-          f"{len(src_rows)} source rows holding {n_src_reached} sources, the adjoint "
-          f"{n_src_active} sources with a query in reach and {len(q_rows)} query rows "
-          f"holding {n_q_reached} queries")
-    table = dc["table"]
-    qtable = 4 * (qcnt.numel() + 27 * qrows + len(src_rows))
-    stable = 4 * (cnt.numel() + 27 * rows + len(q_rows))
+    qrows, srows = int((qcnt[:-1] > 0).sum()), int((scnt[:-1] > 0).sum())
+    counts = dict(cand=cand, in_radius=in_radius, n_src=n_src, n_q=n_q, src_rows=len(src_rows),
+                  n_src_reached=n_src_reached, n_src_active=n_src_active, q_rows=len(q_rows),
+                  n_q_reached=n_q_reached)
+    fwd = (4 * (2 * (cq + 1) + 27 * qrows + len(src_rows)) + 4 * (n_q * 7 + n_src_reached * 6)
+           + 16, 9 * cand + SPLAT_FWD_IN_RADIUS_OPS * in_radius)
+    bwd = (4 * (cs + 1 + 27 * srows + 2 * len(q_rows))
+           + 4 * (n_src_active * 6 + n_q_reached * 7 + n_src * 6),
+           9 * cand + SPLAT_BWD_IN_RADIUS_OPS * in_radius + SPLAT_BWD_SLOT_OPS * n_src)
+    return fwd, bwd, counts
+
+
+def phase_c_plans(inp):
+    """Each phase-C kernel's wrapper, plain version, arguments, bytes and
+    operations at the first fit iteration's inputs (the counts the bounds
+    are made of, printed)."""
+    d = inp["density_fwd"]
+    dc = density_counts(d)
+    fwd, bwd, c = splat_work(inp["splat_fwd"], inp["splat_bwd"])
+    print(f"phase C bounds: density {dc['cand']} live candidate pairs, {dc['in_radius']} in "
+          f"radius (self included); splat {c['cand']} live candidate pairs, {c['in_radius']} in "
+          f"radius; {c['n_src']} live source slots and {c['n_q']} listed queries; the forward "
+          f"reaches {c['src_rows']} source rows holding {c['n_src_reached']} sources, the "
+          f"adjoint {c['n_src_active']} sources with a query in reach and {c['q_rows']} query "
+          f"rows holding {c['n_q_reached']} queries")
     calls = phase_c_calls()
     work = {
-        "density_fwd": (table + 4 * n_src * 4, 9 * dens_cand + DENSITY_IN_RADIUS_OPS * dens_in),
+        "density_fwd": (dc["table"] + 4 * dc["n_src"] * 4,
+                        9 * dc["cand"] + DENSITY_IN_RADIUS_OPS * dc["in_radius"]),
         "density_bwd": density_bwd_work(dc),
-        "splat_fwd": (qtable + 4 * (n_q * 7 + n_src_reached * 6),
-                      9 * splat_cand + SPLAT_FWD_IN_RADIUS_OPS * splat_in),
-        "splat_bwd": (stable + 4 * (n_src_active * 6 + n_q_reached * 7 + n_src * 6),
-                      9 * splat_cand + SPLAT_BWD_IN_RADIUS_OPS * splat_in
-                      + SPLAT_BWD_SLOT_OPS * n_src),
+        "splat_fwd": fwd,
+        "splat_bwd": bwd,
     }
     return {name: (calls[name][0], calls[name][1], inp[name], *work[name]) for name in work}
 
 
+# the kernels of a phase-C C entry that launches more than its own: the
+# forward's entry runs its chunk scan just before it
+ENTRY_KERNELS = {"splat_fwd": ("chunk_ends_kernel", "splat_fwd_kernel")}
+
+
+def entry_device_ms(fn, name):
+    """Device ms per call ``fn`` of phase-C function ``name``: the means per
+    launch of the kernels its C entry launches (``ENTRY_KERNELS``, else its
+    own alone), summed; and the text of each mean with its records."""
+    kernels = ENTRY_KERNELS.get(name, (PHASE_C_KERNELS[name][2],))
+    times = [kernel_device_ms(fn, k) for k in kernels]
+    return sum(t for t, _ in times), "; ".join(
+        f"{k} {t:.4f} ms, {rec} launches recorded" for k, (t, rec) in zip(kernels, times))
+
+
 def time_phase_c_kernels(inp):
-    """Each phase-C kernel's device time, its launch floor (every count 0),
-    its plain version's time and its bound at the first fit iteration's
-    inputs. No single PyTorch call computes these pair sums, so there is no
-    library time."""
+    """Each phase-C kernel's device time a call (``entry_device_ms``), its
+    launch floor (every count 0), its plain version's time and its bound at
+    the first fit iteration's inputs. No single PyTorch call computes these
+    pair sums, so there is no library time."""
     out = {}
     for name, (fn, plain, args, nbytes, ops) in phase_c_plans(inp).items():
-        kernel = PHASE_C_KERNELS[name][2]
-        ms, recorded = kernel_device_ms(lambda: fn(*args), kernel)
+        ms, recorded = entry_device_ms(lambda: fn(*args), name)
         floor_args = launch_floors(name, args)["every count 0"]
-        floor_ms, _ = kernel_device_ms(lambda: fn(*floor_args), kernel)
+        floor_ms, _ = entry_device_ms(lambda: fn(*floor_args), name)
         call_ms = cuda_ms(lambda: fn(*args), iters=50)
         plain_ms = cuda_ms(lambda: plain(*args), iters=3)
         out[name] = dict(ms=ms, recorded=recorded, floor_ms=floor_ms, call_ms=call_ms,
@@ -1967,7 +2014,7 @@ def run_phase_c(dev, model_path):
     metrics = res["metrics"]
     for mm in metrics:
         print(f"phase C frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
-              f"visual {mm['visual']}, {mm['query_drops']} dropped by the splat's query cells")
+              f"visual {mm['visual']}, {mm['query_drops']} dropped by the splat's query list")
     if len(metrics) != n_frames or not all(np.isfinite(mm["loss"]) for mm in metrics):
         _fail("phase C did not give a finite loss for each frame")
     for name in ("state", "visual"):
@@ -1990,9 +2037,16 @@ def run_phase_c(dev, model_path):
     from fluidnexus_torch.ops.neighbors import build_dense_grid
 
     params, st = ctx["params"], inp["state"]
-    splat_at_both_caps("phase C first iteration", build_dense_grid(
-        st.estimate_xyz, params.h, st.alive, params.dense_max_cells, params.dense_cell_capacity),
-        (st.estimate_xyz - st.xyz) / params.secs, inp["visual"].xyz, inp["visual"].alive, params)
+    grid = build_dense_grid(st.estimate_xyz, params.h, st.alive, params.dense_max_cells,
+                            params.dense_cell_capacity)
+    vel = (st.estimate_xyz - st.xyz) / params.secs
+    splat_list_check("phase C first iteration", grid, vel, inp["visual"].xyz,
+                     inp["visual"].alive, params)
+    pile = splat_list_check(f"a pile of {SPLAT_PILE} and {SPLAT_SPREAD} over three cells", grid,
+                            vel, *pile_queries(st, inp["visual"], params), params)
+    if pile["fullest"] < 1000 or pile["dropped"]:
+        _fail(f"the pile check's fullest query row holds {pile['fullest']} (under 1 000) or it "
+              f"dropped {pile['dropped']}")
     small_phase_c_check(dev)
 
     # ---- ms per fit iteration and per frame, from the same saved start
@@ -2030,8 +2084,8 @@ def run_phase_c(dev, model_path):
     for name, tm in times.items():
         b_ms, b_by = tm["bound"]
         source, replaces, _ = PHASE_C_KERNELS[name]
-        print(f"{name}: {tm['ms']:.4f} ms on the card per launch (mean of the {tm['recorded']} "
-              f"launches the profiler recorded; launch floor, every count 0, "
+        print(f"{name}: {tm['ms']:.4f} ms on the card a call ({tm['recorded']}; "
+              f"launch floor, every count 0, "
               f"{tm['floor_ms']:.4f} ms; a wrapper call {tm['call_ms']:.4f} ms; "
               f"plain {tm['plain_ms']:.4f} ms, library none, bound {b_ms:.5f} ms by {b_by}: "
               f"{tm['nbytes']} bytes, {tm['ops']} f32 operations), {launches[name]} launches in "
@@ -4815,8 +4869,20 @@ PAIRS_MUTANTS = {
     "splat_bwd_fd_by_a_product": [
         (SPLAT_SRC, "const float fd = d2 < h2 ? (a.v0", "const float fd = (float)(d2 < h2) * (a.v0"),
         (SPLAT_SRC, "(-3.0f * t2 * t2)\n                               : 0.0f;", "(-3.0f * t2 * t2);")],
-    "splat_fwd_empty_rows_unwritten": [(SPLAT_SRC, "wv4[i] = zero;", ";")],
+    "splat_fwd_unreached_unwritten": [(SPLAT_SRC, "if (live) out[e] = make_float4(a0, a1, a2, aw);",
+                                       "if (live && n_tot > 0) out[e] = make_float4(a0, a1, a2, aw);")],
+    "splat_fwd_entry_nq_unwritten": [(SPLAT_SRC, "threadIdx.x == 0) out[Nq] =",
+                                      "threadIdx.x == 64) out[Nq] =")],
     "splat_fwd_stages_one_short": [(SPLAT_SRC, "c0, n_tot, kn, src, h,", "c0, n_tot - 1, kn, src, h,")],
+    # the query list
+    "splat_list_start_one_off": [(PAIR_SRC, "return h < C ? start[h] : 0;",
+                                  "return h < C ? start[h] + 1 : 0;")],
+    "splat_fwd_start_one_off": [(SPLAT_SRC, "const size_t e = (size_t)qstart[row] + i0 + sub;",
+                                 "const size_t e = (size_t)qstart[row] + 1 + i0 + sub;")],
+    "splat_fwd_scan_drops_the_carry": [(SPLAT_SRC, "carry += warp_sums[31];", ";")],
+    "splat_fwd_skips_a_piles_last_chunk": [
+        (SPLAT_SRC, "const int left = n_c - i0;",
+         "const int left = n_c > SPF_QUERIES && i0 + SPF_QUERIES >= n_c ? 0 : n_c - i0;")],
     # phase 2's body, shared by v3 (row 13), v2 (row 7) and v1 (row 5)
     "phase2_self_by_d2": [(PBF_SRC, "const bool self = c0 + e == ci.self_e;",
                            "const bool self = norm2_rn(__fsub_rn(ci.x, s.x), __fsub_rn(ci.y, s.y), "
@@ -5148,6 +5214,7 @@ PAIRS_LIBS = {name: "splat" if name.startswith("splat") else "pbf" for name in P
 PAIRS_PART = ("pbf_phase2", "pbf_phase2_v2", "pbf_phase2_v1")  # rows with per-row partial sums
 V2_V1_ROWS = ("pbf_phase1_v2", "pbf_phase2_v2", "pbf_phase1_v1", "pbf_phase2_v1")
 SPLAT_CHUNK = 256  # list entries either splat kernel stages at once (csrc/splat.cu)
+SPLAT_EDGES = ((32, 0), (128, 0), (32, 1100))  # (source capacity, queries piled in one cell)
 P1_CHUNK = 256  # list entries phase 1 (v3 and v2) stages at once (csrc/pbf.cu)
 P2_CHUNK = 256  # list entries phase 2 (v3, v2 and v1) stages at once (csrc/pbf.cu)
 PHASE_B, RIGID, PHASE_C = "phase B's first tick", "the rigid inputs", "phase C"
@@ -5327,20 +5394,20 @@ def pairs_time(parent=None):
               f"neighbourhood holds {float(lists.mean()):.1f} live slots on average, at most "
               f"{int(lists.max())}")
         f = inp["splat_fwd"]
-        qnbr, qcnt, scnt = f[0], f[1], f[5]
+        qnbr, qcnt, scnt = f[0], f[2], f[6]
         slists = scnt[qnbr.long()].sum(1)[qcnt[:-1] > 0].float()
-        print(f"row 10's inputs: Cq {qnbr.shape[0]} Mq {f[2].shape[1]}, {int((qcnt[:-1] > 0).sum())} "
-              f"live query rows holding {int(qcnt.sum())} queries (fullest row {int(qcnt.max())}); "
-              f"their source lists {float(slists.mean()):.1f} entries on average, at most "
-              f"{int(slists.max())}; {int((slists == 0).sum())} live query rows have no source in "
-              f"reach")
+        print(f"row 10's inputs: Cq {qnbr.shape[0]}, Nq {f[3].shape[0]}, "
+              f"{int((qcnt[:-1] > 0).sum())} live query rows holding {int(qcnt.sum())} queries "
+              f"(fullest row {int(qcnt.max())}); their source lists {float(slists.mean()):.1f} "
+              f"entries on average, at most {int(slists.max())}; {int((slists == 0).sum())} live "
+              f"query rows have no source in reach")
         s = inp["splat_bwd"]
         rows, sources, qlists = splat_bwd_reach(s)
-        print(f"row 11's inputs: Cs {s[0].shape[0]} Ms {s[2].shape[1]}, Cq {s[6].numel() - 1} Mq "
-              f"{s[7].shape[1]}; {int((s[1][:-1] > 0).sum())} live source rows holding "
-              f"{int(s[1].sum())} sources, {int(s[6].sum())} live queries; {rows} source rows "
-              f"holding {sources} sources have a query in reach, their query lists "
-              f"{float(qlists.mean()):.1f} entries on average, at most {int(qlists.max())}")
+        print(f"row 11's inputs: Cs {s[0].shape[0]} Ms {s[2].shape[1]}, Cq {s[7].numel() - 1}; "
+              f"{int((s[1][:-1] > 0).sum())} live source rows holding {int(s[1].sum())} sources, "
+              f"{int(s[7].sum())} listed queries; {rows} source rows holding {sources} sources "
+              f"have a query in reach, their query lists {float(qlists.mean()):.1f} entries on "
+              f"average, at most {int(qlists.max())}")
         add(PHASE_C, phase_c_plans(inp))
         if pmods:
             time_alone(pmods, "parent alone", PHASE_C)
@@ -5372,6 +5439,12 @@ def pairs_time(parent=None):
             mine, theirs = (with_part(m, name, plan[2], call(m, name, where, plan[2]))
                             for m in (pc if lib == "pbf" else sc,
                                       pmods[lib]))
+            if name == "splat_fwd":  # the listed entries and entry Nq: this one writes no other
+                from tests.torch_helpers import listed_mask
+
+                listed = listed_mask(plan[2][1], plan[2][2], plan[2][3].shape[0])
+                listed[-1] = True
+                mine, theirs = (mine[0][listed],), (theirs[0][listed],)
             diff = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
             same = [bits_equal(a, b) for a, b in zip(mine, theirs)]
             print(f"row {PAIRS_ROWS[name]} {name} at {where} this against the parent: max|diff| "
@@ -5445,12 +5518,14 @@ def pairs_checks(dev):
     into NaN-filled blocks: the density pair at M = 32 and M = 128 over seeded points with
     full rows and one isolated point, whose 26 neighbour cells are empty (its
     pi must be the plain version's bit for bit: the self term alone); the
-    splat adjoint at (Ms, Mq) = (32, 32) and (128, 128) with full query rows,
-    query lists that span several staged chunks, and source rows with no
-    query in reach, which must read exactly 0, as must row Cs; the splat
-    forward at the same capacities with full source rows whose lists span
-    several chunks and query rows with no source in reach, which must read
-    exactly 0, as must row Cq; phase 2 at M = 32 and M = 128, at e_p 4 and
+    splat adjoint at source capacities 32 and 128 and with a pile of 1 100
+    queries in one cell (SPLAT_EDGES), with full source rows, query lists
+    that span several staged chunks, and source rows with no query in
+    reach, which must read exactly 0, as must row Cs; the splat forward at
+    the same cases with full source rows whose lists span several chunks,
+    query rows of two or more 32-query work items (the pile's 36), and over
+    1 024 query rows (two tiles of the work items' scan) with no source in
+    reach, whose queries must read exactly 0, as must entry Nq; phase 2 at M = 32 and M = 128, at e_p 4 and
     2.5, over the density's grid with two live particles at one position in
     one row (a non-self pair at d2 = 0), whose isolated point must keep its
     coordinates bit for bit (its update is exactly 0), and phase 2 v2 there
@@ -5467,7 +5542,7 @@ def pairs_checks(dev):
     from fluidnexus_torch.sim import splat_cuda as sc
     from tests.torch_helpers import (
         coincident_pairs_grid, graded_rows_grid, isolated_point_grid, phase1_against_the_walk,
-        splat_edge_grids, splat_fwd_edge_grids,
+        splat_edge_args, splat_fwd_edge_args,
     )
 
     failures = []
@@ -5491,37 +5566,42 @@ def pairs_checks(dev):
               f"{float(pi):.9g}, plain {float(want):.9g}, bit for bit {bits_equal(pi, want)}")
         if not (full and alone and bits_equal(pi, want)):
             failures.append(f"M {m}: the full row or the isolated point")
-    for ms, mq in ((32, 32), (128, 128)):
-        planes, qplanes, rnbr, vel, p, q = splat_edge_grids(ms, mq, dev, seed=ms + mq)
-        args = (rnbr, *planes, vel, *qplanes, p, q, 1.0)
-        what = f"pairs check, (Ms, Mq) = ({ms}, {mq})"
-        failures += [f"({ms}, {mq}): {f}" for f in held_in_nan_blocks("splat_bwd", args, what)[1]]
-        scnt, qcnt = planes[0], qplanes[0]
-        lists = qcnt[rnbr.long()].sum(1)
+    for ms, pile in SPLAT_EDGES:
+        args = splat_edge_args(ms, pile, dev, seed=ms + pile)
+        what = f"pairs check, splat adjoint Ms {ms}, pile {pile}"
+        failures += [f"({ms}, {pile}): {f}" for f in held_in_nan_blocks("splat_bwd", args, what)[1]]
+        scnt, qcnt = args[1], args[7]
+        lists = qcnt[args[0].long()].sum(1)
         none = torch.nonzero((lists == 0) & (scnt[:-1] > 0))[:, 0]
         gx, gv = sc.splat_bwd_slots(*args)
         zero = not bool(gx[none].any() or gv[none].any())
         chunked = int(lists.max()) > SPLAT_CHUNK
         print(f"{what}: {len(none)} live source rows with no query in reach, all 0: {zero}; a "
-              f"full query row {bool((qcnt == mq).any())}; the longest query list "
-              f"{int(lists.max())} entries (more than one chunk of {SPLAT_CHUNK}: {chunked})")
-        if not (len(none) > 0 and zero and chunked and bool((qcnt == mq).any())):
-            failures.append(f"({ms}, {mq}): the rows with no query in reach or the lists")
-        qnbr, qplanes, planes, vel = splat_fwd_edge_grids(ms, mq, dev, seed=ms + mq + 2)
-        args = (qnbr, *qplanes, *planes, vel, 1.0)
-        what = f"pairs check, splat forward (Ms, Mq) = ({ms}, {mq})"
-        failures += [f"fwd ({ms}, {mq}): {f}" for f in held_in_nan_blocks("splat_fwd", args, what)[1]]
-        qcnt, scnt = qplanes[0], planes[0]
+              f"full source row {bool((scnt == ms).any())}; the fullest query row {int(qcnt.max())}; "
+              f"the longest query list {int(lists.max())} entries (more than one chunk of "
+              f"{SPLAT_CHUNK}: {chunked})")
+        if not (len(none) > 0 and zero and chunked and int(qcnt.max()) > pile):
+            failures.append(f"({ms}, {pile}): the rows with no query in reach or the lists")
+        args = splat_fwd_edge_args(ms, pile, dev, seed=ms + pile + 2)
+        what = f"pairs check, splat forward Ms {ms}, pile {pile}"
+        failures += [f"fwd ({ms}, {pile}): {f}" for f in held_in_nan_blocks("splat_fwd", args, what)[1]]
+        qnbr, qstart, qcnt, scnt = args[0], args[1], args[2], args[6]
         lists = scnt[qnbr.long()].sum(1)
-        none = torch.nonzero((lists == 0) & (qcnt[:-1] > 0))[:, 0]
-        wv, ws = sc.splat_fwd_slots(*args)
-        zero = not bool(wv[none].any() or ws[none].any() or wv[-1].any() or ws[-1].any())
+        none = (lists == 0) & (qcnt[:-1] > 0)
+        ent, _ = sc.listed_entries(qstart, qcnt, torch.nonzero(none).flatten())
+        out = sc.splat_fwd_slots(*args)
+        zero = not bool(out[ent].any() or out[-1].any())
         chunked = int(lists.max()) > SPLAT_CHUNK
-        print(f"{what}: {len(none)} live query rows with no source in reach and row Cq, all 0: "
-              f"{zero}; a full source row {bool((scnt == ms).any())}; the longest source list "
-              f"{int(lists.max())} entries (more than one chunk of {SPLAT_CHUNK}: {chunked})")
-        if not (len(none) > 0 and zero and chunked and bool((scnt == ms).any())):
-            failures.append(f"fwd ({ms}, {mq}): the rows with no source in reach or the lists")
+        rows = int((qcnt > 0).sum())
+        print(f"{what}: {len(ent)} listed queries of {int(none.sum())} rows with no source in "
+              f"reach and entry Nq, all 0: {zero}; a full source row {bool((scnt == ms).any())}; "
+              f"{rows} occupied query rows (past one tile of 1 024 of the work items' scan: "
+              f"{rows > 1024}), the fullest {int(qcnt.max())} ({-(-int(qcnt.max()) // 32)} work "
+              f"items); the longest source list {int(lists.max())} entries (more than one chunk "
+              f"of {SPLAT_CHUNK}: {chunked})")
+        if not (len(ent) > 0 and zero and chunked and int(qcnt.max()) > max(32, pile)
+                and rows > 1024):
+            failures.append(f"fwd ({ms}, {pile}): the rows with no source in reach or the lists")
     for m, e_p in ((32, 4.0), (32, 2.5), (128, 4.0), (128, 2.5)):
         # epsilon 1e-2: a pair at d2 = 0 has cg ~ eps^-1/2, whose terms the
         # update's sums then cancel; at the default 1e-8 the comparison would
@@ -8360,7 +8440,7 @@ def run_scalar(dev, root):
     for mm in metrics:
         print(f"scalar stage 2 frame {mm['frame']}: loss {mm['loss']:.6f} hidden {mm['hidden']} "
               f"visual {mm['visual']} held-out l1 {mm.get('l1', float('nan')):.4f} psnr "
-              f"{mm.get('psnr', float('nan')):.3f}; the splat's query cells dropped "
+              f"{mm.get('psnr', float('nan')):.3f}; the splat's query list dropped "
               f"{mm['query_drops']} visual particles")
     if [mm["frame"] for mm in metrics] != list(range(1, SCALAR_FRAMES)) or not all(
             np.isfinite(mm["loss"]) for mm in metrics):
@@ -8391,9 +8471,9 @@ def run_scalar(dev, root):
     from fluidnexus_torch.ops.neighbors import build_dense_grid
 
     st, pr = res["state"], res["params"]
-    splat_at_both_caps(f"scalar stage 2 frame {20 + SCALAR_FRAMES - 1}", build_dense_grid(
+    splat_list_check(f"scalar stage 2 frame {20 + SCALAR_FRAMES - 1}", build_dense_grid(
         st.estimate_xyz, pr.h, st.alive, pr.dense_max_cells, pr.dense_cell_capacity),
-        st.velocity, res["visual"].xyz, res["visual"].alive, pr, need_pile=True)
+        st.velocity, res["visual"].xyz, res["visual"].alive, pr)
     fit_ms = [s.elapsed_time(e) / k for s, e, k in fits]
     tick_ms = [s.elapsed_time(e) for s, e, _ in ticks]
     print(f"scalar stage 2: ms a fit iteration a frame {', '.join(f'{v:.3f}' for v in fit_ms)} "
@@ -8497,60 +8577,80 @@ FULL_SCALE_OUT = "runs/full_scale_torch"
 ORBIT_FRAMES = 12             # render_orbit's --frames, cut from its 60
 ORBIT_SPLATS = 32768
 DEMO_FIT_STEPS = 201
+SPLAT_PILE = 1100             # queries piled in one cell of h by ``pile_queries``
+SPLAT_SPREAD = 600            # and spread over the three cells past it
 
 
-def splat_args_at(grid, vel, points, alive, params, mq):
+def splat_args_at(grid, vel, points, alive, params):
     """The two splat kernels' arguments as ``sim/pbf._splat_delta`` makes
-    them, with the queries ``points`` binned at ``mq`` slots a cell over the
-    source ``grid``; the adjoint's p and q from a seeded cotangent (the
-    pairs, not the values, set its time). Returns (qgrid, forward args,
+    them, the queries ``points`` as a ``sort_queries`` list over the source
+    ``grid``; the adjoint's p and q from a seeded cotangent (the pairs, not
+    the values, set its time). Returns (the query list, forward args,
     adjoint args)."""
-    from fluidnexus_torch.ops.neighbors import bin_queries, slot_gather
+    from fluidnexus_torch.ops.neighbors import slot_gather, sort_queries
     from fluidnexus_torch.sim import pbf_cuda as pc
 
-    qgrid, rnbr = bin_queries(grid, params.h, points, alive, params.dense_max_cells, mq)
-    planes, qplanes = pc.planes(grid), pc.planes(qgrid)
+    ql = sort_queries(grid, params.h, points, alive, params.dense_max_cells)
+    planes = pc.planes(grid)
     vel_s = slot_gather(grid, vel).contiguous()
     gen = torch.Generator(device=points.device).manual_seed(SEED)
-    pq = torch.randn((points.shape[0], 4), generator=gen, device=points.device) * alive[:, None]
-    pq_s = slot_gather(qgrid, pq)
-    return (qgrid, (qgrid.nbr, *qplanes, *planes, vel_s, params.h),
-            (rnbr, *planes, vel_s, *qplanes, pq_s[..., :3].contiguous(),
-             pq_s[..., 3].contiguous(), params.h))
+    pq = (torch.randn((points.shape[0], 4), generator=gen, device=points.device)
+          * alive[:, None])[ql.order]
+    lst = (ql.start, ql.cnt, ql.x, ql.y, ql.z)
+    return (ql, (ql.nbr, *lst, *planes, vel_s, params.h),
+            (ql.rnbr, *planes, vel_s, *lst, pq[:, :3].contiguous(), pq[:, 3].contiguous(),
+             params.h))
 
 
-def splat_at_both_caps(what, grid, vel, points, alive, params, need_pile=False):
-    """Rows 10 and 11 at ``what``'s inputs with the query cells at
-    ``dense_cell_capacity`` slots (the sources' capacity, which the queries
-    were binned at before) and at
-    ``splat_cuda.MAX_M`` (the path's since): the fullest query cell, the
-    live queries dropped and both kernels' device times at each; at MAX_M
-    both held against their plain versions in NaN-filled blocks. With
-    ``need_pile`` it fails unless a query cell holds more than
-    ``dense_cell_capacity``. Returns {mq: (forward ms, adjoint ms, fullest,
-    dropped)}."""
+def pile_queries(state, visual, params, n_pile=SPLAT_PILE, n_spread=SPLAT_SPREAD):
+    """``visual``'s live points and two seeded piles inside the hidden cloud
+    of ``state`` (its estimates): ``n_pile`` queries in one cell of h, the
+    cell of the live hidden particle nearest their mean, and ``n_spread``
+    over the three cells past it along x. Returns (points, alive)."""
+    est = state.estimate_xyz[state.alive]
+    h = params.h
+    near = est[torch.argmin(((est - est.mean(0)) ** 2).sum(1))]
+    cell = torch.floor(near / h)
+    gen = torch.Generator(device=est.device).manual_seed(SEED + 1)
+    u = lambda n: torch.rand((n, 3), generator=gen, device=est.device)  # noqa: E731
+    pile = (cell + 0.1 + 0.8 * u(n_pile)) * h
+    spread = cell + 0.1 + 0.8 * u(n_spread)
+    spread[:, 0] = cell[0] + 1.0 + 2.9 * u(n_spread)[:, 0]
+    pts = torch.cat([visual.xyz[visual.alive], pile, spread * h])
+    return pts, torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+
+
+def splat_list_check(what, grid, vel, points, alive, params):
+    """Rows 10 and 11 at ``what``'s inputs (the queries ``points`` over the
+    source ``grid``, ``splat_args_at``): the query list's rows, fullest row
+    and drops (cells past ``dense_max_cells``), the adjoint's longest query
+    list; both kernels held against their plain versions in NaN-filled
+    blocks (``held_in_nan_blocks``), their device times (``entry_device_ms``:
+    a call's kernels, the forward's chunk scan included) and bounds. Returns
+    {forward ms, adjoint ms, fullest, dropped}."""
     from fluidnexus_torch.sim import splat_cuda as sc
 
-    out, n_live = {}, int(alive.sum())
-    for mq in (params.dense_cell_capacity, sc.MAX_M):
-        qgrid, fwd, bwd = splat_args_at(grid, vel, points, alive, params, mq)
-        f_ms, _ = kernel_device_ms(lambda: sc.splat_fwd_slots(*fwd),
-                                   PHASE_C_KERNELS["splat_fwd"][2])
-        b_ms, _ = kernel_device_ms(lambda: sc.splat_bwd_slots(*bwd),
-                                   PHASE_C_KERNELS["splat_bwd"][2])
-        out[mq] = (f_ms, b_ms, int(fwd[1].max()), int(qgrid.overflow))
-        print(f"{what}: query cells of {mq} slots: fullest {out[mq][2]}, {out[mq][3]} of {n_live} "
-              f"live queries dropped; splat_fwd {f_ms:.4f} ms, splat_bwd {b_ms:.4f} ms on the "
-              f"card (profiler, mean a launch)")
-    if need_pile and out[sc.MAX_M][2] <= params.dense_cell_capacity:
-        _fail(f"{what}: no query cell holds more than {params.dense_cell_capacity} queries, so "
-              f"the kernels are not held at a cell past the old capacity")
+    ql, fwd, bwd = splat_args_at(grid, vel, points, alive, params)
+    lists = ql.cnt[ql.rnbr.long()].sum(1)
+    n_live = int(alive.sum())
+    out = dict(fullest=int(ql.cnt.max()), dropped=int(ql.overflow))
+    print(f"{what}: the query list: {int((ql.cnt > 0).sum())} occupied rows, fullest "
+          f"{out['fullest']} ({-(-out['fullest'] // sc.FWD_QUERIES)} forward work items), "
+          f"{int(ql.start[-1])} of {n_live} live queries listed, {out['dropped']} dropped "
+          f"(cells past {params.dense_max_cells}); the adjoint's longest query list "
+          f"{int(lists.max())} entries")
     failures = []
     for name, args in (("splat_fwd", fwd), ("splat_bwd", bwd)):
-        failures += held_in_nan_blocks(name, args, f"{what} at Mq {sc.MAX_M}")[1]
+        failures += held_in_nan_blocks(name, args, what)[1]
     if failures:
-        _fail(f"{what}: the splat kernels at Mq {sc.MAX_M} disagree with their plain versions: "
-              f"{failures}")
+        _fail(f"{what}: the splat kernels disagree with their plain versions: {failures}")
+    (fb, fo), (bb, bo), _ = splat_work(fwd, bwd)
+    for name, args, nbytes, ops in (("splat_fwd", fwd, fb, fo), ("splat_bwd", bwd, bb, bo)):
+        ms, rec = entry_device_ms(lambda: phase_c_calls()[name][0](*args), name)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        out[name] = ms
+        print(f"{what}: {name} {ms:.4f} ms a call on the card ({rec}), bound {b_ms:.6f} ms "
+              f"by {b_by}")
     return out
 
 
@@ -8709,9 +8809,16 @@ def full_scale_only(frames=FULL_SCALE_FRAMES):
     """``python3 chip_smoke.py full-scale [FRAMES]``: the reference-scale
     tool on the card at the reference's counts (1 000 + 1 000 fit iterations
     at 960 x 544, --hidden_delta 0.01), FRAMES frames of its 120, into
-    FULL_SCALE_OUT; prints its log and its RUN.md, and fails unless every
-    frame gave a finite loss."""
+    FULL_SCALE_OUT; prints its log and its RUN.md and, at each frame's
+    commit, the fullest query cell, the live queries past the 128th of their
+    cell (the slots a cell the query grid had before the query list) and how
+    many of those have a hidden source in reach (ws >= eps: they move now);
+    fails unless every frame gave a finite loss, or if any query was dropped
+    or any capacity overflow was reported."""
     from fluidnexus_torch.ops import cuda_build
+    from fluidnexus_torch.ops.neighbors import build_dense_grid
+    from fluidnexus_torch.pipelines import train_physical_particle as tp
+    from fluidnexus_torch.sim import pbf as tpbf
     from fluidnexus_torch.tools import run_full_scale_recon as fs
 
     if not torch.cuda.is_available():
@@ -8719,14 +8826,50 @@ def full_scale_only(frames=FULL_SCALE_FRAMES):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     cuda_build.build(["rasterizer", "pbf", "splat"])
-    res = fs.main(["--frames", str(frames), "--out", FULL_SCALE_OUT])
+    commit, seen = tp.commit_frame, []
+
+    def reporting_commit(params, state, visual, exyz_nn):
+        with torch.no_grad():
+            est = exyz_nn * params.scale_factor
+            grid = build_dense_grid(est, params.h, state.alive, params.dense_max_cells,
+                                    params.dense_cell_capacity)
+            _, ws, dropped, (_, ql, _, _) = tpbf._splat_delta(
+                grid, (est - state.xyz) / params.secs, visual.xyz, visual.alive, params)
+            listed = ql.pos < ql.pos.shape[0]
+            rank = ql.pos - ql.start[ql.prow.clamp(max=ql.max_cells - 1).long()]
+            past = listed & (rank >= 128)
+            moved = past & (ws >= params.epsilon)
+            row = [len(seen) + 1, int(ql.cnt.max()), int(past.sum()), int(moved.sum()),
+                   int(dropped), int(visual.alive.sum())]
+        seen.append(row)
+        print(f"full-scale frame {row[0]} commit: fullest query cell {row[1]}; {row[2]} live "
+              f"queries past the 128th of their cell, {row[3]} of them with a hidden source in "
+              f"reach (ws >= eps: moved now, left still at 128 slots a cell); {row[4]} dropped "
+              f"of {row[5]} live", flush=True)
+        return commit(params, state, visual, exyz_nn)
+
+    tp.commit_frame = reporting_commit
+    try:
+        res = fs.main(["--frames", str(frames), "--out", FULL_SCALE_OUT])
+    finally:
+        tp.commit_frame = commit
     metrics = res["metrics"]
     if len(metrics) != frames - 1 or not all(np.isfinite(mm["loss"]) for mm in metrics):
         _fail(f"the full-scale run completed {len(metrics)} of {frames - 1} frames")
+    for mm in metrics:
+        print(f"full-scale frame {mm['frame']}: loss {mm['loss']:.6f} held-out psnr "
+              f"{mm.get('psnr', float('nan')):.3f} visual {mm['visual']} hidden {mm['hidden']} "
+              f"query drops {mm['query_drops']}")
+    print(f"full-scale frames past 128 in a cell: {sum(1 for r in seen if r[2])} of {len(seen)}; "
+          f"queries past the 128th, summed over the frames {sum(r[2] for r in seen)}, with a "
+          f"source in reach {sum(r[3] for r in seen)}; the last frame {seen[-1] if seen else None}")
+    drops = [mm["query_drops"] for mm in metrics]
+    if any(drops) or any(r[4] for r in seen) or res["overflow_lines"]:
+        _fail(f"the full-scale run dropped queries ({drops}) or reported "
+              f"{res['overflow_lines']} capacity overflows")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
-
 
 
 if __name__ == "__main__":

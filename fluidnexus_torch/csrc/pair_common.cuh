@@ -10,7 +10,7 @@
 
 namespace fnx {
 
-constexpr int MAX_M = 128;   // slots per cell row: at most four warps a block
+constexpr int MAX_M = 128;   // slots per cell row of a grid: at most four warps a block
 constexpr int SELF_J = 13;   // the (0, 0, 0) neighbour offset
 
 // The offset of neighbour j along one axis, times h (exactly -h, 0 or h);
@@ -34,10 +34,10 @@ inline int threads_for(int M) { return (M + 31) / 32 * 32; }
 // live slots of its 27 neighbour rows, in neighbour order and then slot
 // order, form one list of n_tot entries: slot s of neighbour j is entry
 // pre_j + s, pre_j the live slots of the neighbours before j. load_nbr_table
-// reads the 27 neighbours' handles and then their counts from a source (Src,
-// below), each with every load of the group in flight at once (two round
-// trips in all, not two for each neighbour; one where the handles need no
-// load), and keeps handles, counts and list offsets in shared memory.
+// reads the 27 neighbours' handles and then their counts and bases from a
+// source (Src, below), each with every load of the group in flight at once
+// (two round trips in all, not two for each neighbour; one where the handles
+// need no load), and keeps bases, counts and list offsets in shared memory.
 // stage_chunk copies the entries [c0, c0 + CH) into shared memory as float4
 // (x + shift, y + shift, z + shift, w), w a fourth per-slot plane or 0
 // (Extra), and where asked a second float4 list (v0, v1, v2, 0) of a
@@ -60,7 +60,7 @@ constexpr int GROUP_ROWS = GROUP_WARPS * 32 / GROUP_LANES;  // rows a block
 static_assert(GROUP_LANES * GROUP_CPL == 32, "a pass covers 32 centre slots");
 
 struct NbrTable {
-  int nb[27];   // the neighbours' handles (Src)
+  int nb[27];   // the neighbours' bases (Src::base of their handles)
   int n[27];    // their live slots, 0 where there is none
   int pre[27];  // their first entry in the list
 };
@@ -74,11 +74,12 @@ __host__ __device__ constexpr bool loads_w(Extra X) { return X == W_PLANE || X =
 __host__ __device__ constexpr bool loads_vec3(Extra X) { return X == W_VEC3 || X == VEC3; }
 
 // The sources a group's list is staged from. Each names neighbour j of a row
-// by a handle, gives the live count behind it and loads its slot s.
-// PlaneSource, the default, is every kernel's but phases 1 and 2 v1's: the
-// handle is the neighbour's row, read from nbr (C where there is none), and
-// slot s lies at h * M + s of the (C+1, M) planes x, y, z (w, v3 where the
-// Extra loads them), whose counts are cnt.
+// by a handle, gives the live count behind it and the base that load reads
+// its slot s at (the handle itself where that needs no load).
+// PlaneSource, the default, is every kernel's but phases 1 and 2 v1's and
+// the splat's query side: the handle is the neighbour's row, read from nbr
+// (C where there is none), and slot s lies at h * M + s of the (C+1, M)
+// planes x, y, z (w, v3 where the Extra loads them), whose counts are cnt.
 struct PlaneSource {
   static constexpr bool GATHERED = false;
   const int* nbr;
@@ -90,6 +91,7 @@ struct PlaneSource {
     return active ? nbr[(size_t)row * 27 + j] : C;
   }
   __device__ __forceinline__ int count(int h) const { return h < C ? cnt[h] : 0; }
+  __device__ __forceinline__ int base(int h) const { return h; }
   __device__ __forceinline__ bool is_self(int h, int row) const { return h == row; }
   template <Extra X>
   __device__ __forceinline__ void load(int h, int s, float4& v, float4& u) const {
@@ -116,6 +118,7 @@ struct GatheredSource {
     return active ? row * 27 + j : -1;
   }
   __device__ __forceinline__ int count(int h) const { return h >= 0 ? ncnt[h] : 0; }
+  __device__ __forceinline__ int base(int h) const { return h; }
   __device__ __forceinline__ bool is_self(int h, int) const { return h >= 0; }
   template <Extra X>
   __device__ __forceinline__ void load(int h, int s, float4& v, float4&) const {
@@ -125,7 +128,34 @@ struct GatheredSource {
   }
 };
 
-// Fills tab for centre row `row` (nothing where !active) and returns n_tot
+// ListSource, the splat's query side (ops/neighbors.QueryList): one list of
+// points sorted by cell, row h's points at entries start[h] .. start[h] +
+// cnt[h] - 1, any number of them. The handle is the neighbour's row, read
+// from nbr (C where there is none), and its base its first entry, start[h],
+// loaded beside its count, so a staged entry costs the (N,) planes' loads
+// alone: x, y, z and, where the Extra loads them, w and v3 ((N, 3)).
+struct ListSource {
+  static constexpr bool GATHERED = false;
+  const int* nbr;
+  const int* start;
+  const int* cnt;
+  const float *x, *y, *z, *w, *v3;
+  int C;
+
+  __device__ __forceinline__ int handle(int row, int j, bool active) const {
+    return active ? nbr[(size_t)row * 27 + j] : C;
+  }
+  __device__ __forceinline__ int count(int h) const { return h < C ? cnt[h] : 0; }
+  __device__ __forceinline__ int base(int h) const { return h < C ? start[h] : 0; }
+  template <Extra X>
+  __device__ __forceinline__ void load(int b, int s, float4& v, float4& u) const {
+    const size_t at = (size_t)b + s;
+    v = make_float4(x[at], y[at], z[at], loads_w(X) ? w[at] : 0.0f);
+    if constexpr (loads_vec3(X)) u = make_float4(v3[3 * at], v3[3 * at + 1], v3[3 * at + 2], 0.0f);
+  }
+};
+
+// Fills tab for centre row `row` (no neighbour where !active) and returns n_tot
 // to every lane of the group; sub is the lane's place in its group, and lane
 // sub reads the neighbours sub * PER .. sub * PER + PER - 1, so a scan across
 // the group gives each its list offset. Every lane of the warp calls it.
@@ -143,6 +173,7 @@ __device__ __forceinline__ int load_nbr_table(NbrTable& tab, const Src& src, int
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     n[q] = src.count(nb[q]);
+    nb[q] = src.base(nb[q]);
     mine += n[q];
   }
   int incl = mine;  // inclusive scan over the group's lanes
@@ -170,7 +201,8 @@ __device__ __forceinline__ int load_nbr_table(NbrTable& tab, const Src& src, int
 // for W_VEC3 and VEC3), then far entries up to dst[fill - 1] (fill <= CH).
 // Lane sub takes the entries c0 + sub + L m: for each it finds the neighbour
 // j (the last whose pre_j <= e, a five-step search of the table), loads its
-// slot's planes with every load of ROUND entries in flight, adds the shift
+// slot's planes (slot e - pre_j at base nb_j) with every load of ROUND
+// entries in flight, adds the shift
 // and stores the float4s. Every lane of the warp calls it.
 template <int L, int CH, int ROUND, Extra X = W_PLANE, class Src>
 __device__ __forceinline__ void stage_chunk(float4* dst, const NbrTable& tab, int c0, int n_tot,

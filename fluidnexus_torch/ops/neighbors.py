@@ -4,7 +4,8 @@ Two structures, both plain torch (the JAX package leaves them to XLA too):
 the padded lists of ``radius_graph`` and ``radius_query`` and the compacted
 ``DenseGrid`` that the pair kernels walk (``build_dense_grid``,
 ``bin_queries`` for a second point set on the same lattice, ``slot_gather``,
-``point_gather``).
+``point_gather``), and ``sort_queries``, the second set as one cell-sorted
+``QueryList`` with no capacity a cell, which the splat kernels take.
 
 The padded lists keep the JAX grid's exact semantics, so both packages keep
 the same neighbors:
@@ -217,15 +218,30 @@ def bin_queries(grid: DenseGrid, r, y, alive_y, max_cells, capacity):
     return qgrid._replace(nbr=nbr_q), rnbr
 
 
-def _compact_bins(x, r, alive, origin, max_cells, capacity, self_join) -> DenseGrid:
-    """The JAX package's ``_compact_bins``. The stable sort, the f32 corner
-    arithmetic and ``bxyz = xs - corner`` keep its order, so the tables and
-    the cell-relative coordinates are the same bit for bit. Points per cell
-    come from a bincount and the join from a binary search, where the JAX
-    package compares densely for the TPU. Without ``self_join`` every
-    ``nbr`` entry is C (``bin_queries`` joins against another table)."""
+class _CellSort(NamedTuple):
+    """The points sorted by packed cell id, the first ``C`` occupied cells
+    compacted to rows (see ``_sort_cells``)."""
+
+    order: torch.Tensor     # (N,) sorted position -> point
+    xs: torch.Tensor        # (N, 3) the points in sorted order
+    rank: torch.Tensor      # (N,) a sorted point's place in its cell
+    keep_row: torch.Tensor  # (N,) the sorted point is live and its cell has a row
+    crank: torch.Tensor     # (N,) its cell's row (C for none)
+    npts: torch.Tensor      # (C,) live points per row
+    starts0: torch.Tensor   # (C,) a row's first sorted position
+    ucid: torch.Tensor      # (C,) int32 packed cell id per row (_GRID_SENT unused)
+    corner: torch.Tensor    # (C, 3) a row's cell corner
+    past_c: torch.Tensor    # () live points in cells past C
+
+
+def _sort_cells(x, r, alive, origin, max_cells) -> _CellSort:
+    """The JAX package's ``_compact_bins`` up to its tables: the stable sort
+    by packed cell id (dead points last), each point's rank in its cell, the
+    compacted rows of the first ``max_cells`` occupied cells in ascending
+    cell id and their f32 corners. Points per cell come from a bincount,
+    where the JAX package compares densely for the TPU."""
     n = x.shape[0]
-    C, M = max_cells, capacity
+    C = max_cells
     dev = x.device
     cc = torch.clamp(torch.floor(x / r).to(torch.int32) - origin, 0, 1023)
     cid = cc[:, 0] + (cc[:, 1] << 10) + (cc[:, 2] << 20)
@@ -233,40 +249,110 @@ def _compact_bins(x, r, alive, origin, max_cells, capacity, self_join) -> DenseG
 
     order = torch.argsort(cid, stable=True)
     cids = cid[order]
-    xs = x[order]
     iota_n = torch.arange(n, device=dev)
     head = torch.ones((n,), dtype=torch.bool, device=dev)
     head[1:] = cids[1:] != cids[:-1]
     rank = iota_n - torch.cummax(torch.where(head, iota_n, 0), 0).values
     live = cids < _GRID_SENT
     crank_raw = torch.cumsum((rank == 0) & live, 0) - 1
-    crank = torch.where(live & (crank_raw < C), crank_raw, C)
+    keep_row = live & (crank_raw < C)
+    crank = torch.where(keep_row, crank_raw, C)
 
     npts = torch.bincount(crank, minlength=C + 1)[:C]
     starts0 = torch.cumsum(npts, 0) - npts
     ucid = torch.where(npts > 0, cids[starts0.clamp(max=n - 1)], _GRID_SENT).to(torch.int32)
-
-    slot = torch.arange(M, device=dev)
-    posg = (starts0[:, None] + slot[None, :]).clamp(max=n - 1)
-    slotv = slot[None, :] < npts.clamp(max=M)[:, None]
     ucorner = torch.stack([ucid & 1023, (ucid >> 10) & 1023, ucid >> 20], -1)
     corner = (ucorner + origin[None, :]).to(x.dtype) * r
-    bidx = torch.where(slotv, order[posg], -1).to(torch.int32)
-    bxyz = (xs[posg] - corner[:, None, :]) * slotv[..., None]
+    return _CellSort(order=order, xs=x[order], rank=rank, keep_row=keep_row, crank=crank,
+                     npts=npts, starts0=starts0, ucid=ucid, corner=corner,
+                     past_c=(live & ~keep_row).sum())
+
+
+def _compact_bins(x, r, alive, origin, max_cells, capacity, self_join) -> DenseGrid:
+    """The JAX package's ``_compact_bins``. The stable sort, the f32 corner
+    arithmetic and ``bxyz = xs - corner`` keep its order, so the tables and
+    the cell-relative coordinates are the same bit for bit. The join comes
+    from a binary search, where the JAX package compares densely for the
+    TPU. Without ``self_join`` every ``nbr`` entry is C (``bin_queries``
+    joins against another table)."""
+    n = x.shape[0]
+    C, M = max_cells, capacity
+    dev = x.device
+    cs = _sort_cells(x, r, alive, origin, C)
+    slot = torch.arange(M, device=dev)
+    posg = (cs.starts0[:, None] + slot[None, :]).clamp(max=n - 1)
+    slotv = slot[None, :] < cs.npts.clamp(max=M)[:, None]
+    bidx = torch.where(slotv, cs.order[posg], -1).to(torch.int32)
+    bxyz = (cs.xs[posg] - cs.corner[:, None, :]) * slotv[..., None]
     bidx = torch.cat([bidx, torch.full((1, M), -1, dtype=torch.int32, device=dev)], 0)
     bxyz = torch.cat([bxyz, torch.zeros((1, M, 3), dtype=x.dtype, device=dev)], 0)
     bmask = torch.cat([slotv, torch.zeros((1, M), dtype=torch.bool, device=dev)], 0)
-    overflow = (npts - M).clamp(min=0).sum() + (live & (crank_raw >= C)).sum()
+    overflow = (cs.npts - M).clamp(min=0).sum() + cs.past_c
 
-    keep = live & (rank < M) & (crank_raw < C)
+    keep = cs.keep_row & (cs.rank < M)
     prow = torch.empty((n,), dtype=torch.int32, device=dev)
     pcol = torch.empty((n,), dtype=torch.int32, device=dev)
-    prow[order] = torch.where(keep, crank, C).to(torch.int32)
-    pcol[order] = torch.where(keep, rank.clamp(max=M - 1), 0).to(torch.int32)
-    nbr = (_cell_join(ucid, ucid, C) if self_join
+    prow[cs.order] = torch.where(keep, cs.crank, C).to(torch.int32)
+    pcol[cs.order] = torch.where(keep, cs.rank.clamp(max=M - 1), 0).to(torch.int32)
+    nbr = (_cell_join(cs.ucid, cs.ucid, C) if self_join
            else torch.full((C, 27), C, dtype=torch.int32, device=dev))
     return DenseGrid(bidx=bidx, bxyz=bxyz, bmask=bmask, nbr=nbr,
-                     prow=prow, pcol=pcol, overflow=overflow, origin=origin, ucid=ucid)
+                     prow=prow, pcol=pcol, overflow=overflow, origin=origin, ucid=cs.ucid)
+
+
+class QueryList(NamedTuple):
+    """A second point set (the queries) on a source grid's lattice as one
+    list sorted by cell, for the two-set splat kernels: the live queries of
+    the first ``max_cells`` occupied cells, compacted to rows in ascending
+    cell id, sit in list entries ``start[row] .. start[row] + cnt[row] - 1``,
+    lowest point index first; no cell has a capacity. Entries past
+    ``start[Cq]`` hold the queries of no row (dead ones, and live ones in
+    cells past ``max_cells``), which no kernel reads."""
+
+    order: torch.Tensor     # (Nq,) int64 list entry -> point
+    start: torch.Tensor     # (Cq+1,) int32 a row's first entry; start[Cq] = the listed queries
+    cnt: torch.Tensor       # (Cq+1,) int32 a row's queries; cnt[Cq] = 0
+    x: torch.Tensor         # (Nq,) f32 cell-relative coordinates in list order (0 past start[Cq])
+    y: torch.Tensor
+    z: torch.Tensor
+    prow: torch.Tensor      # (Nq,) int32 point -> row (Cq = none)
+    pos: torch.Tensor       # (Nq,) int64 point -> list entry (Nq = none)
+    nbr: torch.Tensor       # (Cq, 27) int32 a query row's 27 source rows (C_src = none)
+    rnbr: torch.Tensor      # (C_src, 27) int32 a source row's 27 query rows (Cq = none)
+    overflow: torch.Tensor  # () live queries in cells past max_cells
+
+    @property
+    def max_cells(self):
+        return self.nbr.shape[0]
+
+
+def sort_queries(grid: DenseGrid, r, y, alive_y, max_cells) -> QueryList:
+    """The queries ``y`` on ``grid``'s lattice (``grid.origin``) as a
+    :class:`QueryList`: ``bin_queries`` without its slots-a-cell cap. The
+    same stable sort by cell id and the same f32 corner arithmetic, so a
+    cell's queries sit lowest point index first and each listed coordinate
+    is, bit for bit, the one ``bin_queries`` gives its slot; the rows and
+    both joins are ``bin_queries``' wherever no cell is past its capacity.
+    Only live queries in cells past ``max_cells`` are dropped (counted in
+    ``overflow``)."""
+    nq = y.shape[0]
+    C = max_cells
+    r_t = torch.as_tensor(r, dtype=y.dtype, device=y.device)
+    cs = _sort_cells(y, r_t, alive_y, grid.origin, C)
+    row = cs.crank.clamp(max=C - 1)
+    xyz = torch.where(cs.keep_row[:, None], cs.xs - cs.corner[row], 0.0)
+    zero = torch.zeros((1,), dtype=torch.int32, device=y.device)
+    n_listed = cs.npts.sum(0, keepdim=True)
+    iota = torch.arange(nq, device=y.device)
+    prow = torch.empty((nq,), dtype=torch.int32, device=y.device)
+    pos = torch.empty((nq,), dtype=torch.int64, device=y.device)
+    prow[cs.order] = cs.crank.to(torch.int32)
+    pos[cs.order] = torch.where(cs.keep_row, iota, nq)
+    return QueryList(order=cs.order, start=torch.cat([cs.starts0, n_listed]).to(torch.int32),
+                     cnt=torch.cat([cs.npts.to(torch.int32), zero]),
+                     x=xyz[:, 0].contiguous(), y=xyz[:, 1].contiguous(), z=xyz[:, 2].contiguous(),
+                     prow=prow, pos=pos, nbr=_cell_join(cs.ucid, grid.ucid, grid.max_cells),
+                     rnbr=_cell_join(grid.ucid, cs.ucid, C), overflow=cs.past_c)
 
 
 def slot_gather(grid: DenseGrid, f, fill=0.0):

@@ -537,7 +537,7 @@ def commit_frame(params: PBFParams, state: ParticleState, visual: VisualState, e
     """confirm_from_nn + advect visual + wo_velocity (ref :456-458): the
     visual particles move by the splat of the fitted positions (its own grid),
     the fitted positions become the alive estimates, then confirm_guess.
-    Returns (state, visual, the visual particles the splat's query cells
+    Returns (state, visual, the visual particles the splat's query list
     dropped, a device scalar)."""
     with record_function("fnx.commit"), torch.no_grad():
         new_visual_xyz, dropped = visual_xyz_from_nn(visual.xyz, visual.alive, exyz_nn, state,

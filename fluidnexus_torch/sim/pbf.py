@@ -25,8 +25,8 @@ import torch
 from torch.profiler import record_function
 
 from fluidnexus_torch.ops.neighbors import (
-    DenseGrid, bin_queries, build_dense_grid, point_gather, radius_graph, radius_query,
-    slot_gather,
+    DenseGrid, build_dense_grid, point_gather, radius_graph, radius_query, slot_gather,
+    sort_queries,
 )
 from fluidnexus_torch.sim import pbf_cuda, splat_cuda
 from fluidnexus_torch.sim.state import ParticleState, VisualState
@@ -148,16 +148,15 @@ def remove_invalid(state: ParticleState, params: PBFParams) -> ParticleState:
 GRID_DROPS = ("neighbor grid dropped {n} point-slots this tick — pair sums are missing "
               "particles. Raise dense_max_cells / dense_cell_capacity (dense path) or "
               "cell_capacity / KNN_K (padded path) to cover the scene.")
-QUERY_DROPS = ("the visual query grid dropped {n} particles (past "
-               f"{splat_cuda.MAX_M} in a cell of h, or in cells past dense_max_cells); "
-               "they were not advected. Raise dense_max_cells or spread the emitters.")
+QUERY_DROPS = ("the visual query list dropped {n} particles (in cells of h past "
+               "dense_max_cells); they were not advected. Raise dense_max_cells.")
 
 
 def warn_capacity_overflow(diags, context: str, strict: bool = False, log=print,
                            what: str = GRID_DROPS) -> int:
     """Report the points a static-capacity grid dropped (one host read of
     the stacked ``overflow``): a solver tick's grids, or with ``what=
-    QUERY_DROPS`` the splat's query cells; a count already on the host
+    QUERY_DROPS`` the splat's query list; a count already on the host
     reads nothing. Raises instead under ``strict`` (--strict_capacity).
     Returns the dropped count."""
     ov = diags.get("overflow")
@@ -196,8 +195,8 @@ def solver_loop(state: ParticleState, params: PBFParams, iterations: int,
 
 
 def _splat_to_points(points, point_alive, state: ParticleState, params: PBFParams):
-    """(delta, the live points the query cells dropped, a device scalar) of
-    ``splat_velocity_to_points``."""
+    """(delta, the live points in query cells past ``dense_max_cells``, a
+    device scalar) of ``splat_velocity_to_points``."""
     with torch.no_grad():
         grid = build_dense_grid(state.estimate_xyz, params.h, state.alive,
                                 params.dense_max_cells, params.dense_cell_capacity)
@@ -210,16 +209,19 @@ def splat_velocity_to_points(points, point_alive, state: ParticleState, params: 
     ``points``, as a position delta (update_visual_particles,
     gm_dynamics.py:1360-1402): delta = secs sum_j w_j v_j / max(sum_j w_j,
     eps), through the two-lattice splat forward kernel over every in-radius
-    source (the JAX package's accelerator branch, ``dense=True``, with query
-    cells of ``splat_cuda.MAX_M`` slots). No gradient."""
+    source (the JAX package's accelerator branch, ``dense=True``, with the
+    queries as one cell-sorted list: every live query in the first
+    ``dense_max_cells`` cells moves, as the JAX CPU branch moves them). No
+    gradient."""
     return _splat_to_points(points, point_alive, state, params)[0]
 
 
 def update_visual(visual: VisualState, state: ParticleState, params: PBFParams,
                   return_dropped: bool = False):
     """The visual particles advected by the dense splat of the hidden
-    velocities; with ``return_dropped``, (visual, the count its query cells
-    dropped, a device scalar)."""
+    velocities; with ``return_dropped``, (visual, the live ones in query
+    cells past ``dense_max_cells``, which stay where they are, a device
+    scalar)."""
     delta, dropped = _splat_to_points(visual.xyz, visual.alive, state, params)
     visual = visual._replace(xyz=torch.where(visual.alive[:, None], visual.xyz + delta,
                                              visual.xyz))
@@ -288,22 +290,20 @@ def density_ratio_at(positions, alive, imass, params: PBFParams, grid: Optional[
 def _splat_delta(grid: DenseGrid, vel, points, point_alive, params: PBFParams):
     """The splat forward over the source ``grid``: (delta (Nq, 3), ws (Nq,),
     the live queries dropped (a device scalar), the tables the adjoint
-    reads). The queries are binned on the grid's lattice at the kernels'
-    ``splat_cuda.MAX_M`` slots a cell, whatever the sources' capacity: piled
-    emissions fill a query cell long before they crowd the hidden grid. The
-    forward kernel gives the per-slot sums, c6 applied outside the kernel, so
-    the eps clamp is max(c6 ws, eps). Dead and dropped queries read the zero
-    row Cq: delta 0."""
-    qgrid, rnbr = bin_queries(grid, params.h, points, point_alive, params.dense_max_cells,
-                              splat_cuda.MAX_M)
-    planes, qplanes = pbf_cuda.planes(grid), pbf_cuda.planes(qgrid)
+    reads). The queries are one list sorted by cell (``sort_queries``), any
+    number a cell: only those in cells past ``dense_max_cells`` are dropped.
+    The forward kernel gives the per-entry sums, read back by ``pos``, c6
+    applied outside the kernel, so the eps clamp is max(c6 ws, eps). Dead and
+    dropped queries read entry Nq: delta 0."""
+    ql = sort_queries(grid, params.h, points, point_alive, params.dense_max_cells)
+    planes = pbf_cuda.planes(grid)
     vel_s = slot_gather(grid, vel).contiguous()
-    wv_s, ws_s = splat_cuda.splat_fwd(qgrid.nbr, *qplanes, *planes, vel_s, params.h)
-    c6 = float(np.float32(params.poly6_term1))
-    wvs = point_gather(qgrid, torch.cat([wv_s * c6, ws_s[..., None] * c6], -1))  # row Cq: 0
+    wvs = splat_cuda.splat_fwd(ql.nbr, ql.start, ql.cnt, ql.x, ql.y, ql.z, *planes, vel_s,
+                               params.h)
+    wvs = wvs[ql.pos] * float(np.float32(params.poly6_term1))   # entry Nq: 0
     ws = wvs[:, 3]
     delta = params.secs * wvs[:, :3] / torch.clamp(ws, min=params.epsilon)[:, None]
-    return delta, ws, qgrid.overflow, (grid, qgrid, rnbr, planes, qplanes, vel_s)
+    return delta, ws, ql.overflow, (grid, ql, planes, vel_s)
 
 
 class _SplatDelta(torch.autograd.Function):
@@ -326,16 +326,14 @@ class _SplatDelta(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         ws, delta = ctx.saved_tensors
-        grid, qgrid, rnbr, planes, qplanes, vel_s = ctx.tables
+        grid, ql, planes, vel_s = ctx.tables
         params = ctx.params
         c6 = np.float32(params.poly6_term1)
         s = torch.clamp(ws, min=params.epsilon)
         p = float(c6 * np.float32(params.secs)) * g / s[:, None]
         q = torch.where(ws < params.epsilon, 0.0, float(c6) * (g * delta).sum(-1) / s)
-        pq_s = slot_gather(qgrid, torch.cat([p, q[:, None]], -1))        # 0 at dead slots
-        gx_s, gv_s = splat_cuda.splat_bwd(rnbr, *planes, vel_s, *qplanes,
-                                          pq_s[..., :3].contiguous(), pq_s[..., 3].contiguous(),
-                                          params.h)
+        gx_s, gv_s = splat_cuda.splat_bwd(ql.rnbr, *planes, vel_s, ql.start, ql.cnt, ql.x, ql.y,
+                                          ql.z, p[ql.order], q[ql.order], params.h)
         gsv = point_gather(grid, torch.cat([gx_s, gv_s], -1))           # row C: 0
         return gsv[:, :3], gsv[:, 3:], None, None, None, None
 
@@ -350,8 +348,8 @@ def visual_xyz_from_nn(visual_xyz, visual_alive, estimate_xyz_nn, state: Particl
     space); the result is in scaled space. ``grid`` is an optional pre-built
     source grid at ``estimate_xyz_nn * scale_factor``, checked as in
     ``density_ratio_at``. With ``return_dropped``, (positions, the live
-    visual particles the query cells dropped, a device scalar): those keep
-    their position."""
+    visual particles in query cells past ``dense_max_cells``, a device
+    scalar): those keep their position."""
     est = estimate_xyz_nn * params.scale_factor
     vel = (est - state.xyz) / params.secs
     vx = visual_xyz.detach()

@@ -9,7 +9,7 @@ reference's counts (configs/fluid_nexus_smoke_dynamics.json: 120 frames,
 slots with ~27 720 alive, batch 1) and writes ``<out>/RUN.md``: the card, the
 wall clock of the ground truth and of phases A, B and C, the median ms of a
 phase-C fit iteration, the capacity-overflow reports (the solver's grids and
-the splat's query cells), per-frame loss and held-out PSNR, and the visual
+the splat's query list), per-frame loss and held-out PSNR, and the visual
 particles alive at the last frame. It writes nothing outside ``--out``.
 
 Usage (the whole run, on the card):
@@ -224,7 +224,7 @@ def report(args, dev, metrics, t_gt, t_fit, phases, spans, overflow_lines):
          "emission to its loss line, over its iterations: its tick, commit and held-out render "
          "included)" if ms_iter else "- phase C: no frame"),
         f"- capacity-overflow warnings: {overflow_lines} (the solver's grids and the splat's "
-        f"query cells); visual particles the query cells dropped: {sum(drops)} over the frames, "
+        f"query list); visual particles the query list dropped: {sum(drops)} over the frames, "
         f"{drops[-1] if drops else 0} at the last",
         f"- frames completed: {n_frames}/{args.frames - 1}"
         + ("" if args.frames >= 120 else f" (cut from the reference's 120 to {args.frames})"),
@@ -243,8 +243,9 @@ def report(args, dev, metrics, t_gt, t_fit, phases, spans, overflow_lines):
 
 def main(argv=None):
     """The run: the ground truth, then ``train``; returns ``train``'s result
-    with the report's lines (``report``), the configuration (``config``) and
-    the ground truth's scene (``scene``). Raises without a card unless
+    with the report's lines (``report``), the configuration (``config``),
+    the ground truth's scene (``scene``) and the count of capacity-overflow
+    log lines (``overflow_lines``). Raises without a card unless
     ``--cpu`` is given."""
     ap = argparse.ArgumentParser(description="the reconstruction at the reference's workload")
     ap.add_argument("--out", default="runs/full_scale_torch")
@@ -293,11 +294,12 @@ def main(argv=None):
         metrics = result["metrics"]
         np.save(os.path.join(args.out, "metrics.npy"), np.asarray(metrics, dtype=object),
                 allow_pickle=True)
-        lines = report(args, dev, metrics, t_gt, t_end - t_fit, phases, spans, overflow["count"])
+        n_overflow = overflow["count"]   # before the report's own line, which names them
+        lines = report(args, dev, metrics, t_gt, t_end - t_fit, phases, spans, n_overflow)
         with open(os.path.join(args.out, "RUN.md"), "w") as f:
             f.write("\n".join(lines) + "\n")
         log("\n".join(lines))
-    result.update(report=lines, config=cfg, scene=scene)
+    result.update(report=lines, config=cfg, scene=scene, overflow_lines=n_overflow)
     return result
 
 

@@ -54,20 +54,61 @@ def _future_cfg(cfg, load_path, model_path):
     return cfg
 
 
-def test_predict_matches_jax(tmp_path):
+BALL_LIFT = 0.2   # world units: the fake cloud's centre onto the object ball's lowest point
+
+
+def _lift_checkpoint(path, dy):
+    """Every position of a checkpoint (hidden xyz and estimate, visual xyz;
+    world units) moved up by ``dy``."""
+    for name in os.listdir(path):
+        if name.endswith("xyz.npy"):
+            a = np.load(os.path.join(path, name))
+            a[:, 1] += dy
+            np.save(os.path.join(path, name), a)
+
+
+@pytest.mark.parametrize("capture_part", ["smoke", "ball"])
+def test_predict_matches_jax(tmp_path, monkeypatch, capture_part):
     """``predict`` over 3 future frames from one checkpoint: p0 exact, alive
     counts exact, p_ratio 1e-4; every npy checkpoint (positions 1e-4 scaled
     units, velocity that over secs, force k x iterations times that, the
-    rest exactly) and every PNG pixel for pixel, both read back with PIL."""
+    rest exactly) and every PNG pixel for pixel, both read back with PIL.
+    For the Ball capture the cloud and the cylinder are lifted BALL_LIFT, the
+    cloud onto the object ball's surface (``OBJECT_BALL_CENTER``, radius
+    ``OBJECT_BALL_RADIUS``), and the ball's push-out, after each frame's solver tick and after its
+    advection, moves hidden and visual particles in the port."""
     load_path = str(tmp_path / "recon")
     fake_level_one_checkpoint(os.path.join(load_path, "checkpoint"))
     jcfg = _future_cfg(JConfig(), load_path, str(tmp_path / "jax"))
     tcfg = _future_cfg(TConfig(), load_path, str(tmp_path / "torch"))
+    jcfg.model.capture_part = tcfg.model.capture_part = capture_part
+    if capture_part == "ball":
+        _lift_checkpoint(os.path.join(load_path, "checkpoint"), BALL_LIFT)
+        for cfg in (jcfg, tcfg):
+            cfg.optim.rigid_body_center[1] += BALL_LIFT
+    ball_moved = {"hidden": 0, "visual": 0}
+
+    def counting(fn, what, field):
+        def push(obj, rb, params):
+            out = fn(obj, rb, params)
+            if rb.spec_kind == 1:   # the object ball (the cylinder is kind 2)
+                ball_moved[what] += int((getattr(out, field) != getattr(obj, field)).any(1).sum())
+            return out
+        return push
+
+    monkeypatch.setattr(tfuture, "project_rigid_constraints", counting(
+        tfuture.project_rigid_constraints, "hidden", "estimate_xyz"))
+    monkeypatch.setattr(tfuture, "project_rigid_constraints_visual", counting(
+        tfuture.project_rigid_constraints_visual, "visual", "xyz"))
     scene = smoke_like_scene(n_frames=2)
     ref = jfuture.predict(jcfg, scene_info=scene, log=lambda *a: None, save_renders=True)
     logs = []
     got = tfuture.predict(tcfg, scene_info=_port_scene(scene), log=logs.append,
                           save_renders=True, device="cpu")
+    if capture_part == "ball":
+        assert ball_moved["hidden"] > 0 and ball_moved["visual"] > 0, ball_moved
+    else:
+        assert ball_moved == {"hidden": 0, "visual": 0}
 
     assert [f["frame"] for f in got] == [2, 3, 4] and len(logs) == 4
     for a, b in zip(got, ref):

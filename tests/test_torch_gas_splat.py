@@ -192,51 +192,87 @@ def test_queries_past_a_cells_capacity_stay_still_as_in_the_dense_branch():
     np.testing.assert_allclose(got[~still], top_k[~still], rtol=1e-5, atol=1e-5)
 
 
-def _piled_visual(rng, n_pile, params):
-    """A hidden cloud with a velocity and ``n_pile`` visual particles on one
-    spot inside it, plus 40 spread around: (ParticleState, VisualState, nn)."""
-    from fluidnexus_torch.sim.state import make_particle_state, make_visual_state
+def _piled_visual(rng, n_pile):
+    """A hidden cloud of 256 with random velocities and estimates 0.1 past
+    their positions, ``n_pile`` visual particles jittered within 0.02 of one
+    spot inside it (one cell of h = 1), and 40 spread around, in a visual
+    state of ``n_pile + 64`` slots; the fitted positions ``nn`` near the
+    cloud. Returns (JAX state, port state, JAX visual state, port visual
+    state, nn)."""
+    from fluidnexus_tpu.sim.state import make_visual_state as j_make_visual_state
 
     pos = rng.uniform(0.0, 6.0, (256, 3)).astype(np.float32)
-    st = make_particle_state(256, pos, init_velocity_y=10.0, device="cpu")
-    st = st._replace(estimate_xyz=st.xyz + 0.1)
-    vis = np.concatenate([np.full((n_pile, 3), 3.4, np.float32),
-                          rng.uniform(0.5, 5.5, (40, 3)).astype(np.float32)])
-    nn = (pos / params.scale_factor + 0.002 * rng.normal(size=(256, 3))).astype(np.float32)
-    return st, make_visual_state(n_pile + 64, vis, device="cpu"), torch.as_tensor(nn)
+    st_j = j_make_particle_state(256, jnp.asarray(pos))
+    st_j = st_j._replace(estimate_xyz=st_j.xyz + 0.1,
+                         velocity=jnp.asarray(rng.normal(0.0, 10.0, (256, 3)).astype(np.float32)))
+    st = convert.particle_state_from_numpy(jax.tree.map(np.asarray, st_j), device=CPU)
+    vis = np.concatenate([3.4 + rng.uniform(-0.02, 0.02, (n_pile, 3)),
+                          rng.uniform(0.5, 5.5, (40, 3))]).astype(np.float32)
+    vis_j = j_make_visual_state(n_pile + 64, jnp.asarray(vis))
+    vis_t = convert.visual_state_from_numpy(jax.tree.map(np.asarray, vis_j), device=CPU)
+    nn = (pos / 100.0 + 0.002 * rng.normal(size=(256, 3))).astype(np.float32)
+    return st_j, st, vis_j, vis_t, nn
+
+
+def _in_radius_max(src, qry, h):
+    """The most sources within h of any query, and the most sources in one
+    cell of edge h: what JAX's padded top-K branch keeps (knn_k, and its
+    grid's cell_capacity)."""
+    d2 = ((qry[:, None, :] - src[None, :, :]) ** 2).sum(-1)
+    cells = np.unique(np.floor(src / h).astype(np.int64), axis=0, return_counts=True)[1]
+    return int((d2 <= h * h).sum(1).max()), int(cells.max())
 
 
 def test_a_pile_past_the_kernels_slots_leaves_its_tail_still_and_reports_it():
-    """140 visual particles on one spot: the query cell holds the kernels'
-    128, so the last 12 stay where they are, and the fit's advection,
-    ``update_visual`` and the phase-C commit each report 12 through
-    ``warn_capacity_overflow``, which raises under --strict_capacity."""
+    """300 visual particles piled in one cell, more than the 128 a cell that
+    the kernels once held (the test's name is from then): every one of them
+    moves, and none is reported dropped, through ``visual_xyz_from_nn``,
+    ``update_visual`` and the phase-C commit, as the JAX package's CPU
+    (top-K) branch moves them (1e-5), and ``warn_capacity_overflow`` reports
+    nothing even under --strict_capacity. The sources in reach of any query
+    number under ``knn_k`` and JAX's ``cell_capacity``, so that branch is
+    exact."""
     from fluidnexus_torch.pipelines import train_physical_particle as ttrain
 
-    params = _params(tpbf.PBFParams)
-    st, vis, nn = _piled_visual(np.random.default_rng(13), 140, params)
-    moved, dropped = tpbf.visual_xyz_from_nn(vis.xyz, vis.alive, nn, st, params,
+    params_j, params = _params(jpbf.PBFParams), _params(tpbf.PBFParams)
+    st_j, st, vis_j, vis, nn = _piled_visual(np.random.default_rng(13), 300)
+    live = np.asarray(vis_j.alive)
+    vx = np.asarray(vis_j.xyz)
+    for src in (nn * params.scale_factor, np.asarray(st_j.estimate_xyz)):
+        reach, per_cell = _in_radius_max(src, vx[live], params.h)
+        assert reach < min(params.knn_k, 100) and per_cell < params.cell_capacity
+    want = _np(jpbf.visual_xyz_from_nn(vis_j.xyz, vis_j.alive, jnp.asarray(nn), st_j, params_j,
+                                       dense=False))
+    delta = _np(jpbf.splat_velocity_to_points(vis_j.xyz, vis_j.alive, st_j, params_j,
+                                              dense=False))
+    want_u = np.where(live[:, None], vx + delta, vx)
+
+    moved, dropped = tpbf.visual_xyz_from_nn(vis.xyz, vis.alive, torch.as_tensor(nn), st, params,
                                              return_dropped=True)
-    still = np.all(moved.numpy() == vis.xyz.numpy(), axis=1)[:140]
-    assert int(dropped) == 12 and still[128:].all() and not still[:128].any()
     vis2, dropped2 = tpbf.update_visual(vis, st, params, return_dropped=True)
-    still2 = np.all(vis2.xyz.numpy() == vis.xyz.numpy(), axis=1)[:140]
-    assert int(dropped2) == 12 and still2[128:].all() and not still2[:128].any()
-    *_, dropped3 = ttrain.commit_frame(params, st, vis, nn)
+    _, vis3, dropped3 = ttrain.commit_frame(params, st, vis, torch.as_tensor(nn))
+    for got, ref, n_dropped in ((moved, want, dropped), (vis2.xyz, want_u, dropped2),
+                                (vis3.xyz, want, dropped3)):
+        got = got.numpy()
+        assert int(n_dropped) == 0
+        assert not np.all(got[:300] == vx[:300], axis=1).any(), "a piled particle stayed still"
+        np.testing.assert_allclose(got[live], ref[live], rtol=1e-5, atol=1e-5)
     logs = []
-    assert tpbf.warn_capacity_overflow({"overflow": dropped3}, "frame 1 advection",
-                                       log=logs.append, what=tpbf.QUERY_DROPS) == 12
-    assert len(logs) == 1 and "capacity overflow" in logs[0] and "dropped 12" in logs[0]
-    with pytest.raises(RuntimeError, match="strict_capacity"):
-        tpbf.warn_capacity_overflow({"overflow": dropped3}, "frame 1 advection", strict=True,
-                                    what=tpbf.QUERY_DROPS)
+    assert tpbf.warn_capacity_overflow({"overflow": dropped3}, "frame 1 advection", strict=True,
+                                       log=logs.append, what=tpbf.QUERY_DROPS) == 0
+    assert logs == []
 
 
-def test_a_future_frame_reports_the_piles_drops_and_strict_raises(tmp_path):
+def test_a_future_frame_reports_the_piles_drops_and_strict_raises(tmp_path, monkeypatch):
     """``predict`` from a checkpoint whose 140 visual particles sit on one
-    spot inside the hidden cloud: the frame's dict and its log report the 12
-    the query cell drops, as a capacity overflow, and --strict_capacity
-    raises on them."""
+    spot inside the hidden cloud, and 100 more on a line in z past it, one
+    to a cell of h, with ``dense_max_cells`` cut to 64: the pile's cell comes
+    first of the query list's rows, so all 140 move and none is dropped, and
+    the frame's dict and its log report only the 37 of the line in cells
+    past the 64th (63 after the pile's), as a capacity overflow;
+    --strict_capacity raises on them."""
+    import dataclasses
+
     from fluidnexus_torch.core.config import Config
     from fluidnexus_torch.data.cameras import Camera
     from fluidnexus_torch.data.readers import SceneInfo
@@ -251,13 +287,17 @@ def test_a_future_frame_reports_the_piles_drops_and_strict_raises(tmp_path):
     m.hidden_capacity = m.visual_capacity = 2048   # over the future emitters' padded plans
     o.future_pred_frames, o.solver_iterations_future = 1, 2
     o.H, o.emit_ratio_hidden, o.emit_ratio_visual = 2.0, 0.0, 0.0
-    params = pbf_params_from_config(cfg)
+    monkeypatch.setattr(tfuture, "pbf_params_from_config", lambda c: dataclasses.replace(
+        pbf_params_from_config(c), dense_max_cells=64))
+    params = tfuture.pbf_params_from_config(cfg)
     rng = np.random.default_rng(14)
     base = np.array([0.326, 0.05, -0.3], np.float32) * 100
     st = make_particle_state(2048, (rng.uniform(-3, 3, (300, 3)) + base).astype(np.float32),
                              init_velocity_y=50.0, device="cpu")
     save_hidden(st._replace(estimate_xyz=st.xyz), params, os.path.join(m.load_path, "checkpoint"), 1)
-    vis = make_visual_state(2048, np.broadcast_to(base + 0.3, (140, 3)).copy(), device="cpu")
+    line = base + 0.3 + np.array([0.0, 0.0, 4.0], np.float32) * np.arange(1, 101)[:, None]
+    vis = make_visual_state(2048, np.concatenate([np.broadcast_to(base + 0.3, (140, 3)), line]
+                                                 ).astype(np.float32), device="cpu")
     save_visual(vis, constant_visual_attrs(2048, 1, device="cpu"),
                 os.path.join(m.load_path, "checkpoint"), 1)
     R = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1.0]])
@@ -265,12 +305,23 @@ def test_a_future_frame_reports_the_piles_drops_and_strict_raises(tmp_path):
                    width=32, height=24, image_name="train00", time_idx=t) for t in range(2)]
     scene = SceneInfo(point_cloud=None, train_cameras=cams, test_cameras=[],
                       nerf_normalization={"radius": 2.0, "translate": np.zeros(3)})
+    advected = []
+    update_visual = tfuture.update_visual
+
+    def recording(visual, *a, **kw):
+        out = update_visual(visual, *a, **kw)
+        advected.append((visual.xyz.clone(), out[0].xyz.clone()))
+        return out
+
+    monkeypatch.setattr(tfuture, "update_visual", recording)
     logs = []
     frames = tfuture.predict(cfg, scene_info=scene, log=logs.append, save_renders=False,
                              device="cpu")
-    assert frames[0]["query_drops"] == 12 and frames[0]["visual"] == 140
+    assert frames[0]["query_drops"] == 37 and frames[0]["visual"] == 240
+    before, after = advected[0]
+    assert not torch.all(before[:140] == after[:140], dim=1).any(), "a piled particle stayed still"
     assert [line for line in logs if "capacity overflow" in line] == [
-        "[capacity overflow] future 0 advection: " + tpbf.QUERY_DROPS.format(n=12)]
+        "[capacity overflow] future 0 advection: " + tpbf.QUERY_DROPS.format(n=37)]
     cfg.strict_capacity = True
     with pytest.raises(RuntimeError, match="strict_capacity"):
         tfuture.predict(cfg, scene_info=scene, log=logs.append, save_renders=False, device="cpu")
@@ -348,3 +399,90 @@ def test_gradcheck_of_both_functions_in_float64():
     assert torch.autograd.gradcheck(
         lambda x: tpbf.visual_xyz_from_nn(vx, va, x, state, params), (nn,), eps=1e-6, atol=1e-7,
         rtol=1e-5)
+
+
+def test_gradcheck_of_the_advection_at_a_pile_in_float64():
+    """torch.autograd.gradcheck of ``_SplatDelta`` (through
+    ``visual_xyz_from_nn``) in float64 with 150 queries piled in one cell of
+    h, past the 128 a cell that the kernels once held: the adjoint walks the
+    pile's whole list."""
+    rng = np.random.default_rng(10)
+    n = 24
+    params = tpbf.PBFParams(h=1.0, dense_max_cells=64, dense_cell_capacity=32, scale_factor=1.0)
+    xyz = torch.tensor(rng.uniform(0, 1.6, (n, 3)), dtype=torch.float64)
+    alive = torch.ones(n, dtype=torch.bool)
+    state = tpbf.ParticleState(
+        xyz=xyz, estimate_xyz=xyz, velocity=torch.zeros_like(xyz), force=torch.zeros_like(xyz),
+        buoyancy=torch.zeros_like(xyz), imass=torch.ones(n, dtype=torch.float64),
+        counts=torch.zeros(n, dtype=torch.float64), particle_id=torch.arange(n, dtype=torch.int32),
+        alive=alive, next_id=torch.tensor(n, dtype=torch.int32))
+    vx = torch.tensor(np.concatenate([0.5 + rng.uniform(0.0, 0.4, (150, 3)),
+                                      rng.uniform(0, 1.6, (20, 3))]), dtype=torch.float64)
+    va = torch.ones(170, dtype=torch.bool)
+    nn = (xyz + 0.05 * torch.tensor(rng.normal(size=(n, 3)))).requires_grad_(True)
+    ql = tnb.sort_queries(tnb.build_dense_grid(nn.detach(), 1.0, alive, 64, 32), 1.0, vx, va, 64)
+    assert int(ql.cnt.max()) >= 150 and int(ql.overflow) == 0
+    assert torch.autograd.gradcheck(
+        lambda x: tpbf.visual_xyz_from_nn(vx, va, x, state, params), (nn,), eps=1e-6, atol=1e-7,
+        rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["inside", "outside_box", "past_max_cells", "pile"])
+def test_sort_queries_matches_bin_queries_live_slots(case):
+    """``sort_queries`` against ``bin_queries`` on the same source grid, row
+    by row and bit for bit wherever no cell exceeds ``bin_queries``' slots:
+    each row's count and points (lowest index first), their cell-relative
+    coordinates, both joins, the point -> row map and the point -> entry map
+    (start + slot), with dead queries, queries clipped into the box's
+    boundary cells and query cells past ``max_cells`` (their queries counted
+    in ``overflow`` by both). With a pile of 70 in one cell at 32 slots, the
+    list holds all 70 in that row, in point order, and counts none of them."""
+    rng = np.random.default_rng(21)
+    r = 0.7
+    x = torch.as_tensor(rng.uniform(0.0, 6.0, (300, 3)).astype(np.float32))
+    alive_x = torch.as_tensor(rng.random(300) > 0.1)
+    y = rng.uniform(-1.0, 7.0, (400, 3)).astype(np.float32)
+    alive_y = rng.random(400) > 0.15
+    qcells, qcap = 512, 128
+    if case == "outside_box":
+        y[:20] += 2000.0
+        y[20:40] -= 50.0
+        alive_y[:40] = True
+    if case == "past_max_cells":
+        qcells = 64
+    if case == "pile":
+        y[:70] = 3.1 + 0.05 * rng.random((70, 3)).astype(np.float32)
+        alive_y[:70] = True
+        qcap = 32
+    y, alive_y = torch.as_tensor(y), torch.as_tensor(alive_y)
+    grid = tnb.build_dense_grid(x, r, alive_x, 512, 32)
+    qg, rnbr = tnb.bin_queries(grid, r, y, alive_y, qcells, qcap)
+    ql = tnb.sort_queries(grid, r, y, alive_y, qcells)
+    assert torch.equal(ql.nbr, qg.nbr) and torch.equal(ql.rnbr, rnbr)
+    cnt = qg.bmask.sum(1).to(torch.int32)
+    full = cnt == qcap
+    assert int(ql.cnt[-1]) == 0 and torch.equal(ql.cnt[~full], cnt[~full])
+    assert torch.equal(ql.start, torch.cumsum(ql.cnt, 0, dtype=torch.int32) - ql.cnt)
+    for h in range(qcells):
+        c, s = int(ql.cnt[h]), int(ql.start[h])
+        k = min(c, qcap)
+        assert torch.equal(ql.order[s:s + k].to(torch.int32), qg.bidx[h, :k])
+        assert bool((ql.order[s:s + c].diff() > 0).all())
+        for a, plane in enumerate((ql.x, ql.y, ql.z)):
+            assert torch.equal(plane[s:s + k].view(torch.int32),
+                               qg.bxyz[h, :k, a].contiguous().view(torch.int32))
+    kept = qg.prow < qcells
+    assert torch.equal(ql.prow[kept], qg.prow[kept])
+    assert torch.equal(ql.pos[kept], ql.start[qg.prow[kept].long()].long() + qg.pcol[kept].long())
+    assert torch.equal(ql.order[ql.pos[kept]], torch.nonzero(kept).flatten())
+    past = int((alive_y & (ql.prow == qcells)).sum())
+    assert int(ql.overflow) == past and torch.equal(ql.pos[ql.prow == qcells],
+                                                    torch.full((int((ql.prow == qcells).sum()),), 400))
+    if case == "past_max_cells":
+        assert past > 0 and int(qg.overflow) == past
+    elif case == "pile":
+        row = int(ql.prow[0])
+        assert int(ql.cnt[row]) == 70 and int(qg.overflow) == 70 - qcap and past == 0
+        assert ql.order[int(ql.start[row]):int(ql.start[row]) + 70].tolist() == list(range(70))
+    else:
+        assert past == 0 and int(qg.overflow) == 0

@@ -2,8 +2,11 @@
 port (``sim/pbf_cuda.density_plain``/``density_bwd_plain``,
 ``sim/splat_cuda.splat_fwd_plain``/``splat_bwd_plain``) against the Pallas
 kernels of the JAX package in interpret mode, on the CPU, on 8-cell x
-8-slot grids (interpret mode is slow). Inputs are seeded numpy arrays handed
-to both."""
+8-slot grids (interpret mode is slow). The splat's plain versions take the
+queries as the port's ``QueryList`` (``sort_queries``) and the JAX kernels
+as its slot grid (``bin_queries``), under its capacity; they are held per
+live query and per live source. Inputs are seeded numpy arrays handed to
+both."""
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -11,6 +14,7 @@ import torch
 from fluidnexus_tpu.ops import neighbors as jnb
 from fluidnexus_tpu.sim import pbf_pallas as jpallas
 from fluidnexus_torch import convert
+from fluidnexus_torch.ops import neighbors as tnb
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda, splat_cuda
 from tests.torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
@@ -34,21 +38,45 @@ def _cloud(seed, n, spread, center=(1.0, 1.0, 1.0)):
 
 def _small_grids(seed=0):
     """A source grid and a query grid of 8 cells x 8 slots at h = 1 around
-    (1, 1, 1): 2 x 2 x 2 occupied cells each, some points dead."""
+    (1, 1, 1): 2 x 2 x 2 occupied cells each, some points dead. Returns
+    (rng, source grid, query grid, rnbr, the queries, their liveness)."""
     rng, src = _cloud(seed, 40, 0.6)
     alive = rng.random(40) > 0.1
     _, qry = _cloud(seed + 1, 36, 0.7)
     q_alive = rng.random(36) > 0.1
     jg = jnb.build_dense_grid(jnp.asarray(src), 1.0, jnp.asarray(alive), 8, 8)
     jq, jr = jnb.bin_queries(jg, 1.0, jnp.asarray(qry), jnp.asarray(q_alive), 8, 8)
-    return rng, jg, jq, jr
+    return rng, jg, jq, jr, qry, q_alive
+
+
+def _query_list(jg, jq, qry, q_alive):
+    """The port's source grid (``jg`` converted) and its ``sort_queries``
+    list of the same queries, which must hold the live queries of ``jq``
+    (no query cell past its capacity), and the live queries' rows."""
+    assert int(jq.overflow) == 0, "a query cell is past the Pallas capacity"
+    tg = convert.dense_grid_from_numpy(jg, device=CPU)
+    ql = tnb.sort_queries(tg, 1.0, torch.as_tensor(qry), torch.as_tensor(q_alive), 8)
+    kept = _np(jq.prow) < 8
+    np.testing.assert_array_equal(ql.prow.numpy(), _np(jq.prow))
+    return tg, ql, kept
+
+
+def _list_args(ql):
+    return ql.start, ql.cnt, ql.x, ql.y, ql.z
+
+
+def _at_slots(jq, per_point):
+    """A per-query array laid out in ``jq``'s slots, 0 at dead slots."""
+    bidx, bmask = _np(jq.bidx), _np(jq.bmask)
+    out = per_point[np.clip(bidx, 0, None)]
+    return (out * bmask.reshape(bmask.shape + (1,) * (per_point.ndim - 1))).astype(np.float32)
 
 
 def test_density_plain_versions_match_pallas_interpret():
     """density_plain / density_bwd_plain against density_slots_v2 /
     density_bwd_slots_v2 in interpret mode, live slots only (the Pallas raw
     outputs at dead slots depend on its STRIP)."""
-    rng, jg, _, _ = _small_grids()
+    rng, jg, *_ = _small_grids()
     k = pbf_cuda.pair_consts(tpbf.PBFParams(h=1.0))
     pi_j = jpallas.density_slots_v2(jg, k.h, k.eps, k.c6, k.s45)
     g = (rng.standard_normal(jg.bmask.shape) * _np(jg.bmask)).astype(np.float32)
@@ -69,40 +97,43 @@ def test_density_plain_versions_match_pallas_interpret():
 
 
 def test_splat_plain_versions_match_pallas_interpret():
-    """splat_fwd_plain / splat_bwd_plain against splat_slots /
-    splat_bwd_slots in interpret mode on live slots, with random source
-    velocities and query-side planes p, q (0 at dead query slots)."""
-    rng, jg, jq, jr = _small_grids(seed=3)
+    """splat_fwd_plain / splat_bwd_plain on the query list against
+    splat_slots / splat_bwd_slots in interpret mode on the slot grid, per
+    live query and per live source, with random source velocities and
+    per-query planes p, q; the forward is 0 at entry Nq and the adjoint at
+    dead source slots."""
+    rng, jg, jq, jr, qry, q_alive = _small_grids(seed=3)
     h = 1.0
     vel_s = (rng.standard_normal(jg.bxyz.shape) * _np(jg.bmask)[..., None]).astype(np.float32)
-    p_s = (rng.standard_normal(jq.bxyz.shape) * _np(jq.bmask)[..., None]).astype(np.float32)
-    q_s = (rng.standard_normal(jq.bmask.shape) * _np(jq.bmask)).astype(np.float32)
+    p = rng.standard_normal((len(qry), 3)).astype(np.float32)
+    q = rng.standard_normal(len(qry)).astype(np.float32)
     wv_j, ws_j = jpallas.splat_slots(jg, jq, jnp.asarray(vel_s), h)
-    gx_j, gv_j = jpallas.splat_bwd_slots(jg, jq, jr, jnp.asarray(vel_s), jnp.asarray(p_s),
-                                         jnp.asarray(q_s), h)
+    gx_j, gv_j = jpallas.splat_bwd_slots(jg, jq, jr, jnp.asarray(vel_s),
+                                         jnp.asarray(_at_slots(jq, p)), jnp.asarray(_at_slots(jq, q)),
+                                         h)
 
-    tg, tq = (convert.dense_grid_from_numpy(g, device=CPU) for g in (jg, jq))
-    tr = _t(jr)
-    planes, qplanes = pbf_cuda.planes(tg), pbf_cuda.planes(tq)
-    qlive, slive = tq.bmask[:-1].numpy(), tg.bmask[:-1].numpy()
-    assert qlive.sum() > 25 and slive.sum() > 30
-    wv_t, ws_t = splat_cuda.splat_fwd_plain(tq.nbr, *qplanes, *planes, torch.as_tensor(vel_s), h)
-    assert float(ws_t.max()) > 0
-    for got, ref in ((wv_t, wv_j), (ws_t, ws_j)):
-        scale = float(np.abs(_np(ref)[qlive]).max())
-        np.testing.assert_allclose(got[:-1].numpy()[qlive], _np(ref)[qlive], rtol=1e-5,
-                                   atol=1e-6 * scale)
-        assert not got[:-1].numpy()[~qlive].any() and not got[-1].any()
-    gx_t, gv_t = splat_cuda.splat_bwd_plain(tr, *planes, torch.as_tensor(vel_s), *qplanes,
-                                            torch.as_tensor(p_s), torch.as_tensor(q_s), h)
-    for got, ref in ((gx_t, gx_j), (gv_t, gv_j)):
+    tg, ql, kept = _query_list(jg, jq, qry, q_alive)
+    np.testing.assert_array_equal(ql.rnbr.numpy(), _np(jr))
+    planes = pbf_cuda.planes(tg)
+    slive = tg.bmask[:-1].numpy()
+    assert kept.sum() > 25 and slive.sum() > 30
+    out = splat_cuda.splat_fwd_plain(ql.nbr, *_list_args(ql), *planes, torch.as_tensor(vel_s), h)
+    assert float(out[:, 3].max()) > 0 and not out[-1].any()
+    row, col = _np(jq.prow)[kept], _np(jq.pcol)[kept]
+    got = out.numpy()[ql.pos.numpy()[kept]]
+    for g, ref in ((got[:, :3], _np(wv_j)[row, col]), (got[:, 3], _np(ws_j)[row, col])):
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(g, ref, rtol=1e-5, atol=1e-6 * scale)
+    order = ql.order
+    gx_t, gv_t = splat_cuda.splat_bwd_plain(ql.rnbr, *planes, torch.as_tensor(vel_s),
+                                            *_list_args(ql), torch.as_tensor(p)[order],
+                                            torch.as_tensor(q)[order], h)
+    for g, ref in ((gx_t, gx_j), (gv_t, gv_j)):
         scale = float(np.abs(_np(ref)[slive]).max())
         assert scale > 0
-        np.testing.assert_allclose(got[:-1].numpy()[slive], _np(ref)[slive], rtol=1e-4,
+        np.testing.assert_allclose(g[:-1].numpy()[slive], _np(ref)[slive], rtol=1e-4,
                                    atol=1e-5 * scale)
-        assert not got[:-1].numpy()[~slive].any() and not got[-1].any()
-
-
+        assert not g[:-1].numpy()[~slive].any() and not g[-1].any()
 
 
 def test_density_plain_matches_pallas_interpret_with_an_isolated_point():
@@ -132,9 +163,10 @@ def test_density_plain_matches_pallas_interpret_with_an_isolated_point():
 
 
 def test_splat_bwd_plain_matches_pallas_interpret_with_sources_out_of_reach():
-    """splat_bwd_plain against splat_bwd_slots in interpret mode on grids
-    where one source cell has no query cell among its 27 neighbours: its live
-    sources read exactly 0 in both, and the other live sources agree."""
+    """splat_bwd_plain on the query list against splat_bwd_slots in
+    interpret mode on grids where one source cell has no query cell among
+    its 27 neighbours: its live sources read exactly 0 in both, and the
+    other live sources agree."""
     rng = np.random.default_rng(6)
     src = np.concatenate([rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (24, 3)),
                           rng.uniform([5.2, 0.2, 0.2], [5.8, 0.8, 0.8], (6, 3))]).astype(np.float32)
@@ -144,19 +176,20 @@ def test_splat_bwd_plain_matches_pallas_interpret_with_sources_out_of_reach():
     jg = jnb.build_dense_grid(jnp.asarray(src), 1.0, jnp.asarray(alive), 8, 8)
     jq, jr = jnb.bin_queries(jg, 1.0, jnp.asarray(qry), jnp.asarray(q_alive), 8, 8)
     vel_s = (rng.standard_normal(jg.bxyz.shape) * _np(jg.bmask)[..., None]).astype(np.float32)
-    p_s = (rng.standard_normal(jq.bxyz.shape) * _np(jq.bmask)[..., None]).astype(np.float32)
-    q_s = (rng.standard_normal(jq.bmask.shape) * _np(jq.bmask)).astype(np.float32)
-    gx_j, gv_j = jpallas.splat_bwd_slots(jg, jq, jr, jnp.asarray(vel_s), jnp.asarray(p_s),
-                                         jnp.asarray(q_s), 1.0)
+    p = rng.standard_normal((30, 3)).astype(np.float32)
+    q = rng.standard_normal(30).astype(np.float32)
+    gx_j, gv_j = jpallas.splat_bwd_slots(jg, jq, jr, jnp.asarray(vel_s),
+                                         jnp.asarray(_at_slots(jq, p)), jnp.asarray(_at_slots(jq, q)),
+                                         1.0)
 
-    tg, tq = (convert.dense_grid_from_numpy(g, device=CPU) for g in (jg, jq))
-    tr = _t(jr)
-    planes, qplanes = pbf_cuda.planes(tg), pbf_cuda.planes(tq)
+    tg, ql, _ = _query_list(jg, jq, qry, q_alive)
+    planes = pbf_cuda.planes(tg)
     slive = tg.bmask[:-1].numpy()
-    out_of_reach = (qplanes[0][tr.long()].sum(1) == 0).numpy()[:, None] & slive
+    out_of_reach = (ql.cnt[ql.rnbr.long()].sum(1) == 0).numpy()[:, None] & slive
     assert out_of_reach.sum() >= 3 and (slive & ~out_of_reach).sum() > 15
-    gx_t, gv_t = splat_cuda.splat_bwd_plain(tr, *planes, torch.as_tensor(vel_s), *qplanes,
-                                            torch.as_tensor(p_s), torch.as_tensor(q_s), 1.0)
+    gx_t, gv_t = splat_cuda.splat_bwd_plain(ql.rnbr, *planes, torch.as_tensor(vel_s),
+                                            *_list_args(ql), torch.as_tensor(p)[ql.order],
+                                            torch.as_tensor(q)[ql.order], 1.0)
     for got, ref in ((gx_t, gx_j), (gv_t, gv_j)):
         ref = _np(ref)
         scale = float(np.abs(ref[slive]).max())
@@ -168,9 +201,10 @@ def test_splat_bwd_plain_matches_pallas_interpret_with_sources_out_of_reach():
 
 
 def test_splat_fwd_plain_matches_pallas_interpret_with_queries_out_of_reach():
-    """splat_fwd_plain against splat_slots in interpret mode on grids where
-    one query cell has no source cell among its 27 neighbours: its live
-    queries read exactly 0 in both, and the other live queries agree."""
+    """splat_fwd_plain on the query list against splat_slots in interpret
+    mode on grids where one query cell has no source cell among its 27
+    neighbours: its live queries read exactly 0 in both, and the other live
+    queries agree."""
     rng = np.random.default_rng(7)
     src = rng.uniform([0.1, 0.1, 0.1], [1.9, 1.9, 0.9], (30, 3)).astype(np.float32)
     alive = rng.random(30) > 0.1
@@ -182,17 +216,17 @@ def test_splat_fwd_plain_matches_pallas_interpret_with_queries_out_of_reach():
     vel_s = (rng.standard_normal(jg.bxyz.shape) * _np(jg.bmask)[..., None]).astype(np.float32)
     wv_j, ws_j = jpallas.splat_slots(jg, jq, jnp.asarray(vel_s), 1.0)
 
-    tg, tq = (convert.dense_grid_from_numpy(g, device=CPU) for g in (jg, jq))
-    planes, qplanes = pbf_cuda.planes(tg), pbf_cuda.planes(tq)
-    qlive = tq.bmask[:-1].numpy()
-    out_of_reach = (planes[0][tq.nbr.long()].sum(1) == 0).numpy()[:, None] & qlive
-    assert out_of_reach.sum() >= 3 and (qlive & ~out_of_reach).sum() > 15
-    wv_t, ws_t = splat_cuda.splat_fwd_plain(tq.nbr, *qplanes, *planes, torch.as_tensor(vel_s), 1.0)
-    for got, ref in ((wv_t, wv_j), (ws_t, ws_j)):
-        ref = _np(ref)
-        scale = float(np.abs(ref[qlive]).max())
+    tg, ql, kept = _query_list(jg, jq, qry, q_alive)
+    planes = pbf_cuda.planes(tg)
+    reach = (planes[0][ql.nbr.long()].sum(1) > 0).numpy()
+    out_of_reach = kept & ~reach[np.minimum(ql.prow.numpy(), 7)]
+    assert out_of_reach.sum() >= 3 and (kept & ~out_of_reach).sum() > 15
+    out = splat_cuda.splat_fwd_plain(ql.nbr, *_list_args(ql), *planes, torch.as_tensor(vel_s), 1.0)
+    got = out.numpy()[ql.pos.numpy()]
+    row, col = np.minimum(_np(jq.prow), 7), _np(jq.pcol)
+    for g, ref in ((got[:, :3], _np(wv_j)[row, col]), (got[:, 3], _np(ws_j)[row, col])):
+        scale = float(np.abs(ref[kept]).max())
         assert scale > 0
-        np.testing.assert_allclose(got[:-1].numpy()[qlive], ref[qlive], rtol=1e-5,
-                                   atol=1e-6 * scale)
-        assert not got[:-1].numpy()[out_of_reach].any() and not ref[out_of_reach].any()
-        assert not got[:-1].numpy()[~qlive].any() and not got[-1].any()
+        np.testing.assert_allclose(g[kept], ref[kept], rtol=1e-5, atol=1e-6 * scale)
+        assert not g[out_of_reach].any() and not ref[out_of_reach].any()
+        assert not g[~kept].any()

@@ -11,25 +11,37 @@ import numpy as np
 import pytest
 import torch
 
-from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid, slot_gather
+from fluidnexus_torch.ops.neighbors import build_dense_grid, slot_gather, sort_queries
 from fluidnexus_torch.sim import pbf as tpbf
 from fluidnexus_torch.sim import pbf_cuda as pc
 from fluidnexus_torch.sim import splat_cuda as sc
 from fluidnexus_torch.sim.state import make_particle_state
 from tests.torch_helpers import (  # noqa: F401 (one_intra_op_thread: autouse)
-    one_intra_op_thread,ISOLATED_GRIDS, cuda_device, isolated_point_grid,  # noqa: F401
-                                 leave_nan_blocks, splat_edge_grids, splat_fwd_edge_grids)
+    ISOLATED_GRIDS, cuda_device, isolated_point_grid, leave_nan_blocks, listed_mask,
+    one_intra_op_thread, splat_edge_args, splat_fwd_edge_args,
+)
 
 pytestmark = pytest.mark.cuda
 
 
-def _held(got, want, live, tol=1e-4):
+def _held(got, want, live, tol=1e-4, zero=None):
     """``got`` against ``want`` on live slots at ``tol`` of the field's
-    scale; 0 at dead slots."""
+    scale; 0 at dead slots (at ``zero`` where given: the splat forward's
+    entries past its rows are not written)."""
     scale = float(want[live].abs().max())
     assert scale > 0
     torch.testing.assert_close(got[live], want[live], rtol=0, atol=tol * scale)
-    assert not got[~live].any()
+    assert not got[~live if zero is None else zero].any()
+
+
+def _held_fwd(got, want, qstart, qcnt):
+    """The splat forward's (Nq+1, 4) output against its plain version's on
+    the listed entries, field by field (wv, ws), and 0 at entry Nq."""
+    listed = listed_mask(qstart, qcnt, got.shape[0] - 1)
+    last = torch.zeros_like(listed)
+    last[-1] = True
+    _held(got[:, 3], want[:, 3], listed, zero=last)
+    _held(got[:, :3], want[:, :3], listed[:, None].expand(-1, 3), zero=last)
 
 
 @pytest.mark.parametrize("m,n,box", [(4, 300, 4.0), (32, 900, 3.0), (128, 1500, 2.0)])
@@ -93,80 +105,82 @@ def test_density_at_its_edges(cuda_device, m):
     assert torch.equal(got[row, col:col + 1].view(torch.int32), want[row, col:col + 1].view(torch.int32))
 
 
-@pytest.mark.parametrize("ms,mq", [(32, 32), (128, 128)])
-def test_splat_bwd_at_its_edges(cuda_device, ms, mq):
+@pytest.mark.parametrize("ms,pile", [(32, 0), (128, 0), (32, 300), (128, 300)])
+def test_splat_bwd_at_its_edges(cuda_device, ms, pile):
     """The splat adjoint into NaN-filled blocks against its plain version at
-    (Ms, Mq) = (32, 32) and (128, 128): full query rows whose source
-    neighbours' query lists span more than one staged chunk of 256 entries,
+    source capacities 32 and 128, without and with a pile of 300 queries in
+    one cell: full source rows, query lists that span more than one staged
+    chunk of 256 entries (with the pile, a list of over 300 from one row),
     source rows with no query in reach, which read exactly 0, and row Cs."""
-    planes, qplanes, rnbr, vel, p, q = splat_edge_grids(ms, mq, cuda_device, seed=ms + mq + 1)
-    args = (rnbr, *planes, vel, *qplanes, p, q, 1.0)
-    scnt, qcnt = planes[0], qplanes[0]
+    args = splat_edge_args(ms, pile, cuda_device, seed=ms + pile + 1)
+    rnbr, scnt, qcnt = args[0], args[1], args[7]
     lists = qcnt[rnbr.long()].sum(1)
-    assert bool((qcnt == mq).any()) and int(lists.max()) > 256
+    assert bool((scnt == ms).any()) and int(lists.max()) > 256
+    assert int(qcnt.max()) > (256 if pile else 0)
     none = (lists == 0) & (scnt[:-1] > 0)
     assert bool(none.any()), "every source row has a query in reach"
     gx_p, gv_p = sc.splat_bwd_plain(*args)
     leave_nan_blocks(cuda_device, tuple(gx_p.shape), tuple(gv_p.shape))
     gx, gv = sc.splat_bwd_slots(*args)
-    slive = pc._live(scnt, planes[1].shape[1])[..., None].expand(-1, -1, 3)
+    slive = pc._live(scnt, args[2].shape[1])[..., None].expand(-1, -1, 3)
     _held(gx, gx_p, slive)
     _held(gv, gv_p, slive)
     assert not gx[:-1][none].any() and not gv[:-1][none].any()
     assert not gx[-1].any() and not gv[-1].any()
 
 
-@pytest.mark.parametrize("ms,mq", [(32, 32), (128, 128)])
-def test_splat_fwd_at_its_edges(cuda_device, ms, mq):
-    """The splat forward into NaN-filled blocks against its plain version at
-    (Ms, Mq) = (32, 32) and (128, 128): full source rows whose query
-    neighbours' source lists span more than one staged chunk of 256 entries,
-    query rows with no source in reach, which read exactly 0, and row Cq."""
-    qnbr, qplanes, planes, vel = splat_fwd_edge_grids(ms, mq, cuda_device, seed=ms + mq + 3)
-    args = (qnbr, *qplanes, *planes, vel, 1.0)
-    qcnt, scnt = qplanes[0], planes[0]
+@pytest.mark.parametrize("ms,pile", [(32, 0), (128, 0), (32, 300), (128, 300)])
+def test_splat_fwd_at_its_edges(cuda_device, ms, pile):
+    """The splat forward into a NaN-filled block against its plain version
+    at source capacities 32 and 128, without and with a pile of 300 queries
+    in one cell (a row of ten 32-query work items, the last ragged): full
+    source rows whose query rows' source lists span more than one staged
+    chunk of 256 entries, over 1 024 query rows (two tiles of the work items'
+    scan) with no source in reach, which read exactly 0, and entry Nq, which
+    reads 0."""
+    args = splat_fwd_edge_args(ms, pile, cuda_device, seed=ms + pile + 3)
+    qnbr, qstart, qcnt, scnt = args[0], args[1], args[2], args[6]
     lists = scnt[qnbr.long()].sum(1)
     assert bool((scnt == ms).any()) and int(lists.max()) > 256
-    none = (lists == 0) & (qcnt[:-1] > 0)
-    assert bool(none.any()), "every query row has a source in reach"
-    wv_p, ws_p = sc.splat_fwd_plain(*args)
-    leave_nan_blocks(cuda_device, tuple(wv_p.shape), tuple(ws_p.shape))
-    wv, ws = sc.splat_fwd_slots(*args)
-    qlive = pc._live(qcnt, qplanes[1].shape[1])
-    _held(ws, ws_p, qlive)
-    _held(wv, wv_p, qlive[..., None].expand(-1, -1, 3))
-    assert not wv[:-1][none].any() and not ws[:-1][none].any()
-    assert not wv[-1].any() and not ws[-1].any()
+    assert int(qcnt.max()) > (256 if pile else 0) and int((qcnt > 0).sum()) > 1024
+    nq = args[3].shape[0]
+    want = sc.splat_fwd_plain(*args)
+    leave_nan_blocks(cuda_device, tuple(want.shape))
+    got = sc.splat_fwd_slots(*args)
+    _held_fwd(got, want, qstart, qcnt)
+    none_rows = torch.nonzero((lists == 0) & (qcnt[:-1] > 0)).flatten()
+    assert len(none_rows), "every query row has a source in reach"
+    none = listed_mask(qstart, torch.where(
+        torch.isin(torch.arange(qcnt.numel(), device=qcnt.device), none_rows), qcnt, 0), nq)
+    assert not got[none].any() and not got[-1].any()
 
 
-@pytest.mark.parametrize("ms,mq", [(8, 32), (32, 8), (128, 64)])
-def test_splat_kernels_match_plain_on_the_card(cuda_device, ms, mq):
-    """Both splat kernels at unequal source and query capacities, with
-    queries outside the source box."""
-    rng = np.random.default_rng(ms + mq)
+@pytest.mark.parametrize("ms,pile", [(8, 0), (32, 40), (128, 200)])
+def test_splat_kernels_match_plain_on_the_card(cuda_device, ms, pile):
+    """Both splat kernels at source capacities 8, 32 and 128 with queries
+    outside the source box and piles of 0, 40 and 200 queries on one spot."""
+    rng = np.random.default_rng(ms + pile)
     dev = cuda_device
     src = torch.as_tensor(rng.uniform(0, 3, (1200, 3)).astype(np.float32), device=dev)
-    qry = rng.uniform(-0.5, 3.5, (900, 3)).astype(np.float32)
+    qry = rng.uniform(-0.5, 3.5, (900 + pile, 3)).astype(np.float32)
     qry[:30] -= 40.0
+    qry[900:] = 1.7
     qry = torch.as_tensor(qry, device=dev)
     alive = torch.as_tensor(rng.random(1200) > 0.1, device=dev)
-    q_alive = torch.as_tensor(rng.random(900) > 0.1, device=dev)
+    q_alive = torch.as_tensor(rng.random(900 + pile) > 0.1, device=dev)
     grid = build_dense_grid(src, 1.0, alive, 512, ms)
-    qgrid, rnbr = bin_queries(grid, 1.0, qry, q_alive, 512, mq)
-    planes, qplanes = pc.planes(grid), pc.planes(qgrid)
+    ql = sort_queries(grid, 1.0, qry, q_alive, 512)
+    planes = pc.planes(grid)
+    lst = (ql.start, ql.cnt, ql.x, ql.y, ql.z)
     vel = slot_gather(grid, torch.as_tensor(rng.normal(size=(1200, 3)).astype(np.float32),
                                             device=dev)).contiguous()
-    qlive, slive = qgrid.bmask, grid.bmask
-    wv, ws = sc.splat_fwd_slots(qgrid.nbr, *qplanes, *planes, vel, 1.0)
-    wv_p, ws_p = sc.splat_fwd_plain(qgrid.nbr, *qplanes, *planes, vel, 1.0)
-    _held(ws, ws_p, qlive)
-    _held(wv, wv_p, qlive[..., None].expand(-1, -1, 3))
-    p = torch.where(qlive[..., None], torch.as_tensor(
-        rng.normal(size=qlive.shape + (3,)).astype(np.float32), device=dev), 0.0).contiguous()
-    q = torch.where(qlive, torch.as_tensor(rng.normal(size=qlive.shape).astype(np.float32),
-                                           device=dev), 0.0).contiguous()
-    gx, gv = sc.splat_bwd_slots(rnbr, *planes, vel, *qplanes, p, q, 1.0)
-    gx_p, gv_p = sc.splat_bwd_plain(rnbr, *planes, vel, *qplanes, p, q, 1.0)
+    slive = grid.bmask
+    _held_fwd(sc.splat_fwd_slots(ql.nbr, *lst, *planes, vel, 1.0),
+              sc.splat_fwd_plain(ql.nbr, *lst, *planes, vel, 1.0), ql.start, ql.cnt)
+    p = torch.as_tensor(rng.normal(size=(900 + pile, 3)).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.normal(size=900 + pile).astype(np.float32), device=dev)
+    gx, gv = sc.splat_bwd_slots(ql.rnbr, *planes, vel, *lst, p, q, 1.0)
+    gx_p, gv_p = sc.splat_bwd_plain(ql.rnbr, *planes, vel, *lst, p, q, 1.0)
     _held(gx, gx_p, slive[..., None].expand(-1, -1, 3))
     _held(gv, gv_p, slive[..., None].expand(-1, -1, 3))
 

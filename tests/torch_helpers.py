@@ -358,69 +358,85 @@ def plain_row_partials(nbr, cnt, x, y, z, lam, k, gathered=None):
     return part
 
 
-def splat_edge_grids(ms, mq, device, seed):
-    """A source and a query grid for the splat adjoint's edge cases, at
-    capacities ``ms`` and ``mq`` (32 or 128): sources in a box with full rows
-    (``ISOLATED_GRIDS``), and 60 more in a cluster 4-5.5 units past it with
-    no query cell among their 27 neighbours; queries packed into the same box
-    (1 200 in 3 units at 32, 1 800 in 2 at 128) so query rows are full and a
-    source row's list of queries spans more than one staged chunk. About 10 %
-    of either set is dead. Returns (planes, qplanes, rnbr, vel, p, q): the
-    ``pbf_cuda.planes`` of each grid, ``bin_queries``' source-to-query table,
-    the sources' velocities and the per-query planes p (3) and q, 0 at dead
-    slots."""
-    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid, slot_gather
-    from fluidnexus_torch.sim import pbf_cuda as pc
+SPLAT_QUERIES = {32: (1200, 3.0), 128: (1800, 2.0)}  # source capacity: queries, their box
+
+
+def _splat_sets(ms, pile, device, seed, far_sources):
+    """The seeded sets of ``splat_edge_args``: sources in a box with full
+    rows at capacity ``ms`` (``ISOLATED_GRIDS``); queries packed into the
+    same box (``SPLAT_QUERIES``), ``pile`` more within 0.1 of (0.5, 0.5, 0.5),
+    one cell of h = 1; and, with none of the other set among their 27
+    neighbour cells, 60 more sources 4-5.5 units past the box
+    (``far_sources``) or a sheet of 36 x 36 queries one to a cell 4.5 units
+    above it (so the query list has over 1 024 occupied rows, past one tile
+    of the forward's chunk scan). The query list takes 2 048 rows. About 10 %
+    of either set is dead, none of the pile. Returns (grid, query list, the
+    source velocities, rng)."""
+    from fluidnexus_torch.ops.neighbors import build_dense_grid, slot_gather, sort_queries
 
     n, box = ISOLATED_GRIDS[ms]
-    nq, qbox = {32: (1200, 3.0), 128: (1800, 2.0)}[mq]
-    rng = np.random.default_rng(seed)
-    src = np.concatenate([rng.uniform(0, box, (n, 3)), rng.uniform(box + 4, box + 5.5, (60, 3))])
-    qry = rng.uniform(0, min(box, qbox), (nq, 3))
-    alive = rng.random(len(src)) > 0.1
-    q_alive = rng.random(nq) > 0.1
-
-    def t(a):
-        return torch.as_tensor(a.astype(np.float32) if a.dtype == np.float64 else a, device=device)
-
-    grid = build_dense_grid(t(src), 1.0, t(alive), 512, ms)
-    qgrid, rnbr = bin_queries(grid, 1.0, t(qry), t(q_alive), 512, mq)
-    vel = slot_gather(grid, t(rng.normal(size=(len(src), 3)))).contiguous()
-    qlive = qgrid.bmask
-    p = torch.where(qlive[..., None], t(rng.normal(size=tuple(qlive.shape) + (3,))), 0.0)
-    q = torch.where(qlive, t(rng.normal(size=tuple(qlive.shape))), 0.0)
-    return pc.planes(grid), pc.planes(qgrid), rnbr, vel, p.contiguous(), q.contiguous()
-
-
-def splat_fwd_edge_grids(ms, mq, device, seed):
-    """A source and a query grid for the splat forward's edge cases, at
-    capacities ``ms`` and ``mq`` (32 or 128): sources in a box with full rows
-    (``ISOLATED_GRIDS``), so a query row's list of sources spans more than
-    one staged chunk; queries packed into the same box (1 200 in 3 units at
-    32, 1 800 in 2 at 128, so query rows are full) and 60 more in a cluster
-    4-5.5 units past it with no source cell among their 27 neighbours. About
-    10 % of either set is dead. Returns (qnbr, qplanes, planes, vel): the
-    query-to-source table, the ``pbf_cuda.planes`` of each grid and the
-    sources' velocities."""
-    from fluidnexus_torch.ops.neighbors import bin_queries, build_dense_grid, slot_gather
-    from fluidnexus_torch.sim import pbf_cuda as pc
-
-    n, box = ISOLATED_GRIDS[ms]
-    nq, qbox = {32: (1200, 3.0), 128: (1800, 2.0)}[mq]
+    nq, qbox = SPLAT_QUERIES[ms]
     rng = np.random.default_rng(seed)
     src = rng.uniform(0, box, (n, 3))
     qry = np.concatenate([rng.uniform(0, min(box, qbox), (nq, 3)),
-                          rng.uniform(box + 4, box + 5.5, (60, 3))])
-    alive = rng.random(n) > 0.1
+                          0.5 + rng.uniform(-0.1, 0.1, (pile, 3))])
+    if far_sources:
+        src = np.concatenate([src, rng.uniform(box + 4, box + 5.5, (60, 3))])
+    else:
+        i, k = np.meshgrid(np.arange(36) + 0.5, np.arange(36) + 0.5)
+        qry = np.concatenate([qry, np.stack([i.ravel(), np.full(i.size, box + 4.5), k.ravel()],
+                                            -1)])
+    alive = rng.random(len(src)) > 0.1
     q_alive = rng.random(len(qry)) > 0.1
+    q_alive[nq:nq + pile] = True
 
     def t(a):
         return torch.as_tensor(a.astype(np.float32) if a.dtype == np.float64 else a, device=device)
 
     grid = build_dense_grid(t(src), 1.0, t(alive), 512, ms)
-    qgrid, _ = bin_queries(grid, 1.0, t(qry), t(q_alive), 512, mq)
-    vel = slot_gather(grid, t(rng.normal(size=(n, 3)))).contiguous()
-    return qgrid.nbr, pc.planes(qgrid), pc.planes(grid), vel
+    ql = sort_queries(grid, 1.0, t(qry), t(q_alive), 2048)
+    vel = slot_gather(grid, t(rng.normal(size=(len(src), 3)))).contiguous()
+    return grid, ql, vel, rng
+
+
+def splat_edge_args(ms, pile, device, seed):
+    """The splat adjoint's arguments for its edge cases, at source capacity
+    ``ms`` (32 or 128) with a pile of ``pile`` queries in one cell
+    (``_splat_sets``, the far cluster of sources): full source rows, source
+    rows with no query in reach, query lists that span more than one staged
+    chunk, and with a pile of 300 a source row's list of over 300 entries.
+    Returns (rnbr, scnt, xs, ys, zs, vel, qstart, qcnt, xq, yq, zq, p, q, h),
+    p (Nq, 3) and q (Nq,) seeded per list entry."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    grid, ql, vel, rng = _splat_sets(ms, pile, device, seed, far_sources=True)
+    nq = ql.x.shape[0]
+    p = torch.as_tensor(rng.normal(size=(nq, 3)).astype(np.float32), device=device)
+    q = torch.as_tensor(rng.normal(size=nq).astype(np.float32), device=device)
+    return (ql.rnbr, *pc.planes(grid), vel, ql.start, ql.cnt, ql.x, ql.y, ql.z, p, q, 1.0)
+
+
+def splat_fwd_edge_args(ms, pile, device, seed):
+    """The splat forward's arguments for its edge cases, at source capacity
+    ``ms`` (32 or 128) with a pile of ``pile`` queries in one cell
+    (``_splat_sets``, the sheet of queries): full source rows, so a query
+    row's list of sources spans more than one staged chunk, over 1 024 query
+    rows with no source in reach, and with a pile of 300 a query row of ten
+    32-query chunks. Returns (qnbr, qstart, qcnt, xq, yq, zq, scnt, xs, ys,
+    zs, vel, h)."""
+    from fluidnexus_torch.sim import pbf_cuda as pc
+
+    grid, ql, vel, _ = _splat_sets(ms, pile, device, seed, far_sources=False)
+    return (ql.nbr, ql.start, ql.cnt, ql.x, ql.y, ql.z, *pc.planes(grid), vel, 1.0)
+
+
+def listed_mask(qstart, qcnt, nq):
+    """(Nq+1,) bool: the list entries that lie in a query row."""
+    from fluidnexus_torch.sim.splat_cuda import listed_entries
+
+    mask = torch.zeros(nq + 1, dtype=torch.bool, device=qcnt.device)
+    mask[listed_entries(qstart, qcnt, torch.arange(qcnt.numel() - 1, device=qcnt.device))[0]] = True
+    return mask
 
 
 # ------------------- the reference's torch checkpoint layouts -------------------
